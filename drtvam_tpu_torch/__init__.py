@@ -1,0 +1,35 @@
+"""drtvam_tpu_torch — the PyTorch and CUDA port of drtvam_tpu.
+
+Differentiable tomographic rendering for volumetric additive
+manufacturing (TVAM) pattern optimization on an NVIDIA GPU. The JAX
+package `drtvam_tpu` is the reference; every module here has its
+counterpart at the same path there and is tested against it.
+
+This slice covers the ballistic pattern optimization end to end:
+collimated projector, analytic vial, pure absorption, dda estimator,
+Linear L-BFGS. The four backprojection kernels are hand-written CUDA
+(`csrc/`), built with nvcc at first use.
+
+Layer map:
+  core/     — transform math
+  models/   — vials, projector, motion, sensor, scene assembly
+  ops/      — mesh I/O, voxelization, 2D transport fields, the
+              backprojection kernels and the ballistic engine
+  opt/      — losses, Linear L-BFGS, the optimize() driver and CLI
+  utils/    — EXR/PNG I/O, IoU and histogram metrics
+  native.py — g++/nvcc build-on-first-use and ctypes loading
+
+The package imports torch and numpy, never jax and never drtvam_tpu.
+"""
+
+__version__ = "0.1.0"
+
+from .models.geometry import geometries, register_geometry
+from .models.motion import motions, register_motion
+from .opt.loss import losses, register_loss
+
+__all__ = [
+    "geometries", "register_geometry",
+    "motions", "register_motion",
+    "losses", "register_loss",
+]

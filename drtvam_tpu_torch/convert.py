@@ -1,0 +1,59 @@
+"""State carried across from the JAX package, so both packages can be fed
+identical inputs.
+
+The functions read dataclass fields and numpy arrays only: they take
+what the JAX package produced (converted to numpy by the caller, e.g.
+with np.asarray) and never import jax or drtvam_tpu.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .models.projector import ProjectorStatic
+from .models.sensor import SensorStatic
+from .ops.march import MarchStatic, SurfaceStatic
+
+
+def _fields(obj, cls, **override):
+    kw = {f.name: getattr(obj, f.name) for f in dataclasses.fields(cls)}
+    kw.update(override)
+    return cls(**kw)
+
+
+def scene_from_jax(static, arr):
+    """The JAX package's (MarchStatic, arr) -> the port's.
+
+    static: a drtvam_tpu MarchStatic; arr: its dict of arrays (numpy or
+    anything np.asarray accepts). Mesh-grid acceleration structures have
+    no counterpart yet and raise."""
+    surfaces = []
+    for s in static.surfaces:
+        if s.grid is not None:
+            raise NotImplementedError(
+                "mesh-grid surfaces are not ported yet — ROADMAP queue 1 "
+                "item 17")
+        surfaces.append(_fields(s, SurfaceStatic,
+                                tri_slice=tuple(s.tri_slice)))
+    port = _fields(static, MarchStatic, surfaces=tuple(surfaces),
+                   projector=_fields(static.projector, ProjectorStatic),
+                   sensor=_fields(static.sensor, SensorStatic,
+                                  res=tuple(static.sensor.res)))
+    return port, {k: np.asarray(v) for k, v in arr.items()}
+
+
+def lbfgs_state_from_numpy(state, device="cpu"):
+    """A fused_linear_lbfgs loop state (its dict, values as numpy) ->
+    the state linear_lbfgs resumes from, on `device`."""
+    def vec(k):
+        return torch.as_tensor(np.array(state[k], np.float32),
+                               device=device).contiguous()
+
+    return dict(
+        i=int(state["i"]), done=bool(state["done"]),
+        p=vec("p"), p_old=vec("p_old"), g_old=vec("g_old"),
+        S=vec("S"), Yh=vec("Yh"), ys=vec("ys"),
+        head=int(state["head"]), nvalid=int(state["nvalid"]),
+        loss_hist=vec("loss_hist"))

@@ -1,0 +1,55 @@
+// Shared pieces of the four ballistic backprojection kernels.
+//
+// Forward:  dose(Zf, YX)    = sum_a Pz_a(Zf, U) @ B_a(U, YX)
+// Adjoint:  Pzbar_a(Zf, U)  = dL(Zf, YX) @ B_a^T
+// B_a[i, j] = W_aj * max(0, 1 - |u_aj - i|) has two nonzeros per column
+// j: the linear-interpolation taps at i0 = floor(u_aj) and i0 + 1. On
+// the TPU B is built densely in VMEM and contracted on the MXU, because
+// gathers are slow there; here each kernel applies the two taps
+// directly, reading its operand from shared memory.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace bp {
+
+constexpr int THREADS = 256;
+// banded layout: the dose is tiled into BY x BX blocks; each
+// (angle, block) touches only the BANDW DMD columns from its band start
+constexpr int BY = 32, BX = 64, TILE_B = BY * BX, BANDW = 256;
+
+struct Taps {
+  int c0, c1;    // tap columns relative to the column base
+  float w0, w1;  // tap weights, 0 for a tap outside [base, base + n)
+};
+
+// The two taps of one field cell (W, u). A tap is kept only if its
+// column i lies in [base, base + n); a dropped tap gets weight 0 and
+// relative column 0, so it contributes exactly nothing. Empty cells and
+// padding carry W = 0 and u = -2: both taps fall outside any range.
+__device__ __forceinline__ Taps make_taps(float W, float u, int base,
+                                          int n) {
+  const float fl = floorf(u);
+  const int i0 = (int)fl - base;
+  const float f = u - fl;
+  const bool ok0 = i0 >= 0 && i0 < n;
+  const bool ok1 = i0 + 1 >= 0 && i0 + 1 < n;
+  Taps t;
+  t.c0 = ok0 ? i0 : 0;
+  t.w0 = ok0 ? W * (1.0f - f) : 0.0f;
+  t.c1 = ok1 ? i0 + 1 : 0;
+  t.w1 = ok1 ? W * f : 0.0f;
+  return t;
+}
+
+// z-rows per block for the dense kernels, whose shared slab holds all
+// U columns: the largest of 32, 16, 8 whose slab fits in 200 KB; 0 if
+// none does.
+inline int dense_z_chunk(int U) {
+  const long cap = 200L * 1024;
+  for (int zc = 32; zc >= 8; zc /= 2)
+    if ((long)zc * U * (long)sizeof(float) <= cap) return zc;
+  return 0;
+}
+
+}  // namespace bp

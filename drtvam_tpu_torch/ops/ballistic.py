@@ -1,0 +1,163 @@
+"""Ballistic engine: transport-field precompute + backprojection, with
+the exact adjoint for pattern gradients (counterpart of
+drtvam_tpu/ops/ballistic.py).
+
+For a collimated projector orbiting a z-invariant vial the dose factors
+into per-angle 2D transport fields (ops/transport2d.py) and a
+z-resample of each pattern's rows onto the film's z-rows. The engine
+builds the fields once (host C++), packs them once on its device and
+then renders with the backprojection kernels (ops/backproject.py).
+
+Kernel choice, made once per engine from what it can observe: on a CUDA
+device the banded pair (`cuda_band`) when the film tiles into 32x64
+blocks and every block's u-span fits the band, else the dense pair
+(`cuda`); on the CPU the plain versions (`plain`). Fields stay float32.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .backproject import PackedFields, backproject, banded_eligible, \
+    band_span_ok
+from .march import MarchStatic
+from .transport2d import build_transport, build_z_resample, \
+    ballistic_eligible, strip_target
+
+__all__ = ["BallisticEngine", "ballistic_eligible"]
+
+
+class BallisticEngine:
+    """Per-(scene, sensor) engine on one device. Construction rasterizes
+    the 2D ray fan (host, once); `render_vol` and `pattern_grad` are
+    functions of the sparse pattern vector on that device."""
+
+    _MAX_TAPS = 4
+
+    def __init__(self, static: MarchStatic, arr, device):
+        if not ballistic_eligible(static):
+            raise ValueError("scene not ballistic-eligible")
+        if static.sensor.channels != 1:
+            raise NotImplementedError(
+                "surface-aware films are not ported yet — ROADMAP queue 1 "
+                "item 14")
+        self.static = static
+        self.device = torch.device(device)
+        p = static.projector
+        self.shape_dense = (p.n_patterns, p.resy, p.resx)
+        U = p.resx
+
+        static2, arr2 = strip_target(static, arr)
+        Wn, UWn = build_transport(static2, arr2)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            Un = np.where(Wn > 0, UWn / np.maximum(Wn, 1e-30),
+                          np.float32(-2.0)).astype(np.float32)
+        # host copies for the tests and the band check; the device holds
+        # one packed copy
+        self.W_host, self.U_host = Wn, Un
+        banded = False
+        if self.device.type == "cuda":
+            banded = banded_eligible(Wn.shape, U) and band_span_ok(
+                torch.from_numpy(Wn), torch.from_numpy(Un), U)
+            self.impl = "cuda_band" if banded else "cuda"
+        else:
+            self.impl = "plain"
+        self.fields = PackedFields(torch.from_numpy(Wn).to(self.device),
+                                   torch.from_numpy(Un).to(self.device),
+                                   U, banded)
+
+        self._build_z_taps(build_z_resample(static, arr))
+        ps = np.asarray(arr["pixel_size"])
+        # ray weight pixel_area * print_time (spp = 1); 1/voxel_volume is
+        # applied by the caller through inv_vol
+        self.scalar = float(np.float32(float(ps[0]) * float(ps[1]) *
+                                       float(np.asarray(arr["print_time"]))))
+        ap = np.asarray(arr["active_pixels"])
+        n_dense = int(np.prod(self.shape_dense))
+        self.identity_pixels = bool(ap.shape[0] == n_dense and ap[0] == 0 and
+                                    np.all(np.diff(ap) == 1))
+        self.n_active = int(ap.shape[0])
+        self.active_pixels = None if self.identity_pixels else \
+            torch.from_numpy(ap.astype(np.int64)).to(self.device)
+
+    # -- z-resample as K-tap gathers ---------------------------------------
+
+    def _build_z_taps(self, Szn):
+        """Fixed-K tap tables of the (Zf, resy) binning matrix, both
+        directions. It has <= ~3 nonzeros per row and per column, so K
+        weighted gathers replace a dense contraction; a matrix with more
+        taps (DMD rows much finer than the film) is contracted densely."""
+        Z, R = Szn.shape
+        K = self._MAX_TAPS
+        dev = self.device
+        if (np.count_nonzero(Szn, axis=1).max() > K or
+                np.count_nonzero(Szn, axis=0).max() > K):
+            self.z_taps = None
+            self.Sz = torch.from_numpy(Szn).to(dev)
+            return
+        zt_i = np.zeros((Z, K), np.int64)
+        zt_w = np.zeros((Z, K), np.float32)
+        for z in range(Z):
+            nz = np.nonzero(Szn[z])[0]
+            zt_i[z, :nz.size] = nz
+            zt_w[z, :nz.size] = Szn[z, nz]
+        rt_i = np.zeros((R, K), np.int64)
+        rt_w = np.zeros((R, K), np.float32)
+        for r in range(R):
+            nz = np.nonzero(Szn[:, r])[0]
+            rt_i[r, :nz.size] = nz
+            rt_w[r, :nz.size] = Szn[nz, r]
+        self.z_taps = tuple(torch.from_numpy(t).to(dev)
+                            for t in (zt_i, zt_w, rt_i, rt_w))
+
+    def _resample_fwd(self, P):
+        """(A, resy, U) patterns -> (A, Zf, U)."""
+        if self.z_taps is None:
+            return torch.einsum("zr,aru->azu", self.Sz, P)
+        return self._tap_contract(P, self.z_taps[0], self.z_taps[1])
+
+    def _resample_bwd(self, Pz_bar):
+        """(A, Zf, U) -> (A, resy, U), the transpose of _resample_fwd."""
+        if self.z_taps is None:
+            return torch.einsum("zr,azu->aru", self.Sz, Pz_bar)
+        return self._tap_contract(Pz_bar, self.z_taps[2], self.z_taps[3])
+
+    @staticmethod
+    def _tap_contract(x, idx, w):
+        """sum_k w[:, k] * x[:, idx[:, k], :] along the middle axis."""
+        out = None
+        for k in range(idx.shape[1]):
+            term = x.index_select(1, idx[:, k]) * w[None, :, k, None]
+            out = term if out is None else out + term
+        return out
+
+    # -- differentiable forward -------------------------------------------
+
+    def dense_patterns(self, active_data):
+        """Sparse pattern vector -> dense (n, resy, resx) stack."""
+        n, ry, rx = self.shape_dense
+        if self.identity_pixels:
+            return active_data.reshape(n, ry, rx)
+        flat = torch.zeros((n * ry * rx,), dtype=torch.float32,
+                           device=active_data.device)
+        flat = flat.index_put((self.active_pixels,), active_data)
+        return flat.reshape(n, ry, rx)
+
+    def render_vol(self, active_data, inv_vol):
+        """(Z, Y, X, 1) dose volume; differentiable w.r.t. active_data
+        (the backward runs the adjoint kernel)."""
+        Pz = self._resample_fwd(self.dense_patterns(active_data))
+        dose = backproject(Pz, self.fields)
+        X, Y, Z = self.static.sensor.res
+        return (dose.reshape(Z, Y, X) * self.scalar)[..., None] * inv_vol
+
+    # -- explicit adjoint ----------------------------------------------------
+
+    def pattern_grad(self, dvol, inv_vol):
+        """d loss / d active_data given d loss / d vol (Z, Y, X, 1)."""
+        X, Y, Z = self.static.sensor.res
+        dL = ((dvol * inv_vol)[..., 0] * self.scalar).reshape(Z, Y * X)
+        Pbar = self._resample_bwd(self.fields.adjoint(dL)).reshape(-1)
+        if self.identity_pixels:
+            return Pbar
+        return Pbar[self.active_pixels]

@@ -1,0 +1,184 @@
+"""Linear L-BFGS with its vectors on the device (counterpart of
+drtvam_tpu/opt/device_lbfgs.py).
+
+The dose is linear in the patterns, so a search direction z is rendered
+once (dvol = render(z)) and every Armijo trial is a loss evaluation of
+vol + alpha * dvol, with no further render.
+
+Semantics of the JAX package's fused_linear_lbfgs:
+  * history acceptance: ys > 1e-10 * max(|y| |s|, 1e-30), finite;
+  * gamma scaling from the newest pair; m = 5 by default;
+  * Armijo c1 = 1e-4, alpha halving, `search_it` trials; the alpha after
+    a failed last trial is still halved;
+  * the sparsity term of the loss is evaluated on the SEARCH DIRECTION
+    during the line search (reference quirk);
+  * patterns clamped >= 0 after the step;
+  * the loop breaks once the loss is exactly 0.
+
+Every vector stays on the device; the history rows are updated in
+place. The host reads a few scalars per iteration: the stop test, the
+history acceptance and each Armijo trial. Dot products and norms are
+float32, as in JAX.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def lbfgs_direction(g, S, Yh, ys, head, nvalid):
+    """Two-loop recursion over the circular (m, n) history buffers.
+    Slot k (0 = newest) lives at (head - 1 - k) mod m; only the nvalid
+    newest slots take part."""
+    m = S.shape[0]
+    q = g
+    alphas = []
+    for k in range(nvalid):
+        slot = (head - 1 - k) % m
+        a = torch.dot(S[slot], q) / ys[slot]
+        q = q - a * Yh[slot]
+        alphas.append(a)
+    if nvalid > 0:
+        newest = (head - 1) % m
+        y_new = Yh[newest]
+        gamma = ys[newest] / torch.clamp(torch.dot(y_new, y_new),
+                                         min=1e-30)
+        z = gamma * q
+    else:
+        z = q
+    for k in range(nvalid - 1, -1, -1):
+        slot = (head - 1 - k) % m
+        b = torch.dot(Yh[slot], z) / ys[slot]
+        z = z + (alphas[k] - b) * S[slot]
+    return -z
+
+
+def armijo_search(cand_fn, vol, dvol, z, loss, g_dot_z, search_it=20,
+                  c1=1e-4):
+    """Armijo halving search. cand_fn(vol, dvol, alpha, z) -> candidate
+    loss. Returns alpha (a power of two)."""
+    alpha = 1.0
+    for _ in range(search_it):
+        f_new = cand_fn(vol, dvol, alpha, z)
+        if bool(f_new <= loss + c1 * alpha * g_dot_z):
+            break
+        alpha *= 0.5
+    return alpha
+
+
+def new_history(p0, m):
+    n = p0.shape[0]
+    zeros = dict(dtype=torch.float32, device=p0.device)
+    return dict(p_old=torch.zeros((n,), **zeros),
+                g_old=torch.zeros((n,), **zeros),
+                S=torch.zeros((m, n), **zeros),
+                Yh=torch.zeros((m, n), **zeros),
+                ys=torch.ones((m,), **zeros),
+                head=0, nvalid=0)
+
+
+def history_step(st, p, g, first):
+    """Insert the pair (p - p_old, g - g_old) if it passes the curvature
+    test (never on the first step), then return the direction z."""
+    m = st["S"].shape[0]
+    sv = p - st["p_old"]
+    yv = g - st["g_old"]
+    ysv = torch.dot(yv, sv)
+    norm = torch.linalg.vector_norm(yv) * torch.linalg.vector_norm(sv)
+    accept = not first and bool(
+        torch.isfinite(ysv) & (ysv > 1e-10 * torch.clamp(norm, min=1e-30)))
+    if accept:
+        h = st["head"]
+        st["S"][h] = sv
+        st["Yh"][h] = yv
+        st["ys"][h] = ysv
+        st["head"] = (h + 1) % m
+        st["nvalid"] = min(st["nvalid"] + 1, m)
+    st["p_old"], st["g_old"] = p, g
+    return lbfgs_direction(g, st["S"], st["Yh"], st["ys"], st["head"],
+                           st["nvalid"])
+
+
+def _update(p, alpha, z, clamp):
+    p_new = p + alpha * z
+    return torch.clamp(p_new, min=0.0) if clamp else p_new
+
+
+def linear_lbfgs(value_grad_fn, dir_fn, cand_fn, p0, n_steps, m=5,
+                 search_it=20, c1=1e-4, clamp=True, state=None,
+                 stop_i=None, return_state=False):
+    """Run the Linear-L-BFGS loop.
+
+    value_grad_fn: p -> (vol, loss, grad); dir_fn: z -> dvol;
+    cand_fn: (vol, dvol, alpha, z) -> loss of vol + alpha * dvol with
+    the sparsity term on z. Returns (p, loss_hist, n_done), and the
+    loop state with return_state=True; passing that state back resumes
+    where the last call stopped, and stop_i caps a call at that
+    iteration."""
+    if state is None:
+        state = dict(new_history(p0, m), i=0, done=False,
+                     p=p0.to(torch.float32),
+                     loss_hist=torch.zeros((n_steps,), dtype=torch.float32,
+                                           device=p0.device))
+    else:
+        if state["S"].shape[0] != m:
+            raise ValueError(f"resumed state has history size "
+                             f"{state['S'].shape[0]}, expected m = {m}")
+        if state["loss_hist"].shape[0] != n_steps:
+            raise ValueError(f"resumed state was made for "
+                             f"{state['loss_hist'].shape[0]} steps, "
+                             f"expected n_steps = {n_steps}")
+        state = dict(state)
+    stop = n_steps if stop_i is None else min(int(stop_i), n_steps)
+
+    while state["i"] < stop and not state["done"]:
+        i, p = state["i"], state["p"]
+        vol, loss, g = value_grad_fn(p)
+        state["loss_hist"][i] = loss
+        done = bool(loss == 0.0)
+        z = history_step(state, p, g, first=i == 0)
+        dvol = dir_fn(z)
+        g_dot_z = torch.dot(g, z)
+        alpha = armijo_search(cand_fn, vol, dvol, z, loss, g_dot_z,
+                              search_it, c1)
+        if not done:
+            state["p"] = _update(p, alpha, z, clamp)
+        state["i"], state["done"] = i + 1, done
+
+    if return_state:
+        return state["p"], state["loss_hist"], state["i"], state
+    return state["p"], state["loss_hist"], state["i"]
+
+
+class DeviceLinearLBFGS:
+    """Host-steppable Linear L-BFGS holding the history on the device,
+    for drivers that need per-iteration control (timing artifacts)."""
+
+    def __init__(self, dir_fn, cand_fn, m=5, search_it=20, c1=1e-4,
+                 clamp=True):
+        """dir_fn(z, *step_args) -> dvol; cand_fn(vol, dvol, alpha, z,
+        *step_args) -> loss."""
+        self.m = m
+        self.search_it = search_it
+        self.c1 = c1
+        self.clamp = clamp
+        self._dir_fn = dir_fn
+        self._cand_fn = cand_fn
+        self._state = None
+        self.last_alpha = None
+
+    def step(self, p, g, vol, loss, step_args=()):
+        """Returns the updated (clamped) patterns."""
+        if self._state is None or self._state["p_old"].shape != p.shape:
+            self._state = dict(new_history(p, self.m), t=0)
+        st = self._state
+        z = history_step(st, p, g, first=st["t"] == 0)
+        st["t"] += 1
+        dvol = self._dir_fn(z, *step_args)
+
+        def cand(vol, dvol, alpha, zz):
+            return self._cand_fn(vol, dvol, alpha, zz, *step_args)
+
+        alpha = armijo_search(cand, vol, dvol, z, loss, torch.dot(g, z),
+                              self.search_it, self.c1)
+        self.last_alpha = alpha
+        return _update(p, alpha, z, self.clamp)

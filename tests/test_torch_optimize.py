@@ -1,0 +1,104 @@
+"""Both CLIs on a shrunk copy of the verify recipe's config (40x40x20
+film, 3 steps): the same artifact set, final.npy to rtol 1e-3 and the
+same best IoU to 1e-3. Options the port does not run yet raise
+NotImplementedError."""
+import json
+import os
+
+import numpy as np
+import pytest
+
+from drtvam_tpu.opt.optimize import main as jmain
+from drtvam_tpu_torch.ops.mesh import make_box_with_hole, save_ply
+from drtvam_tpu_torch.opt.optimize import main as tmain
+from drtvam_tpu_torch.utils.metrics import best_iou
+
+
+def _config(work, out):
+    return {
+        "vial": {"type": "cylindrical", "r_int": 7, "r_ext": 8, "ior": 1.54,
+                 "medium": {"ior": 1.40, "phase": {"type": "rayleigh"},
+                            "extinction": 0.1, "albedo": 0.0}},
+        "projector": {"type": "collimated", "n_patterns": 30, "resx": 48,
+                      "resy": 12, "pixel_size": 0.104,
+                      "motion": "circular", "distance": 20},
+        "sensor": {"type": "dda", "scalex": 5, "scaley": 5, "scalez": 1.25,
+                   "film": {"type": "vfilm", "resx": 40, "resy": 40,
+                            "resz": 20}},
+        "target": {"filename": "box_hole.ply", "size": 4.0},
+        "loss": {"type": "threshold", "tl": 0.85, "tu": 0.95},
+        "n_steps": 3, "output": str(work / out)}
+
+
+def _write(work, cfg, name):
+    path = work / name
+    path.write_text(json.dumps(cfg))
+    return str(path)
+
+
+@pytest.fixture
+def work(tmp_path):
+    save_ply(make_box_with_hole((2.0, 2.0, 0.5), 1.0,
+                                hole_center_xy=(-1.0, 0.0)),
+             str(tmp_path / "box_hole.ply"))
+    return tmp_path
+
+
+def _files(root):
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, fs in os.walk(root) for f in fs)
+
+
+def test_clis_agree(work):
+    jmain([_write(work, _config(work, "jax"), "jax.json"),
+           "--backend", "cpu"])
+    tmain([_write(work, _config(work, "torch"), "torch.json"),
+           "--device", "cpu"])
+    j, t = work / "jax", work / "torch"
+    assert _files(t) == _files(j)
+    fj, ft = np.load(j / "final.npy"), np.load(t / "final.npy")
+    assert ft.shape == fj.shape == (20, 40, 40, 1)
+    np.testing.assert_allclose(ft, fj, rtol=1e-3, atol=1e-3 * fj.max())
+    np.testing.assert_array_equal(np.load(t / "target.npy"),
+                                  np.load(j / "target.npy"))
+    np.testing.assert_allclose(np.load(t / "loss.npy"),
+                               np.load(j / "loss.npy"), rtol=1e-3)
+    iou_j = best_iou(fj, np.load(j / "target.npy"))[0]
+    iou_t = best_iou(ft, np.load(t / "target.npy"))[0]
+    assert abs(iou_t - iou_j) <= 1e-3
+    assert json.loads((t / "opt_config.json").read_text())["n_steps"] == 3
+
+
+def test_overrides_reach_the_config(work):
+    cfg = _config(work, "ovr")
+    tmain([_write(work, cfg, "ovr.json"), "--device", "cpu",
+           "-D", "n_steps=2", "-D", "loss.tl=0.8"])
+    saved = json.loads((work / "ovr" / "opt_config.json").read_text())
+    assert saved["n_steps"] == 2 and saved["loss"]["tl"] == 0.8
+    assert np.load(work / "ovr" / "loss.npy").shape == (2,)
+
+
+@pytest.mark.parametrize("change", [
+    {"vial.medium.albedo": 0.5},
+    {"projector.type": "telecentric"},
+    {"optimizer": {"type": "adam"}},
+    {"filter_radon": True},
+    {"progressive": True},
+    {"engine": "wavefront"},
+])
+def test_unported_options_raise(work, change):
+    cfg = _config(work, "np")
+    for key, value in change.items():
+        *head, last = key.split(".")
+        node = cfg
+        for k in head:
+            node = node[k]
+        node[last] = value
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tmain([_write(work, cfg, "np.json"), "--device", "cpu"])
+
+
+def test_forward_mode_raises(work):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tmain([_write(work, _config(work, "fw"), "fw.json"), "--device",
+               "cpu", "--forward_mode", "--patterns", "p.npz"])
