@@ -9,9 +9,15 @@ Phases (each failure exits non-zero before the result line):
   2. build: nvcc builds the four backprojection kernels from csrc/.
   3. kernels: each kernel against its plain PyTorch version on the card
      at the bench shapes (A = 400, Zf = 256, U = 400, 256x256 film,
-     random fields with the banded u-geometry), with CUDA-event times;
-     then the ballistic engine on the card against the same engine on
-     the CPU on two small scenes (dense and banded layout).
+     random fields with the banded u-geometry), with CUDA-event times,
+     the bound (float32 FMA peak or HBM rate, whichever is larger, for
+     the taps the fields have) and the time of one cuSPARSE SpMM
+     (torch.sparse.mm) computing the same function (library_ms; the
+     port never calls it). The dense pair must give bitwise equal
+     results on two launches. Then the dense pair on the bench scene's
+     real cylindrical fields (an engine built on the card), and the
+     ballistic engine on the card against the same engine on the CPU on
+     two small scenes (dense and banded layout).
   4. main path: optimize() on the bench scene (400 angles, 400x400 DMD,
      256^3 film, cylindrical vial, 40 Linear-L-BFGS steps); the best
      IoU over 301 thresholds must reach 0.98. Refraction at the vial
@@ -35,14 +41,21 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 
-# kernel vs plain version: f32 sums in another order (forward: FMA
-# contraction; adjoints: atomics in a run-dependent order), so each
-# kernel must agree to this fraction of the plain result's max |value|
+# kernel vs plain version: f32 sums in another order (FMA contraction;
+# the banded adjoint: atomics in a run-dependent order), so each kernel
+# must agree to this fraction of the plain result's max |value|
 REL_TOL = 1e-5
 IOU_GATE = 0.98
+# the redesigned dense pair has no atomics: two launches agree bitwise
+BITWISE = ("bp_fwd", "bp_bwd")
+# published H100 SXM peaks (700 W): float32 FMA outside the tensor
+# cores, HBM3
+F32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
 REPO = os.path.dirname(os.path.abspath(__file__))
 REPLACES = {
     "bp_fwd": "drtvam_tpu/ops/backproject.py:187",
@@ -92,9 +105,98 @@ def bench_fields(A=400, Y=256, X=256, U=400, Zf=256, seed=0):
     return Pz, W, Umap, dL, U
 
 
+def tap_entries(torch, bp, F, U, u0=None, Y=None, X=None):
+    """Every nonzero tap of packed fields as (a * U + column, raster
+    voxel, weight): B_a's nonzeros, band-masked for banded fields."""
+    A, _, L = F.shape
+    dev = F.device
+    lo = None if u0 is None else bp._band_lo(u0)
+    i0, i1, w0, w1 = bp._taps(F, U, lo)
+    vox = torch.arange(L, device=dev)
+    if u0 is not None:  # block-major position -> raster index
+        vox = bp.block_permute(vox.reshape(Y, X), Y, X).reshape(-1)
+    col = torch.cat([i0, i1]).reshape(-1)
+    w = torch.cat([w0, w1]).reshape(-1)
+    a = torch.arange(A, device=dev).repeat_interleave(L).repeat(2)
+    keep = w != 0
+    return (a[keep] * U + col[keep], vox.repeat(2 * A)[keep], w[keep])
+
+
+def csr(torch, rows, cols, vals, shape):
+    order = torch.argsort(rows * shape[1] + cols)
+    rows, cols, vals = rows[order], cols[order], vals[order]
+    crow = torch.searchsorted(rows, torch.arange(shape[0] + 1,
+                                                 device=rows.device))
+    with warnings.catch_warnings():  # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_csr_tensor(crow, cols, vals, size=shape,
+                                       check_invariants=False)
+
+
+def bound(n_taps, Zf, n_bytes):
+    """Least time on the card: 2 flops per (tap, z) at the float32 FMA
+    peak, or the compulsory bytes at the HBM rate, whichever is larger."""
+    flop_ms = 2.0 * n_taps * Zf / F32_FLOPS * 1e3
+    byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return (max(flop_ms, byte_ms),
+            "operations" if flop_ms >= byte_ms else "bytes")
+
+
+def library_calls(torch, bp, F, U, x, fwd, u0=None, Y=None, X=None):
+    """One cuSPARSE SpMM (torch.sparse.mm) computing the kernel's
+    function on x = Pz (forward: (YX x A*U) CSR @ Pz as (A*U, Zf)) or
+    x = dL (adjoint: (A*U x YX) CSR @ dL^T). Returns the call on
+    pre-laid-out operands, the same call with the operand and result
+    re-layouts, the number of taps and the CSR build seconds."""
+    A = F.shape[0]
+    Zf, YX = (x.shape[1], F.shape[2]) if fwd else x.shape
+    t0 = time.perf_counter()
+    au, vox, w = tap_entries(torch, bp, F, U, u0, Y, X)
+    n_taps = int(w.numel())
+    if fwd:
+        B = csr(torch, vox, au, w, (YX, A * U))
+        xl = x.permute(0, 2, 1).reshape(A * U, Zf).contiguous()
+    else:
+        B = csr(torch, au, vox, w, (A * U, YX))
+        xl = x.t().contiguous()
+    del au, vox, w
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if fwd:
+        def full():
+            return torch.sparse.mm(B, x.permute(0, 2, 1).reshape(
+                A * U, Zf)).t().contiguous()
+    else:
+        def full():
+            return torch.sparse.mm(B, x.t().contiguous()).reshape(
+                A, U, Zf).permute(0, 2, 1).contiguous()
+    return (lambda: torch.sparse.mm(B, xl)), full, n_taps, build_s
+
+
+def check_and_time(torch, name, kern, plain, reps=20):
+    out = kern()
+    ref = plain()
+    out2 = kern()
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    scale = float(ref.abs().max())
+    bitwise = bool(torch.equal(out, out2))
+    del out, out2, ref
+    if not err <= REL_TOL * scale:
+        raise AssertionError(f"{name} disagrees with its plain version: "
+                             f"{err} > {REL_TOL * scale}")
+    if name in BITWISE and not bitwise:
+        raise AssertionError(f"{name}: two launches differ bitwise")
+    return {"max_abs_err": err, "max_abs_plain": scale,
+            "tol": REL_TOL * scale, "bitwise_repeat": bitwise,
+            "ms": cuda_ms(kern, reps, torch),
+            "plain_ms": cuda_ms(plain, 3, torch)}
+
+
 def phase_kernels(torch, bp, dev):
     Pz, W, Umap, dL, U = bench_fields()
     A, Y, X = W.shape
+    Zf = Pz.shape[1]
     assert bp.banded_eligible(W.shape, U)
     assert bp.band_span_ok(torch.from_numpy(W), torch.from_numpy(Umap), U)
     Wt, Ut = torch.from_numpy(W).to(dev), torch.from_numpy(Umap).to(dev)
@@ -103,10 +205,11 @@ def phase_kernels(torch, bp, dev):
     del Wt, Ut
     Pz = torch.from_numpy(Pz).to(dev)
     dL = torch.from_numpy(dL).to(dev)
+    lay = dense.layout
     cases = {
-        "bp_fwd": (lambda: bp.fwd_dense(Pz, dense.F),
+        "bp_fwd": (lambda: bp.fwd_dense(Pz, dense.F, lay),
                    lambda: bp.fwd_dense_plain(Pz, dense.F)),
-        "bp_bwd": (lambda: bp.bwd_dense(dL, dense.F, U),
+        "bp_bwd": (lambda: bp.bwd_dense(dL, dense.F, U, lay),
                    lambda: bp.bwd_dense_plain(dL, dense.F, U)),
         "bp_fwd_band": (lambda: bp.fwd_band(Pz, band.F, band.u0, Y, X),
                         lambda: bp.fwd_band_plain(Pz, band.F, band.u0,
@@ -117,22 +220,76 @@ def phase_kernels(torch, bp, dev):
     }
     results = {}
     for name, (kern, plain) in cases.items():
-        out = kern()
-        ref = plain()
-        torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        scale = float(ref.abs().max())
-        del out, ref
-        rec = {"phase": "kernel", "name": name, "max_abs_err": err,
-               "max_abs_plain": scale, "tol": REL_TOL * scale,
-               "ms": cuda_ms(kern, 7, torch),
-               "plain_ms": cuda_ms(plain, 5, torch)}
+        rec = {"phase": "kernel", "name": name,
+               "shapes": {"A": A, "Zf": Zf, "U": U, "Y": Y, "X": X}}
+        rec.update(check_and_time(torch, name, kern, plain))
+        fields = band if name.endswith("band") else dense
+        fwd = "fwd" in name
+        lib, lib_full, n_taps, build_s = library_calls(
+            torch, bp, fields.F, U, Pz if fwd else dL, fwd, fields.u0, Y, X)
+        ref = cases[name][0]()
+        got = lib_full()
+        rec["library_rel_err"] = float((got - ref).abs().max() /
+                                       ref.abs().max())
+        del ref, got
+        rec["library_ms"] = cuda_ms(lib, 10, torch)
+        rec["library_layout_ms"] = cuda_ms(lib_full, 10, torch) - \
+            rec["library_ms"]
+        rec["library_csr_build_s"] = build_s
+        del lib, lib_full
+        n_bytes = 4 * (A * Zf * U + fields.F.numel() + Zf * Y * X)
+        rec["taps"] = n_taps
+        rec["bound_ms"], rec["bound_by"] = bound(n_taps, Zf, n_bytes)
+        rec["roofline_share"] = rec["bound_ms"] / rec["ms"]
         emit(rec)
-        if not err <= REL_TOL * scale:
-            raise AssertionError(f"{name} disagrees with its plain "
-                                 f"version: {err} > {REL_TOL * scale}")
         results[name] = rec
+        torch.cuda.empty_cache()
     return results
+
+
+def phase_real_fields(torch, bp, dev, tmp):
+    """The dense pair on the bench scene's own cylindrical fields, as
+    the main path's engine packs them on the card."""
+    from drtvam_tpu_torch.models.scene import Scene
+    from drtvam_tpu_torch.ops.ballistic import BallisticEngine
+    sc = Scene(bench_config(tmp, "cylindrical"))
+    static, arr = sc.build(mode="volume", include_target=False)
+    t0 = time.perf_counter()
+    eng = BallisticEngine(static, arr, dev)
+    torch.cuda.synchronize()
+    engine_s = time.perf_counter() - t0
+    assert eng.impl == "cuda", eng.impl
+    f = eng.fields
+    A, U, Y, X = f.A, f.U, f.Y, f.X
+    Zf = static.sensor.res[2]
+    rng = np.random.default_rng(1)
+    Pz = torch.from_numpy(rng.uniform(0.0, 1.0, (A, Zf, U))
+                          .astype(np.float32)).to(dev)
+    dL = torch.from_numpy(rng.uniform(0.0, 1.0, (Zf, Y * X))
+                          .astype(np.float32)).to(dev)
+    win, maxw = f.layout.windows
+    n_taps = int(tap_entries(torch, bp, f.F, U)[2].numel())
+    n_bytes = 4 * (A * Zf * U + f.F.numel() + Zf * Y * X)
+    out = {}
+    for name, kern, plain in (
+            ("bp_fwd", lambda: f.forward(Pz),
+             lambda: bp.fwd_dense_plain(Pz, f.F)),
+            ("bp_bwd", lambda: f.adjoint(dL),
+             lambda: bp.bwd_dense_plain(dL, f.F, U))):
+        rec = {"phase": "kernel_real_fields", "name": name,
+               "shapes": {"A": A, "Zf": Zf, "U": U, "Y": Y, "X": X},
+               "max_window": maxw,
+               "list_entries": int(f.layout.lists[1].shape[0]),
+               "engine_s": engine_s}
+        rec.update(check_and_time(torch, name, kern, plain))
+        rec["taps"] = n_taps
+        rec["bound_ms"], rec["bound_by"] = bound(n_taps, Zf, n_bytes)
+        rec["roofline_share"] = rec["bound_ms"] / rec["ms"]
+        emit(rec)
+        out[name] = rec
+    del eng, f, Pz, dL
+    torch.cuda.empty_cache()
+    return out
 
 
 def small_scene(vial, film, tmp):
@@ -333,6 +490,7 @@ def main():
     kern = phase_kernels(torch, bp, dev)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
+        real = phase_real_fields(torch, bp, dev, tmp)
         phase_engine(torch, dev, tmp)
         dense_counts = phase_bench(torch, bp, dev, tmp, "cylindrical",
                                    ("bp_fwd", "bp_bwd"))
@@ -353,8 +511,12 @@ def main():
          "path": ("optimize() on the bench scene, index-matched vial"
                   if n.endswith("band") else
                   "main path: optimize() on the bench scene"),
-         "max_abs_err": kern[n]["max_abs_err"], "ms": kern[n]["ms"],
-         "plain_ms": kern[n]["plain_ms"]} for n in bp.KERNELS]})
+         **{k: kern[n][k] for k in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "library_layout_ms", "roofline_share")},
+         **({"real_fields": {k: real[n][k] for k in (
+             "ms", "plain_ms", "max_abs_err", "bound_ms", "bound_by")}}
+            if n in real else {})} for n in bp.KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -6,7 +6,8 @@
 // j: the linear-interpolation taps at i0 = floor(u_aj) and i0 + 1. On
 // the TPU B is built densely in VMEM and contracted on the MXU, because
 // gathers are slow there; here each kernel applies the two taps
-// directly, reading its operand from shared memory.
+// directly. A dense B on wgmma would do U/2 times the useful work, so
+// the kernels stay on FMAs and spend their design on memory traffic.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -42,14 +43,23 @@ __device__ __forceinline__ Taps make_taps(float W, float u, int base,
   return t;
 }
 
-// z-rows per block for the dense kernels, whose shared slab holds all
-// U columns: the largest of 32, 16, 8 whose slab fits in 200 KB; 0 if
-// none does.
-inline int dense_z_chunk(int U) {
-  const long cap = 200L * 1024;
-  for (int zc = 32; zc >= 8; zc /= 2)
-    if ((long)zc * U * (long)sizeof(float) <= cap) return zc;
-  return 0;
+// Asynchronous 4-byte copy global -> shared (cp.async, Ampere and
+// later), and its group commit / wait.
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace bp

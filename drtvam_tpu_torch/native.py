@@ -1,10 +1,11 @@
 """Native code: host C++ (g++) and CUDA (nvcc), built at first use and
 loaded with ctypes.
 
-Host components: the JAX package's `drtvam_tpu/native/transport2d.cpp`
-(the 2D refracted ray fan rasterizer) and `mesh_accel.cpp` (the XY-grid
-mesh voxelizer). They are host preprocessing, not TPU kernels, so the
-port shares the sources by path and never copies or edits them.
+Host components: `csrc/host/transport2d.cpp` (the 2D refracted ray fan
+rasterizer) and `csrc/host/mesh_accel.cpp` (the XY-grid mesh
+voxelizer), the port's own copies of the JAX package's host sources.
+They are host preprocessing, not TPU kernels; the port keeps its copy so
+that it reads no file of the JAX package.
 
 CUDA components: the port's own kernels under `csrc/`, one shared
 library with a plain C interface per source (nvcc for sm_90a), loaded
@@ -24,8 +25,8 @@ import threading
 import numpy as np
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
-HOST_SRC_DIR = os.path.join(os.path.dirname(_PKG), "drtvam_tpu", "native")
 CUDA_SRC_DIR = os.path.join(_PKG, "csrc")
+HOST_SRC_DIR = os.path.join(CUDA_SRC_DIR, "host")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 _lock = threading.Lock()

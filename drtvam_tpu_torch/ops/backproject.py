@@ -26,19 +26,25 @@ The fields are packed once per engine (`PackedFields`): W and u of each
 cell side by side, u = -2 in empty cells (W = 0) so both taps fall
 outside every column range. The banded layout re-tiles the film into
 BY x BX blocks and gives each (angle, block) a BANDW-column band start
-u0, a multiple of 128 clipped to [0, Upad - BANDW].
+u0, a multiple of 128 clipped to [0, Upad - BANDW]. On the card the
+dense layout also carries a `DenseLayout`: the exact column window of
+each (angle, FT x FT film tile), which bp_fwd stages, and per angle the
+voxels grouped by floor(u), which bp_bwd walks.
 """
 from __future__ import annotations
 
 import ctypes
+from functools import cached_property
 
 import torch
+import torch.nn.functional as tnf
 
 BY, BX = 32, 64          # dose block of the banded layout
 TILE_B = BY * BX
 BANDW = 256              # band columns; u0 quantized to 128
-MAX_DENSE_U = 6400       # the dense kernels stage >= 8 rows of U columns
-                         # in 200 KB of shared memory
+MAX_DENSE_U = 6400       # bp_fwd stages >= 4 z-rows of a window of up to
+                         # U columns, twice, in 227 KB of shared memory
+FT = 32                  # film tile edge of bp_fwd's column windows
 
 KERNELS = ("bp_fwd", "bp_bwd", "bp_fwd_band", "bp_bwd_band")
 launches = {k: 0 for k in KERNELS}
@@ -126,6 +132,100 @@ def band_span_ok(W, Umap, U):
     max_u = torch.where(valid, Ub, ninf).amax(-1)
     ok = ~valid.any(-1) | (max_u + 1.0 <= u0 + BANDW - 1)
     return bool(ok.all())
+
+
+def _tap_ranges(u, U):
+    """floor(u) and whether each of the two taps lies in [0, U)."""
+    fl = torch.floor(u)
+    return fl, (fl >= 0) & (fl < U), (fl + 1 >= 0) & (fl + 1 < U)
+
+
+def tile_windows(F, U, Y, X):
+    """Per (angle, FT x FT film tile) the exact column window [lo, hi]
+    of the tile's in-range taps, as bp_fwd stages it: (A, T, 2) int32
+    with tiles row-major over ceil(Y/FT) x ceil(X/FT), lo > hi for a
+    tile without taps; and the widest window (0 if none)."""
+    A = F.shape[0]
+    fl, ok0, ok1 = _tap_ranges(F[:, 1].reshape(A, Y, X), U)
+    lo = torch.where(ok0, fl, torch.where(ok1, fl + 1, float(U)))
+    hi = torch.where(ok1, fl + 1, torch.where(ok0, fl, -1.0))
+    ty, tx = -(-Y // FT), -(-X // FT)
+    pad = (0, tx * FT - X, 0, ty * FT - Y)
+    lo = tnf.pad(lo, pad, value=float(U)).reshape(A, ty, FT, tx, FT)
+    hi = tnf.pad(hi, pad, value=-1.0).reshape(A, ty, FT, tx, FT)
+    lo, hi = lo.amin((2, 4)), hi.amax((2, 4))
+    lo = torch.where(lo > hi, torch.zeros_like(lo), lo)
+    win = torch.stack([lo, hi], -1).reshape(A, ty * tx, 2)
+    maxw = int((hi - lo + 1).clamp(min=0).max()) if A else 0
+    return win.to(torch.int32).contiguous(), maxw
+
+
+def voxel_lists(F, U):
+    """Per angle, the voxels with a tap in [0, U), grouped by
+    i0 = floor(u) and ordered by voxel inside a group, as bp_bwd walks
+    them. Returns ptr (A * (U + 1) + 1) int32, group g = i0 + 1 of angle
+    a starting at ptr[a * (U + 1) + g], and ent (nnz, 4) int32 rows
+    (j, i0, w0, w1) with the weights' float32 bits; a tap outside
+    [0, U) has weight 0, as in the plain version."""
+    A, _, YX = F.shape
+    W, u = F[:, 0], F[:, 1]
+    fl, ok0, ok1 = _tap_ranges(u, U)
+    f = u - fl
+    a, j = torch.nonzero(ok0 | ok1, as_tuple=True)
+    if a.numel() >= 2 ** 31:
+        raise ValueError(f"{a.numel()} list entries exceed int32 offsets")
+    i0 = fl[a, j].to(torch.int64)
+    g = a * (U + 1) + i0 + 1
+    order = torch.argsort(g * YX + j)  # unique keys: (angle, group, voxel)
+    a, j, i0, g = a[order], j[order], i0[order], g[order]
+    zero = torch.zeros((), dtype=W.dtype, device=W.device)
+    w0 = torch.where(ok0, W * (1.0 - f), zero)[a, j]
+    w1 = torch.where(ok1, W * f, zero)[a, j]
+    ent = torch.stack([j.to(torch.int32), i0.to(torch.int32),
+                       w0.view(torch.int32), w1.view(torch.int32)], 1)
+    ptr = torch.searchsorted(
+        g, torch.arange(A * (U + 1) + 1, device=F.device))
+    return ptr.to(torch.int32).contiguous(), ent.contiguous()
+
+
+def transpose_dl(dL):
+    """Plain version of bp_bwd's first step: dL (Zf, YX) -> (YX, Zp),
+    z innermost, rows zero-padded to Zp = Zf rounded up to 4."""
+    Zf = dL.shape[0]
+    return tnf.pad(dL.t(), (0, _round_up(Zf, 4) - Zf)).contiguous()
+
+
+class DenseLayout:
+    """What the dense kernels read beside the packed fields F (A, 2, YX)
+    of a Y x X film: bp_fwd's per-tile column windows and bp_bwd's voxel
+    lists. Each is built with torch on F's device at first use; the
+    fields are fixed for a whole optimization, so an engine builds them
+    once. The lists hold at most one 16-byte entry per (angle, voxel):
+    <= 0.42 GB at the bench scene (400 angles, 256 x 256 film)."""
+
+    def __init__(self, F, U, Y, X):
+        if F.shape[2] != Y * X:
+            raise ValueError(f"fields of {F.shape[2]} cells for a {Y}x{X} "
+                             "film")
+        self.F, self.U, self.Y, self.X = F, U, Y, X
+
+    @cached_property
+    def windows(self):
+        return tile_windows(self.F, self.U, self.Y, self.X)
+
+    @cached_property
+    def lists(self):
+        return voxel_lists(self.F, self.U)
+
+    def build(self):
+        """Build both now, outside any timed loop."""
+        _ = self.windows, self.lists
+        return self
+
+    def check(self, name, F, U):
+        if self.F is not F or self.U != U:
+            raise ValueError(f"{name}: the layout was built for other "
+                             "fields")
 
 
 # --------------------------------------------------------------------------
@@ -216,8 +316,8 @@ def _setup(lib, name, n_ptr, n_int):
 
 
 _SETUP = {
-    "bp_fwd": lambda lib: _setup(lib, "bp_fwd", 3, 4),
-    "bp_bwd": lambda lib: _setup(lib, "bp_bwd", 3, 4),
+    "bp_fwd": lambda lib: _setup(lib, "bp_fwd", 4, 6),
+    "bp_bwd": lambda lib: _setup(lib, "bp_bwd", 5, 4),
     "bp_fwd_band": lambda lib: _setup(lib, "bp_fwd_band", 4, 5),
     "bp_bwd_band": lambda lib: _setup(lib, "bp_bwd_band", 4, 5),
 }
@@ -257,57 +357,71 @@ def _launch(name, dev, args):
         raise RuntimeError(f"{name}: CUDA launch failed, cudaError_t {err}")
 
 
-def _check_dense_u(name, U):
-    if U > MAX_DENSE_U:
-        raise ValueError(f"{name}: U = {U} exceeds {MAX_DENSE_U}, the "
-                         "widest DMD row the dense kernels stage")
-
-
-def fwd_dense(Pz, F):
-    """dose (Zf, YX) = sum_a Pz_a @ B_a. Pz (A, Zf, U), F (A, 2, YX).
+def fwd_dense(Pz, F, layout=None):
+    """dose (Zf, YX) = sum_a Pz_a @ B_a. Pz (A, Zf, U), F (A, 2, YX);
+    layout: the fields' DenseLayout (built here, for a one-row film, if
+    not given).
 
     CUDA kernel csrc/bp_fwd.cu; replaces drtvam_tpu/ops/backproject.py
-    _fwd_pallas (:187). At the bench scene the operands are Pz (164 MB)
-    and the fields (210 MB) against two FMAs per (angle, voxel, z); on
-    the H100 the kernel is bound by its shared-memory tap reads and the
-    per-angle staging of Pz (PERF.md). A block stages each angle's Pz
-    slab (z-chunk x all U columns) in shared memory once for 512 voxels,
-    reads each voxel's (W, u) once per angle and accumulates in
-    registers: HBM sees Pz once per voxel tile, no atomics, one output
-    write."""
+    _fwd_pallas (:187). The work is 2 FMAs per (angle, tap-carrying
+    voxel, z): at the bench shapes 18.8 GFLOP against 0.44 GB of
+    compulsory traffic, so the float32 FMA rate bounds it; what holds
+    it back on the H100 is feeding each FMA its Pz value. A block owns a
+    32x32 film tile x a z-chunk and loops over the angles, staging only
+    the tile's exact column window of Pz, z innermost (one 16-byte
+    shared load per tap and four z-rows), double-buffered with cp.async;
+    the grid runs one z-chunk's tiles first so Pz's z-slab stays in L2.
+    Registers accumulate, each output is written once, no atomics."""
     A, Zf, U = Pz.shape
     YX = F.shape[2]
     dev = _check("bp_fwd", (Pz, F), (torch.float32,) * 2,
                  ((A, Zf, U), (A, 2, YX)))
     if dev.type == "cpu":
         return fwd_dense_plain(Pz, F)
-    _check_dense_u("bp_fwd", U)
+    if U > MAX_DENSE_U:
+        raise ValueError(f"bp_fwd: U = {U} exceeds {MAX_DENSE_U}, the "
+                         "widest column window the kernel stages")
+    if layout is None:
+        layout = DenseLayout(F, U, 1, YX)
+    layout.check("bp_fwd", F, U)
+    win, maxw = layout.windows
     out = torch.empty((Zf, YX), dtype=torch.float32, device=dev)
-    _launch("bp_fwd", dev, (Pz.data_ptr(), F.data_ptr(), out.data_ptr(),
-                            A, Zf, U, YX))
+    _launch("bp_fwd", dev, (Pz.data_ptr(), F.data_ptr(), win.data_ptr(),
+                            out.data_ptr(), A, Zf, U, layout.Y, layout.X,
+                            maxw))
     return out
 
 
-def bwd_dense(dL, F, U):
-    """Pzbar (A, Zf, U) = dL @ B_a^T. dL (Zf, YX), F (A, 2, YX).
+def bwd_dense(dL, F, U, layout=None):
+    """Pzbar (A, Zf, U) = dL @ B_a^T. dL (Zf, YX), F (A, 2, YX);
+    layout: the fields' DenseLayout (built here if not given).
 
-    CUDA kernel csrc/bp_bwd.cu; replaces _bwd_pallas (:221). At the
-    bench scene dL (67 MB) is read once per angle against the fields
-    (210 MB); on the H100 the kernel is bound by its shared-memory
-    atomics (two per angle, voxel and z). A block owns (angle, z-chunk),
-    adds its taps into a z-chunk x U accumulator in shared memory and
-    writes it once: no global atomics. Atomics sum in a run-dependent
-    order."""
+    CUDA kernel csrc/bp_bwd.cu; replaces _bwd_pallas (:221). The same
+    18.8 GFLOP as the forward at the bench shapes, bound by the FMA rate;
+    a scatter form is held back by contended atomics, so this one is in
+    gather form and is held back by reading each voxel's dL line once
+    per angle through L2. dL is re-laid out z innermost (YX, Zp); a warp
+    owns (angle, 16 columns, 128 z-rows) and walks the layout's voxel
+    lists (voxels grouped by floor(u)), reading each voxel's dL line
+    once into two register accumulators for its two adjacent columns;
+    the grid runs one z-chunk first so the dL slab stays in L2. No
+    atomics: every output is written once, in a fixed order, so the
+    result is bitwise reproducible."""
     Zf, YX = dL.shape
     A = F.shape[0]
     dev = _check("bp_bwd", (dL, F), (torch.float32,) * 2,
                  ((Zf, YX), (A, 2, YX)))
     if dev.type == "cpu":
         return bwd_dense_plain(dL, F, U)
-    _check_dense_u("bp_bwd", U)
+    if layout is None:
+        layout = DenseLayout(F, U, 1, YX)
+    layout.check("bp_bwd", F, U)
+    ptr, ent = layout.lists
+    dLt = torch.empty((YX, _round_up(Zf, 4)), dtype=torch.float32,
+                      device=dev)
     out = torch.empty((A, Zf, U), dtype=torch.float32, device=dev)
-    _launch("bp_bwd", dev, (dL.data_ptr(), F.data_ptr(), out.data_ptr(),
-                            A, Zf, U, YX))
+    _launch("bp_bwd", dev, (dL.data_ptr(), ptr.data_ptr(), ent.data_ptr(),
+                            dLt.data_ptr(), out.data_ptr(), A, Zf, U, YX))
     return out
 
 
@@ -380,30 +494,34 @@ class PackedFields:
     kernels in the dense or the banded layout; one copy on the device.
 
     W, Umap: (A, Y, X) float32 tensors on the target device; U: DMD
-    columns. banded=True needs banded_eligible and band_span_ok."""
+    columns. banded=True needs banded_eligible and band_span_ok. Dense
+    fields on the card also build their DenseLayout here, once."""
 
     def __init__(self, W, Umap, U, banded):
         A, Y, X = W.shape
         self.A, self.Y, self.X, self.U = A, Y, X, U
         self.banded = bool(banded)
+        self.layout = None
         if self.banded:
             self.F, self.u0 = _pack_fields_banded(W, Umap, U)
         else:
             self.F, self.u0 = _pack_fields(W, Umap), None
+            if self.F.is_cuda:
+                self.layout = DenseLayout(self.F, U, Y, X).build()
 
     def forward(self, Pz):
         """(A, Zf, U) -> dose (Zf, Y*X)."""
         Pz = Pz.contiguous()
         if self.banded:
             return fwd_band(Pz, self.F, self.u0, self.Y, self.X)
-        return fwd_dense(Pz, self.F)
+        return fwd_dense(Pz, self.F, self.layout)
 
     def adjoint(self, dL):
         """(Zf, Y*X) -> Pzbar (A, Zf, U)."""
         dL = dL.contiguous()
         if self.banded:
             return bwd_band(dL, self.F, self.u0, self.U, self.Y, self.X)
-        return bwd_dense(dL, self.F, self.U)
+        return bwd_dense(dL, self.F, self.U, self.layout)
 
 
 class Backproject(torch.autograd.Function):

@@ -1,8 +1,8 @@
 """Mesh voxelization (counterpart of drtvam_tpu/ops/voxelize.py).
 
 Binary occupancy by voxel-center crossing parity along z-columns, run by
-the host C++ voxelizer (drtvam_tpu/native/mesh_accel.cpp) — the only
-path: a failed build raises. Surface-aware fractional volumes are
+the host C++ voxelizer (the port's copy, csrc/host/mesh_accel.cpp) —
+the only path: a failed build raises. Surface-aware fractional volumes are
 ROADMAP queue 1 item 14.
 """
 from __future__ import annotations

@@ -11,7 +11,7 @@ import torch
 
 from drtvam_tpu_torch.ops import backproject as bp
 
-TOL = 1e-5  # f32 sums in another order; the adjoints use atomics
+TOL = 1e-5  # f32 sums in another order; the banded adjoint uses atomics
 
 
 def _fields(seed, A=5, Y=64, X=128, U=300, Zf=40):
@@ -62,6 +62,57 @@ def test_kernels_match_plain(banded, cuda_device):
         assert bp.launches[n] == before[n] + 1
     _close(fwd, cpu.forward(Pz))
     _close(bwd, cpu.adjoint(dL))
+
+
+def _wide_fields(seed, A, Y, X, U, Zf):
+    """Scattered u over [-1.5, U + 0.5): taps at -1 and U are dropped,
+    and every tile's column window is about U wide."""
+    rng = np.random.default_rng(seed)
+    W = rng.uniform(0.0, 1.0, (A, Y, X)).astype(np.float32)
+    W[W < 0.3] = 0.0
+    Umap = rng.uniform(-1.5, U + 0.5, (A, Y, X)).astype(np.float32)
+    Umap[:, 0, :8] = U - 1
+    Pz = rng.uniform(0.0, 1.0, (A, Zf, U)).astype(np.float32)
+    dL = rng.uniform(0.0, 1.0, (Zf, Y * X)).astype(np.float32)
+    return [torch.from_numpy(x) for x in (Pz, W, Umap, dL)] + [U]
+
+
+# (A, Y, X, U, Zf): films that do not tile into 32x32, Zf off the
+# z-chunks (bp_fwd 32, bp_bwd 128), windows wider than 256 columns
+RAGGED = [(4, 40, 50, 70, 20), (3, 48, 80, 100, 30), (2, 33, 65, 700, 130),
+          (3, 1, 37, 300, 1)]
+
+
+@pytest.mark.parametrize("shape", RAGGED)
+def test_dense_kernels_on_ragged_shapes(shape, cuda_device):
+    A, Y, X, U, Zf = shape
+    Pz, W, Umap, dL, U = _wide_fields(sum(shape), A, Y, X, U, Zf)
+    cpu = bp.PackedFields(W, Umap, U, banded=False)
+    gpu = bp.PackedFields(W.to(cuda_device), Umap.to(cuda_device), U,
+                          banded=False)
+    assert gpu.layout is not None
+    Pzd, dLd = Pz.to(cuda_device), dL.to(cuda_device)
+    before = dict(bp.launches)
+    fwd, bwd = gpu.forward(Pzd), gpu.adjoint(dLd)
+    fwd2, bwd2 = gpu.forward(Pzd), gpu.adjoint(dLd)
+    torch.cuda.synchronize()
+    assert bp.launches["bp_fwd"] == before["bp_fwd"] + 2
+    assert bp.launches["bp_bwd"] == before["bp_bwd"] + 2
+    _close(fwd, cpu.forward(Pz))
+    _close(bwd, cpu.adjoint(dL))
+    # no atomics: every output element is written once, in a fixed order
+    assert torch.equal(fwd, fwd2) and torch.equal(bwd, bwd2)
+
+
+def test_dense_kernels_without_a_layout(cuda_device):
+    """fwd_dense / bwd_dense called on bare fields build their own
+    layout (one-row film) and compute the same function."""
+    Pz, W, Umap, dL, U = _fields(seed=3)
+    F = bp._pack_fields(W, Umap)
+    Fd = F.to(cuda_device)
+    _close(bp.fwd_dense(Pz.to(cuda_device), Fd), bp.fwd_dense_plain(Pz, F))
+    _close(bp.bwd_dense(dL.to(cuda_device), Fd, U),
+           bp.bwd_dense_plain(dL, F, U))
 
 
 def test_kernels_reject_cpu_cuda_mix(cuda_device):
