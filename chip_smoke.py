@@ -13,11 +13,12 @@ Phases (each failure exits non-zero before the result line):
      the bound (float32 FMA peak or HBM rate, whichever is larger, for
      the taps the fields have) and the time of one cuSPARSE SpMM
      (torch.sparse.mm) computing the same function (library_ms; the
-     port never calls it). The dense pair must give bitwise equal
-     results on two launches. Then the dense pair on the bench scene's
-     real cylindrical fields (an engine built on the card), and the
-     ballistic engine on the card against the same engine on the CPU on
-     two small scenes (dense and banded layout).
+     port never calls it). All four must give bitwise equal results on
+     two launches. Then each pair on the bench scene's real fields, as
+     an engine built on the card packs them: the dense pair on the
+     cylindrical vial's, the banded pair on the index-matched vial's;
+     and the ballistic engine on the card against the same engine on the
+     CPU on two small scenes (dense and banded layout).
   4. main path: optimize() on the bench scene (400 angles, 400x400 DMD,
      256^3 film, cylindrical vial, 40 Linear-L-BFGS steps); the best
      IoU over 301 thresholds must reach 0.98. Refraction at the vial
@@ -45,13 +46,14 @@ import warnings
 
 import numpy as np
 
-# kernel vs plain version: f32 sums in another order (FMA contraction;
-# the banded adjoint: atomics in a run-dependent order), so each kernel
-# must agree to this fraction of the plain result's max |value|
+# kernel vs plain version: f32 sums in another order (FMA contraction),
+# so each kernel must agree to this fraction of the plain result's max
+# |value|
 REL_TOL = 1e-5
 IOU_GATE = 0.98
-# the redesigned dense pair has no atomics: two launches agree bitwise
-BITWISE = ("bp_fwd", "bp_bwd")
+# no kernel uses atomics: each output is written once, in a fixed order,
+# so two launches agree bitwise
+BITWISE = ("bp_fwd", "bp_bwd", "bp_fwd_band", "bp_bwd_band")
 # published H100 SXM peaks (700 W): float32 FMA outside the tensor
 # cores, HBM3
 F32_FLOPS = 67e12
@@ -205,16 +207,30 @@ def phase_kernels(torch, bp, dev):
     del Wt, Ut
     Pz = torch.from_numpy(Pz).to(dev)
     dL = torch.from_numpy(dL).to(dev)
-    lay = dense.layout
+    # the engines' layouts, built once as PackedFields builds them: the
+    # times are the kernels' alone
+    lay, blay = dense.layout, band.layout
+    # the fields fit the band: the band-masked layout is the dense one
+    same = (lay.windows[1] == blay.windows[1] and
+            torch.equal(lay.windows[0], blay.windows[0]) and
+            all(torch.equal(d, b) for d, b in zip(lay.lists, blay.lists)))
+    emit({"phase": "band_layout", "equals_dense": same,
+          "max_window": blay.windows[1],
+          "list_entries": int(blay.lists[1].shape[0])})
+    if not same:
+        raise AssertionError("the band-masked layout of span-ok fields "
+                             "differs from the dense one")
     cases = {
         "bp_fwd": (lambda: bp.fwd_dense(Pz, dense.F, lay),
                    lambda: bp.fwd_dense_plain(Pz, dense.F)),
         "bp_bwd": (lambda: bp.bwd_dense(dL, dense.F, U, lay),
                    lambda: bp.bwd_dense_plain(dL, dense.F, U)),
-        "bp_fwd_band": (lambda: bp.fwd_band(Pz, band.F, band.u0, Y, X),
+        "bp_fwd_band": (lambda: bp.fwd_band(Pz, band.F, band.u0, Y, X,
+                                            blay),
                         lambda: bp.fwd_band_plain(Pz, band.F, band.u0,
                                                   Y, X)),
-        "bp_bwd_band": (lambda: bp.bwd_band(dL, band.F, band.u0, U, Y, X),
+        "bp_bwd_band": (lambda: bp.bwd_band(dL, band.F, band.u0, U, Y, X,
+                                            blay),
                         lambda: bp.bwd_band_plain(dL, band.F, band.u0, U,
                                                   Y, X)),
     }
@@ -248,47 +264,57 @@ def phase_kernels(torch, bp, dev):
 
 
 def phase_real_fields(torch, bp, dev, tmp):
-    """The dense pair on the bench scene's own cylindrical fields, as
-    the main path's engine packs them on the card."""
+    """Each kernel pair on the bench scene's own fields, as the bench
+    runs' engines pack them on the card: the dense pair on the
+    cylindrical vial's fields, the banded pair on the index-matched
+    vial's."""
     from drtvam_tpu_torch.models.scene import Scene
     from drtvam_tpu_torch.ops.ballistic import BallisticEngine
-    sc = Scene(bench_config(tmp, "cylindrical"))
-    static, arr = sc.build(mode="volume", include_target=False)
-    t0 = time.perf_counter()
-    eng = BallisticEngine(static, arr, dev)
-    torch.cuda.synchronize()
-    engine_s = time.perf_counter() - t0
-    assert eng.impl == "cuda", eng.impl
-    f = eng.fields
-    A, U, Y, X = f.A, f.U, f.Y, f.X
-    Zf = static.sensor.res[2]
-    rng = np.random.default_rng(1)
-    Pz = torch.from_numpy(rng.uniform(0.0, 1.0, (A, Zf, U))
-                          .astype(np.float32)).to(dev)
-    dL = torch.from_numpy(rng.uniform(0.0, 1.0, (Zf, Y * X))
-                          .astype(np.float32)).to(dev)
-    win, maxw = f.layout.windows
-    n_taps = int(tap_entries(torch, bp, f.F, U)[2].numel())
-    n_bytes = 4 * (A * Zf * U + f.F.numel() + Zf * Y * X)
     out = {}
-    for name, kern, plain in (
-            ("bp_fwd", lambda: f.forward(Pz),
-             lambda: bp.fwd_dense_plain(Pz, f.F)),
-            ("bp_bwd", lambda: f.adjoint(dL),
-             lambda: bp.bwd_dense_plain(dL, f.F, U))):
-        rec = {"phase": "kernel_real_fields", "name": name,
-               "shapes": {"A": A, "Zf": Zf, "U": U, "Y": Y, "X": X},
-               "max_window": maxw,
-               "list_entries": int(f.layout.lists[1].shape[0]),
-               "engine_s": engine_s}
-        rec.update(check_and_time(torch, name, kern, plain))
-        rec["taps"] = n_taps
-        rec["bound_ms"], rec["bound_by"] = bound(n_taps, Zf, n_bytes)
-        rec["roofline_share"] = rec["bound_ms"] / rec["ms"]
-        emit(rec)
-        out[name] = rec
-    del eng, f, Pz, dL
-    torch.cuda.empty_cache()
+    for vial, impl in (("cylindrical", "cuda"),
+                       ("index_matched", "cuda_band")):
+        sc = Scene(bench_config(tmp, vial))
+        static, arr = sc.build(mode="volume", include_target=False)
+        t0 = time.perf_counter()
+        eng = BallisticEngine(static, arr, dev)
+        torch.cuda.synchronize()
+        engine_s = time.perf_counter() - t0
+        assert eng.impl == impl, (vial, eng.impl)
+        f = eng.fields
+        A, U, Y, X = f.A, f.U, f.Y, f.X
+        Zf = static.sensor.res[2]
+        rng = np.random.default_rng(1)
+        Pz = torch.from_numpy(rng.uniform(0.0, 1.0, (A, Zf, U))
+                              .astype(np.float32)).to(dev)
+        dL = torch.from_numpy(rng.uniform(0.0, 1.0, (Zf, Y * X))
+                              .astype(np.float32)).to(dev)
+        maxw = f.layout.windows[1]
+        n_taps = int(tap_entries(torch, bp, f.F, U, f.u0, Y, X)[2].numel())
+        n_bytes = 4 * (A * Zf * U + f.F.numel() + Zf * Y * X)
+        if f.banded:
+            cases = (("bp_fwd_band",
+                      lambda: bp.fwd_band_plain(Pz, f.F, f.u0, Y, X)),
+                     ("bp_bwd_band",
+                      lambda: bp.bwd_band_plain(dL, f.F, f.u0, U, Y, X)))
+        else:
+            cases = (("bp_fwd", lambda: bp.fwd_dense_plain(Pz, f.F)),
+                     ("bp_bwd", lambda: bp.bwd_dense_plain(dL, f.F, U)))
+        for (name, plain), kern in zip(cases, (lambda: f.forward(Pz),
+                                               lambda: f.adjoint(dL))):
+            rec = {"phase": "kernel_real_fields", "name": name,
+                   "vial": vial,
+                   "shapes": {"A": A, "Zf": Zf, "U": U, "Y": Y, "X": X},
+                   "max_window": maxw,
+                   "list_entries": int(f.layout.lists[1].shape[0]),
+                   "engine_s": engine_s}
+            rec.update(check_and_time(torch, name, kern, plain))
+            rec["taps"] = n_taps
+            rec["bound_ms"], rec["bound_by"] = bound(n_taps, Zf, n_bytes)
+            rec["roofline_share"] = rec["bound_ms"] / rec["ms"]
+            emit(rec)
+            out[name] = rec
+        del eng, f, Pz, dL, cases
+        torch.cuda.empty_cache()
     return out
 
 
@@ -514,9 +540,9 @@ def main():
          **{k: kern[n][k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "library_layout_ms", "roofline_share")},
-         **({"real_fields": {k: real[n][k] for k in (
-             "ms", "plain_ms", "max_abs_err", "bound_ms", "bound_by")}}
-            if n in real else {})} for n in bp.KERNELS]})
+         "real_fields": {k: real[n][k] for k in (
+             "ms", "plain_ms", "max_abs_err", "bound_ms", "bound_by",
+             "max_window", "list_entries")}} for n in bp.KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -8,16 +8,17 @@
 // gathers are slow there; here each kernel applies the two taps
 // directly. A dense B on wgmma would do U/2 times the useful work, so
 // the kernels stay on FMAs and spend their design on memory traffic.
+//
+// Two kernel templates serve the four entry points: the windowed
+// forward (bp_fwd_kernel.cuh) and the gather adjoint
+// (bp_bwd_kernel.cuh). The banded pair differs from the dense one only
+// in which taps count, and that is fixed by the layout the engine builds
+// (column windows, voxel lists), not by the kernels.
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace bp {
-
-constexpr int THREADS = 256;
-// banded layout: the dose is tiled into BY x BX blocks; each
-// (angle, block) touches only the BANDW DMD columns from its band start
-constexpr int BY = 32, BX = 64, TILE_B = BY * BX, BANDW = 256;
 
 struct Taps {
   int c0, c1;    // tap columns relative to the column base

@@ -7,161 +7,20 @@
 // Bound on the H100: 2 FMAs per (angle, tap-carrying voxel, z), the
 // same work as the forward (18.8 GFLOP for the 36.7 M taps of the
 // synthetic bench fields), against 0.44 GB of compulsory traffic: the
-// float32 FMA rate bounds it (0.28 ms, PERF.md). A
-// scatter form (each voxel adds into its two columns) is held back by
-// contended atomics: a warp's 32 neighbouring voxels land on one to
-// three columns. This kernel is in gather (owner-computes) form instead,
-// and what bounds it is reading each voxel's dL line once per angle
-// (A x |dL| through L2).
-// Design:
-// - The fields are fixed for a whole optimization, so each engine
-//   builds, once, per angle the list of voxels that have a tap in
-//   [0, U), grouped by i0 = floor(u) and ordered by voxel inside a group
-//   (ops/backproject.py voxel_lists): entries (j, i0, w0, w1), with
-//   group g = i0 + 1 in 0..U starting at ptr[a * (U + 1) + g].
-// - dL is re-laid out once per call to dLt (Y*X, Zp), z innermost, so a
-//   voxel's z-line is contiguous: a warp reads it as one float4 per lane
-//   (128 z-rows, 512 bytes, coalesced).
-// - A warp owns (angle, a run of RUN columns, 128 z-rows) and walks the
-//   voxels of groups c0 - 1 .. c1 - 1 in order. Each voxel has taps on
-//   the two adjacent columns i0 and i0 + 1, so its dL line is read once
-//   and feeds two register accumulators; when the group advances, the
-//   finished column goes to a warp-private tile in shared memory. No
-//   atomics; only the voxels of a run's boundary group are read twice.
-// - The grid runs all (angle, run) warps of one z-chunk first, so the
-//   warps in flight share one 128-row slab of dLt (YX x 512 bytes) in L2.
-// - The tile is written out row by row, consecutive lanes on
-//   consecutive columns. Every output element is written once, in a
-//   fixed order: the result is bitwise reproducible from run to run.
-#include "backproject_common.cuh"
+// float32 FMA rate bounds it (0.28 ms, PERF.md). A scatter form (each
+// voxel adds into its two columns) is held back by contended atomics: a
+// warp's 32 neighbouring voxels land on one to three columns. This
+// kernel is in gather (owner-computes) form instead, and what bounds it
+// is reading each voxel's dL line once per angle (A x |dL| through L2).
+//
+// The kernel is the gather of bp_bwd_kernel.cuh (its design is
+// described there), on voxel lists of the taps in [0, U).
+#include "bp_bwd_kernel.cuh"
 
-namespace {
-
-using namespace bp;
-
-constexpr int BWD_WARPS = 8;
-constexpr int RUN = 16;     // columns per warp
-constexpr int ZW = 128;     // z-rows per warp: one float4 per lane
-constexpr int TS = ZW + 4;  // floats between two columns of a warp's tile
-constexpr int BATCH = 8;    // dL lines in flight per warp
-constexpr unsigned FULL = 0xffffffffu;
-
-// dL (Zf, YX) -> dLt (YX, Zp), rows zero-padded from Zf to Zp.
-__global__ void transpose_kernel(const float* __restrict__ dL,
-                                 float* __restrict__ dLt, int Zf, int Zp,
-                                 int YX) {
-  __shared__ float t[32][33];
-  const int j0 = blockIdx.x * 32, z0 = blockIdx.y * 32;
-  for (int k = threadIdx.y; k < 32; k += 8) {
-    const int z = z0 + k, j = j0 + threadIdx.x;
-    t[k][threadIdx.x] = (z < Zf && j < YX) ? dL[(size_t)z * YX + j] : 0.0f;
-  }
-  __syncthreads();
-  for (int k = threadIdx.y; k < 32; k += 8) {
-    const int j = j0 + k, z = z0 + threadIdx.x;
-    if (j < YX && z < Zp) dLt[(size_t)j * Zp + z] = t[threadIdx.x][k];
-  }
-}
-
-__device__ __forceinline__ float4 fma4(float w, float4 d, float4 acc) {
-  acc.x += w * d.x;
-  acc.y += w * d.y;
-  acc.z += w * d.z;
-  acc.w += w * d.w;
-  return acc;
-}
-
-__global__ void __launch_bounds__(BWD_WARPS * 32)
-bp_bwd_kernel(const float* __restrict__ dLt, const int4* __restrict__ ent,
-              const int* __restrict__ ptr, float* __restrict__ out, int A,
-              int Zf, int Zp, int U, int runs) {
-  extern __shared__ float4 smem[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gw = blockIdx.x * BWD_WARPS + warp;
-  if (gw >= A * runs) return;  // no block-wide barrier below
-  const int a = gw / runs, c0 = (gw % runs) * RUN, c1 = min(c0 + RUN, U);
-  const int zb = blockIdx.y * ZW, z = zb + lane * 4;
-  const bool zon = z < Zp;
-  float* tile = reinterpret_cast<float*>(smem) + warp * RUN * TS;
-  const int* p = ptr + (size_t)a * (U + 1);
-  // groups c0 .. c1 hold the voxels with i0 in [c0 - 1, c1 - 1]
-  const int e_beg = p[c0], e_end = p[c1 + 1];
-  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  float4 acc0 = zero, acc1 = zero;  // columns cur and cur + 1
-  int cur = c0 - 1;
-
-  for (int base = e_beg; base < e_end; base += 32) {
-    const int k = base + lane;
-    const int4 mine = k < e_end ? ent[k] : make_int4(0, 0, 0, 0);
-    const int cnt = min(32, e_end - base);
-    for (int t0 = 0; t0 < cnt; t0 += BATCH) {
-      float4 d[BATCH];
-#pragma unroll
-      for (int b = 0; b < BATCH; ++b) {
-        const int jj = __shfl_sync(FULL, mine.x, t0 + b);
-        d[b] = (zon && t0 + b < cnt)
-                   ? __ldg(reinterpret_cast<const float4*>(
-                         dLt + (size_t)jj * Zp + z))
-                   : zero;
-      }
-#pragma unroll
-      for (int b = 0; b < BATCH; ++b) {
-        const int i0 = __shfl_sync(FULL, mine.y, t0 + b);
-        const float w0 = __int_as_float(__shfl_sync(FULL, mine.z, t0 + b));
-        const float w1 = __int_as_float(__shfl_sync(FULL, mine.w, t0 + b));
-        if (t0 + b < cnt) {
-          while (cur < i0) {  // column cur is complete
-            if (cur >= c0)
-              *reinterpret_cast<float4*>(tile + (cur - c0) * TS + lane * 4) =
-                  acc0;
-            acc0 = acc1;
-            acc1 = zero;
-            ++cur;
-          }
-          acc0 = fma4(w0, d[b], acc0);
-          acc1 = fma4(w1, d[b], acc1);
-        }
-      }
-    }
-  }
-  while (cur < c1) {
-    if (cur >= c0)
-      *reinterpret_cast<float4*>(tile + (cur - c0) * TS + lane * 4) = acc0;
-    acc0 = acc1;
-    acc1 = zero;
-    ++cur;
-  }
-  __syncwarp();
-  const int nc = c1 - c0, nz = min(ZW, Zf - zb);
-  float* o = out + ((size_t)a * Zf + zb) * U + c0;
-  for (int idx = lane; idx < nz * nc; idx += 32) {
-    const int zz = idx / nc, c = idx - zz * nc;
-    o[(size_t)zz * U + c] = tile[c * TS + zz];
-  }
-}
-
-}  // namespace
-
-// dL (Zf, YX); ptr (A * (U + 1) + 1) int32 and ent (nnz, 4) int32 the
-// voxel lists of the packed fields; dLt (YX, Zp) scratch with
-// Zp = Zf rounded up to 4; out (A, Zf, U), every element written. All
-// contiguous, on the device. Returns the CUDA error code of the launch.
+// dL (Zf, YX); ptr, ent the voxel lists of the packed fields; dLt
+// (YX, Zp) scratch; out (A, Zf, U): see bwd_run.
 extern "C" int bp_bwd(const float* dL, const int* ptr, const int* ent,
                       float* dLt, float* out, int A, int Zf, int U, int YX,
                       void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int Zp = (Zf + 3) / 4 * 4;
-  transpose_kernel<<<dim3((YX + 31) / 32, (Zp + 31) / 32), dim3(32, 8), 0,
-                     s>>>(dL, dLt, Zf, Zp, YX);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const int smem = BWD_WARPS * RUN * TS * (int)sizeof(float);
-  e = cudaFuncSetAttribute(bp_bwd_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  const int runs = (U + RUN - 1) / RUN;
-  const dim3 grid((A * runs + BWD_WARPS - 1) / BWD_WARPS, (Zp + ZW - 1) / ZW);
-  bp_bwd_kernel<<<grid, BWD_WARPS * 32, smem, s>>>(
-      dLt, reinterpret_cast<const int4*>(ent), ptr, out, A, Zf, Zp, U, runs);
-  return (int)cudaGetLastError();
+  return bwd_run(dL, ptr, ent, dLt, out, A, Zf, U, YX, stream);
 }

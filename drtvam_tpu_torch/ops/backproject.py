@@ -26,10 +26,13 @@ The fields are packed once per engine (`PackedFields`): W and u of each
 cell side by side, u = -2 in empty cells (W = 0) so both taps fall
 outside every column range. The banded layout re-tiles the film into
 BY x BX blocks and gives each (angle, block) a BANDW-column band start
-u0, a multiple of 128 clipped to [0, Upad - BANDW]. On the card the
-dense layout also carries a `DenseLayout`: the exact column window of
-each (angle, FT x FT film tile), which bp_fwd stages, and per angle the
-voxels grouped by floor(u), which bp_bwd walks.
+u0, a multiple of 128 clipped to [0, Upad - BANDW]. On the card both
+layouts also carry a `DenseLayout`: the exact column window of each
+(angle, FT x FT film tile), which the forward kernels stage, and per
+angle the voxels grouped by floor(u), which the adjoint kernels walk.
+For banded fields both are built from the band-masked taps, so the
+banded pair runs the dense pair's kernel templates unchanged: on Hopper
+the band is a mask on the layout, not a staging width.
 """
 from __future__ import annotations
 
@@ -134,19 +137,37 @@ def band_span_ok(W, Umap, U):
     return bool(ok.all())
 
 
-def _tap_ranges(u, U):
-    """floor(u) and whether each of the two taps lies in [0, U)."""
+def _tap_ranges(u, U, lo=None):
+    """floor(u) and whether each of the two taps is kept: in [0, U), or
+    with per-cell band starts lo in [lo, min(lo + BANDW, U)), as _taps
+    keeps them."""
     fl = torch.floor(u)
-    return fl, (fl >= 0) & (fl < U), (fl + 1 >= 0) & (fl + 1 < U)
+    if lo is None:
+        lo, hi = 0, U
+    else:
+        hi = torch.clamp(lo + BANDW, max=U)
+    return fl, (fl >= lo) & (fl < hi), (fl + 1 >= lo) & (fl + 1 < hi)
 
 
-def tile_windows(F, U, Y, X):
-    """Per (angle, FT x FT film tile) the exact column window [lo, hi]
-    of the tile's in-range taps, as bp_fwd stages it: (A, T, 2) int32
-    with tiles row-major over ceil(Y/FT) x ceil(X/FT), lo > hi for a
-    tile without taps; and the widest window (0 if none)."""
+def band_to_raster(F, u0, Y, X):
+    """Banded fields as the dense kernels' layout reads them: raster
+    packed fields (A, 2, Y*X) and each cell's band start (A, Y*X)."""
     A = F.shape[0]
-    fl, ok0, ok1 = _tap_ranges(F[:, 1].reshape(A, Y, X), U)
+    return (block_unpermute(F, Y, X).reshape(A, 2, Y * X),
+            block_unpermute(_band_lo(u0), Y, X).reshape(A, Y * X))
+
+
+def tile_windows(F, U, Y, X, lo=None):
+    """Per (angle, FT x FT film tile) the exact column window [lo, hi]
+    of the tile's kept taps (see _tap_ranges), as the forward kernels
+    stage it: (A, T, 2) int32 with tiles row-major over
+    ceil(Y/FT) x ceil(X/FT), lo > hi for a tile without taps; and the
+    widest window (0 if none). F is raster. With band starts, every tile
+    must lie in one band block (Y % BY == X % BX == 0 makes it so): the
+    window then lies inside the band, and a tap outside it is outside
+    the band."""
+    A = F.shape[0]
+    fl, ok0, ok1 = (t.reshape(A, Y, X) for t in _tap_ranges(F[:, 1], U, lo))
     lo = torch.where(ok0, fl, torch.where(ok1, fl + 1, float(U)))
     hi = torch.where(ok1, fl + 1, torch.where(ok0, fl, -1.0))
     ty, tx = -(-Y // FT), -(-X // FT)
@@ -160,16 +181,17 @@ def tile_windows(F, U, Y, X):
     return win.to(torch.int32).contiguous(), maxw
 
 
-def voxel_lists(F, U):
-    """Per angle, the voxels with a tap in [0, U), grouped by
-    i0 = floor(u) and ordered by voxel inside a group, as bp_bwd walks
-    them. Returns ptr (A * (U + 1) + 1) int32, group g = i0 + 1 of angle
-    a starting at ptr[a * (U + 1) + g], and ent (nnz, 4) int32 rows
-    (j, i0, w0, w1) with the weights' float32 bits; a tap outside
-    [0, U) has weight 0, as in the plain version."""
+def voxel_lists(F, U, lo=None):
+    """Per angle, the voxels with a kept tap (see _tap_ranges), grouped
+    by i0 = floor(u) and ordered by voxel inside a group, as the adjoint
+    kernels walk them. F is raster. Returns ptr (A * (U + 1) + 1) int32,
+    group g = i0 + 1 of angle a starting at ptr[a * (U + 1) + g], and
+    ent (nnz, 4) int32 rows (j, i0, w0, w1) with j the raster voxel
+    index and the weights' float32 bits; a dropped tap has weight 0, as
+    in the plain version."""
     A, _, YX = F.shape
     W, u = F[:, 0], F[:, 1]
-    fl, ok0, ok1 = _tap_ranges(u, U)
+    fl, ok0, ok1 = _tap_ranges(u, U, lo)
     f = u - fl
     a, j = torch.nonzero(ok0 | ok1, as_tuple=True)
     if a.numel() >= 2 ** 31:
@@ -196,34 +218,47 @@ def transpose_dl(dL):
 
 
 class DenseLayout:
-    """What the dense kernels read beside the packed fields F (A, 2, YX)
-    of a Y x X film: bp_fwd's per-tile column windows and bp_bwd's voxel
-    lists. Each is built with torch on F's device at first use; the
-    fields are fixed for a whole optimization, so an engine builds them
-    once. The lists hold at most one 16-byte entry per (angle, voxel):
-    <= 0.42 GB at the bench scene (400 angles, 256 x 256 film)."""
+    """What the kernels read beside the packed fields F of a Y x X film:
+    the forward's per-tile column windows and the adjoint's voxel lists.
+    F is raster (A, 2, Y*X), or block-major with band starts u0 (A, T)
+    for the banded pair, whose windows and lists are built from the
+    band-masked taps (equal to the dense ones where band_span_ok holds).
+    Each is built with torch on F's device at first use; the fields are
+    fixed for a whole optimization, so an engine builds them once. The
+    lists hold at most one 16-byte entry per (angle, voxel): <= 0.42 GB
+    at the bench scene (400 angles, 256 x 256 film)."""
 
-    def __init__(self, F, U, Y, X):
+    def __init__(self, F, U, Y, X, u0=None):
         if F.shape[2] != Y * X:
             raise ValueError(f"fields of {F.shape[2]} cells for a {Y}x{X} "
                              "film")
-        self.F, self.U, self.Y, self.X = F, U, Y, X
+        if u0 is not None:
+            _check_band("DenseLayout", U, Y, X)
+        self.F, self.U, self.Y, self.X, self.u0 = F, U, Y, X, u0
+
+    def _raster(self):
+        if self.u0 is None:
+            return self.F, None
+        return band_to_raster(self.F, self.u0, self.Y, self.X)
 
     @cached_property
     def windows(self):
-        return tile_windows(self.F, self.U, self.Y, self.X)
+        F, lo = self._raster()
+        return tile_windows(F, self.U, self.Y, self.X, lo)
 
     @cached_property
     def lists(self):
-        return voxel_lists(self.F, self.U)
+        F, lo = self._raster()
+        return voxel_lists(F, self.U, lo)
 
     def build(self):
         """Build both now, outside any timed loop."""
         _ = self.windows, self.lists
         return self
 
-    def check(self, name, F, U):
-        if self.F is not F or self.U != U:
+    def check(self, name, F, U, u0=None, film=None):
+        if self.F is not F or self.U != U or self.u0 is not u0 or (
+                film is not None and film != (self.Y, self.X)):
             raise ValueError(f"{name}: the layout was built for other "
                              "fields")
 
@@ -318,8 +353,8 @@ def _setup(lib, name, n_ptr, n_int):
 _SETUP = {
     "bp_fwd": lambda lib: _setup(lib, "bp_fwd", 4, 6),
     "bp_bwd": lambda lib: _setup(lib, "bp_bwd", 5, 4),
-    "bp_fwd_band": lambda lib: _setup(lib, "bp_fwd_band", 4, 5),
-    "bp_bwd_band": lambda lib: _setup(lib, "bp_bwd_band", 4, 5),
+    "bp_fwd_band": lambda lib: _setup(lib, "bp_fwd_band", 4, 6),
+    "bp_bwd_band": lambda lib: _setup(lib, "bp_bwd_band", 5, 4),
 }
 
 
@@ -357,6 +392,29 @@ def _launch(name, dev, args):
         raise RuntimeError(f"{name}: CUDA launch failed, cudaError_t {err}")
 
 
+def _launch_fwd(name, dev, Pz, F, layout):
+    """The windowed forward (csrc/bp_fwd_kernel.cuh) on its layout."""
+    A, Zf, U = Pz.shape
+    win, maxw = layout.windows
+    out = torch.empty((Zf, F.shape[2]), dtype=torch.float32, device=dev)
+    _launch(name, dev, (Pz.data_ptr(), F.data_ptr(), win.data_ptr(),
+                        out.data_ptr(), A, Zf, U, layout.Y, layout.X, maxw))
+    return out
+
+
+def _launch_bwd(name, dev, dL, A, U, layout):
+    """The gather adjoint (csrc/bp_bwd_kernel.cuh) on its layout. Every
+    output element is written, so the output is not zeroed."""
+    Zf, YX = dL.shape
+    ptr, ent = layout.lists
+    dLt = torch.empty((YX, _round_up(Zf, 4)), dtype=torch.float32,
+                      device=dev)
+    out = torch.empty((A, Zf, U), dtype=torch.float32, device=dev)
+    _launch(name, dev, (dL.data_ptr(), ptr.data_ptr(), ent.data_ptr(),
+                        dLt.data_ptr(), out.data_ptr(), A, Zf, U, YX))
+    return out
+
+
 def fwd_dense(Pz, F, layout=None):
     """dose (Zf, YX) = sum_a Pz_a @ B_a. Pz (A, Zf, U), F (A, 2, YX);
     layout: the fields' DenseLayout (built here, for a one-row film, if
@@ -384,12 +442,7 @@ def fwd_dense(Pz, F, layout=None):
     if layout is None:
         layout = DenseLayout(F, U, 1, YX)
     layout.check("bp_fwd", F, U)
-    win, maxw = layout.windows
-    out = torch.empty((Zf, YX), dtype=torch.float32, device=dev)
-    _launch("bp_fwd", dev, (Pz.data_ptr(), F.data_ptr(), win.data_ptr(),
-                            out.data_ptr(), A, Zf, U, layout.Y, layout.X,
-                            maxw))
-    return out
+    return _launch_fwd("bp_fwd", dev, Pz, F, layout)
 
 
 def bwd_dense(dL, F, U, layout=None):
@@ -416,13 +469,7 @@ def bwd_dense(dL, F, U, layout=None):
     if layout is None:
         layout = DenseLayout(F, U, 1, YX)
     layout.check("bp_bwd", F, U)
-    ptr, ent = layout.lists
-    dLt = torch.empty((YX, _round_up(Zf, 4)), dtype=torch.float32,
-                      device=dev)
-    out = torch.empty((A, Zf, U), dtype=torch.float32, device=dev)
-    _launch("bp_bwd", dev, (dL.data_ptr(), ptr.data_ptr(), ent.data_ptr(),
-                            dLt.data_ptr(), out.data_ptr(), A, Zf, U, YX))
-    return out
+    return _launch_bwd("bp_bwd", dev, dL, A, U, layout)
 
 
 def _check_band(name, U, Y, X):
@@ -433,17 +480,19 @@ def _check_band(name, U, Y, X):
         raise ValueError(f"{name}: U = {U} is narrower than the band")
 
 
-def fwd_band(Pz, F, u0, Y, X):
+def fwd_band(Pz, F, u0, Y, X, layout=None):
     """Banded forward: dose (Zf, Y*X) raster. F (A, 2, T*TILE_B)
-    block-major, u0 (A, T) int32 band starts.
+    block-major, u0 (A, T) int32 band starts; layout: the fields'
+    DenseLayout (built here if not given).
 
     CUDA kernel csrc/bp_fwd_band.cu; replaces _fwd_banded (:362). Same
-    operands and bound as fwd_dense (Pz 164 MB, fields 210 MB at the
-    bench scene; shared-memory tap reads and Pz staging). A block owns a
-    quarter of one 32x64 film block x 32 z-rows and stages only the
-    256-column band of Pz per angle (32 KB, not all U columns), and
-    accumulates in registers; it writes the raster dose directly (no
-    unpermute pass)."""
+    work and bound as fwd_dense: 2 FMAs per (angle, in-band tap, z), the
+    float32 FMA rate. On the TPU the band is a staging width (B_a built
+    densely in VMEM over 256 rows); on Hopper it is a mask on the layout:
+    the column window of each (angle, 32x32 tile) is built from the
+    band-masked taps, and each tile lies in one 32x64 block, so bp_fwd's
+    windowed kernel, reading the block-major fields in place, keeps
+    exactly the in-band taps. A window is at most BANDW columns."""
     A, Zf, U = Pz.shape
     _check_band("bp_fwd_band", U, Y, X)
     T = (Y // BY) * (X // BX)
@@ -452,22 +501,23 @@ def fwd_band(Pz, F, u0, Y, X):
                  ((A, Zf, U), (A, 2, T * TILE_B), (A, T)))
     if dev.type == "cpu":
         return fwd_band_plain(Pz, F, u0, Y, X)
-    out = torch.empty((Zf, Y * X), dtype=torch.float32, device=dev)
-    _launch("bp_fwd_band", dev, (Pz.data_ptr(), F.data_ptr(),
-                                 u0.data_ptr(), out.data_ptr(),
-                                 A, Zf, U, Y, X))
-    return out
+    if layout is None:
+        layout = DenseLayout(F, U, Y, X, u0)
+    layout.check("bp_fwd_band", F, U, u0, (Y, X))
+    return _launch_fwd("bp_fwd_band", dev, Pz, F, layout)
 
 
-def bwd_band(dL, F, u0, U, Y, X):
-    """Banded adjoint: Pzbar (A, Zf, U) from raster dL (Zf, Y*X).
+def bwd_band(dL, F, u0, U, Y, X, layout=None):
+    """Banded adjoint: Pzbar (A, Zf, U) from raster dL (Zf, Y*X); layout
+    as for fwd_band.
 
-    CUDA kernel csrc/bp_bwd_band.cu; replaces _bwd_banded (:426). dL
-    (67 MB at the bench scene) is read once per angle; on the H100 the
-    kernel is bound by atomics. A block owns (angle, film block, 32
-    z-rows), accumulates its 32 x 256 band in shared memory, then adds
-    the band into the output with global atomicAdd, since the bands of
-    one angle overlap. Atomics sum in a run-dependent order."""
+    CUDA kernel csrc/bp_bwd_band.cu; replaces _bwd_banded (:426). Same
+    work and bound as bwd_dense, held back by reading each voxel's dL
+    line once per angle through L2. On Hopper the band is a mask on the
+    layout: the voxel lists hold the band-masked taps with raster voxel
+    indices, and bp_bwd's gather walks them. No atomics: every output is
+    written once, in a fixed order, so the result is bitwise
+    reproducible and the output is not zeroed first."""
     Zf = dL.shape[0]
     A = F.shape[0]
     _check_band("bp_bwd_band", U, Y, X)
@@ -477,12 +527,10 @@ def bwd_band(dL, F, u0, U, Y, X):
                  ((Zf, Y * X), (A, 2, T * TILE_B), (A, T)))
     if dev.type == "cpu":
         return bwd_band_plain(dL, F, u0, U, Y, X)
-    # bands of one angle overlap: the kernel adds into a zeroed output
-    out = torch.zeros((A, Zf, U), dtype=torch.float32, device=dev)
-    _launch("bp_bwd_band", dev, (dL.data_ptr(), F.data_ptr(),
-                                 u0.data_ptr(), out.data_ptr(),
-                                 A, Zf, U, Y, X))
-    return out
+    if layout is None:
+        layout = DenseLayout(F, U, Y, X, u0)
+    layout.check("bp_bwd_band", F, U, u0, (Y, X))
+    return _launch_bwd("bp_bwd_band", dev, dL, A, U, layout)
 
 
 # --------------------------------------------------------------------------
@@ -494,8 +542,8 @@ class PackedFields:
     kernels in the dense or the banded layout; one copy on the device.
 
     W, Umap: (A, Y, X) float32 tensors on the target device; U: DMD
-    columns. banded=True needs banded_eligible and band_span_ok. Dense
-    fields on the card also build their DenseLayout here, once."""
+    columns. banded=True needs banded_eligible and band_span_ok. Fields
+    on the card also build their DenseLayout here, once."""
 
     def __init__(self, W, Umap, U, banded):
         A, Y, X = W.shape
@@ -506,21 +554,23 @@ class PackedFields:
             self.F, self.u0 = _pack_fields_banded(W, Umap, U)
         else:
             self.F, self.u0 = _pack_fields(W, Umap), None
-            if self.F.is_cuda:
-                self.layout = DenseLayout(self.F, U, Y, X).build()
+        if self.F.is_cuda:
+            self.layout = DenseLayout(self.F, U, Y, X, self.u0).build()
 
     def forward(self, Pz):
         """(A, Zf, U) -> dose (Zf, Y*X)."""
         Pz = Pz.contiguous()
         if self.banded:
-            return fwd_band(Pz, self.F, self.u0, self.Y, self.X)
+            return fwd_band(Pz, self.F, self.u0, self.Y, self.X,
+                            self.layout)
         return fwd_dense(Pz, self.F, self.layout)
 
     def adjoint(self, dL):
         """(Zf, Y*X) -> Pzbar (A, Zf, U)."""
         dL = dL.contiguous()
         if self.banded:
-            return bwd_band(dL, self.F, self.u0, self.U, self.Y, self.X)
+            return bwd_band(dL, self.F, self.u0, self.U, self.Y, self.X,
+                            self.layout)
         return bwd_dense(dL, self.F, self.U, self.layout)
 
 

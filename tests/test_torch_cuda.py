@@ -11,7 +11,7 @@ import torch
 
 from drtvam_tpu_torch.ops import backproject as bp
 
-TOL = 1e-5  # f32 sums in another order; the banded adjoint uses atomics
+TOL = 1e-5  # f32 sums in another order than the plain versions
 
 
 def _fields(seed, A=5, Y=64, X=128, U=300, Zf=40):
@@ -113,6 +113,61 @@ def test_dense_kernels_without_a_layout(cuda_device):
     _close(bp.fwd_dense(Pz.to(cuda_device), Fd), bp.fwd_dense_plain(Pz, F))
     _close(bp.bwd_dense(dL.to(cuda_device), Fd, U),
            bp.bwd_dense_plain(dL, F, U))
+
+
+# (A, Y, X, U, Zf): scattered u, so most (angle, block) bands drop taps;
+# Zf off both kernels' z-chunks
+BAND_SPAN_FAIL = [(3, 64, 128, 300, 30), (2, 32, 64, 700, 130)]
+
+
+@pytest.mark.parametrize("shape", BAND_SPAN_FAIL)
+def test_band_kernels_drop_out_of_band_taps_like_plain(shape, cuda_device):
+    A, Y, X, U, Zf = shape
+    Pz, W, Umap, dL, U = _wide_fields(sum(shape), A, Y, X, U, Zf)
+    assert not bp.band_span_ok(W, Umap, U)
+    cpu = bp.PackedFields(W, Umap, U, banded=True)
+    gpu = bp.PackedFields(W.to(cuda_device), Umap.to(cuda_device), U,
+                          banded=True)
+    assert gpu.layout is not None and gpu.layout.windows[1] <= bp.BANDW
+    Pzd, dLd = Pz.to(cuda_device), dL.to(cuda_device)
+    before = dict(bp.launches)
+    fwd, bwd = gpu.forward(Pzd), gpu.adjoint(dLd)
+    fwd2, bwd2 = gpu.forward(Pzd), gpu.adjoint(dLd)
+    torch.cuda.synchronize()
+    assert bp.launches["bp_fwd_band"] == before["bp_fwd_band"] + 2
+    assert bp.launches["bp_bwd_band"] == before["bp_bwd_band"] + 2
+    _close(fwd, cpu.forward(Pz))
+    _close(bwd, cpu.adjoint(dL))
+    # no atomics: every output element is written once, in a fixed order
+    assert torch.equal(fwd, fwd2) and torch.equal(bwd, bwd2)
+
+
+@pytest.mark.parametrize("seed", [11, 12])
+def test_band_kernels_equal_dense_where_span_ok(seed, cuda_device):
+    """Where the bands cover their blocks, the band-masked layout is the
+    dense one and both pairs run the same kernel templates on it, in the
+    same order: the results are bitwise equal."""
+    Pz, W, Umap, dL, U = _fields(seed=seed)
+    assert bp.band_span_ok(W, Umap, U)
+    Wd, Ud = W.to(cuda_device), Umap.to(cuda_device)
+    dense = bp.PackedFields(Wd, Ud, U, banded=False)
+    band = bp.PackedFields(Wd, Ud, U, banded=True)
+    Pzd, dLd = Pz.to(cuda_device), dL.to(cuda_device)
+    assert torch.equal(band.forward(Pzd), dense.forward(Pzd))
+    assert torch.equal(band.adjoint(dLd), dense.adjoint(dLd))
+
+
+def test_band_kernels_without_a_layout(cuda_device):
+    """fwd_band / bwd_band called on bare fields build their own
+    layout and compute the same function."""
+    Pz, W, Umap, dL, U = _fields(seed=4)
+    A, Y, X = W.shape
+    F, u0 = bp._pack_fields_banded(W, Umap, U)
+    Fd, u0d = F.to(cuda_device), u0.to(cuda_device)
+    _close(bp.fwd_band(Pz.to(cuda_device), Fd, u0d, Y, X),
+           bp.fwd_band_plain(Pz, F, u0, Y, X))
+    _close(bp.bwd_band(dL.to(cuda_device), Fd, u0d, U, Y, X),
+           bp.bwd_band_plain(dL, F, u0, U, Y, X))
 
 
 def test_kernels_reject_cpu_cuda_mix(cuda_device):

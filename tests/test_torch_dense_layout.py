@@ -113,9 +113,11 @@ def _make_taps(W, u, base, n):
             torch.where(ok1, W * f, zero))
 
 
-def emulate_fwd(Pz, F, win, Y, X):
+def emulate_fwd(Pz, F, win, Y, X, fidx=None):
     """bp_fwd tile by tile: stage Pz[a, :, lo:hi+1] z innermost, apply
-    each voxel's two taps relative to the window."""
+    each voxel's two taps relative to the window. fidx: each raster
+    voxel's position in the fields (block-major for bp_fwd_band); raster
+    if not given."""
     A, Zf, U = Pz.shape
     tiles_x = -(-X // tbp.FT)
     out = torch.zeros((Zf, Y * X), dtype=torch.float32)
@@ -129,7 +131,8 @@ def emulate_fwd(Pz, F, win, Y, X):
             ys = torch.arange(y0, min(y0 + tbp.FT, Y))
             xs = torch.arange(x0, min(x0 + tbp.FT, X))
             j = (ys[:, None] * X + xs[None, :]).reshape(-1)
-            c0, c1, w0, w1 = _make_taps(F[a, 0, j], F[a, 1, j], lo,
+            fj = j if fidx is None else fidx[j]
+            c0, c1, w0, w1 = _make_taps(F[a, 0, fj], F[a, 1, fj], lo,
                                         hi - lo + 1)
             out[:, j] += (w0[:, None] * stage[c0] +
                           w1[:, None] * stage[c1]).t()
