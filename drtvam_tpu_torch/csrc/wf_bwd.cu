@@ -1,0 +1,22 @@
+// Wavefront path tracer, adjoint: the pattern gradient.
+//
+// Replaces the adjoint of drtvam_tpu/ops/march.py:913 trace_wavefront
+// (XLA): the same paths are replayed from the same counter-based
+// random stream, each deposit gathers dL instead of adding, and a
+// pixel's lanes are summed in lane order and written once (times the
+// ray weight), so the result is bitwise reproducible.
+//
+// Bound on the H100: the float32 work of the voxel steps (see
+// wf_trace.cuh); the gathers of dL read a 67 MB volume at the bench
+// scene's 256^3 film. The kernel is the per-lane template of
+// wf_trace.cuh (its design is described there).
+#include "wf_trace.cuh"
+
+// P: scene and sampling parameters; dL (n_cells,) loss gradient of the
+// flat accumulator; active_pixels (n_active,); grad (n_active,) output;
+// counters (2,) or null. Returns cudaGetLastError().
+extern "C" int wf_bwd(const WfParams* P, const float* dL,
+                      const int* active_pixels, float* grad,
+                      unsigned long long* counters, void* stream) {
+  return wf::launch<false>(P, dL, active_pixels, grad, counters, stream);
+}

@@ -1,0 +1,717 @@
+// The wavefront path tracer, one template for the whole per-lane path
+// loop: ray sampling, Russian roulette, the free-flight / surface race,
+// the dose estimator's segment (dda, ratio or delta), the target parity
+// flip, the dielectric BSDF (transmission-only or reflecting), diffuse
+// occlusions, phase sampling and the medium-transition bookkeeping.
+//
+// Replaces drtvam_tpu/ops/march.py:913 trace_wavefront (XLA, no Pallas
+// kernel on this path): the JAX package marches a wavefront of lanes in
+// lock step with per-lane masks and stages its deposits because TPU
+// scatters serialize. Here one thread owns one active pixel and traces
+// its spp lanes one after another (lane = pixel * spp + k), with all
+// lane state in registers: nothing per lane goes to device memory, so
+// there is no chunking. Two entry points instantiate it:
+//   wf_fwd.cu  (PRIMAL)   atomicAdd of each deposit into the flat dose
+//                          accumulator (n_cells,);
+//   wf_bwd.cu  (adjoint)  gathers dL at each deposit and writes one
+//                          pattern-gradient value per pixel, summed over
+//                          its lanes in lane order: bitwise reproducible.
+//
+// Bound on the H100: a DDA voxel step is ~20 float32 operations and two
+// expf; at the bench scene's ~10^10 steps per render that is a few ms at
+// the float32 peak. What holds the kernel back is elsewhere: divergence
+// between lanes of a warp (paths of different lengths), the SFU rate of
+// the expf pairs, and in the forward the atomics into a 67 MB dose grid
+// (256^3 film) that does not fit the 50 MB L2.
+//
+// The arithmetic is the plain version's (drtvam_tpu_torch/ops/march.py
+// and models/projector.py), operation for operation and in the same
+// order, and the sources are built with --fmad=false, so every float
+// operation rounds as torch's separate elementwise ops do. The random
+// stream is the JAX package's PCG3D in native uint32: a lane makes the
+// same draws in the same order (4 per bounce, 5 words in sample_rays
+// over 3 draws; ratio tracking one per step, its own stream).
+//
+// Template parameters: the estimator, scattering and transmission_only,
+// so each instantiation carries only the state it uses. The projector
+// kind, the surfaces (at most WF_MAX_SURF analytic cylinders or boxes)
+// and the phase function are runtime parameters.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#define WF_MAX_SURF 8
+
+// Mirror of WfParams in drtvam_tpu_torch/ops/render.py: 4-byte fields.
+struct WfParams {
+  int kind;  // 0 collimated, 1 telecentric, 2 lens
+  int n_patterns, resx, resy, n_active, identity, spp;
+  int regular_sampling, sample_time, clockwise;
+  float pixel_size[2], aperture_radius, focus_distance, motion_distance;
+  float ray_w;
+  int res[3];
+  float bbox_min[3], bbox_max[3];
+  float sigma_t, albedo, phase_g, majorant;
+  int phase;  // 0 rayleigh, 1 hg, 2 isotropic, 3 forward_delta
+  int estimator, has_scattering, transmission_only;
+  int max_depth, rr_depth, dda_max_steps;
+  unsigned seed;
+  int n_surf;
+  int surf_kind[WF_MAX_SURF], surf_bsdf[WF_MAX_SURF];
+  int surf_medium_side[WF_MAX_SURF], surf_is_target[WF_MAX_SURF];
+  float surf_params[3 * WF_MAX_SURF], surf_eta[WF_MAX_SURF];
+  float surf_refl[WF_MAX_SURF];
+};
+
+namespace wf {
+
+enum { DDA = 0, RATIO = 1, DELTA = 2 };
+enum { CYLINDER = 0, BOX = 1 };
+enum { DIELECTRIC = 0, NULL_BSDF = 1, ABSORB = 2, DIFFUSE = 3 };
+
+constexpr float RAY_EPS = 1e-4f;
+constexpr float U_MAX = (float)(1.0 - 1e-7);
+constexpr float TWO_PI = (float)(2.0 * 3.14159265358979323846);
+constexpr float QUARTER_PI = (float)(3.14159265358979323846 / 4.0);
+constexpr float HALF_PI = (float)(3.14159265358979323846 / 2.0);
+constexpr int RATIO_MAX_STEPS = 65536;
+
+__device__ __forceinline__ float inf() { return __int_as_float(0x7f800000); }
+// torch.minimum / maximum / clamp on non-NaN values
+__device__ __forceinline__ float mn(float a, float b) { return b < a ? b : a; }
+__device__ __forceinline__ float mx(float a, float b) { return b > a ? b : a; }
+__device__ __forceinline__ float clampf(float x, float lo, float hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+
+struct V3 {
+  float x, y, z;
+};
+__device__ __forceinline__ float comp(const V3& v, int k) {
+  return k == 0 ? v.x : (k == 1 ? v.y : v.z);
+}
+__device__ __forceinline__ float dot3(const V3& a, const V3& b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z;
+}
+__device__ __forceinline__ float norm3(const V3& v) {
+  return sqrtf(v.x * v.x + v.y * v.y + v.z * v.z);
+}
+__device__ __forceinline__ V3 div3(const V3& v, float s) {
+  return {v.x / s, v.y / s, v.z / s};
+}
+__device__ __forceinline__ V3 cross3(const V3& a, const V3& b) {
+  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z,
+          a.x * b.y - a.y * b.x};
+}
+// sum_j cols[j] * v_j, in index order
+__device__ __forceinline__ V3 rotate(const V3& c0, const V3& c1,
+                                     const V3& c2, const V3& v) {
+  return {c0.x * v.x + c1.x * v.y + c2.x * v.z,
+          c0.y * v.x + c1.y * v.y + c2.y * v.z,
+          c0.z * v.x + c1.z * v.y + c2.z * v.z};
+}
+// o + t * d
+__device__ __forceinline__ V3 along(const V3& o, float t, const V3& d) {
+  return {o.x + t * d.x, o.y + t * d.y, o.z + t * d.z};
+}
+
+// ---- PCG3D, the JAX package's counter-based sampler --------------------
+
+struct Rng {
+  uint32_t key, lane, ctr;
+  __device__ __forceinline__ void hash(uint32_t& x, uint32_t& y,
+                                       uint32_t& z) {
+    x = key * 1664525u + 1013904223u;
+    y = lane * 1664525u + 1013904223u;
+    z = ctr * 1664525u + 1013904223u;
+    x += y * z;
+    y += z * x;
+    z += x * y;
+    x ^= x >> 16;
+    y ^= y >> 16;
+    z ^= z >> 16;
+    x += y * z;
+    y += z * x;
+    z += x * y;
+    ++ctr;
+  }
+  __device__ __forceinline__ static float unit(uint32_t b) {
+    return (float)(b >> 8) * (1.0f / 16777216.0f);
+  }
+  __device__ __forceinline__ float next1() {
+    uint32_t x, y, z;
+    hash(x, y, z);
+    return unit(x);
+  }
+  __device__ __forceinline__ float2 next2() {
+    uint32_t x, y, z;
+    hash(x, y, z);
+    return make_float2(unit(x), unit(y));
+  }
+};
+
+// ---- warps, medium, fresnel ---------------------------------------------
+
+__device__ __forceinline__ float2 disk_concentric(float2 u) {
+  float x = 2.0f * u.x - 1.0f;
+  float y = 2.0f * u.y - 1.0f;
+  bool use_x = fabsf(x) > fabsf(y);
+  float r = use_x ? x : y;
+  bool origin = (x == 0.0f) && (y == 0.0f);
+  float safe = origin ? 1.0f : r;
+  float ratio = use_x ? y / safe : x / safe;
+  float phi = use_x ? QUARTER_PI * ratio : HALF_PI - QUARTER_PI * ratio;
+  if (origin) phi = 0.0f;
+  return make_float2(r * cosf(phi), r * sinf(phi));
+}
+
+__device__ __forceinline__ V3 cosine_hemisphere(float2 u) {
+  float2 d = disk_concentric(u);
+  float z = sqrtf(mx(1.0f - (d.x * d.x + d.y * d.y), 0.0f));
+  return {d.x, d.y, z};
+}
+
+__device__ __forceinline__ void onb(const V3& n, V3& t, V3& bt) {
+  float s = n.z >= 0.0f ? 1.0f : -1.0f;
+  float a = -1.0f / (s + n.z);
+  float b = n.x * n.y * a;
+  t = {1.0f + s * (n.x * n.x) * a, s * b, -s * n.x};
+  bt = {b, s + (n.y * n.y) * a, -n.y};
+}
+
+__device__ __forceinline__ float phase_cos(int phase, float u, float g) {
+  switch (phase) {
+    case 0: {  // rayleigh: pow(., 1/3) as torch.pow in the plain version
+      float c = 4.0f * (2.0f * u - 1.0f);
+      float w = powf(c * 0.5f + sqrtf(c * c * 0.25f + 1.0f), 1.0f / 3.0f);
+      return clampf(w - 1.0f / w, -1.0f, 1.0f);
+    }
+    case 1: {  // henyey-greenstein
+      float sqr = (1.0f - g * g) / (1.0f - g + 2.0f * g * u);
+      float cos_iso = 1.0f - 2.0f * u;
+      float cos_hg = (1.0f + g * g - sqr * sqr) /
+                     (2.0f * (g == 0.0f ? 1.0f : g));
+      return clampf(g == 0.0f ? cos_iso : cos_hg, -1.0f, 1.0f);
+    }
+    case 2:
+      return 1.0f - 2.0f * u;
+    default:
+      return 1.0f;
+  }
+}
+
+__device__ __forceinline__ V3 sample_phase(int phase, float g, const V3& d,
+                                           float u1, float u2) {
+  float cos_t = phase_cos(phase, u1, g);
+  float sin_t = sqrtf(mx(1.0f - cos_t * cos_t, 0.0f));
+  float phi = TWO_PI * u2;
+  V3 t1, t2;
+  onb(d, t1, t2);
+  float a = sin_t * cosf(phi), b = sin_t * sinf(phi);
+  return {a * t1.x + b * t2.x + cos_t * d.x, a * t1.y + b * t2.y + cos_t * d.y,
+          a * t1.z + b * t2.z + cos_t * d.z};
+}
+
+__device__ __forceinline__ float free_flight(float u, float sigma) {
+  return -log1pf(-clampf(u, 0.0f, U_MAX)) / sigma;
+}
+
+// refract d at a surface with outward normal n, int/ext IOR ratio eta
+__device__ __forceinline__ void refract(const V3& d, const V3& n, float eta,
+                                        V3& d_t, V3& d_r, float& F,
+                                        bool& tir, float& eta_rel) {
+  float cos_i = -dot3(d, n);
+  bool outside = cos_i > 0.0f;
+  eta_rel = outside ? eta : 1.0f / eta;
+  V3 nl = outside ? n : V3{-n.x, -n.y, -n.z};
+  // the Fresnel terms take |cos_i| clipped to [0, 1], the directions
+  // the unclipped value, as in the plain version
+  float ci = fabsf(cos_i);
+  float cc = clampf(ci, 0.0f, 1.0f);
+  float sin_t2 = (1.0f - cc * cc) / (eta_rel * eta_rel);
+  tir = sin_t2 >= 1.0f;
+  float ct = sqrtf(mx(1.0f - sin_t2, 0.0f));
+  float r_par = (eta_rel * cc - ct) / (eta_rel * cc + ct);
+  float r_perp = (cc - eta_rel * ct) / (cc + eta_rel * ct);
+  F = tir ? 1.0f : 0.5f * (r_par * r_par + r_perp * r_perp);
+  if (tir) ct = 0.0f;
+  float inv_eta = 1.0f / eta_rel;
+  float k = inv_eta * ci - ct;
+  d_t = {inv_eta * d.x + k * nl.x, inv_eta * d.y + k * nl.y,
+         inv_eta * d.z + k * nl.z};
+  float c2 = 2.0f * ci;
+  d_r = {d.x + c2 * nl.x, d.y + c2 * nl.y, d.z + c2 * nl.z};
+}
+
+// ---- analytic intersection ------------------------------------------------
+
+__device__ __forceinline__ float ray_cylinder(const V3& o, const V3& d,
+                                              float r, float z0, float z1,
+                                              V3& n) {
+  float a = d.x * d.x + d.y * d.y;
+  float b = 2.0f * (o.x * d.x + o.y * d.y);
+  float c = o.x * o.x + o.y * o.y - r * r;
+  float disc = b * b - 4.0f * a * c;
+  bool big = a > 1e-20f;
+  bool ok = disc >= 0.0f && big;
+  float sq = sqrtf(mx(disc, 0.0f));
+  float inv2a = 0.5f / (big ? a : 1.0f);
+  float t0 = (-b - sq) * inv2a;
+  float t1 = (-b + sq) * inv2a;
+  float za = o.z + t0 * d.z, zb = o.z + t1 * d.z;
+  float t0v = (ok && t0 > RAY_EPS && za >= z0 && za <= z1) ? t0 : inf();
+  float t1v = (ok && t1 > RAY_EPS && zb >= z0 && zb <= z1) ? t1 : inf();
+  float t = mn(t0v, t1v);
+  float inv_r = 1.0f / r;
+  n = {(o.x + t * d.x) * inv_r, (o.y + t * d.y) * inv_r, 0.0f};
+  return t;
+}
+
+__device__ __forceinline__ float ray_box(const V3& o, const V3& d,
+                                         const float* h, V3& n) {
+  float near_v[3], far_v[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    float dk = comp(d, k), ok = comp(o, k);
+    float inv = 1.0f / (fabsf(dk) > 1e-20f ? dk : 1e-20f);
+    float lo = (-h[k] - ok) * inv;
+    float hi = (h[k] - ok) * inv;
+    near_v[k] = mn(lo, hi);
+    far_v[k] = mx(lo, hi);
+  }
+  float t_near = mx(mx(near_v[0], near_v[1]), near_v[2]);
+  float t_far = mn(mn(far_v[0], far_v[1]), far_v[2]);
+  bool hit = t_near <= t_far;
+  float t_n = (hit && t_near > RAY_EPS) ? t_near : inf();
+  float t_f = (hit && t_far > RAY_EPS) ? t_far : inf();
+  float t = mn(t_n, t_f);
+  int axis;
+  if (t == t_n) {
+    axis = near_v[0] == t_near ? 0 : (near_v[1] == t_near ? 1 : 2);
+  } else {
+    axis = far_v[0] == t_far ? 0 : (far_v[1] == t_far ? 1 : 2);
+  }
+  float p = comp(o, axis) + t * comp(d, axis);
+  float sgn = p > 0.0f ? 1.0f : (p < 0.0f ? -1.0f : 0.0f);
+  n = {axis == 0 ? sgn : 0.0f, axis == 1 ? sgn : 0.0f,
+       axis == 2 ? sgn : 0.0f};
+  return t;
+}
+
+// nearest surface: returns t (inf on a miss), its normal and surface id
+__device__ __forceinline__ float intersect_scene(const WfParams& P,
+                                                 const V3& o, const V3& d,
+                                                 V3& n_best, int& sid) {
+  float t_best = inf();
+  n_best = {0.0f, 0.0f, 0.0f};
+  sid = -1;
+  for (int i = 0; i < P.n_surf; ++i) {
+    const float* p = P.surf_params + 3 * i;
+    V3 n;
+    float t = P.surf_kind[i] == CYLINDER ? ray_cylinder(o, d, p[0], p[1],
+                                                        p[2], n)
+                                         : ray_box(o, d, p, n);
+    if (t < t_best) {
+      t_best = t;
+      n_best = n;
+      sid = i;
+    }
+  }
+  return t_best;
+}
+
+// ---- the film -----------------------------------------------------------
+
+struct Grid {
+  float bmin[3], bmax[3], vs[3], inv_vs[3];
+  int res[3];
+  __device__ void init(const WfParams& P) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      bmin[k] = P.bbox_min[k];
+      bmax[k] = P.bbox_max[k];
+      res[k] = P.res[k];
+      vs[k] = (bmax[k] - bmin[k]) / (float)res[k];
+      inv_vs[k] = 1.0f / vs[k];
+    }
+  }
+  __device__ __forceinline__ int flat(int v0, int v1, int v2) const {
+    return v0 + res[0] * (v1 + res[1] * v2);
+  }
+  // voxel of p; false outside the grid
+  __device__ __forceinline__ bool voxel_flat(const V3& p, int& f) const {
+    int v0 = (int)floorf((p.x - bmin[0]) * inv_vs[0]);
+    int v1 = (int)floorf((p.y - bmin[1]) * inv_vs[1]);
+    int v2 = (int)floorf((p.z - bmin[2]) * inv_vs[2]);
+    f = flat(v0, v1, v2);
+    return v0 >= 0 && v1 >= 0 && v2 >= 0 && v0 < res[0] && v1 < res[1] &&
+           v2 < res[2];
+  }
+};
+
+// one deposit: the primal adds into the accumulator, the adjoint gathers
+template <bool PRIMAL>
+struct Sink {
+  float* acc;       // primal
+  const float* dL;  // adjoint
+  float g;
+  __device__ __forceinline__ void deposit(int flat, float val) {
+    if (PRIMAL) {
+      atomicAdd(acc + flat, val);
+    } else {
+      g = g + val * __ldg(dL + flat);
+    }
+  }
+};
+
+// ---- dose estimators: one straight segment [o, o + maxt d] ---------------
+
+template <bool PRIMAL>
+__device__ void dda_segment(const WfParams& P, const Grid& G, Sink<PRIMAL>& S,
+                            const V3& o, const V3& d, float maxt, float base,
+                            float st, unsigned long long& steps) {
+  float od[3] = {o.x, o.y, o.z}, dd[3] = {d.x, d.y, d.z};
+  float safe_d[3], dtmax[3], tstep[3];
+  int step_dir[3], voxel[3], end_voxel[3];
+  float mint_box = -inf(), maxt_box = inf();
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    safe_d[k] = fabsf(dd[k]) > 1e-20f ? dd[k] : 1e-20f;
+    float b0 = (G.bmin[k] - od[k]) / safe_d[k];
+    float b1 = (G.bmax[k] - od[k]) / safe_d[k];
+    mint_box = mx(mint_box, mn(b0, b1));
+    maxt_box = mn(maxt_box, mx(b0, b1));
+  }
+  mint_box = mx(mint_box, 0.0f);
+  float t_start = mx(mint_box, 0.0f);
+  float t_end = mn(maxt_box, maxt);
+  if (!(isfinite(t_start) && isfinite(t_end) && t_start < t_end)) return;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    float gs = od[k] + t_start * dd[k];
+    float ge = od[k] + t_end * dd[k];
+    step_dir[k] = dd[k] > 0.0f ? 1 : -1;
+    int sv = (int)((gs - G.bmin[k]) / G.vs[k]);
+    int ev = (int)((ge - G.bmin[k]) / G.vs[k]);
+    voxel[k] = sv < 0 ? 0 : (sv > G.res[k] - 1 ? G.res[k] - 1 : sv);
+    end_voxel[k] = ev < 0 ? 0 : (ev > G.res[k] - 1 ? G.res[k] - 1 : ev);
+    float nvp = G.bmin[k] + (float)(voxel[k] + step_dir[k]) * G.vs[k] +
+                (dd[k] < 0.0f ? G.vs[k] : 0.0f);
+    bool valid_dir = fabsf(dd[k]) > 1e-8f;
+    float dm = valid_dir ? (nvp - gs) / safe_d[k] : inf();
+    dtmax[k] = dm < 0.0f ? inf() : dm;
+    tstep[k] = valid_dir ? G.vs[k] / safe_d[k] * (float)step_dir[k] : inf();
+  }
+  float t = t_start, remaining = t_end - t_start;
+  bool act = true;
+  for (int i = 0; i < P.dda_max_steps && act; ++i) {
+    float t_at = t;
+    float dt = mn(mn(mn(dtmax[0], dtmax[1]), dtmax[2]), remaining);
+    int flat = G.flat(voxel[0], voxel[1], voxel[2]);
+    remaining = remaining - dt;
+    act = (end_voxel[0] != voxel[0] || end_voxel[1] != voxel[1] ||
+           end_voxel[2] != voxel[2]) &&
+          remaining > 1e-6f;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      bool m = dtmax[k] == dt;
+      dtmax[k] = m ? tstep[k] : dtmax[k] - dt;
+      if (act && m) voxel[k] += step_dir[k];
+    }
+    act = act && voxel[0] >= 0 && voxel[1] >= 0 && voxel[2] >= 0 &&
+          voxel[0] < G.res[0] && voxel[1] < G.res[1] && voxel[2] < G.res[2];
+    if (act) t = t + dt;
+    float contrib = base * expf(-st * t_at) * (1.0f - expf(-st * mx(dt, 0.0f)));
+    S.deposit(flat, contrib);
+    ++steps;
+  }
+}
+
+template <bool PRIMAL>
+__device__ void ratio_segment(const WfParams& P, const Grid& G,
+                              Sink<PRIMAL>& S, Rng& rng, const V3& o,
+                              const V3& d, float maxt, float base, float st,
+                              unsigned long long& steps) {
+  float M = P.majorant;
+  base = base * (st / M);
+  float log_ratio = logf(mx(1.0f - st / M, 1e-30f));
+  float t = 0.0f, k = 0.0f;
+  for (int i = 0; i < RATIO_MAX_STEPS; ++i) {
+    float u = rng.next1();
+    t = t + free_flight(u, M);
+    ++steps;
+    if (!(t < maxt)) break;
+    int flat;
+    bool in_grid = G.voxel_flat(along(o, t, d), flat);
+    float ratio_k = expf(k * log_ratio);
+    k = k + 1.0f;
+    if (in_grid) S.deposit(flat, base * ratio_k);
+  }
+}
+
+// ---- the per-lane path loop -----------------------------------------------
+
+template <int EST, bool SCAT, bool TONLY, bool PRIMAL>
+__device__ void trace_lane(const WfParams& P, const Grid& G, uint32_t lane,
+                           int aidx, const int* __restrict__ active_pixels,
+                           float em, Sink<PRIMAL>& S,
+                           unsigned long long& iters,
+                           unsigned long long& steps) {
+  Rng rng{P.seed + 0x9E3779B9u, lane, 0u};
+
+  // ---- ray generation (models/projector.py sample_rays)
+  const int w = P.resx, h = P.resy;
+  const int idx = P.identity ? aidx : active_pixels[aidx];
+  const int emitter = idx / (h * w);
+  const int pixel = idx % (h * w);
+  const int py = pixel / w;
+  const int px = pixel - py * w;
+  float2 u_pos = rng.next2();
+  float sx = P.regular_sampling ? (float)px + 0.5f : (float)px + u_pos.x;
+  float sy = P.regular_sampling ? (float)py + 0.5f : (float)py + u_pos.y;
+  sx = sx / (float)w;
+  sy = sy / (float)h;
+  float u_t = rng.next1();
+  float time = (float)emitter;
+  if (P.sample_time) time = time + u_t;
+  time = time / (float)P.n_patterns;
+  float2 u_ap = rng.next2();
+
+  const float ex = (float)w * P.pixel_size[0];
+  const float ey = (float)h * P.pixel_size[1];
+  const float focus = P.focus_distance;
+  V3 o_cam, d_cam;
+  if (P.kind == 0) {
+    o_cam = {(0.5f - sx) * ex, (0.5f - sy) * ey, 0.0f};
+    d_cam = {0.0f, 0.0f, 1.0f};
+  } else {
+    float2 dk = disk_concentric(u_ap);
+    float apx = P.aperture_radius * dk.x, apy = P.aperture_radius * dk.y;
+    V3 dd;
+    if (P.kind == 1) {
+      o_cam = {(0.5f - sx) * ex + apx, (0.5f - sy) * ey + apy, 0.0f};
+      dd = {-apx, -apy, 0.0f + focus};
+    } else {
+      o_cam = {apx, apy, 0.0f};
+      dd = {(0.5f - sx) * ex - apx, (0.5f - sy) * ey - apy,
+            (0.0f + focus) - 0.0f};
+    }
+    d_cam = div3(dd, norm3(dd));
+  }
+  float alpha = TWO_PI * time;
+  if (P.clockwise) alpha = -alpha;
+  const float md = P.motion_distance;
+  V3 origin = {md * cosf(alpha), md * sinf(alpha), md * 0.0f};
+  V3 dirw = div3({-origin.x, -origin.y, -origin.z}, norm3(origin));
+  V3 left = cross3({0.0f, 0.0f, 1.0f}, dirw);
+  left = div3(left, norm3(left));
+  V3 up2 = cross3(dirw, left);
+  V3 o = rotate(left, up2, dirw, o_cam);
+  o = {o.x + origin.x, o.y + origin.y, o.z + origin.z};
+  V3 d = rotate(left, up2, dirw, d_cam);
+
+  // ---- the bounce loop (ops/march.py trace_wavefront)
+  const float st = P.sigma_t;
+  const float sa_over_st = 1.0f - P.albedo;
+  float A = 1.0f, total_t = 0.0f;
+  bool inside_target = false, in_medium = false;
+  int depth = 0;
+  const int max_iters = 2 * P.max_depth + 16;
+  for (int it = 0; it < max_iters; ++it) {
+    ++iters;
+    // Russian roulette
+    float rr_A = SCAT ? A : A * expf(-st * total_t);
+    float q = mn(rr_A, 0.99f);
+    bool perform_rr = depth > P.rr_depth;
+    float u_rr = rng.next1();
+    if (perform_rr) {
+      if (!(u_rr < q)) break;
+      A = A / mx(q, 1e-12f);
+    }
+    if (A == 0.0f) break;
+
+    // next surface
+    V3 n_si;
+    int sid;
+    float t_si = intersect_scene(P, o, d, n_si, sid);
+    if (!isfinite(t_si)) break;
+    const bool hit_target = P.surf_is_target[sid] != 0;
+
+    // medium interaction sampling
+    float u_ff = rng.next1();
+    float mei_t = inf();
+    bool reached_surface = in_medium;
+    float w_med = 1.0f;
+    if (SCAT) {
+      mei_t = free_flight(u_ff, st);
+      reached_surface = in_medium && (t_si < mei_t);
+      if (reached_surface) mei_t = inf();
+      w_med = reached_surface ? 1.0f : 1.0f / st;
+    }
+    const bool medium_event = in_medium && !reached_surface;
+
+    // dose deposit along this segment
+    if (in_medium) {
+      float base = (SCAT ? A : A * expf(-st * total_t)) * sa_over_st;
+      if (PRIMAL) base = base * em;
+      if (EST == DDA) {
+        dda_segment<PRIMAL>(P, G, S, o, d, t_si, base, st, steps);
+      } else if (EST == RATIO) {
+        ratio_segment<PRIMAL>(P, G, S, rng, o, d, t_si, base, st, steps);
+      } else if (isfinite(mei_t)) {
+        int flat;
+        if (G.voxel_flat(along(o, mei_t, d), flat)) {
+          S.deposit(flat, base);
+          ++steps;
+        }
+      }
+    }
+
+    // inside / outside parity flip (may leak, as the reference's)
+    inside_target = inside_target != hit_target;
+
+    // BSDF sampling at surfaces
+    const bool active_surface = !medium_event;
+    float u_b = rng.next1();
+    float2 u_ph = rng.next2();
+    const int kind = P.surf_bsdf[sid];
+    V3 d_new = d;
+    float w_bsdf = kind == NULL_BSDF ? 1.0f : 0.0f;
+    if (kind == DIELECTRIC) {
+      V3 d_t, d_r;
+      float F, eta_rel;
+      bool tir;
+      refract(d, n_si, P.surf_eta[sid], d_t, d_r, F, tir, eta_rel);
+      float inv_eta2 = 1.0f / (eta_rel * eta_rel);
+      float w_tr = tir ? 0.0f : (1.0f - F) * inv_eta2;
+      if (TONLY || depth == 0) {
+        d_new = d_t;
+        w_bsdf = w_tr;
+      } else {
+        bool reflectp = u_b < F;
+        d_new = reflectp ? d_r : d_t;
+        w_bsdf = reflectp ? 1.0f : inv_eta2;
+      }
+    }
+    if (!TONLY && kind == DIFFUSE && depth != 0) {
+      // cosine-hemisphere reflection on the incident side, weight =
+      // reflectance
+      V3 nl = dot3(d, n_si) < 0.0f ? n_si : V3{-n_si.x, -n_si.y, -n_si.z};
+      V3 tg, btg;
+      onb(nl, tg, btg);
+      V3 hh = cosine_hemisphere(u_ph);
+      d_new = {hh.x * tg.x + hh.y * btg.x + hh.z * nl.x,
+               hh.x * tg.y + hh.y * btg.y + hh.z * nl.y,
+               hh.x * tg.z + hh.y * btg.z + hh.z * nl.z};
+      w_bsdf = P.surf_refl[sid];
+    }
+
+    // phase sampling at medium events, position and attenuation update
+    const float seg_t = medium_event ? mei_t : t_si;
+    o = along(o, seg_t, d);
+    if (medium_event) {
+      d = sample_phase(P.phase, P.phase_g, d, u_ph.x, u_ph.y);
+      A = A * (w_med * (st * P.albedo));
+    } else {
+      d = d_new;
+      A = A * w_bsdf;
+    }
+    if (in_medium) total_t = total_t + seg_t;
+
+    // medium transition: does the new direction enter the medium?
+    const int ms = P.surf_medium_side[sid];
+    const float dn = dot3(d, n_si);
+    const bool enters = (ms == 1 && dn < 0.0f) || (ms == 2 && dn > 0.0f);
+    in_medium = (in_medium && !reached_surface) ||
+                (active_surface && (hit_target || enters));
+    if (!(active_surface || in_medium) || A == 0.0f) break;
+    if (!hit_target) ++depth;
+    if (depth >= P.max_depth) break;
+  }
+}
+
+#ifdef __CUDACC__
+// (everything above is plain C++ on stubs of the CUDA names, so the
+// per-lane template also builds with a host compiler:
+// tests/test_torch_wf_template.py holds it to the plain version there)
+
+// one thread per active pixel, its spp lanes in lane order
+template <int EST, bool SCAT, bool TONLY, bool PRIMAL>
+__global__ void __launch_bounds__(128)
+    wf_kernel(const WfParams P, const float* __restrict__ in,
+              const int* __restrict__ active_pixels, float* __restrict__ out,
+              unsigned long long* __restrict__ counters) {
+  const int aidx = blockIdx.x * blockDim.x + threadIdx.x;
+  unsigned long long iters = 0, steps = 0;
+  if (aidx < P.n_active) {
+    Grid G;
+    G.init(P);
+    Sink<PRIMAL> S{out, in, 0.0f};
+    // em = pattern value x ray weight; a pixel at 0 deposits only zeros
+    const float em = PRIMAL ? in[aidx] * P.ray_w : 1.0f;
+    if (!PRIMAL || em != 0.0f) {
+      float gsum = 0.0f;
+      for (int k = 0; k < P.spp; ++k) {
+        S.g = 0.0f;
+        trace_lane<EST, SCAT, TONLY, PRIMAL>(
+            P, G, (uint32_t)aidx * (uint32_t)P.spp + (uint32_t)k, aidx,
+            active_pixels, em, S, iters, steps);
+        gsum = k == 0 ? S.g : gsum + S.g;
+      }
+      if (!PRIMAL) out[aidx] = gsum * P.ray_w;
+    } else if (!PRIMAL) {
+      out[aidx] = 0.0f;
+    }
+  }
+  if (counters != nullptr) {
+    // one add per warp
+    for (int off = 16; off > 0; off >>= 1) {
+      iters += __shfl_down_sync(0xffffffffu, iters, off);
+      steps += __shfl_down_sync(0xffffffffu, steps, off);
+    }
+    if ((threadIdx.x & 31) == 0) {
+      atomicAdd(counters, iters);
+      atomicAdd(counters + 1, steps);
+    }
+  }
+}
+
+template <bool PRIMAL>
+int launch(const WfParams* p, const float* in, const int* active_pixels,
+           float* out, unsigned long long* counters, void* stream) {
+  const WfParams P = *p;
+  if (P.n_active <= 0) return 0;
+  if (P.n_surf > WF_MAX_SURF) return (int)cudaErrorInvalidValue;
+  dim3 block(128), grid((P.n_active + 127) / 128);
+  cudaStream_t s = (cudaStream_t)stream;
+  const int key = P.estimator * 4 + (P.has_scattering ? 2 : 0) +
+                  (P.transmission_only ? 1 : 0);
+#define WF_CASE(E, SC, TO)                                               \
+  case E * 4 + (SC ? 2 : 0) + (TO ? 1 : 0):                              \
+    wf_kernel<E, SC, TO, PRIMAL>                                         \
+        <<<grid, block, 0, s>>>(P, in, active_pixels, out, counters);    \
+    break;
+  switch (key) {
+    WF_CASE(DDA, false, false)
+    WF_CASE(DDA, false, true)
+    WF_CASE(DDA, true, false)
+    WF_CASE(DDA, true, true)
+    WF_CASE(RATIO, false, false)
+    WF_CASE(RATIO, false, true)
+    WF_CASE(RATIO, true, false)
+    WF_CASE(RATIO, true, true)
+    WF_CASE(DELTA, false, false)
+    WF_CASE(DELTA, false, true)
+    WF_CASE(DELTA, true, false)
+    WF_CASE(DELTA, true, true)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef WF_CASE
+  return (int)cudaGetLastError();
+}
+#endif  // __CUDACC__
+
+}  // namespace wf

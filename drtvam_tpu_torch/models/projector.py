@@ -1,13 +1,17 @@
-"""DMD projectors: the sparse pattern store (counterpart of
-drtvam_tpu/models/projector.py:32-222).
+"""DMD projectors: the sparse pattern store and per-lane ray sampling
+(counterpart of drtvam_tpu/models/projector.py).
 
 Patterns live as a sparse pair: `active_data` float values and
 `active_pixels` flat indices into the dense (n_patterns, resy, resx)
-stack, with crop-window support. Host numpy storage; the ballistic
-engine moves what it needs to the device once.
+stack, with crop-window support. Host numpy storage; the engines move
+what they need to the device once.
 
-Per-lane ray sampling (projector.py:224-315) belongs to the wavefront
-path tracer, ROADMAP queue 1 item 10.
+`sample_rays` and `ray_weight` generate the wavefront's rays: lane ->
+(pattern, pixel row and column) -> a jittered position in [0, 1]^2 ->
+a camera-space ray of the projection model (collimated, telecentric,
+lens) -> world space through the circular-motion look-at frame at
+time = pattern / n_patterns. The CUDA kernels (csrc/wf_trace.cuh)
+repeat the same arithmetic in the same order.
 """
 from __future__ import annotations
 
@@ -16,7 +20,9 @@ import os
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
+from ..core.warp import TWO_PI, square_to_uniform_disk_concentric
 from .motion import motions
 
 
@@ -201,3 +207,103 @@ class Projector:
             "focus_distance": np.float32(self.focus_distance),
             "motion_distance": np.float32(self.motion.distance),
         }
+
+
+PROJECTOR_KINDS = ("collimated", "telecentric", "lens")
+
+
+def _cross(a, b):
+    return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                        a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], -1)
+
+
+def _norm(v):
+    return torch.sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1] +
+                      v[..., 2] * v[..., 2])[..., None]
+
+
+def _rotate(cols, v):
+    """sum_j cols[j] * v[..., j], in index order."""
+    return cols[0] * v[..., 0:1] + cols[1] * v[..., 1:2] + \
+        cols[2] * v[..., 2:3]
+
+
+def sample_rays(pstat: ProjectorStatic, parr, active_pixels, lane, spp,
+                sampler, ctr, regular_sampling, sample_time, clockwise):
+    """Per-lane rays. lane: (n,) int64 global lane ids (uint32 values);
+    the active index is lane // spp. parr: the scene's tensors
+    (pixel_size, aperture_radius, focus_distance, motion_distance).
+    Three draws per lane: position (2d), time (1d), aperture (2d).
+    Returns (o, d, aidx, ctr)."""
+    dev = lane.device
+    aidx = lane // spp
+    idx = aidx if pstat.identity else active_pixels[aidx].to(torch.int64)
+    w, h = pstat.resx, pstat.resy
+    emitter_idx = idx // (h * w)
+    pixel_idx = idx % (h * w)
+    py = pixel_idx // w
+    px = pixel_idx - py * w
+    pos = torch.stack([px, py], -1).to(torch.float32)
+
+    u_pos, ctr = sampler.next_2d(lane, ctr)
+    pos_f = pos + 0.5 if regular_sampling else pos + u_pos
+    s = pos_f / torch.tensor([w, h], dtype=torch.float32, device=dev)
+
+    u_t, ctr = sampler.next_1d(lane, ctr)
+    time = emitter_idx.to(torch.float32)
+    if sample_time:
+        time = time + u_t
+    time = time / torch.tensor(pstat.n_patterns, dtype=torch.float32,
+                               device=dev)
+
+    u_ap, ctr = sampler.next_2d(lane, ctr)
+
+    psx, psy = parr["pixel_size"][0], parr["pixel_size"][1]
+    ex, ey = w * psx, h * psy
+    zero = torch.zeros_like(s[..., 0])
+    focus = parr["focus_distance"]
+    if pstat.kind == "collimated":
+        o_cam = torch.stack([(0.5 - s[..., 0]) * ex,
+                             (0.5 - s[..., 1]) * ey, zero], -1)
+        d_cam = torch.stack([zero, zero, zero + 1.0], -1)
+    elif pstat.kind == "telecentric":
+        ap = parr["aperture_radius"] * square_to_uniform_disk_concentric(u_ap)
+        o_cam = torch.stack([(0.5 - s[..., 0]) * ex + ap[..., 0],
+                             (0.5 - s[..., 1]) * ey + ap[..., 1], zero], -1)
+        d = torch.stack([-ap[..., 0], -ap[..., 1], zero + focus], -1)
+        d_cam = d / _norm(d)
+    elif pstat.kind == "lens":
+        ap = parr["aperture_radius"] * square_to_uniform_disk_concentric(u_ap)
+        o_cam = torch.stack([ap[..., 0], ap[..., 1], zero], -1)
+        focus_p = torch.stack([(0.5 - s[..., 0]) * ex,
+                               (0.5 - s[..., 1]) * ey, zero + focus], -1)
+        d = focus_p - o_cam
+        d_cam = d / _norm(d)
+    else:
+        raise ValueError(pstat.kind)
+
+    # circular motion look-at (world-from-camera)
+    alpha = TWO_PI * time
+    if clockwise:
+        alpha = -alpha
+    origin = parr["motion_distance"] * torch.stack(
+        [torch.cos(alpha), torch.sin(alpha), torch.zeros_like(alpha)], -1)
+    dirw = -origin / _norm(origin)
+    up = torch.zeros_like(dirw)
+    up[..., 2] = 1.0
+    left = _cross(up, dirw)
+    left = left / _norm(left)
+    up2 = _cross(dirw, left)
+    cols = (left, up2, dirw)
+    return _rotate(cols, o_cam) + origin, _rotate(cols, d_cam), aidx, ctr
+
+
+def ray_weight(pstat: ProjectorStatic, parr, spp, print_time):
+    """inv_pdf / n_samples * print_time, the same for every lane: the
+    pixel area (pixel_size[0]^2 for a lens) x print_time / spp, as a
+    float32 0-dim tensor."""
+    ps = parr["pixel_size"]
+    area = ps[0] * ps[0] if pstat.kind == "lens" else ps[0] * ps[1]
+    return area * print_time / torch.tensor(spp, dtype=torch.float32,
+                                            device=ps.device)

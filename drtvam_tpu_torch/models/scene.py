@@ -8,9 +8,9 @@ numpy arrays, key for key and bit for bit the JAX package's.
 The target mesh is normalized into the print volume with
 v' = (v - bbox_center) * size / max(extent) + box_center. In volume
 mode without a surface-aware film the target is left out of the render
-scene, as the reference does. Mesh surfaces in the render scene (the
-target kept in, mesh vials, occlusions) belong to the wavefront path
-and raise NotImplementedError here.
+scene, as the reference does. Mesh surfaces in the render scene raise
+NotImplementedError: the target kept in for a surface-aware film is
+ROADMAP queue 1 item 14, mesh vials and occlusions item 17.
 """
 from __future__ import annotations
 
@@ -117,9 +117,9 @@ class Scene:
         specs = self._surface_specs(include_target)
         if any(s.kind == MESH for s in specs):
             raise NotImplementedError(
-                "mesh surfaces in the render scene (target kept in, mesh "
-                "vials, occlusions) belong to the wavefront path — ROADMAP "
-                "queue 1 item 10")
+                "mesh surfaces in the render scene are not ported yet: the "
+                "target kept in for a surface-aware film is ROADMAP queue 1 "
+                "item 14, mesh vials and occlusions item 17")
 
         statics = [SurfaceStatic(kind=s.kind, bsdf=s.bsdf,
                                  medium_side=s.medium_side,

@@ -182,12 +182,13 @@ def nvcc_path():
     return cand if os.path.exists(cand) else "nvcc"
 
 
-def load_cuda(names, setup):
+def load_cuda(names, setup, flags=None):
     """Build the named `csrc/<name>.cu` sources (one nvcc per stale
     source, all started together) and load them.
 
-    setup: {name: fn(lib)} declaring argtypes/restype. Returns
-    {name: ctypes lib}. Raises on any failed build or load."""
+    setup: {name: fn(lib)} declaring argtypes/restype; flags: optional
+    {name: [extra nvcc flags]}. Returns {name: ctypes lib}. Raises on
+    any failed build or load."""
     with _lock:
         todo = [n for n in names if ("cuda", n) not in _libs]
         jobs = []
@@ -200,7 +201,7 @@ def load_cuda(names, setup):
                 cmd = [nvcc_path(), "-gencode",
                        "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                        "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-                       "-I", CUDA_SRC_DIR, src]
+                       "-I", CUDA_SRC_DIR] + (flags or {}).get(n, []) + [src]
                 jobs.append(_start(cmd, lib_path))
         errors = []
         for job in jobs:

@@ -1,17 +1,62 @@
-"""Static scene descriptions (counterpart of the dataclasses in
-drtvam_tpu/ops/march.py:72-145).
+"""The wavefront volumetric path tracer, plain PyTorch version
+(counterpart of drtvam_tpu/ops/march.py).
 
-Only the two dataclasses come over in this slice; the wavefront march
-itself is ROADMAP queue 1 item 10. Field names and defaults match the
-JAX package so `convert.scene_from_jax` maps them one to one.
+Static scene descriptions (`SurfaceStatic`, `MarchStatic`, field for
+field the JAX package's, so `convert.scene_from_jax` maps them one to
+one) and the march itself, vectorized over a wavefront of lanes with
+per-lane active masks, float32 throughout:
+
+  * attenuation tracks Fresnel / BSDF weights and albedo^n_scat only;
+    without scattering the analytic transmittance exp(-sigma_t t_prev)
+    is applied at deposit time, and Russian roulette reads
+    A exp(-sigma_t total_t);
+  * dda deposits A (sa/st) em exp(-st t) (1 - exp(-st dt)) per voxel,
+    walking voxels Amanatides-Woo style;
+  * ratio tracking marches exponential steps against the majorant with
+    weight (sa/st) (1 - st/M)^k (st/M);
+  * delta deposits A (sa/st) em at the sampled interaction voxel.
+
+The adjoint replays the same paths (the counter-based sampler) and
+gathers the loss gradient at each deposit into a per-lane emitter
+gradient. The CUDA kernels (csrc/wf_trace.cuh, wrapped in
+ops/render.py) run the same per-lane arithmetic; this version is what
+the wrappers run on CPU tensors, and what the kernels are held to.
+
+Deviations from the JAX package, by design:
+  * deposits go per step with `index_add_` (primal) or a gather
+    (adjoint); the TPU's staged flush (`DDA_FLUSH`) is not ported;
+  * ratio tracking gives each lane its own random stream: a lane
+    advances its counter only for the draws it consumes, the
+    terminating one included. The JAX package draws for every lane of
+    a chunk until the chunk's longest track ends, in rounds of 8, so a
+    lane's later draws there depend on its chunk (ROADMAP queue 3).
+
+Not ported: radon mode (ROADMAP queue 1 item 13), the scattered-only,
+first-scatter and fast-residual modes of the hybrid engine (item 16),
+medium cotangents (`medium_grads`, item 17), mesh surfaces (mesh vials
+and occlusions, item 17; the surface-aware target, item 14).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
-from ..models.projector import ProjectorStatic
+import torch
+
+from ..core.rng import MASK, Sampler
+from ..core.warp import square_to_cosine_hemisphere
+from ..models.geometry import (BOX, CYLINDER, DIELECTRIC, DIFFUSE, MESH,
+                               NULL)
+from ..models.projector import ProjectorStatic, ray_weight, sample_rays
 from ..models.sensor import SensorStatic
+from .fresnel import dot3, refract
+from .intersect import INF, ray_box, ray_cylinder
+from .medium import phase_functions, sample_free_flight, \
+    sample_phase_direction
+
+RAY_EPS = 1e-4
+RATIO_MAX_STEPS = 65536
+ESTIMATORS = ("dda", "ratio", "delta")
 
 
 @dataclass(frozen=True)
@@ -44,3 +89,438 @@ class MarchStatic:
     scattered_only: bool = False
     first_scatter: bool = False
     fast_residual: bool = False
+
+
+def _not_ported(what, item):
+    return NotImplementedError(
+        f"{what} is not ported yet — ROADMAP queue 1 item {item}")
+
+
+def check_supported(static: MarchStatic):
+    """Raise for what the port's wavefront does not run."""
+    if static.mode != "volume":
+        raise _not_ported(f"the '{static.mode}' render mode", 13)
+    for flag in ("scattered_only", "first_scatter", "fast_residual"):
+        if getattr(static, flag):
+            raise _not_ported(f"the hybrid engine's {flag} mode", 16)
+    if static.medium_grads:
+        raise _not_ported("medium gradients (medium_grads)", 17)
+    if static.sensor.surface_aware:
+        raise _not_ported("surface-aware films", 14)
+    if any(s.kind == MESH for s in static.surfaces):
+        raise _not_ported(
+            "mesh surfaces in the wavefront (mesh vials and occlusions: "
+            "item 17; the surface-aware target: item 14)", 17)
+    if static.sensor.estimator not in ESTIMATORS:
+        raise ValueError(f"unknown estimator '{static.sensor.estimator}'")
+    if static.has_scattering and static.phase not in phase_functions:
+        raise ValueError(f"unknown phase function '{static.phase}'")
+
+
+def dda_max_steps(res):
+    """The JAX package's DDA walk cap: X + Y + Z + 2 steps, run in
+    rounds of min(32, that), so rounded up to whole rounds."""
+    n = sum(res) + 2
+    k = min(32, n)
+    return -(-n // k) * k
+
+
+def scene_tensors(arr, device):
+    """The scene's numpy arrays as torch tensors on `device` (dtypes
+    kept: float32 values, int32 indices)."""
+    return {k: torch.as_tensor(v).to(device) for k, v in arr.items()}
+
+
+# --------------------------------------------------------------------------
+# scene intersection over the static surface list
+
+
+def _onb(n):
+    """Branchless orthonormal basis around unit vectors n (Duff et al.
+    2017). Returns (tangent, bitangent)."""
+    s = torch.where(n[..., 2] >= 0.0, 1.0, -1.0).to(n.dtype)
+    a = -1.0 / (s + n[..., 2])
+    b = n[..., 0] * n[..., 1] * a
+    t = torch.stack([1.0 + s * n[..., 0] * n[..., 0] * a, s * b,
+                     -s * n[..., 0]], -1)
+    bt = torch.stack([b, s + n[..., 1] * n[..., 1] * a, -n[..., 1]], -1)
+    return t, bt
+
+
+def intersect_scene(static: MarchStatic, arr, o, d, active):
+    """Nearest surface hit: (t, normal, surface id, valid)."""
+    shape = o.shape[:-1]
+    t_best = torch.full(shape, INF, dtype=torch.float32, device=o.device)
+    n_best = torch.zeros_like(o)
+    sid = torch.full(shape, -1, dtype=torch.int64, device=o.device)
+    for i, s in enumerate(static.surfaces):
+        p = arr["surf_params"][i]
+        if s.kind == CYLINDER:
+            t, n = ray_cylinder(o, d, RAY_EPS, p[0], p[1], p[2])
+        elif s.kind == BOX:
+            t, n = ray_box(o, d, RAY_EPS, p[:3])
+        else:
+            raise _not_ported("mesh surfaces in the wavefront", 17)
+        better = t < t_best
+        t_best = torch.where(better, t, t_best)
+        n_best = torch.where(better[..., None], n, n_best)
+        sid = torch.where(better, i, sid)
+    valid = active & torch.isfinite(t_best)
+    return t_best, n_best, sid, valid
+
+
+# --------------------------------------------------------------------------
+# dose estimators: one straight segment [o, o + maxt d]
+
+
+def _grid(static: MarchStatic, arr):
+    """(bbox_min, voxel size, 1 / voxel size, res as int32)."""
+    X, Y, Z = static.sensor.res
+    bmin, bmax = arr["bbox_min"], arr["bbox_max"]
+    resf = torch.tensor([X, Y, Z], dtype=torch.float32, device=bmin.device)
+    vs = (bmax - bmin) / resf
+    res = torch.tensor([X, Y, Z], dtype=torch.int32, device=bmin.device)
+    return bmin, vs, 1.0 / vs, res
+
+
+def _flat(static, v):
+    X, Y, _ = static.sensor.res
+    v = v.to(torch.int64)
+    return v[..., 0] + X * (v[..., 1] + Y * v[..., 2])
+
+
+def _voxel_flat(static: MarchStatic, p, bmin, inv_vs, res):
+    v = torch.floor((p - bmin) * inv_vs).to(torch.int32)
+    in_grid = (v >= 0).all(-1) & (v < res).all(-1)
+    return _flat(static, v), in_grid
+
+
+def _deposit(primal, acc, g, dL, flat, val, mask):
+    """primal: add val into acc at flat; adjoint: gather dL, add to g."""
+    if primal:
+        acc.index_add_(0, flat[mask], val[mask])
+        return acc, g
+    idx = torch.where(mask, flat, torch.zeros_like(flat))
+    g = g + torch.where(mask, val * dL[idx], torch.zeros_like(val))
+    return acc, g
+
+
+def _history(static, arr, A, t_prev):
+    if static.has_scattering:
+        return A
+    return A * torch.exp(-arr["sigma_t"] * t_prev)
+
+
+def _count(stats, key, mask):
+    if stats is not None:
+        stats[key] = stats.get(key, 0) + int(mask.sum())
+
+
+def dda_segment(static, arr, primal, acc, g, dL, o, d, t_prev, maxt, A, em,
+                active, stats=None):
+    """Amanatides-Woo voxel walk with analytic per-voxel absorption,
+    on the lanes of `active`."""
+    lanes = torch.nonzero(active).squeeze(1)
+    if lanes.numel() == 0:
+        return acc, g
+    o, d, t_prev, maxt, A = o[lanes], d[lanes], t_prev[lanes], \
+        maxt[lanes], A[lanes]
+    bmin, vs, _, res = _grid(static, arr)
+    bmax = arr["bbox_max"]
+    st = arr["sigma_t"]
+    sa_over_st = 1.0 - arr["albedo"]
+
+    tiny = torch.full_like(d, 1e-20)
+    safe_d = torch.where(torch.abs(d) > 1e-20, d, tiny)
+    t_b0 = (bmin - o) / safe_d
+    t_b1 = (bmax - o) / safe_d
+    mint_box = torch.clamp(torch.minimum(t_b0, t_b1).amax(-1), min=0.0)
+    maxt_box = torch.maximum(t_b0, t_b1).amin(-1)
+    t_start = torch.clamp(mint_box, min=0.0)
+    t_end = torch.minimum(maxt_box, maxt)
+    act = torch.isfinite(t_start) & torch.isfinite(t_end) & \
+        (t_start < t_end)
+
+    grid_start = o + t_start[:, None] * d
+    grid_end = o + t_end[:, None] * d
+    step_dir = torch.where(d > 0, 1, -1).to(torch.int32)
+    zero_i = torch.zeros_like(res)
+    start_voxel = torch.clamp(((grid_start - bmin) / vs).to(torch.int32),
+                              zero_i, res - 1)
+    end_voxel = torch.clamp(((grid_end - bmin) / vs).to(torch.int32),
+                            zero_i, res - 1)
+    next_voxel_pos = bmin + (start_voxel + step_dir).to(torch.float32) * vs \
+        + torch.where(d < 0, vs, torch.zeros_like(d))
+    valid_dir = torch.abs(d) > 1e-8
+    inf = torch.full_like(d, INF)
+    dtmax = torch.where(valid_dir, (next_voxel_pos - grid_start) / safe_d,
+                        inf)
+    dtmax = torch.where(dtmax < 0, inf, dtmax)
+    tstep = torch.where(valid_dir, vs / safe_d * step_dir.to(torch.float32),
+                        inf)
+
+    base = _history(static, arr, A, t_prev) * sa_over_st
+    if primal:
+        base = base * em[lanes]
+    g_l = None if primal else g[lanes]
+
+    voxel, t, remaining = start_voxel, t_start, t_end - t_start
+    for _ in range(dda_max_steps(static.sensor.res)):
+        if not bool(act.any()):
+            break
+        t_at = t
+        dt = torch.minimum(dtmax.amin(-1), remaining)
+        flat = _flat(static, voxel)
+        dep_act = act
+        remaining = torch.where(act, remaining - dt, remaining)
+        act = act & (end_voxel != voxel).any(-1) & (remaining > 1e-6)
+        mask = dtmax == dt[:, None]
+        dtmax = torch.where(mask, tstep, dtmax - dt[:, None])
+        upd = torch.where(mask, step_dir, torch.zeros_like(step_dir))
+        voxel = torch.where(act[:, None], voxel + upd, voxel)
+        act = act & (voxel >= 0).all(-1) & (voxel < res).all(-1)
+        t = torch.where(act, t + dt, t)
+        contrib = base * torch.exp(-st * t_at) * \
+            (1.0 - torch.exp(-st * torch.clamp(dt, min=0.0)))
+        acc, g_l = _deposit(primal, acc, g_l, dL, flat, contrib, dep_act)
+        _count(stats, "steps", dep_act)
+    if not primal:
+        g = g.clone()
+        g[lanes] = g_l
+    return acc, g
+
+
+def ratio_segment(static, arr, primal, acc, g, dL, o, d, t_prev, maxt, A,
+                  em, active, sampler, lane, ctr, stats=None):
+    """Ratio tracking on the lanes of `active`, each on its own random
+    stream: a lane draws (and advances its counter) only while it is
+    tracking, the terminating draw included."""
+    lanes = torch.nonzero(active).squeeze(1)
+    if lanes.numel() == 0:
+        return acc, g, ctr
+    o, d, t_prev, maxt, A = o[lanes], d[lanes], t_prev[lanes], \
+        maxt[lanes], A[lanes]
+    lane_l, ctr_l = lane[lanes], ctr[lanes]
+    bmin, _, inv_vs, res = _grid(static, arr)
+    st = arr["sigma_t"]
+    M = arr["majorant"]
+    base = _history(static, arr, A, t_prev) * (1.0 - arr["albedo"])
+    if primal:
+        base = base * em[lanes]
+    base = base * (st / M)
+    log_ratio = torch.log(torch.clamp(1.0 - st / M, min=1e-30))
+    g_l = None if primal else g[lanes]
+
+    act = torch.ones_like(maxt, dtype=torch.bool)
+    t = torch.zeros_like(maxt)
+    k = torch.zeros_like(maxt)
+    for _ in range(RATIO_MAX_STEPS):
+        if not bool(act.any()):
+            break
+        _count(stats, "steps", act)
+        u, _ = sampler.next_1d(lane_l, ctr_l)
+        ctr_l = torch.where(act, (ctr_l + 1) & MASK, ctr_l)
+        t = torch.where(act, t + sample_free_flight(u, M), t)
+        act = act & (t < maxt)
+        p = o + t[:, None] * d
+        flat, in_grid = _voxel_flat(static, p, bmin, inv_vs, res)
+        ratio_k = torch.exp(k * log_ratio)
+        mask = act & in_grid
+        k = torch.where(act, k + 1.0, k)
+        acc, g_l = _deposit(primal, acc, g_l, dL, flat, base * ratio_k, mask)
+    ctr = ctr.clone()
+    ctr[lanes] = ctr_l
+    if not primal:
+        g = g.clone()
+        g[lanes] = g_l
+    return acc, g, ctr
+
+
+def delta_segment(static, arr, primal, acc, g, dL, o, d, t_prev, mei_t, A,
+                  em, active, stats=None):
+    """Delta-tracking deposit at the sampled interaction point; the
+    importance-sampled transmittance cancels: A (sa/st) em."""
+    bmin, _, inv_vs, res = _grid(static, arr)
+    act = active & torch.isfinite(mei_t)
+    p = o + mei_t[:, None] * d
+    flat, in_grid = _voxel_flat(static, p, bmin, inv_vs, res)
+    contrib = _history(static, arr, A, t_prev) * (1.0 - arr["albedo"])
+    if primal:
+        contrib = contrib * em
+    mask = act & in_grid
+    _count(stats, "steps", mask)
+    return _deposit(primal, acc, g, dL, flat, contrib, mask)
+
+
+# --------------------------------------------------------------------------
+# the bounce loop
+
+
+def trace_wavefront(static: MarchStatic, arr, lane, seed, spp, dL_flat=None,
+                    acc=None, em=None, stats=None):
+    """Trace the lanes `lane` ((n,) int64 global lane ids, uint32
+    values; active index lane // spp).
+
+    arr: the scene's tensors (`scene_tensors`) with "active_data".
+    primal (dL_flat None): adds the lanes' dose into acc (n_cells,) and
+    returns (acc, None); em: optional per-lane emitted intensity before
+    the ray-weight scalar (default active_data[lane // spp]).
+    adjoint: returns (acc, g) with g the per-lane emitter gradient
+    (without em or the ray weight).
+    stats: optional dict counting the estimator's steps ("steps") and
+    the lanes' bounce iterations ("iterations")."""
+    check_supported(static)
+    primal = dL_flat is None
+    dev = lane.device
+    n = lane.shape[0]
+    sampler = Sampler(seed)
+    ctr = sampler.init(n, dev)
+    o, d, aidx, ctr = sample_rays(
+        static.projector, arr, arr["active_pixels"], lane, spp, sampler,
+        ctr, static.regular_sampling, static.sample_time, static.clockwise)
+    if primal:
+        if em is None:
+            em = arr["active_data"][aidx]
+        em = em * ray_weight(static.projector, arr, spp, arr["print_time"])
+        if acc is None:
+            acc = torch.zeros((static.sensor.n_cells,), dtype=torch.float32,
+                              device=dev)
+    g = None if primal else torch.zeros((n,), dtype=torch.float32,
+                                        device=dev)
+
+    surfaces = static.surfaces
+    bsdf_kind = torch.tensor([s.bsdf for s in surfaces], device=dev)
+    med_side = torch.tensor([s.medium_side for s in surfaces], device=dev)
+    is_target = torch.tensor([s.is_target for s in surfaces], device=dev)
+    has_diffuse = any(s.bsdf == DIFFUSE for s in surfaces)
+    st = arr["sigma_t"]
+    est = static.sensor.estimator
+    scat = static.has_scattering
+    tonly = static.transmission_only
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    A = torch.ones((n,), **f32)
+    total_t = torch.zeros((n,), **f32)
+    n_scat = torch.zeros((n,), **f32)
+    inside_target = torch.zeros((n,), dtype=torch.bool, device=dev)
+    in_medium = torch.zeros((n,), dtype=torch.bool, device=dev)
+    depth = torch.zeros((n,), dtype=torch.int32, device=dev)
+    active = torch.ones((n,), dtype=torch.bool, device=dev)
+    ones, zeros, infs = (torch.ones((n,), **f32), torch.zeros((n,), **f32),
+                         torch.full((n,), INF, **f32))
+
+    for _ in range(2 * static.max_depth + 16):
+        if not bool(active.any()):
+            break
+        _count(stats, "iterations", active)
+        # Russian roulette; without scattering its survival probability
+        # carries the analytic transmittance, as the reference's
+        # attenuation does
+        rr_A = A if scat else A * torch.exp(-st * total_t)
+        q = torch.clamp(rr_A, max=0.99)
+        perform_rr = depth > static.rr_depth
+        u_rr, ctr = sampler.next_1d(lane, ctr)
+        active = active & ((u_rr < q) | ~perform_rr)
+        A = torch.where(perform_rr & active, A / torch.clamp(q, min=1e-12), A)
+        active = active & (A != 0.0)
+        in_medium = in_medium & active
+
+        # next surface
+        t_si, n_si, sid, si_valid = intersect_scene(static, arr, o, d,
+                                                    active)
+        active = active & si_valid
+        in_medium = in_medium & active
+        sid0 = torch.clamp(sid, min=0)
+        hit_target = active & is_target[sid0] & (sid >= 0)
+
+        # medium interaction sampling
+        u_ff, ctr = sampler.next_1d(lane, ctr)
+        if scat:
+            mei_t = sample_free_flight(u_ff, st)
+            reached_surface = in_medium & (t_si < mei_t)
+            mei_t = torch.where(reached_surface, infs, mei_t)
+            w_med = torch.where(reached_surface, ones, 1.0 / st)
+        else:
+            mei_t = infs
+            reached_surface = in_medium
+            w_med = ones
+        medium_event = in_medium & ~reached_surface
+
+        # dose deposit along this segment
+        dep_active = (medium_event | reached_surface) & active
+        if est == "dda":
+            acc, g = dda_segment(static, arr, primal, acc, g, dL_flat, o, d,
+                                 total_t, t_si, A, em, dep_active, stats)
+        elif est == "ratio":
+            acc, g, ctr = ratio_segment(static, arr, primal, acc, g, dL_flat,
+                                        o, d, total_t, t_si, A, em,
+                                        dep_active, sampler, lane, ctr,
+                                        stats)
+        else:
+            acc, g = delta_segment(static, arr, primal, acc, g, dL_flat, o, d,
+                                   total_t, mei_t, A, em, dep_active, stats)
+
+        # inside / outside parity flip (may leak, as the reference's)
+        inside_target = inside_target ^ hit_target
+
+        # BSDF sampling at surfaces
+        active_surface = active & ~medium_event
+        kind = bsdf_kind[sid0]
+        d_t, d_r, F, tir, eta_rel = refract(d, n_si, arr["surf_eta"][sid0])
+        inv_eta2 = 1.0 / (eta_rel * eta_rel)
+        u_b, ctr = sampler.next_1d(lane, ctr)
+        u_ph, ctr = sampler.next_2d(lane, ctr)
+        w_tr = torch.where(tir, zeros, (1.0 - F) * inv_eta2)
+        if tonly:
+            w_diel, d_diel = w_tr, d_t
+        else:
+            force_tr = depth == 0
+            reflectp = ~force_tr & (u_b < F)
+            d_diel = torch.where(reflectp[:, None], d_r, d_t)
+            w_diel = torch.where(reflectp, ones, inv_eta2)
+            w_diel = torch.where(force_tr, w_tr, w_diel)
+        is_diel = kind == DIELECTRIC
+        w_bsdf = torch.where(is_diel, w_diel,
+                             torch.where(kind == NULL, ones, zeros))
+        d_new = torch.where(is_diel[:, None], d_diel, d)
+        if has_diffuse and not tonly:
+            # diffuse occlusions: cosine-hemisphere reflection on the
+            # incident side, weight = reflectance
+            is_diff = (kind == DIFFUSE) & ~force_tr
+            nl = torch.where((dot3(d, n_si) < 0.0)[:, None], n_si, -n_si)
+            tg, btg = _onb(nl)
+            h = square_to_cosine_hemisphere(u_ph)
+            d_diff = h[:, 0:1] * tg + h[:, 1:2] * btg + h[:, 2:3] * nl
+            w_bsdf = torch.where(is_diff, arr["surf_refl"][sid0], w_bsdf)
+            d_new = torch.where(is_diff[:, None], d_diff, d_new)
+
+        # phase sampling at medium events
+        if scat:
+            d_scat = sample_phase_direction(static.phase, arr["phase_g"], d,
+                                            u_ph[:, 0], u_ph[:, 1])
+            w_event = w_med * (st * arr["albedo"])
+            n_scat = torch.where(medium_event, n_scat + 1.0, n_scat)
+        else:
+            d_scat, w_event = d, ones
+
+        seg_t = torch.where(medium_event, mei_t, t_si)
+        o = torch.where(active[:, None], o + seg_t[:, None] * d, o)
+        d = torch.where(medium_event[:, None], d_scat,
+                        torch.where(active_surface[:, None], d_new, d))
+        w = torch.where(medium_event, w_event,
+                        torch.where(active_surface, w_bsdf, ones))
+        A = torch.where(active, A * w, A)
+        total_t = torch.where((medium_event | reached_surface) & active,
+                              total_t + seg_t, total_t)
+
+        # medium transition: does the new direction enter the medium?
+        ms = med_side[sid0]
+        dn = dot3(d, n_si)
+        enters = ((ms == 1) & (dn < 0.0)) | ((ms == 2) & (dn > 0.0))
+        in_medium = (in_medium & ~reached_surface) | \
+            (active_surface & (hit_target | enters))
+
+        active = active & (active_surface | in_medium) & (A != 0.0)
+        depth = torch.where(active & ~hit_target, depth + 1, depth)
+        active = active & (depth < static.max_depth)
+    return acc, g

@@ -1,21 +1,28 @@
 """Optimization driver + CLI (counterpart of drtvam_tpu/opt/optimize.py).
 
-`optimize(config, device=...)` runs the ballistic pattern optimization
-end to end on one device: scene assembly, target voxelization, the
-ballistic engine, the render / loss / adjoint / Linear-L-BFGS loop with
-pattern clamping and the convergence break, the final render, and the
-artifact set (target.exr/npy, final.exr/npy, loss.npy, timing.npy,
-per-pattern EXRs, patterns.npz + normalized uint8, histogram.png).
-`main()` is the CLI with dotted -D overrides.
+`optimize(config, device=...)` runs the pattern optimization end to
+end on one device: scene assembly, target voxelization, the engine
+(the ballistic backprojection or the wavefront path tracer), the
+render / loss / adjoint / Linear-L-BFGS loop with pattern clamping and
+the convergence break, the final render, and the artifact set
+(target.exr/npy, final.exr/npy, loss.npy, timing.npy, per-pattern EXRs,
+patterns.npz + normalized uint8, histogram.png). `main()` is the CLI
+with dotted -D overrides.
 
 timing.npy: per iteration, column 0 is the primal render + loss wall
 time, column 1 the adjoint + optimizer step (direction render and line
 search included), each ending in a device synchronize.
 
-Only scenes the ballistic engine covers are ported (collimated
-projector, analytic vial, pure absorption, dda estimator), with the
-lbfgs optimizer. Everything else raises NotImplementedError naming its
-ROADMAP item.
+Engines, selected as the JAX package selects them (`engine`: auto,
+ballistic, wavefront): the ballistic engine for a collimated projector,
+an analytic vial, pure absorption and the dda estimator; otherwise the
+wavefront path tracer (ops/render.py) with `spp` / `spp_grad` lanes per
+pixel and seed i at step i. Under auto a scattering scene whose
+unscattered transport is precomputable belongs to the JAX package's
+hybrid engine, which is not ported (ROADMAP queue 1 item 16): it
+raises rather than run another estimator. The optimizer is lbfgs.
+Everything not ported raises NotImplementedError naming its ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -28,8 +35,10 @@ import numpy as np
 import torch
 
 from ..models.scene import Scene
+from ..ops import render as wavefront
 from ..ops.ballistic import BallisticEngine
-from ..ops.transport2d import ballistic_eligible
+from ..ops.march import scene_tensors
+from ..ops.transport2d import ballistic_eligible, unscattered_eligible
 from ..utils.io import save_img, save_vol
 from ..utils.metrics import save_histogram
 from .device_lbfgs import DeviceLinearLBFGS
@@ -59,29 +68,61 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def _make_step_fns(engine, loss_obj, inv_vol, target):
+def hybrid_eligible(static):
+    """A scattering scene whose unscattered transport is precomputable:
+    the JAX package's `auto` runs its hybrid engine there."""
+    return static.has_scattering and unscattered_eligible(static)
+
+
+def select_engine(engine, static):
+    """'ballistic' or 'wavefront', as the JAX package's `_make_step_fns`
+    selects; the hybrid engine raises (not ported)."""
+    if engine not in ("auto", "ballistic", "wavefront", "hybrid"):
+        raise ValueError(f"Unknown engine: '{engine}'")
+    if engine == "hybrid" or (engine == "auto" and
+                              not ballistic_eligible(static) and
+                              hybrid_eligible(static)):
+        raise _not_ported(
+            "the hybrid scattering engine (what the JAX package's 'auto' "
+            "runs on a scattering scene with a collimated projector and "
+            "an analytic vial; set engine 'wavefront' for the analog path "
+            "tracer)", 16)
+    if engine == "ballistic" and not ballistic_eligible(static):
+        raise ValueError("engine 'ballistic' needs a collimated projector, "
+                         "an analytic vial, pure absorption and the dda "
+                         "estimator")
+    if engine == "wavefront" or not ballistic_eligible(static):
+        return "wavefront"
+    return "ballistic"
+
+
+def _make_step_fns(render, pattern_grad, loss_obj, target):
     """Primal / adjoint / direction-render / line-search candidate
-    closures for the ballistic engine."""
+    closures around an engine's render(data, seed) -> dose volume and
+    pattern_grad(dvol, seed) -> d loss / d data; each takes the step's
+    seed last."""
 
     @torch.no_grad()
-    def primal(data):
-        vol = engine.render_vol(data, inv_vol)
+    def primal(data, seed):
+        vol = render(data, seed)
         return vol, loss_obj(vol, target, data)
 
-    def adjoint(vol, data):
+    def adjoint(vol, data, seed):
         v = vol.detach().requires_grad_(True)
         p = data.detach().requires_grad_(True)
         with torch.enable_grad():
             dvol, dpat = torch.autograd.grad(loss_obj(v, target, p), (v, p))
         with torch.no_grad():
-            return engine.pattern_grad(dvol, inv_vol) + dpat
+            return pattern_grad(dvol, seed) + dpat
 
     @torch.no_grad()
-    def dir_fn(z):
-        return engine.render_vol(z, inv_vol)
+    def dir_fn(z, seed):
+        # the direction renders with the step's seed: the linear line
+        # search assumes one realization per step
+        return render(z, seed)
 
     @torch.no_grad()
-    def cand_fn(vol, dvol, alpha, z):
+    def cand_fn(vol, dvol, alpha, z, seed):
         # the sparsity term rides on the SEARCH DIRECTION during the line
         # search (reference quirk)
         return loss_obj(vol + alpha * dvol, target, z)
@@ -94,10 +135,6 @@ def _check_ported(config, scene):
     for key, (what, item) in _NOT_PORTED.items():
         if config.get(key):
             raise _not_ported(what, item)
-    engine = config.get("engine", "auto")
-    if engine not in ("auto", "ballistic"):
-        raise _not_ported(f"the '{engine}' engine",
-                          16 if engine == "hybrid" else 10)
     if scene.sensor.surface_aware:
         raise _not_ported("surface-aware films", 14)
 
@@ -130,11 +167,18 @@ def optimize(config, resolve_path=None, device="cuda", timings=None):
     output = config["output"]
     os.makedirs(os.path.join(output, "patterns"), exist_ok=True)
 
+    spp = config.get("spp", 4)
+    spp_ref = config.get("spp_ref", 16)
+    spp_grad = config.get("spp_grad", spp)
     max_depth = config.get("max_depth", 6)
     rr_depth = config.get("rr_depth", 6)
     print_time = config.get("time", 1.0)
     transmission_only = config.get("transmission_only", True)
     regular_sampling = config.get("regular_sampling", False)
+    chunk = config.get("chunk_size", wavefront.DEFAULT_CHUNK)
+    engine_cfg = config.get("engine", "auto")
+    if regular_sampling:
+        spp = 1  # rays from pixel centres (spp_grad keeps its value)
     sensor = scene.sensor
     final_sensor = scene.final_sensor
 
@@ -148,11 +192,7 @@ def optimize(config, resolve_path=None, device="cuda", timings=None):
         rr_depth=rr_depth, print_time=print_time,
         transmission_only=transmission_only,
         regular_sampling=regular_sampling)
-    if not ballistic_eligible(static):
-        raise _not_ported(
-            "a scene outside the ballistic engine (a non-collimated "
-            "projector or a non-dda estimator: item 10; scattering: item "
-            "16)", 10)
+    engine_kind = select_engine(engine_cfg, static)
 
     if scene.target_dose is not None:
         target = scene.target_dose
@@ -190,34 +230,54 @@ def optimize(config, resolve_path=None, device="cuda", timings=None):
     timing_hist = np.zeros((n_steps, 2))
 
     t0 = time.perf_counter()
-    engine = BallisticEngine(static, arr, device)
     inv_vol = float(sensor.inv_volume())
-    fns = _make_step_fns(engine, loss_obj, inv_vol, target_t)
+    if engine_kind == "ballistic":
+        engine = BallisticEngine(static, arr, device)
+        impl = engine.impl
+
+        def render(d, seed):   # deterministic: no seed
+            return engine.render_vol(d, inv_vol)
+
+        def pattern_grad(dvol, seed):
+            return engine.pattern_grad(dvol, inv_vol)
+    else:
+        arr_t = scene_tensors(arr, device)
+        impl = "cuda" if device.type == "cuda" else "plain"
+
+        def render(d, seed):
+            return wavefront.render(static, arr_t, d, inv_vol, seed, spp,
+                                    spp_grad, chunk)
+
+        def pattern_grad(dvol, seed):
+            return wavefront.adjoint(static, arr_t, seed, spp_grad, chunk,
+                                     (dvol * inv_vol).reshape(-1))
+    fns = _make_step_fns(render, pattern_grad, loss_obj, target_t)
     opt = DeviceLinearLBFGS(dir_fn=fns["dir_fn"], cand_fn=fns["cand_fn"],
                             **opt_cfg)
     data = torch.as_tensor(scene.projector.active_data, dtype=torch.float32,
                            device=device)
     _sync(device)
     timings["precompute_s"] = time.perf_counter() - t0
-    print(f"Ballistic engine on {device}: kernels '{engine.impl}'")
+    print(f"{engine_kind.capitalize()} engine on {device}: kernels "
+          f"'{impl}'")
 
     print("Starting the pattern optimization loop...")
     t_loop = time.perf_counter()
     vol = grad = None
     for i in range(n_steps):
         t0 = time.perf_counter()
-        vol, loss = fns["primal"](data)
+        vol, loss = fns["primal"](data, i)
         loss_hist[i] = float(loss)
         timing_hist[i, 0] = time.perf_counter() - t0
 
         t1 = time.perf_counter()
-        grad = fns["adjoint"](vol, data)
+        grad = fns["adjoint"](vol, data, i)
         if loss_hist[i] == 0.0:
             print("Converged")
             _sync(device)
             timing_hist[i, 1] = time.perf_counter() - t1
             break
-        data = opt.step(data, grad, vol, loss)
+        data = opt.step(data, grad, vol, loss, step_args=(i,))
         _sync(device)
         timing_hist[i, 1] = time.perf_counter() - t1
         print(f"step {i:4d}  loss {loss_hist[i]:.6e}  "
@@ -225,7 +285,8 @@ def optimize(config, resolve_path=None, device="cuda", timings=None):
     timings["loop_s"] = time.perf_counter() - t_loop
     scene.projector.active_data = data
     # free the history and the fields before the final engine is built
-    del opt, fns, engine, vol, grad
+    del opt, fns, render, pattern_grad, vol, grad
+    engine = arr_t = None
 
     print("Rendering the final dose volume...")
     t0 = time.perf_counter()
@@ -235,14 +296,18 @@ def optimize(config, resolve_path=None, device="cuda", timings=None):
         rr_depth=config.get("rr_depth_ref", 8), print_time=print_time,
         transmission_only=transmission_only,
         regular_sampling=regular_sampling, sensor=final_sensor)
-    if not ballistic_eligible(static_f):
-        raise _not_ported("a final sensor outside the ballistic engine", 10)
-    eng_f = BallisticEngine(static_f, arr_f, device)
+    inv_vol_f = float(np.float32(1.0 / final_sensor.voxel_volume))
     with torch.no_grad():
-        vol_final = eng_f.render_vol(
-            data, float(np.float32(1.0 / final_sensor.voxel_volume)))
+        if engine_cfg != "wavefront" and ballistic_eligible(static_f):
+            vol_final = BallisticEngine(static_f, arr_f, device).render_vol(
+                data, inv_vol_f)
+        else:
+            if engine_cfg != "wavefront" and hybrid_eligible(static_f):
+                raise _not_ported("the hybrid engine's final render", 16)
+            vol_final = wavefront.render(
+                static_f, scene_tensors(arr_f, device), data, inv_vol_f,
+                0, spp_ref, spp_ref, chunk)
     vol_final = vol_final.cpu().numpy()
-    del eng_f
     timings["final_render_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()

@@ -1,15 +1,17 @@
-"""The four CUDA backprojection kernels == their plain versions, on a
-card. Free of jax (the card's machine has none), so it runs there with
+"""The CUDA kernels == their plain versions, on a card: the four
+backprojection kernels and the wavefront pair (wf_fwd, wf_bwd). Free of
+jax (the card's machine has none), so it runs there with
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-On a machine without CUDA every test skips; chip_smoke.py phase 3 runs
-the same comparison at the bench shapes."""
+On a machine without CUDA every test skips; chip_smoke.py phases 3 and
+7 run the same comparisons at the bench shapes and on more scenes."""
 import numpy as np
 import pytest
 import torch
 
 from drtvam_tpu_torch.ops import backproject as bp
+from drtvam_tpu_torch.ops import render as wf
 
 TOL = 1e-5  # f32 sums in another order than the plain versions
 
@@ -175,3 +177,98 @@ def test_kernels_reject_cpu_cuda_mix(cuda_device):
     F = bp._pack_fields(W, Umap).to(cuda_device)
     with pytest.raises(ValueError):
         bp.fwd_dense(Pz, F)
+
+
+# --------------------------------------------------------------------------
+# the wavefront pair
+
+# wf kernel vs plain version on the card: the same per-lane arithmetic,
+# rounded op by op (no FMA contraction); the forward sums its deposits
+# with atomics in another order than index_add_
+WF_TOL = 1e-5
+
+
+def _wf_scene(tmp_path, case):
+    """Small scenes built by the port alone: (static, arr, spp)."""
+    from drtvam_tpu_torch.models.scene import Scene
+    from drtvam_tpu_torch.ops.mesh import make_box, save_ply
+    path = str(tmp_path / "t.ply")
+    save_ply(make_box((0.5, 0.5, 0.5)), path)
+    med = {"ior": 1.4849, "extinction": 0.1, "albedo": 0.0,
+           "phase": {"type": "rayleigh"}}
+    cfg = {
+        "vial": {"type": "cylindrical", "r_ext": 8.385, "r_int": 7.665,
+                 "height": 20.0, "ior": 1.514, "medium": med},
+        "projector": {"type": "collimated", "n_patterns": 10, "resx": 24,
+                      "resy": 16, "pixel_size": 16.77 / 24,
+                      "motion": "circular", "distance": 25.0},
+        "sensor": {"type": "dda", "scalex": 16.77, "scaley": 16.77,
+                   "scalez": 16.77, "majorant": 10.0,
+                   "film": {"type": "vfilm", "resx": 32, "resy": 32,
+                            "resz": 32}},
+        "target": {"filename": path, "size": 4.0}, "output": str(tmp_path)}
+    transmission_only = True
+    if case == "ratio_scattering_telecentric_reflecting":
+        med["albedo"] = 0.5
+        cfg["sensor"]["type"] = "ratio"
+        cfg["projector"].update(type="telecentric", aperture_radius=0.2,
+                                focus_distance=20.0)
+        transmission_only = False
+    static, arr = Scene(cfg).build(mode="volume", include_target=False,
+                                   max_depth=8, rr_depth=3,
+                                   transmission_only=transmission_only,
+                                   sample_time=True)
+    return static, arr, 4
+
+
+def _wf_close(out, ref):
+    out, ref = out.cpu().numpy(), ref.cpu().numpy()
+    np.testing.assert_allclose(out, ref, rtol=WF_TOL,
+                               atol=WF_TOL * np.abs(ref).max())
+
+
+WF_CASES = ["dda_absorbing", "ratio_scattering_telecentric_reflecting"]
+
+
+@pytest.mark.parametrize("case", WF_CASES)
+def test_wf_kernels_match_plain(case, tmp_path, cuda_device):
+    from drtvam_tpu_torch.ops.march import scene_tensors
+    static, arr, spp = _wf_scene(tmp_path, case)
+    at = scene_tensors(arr, cuda_device)
+    rng = np.random.default_rng(5)
+    data = torch.from_numpy(rng.uniform(0.5, 1.5, static.projector.n_active)
+                            .astype(np.float32)).to(cuda_device)
+    dL = torch.from_numpy(rng.uniform(0.0, 1.0, static.sensor.n_cells)
+                          .astype(np.float32)).to(cuda_device)
+    before = dict(wf.launches)
+    dose = wf.forward(static, at, data, 7, spp)
+    grad = wf.adjoint(static, at, 7, spp, wf.DEFAULT_CHUNK, dL)
+    grad2 = wf.adjoint(static, at, 7, spp, wf.DEFAULT_CHUNK, dL)
+    torch.cuda.synchronize()
+    assert wf.launches["wf_fwd"] == before["wf_fwd"] + 1
+    assert wf.launches["wf_bwd"] == before["wf_bwd"] + 2
+    assert float(dose.abs().max()) > 0 and float(grad.abs().max()) > 0
+    _wf_close(dose, wf._forward(static, at, data, 7, spp, wf.DEFAULT_CHUNK))
+    _wf_close(grad, wf._adjoint(static, at, 7, spp, wf.DEFAULT_CHUNK, dL))
+    # one write per pixel, lanes summed in a fixed order
+    assert torch.equal(grad, grad2)
+
+
+def test_wf_cuda_tensors_never_take_the_plain_path(tmp_path, cuda_device,
+                                                   monkeypatch):
+    from drtvam_tpu_torch.ops.march import scene_tensors
+    static, arr, spp = _wf_scene(tmp_path, "dda_absorbing")
+    at = scene_tensors(arr, cuda_device)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(wf, "_forward", refuse)
+    monkeypatch.setattr(wf, "_adjoint", refuse)
+    monkeypatch.setattr(wf, "trace_wavefront", refuse)
+    data = torch.ones(static.projector.n_active, device=cuda_device,
+                      requires_grad=True)
+    vol = wf.render(static, at, data, 2.0, seed=1, spp=spp)
+    (g,) = torch.autograd.grad(vol.sum(), data)
+    torch.cuda.synchronize()
+    assert vol.is_cuda and g.is_cuda and float(g.abs().sum()) > 0
