@@ -6,28 +6,40 @@
 Phases (each failure exits non-zero before the result line):
   1. device: a CUDA device must exist; prints nvidia-smi's name and
      power limit.
-  2. build: nvcc builds the four backprojection kernels from csrc/.
-  3. kernels: each kernel against its plain PyTorch version on the card
-     at the bench shapes (A = 400, Zf = 256, U = 400, 256x256 film,
-     random fields with the banded u-geometry), with CUDA-event times,
-     the bound (float32 FMA peak or HBM rate, whichever is larger, for
-     the taps the fields have) and the time of one cuSPARSE SpMM
-     (torch.sparse.mm) computing the same function (library_ms; the
-     port never calls it). All four must give bitwise equal results on
-     two launches. Then each pair on the bench scene's real fields, as
-     an engine built on the card packs them: the dense pair on the
-     cylindrical vial's, the banded pair on the index-matched vial's;
+  2. build: nvcc builds the ten kernels from csrc/ (the four
+     backprojection kernels, their four bf16 operand forms and the
+     wavefront pair), one process per source, all started together.
+  3. kernels: each backprojection kernel, float32 and bf16, against its
+     plain PyTorch version on the card at the bench shapes (A = 400,
+     Zf = 256, U = 400, 256x256 film, random fields with the banded
+     u-geometry), with CUDA-event times, the bound (float32 FMA peak or
+     HBM rate, whichever is larger, for the taps the fields have; the
+     bf16 forms' streamed operand at 2 bytes) and the time of one
+     cuSPARSE SpMM (torch.sparse.mm) computing the same function
+     (library_ms; the port never calls it; for a bf16 form the SpMM runs
+     in float32 on the bf16-rounded weights and operand, which gives
+     the same values). All eight must give bitwise equal results on two
+     launches. Then each pair on the bench scene's real fields, as an
+     engine built on the card packs them: the dense pairs on the
+     cylindrical vial's, the banded pairs on the index-matched vial's;
      and the ballistic engine on the card against the same engine on the
-     CPU on two small scenes (dense and banded layout).
+     CPU on two small scenes (dense and banded layout, float32 and
+     bf16).
   4. main path: optimize() on the bench scene (400 angles, 400x400 DMD,
      256^3 film, cylindrical vial, 40 Linear-L-BFGS steps); the best
      IoU over 301 thresholds must reach 0.98. Refraction at the vial
      wall stretches some (angle, 32x64 block) u-spans past the 256-column
      band, so the engine runs the dense pair here (as the JAX package's
      engine does on this scene).
+  4b. the bf16 operand path: phase 4 with DRTVAM_MATMUL=bf16 and the
+     optimizer's "history_dtype": "bfloat16" (the JAX package's bf16
+     deployment): the bf16 dense pair must launch and the float32 one
+     must not; same IoU gate; steps, loop time and peak device memory
+     printed beside phase 4's.
   5. banded path: the same scene with an index-matched vial, whose
      u-spans fit the band: optimize() through the banded pair, same
      IoU gate.
+  5b. phase 5 on the bf16 operand path, as 4b: the bf16 banded pair.
   6. CLI: `python -m drtvam_tpu_torch config.json` on a 60x60x30 film
      (does not tile into 32x64 blocks) through the dense pair; the
      artifact set must exist.
@@ -56,6 +68,7 @@ kernels, the last is {"ok": true, "device": {...}}. The wavefront
 forward adds deposits with float atomics, so its sums are not bitwise
 reproducible; every other kernel's are.
 """
+import itertools
 import json
 import os
 import re
@@ -73,9 +86,10 @@ import numpy as np
 # |value|
 REL_TOL = 1e-5
 IOU_GATE = 0.98
-# no kernel uses atomics: each output is written once, in a fixed order,
-# so two launches agree bitwise
-BITWISE = ("bp_fwd", "bp_bwd", "bp_fwd_band", "bp_bwd_band")
+# no backprojection kernel uses atomics: each output is written once, in
+# a fixed order, so two launches agree bitwise
+BITWISE = ("bp_fwd", "bp_bwd", "bp_fwd_band", "bp_bwd_band", "bp_fwd_bf16",
+           "bp_bwd_bf16", "bp_fwd_band_bf16", "bp_bwd_band_bf16")
 # published H100 SXM peaks (700 W): float32 FMA outside the tensor
 # cores, HBM3
 F32_FLOPS = 67e12
@@ -86,6 +100,14 @@ REPLACES = {
     "bp_bwd": "drtvam_tpu/ops/backproject.py:221",
     "bp_fwd_band": "drtvam_tpu/ops/backproject.py:362",
     "bp_bwd_band": "drtvam_tpu/ops/backproject.py:426",
+    "bp_fwd_bf16": "drtvam_tpu/ops/backproject.py:187 (bf16=True, body "
+                   ":122-128)",
+    "bp_bwd_bf16": "drtvam_tpu/ops/backproject.py:221 (bf16=True, body "
+                   ":158-162)",
+    "bp_fwd_band_bf16": "drtvam_tpu/ops/backproject.py:362 (bf16=True, "
+                        "body :353-354)",
+    "bp_bwd_band_bf16": "drtvam_tpu/ops/backproject.py:426 (bf16=True, "
+                        "body :418-419)",
     "wf_fwd": "drtvam_tpu/ops/march.py:913 (trace_wavefront, XLA)",
     "wf_bwd": "drtvam_tpu/ops/march.py:913 (trace_wavefront, XLA)",
 }
@@ -145,13 +167,14 @@ def bench_fields(A=400, Y=256, X=256, U=400, Zf=256, seed=0):
     return Pz, W, Umap, dL, U
 
 
-def tap_entries(torch, bp, F, U, u0=None, Y=None, X=None):
+def tap_entries(torch, bp, F, U, u0=None, Y=None, X=None, bf16=False):
     """Every nonzero tap of packed fields as (a * U + column, raster
-    voxel, weight): B_a's nonzeros, band-masked for banded fields."""
+    voxel, weight): B_a's nonzeros, band-masked for banded fields, the
+    weights rounded to bfloat16 for a bf16 form."""
     A, _, L = F.shape
     dev = F.device
     lo = None if u0 is None else bp._band_lo(u0)
-    i0, i1, w0, w1 = bp._taps(F, U, lo)
+    i0, i1, w0, w1 = bp._taps(F, U, lo, bf16)
     vox = torch.arange(L, device=dev)
     if u0 is not None:  # block-major position -> raster index
         vox = bp.block_permute(vox.reshape(Y, X), Y, X).reshape(-1)
@@ -173,6 +196,20 @@ def csr(torch, rows, cols, vals, shape):
                                        check_invariants=False)
 
 
+def compulsory_bytes(name, fields, Zf):
+    """Each input read once, each output written once: the pattern
+    stack (A, Zf, U), the packed fields and the dose (Zf, Y*X), float32;
+    a bf16 form's streamed operand (Pz in, or dL in) at 2 bytes."""
+    f = fields
+    pz, dose = 4 * f.A * Zf * f.U, 4 * Zf * f.Y * f.X
+    if name.endswith("_bf16"):
+        if "fwd" in name:
+            pz //= 2
+        else:
+            dose //= 2
+    return pz + 4 * f.F.numel() + dose
+
+
 def bound(n_taps, Zf, n_bytes):
     """Least time on the card: 2 flops per (tap, z) at the float32 FMA
     peak, or the compulsory bytes at the HBM rate, whichever is larger."""
@@ -182,16 +219,21 @@ def bound(n_taps, Zf, n_bytes):
             "operations" if flop_ms >= byte_ms else "bytes")
 
 
-def library_calls(torch, bp, F, U, x, fwd, u0=None, Y=None, X=None):
+def library_calls(torch, bp, F, U, x, fwd, u0=None, Y=None, X=None,
+                  bf16=False):
     """One cuSPARSE SpMM (torch.sparse.mm) computing the kernel's
     function on x = Pz (forward: (YX x A*U) CSR @ Pz as (A*U, Zf)) or
-    x = dL (adjoint: (A*U x YX) CSR @ dL^T). Returns the call on
+    x = dL (adjoint: (A*U x YX) CSR @ dL^T). For a bf16 form, x and the
+    weights are rounded to bfloat16 first and the SpMM runs in float32,
+    which gives the bf16 function's values. Returns the call on
     pre-laid-out operands, the same call with the operand and result
     re-layouts, the number of taps and the CSR build seconds."""
     A = F.shape[0]
     Zf, YX = (x.shape[1], F.shape[2]) if fwd else x.shape
+    if bf16:
+        x = bp.round_bf16(x)
     t0 = time.perf_counter()
-    au, vox, w = tap_entries(torch, bp, F, U, u0, Y, X)
+    au, vox, w = tap_entries(torch, bp, F, U, u0, Y, X, bf16)
     n_taps = int(w.numel())
     if fwd:
         B = csr(torch, vox, au, w, (YX, A * U))
@@ -258,30 +300,39 @@ def phase_kernels(torch, bp, dev):
     if not same:
         raise AssertionError("the band-masked layout of span-ok fields "
                              "differs from the dense one")
-    cases = {
-        "bp_fwd": (lambda: bp.fwd_dense(Pz, dense.F, lay),
-                   lambda: bp.fwd_dense_plain(Pz, dense.F)),
-        "bp_bwd": (lambda: bp.bwd_dense(dL, dense.F, U, lay),
-                   lambda: bp.bwd_dense_plain(dL, dense.F, U)),
-        "bp_fwd_band": (lambda: bp.fwd_band(Pz, band.F, band.u0, Y, X,
-                                            blay),
-                        lambda: bp.fwd_band_plain(Pz, band.F, band.u0,
-                                                  Y, X)),
-        "bp_bwd_band": (lambda: bp.bwd_band(dL, band.F, band.u0, U, Y, X,
-                                            blay),
-                        lambda: bp.bwd_band_plain(dL, band.F, band.u0, U,
-                                                  Y, X)),
-    }
+    cases = {}
+    for b16 in (False, True):
+        sfx = "_bf16" if b16 else ""
+        cases.update({
+            "bp_fwd" + sfx: (
+                lambda b16=b16: bp.fwd_dense(Pz, dense.F, lay, b16),
+                lambda b16=b16: bp.fwd_dense_plain(Pz, dense.F, b16)),
+            "bp_bwd" + sfx: (
+                lambda b16=b16: bp.bwd_dense(dL, dense.F, U, lay, b16),
+                lambda b16=b16: bp.bwd_dense_plain(dL, dense.F, U, b16)),
+            "bp_fwd_band" + sfx: (
+                lambda b16=b16: bp.fwd_band(Pz, band.F, band.u0, Y, X, blay,
+                                            b16),
+                lambda b16=b16: bp.fwd_band_plain(Pz, band.F, band.u0, Y, X,
+                                                  b16)),
+            "bp_bwd_band" + sfx: (
+                lambda b16=b16: bp.bwd_band(dL, band.F, band.u0, U, Y, X,
+                                            blay, b16),
+                lambda b16=b16: bp.bwd_band_plain(dL, band.F, band.u0, U, Y,
+                                                  X, b16)),
+        })
     results = {}
     for name, (kern, plain) in cases.items():
         rec = {"phase": "kernel", "name": name,
                "shapes": {"A": A, "Zf": Zf, "U": U, "Y": Y, "X": X}}
         rec.update(check_and_time(torch, name, kern, plain))
-        fields = band if name.endswith("band") else dense
+        fields = band if "_band" in name else dense
         fwd = "fwd" in name
+        b16 = name.endswith("_bf16")
         lib, lib_full, n_taps, build_s = library_calls(
-            torch, bp, fields.F, U, Pz if fwd else dL, fwd, fields.u0, Y, X)
-        ref = cases[name][0]()
+            torch, bp, fields.F, U, Pz if fwd else dL, fwd, fields.u0, Y, X,
+            b16)
+        ref = kern()
         got = lib_full()
         rec["library_rel_err"] = float((got - ref).abs().max() /
                                        ref.abs().max())
@@ -290,10 +341,13 @@ def phase_kernels(torch, bp, dev):
         rec["library_layout_ms"] = cuda_ms(lib_full, 10, torch) - \
             rec["library_ms"]
         rec["library_csr_build_s"] = build_s
+        if b16:
+            rec["library_call"] = ("torch.sparse.mm in float32 on the "
+                                   "bf16-rounded weights and operand")
         del lib, lib_full
-        n_bytes = 4 * (A * Zf * U + fields.F.numel() + Zf * Y * X)
         rec["taps"] = n_taps
-        rec["bound_ms"], rec["bound_by"] = bound(n_taps, Zf, n_bytes)
+        rec["bound_ms"], rec["bound_by"] = bound(
+            n_taps, Zf, compulsory_bytes(name, fields, Zf))
         rec["roofline_share"] = rec["bound_ms"] / rec["ms"]
         emit(rec)
         results[name] = rec
@@ -327,18 +381,32 @@ def phase_real_fields(torch, bp, dev, tmp):
         dL = torch.from_numpy(rng.uniform(0.0, 1.0, (Zf, Y * X))
                               .astype(np.float32)).to(dev)
         maxw = f.layout.windows[1]
+        lay = f.layout
+        cases = []
+        for b16 in (False, True):
+            sfx = "_bf16" if b16 else ""
+            if f.banded:
+                cases += [
+                    ("bp_fwd_band" + sfx,
+                     lambda b16=b16: bp.fwd_band(Pz, f.F, f.u0, Y, X, lay,
+                                                 b16),
+                     lambda b16=b16: bp.fwd_band_plain(Pz, f.F, f.u0, Y, X,
+                                                       b16)),
+                    ("bp_bwd_band" + sfx,
+                     lambda b16=b16: bp.bwd_band(dL, f.F, f.u0, U, Y, X,
+                                                 lay, b16),
+                     lambda b16=b16: bp.bwd_band_plain(dL, f.F, f.u0, U, Y,
+                                                       X, b16))]
+            else:
+                cases += [
+                    ("bp_fwd" + sfx,
+                     lambda b16=b16: bp.fwd_dense(Pz, f.F, lay, b16),
+                     lambda b16=b16: bp.fwd_dense_plain(Pz, f.F, b16)),
+                    ("bp_bwd" + sfx,
+                     lambda b16=b16: bp.bwd_dense(dL, f.F, U, lay, b16),
+                     lambda b16=b16: bp.bwd_dense_plain(dL, f.F, U, b16))]
         n_taps = int(tap_entries(torch, bp, f.F, U, f.u0, Y, X)[2].numel())
-        n_bytes = 4 * (A * Zf * U + f.F.numel() + Zf * Y * X)
-        if f.banded:
-            cases = (("bp_fwd_band",
-                      lambda: bp.fwd_band_plain(Pz, f.F, f.u0, Y, X)),
-                     ("bp_bwd_band",
-                      lambda: bp.bwd_band_plain(dL, f.F, f.u0, U, Y, X)))
-        else:
-            cases = (("bp_fwd", lambda: bp.fwd_dense_plain(Pz, f.F)),
-                     ("bp_bwd", lambda: bp.bwd_dense_plain(dL, f.F, U)))
-        for (name, plain), kern in zip(cases, (lambda: f.forward(Pz),
-                                               lambda: f.adjoint(dL))):
+        for name, kern, plain in cases:
             rec = {"phase": "kernel_real_fields", "name": name,
                    "vial": vial,
                    "shapes": {"A": A, "Zf": Zf, "U": U, "Y": Y, "X": X},
@@ -347,11 +415,12 @@ def phase_real_fields(torch, bp, dev, tmp):
                    "engine_s": engine_s}
             rec.update(check_and_time(torch, name, kern, plain))
             rec["taps"] = n_taps
-            rec["bound_ms"], rec["bound_by"] = bound(n_taps, Zf, n_bytes)
+            rec["bound_ms"], rec["bound_by"] = bound(
+                n_taps, Zf, compulsory_bytes(name, f, Zf))
             rec["roofline_share"] = rec["bound_ms"] / rec["ms"]
             emit(rec)
             out[name] = rec
-        del eng, f, Pz, dL, cases
+        del eng, f, lay, Pz, dL, cases
         torch.cuda.empty_cache()
     return out
 
@@ -382,15 +451,17 @@ def small_scene(vial, film, tmp):
 def phase_engine(torch, dev, tmp):
     """The engine on the card against the engine on the CPU (plain
     versions): dose and pattern gradient, one dense and one banded
-    scene."""
+    scene, float32 and bf16."""
     from drtvam_tpu_torch.ops.ballistic import BallisticEngine
     vial = {"type": "cylindrical", "r_int": 2.3, "r_ext": 2.6, "ior": 1.54,
             "medium": {"ior": 1.40, "extinction": 0.1, "albedo": 0.0}}
-    for film, impl in ((40, "cuda"), (128, "cuda_band")):
+    for (film, impl), sfx in itertools.product(
+            ((40, "cuda"), (128, "cuda_band")), ("", "_bf16")):
+        impl += sfx
         sc, static, arr = small_scene(vial, film, tmp)
         inv_vol = float(sc.sensor.inv_volume())
-        cpu = BallisticEngine(static, arr, "cpu")
-        gpu = BallisticEngine(static, arr, dev)
+        cpu = BallisticEngine(static, arr, "cpu", "plain" + sfx)
+        gpu = BallisticEngine(static, arr, dev, "cuda" + sfx)
         assert gpu.impl == impl, (gpu.impl, impl)
         rng = np.random.default_rng(film)
         p = torch.from_numpy(rng.random(cpu.n_active).astype(np.float32))
@@ -443,41 +514,61 @@ def bench_config(tmp, vial="cylindrical"):
     }
 
 
-def phase_bench(torch, bp, dev, tmp, vial, kernels):
-    """optimize() on the bench scene; `kernels` must have launched."""
+def phase_bench(torch, bp, dev, tmp, vial, kernels, bf16=False):
+    """optimize() on the bench scene; `kernels` must have launched, and
+    no other backprojection kernel. bf16: the bf16 operand path, with
+    DRTVAM_MATMUL=bf16 in the environment for the phase and a bfloat16
+    L-BFGS history; else DRTVAM_MATMUL=f32. Returns the record."""
     from drtvam_tpu_torch.opt.optimize import optimize
     from drtvam_tpu_torch.utils.metrics import best_iou
     cfg = bench_config(tmp, vial)
+    if bf16:
+        cfg["optimizer"]["history_dtype"] = "bfloat16"
+        cfg["output"] += "_bf16"
     timings = {}
-    torch.cuda.reset_peak_memory_stats(dev)
-    bp.reset_launches()
-    t0 = time.perf_counter()
-    vol = optimize(cfg, device=dev, timings=timings)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    env = os.environ.get("DRTVAM_MATMUL")
+    os.environ["DRTVAM_MATMUL"] = "bf16" if bf16 else "f32"
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        bp.reset_launches()
+        t0 = time.perf_counter()
+        vol = optimize(cfg, device=dev, timings=timings)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        if env is None:
+            del os.environ["DRTVAM_MATMUL"]
+        else:
+            os.environ["DRTVAM_MATMUL"] = env
     counts = dict(bp.launches)
     for name in kernels:
         if counts[name] == 0:
             raise AssertionError(f"the {vial} bench run never launched "
                                  f"{name}")
+    stray = [n for n in bp.KERNELS if n not in kernels and counts[n]]
+    if stray:
+        raise AssertionError(f"the {vial} bench run launched {stray} "
+                             f"besides {list(kernels)}")
     target = np.load(os.path.join(cfg["output"], "target.npy"))
     assert vol.shape == (256, 256, 256, 1) and np.isfinite(vol).all()
     iou, thr = best_iou(vol[..., 0], target[..., 0], 301)
     loss = np.load(os.path.join(cfg["output"], "loss.npy"))
     steps = int(np.count_nonzero(
         np.load(os.path.join(cfg["output"], "timing.npy")).sum(1)))
-    emit({"phase": "bench", "vial": vial, "scene_s": timings["scene_s"],
-          "precompute_s": timings["precompute_s"],
-          "loop_s": timings["loop_s"],
-          "final_render_s": timings["final_render_s"],
-          "artifacts_s": timings["artifacts_s"], "wall_s": wall,
-          "steps_run": steps, "loss_first": float(loss[0]),
-          "loss_last": float(loss[steps - 1]),
-          "best_iou": iou, "best_threshold": thr, "launches": counts,
-          "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9})
+    rec = {"phase": "bench_bf16" if bf16 else "bench", "vial": vial,
+           "scene_s": timings["scene_s"],
+           "precompute_s": timings["precompute_s"],
+           "loop_s": timings["loop_s"],
+           "final_render_s": timings["final_render_s"],
+           "artifacts_s": timings["artifacts_s"], "wall_s": wall,
+           "steps_run": steps, "loss_first": float(loss[0]),
+           "loss_last": float(loss[steps - 1]),
+           "best_iou": iou, "best_threshold": thr, "launches": counts,
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    emit(rec)
     if not iou >= IOU_GATE:
         raise AssertionError(f"best IoU {iou} < {IOU_GATE}")
-    return counts
+    return rec
 
 
 def phase_cli(bp, tmp):
@@ -984,7 +1075,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    # all six sources at once: one nvcc each, started together
+    # all ten sources at once: one nvcc each, started together
     load_cuda(bp.KERNELS + wf.KERNELS, {**bp._SETUP, **wf._SETUP},
               wf._FLAGS)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -995,12 +1086,20 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         real = phase_real_fields(torch, bp, dev, tmp)
         phase_engine(torch, dev, tmp)
-        dense_counts = phase_bench(torch, bp, dev, tmp, "cylindrical",
-                                   ("bp_fwd", "bp_bwd"))
-        torch.cuda.empty_cache()
-        band_counts = phase_bench(torch, bp, dev, tmp, "index_matched",
-                                  ("bp_fwd_band", "bp_bwd_band"))
-        torch.cuda.empty_cache()
+        bench = {}
+        for vial, pair in (("cylindrical", ("bp_fwd", "bp_bwd")),
+                           ("index_matched", ("bp_fwd_band", "bp_bwd_band"))):
+            f32 = phase_bench(torch, bp, dev, tmp, vial, pair)
+            torch.cuda.empty_cache()
+            pair16 = tuple(n + "_bf16" for n in pair)
+            b16 = phase_bench(torch, bp, dev, tmp, vial, pair16, bf16=True)
+            torch.cuda.empty_cache()
+            emit({"phase": "bench_bf16_vs_f32", "vial": vial, **{
+                k: {"f32": f32[k], "bf16": b16[k]} for k in (
+                    "steps_run", "loop_s", "peak_mem_gb", "best_iou",
+                    "loss_last", "wall_s")}})
+            for n in pair + pair16:
+                bench[n] = (f32 if n in pair else b16)["launches"][n]
         phase_cli(bp, tmp)
         torch.cuda.empty_cache()
         wfk = phase_wf_kernels(torch, wf, dev, tmp)
@@ -1012,17 +1111,15 @@ def main():
         torch.cuda.empty_cache()
         phase_cli_wavefront(wf, tmp)
 
-    launches = {"bp_fwd": dense_counts["bp_fwd"],
-                "bp_bwd": dense_counts["bp_bwd"],
-                "bp_fwd_band": band_counts["bp_fwd_band"],
-                "bp_bwd_band": band_counts["bp_bwd_band"]}
     emit({"kernels": [
         {"name": n, "route": "cuda",
          "source": f"drtvam_tpu_torch/csrc/{n}.cu",
-         "replaces": REPLACES[n], "launches": launches[n],
-         "path": ("optimize() on the bench scene, index-matched vial"
-                  if n.endswith("band") else
-                  "main path: optimize() on the bench scene"),
+         "replaces": REPLACES[n], "launches": bench[n],
+         "path": ("optimize() on the bench scene, "
+                  + ("index-matched vial" if "_band" in n else
+                     "cylindrical vial (the main path)")
+                  + (", DRTVAM_MATMUL=bf16 and a bfloat16 L-BFGS history"
+                     if n.endswith("_bf16") else "")),
          **{k: kern[n][k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "library_layout_ms", "roofline_share")},

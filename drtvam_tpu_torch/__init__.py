@@ -5,10 +5,11 @@ manufacturing (TVAM) pattern optimization on an NVIDIA GPU. The JAX
 package `drtvam_tpu` is the reference; every module here has its
 counterpart at the same path there and is tested against it.
 
-This slice covers the ballistic pattern optimization end to end:
-collimated projector, analytic vial, pure absorption, dda estimator,
-Linear L-BFGS. The four backprojection kernels are hand-written CUDA
-(`csrc/`), built with nvcc at first use.
+It runs the pattern optimization end to end with Linear L-BFGS on
+analytic vials, through the ballistic engine (the four backprojection
+kernels, each in float32 and in its bf16 operand form) or the wavefront
+path tracer (the wf_fwd / wf_bwd pair). The kernels are hand-written
+CUDA (`csrc/`), built with nvcc at first use.
 
 Layer map:
   core/     — transform math

@@ -44,9 +44,22 @@ def scene_from_jax(static, arr):
     return port, {k: np.asarray(v) for k, v in arr.items()}
 
 
+def _rows(x, device):
+    """A history buffer as numpy -> torch, keeping its type: float32,
+    or bfloat16 (ml_dtypes' numpy type, read through its bits, so that
+    ml_dtypes need not be importable here)."""
+    x = np.ascontiguousarray(x)
+    if x.dtype.name == "bfloat16":
+        t = torch.from_numpy(x.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(x, np.float32))
+    return t.to(device).contiguous()
+
+
 def lbfgs_state_from_numpy(state, device="cpu"):
     """A fused_linear_lbfgs loop state (its dict, values as numpy) ->
-    the state linear_lbfgs resumes from, on `device`."""
+    the state linear_lbfgs resumes from, on `device`. S and Yh keep the
+    history's type (float32 or bfloat16)."""
     def vec(k):
         return torch.as_tensor(np.array(state[k], np.float32),
                                device=device).contiguous()
@@ -54,6 +67,6 @@ def lbfgs_state_from_numpy(state, device="cpu"):
     return dict(
         i=int(state["i"]), done=bool(state["done"]),
         p=vec("p"), p_old=vec("p_old"), g_old=vec("g_old"),
-        S=vec("S"), Yh=vec("Yh"), ys=vec("ys"),
-        head=int(state["head"]), nvalid=int(state["nvalid"]),
+        S=_rows(state["S"], device), Yh=_rows(state["Yh"], device),
+        ys=vec("ys"), head=int(state["head"]), nvalid=int(state["nvalid"]),
         loss_hist=vec("loss_hist"))

@@ -26,5 +26,5 @@
 extern "C" int bp_bwd_band(const float* dL, const int* ptr, const int* ent,
                            float* dLt, float* out, int A, int Zf, int U,
                            int YX, void* stream) {
-  return bwd_run(dL, ptr, ent, dLt, out, A, Zf, U, YX, stream);
+  return bwd_run<float>(dL, ptr, ent, dLt, out, A, Zf, U, YX, stream);
 }

@@ -1,4 +1,5 @@
-// The gather backprojection adjoint, shared by bp_bwd and bp_bwd_band:
+// The gather backprojection adjoint, shared by bp_bwd and bp_bwd_band,
+// and by their bf16 operand forms bp_bwd_bf16 and bp_bwd_band_bf16:
 //
 //   Pzbar[a, z, i] = sum_j dL[z, j] * B_a[i, j],
 //
@@ -14,8 +15,10 @@
 //   raster voxel index inside a group: entries (j, i0, w0, w1), with
 //   group g = i0 + 1 in 0..U starting at ptr[a * (U + 1) + g].
 // - dL is re-laid out once per call to dLt (Y*X, Zp), z innermost, so a
-//   voxel's z-line is contiguous: a warp reads it as one float4 per lane
-//   (128 z-rows, 512 bytes, coalesced).
+//   voxel's z-line is contiguous: a warp reads it as four values per
+//   lane (128 z-rows: 512 bytes in float32, coalesced). The bf16 form
+//   rounds dL to bfloat16 in that pass (256-byte lines, 8 bytes a lane)
+//   and rounds each entry's two weights as it loads them.
 // - A warp owns (angle, a run of RUN columns, 128 z-rows) and walks the
 //   voxels of groups c0 - 1 .. c1 - 1 in order. Each voxel has taps on
 //   the two adjacent columns i0 and i0 + 1, so its dL line is read once
@@ -27,7 +30,7 @@
 // - The tile is written out row by row, consecutive lanes on
 //   consecutive columns. Every output element is written once, in a
 //   fixed order: the result is bitwise reproducible from run to run, and
-//   the output needs no zeroing.
+//   the output needs no zeroing. The sums are float32 in both forms.
 #pragma once
 
 #include "backproject_common.cuh"
@@ -36,29 +39,14 @@
 // into a shared library of its own.
 namespace {
 
+using namespace bp;
+
 constexpr int BWD_WARPS = 8;
 constexpr int RUN = 16;     // columns per warp
 constexpr int ZW = 128;     // z-rows per warp: one float4 per lane
 constexpr int TS = ZW + 4;  // floats between two columns of a warp's tile
 constexpr int BATCH = 8;    // dL lines in flight per warp
 constexpr unsigned FULL = 0xffffffffu;
-
-// dL (Zf, YX) -> dLt (YX, Zp), rows zero-padded from Zf to Zp.
-__global__ void transpose_kernel(const float* __restrict__ dL,
-                                 float* __restrict__ dLt, int Zf, int Zp,
-                                 int YX) {
-  __shared__ float t[32][33];
-  const int j0 = blockIdx.x * 32, z0 = blockIdx.y * 32;
-  for (int k = threadIdx.y; k < 32; k += 8) {
-    const int z = z0 + k, j = j0 + threadIdx.x;
-    t[k][threadIdx.x] = (z < Zf && j < YX) ? dL[(size_t)z * YX + j] : 0.0f;
-  }
-  __syncthreads();
-  for (int k = threadIdx.y; k < 32; k += 8) {
-    const int j = j0 + k, z = z0 + threadIdx.x;
-    if (j < YX && z < Zp) dLt[(size_t)j * Zp + z] = t[threadIdx.x][k];
-  }
-}
 
 __device__ __forceinline__ float4 fma4(float w, float4 d, float4 acc) {
   acc.x += w * d.x;
@@ -68,8 +56,9 @@ __device__ __forceinline__ float4 fma4(float w, float4 d, float4 acc) {
   return acc;
 }
 
+template <class T>
 __global__ void __launch_bounds__(BWD_WARPS * 32)
-bwd_kernel(const float* __restrict__ dLt, const int4* __restrict__ ent,
+bwd_kernel(const T* __restrict__ dLt, const int4* __restrict__ ent,
            const int* __restrict__ ptr, float* __restrict__ out, int A,
            int Zf, int Zp, int U, int runs) {
   extern __shared__ float4 smem[];
@@ -89,7 +78,9 @@ bwd_kernel(const float* __restrict__ dLt, const int4* __restrict__ ent,
 
   for (int base = e_beg; base < e_end; base += 32) {
     const int k = base + lane;
-    const int4 mine = k < e_end ? ent[k] : make_int4(0, 0, 0, 0);
+    int4 mine = k < e_end ? ent[k] : make_int4(0, 0, 0, 0);
+    mine.z = __float_as_int(Operand<T>::weight(__int_as_float(mine.z)));
+    mine.w = __float_as_int(Operand<T>::weight(__int_as_float(mine.w)));
     const int cnt = min(32, e_end - base);
     for (int t0 = 0; t0 < cnt; t0 += BATCH) {
       float4 d[BATCH];
@@ -97,8 +88,7 @@ bwd_kernel(const float* __restrict__ dLt, const int4* __restrict__ ent,
       for (int b = 0; b < BATCH; ++b) {
         const int jj = __shfl_sync(FULL, mine.x, t0 + b);
         d[b] = (zon && t0 + b < cnt)
-                   ? __ldg(reinterpret_cast<const float4*>(
-                         dLt + (size_t)jj * Zp + z))
+                   ? Operand<T>::load4(dLt + (size_t)jj * Zp + z)
                    : zero;
       }
 #pragma unroll
@@ -137,25 +127,25 @@ bwd_kernel(const float* __restrict__ dLt, const int4* __restrict__ ent,
   }
 }
 
-// dL (Zf, YX) raster; ptr (A * (U + 1) + 1) int32 and ent (nnz, 4) int32
-// the voxel lists; dLt (YX, Zp) scratch with Zp = Zf rounded up to 4;
-// out (A, Zf, U), every element written. All contiguous, on the device.
-// Returns the CUDA error code of the launches.
-int bwd_run(const float* dL, const int* ptr, const int* ent, float* dLt,
+// dL (Zf, YX) float32 raster; ptr (A * (U + 1) + 1) int32 and ent
+// (nnz, 4) int32 the voxel lists; dLt (YX, Zp) scratch of the operand
+// type T, Zp = Zf rounded up to 4; out (A, Zf, U) float32, every element
+// written. All contiguous, on the device. Returns the CUDA error code of
+// the launches.
+template <class T>
+int bwd_run(const float* dL, const int* ptr, const int* ent, T* dLt,
             float* out, int A, int Zf, int U, int YX, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int Zp = (Zf + 3) / 4 * 4;
-  transpose_kernel<<<dim3((YX + 31) / 32, (Zp + 31) / 32), dim3(32, 8), 0,
-                     s>>>(dL, dLt, Zf, Zp, YX);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = transpose<T>(dL, dLt, 1, Zf, Zp, YX, s);
   if (e != cudaSuccess) return (int)e;
   const int smem = BWD_WARPS * RUN * TS * (int)sizeof(float);
-  e = cudaFuncSetAttribute(bwd_kernel,
+  e = cudaFuncSetAttribute(bwd_kernel<T>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const int runs = (U + RUN - 1) / RUN;
   const dim3 grid((A * runs + BWD_WARPS - 1) / BWD_WARPS, (Zp + ZW - 1) / ZW);
-  bwd_kernel<<<grid, BWD_WARPS * 32, smem, s>>>(
+  bwd_kernel<T><<<grid, BWD_WARPS * 32, smem, s>>>(
       dLt, reinterpret_cast<const int4*>(ent), ptr, out, A, Zf, Zp, U, runs);
   return (int)cudaGetLastError();
 }

@@ -17,19 +17,11 @@
 // version.
 #include "bp_fwd_kernel.cuh"
 
-namespace {
-
-struct RasterFields {
-  __device__ static int index(int y, int x, int X) { return y * X + x; }
-};
-
-}  // namespace
-
 // Pz (A, Zf, U), F (A, 2, Y*X) raster packed fields, win (A, T, 2),
 // maxw, out (Zf, Y*X): see fwd_run.
 extern "C" int bp_fwd(const float* Pz, const float* F, const int* win,
                       float* out, int A, int Zf, int U, int Y, int X,
                       int maxw, void* stream) {
-  return fwd_run<RasterFields>(Pz, F, win, out, A, Zf, U, Y, X, maxw,
-                               stream);
+  return fwd_run<float, RasterFields>(Pz, F, win, nullptr, out, A, Zf, U, Y,
+                                      X, maxw, stream);
 }

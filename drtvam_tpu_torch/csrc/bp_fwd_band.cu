@@ -22,21 +22,6 @@
 // block-major fields in place.
 #include "bp_fwd_kernel.cuh"
 
-namespace {
-
-constexpr int BY = 32, BX = 64;  // film block of the banded layout
-
-// position of voxel (y, x) in the block-major fields: block
-// (y / BY, x / BX) row-major, then (y % BY, x % BX) row-major inside it
-struct BlockMajorFields {
-  __device__ static int index(int y, int x, int X) {
-    return ((y / BY) * (X / BX) + x / BX) * (BY * BX) + (y % BY) * BX +
-           x % BX;
-  }
-};
-
-}  // namespace
-
 // Pz (A, Zf, U); F (A, 2, T * 2048) block-major packed fields; win
 // (A, ceil(Y/32) * ceil(X/32), 2) the band-masked column windows, maxw
 // the widest; out (Zf, Y * X) raster. Y % 32 == 0, X % 64 == 0. See
@@ -44,6 +29,6 @@ struct BlockMajorFields {
 extern "C" int bp_fwd_band(const float* Pz, const float* F, const int* win,
                            float* out, int A, int Zf, int U, int Y, int X,
                            int maxw, void* stream) {
-  return fwd_run<BlockMajorFields>(Pz, F, win, out, A, Zf, U, Y, X, maxw,
-                                   stream);
+  return fwd_run<float, BlockMajorFields>(Pz, F, win, nullptr, out, A, Zf,
+                                          U, Y, X, maxw, stream);
 }

@@ -17,6 +17,12 @@ its plain PyTorch version beside it:
     fwd_dense / bwd_dense   <- _fwd_pallas / _bwd_pallas
     fwd_band  / bwd_band    <- _fwd_banded / _bwd_banded
 
+Each takes `bf16=`: False launches the float32 kernel (bp_fwd, ...),
+True its bf16 operand form (bp_fwd_bf16, ...), the JAX kernels'
+bf16=True branch: the streamed operand (Pz or dL) and every tap weight
+W * (1 - f), W * f are rounded to bfloat16 (nearest even), and the sums
+are float32. The plain versions take the same flag.
+
 The CUDA kernels live in ../csrc (one source each) and are built with
 nvcc at first use. A wrapper given CPU tensors runs the plain version;
 given CUDA tensors it launches its kernel or raises. `launches` counts
@@ -45,11 +51,14 @@ import torch.nn.functional as tnf
 BY, BX = 32, 64          # dose block of the banded layout
 TILE_B = BY * BX
 BANDW = 256              # band columns; u0 quantized to 128
-MAX_DENSE_U = 6400       # bp_fwd stages >= 4 z-rows of a window of up to
-                         # U columns, twice, in 227 KB of shared memory
+MAX_DENSE_U = 6400       # bp_fwd stages >= 4 float32 (8 bf16) z-rows of
+                         # a window of up to U columns, twice, in 227 KB
+                         # of shared memory
 FT = 32                  # film tile edge of bp_fwd's column windows
 
-KERNELS = ("bp_fwd", "bp_bwd", "bp_fwd_band", "bp_bwd_band")
+KERNELS = ("bp_fwd", "bp_bwd", "bp_fwd_band", "bp_bwd_band",
+           "bp_fwd_bf16", "bp_bwd_bf16", "bp_fwd_band_bf16",
+           "bp_bwd_band_bf16")
 launches = {k: 0 for k in KERNELS}
 
 
@@ -60,6 +69,11 @@ def reset_launches():
 
 def _round_up(x, m):
     return -(-x // m) * m
+
+
+def round_bf16(x):
+    """float32 -> bfloat16 (nearest even) -> float32."""
+    return x.to(torch.bfloat16).to(torch.float32)
 
 
 # --------------------------------------------------------------------------
@@ -267,10 +281,11 @@ class DenseLayout:
 # plain versions (torch; CPU path and reference on the card)
 
 
-def _taps(F, U, lo=None):
+def _taps(F, U, lo=None, bf16=False):
     """Tap columns (clipped) and weights (masked) of packed fields.
     lo: optional per-cell band start (A, L); taps are kept in
-    [lo, min(lo + BANDW, U)) instead of [0, U)."""
+    [lo, min(lo + BANDW, U)) instead of [0, U). bf16: the weights
+    rounded to bfloat16, as the bf16 kernels round them."""
     W, u = F[:, 0], F[:, 1]
     fl = torch.floor(u)
     f = u - fl
@@ -285,6 +300,8 @@ def _taps(F, U, lo=None):
         in1 = (i1 >= lo) & (i1 < hi)
     w0 = W * (1.0 - f) * in0
     w1 = W * f * in1
+    if bf16:
+        w0, w1 = round_bf16(w0), round_bf16(w1)
     return i0.clamp(0, U - 1), i1.clamp(0, U - 1), w0, w1
 
 
@@ -315,28 +332,35 @@ def _band_lo(u0):
     return u0.to(torch.int64).repeat_interleave(TILE_B, dim=1)
 
 
-def fwd_dense_plain(Pz, F):
+def _operand(x, bf16):
+    return round_bf16(x) if bf16 else x
+
+
+def fwd_dense_plain(Pz, F, bf16=False):
     """Plain version of the dense forward: take-based, angle by angle
-    (the JAX package's _fwd_xla)."""
-    return _fwd_plain(Pz, _taps(F, Pz.shape[2]))
+    (the JAX package's _fwd_xla; with bf16, Pz and the weights rounded
+    as _fwd_pallas(bf16=True) rounds them)."""
+    return _fwd_plain(_operand(Pz, bf16), _taps(F, Pz.shape[2], bf16=bf16))
 
 
-def bwd_dense_plain(dL, F, U):
+def bwd_dense_plain(dL, F, U, bf16=False):
     """Plain version of the dense adjoint (_bwd_xla)."""
-    return _bwd_plain(dL, _taps(F, U), U)
+    return _bwd_plain(_operand(dL, bf16), _taps(F, U, bf16=bf16), U)
 
 
-def fwd_band_plain(Pz, F, u0, Y, X):
+def fwd_band_plain(Pz, F, u0, Y, X, bf16=False):
     """Plain version of the banded forward: taps outside each block's
     band are dropped exactly as the kernel drops them."""
-    out = _fwd_plain(Pz, _taps(F, Pz.shape[2], _band_lo(u0)))
+    out = _fwd_plain(_operand(Pz, bf16),
+                     _taps(F, Pz.shape[2], _band_lo(u0), bf16))
     return block_unpermute(out, Y, X).reshape(Pz.shape[1], Y * X)
 
 
-def bwd_band_plain(dL, F, u0, U, Y, X):
+def bwd_band_plain(dL, F, u0, U, Y, X, bf16=False):
     """Plain version of the banded adjoint; dL is (Zf, Y*X) raster."""
     dLb = block_permute(dL.reshape(-1, Y, X), Y, X).reshape(dL.shape[0], -1)
-    return _bwd_plain(dLb, _taps(F, U, _band_lo(u0)), U)
+    return _bwd_plain(_operand(dLb, bf16), _taps(F, U, _band_lo(u0), bf16),
+                      U)
 
 
 # --------------------------------------------------------------------------
@@ -350,17 +374,17 @@ def _setup(lib, name, n_ptr, n_int):
     fn.restype = ctypes.c_int
 
 
-_SETUP = {
-    "bp_fwd": lambda lib: _setup(lib, "bp_fwd", 4, 6),
-    "bp_bwd": lambda lib: _setup(lib, "bp_bwd", 5, 4),
-    "bp_fwd_band": lambda lib: _setup(lib, "bp_fwd_band", 4, 6),
-    "bp_bwd_band": lambda lib: _setup(lib, "bp_bwd_band", 5, 4),
-}
+# (pointer, int) argument counts: the bf16 forwards take a scratch
+# pointer more than the float32 ones
+_ARGS = {"bp_fwd": (4, 6), "bp_bwd": (5, 4), "bp_fwd_band": (4, 6),
+         "bp_bwd_band": (5, 4), "bp_fwd_bf16": (5, 6), "bp_bwd_bf16": (5, 4),
+         "bp_fwd_band_bf16": (5, 6), "bp_bwd_band_bf16": (5, 4)}
+_SETUP = {k: (lambda lib, k=k: _setup(lib, k, *_ARGS[k])) for k in KERNELS}
 
 
 def build_kernels():
     """Build (nvcc, one process per source, in parallel) and load all
-    four kernels. Returns {name: ctypes lib}; raises on any failure."""
+    eight kernels. Returns {name: ctypes lib}; raises on any failure."""
     from ..native import load_cuda
     return load_cuda(KERNELS, _SETUP)
 
@@ -392,22 +416,32 @@ def _launch(name, dev, args):
         raise RuntimeError(f"{name}: CUDA launch failed, cudaError_t {err}")
 
 
-def _launch_fwd(name, dev, Pz, F, layout):
-    """The windowed forward (csrc/bp_fwd_kernel.cuh) on its layout."""
+def _launch_fwd(name, dev, Pz, F, layout, bf16):
+    """The windowed forward (csrc/bp_fwd_kernel.cuh) on its layout; the
+    bf16 form first rounds Pz into a scratch copy (A, U, Zp), z
+    innermost, Zp = Zf rounded up to 8."""
     A, Zf, U = Pz.shape
     win, maxw = layout.windows
     out = torch.empty((Zf, F.shape[2]), dtype=torch.float32, device=dev)
-    _launch(name, dev, (Pz.data_ptr(), F.data_ptr(), win.data_ptr(),
-                        out.data_ptr(), A, Zf, U, layout.Y, layout.X, maxw))
+    ptrs = (Pz.data_ptr(), F.data_ptr(), win.data_ptr())
+    if bf16:
+        Pt = torch.empty((A, U, _round_up(Zf, 8)), dtype=torch.bfloat16,
+                         device=dev)
+        ptrs += (Pt.data_ptr(),)
+    _launch(name, dev, ptrs + (out.data_ptr(), A, Zf, U, layout.Y,
+                               layout.X, maxw))
     return out
 
 
-def _launch_bwd(name, dev, dL, A, U, layout):
+def _launch_bwd(name, dev, dL, A, U, layout, bf16):
     """The gather adjoint (csrc/bp_bwd_kernel.cuh) on its layout. Every
-    output element is written, so the output is not zeroed."""
+    output element is written, so the output is not zeroed. dL is
+    re-laid out into scratch (YX, Zp), Zp = Zf rounded up to 4, in the
+    operand's type."""
     Zf, YX = dL.shape
     ptr, ent = layout.lists
-    dLt = torch.empty((YX, _round_up(Zf, 4)), dtype=torch.float32,
+    dLt = torch.empty((YX, _round_up(Zf, 4)),
+                      dtype=torch.bfloat16 if bf16 else torch.float32,
                       device=dev)
     out = torch.empty((A, Zf, U), dtype=torch.float32, device=dev)
     _launch(name, dev, (dL.data_ptr(), ptr.data_ptr(), ent.data_ptr(),
@@ -415,10 +449,14 @@ def _launch_bwd(name, dev, dL, A, U, layout):
     return out
 
 
-def fwd_dense(Pz, F, layout=None):
+def _kernel(name, bf16):
+    return name + "_bf16" if bf16 else name
+
+
+def fwd_dense(Pz, F, layout=None, bf16=False):
     """dose (Zf, YX) = sum_a Pz_a @ B_a. Pz (A, Zf, U), F (A, 2, YX);
     layout: the fields' DenseLayout (built here, for a one-row film, if
-    not given).
+    not given); bf16: the bf16 operand form (bp_fwd_bf16).
 
     CUDA kernel csrc/bp_fwd.cu; replaces drtvam_tpu/ops/backproject.py
     _fwd_pallas (:187). The work is 2 FMAs per (angle, tap-carrying
@@ -429,25 +467,31 @@ def fwd_dense(Pz, F, layout=None):
     the tile's exact column window of Pz, z innermost (one 16-byte
     shared load per tap and four z-rows), double-buffered with cp.async;
     the grid runs one z-chunk's tiles first so Pz's z-slab stays in L2.
-    Registers accumulate, each output is written once, no atomics."""
+    Registers accumulate, each output is written once, no atomics.
+
+    bp_fwd_bf16 (csrc/bp_fwd_bf16.cu) replaces _fwd_pallas(bf16=True):
+    the same template on a bf16 copy of Pz laid out (A, U, Zp), z
+    innermost, so a 16-byte shared load gives a tap eight z-rows."""
     A, Zf, U = Pz.shape
     YX = F.shape[2]
-    dev = _check("bp_fwd", (Pz, F), (torch.float32,) * 2,
+    name = _kernel("bp_fwd", bf16)
+    dev = _check(name, (Pz, F), (torch.float32,) * 2,
                  ((A, Zf, U), (A, 2, YX)))
     if dev.type == "cpu":
-        return fwd_dense_plain(Pz, F)
+        return fwd_dense_plain(Pz, F, bf16)
     if U > MAX_DENSE_U:
-        raise ValueError(f"bp_fwd: U = {U} exceeds {MAX_DENSE_U}, the "
+        raise ValueError(f"{name}: U = {U} exceeds {MAX_DENSE_U}, the "
                          "widest column window the kernel stages")
     if layout is None:
         layout = DenseLayout(F, U, 1, YX)
-    layout.check("bp_fwd", F, U)
-    return _launch_fwd("bp_fwd", dev, Pz, F, layout)
+    layout.check(name, F, U)
+    return _launch_fwd(name, dev, Pz, F, layout, bf16)
 
 
-def bwd_dense(dL, F, U, layout=None):
+def bwd_dense(dL, F, U, layout=None, bf16=False):
     """Pzbar (A, Zf, U) = dL @ B_a^T. dL (Zf, YX), F (A, 2, YX);
-    layout: the fields' DenseLayout (built here if not given).
+    layout: the fields' DenseLayout (built here if not given); bf16: the
+    bf16 operand form (bp_bwd_bf16).
 
     CUDA kernel csrc/bp_bwd.cu; replaces _bwd_pallas (:221). The same
     18.8 GFLOP as the forward at the bench shapes, bound by the FMA rate;
@@ -459,17 +503,22 @@ def bwd_dense(dL, F, U, layout=None):
     once into two register accumulators for its two adjacent columns;
     the grid runs one z-chunk first so the dL slab stays in L2. No
     atomics: every output is written once, in a fixed order, so the
-    result is bitwise reproducible."""
+    result is bitwise reproducible.
+
+    bp_bwd_bf16 (csrc/bp_bwd_bf16.cu) replaces _bwd_pallas(bf16=True):
+    the same gather, dL rounded to bf16 as it is re-laid out (a 128-row
+    line is 256 bytes) and each entry's weights rounded as they load."""
     Zf, YX = dL.shape
     A = F.shape[0]
-    dev = _check("bp_bwd", (dL, F), (torch.float32,) * 2,
+    name = _kernel("bp_bwd", bf16)
+    dev = _check(name, (dL, F), (torch.float32,) * 2,
                  ((Zf, YX), (A, 2, YX)))
     if dev.type == "cpu":
-        return bwd_dense_plain(dL, F, U)
+        return bwd_dense_plain(dL, F, U, bf16)
     if layout is None:
         layout = DenseLayout(F, U, 1, YX)
-    layout.check("bp_bwd", F, U)
-    return _launch_bwd("bp_bwd", dev, dL, A, U, layout)
+    layout.check(name, F, U)
+    return _launch_bwd(name, dev, dL, A, U, layout, bf16)
 
 
 def _check_band(name, U, Y, X):
@@ -480,10 +529,11 @@ def _check_band(name, U, Y, X):
         raise ValueError(f"{name}: U = {U} is narrower than the band")
 
 
-def fwd_band(Pz, F, u0, Y, X, layout=None):
+def fwd_band(Pz, F, u0, Y, X, layout=None, bf16=False):
     """Banded forward: dose (Zf, Y*X) raster. F (A, 2, T*TILE_B)
     block-major, u0 (A, T) int32 band starts; layout: the fields'
-    DenseLayout (built here if not given).
+    DenseLayout (built here if not given); bf16: the bf16 operand form
+    (bp_fwd_band_bf16, replacing _fwd_banded(bf16=True)).
 
     CUDA kernel csrc/bp_fwd_band.cu; replaces _fwd_banded (:362). Same
     work and bound as fwd_dense: 2 FMAs per (angle, in-band tap, z), the
@@ -494,22 +544,24 @@ def fwd_band(Pz, F, u0, Y, X, layout=None):
     windowed kernel, reading the block-major fields in place, keeps
     exactly the in-band taps. A window is at most BANDW columns."""
     A, Zf, U = Pz.shape
-    _check_band("bp_fwd_band", U, Y, X)
+    name = _kernel("bp_fwd_band", bf16)
+    _check_band(name, U, Y, X)
     T = (Y // BY) * (X // BX)
-    dev = _check("bp_fwd_band", (Pz, F, u0),
+    dev = _check(name, (Pz, F, u0),
                  (torch.float32, torch.float32, torch.int32),
                  ((A, Zf, U), (A, 2, T * TILE_B), (A, T)))
     if dev.type == "cpu":
-        return fwd_band_plain(Pz, F, u0, Y, X)
+        return fwd_band_plain(Pz, F, u0, Y, X, bf16)
     if layout is None:
         layout = DenseLayout(F, U, Y, X, u0)
-    layout.check("bp_fwd_band", F, U, u0, (Y, X))
-    return _launch_fwd("bp_fwd_band", dev, Pz, F, layout)
+    layout.check(name, F, U, u0, (Y, X))
+    return _launch_fwd(name, dev, Pz, F, layout, bf16)
 
 
-def bwd_band(dL, F, u0, U, Y, X, layout=None):
+def bwd_band(dL, F, u0, U, Y, X, layout=None, bf16=False):
     """Banded adjoint: Pzbar (A, Zf, U) from raster dL (Zf, Y*X); layout
-    as for fwd_band.
+    as for fwd_band; bf16: the bf16 operand form (bp_bwd_band_bf16,
+    replacing _bwd_banded(bf16=True)).
 
     CUDA kernel csrc/bp_bwd_band.cu; replaces _bwd_banded (:426). Same
     work and bound as bwd_dense, held back by reading each voxel's dL
@@ -520,17 +572,18 @@ def bwd_band(dL, F, u0, U, Y, X, layout=None):
     reproducible and the output is not zeroed first."""
     Zf = dL.shape[0]
     A = F.shape[0]
-    _check_band("bp_bwd_band", U, Y, X)
+    name = _kernel("bp_bwd_band", bf16)
+    _check_band(name, U, Y, X)
     T = (Y // BY) * (X // BX)
-    dev = _check("bp_bwd_band", (dL, F, u0),
+    dev = _check(name, (dL, F, u0),
                  (torch.float32, torch.float32, torch.int32),
                  ((Zf, Y * X), (A, 2, T * TILE_B), (A, T)))
     if dev.type == "cpu":
-        return bwd_band_plain(dL, F, u0, U, Y, X)
+        return bwd_band_plain(dL, F, u0, U, Y, X, bf16)
     if layout is None:
         layout = DenseLayout(F, U, Y, X, u0)
-    layout.check("bp_bwd_band", F, U, u0, (Y, X))
-    return _launch_bwd("bp_bwd_band", dev, dL, A, U, layout)
+    layout.check(name, F, U, u0, (Y, X))
+    return _launch_bwd(name, dev, dL, A, U, layout, bf16)
 
 
 # --------------------------------------------------------------------------
@@ -542,13 +595,17 @@ class PackedFields:
     kernels in the dense or the banded layout; one copy on the device.
 
     W, Umap: (A, Y, X) float32 tensors on the target device; U: DMD
-    columns. banded=True needs banded_eligible and band_span_ok. Fields
-    on the card also build their DenseLayout here, once."""
+    columns. banded=True needs banded_eligible and band_span_ok. bf16:
+    forward and adjoint both run the bf16 operand form, so the adjoint
+    stays the one the JAX package's custom_vjp pairs with the forward.
+    The fields stay float32 either way. Fields on the card also build
+    their DenseLayout here, once; both precisions read it."""
 
-    def __init__(self, W, Umap, U, banded):
+    def __init__(self, W, Umap, U, banded, bf16=False):
         A, Y, X = W.shape
         self.A, self.Y, self.X, self.U = A, Y, X, U
         self.banded = bool(banded)
+        self.bf16 = bool(bf16)
         self.layout = None
         if self.banded:
             self.F, self.u0 = _pack_fields_banded(W, Umap, U)
@@ -562,16 +619,16 @@ class PackedFields:
         Pz = Pz.contiguous()
         if self.banded:
             return fwd_band(Pz, self.F, self.u0, self.Y, self.X,
-                            self.layout)
-        return fwd_dense(Pz, self.F, self.layout)
+                            self.layout, self.bf16)
+        return fwd_dense(Pz, self.F, self.layout, self.bf16)
 
     def adjoint(self, dL):
         """(Zf, Y*X) -> Pzbar (A, Zf, U)."""
         dL = dL.contiguous()
         if self.banded:
             return bwd_band(dL, self.F, self.u0, self.U, self.Y, self.X,
-                            self.layout)
-        return bwd_dense(dL, self.F, self.U, self.layout)
+                            self.layout, self.bf16)
+        return bwd_dense(dL, self.F, self.U, self.layout, self.bf16)
 
 
 class Backproject(torch.autograd.Function):

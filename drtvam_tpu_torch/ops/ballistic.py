@@ -8,12 +8,24 @@ z-resample of each pattern's rows onto the film's z-rows. The engine
 builds the fields once (host C++), packs them once on its device and
 then renders with the backprojection kernels (ops/backproject.py).
 
-Kernel choice, made once per engine from what it can observe: on a CUDA
-device the banded pair (`cuda_band`) when the film tiles into 32x64
-blocks and every block's u-span fits the band, else the dense pair
-(`cuda`); on the CPU the plain versions (`plain`). Fields stay float32.
+Kernel choice (`impl`), made once per engine, as the JAX package's
+`impl` ('xla' | 'pallas' | 'pallas_bf16' | 'pallas_band' |
+'pallas_band_bf16') makes it. The port's names are '<route>[_band]
+[_bf16]': route 'cuda' (the kernels, on a CUDA device) or 'plain' (the
+plain versions, on the CPU); '_band' the banded pair, else the dense
+one; '_bf16' the bf16 operand form, else float32. The default is
+'plain' on the CPU (the JAX package takes 'xla' there) and on a CUDA
+device 'cuda', or 'cuda_bf16' when the environment has
+DRTVAM_MATMUL=bf16 (any other value means float32, as in the JAX
+package's _default_impl). A dense choice other than 'plain' becomes the
+banded one when the film tiles into 32x64 blocks and every block's
+u-span fits the band, as 'pallas' and 'pallas_bf16' do there. Fields
+stay float32.
 """
 from __future__ import annotations
+
+import os
+import re
 
 import numpy as np
 import torch
@@ -24,7 +36,16 @@ from .march import MarchStatic
 from .transport2d import build_transport, build_z_resample, \
     ballistic_eligible, strip_target
 
-__all__ = ["BallisticEngine", "ballistic_eligible"]
+__all__ = ["BallisticEngine", "ballistic_eligible", "default_impl"]
+
+
+def default_impl(device):
+    """The kernel choice for `device` when the caller names none."""
+    if torch.device(device).type != "cuda":
+        return "plain"
+    if os.environ.get("DRTVAM_MATMUL", "f32") == "bf16":
+        return "cuda_bf16"
+    return "cuda"
 
 
 class BallisticEngine:
@@ -34,7 +55,7 @@ class BallisticEngine:
 
     _MAX_TAPS = 4
 
-    def __init__(self, static: MarchStatic, arr, device):
+    def __init__(self, static: MarchStatic, arr, device, impl=None):
         if not ballistic_eligible(static):
             raise ValueError("scene not ballistic-eligible")
         if static.sensor.channels != 1:
@@ -55,16 +76,12 @@ class BallisticEngine:
         # host copies for the tests and the band check; the device holds
         # one packed copy
         self.W_host, self.U_host = Wn, Un
-        banded = False
-        if self.device.type == "cuda":
-            banded = banded_eligible(Wn.shape, U) and band_span_ok(
-                torch.from_numpy(Wn), torch.from_numpy(Un), U)
-            self.impl = "cuda_band" if banded else "cuda"
-        else:
-            self.impl = "plain"
+        self.impl = self._choose(impl or default_impl(self.device), Wn, Un,
+                                 U)
         self.fields = PackedFields(torch.from_numpy(Wn).to(self.device),
                                    torch.from_numpy(Un).to(self.device),
-                                   U, banded)
+                                   U, "_band" in self.impl,
+                                   self.impl.endswith("_bf16"))
 
         self._build_z_taps(build_z_resample(static, arr))
         ps = np.asarray(arr["pixel_size"])
@@ -79,6 +96,26 @@ class BallisticEngine:
         self.n_active = int(ap.shape[0])
         self.active_pixels = None if self.identity_pixels else \
             torch.from_numpy(ap.astype(np.int64)).to(self.device)
+
+    def _choose(self, impl, Wn, Un, U):
+        m = re.fullmatch(r"(plain|cuda)(_band)?(_bf16)?", impl)
+        if m is None:
+            raise ValueError(f"unknown ballistic impl '{impl}': expected "
+                             "'plain' or 'cuda', with '_band' and/or "
+                             "'_bf16'")
+        route, band, bf16 = m.group(1), m.group(2), m.group(3) or ""
+        if (route == "cuda") != (self.device.type == "cuda"):
+            raise ValueError(f"impl '{impl}' does not run on "
+                             f"{self.device}: 'cuda...' needs a CUDA "
+                             "device, 'plain...' the CPU")
+        if impl == "plain":  # the reference: never banded
+            return impl
+        fits = banded_eligible(Wn.shape, U) and band_span_ok(
+            torch.from_numpy(Wn), torch.from_numpy(Un), U)
+        if band and not fits:
+            raise ValueError(f"impl '{impl}': the fields do not fit the "
+                             "band (banded_eligible, band_span_ok)")
+        return route + ("_band" if fits else "") + bf16
 
     # -- z-resample as K-tap gathers ---------------------------------------
 

@@ -19,27 +19,44 @@ Every vector stays on the device; the history rows are updated in
 place. The host reads a few scalars per iteration: the stop test, the
 history acceptance and each Armijo trial. Dot products and norms are
 float32, as in JAX.
+
+`history_dtype` stores the S / Yh rows in another type (bfloat16 halves
+the 2 x m x n history: 2.56 GB -> 1.28 GB at n = 64 M, m = 5), at the
+JAX package's rounding points: the curvature ys comes from the float32
+s and y before they are rounded, the rows are rounded as they are
+inserted, the two-loop recursion widens each row to float32 before its
+dot products, and gamma's denominator is the rounded newest y row.
 """
 from __future__ import annotations
 
 import torch
 
 
+def history_dtype_of(dtype):
+    """A torch floating dtype from a torch dtype or its name, the form a
+    JSON config carries ("bfloat16", "float32", ...)."""
+    dt = getattr(torch, dtype, None) if isinstance(dtype, str) else dtype
+    if not (isinstance(dt, torch.dtype) and dt.is_floating_point):
+        raise ValueError(f"history_dtype {dtype!r} is not a floating "
+                         "torch dtype")
+    return dt
+
+
 def lbfgs_direction(g, S, Yh, ys, head, nvalid):
     """Two-loop recursion over the circular (m, n) history buffers.
     Slot k (0 = newest) lives at (head - 1 - k) mod m; only the nvalid
-    newest slots take part."""
+    newest slots take part. Rows are widened to float32 before use."""
     m = S.shape[0]
     q = g
     alphas = []
     for k in range(nvalid):
         slot = (head - 1 - k) % m
-        a = torch.dot(S[slot], q) / ys[slot]
-        q = q - a * Yh[slot]
+        a = torch.dot(S[slot].float(), q) / ys[slot]
+        q = q - a * Yh[slot].float()
         alphas.append(a)
     if nvalid > 0:
         newest = (head - 1) % m
-        y_new = Yh[newest]
+        y_new = Yh[newest].float()
         gamma = ys[newest] / torch.clamp(torch.dot(y_new, y_new),
                                          min=1e-30)
         z = gamma * q
@@ -47,8 +64,8 @@ def lbfgs_direction(g, S, Yh, ys, head, nvalid):
         z = q
     for k in range(nvalid - 1, -1, -1):
         slot = (head - 1 - k) % m
-        b = torch.dot(Yh[slot], z) / ys[slot]
-        z = z + (alphas[k] - b) * S[slot]
+        b = torch.dot(Yh[slot].float(), z) / ys[slot]
+        z = z + (alphas[k] - b) * S[slot].float()
     return -z
 
 
@@ -65,13 +82,14 @@ def armijo_search(cand_fn, vol, dvol, z, loss, g_dot_z, search_it=20,
     return alpha
 
 
-def new_history(p0, m):
+def new_history(p0, m, history_dtype=torch.float32):
     n = p0.shape[0]
     zeros = dict(dtype=torch.float32, device=p0.device)
+    rows = dict(dtype=history_dtype, device=p0.device)
     return dict(p_old=torch.zeros((n,), **zeros),
                 g_old=torch.zeros((n,), **zeros),
-                S=torch.zeros((m, n), **zeros),
-                Yh=torch.zeros((m, n), **zeros),
+                S=torch.zeros((m, n), **rows),
+                Yh=torch.zeros((m, n), **rows),
                 ys=torch.ones((m,), **zeros),
                 head=0, nvalid=0)
 
@@ -88,8 +106,8 @@ def history_step(st, p, g, first):
         torch.isfinite(ysv) & (ysv > 1e-10 * torch.clamp(norm, min=1e-30)))
     if accept:
         h = st["head"]
-        st["S"][h] = sv
-        st["Yh"][h] = yv
+        st["S"][h] = sv.to(st["S"].dtype)
+        st["Yh"][h] = yv.to(st["Yh"].dtype)
         st["ys"][h] = ysv
         st["head"] = (h + 1) % m
         st["nvalid"] = min(st["nvalid"] + 1, m)
@@ -104,18 +122,21 @@ def _update(p, alpha, z, clamp):
 
 
 def linear_lbfgs(value_grad_fn, dir_fn, cand_fn, p0, n_steps, m=5,
-                 search_it=20, c1=1e-4, clamp=True, state=None,
-                 stop_i=None, return_state=False):
+                 search_it=20, c1=1e-4, clamp=True,
+                 history_dtype=torch.float32, state=None, stop_i=None,
+                 return_state=False):
     """Run the Linear-L-BFGS loop.
 
     value_grad_fn: p -> (vol, loss, grad); dir_fn: z -> dvol;
     cand_fn: (vol, dvol, alpha, z) -> loss of vol + alpha * dvol with
-    the sparsity term on z. Returns (p, loss_hist, n_done), and the
+    the sparsity term on z; history_dtype: the S / Yh rows' type, a
+    torch dtype or its name. Returns (p, loss_hist, n_done), and the
     loop state with return_state=True; passing that state back resumes
     where the last call stopped, and stop_i caps a call at that
     iteration."""
+    history_dtype = history_dtype_of(history_dtype)
     if state is None:
-        state = dict(new_history(p0, m), i=0, done=False,
+        state = dict(new_history(p0, m, history_dtype), i=0, done=False,
                      p=p0.to(torch.float32),
                      loss_hist=torch.zeros((n_steps,), dtype=torch.float32,
                                            device=p0.device))
@@ -127,6 +148,9 @@ def linear_lbfgs(value_grad_fn, dir_fn, cand_fn, p0, n_steps, m=5,
             raise ValueError(f"resumed state was made for "
                              f"{state['loss_hist'].shape[0]} steps, "
                              f"expected n_steps = {n_steps}")
+        if state["S"].dtype != history_dtype:
+            raise ValueError(f"resumed state has a {state['S'].dtype} "
+                             f"history, expected {history_dtype}")
         state = dict(state)
     stop = n_steps if stop_i is None else min(int(stop_i), n_steps)
 
@@ -154,10 +178,12 @@ class DeviceLinearLBFGS:
     for drivers that need per-iteration control (timing artifacts)."""
 
     def __init__(self, dir_fn, cand_fn, m=5, search_it=20, c1=1e-4,
-                 clamp=True):
+                 clamp=True, history_dtype=torch.float32):
         """dir_fn(z, *step_args) -> dvol; cand_fn(vol, dvol, alpha, z,
-        *step_args) -> loss."""
+        *step_args) -> loss; history_dtype: the S / Yh rows' type, a torch
+        dtype or its name (the optimizer config's "history_dtype")."""
         self.m = m
+        self.history_dtype = history_dtype_of(history_dtype)
         self.search_it = search_it
         self.c1 = c1
         self.clamp = clamp
@@ -169,7 +195,8 @@ class DeviceLinearLBFGS:
     def step(self, p, g, vol, loss, step_args=()):
         """Returns the updated (clamped) patterns."""
         if self._state is None or self._state["p_old"].shape != p.shape:
-            self._state = dict(new_history(p, self.m), t=0)
+            self._state = dict(new_history(p, self.m, self.history_dtype),
+                               t=0)
         st = self._state
         z = history_step(st, p, g, first=st["t"] == 0)
         st["t"] += 1

@@ -24,6 +24,7 @@ from drtvam_tpu_torch.ops import backproject as tbp
 from test_backproject_banded import _fields as banded_fields
 from test_backproject_plain import _fields as wide_fields
 from test_torch_dense_layout import _close, emulate_bwd, emulate_fwd
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture

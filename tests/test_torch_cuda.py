@@ -1,5 +1,6 @@
 """The CUDA kernels == their plain versions, on a card: the four
-backprojection kernels and the wavefront pair (wf_fwd, wf_bwd). Free of
+backprojection kernels, their bf16 operand forms and the wavefront pair
+(wf_fwd, wf_bwd). Free of
 jax (the card's machine has none), so it runs there with
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -177,6 +178,42 @@ def test_kernels_reject_cpu_cuda_mix(cuda_device):
     F = bp._pack_fields(W, Umap).to(cuda_device)
     with pytest.raises(ValueError):
         bp.fwd_dense(Pz, F)
+
+
+# --------------------------------------------------------------------------
+# the bf16 operand forms: the same templates with bfloat16 operands
+
+
+BF16_CASES = [(False, None), (True, None)] + \
+    [(False, shape) for shape in RAGGED] + \
+    [(True, shape) for shape in BAND_SPAN_FAIL]
+
+
+@pytest.mark.parametrize("banded,shape", BF16_CASES)
+def test_bf16_kernels_match_plain(banded, shape, cuda_device):
+    """bp_*_bf16 against the plain bf16 versions: banded geometry, then
+    ragged films, Zf off the bf16 copy's 8-row padding, wide windows,
+    and bands that drop taps."""
+    if shape is None:
+        Pz, W, Umap, dL, U = _fields(seed=13)
+    else:
+        A, Y, X, U, Zf = shape
+        Pz, W, Umap, dL, U = _wide_fields(sum(shape) + 1, A, Y, X, U, Zf)
+    cpu = bp.PackedFields(W, Umap, U, banded, bf16=True)
+    gpu = bp.PackedFields(W.to(cuda_device), Umap.to(cuda_device), U,
+                          banded, bf16=True)
+    names = ("bp_fwd_band_bf16", "bp_bwd_band_bf16") if banded else \
+        ("bp_fwd_bf16", "bp_bwd_bf16")
+    Pzd, dLd = Pz.to(cuda_device), dL.to(cuda_device)
+    before = dict(bp.launches)
+    fwd, bwd = gpu.forward(Pzd), gpu.adjoint(dLd)
+    fwd2, bwd2 = gpu.forward(Pzd), gpu.adjoint(dLd)
+    torch.cuda.synchronize()
+    for n in bp.KERNELS:
+        assert bp.launches[n] == before[n] + (2 if n in names else 0)
+    _close(fwd, cpu.forward(Pz))
+    _close(bwd, cpu.adjoint(dL))
+    assert torch.equal(fwd, fwd2) and torch.equal(bwd, bwd2)
 
 
 # --------------------------------------------------------------------------

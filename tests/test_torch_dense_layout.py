@@ -21,6 +21,7 @@ from drtvam_tpu_torch.ops import backproject as tbp
 
 from test_backproject_banded import _fields as banded_fields
 from test_backproject_plain import _fields as wide_fields
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 RUN = 16  # columns per warp in bp_bwd

@@ -16,6 +16,7 @@ from drtvam_tpu_torch.opt.device_lbfgs import (DeviceLinearLBFGS,
 from drtvam_tpu_torch.opt.loss import ThresholdedLoss as TLoss
 
 from test_torch_ballistic import _engines
+from torch_threads import one_torch_thread  # noqa: F401
 
 N_STEPS = 5
 PROPS = {"tl": 0.85, "tu": 0.95, "weight_sparsity": 1e-6}

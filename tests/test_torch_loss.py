@@ -10,6 +10,7 @@ import jax.numpy as jnp
 
 from drtvam_tpu.opt import loss as jloss
 from drtvam_tpu_torch.opt import loss as tloss
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _t(x):
