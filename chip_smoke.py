@@ -8,7 +8,9 @@ Phases (each failure exits non-zero before the result line):
      power limit.
   2. build: nvcc builds the ten kernels from csrc/ (the four
      backprojection kernels, their four bf16 operand forms and the
-     wavefront pair), one process per source, all started together.
+     wavefront pair), one process per source, all started together;
+     registers and spills per library, the spilling instantiations
+     named.
   3. kernels: each backprojection kernel, float32 and bf16, against its
      plain PyTorch version on the card at the bench shapes (A = 400,
      Zf = 256, U = 400, 256x256 film, random fields with the banded
@@ -49,15 +51,21 @@ Phases (each failure exits non-zero before the result line):
      lens projectors; reflections; a diffuse wall; spp 4): dose and
      gradient to the stated tolerance, the adjoint bitwise on two
      launches, autograd through RenderRaw equal to the explicit
-     adjoint, CUDA-event times.
+     adjoint, step counts equal to the plain version's, the deposits
+     into the home-slice tile and to global memory adding up to the
+     steps (some into the tile on every collimated dda scene),
+     CUDA-event times.
      Then the regular-sampling wavefront against the ballistic engine.
   8. wavefront at full width: one render each way on the bench scene
      (400 angles, 400x400 DMD, 256^3 film, spp 1, 64 M lanes): times,
      rays/s, the bound (compulsory bytes at the HBM rate, or 20 float32
      operations per voxel step the kernel counted, at the float32 peak)
-     and the plain version's time on the same inputs; kernel vs plain on
-     the scene cut to 16 angles; the regular-sampling dose against the
-     ballistic engine's.
+     and the plain version's time on the same inputs, the tile's share
+     of the deposits, the SIMT efficiency (steps over the lane slots
+     the warps spent) and the launch shape of the bench instantiation
+     (threads, CTAs, shared memory, registers, CTAs an SM holds);
+     kernel vs plain on the scene cut to 16 angles; the
+     regular-sampling dose against the ballistic engine's.
   9. wavefront main path: optimize() on the bench scene with engine
      'wavefront' (dda, spp 1, 40 steps); both wf kernels must launch and
      the best IoU must reach 0.98. Then the CLI on a small telecentric
@@ -718,6 +726,19 @@ def wf_compare(name, out, ref, point):
             "share_off": share}
 
 
+def deposit_check(name, estimator, stats):
+    """The share of deposits that went into the home-slice tile. Every
+    dda or delta step is one deposit, into the tile or to global
+    memory; a ratio-tracking step past its segment or outside the film
+    deposits nothing. Raises where the counts do not add up."""
+    n = stats["tile_deposits"] + stats["global_deposits"]
+    if not (n == stats["steps"] if estimator != "ratio"
+            else 0 < n <= stats["steps"]):
+        raise AssertionError(f"{name}: tile + global deposits {n}, steps "
+                             f"{stats['steps']}")
+    return stats["tile_deposits"] / n
+
+
 def phase_wf_kernels(torch, wf, dev, tmp):
     from drtvam_tpu_torch.ops.march import scene_tensors
     spp, seed = 4, 7
@@ -734,7 +755,8 @@ def phase_wf_kernels(torch, wf, dev, tmp):
         sk, sp = {}, {}
         fwd = wf.wf_fwd(static, at, data, seed, spp, sk)
         fwd_p = wf._forward(static, at, data, seed, spp, chunk, sp)
-        bwd = wf.wf_bwd(static, at, dL, seed, spp)
+        sb = {}
+        bwd = wf.wf_bwd(static, at, dL, seed, spp, sb)
         bwd2 = wf.wf_bwd(static, at, dL, seed, spp)
         bwd_p = wf._adjoint(static, at, seed, spp, chunk, dL)
         p = data.clone().requires_grad_(True)
@@ -756,9 +778,15 @@ def phase_wf_kernels(torch, wf, dev, tmp):
         if not rec["autograd_equals_adjoint"]:
             raise AssertionError(f"{case}: autograd through RenderRaw "
                                  "differs from the explicit adjoint")
-        if sk != sp:
-            raise AssertionError(f"{case}: the kernel took {sk} steps, the "
-                                 f"plain version {sp}")
+        if {k: sk[k] for k in sp} != sp or {k: sb[k] for k in sp} != sp:
+            raise AssertionError(f"{case}: the kernels took {sk} and {sb} "
+                                 f"steps, the plain version {sp}")
+        rec["tile_share"] = deposit_check(case, est, sk)
+        if deposit_check(case + " adjoint", est, sb) != 0:
+            raise AssertionError(f"{case}: the adjoint used a tile")
+        if est == "dda" and spec[1] == "collimated" and \
+                not rec["tile_share"] > 0:
+            raise AssertionError(f"{case}: no deposit went into the tile")
         rec["fwd"]["ms"] = cuda_ms(
             lambda: wf.wf_fwd(static, at, data, seed, spp), 5, torch)
         rec["fwd"]["plain_ms"] = event_ms(
@@ -858,8 +886,19 @@ def phase_wf_full(torch, wf, dev, tmp):
                           "film": list(static.sensor.res)},
                "steps": stats["steps"], "iterations": stats["iterations"],
                "ms": ms, "plain_ms": plain_ms,
-               "rays_per_s": n / (ms * 1e-3)}
+               "rays_per_s": n / (ms * 1e-3),
+               "tile_deposits": stats["tile_deposits"],
+               "global_deposits": stats["global_deposits"],
+               "tile_share": deposit_check(name, "dda", stats),
+               "lane_slots": stats["lane_slots"],
+               "simt_efficiency": stats["steps"] / stats["lane_slots"],
+               "launch": wf.kernel_info(name, static, at)}
         rec.update(wf_compare(name + " full width", res, ref, False))
+        # a collimated DMD row's rays deposit in its home slice, but for
+        # those sampled across the slice boundary (16 % of them here)
+        if name == "wf_fwd" and not rec["tile_share"] >= 0.75:
+            raise AssertionError(f"wf_fwd: the tile took {rec['tile_share']}"
+                                 " of the bench scene's deposits")
         n_bytes = 4 * (n + n_cells)
         rec["bound_ms"], rec["bound_by"] = wf_bound(n_bytes,
                                                     stats["steps"])
@@ -876,10 +915,16 @@ def phase_wf_full(torch, wf, dev, tmp):
     at16 = scene_tensors(arr16, dev)
     d16 = data[:static16.projector.n_active].contiguous()
     rec = {"phase": "wf_16_angles", "lanes": static16.projector.n_active}
+    sk, sp = {}, {}
     rec["fwd"] = wf_compare("wf_fwd 16 angles",
-                            wf.wf_fwd(static16, at16, d16, 5, 1),
-                            wf._forward(static16, at16, d16, 5, 1, chunk),
-                            False)
+                            wf.wf_fwd(static16, at16, d16, 5, 1, sk),
+                            wf._forward(static16, at16, d16, 5, 1, chunk,
+                                        sp), False)
+    rec["steps"], rec["steps_plain"] = sk["steps"], sp["steps"]
+    rec["tile_share"] = deposit_check("wf_fwd 16 angles", "dda", sk)
+    if {k: sk[k] for k in sp} != sp:
+        raise AssertionError(f"16 angles: the kernel took {sk} steps, the "
+                             f"plain version {sp}")
     g, g_p = (wf.wf_bwd(static16, at16, dL, 5, 1),
               wf._adjoint(static16, at16, 5, 1, chunk, dL))
     rec["bwd"] = wf_compare("wf_bwd 16 angles", g, g_p, False)
@@ -1040,20 +1085,49 @@ def phase_cli_wavefront(wf, tmp):
           "loss_first": float(loss[0]), "loss_last": float(loss[-1])})
 
 
+WF_EST = ("DDA", "RATIO", "DELTA")
+
+
+def instantiation(mangled):
+    """A readable name for a kernel's mangled symbol: the wavefront
+    template's parameters spelled out, else the symbol itself."""
+    m = re.search(r"wf_kernelILi(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E",
+                  mangled)
+    if m is None:
+        return mangled
+    e, scat, tonly, primal, count = (int(x) for x in m.groups())
+    return (f"{WF_EST[e]}, {'' if scat else '!'}SCAT, "
+            f"{'' if tonly else '!'}TONLY, "
+            f"{'forward' if primal else 'adjoint'}"
+            + (", counting" if count else ""))
+
+
 def ptxas_summary(name):
     """Registers and spills of a kernel library's instantiations, from
-    its build log (nvcc -Xptxas -v)."""
+    its build log (nvcc -Xptxas -v), with the spilling ones named."""
     from drtvam_tpu_torch.native import BUILD_DIR
     with open(os.path.join(BUILD_DIR, f"lib{name}.so.log")) as f:
         log = f.read()
-    regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
-    spills = [(int(a), int(b)) for a, b in re.findall(
-        r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
-    return {"instantiations": len(regs),
+    entries = []
+    for part in log.split("Compiling entry function '")[1:]:
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", part)
+        entries.append((part.split("'")[0],
+                        int(regs.group(1)) if regs else 0,
+                        (int(spill.group(1)), int(spill.group(2)))
+                        if spill else (0, 0)))
+    regs = [r for _, r, _ in entries]
+    return {"instantiations": len(entries),
             "registers": [min(regs), max(regs)] if regs else None,
-            "spill_store_bytes_max": max((a for a, _ in spills), default=0),
-            "spill_load_bytes_max": max((b for _, b in spills), default=0),
-            "instantiations_spilling": sum(1 for a, b in spills if a or b)}
+            "spill_store_bytes_max": max((s[0] for *_, s in entries),
+                                         default=0),
+            "spill_load_bytes_max": max((s[1] for *_, s in entries),
+                                        default=0),
+            "spilling": {instantiation(n): {"registers": r,
+                                            "spill_store_bytes": s[0],
+                                            "spill_load_bytes": s[1]}
+                         for n, r, s in entries if s[0] or s[1]}}
 
 
 def main():
@@ -1133,7 +1207,8 @@ def main():
                  "scene, engine 'wavefront'",
          **{k: wfull[n][k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "roofline_share", "steps", "rays_per_s")},
+             "roofline_share", "steps", "rays_per_s", "tile_share",
+             "simt_efficiency", "launch")},
          "library_ms": None,
          "bitwise_repeat": n == "wf_bwd",
          "small_scenes": {c: {k: r["fwd" if n == "wf_fwd" else "bwd"][k]

@@ -7,22 +7,49 @@
 // Replaces drtvam_tpu/ops/march.py:913 trace_wavefront (XLA, no Pallas
 // kernel on this path): the JAX package marches a wavefront of lanes in
 // lock step with per-lane masks and stages its deposits because TPU
-// scatters serialize. Here one thread owns one active pixel and traces
-// its spp lanes one after another (lane = pixel * spp + k), with all
-// lane state in registers: nothing per lane goes to device memory, so
-// there is no chunking. Two entry points instantiate it:
-//   wf_fwd.cu  (PRIMAL)   atomicAdd of each deposit into the flat dose
-//                          accumulator (n_cells,);
-//   wf_bwd.cu  (adjoint)  gathers dL at each deposit and writes one
-//                          pattern-gradient value per pixel, summed over
-//                          its lanes in lane order: bitwise reproducible.
+// scatters serialize. Here a thread traces one lane (lane = pixel * spp
+// + k) with all its state in registers: nothing per lane goes to device
+// memory, so there is no chunking. Two entry points instantiate it:
+//   wf_fwd.cu  (PRIMAL)   one lane a thread; adds each deposit into the
+//                          flat dose accumulator (n_cells,);
+//   wf_bwd.cu  (adjoint)  one pixel a thread, its spp lanes one after
+//                          another; gathers dL at each deposit and writes
+//                          one pattern-gradient value per pixel, summed
+//                          over its lanes in lane order: bitwise
+//                          reproducible.
 //
 // Bound on the H100: a DDA voxel step is ~20 float32 operations and two
 // expf; at the bench scene's ~10^10 steps per render that is a few ms at
-// the float32 peak. What holds the kernel back is elsewhere: divergence
-// between lanes of a warp (paths of different lengths), the SFU rate of
-// the expf pairs, and in the forward the atomics into a 67 MB dose grid
-// (256^3 film) that does not fit the 50 MB L2.
+// the float32 peak. Past that, a deposit is a read-modify-write (or a
+// read) of a dose grid that need not fit the 50 MB L2 (67 MB at a 256^3
+// film), and the lanes of a warp diverge on paths of different lengths.
+//
+// The launch groups lanes by their home z-slice. A collimated ray on a
+// circular motion is horizontal and stays so through the vial (the
+// cylinder's normals have n.z = 0), so every deposit of a DMD row's
+// rays lands in the z-slice at the row's height, at every angle. So one
+// CTA of 1024 threads traces one DMD row over a group of P.group angles
+// (the active pixels sorted by row, angle, pixel; warps take 32
+// neighbours at a time from a counter in shared memory). The forward
+// holds that row's home slice in its shared memory: the slice's voxels
+// where the medium may lie (a disk of 47,416 voxels, 187 KB with its row
+// table, at the bench scene's 256^2 slice and 4.75 mm vial), row by row
+// through a table the wrapper builds once per scene. It adds a deposit
+// there with a shared atomic and flushes the tile's nonzero voxels with
+// one global atomic each at the end; every other deposit (rays sampled
+// across a slice boundary, scattering, reflections out of the plane,
+// telecentric and lens rays, a tile that does not fit) is a global
+// atomic as before. The adjoint gathers dL through L1, which the
+// grouping keeps on the one slice the SM's CTA reads. Lane ids do not
+// change with the order, and the random stream is counter-based per
+// lane, so the grouping changes no value. A float atomic add in shared
+// memory is a compare-and-swap loop on this card, so the tile takes the
+// forward from L2's atomic rate to the shared memory's, not to the
+// adjoint's time. (Measured on an H100 and left, PERF.md section 6: a
+// whole slice split over a 4-CTA thread block cluster and reached
+// through distributed shared memory, whose remote float atomics and
+// loads made both kernels slower than global ones; the adjoint's tile
+// staged in shared memory, slower than L1, whose room it takes.)
 //
 // The arithmetic is the plain version's (drtvam_tpu_torch/ops/march.py
 // and models/projector.py), operation for operation and in the same
@@ -33,9 +60,11 @@
 // over 3 draws; ratio tracking one per step, its own stream).
 //
 // Template parameters: the estimator, scattering and transmission_only,
-// so each instantiation carries only the state it uses. The projector
-// kind, the surfaces (at most WF_MAX_SURF analytic cylinders or boxes)
-// and the phase function are runtime parameters.
+// so each instantiation carries only the state it uses, and whether the
+// launch counts (iterations, steps, deposits by destination, lane
+// slots). The projector kind, the surfaces (at most WF_MAX_SURF
+// analytic cylinders or boxes) and the phase function are runtime
+// parameters.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -63,6 +92,9 @@ struct WfParams {
   int surf_medium_side[WF_MAX_SURF], surf_is_target[WF_MAX_SURF];
   float surf_params[3 * WF_MAX_SURF], surf_eta[WF_MAX_SURF];
   float surf_refl[WF_MAX_SURF];
+  // the launch order: angle groups per DMD row, angles per group; the
+  // home-slice tile's voxels (0: no tile)
+  int n_groups, group, tile_n;
 };
 
 namespace wf {
@@ -341,25 +373,68 @@ struct Grid {
     return v0 + res[0] * (v1 + res[1] * v2);
   }
   // voxel of p; false outside the grid
-  __device__ __forceinline__ bool voxel_flat(const V3& p, int& f) const {
-    int v0 = (int)floorf((p.x - bmin[0]) * inv_vs[0]);
-    int v1 = (int)floorf((p.y - bmin[1]) * inv_vs[1]);
-    int v2 = (int)floorf((p.z - bmin[2]) * inv_vs[2]);
-    f = flat(v0, v1, v2);
-    return v0 >= 0 && v1 >= 0 && v2 >= 0 && v0 < res[0] && v1 < res[1] &&
-           v2 < res[2];
+  __device__ __forceinline__ bool voxel_of(const V3& p, int v[3]) const {
+    v[0] = (int)floorf((p.x - bmin[0]) * inv_vs[0]);
+    v[1] = (int)floorf((p.y - bmin[1]) * inv_vs[1]);
+    v[2] = (int)floorf((p.z - bmin[2]) * inv_vs[2]);
+    return v[0] >= 0 && v[1] >= 0 && v[2] >= 0 && v[0] < res[0] &&
+           v[1] < res[1] && v[2] < res[2];
   }
 };
 
-// one deposit: the primal adds into the accumulator, the adjoint gathers
-template <bool PRIMAL>
+// the home z-slice of DMD row py: the film slice holding the row centre's
+// height, where a collimated ray of the row deposits (sample_rays: o.z =
+// (0.5 - sy) * ey on a circular motion); -1 when it lies outside the film
+__device__ __forceinline__ int home_slice(const WfParams& P, const Grid& G,
+                                          int py) {
+  const float ey = (float)P.resy * P.pixel_size[1];
+  const float sy = ((float)py + 0.5f) / (float)P.resy;
+  const float k = floorf(((0.5f - sy) * ey - G.bmin[2]) * G.inv_vs[2]);
+  return (k >= 0.0f && k < (float)G.res[2]) ? (int)k : -1;
+}
+
+// One deposit: the primal adds into the tile when the voxel is one of
+// the home slice's tile voxels, else into the flat global accumulator;
+// the adjoint gathers from the flat global dL (its home slice stays in
+// L1: the launch leaves the adjoint's shared memory to it). The tile
+// holds the home slice's voxels where the medium may lie, row by row:
+// for film row y, the n columns from lo at tile index base + x,
+// rows[y] = (lo, n, base, 0). COUNT: counts bounce iterations,
+// estimator steps and deposits by destination
+template <bool PRIMAL_, bool COUNT_>
 struct Sink {
-  float* acc;       // primal
-  const float* dL;  // adjoint
-  float g;
-  __device__ __forceinline__ void deposit(int flat, float val) {
+  static constexpr bool PRIMAL = PRIMAL_, COUNT = COUNT_;
+  float* acc;        // primal: the flat dose accumulator
+  const float* dL;   // adjoint: the flat loss gradient
+  float* tile;       // primal: the home slice's tile (shared memory)
+  const int4* rows;  // its row table (shared memory)
+  int home;          // the home z-slice; -1: no tile
+  float g;           // adjoint: the lane's emitter gradient
+  unsigned long long iters, steps, n_tile, n_global;
+
+  __device__ __forceinline__ void iter() {
+    if (COUNT) ++iters;
+  }
+  __device__ __forceinline__ void step() {
+    if (COUNT) ++steps;
+  }
+  // the tile index of voxel (vx, vy, vz) of the grid, or -1
+  __device__ __forceinline__ int slot(int vx, int vy, int vz) const {
+    if (!PRIMAL || vz != home) return -1;
+    const int4 r = rows[vy];
+    return (unsigned)(vx - r.x) < (unsigned)r.y ? r.z + vx : -1;
+  }
+  __device__ __forceinline__ void deposit(int slot, int flat, float val) {
+    if (COUNT) {
+      n_tile += slot >= 0 ? 1 : 0;
+      n_global += slot >= 0 ? 0 : 1;
+    }
     if (PRIMAL) {
-      atomicAdd(acc + flat, val);
+      if (slot >= 0) {
+        atomicAdd(tile + slot, val);
+      } else {
+        atomicAdd(acc + flat, val);
+      }
     } else {
       g = g + val * __ldg(dL + flat);
     }
@@ -368,10 +443,10 @@ struct Sink {
 
 // ---- dose estimators: one straight segment [o, o + maxt d] ---------------
 
-template <bool PRIMAL>
-__device__ void dda_segment(const WfParams& P, const Grid& G, Sink<PRIMAL>& S,
+template <class SinkT>
+__device__ void dda_segment(const WfParams& P, const Grid& G, SinkT& S,
                             const V3& o, const V3& d, float maxt, float base,
-                            float st, unsigned long long& steps) {
+                            float st) {
   float od[3] = {o.x, o.y, o.z}, dd[3] = {d.x, d.y, d.z};
   float safe_d[3], dtmax[3], tstep[3];
   int step_dir[3], voxel[3], end_voxel[3];
@@ -409,7 +484,8 @@ __device__ void dda_segment(const WfParams& P, const Grid& G, Sink<PRIMAL>& S,
   for (int i = 0; i < P.dda_max_steps && act; ++i) {
     float t_at = t;
     float dt = mn(mn(mn(dtmax[0], dtmax[1]), dtmax[2]), remaining);
-    int flat = G.flat(voxel[0], voxel[1], voxel[2]);
+    const int flat = G.flat(voxel[0], voxel[1], voxel[2]);
+    const int slot = S.slot(voxel[0], voxel[1], voxel[2]);
     remaining = remaining - dt;
     act = (end_voxel[0] != voxel[0] || end_voxel[1] != voxel[1] ||
            end_voxel[2] != voxel[2]) &&
@@ -424,16 +500,15 @@ __device__ void dda_segment(const WfParams& P, const Grid& G, Sink<PRIMAL>& S,
           voxel[0] < G.res[0] && voxel[1] < G.res[1] && voxel[2] < G.res[2];
     if (act) t = t + dt;
     float contrib = base * expf(-st * t_at) * (1.0f - expf(-st * mx(dt, 0.0f)));
-    S.deposit(flat, contrib);
-    ++steps;
+    S.deposit(slot, flat, contrib);
+    S.step();
   }
 }
 
-template <bool PRIMAL>
-__device__ void ratio_segment(const WfParams& P, const Grid& G,
-                              Sink<PRIMAL>& S, Rng& rng, const V3& o,
-                              const V3& d, float maxt, float base, float st,
-                              unsigned long long& steps) {
+template <class SinkT>
+__device__ void ratio_segment(const WfParams& P, const Grid& G, SinkT& S,
+                              Rng& rng, const V3& o, const V3& d, float maxt,
+                              float base, float st) {
   float M = P.majorant;
   base = base * (st / M);
   float log_ratio = logf(mx(1.0f - st / M, 1e-30f));
@@ -441,24 +516,25 @@ __device__ void ratio_segment(const WfParams& P, const Grid& G,
   for (int i = 0; i < RATIO_MAX_STEPS; ++i) {
     float u = rng.next1();
     t = t + free_flight(u, M);
-    ++steps;
+    S.step();
     if (!(t < maxt)) break;
-    int flat;
-    bool in_grid = G.voxel_flat(along(o, t, d), flat);
+    int v[3];
+    bool in_grid = G.voxel_of(along(o, t, d), v);
     float ratio_k = expf(k * log_ratio);
     k = k + 1.0f;
-    if (in_grid) S.deposit(flat, base * ratio_k);
+    if (in_grid) {
+      S.deposit(S.slot(v[0], v[1], v[2]), G.flat(v[0], v[1], v[2]),
+                base * ratio_k);
+    }
   }
 }
 
 // ---- the per-lane path loop -----------------------------------------------
 
-template <int EST, bool SCAT, bool TONLY, bool PRIMAL>
+template <int EST, bool SCAT, bool TONLY, class SinkT>
 __device__ void trace_lane(const WfParams& P, const Grid& G, uint32_t lane,
                            int aidx, const int* __restrict__ active_pixels,
-                           float em, Sink<PRIMAL>& S,
-                           unsigned long long& iters,
-                           unsigned long long& steps) {
+                           float em, SinkT& S) {
   Rng rng{P.seed + 0x9E3779B9u, lane, 0u};
 
   // ---- ray generation (models/projector.py sample_rays)
@@ -520,7 +596,7 @@ __device__ void trace_lane(const WfParams& P, const Grid& G, uint32_t lane,
   int depth = 0;
   const int max_iters = 2 * P.max_depth + 16;
   for (int it = 0; it < max_iters; ++it) {
-    ++iters;
+    S.iter();
     // Russian roulette
     float rr_A = SCAT ? A : A * expf(-st * total_t);
     float q = mn(rr_A, 0.99f);
@@ -555,16 +631,17 @@ __device__ void trace_lane(const WfParams& P, const Grid& G, uint32_t lane,
     // dose deposit along this segment
     if (in_medium) {
       float base = (SCAT ? A : A * expf(-st * total_t)) * sa_over_st;
-      if (PRIMAL) base = base * em;
+      if (SinkT::PRIMAL) base = base * em;
       if (EST == DDA) {
-        dda_segment<PRIMAL>(P, G, S, o, d, t_si, base, st, steps);
+        dda_segment(P, G, S, o, d, t_si, base, st);
       } else if (EST == RATIO) {
-        ratio_segment<PRIMAL>(P, G, S, rng, o, d, t_si, base, st, steps);
+        ratio_segment(P, G, S, rng, o, d, t_si, base, st);
       } else if (isfinite(mei_t)) {
-        int flat;
-        if (G.voxel_flat(along(o, mei_t, d), flat)) {
-          S.deposit(flat, base);
-          ++steps;
+        int v[3];
+        if (G.voxel_of(along(o, mei_t, d), v)) {
+          S.deposit(S.slot(v[0], v[1], v[2]), G.flat(v[0], v[1], v[2]),
+                    base);
+          S.step();
         }
       }
     }
@@ -632,67 +709,196 @@ __device__ void trace_lane(const WfParams& P, const Grid& G, uint32_t lane,
   }
 }
 
+// ---- the launch order: lanes grouped by their home z-slice ---------------
+
+// Block c traces DMD row py = c / n_groups over angle group
+// c % n_groups: positions [lo, hi) of the active pixels sorted by (row,
+// angle, pixel). The identity store's order is arithmetic; a sparse
+// store's is the permutation `order` with each block's first position
+// in `starts` (ops/render.py block_order).
+__device__ __forceinline__ void block_range(const WfParams& P,
+                                              const int* starts, int c,
+                                              int& lo, int& hi, int& py) {
+  py = c / P.n_groups;
+  if (P.identity) {
+    const int g = c - py * P.n_groups;
+    const int row = P.n_patterns * P.resx;  // one DMD row, every angle
+    const int a1 = (g + 1) * P.group;
+    lo = py * row + g * P.group * P.resx;
+    hi = py * row + (a1 < P.n_patterns ? a1 : P.n_patterns) * P.resx;
+  } else {
+    lo = starts[c];
+    hi = starts[c + 1];
+  }
+}
+
+// A block's warps trace its range [lo, hi) in tasks of 32 neighbouring
+// positions. The forward gives each thread one lane (task t: positions
+// lo + 32 (t / spp) + l, lane t % spp of each pixel), so that a warp's
+// threads start and end together; the adjoint gives each thread all the
+// lanes of its pixel (task t: positions lo + 32 t + l), whose sum it
+// takes in lane order
+template <bool PRIMAL>
+__device__ __forceinline__ int task_count(const WfParams& P, int lo,
+                                          int hi) {
+  return (PRIMAL ? P.spp : 1) * ((hi - lo + 31) / 32);
+}
+
+// the active index at sorted position j
+__device__ __forceinline__ int lane_aidx(const WfParams& P, const int* order,
+                                         int j) {
+  if (!P.identity) return order[j];
+  const int row = P.n_patterns * P.resx;
+  const int py = j / row;
+  const int r = j - py * row;
+  const int a = r / P.resx;
+  const int px = r - a * P.resx;
+  return (a * P.resy + py) * P.resx + px;
+}
+
+// Task t's work for lane l: the forward traces lane t % spp of the
+// pixel at position lo + 32 (t / spp) + l, the adjoint all the lanes of
+// the pixel at lo + 32 t + l, summed in lane order, and writes the
+// pixel's gradient (the sum times the ray weight) once. Positions from
+// hi on are none. Returns the pixel's active index, or -1 for none
+template <int EST, bool SCAT, bool TONLY, class SinkT>
+__device__ __forceinline__ int trace_task(const WfParams& P, const Grid& G,
+                                           const int* order, int lo, int hi,
+                                           int t, int l, const float* in,
+                                           const int* active_pixels,
+                                           float* out, SinkT& S) {
+  if (SinkT::PRIMAL) {
+    const int j = lo + 32 * (t / P.spp) + l;
+    if (j >= hi) return -1;
+    const int aidx = lane_aidx(P, order, j);
+    // em = pattern value x ray weight; a pixel at 0 deposits only zeros
+    const float em = in[aidx] * P.ray_w;
+    if (em == 0.0f) return aidx;
+    // the one lane, as a loop that runs once: nvcc's code for this form
+    // ran 6 % faster on an H100 than a plain call (PERF.md section 6)
+    for (int k = t % P.spp; k < P.spp; k += P.spp) {
+      trace_lane<EST, SCAT, TONLY>(
+          P, G, (uint32_t)aidx * (uint32_t)P.spp + (uint32_t)k, aidx,
+          active_pixels, em, S);
+    }
+    return aidx;
+  }
+  const int j = lo + 32 * t + l;
+  if (j >= hi) return -1;
+  const int aidx = lane_aidx(P, order, j);
+  float gsum = 0.0f;
+  for (int k = 0; k < P.spp; ++k) {
+    S.g = 0.0f;
+    trace_lane<EST, SCAT, TONLY>(
+        P, G, (uint32_t)aidx * (uint32_t)P.spp + (uint32_t)k, aidx,
+        active_pixels, 1.0f, S);
+    gsum = k == 0 ? S.g : gsum + S.g;
+  }
+  out[aidx] = gsum * P.ray_w;
+  return aidx;
+}
+
 #ifdef __CUDACC__
 // (everything above is plain C++ on stubs of the CUDA names, so the
-// per-lane template also builds with a host compiler:
-// tests/test_torch_wf_template.py holds it to the plain version there)
+// per-lane template and the launch order also build with a host
+// compiler: tests/test_torch_wf_template.py holds them to the plain
+// version there, tracing in this kernel's order)
 
-// one thread per active pixel, its spp lanes in lane order
-template <int EST, bool SCAT, bool TONLY, bool PRIMAL>
-__global__ void __launch_bounds__(128)
+// threads a CTA: one CTA an SM (the tile takes most of its shared
+// memory), 32 warps, at most 64 registers a thread
+constexpr int WF_THREADS = 1024;
+
+// One CTA per (DMD row, angle group); its warps take 32 neighbouring
+// positions of the CTA's range at a time from a counter in shared
+// memory. The forward's dynamic shared memory holds the tile's row table
+// (the film's resy rows) and then the tile (P.tile_n floats), zeroed
+// before the first barrier and flushed with one global atomic per
+// nonzero voxel after the second. The adjoint takes none (P.tile_n 0).
+template <int EST, bool SCAT, bool TONLY, bool PRIMAL, bool COUNT>
+__global__ void __launch_bounds__(WF_THREADS, 1)
     wf_kernel(const WfParams P, const float* __restrict__ in,
-              const int* __restrict__ active_pixels, float* __restrict__ out,
+              const int* __restrict__ active_pixels,
+              const int* __restrict__ order, const int* __restrict__ starts,
+              const int4* __restrict__ rows, float* __restrict__ out,
               unsigned long long* __restrict__ counters) {
-  const int aidx = blockIdx.x * blockDim.x + threadIdx.x;
-  unsigned long long iters = 0, steps = 0;
-  if (aidx < P.n_active) {
-    Grid G;
-    G.init(P);
-    Sink<PRIMAL> S{out, in, 0.0f};
-    // em = pattern value x ray weight; a pixel at 0 deposits only zeros
-    const float em = PRIMAL ? in[aidx] * P.ray_w : 1.0f;
-    if (!PRIMAL || em != 0.0f) {
-      float gsum = 0.0f;
-      for (int k = 0; k < P.spp; ++k) {
-        S.g = 0.0f;
-        trace_lane<EST, SCAT, TONLY, PRIMAL>(
-            P, G, (uint32_t)aidx * (uint32_t)P.spp + (uint32_t)k, aidx,
-            active_pixels, em, S, iters, steps);
-        gsum = k == 0 ? S.g : gsum + S.g;
-      }
-      if (!PRIMAL) out[aidx] = gsum * P.ray_w;
-    } else if (!PRIMAL) {
-      out[aidx] = 0.0f;
+  extern __shared__ int4 smem[];
+  __shared__ unsigned next_task;
+  int lo, hi, py;
+  block_range(P, starts, blockIdx.x, lo, hi, py);
+  Grid G;
+  G.init(P);
+  int4* srows = smem;
+  float* tile = reinterpret_cast<float*>(smem + G.res[1]);
+  const int home = P.tile_n > 0 ? home_slice(P, G, py) : -1;
+  Sink<PRIMAL, COUNT> S{out, in, tile, srows, home, 0.0f, 0, 0, 0, 0};
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = WF_THREADS / 32;
+  const int slice0 = home * G.res[0] * G.res[1];
+  if (PRIMAL && home >= 0) {
+    for (int y = warp; y < G.res[1]; y += n_warps) {
+      const int4 r = __ldg(rows + y);
+      if (lane == 0) srows[y] = r;
+      for (int x = r.x + lane; x < r.x + r.y; x += 32) tile[r.z + x] = 0.0f;
     }
   }
-  if (counters != nullptr) {
-    // one add per warp
-    for (int off = 16; off > 0; off >>= 1) {
-      iters += __shfl_down_sync(0xffffffffu, iters, off);
-      steps += __shfl_down_sync(0xffffffffu, steps, off);
+  if (threadIdx.x == 0) next_task = 0;
+  __syncthreads();
+
+  const unsigned n_tasks = (unsigned)task_count<PRIMAL>(P, lo, hi);
+  unsigned long long slots = 0;
+  for (;;) {
+    unsigned t = 0;
+    if (lane == 0) t = atomicAdd(&next_task, 1u);
+    t = __shfl_sync(0xffffffffu, t, 0);
+    if (t >= n_tasks) break;
+    const unsigned long long s0 = S.steps;
+    trace_task<EST, SCAT, TONLY>(P, G, order, lo, hi, (int)t, lane, in,
+                                 active_pixels, out, S);
+    if (COUNT) {
+      // a warp spends 32 lane slots on each step of its longest lane
+      unsigned long long d = S.steps - s0;
+      for (int off = 16; off > 0; off >>= 1) {
+        const unsigned long long o = __shfl_xor_sync(0xffffffffu, d, off);
+        d = o > d ? o : d;
+      }
+      if (lane == 0) slots += 32 * d;
     }
-    if ((threadIdx.x & 31) == 0) {
-      atomicAdd(counters, iters);
-      atomicAdd(counters + 1, steps);
+  }
+
+  if (PRIMAL && home >= 0) {
+    __syncthreads();
+    for (int y = warp; y < G.res[1]; y += n_warps) {
+      const int4 r = srows[y];
+      for (int x = r.x + lane; x < r.x + r.y; x += 32) {
+        const float v = tile[r.z + x];
+        if (v != 0.0f) atomicAdd(out + slice0 + y * G.res[0] + x, v);
+      }
+    }
+  }
+  if (COUNT) {
+    unsigned long long c[5] = {S.iters, S.steps, S.n_tile, S.n_global,
+                               slots};
+#pragma unroll
+    for (int k = 0; k < 5; ++k) {
+      for (int off = 16; off > 0; off >>= 1)
+        c[k] += __shfl_down_sync(0xffffffffu, c[k], off);
+      if (lane == 0) atomicAdd(counters + k, c[k]);
     }
   }
 }
 
-template <bool PRIMAL>
-int launch(const WfParams* p, const float* in, const int* active_pixels,
-           float* out, unsigned long long* counters, void* stream) {
-  const WfParams P = *p;
-  if (P.n_active <= 0) return 0;
-  if (P.n_surf > WF_MAX_SURF) return (int)cudaErrorInvalidValue;
-  dim3 block(128), grid((P.n_active + 127) / 128);
-  cudaStream_t s = (cudaStream_t)stream;
+using KernelFn = void (*)(const WfParams, const float*, const int*,
+                          const int*, const int*, const int4*, float*,
+                          unsigned long long*);
+
+// the instantiation for P's estimator, scattering and transmission_only
+template <bool PRIMAL, bool COUNT>
+KernelFn pick(const WfParams& P) {
   const int key = P.estimator * 4 + (P.has_scattering ? 2 : 0) +
                   (P.transmission_only ? 1 : 0);
-#define WF_CASE(E, SC, TO)                                               \
-  case E * 4 + (SC ? 2 : 0) + (TO ? 1 : 0):                              \
-    wf_kernel<E, SC, TO, PRIMAL>                                         \
-        <<<grid, block, 0, s>>>(P, in, active_pixels, out, counters);    \
-    break;
+#define WF_CASE(E, SC, TO)                  \
+  case E * 4 + (SC ? 2 : 0) + (TO ? 1 : 0): \
+    return wf_kernel<E, SC, TO, PRIMAL, COUNT>;
   switch (key) {
     WF_CASE(DDA, false, false)
     WF_CASE(DDA, false, true)
@@ -707,10 +913,81 @@ int launch(const WfParams* p, const float* in, const int* active_pixels,
     WF_CASE(DELTA, true, false)
     WF_CASE(DELTA, true, true)
     default:
-      return (int)cudaErrorInvalidValue;
+      return nullptr;
   }
 #undef WF_CASE
+}
+
+// The dynamic shared memory a CTA takes, with the kernel's limit raised
+// to it; clears P.tile_n (no tile) when the tile does not fit beside the
+// kernel's static shared memory
+inline cudaError_t shape(KernelFn k, WfParams& P, size_t& smem) {
+  int dev, optin;
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, (const void*)k);
+  if (e != cudaSuccess) return e;
+  smem = P.tile_n > 0 ? (size_t)P.res[1] * sizeof(int4) +
+                            (size_t)P.tile_n * sizeof(float)
+                      : 0;
+  if (smem + fa.sharedSizeBytes > (size_t)optin) {
+    P.tile_n = 0;
+    smem = 0;
+  }
+  return cudaFuncSetAttribute((const void*)k,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+template <bool PRIMAL>
+int launch(const WfParams* p, const float* in, const int* active_pixels,
+           const int* order, const int* starts, const int4* rows, float* out,
+           unsigned long long* counters, void* stream) {
+  WfParams P = *p;
+  if (P.n_active <= 0) return 0;
+  if (P.n_surf > WF_MAX_SURF || P.n_groups <= 0 || P.group <= 0 ||
+      (!P.identity && (order == nullptr || starts == nullptr)) ||
+      (P.tile_n > 0 && rows == nullptr))
+    return (int)cudaErrorInvalidValue;
+  KernelFn k = counters ? pick<PRIMAL, true>(P) : pick<PRIMAL, false>(P);
+  if (k == nullptr) return (int)cudaErrorInvalidValue;
+  if (!PRIMAL) P.tile_n = 0;
+  size_t smem;
+  cudaError_t e = shape(k, P, smem);
+  if (e != cudaSuccess) return (int)e;
+  k<<<(unsigned)P.resy * P.n_groups, WF_THREADS, smem,
+      (cudaStream_t)stream>>>(P, in, active_pixels, order, starts, rows, out,
+                              counters);
   return (int)cudaGetLastError();
+}
+
+// The launch shape of P's instantiation (count: the counting one):
+// {threads a CTA, CTAs, dynamic shared bytes a CTA, static shared bytes,
+// registers a thread, local (stack and spill) bytes a thread, CTAs an
+// SM holds, tile voxels (0: none)}
+template <bool PRIMAL>
+int info(const WfParams* p, int count, int* out) {
+  WfParams P = *p;
+  KernelFn k = count ? pick<PRIMAL, true>(P) : pick<PRIMAL, false>(P);
+  if (k == nullptr) return (int)cudaErrorInvalidValue;
+  if (!PRIMAL) P.tile_n = 0;
+  size_t smem;
+  cudaFuncAttributes fa;
+  cudaError_t e = shape(k, P, smem);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, (const void*)k);
+  int per_sm = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, WF_THREADS,
+                                                      smem);
+  if (e != cudaSuccess) return (int)e;
+  const int v[8] = {WF_THREADS, P.resy * P.n_groups, (int)smem,
+                    (int)fa.sharedSizeBytes, fa.numRegs,
+                    (int)fa.localSizeBytes, per_sm, P.tile_n};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  return 0;
 }
 #endif  // __CUDACC__
 

@@ -27,24 +27,38 @@ Pallas kernel on this path). Given CPU tensors `forward` / `adjoint`
 run the plain version; given CUDA tensors they launch the kernel or
 raise. `launches` counts kernel launches per kernel.
 
-The kernels trace one active pixel per thread, its spp lanes in lane
-order, with all lane state in registers (no chunking). The forward adds
-deposits with float atomics, so its sums are not bitwise reproducible;
-the adjoint writes each pixel's sum once, in a fixed order, and is.
+A CTA traces one DMD row over a group of angles (`block_order`), so
+that most deposits land in the row's home z-slice (`home_slices`), with
+all lane state in registers (no chunking). The forward gives each
+thread one lane, adds deposits with float atomics (into the home
+slice's medium voxels, `tile_rows`, held in shared memory, or into the
+accumulator), so its sums are not bitwise reproducible; the adjoint
+gives each thread one pixel's spp lanes, writes their sum once, in
+lane order, and is.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ..models.projector import PROJECTOR_KINDS, ray_weight
-from .march import (ESTIMATORS, MarchStatic, check_supported,
+from ..models.geometry import CYLINDER
+from .march import (ESTIMATORS, MarchStatic, _grid, check_supported,
                     dda_max_steps, trace_wavefront)
 from .medium import PHASE_IDS
 
 DEFAULT_CHUNK = 1 << 16   # plain version: lanes per pass
 MAX_SURF = 8              # surfaces a kernel launch takes (WF_MAX_SURF)
+# angles a kernel CTA traces one DMD row over, at most: 16 groups of 25
+# on the bench scene's 400 angles, 6,400 CTAs over its 400 rows
+ANGLES_PER_GROUP = 25
+# what the kernels count when asked (`stats`): bounce iterations,
+# estimator steps, deposits into the home-slice tile and to global
+# memory, and lane slots (32 per warp for each step of its longest lane)
+COUNTERS = ("iterations", "steps", "tile_deposits", "global_deposits",
+            "lane_slots")
 
 KERNELS = ("wf_fwd", "wf_bwd")
 launches = {k: 0 for k in KERNELS}
@@ -144,6 +158,8 @@ class WfParams(ctypes.Structure):
         ("surf_params", ctypes.c_float * (3 * MAX_SURF)),
         ("surf_eta", ctypes.c_float * MAX_SURF),
         ("surf_refl", ctypes.c_float * MAX_SURF),
+        ("n_groups", ctypes.c_int), ("group", ctypes.c_int),
+        ("tile_n", ctypes.c_int),
     ]
 
 
@@ -196,13 +212,138 @@ def make_params(static: MarchStatic, arr, seed, spp):
         P.surf_is_target[i] = int(s.is_target)
         P.surf_params[3 * i:3 * i + 3] = params[3 * i:3 * i + 3]
         P.surf_eta[i], P.surf_refl[i] = eta[i], refl[i]
+    P.n_groups, P.group = angle_groups(p.n_patterns)
     return P
+
+
+# --------------------------------------------------------------------------
+# the kernels' launch order
+
+
+def angle_groups(n_patterns):
+    """(groups per DMD row, angles per group): as few groups as keep each
+    at most ANGLES_PER_GROUP angles, the angles spread evenly."""
+    n_groups = -(-n_patterns // ANGLES_PER_GROUP)
+    return n_groups, -(-n_patterns // n_groups)
+
+
+def home_slices(static: MarchStatic, arr):
+    """(resy,) int64: the film z-slice holding each DMD row's centre
+    height, where a collimated ray of the row deposits; -1 outside the
+    film. The float32 operations of csrc/wf_trace.cuh `home_slice`."""
+    h, Z = static.projector.resy, static.sensor.res[2]
+    bmin, _, inv_vs, _ = _grid(static, arr)
+    ey = torch.tensor(float(h), dtype=torch.float32) * \
+        arr["pixel_size"][1].cpu()
+    sy = (torch.arange(h, dtype=torch.float32) + 0.5) / float(h)
+    k = torch.floor(((0.5 - sy) * ey - bmin[2].cpu()) * inv_vs[2].cpu())
+    return torch.where((k >= 0) & (k < Z), k, -1.0).to(torch.int64)
+
+
+def block_order(static: MarchStatic, arr):
+    """The active indices in the order the kernels trace them, sorted by
+    (DMD row, angle, pixel), and each CTA's first position: CTA
+    c = row * n_groups + angle // group traces positions
+    [starts[c], starts[c + 1]). Returns int64 (order (n_active,), starts
+    (resy * n_groups + 1,)) on the scene tensors' device. For the
+    identity store the kernels compute the same order arithmetically
+    (csrc/wf_trace.cuh block_range, lane_aidx)."""
+    p = static.projector
+    A, h, w = p.n_patterns, p.resy, p.resx
+    n_groups, group = angle_groups(A)
+    dev = arr["active_pixels"].device
+    if p.identity:
+        j = torch.arange(p.n_active, device=dev)
+        py, r = j // (A * w), j % (A * w)
+        order = ((r // w) * h + py) * w + r % w
+        c = torch.arange(h * n_groups + 1, device=dev)
+        starts = (c // n_groups) * (A * w) + \
+            torch.clamp((c % n_groups) * group, max=A) * w
+        return order, starts
+    idx = arr["active_pixels"].to(torch.int64)
+    a, pix = idx // (h * w), idx % (h * w)
+    py, px = pix // w, pix % w
+    order = torch.argsort((py * A + a) * w + px, stable=True)
+    block = py[order] * n_groups + a[order] // group
+    starts = torch.searchsorted(
+        block, torch.arange(h * n_groups + 1, device=dev))
+    return order, starts
+
+
+def tile_rows(static: MarchStatic, arr):
+    """The home-slice tile's layout, the same for every slice: for each
+    film row y the n voxel columns from lo that the medium may reach and
+    the tile index of column 0 (offset - lo), as int32 rows (lo, n,
+    offset - lo, 0), (resy, 4); and the tile's voxel count. The medium
+    lies inside the surfaces whose interior is medium (cylinders and
+    boxes about the z axis): a row keeps the columns whose voxels meet
+    their cross-section, one more each side; with no such surface, the
+    whole row. A deposit elsewhere goes to global memory, so the layout
+    only has to hold most of them."""
+    X, Y, _ = static.sensor.res
+    bmin = arr["bbox_min"].detach().cpu().double().numpy()
+    bmax = arr["bbox_max"].detach().cpu().double().numpy()
+    params = arr["surf_params"].detach().cpu().double().numpy().reshape(
+        -1, 3)
+    vs = (bmax - bmin) / np.asarray(static.sensor.res, np.float64)
+    y0 = bmin[1] + np.arange(Y) * vs[1]
+    y1 = y0 + vs[1]
+    lo, hi = np.full(Y, X), np.zeros(Y, np.int64)
+    inner = [(s.kind, params[i]) for i, s in enumerate(static.surfaces)
+             if s.medium_side == 1]
+    if not inner:
+        lo[:] = 0
+        hi[:] = X
+    for kind, p in inner:
+        if kind == CYLINDER:
+            near = np.where((y0 <= 0) & (y1 >= 0), 0.0,
+                            np.minimum(np.abs(y0), np.abs(y1)))
+            meets = near <= p[0]
+            half = np.sqrt(np.maximum(p[0] ** 2 - near ** 2, 0.0))
+        else:
+            meets = (y1 >= -p[1]) & (y0 <= p[1])
+            half = np.full(Y, p[0])
+        a = np.clip(np.floor((-half - bmin[0]) / vs[0]) - 1, 0, X)
+        b = np.clip(np.floor((half - bmin[0]) / vs[0]) + 2, 0, X)
+        lo = np.where(meets, np.minimum(lo, a), lo).astype(np.int64)
+        hi = np.where(meets, np.maximum(hi, b), hi).astype(np.int64)
+    n = np.maximum(hi - lo, 0)
+    lo = np.where(n > 0, lo, 0)
+    off = np.cumsum(n) - n
+    rows = np.stack([lo, n, off - lo, np.zeros_like(n)], 1)
+    return torch.from_numpy(rows.astype(np.int32)), int(n.sum())
+
+
+def _launch_layout(static: MarchStatic, arr):
+    """(order, starts, rows, tile_n) for a launch on the scene tensors
+    `arr`, built once per scene and cached in their dict: the sparse
+    store's order as int32 (None, None for the identity store, whose
+    order the kernels compute) and the tile layout on arr's device."""
+    p = static.projector
+    key = (p.n_patterns, p.resx, p.resy, p.n_active, p.identity,
+           static.sensor.res, static.surfaces)
+    cached = arr.get("_wf_layout")
+    if cached is None or cached[0] != key:
+        dev = arr["active_pixels"].device
+        order = starts = None
+        if not p.identity:
+            order, starts = (t.to(torch.int32).contiguous()
+                             for t in block_order(static, arr))
+        rows, n = tile_rows(static, arr)
+        cached = (key, order, starts, rows.to(dev), n)
+        arr["_wf_layout"] = cached
+    return cached[1:]
 
 
 def _setup(lib, name):
     fn = getattr(lib, name)
-    fn.argtypes = [ctypes.POINTER(WfParams)] + [ctypes.c_void_p] * 5
+    fn.argtypes = [ctypes.POINTER(WfParams)] + [ctypes.c_void_p] * 8
     fn.restype = ctypes.c_int
+    info = getattr(lib, name + "_info", None)
+    if info is not None:
+        info.argtypes = [ctypes.POINTER(WfParams), ctypes.c_int,
+                         ctypes.POINTER(ctypes.c_int)]
+        info.restype = ctypes.c_int
 
 
 _SETUP = {k: (lambda lib, k=k: _setup(lib, k)) for k in KERNELS}
@@ -228,6 +369,10 @@ def _check(name, t, dtype, shape):
         raise ValueError(f"{name}: tensors must be contiguous")
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _launch(name, static, arr, x, out, seed, spp, stats):
     dev = x.device
     pix = arr["active_pixels"]
@@ -236,22 +381,42 @@ def _launch(name, static, arr, x, out, seed, spp, stats):
                          f"{dev}")
     _check(name, pix, torch.int32, (static.projector.n_active,))
     P = make_params(static, arr, seed, spp)
+    order, starts, rows, P.tile_n = _launch_layout(static, arr)
     counter = None
     if stats is not None:
-        counter = torch.zeros((2,), dtype=torch.int64, device=dev)
+        counter = torch.zeros((len(COUNTERS),), dtype=torch.int64,
+                              device=dev)
     with torch.cuda.device(dev):
         fn = getattr(build_kernels()[name], name)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(ctypes.byref(P), x.data_ptr(), pix.data_ptr(),
-                 out.data_ptr(),
-                 None if counter is None else counter.data_ptr(), stream)
+                 _ptr(order), _ptr(starts), rows.data_ptr(), out.data_ptr(),
+                 _ptr(counter), stream)
     launches[name] += 1
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed, cudaError_t {err}")
     if counter is not None:
-        c = counter.tolist()
-        stats["iterations"] = stats.get("iterations", 0) + c[0]
-        stats["steps"] = stats.get("steps", 0) + c[1]
+        for key, v in zip(COUNTERS, counter.tolist()):
+            stats[key] = stats.get(key, 0) + v
+
+
+def kernel_info(name, static: MarchStatic, arr, count=False):
+    """The launch shape of the kernel instantiation `name` runs on this
+    scene (count: the counting one, as with `stats`), read from the
+    card: threads a CTA, CTAs, shared memory, registers, local (stack
+    and spill) bytes, CTAs an SM holds, and the tile's voxels."""
+    P = make_params(static, arr, 0, 1)
+    P.tile_n = _launch_layout(static, arr)[3]
+    out = (ctypes.c_int * 8)()
+    with torch.cuda.device(arr["active_pixels"].device):
+        lib = build_kernels()[name]
+        err = getattr(lib, name + "_info")(ctypes.byref(P), int(count), out)
+    if err != 0:
+        raise RuntimeError(f"{name}: occupancy query failed, cudaError_t "
+                           f"{err}")
+    keys = ("threads", "ctas", "dynamic_smem_bytes", "static_smem_bytes",
+            "registers", "local_bytes", "ctas_per_sm", "tile_voxels")
+    return dict(zip(keys, list(out)), angles_per_cta=P.group)
 
 
 def wf_fwd(static: MarchStatic, arr, data, seed, spp, stats=None):
@@ -259,8 +424,10 @@ def wf_fwd(static: MarchStatic, arr, data, seed, spp, stats=None):
     `data` (n_active,) float32 on the card. Replaces the primal of
     drtvam_tpu/ops/march.py:913 trace_wavefront (XLA). What bounds it
     on the H100: the float32 work of the voxel steps (~20 operations a
-    step, two of them expf) and, past the 50 MB L2, the atomic adds of
-    the deposits into the 67 MB dose grid of a 256^3 film."""
+    step, two of them expf); the deposits of a CTA's DMD row in its
+    home z-slice are atomic adds in shared memory, the rest go past the
+    50 MB L2 into the 67 MB dose grid of a 256^3 film. stats: adds the
+    COUNTERS."""
     _n_lanes(static, spp)
     _check("wf_fwd", data, torch.float32, (static.projector.n_active,))
     acc = torch.zeros((static.sensor.n_cells,), dtype=torch.float32,
@@ -273,7 +440,8 @@ def wf_bwd(static: MarchStatic, arr, dL_flat, seed, spp, stats=None):
     """CUDA kernel csrc/wf_bwd.cu: the pattern gradient (n_active,) of
     dL_flat (n_cells,) float32 on the card, replaying the forward's
     paths. Replaces the adjoint of drtvam_tpu/ops/march.py:913 (XLA).
-    Bound as wf_fwd, with gathers of dL in place of the atomics; every
+    Bound as wf_fwd, with gathers of dL in place of the atomics (a CTA's
+    DMD row reads mostly one z-slice, so they mostly hit L1); every
     output is written once, so the result is bitwise reproducible."""
     _n_lanes(static, spp)
     _check("wf_bwd", dL_flat, torch.float32, (static.sensor.n_cells,))

@@ -1,23 +1,33 @@
 #!/usr/bin/env python3
-"""Ballistic bench phases of two trees on one card, in turns.
+"""Bench phases of two trees on one card, in turns.
 
-    python3 tools/ab_bench.py PARENT_ROOT
+    python3 tools/ab_bench.py PARENT_ROOT [ballistic|wavefront]
 
 run from the root of the changed tree, on a machine with one NVIDIA GPU.
 PARENT_ROOT is an unpacked copy of the parent commit (`git archive`).
 Each turn (parent, change, change, parent) is a fresh process that
-builds that tree's backprojection kernels and runs its chip_smoke.py
-phases 4 and 5 (optimize() on the bench scene, cylindrical and
-index-matched vials); every JSON record it prints is tagged with the
-turn. Compares two versions only within one call, as timings move
-from card to card.
+builds that tree's kernels and runs its own chip_smoke.py code:
+
+  ballistic (the default): phases 4 and 5, optimize() on the bench
+    scene with the cylindrical and the index-matched vial;
+  wavefront: phase 8's two full-width kernel timings (wf_fwd and
+    wf_bwd on the bench scene, 64 M lanes, the same numpy-seeded
+    inputs, CUDA events, median of 5), wf_fwd as the final render
+    launches it (spp 16, 1.02 G lanes, median of 3), and phase 9,
+    optimize() on the bench scene with engine 'wavefront'.
+
+Every JSON record a turn prints is tagged with the turn; the last line
+is each tree's median over its two turns of every timed number. Compares
+two versions only within one call, as timings move from card to card.
 """
 import json
 import os
 import subprocess
 import sys
 
-BENCH = """
+import numpy as np
+
+BALLISTIC = """
 import os, sys, tempfile
 sys.path.insert(0, os.getcwd())
 import torch
@@ -33,18 +43,70 @@ with tempfile.TemporaryDirectory() as tmp:
                    ("bp_fwd_band", "bp_bwd_band"))
 """
 
+WAVEFRONT = """
+import json, os, sys, tempfile
+sys.path.insert(0, os.getcwd())
+import numpy as np
+import torch
+import chip_smoke as cs
+from drtvam_tpu_torch.models.scene import Scene
+from drtvam_tpu_torch.ops import backproject as bp
+from drtvam_tpu_torch.ops import render as wf
+from drtvam_tpu_torch.ops.march import scene_tensors
+dev = torch.device("cuda:0")
+wf.build_kernels()
+torch.zeros(1, device=dev)  # create the context before the memory stats
+with tempfile.TemporaryDirectory() as tmp:
+    static, arr = Scene(cs.bench_config(tmp, "cylindrical")).build(
+        mode="volume", include_target=False)
+    at = scene_tensors(arr, dev)
+    rng = np.random.default_rng(3)  # phase 8's inputs
+    data = torch.from_numpy(rng.uniform(
+        0.0, 1.0, static.projector.n_active).astype(np.float32)).to(dev)
+    dL = torch.from_numpy(rng.uniform(
+        0.0, 1.0, static.sensor.n_cells).astype(np.float32)).to(dev)
+    for name, fn in (("wf_fwd", lambda: wf.wf_fwd(static, at, data, 0, 1)),
+                     ("wf_bwd", lambda: wf.wf_bwd(static, at, dL, 0, 1))):
+        print(json.dumps({"phase": "wf_full_width", "name": name,
+                          "ms": cs.cuda_ms(fn, 5, torch)}), flush=True)
+    # the final render's launch: spp 16 on the scene built as optimize()
+    # builds it for the final render (max_depth 16, rr_depth 8)
+    static_f, arr_f = Scene(cs.bench_config(tmp, "cylindrical")).build(
+        mode="volume", include_target=False, max_depth=16, rr_depth=8)
+    at_f = scene_tensors(arr_f, dev)
+    print(json.dumps({"phase": "wf_full_width", "name": "wf_fwd_spp16",
+                      "ms": cs.cuda_ms(lambda: wf.wf_fwd(
+                          static_f, at_f, data, 0, 16), 3, torch)}),
+          flush=True)
+    del at, at_f, data, dL
+    torch.cuda.empty_cache()
+    cs.phase_wf_bench(torch, wf, bp, dev, tmp)
+"""
+
+MODES = {"ballistic": BALLISTIC, "wavefront": WAVEFRONT}
+
+
+def timed(rec):
+    """The record's timed numbers, under names unique across phases."""
+    tag = rec.get("name") or rec.get("vial") or ""
+    return {f"{rec['phase']}:{tag}:{k}": v for k, v in rec.items()
+            if k == "ms" or (k.endswith("_s") and isinstance(v, float))}
+
 
 def main():
-    if len(sys.argv) != 2:
+    if len(sys.argv) not in (2, 3) or (len(sys.argv) == 3
+                                       and sys.argv[2] not in MODES):
         sys.exit(__doc__)
+    bench = MODES[sys.argv[2] if len(sys.argv) == 3 else "ballistic"]
     trees = {"parent": os.path.abspath(sys.argv[1]), "change": os.getcwd()}
     smi = subprocess.run(["nvidia-smi", "-i", "0",
                           "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     print(smi.stdout.strip(), flush=True)
+    seen = {"parent": {}, "change": {}}
     for turn, tree in enumerate(("parent", "change", "change", "parent")):
-        out = subprocess.run([sys.executable, "-c", BENCH],
+        out = subprocess.run([sys.executable, "-c", bench],
                              cwd=trees[tree], capture_output=True, text=True,
                              timeout=900)
         if out.returncode != 0:
@@ -54,6 +116,11 @@ def main():
                 rec = json.loads(line)
                 print(json.dumps({"turn": turn, "tree": tree, **rec}),
                       flush=True)
+                for k, v in timed(rec).items():
+                    seen[tree].setdefault(k, []).append(v)
+    print(json.dumps({"medians": {
+        tree: {k: float(np.median(v)) for k, v in vals.items()}
+        for tree, vals in seen.items()}}), flush=True)
 
 
 if __name__ == "__main__":
