@@ -6,11 +6,11 @@
 Phases (each failure exits non-zero before the result line):
   1. device: a CUDA device must exist; prints nvidia-smi's name and
      power limit.
-  2. build: nvcc builds the ten kernels from csrc/ (the four
-     backprojection kernels, their four bf16 operand forms and the
-     wavefront pair), one process per source, all started together;
-     registers and spills per library, the spilling instantiations
-     named.
+  2. build: nvcc builds the twelve kernels from csrc/ (the four
+     backprojection kernels, their four bf16 operand forms, the
+     wavefront pair and the hybrid engine's residual pair), one process
+     per source, all started together; registers and spills per
+     library, the spilling instantiations named.
   3. kernels: each backprojection kernel, float32 and bf16, against its
      plain PyTorch version on the card at the bench shapes (A = 400,
      Zf = 256, U = 400, 256x256 film, random fields with the banded
@@ -56,6 +56,15 @@ Phases (each failure exits non-zero before the result line):
      steps (some into the tile on every collimated dda scene),
      CUDA-event times.
      Then the regular-sampling wavefront against the ballistic engine.
+  7c. residual kernels: wf_res_fwd / wf_res_bwd (the hybrid engine's
+     scattered residual) against the plain residual on the card, on
+     small scattering scenes (cylindrical, square and index-matched
+     vials; dda, ratio and delta; the first scatter on the chord bank,
+     the fast event loop, the analog scattered-only mode; spp 4): dose
+     and gradient to the stated tolerance, step counts equal, the
+     adjoint bitwise on two launches, autograd through RenderRaw equal
+     to the explicit adjoint; then ScatteringEngine on the card against
+     the same engine on the CPU.
   8. wavefront at full width: one render each way on the bench scene
      (400 angles, 400x400 DMD, 256^3 film, spp 1, 64 M lanes): times,
      rays/s, the bound (compulsory bytes at the HBM rate, or 20 float32
@@ -66,10 +75,24 @@ Phases (each failure exits non-zero before the result line):
      (threads, CTAs, shared memory, registers, CTAs an SM holds);
      kernel vs plain on the scene cut to 16 angles; the
      regular-sampling dose against the ballistic engine's.
+  8b. residual at full width on the bench scattering scene (albedo
+     0.5): the delta residual through the fast loop at spp 1 (64 M
+     lanes) each way, and the dda first-scatter residual at spp 16 as
+     the final render launches it (max_depth 16, rr_depth 8): times,
+     rays/s, deposits, the bound (compulsory bytes at the HBM rate, or
+     the float32 work per lane, per event and per voxel step at the
+     float32 peak) and the plain version's time; kernel vs plain on the
+     scene cut to 16 angles.
   9. wavefront main path: optimize() on the bench scene with engine
      'wavefront' (dda, spp 1, 40 steps); both wf kernels must launch and
      the best IoU must reach 0.98. Then the CLI on a small telecentric
      config, which 'auto' routes to the wavefront.
+  10. hybrid main path: optimize() on the bench scattering scene (albedo
+     0.5, hybrid_estimator delta, spp 1, max_depth 6, rr_depth 6, 40
+     steps, engine auto): bp_fwd, bp_bwd, wf_res_fwd and wf_res_bwd must
+     launch, wf_fwd and wf_bwd must not; the best IoU of the final
+     render (dda, spp_ref 16) must reach 0.98. Where it differs from
+     bench.py's scattering cell is printed with it.
 
 Each earlier line is a JSON record; the line before the last lists the
 kernels, the last is {"ok": true, "device": {...}}. The wavefront
@@ -118,6 +141,10 @@ REPLACES = {
                         "body :418-419)",
     "wf_fwd": "drtvam_tpu/ops/march.py:913 (trace_wavefront, XLA)",
     "wf_bwd": "drtvam_tpu/ops/march.py:913 (trace_wavefront, XLA)",
+    "wf_res_fwd": "drtvam_tpu/ops/march.py:913 (trace_wavefront residual "
+                  "modes :966-1002, :328-420, :433-549, :1064-1066; XLA)",
+    "wf_res_bwd": "drtvam_tpu/ops/march.py:913 (trace_wavefront residual "
+                  "modes :966-1002, :328-420, :433-549, :1064-1066; XLA)",
 }
 # wf kernel vs plain wavefront on the card: the same per-lane float32
 # arithmetic rounded op by op (--fmad=false); the forward's atomics sum
@@ -133,6 +160,20 @@ WF_STEP_OPS = 20
 # the reference Dr.TVAM's published wall time for this scene (BASELINE.md,
 # cylindrical, 1 ray/pixel, NVIDIA L40S): information only
 REFERENCE_L40S_S = 23.0
+# float32 operations of the residual (csrc/wf_trace.cuh, each
+# transcendental counted as one): a lane's ray set-up and forced first
+# scatter (~90 each, counted for every lane), and one event or bounce
+# iteration after it (~90: the exit distance or the surface hit, the
+# free flight, the event point and voxel, the phase sample); a dda step
+# is WF_STEP_OPS
+RES_LANE_OPS = 180
+RES_EVENT_OPS = 90
+# the hybrid engine on the card against the same engine on the CPU: the
+# ballistic part agrees to REL_TOL, the residual's transcendentals (CUDA
+# against the CPU's) an ulp or two apart, so to the wavefront's
+# same-seed tolerance across packages; a delta or analog deposit is a
+# point (WF_POINT_SHARE)
+ENGINE_TOL = 1e-4
 
 
 def emit(obj):
@@ -1085,20 +1126,374 @@ def phase_cli_wavefront(wf, tmp):
           "loss_first": float(loss[0]), "loss_last": float(loss[-1])})
 
 
+# --------------------------------------------------------------------------
+# the hybrid engine's residual
+
+
+def res_small_scene(tmp, vial, estimator):
+    """phase 7's small scene (10 angles of 24x16, 32^3 film, albedo 0.5,
+    max_depth 8, rr_depth 3, so that Russian roulette fires) with a
+    cylindrical, square or index-matched vial."""
+    from drtvam_tpu_torch.models.scene import Scene
+    from drtvam_tpu_torch.ops.mesh import make_box, save_ply
+    path = os.path.join(tmp, "res_target.ply")
+    save_ply(make_box((0.5, 0.5, 0.5)), path)
+    med = {"ior": 1.4849, "extinction": 0.1, "albedo": 0.5,
+           "phase": {"type": "rayleigh"}}
+    vials = {"cylindrical": {"type": "cylindrical", "r_ext": 8.385,
+                             "r_int": 7.665, "height": 20.0, "ior": 1.514,
+                             "medium": med},
+             "square": {"type": "square", "w_int": 12.0, "w_ext": 14.0,
+                        "ior": 1.24, "medium": med},
+             "index_matched": {"type": "index_matched", "r": 7.665,
+                               "medium": med}}
+    cfg = {
+        "vial": vials[vial],
+        "projector": {"type": "collimated", "n_patterns": 10, "resx": 24,
+                      "resy": 16, "pixel_size": 16.77 / 24,
+                      "motion": "circular", "distance": 25.0},
+        "sensor": {"type": estimator, "scalex": 16.77, "scaley": 16.77,
+                   "scalez": 16.77, "majorant": 10.0,
+                   "film": {"type": "vfilm", "resx": 32, "resy": 32,
+                            "resz": 32}},
+        "target": {"filename": path, "size": 4.0}, "output": tmp}
+    sc = Scene(cfg)
+    static, arr = sc.build(mode="volume", include_target=False, max_depth=8,
+                           rr_depth=3, sample_time=True)
+    return sc, static, arr
+
+
+# (vial, estimator, mode): mode "first_scatter" (the general loop from the
+# forced first scatter), "fast_residual" (delta: the unrolled convex
+# loop) or "scattered_only" (the analog paths)
+RES_CASES = {
+    "dda_first_cylindrical": ("cylindrical", "dda", "first_scatter"),
+    "ratio_first_cylindrical": ("cylindrical", "ratio", "first_scatter"),
+    "delta_fast_cylindrical": ("cylindrical", "delta", "fast_residual"),
+    "delta_first_cylindrical": ("cylindrical", "delta", "first_scatter"),
+    "dda_first_square": ("square", "dda", "first_scatter"),
+    "delta_fast_square": ("square", "delta", "fast_residual"),
+    "ratio_first_index_matched": ("index_matched", "ratio",
+                                  "first_scatter"),
+    "delta_fast_index_matched": ("index_matched", "delta", "fast_residual"),
+    "dda_analog_cylindrical": ("cylindrical", "dda", "scattered_only"),
+    "delta_analog_square": ("square", "delta", "scattered_only"),
+}
+
+
+def res_static(static, mode):
+    """The residual static of a ScatteringEngine in `mode`."""
+    import dataclasses
+    return dataclasses.replace(static, fast_residual=mode == "fast_residual")
+
+
+def phase_res_kernels(torch, wf, dev, tmp):
+    """wf_res_fwd / wf_res_bwd against the plain residual on the card;
+    then ScatteringEngine on the card against the same on the CPU."""
+    from drtvam_tpu_torch.ops.hybrid import ScatteringEngine
+    spp, seed, chunk = 4, 7, wf.DEFAULT_CHUNK
+    out = {}
+    for case, (vial, est, mode) in RES_CASES.items():
+        _, static, arr = res_small_scene(tmp, vial, est)
+        eng = ScatteringEngine(static, arr, dev,
+                               first_scatter=mode != "scattered_only")
+        st, at = res_static(eng.static_s, mode), eng.arr
+        rng = np.random.default_rng(len(out) + 20)
+        data = torch.from_numpy(rng.uniform(
+            0.5, 1.5, st.projector.n_active).astype(np.float32)).to(dev)
+        dL = torch.from_numpy(rng.uniform(
+            0.0, 1.0, st.sensor.n_cells).astype(np.float32)).to(dev)
+        sk, sp, sb = {}, {}, {}
+        fwd = wf.wf_res_fwd(st, at, data, seed, spp, sk)
+        fwd_p = wf._forward(st, at, data, seed, spp, chunk, sp)
+        bwd = wf.wf_res_bwd(st, at, dL, seed, spp, sb)
+        bwd2 = wf.wf_res_bwd(st, at, dL, seed, spp)
+        bwd_p = wf._adjoint(st, at, seed, spp, chunk, dL)
+        p = data.clone().requires_grad_(True)
+        vol = wf.render(st, at, p, 2.0, seed, spp)
+        (auto_g,) = torch.autograd.grad(vol, p, dL.reshape(vol.shape))
+        torch.cuda.synchronize()
+        rec = {"phase": "res_kernel", "case": case, "spp": spp,
+               "residual": wf.make_params(st, at, seed, spp).residual,
+               "lanes": st.projector.n_active * spp,
+               "steps": sk, "steps_plain": sp}
+        point = est in ("ratio", "delta") or mode == "scattered_only"
+        rec["fwd"] = wf_compare(f"wf_res_fwd {case}", fwd, fwd_p, point)
+        rec["bwd"] = wf_compare(f"wf_res_bwd {case}", bwd, bwd_p, point)
+        rec["bwd"]["bitwise_repeat"] = bool(torch.equal(bwd, bwd2))
+        rec["bwd"]["bitwise_plain"] = bool(torch.equal(bwd, bwd_p))
+        rec["autograd_equals_adjoint"] = bool(torch.equal(
+            auto_g, wf.wf_res_bwd(st, at, dL * 2.0, seed, spp)))
+        if not rec["bwd"]["bitwise_repeat"]:
+            raise AssertionError(f"wf_res_bwd {case}: two launches differ")
+        if not rec["autograd_equals_adjoint"]:
+            raise AssertionError(f"{case}: autograd through RenderRaw "
+                                 "differs from the explicit adjoint")
+        if not sp.get("steps") or {k: sk[k] for k in sp} != sp or \
+                {k: sb[k] for k in sp} != sp:
+            raise AssertionError(f"{case}: the kernels took {sk} and {sb} "
+                                 f"steps, the plain version {sp}")
+        if sk["tile_deposits"] or sb["tile_deposits"]:
+            raise AssertionError(f"{case}: the residual used a tile")
+        deposit_check(case, est, sk)
+        rec["fwd"]["ms"] = cuda_ms(
+            lambda: wf.wf_res_fwd(st, at, data, seed, spp), 5, torch)
+        rec["fwd"]["plain_ms"] = event_ms(
+            lambda: wf._forward(st, at, data, seed, spp, chunk), torch)[0]
+        rec["bwd"]["ms"] = cuda_ms(
+            lambda: wf.wf_res_bwd(st, at, dL, seed, spp), 5, torch)
+        rec["bwd"]["plain_ms"] = event_ms(
+            lambda: wf._adjoint(st, at, seed, spp, chunk, dL), torch)[0]
+        emit(rec)
+        out[case] = rec
+
+    # the engine on the card against the same engine on the CPU
+    for vial, est in (("cylindrical", "dda"), ("square", "delta"),
+                      ("index_matched", "ratio")):
+        sc, static, arr = res_small_scene(tmp, vial, est)
+        inv_vol = float(sc.sensor.inv_volume())
+        cpu = ScatteringEngine(static, arr, "cpu", spp=spp)
+        gpu = ScatteringEngine(static, arr, dev, spp=spp)
+        rng = np.random.default_rng(len(vial))
+        p = torch.from_numpy(rng.random(cpu.ball.n_active)
+                             .astype(np.float32))
+        v = torch.from_numpy(rng.random(static.sensor.shape)
+                             .astype(np.float32))
+        wf.reset_launches()
+        vol = gpu.render_vol(p.to(dev), inv_vol, 5)
+        g = gpu.pattern_grad(v.to(dev), inv_vol, 5)
+        if not (wf.launches["wf_res_fwd"] == 1 and
+                wf.launches["wf_res_bwd"] == 1):
+            raise AssertionError(f"engine on the card: {wf.launches}")
+        point = est != "dda"
+        rec = {"phase": "hybrid_engine_vs_cpu", "vial": vial,
+               "estimator": est, "impl": gpu.impl,
+               "fast_residual": gpu.static_s.fast_residual}
+        for key, a, b in (("vol", vol.cpu(), cpu.render_vol(p, inv_vol, 5)),
+                          ("grad", g.cpu(), cpu.pattern_grad(v, inv_vol,
+                                                             5))):
+            scale = float(b.abs().max())
+            n_off = int(((a - b).abs() > ENGINE_TOL * scale).sum())
+            rec[key] = {"rel_err": float((a - b).abs().max()) / scale,
+                        "n_off": n_off}
+            if not (bool(torch.isfinite(a).all()) and n_off <= (
+                    WF_POINT_SHARE * int((b != 0).sum()) if point else 0)):
+                raise AssertionError(f"hybrid engine {vial} {key}: {rec}")
+        emit(rec)
+    return out
+
+
+def bench_scattering_config(tmp):
+    """The bench scene with a scattering medium: bench.py's scattering
+    cell (albedo 0.5), the vial and film of phase 4."""
+    cfg = bench_config(tmp, "cylindrical")
+    cfg["vial"]["medium"]["albedo"] = 0.5
+    cfg["output"] = os.path.join(tmp, "bench_hybrid")
+    return cfg
+
+
+def res_bound(n_bytes, lanes, iterations, steps):
+    """Least time on the card: the compulsory bytes at the HBM rate, or
+    the float32 work (RES_LANE_OPS a lane, RES_EVENT_OPS an event or
+    bounce iteration, WF_STEP_OPS a dda step) at the float32 peak."""
+    byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops = RES_LANE_OPS * lanes + RES_EVENT_OPS * iterations + \
+        WF_STEP_OPS * steps
+    op_ms = ops / F32_FLOPS * 1e3
+    return (max(byte_ms, op_ms),
+            "operations" if op_ms >= byte_ms else "bytes")
+
+
+def phase_res_full(torch, wf, dev, tmp):
+    """The residual pair at full width on the bench scattering scene:
+    the delta fast loop at spp 1 each way (64 M lanes) with the plain
+    version on the same inputs; the dda first-scatter forward at spp 16
+    as the final render launches it; kernel vs plain at 16 angles."""
+    from drtvam_tpu_torch.models.scene import Scene
+    from drtvam_tpu_torch.ops.hybrid import ScatteringEngine
+    cfg = bench_scattering_config(tmp)
+    sc = Scene(cfg)
+    static, arr = sc.build(mode="volume", include_target=False,
+                           max_depth=6, rr_depth=6)
+    t0 = time.perf_counter()
+    eng = ScatteringEngine(static, arr, dev, spp=1, estimator="delta")
+    torch.cuda.synchronize()
+    engine_s = time.perf_counter() - t0
+    st, at = eng.static_s, eng.arr
+    assert st.fast_residual
+    n, n_cells = st.projector.n_active, st.sensor.n_cells
+    n_chord = 4 * int(at["chord_pack"].numel())
+    rng = np.random.default_rng(3)
+    data = torch.from_numpy(rng.uniform(0.0, 1.0, n).astype(np.float32)) \
+        .to(dev)
+    dL = torch.from_numpy(rng.uniform(0.0, 1.0, n_cells)
+                          .astype(np.float32)).to(dev)
+    chunk = 1 << 22
+    out = {}
+    for name in wf.RES_KERNELS:
+        fwd = name == "wf_res_fwd"
+        stats = {}
+        if fwd:
+            res = wf.wf_res_fwd(st, at, data, 0, 1, stats)
+            kern = lambda: wf.wf_res_fwd(st, at, data, 0, 1)  # noqa: E731
+            plain = lambda: wf._forward(st, at, data, 0, 1, chunk)  # noqa
+        else:
+            res = wf.wf_res_bwd(st, at, dL, 0, 1, stats)
+            kern = lambda: wf.wf_res_bwd(st, at, dL, 0, 1)  # noqa: E731
+            plain = lambda: wf._adjoint(st, at, 0, 1, chunk, dL)  # noqa
+        ms = cuda_ms(kern, 5, torch)
+        plain_ms, ref = event_ms(plain, torch)
+        rec = {"phase": "res_full_width", "name": name,
+               "mode": "delta, fast_residual", "lanes": n, "spp": 1,
+               "shapes": {"A": st.projector.n_patterns,
+                          "U": st.projector.resx, "V": st.projector.resy,
+                          "film": list(st.sensor.res)},
+               "engine_s": engine_s, "events": stats["iterations"],
+               "deposits": stats["global_deposits"],
+               "ms": ms, "plain_ms": plain_ms,
+               "rays_per_s": n / (ms * 1e-3),
+               "lane_slots": stats["lane_slots"],
+               "launch": wf.kernel_info(name, st, at)}
+        rec.update(wf_compare(name + " full width", res, ref, True))
+        deposit_check(name, "delta", stats)
+        n_bytes = 4 * (n + n_cells) + n_chord
+        rec["bound_ms"], rec["bound_by"] = res_bound(
+            n_bytes, n, stats["iterations"], 0)
+        rec["roofline_share"] = rec["bound_ms"] / ms
+        emit(rec)
+        out[name] = rec
+        del res, ref
+        torch.cuda.empty_cache()
+
+    # the final render's residual: the scene's dda, spp_ref 16,
+    # max_depth_ref 16, rr_depth_ref 8 (1.02 G lanes)
+    static_f, arr_f = sc.build(mode="volume", include_target=False,
+                               max_depth=16, rr_depth=8)
+    eng_f = ScatteringEngine(static_f, arr_f, dev, spp=16)
+    st_f, at_f = eng_f.static_s, eng_f.arr
+    assert not st_f.fast_residual and st_f.sensor.estimator == "dda"
+    stats = {}
+    wf.wf_res_fwd(st_f, at_f, data, 0, 16, stats)
+    # one timed launch after one warm-up: a launch takes seconds
+    ms = cuda_ms(lambda: wf.wf_res_fwd(st_f, at_f, data, 0, 16), 1, torch)
+    rec = {"phase": "res_full_width_final_render", "name": "wf_res_fwd",
+           "mode": "dda, first_scatter", "lanes": 16 * n, "spp": 16,
+           "ms": ms, "rays_per_s": 16 * n / (ms * 1e-3),
+           "iterations": stats["iterations"], "steps": stats["steps"],
+           "deposits": stats["global_deposits"],
+           "simt_efficiency": stats["steps"] / stats["lane_slots"]}
+    deposit_check("wf_res_fwd spp 16", "dda", stats)
+    rec["bound_ms"], rec["bound_by"] = res_bound(
+        4 * (n + n_cells) + n_chord, 16 * n, stats["iterations"],
+        stats["steps"])
+    rec["roofline_share"] = rec["bound_ms"] / ms
+    emit(rec)
+    out["final_render"] = rec
+    del eng_f, at_f
+    torch.cuda.empty_cache()
+
+    # the scene cut to 16 angles: kernel vs plain, both modes
+    cfg16 = dict(cfg, projector=dict(cfg["projector"], n_patterns=16))
+    sc16 = Scene(cfg16)
+    static16, arr16 = sc16.build(mode="volume", include_target=False,
+                                 max_depth=6, rr_depth=6)
+    d16 = data[:static16.projector.n_active].contiguous()
+    for est in ("delta", "dda"):
+        e16 = ScatteringEngine(static16, arr16, dev, spp=1, estimator=est)
+        s16, a16 = e16.static_s, e16.arr
+        sk, sp = {}, {}
+        k_ms, got = event_ms(lambda: wf.wf_res_fwd(s16, a16, d16, 5, 1, sk),
+                             torch)
+        p_ms, ref = event_ms(lambda: wf._forward(s16, a16, d16, 5, 1, chunk,
+                                                 sp), torch)
+        rec = {"phase": "res_16_angles", "estimator": est,
+               "fast_residual": s16.fast_residual,
+               "lanes": s16.projector.n_active, "ms": k_ms,
+               "plain_ms": p_ms, "steps": sk, "steps_plain": sp}
+        rec["fwd"] = wf_compare(f"wf_res_fwd 16 angles {est}", got, ref,
+                                est == "delta")
+        if {k: sk[k] for k in sp} != sp:
+            raise AssertionError(f"16 angles {est}: the kernel took {sk}, "
+                                 f"the plain version {sp}")
+        g, g_p = (wf.wf_res_bwd(s16, a16, dL, 5, 1),
+                  wf._adjoint(s16, a16, 5, 1, chunk, dL))
+        rec["bwd"] = wf_compare(f"wf_res_bwd 16 angles {est}", g, g_p,
+                                est == "delta")
+        rec["bwd"]["bitwise_plain"] = bool(torch.equal(g, g_p))
+        emit(rec)
+    return out
+
+
+def phase_hybrid_bench(torch, wf, bp, dev, tmp):
+    """optimize() on the bench scattering scene; engine auto must run
+    the hybrid engine."""
+    from drtvam_tpu_torch.opt.optimize import optimize
+    from drtvam_tpu_torch.utils.metrics import best_iou
+    cfg = bench_scattering_config(tmp)
+    cfg.update(hybrid_estimator="delta", spp=1, max_depth=6, rr_depth=6)
+    timings = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    wf.reset_launches()
+    bp.reset_launches()
+    t0 = time.perf_counter()
+    vol = optimize(cfg, device=dev, timings=timings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {**{k: v for k, v in bp.launches.items() if v},
+              **dict(wf.launches)}
+    for name in ("bp_fwd", "bp_bwd") + wf.RES_KERNELS:
+        if not counts.get(name):
+            raise AssertionError(f"the hybrid bench run never launched "
+                                 f"{name}")
+    for name in wf.KERNELS:
+        if counts[name]:
+            raise AssertionError(f"the hybrid bench run launched {name}")
+    target = np.load(os.path.join(cfg["output"], "target.npy"))
+    assert vol.shape == (256, 256, 256, 1) and np.isfinite(vol).all()
+    iou, thr = best_iou(vol[..., 0], target[..., 0], 301)
+    loss = np.load(os.path.join(cfg["output"], "loss.npy"))
+    steps = int(np.count_nonzero(
+        np.load(os.path.join(cfg["output"], "timing.npy")).sum(1)))
+    emit({"phase": "bench_hybrid", "vial": "cylindrical", "albedo": 0.5,
+          "estimator": "dda", "hybrid_estimator": "delta", "spp": 1,
+          "spp_ref": 16, "max_depth": 6, "rr_depth": 6,
+          "scene_s": timings["scene_s"],
+          "precompute_s": timings["precompute_s"],
+          "loop_s": timings["loop_s"],
+          "final_render_s": timings["final_render_s"],
+          "artifacts_s": timings["artifacts_s"], "wall_s": wall,
+          "steps_run": steps, "loss_first": float(loss[0]),
+          "loss_last": float(loss[steps - 1]),
+          "best_iou": iou, "best_threshold": thr, "launches": counts,
+          "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+          "differs_from_bench_py": [
+              "residual depth 6 (the scene's max_depth), not RESID_DEPTH 5",
+              "the line search renders the full dose (ballistic + "
+              "residual), not the ballistic part alone",
+              "the gate reads one final render at spp_ref 16 (dda "
+              "residual, max_depth_ref 16), not the mean of 3 seeds at "
+              "spp 4"]})
+    if not iou >= IOU_GATE:
+        raise AssertionError(f"hybrid best IoU {iou} < {IOU_GATE}")
+    return counts
+
+
 WF_EST = ("DDA", "RATIO", "DELTA")
+WF_RES = ("ANALOG", "SCAT_ONLY", "FIRST_SCATTER", "FAST_RESIDUAL")
 
 
 def instantiation(mangled):
     """A readable name for a kernel's mangled symbol: the wavefront
     template's parameters spelled out, else the symbol itself."""
-    m = re.search(r"wf_kernelILi(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E",
+    m = re.search(r"wf_kernelILi(\d)ELb(\d)ELb(\d)ELi(\d)ELb(\d)ELb(\d)E",
                   mangled)
     if m is None:
         return mangled
-    e, scat, tonly, primal, count = (int(x) for x in m.groups())
+    e, scat, tonly, res, primal, count = (int(x) for x in m.groups())
     return (f"{WF_EST[e]}, {'' if scat else '!'}SCAT, "
             f"{'' if tonly else '!'}TONLY, "
-            f"{'forward' if primal else 'adjoint'}"
+            + (f"{WF_RES[res]}, " if res else "")
+            + f"{'forward' if primal else 'adjoint'}"
             + (", counting" if count else ""))
 
 
@@ -1149,11 +1544,11 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    # all ten sources at once: one nvcc each, started together
-    load_cuda(bp.KERNELS + wf.KERNELS, {**bp._SETUP, **wf._SETUP},
-              wf._FLAGS)
+    # all twelve sources at once: one nvcc each, started together
+    cuda = bp.KERNELS + wf.KERNELS + wf.RES_KERNELS
+    load_cuda(cuda, {**bp._SETUP, **wf._SETUP}, wf._FLAGS)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "ptxas": {n: ptxas_summary(n) for n in bp.KERNELS + wf.KERNELS}})
+          "ptxas": {n: ptxas_summary(n) for n in cuda}})
 
     kern = phase_kernels(torch, bp, dev)
     torch.cuda.empty_cache()
@@ -1179,11 +1574,17 @@ def main():
         wfk = phase_wf_kernels(torch, wf, dev, tmp)
         phase_wf_vs_ballistic_small(torch, wf, dev, tmp)
         torch.cuda.empty_cache()
+        resk = phase_res_kernels(torch, wf, dev, tmp)
+        torch.cuda.empty_cache()
         wfull = phase_wf_full(torch, wf, dev, tmp)
+        torch.cuda.empty_cache()
+        rfull = phase_res_full(torch, wf, dev, tmp)
         torch.cuda.empty_cache()
         wf_counts = phase_wf_bench(torch, wf, bp, dev, tmp)
         torch.cuda.empty_cache()
         phase_cli_wavefront(wf, tmp)
+        torch.cuda.empty_cache()
+        hy_counts = phase_hybrid_bench(torch, wf, bp, dev, tmp)
 
     emit({"kernels": [
         {"name": n, "route": "cuda",
@@ -1215,7 +1616,25 @@ def main():
                               for k in ("ms", "plain_ms", "max_abs_err",
                                         "n_off")}
                           for c, r in wfk.items()}}
-        for n in wf.KERNELS]})
+        for n in wf.KERNELS] + [
+        {"name": n, "route": "cuda",
+         "source": f"drtvam_tpu_torch/csrc/{n}.cu + wf_trace.cuh",
+         "replaces": REPLACES[n], "launches": hy_counts[n],
+         "path": "main path of the hybrid engine: optimize() on the bench "
+                 "scattering scene, engine auto, hybrid_estimator delta",
+         **{k: rfull[n][k] for k in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "roofline_share", "rays_per_s", "events", "deposits",
+             "launch")},
+         "library_ms": None,
+         "bitwise_repeat": n == "wf_res_bwd",
+         "final_render_spp16_ms": (rfull["final_render"]["ms"]
+                                   if n == "wf_res_fwd" else None),
+         "small_scenes": {c: {k: r["fwd" if n == "wf_res_fwd" else "bwd"][k]
+                              for k in ("ms", "plain_ms", "max_abs_err",
+                                        "n_off")}
+                          for c, r in resk.items()}}
+        for n in wf.RES_KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

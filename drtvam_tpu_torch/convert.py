@@ -15,6 +15,7 @@ import torch
 from .models.projector import ProjectorStatic
 from .models.sensor import SensorStatic
 from .ops.march import MarchStatic, SurfaceStatic
+from .ops.transport2d import chord_pack
 
 
 def _fields(obj, cls, **override):
@@ -27,8 +28,12 @@ def scene_from_jax(static, arr):
     """The JAX package's (MarchStatic, arr) -> the port's.
 
     static: a drtvam_tpu MarchStatic; arr: its dict of arrays (numpy or
-    anything np.asarray accepts). Mesh-grid acceleration structures have
-    no counterpart yet and raise."""
+    anything np.asarray accepts). A chord bank in arr (the four arrays
+    of drtvam_tpu's build_chords as "chord_o", "chord_d", "chord_L",
+    "chord_amp", as its tests stash them) becomes the port's one
+    "chord_pack" record table, so the port's march reads the JAX
+    package's bank. Mesh-grid acceleration structures have no
+    counterpart yet and raise."""
     surfaces = []
     for s in static.surfaces:
         if s.grid is not None:
@@ -41,7 +46,12 @@ def scene_from_jax(static, arr):
                    projector=_fields(static.projector, ProjectorStatic),
                    sensor=_fields(static.sensor, SensorStatic,
                                   res=tuple(static.sensor.res)))
-    return port, {k: np.asarray(v) for k, v in arr.items()}
+    arr = {k: np.asarray(v) for k, v in arr.items()}
+    bank = ("chord_o", "chord_d", "chord_L", "chord_amp")
+    if all(k in arr for k in bank):
+        arr["chord_pack"] = chord_pack(
+            *(torch.tensor(arr.pop(k)) for k in bank)).numpy()
+    return port, arr
 
 
 def _rows(x, device):

@@ -17,6 +17,8 @@
 //                          one pattern-gradient value per pixel, summed
 //                          over its lanes in lane order: bitwise
 //                          reproducible.
+// Two more, wf_res_fwd.cu and wf_res_bwd.cu, instantiate it in the hybrid
+// engine's residual modes (template parameter RES, see below).
 //
 // Bound on the H100: a DDA voxel step is ~20 float32 operations and two
 // expf; at the bench scene's ~10^10 steps per render that is a few ms at
@@ -60,11 +62,27 @@
 // over 3 draws; ratio tracking one per step, its own stream).
 //
 // Template parameters: the estimator, scattering and transmission_only,
-// so each instantiation carries only the state it uses, and whether the
-// launch counts (iterations, steps, deposits by destination, lane
-// slots). The projector kind, the surfaces (at most WF_MAX_SURF
-// analytic cylinders or boxes) and the phase function are runtime
-// parameters.
+// so each instantiation carries only the state it uses, the residual
+// mode, and whether the launch counts (iterations, steps, deposits by
+// destination, lane slots). The projector kind, the surfaces (at most
+// WF_MAX_SURF analytic cylinders or boxes) and the phase function are
+// runtime parameters.
+//
+// The residual modes (RES; the hybrid engine's scattered residual,
+// drtvam_tpu/ops/march.py:107-144, XLA there): ANALOG is the full dose;
+// SCAT_ONLY the analog paths with every deposit before the first scatter
+// dropped; FIRST_SCATTER starts the lane at its forced first scatter
+// event, sampled on its pixel's in-medium chord (one 48-byte record of
+// the chord bank, read at the pixel's centre column), then runs the
+// general loop from depth 1; FAST_RESIDUAL (delta, one convex medium
+// region) starts the same way and then runs max_depth - 1 scatter events
+// against one convex exit distance each (fast_residual). Every mode draws
+// in the plain version's order, so the adjoint replays the forward's
+// paths. A residual deposit follows a scatter into any 3D direction, so
+// it leaves the DMD row's z-slice: the residual entry points take no
+// home-slice tile (P.tile_n 0), and at the bench scene's albedo and
+// optical depth they make few deposits; they are bound by the per-lane
+// ray set-up, random draws and the chord gather.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -95,6 +113,9 @@ struct WfParams {
   // the launch order: angle groups per DMD row, angles per group; the
   // home-slice tile's voxels (0: no tile)
   int n_groups, group, tile_n;
+  // the residual mode (wf::ANALOG .. wf::FAST_RESIDUAL) and the fast
+  // residual's medium surface
+  int residual, res_surf;
 };
 
 namespace wf {
@@ -102,6 +123,7 @@ namespace wf {
 enum { DDA = 0, RATIO = 1, DELTA = 2 };
 enum { CYLINDER = 0, BOX = 1 };
 enum { DIELECTRIC = 0, NULL_BSDF = 1, ABSORB = 2, DIFFUSE = 3 };
+enum { ANALOG = 0, SCAT_ONLY = 1, FIRST_SCATTER = 2, FAST_RESIDUAL = 3 };
 
 constexpr float RAY_EPS = 1e-4f;
 constexpr float U_MAX = (float)(1.0 - 1e-7);
@@ -372,11 +394,14 @@ struct Grid {
   __device__ __forceinline__ int flat(int v0, int v1, int v2) const {
     return v0 + res[0] * (v1 + res[1] * v2);
   }
-  // voxel of p; false outside the grid
-  __device__ __forceinline__ bool voxel_of(const V3& p, int v[3]) const {
-    v[0] = (int)floorf((p.x - bmin[0]) * inv_vs[0]);
-    v[1] = (int)floorf((p.y - bmin[1]) * inv_vs[1]);
-    v[2] = (int)floorf((p.z - bmin[2]) * inv_vs[2]);
+  // voxel of p at inv voxels per unit length (default 1 / voxel size);
+  // false outside the grid
+  __device__ __forceinline__ bool voxel_of(const V3& p, int v[3],
+                                           const float* inv = nullptr) const {
+    if (inv == nullptr) inv = inv_vs;
+    v[0] = (int)floorf((p.x - bmin[0]) * inv[0]);
+    v[1] = (int)floorf((p.y - bmin[1]) * inv[1]);
+    v[2] = (int)floorf((p.z - bmin[2]) * inv[2]);
     return v[0] >= 0 && v[1] >= 0 && v[2] >= 0 && v[0] < res[0] &&
            v[1] < res[1] && v[2] < res[2];
   }
@@ -529,12 +554,120 @@ __device__ void ratio_segment(const WfParams& P, const Grid& G, SinkT& S,
   }
 }
 
+// ---- the hybrid residual: the forced first scatter, the fast event loop ---
+
+// The first scatter event on the chord record rec (12 floats: the K = 2
+// segments' entry points x0 y0 x1 y1, directions, lengths, amplitudes;
+// ops/transport2d.py chord_pack), lifted to 3D at the lane's z = o.z:
+// segment k with probability mass_k / M, mass_k = amp_k exp(-st tau_k)
+// (1 - exp(-st L_k)), then the truncated exponential along it, then the
+// phase sample (draws u1, u2). Sets (o, d) to the post-event ray and M;
+// false when the chord holds no mass (the lane is dead)
+__device__ __forceinline__ bool first_scatter(const WfParams& P, Rng& rng,
+                                              const float* __restrict__ rec,
+                                              V3& o, V3& d, float& M) {
+  const float st = P.sigma_t;
+  const float L0 = rec[8], L1 = rec[9];
+  // tau_0 = 0: amp_0 exp(-0) is amp_0 exactly
+  const float m0 = rec[10] * (1.0f - expf(-st * L0));
+  const float m1 = rec[11] * expf(-st * L0) * (1.0f - expf(-st * L1));
+  M = m0 + m1;
+  if (!(M > 1e-12f)) return false;
+  const float u1 = rng.next1();
+  const bool pick1 = (u1 * M > m0) && (L1 > 0.0f);
+  const int k = pick1 ? 1 : 0;
+  const float L_k = pick1 ? L1 : L0, m_k = pick1 ? m1 : m0;
+  const float um = clampf((u1 * M - (pick1 ? m0 : 0.0f)) / mx(m_k, 1e-30f),
+                          0.0f, U_MAX);
+  float t_ev = -log1pf(-um * (1.0f - expf(-st * L_k))) / mx(st, 1e-30f);
+  t_ev = mn(mx(t_ev, 0.0f), L_k);
+  const V3 o_k = {rec[2 * k], rec[2 * k + 1], o.z};
+  const V3 d_k = {rec[4 + 2 * k], rec[5 + 2 * k], 0.0f};
+  o = along(o_k, t_ev, d_k);
+  const float2 u2 = rng.next2();
+  d = sample_phase(P.phase, P.phase_g, d_k, u2.x, u2.y);
+  return true;
+}
+
+// The convex medium region's exit distance from inside: a cylinder's far
+// side root (0 when it lies beyond the open tube's z range, so the lane
+// dies without an event, as in the general loop) or a box's far slab
+__device__ __forceinline__ float exit_distance(const WfParams& P,
+                                               const V3& o, const V3& d) {
+  const float* mp = P.surf_params + 3 * P.res_surf;
+  if (P.surf_kind[P.res_surf] == CYLINDER) {
+    const float r = mp[0];
+    const float a = d.x * d.x + d.y * d.y;
+    const float b = 2.0f * (o.x * d.x + o.y * d.y);
+    const float c = o.x * o.x + o.y * o.y - r * r;
+    const float disc = mx(b * b - 4.0f * a * c, 0.0f);
+    const float t_side =
+        a > 1e-20f ? (-b + sqrtf(disc)) * 0.5f / mx(a, 1e-20f) : inf();
+    const float z_hit = o.z + t_side * d.z;
+    const bool ok = isfinite(t_side) && z_hit >= mp[1] && z_hit <= mp[2];
+    return ok ? mx(t_side, 0.0f) : 0.0f;
+  }
+  float t_far = inf();
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float dk = comp(d, k), ok = comp(o, k);
+    const float inv = 1.0f / (fabsf(dk) > 1e-20f ? dk : 1e-20f);
+    t_far = mn(t_far, mx((-mp[k] - ok) * inv, (mp[k] - ok) * inv));
+  }
+  return mx(t_far, 0.0f);
+}
+
+// The delta residual's events after the forced first scatter (weight A):
+// per event Russian roulette past rr_depth, the free flight against the
+// exit distance (reaching it ends the lane), the deposit A ((1 - albedo)
+// em) at the event voxel, the albedo factor and the phase sample; draws
+// u_rr, u_ff, u_b (unused) and u_ph, the general loop's order. The voxel
+// is taken at res / extent voxels per unit length, as the plain version
+template <class SinkT>
+__device__ void fast_residual(const WfParams& P, const Grid& G, SinkT& S,
+                              Rng& rng, V3 o, V3 d, float A, float em) {
+  const float al = P.albedo;
+  const float inv_st = 1.0f / mx(P.sigma_t, 1e-30f);
+  const float base_w = (1.0f - al) * (SinkT::PRIMAL ? em : 1.0f);
+  float inv_ext[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    inv_ext[k] = (float)G.res[k] / (G.bmax[k] - G.bmin[k]);
+  for (int j = 0; j < P.max_depth - 1; ++j) {
+    S.iter();
+    const float u_rr = rng.next1();
+    if (j + 1 > P.rr_depth) {
+      const float q = mn(A, 0.99f);
+      if (!(u_rr < q)) return;
+      A = A / mx(q, 1e-12f);
+    }
+    const float t_exit = exit_distance(P, o, d);
+    const float t = -log1pf(-clampf(rng.next1(), 0.0f, U_MAX)) * inv_st;
+    if (!(t < t_exit)) return;
+    const V3 p = along(o, t, d);
+    int v[3];
+    if (G.voxel_of(p, v, inv_ext)) {
+      S.deposit(S.slot(v[0], v[1], v[2]), G.flat(v[0], v[1], v[2]),
+                A * base_w);
+      S.step();
+    }
+    A = A * al;
+    rng.next1();  // u_b: the BSDF's draw, unused at a medium event
+    const float2 u_ph = rng.next2();
+    d = sample_phase(P.phase, P.phase_g, d, u_ph.x, u_ph.y);
+    o = p;
+  }
+}
+
 // ---- the per-lane path loop -----------------------------------------------
 
-template <int EST, bool SCAT, bool TONLY, class SinkT>
+// RES: the residual mode; chords: the chord bank (FIRST_SCATTER,
+// FAST_RESIDUAL), (A * resx, 12) floats
+template <int EST, bool SCAT, bool TONLY, int RES = ANALOG, class SinkT>
 __device__ void trace_lane(const WfParams& P, const Grid& G, uint32_t lane,
                            int aidx, const int* __restrict__ active_pixels,
-                           float em, SinkT& S) {
+                           float em, SinkT& S,
+                           const float* __restrict__ chords = nullptr) {
   Rng rng{P.seed + 0x9E3779B9u, lane, 0u};
 
   // ---- ray generation (models/projector.py sample_rays)
@@ -594,6 +727,21 @@ __device__ void trace_lane(const WfParams& P, const Grid& G, uint32_t lane,
   float A = 1.0f, total_t = 0.0f;
   bool inside_target = false, in_medium = false;
   int depth = 0;
+  bool scattered = false;  // SCAT_ONLY: n_scat > 0
+  if (RES == FIRST_SCATTER || RES == FAST_RESIDUAL) {
+    // the lane starts at its forced first scatter (n_scat 1): the
+    // pre-scatter attenuation and the event's albedo are in A
+    float M;
+    if (!first_scatter(P, rng, chords + 12 * (emitter * w + px), o, d, M))
+      return;
+    A = P.albedo * M;
+    if (RES == FAST_RESIDUAL) {
+      fast_residual(P, G, S, rng, o, d, A, em);
+      return;
+    }
+    in_medium = true;
+    depth = 1;
+  }
   const int max_iters = 2 * P.max_depth + 16;
   for (int it = 0; it < max_iters; ++it) {
     S.iter();
@@ -628,8 +776,9 @@ __device__ void trace_lane(const WfParams& P, const Grid& G, uint32_t lane,
     }
     const bool medium_event = in_medium && !reached_surface;
 
-    // dose deposit along this segment
-    if (in_medium) {
+    // dose deposit along this segment (the residual drops the deposits
+    // before the first scatter: the ballistic engine owns them)
+    if (in_medium && (RES != SCAT_ONLY || scattered)) {
       float base = (SCAT ? A : A * expf(-st * total_t)) * sa_over_st;
       if (SinkT::PRIMAL) base = base * em;
       if (EST == DDA) {
@@ -691,6 +840,7 @@ __device__ void trace_lane(const WfParams& P, const Grid& G, uint32_t lane,
     if (medium_event) {
       d = sample_phase(P.phase, P.phase_g, d, u_ph.x, u_ph.y);
       A = A * (w_med * (st * P.albedo));
+      scattered = true;
     } else {
       d = d_new;
       A = A * w_bsdf;
@@ -761,12 +911,13 @@ __device__ __forceinline__ int lane_aidx(const WfParams& P, const int* order,
 // the pixel at lo + 32 t + l, summed in lane order, and writes the
 // pixel's gradient (the sum times the ray weight) once. Positions from
 // hi on are none. Returns the pixel's active index, or -1 for none
-template <int EST, bool SCAT, bool TONLY, class SinkT>
+template <int EST, bool SCAT, bool TONLY, int RES = ANALOG, class SinkT>
 __device__ __forceinline__ int trace_task(const WfParams& P, const Grid& G,
                                            const int* order, int lo, int hi,
                                            int t, int l, const float* in,
                                            const int* active_pixels,
-                                           float* out, SinkT& S) {
+                                           float* out, SinkT& S,
+                                           const float* chords = nullptr) {
   if (SinkT::PRIMAL) {
     const int j = lo + 32 * (t / P.spp) + l;
     if (j >= hi) return -1;
@@ -777,9 +928,9 @@ __device__ __forceinline__ int trace_task(const WfParams& P, const Grid& G,
     // the one lane, as a loop that runs once: nvcc's code for this form
     // ran 6 % faster on an H100 than a plain call (PERF.md section 6)
     for (int k = t % P.spp; k < P.spp; k += P.spp) {
-      trace_lane<EST, SCAT, TONLY>(
+      trace_lane<EST, SCAT, TONLY, RES>(
           P, G, (uint32_t)aidx * (uint32_t)P.spp + (uint32_t)k, aidx,
-          active_pixels, em, S);
+          active_pixels, em, S, chords);
     }
     return aidx;
   }
@@ -789,9 +940,9 @@ __device__ __forceinline__ int trace_task(const WfParams& P, const Grid& G,
   float gsum = 0.0f;
   for (int k = 0; k < P.spp; ++k) {
     S.g = 0.0f;
-    trace_lane<EST, SCAT, TONLY>(
+    trace_lane<EST, SCAT, TONLY, RES>(
         P, G, (uint32_t)aidx * (uint32_t)P.spp + (uint32_t)k, aidx,
-        active_pixels, 1.0f, S);
+        active_pixels, 1.0f, S, chords);
     gsum = k == 0 ? S.g : gsum + S.g;
   }
   out[aidx] = gsum * P.ray_w;
@@ -813,13 +964,15 @@ constexpr int WF_THREADS = 1024;
 // memory. The forward's dynamic shared memory holds the tile's row table
 // (the film's resy rows) and then the tile (P.tile_n floats), zeroed
 // before the first barrier and flushed with one global atomic per
-// nonzero voxel after the second. The adjoint takes none (P.tile_n 0).
-template <int EST, bool SCAT, bool TONLY, bool PRIMAL, bool COUNT>
+// nonzero voxel after the second. The adjoint and the residual take none
+// (P.tile_n 0).
+template <int EST, bool SCAT, bool TONLY, int RES, bool PRIMAL, bool COUNT>
 __global__ void __launch_bounds__(WF_THREADS, 1)
     wf_kernel(const WfParams P, const float* __restrict__ in,
               const int* __restrict__ active_pixels,
               const int* __restrict__ order, const int* __restrict__ starts,
-              const int4* __restrict__ rows, float* __restrict__ out,
+              const int4* __restrict__ rows,
+              const float* __restrict__ chords, float* __restrict__ out,
               unsigned long long* __restrict__ counters) {
   extern __shared__ int4 smem[];
   __shared__ unsigned next_task;
@@ -852,8 +1005,8 @@ __global__ void __launch_bounds__(WF_THREADS, 1)
     t = __shfl_sync(0xffffffffu, t, 0);
     if (t >= n_tasks) break;
     const unsigned long long s0 = S.steps;
-    trace_task<EST, SCAT, TONLY>(P, G, order, lo, hi, (int)t, lane, in,
-                                 active_pixels, out, S);
+    trace_task<EST, SCAT, TONLY, RES>(P, G, order, lo, hi, (int)t, lane,
+                                      in, active_pixels, out, S, chords);
     if (COUNT) {
       // a warp spends 32 lane slots on each step of its longest lane
       unsigned long long d = S.steps - s0;
@@ -888,34 +1041,58 @@ __global__ void __launch_bounds__(WF_THREADS, 1)
 }
 
 using KernelFn = void (*)(const WfParams, const float*, const int*,
-                          const int*, const int*, const int4*, float*,
-                          unsigned long long*);
+                          const int*, const int*, const int4*, const float*,
+                          float*, unsigned long long*);
 
-// the instantiation for P's estimator, scattering and transmission_only
-template <bool PRIMAL, bool COUNT>
+// The instantiation for P: the analog family (RESIDUAL false: wf_fwd,
+// wf_bwd) by estimator, scattering and transmission_only; the residual
+// family (wf_res_fwd, wf_res_bwd; scattering and transmission only) by
+// estimator and residual mode. nullptr for a P the family does not run
+template <bool PRIMAL, bool COUNT, bool RESIDUAL>
 KernelFn pick(const WfParams& P) {
-  const int key = P.estimator * 4 + (P.has_scattering ? 2 : 0) +
-                  (P.transmission_only ? 1 : 0);
+  // constexpr: each entry point instantiates its own family only
+  if constexpr (RESIDUAL) {
+    if (!P.has_scattering || !P.transmission_only) return nullptr;
+#define WF_RES_CASE(E, R) \
+  case E * 4 + R:         \
+    return wf_kernel<E, true, true, R, PRIMAL, COUNT>;
+    switch (P.estimator * 4 + P.residual) {
+      WF_RES_CASE(DDA, SCAT_ONLY)
+      WF_RES_CASE(DDA, FIRST_SCATTER)
+      WF_RES_CASE(RATIO, SCAT_ONLY)
+      WF_RES_CASE(RATIO, FIRST_SCATTER)
+      WF_RES_CASE(DELTA, SCAT_ONLY)
+      WF_RES_CASE(DELTA, FIRST_SCATTER)
+      WF_RES_CASE(DELTA, FAST_RESIDUAL)
+      default:
+        return nullptr;
+    }
+#undef WF_RES_CASE
+  } else {
+    if (P.residual != ANALOG) return nullptr;
+    const int key = P.estimator * 4 + (P.has_scattering ? 2 : 0) +
+                    (P.transmission_only ? 1 : 0);
 #define WF_CASE(E, SC, TO)                  \
   case E * 4 + (SC ? 2 : 0) + (TO ? 1 : 0): \
-    return wf_kernel<E, SC, TO, PRIMAL, COUNT>;
-  switch (key) {
-    WF_CASE(DDA, false, false)
-    WF_CASE(DDA, false, true)
-    WF_CASE(DDA, true, false)
-    WF_CASE(DDA, true, true)
-    WF_CASE(RATIO, false, false)
-    WF_CASE(RATIO, false, true)
-    WF_CASE(RATIO, true, false)
-    WF_CASE(RATIO, true, true)
-    WF_CASE(DELTA, false, false)
-    WF_CASE(DELTA, false, true)
-    WF_CASE(DELTA, true, false)
-    WF_CASE(DELTA, true, true)
-    default:
-      return nullptr;
-  }
+    return wf_kernel<E, SC, TO, ANALOG, PRIMAL, COUNT>;
+    switch (key) {
+      WF_CASE(DDA, false, false)
+      WF_CASE(DDA, false, true)
+      WF_CASE(DDA, true, false)
+      WF_CASE(DDA, true, true)
+      WF_CASE(RATIO, false, false)
+      WF_CASE(RATIO, false, true)
+      WF_CASE(RATIO, true, false)
+      WF_CASE(RATIO, true, true)
+      WF_CASE(DELTA, false, false)
+      WF_CASE(DELTA, false, true)
+      WF_CASE(DELTA, true, false)
+      WF_CASE(DELTA, true, true)
+      default:
+        return nullptr;
+    }
 #undef WF_CASE
+  }
 }
 
 // The dynamic shared memory a CTA takes, with the kernel's limit raised
@@ -942,25 +1119,37 @@ inline cudaError_t shape(KernelFn k, WfParams& P, size_t& smem) {
                               (int)smem);
 }
 
-template <bool PRIMAL>
+// P's instantiation of the family, P.tile_n cleared where the kernel
+// takes no tile (the adjoint, the residual)
+template <bool PRIMAL, bool RESIDUAL>
+KernelFn pick_for(WfParams& P, bool count) {
+  if (!PRIMAL || RESIDUAL) P.tile_n = 0;
+  return count ? pick<PRIMAL, true, RESIDUAL>(P)
+               : pick<PRIMAL, false, RESIDUAL>(P);
+}
+
+template <bool PRIMAL, bool RESIDUAL>
 int launch(const WfParams* p, const float* in, const int* active_pixels,
-           const int* order, const int* starts, const int4* rows, float* out,
-           unsigned long long* counters, void* stream) {
+           const int* order, const int* starts, const int4* rows,
+           const float* chords, float* out, unsigned long long* counters,
+           void* stream) {
   WfParams P = *p;
   if (P.n_active <= 0) return 0;
+  const bool needs_chords =
+      P.residual == FIRST_SCATTER || P.residual == FAST_RESIDUAL;
   if (P.n_surf > WF_MAX_SURF || P.n_groups <= 0 || P.group <= 0 ||
       (!P.identity && (order == nullptr || starts == nullptr)) ||
-      (P.tile_n > 0 && rows == nullptr))
+      (P.tile_n > 0 && rows == nullptr) ||
+      (needs_chords && chords == nullptr))
     return (int)cudaErrorInvalidValue;
-  KernelFn k = counters ? pick<PRIMAL, true>(P) : pick<PRIMAL, false>(P);
+  KernelFn k = pick_for<PRIMAL, RESIDUAL>(P, counters != nullptr);
   if (k == nullptr) return (int)cudaErrorInvalidValue;
-  if (!PRIMAL) P.tile_n = 0;
   size_t smem;
   cudaError_t e = shape(k, P, smem);
   if (e != cudaSuccess) return (int)e;
   k<<<(unsigned)P.resy * P.n_groups, WF_THREADS, smem,
-      (cudaStream_t)stream>>>(P, in, active_pixels, order, starts, rows, out,
-                              counters);
+      (cudaStream_t)stream>>>(P, in, active_pixels, order, starts, rows,
+                              chords, out, counters);
   return (int)cudaGetLastError();
 }
 
@@ -968,12 +1157,11 @@ int launch(const WfParams* p, const float* in, const int* active_pixels,
 // {threads a CTA, CTAs, dynamic shared bytes a CTA, static shared bytes,
 // registers a thread, local (stack and spill) bytes a thread, CTAs an
 // SM holds, tile voxels (0: none)}
-template <bool PRIMAL>
+template <bool PRIMAL, bool RESIDUAL>
 int info(const WfParams* p, int count, int* out) {
   WfParams P = *p;
-  KernelFn k = count ? pick<PRIMAL, true>(P) : pick<PRIMAL, false>(P);
+  KernelFn k = pick_for<PRIMAL, RESIDUAL>(P, count != 0);
   if (k == nullptr) return (int)cudaErrorInvalidValue;
-  if (!PRIMAL) P.tile_n = 0;
   size_t smem;
   cudaFuncAttributes fa;
   cudaError_t e = shape(k, P, smem);

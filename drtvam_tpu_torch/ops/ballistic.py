@@ -34,7 +34,7 @@ from .backproject import PackedFields, backproject, banded_eligible, \
     band_span_ok
 from .march import MarchStatic
 from .transport2d import build_transport, build_z_resample, \
-    ballistic_eligible, strip_target
+    ballistic_eligible, strip_target, unscattered_eligible
 
 __all__ = ["BallisticEngine", "ballistic_eligible", "default_impl"]
 
@@ -55,8 +55,17 @@ class BallisticEngine:
 
     _MAX_TAPS = 4
 
-    def __init__(self, static: MarchStatic, arr, device, impl=None):
-        if not ballistic_eligible(static):
+    def __init__(self, static: MarchStatic, arr, device, impl=None,
+                 unscattered=False):
+        """unscattered: the engine is the unscattered transport of a
+        scattering scene (the hybrid engine's analytic part,
+        ops/hybrid.py): only the geometry must be precomputable; the
+        rasterizer folds the medium's sigma_t and 1 - albedo into W."""
+        if unscattered:
+            if not unscattered_eligible(static):
+                raise ValueError("scene geometry not precomputable as 2D "
+                                 "transport fields")
+        elif not ballistic_eligible(static):
             raise ValueError("scene not ballistic-eligible")
         if static.sensor.channels != 1:
             raise NotImplementedError(

@@ -31,10 +31,24 @@ Deviations from the JAX package, by design:
     a chunk until the chunk's longest track ends, in rounds of 8, so a
     lane's later draws there depend on its chunk (ROADMAP queue 3).
 
-Not ported: radon mode (ROADMAP queue 1 item 13), the scattered-only,
-first-scatter and fast-residual modes of the hybrid engine (item 16),
-medium cotangents (`medium_grads`, item 17), mesh surfaces (mesh vials
-and occlusions, item 17; the surface-aware target, item 14).
+The hybrid engine's residual modes (ops/hybrid.py), as in the JAX
+package (drtvam_tpu/ops/march.py:107-144):
+  * `scattered_only`: the analog paths with every deposit made while
+    n_scat == 0 dropped (the ballistic engine owns those);
+  * `first_scatter` (with scattered_only, scattering and transmission
+    only): every lane starts at its forced first scatter event, sampled
+    on its pixel's in-medium chord from the chord bank
+    (`chord_pack`, ops/transport2d.py), with weight albedo * M, n_scat
+    1 and depth 1, then runs the general loop;
+  * `fast_residual` (first_scatter, delta, one convex analytic medium
+    region): the general loop collapses to max_depth - 1 unrolled
+    scatter events, each against one convex exit distance; it draws in
+    the general loop's order, so both replay the same paths.
+
+Not ported: radon mode (ROADMAP queue 1 item 13), the first-scatter
+geometric prologue used without a chord bank (item 20), medium
+cotangents (`medium_grads`, item 17), mesh surfaces (mesh vials and
+occlusions, item 17; the surface-aware target, item 14).
 """
 from __future__ import annotations
 
@@ -51,12 +65,14 @@ from ..models.projector import ProjectorStatic, ray_weight, sample_rays
 from ..models.sensor import SensorStatic
 from .fresnel import dot3, refract
 from .intersect import INF, ray_box, ray_cylinder
-from .medium import phase_functions, sample_free_flight, \
+from .medium import U_MAX, phase_functions, sample_free_flight, \
     sample_phase_direction
 
 RAY_EPS = 1e-4
 RATIO_MAX_STEPS = 65536
 ESTIMATORS = ("dda", "ratio", "delta")
+# residual modes, as the kernels number them (csrc/wf_trace.cuh)
+ANALOG, SCAT_ONLY, FIRST_SCATTER, FAST_RESIDUAL = range(4)
 
 
 @dataclass(frozen=True)
@@ -100,9 +116,6 @@ def check_supported(static: MarchStatic):
     """Raise for what the port's wavefront does not run."""
     if static.mode != "volume":
         raise _not_ported(f"the '{static.mode}' render mode", 13)
-    for flag in ("scattered_only", "first_scatter", "fast_residual"):
-        if getattr(static, flag):
-            raise _not_ported(f"the hybrid engine's {flag} mode", 16)
     if static.medium_grads:
         raise _not_ported("medium gradients (medium_grads)", 17)
     if static.sensor.surface_aware:
@@ -115,6 +128,42 @@ def check_supported(static: MarchStatic):
         raise ValueError(f"unknown estimator '{static.sensor.estimator}'")
     if static.has_scattering and static.phase not in phase_functions:
         raise ValueError(f"unknown phase function '{static.phase}'")
+
+
+def residual_mode(static: MarchStatic):
+    """ANALOG (the full dose), SCAT_ONLY (the analog paths' scattered
+    deposits), FIRST_SCATTER (lanes start at a forced first scatter on
+    the chord bank) or FAST_RESIDUAL (that, then the unrolled convex
+    event loop), from the static flags as trace_wavefront reads them
+    (drtvam_tpu/ops/march.py:968-991)."""
+    if not static.scattered_only:
+        return ANALOG
+    if not (static.first_scatter and static.has_scattering
+            and static.transmission_only and not static.medium_grads):
+        return SCAT_ONLY
+    if static.fast_residual and static.sensor.estimator == "delta":
+        return FAST_RESIDUAL
+    return FIRST_SCATTER
+
+
+def fast_residual_eligible(static: MarchStatic) -> bool:
+    """True when the medium region is a single convex analytic volume:
+    exactly one non-target surface with medium_side != 0, a cylinder or
+    box whose interior is the medium (cylindrical, square and
+    index-matched vials)."""
+    med = [s for s in static.surfaces
+           if s.medium_side != 0 and not s.is_target]
+    return (len(med) == 1 and med[0].medium_side == 1
+            and med[0].kind in (CYLINDER, BOX))
+
+
+def residual_surface(static: MarchStatic):
+    """The index of the fast residual's one medium surface."""
+    if not fast_residual_eligible(static):
+        raise ValueError("fast_residual needs one convex analytic medium "
+                         "region (fast_residual_eligible)")
+    return [i for i, s in enumerate(static.surfaces)
+            if s.medium_side != 0 and not s.is_target][0]
 
 
 def dda_max_steps(res):
@@ -353,6 +402,152 @@ def delta_segment(static, arr, primal, acc, g, dL, o, d, t_prev, mei_t, A,
 
 
 # --------------------------------------------------------------------------
+# the hybrid engine's first scatter and its fast event loop
+
+
+def _sample_first_scatter(static, arr, sg_o, sg_d, sg_L, sg_amp, sampler,
+                          lane, ctr):
+    """Importance-sample the first scatter event on K = 2 in-medium
+    segments: segment k with probability mass_k / M, mass_k = amp_k
+    exp(-st tau_k) (1 - exp(-st L_k)), then the truncated exponential
+    along it; the lane's weight is albedo * M. Two draws: u1 (1d), u2
+    (2d, the phase function). Returns (o1, d1, A_fs, alive, ctr)."""
+    n = sg_L.shape[0]
+    st = arr["sigma_t"]
+    tau = torch.cat([torch.zeros((n, 1), dtype=torch.float32,
+                                 device=sg_L.device), sg_L[:, :1]], 1)
+    mass = sg_amp * torch.exp(-st * tau) * (1.0 - torch.exp(-st * sg_L))
+    M = mass[:, 0] + mass[:, 1]
+    alive = M > 1e-12
+
+    u1, ctr = sampler.next_1d(lane, ctr)
+    pick1 = (u1 * M > mass[:, 0]) & (sg_L[:, 1] > 0.0)
+    o_k = torch.where(pick1[:, None], sg_o[:, 1], sg_o[:, 0])
+    d_k = torch.where(pick1[:, None], sg_d[:, 1], sg_d[:, 0])
+    L_k = torch.where(pick1, sg_L[:, 1], sg_L[:, 0])
+    m_k = torch.where(pick1, mass[:, 1], mass[:, 0])
+    um = torch.clamp((u1 * M - torch.where(pick1, mass[:, 0],
+                                           torch.zeros_like(M))) /
+                     torch.clamp(m_k, min=1e-30), 0.0, U_MAX)
+    t_ev = -torch.log1p(-um * (1.0 - torch.exp(-st * L_k))) / \
+        torch.clamp(st, min=1e-30)
+    t_ev = torch.minimum(torch.clamp(t_ev, min=0.0), L_k)
+    o1 = o_k + t_ev[:, None] * d_k
+
+    u2, ctr = sampler.next_2d(lane, ctr)
+    d1 = sample_phase_direction(static.phase, arr["phase_g"], d_k,
+                                u2[:, 0], u2[:, 1])
+    return o1, d1, arr["albedo"] * M, alive, ctr
+
+
+def _first_scatter_from_chords(static: MarchStatic, arr, o, aidx, sampler,
+                               lane, ctr):
+    """The forced first scatter on the pixel's chord: one (12,) record
+    of arr["chord_pack"] per lane, read at the pixel's centre column
+    (cid = emitter * U + column), lifted to 3D at the lane's own
+    jittered z (drtvam_tpu/ops/march.py:328-370)."""
+    if "chord_pack" not in arr:
+        raise _not_ported(
+            "the first-scatter residual without a chord bank (the "
+            "geometric prologue, drtvam_tpu/ops/march.py:198-325)", 20)
+    p = static.projector
+    U, h = p.resx, p.resy
+    idx = aidx if p.identity else arr["active_pixels"][aidx].to(torch.int64)
+    cid = (idx // (h * U)) * U + (idx % (h * U)) % U
+    rec = arr["chord_pack"][cid]
+    z = o[:, 2][:, None, None].expand(-1, 2, 1)
+    sg_o = torch.cat([rec[:, 0:4].reshape(-1, 2, 2), z], -1)
+    sg_d = torch.cat([rec[:, 4:8].reshape(-1, 2, 2), torch.zeros_like(z)],
+                     -1)
+    return _sample_first_scatter(static, arr, sg_o, sg_d, rec[:, 8:10],
+                                 rec[:, 10:12], sampler, lane, ctr)
+
+
+def _exit_distance(static: MarchStatic, arr):
+    """The convex medium region's exit distance from inside, (o, d) ->
+    t: the far root of a cylinder's side quadratic (0 when the exit lies
+    beyond the open tube's z range: the lane dies without an event, as
+    in the general march) or a box's far slab."""
+    i = residual_surface(static)
+    mp = arr["surf_params"][i]
+    if static.surfaces[i].kind == CYLINDER:
+        r, z0, z1 = mp[0], mp[1], mp[2]
+
+        def exit_dist(o, d):
+            ox, oy = o[:, 0], o[:, 1]
+            dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
+            a = dx * dx + dy * dy
+            b = 2.0 * (ox * dx + oy * dy)
+            c = ox * ox + oy * oy - r * r
+            disc = torch.clamp(b * b - 4.0 * a * c, min=0.0)
+            t_side = torch.where(a > 1e-20, (-b + torch.sqrt(disc)) * 0.5 /
+                                 torch.clamp(a, min=1e-20),
+                                 torch.full_like(a, INF))
+            z_hit = o[:, 2] + t_side * dz
+            ok = torch.isfinite(t_side) & (z_hit >= z0) & (z_hit <= z1)
+            return torch.where(ok, torch.clamp(t_side, min=0.0),
+                               torch.zeros_like(a))
+        return exit_dist
+    h = mp[:3]
+
+    def exit_dist(o, d):
+        inv_d = 1.0 / torch.where(torch.abs(d) > 1e-20, d,
+                                  torch.full_like(d, 1e-20))
+        t_far = torch.maximum((-h - o) * inv_d, (h - o) * inv_d).amin(-1)
+        return torch.clamp(t_far, min=0.0)
+    return exit_dist
+
+
+def _fast_residual_loop(static: MarchStatic, arr, primal, acc, g, dL, o, d,
+                        A, em, alive, sampler, lane, ctr, stats=None):
+    """The delta residual's events after the forced first scatter, in
+    one convex medium region: per event the free flight against the
+    exit distance (a lane reaching it is dead), the delta deposit
+    A ((1 - albedo) em) at the event voxel, the albedo factor, Russian
+    roulette past rr_depth and the phase sample. Up to max_depth - 1
+    events; each draws u_rr, u_ff, u_b (unused) and u_ph (2d), the
+    general loop's order (drtvam_tpu/ops/march.py:433-549)."""
+    st, al = arr["sigma_t"], arr["albedo"]
+    X, Y, Z = static.sensor.res
+    bmin, _, _, res = _grid(static, arr)
+    # voxels per unit length as the JAX fast loop computes it (res over
+    # the extent, not 1 / voxel size)
+    inv_vs = torch.tensor([X, Y, Z], dtype=torch.float32,
+                          device=bmin.device) / (arr["bbox_max"] - bmin)
+    exit_dist = _exit_distance(static, arr)
+    inv_st = 1.0 / torch.clamp(st, min=1e-30)
+    base_w = (1.0 - al) * (em if primal else 1.0)
+    for j in range(max(static.max_depth - 1, 0)):
+        if not bool(alive.any()):
+            break
+        _count(stats, "iterations", alive)
+        u_rr, ctr = sampler.next_1d(lane, ctr)
+        if j + 1 > static.rr_depth:
+            q = torch.clamp(A, max=0.99)
+            survive = u_rr < q
+            A = torch.where(alive & survive, A / torch.clamp(q, min=1e-12),
+                            A)
+            alive = alive & survive
+        t_exit = exit_dist(o, d)
+        u, ctr = sampler.next_1d(lane, ctr)
+        t = -torch.log1p(-torch.clamp(u, 0.0, U_MAX)) * inv_st
+        hit = alive & (t < t_exit)
+        p = o + t[:, None] * d
+        flat, in_grid = _voxel_flat(static, p, bmin, inv_vs, res)
+        m = hit & in_grid
+        acc, g = _deposit(primal, acc, g, dL, flat, A * base_w, m)
+        _count(stats, "steps", m)
+        A = torch.where(hit, A * al, A)
+        _, ctr = sampler.next_1d(lane, ctr)   # u_b (the BSDF's, unused)
+        u_ph, ctr = sampler.next_2d(lane, ctr)
+        d = sample_phase_direction(static.phase, arr["phase_g"], d,
+                                   u_ph[:, 0], u_ph[:, 1])
+        o = p
+        alive = hit
+    return acc, g
+
+
+# --------------------------------------------------------------------------
 # the bounce loop
 
 
@@ -361,7 +556,8 @@ def trace_wavefront(static: MarchStatic, arr, lane, seed, spp, dL_flat=None,
     """Trace the lanes `lane` ((n,) int64 global lane ids, uint32
     values; active index lane // spp).
 
-    arr: the scene's tensors (`scene_tensors`) with "active_data".
+    arr: the scene's tensors (`scene_tensors`) with "active_data", and
+    for the first-scatter residual "chord_pack" (ops/transport2d.py).
     primal (dL_flat None): adds the lanes' dose into acc (n_cells,) and
     returns (acc, None); em: optional per-lane emitted intensity before
     the ray-weight scalar (default active_data[lane // spp]).
@@ -408,6 +604,21 @@ def trace_wavefront(static: MarchStatic, arr, lane, seed, spp, dL_flat=None,
     active = torch.ones((n,), dtype=torch.bool, device=dev)
     ones, zeros, infs = (torch.ones((n,), **f32), torch.zeros((n,), **f32),
                          torch.full((n,), INF, **f32))
+    res_mode = residual_mode(static)
+    if res_mode in (FIRST_SCATTER, FAST_RESIDUAL):
+        # every lane starts at its forced first scatter event: the
+        # pre-scatter attenuation and the event's albedo live in A, so
+        # total_t restarts at 0, n_scat at 1 and depth at 1
+        o, d, A_fs, active, ctr = _first_scatter_from_chords(
+            static, arr, o, aidx, sampler, lane, ctr)
+        A = torch.where(active, A_fs, zeros)
+        if res_mode == FAST_RESIDUAL:
+            return _fast_residual_loop(static, arr, primal, acc, g, dL_flat,
+                                       o, d, A, em, active, sampler, lane,
+                                       ctr, stats)
+        n_scat = ones.clone()
+        in_medium = active.clone()
+        depth = torch.ones((n,), dtype=torch.int32, device=dev)
 
     for _ in range(2 * static.max_depth + 16):
         if not bool(active.any()):
@@ -448,6 +659,9 @@ def trace_wavefront(static: MarchStatic, arr, lane, seed, spp, dL_flat=None,
 
         # dose deposit along this segment
         dep_active = (medium_event | reached_surface) & active
+        if res_mode != ANALOG:
+            # the unscattered deposits belong to the ballistic engine
+            dep_active = dep_active & (n_scat > 0.0)
         if est == "dda":
             acc, g = dda_segment(static, arr, primal, acc, g, dL_flat, o, d,
                                  total_t, t_si, A, em, dep_active, stats)

@@ -15,17 +15,23 @@ path replay, and the autograd Function around them.
   * Lane ids are global: lane = active index * spp + k, uint32 values
     as in the JAX package, so a run with 2**32 or more lanes raises.
 
-Two kernel wrappers, each with its plain version beside it:
+Four kernel wrappers, each with its plain version beside it:
 
-    wf_fwd  <- forward   (plain: _forward, trace_wavefront chunk by chunk)
-    wf_bwd  <- adjoint   (plain: _adjoint)
+    wf_fwd      <- forward   (plain: _forward, trace_wavefront chunk by
+                              chunk)
+    wf_bwd      <- adjoint   (plain: _adjoint)
+    wf_res_fwd  <- forward   of a residual static (scattered_only: the
+                              hybrid engine's residual, ops/hybrid.py)
+    wf_res_bwd  <- adjoint   of a residual static
 
-The CUDA kernels are csrc/wf_fwd.cu and csrc/wf_bwd.cu, two entry points
-of the one per-lane path template csrc/wf_trace.cuh; they replace the
-XLA code of drtvam_tpu/ops/march.py:913 `trace_wavefront` (there is no
-Pallas kernel on this path). Given CPU tensors `forward` / `adjoint`
-run the plain version; given CUDA tensors they launch the kernel or
-raise. `launches` counts kernel launches per kernel.
+The CUDA kernels are csrc/wf_fwd.cu, csrc/wf_bwd.cu, csrc/wf_res_fwd.cu
+and csrc/wf_res_bwd.cu, entry points of the one per-lane path template
+csrc/wf_trace.cuh; they replace the XLA code of
+drtvam_tpu/ops/march.py:913 `trace_wavefront`, the residual pair in its
+residual modes (there is no Pallas kernel on this path). Given CPU
+tensors `forward` / `adjoint` run the plain version; given CUDA tensors
+they launch the kernel or raise. `launches` counts kernel launches per
+kernel.
 
 A CTA traces one DMD row over a group of angles (`block_order`), so
 that most deposits land in the row's home z-slice (`home_slices`), with
@@ -34,7 +40,8 @@ thread one lane, adds deposits with float atomics (into the home
 slice's medium voxels, `tile_rows`, held in shared memory, or into the
 accumulator), so its sums are not bitwise reproducible; the adjoint
 gives each thread one pixel's spp lanes, writes their sum once, in
-lane order, and is.
+lane order, and is. The residual pair runs the same launch without the
+tile: its deposits follow a scatter out of the row's slice.
 """
 from __future__ import annotations
 
@@ -45,8 +52,9 @@ import torch
 
 from ..models.projector import PROJECTOR_KINDS, ray_weight
 from ..models.geometry import CYLINDER
-from .march import (ESTIMATORS, MarchStatic, _grid, check_supported,
-                    dda_max_steps, trace_wavefront)
+from .march import (ANALOG, ESTIMATORS, FAST_RESIDUAL, FIRST_SCATTER,
+                    MarchStatic, _grid, check_supported, dda_max_steps,
+                    residual_mode, residual_surface, trace_wavefront)
 from .medium import PHASE_IDS
 
 DEFAULT_CHUNK = 1 << 16   # plain version: lanes per pass
@@ -60,12 +68,13 @@ ANGLES_PER_GROUP = 25
 COUNTERS = ("iterations", "steps", "tile_deposits", "global_deposits",
             "lane_slots")
 
-KERNELS = ("wf_fwd", "wf_bwd")
-launches = {k: 0 for k in KERNELS}
+KERNELS = ("wf_fwd", "wf_bwd")              # the analog pair
+RES_KERNELS = ("wf_res_fwd", "wf_res_bwd")  # the residual pair
+launches = {k: 0 for k in KERNELS + RES_KERNELS}
 
 
 def reset_launches():
-    for k in KERNELS:
+    for k in launches:
         launches[k] = 0
 
 
@@ -160,6 +169,7 @@ class WfParams(ctypes.Structure):
         ("surf_refl", ctypes.c_float * MAX_SURF),
         ("n_groups", ctypes.c_int), ("group", ctypes.c_int),
         ("tile_n", ctypes.c_int),
+        ("residual", ctypes.c_int), ("res_surf", ctypes.c_int),
     ]
 
 
@@ -213,6 +223,9 @@ def make_params(static: MarchStatic, arr, seed, spp):
         P.surf_params[3 * i:3 * i + 3] = params[3 * i:3 * i + 3]
         P.surf_eta[i], P.surf_refl[i] = eta[i], refl[i]
     P.n_groups, P.group = angle_groups(p.n_patterns)
+    P.residual = residual_mode(static)
+    P.res_surf = residual_surface(static) \
+        if P.residual == FAST_RESIDUAL else 0
     return P
 
 
@@ -346,17 +359,18 @@ def _setup(lib, name):
         info.restype = ctypes.c_int
 
 
-_SETUP = {k: (lambda lib, k=k: _setup(lib, k)) for k in KERNELS}
+_SETUP = {k: (lambda lib, k=k: _setup(lib, k))
+          for k in KERNELS + RES_KERNELS}
 # the kernels round every float operation as the plain version's separate
 # torch ops do (no FMA contraction): see csrc/wf_trace.cuh
-_FLAGS = {k: ["--fmad=false"] for k in KERNELS}
+_FLAGS = {k: ["--fmad=false"] for k in KERNELS + RES_KERNELS}
 
 
 def build_kernels():
-    """Build (nvcc, one process per source, in parallel) and load both
-    kernels. Returns {name: ctypes lib}; raises on any failure."""
+    """Build (nvcc, one process per source, in parallel) and load the
+    four kernels. Returns {name: ctypes lib}; raises on any failure."""
     from ..native import load_cuda
-    return load_cuda(KERNELS, _SETUP, _FLAGS)
+    return load_cuda(KERNELS + RES_KERNELS, _SETUP, _FLAGS)
 
 
 def _check(name, t, dtype, shape):
@@ -373,6 +387,35 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _family_params(name, static, arr, seed, spp):
+    """make_params, checked against the kernel's family: the analog pair
+    runs the full dose, the residual pair a residual static (scattering,
+    transmission only) and takes no tile. Returns (P, order, starts,
+    rows or the chord bank)."""
+    P = make_params(static, arr, seed, spp)
+    order, starts, rows, P.tile_n = _launch_layout(static, arr)
+    if name in KERNELS:
+        if P.residual != ANALOG:
+            raise ValueError(f"{name} runs the full dose; a residual "
+                             "static (scattered_only) runs on "
+                             f"{RES_KERNELS}")
+        return P, order, starts, rows
+    if P.residual == ANALOG or not (static.has_scattering and
+                                    static.transmission_only):
+        raise ValueError(f"{name} runs the residual of a scattering, "
+                         "transmission-only scene (scattered_only)")
+    P.tile_n = 0
+    if P.residual not in (FIRST_SCATTER, FAST_RESIDUAL):
+        return P, order, starts, None
+    bank = arr.get("chord_pack")
+    if bank is None:
+        raise ValueError(f"{name}: the first-scatter residual needs the "
+                         "chord bank (arr['chord_pack'])")
+    _check(name, bank, torch.float32,
+           (static.projector.n_patterns * static.projector.resx, 12))
+    return P, order, starts, bank
+
+
 def _launch(name, static, arr, x, out, seed, spp, stats):
     dev = x.device
     pix = arr["active_pixels"]
@@ -380,8 +423,8 @@ def _launch(name, static, arr, x, out, seed, spp, stats):
         raise ValueError(f"{name}: scene tensors on {pix.device}, input on "
                          f"{dev}")
     _check(name, pix, torch.int32, (static.projector.n_active,))
-    P = make_params(static, arr, seed, spp)
-    order, starts, rows, P.tile_n = _launch_layout(static, arr)
+    # rows: the tile's row table (analog), or the chord bank (residual)
+    P, order, starts, rows = _family_params(name, static, arr, seed, spp)
     counter = None
     if stats is not None:
         counter = torch.zeros((len(COUNTERS),), dtype=torch.int64,
@@ -390,7 +433,7 @@ def _launch(name, static, arr, x, out, seed, spp, stats):
         fn = getattr(build_kernels()[name], name)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(ctypes.byref(P), x.data_ptr(), pix.data_ptr(),
-                 _ptr(order), _ptr(starts), rows.data_ptr(), out.data_ptr(),
+                 _ptr(order), _ptr(starts), _ptr(rows), out.data_ptr(),
                  _ptr(counter), stream)
     launches[name] += 1
     if err != 0:
@@ -405,8 +448,7 @@ def kernel_info(name, static: MarchStatic, arr, count=False):
     scene (count: the counting one, as with `stats`), read from the
     card: threads a CTA, CTAs, shared memory, registers, local (stack
     and spill) bytes, CTAs an SM holds, and the tile's voxels."""
-    P = make_params(static, arr, 0, 1)
-    P.tile_n = _launch_layout(static, arr)[3]
+    P = _family_params(name, static, arr, 0, 1)[0]
     out = (ctypes.c_int * 8)()
     with torch.cuda.device(arr["active_pixels"].device):
         lib = build_kernels()[name]
@@ -451,6 +493,36 @@ def wf_bwd(static: MarchStatic, arr, dL_flat, seed, spp, stats=None):
     return out
 
 
+def wf_res_fwd(static: MarchStatic, arr, data, seed, spp, stats=None):
+    """CUDA kernel csrc/wf_res_fwd.cu: the residual dose accumulator
+    (n_cells,) of `data` on the card, for a static with scattered_only
+    (the hybrid engine's residual; arr["chord_pack"] for the
+    first-scatter modes). Replaces the primal of
+    drtvam_tpu/ops/march.py:913 in its residual modes (XLA). What bounds
+    it on the H100: the per-lane work (ray set-up, random draws, the
+    chord record, phase samples); deposits are few float atomics."""
+    _n_lanes(static, spp)
+    _check("wf_res_fwd", data, torch.float32, (static.projector.n_active,))
+    acc = torch.zeros((static.sensor.n_cells,), dtype=torch.float32,
+                      device=data.device)
+    _launch("wf_res_fwd", static, arr, data, acc, seed, spp, stats)
+    return acc
+
+
+def wf_res_bwd(static: MarchStatic, arr, dL_flat, seed, spp, stats=None):
+    """CUDA kernel csrc/wf_res_bwd.cu: the residual's pattern gradient
+    (n_active,) of dL_flat on the card, replaying wf_res_fwd's paths.
+    Replaces the adjoint of drtvam_tpu/ops/march.py:913 in its residual
+    modes (XLA). Bound as wf_res_fwd; every output is written once, so
+    the result is bitwise reproducible."""
+    _n_lanes(static, spp)
+    _check("wf_res_bwd", dL_flat, torch.float32, (static.sensor.n_cells,))
+    out = torch.empty((static.projector.n_active,), dtype=torch.float32,
+                      device=dL_flat.device)
+    _launch("wf_res_bwd", static, arr, dL_flat, out, seed, spp, stats)
+    return out
+
+
 def _route(x):
     if x.device.type == "cpu":
         return False
@@ -460,18 +532,20 @@ def _route(x):
 
 
 def forward(static: MarchStatic, arr, data, seed, spp, chunk=DEFAULT_CHUNK):
-    """Flat unnormalized dose (n_cells,): wf_fwd on the card, the plain
-    version on the CPU."""
+    """Flat unnormalized dose (n_cells,): wf_fwd (a residual static:
+    wf_res_fwd) on the card, the plain version on the CPU."""
     if _route(data):
-        return wf_fwd(static, arr, data.contiguous(), seed, spp)
+        kern = wf_res_fwd if static.scattered_only else wf_fwd
+        return kern(static, arr, data.contiguous(), seed, spp)
     return _forward(static, arr, data, seed, spp, chunk)
 
 
 def adjoint(static: MarchStatic, arr, seed, spp, chunk, dL_flat):
-    """Pattern gradient (n_active,) of dL_flat: wf_bwd on the card, the
-    plain version on the CPU."""
+    """Pattern gradient (n_active,) of dL_flat: wf_bwd (a residual
+    static: wf_res_bwd) on the card, the plain version on the CPU."""
     if _route(dL_flat):
-        return wf_bwd(static, arr, dL_flat.contiguous(), seed, spp)
+        kern = wf_res_bwd if static.scattered_only else wf_bwd
+        return kern(static, arr, dL_flat.contiguous(), seed, spp)
     return _adjoint(static, arr, seed, spp, chunk, dL_flat)
 
 

@@ -14,15 +14,18 @@ time, column 1 the adjoint + optimizer step (direction render and line
 search included), each ending in a device synchronize.
 
 Engines, selected as the JAX package selects them (`engine`: auto,
-ballistic, wavefront): the ballistic engine for a collimated projector,
-an analytic vial, pure absorption and the dda estimator; otherwise the
-wavefront path tracer (ops/render.py) with `spp` / `spp_grad` lanes per
-pixel and seed i at step i. Under auto a scattering scene whose
-unscattered transport is precomputable belongs to the JAX package's
-hybrid engine, which is not ported (ROADMAP queue 1 item 16): it
-raises rather than run another estimator. The optimizer is lbfgs.
-Everything not ported raises NotImplementedError naming its ROADMAP
-item.
+ballistic, hybrid, wavefront): under auto the ballistic engine for a
+collimated projector, an analytic vial, pure absorption and the dda
+estimator; the hybrid engine (ops/hybrid.py: the unscattered transport
+plus a first-scatter residual, `spp` / `spp_grad` residual lanes a
+pixel, its estimator `hybrid_estimator` or the scene's) for a
+scattering scene with that geometry; otherwise the wavefront path
+tracer (ops/render.py) with `spp` / `spp_grad` lanes per pixel. A
+Monte-Carlo engine takes seed i at step i, and the line search renders
+the direction with the step's seed, the full dose. The final render
+runs the scene's own estimator at `spp_ref`, seed 0, `max_depth_ref`
+and `rr_depth_ref`. The optimizer is lbfgs. Everything not ported
+raises NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -37,8 +40,9 @@ import torch
 from ..models.scene import Scene
 from ..ops import render as wavefront
 from ..ops.ballistic import BallisticEngine
+from ..ops.hybrid import ScatteringEngine, hybrid_eligible
 from ..ops.march import scene_tensors
-from ..ops.transport2d import ballistic_eligible, unscattered_eligible
+from ..ops.transport2d import ballistic_eligible
 from ..utils.io import save_img, save_vol
 from ..utils.metrics import save_histogram
 from .device_lbfgs import DeviceLinearLBFGS
@@ -68,32 +72,23 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def hybrid_eligible(static):
-    """A scattering scene whose unscattered transport is precomputable:
-    the JAX package's `auto` runs its hybrid engine there."""
-    return static.has_scattering and unscattered_eligible(static)
-
-
 def select_engine(engine, static):
-    """'ballistic' or 'wavefront', as the JAX package's `_make_step_fns`
-    selects; the hybrid engine raises (not ported)."""
+    """'ballistic', 'hybrid' or 'wavefront', as the JAX package's
+    `_make_step_fns` selects (drtvam_tpu/opt/optimize.py:56-62)."""
     if engine not in ("auto", "ballistic", "wavefront", "hybrid"):
         raise ValueError(f"Unknown engine: '{engine}'")
-    if engine == "hybrid" or (engine == "auto" and
-                              not ballistic_eligible(static) and
-                              hybrid_eligible(static)):
-        raise _not_ported(
-            "the hybrid scattering engine (what the JAX package's 'auto' "
-            "runs on a scattering scene with a collimated projector and "
-            "an analytic vial; set engine 'wavefront' for the analog path "
-            "tracer)", 16)
     if engine == "ballistic" and not ballistic_eligible(static):
         raise ValueError("engine 'ballistic' needs a collimated projector, "
                          "an analytic vial, pure absorption and the dda "
                          "estimator")
-    if engine == "wavefront" or not ballistic_eligible(static):
-        return "wavefront"
-    return "ballistic"
+    if engine == "hybrid" and not hybrid_eligible(static):
+        raise ValueError("engine 'hybrid' needs a scattering medium, a "
+                         "collimated projector and an analytic vial")
+    if engine == "auto":
+        if ballistic_eligible(static):
+            return "ballistic"
+        return "hybrid" if hybrid_eligible(static) else "wavefront"
+    return engine
 
 
 def _make_step_fns(render, pattern_grad, loss_obj, target):
@@ -163,6 +158,12 @@ def optimize(config, resolve_path=None, device="cuda", timings=None):
 
     t0 = time.perf_counter()
     scene = Scene(config, resolve_path)
+    if config.get("optimize_medium") and \
+            config.get("engine", "auto") in ("ballistic", "hybrid"):
+        raise ValueError(
+            "optimize_medium requires the wavefront engine; the "
+            f"'{config['engine']}' engine precomputes the medium into its "
+            "transport fields")
     _check_ported(config, scene)
     output = config["output"]
     os.makedirs(os.path.join(output, "patterns"), exist_ok=True)
@@ -240,6 +241,17 @@ def optimize(config, resolve_path=None, device="cuda", timings=None):
 
         def pattern_grad(dvol, seed):
             return engine.pattern_grad(dvol, inv_vol)
+    elif engine_kind == "hybrid":
+        engine = ScatteringEngine(static, arr, device, spp=spp,
+                                  spp_grad=spp_grad, chunk=chunk,
+                                  estimator=config.get("hybrid_estimator"))
+        impl = engine.impl
+
+        def render(d, seed):
+            return engine.render_vol(d, inv_vol, seed)
+
+        def pattern_grad(dvol, seed):
+            return engine.pattern_grad(dvol, inv_vol, seed)
     else:
         arr_t = scene_tensors(arr, device)
         impl = "cuda" if device.type == "cuda" else "plain"
@@ -301,9 +313,12 @@ def optimize(config, resolve_path=None, device="cuda", timings=None):
         if engine_cfg != "wavefront" and ballistic_eligible(static_f):
             vol_final = BallisticEngine(static_f, arr_f, device).render_vol(
                 data, inv_vol_f)
+        elif engine_cfg != "wavefront" and hybrid_eligible(static_f):
+            # the scene's own estimator, not hybrid_estimator
+            vol_final = ScatteringEngine(
+                static_f, arr_f, device, spp=spp_ref, chunk=chunk
+            ).render_vol(data, inv_vol_f, 0)
         else:
-            if engine_cfg != "wavefront" and hybrid_eligible(static_f):
-                raise _not_ported("the hybrid engine's final render", 16)
             vol_final = wavefront.render(
                 static_f, scene_tensors(arr_f, device), data, inv_vol_f,
                 0, spp_ref, spp_ref, chunk)

@@ -1,12 +1,13 @@
 """The CUDA kernels == their plain versions, on a card: the four
-backprojection kernels, their bf16 operand forms and the wavefront pair
-(wf_fwd, wf_bwd). Free of
+backprojection kernels, their bf16 operand forms, the wavefront pair
+(wf_fwd, wf_bwd) and the residual pair (wf_res_fwd, wf_res_bwd). Free of
 jax (the card's machine has none), so it runs there with
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-On a machine without CUDA every test skips; chip_smoke.py phases 3 and
-7 run the same comparisons at the bench shapes and on more scenes."""
+On a machine without CUDA every test skips; chip_smoke.py phases 3, 7
+and 7c run the same comparisons at the bench shapes and on more
+scenes."""
 import numpy as np
 import pytest
 import torch
@@ -306,6 +307,91 @@ def test_wf_cuda_tensors_never_take_the_plain_path(tmp_path, cuda_device,
     data = torch.ones(static.projector.n_active, device=cuda_device,
                       requires_grad=True)
     vol = wf.render(static, at, data, 2.0, seed=1, spp=spp)
+    (g,) = torch.autograd.grad(vol.sum(), data)
+    torch.cuda.synchronize()
+    assert vol.is_cuda and g.is_cuda and float(g.abs().sum()) > 0
+
+
+# the residual pair (the hybrid engine's scattered residual)
+
+RES_CASES = [("delta", "fast_residual"), ("dda", "first_scatter"),
+             ("ratio", "scattered_only")]
+
+
+def _res_scene(tmp_path, estimator, mode):
+    """_wf_scene's scene with albedo 0.5: the residual static and tensors
+    of a ScatteringEngine on the card, in `mode`."""
+    import dataclasses
+    from drtvam_tpu_torch.models.scene import Scene
+    from drtvam_tpu_torch.ops.hybrid import ScatteringEngine
+    from drtvam_tpu_torch.ops.mesh import make_box, save_ply
+    path = str(tmp_path / "t.ply")
+    save_ply(make_box((0.5, 0.5, 0.5)), path)
+    cfg = {
+        "vial": {"type": "cylindrical", "r_ext": 8.385, "r_int": 7.665,
+                 "height": 20.0, "ior": 1.514,
+                 "medium": {"ior": 1.4849, "extinction": 0.1,
+                            "albedo": 0.5, "phase": {"type": "rayleigh"}}},
+        "projector": {"type": "collimated", "n_patterns": 10, "resx": 24,
+                      "resy": 16, "pixel_size": 16.77 / 24,
+                      "motion": "circular", "distance": 25.0},
+        "sensor": {"type": estimator, "scalex": 16.77, "scaley": 16.77,
+                   "scalez": 16.77, "majorant": 10.0,
+                   "film": {"type": "vfilm", "resx": 32, "resy": 32,
+                            "resz": 32}},
+        "target": {"filename": path, "size": 4.0}, "output": str(tmp_path)}
+    static, arr = Scene(cfg).build(mode="volume", include_target=False,
+                                   max_depth=8, rr_depth=3, sample_time=True)
+    eng = ScatteringEngine(static, arr, "cuda",
+                           first_scatter=mode != "scattered_only")
+    st = dataclasses.replace(eng.static_s,
+                             fast_residual=mode == "fast_residual")
+    return st, eng.arr
+
+
+@pytest.mark.parametrize("estimator,mode", RES_CASES)
+def test_res_kernels_match_plain(estimator, mode, tmp_path, cuda_device):
+    """To WF_TOL of the max; a residual deposit follows a scatter event,
+    a point: an event an ulp off may land in the next voxel, so up to
+    0.2 % of the nonzero values may be off by more (chip_smoke.py phase
+    7c measured none)."""
+    st, at = _res_scene(tmp_path, estimator, mode)
+    rng = np.random.default_rng(6)
+    data = torch.from_numpy(rng.uniform(0.5, 1.5, st.projector.n_active)
+                            .astype(np.float32)).to(cuda_device)
+    dL = torch.from_numpy(rng.uniform(0.0, 1.0, st.sensor.n_cells)
+                          .astype(np.float32)).to(cuda_device)
+    before = dict(wf.launches)
+    dose = wf.forward(st, at, data, 7, 4)
+    grad = wf.adjoint(st, at, 7, 4, wf.DEFAULT_CHUNK, dL)
+    grad2 = wf.adjoint(st, at, 7, 4, wf.DEFAULT_CHUNK, dL)
+    torch.cuda.synchronize()
+    assert wf.launches["wf_res_fwd"] == before["wf_res_fwd"] + 1
+    assert wf.launches["wf_res_bwd"] == before["wf_res_bwd"] + 2
+    assert wf.launches["wf_fwd"] == before["wf_fwd"]
+    assert float(dose.abs().max()) > 0 and float(grad.abs().max()) > 0
+    for out, ref in ((dose, wf._forward(st, at, data, 7, 4,
+                                         wf.DEFAULT_CHUNK)),
+                     (grad, wf._adjoint(st, at, 7, 4, wf.DEFAULT_CHUNK,
+                                        dL))):
+        off = (out - ref).abs() > WF_TOL * float(ref.abs().max())
+        assert int(off.sum()) <= 2e-3 * int((ref != 0).sum())
+    assert torch.equal(grad, grad2)
+
+
+def test_hybrid_engine_never_takes_the_plain_path(tmp_path, cuda_device,
+                                                  monkeypatch):
+    st, at = _res_scene(tmp_path, "delta", "fast_residual")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(wf, "_forward", refuse)
+    monkeypatch.setattr(wf, "_adjoint", refuse)
+    monkeypatch.setattr(wf, "trace_wavefront", refuse)
+    data = torch.ones(st.projector.n_active, device=cuda_device,
+                      requires_grad=True)
+    vol = wf.render(st, at, data, 2.0, seed=1, spp=4)
     (g,) = torch.autograd.grad(vol.sum(), data)
     torch.cuda.synchronize()
     assert vol.is_cuda and g.is_cuda and float(g.abs().sum()) > 0

@@ -93,12 +93,12 @@ def test_overrides_reach_the_config(work):
 
 
 @pytest.mark.parametrize("change", [
-    {"vial.medium.albedo": 0.5},
+    {"vial.medium.albedo": 0.5, "optimize_medium": True},
     {"checkpoint_every": 1},
     {"optimizer": {"type": "adam"}},
     {"filter_radon": True},
     {"progressive": True},
-    {"engine": "hybrid"},
+    {"vial.medium.albedo": 0.5, "engine": "hybrid", "resume": True},
 ])
 def test_unported_options_raise(work, change):
     cfg = _config(work, "np")
@@ -154,10 +154,19 @@ def test_auto_runs_the_wavefront_on_a_telecentric_scene(work, capsys):
 
 
 def test_auto_on_a_hybrid_eligible_scattering_scene_raises(work):
-    """The JAX package's auto runs its hybrid engine there (not ported);
-    the analog wavefront would be another estimator, so the port
-    raises, and runs it only when asked to."""
+    """auto runs the hybrid engine there (tests/test_torch_hybrid.py);
+    what still raises on such a scene: a surface-aware film, whose
+    channel split of the hybrid engine is ROADMAP item 14, and
+    medium optimization with the hybrid engine, which bakes the medium
+    into its transport fields (a ValueError, as in the JAX package)."""
     cfg = _config(work, "hy")
     cfg["vial"]["medium"]["albedo"] = 0.5
-    with pytest.raises(NotImplementedError, match="item 16"):
+    cfg["sensor"]["film"]["surface_aware"] = True
+    cfg["final_sensor"] = {"type": "dda", "film": {"type": "vfilm"}}
+    with pytest.raises(NotImplementedError, match="item 14"):
+        tmain([_write(work, cfg, "hy.json"), "--device", "cpu"])
+    cfg = _config(work, "hy")
+    cfg["vial"]["medium"]["albedo"] = 0.5
+    cfg.update(engine="hybrid", optimize_medium=True)
+    with pytest.raises(ValueError, match="optimize_medium"):
         tmain([_write(work, cfg, "hy.json"), "--device", "cpu"])

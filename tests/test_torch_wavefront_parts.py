@@ -273,9 +273,11 @@ def test_unported_modes_raise(target_path):
     sc = _jscene(target_path, PROJECTORS["collimated"])
     static, arr = sc.build(mode="volume", include_target=False)
     tstatic, _ = scene_from_jax(static, arr)
+    surface_aware = dataclasses.replace(tstatic.sensor, surface_aware=True)
     for change, item in (({"mode": "radon"}, "13"),
-                         ({"scattered_only": True}, "16"),
-                         ({"fast_residual": True}, "16"),
+                         ({"sensor": surface_aware}, "14"),
+                         ({"medium_grads": True, "scattered_only": True},
+                          "17"),
                          ({"medium_grads": True}, "17")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             tmarch.check_supported(dataclasses.replace(tstatic, **change))

@@ -1,5 +1,7 @@
 """The wavefront kernels' per-lane template (csrc/wf_trace.cuh) built
-with the host compiler and held to the plain version, on the CPU.
+with the host compiler and held to the plain version, on the CPU: the
+analog pair's instantiations and the residual pair's (the hybrid
+engine's scattered-only, first-scatter and fast-residual modes).
 
 Everything of the template above its `__global__` kernel is plain C++
 once a few CUDA names are stubbed (below), so g++ builds it into a
@@ -27,6 +29,7 @@ from drtvam_tpu_torch.models.geometry import DIFFUSE
 from drtvam_tpu_torch.models.scene import Scene
 from drtvam_tpu_torch.native import CUDA_SRC_DIR
 from drtvam_tpu_torch.ops import render as wf
+from drtvam_tpu_torch.ops.hybrid import ScatteringEngine
 from drtvam_tpu_torch.ops.march import scene_tensors
 from drtvam_tpu_torch.ops.mesh import make_box, save_ply
 
@@ -70,11 +73,11 @@ static std::vector<int> traced;
 
 // the kernel's launch order on one thread: block by block, each block's
 // range task by task (task_position); the forward's home-slice tile
-// zeroed first and flushed last (the adjoint takes none)
-template <int EST, bool SCAT, bool TONLY, bool PRIMAL>
+// zeroed first and flushed last (the adjoint and the residual take none)
+template <int EST, bool SCAT, bool TONLY, int RES, bool PRIMAL>
 void run_blocks(const WfParams& P, const float* in, const int* ap,
                 const int* order, const int* starts, const int4* rows,
-                float* out, unsigned long long* c) {
+                const float* chords, float* out, unsigned long long* c) {
   Grid G;
   G.init(P);
   std::vector<float> tile(P.tile_n);
@@ -92,8 +95,8 @@ void run_blocks(const WfParams& P, const float* in, const int* ap,
       unsigned long long longest = 0;
       for (int l = 0; l < 32; ++l) {
         const unsigned long long s0 = S.steps;
-        const int aidx = trace_task<EST, SCAT, TONLY>(P, G, order, lo, hi,
-                                                      t, l, in, ap, out, S);
+        const int aidx = trace_task<EST, SCAT, TONLY, RES>(
+            P, G, order, lo, hi, t, l, in, ap, out, S, chords);
         if (aidx >= 0) traced.push_back(aidx);
         if (S.steps - s0 > longest) longest = S.steps - s0;
       }
@@ -111,10 +114,10 @@ void run_blocks(const WfParams& P, const float* in, const int* ap,
 
 // lane order, no tile: active pixel 0, 1, 2, ..., each pixel's lanes
 // in lane order on one thread
-template <int EST, bool SCAT, bool TONLY, bool PRIMAL>
+template <int EST, bool SCAT, bool TONLY, int RES, bool PRIMAL>
 void run_lanes(const WfParams& P, const float* in, const int* ap,
-               const int*, const int*, const int4*, float* out,
-               unsigned long long* c) {
+               const int*, const int*, const int4*, const float* chords,
+               float* out, unsigned long long* c) {
   Grid G;
   G.init(P);
   Sink<PRIMAL, true> S{out, in, nullptr, nullptr, -1, 0.0f, 0, 0, 0, 0};
@@ -124,9 +127,9 @@ void run_lanes(const WfParams& P, const float* in, const int* ap,
     float gsum = 0.0f;
     for (int k = 0; k < P.spp; ++k) {
       S.g = 0.0f;
-      trace_lane<EST, SCAT, TONLY>(
+      trace_lane<EST, SCAT, TONLY, RES>(
           P, G, (uint32_t)aidx * (uint32_t)P.spp + (uint32_t)k, aidx, ap,
-          em, S);
+          em, S, chords);
       gsum = k == 0 ? S.g : gsum + S.g;
     }
     if (!PRIMAL) out[aidx] = gsum * P.ray_w;
@@ -144,12 +147,35 @@ int dispatch(const WfParams* p, const float* in, const int* ap,
                   (p->transmission_only ? 1 : 0);
 #define C(E, S, T)                                                       \
   case E * 4 + (S ? 2 : 0) + (T ? 1 : 0):                                \
-    (BLOCKS ? run_blocks<E, S, T, PRIMAL> : run_lanes<E, S, T, PRIMAL>)( \
-        *p, in, ap, order, starts, rows, out, c);                        \
+    (BLOCKS ? run_blocks<E, S, T, ANALOG, PRIMAL>                        \
+            : run_lanes<E, S, T, ANALOG, PRIMAL>)(                       \
+        *p, in, ap, order, starts, rows, nullptr, out, c);               \
     break;
   switch (key) {
     C(0, 0, 0) C(0, 0, 1) C(0, 1, 0) C(0, 1, 1) C(1, 0, 0) C(1, 0, 1)
     C(1, 1, 0) C(1, 1, 1) C(2, 0, 0) C(2, 0, 1) C(2, 1, 0) C(2, 1, 1)
+    default: return 1;
+  }
+  return 0;
+}
+
+// the residual pair's instantiations (scattering, transmission only),
+// by estimator and residual mode, as csrc/wf_trace.cuh pick
+template <bool PRIMAL, bool BLOCKS>
+int res_dispatch(const WfParams* p, const float* in, const int* ap,
+                 const int* order, const int* starts, const float* chords,
+                 float* out, unsigned long long* c) {
+  traced.clear();
+#define R(E, M)                                                            \
+  case E * 4 + M:                                                          \
+    (BLOCKS ? run_blocks<E, true, true, M, PRIMAL>                         \
+            : run_lanes<E, true, true, M, PRIMAL>)(                        \
+        *p, in, ap, order, starts, nullptr, chords, out, c);               \
+    break;
+  switch (p->estimator * 4 + p->residual) {
+    R(DDA, SCAT_ONLY) R(DDA, FIRST_SCATTER) R(RATIO, SCAT_ONLY)
+    R(RATIO, FIRST_SCATTER) R(DELTA, SCAT_ONLY) R(DELTA, FIRST_SCATTER)
+    R(DELTA, FAST_RESIDUAL)
     default: return 1;
   }
   return 0;
@@ -164,6 +190,18 @@ ENTRY(wf_fwd, true, true)
 ENTRY(wf_bwd, false, true)
 ENTRY(wf_fwd_lanes, true, false)
 ENTRY(wf_bwd_lanes, false, false)
+#define RES_ENTRY(NAME, PRIMAL, BLOCKS)                                     \
+  extern "C" int NAME(const WfParams* p, const float* in, const int* ap,   \
+                      const int* order, const int* starts,                 \
+                      const float* chords, float* out,                     \
+                      unsigned long long* c, void*) {                      \
+    return res_dispatch<PRIMAL, BLOCKS>(p, in, ap, order, starts, chords,  \
+                                        out, c);                           \
+  }
+RES_ENTRY(wf_res_fwd, true, true)
+RES_ENTRY(wf_res_bwd, false, true)
+RES_ENTRY(wf_res_fwd_lanes, true, false)
+RES_ENTRY(wf_res_bwd_lanes, false, false)
 // the active indices the last call traced, in its order
 extern "C" int wf_traced(int* out) {
   for (size_t i = 0; i < traced.size(); ++i) out[i] = traced[i];
@@ -188,7 +226,9 @@ def template_lib(tmp_path_factory):
                             "-o", str(lib)], capture_output=True, text=True)
     assert build.returncode == 0, build.stderr
     lib = ctypes.CDLL(str(lib))
-    for name in wf.KERNELS + ("wf_fwd_lanes", "wf_bwd_lanes"):
+    for name in wf.KERNELS + wf.RES_KERNELS + (
+            "wf_fwd_lanes", "wf_bwd_lanes", "wf_res_fwd_lanes",
+            "wf_res_bwd_lanes"):
         wf._setup(lib, name)
     lib.wf_traced.argtypes = [ctypes.c_void_p]
     lib.wf_traced.restype = ctypes.c_int
@@ -208,6 +248,8 @@ def _scene(path, estimator, albedo, projector, vial, tonly, diffuse=False,
                              "medium": med},
              "square": {"type": "square", "w_int": 12.0, "w_ext": 14.0,
                         "ior": 1.24, "medium": med},
+             "index_matched": {"type": "index_matched", "r": 7.665,
+                               "medium": med},
              "double_cylindrical": {
                  "type": "double_cylindrical", "r_ext_outer": 8.3,
                  "r_int_outer": 7.9, "r_ext_inner": 3.0, "r_int_inner": 2.6,
@@ -380,3 +422,75 @@ def test_block_order_changes_no_value(case, n_patterns, store,
         assert stats["tile_deposits"] > 0
     if case == CASES[0]:  # horizontal rays only: most stay in the slice
         assert stats["tile_deposits"] > stats["global_deposits"]
+
+
+# the residual pair: (estimator, residual mode, vial, projector). The
+# scenes' rr_depth 3 makes Russian roulette fire in the fast loop
+RES_CASES = [("dda", "first_scatter", "cylindrical", "collimated"),
+             ("ratio", "first_scatter", "square", "collimated"),
+             ("delta", "fast_residual", "cylindrical", "collimated"),
+             ("delta", "fast_residual", "square", "collimated"),
+             ("delta", "first_scatter", "index_matched", "collimated"),
+             ("dda", "scattered_only", "cylindrical", "collimated"),
+             ("delta", "scattered_only", "index_matched", "collimated")]
+
+
+def _residual(path, estimator, mode, vial, projector):
+    """The hybrid engine's residual static and tensors on a small
+    scattering scene: its chord bank, its mode."""
+    static, arr = _scene(path, estimator, 0.5, projector, vial, True)
+    eng = ScatteringEngine(static, arr, "cpu",
+                           first_scatter=mode != "scattered_only")
+    st = dataclasses.replace(eng.static_s,
+                             fast_residual=mode == "fast_residual")
+    assert wf.make_params(st, eng.arr, 0, 1).residual == \
+        ("scattered_only", "first_scatter", "fast_residual").index(mode) + 1
+    return st, eng.arr
+
+
+def _run_res(lib, name, static, at, x, n_out, seed, spp):
+    P, order, starts, bank = wf._family_params(name.replace("_lanes", ""),
+                                               static, at, seed, spp)
+    out = torch.zeros(n_out)
+    counters = (ctypes.c_ulonglong * len(wf.COUNTERS))()
+    assert getattr(lib, name)(ctypes.byref(P), x.data_ptr(),
+                              at["active_pixels"].data_ptr(),
+                              wf._ptr(order), wf._ptr(starts), wf._ptr(bank),
+                              out.data_ptr(), ctypes.addressof(counters),
+                              None) == 0
+    return out, dict(zip(wf.COUNTERS, counters))
+
+
+@pytest.mark.parametrize("case", RES_CASES)
+def test_residual_template_traces_the_plain_residual(case, template_lib):
+    """The residual pair's template in its launch order against the
+    plain residual: the same bounce iterations and deposits, values to
+    1e-4 of the max (a delta deposit is a point), every deposit to
+    global memory; the adjoint bitwise equal to lane order."""
+    lib, path = template_lib
+    static, at = _residual(path, *case)
+    rng = np.random.default_rng(8)
+    n, n_cells = static.projector.n_active, static.sensor.n_cells
+    data = torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32))
+    dL = torch.from_numpy(rng.uniform(0.0, 1.0, n_cells).astype(np.float32))
+    seed, spp = 5, 3
+    ref_stats, ref_g_stats = {}, {}
+    dose_ref = wf._forward(static, at, data, seed, spp, wf.DEFAULT_CHUNK,
+                           ref_stats)
+    grad_ref = wf._adjoint(static, at, seed, spp, wf.DEFAULT_CHUNK, dL,
+                           ref_g_stats)
+    dose, stats = _run_res(lib, "wf_res_fwd", static, at, data, n_cells,
+                           seed, spp)
+    grad, g_stats = _run_res(lib, "wf_res_bwd", static, at, dL, n, seed,
+                             spp)
+    grad_l, _ = _run_res(lib, "wf_res_bwd_lanes", static, at, dL, n, seed,
+                         spp)
+    for ours, ref in ((stats, ref_stats), (g_stats, ref_g_stats)):
+        assert ref["steps"] > 0
+        assert {k: ours[k] for k in ref} == ref
+        assert ours["tile_deposits"] == 0
+        _deposits_add_up(ours, static.sensor.estimator)
+    point = static.sensor.estimator in ("ratio", "delta")
+    _close(dose, dose_ref, point)
+    _close(grad, grad_ref, point)
+    assert torch.equal(grad, grad_l)

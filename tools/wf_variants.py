@@ -61,20 +61,20 @@ FORWARD_OLD = """    if (em == 0.0f) return aidx;
     // the one lane, as a loop that runs once: nvcc's code for this form
     // ran 6 % faster on an H100 than a plain call (PERF.md section 6)
     for (int k = t % P.spp; k < P.spp; k += P.spp) {
-      trace_lane<EST, SCAT, TONLY>(
+      trace_lane<EST, SCAT, TONLY, RES>(
           P, G, (uint32_t)aidx * (uint32_t)P.spp + (uint32_t)k, aidx,
-          active_pixels, em, S);
+          active_pixels, em, S, chords);
     }"""
 FORWARD_NEW = {
     "pixel_lanes": """    if (em == 0.0f) return aidx;
     for (int k = 0; k < P.spp; ++k)
-      trace_lane<EST, SCAT, TONLY>(
+      trace_lane<EST, SCAT, TONLY, RES>(
           P, G, (uint32_t)aidx * (uint32_t)P.spp + (uint32_t)k, aidx,
-          active_pixels, em, S);""",
+          active_pixels, em, S, chords);""",
     "straight_call": """    if (em == 0.0f) return aidx;
-    trace_lane<EST, SCAT, TONLY>(
+    trace_lane<EST, SCAT, TONLY, RES>(
         P, G, (uint32_t)aidx * (uint32_t)P.spp + (uint32_t)(t % P.spp),
-        aidx, active_pixels, em, S);"""}
+        aidx, active_pixels, em, S, chords);"""}
 # pixel_lanes also takes one task per 32 pixels, and 32 pixels a task
 TASK_OLD = ("return (PRIMAL ? P.spp : 1) * ((hi - lo + 31) / 32);",
             "const int j = lo + 32 * (t / P.spp) + l;")
@@ -186,7 +186,7 @@ def bench_ptxas(log):
     """Registers and spill bytes of the bench instantiation (DDA, !SCAT,
     TONLY, not counting)."""
     for part in log.split("Compiling entry function '")[1:]:
-        if re.match(r"\S*wf_kernelILi0ELb0ELb1ELb[01]ELb0E", part):
+        if re.match(r"\S*wf_kernelILi0ELb0ELb1ELi0ELb[01]ELb0E", part):
             regs = re.search(r"Used (\d+) registers", part)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                               r"loads", part)
