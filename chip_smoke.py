@@ -6,11 +6,15 @@
 Phases (each failure exits non-zero before the result line):
   1. device: a CUDA device must exist; prints nvidia-smi's name and
      power limit.
-  2. build: nvcc builds the twelve kernels from csrc/ (the four
+  2. build: nvcc builds the twelve kernel sources from csrc/ (the four
      backprojection kernels, their four bf16 operand forms, the
-     wavefront pair and the hybrid engine's residual pair), one process
-     per source, all started together; registers and spills per
-     library, the spilling instantiations named.
+     wavefront pair and the hybrid engine's residual pair, whose forward
+     also holds the dda walk pass and the chord table), one process per
+     source, all started together with four builds of the residual pair
+     that stop each lane early (phase 8b's per-lane times) and
+     tools/atomic_rate.cu; registers and spills per library, the
+     spilling instantiations named, every residual instantiation
+     listed.
   3. kernels: each backprojection kernel, float32 and bf16, against its
      plain PyTorch version on the card at the bench shapes (A = 400,
      Zf = 256, U = 400, 256x256 film, random fields with the banded
@@ -61,10 +65,11 @@ Phases (each failure exits non-zero before the result line):
      small scattering scenes (cylindrical, square and index-matched
      vials; dda, ratio and delta; the first scatter on the chord bank,
      the fast event loop, the analog scattered-only mode; spp 4): dose
-     and gradient to the stated tolerance, step counts equal, the
-     adjoint bitwise on two launches, autograd through RenderRaw equal
-     to the explicit adjoint; then ScatteringEngine on the card against
-     the same engine on the CPU.
+     and gradient to the stated tolerance, step counts equal (the dda
+     forward in its path and walk passes), the adjoint bitwise equal to
+     the plain version and on two launches, autograd through RenderRaw
+     equal to the explicit adjoint; then ScatteringEngine on the card
+     against the same engine on the CPU.
   8. wavefront at full width: one render each way on the bench scene
      (400 angles, 400x400 DMD, 256^3 film, spp 1, 64 M lanes): times,
      rays/s, the bound (compulsory bytes at the HBM rate, or 20 float32
@@ -76,22 +81,33 @@ Phases (each failure exits non-zero before the result line):
      kernel vs plain on the scene cut to 16 angles; the
      regular-sampling dose against the ballistic engine's.
   8b. residual at full width on the bench scattering scene (albedo
-     0.5): the delta residual through the fast loop at spp 1 (64 M
-     lanes) each way, and the dda first-scatter residual at spp 16 as
-     the final render launches it (max_depth 16, rr_depth 8): times,
-     rays/s, deposits, the bound (compulsory bytes at the HBM rate, or
-     the float32 work per lane, per event and per voxel step at the
-     float32 peak) and the plain version's time; kernel vs plain on the
-     scene cut to 16 angles.
+     0.5), after the card's float atomic rate (tools/atomic_rate.py, a
+     256^3 and a 128^3 grid): the delta residual through the fast loop
+     at spp 1 (64 M lanes) each way, with the per-lane times of the
+     builds that stop after the ray's set-up and after the first
+     scatter and the SIMT efficiency (events over lane slots); the
+     chord table against its plain version; the dda first-scatter
+     residual at spp 16 as the final render launches it (max_depth 16,
+     rr_depth 8): its path and walk passes' times, records and batches,
+     the walk's SIMT efficiency, the atomic floor (deposits over the
+     atomic rate) beside the bound, the launch shapes; the walk pass
+     against its plain version on 4 M records of a full-width batch;
+     times, rays/s, deposits, the bound (compulsory bytes at the HBM
+     rate, or the float32 work per lane, per event and per voxel step at
+     the float32 peak) and the plain version's time; the final render's
+     configuration cut to 4 angles against the plain version (steps
+     equal, values to WF_TOL); kernel vs plain on the scene cut to 16
+     angles (the adjoint bitwise, and on two launches).
   9. wavefront main path: optimize() on the bench scene with engine
      'wavefront' (dda, spp 1, 40 steps); both wf kernels must launch and
      the best IoU must reach 0.98. Then the CLI on a small telecentric
      config, which 'auto' routes to the wavefront.
   10. hybrid main path: optimize() on the bench scattering scene (albedo
      0.5, hybrid_estimator delta, spp 1, max_depth 6, rr_depth 6, 40
-     steps, engine auto): bp_fwd, bp_bwd, wf_res_fwd and wf_res_bwd must
-     launch, wf_fwd and wf_bwd must not; the best IoU of the final
-     render (dda, spp_ref 16) must reach 0.98. Where it differs from
+     steps, engine auto): bp_fwd, bp_bwd, wf_res_fwd and wf_res_bwd, the
+     walk pass and the chord table must launch, wf_fwd and wf_bwd must
+     not; the best IoU of the final render (dda, spp_ref 16) must reach
+     0.98. Where it differs from
      bench.py's scattering cell is printed with it.
 
 Each earlier line is a JSON record; the line before the last lists the
@@ -145,6 +161,10 @@ REPLACES = {
                   "modes :966-1002, :328-420, :433-549, :1064-1066; XLA)",
     "wf_res_bwd": "drtvam_tpu/ops/march.py:913 (trace_wavefront residual "
                   "modes :966-1002, :328-420, :433-549, :1064-1066; XLA)",
+    "wf_res_walk": "drtvam_tpu/ops/march.py:586 (dda_segment, the residual "
+                   "forward's walks; XLA)",
+    "wf_res_chords": "drtvam_tpu/ops/march.py:373 (_sample_first_scatter's "
+                     "chord masses; XLA)",
 }
 # wf kernel vs plain wavefront on the card: the same per-lane float32
 # arithmetic rounded op by op (--fmad=false); the forward's atomics sum
@@ -1224,8 +1244,9 @@ def phase_res_kernels(torch, wf, dev, tmp):
         rec["bwd"]["bitwise_plain"] = bool(torch.equal(bwd, bwd_p))
         rec["autograd_equals_adjoint"] = bool(torch.equal(
             auto_g, wf.wf_res_bwd(st, at, dL * 2.0, seed, spp)))
-        if not rec["bwd"]["bitwise_repeat"]:
-            raise AssertionError(f"wf_res_bwd {case}: two launches differ")
+        if not (rec["bwd"]["bitwise_repeat"] and rec["bwd"]["bitwise_plain"]):
+            raise AssertionError(f"wf_res_bwd {case}: two launches differ, "
+                                 f"or differ from the plain version")
         if not rec["autograd_equals_adjoint"]:
             raise AssertionError(f"{case}: autograd through RenderRaw "
                                  "differs from the explicit adjoint")
@@ -1262,7 +1283,8 @@ def phase_res_kernels(torch, wf, dev, tmp):
         wf.reset_launches()
         vol = gpu.render_vol(p.to(dev), inv_vol, 5)
         g = gpu.pattern_grad(v.to(dev), inv_vol, 5)
-        if not (wf.launches["wf_res_fwd"] == 1 and
+        # the dda forward: a path pass (and a walk pass) a batch of CTAs
+        if not (wf.launches["wf_res_fwd"] >= 1 and
                 wf.launches["wf_res_bwd"] == 1):
             raise AssertionError(f"engine on the card: {wf.launches}")
         point = est != "dda"
@@ -1304,11 +1326,68 @@ def res_bound(n_bytes, lanes, iterations, steps):
             "operations" if op_ms >= byte_ms else "bytes")
 
 
-def phase_res_full(torch, wf, dev, tmp):
+# builds of the residual pair that stop each lane early, for the per-lane
+# times of phase 8b (csrc/wf_trace.cuh WF_RES_STOP): after the ray's
+# set-up, after the first scatter
+RES_STOPS = {"setup": 1, "first_scatter": 2}
+
+
+def start_res_variants(wf):
+    """nvcc for the WF_RES_STOP builds of the residual pair, all started
+    at once (beside the main build); {(stop, name): (library, process)}."""
+    from drtvam_tpu_torch.native import BUILD_DIR, CUDA_SRC_DIR, nvcc_path
+    vdir = os.path.join(BUILD_DIR, "res_variants")
+    os.makedirs(vdir, exist_ok=True)
+    jobs = {}
+    for stop, k in RES_STOPS.items():
+        for n in wf.RES_KERNELS:
+            lib = os.path.join(vdir, f"lib{n}_{stop}.so")
+            cmd = [nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
+                   "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                   "--fmad=false", f"-DWF_RES_STOP={k}", "-I", CUDA_SRC_DIR,
+                   os.path.join(CUDA_SRC_DIR, n + ".cu"), "-o", lib]
+            jobs[(stop, n)] = (lib, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+    return jobs
+
+
+def finish_res_variants(wf, jobs):
+    """{stop: {name: ctypes lib}} of start_res_variants' builds."""
+    import ctypes
+    libs = {}
+    for (stop, n), (lib, proc) in jobs.items():
+        log, _ = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{n} (WF_RES_STOP {stop}): nvcc failed\n"
+                               f"{log}")
+        lib = ctypes.CDLL(lib)
+        wf._setup(lib, n)
+        libs.setdefault(stop, {})[n] = lib
+    return libs
+
+
+def atomic_tool():
+    """tools/atomic_rate.py, loaded from the checkout."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "atomic_rate", os.path.join(REPO, "tools", "atomic_rate.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_res_full(torch, wf, dev, tmp, variants, atomic):
     """The residual pair at full width on the bench scattering scene:
     the delta fast loop at spp 1 each way (64 M lanes) with the plain
-    version on the same inputs; the dda first-scatter forward at spp 16
-    as the final render launches it; kernel vs plain at 16 angles."""
+    version on the same inputs and the per-lane times of the stopping
+    builds; the dda first-scatter forward at spp 16 as the final render
+    launches it (its path and walk passes, records, batches, the walk's
+    SIMT efficiency, the atomic floor); the walk pass and the chord table
+    against their plain versions; the final render's configuration at 4
+    angles against the plain version; kernel vs plain at 16 angles.
+    variants: the stopping builds' libraries; atomic: the card's float
+    atomic adds a second (tools/atomic_rate.py)."""
     from drtvam_tpu_torch.models.scene import Scene
     from drtvam_tpu_torch.ops.hybrid import ScatteringEngine
     cfg = bench_scattering_config(tmp)
@@ -1343,6 +1422,15 @@ def phase_res_full(torch, wf, dev, tmp):
             plain = lambda: wf._adjoint(st, at, 0, 1, chunk, dL)  # noqa
         ms = cuda_ms(kern, 5, torch)
         plain_ms, ref = event_ms(plain, torch)
+        # the per-lane work timed apart: builds that stop every lane after
+        # its ray's set-up, after its first scatter
+        per_lane = {}
+        for stop, libs in variants.items():
+            x = data if fwd else dL
+            call = wf.res_forward if fwd else wf.res_adjoint
+            per_lane[stop] = cuda_ms(
+                lambda: call(libs, st, at, x, 0, 1), 5, torch)
+        per_lane["full"] = ms
         rec = {"phase": "res_full_width", "name": name,
                "mode": "delta, fast_residual", "lanes": n, "spp": 1,
                "shapes": {"A": st.projector.n_patterns,
@@ -1350,9 +1438,10 @@ def phase_res_full(torch, wf, dev, tmp):
                           "film": list(st.sensor.res)},
                "engine_s": engine_s, "events": stats["iterations"],
                "deposits": stats["global_deposits"],
-               "ms": ms, "plain_ms": plain_ms,
+               "ms": ms, "plain_ms": plain_ms, "per_lane_ms": per_lane,
                "rays_per_s": n / (ms * 1e-3),
                "lane_slots": stats["lane_slots"],
+               "simt_efficiency": stats["iterations"] / stats["lane_slots"],
                "launch": wf.kernel_info(name, st, at)}
         rec.update(wf_compare(name + " full width", res, ref, True))
         deposit_check(name, "delta", stats)
@@ -1365,6 +1454,30 @@ def phase_res_full(torch, wf, dev, tmp):
         del res, ref
         torch.cuda.empty_cache()
 
+    # the chord table against its plain version, on the bench's bank
+    bank = at["chord_pack"]
+    libs = wf.build_kernels()
+    P = wf.make_params(st, at, 0, 1)
+    tab = torch.empty((bank.shape[0], 16), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    table = lambda: libs["wf_res_fwd"].wf_res_chords(  # noqa: E731
+        bank.data_ptr(), bank.shape[0], P.sigma_t, tab.data_ptr(), stream)
+    c_ms = cuda_ms(table, 20, torch)
+    cp_ms, ref = event_ms(lambda: wf._chord_table(bank, P.sigma_t), torch)
+    rec = {"phase": "res_chord_table", "name": "wf_res_chords",
+           "chords": int(bank.shape[0]), "ms": c_ms, "plain_ms": cp_ms,
+           "max_abs_err": float((tab - ref).abs().max()),
+           "max_abs_plain": float(ref.abs().max())}
+    # bytes: the bank (48) read and the table (64) written a chord; ~12
+    # float32 operations a chord (two expf counted as one each)
+    rec["bound_ms"], rec["bound_by"] = max(
+        (112 * bank.shape[0] / HBM_BYTES_PER_S * 1e3, "bytes"),
+        (12 * bank.shape[0] / F32_FLOPS * 1e3, "operations"))
+    if not rec["max_abs_err"] <= REL_TOL * rec["max_abs_plain"]:
+        raise AssertionError(f"wf_res_chords off its plain version: {rec}")
+    emit(rec)
+    out["wf_res_chords"] = rec
+
     # the final render's residual: the scene's dda, spp_ref 16,
     # max_depth_ref 16, rr_depth_ref 8 (1.02 G lanes)
     static_f, arr_f = sc.build(mode="volume", include_target=False,
@@ -1375,21 +1488,92 @@ def phase_res_full(torch, wf, dev, tmp):
     stats = {}
     wf.wf_res_fwd(st_f, at_f, data, 0, 16, stats)
     # one timed launch after one warm-up: a launch takes seconds
-    ms = cuda_ms(lambda: wf.wf_res_fwd(st_f, at_f, data, 0, 16), 1, torch)
+    times = {}
+    ms = cuda_ms(lambda: wf.wf_res_fwd(st_f, at_f, data, 0, 16,
+                                       times=times), 1, torch)
+    for k in ("path_ms", "walk_ms"):  # the timed launch's, not the warm-up's
+        times[k] /= 2
+    deposits = stats["global_deposits"]
     rec = {"phase": "res_full_width_final_render", "name": "wf_res_fwd",
-           "mode": "dda, first_scatter", "lanes": 16 * n, "spp": 16,
-           "ms": ms, "rays_per_s": 16 * n / (ms * 1e-3),
+           "mode": "dda, first_scatter (path pass + walk pass)",
+           "lanes": 16 * n, "spp": 16, "ms": ms, **times,
+           "rays_per_s": 16 * n / (ms * 1e-3),
            "iterations": stats["iterations"], "steps": stats["steps"],
-           "deposits": stats["global_deposits"],
-           "simt_efficiency": stats["steps"] / stats["lane_slots"]}
+           "deposits": deposits, "records": stats["records"],
+           "batches": stats["batches"],
+           "records_per_lane": stats["records"] / (16 * n),
+           "buffer_bytes": 32 * at_f["_wf_res_split"][0],
+           "simt_efficiency": stats["steps"] / stats["lane_slots"],
+           "walking_share": stats["walk_steps"] / stats["lane_slots"],
+           "slabs": wf.WALK_SLABS,
+           "atomic_adds_per_s": atomic,
+           "launch_path": wf.kernel_info("wf_res_fwd", st_f, at_f),
+           "launch_walk": wf.kernel_info("wf_res_walk", st_f, at_f)}
     deposit_check("wf_res_fwd spp 16", "dda", stats)
     rec["bound_ms"], rec["bound_by"] = res_bound(
         4 * (n + n_cells) + n_chord, 16 * n, stats["iterations"],
         stats["steps"])
     rec["roofline_share"] = rec["bound_ms"] / ms
+    # the card's float atomic rate as a floor of the walk (not a bound:
+    # a design without atomics is not ruled out)
+    rec["atomic_floor_ms"] = {k: deposits / r * 1e3
+                              for k, r in atomic.items()}
     emit(rec)
     out["final_render"] = rec
-    del eng_f, at_f
+
+    # the walk pass against its plain version, on the first 4 M records
+    # of a full-width batch
+    libs = wf.build_kernels()
+    recs = wf.res_path(libs, st_f, at_f, data, 0, 16, 0, 40)
+    recs = recs[:1 << 22].clone()
+    walk_stats = {}
+    acc = torch.zeros((n_cells,), dtype=torch.float32, device=dev)
+    wf.res_walk(libs, st_f, at_f, recs, acc, 0, 16, walk_stats)
+
+    def walk():
+        a = torch.zeros((n_cells,), dtype=torch.float32, device=dev)
+        wf.res_walk(libs, st_f, at_f, recs, a, 0, 16)
+        return a
+    w_ms = cuda_ms(walk, 3, torch)
+    wp_ms, ref = event_ms(lambda: wf._walk(st_f, at_f, recs), torch)
+    rec = {"phase": "res_walk", "name": "wf_res_walk",
+           "records": int(recs.shape[0]), "ms": w_ms, "plain_ms": wp_ms,
+           "steps": walk_stats["steps"],
+           "simt_efficiency": walk_stats["steps"] / walk_stats["lane_slots"],
+           "launch": wf.kernel_info("wf_res_walk", st_f, at_f)}
+    rec.update(wf_compare("wf_res_walk", acc, ref, False))
+    rec["bound_ms"], rec["bound_by"] = res_bound(
+        32 * recs.shape[0] + 4 * n_cells, 0, 0, walk_stats["steps"])
+    rec["atomic_floor_ms"] = {k: walk_stats["steps"] / r * 1e3
+                              for k, r in atomic.items()}
+    emit(rec)
+    out["wf_res_walk"] = rec
+    del eng_f, at_f, recs, acc, ref
+    torch.cuda.empty_cache()
+
+    # the final render's configuration cut to 4 angles against the plain
+    # version: the same steps, values to WF_TOL of the max
+    cfg4 = dict(cfg, projector=dict(cfg["projector"], n_patterns=4))
+    static4, arr4 = Scene(cfg4).build(mode="volume", include_target=False,
+                                      max_depth=16, rr_depth=8)
+    e4 = ScatteringEngine(static4, arr4, dev, spp=16)
+    s4, a4 = e4.static_s, e4.arr
+    d4 = data[:s4.projector.n_active].contiguous()
+    sk, sp = {}, {}
+    k_ms, got = event_ms(lambda: wf.wf_res_fwd(s4, a4, d4, 5, 16, sk), torch)
+    p_ms, ref = event_ms(lambda: wf._forward(s4, a4, d4, 5, 16, chunk, sp),
+                         torch)
+    rec = {"phase": "res_final_render_4_angles", "estimator": "dda",
+           "spp": 16, "max_depth": 16, "rr_depth": 8,
+           "lanes": 16 * s4.projector.n_active, "ms": k_ms, "plain_ms": p_ms,
+           "steps": sk, "steps_plain": sp}
+    rec["fwd"] = wf_compare("wf_res_fwd final render 4 angles", got, ref,
+                            False)
+    if {k: sk[k] for k in sp} != sp:
+        raise AssertionError(f"final render 4 angles: the kernels took "
+                             f"{sk}, the plain version {sp}")
+    emit(rec)
+    del e4, a4, got, ref
     torch.cuda.empty_cache()
 
     # the scene cut to 16 angles: kernel vs plain, both modes
@@ -1420,6 +1604,11 @@ def phase_res_full(torch, wf, dev, tmp):
         rec["bwd"] = wf_compare(f"wf_res_bwd 16 angles {est}", g, g_p,
                                 est == "delta")
         rec["bwd"]["bitwise_plain"] = bool(torch.equal(g, g_p))
+        rec["bwd"]["bitwise_repeat"] = bool(torch.equal(
+            g, wf.wf_res_bwd(s16, a16, dL, 5, 1)))
+        if not (rec["bwd"]["bitwise_plain"] and rec["bwd"]["bitwise_repeat"]):
+            raise AssertionError(f"16 angles {est}: wf_res_bwd not bitwise "
+                                 f"{rec['bwd']}")
         emit(rec)
     return out
 
@@ -1441,7 +1630,7 @@ def phase_hybrid_bench(torch, wf, bp, dev, tmp):
     wall = time.perf_counter() - t0
     counts = {**{k: v for k, v in bp.launches.items() if v},
               **dict(wf.launches)}
-    for name in ("bp_fwd", "bp_bwd") + wf.RES_KERNELS:
+    for name in ("bp_fwd", "bp_bwd") + wf.RES_KERNELS + wf.RES_PARTS:
         if not counts.get(name):
             raise AssertionError(f"the hybrid bench run never launched "
                                  f"{name}")
@@ -1484,7 +1673,18 @@ WF_RES = ("ANALOG", "SCAT_ONLY", "FIRST_SCATTER", "FAST_RESIDUAL")
 
 def instantiation(mangled):
     """A readable name for a kernel's mangled symbol: the wavefront
-    template's parameters spelled out, else the symbol itself."""
+    templates' parameters spelled out, else the symbol itself."""
+    m = re.search(r"res_kernelILi(\d)ELi(\d)ELb(\d)ELb(\d)ELb(\d)E",
+                  mangled)
+    if m is not None:
+        e, res, primal, count, path = (int(x) for x in m.groups())
+        return (f"residual {WF_EST[e]}, {WF_RES[res]}, "
+                + ("path pass" if path else
+                   "forward" if primal else "adjoint")
+                + (", counting" if count else ""))
+    m = re.search(r"walk_kernelILb(\d)E", mangled)
+    if m is not None:
+        return "walk pass" + (", counting" if m.group(1) == "1" else "")
     m = re.search(r"wf_kernelILi(\d)ELb(\d)ELb(\d)ELi(\d)ELb(\d)ELb(\d)E",
                   mangled)
     if m is None:
@@ -1495,6 +1695,10 @@ def instantiation(mangled):
             + (f"{WF_RES[res]}, " if res else "")
             + f"{'forward' if primal else 'adjoint'}"
             + (", counting" if count else ""))
+
+
+# the libraries whose build record lists every instantiation
+RES_EACH = ("wf_res_fwd", "wf_res_bwd")
 
 
 def ptxas_summary(name):
@@ -1514,6 +1718,10 @@ def ptxas_summary(name):
                         if spill else (0, 0)))
     regs = [r for _, r, _ in entries]
     return {"instantiations": len(entries),
+            "each": {instantiation(n): {"registers": r,
+                                        "spill_store_bytes": sp[0],
+                                        "spill_load_bytes": sp[1]}
+                     for n, r, sp in entries} if name in RES_EACH else None,
             "registers": [min(regs), max(regs)] if regs else None,
             "spill_store_bytes_max": max((s[0] for *_, s in entries),
                                          default=0),
@@ -1544,9 +1752,14 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    # all twelve sources at once: one nvcc each, started together
+    # all twelve sources at once, one nvcc each, started together with
+    # the residual pair's stopping builds (phase 8b's per-lane times)
     cuda = bp.KERNELS + wf.KERNELS + wf.RES_KERNELS
+    res_jobs = start_res_variants(wf)
     load_cuda(cuda, {**bp._SETUP, **wf._SETUP}, wf._FLAGS)
+    res_variants = finish_res_variants(wf, res_jobs)
+    atomic = atomic_tool()
+    atomic_lib = atomic.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": {n: ptxas_summary(n) for n in cuda}})
 
@@ -1578,7 +1791,12 @@ def main():
         torch.cuda.empty_cache()
         wfull = phase_wf_full(torch, wf, dev, tmp)
         torch.cuda.empty_cache()
-        rfull = phase_res_full(torch, wf, dev, tmp)
+        # the bench film's 256^3 grid (67 MB, past L2), and 128^3 (8 MB)
+        rates = atomic.rates(torch, atomic_lib)
+        emit({"phase": "atomic_rate", "atomic_adds_per_s": {
+            "256^3": rates, "128^3": atomic.rates(torch, atomic_lib, 128)}})
+        torch.cuda.empty_cache()
+        rfull = phase_res_full(torch, wf, dev, tmp, res_variants, rates)
         torch.cuda.empty_cache()
         wf_counts = phase_wf_bench(torch, wf, bp, dev, tmp)
         torch.cuda.empty_cache()
@@ -1628,13 +1846,30 @@ def main():
              "launch")},
          "library_ms": None,
          "bitwise_repeat": n == "wf_res_bwd",
-         "final_render_spp16_ms": (rfull["final_render"]["ms"]
-                                   if n == "wf_res_fwd" else None),
+         "per_lane_ms": rfull[n]["per_lane_ms"],
+         "simt_efficiency": rfull[n]["simt_efficiency"],
+         "final_render_spp16": ({k: rfull["final_render"][k] for k in (
+             "ms", "path_ms", "walk_ms", "records", "batches", "steps",
+             "simt_efficiency", "bound_ms", "atomic_floor_ms")}
+             if n == "wf_res_fwd" else None),
          "small_scenes": {c: {k: r["fwd" if n == "wf_res_fwd" else "bwd"][k]
                               for k in ("ms", "plain_ms", "max_abs_err",
                                         "n_off")}
                           for c, r in resk.items()}}
-        for n in wf.RES_KERNELS]})
+        for n in wf.RES_KERNELS] + [
+        {"name": n, "route": "cuda",
+         "source": "drtvam_tpu_torch/csrc/wf_res_fwd.cu + wf_residual.cuh",
+         "replaces": REPLACES[n], "launches": hy_counts[n],
+         "path": ("the hybrid engine's final render (dda, spp_ref 16): the "
+                  "walk pass of wf_res_fwd" if n == "wf_res_walk" else
+                  "the hybrid engine: the chord table, once per engine"),
+         **{k: rfull[n][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by")},
+         "library_ms": None,
+         **({k: rfull[n][k] for k in ("records", "simt_efficiency",
+                                      "atomic_floor_ms", "launch")}
+            if n == "wf_res_walk" else {"chords": rfull[n]["chords"]})}
+        for n in wf.RES_PARTS]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -22,11 +22,11 @@ extern "C" int wf_bwd(const WfParams* P, const float* dL,
                       const int* active_pixels, const int* order,
                       const int* starts, const int4* rows, float* grad,
                       unsigned long long* counters, void* stream) {
-  return wf::launch<false, false>(P, dL, active_pixels, order, starts,
-                                  rows, nullptr, grad, counters, stream);
+  return wf::launch<false>(P, dL, active_pixels, order, starts, rows, grad,
+                           counters, stream);
 }
 
 // The launch shape of P's instantiation (wf::info): 8 ints into info.
 extern "C" int wf_bwd_info(const WfParams* P, int count, int* info) {
-  return wf::info<false, false>(P, count, info);
+  return wf::info<false>(P, count, info);
 }

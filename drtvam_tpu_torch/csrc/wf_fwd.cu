@@ -27,11 +27,11 @@ extern "C" int wf_fwd(const WfParams* P, const float* data,
                       const int* active_pixels, const int* order,
                       const int* starts, const int4* rows, float* acc,
                       unsigned long long* counters, void* stream) {
-  return wf::launch<true, false>(P, data, active_pixels, order, starts,
-                                 rows, nullptr, acc, counters, stream);
+  return wf::launch<true>(P, data, active_pixels, order, starts, rows, acc,
+                          counters, stream);
 }
 
 // The launch shape of P's instantiation (wf::info): 8 ints into info.
 extern "C" int wf_fwd_info(const WfParams* P, int count, int* info) {
-  return wf::info<true, false>(P, count, info);
+  return wf::info<true>(P, count, info);
 }

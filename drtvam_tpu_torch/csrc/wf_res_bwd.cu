@@ -4,26 +4,28 @@
 // its residual modes (XLA): the forward's paths replayed from the same
 // counter-based random stream, each deposit gathering dL, a pixel's
 // lanes summed in lane order on one thread and written once (times the
-// ray weight), so the result is bitwise reproducible. The per-lane
-// template and the launch order are wf_trace.cuh's, as for wf_bwd.
+// ray weight), so the result is bitwise reproducible. The kernel and its
+// per-lane set-up are wf_residual.cuh's (one pass for every estimator).
 //
 // Bound on the H100: the per-lane work, as wf_res_fwd; the few gathers
 // read a dL volume that need not fit L2.
-#include "wf_trace.cuh"
+#include "wf_residual.cuh"
 
-// P, active_pixels, order, starts, chords as for wf_res_fwd; dL (n_cells,)
-// loss gradient of the flat accumulator; grad (n_active,) output;
-// counters (5,) or null. Returns cudaGetLastError().
+// P, active_pixels, order, starts, chords, chord_tab as for wf_res_fwd;
+// dL (n_cells,) loss gradient of the flat accumulator; grad (n_active,)
+// output; counters (5,) or null. Returns cudaGetLastError().
 extern "C" int wf_res_bwd(const WfParams* P, const float* dL,
                           const int* active_pixels, const int* order,
                           const int* starts, const float* chords,
-                          float* grad, unsigned long long* counters,
-                          void* stream) {
-  return wf::launch<false, true>(P, dL, active_pixels, order, starts,
-                                 nullptr, chords, grad, counters, stream);
+                          const float4* chord_tab, float* grad,
+                          unsigned long long* counters, void* stream) {
+  const wf::ResArgs a = {dL,     active_pixels, order,   starts,
+                         chords, chord_tab,     grad,    counters,
+                         nullptr, nullptr,      0,       0};
+  return wf::res_launch<false, false>(P, a, P->resy * P->n_groups, stream);
 }
 
 // The launch shape of P's instantiation (wf::info): 8 ints into info.
 extern "C" int wf_res_bwd_info(const WfParams* P, int count, int* info) {
-  return wf::info<false, true>(P, count, info);
+  return wf::res_info<false, false>(P, count, info);
 }

@@ -4,34 +4,93 @@
 // Replaces the primal of drtvam_tpu/ops/march.py:913 trace_wavefront in
 // its residual modes (XLA: scattered_only :1064-1066, the chord-bank
 // first scatter :328-420 with :966-1002, the fast convex event loop
-// :433-549). A thread traces one lane of the per-lane template of
-// wf_trace.cuh in the launch order of wf_fwd (one CTA per DMD row and
-// angle group), but with no home-slice tile: a deposit follows a scatter
-// into any direction, so it is one float atomicAdd into acc (n_cells,).
-// The sums are not bitwise reproducible from launch to launch.
+// :433-549). The kernels are wf_residual.cuh's: one lane a thread, one CTA
+// per DMD row and angle group, no home-slice tile (a deposit follows a
+// scatter into any direction, so it is one float atomicAdd into acc); the
+// dda modes in two passes, the lanes' paths (wf_res_path) and then the
+// walks of their segments (wf_res_walk). The sums are not bitwise
+// reproducible from launch to launch.
 //
-// Bound on the H100: at the bench scene's albedo 0.5 and optical depth
-// a lane makes about one deposit, so the kernel is bound by its per-lane
-// work (the ray set-up, 5-6 random draws, the 48-byte chord record, two
-// phase samples, a few expf / log1pf), not by the atomics.
-#include "wf_trace.cuh"
+// Bound on the H100: the delta fast loop by its per-lane work (the ray's
+// draws, the first scatter, one or two events, each a few transcendentals);
+// the dda walks by their voxel steps, each ~20 float32 operations and one
+// float atomic into a dose grid larger than L2.
+#include "wf_residual.cuh"
+
+namespace {
+wf::ResArgs args(const float* data, const int* active_pixels,
+                 const int* order, const int* starts, const float* chords,
+                 const float4* chord_tab, float* acc,
+                 unsigned long long* counters) {
+  return {data, active_pixels, order, starts, chords, chord_tab, acc,
+          counters, nullptr, nullptr, 0, 0};
+}
+}  // namespace
 
 // P: scene and sampling parameters, P->residual the mode (SCAT_ONLY,
-// FIRST_SCATTER or FAST_RESIDUAL; scattering and transmission only);
-// data (n_active,) pattern values; active_pixels, order, starts as for
-// wf_fwd; chords (A * resx, 12) the chord bank (FIRST_SCATTER and
-// FAST_RESIDUAL; unused, may be null, for SCAT_ONLY); acc (n_cells,)
-// zeroed; counters (5,) as for wf_fwd, or null. Returns
+// FIRST_SCATTER or FAST_RESIDUAL; scattering and transmission only), the
+// ratio and delta estimators (the dda's forward is wf_res_path then
+// wf_res_walk); data (n_active,) pattern values; active_pixels, order,
+// starts as for wf_fwd; chords (A * resx, 12) the chord bank and
+// chord_tab (A * resx, 4) its table (wf_res_chords; both unused, may be
+// null, for SCAT_ONLY; chord_tab null: each lane computes its entry); acc
+// (n_cells,) zeroed; counters (5,) as for wf_fwd, or null. Returns
 // cudaGetLastError().
 extern "C" int wf_res_fwd(const WfParams* P, const float* data,
                           const int* active_pixels, const int* order,
-                          const int* starts, const float* chords, float* acc,
+                          const int* starts, const float* chords,
+                          const float4* chord_tab, float* acc,
                           unsigned long long* counters, void* stream) {
-  return wf::launch<true, true>(P, data, active_pixels, order, starts,
-                                nullptr, chords, acc, counters, stream);
+  return wf::res_launch<true, false>(
+      P, args(data, active_pixels, order, starts, chords, chord_tab, acc,
+              counters),
+      P->resy * P->n_groups, stream);
 }
 
-// The launch shape of P's instantiation (wf::info): 8 ints into info.
+// The dda forward's path pass over CTAs [c0, c1) of the launch order:
+// each dda segment of the lanes becomes a record (8 floats) in recs at
+// the next slot of *n_recs (zeroed by the caller); slots from cap on are
+// counted, not written. counters (5,): the bounce iterations, or null.
+extern "C" int wf_res_path(const WfParams* P, int c0, int c1,
+                           const float* data, const int* active_pixels,
+                           const int* order, const int* starts,
+                           const float* chords, const float4* chord_tab,
+                           float4* recs, unsigned* n_recs, unsigned cap,
+                           unsigned long long* counters, void* stream) {
+  wf::ResArgs a = args(data, active_pixels, order, starts, chords, chord_tab,
+                       nullptr, counters);
+  a.recs = recs;
+  a.n_recs = n_recs;
+  a.cap = cap;
+  a.c0 = c0;
+  return wf::res_launch<true, true>(P, a, c1, stream);
+}
+
+// The walk pass: the n records of recs walked into acc (n_cells,), the
+// deposits in z-slices [zlo, zhi); next a zeroed counter. counters (5,):
+// the walking threads' steps, the steps and deposits (global) in the
+// slab and the lane slots, or null.
+extern "C" int wf_res_walk(const WfParams* P, const float4* recs, unsigned n,
+                           unsigned* next, int zlo, int zhi, float* acc,
+                           unsigned long long* counters, void* stream) {
+  return wf::walk_launch(P, recs, n, next, zlo, zhi, acc, counters, stream);
+}
+
+// The chord table tab (n, 4) float4 of the chord bank (n, 12) at sigma_t st
+extern "C" int wf_res_chords(const float* bank, int n, float st,
+                             float4* tab, void* stream) {
+  if (n <= 0) return 0;
+  wf::chord_table_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      bank, n, st, tab);
+  return (int)cudaGetLastError();
+}
+
+// The launch shape of P's per-lane instantiation (the dda: its path
+// pass), and of the walk pass: 8 ints into info (wf::info's).
 extern "C" int wf_res_fwd_info(const WfParams* P, int count, int* info) {
-  return wf::info<true, true>(P, count, info);
+  return P->estimator == wf::DDA ? wf::res_info<true, true>(P, count, info)
+                                 : wf::res_info<true, false>(P, count, info);
+}
+extern "C" int wf_res_walk_info(int count, int* info) {
+  return wf::walk_info(count, info);
 }

@@ -18,7 +18,8 @@
 //                          over its lanes in lane order: bitwise
 //                          reproducible.
 // Two more, wf_res_fwd.cu and wf_res_bwd.cu, instantiate it in the hybrid
-// engine's residual modes (template parameter RES, see below).
+// engine's residual modes (template parameter RES, see below) through the
+// residual family's own kernels (wf_residual.cuh).
 //
 // Bound on the H100: a DDA voxel step is ~20 float32 operations and two
 // expf; at the bench scene's ~10^10 steps per render that is a few ms at
@@ -72,17 +73,24 @@
 // drtvam_tpu/ops/march.py:107-144, XLA there): ANALOG is the full dose;
 // SCAT_ONLY the analog paths with every deposit before the first scatter
 // dropped; FIRST_SCATTER starts the lane at its forced first scatter
-// event, sampled on its pixel's in-medium chord (one 48-byte record of
-// the chord bank, read at the pixel's centre column), then runs the
+// event, sampled on its pixel's in-medium chord (its entry in the chord
+// table, read at the pixel's centre column: chord_entry), then runs the
 // general loop from depth 1; FAST_RESIDUAL (delta, one convex medium
 // region) starts the same way and then runs max_depth - 1 scatter events
 // against one convex exit distance each (fast_residual). Every mode draws
 // in the plain version's order, so the adjoint replays the forward's
 // paths. A residual deposit follows a scatter into any 3D direction, so
-// it leaves the DMD row's z-slice: the residual entry points take no
-// home-slice tile (P.tile_n 0), and at the bench scene's albedo and
-// optical depth they make few deposits; they are bound by the per-lane
-// ray set-up, random draws and the chord gather.
+// it leaves the DMD row's z-slice: the residual kernels take no
+// home-slice tile. What bounds them on the H100 (PERF.md section 6,
+// measured): the delta fast loop (0.22 deposits a lane at the bench
+// scene's albedo and optical depth) by its per-lane work, of which the
+// ray's set-up is a quarter, the first scatter a fifth and the one or
+// two events the rest once the set-up takes its angle's frame and its
+// chord's masses from tables (LaneSetup); the dda walks (~194 voxel
+// steps a lane in the final render) by their float atomics into a dose
+// grid larger than L2, not by their operations, once the walks are
+// split from the paths (wf_residual.cuh) and no warp waits on its
+// longest lane.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -429,6 +437,9 @@ __device__ __forceinline__ int home_slice(const WfParams& P, const Grid& G,
 template <bool PRIMAL_, bool COUNT_>
 struct Sink {
   static constexpr bool PRIMAL = PRIMAL_, COUNT = COUNT_;
+  // RECORDS: a dda segment is recorded for a later walk (PathSink), not
+  // walked
+  static constexpr bool RECORDS = false;
   float* acc;        // primal: the flat dose accumulator
   const float* dL;   // adjoint: the flat loss gradient
   float* tile;       // primal: the home slice's tile (shared memory)
@@ -464,57 +475,94 @@ struct Sink {
       g = g + val * __ldg(dL + flat);
     }
   }
+  // keeps v computed in a build that stops a lane early (WF_RES_STOP,
+  // the per-lane timings of tools/wf_variants.py): a deposit that never
+  // happens for a finite position or direction
+  __device__ __forceinline__ void keep(float v) {
+    if (v == 1.0e-30f) deposit(-1, 0, v);
+  }
 };
 
 // ---- dose estimators: one straight segment [o, o + maxt d] ---------------
 
-template <class SinkT>
-__device__ void dda_segment(const WfParams& P, const Grid& G, SinkT& S,
-                            const V3& o, const V3& d, float maxt, float base,
-                            float st) {
-  float od[3] = {o.x, o.y, o.z}, dd[3] = {d.x, d.y, d.z};
-  float safe_d[3], dtmax[3], tstep[3];
-  int step_dir[3], voxel[3], end_voxel[3];
-  float mint_box = -inf(), maxt_box = inf();
+// The Amanatides-Woo walk of one segment, as a state that steps: init is
+// the segment's set-up, step one voxel (its deposit and the move to the
+// next voxel). dda_segment runs them back to back; the residual's walk
+// pass (wf_residual.cuh) runs a recorded segment's walk on another thread
+// with the same arithmetic, so its deposits and steps are the same
+struct DdaWalk {
+  float dtmax[3], tstep[3], t, remaining;
+  int voxel[3], end_voxel[3], step_dir[3], i;
+
+  // false: the segment makes no voxel step
+  __device__ __forceinline__ bool init(const WfParams& P, const Grid& G,
+                                       const V3& o, const V3& d,
+                                       float maxt) {
+    float od[3] = {o.x, o.y, o.z}, dd[3] = {d.x, d.y, d.z};
+    float safe_d[3];
+    float mint_box = -inf(), maxt_box = inf();
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    safe_d[k] = fabsf(dd[k]) > 1e-20f ? dd[k] : 1e-20f;
-    float b0 = (G.bmin[k] - od[k]) / safe_d[k];
-    float b1 = (G.bmax[k] - od[k]) / safe_d[k];
-    mint_box = mx(mint_box, mn(b0, b1));
-    maxt_box = mn(maxt_box, mx(b0, b1));
-  }
-  mint_box = mx(mint_box, 0.0f);
-  float t_start = mx(mint_box, 0.0f);
-  float t_end = mn(maxt_box, maxt);
-  if (!(isfinite(t_start) && isfinite(t_end) && t_start < t_end)) return;
+    for (int k = 0; k < 3; ++k) {
+      safe_d[k] = fabsf(dd[k]) > 1e-20f ? dd[k] : 1e-20f;
+      float b0 = (G.bmin[k] - od[k]) / safe_d[k];
+      float b1 = (G.bmax[k] - od[k]) / safe_d[k];
+      mint_box = mx(mint_box, mn(b0, b1));
+      maxt_box = mn(maxt_box, mx(b0, b1));
+    }
+    mint_box = mx(mint_box, 0.0f);
+    float t_start = mx(mint_box, 0.0f);
+    float t_end = mn(maxt_box, maxt);
+    if (!(isfinite(t_start) && isfinite(t_end) && t_start < t_end))
+      return false;
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    float gs = od[k] + t_start * dd[k];
-    float ge = od[k] + t_end * dd[k];
-    step_dir[k] = dd[k] > 0.0f ? 1 : -1;
-    int sv = (int)((gs - G.bmin[k]) / G.vs[k]);
-    int ev = (int)((ge - G.bmin[k]) / G.vs[k]);
-    voxel[k] = sv < 0 ? 0 : (sv > G.res[k] - 1 ? G.res[k] - 1 : sv);
-    end_voxel[k] = ev < 0 ? 0 : (ev > G.res[k] - 1 ? G.res[k] - 1 : ev);
-    float nvp = G.bmin[k] + (float)(voxel[k] + step_dir[k]) * G.vs[k] +
-                (dd[k] < 0.0f ? G.vs[k] : 0.0f);
-    bool valid_dir = fabsf(dd[k]) > 1e-8f;
-    float dm = valid_dir ? (nvp - gs) / safe_d[k] : inf();
-    dtmax[k] = dm < 0.0f ? inf() : dm;
-    tstep[k] = valid_dir ? G.vs[k] / safe_d[k] * (float)step_dir[k] : inf();
+    for (int k = 0; k < 3; ++k) {
+      float gs = od[k] + t_start * dd[k];
+      float ge = od[k] + t_end * dd[k];
+      step_dir[k] = dd[k] > 0.0f ? 1 : -1;
+      int sv = (int)((gs - G.bmin[k]) / G.vs[k]);
+      int ev = (int)((ge - G.bmin[k]) / G.vs[k]);
+      voxel[k] = sv < 0 ? 0 : (sv > G.res[k] - 1 ? G.res[k] - 1 : sv);
+      end_voxel[k] = ev < 0 ? 0 : (ev > G.res[k] - 1 ? G.res[k] - 1 : ev);
+      float nvp = G.bmin[k] + (float)(voxel[k] + step_dir[k]) * G.vs[k] +
+                  (dd[k] < 0.0f ? G.vs[k] : 0.0f);
+      bool valid_dir = fabsf(dd[k]) > 1e-8f;
+      float dm = valid_dir ? (nvp - gs) / safe_d[k] : inf();
+      dtmax[k] = dm < 0.0f ? inf() : dm;
+      tstep[k] = valid_dir ? G.vs[k] / safe_d[k] * (float)step_dir[k] : inf();
+    }
+    t = t_start;
+    remaining = t_end - t_start;
+    i = 0;
+    return P.dda_max_steps > 0;
   }
-  float t = t_start, remaining = t_end - t_start;
-  bool act = true;
-  for (int i = 0; i < P.dda_max_steps && act; ++i) {
+
+  // does the walk reach z-slices [zlo, zhi)? Its voxel's z moves one
+  // way (step_dir[2], or not at all); it ends at end_voxel's z, up to a
+  // voxel of rounding (SLAB_MARGIN)
+  static constexpr int SLAB_MARGIN = 2;
+  __device__ __forceinline__ bool meets(int zlo, int zhi) const {
+    if (!(tstep[2] < inf())) return voxel[2] >= zlo && voxel[2] < zhi;
+    return step_dir[2] > 0
+               ? voxel[2] < zhi && end_voxel[2] + SLAB_MARGIN >= zlo
+               : voxel[2] >= zlo && end_voxel[2] - SLAB_MARGIN < zhi;
+  }
+
+  // one voxel: its deposit base exp(-st t) (1 - exp(-st dt)); false when
+  // the walk ends here. SLAB: only the deposits in z-slices [zlo, zhi)
+  // are made (and counted), and the walk ends where it leaves them
+  template <bool SLAB = false, class SinkT>
+  __device__ __forceinline__ bool step(const WfParams& P, const Grid& G,
+                                       SinkT& S, float base, float st,
+                                       int zlo = 0, int zhi = 0) {
+    const int vz = voxel[2];
     float t_at = t;
     float dt = mn(mn(mn(dtmax[0], dtmax[1]), dtmax[2]), remaining);
     const int flat = G.flat(voxel[0], voxel[1], voxel[2]);
     const int slot = S.slot(voxel[0], voxel[1], voxel[2]);
     remaining = remaining - dt;
-    act = (end_voxel[0] != voxel[0] || end_voxel[1] != voxel[1] ||
-           end_voxel[2] != voxel[2]) &&
-          remaining > 1e-6f;
+    bool act = (end_voxel[0] != voxel[0] || end_voxel[1] != voxel[1] ||
+                end_voxel[2] != voxel[2]) &&
+               remaining > 1e-6f;
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
       bool m = dtmax[k] == dt;
@@ -525,8 +573,28 @@ __device__ void dda_segment(const WfParams& P, const Grid& G, SinkT& S,
           voxel[0] < G.res[0] && voxel[1] < G.res[1] && voxel[2] < G.res[2];
     if (act) t = t + dt;
     float contrib = base * expf(-st * t_at) * (1.0f - expf(-st * mx(dt, 0.0f)));
-    S.deposit(slot, flat, contrib);
-    S.step();
+    if (!SLAB || (unsigned)(vz - zlo) < (unsigned)(zhi - zlo)) {
+      S.deposit(slot, flat, contrib);
+      S.step();
+    }
+    if (SLAB && (step_dir[2] > 0 ? voxel[2] >= zhi : voxel[2] < zlo))
+      return false;
+    return act && ++i < P.dda_max_steps;
+  }
+};
+
+// A PathSink records the segment (wf_residual.cuh) in place of the walk
+template <class SinkT>
+__device__ void dda_segment(const WfParams& P, const Grid& G, SinkT& S,
+                            const V3& o, const V3& d, float maxt, float base,
+                            float st) {
+  if constexpr (SinkT::RECORDS) {
+    S.record(o, d, maxt, base);
+  } else {
+    DdaWalk w;
+    if (!w.init(P, G, o, d, maxt)) return;
+    while (w.step(P, G, S, base, st)) {
+    }
   }
 }
 
@@ -556,33 +624,52 @@ __device__ void ratio_segment(const WfParams& P, const Grid& G, SinkT& S,
 
 // ---- the hybrid residual: the forced first scatter, the fast event loop ---
 
-// The first scatter event on the chord record rec (12 floats: the K = 2
-// segments' entry points x0 y0 x1 y1, directions, lengths, amplitudes;
-// ops/transport2d.py chord_pack), lifted to 3D at the lane's z = o.z:
-// segment k with probability mass_k / M, mass_k = amp_k exp(-st tau_k)
-// (1 - exp(-st L_k)), then the truncated exponential along it, then the
-// phase sample (draws u1, u2). Sets (o, d) to the post-event ray and M;
-// false when the chord holds no mass (the lane is dead)
+// One chord's entry in the chord table (4 float4, 64 bytes): from the
+// chord bank's record rec (12 floats: the K = 2 segments' entry points x0
+// y0 x1 y1, directions, lengths, amplitudes; ops/transport2d.py
+// chord_pack) and sigma_t, the parts of the first scatter that depend on
+// the chord alone, as the plain version computes them: mass_k = amp_k
+// exp(-st tau_k) (1 - exp(-st L_k)) (tau_0 = 0: amp_0 exp(-0) is amp_0
+// exactly) and the segments' exp(-st L_k):
+//   e[0] = (m0, m1, M = m0 + m1, 0)    e[1] = (L0, L1, exp(-st L0), exp(-st L1))
+//   e[2 + k] = (x_k, y_k, dx_k, dy_k)
+// The residual kernels read a lane's entry as three 16-byte loads
+// (e[0], e[1], e[2 + k]); without the table a lane computes it
+__device__ __forceinline__ void chord_entry(const float* __restrict__ rec,
+                                            float st, float4* e) {
+  const float L0 = rec[8], L1 = rec[9];
+  const float e0 = expf(-st * L0), e1 = expf(-st * L1);
+  const float m0 = rec[10] * (1.0f - e0);
+  const float m1 = rec[11] * e0 * (1.0f - e1);
+  e[0] = make_float4(m0, m1, m0 + m1, 0.0f);
+  e[1] = make_float4(L0, L1, e0, e1);
+  e[2] = make_float4(rec[0], rec[1], rec[4], rec[5]);
+  e[3] = make_float4(rec[2], rec[3], rec[6], rec[7]);
+}
+
+// The first scatter event on the chord entry e, lifted to 3D at the
+// lane's z = o.z: segment k with probability mass_k / M, then the
+// truncated exponential along it, then the phase sample (draws u1, u2).
+// Sets (o, d) to the post-event ray and M; false when the chord holds no
+// mass (the lane is dead)
 __device__ __forceinline__ bool first_scatter(const WfParams& P, Rng& rng,
-                                              const float* __restrict__ rec,
+                                              const float4* __restrict__ e,
                                               V3& o, V3& d, float& M) {
   const float st = P.sigma_t;
-  const float L0 = rec[8], L1 = rec[9];
-  // tau_0 = 0: amp_0 exp(-0) is amp_0 exactly
-  const float m0 = rec[10] * (1.0f - expf(-st * L0));
-  const float m1 = rec[11] * expf(-st * L0) * (1.0f - expf(-st * L1));
-  M = m0 + m1;
+  const float4 m = e[0], L = e[1];
+  M = m.z;
   if (!(M > 1e-12f)) return false;
   const float u1 = rng.next1();
-  const bool pick1 = (u1 * M > m0) && (L1 > 0.0f);
-  const int k = pick1 ? 1 : 0;
-  const float L_k = pick1 ? L1 : L0, m_k = pick1 ? m1 : m0;
-  const float um = clampf((u1 * M - (pick1 ? m0 : 0.0f)) / mx(m_k, 1e-30f),
+  const bool pick1 = (u1 * M > m.x) && (L.y > 0.0f);
+  const float L_k = pick1 ? L.y : L.x, m_k = pick1 ? m.y : m.x;
+  const float e_k = pick1 ? L.w : L.z;
+  const float um = clampf((u1 * M - (pick1 ? m.x : 0.0f)) / mx(m_k, 1e-30f),
                           0.0f, U_MAX);
-  float t_ev = -log1pf(-um * (1.0f - expf(-st * L_k))) / mx(st, 1e-30f);
+  float t_ev = -log1pf(-um * (1.0f - e_k)) / mx(st, 1e-30f);
   t_ev = mn(mx(t_ev, 0.0f), L_k);
-  const V3 o_k = {rec[2 * k], rec[2 * k + 1], o.z};
-  const V3 d_k = {rec[4 + 2 * k], rec[5 + 2 * k], 0.0f};
+  const float4 sg = pick1 ? e[3] : e[2];
+  const V3 o_k = {sg.x, sg.y, o.z};
+  const V3 d_k = {sg.z, sg.w, 0.0f};
   o = along(o_k, t_ev, d_k);
   const float2 u2 = rng.next2();
   d = sample_phase(P.phase, P.phase_g, d_k, u2.x, u2.y);
@@ -661,22 +748,65 @@ __device__ void fast_residual(const WfParams& P, const Grid& G, SinkT& S,
 
 // ---- the per-lane path loop -----------------------------------------------
 
+// The camera frame of circular motion at `time` (models/projector.py
+// sample_rays' look-at): world origin and the columns left, up2, dirw
+struct Frame {
+  V3 origin, left, up2, dirw;
+};
+__device__ __forceinline__ Frame frame_at(const WfParams& P, float time) {
+  float alpha = TWO_PI * time;
+  if (P.clockwise) alpha = -alpha;
+  const float md = P.motion_distance;
+  Frame F;
+  F.origin = {md * cosf(alpha), md * sinf(alpha), md * 0.0f};
+  F.dirw = div3({-F.origin.x, -F.origin.y, -F.origin.z}, norm3(F.origin));
+  V3 left = cross3({0.0f, 0.0f, 1.0f}, F.dirw);
+  F.left = div3(left, norm3(left));
+  F.up2 = cross3(F.dirw, F.left);
+  return F;
+}
+// the frame of angle a without time sampling: time = a / n_patterns, as
+// a lane computes it; the residual kernels hold their CTA's angles' frames
+// in shared memory
+__device__ __forceinline__ Frame angle_frame(const WfParams& P, int a) {
+  return frame_at(P, (float)a / (float)P.n_patterns);
+}
+
+// What the residual kernels hand a lane from its launch order and their
+// tables (wf_residual.cuh): its emitter (angle), DMD row and column, its
+// angle's frame (null with time sampling: computed per lane) and its
+// chord table entry (null: computed from the chord bank)
+struct LaneSetup {
+  int emitter, py, px;
+  const Frame* frame;
+  const float4* chord;
+};
+
 // RES: the residual mode; chords: the chord bank (FIRST_SCATTER,
-// FAST_RESIDUAL), (A * resx, 12) floats
+// FAST_RESIDUAL), (A * resx, 12) floats; su: the residual kernels' set-up
+// (null: the lane derives its indices, frame and chord entry itself)
 template <int EST, bool SCAT, bool TONLY, int RES = ANALOG, class SinkT>
 __device__ void trace_lane(const WfParams& P, const Grid& G, uint32_t lane,
                            int aidx, const int* __restrict__ active_pixels,
                            float em, SinkT& S,
-                           const float* __restrict__ chords = nullptr) {
+                           const float* __restrict__ chords = nullptr,
+                           const LaneSetup* su = nullptr) {
   Rng rng{P.seed + 0x9E3779B9u, lane, 0u};
 
   // ---- ray generation (models/projector.py sample_rays)
   const int w = P.resx, h = P.resy;
-  const int idx = P.identity ? aidx : active_pixels[aidx];
-  const int emitter = idx / (h * w);
-  const int pixel = idx % (h * w);
-  const int py = pixel / w;
-  const int px = pixel - py * w;
+  int emitter, py, px;
+  if (su != nullptr) {
+    emitter = su->emitter;
+    py = su->py;
+    px = su->px;
+  } else {
+    const int idx = P.identity ? aidx : active_pixels[aidx];
+    emitter = idx / (h * w);
+    const int pixel = idx % (h * w);
+    py = pixel / w;
+    px = pixel - py * w;
+  }
   float2 u_pos = rng.next2();
   float sx = P.regular_sampling ? (float)px + 0.5f : (float)px + u_pos.x;
   float sy = P.regular_sampling ? (float)py + 0.5f : (float)py + u_pos.y;
@@ -709,17 +839,17 @@ __device__ void trace_lane(const WfParams& P, const Grid& G, uint32_t lane,
     }
     d_cam = div3(dd, norm3(dd));
   }
-  float alpha = TWO_PI * time;
-  if (P.clockwise) alpha = -alpha;
-  const float md = P.motion_distance;
-  V3 origin = {md * cosf(alpha), md * sinf(alpha), md * 0.0f};
-  V3 dirw = div3({-origin.x, -origin.y, -origin.z}, norm3(origin));
-  V3 left = cross3({0.0f, 0.0f, 1.0f}, dirw);
-  left = div3(left, norm3(left));
-  V3 up2 = cross3(dirw, left);
-  V3 o = rotate(left, up2, dirw, o_cam);
-  o = {o.x + origin.x, o.y + origin.y, o.z + origin.z};
-  V3 d = rotate(left, up2, dirw, d_cam);
+  const Frame F = (su != nullptr && su->frame != nullptr) ? *su->frame
+                                                          : frame_at(P, time);
+  V3 o = rotate(F.left, F.up2, F.dirw, o_cam);
+  o = {o.x + F.origin.x, o.y + F.origin.y, o.z + F.origin.z};
+  V3 d = rotate(F.left, F.up2, F.dirw, d_cam);
+#ifdef WF_RES_STOP
+  if (RES != ANALOG && WF_RES_STOP == 1) {
+    S.keep(RES == SCAT_ONLY ? o.x + o.y + o.z + d.x + d.y + d.z : o.z);
+    return;
+  }
+#endif
 
   // ---- the bounce loop (ops/march.py trace_wavefront)
   const float st = P.sigma_t;
@@ -732,8 +862,21 @@ __device__ void trace_lane(const WfParams& P, const Grid& G, uint32_t lane,
     // the lane starts at its forced first scatter (n_scat 1): the
     // pre-scatter attenuation and the event's albedo are in A
     float M;
-    if (!first_scatter(P, rng, chords + 12 * (emitter * w + px), o, d, M))
+    bool alive;
+    if (su != nullptr && su->chord != nullptr) {
+      alive = first_scatter(P, rng, su->chord, o, d, M);
+    } else {
+      float4 e[4];
+      chord_entry(chords + 12 * (emitter * w + px), P.sigma_t, e);
+      alive = first_scatter(P, rng, e, o, d, M);
+    }
+    if (!alive) return;
+#ifdef WF_RES_STOP
+    if (WF_RES_STOP == 2) {
+      S.keep(o.x + o.y + o.z + d.x + d.y + d.z + M);
       return;
+    }
+#endif
     A = P.albedo * M;
     if (RES == FAST_RESIDUAL) {
       fast_residual(P, G, S, rng, o, d, A, em);
@@ -911,13 +1054,12 @@ __device__ __forceinline__ int lane_aidx(const WfParams& P, const int* order,
 // the pixel at lo + 32 t + l, summed in lane order, and writes the
 // pixel's gradient (the sum times the ray weight) once. Positions from
 // hi on are none. Returns the pixel's active index, or -1 for none
-template <int EST, bool SCAT, bool TONLY, int RES = ANALOG, class SinkT>
+template <int EST, bool SCAT, bool TONLY, class SinkT>
 __device__ __forceinline__ int trace_task(const WfParams& P, const Grid& G,
                                            const int* order, int lo, int hi,
                                            int t, int l, const float* in,
                                            const int* active_pixels,
-                                           float* out, SinkT& S,
-                                           const float* chords = nullptr) {
+                                           float* out, SinkT& S) {
   if (SinkT::PRIMAL) {
     const int j = lo + 32 * (t / P.spp) + l;
     if (j >= hi) return -1;
@@ -928,9 +1070,9 @@ __device__ __forceinline__ int trace_task(const WfParams& P, const Grid& G,
     // the one lane, as a loop that runs once: nvcc's code for this form
     // ran 6 % faster on an H100 than a plain call (PERF.md section 6)
     for (int k = t % P.spp; k < P.spp; k += P.spp) {
-      trace_lane<EST, SCAT, TONLY, RES>(
+      trace_lane<EST, SCAT, TONLY>(
           P, G, (uint32_t)aidx * (uint32_t)P.spp + (uint32_t)k, aidx,
-          active_pixels, em, S, chords);
+          active_pixels, em, S);
     }
     return aidx;
   }
@@ -940,9 +1082,9 @@ __device__ __forceinline__ int trace_task(const WfParams& P, const Grid& G,
   float gsum = 0.0f;
   for (int k = 0; k < P.spp; ++k) {
     S.g = 0.0f;
-    trace_lane<EST, SCAT, TONLY, RES>(
+    trace_lane<EST, SCAT, TONLY>(
         P, G, (uint32_t)aidx * (uint32_t)P.spp + (uint32_t)k, aidx,
-        active_pixels, 1.0f, S, chords);
+        active_pixels, 1.0f, S);
     gsum = k == 0 ? S.g : gsum + S.g;
   }
   out[aidx] = gsum * P.ray_w;
@@ -964,15 +1106,15 @@ constexpr int WF_THREADS = 1024;
 // memory. The forward's dynamic shared memory holds the tile's row table
 // (the film's resy rows) and then the tile (P.tile_n floats), zeroed
 // before the first barrier and flushed with one global atomic per
-// nonzero voxel after the second. The adjoint and the residual take none
-// (P.tile_n 0).
+// nonzero voxel after the second. The adjoint takes none (P.tile_n 0).
+// The analog instantiations only (RES ANALOG): the residual family has
+// its own kernels (wf_residual.cuh).
 template <int EST, bool SCAT, bool TONLY, int RES, bool PRIMAL, bool COUNT>
 __global__ void __launch_bounds__(WF_THREADS, 1)
     wf_kernel(const WfParams P, const float* __restrict__ in,
               const int* __restrict__ active_pixels,
               const int* __restrict__ order, const int* __restrict__ starts,
-              const int4* __restrict__ rows,
-              const float* __restrict__ chords, float* __restrict__ out,
+              const int4* __restrict__ rows, float* __restrict__ out,
               unsigned long long* __restrict__ counters) {
   extern __shared__ int4 smem[];
   __shared__ unsigned next_task;
@@ -1005,8 +1147,8 @@ __global__ void __launch_bounds__(WF_THREADS, 1)
     t = __shfl_sync(0xffffffffu, t, 0);
     if (t >= n_tasks) break;
     const unsigned long long s0 = S.steps;
-    trace_task<EST, SCAT, TONLY, RES>(P, G, order, lo, hi, (int)t, lane,
-                                      in, active_pixels, out, S, chords);
+    trace_task<EST, SCAT, TONLY>(P, G, order, lo, hi, (int)t, lane, in,
+                                 active_pixels, out, S);
     if (COUNT) {
       // a warp spends 32 lane slots on each step of its longest lane
       unsigned long long d = S.steps - s0;
@@ -1041,58 +1183,37 @@ __global__ void __launch_bounds__(WF_THREADS, 1)
 }
 
 using KernelFn = void (*)(const WfParams, const float*, const int*,
-                          const int*, const int*, const int4*, const float*,
-                          float*, unsigned long long*);
+                          const int*, const int*, const int4*, float*,
+                          unsigned long long*);
 
-// The instantiation for P: the analog family (RESIDUAL false: wf_fwd,
-// wf_bwd) by estimator, scattering and transmission_only; the residual
-// family (wf_res_fwd, wf_res_bwd; scattering and transmission only) by
-// estimator and residual mode. nullptr for a P the family does not run
-template <bool PRIMAL, bool COUNT, bool RESIDUAL>
+// The analog instantiation for P (wf_fwd, wf_bwd) by estimator,
+// scattering and transmission_only; nullptr for a residual P (the
+// residual family is wf_residual.cuh's)
+template <bool PRIMAL, bool COUNT>
 KernelFn pick(const WfParams& P) {
-  // constexpr: each entry point instantiates its own family only
-  if constexpr (RESIDUAL) {
-    if (!P.has_scattering || !P.transmission_only) return nullptr;
-#define WF_RES_CASE(E, R) \
-  case E * 4 + R:         \
-    return wf_kernel<E, true, true, R, PRIMAL, COUNT>;
-    switch (P.estimator * 4 + P.residual) {
-      WF_RES_CASE(DDA, SCAT_ONLY)
-      WF_RES_CASE(DDA, FIRST_SCATTER)
-      WF_RES_CASE(RATIO, SCAT_ONLY)
-      WF_RES_CASE(RATIO, FIRST_SCATTER)
-      WF_RES_CASE(DELTA, SCAT_ONLY)
-      WF_RES_CASE(DELTA, FIRST_SCATTER)
-      WF_RES_CASE(DELTA, FAST_RESIDUAL)
-      default:
-        return nullptr;
-    }
-#undef WF_RES_CASE
-  } else {
-    if (P.residual != ANALOG) return nullptr;
-    const int key = P.estimator * 4 + (P.has_scattering ? 2 : 0) +
-                    (P.transmission_only ? 1 : 0);
+  if (P.residual != ANALOG) return nullptr;
+  const int key = P.estimator * 4 + (P.has_scattering ? 2 : 0) +
+                  (P.transmission_only ? 1 : 0);
 #define WF_CASE(E, SC, TO)                  \
   case E * 4 + (SC ? 2 : 0) + (TO ? 1 : 0): \
     return wf_kernel<E, SC, TO, ANALOG, PRIMAL, COUNT>;
-    switch (key) {
-      WF_CASE(DDA, false, false)
-      WF_CASE(DDA, false, true)
-      WF_CASE(DDA, true, false)
-      WF_CASE(DDA, true, true)
-      WF_CASE(RATIO, false, false)
-      WF_CASE(RATIO, false, true)
-      WF_CASE(RATIO, true, false)
-      WF_CASE(RATIO, true, true)
-      WF_CASE(DELTA, false, false)
-      WF_CASE(DELTA, false, true)
-      WF_CASE(DELTA, true, false)
-      WF_CASE(DELTA, true, true)
-      default:
-        return nullptr;
-    }
-#undef WF_CASE
+  switch (key) {
+    WF_CASE(DDA, false, false)
+    WF_CASE(DDA, false, true)
+    WF_CASE(DDA, true, false)
+    WF_CASE(DDA, true, true)
+    WF_CASE(RATIO, false, false)
+    WF_CASE(RATIO, false, true)
+    WF_CASE(RATIO, true, false)
+    WF_CASE(RATIO, true, true)
+    WF_CASE(DELTA, false, false)
+    WF_CASE(DELTA, false, true)
+    WF_CASE(DELTA, true, false)
+    WF_CASE(DELTA, true, true)
+    default:
+      return nullptr;
   }
+#undef WF_CASE
 }
 
 // The dynamic shared memory a CTA takes, with the kernel's limit raised
@@ -1119,37 +1240,31 @@ inline cudaError_t shape(KernelFn k, WfParams& P, size_t& smem) {
                               (int)smem);
 }
 
-// P's instantiation of the family, P.tile_n cleared where the kernel
-// takes no tile (the adjoint, the residual)
-template <bool PRIMAL, bool RESIDUAL>
+// P's instantiation, P.tile_n cleared for the adjoint (it takes no tile)
+template <bool PRIMAL>
 KernelFn pick_for(WfParams& P, bool count) {
-  if (!PRIMAL || RESIDUAL) P.tile_n = 0;
-  return count ? pick<PRIMAL, true, RESIDUAL>(P)
-               : pick<PRIMAL, false, RESIDUAL>(P);
+  if (!PRIMAL) P.tile_n = 0;
+  return count ? pick<PRIMAL, true>(P) : pick<PRIMAL, false>(P);
 }
 
-template <bool PRIMAL, bool RESIDUAL>
+template <bool PRIMAL>
 int launch(const WfParams* p, const float* in, const int* active_pixels,
-           const int* order, const int* starts, const int4* rows,
-           const float* chords, float* out, unsigned long long* counters,
-           void* stream) {
+           const int* order, const int* starts, const int4* rows, float* out,
+           unsigned long long* counters, void* stream) {
   WfParams P = *p;
   if (P.n_active <= 0) return 0;
-  const bool needs_chords =
-      P.residual == FIRST_SCATTER || P.residual == FAST_RESIDUAL;
   if (P.n_surf > WF_MAX_SURF || P.n_groups <= 0 || P.group <= 0 ||
       (!P.identity && (order == nullptr || starts == nullptr)) ||
-      (P.tile_n > 0 && rows == nullptr) ||
-      (needs_chords && chords == nullptr))
+      (P.tile_n > 0 && rows == nullptr))
     return (int)cudaErrorInvalidValue;
-  KernelFn k = pick_for<PRIMAL, RESIDUAL>(P, counters != nullptr);
+  KernelFn k = pick_for<PRIMAL>(P, counters != nullptr);
   if (k == nullptr) return (int)cudaErrorInvalidValue;
   size_t smem;
   cudaError_t e = shape(k, P, smem);
   if (e != cudaSuccess) return (int)e;
   k<<<(unsigned)P.resy * P.n_groups, WF_THREADS, smem,
       (cudaStream_t)stream>>>(P, in, active_pixels, order, starts, rows,
-                              chords, out, counters);
+                              out, counters);
   return (int)cudaGetLastError();
 }
 
@@ -1157,10 +1272,10 @@ int launch(const WfParams* p, const float* in, const int* active_pixels,
 // {threads a CTA, CTAs, dynamic shared bytes a CTA, static shared bytes,
 // registers a thread, local (stack and spill) bytes a thread, CTAs an
 // SM holds, tile voxels (0: none)}
-template <bool PRIMAL, bool RESIDUAL>
+template <bool PRIMAL>
 int info(const WfParams* p, int count, int* out) {
   WfParams P = *p;
-  KernelFn k = pick_for<PRIMAL, RESIDUAL>(P, count != 0);
+  KernelFn k = pick_for<PRIMAL>(P, count != 0);
   if (k == nullptr) return (int)cudaErrorInvalidValue;
   size_t smem;
   cudaFuncAttributes fa;

@@ -24,6 +24,10 @@ Four kernel wrappers, each with its plain version beside it:
                               hybrid engine's residual, ops/hybrid.py)
     wf_res_bwd  <- adjoint   of a residual static
 
+and beside wf_res_fwd its parts, counted apart in `launches`: the dda
+forward's walk pass (res_walk, plain: _walk) and the chord table
+(_res_chords, plain: _chord_table).
+
 The CUDA kernels are csrc/wf_fwd.cu, csrc/wf_bwd.cu, csrc/wf_res_fwd.cu
 and csrc/wf_res_bwd.cu, entry points of the one per-lane path template
 csrc/wf_trace.cuh; they replace the XLA code of
@@ -40,8 +44,12 @@ thread one lane, adds deposits with float atomics (into the home
 slice's medium voxels, `tile_rows`, held in shared memory, or into the
 accumulator), so its sums are not bitwise reproducible; the adjoint
 gives each thread one pixel's spp lanes, writes their sum once, in
-lane order, and is. The residual pair runs the same launch without the
-tile: its deposits follow a scatter out of the row's slice.
+lane order, and is. The residual pair (csrc/wf_residual.cuh) runs the
+same order without the tile (its deposits follow a scatter out of the
+row's slice), its lanes handed their angle's frame and their chord's
+table entry; its dda forward runs in two passes per batch of CTAs, the
+lanes' paths recording their segments (res_path) and persistent threads
+walking them (res_walk), so that no warp waits on its longest walk.
 """
 from __future__ import annotations
 
@@ -54,7 +62,8 @@ from ..models.projector import PROJECTOR_KINDS, ray_weight
 from ..models.geometry import CYLINDER
 from .march import (ANALOG, ESTIMATORS, FAST_RESIDUAL, FIRST_SCATTER,
                     MarchStatic, _grid, check_supported, dda_max_steps,
-                    residual_mode, residual_surface, trace_wavefront)
+                    dda_segment, residual_mode, residual_surface,
+                    trace_wavefront)
 from .medium import PHASE_IDS
 
 DEFAULT_CHUNK = 1 << 16   # plain version: lanes per pass
@@ -64,13 +73,28 @@ MAX_SURF = 8              # surfaces a kernel launch takes (WF_MAX_SURF)
 ANGLES_PER_GROUP = 25
 # what the kernels count when asked (`stats`): bounce iterations,
 # estimator steps, deposits into the home-slice tile and to global
-# memory, and lane slots (32 per warp for each step of its longest lane)
+# memory, and lane slots (32 per warp for each step of its longest lane;
+# the residual's delta: each event; the dda residual forward: each step
+# of the walk pass's warps)
 COUNTERS = ("iterations", "steps", "tile_deposits", "global_deposits",
             "lane_slots")
 
 KERNELS = ("wf_fwd", "wf_bwd")              # the analog pair
 RES_KERNELS = ("wf_res_fwd", "wf_res_bwd")  # the residual pair
-launches = {k: 0 for k in KERNELS + RES_KERNELS}
+# entry points of csrc/wf_res_fwd.cu beside its per-lane kernel, counted
+# apart: the dda forward's walk pass and the chord table's prologue
+RES_PARTS = ("wf_res_walk", "wf_res_chords")
+launches = {k: 0 for k in KERNELS + RES_KERNELS + RES_PARTS}
+# the dda residual forward's segment records (32 bytes each): a buffer of
+# at most SPLIT_MAX_RECORDS (2 GB), allocated once per engine; batches of
+# CTAs sized from the records a lane made so far (SPLIT_GUESS before the
+# first batch), with SPLIT_MARGIN to spare
+SPLIT_MAX_RECORDS = (2 << 30) // 32
+SPLIT_GUESS = 2.0
+SPLIT_MARGIN = 1.25
+# z-slabs the walk pass runs a batch's records in, one pass each, so that
+# the part of the dose grid its float atomics reach fits the card's L2
+WALK_SLABS = 2
 
 
 def reset_launches():
@@ -348,15 +372,49 @@ def _launch_layout(static: MarchStatic, arr):
     return cached[1:]
 
 
+_PTR = ctypes.c_void_p
+_ARGS = {
+    # (P, in, active_pixels, order, starts, rows, out, counters, stream)
+    "wf_fwd": [ctypes.POINTER(WfParams)] + [_PTR] * 8,
+    "wf_bwd": [ctypes.POINTER(WfParams)] + [_PTR] * 8,
+    # (P, in, active_pixels, order, starts, chords, chord_tab, out,
+    # counters, stream)
+    "wf_res_fwd": [ctypes.POINTER(WfParams)] + [_PTR] * 9,
+    "wf_res_bwd": [ctypes.POINTER(WfParams)] + [_PTR] * 9,
+    # (P, c0, c1, in, active_pixels, order, starts, chords, chord_tab,
+    # recs, n_recs, cap, counters, stream)
+    "wf_res_path": [ctypes.POINTER(WfParams), ctypes.c_int, ctypes.c_int] +
+                   [_PTR] * 8 + [ctypes.c_uint, _PTR, _PTR],
+    # (P, recs, n, next, zlo, zhi, acc, counters, stream)
+    "wf_res_walk": [ctypes.POINTER(WfParams), _PTR, ctypes.c_uint, _PTR,
+                    ctypes.c_int, ctypes.c_int, _PTR, _PTR, _PTR],
+    # (bank, n, sigma_t, tab, stream)
+    "wf_res_chords": [_PTR, ctypes.c_int, ctypes.c_float, _PTR, _PTR],
+}
+# the entry points each kernel library holds, and its launch-shape queries
+_ENTRIES = {"wf_fwd": ("wf_fwd",), "wf_bwd": ("wf_bwd",),
+            "wf_res_fwd": ("wf_res_fwd", "wf_res_path", "wf_res_walk",
+                           "wf_res_chords"),
+            "wf_res_bwd": ("wf_res_bwd",)}
+_INFO = {"wf_fwd_info": [ctypes.POINTER(WfParams), ctypes.c_int],
+         "wf_bwd_info": [ctypes.POINTER(WfParams), ctypes.c_int],
+         "wf_res_fwd_info": [ctypes.POINTER(WfParams), ctypes.c_int],
+         "wf_res_bwd_info": [ctypes.POINTER(WfParams), ctypes.c_int],
+         "wf_res_walk_info": [ctypes.c_int]}
+
+
 def _setup(lib, name):
-    fn = getattr(lib, name)
-    fn.argtypes = [ctypes.POINTER(WfParams)] + [ctypes.c_void_p] * 8
-    fn.restype = ctypes.c_int
-    info = getattr(lib, name + "_info", None)
-    if info is not None:
-        info.argtypes = [ctypes.POINTER(WfParams), ctypes.c_int,
-                         ctypes.POINTER(ctypes.c_int)]
-        info.restype = ctypes.c_int
+    """Declare the argument types of library `name`'s entry points (and
+    of its launch-shape queries, where it has them)."""
+    for fn_name in _ENTRIES[name]:
+        fn = getattr(lib, fn_name)
+        fn.argtypes = _ARGS[fn_name]
+        fn.restype = ctypes.c_int
+        info = getattr(lib, fn_name + "_info", None)
+        if info is not None:
+            info.argtypes = _INFO[fn_name + "_info"] + [
+                ctypes.POINTER(ctypes.c_int)]
+            info.restype = ctypes.c_int
 
 
 _SETUP = {k: (lambda lib, k=k: _setup(lib, k))
@@ -368,7 +426,8 @@ _FLAGS = {k: ["--fmad=false"] for k in KERNELS + RES_KERNELS}
 
 def build_kernels():
     """Build (nvcc, one process per source, in parallel) and load the
-    four kernels. Returns {name: ctypes lib}; raises on any failure."""
+    four kernel libraries. Returns {name: ctypes lib}; raises on any
+    failure."""
     from ..native import load_cuda
     return load_cuda(KERNELS + RES_KERNELS, _SETUP, _FLAGS)
 
@@ -387,11 +446,35 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _err(name, err):
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed, cudaError_t {err}")
+
+
+def _add(stats, counter, keys=COUNTERS):
+    if stats is not None and counter is not None:
+        for key, v in zip(COUNTERS, counter.tolist()):
+            if key in keys:
+                stats[key] = stats.get(key, 0) + v
+
+
+def _counter(stats, dev):
+    if stats is None:
+        return None
+    return torch.zeros((len(COUNTERS),), dtype=torch.int64, device=dev)
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream \
+        if dev.type == "cuda" else None
+
+
 def _family_params(name, static, arr, seed, spp):
     """make_params, checked against the kernel's family: the analog pair
     runs the full dose, the residual pair a residual static (scattering,
     transmission only) and takes no tile. Returns (P, order, starts,
-    rows or the chord bank)."""
+    rows) for the analog pair, (P, order, starts, the chord bank or
+    None) for the residual pair."""
     P = make_params(static, arr, seed, spp)
     order, starts, rows, P.tile_n = _launch_layout(static, arr)
     if name in KERNELS:
@@ -417,42 +500,262 @@ def _family_params(name, static, arr, seed, spp):
 
 
 def _launch(name, static, arr, x, out, seed, spp, stats):
+    """One launch of the analog pair's kernel `name`."""
     dev = x.device
+    pix = _pixels(name, static, arr, dev)
+    P, order, starts, rows = _family_params(name, static, arr, seed, spp)
+    counter = _counter(stats, dev)
+    with torch.cuda.device(dev):
+        fn = getattr(build_kernels()[name], name)
+        err = fn(ctypes.byref(P), x.data_ptr(), pix.data_ptr(),
+                 _ptr(order), _ptr(starts), _ptr(rows), out.data_ptr(),
+                 _ptr(counter), _stream(dev))
+    launches[name] += 1
+    _err(name, err)
+    _add(stats, counter)
+
+
+def _pixels(name, static, arr, dev):
     pix = arr["active_pixels"]
     if pix.device != dev:
         raise ValueError(f"{name}: scene tensors on {pix.device}, input on "
                          f"{dev}")
     _check(name, pix, torch.int32, (static.projector.n_active,))
-    # rows: the tile's row table (analog), or the chord bank (residual)
-    P, order, starts, rows = _family_params(name, static, arr, seed, spp)
-    counter = None
-    if stats is not None:
-        counter = torch.zeros((len(COUNTERS),), dtype=torch.int64,
-                              device=dev)
-    with torch.cuda.device(dev):
-        fn = getattr(build_kernels()[name], name)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(ctypes.byref(P), x.data_ptr(), pix.data_ptr(),
-                 _ptr(order), _ptr(starts), _ptr(rows), out.data_ptr(),
-                 _ptr(counter), stream)
+    return pix
+
+
+# --------------------------------------------------------------------------
+# the residual pair: the chord table, the single pass, the dda forward's
+# path and walk passes. `libs` holds the loaded libraries by name (the
+# card's build_kernels(), or a host build of the template in the tests)
+
+
+def _chord_table(bank, st):
+    """Plain version of the chord table (csrc/wf_trace.cuh chord_entry):
+    (n, 16) float32 entries (m0, m1, M, 0, L0, L1, exp(-st L0),
+    exp(-st L1), x0, y0, dx0, dy0, x1, y1, dx1, dy1) of the chord bank
+    (n, 12) at sigma_t st, in the kernel's operation order."""
+    st = torch.as_tensor(st, dtype=torch.float32, device=bank.device)
+    L0, L1 = bank[:, 8], bank[:, 9]
+    e0, e1 = torch.exp(-st * L0), torch.exp(-st * L1)
+    m0 = bank[:, 10] * (1.0 - e0)
+    m1 = bank[:, 11] * e0 * (1.0 - e1)
+    z = torch.zeros_like(m0)
+    return torch.stack([m0, m1, m0 + m1, z, L0, L1, e0, e1,
+                        bank[:, 0], bank[:, 1], bank[:, 4], bank[:, 5],
+                        bank[:, 2], bank[:, 3], bank[:, 6], bank[:, 7]], 1)
+
+
+def _res_chords(libs, arr, bank, P):
+    """The chord table of the bank at P.sigma_t, built by wf_res_chords
+    once per engine (cached in the scene tensors' dict)."""
+    if bank is None:
+        return None
+    key = (bank.data_ptr(), P.sigma_t)
+    cached = arr.get("_wf_res_chords")
+    if cached is None or cached[0] != key:
+        tab = torch.empty((bank.shape[0], 16), dtype=torch.float32,
+                          device=bank.device)
+        err = libs["wf_res_fwd"].wf_res_chords(
+            bank.data_ptr(), bank.shape[0], P.sigma_t, tab.data_ptr(),
+            _stream(bank.device))
+        launches["wf_res_chords"] += 1
+        _err("wf_res_chords", err)
+        cached = (key, tab)
+        arr["_wf_res_chords"] = cached
+    return cached[1]
+
+
+def _res_one_pass(libs, name, static, arr, x, out, seed, spp, stats):
+    """One launch of wf_res_fwd (ratio, delta) or wf_res_bwd."""
+    dev = x.device
+    pix = _pixels(name, static, arr, dev)
+    P, order, starts, bank = _family_params(name, static, arr, seed, spp)
+    tab = _res_chords(libs, arr, bank, P)
+    counter = _counter(stats, dev)
+    err = getattr(libs[name], name)(
+        ctypes.byref(P), x.data_ptr(), pix.data_ptr(), _ptr(order),
+        _ptr(starts), _ptr(bank), _ptr(tab), out.data_ptr(), _ptr(counter),
+        _stream(dev))
     launches[name] += 1
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed, cudaError_t {err}")
-    if counter is not None:
-        for key, v in zip(COUNTERS, counter.tolist()):
-            stats[key] = stats.get(key, 0) + v
+    _err(name, err)
+    _add(stats, counter)
+
+
+def _split_buffer(static, arr, P, dev):
+    """The record buffer (cap * 8 floats) and its two counters (records
+    made, records claimed by the walk), allocated once per engine (cached
+    in the scene tensors' dict). cap: SPLIT_MAX_RECORDS, or what a
+    launch's lanes could make where that is less. A failed allocation
+    raises."""
+    lanes = static.projector.n_active * P.spp
+    cta_lanes = P.group * P.resx * P.spp
+    cap = min(SPLIT_MAX_RECORDS,
+              max(2 * lanes, cta_lanes * (2 * P.max_depth + 16)))
+    cached = arr.get("_wf_res_split")
+    if cached is None or cached[0] < cap or cached[1].device != dev:
+        cached = (cap, torch.empty((cap * 8,), dtype=torch.float32,
+                                   device=dev),
+                  torch.zeros((2,), dtype=torch.int32, device=dev))
+        arr["_wf_res_split"] = cached
+    return cached
+
+
+def _lanes_before(static, arr, spp):
+    """(CTAs + 1,) int64 numpy: the lanes before each CTA of the launch
+    order (cached in the scene tensors' dict)."""
+    cached = arr.get("_wf_res_lanes")
+    if cached is None or cached[0] != spp:
+        starts = block_order(static, arr)[1].cpu().numpy().astype(np.int64)
+        cached = (spp, starts * spp)
+        arr["_wf_res_lanes"] = cached
+    return cached[1]
+
+
+def res_path(libs, static, arr, data, seed, spp, c0, c1, stats=None):
+    """The dda residual forward's path pass over CTAs [c0, c1) of the
+    launch order: the segment records it made, (n, 8) float32 (o, d,
+    maxt, base; a view of the engine's buffer), or None when they
+    overflow the buffer. stats: adds the bounce iterations, the records
+    and one batch."""
+    dev = data.device
+    pix = _pixels("wf_res_fwd", static, arr, dev)
+    P, order, starts, bank = _family_params("wf_res_fwd", static, arr, seed,
+                                            spp)
+    tab = _res_chords(libs, arr, bank, P)
+    cap, recs, ctr = _split_buffer(static, arr, P, dev)
+    ctr.zero_()
+    counter = _counter(stats, dev)
+    err = libs["wf_res_fwd"].wf_res_path(
+        ctypes.byref(P), c0, c1, data.data_ptr(), pix.data_ptr(),
+        _ptr(order), _ptr(starts), _ptr(bank), _ptr(tab), recs.data_ptr(),
+        ctr.data_ptr(), cap, _ptr(counter), _stream(dev))
+    launches["wf_res_fwd"] += 1
+    _err("wf_res_path", err)
+    n = int(ctr[0].item()) & 0xFFFFFFFF
+    if n > cap:
+        return None
+    _add(stats, counter, ("iterations",))
+    if stats is not None:
+        stats["records"] = stats.get("records", 0) + n
+        stats["batches"] = stats.get("batches", 0) + 1
+    return recs[:8 * n].view(n, 8)
+
+
+def res_walk(libs, static, arr, recs, acc, seed=0, spp=1, stats=None):
+    """The dda residual forward's walk pass: the segments recs (n, 8)
+    walked into acc (n_cells,), one launch for each of WALK_SLABS
+    z-slabs. stats: adds the steps, the deposits, the walk's lane slots
+    and the steps its walking threads took ("walk_steps": with those
+    outside a slab)."""
+    dev = acc.device
+    P = make_params(static, arr, seed, spp)
+    n = recs.shape[0]
+    _check("wf_res_walk", recs, torch.float32, (n, 8))
+    _check("wf_res_walk", acc, torch.float32, (static.sensor.n_cells,))
+    ctr = _split_buffer(static, arr, P, dev)[2]
+    Z = static.sensor.res[2]
+    cuts = [Z * k // WALK_SLABS for k in range(WALK_SLABS + 1)]
+    for zlo, zhi in zip(cuts[:-1], cuts[1:]):
+        ctr[1].zero_()
+        counter = _counter(stats, dev)
+        err = libs["wf_res_fwd"].wf_res_walk(
+            ctypes.byref(P), recs.data_ptr(), n, ctr[1:].data_ptr(), zlo, zhi,
+            acc.data_ptr(), _ptr(counter), _stream(dev))
+        launches["wf_res_walk"] += 1
+        _err("wf_res_walk", err)
+        _add(stats, counter, COUNTERS[1:])
+        if counter is not None:
+            stats["walk_steps"] = stats.get("walk_steps", 0) + \
+                int(counter[0])
+
+
+def _walk(static, arr, recs, stats=None):
+    """Plain version of the walk pass: the accumulator (n_cells,) of
+    march.dda_segment on the records (o, d, maxt, base), with albedo 0
+    and em 1 so that its deposit weight is the record's base exactly.
+    stats: adds the steps."""
+    dev = recs.device
+    n = recs.shape[0]
+    acc = torch.zeros((static.sensor.n_cells,), dtype=torch.float32,
+                      device=dev)
+    at = dict(arr, albedo=torch.zeros_like(arr["albedo"]))
+    zero = torch.zeros((n,), dtype=torch.float32, device=dev)
+    acc, _ = dda_segment(static, at, True, acc, None, None, recs[:, 0:3],
+                         recs[:, 3:6], zero, recs[:, 6], recs[:, 7],
+                         torch.ones_like(zero),
+                         torch.ones((n,), dtype=torch.bool, device=dev),
+                         stats)
+    return acc
+
+
+def _timed(times, key, fn):
+    """fn(), its card time added to times[key] (CUDA events) when times
+    is given."""
+    if times is None:
+        return fn()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    times[key] = times.get(key, 0.0) + a.elapsed_time(b)
+    return out
+
+
+def _res_split(libs, static, arr, data, acc, seed, spp, stats,
+               batch_ctas=None, times=None):
+    """The dda residual forward in two passes, CTA batch by CTA batch:
+    each batch's path pass and then the walk of its records. A batch is
+    as many CTAs as fit the buffer at the records a lane has made so far
+    (at most batch_ctas); one whose records overflow runs again in a
+    smaller part. times: adds the passes' milliseconds ("path_ms",
+    "walk_ms")."""
+    P = make_params(static, arr, seed, spp)
+    cap = _split_buffer(static, arr, P, data.device)[0]
+    before = _lanes_before(static, arr, spp)
+    n_ctas = len(before) - 1
+    per_lane, c0, c_max = SPLIT_GUESS, 0, n_ctas
+    while c0 < n_ctas:
+        want = before[c0] + cap / (per_lane * SPLIT_MARGIN)
+        c1 = int(np.searchsorted(before, want, side="right")) - 1
+        c1 = max(c0 + 1, min(c1, c_max,
+                             c0 + (batch_ctas or n_ctas)))
+        recs = _timed(times, "path_ms", lambda: res_path(
+            libs, static, arr, data, seed, spp, c0, c1, stats))
+        lanes = int(before[c1] - before[c0])
+        if recs is None:
+            if c1 - c0 == 1:
+                raise RuntimeError(
+                    f"wf_res_fwd: one CTA's segments overflow the {cap} "
+                    "records of the buffer")
+            c_max = c0 + (c1 - c0) // 2
+            continue
+        if recs.shape[0]:
+            _timed(times, "walk_ms", lambda: res_walk(
+                libs, static, arr, recs, acc, seed, spp, stats))
+        if lanes and recs.shape[0]:
+            per_lane = recs.shape[0] / lanes
+        c0, c_max = c1, n_ctas
 
 
 def kernel_info(name, static: MarchStatic, arr, count=False):
     """The launch shape of the kernel instantiation `name` runs on this
     scene (count: the counting one, as with `stats`), read from the
     card: threads a CTA, CTAs, shared memory, registers, local (stack
-    and spill) bytes, CTAs an SM holds, and the tile's voxels."""
-    P = _family_params(name, static, arr, 0, 1)[0]
+    and spill) bytes, CTAs an SM holds, and the tile's voxels. `name`
+    "wf_res_walk": the dda residual forward's walk pass; "wf_res_fwd"
+    of a dda static: its path pass."""
+    fam = "wf_res_fwd" if name == "wf_res_walk" else name
+    P = _family_params(fam, static, arr, 0, 1)[0]
     out = (ctypes.c_int * 8)()
     with torch.cuda.device(arr["active_pixels"].device):
-        lib = build_kernels()[name]
-        err = getattr(lib, name + "_info")(ctypes.byref(P), int(count), out)
+        lib = build_kernels()[fam]
+        if name == "wf_res_walk":
+            err = lib.wf_res_walk_info(int(count), out)
+        else:
+            err = getattr(lib, name + "_info")(ctypes.byref(P), int(count),
+                                               out)
     if err != 0:
         raise RuntimeError(f"{name}: occupancy query failed, cudaError_t "
                            f"{err}")
@@ -493,34 +796,65 @@ def wf_bwd(static: MarchStatic, arr, dL_flat, seed, spp, stats=None):
     return out
 
 
-def wf_res_fwd(static: MarchStatic, arr, data, seed, spp, stats=None):
-    """CUDA kernel csrc/wf_res_fwd.cu: the residual dose accumulator
+def res_forward(libs, static, arr, data, seed, spp, stats=None,
+                batch_ctas=None, times=None):
+    """The residual forward through the libraries `libs`: the dda in two
+    passes (_res_split), the other estimators in one."""
+    acc = torch.zeros((static.sensor.n_cells,), dtype=torch.float32,
+                      device=data.device)
+    if static.sensor.estimator == "dda":
+        _res_split(libs, static, arr, data, acc, seed, spp, stats,
+                   batch_ctas, times)
+    else:
+        _res_one_pass(libs, "wf_res_fwd", static, arr, data, acc, seed, spp,
+                      stats)
+    return acc
+
+
+def res_adjoint(libs, static, arr, dL_flat, seed, spp, stats=None):
+    """The residual adjoint through the libraries `libs`, in one pass."""
+    out = torch.empty((static.projector.n_active,), dtype=torch.float32,
+                      device=dL_flat.device)
+    _res_one_pass(libs, "wf_res_bwd", static, arr, dL_flat, out, seed, spp,
+                  stats)
+    return out
+
+
+def _card_libs(x):
+    with torch.cuda.device(x.device):
+        return build_kernels()
+
+
+def wf_res_fwd(static: MarchStatic, arr, data, seed, spp, stats=None,
+               batch_ctas=None, times=None):
+    """CUDA kernels csrc/wf_res_fwd.cu: the residual dose accumulator
     (n_cells,) of `data` on the card, for a static with scattered_only
     (the hybrid engine's residual; arr["chord_pack"] for the
     first-scatter modes). Replaces the primal of
-    drtvam_tpu/ops/march.py:913 in its residual modes (XLA). What bounds
-    it on the H100: the per-lane work (ray set-up, random draws, the
-    chord record, phase samples); deposits are few float atomics."""
+    drtvam_tpu/ops/march.py:913 in its residual modes (XLA). The dda
+    runs a path pass and a walk pass per batch of CTAs (batch_ctas: at
+    most that many a batch), the other estimators one pass. What bounds
+    it on the H100: the delta fast loop by the per-lane work (ray set-up,
+    random draws, the first scatter, one or two events); the dda by its
+    voxel steps and their float atomics. stats: adds the COUNTERS (the
+    dda: lane slots are the walk's) and, for the dda, the records and
+    batches; times: adds the dda's path and walk milliseconds."""
     _n_lanes(static, spp)
     _check("wf_res_fwd", data, torch.float32, (static.projector.n_active,))
-    acc = torch.zeros((static.sensor.n_cells,), dtype=torch.float32,
-                      device=data.device)
-    _launch("wf_res_fwd", static, arr, data, acc, seed, spp, stats)
-    return acc
+    return res_forward(_card_libs(data), static, arr, data, seed, spp, stats,
+                       batch_ctas, times)
 
 
 def wf_res_bwd(static: MarchStatic, arr, dL_flat, seed, spp, stats=None):
     """CUDA kernel csrc/wf_res_bwd.cu: the residual's pattern gradient
     (n_active,) of dL_flat on the card, replaying wf_res_fwd's paths.
     Replaces the adjoint of drtvam_tpu/ops/march.py:913 in its residual
-    modes (XLA). Bound as wf_res_fwd; every output is written once, so
-    the result is bitwise reproducible."""
+    modes (XLA). Bound as wf_res_fwd's single pass; every output is
+    written once, so the result is bitwise reproducible."""
     _n_lanes(static, spp)
     _check("wf_res_bwd", dL_flat, torch.float32, (static.sensor.n_cells,))
-    out = torch.empty((static.projector.n_active,), dtype=torch.float32,
-                      device=dL_flat.device)
-    _launch("wf_res_bwd", static, arr, dL_flat, out, seed, spp, stats)
-    return out
+    return res_adjoint(_card_libs(dL_flat), static, arr, dL_flat, seed, spp,
+                       stats)
 
 
 def _route(x):

@@ -366,7 +366,13 @@ def test_res_kernels_match_plain(estimator, mode, tmp_path, cuda_device):
     grad = wf.adjoint(st, at, 7, 4, wf.DEFAULT_CHUNK, dL)
     grad2 = wf.adjoint(st, at, 7, 4, wf.DEFAULT_CHUNK, dL)
     torch.cuda.synchronize()
-    assert wf.launches["wf_res_fwd"] == before["wf_res_fwd"] + 1
+    # the dda forward: a path pass and a walk pass a batch of CTAs
+    n_fwd = wf.launches["wf_res_fwd"] - before["wf_res_fwd"]
+    n_walk = wf.launches["wf_res_walk"] - before["wf_res_walk"]
+    if estimator == "dda":
+        assert 1 <= n_walk <= n_fwd
+    else:
+        assert (n_fwd, n_walk) == (1, 0)
     assert wf.launches["wf_res_bwd"] == before["wf_res_bwd"] + 2
     assert wf.launches["wf_fwd"] == before["wf_fwd"]
     assert float(dose.abs().max()) > 0 and float(grad.abs().max()) > 0

@@ -17,6 +17,7 @@ torch's CPU ones differ by an ulp or two (on the card both use CUDA's,
 and agree more closely); a ratio or delta deposit is a point, so there
 up to 0.2 % of the nonzero values may be off by more."""
 import ctypes
+import ctypes.util
 import dataclasses
 import shutil
 import subprocess
@@ -53,8 +54,12 @@ STUB = r"""
 #define __forceinline__ inline
 #define __restrict__
 struct float2 { float x, y; };
+struct float4 { float x, y, z, w; };
 struct int4 { int x, y, z, w; };
 inline float2 make_float2(float a, float b) { return {a, b}; }
+inline float4 make_float4(float a, float b, float c, float d) {
+  return {a, b, c, d};
+}
 inline float __int_as_float(int i) {
   float f;
   std::memcpy(&f, &i, 4);
@@ -67,7 +72,7 @@ using std::isfinite;
 
 HARNESS = r"""
 #include <vector>
-#include "wf_trace.cuh"
+#include "wf_residual.cuh"
 using namespace wf;
 static std::vector<int> traced;
 
@@ -95,8 +100,8 @@ void run_blocks(const WfParams& P, const float* in, const int* ap,
       unsigned long long longest = 0;
       for (int l = 0; l < 32; ++l) {
         const unsigned long long s0 = S.steps;
-        const int aidx = trace_task<EST, SCAT, TONLY, RES>(
-            P, G, order, lo, hi, t, l, in, ap, out, S, chords);
+        const int aidx = trace_task<EST, SCAT, TONLY>(
+            P, G, order, lo, hi, t, l, in, ap, out, S);
         if (aidx >= 0) traced.push_back(aidx);
         if (S.steps - s0 > longest) longest = S.steps - s0;
       }
@@ -159,18 +164,54 @@ int dispatch(const WfParams* p, const float* in, const int* ap,
   return 0;
 }
 
+// the residual kernels' launch order on one thread (res_kernel): CTAs
+// [c0, c1), each CTA's angle frames first, then its tasks
+template <int EST, int RES, class SinkT>
+void run_res_blocks(const WfParams& P, int c0, int c1, const float* in,
+                    const int* ap, const int* order, const int* starts,
+                    const float* chords, const float4* tab, float* out,
+                    SinkT& S, unsigned long long& slots) {
+  Grid G;
+  G.init(P);
+  Frame frames[WF_RES_MAX_GROUP];
+  for (int b = c0; b < c1; ++b) {
+    const ResCta C = res_cta(P, starts, b);
+    for (int i = 0; i < C.n_angles; ++i) frames[i] = angle_frame(P, C.a0 + i);
+    for (int t = 0; t < task_count<SinkT::PRIMAL>(P, C.lo, C.hi); ++t) {
+      unsigned long long longest = 0;
+      for (int l = 0; l < 32; ++l) {
+        const unsigned long long s0 = EST == DELTA ? S.iters : S.steps;
+        const int aidx = res_task<EST, RES>(P, G, C, frames, t, l, in, ap,
+                                            order, chords, tab, out, S);
+        if (aidx >= 0) traced.push_back(aidx);
+        const unsigned long long d = (EST == DELTA ? S.iters : S.steps) - s0;
+        if (d > longest) longest = d;
+      }
+      slots += 32 * longest;
+    }
+  }
+}
+
 // the residual pair's instantiations (scattering, transmission only),
-// by estimator and residual mode, as csrc/wf_trace.cuh pick
+// by estimator and residual mode: the kernels' order with their tables
+// (BLOCKS; tab null: each lane computes its chord entry), or lane order
+// with every lane's set-up inline
 template <bool PRIMAL, bool BLOCKS>
 int res_dispatch(const WfParams* p, const float* in, const int* ap,
                  const int* order, const int* starts, const float* chords,
-                 float* out, unsigned long long* c) {
+                 const float4* tab, float* out, unsigned long long* c) {
   traced.clear();
+  Sink<PRIMAL, true> S{out, in, nullptr, nullptr, -1, 0.0f, 0, 0, 0, 0};
+  unsigned long long slots = 0;
+  const int n_ctas = p->resy * p->n_groups;
 #define R(E, M)                                                            \
   case E * 4 + M:                                                          \
-    (BLOCKS ? run_blocks<E, true, true, M, PRIMAL>                         \
-            : run_lanes<E, true, true, M, PRIMAL>)(                        \
-        *p, in, ap, order, starts, nullptr, chords, out, c);               \
+    if (BLOCKS)                                                            \
+      run_res_blocks<E, M>(*p, 0, n_ctas, in, ap, order, starts, chords,   \
+                           tab, out, S, slots);                            \
+    else                                                                   \
+      run_lanes<E, true, true, M, PRIMAL>(*p, in, ap, order, starts,       \
+                                          nullptr, chords, out, c);        \
     break;
   switch (p->estimator * 4 + p->residual) {
     R(DDA, SCAT_ONLY) R(DDA, FIRST_SCATTER) R(RATIO, SCAT_ONLY)
@@ -178,7 +219,141 @@ int res_dispatch(const WfParams* p, const float* in, const int* ap,
     R(DELTA, FAST_RESIDUAL)
     default: return 1;
   }
+  if (BLOCKS) {
+    const unsigned long long k[5] = {S.iters, S.steps, S.n_tile, S.n_global,
+                                     slots};
+    for (int i = 0; i < 5; ++i) c[i] += k[i];
+  }
   return 0;
+}
+#define RES_ENTRY(NAME, PRIMAL, BLOCKS)                                     \
+  extern "C" int NAME(const WfParams* p, const float* in, const int* ap,   \
+                      const int* order, const int* starts,                 \
+                      const float* chords, const float4* tab, float* out,  \
+                      unsigned long long* c, void*) {                      \
+    return res_dispatch<PRIMAL, BLOCKS>(p, in, ap, order, starts, chords,  \
+                                        tab, out, c);                      \
+  }
+RES_ENTRY(wf_res_fwd, true, true)
+RES_ENTRY(wf_res_bwd, false, true)
+RES_ENTRY(wf_res_fwd_lanes, true, false)
+RES_ENTRY(wf_res_bwd_lanes, false, false)
+
+// the dda forward's path pass over CTAs [c0, c1), as wf_res_path
+extern "C" int wf_res_path(const WfParams* p, int c0, int c1,
+                           const float* in, const int* ap, const int* order,
+                           const int* starts, const float* chords,
+                           const float4* tab, float4* recs, unsigned* n_recs,
+                           unsigned cap, unsigned long long* c, void*) {
+  traced.clear();
+  if (p->estimator != DDA) return 1;
+  PathSink<true> S{{nullptr, in, nullptr, nullptr, -1, 0.0f, 0, 0, 0, 0},
+                   recs, n_recs, cap};
+  unsigned long long slots = 0;
+  if (p->residual == SCAT_ONLY)
+    run_res_blocks<DDA, SCAT_ONLY>(*p, c0, c1, in, ap, order, starts, chords,
+                                   tab, nullptr, S, slots);
+  else if (p->residual == FIRST_SCATTER)
+    run_res_blocks<DDA, FIRST_SCATTER>(*p, c0, c1, in, ap, order, starts,
+                                       chords, tab, nullptr, S, slots);
+  else
+    return 1;
+  if (c != nullptr) c[0] += S.iters;
+  return 0;
+}
+
+// the walk pass in z-slices [zlo, zhi) as wf_res_walk runs it: N_WARPS
+// warps of 32 threads in turns, each warp's threads without a walk served in lane order from
+// the warp's chunk of records (WF_WALK_CHUNK claimed from *next at a
+// time), one step of every busy thread a turn
+extern "C" int wf_res_walk(const WfParams* p, const float4* recs, unsigned n,
+                           unsigned* next, int zlo, int zhi, float* acc,
+                           unsigned long long* c, void*) {
+  constexpr int N_WARPS = 3;
+  const WfParams& P = *p;
+  Grid G;
+  G.init(P);
+  Sink<true, true> S{acc, nullptr, nullptr, nullptr, -1, 0.0f, 0, 0, 0, 0};
+  struct Thread {
+    DdaWalk w;
+    float base;
+    bool busy;
+  };
+  std::vector<Thread> T(32 * N_WARPS);
+  for (auto& t : T) t.busy = false;
+  unsigned cur[N_WARPS] = {}, end[N_WARPS] = {};
+  bool drained[N_WARPS] = {}, done[N_WARPS] = {};
+  unsigned long long slots = 0, walking = 0;
+  for (int live = N_WARPS; live > 0;) {
+    for (int wi = 0; wi < N_WARPS; ++wi) {
+      if (done[wi]) continue;
+      Thread* th = T.data() + 32 * wi;
+      while (!drained[wi]) {
+        unsigned need = 0;
+        for (int l = 0; l < 32; ++l) need |= th[l].busy ? 0u : 1u << l;
+        if (need == 0u) break;
+        if (cur[wi] >= end[wi]) {
+          const unsigned b = *next;
+          *next += WF_WALK_CHUNK;
+          if (b >= n) {
+            drained[wi] = true;
+            break;
+          }
+          cur[wi] = b;
+          end[wi] = n - b < (unsigned)WF_WALK_CHUNK ? n : b + WF_WALK_CHUNK;
+        }
+        unsigned rank = 0;
+        for (int l = 0; l < 32; ++l) {
+          if (th[l].busy) continue;
+          if (rank < end[wi] - cur[wi]) {
+            const unsigned r = cur[wi] + rank;
+            const float4 a = recs[2 * r], b = recs[2 * r + 1];
+            th[l].busy = th[l].w.init(P, G, V3{a.x, a.y, a.z},
+                                      V3{a.w, b.x, b.y}, b.z) &&
+                         th[l].w.meets(zlo, zhi);
+            th[l].base = b.w;
+          }
+          ++rank;
+        }
+        cur[wi] = end[wi] - cur[wi] < rank ? end[wi] : cur[wi] + rank;
+      }
+      bool any = false;
+      for (int l = 0; l < 32; ++l) any = any || th[l].busy;
+      if (!any) {
+        done[wi] = true;
+        --live;
+        continue;
+      }
+      slots += 32;
+      for (int l = 0; l < 32; ++l)
+        if (th[l].busy) {
+          ++walking;
+          th[l].busy = th[l].w.step<true>(P, G, S, th[l].base, P.sigma_t,
+                                          zlo, zhi);
+        }
+    }
+  }
+  if (c != nullptr) {
+    c[0] += walking;
+    c[1] += S.steps;
+    c[3] += S.n_global;
+    c[4] += slots;
+  }
+  return 0;
+}
+
+// the chord table and the angle frames, by the kernels' own functions
+extern "C" int wf_res_chords(const float* bank, int n, float st, float4* tab,
+                             void*) {
+  for (int i = 0; i < n; ++i) chord_entry(bank + 12 * i, st, tab + 4 * i);
+  return 0;
+}
+extern "C" int res_frames(const WfParams* p, float* out) {
+  for (int a = 0; a < p->n_patterns; ++a) {
+    const Frame F = angle_frame(*p, a);
+    std::memcpy(out + 12 * a, &F, sizeof(F));
+  }
+  return (int)sizeof(Frame);
 }
 #define ENTRY(NAME, PRIMAL, BLOCKS)                                          \
   extern "C" int NAME(const WfParams* p, const float* in, const int* ap,   \
@@ -190,18 +365,6 @@ ENTRY(wf_fwd, true, true)
 ENTRY(wf_bwd, false, true)
 ENTRY(wf_fwd_lanes, true, false)
 ENTRY(wf_bwd_lanes, false, false)
-#define RES_ENTRY(NAME, PRIMAL, BLOCKS)                                     \
-  extern "C" int NAME(const WfParams* p, const float* in, const int* ap,   \
-                      const int* order, const int* starts,                 \
-                      const float* chords, float* out,                     \
-                      unsigned long long* c, void*) {                      \
-    return res_dispatch<PRIMAL, BLOCKS>(p, in, ap, order, starts, chords,  \
-                                        out, c);                           \
-  }
-RES_ENTRY(wf_res_fwd, true, true)
-RES_ENTRY(wf_res_bwd, false, true)
-RES_ENTRY(wf_res_fwd_lanes, true, false)
-RES_ENTRY(wf_res_bwd_lanes, false, false)
 // the active indices the last call traced, in its order
 extern "C" int wf_traced(int* out) {
   for (size_t i = 0; i < traced.size(); ++i) out[i] = traced[i];
@@ -226,19 +389,23 @@ def template_lib(tmp_path_factory):
                             "-o", str(lib)], capture_output=True, text=True)
     assert build.returncode == 0, build.stderr
     lib = ctypes.CDLL(str(lib))
-    for name in wf.KERNELS + wf.RES_KERNELS + (
-            "wf_fwd_lanes", "wf_bwd_lanes", "wf_res_fwd_lanes",
-            "wf_res_bwd_lanes"):
+    for name in wf.KERNELS + wf.RES_KERNELS:
         wf._setup(lib, name)
-    lib.wf_traced.argtypes = [ctypes.c_void_p]
-    lib.wf_traced.restype = ctypes.c_int
+    for name in ("wf_fwd", "wf_bwd", "wf_res_fwd", "wf_res_bwd"):
+        fn = getattr(lib, name + "_lanes")
+        fn.argtypes, fn.restype = wf._ARGS[name], ctypes.c_int
+    for name, args in (("wf_traced", [ctypes.c_void_p]),
+                       ("res_frames", [ctypes.POINTER(wf.WfParams),
+                                       ctypes.c_void_p])):
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = ctypes.c_int
     path = work / "t.ply"
     save_ply(make_box((0.5, 0.5, 0.5)), str(path))
     return lib, str(path)
 
 
 def _scene(path, estimator, albedo, projector, vial, tonly, diffuse=False,
-           n_patterns=6, store="identity"):
+           n_patterns=6, store="identity", sample_time=True):
     """store: "identity", "crop" (a cropped DMD window) or "subset" (a
     numpy-seeded random half of the pixels, in random order)."""
     med = {"ior": 1.4849, "extinction": 0.1, "albedo": albedo,
@@ -280,7 +447,8 @@ def _scene(path, estimator, albedo, projector, vial, tonly, diffuse=False,
                                    np.ones(pick.size, np.float32))
     static, arr = scene.build(mode="volume", include_target=False,
                               max_depth=8, rr_depth=3,
-                              transmission_only=tonly, sample_time=True)
+                              transmission_only=tonly,
+                              sample_time=sample_time)
     if diffuse:
         # the inner vial's outer wall made diffuse (reflectance 0.6): the
         # occlusions' BSDF, which no analytic vial has
@@ -435,10 +603,11 @@ RES_CASES = [("dda", "first_scatter", "cylindrical", "collimated"),
              ("delta", "scattered_only", "index_matched", "collimated")]
 
 
-def _residual(path, estimator, mode, vial, projector):
+def _residual(path, estimator, mode, vial, projector, **scene):
     """The hybrid engine's residual static and tensors on a small
     scattering scene: its chord bank, its mode."""
-    static, arr = _scene(path, estimator, 0.5, projector, vial, True)
+    static, arr = _scene(path, estimator, 0.5, projector, vial, True,
+                         **scene)
     eng = ScatteringEngine(static, arr, "cpu",
                            first_scatter=mode != "scattered_only")
     st = dataclasses.replace(eng.static_s,
@@ -449,16 +618,25 @@ def _residual(path, estimator, mode, vial, projector):
 
 
 def _run_res(lib, name, static, at, x, n_out, seed, spp):
+    """One of the harness's residual passes: the kernels' order with the
+    chord table, or lane order ("_lanes") with every set-up inline."""
     P, order, starts, bank = wf._family_params(name.replace("_lanes", ""),
                                                static, at, seed, spp)
+    tab = None if name.endswith("_lanes") else wf._res_chords(
+        _libs(lib), at, bank, P)
     out = torch.zeros(n_out)
     counters = (ctypes.c_ulonglong * len(wf.COUNTERS))()
     assert getattr(lib, name)(ctypes.byref(P), x.data_ptr(),
                               at["active_pixels"].data_ptr(),
                               wf._ptr(order), wf._ptr(starts), wf._ptr(bank),
-                              out.data_ptr(), ctypes.addressof(counters),
-                              None) == 0
+                              wf._ptr(tab), out.data_ptr(),
+                              ctypes.addressof(counters), None) == 0
     return out, dict(zip(wf.COUNTERS, counters))
+
+
+def _libs(lib):
+    """The harness library in the place of the card's kernel libraries."""
+    return {name: lib for name in wf.RES_KERNELS}
 
 
 @pytest.mark.parametrize("case", RES_CASES)
@@ -494,3 +672,213 @@ def test_residual_template_traces_the_plain_residual(case, template_lib):
     _close(dose, dose_ref, point)
     _close(grad, grad_ref, point)
     assert torch.equal(grad, grad_l)
+
+
+# the dda residual forward in two passes (the path pass's records, then
+# the walk pass with its refill loop), through the wrapper's batching
+# (ops/render.py res_forward): the dda cases of RES_CASES and two more,
+# one without time sampling (the CTAs' frame tables)
+SPLIT_CASES = [RES_CASES[0], RES_CASES[5],
+               ("dda", "first_scatter", "square", "collimated"),
+               ("dda", "scattered_only", "index_matched", "collimated")]
+
+
+@pytest.mark.parametrize("case,sample_time", [(c, True) for c in SPLIT_CASES]
+                         + [(SPLIT_CASES[0], False)])
+def test_split_dda_residual_traces_the_plain_residual(case, sample_time,
+                                                       template_lib):
+    """Path pass + walk pass against the plain residual: the same bounce
+    iterations and voxel steps exactly, every step one global deposit,
+    values to 1e-4 of the max; the walk's lane slots cover its steps."""
+    lib, path = template_lib
+    static, at = _residual(path, *case, sample_time=sample_time)
+    rng = np.random.default_rng(12)
+    data = torch.from_numpy(rng.uniform(
+        0.5, 1.5, static.projector.n_active).astype(np.float32))
+    seed, spp = 5, 3
+    ref_stats, stats = {}, {}
+    ref = wf._forward(static, at, data, seed, spp, wf.DEFAULT_CHUNK,
+                      ref_stats)
+    dose = wf.res_forward(_libs(lib), static, at, data, seed, spp, stats)
+    assert ref_stats["steps"] > 0
+    assert {k: stats[k] for k in ref_stats} == ref_stats
+    assert stats["global_deposits"] == stats["steps"]
+    assert stats["tile_deposits"] == 0
+    assert stats["steps"] <= stats["lane_slots"]
+    assert 0 < stats["records"] <= stats["iterations"]
+    _close(dose, ref, False)
+
+
+@pytest.mark.parametrize("case", [SPLIT_CASES[0], SPLIT_CASES[1]])
+def test_split_batches_change_no_step(case, template_lib, monkeypatch):
+    """Batches of 1, 2 and all the CTAs (each a DMD row's angle group):
+    the same steps and iterations, one batch a CTA at 1, values to 1e-4
+    of the max; the walk in 1, 2 (shipped) and 3 z-slabs: the same
+    steps; a buffer too small for a batch's records makes the wrapper
+    run it again in smaller parts, with the same steps."""
+    lib, path = template_lib
+    static, at = _residual(path, *case, n_patterns=30)
+    n_ctas = static.projector.resy * wf.angle_groups(30)[0]
+    assert n_ctas > 2
+    rng = np.random.default_rng(13)
+    data = torch.from_numpy(rng.uniform(
+        0.5, 1.5, static.projector.n_active).astype(np.float32))
+    seed, spp = 2, 2
+    # a buffer for 4 records a lane: room for all the CTAs in one batch
+    cap = 4 * static.projector.n_active * spp
+    at["_wf_res_split"] = (cap, torch.empty(cap * 8),
+                           torch.zeros(2, dtype=torch.int32))
+    runs = {}
+    for batch in (1, 2, n_ctas):
+        stats = {}
+        runs[batch] = (wf.res_forward(_libs(lib), static, at, data, seed,
+                                      spp, stats, batch_ctas=batch), stats)
+    assert runs[1][1]["batches"] == n_ctas
+    assert runs[2][1]["batches"] == -(-n_ctas // 2)
+    assert runs[n_ctas][1]["batches"] == 1
+    dose_all, all_stats = runs[n_ctas]
+    for batch in (1, 2):
+        dose, stats = runs[batch]
+        for k in ("iterations", "steps", "global_deposits", "records"):
+            assert stats[k] == all_stats[k], (batch, k)
+        _close(dose, dose_all, False)
+    # the walk in 1 and 3 z-slabs: the same steps
+    for slabs in (1, 3):
+        monkeypatch.setattr(wf, "WALK_SLABS", slabs)
+        stats = {}
+        dose = wf.res_forward(_libs(lib), static, at, data, seed, spp, stats)
+        assert stats["steps"] == all_stats["steps"], slabs
+        assert stats["walk_steps"] >= stats["steps"]
+        _close(dose, dose_all, False)
+    # a buffer of a tenth of the records: batches split until they fit
+    monkeypatch.setattr(wf, "SPLIT_MAX_RECORDS", all_stats["records"] // 10)
+    del at["_wf_res_split"]
+    stats = {}
+    dose = wf.res_forward(_libs(lib), static, at, data, seed, spp, stats)
+    assert stats["batches"] >= 10
+    assert {k: stats[k] for k in ("iterations", "steps")} == \
+        {k: all_stats[k] for k in ("iterations", "steps")}
+    _close(dose, dose_all, False)
+
+
+def _libm():
+    libm = ctypes.CDLL(ctypes.util.find_library("m"))
+    for name in ("cosf", "sinf", "expf"):
+        getattr(libm, name).argtypes = [ctypes.c_float]
+        getattr(libm, name).restype = ctypes.c_float
+    return libm
+
+
+def test_res_tables_equal_the_inline_computation(template_lib):
+    """The CTAs' frame table (angle_frame) and the chord table
+    (chord_entry), made by the template's own functions, equal bit for
+    bit what a lane computes inline: sample_rays' look-at at time a / A
+    and _sample_first_scatter's masses and exp(-st L_k), evaluated here
+    float32 operation by float32 operation (numpy) with the C library's
+    cosf, sinf and expf, which the host build calls. The plain version
+    of the table (ops/render.py _chord_table, torch's exp) agrees to an
+    ulp or two."""
+    lib, path = template_lib
+    static, at = _residual(path, "delta", "fast_residual", "cylindrical",
+                           "collimated", sample_time=False)
+    P = wf.make_params(static, at, 0, 1)
+    A = P.n_patterns
+    got = np.zeros((A, 12), np.float32)
+    assert lib.res_frames(ctypes.byref(P), got.ctypes.data) == 48
+    libm, f = _libm(), np.float32
+    want = np.zeros_like(got)
+    for a in range(A):
+        alpha = f(2.0 * np.pi) * (f(a) / f(A))
+        if P.clockwise:
+            alpha = -alpha
+        md = f(P.motion_distance)
+        o = np.array([md * f(libm.cosf(alpha)), md * f(libm.sinf(alpha)),
+                      md * f(0.0)], np.float32)
+        norm = lambda v: np.sqrt(v[0] * v[0] + v[1] * v[1] + v[2] * v[2])
+        dirw = -o / norm(o)
+        left = np.array([f(0) * dirw[2] - f(1) * dirw[1],
+                         f(1) * dirw[0] - f(0) * dirw[2],
+                         f(0) * dirw[1] - f(0) * dirw[0]], np.float32)
+        left = left / norm(left)
+        up2 = np.array([dirw[1] * left[2] - dirw[2] * left[1],
+                        dirw[2] * left[0] - dirw[0] * left[2],
+                        dirw[0] * left[1] - dirw[1] * left[0]], np.float32)
+        want[a] = np.concatenate([o, left, up2, dirw])
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+
+    # the inner vial splits a chord in two segments
+    bank = _residual(path, "dda", "first_scatter", "double_cylindrical",
+                     "collimated")[1]["chord_pack"]
+    n = bank.shape[0]
+    tab = torch.empty((n, 16))
+    assert lib.wf_res_chords(bank.data_ptr(), n, P.sigma_t, tab.data_ptr(),
+                             None) == 0
+    b, st = bank.numpy(), f(P.sigma_t)
+    e0 = np.array([libm.expf(-st * L) for L in b[:, 8]], np.float32)
+    e1 = np.array([libm.expf(-st * L) for L in b[:, 9]], np.float32)
+    m0 = b[:, 10] * (f(1) - e0)
+    m1 = b[:, 11] * e0 * (f(1) - e1)
+    want = np.stack([m0, m1, m0 + m1, np.zeros_like(m0), b[:, 8], b[:, 9],
+                     e0, e1, b[:, 0], b[:, 1], b[:, 4], b[:, 5], b[:, 2],
+                     b[:, 3], b[:, 6], b[:, 7]], 1)
+    assert (b[:, 10] > 0).any() and (b[:, 9] > 0).any()
+    assert np.array_equal(tab.numpy().view(np.uint32), want.view(np.uint32))
+    plain = wf._chord_table(bank, P.sigma_t)
+    assert torch.allclose(plain, tab, rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.parametrize("vial", ["cylindrical", "square"])
+def test_fast_loop_adjoint_with_tables_is_lane_order(vial, template_lib):
+    """The delta fast loop's adjoint in the kernels' order with the
+    frame and chord tables and the indices from the launch order equals,
+    bit for bit, the lane-order trace that computes every lane's set-up
+    inline; the forward the same paths, step for step."""
+    lib, path = template_lib
+    static, at = _residual(path, "delta", "fast_residual", vial,
+                           "collimated", sample_time=False)
+    assert not static.sample_time
+    rng = np.random.default_rng(14)
+    n, n_cells = static.projector.n_active, static.sensor.n_cells
+    data = torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32))
+    dL = torch.from_numpy(rng.uniform(0.0, 1.0, n_cells).astype(np.float32))
+    seed, spp = 8, 3
+    grad, g_stats = _run_res(lib, "wf_res_bwd", static, at, dL, n, seed, spp)
+    grad_l, g_stats_l = _run_res(lib, "wf_res_bwd_lanes", static, at, dL, n,
+                                 seed, spp)
+    assert g_stats["steps"] > 0
+    assert torch.equal(grad, grad_l)
+    dose, stats = _run_res(lib, "wf_res_fwd", static, at, data, n_cells,
+                           seed, spp)
+    dose_l, stats_l = _run_res(lib, "wf_res_fwd_lanes", static, at, data,
+                               n_cells, seed, spp)
+    for ours, lanes in ((stats, stats_l), (g_stats, g_stats_l)):
+        assert ours["iterations"] == lanes["iterations"]
+        assert ours["steps"] == lanes["steps"]
+        # a delta lane's slots are counted on its events
+        assert ours["iterations"] <= ours["lane_slots"]
+    _close(dose, dose_l, False)
+
+
+def test_walk_pass_equals_its_plain_version(template_lib):
+    """The walk pass (its refill loop, warps in turns, the shipped
+    z-slabs) on the path pass's records against its plain version
+    (ops/render.py _walk: march.dda_segment on the same records): the
+    same voxel steps, values to 1e-4 of the max."""
+    lib, path = template_lib
+    static, at = _residual(path, *SPLIT_CASES[0])
+    rng = np.random.default_rng(15)
+    data = torch.from_numpy(rng.uniform(
+        0.5, 1.5, static.projector.n_active).astype(np.float32))
+    cap = 4 * static.projector.n_active * 2
+    at["_wf_res_split"] = (cap, torch.empty(cap * 8),
+                           torch.zeros(2, dtype=torch.int32))
+    n_ctas = static.projector.resy * wf.angle_groups(6)[0]
+    recs = wf.res_path(_libs(lib), static, at, data, 4, 2, 0, n_ctas).clone()
+    assert recs.shape[0] > 0
+    acc = torch.zeros(static.sensor.n_cells)
+    stats, ref_stats = {}, {}
+    wf.res_walk(_libs(lib), static, at, recs, acc, 4, 2, stats)
+    ref = wf._walk(static, at, recs, stats=ref_stats)
+    assert stats["steps"] == ref_stats["steps"] > 0
+    assert stats["global_deposits"] == stats["steps"]
+    _close(acc, ref, False)

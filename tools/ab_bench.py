@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Bench phases of two trees on one card, in turns.
 
-    python3 tools/ab_bench.py PARENT_ROOT [ballistic|wavefront]
+    python3 tools/ab_bench.py PARENT_ROOT [ballistic|wavefront|hybrid]
 
 run from the root of the changed tree, on a machine with one NVIDIA GPU.
 PARENT_ROOT is an unpacked copy of the parent commit (`git archive`).
@@ -14,10 +14,17 @@ builds that tree's kernels and runs its own chip_smoke.py code:
     wf_bwd on the bench scene, 64 M lanes, the same numpy-seeded
     inputs, CUDA events, median of 5), wf_fwd as the final render
     launches it (spp 16, 1.02 G lanes, median of 3), and phase 9,
-    optimize() on the bench scene with engine 'wavefront'.
+    optimize() on the bench scene with engine 'wavefront';
+  hybrid: the residual pair on the bench scattering scene (albedo 0.5)
+    at full width, the delta fast loop at spp 1 each way (64 M lanes,
+    phase 8b's inputs, median of 20) and the dda first-scatter forward
+    as the final render launches it (spp 16, 1.02 G lanes, median of 3),
+    then phase 10, optimize() on that scene under 'auto' (the hybrid
+    engine: its loop and its final render). Six turns (parent, change,
+    change, parent, parent, change): three each way.
 
 Every JSON record a turn prints is tagged with the turn; the last line
-is each tree's median over its two turns of every timed number. Compares
+is each tree's median over its turns of every timed number. Compares
 two versions only within one call, as timings move from card to card.
 """
 import json
@@ -83,7 +90,60 @@ with tempfile.TemporaryDirectory() as tmp:
     cs.phase_wf_bench(torch, wf, bp, dev, tmp)
 """
 
-MODES = {"ballistic": BALLISTIC, "wavefront": WAVEFRONT}
+HYBRID = """
+import json, os, sys, tempfile
+sys.path.insert(0, os.getcwd())
+import numpy as np
+import torch
+import chip_smoke as cs
+from drtvam_tpu_torch.models.scene import Scene
+from drtvam_tpu_torch.ops import backproject as bp
+from drtvam_tpu_torch.ops import render as wf
+from drtvam_tpu_torch.ops.hybrid import ScatteringEngine
+dev = torch.device("cuda:0")
+wf.build_kernels()
+bp.build_kernels()
+torch.zeros(1, device=dev)  # create the context before the memory stats
+
+
+def emit(name, ms):
+    print(json.dumps({"phase": "res_full_width", "name": name, "ms": ms}),
+          flush=True)
+
+
+with tempfile.TemporaryDirectory() as tmp:
+    sc = Scene(cs.bench_scattering_config(tmp))
+    static, arr = sc.build(mode="volume", include_target=False, max_depth=6,
+                           rr_depth=6)
+    eng = ScatteringEngine(static, arr, dev, spp=1, estimator="delta")
+    st, at = eng.static_s, eng.arr
+    rng = np.random.default_rng(3)  # phase 8b's inputs
+    data = torch.from_numpy(rng.uniform(
+        0.0, 1.0, st.projector.n_active).astype(np.float32)).to(dev)
+    dL = torch.from_numpy(rng.uniform(
+        0.0, 1.0, st.sensor.n_cells).astype(np.float32)).to(dev)
+    emit("wf_res_fwd", cs.cuda_ms(lambda: wf.wf_res_fwd(st, at, data, 0, 1),
+                                  20, torch))
+    emit("wf_res_bwd", cs.cuda_ms(lambda: wf.wf_res_bwd(st, at, dL, 0, 1),
+                                  20, torch))
+    # the final render's launch: the scene's dda at spp 16, built as
+    # optimize() builds it for the final render (max_depth 16, rr_depth 8)
+    static_f, arr_f = sc.build(mode="volume", include_target=False,
+                               max_depth=16, rr_depth=8)
+    eng_f = ScatteringEngine(static_f, arr_f, dev, spp=16)
+    emit("wf_res_fwd_spp16", cs.cuda_ms(lambda: wf.wf_res_fwd(
+        eng_f.static_s, eng_f.arr, data, 0, 16), 3, torch))
+    del eng, eng_f, at, data, dL
+    torch.cuda.empty_cache()
+    cs.phase_hybrid_bench(torch, wf, bp, dev, tmp)
+"""
+
+MODES = {"ballistic": BALLISTIC, "wavefront": WAVEFRONT, "hybrid": HYBRID}
+# the turns of each mode: parent and change in alternation
+TURNS = {"ballistic": ("parent", "change", "change", "parent"),
+         "wavefront": ("parent", "change", "change", "parent"),
+         "hybrid": ("parent", "change", "change", "parent", "parent",
+                    "change")}
 
 
 def timed(rec):
@@ -97,7 +157,8 @@ def main():
     if len(sys.argv) not in (2, 3) or (len(sys.argv) == 3
                                        and sys.argv[2] not in MODES):
         sys.exit(__doc__)
-    bench = MODES[sys.argv[2] if len(sys.argv) == 3 else "ballistic"]
+    mode = sys.argv[2] if len(sys.argv) == 3 else "ballistic"
+    bench = MODES[mode]
     trees = {"parent": os.path.abspath(sys.argv[1]), "change": os.getcwd()}
     smi = subprocess.run(["nvidia-smi", "-i", "0",
                           "--query-gpu=name,power.limit",
@@ -105,7 +166,7 @@ def main():
                          text=True, timeout=60, check=True)
     print(smi.stdout.strip(), flush=True)
     seen = {"parent": {}, "change": {}}
-    for turn, tree in enumerate(("parent", "change", "change", "parent")):
+    for turn, tree in enumerate(TURNS[mode]):
         out = subprocess.run([sys.executable, "-c", bench],
                              cwd=trees[tree], capture_output=True, text=True,
                              timeout=900)

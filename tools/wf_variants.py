@@ -3,6 +3,8 @@
 
     python3 tools/wf_variants.py [VARIANT ...]   (default: all; "shipped"
                                                   always runs, first)
+    python3 tools/wf_variants.py residual [VARIANT ...]   (the residual
+                                                  pair's, RES_VARIANTS)
 
 run from the repo root on a machine with one NVIDIA GPU. Each variant
 changes one thing against the source as it is ("shipped"): the threads
@@ -23,6 +25,18 @@ variants also the forward as the final render launches it, spp 16, and
 on the bench scene at spp 2 to 16, median of 3), the counters and the
 launch shape. One JSON record per variant; compare variants only within
 one call.
+The residual pair's variants (the hybrid engine's wf_res_fwd /
+wf_res_bwd, csrc/wf_residual.cuh) are builds of the shipped source with
+other values of its compile-time constants: the per-lane set-up levers
+turned off one at a time and all together (WF_RES_FRAMES, WF_RES_CHORDS,
+WF_RES_DIVS), other launch shapes of the per-lane kernel and of the
+walk pass, and the walk's chunk of records. Each runs the bench
+scattering scene (albedo 0.5) at full width: the delta fast loop at spp
+1 each way (64 M lanes, median of 5; forward within 1e-5 of the max of
+the shipped build's, adjoint bitwise) and the dda first-scatter forward
+as the final render launches it (spp 16, 1.02 G lanes, one launch after
+a warm-up: its path and walk passes' times, the walk's SIMT efficiency),
+with the registers and spills of the instantiations these run.
 """
 import ctypes
 import json
@@ -61,20 +75,20 @@ FORWARD_OLD = """    if (em == 0.0f) return aidx;
     // the one lane, as a loop that runs once: nvcc's code for this form
     // ran 6 % faster on an H100 than a plain call (PERF.md section 6)
     for (int k = t % P.spp; k < P.spp; k += P.spp) {
-      trace_lane<EST, SCAT, TONLY, RES>(
+      trace_lane<EST, SCAT, TONLY>(
           P, G, (uint32_t)aidx * (uint32_t)P.spp + (uint32_t)k, aidx,
-          active_pixels, em, S, chords);
+          active_pixels, em, S);
     }"""
 FORWARD_NEW = {
     "pixel_lanes": """    if (em == 0.0f) return aidx;
     for (int k = 0; k < P.spp; ++k)
-      trace_lane<EST, SCAT, TONLY, RES>(
+      trace_lane<EST, SCAT, TONLY>(
           P, G, (uint32_t)aidx * (uint32_t)P.spp + (uint32_t)k, aidx,
-          active_pixels, em, S, chords);""",
+          active_pixels, em, S);""",
     "straight_call": """    if (em == 0.0f) return aidx;
-    trace_lane<EST, SCAT, TONLY, RES>(
+    trace_lane<EST, SCAT, TONLY>(
         P, G, (uint32_t)aidx * (uint32_t)P.spp + (uint32_t)(t % P.spp),
-        aidx, active_pixels, em, S, chords);"""}
+        aidx, active_pixels, em, S);"""}
 # pixel_lanes also takes one task per 32 pixels, and 32 pixels a task
 TASK_OLD = ("return (PRIMAL ? P.spp : 1) * ((hi - lo + 31) / 32);",
             "const int j = lo + 32 * (t / P.spp) + l;")
@@ -196,7 +210,176 @@ def bench_ptxas(log):
     return None
 
 
+# name: {compile-time constant of csrc/wf_residual.cuh: value; "slabs":
+# ops/render.py WALK_SLABS}
+RES_VARIANTS = {
+    "shipped": {},
+    "no_frames": {"WF_RES_FRAMES": 0},
+    "no_chords": {"WF_RES_CHORDS": 0},
+    "divides": {"WF_RES_DIVS": 0},
+    "no_levers": {"WF_RES_FRAMES": 0, "WF_RES_CHORDS": 0, "WF_RES_DIVS": 0},
+    "threads128": {"WF_RES_THREADS": 128, "WF_RES_MIN_CTAS": 8},
+    "threads512": {"WF_RES_THREADS": 512, "WF_RES_MIN_CTAS": 2},
+    "threads1024": {"WF_RES_THREADS": 1024, "WF_RES_MIN_CTAS": 1},
+    "walk_ctas8": {"WF_WALK_MIN_CTAS": 8},
+    "walk_ctas5": {"WF_WALK_MIN_CTAS": 5},
+    "walk_threads128": {"WF_WALK_THREADS": 128, "WF_WALK_MIN_CTAS": 8},
+    "walk_chunk32": {"WF_WALK_CHUNK": 32},
+    "slabs1": {"slabs": 1},
+    "slabs3": {"slabs": 3},
+    "slabs4": {"slabs": 4},
+    # the per-lane work timed apart, with the levers and without: every
+    # lane stopped after its ray's set-up (1), after its first scatter (2)
+    "stop_setup": {"WF_RES_STOP": 1},
+    "stop_first_scatter": {"WF_RES_STOP": 2},
+    "no_levers_stop_setup": {"WF_RES_FRAMES": 0, "WF_RES_CHORDS": 0,
+                             "WF_RES_DIVS": 0, "WF_RES_STOP": 1},
+    "no_levers_stop_first_scatter": {"WF_RES_FRAMES": 0, "WF_RES_CHORDS": 0,
+                                     "WF_RES_DIVS": 0, "WF_RES_STOP": 2},
+}
+# timed launches of the delta fast loop a variant (median)
+RES_REPS = 20
+
+
+def res_build(work, names):
+    """One nvcc per (variant, residual entry point), all started
+    together; returns {(variant, entry point): (library, ptxas log)}."""
+    from drtvam_tpu_torch.native import CUDA_SRC_DIR, nvcc_path
+    jobs = []
+    for v in names:
+        for n in ("wf_res_fwd", "wf_res_bwd"):
+            lib = os.path.join(work, f"lib{n}_{v}.so")
+            cmd = [nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
+                   "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
+                   "-Xcompiler", "-fPIC", "--fmad=false", "-I", CUDA_SRC_DIR]
+            cmd += [f"-D{k}={val}" for k, val in RES_VARIANTS[v].items()
+                    if k.startswith("WF_")]
+            cmd += [os.path.join(CUDA_SRC_DIR, n + ".cu"), "-o", lib]
+            jobs.append((v, n, lib, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+    out = {}
+    for v, n, lib, proc in jobs:
+        log, _ = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{v} {n}: nvcc failed\n{log}")
+        out[(v, n)] = (lib, log)
+    return out
+
+
+def res_ptxas(log):
+    """Registers and spill bytes of the instantiations the bench runs:
+    the delta fast loop (forward, adjoint), the dda path pass and the
+    walk pass (not counting)."""
+    import chip_smoke as cs
+    keep = {}
+    for part in log.split("Compiling entry function '")[1:]:
+        name = cs.instantiation(part.split("'")[0])
+        if "counting" in name or not (
+                "FAST_RESIDUAL" in name or "DDA, FIRST_SCATTER, path" in name
+                or name == "walk pass"):
+            continue
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", part)
+        keep[name] = {"registers": int(regs.group(1)),
+                      "spill_store_bytes": int(spill.group(1)),
+                      "spill_load_bytes": int(spill.group(2))}
+    return keep
+
+
+def main_residual(names):
+    import torch
+    import chip_smoke as cs
+    from drtvam_tpu_torch.models.scene import Scene
+    from drtvam_tpu_torch.ops import render as wf
+    from drtvam_tpu_torch.ops.hybrid import ScatteringEngine
+    dev = torch.device("cuda:0")
+    with tempfile.TemporaryDirectory() as work:
+        built = res_build(work, names)
+        cfg = cs.bench_scattering_config(work)
+        sc = Scene(cfg)
+        static, arr = sc.build(mode="volume", include_target=False,
+                               max_depth=6, rr_depth=6)
+        eng = ScatteringEngine(static, arr, dev, spp=1, estimator="delta")
+        st, at = eng.static_s, eng.arr
+        static_f, arr_f = sc.build(mode="volume", include_target=False,
+                                   max_depth=16, rr_depth=8)
+        eng_f = ScatteringEngine(static_f, arr_f, dev, spp=16)
+        st_f, at_f = eng_f.static_s, eng_f.arr
+        rng = np.random.default_rng(3)  # phase 8b's inputs
+        data = torch.from_numpy(rng.uniform(
+            0.0, 1.0, st.projector.n_active).astype(np.float32)).to(dev)
+        dL = torch.from_numpy(rng.uniform(
+            0.0, 1.0, st.sensor.n_cells).astype(np.float32)).to(dev)
+        ref = {}
+        shipped_slabs = wf.WALK_SLABS
+        for v in names:
+            wf.WALK_SLABS = RES_VARIANTS[v].get("slabs", shipped_slabs)
+            libs = {}
+            for n in ("wf_res_fwd", "wf_res_bwd"):
+                lib = ctypes.CDLL(built[(v, n)][0])
+                wf._setup(lib, n)
+                libs[n] = lib
+            rec = {"variant": v, **RES_VARIANTS[v],
+                   "ptxas": {n: res_ptxas(built[(v, n)][1])
+                             for n in ("wf_res_fwd", "wf_res_bwd")}}
+            for n, x in (("wf_res_fwd", data), ("wf_res_bwd", dL)):
+                call = wf.res_forward if n == "wf_res_fwd" else \
+                    wf.res_adjoint
+                stats = {}
+                out = call(libs, st, at, x, 0, 1, stats)
+                torch.cuda.synchronize()
+                stop = "WF_RES_STOP" in RES_VARIANTS[v]
+                if v == "shipped":
+                    ref[n] = out
+                    err = 0.0
+                elif stop:  # a stopped lane makes no deposit
+                    err = None
+                else:
+                    err = float((out - ref[n]).abs().max())
+                    lim = 1e-5 * float(ref[n].abs().max()) \
+                        if n == "wf_res_fwd" else 0.0
+                    if not err <= lim:
+                        raise AssertionError(f"{v} {n}: off the shipped "
+                                             f"build by {err}")
+                rec[n] = {"ms": cs.cuda_ms(lambda: call(libs, st, at, x, 0,
+                                                        1), RES_REPS, torch),
+                          "max_abs_err_vs_shipped": err,
+                          "simt_efficiency": None if stop else
+                          stats["iterations"] / stats["lane_slots"]}
+                del out
+            if "WF_RES_STOP" in RES_VARIANTS[v]:
+                print(json.dumps(rec), flush=True)
+                continue
+            stats, times = {}, {}
+            call = lambda: wf.res_forward(  # noqa: E731
+                libs, st_f, at_f, data, 0, 16, stats, times=times)
+            ms = cs.cuda_ms(call, 1, torch)
+            rec["final_render"] = {
+                "ms": ms, **{k: t / 2 for k, t in times.items()},
+                "steps": stats["steps"] // 2,
+                "batches": stats["batches"] // 2,
+                "simt_efficiency": stats["steps"] / stats["lane_slots"],
+                "walking_share": stats["walk_steps"] / stats["lane_slots"]}
+            print(json.dumps(rec), flush=True)
+
+
 def main():
+    if sys.argv[1:2] == ["residual"]:
+        names = sys.argv[2:] or list(RES_VARIANTS)
+        unknown = [n for n in names if n not in RES_VARIANTS]
+        if unknown:
+            sys.exit(f"residual variants: {list(RES_VARIANTS)}; unknown "
+                     f"{unknown}")
+        names = ["shipped"] + [n for n in names if n != "shipped"]
+        smi = subprocess.run(["nvidia-smi", "-i", "0",
+                              "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60, check=True)
+        print(smi.stdout.strip(), flush=True)
+        main_residual(names)
+        return
     names = sys.argv[1:] or list(VARIANTS)
     unknown = [n for n in names if n not in VARIANTS]
     if unknown or "shipped" not in names:
