@@ -6,10 +6,11 @@
 Phases (each failure exits non-zero before the result line):
   1. device: a CUDA device must exist; prints nvidia-smi's name and
      power limit.
-  2. build: nvcc builds the twelve kernel sources from csrc/ (the four
+  2. build: nvcc builds the fourteen kernel sources from csrc/ (the four
      backprojection kernels, their four bf16 operand forms, the
-     wavefront pair and the hybrid engine's residual pair, whose forward
-     also holds the dda walk pass and the chord table), one process per
+     wavefront pair, the hybrid engine's residual pair, whose forward
+     also holds the dda walk pass and the chord table, and the two
+     culling renders wf_radon and wf_corner), one process per
      source, all started together with four builds of the residual pair
      that stop each lane early (phase 8b's per-lane times) and
      tools/atomic_rate.cu; registers and spills per library, the
@@ -109,6 +110,28 @@ Phases (each failure exits non-zero before the result line):
      not; the best IoU of the final render (dda, spp_ref 16) must reach
      0.98. Where it differs from
      bench.py's scattering cell is printed with it.
+  11. DMD-pixel culling (filter_radon, filter_corner), the target mesh in
+     the march (csrc/wf_mesh.cuh): wf_radon against the plain radon
+     render on small scenes (cylindrical and square vials, collimated and
+     telecentric, the target's grid and a brute-force box, spp 1 to 4):
+     the image to CULL_TOL of its max, the same kept set and bounce
+     iterations, bitwise on two launches; wf_corner's keep image equal to
+     its plain version. Then at full width: the bench scene's radon
+     render (64 M lanes, regular sampling, spp 1): time, counts (bounce
+     iterations, grid cells, triangles), bound, kernel vs plain at 16
+     angles, its kept set against the ballistic cull (at most 2 % of the
+     pixels differ, each on a boundary); the square bench vial's corner
+     render (64 M lanes; its keep image equal to the plain version's at
+     full width). Then optimize() on the bench scene with filter_radon
+     (the ballistic cull: bp_bwd; the dense pair on the kept pixels; IoU
+     gate 0.98), on the square bench vial with filter_corner {"dist":
+     3.6, "radius": 0.2} (wf_corner must launch), on the bench scene
+     with a telecentric projector and filter_radon (wf_radon's main
+     path: the radon render at spp 4, 256 M lanes, held to the plain
+     version on every 50th angle's pixels; then wf_fwd / wf_bwd on the
+     kept pixels' sparse store), and the CLI on phase 9's telecentric
+     config with filter_radon: kept share, culling seconds, loop, final
+     render.
 
 Each earlier line is a JSON record; the line before the last lists the
 kernels, the last is {"ok": true, "device": {...}}. The wavefront
@@ -165,6 +188,12 @@ REPLACES = {
                    "forward's walks; XLA)",
     "wf_res_chords": "drtvam_tpu/ops/march.py:373 (_sample_first_scatter's "
                      "chord masses; XLA)",
+    "wf_radon": "drtvam_tpu/ops/render.py:193 (render_radon: trace_wavefront "
+                "radon mode, march.py:917-923; ray_triangles_grid "
+                "mesh_grid.py:117; XLA)",
+    "wf_corner": "drtvam_tpu/ops/render.py:226 (render_corner: "
+                 "intersect_scene march.py:151-190; ray_triangles_grid "
+                 "mesh_grid.py:117; XLA)",
 }
 # wf kernel vs plain wavefront on the card: the same per-lane float32
 # arithmetic rounded op by op (--fmad=false); the forward's atomics sum
@@ -1093,10 +1122,14 @@ def phase_wf_bench(torch, wf, bp, dev, tmp):
     return counts
 
 
-def phase_cli_wavefront(wf, tmp):
-    """The CLI on a small telecentric config: auto runs the wavefront."""
+def phase_cli_wavefront(wf, tmp, extra=None, phase="cli_telecentric",
+                        kernels=None):
+    """The CLI on a small telecentric config: auto runs the wavefront.
+    extra: more config keys (filter_radon: the radon render's cull
+    first); kernels: those that must launch (default the wavefront
+    pair). Returns the launches."""
     from drtvam_tpu_torch.ops.mesh import make_box_with_hole, save_ply
-    work = os.path.join(tmp, "cli_wf")
+    work = os.path.join(tmp, phase)
     os.makedirs(work)
     save_ply(make_box_with_hole((2.0, 2.0, 0.5), 1.0,
                                 hole_center_xy=(-1.0, 0.0)),
@@ -1115,21 +1148,23 @@ def phase_cli_wavefront(wf, tmp):
         "target": {"filename": "box_hole.ply", "size": 4.0},
         "loss": {"type": "threshold", "tl": 0.85, "tu": 0.95},
         "n_steps": 6, "output": os.path.join(work, "out")}
+    cfg.update(extra or {})
     cfg_path = os.path.join(work, "config.json")
     with open(cfg_path, "w") as f:
         json.dump(cfg, f)
     wf.reset_launches()
     argv = sys.argv
     sys.argv = ["drtvam_tpu_torch", cfg_path]
+    t0 = time.perf_counter()
     try:
         runpy.run_module("drtvam_tpu_torch", run_name="__main__")
     finally:
         sys.argv = argv
+    wall = time.perf_counter() - t0
     counts = dict(wf.launches)
-    for name in wf.KERNELS:
+    for name in kernels or wf.KERNELS:
         if counts[name] == 0:
-            raise AssertionError(f"the telecentric CLI run never launched "
-                                 f"{name}")
+            raise AssertionError(f"the {phase} run never launched {name}")
     out = cfg["output"]
     files = ["final.exr", "final.npy", "target.exr", "target.npy",
              "loss.npy", "timing.npy", "patterns.npz",
@@ -1142,8 +1177,11 @@ def phase_cli_wavefront(wf, tmp):
     loss = np.load(os.path.join(out, "loss.npy"))
     final = np.load(os.path.join(out, "final.npy"))
     assert np.isfinite(final).all() and loss[-1] < loss[0]
-    emit({"phase": "cli_telecentric", "launches": counts,
-          "loss_first": float(loss[0]), "loss_last": float(loss[-1])})
+    patterns = np.load(os.path.join(out, "patterns.npz"))["patterns"]
+    emit({"phase": phase, "launches": counts, "wall_s": wall,
+          "loss_first": float(loss[0]), "loss_last": float(loss[-1]),
+          "nonzero_pattern_share": float((patterns > 0).mean())})
+    return counts
 
 
 # --------------------------------------------------------------------------
@@ -1667,6 +1705,501 @@ def phase_hybrid_bench(torch, wf, bp, dev, tmp):
     return counts
 
 
+# --------------------------------------------------------------------------
+# DMD-pixel culling: the radon and corner renders
+
+
+# float32 operations of the culling kernels (csrc/wf_trace.cuh, each
+# transcendental counted as one): a lane's ray set-up, one bounce
+# iteration past its surface intersections (Russian roulette, the
+# refraction, the absorption term and the medium bookkeeping), one
+# analytic surface test, one grid cell step and one triangle test
+# (csrc/wf_mesh.cuh)
+CULL_LANE_OPS = 90
+CULL_ITER_OPS = 80
+CULL_SURF_OPS = 30
+CULL_CELL_OPS = 20
+CULL_TRI_OPS = 40
+# the radon kernel vs its plain version: the same per-lane arithmetic,
+# CUDA's transcendentals on both sides; the image to this fraction of
+# its max, the kept set (pixels > 0) equal
+CULL_TOL = 1e-4
+
+
+def cull_bound(n_bytes, lanes, n_surf, stats, corner=False):
+    """Least time on the card: the image's bytes at the HBM rate, or the
+    float32 work at the float32 peak: CULL_LANE_OPS a lane, per bounce
+    iteration the kernel counted CULL_ITER_OPS and CULL_SURF_OPS for each
+    analytic surface, CULL_CELL_OPS a grid cell and CULL_TRI_OPS a
+    triangle it counted. A lane of the corner render (corner) runs no
+    bounce iteration: it tests each analytic surface once."""
+    byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    if corner:
+        ops = (CULL_LANE_OPS + CULL_SURF_OPS * n_surf) * lanes
+    else:
+        ops = CULL_LANE_OPS * lanes + \
+            (CULL_ITER_OPS + CULL_SURF_OPS * n_surf) * stats["iterations"]
+    ops += CULL_CELL_OPS * stats["cells"] + CULL_TRI_OPS * stats["triangles"]
+    op_ms = ops / F32_FLOPS * 1e3
+    return (max(byte_ms, op_ms),
+            "operations" if op_ms >= byte_ms else "bytes")
+
+
+def cull_small_scene(tmp, vial, target, projector, albedo, regular,
+                     corner=False, tonly=True):
+    """tests/test_radon_cull.py's scene cut to 8 angles of 64x16 and a
+    48x48x24 film: a cylindrical or square vial, collimated or
+    telecentric, the box-with-hole target (792 triangles: its grid) or a
+    12-triangle box (brute force); the radon static, or the corner
+    render's (corner)."""
+    from drtvam_tpu_torch.models.scene import Scene
+    from drtvam_tpu_torch.ops.mesh import (make_box, make_box_with_hole,
+                                           save_ply)
+    path = os.path.join(tmp, f"cull_{target}.ply")
+    save_ply(make_box_with_hole((2.0, 2.0, 1.0), 0.5, segments=99)
+             if target == "grid" else make_box((0.5, 0.5, 0.5)), path)
+    vials = {"cylindrical": {"type": "cylindrical", "r_int": 2.6,
+                             "r_ext": 2.9, "ior": 1.54},
+             "square": {"type": "square", "w_int": 4.6, "w_ext": 5.0,
+                        "ior": 1.54}}
+    proj = {"type": projector, "n_patterns": 8, "resx": 64, "resy": 16,
+            "pixel_size": 5.0 / 64, "motion": "circular", "distance": 20}
+    if projector == "telecentric":
+        proj.update(aperture_radius=0.1, focus_distance=20.0)
+    cfg = {"vial": dict(vials[vial], medium={
+               "ior": 1.40, "phase": {"type": "rayleigh"},
+               "extinction": 0.1, "albedo": albedo}),
+           "projector": proj,
+           "sensor": {"type": "dda", "scalex": 5, "scaley": 5,
+                      "scalez": 1.25,
+                      "film": {"type": "vfilm", "resx": 48, "resy": 48,
+                               "resz": 24}},
+           "target": {"filename": path, "size": 1.5}, "output": tmp}
+    if corner:
+        return Scene(cfg).build(mode="volume", include_target=True,
+                                max_depth=1, rr_depth=6,
+                                regular_sampling=True)
+    return Scene(cfg).build(mode="radon", include_target=True, max_depth=5,
+                            rr_depth=3, regular_sampling=regular,
+                            transmission_only=tonly)
+
+
+# radon: (vial, target, projector, albedo, regular sampling, spp,
+# transmission only)
+CULL_RADON_CASES = {
+    "cylindrical_grid": ("cylindrical", "grid", "collimated", 0.0, True, 1,
+                         True),
+    "cylindrical_grid_scattering_spp4": ("cylindrical", "grid",
+                                         "collimated", 0.5, False, 4, True),
+    "square_brute_force_spp4": ("square", "box", "collimated", 0.5, False,
+                                4, True),
+    "cylindrical_grid_telecentric": ("cylindrical", "grid", "telecentric",
+                                     0.0, False, 2, True),
+    "square_grid_telecentric_reflecting": ("square", "grid", "telecentric",
+                                           0.0, False, 2, False),
+}
+# corner: (target, projector)
+CULL_CORNER_CASES = {"grid_collimated": ("grid", "collimated"),
+                     "brute_force_collimated": ("box", "collimated"),
+                     "grid_telecentric": ("grid", "telecentric")}
+
+
+def radon_compare(name, img, ref):
+    """The radon image against its plain version: within CULL_TOL of the
+    max, the same kept set; raises past either."""
+    scale = float(ref.abs().max())
+    err = float((img - ref).abs().max())
+    kept, kept_plain = img > 0, ref > 0
+    if not (scale > 0 and bool(img.isfinite().all())):
+        raise AssertionError(f"{name}: empty or non-finite image")
+    if err > CULL_TOL * scale or not torch_equal(kept, kept_plain):
+        raise AssertionError(f"{name} disagrees with its plain version: max "
+                             f"{err} of {scale}, kept {int(kept.sum())} vs "
+                             f"{int(kept_plain.sum())}")
+    return {"max_abs_err": err, "max_abs_plain": scale,
+            "kept": int(kept.sum()), "pixels": int(img.numel())}
+
+
+def torch_equal(a, b):
+    return bool((a == b).all())
+
+
+def phase_cull_kernels(torch, wf, dev, tmp):
+    """wf_radon and wf_corner against their plain versions on the card,
+    on small scenes: the image to CULL_TOL of its max with the same kept
+    set (radon; the same bounce iterations, bitwise on two launches), the
+    same keep image (corner)."""
+    from drtvam_tpu_torch.ops.march import scene_tensors
+    out = {}
+    for case, (vial, target, proj, albedo, regular, spp, tonly) in \
+            CULL_RADON_CASES.items():
+        static, arr = cull_small_scene(tmp, vial, target, proj, albedo,
+                                       regular, tonly=tonly)
+        at = scene_tensors(arr, dev)
+        sk, sp = {}, {}
+        img = wf.wf_radon(static, at, 7, spp, sk)
+        img2 = wf.wf_radon(static, at, 7, spp)
+        ref = wf._radon(static, at, 7, spp, wf.DEFAULT_CHUNK, sp)
+        torch.cuda.synchronize()
+        rec = {"phase": "cull_kernel", "name": "wf_radon", "case": case,
+               "spp": spp, "lanes": static.projector.n_active * spp,
+               "counts": sk, "iterations_plain": sp["iterations"],
+               "bitwise_repeat": torch_equal(img, img2)}
+        rec.update(radon_compare(f"wf_radon {case}", img, ref))
+        if sk["iterations"] != sp["iterations"]:
+            raise AssertionError(f"wf_radon {case}: {sk['iterations']} "
+                                 f"iterations, the plain version "
+                                 f"{sp['iterations']}")
+        if not rec["bitwise_repeat"]:
+            raise AssertionError(f"wf_radon {case}: two launches differ")
+        if (sk["cells"] > 0) != (target == "grid") or not sk["triangles"]:
+            raise AssertionError(f"wf_radon {case}: counts {sk}")
+        rec["ms"], _ = event_ms(lambda: wf.wf_radon(static, at, 7, spp),
+                                torch)
+        rec["plain_ms"], _ = event_ms(
+            lambda: wf._radon(static, at, 7, spp, wf.DEFAULT_CHUNK), torch)
+        emit(rec)
+        out[case] = rec
+    for case, (target, proj) in CULL_CORNER_CASES.items():
+        static, arr = cull_small_scene(tmp, "square", target, proj, 0.0,
+                                       True, corner=True)
+        at = scene_tensors(arr, dev)
+        sk = {}
+        img = wf.wf_corner(static, at, 2.5, 0.3, 0, sk)
+        ref = wf._corner(static, at, 2.5, 0.3, 0, wf.DEFAULT_CHUNK)
+        torch.cuda.synchronize()
+        kept = int((ref > 0).sum())
+        rec = {"phase": "cull_kernel", "name": "wf_corner", "case": case,
+               "lanes": static.projector.n_active, "counts": sk,
+               "kept": kept, "pixels": int(ref.numel()),
+               "equal": torch_equal(img, ref),
+               "max_abs_err": float((img - ref).abs().max())}
+        if not (rec["equal"] and 0 < kept < ref.numel()):
+            raise AssertionError(f"wf_corner {case}: keep image differs "
+                                 f"from its plain version ({rec})")
+        rec["ms"], _ = event_ms(lambda: wf.wf_corner(static, at, 2.5, 0.3),
+                                torch)
+        rec["plain_ms"], _ = event_ms(
+            lambda: wf._corner(static, at, 2.5, 0.3, 0, wf.DEFAULT_CHUNK),
+            torch)
+        emit(rec)
+        out["corner_" + case] = rec
+    return out
+
+
+def square_bench_config(tmp):
+    """bench.py:197-200's square vial (w_int 6.8, w_ext 7.2 mm) in the
+    bench scene."""
+    cfg = bench_config(tmp, "cylindrical")
+    cfg["vial"] = {"type": "square", "w_int": 6.8, "w_ext": 7.2,
+                   "ior": 1.54, "medium": cfg["vial"]["medium"]}
+    cfg["output"] = os.path.join(tmp, "bench_square")
+    return cfg
+
+
+def boundary_check(name, kept_a, kept_r, resx, n):
+    """test_radon_cull.py's criterion between two kept sets (dense flat
+    indices): at most 2 % of the n pixels differ, and each differing pixel
+    has a neighbour in its DMD row that both keep. Returns the count."""
+    a, r = np.zeros(n, bool), np.zeros(n, bool)
+    a[kept_a], r[kept_r] = True, True
+    diff = np.nonzero(a != r)[0]
+    both = a & r
+    col = diff % resx
+    right = (col + 1 < resx) & both[np.minimum(diff + 1, n - 1)]
+    left = (col >= 1) & both[np.maximum(diff - 1, 0)]
+    lone = int((~(right | left)).sum())
+    if diff.size > 0.02 * n or lone:
+        raise AssertionError(f"{name}: {diff.size} of {n} pixels differ, "
+                             f"{lone} of them not on a boundary")
+    return int(diff.size)
+
+
+def phase_cull_full(torch, wf, bp, dev, tmp):
+    """The culling renders at full width: the bench scene's radon render
+    (64 M lanes through wf_radon, regular sampling, spp 1; kernel vs plain
+    at 16 angles, since the plain render of all 400 takes ~50 s; its kept
+    set against the ballistic cull), and the square bench vial's corner
+    render (64 M lanes through wf_corner; kernel vs plain at full
+    width)."""
+    from drtvam_tpu_torch.models.scene import Scene
+    from drtvam_tpu_torch.ops.ballistic import radon_active_ballistic
+    from drtvam_tpu_torch.ops.march import scene_tensors
+    out = {}
+    cfg = bench_config(tmp, "cylindrical")
+    sc = Scene(cfg)
+    n = int(np.prod(sc.projector.size()))
+    static, arr = sc.build(mode="radon", include_target=True, max_depth=5,
+                           rr_depth=6, print_time=1.0,
+                           regular_sampling=True)
+    at = scene_tensors(arr, dev)
+    stats = {}
+    img = wf.wf_radon(static, at, 0, 1, stats)
+    img2 = wf.wf_radon(static, at, 0, 1)
+    ms = cuda_ms(lambda: wf.wf_radon(static, at, 0, 1), 3, torch)
+    kept_r = np.nonzero(img.cpu().numpy() > 0.0)[0]
+    bitwise = torch_equal(img, img2)
+    del img2
+    # the ballistic cull of the same scene (one bp_bwd launch)
+    mask = sc.sensor.discretize(sc.target_bank())
+    sv, av = sc.build(mode="volume", include_target=False, max_depth=5,
+                      rr_depth=6, print_time=1.0)
+    bp.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kept_a = radon_active_ballistic(sv, av, mask, dev)
+    cull_s = time.perf_counter() - t0
+    n_diff = boundary_check("radon render vs ballistic cull", kept_a, kept_r,
+                            static.projector.resx, n)
+    # kernel vs plain at 16 angles (the full DMD and film)
+    cfg16 = dict(cfg, projector=dict(cfg["projector"], n_patterns=16))
+    s16, a16 = Scene(cfg16).build(mode="radon", include_target=True,
+                                  max_depth=5, rr_depth=6, print_time=1.0,
+                                  regular_sampling=True)
+    at16 = scene_tensors(a16, dev)
+    sk16, sp16 = {}, {}
+    ms16, img16 = event_ms(lambda: wf.wf_radon(s16, at16, 0, 1, sk16),
+                           torch)
+    plain16_ms, ref16 = event_ms(
+        lambda: wf._radon(s16, at16, 0, 1, 1 << 22, sp16), torch)
+    cmp16 = radon_compare("wf_radon 16 angles", img16, ref16)
+    if sk16["iterations"] != sp16["iterations"]:
+        raise AssertionError(f"wf_radon 16 angles: {sk16['iterations']} "
+                             f"iterations, plain {sp16['iterations']}")
+    rec = {"phase": "cull_full_width", "name": "wf_radon", "lanes": n,
+           "ms": ms, "rays_per_s": n / (ms * 1e-3), "counts": stats,
+           "kept": int(kept_r.size), "kept_share": kept_r.size / n,
+           "bitwise_repeat": bitwise, "ballistic_cull_s": cull_s,
+           "ballistic_kept": int(kept_a.size),
+           "ballistic_launches": dict(bp.launches),
+           "differ_from_ballistic": n_diff,
+           "plain_ms": plain16_ms, "plain_at": "16 angles",
+           "ms_16_angles": ms16, "iterations_16": sk16["iterations"],
+           **{k: cmp16[k] for k in ("max_abs_err", "max_abs_plain")}}
+    rec["bound_ms"], rec["bound_by"] = cull_bound(
+        4 * n, n, sum(s.kind != 2 for s in static.surfaces), stats)
+    rec["roofline_share"] = rec["bound_ms"] / ms
+    if not bitwise:
+        raise AssertionError("wf_radon: two full-width launches differ")
+    emit(rec)
+    out["wf_radon"] = rec
+    del img, img16, ref16, at, at16
+    torch.cuda.empty_cache()
+
+    # the square bench vial's corner render, dist w_ext / 2, radius 0.2
+    scfg = square_bench_config(tmp)
+    sq = Scene(scfg)
+    static, arr = sq.build(mode="volume", include_target=True, max_depth=1,
+                           rr_depth=6, print_time=1.0, regular_sampling=True)
+    at = scene_tensors(arr, dev)
+    stats = {}
+    img = wf.wf_corner(static, at, 3.6, 0.2, 0, stats)
+    bitwise = torch_equal(img, wf.wf_corner(static, at, 3.6, 0.2))
+    ms = cuda_ms(lambda: wf.wf_corner(static, at, 3.6, 0.2), 3, torch)
+    kept = int((img > 0).sum())
+    # kernel vs plain at full width (400 angles, one plain render)
+    plain_ms, ref = event_ms(
+        lambda: wf._corner(static, at, 3.6, 0.2, 0, 1 << 22), torch)
+    equal = torch_equal(img, ref)
+    rec = {"phase": "cull_full_width", "name": "wf_corner", "lanes": n,
+           "ms": ms, "rays_per_s": n / (ms * 1e-3), "counts": stats,
+           "kept": kept, "kept_share": kept / n, "plain_ms": plain_ms,
+           "plain_at": "400 angles (full width)",
+           "max_abs_err": float((img - ref).abs().max()),
+           "equal_full_width": equal, "bitwise_repeat": bitwise}
+    rec["bound_ms"], rec["bound_by"] = cull_bound(
+        4 * n, n, sum(s.kind != 2 for s in static.surfaces), stats,
+        corner=True)
+    rec["roofline_share"] = rec["bound_ms"] / ms
+    if not equal:
+        raise AssertionError("wf_corner at full width: the keep image "
+                             "differs from its plain version")
+    if not bitwise:
+        raise AssertionError("wf_corner: two full-width launches differ")
+    emit(rec)
+    out["wf_corner"] = rec
+    return out
+
+
+def phase_cull_bench(torch, wf, bp, dev, tmp, square=False):
+    """optimize() on the bench scene with filter_radon (cylindrical: the
+    ballistic cull, one bp_bwd launch, then the dense pair on the kept
+    pixels; IoU gate) or on the square bench vial with filter_corner
+    {"dist": 3.6, "radius": 0.2} (wf_corner must launch)."""
+    from drtvam_tpu_torch.opt.optimize import optimize
+    from drtvam_tpu_torch.utils.metrics import best_iou
+    if square:
+        cfg = square_bench_config(tmp)
+        cfg["filter_corner"] = {"dist": 3.6, "radius": 0.2}
+        cfg["output"] += "_corner"
+    else:
+        cfg = bench_config(tmp, "cylindrical")
+        cfg["filter_radon"] = True
+        cfg["output"] += "_radon"
+    timings = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    wf.reset_launches()
+    bp.reset_launches()
+    t0 = time.perf_counter()
+    vol = optimize(cfg, device=dev, timings=timings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {**dict(wf.launches), **dict(bp.launches)}
+    must = ("wf_corner",) if square else ("bp_fwd", "bp_bwd")
+    for name in must:
+        if counts[name] == 0:
+            raise AssertionError(f"the culled bench run never launched "
+                                 f"{name}")
+    target = np.load(os.path.join(cfg["output"], "target.npy"))
+    assert vol.shape == target.shape and np.isfinite(vol).all()
+    iou, thr = best_iou(vol[..., 0], target[..., 0], 301)
+    loss = np.load(os.path.join(cfg["output"], "loss.npy"))
+    steps = int(np.count_nonzero(
+        np.load(os.path.join(cfg["output"], "timing.npy")).sum(1)))
+    pc = cfg["projector"]
+    n = pc["n_patterns"] * pc["resx"] * pc["resy"]
+    rec = {"phase": "bench_corner" if square else "bench_radon",
+           "vial": "square" if square else "cylindrical",
+           "filter": cfg.get("filter_corner", "filter_radon"),
+           "kept_pixels": timings["active_pixels"],
+           "kept_share": timings["active_pixels"] / n,
+           **{k: timings[k] for k in ("scene_s", "cull_s", "precompute_s",
+                                      "loop_s", "final_render_s",
+                                      "artifacts_s")},
+           "wall_s": wall, "steps_run": steps,
+           "loss_first": float(loss[0]),
+           "loss_last": float(loss[steps - 1]), "best_iou": iou,
+           "best_threshold": thr, "launches": counts,
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    emit(rec)
+    if not square and not iou >= IOU_GATE:
+        raise AssertionError(f"culled bench best IoU {iou} < {IOU_GATE}")
+    return rec
+
+
+def telecentric_bench_config(tmp):
+    """The bench scene with a telecentric projector (aperture radius
+    0.05 mm, focused on the axis at the projector's distance): not
+    transport-eligible, so filter_radon takes the radon render and auto
+    the wavefront engine."""
+    cfg = bench_config(tmp, "cylindrical")
+    cfg["projector"] = dict(cfg["projector"], type="telecentric",
+                            aperture_radius=0.05, focus_distance=30.0)
+    cfg.update(filter_radon=True, spp_filter_radon=4, spp=1,
+               output=os.path.join(tmp, "bench_telecentric_radon"))
+    return cfg
+
+
+# the pixels of every RADON_CHECK_STRIDE-th angle of the telecentric
+# bench run's radon image are held against the plain version
+RADON_CHECK_STRIDE = 50
+
+
+def radon_plain_pixels(torch, static, arr, pix, seed, spp):
+    """The plain radon render's values at active pixels pix: their lanes
+    (ids pix * spp + k, as the full render numbers them) traced by the
+    plain march, summed in lane order, times the ray weight."""
+    from drtvam_tpu_torch.models.projector import ray_weight
+    from drtvam_tpu_torch.ops.march import trace_wavefront
+    vals = torch.empty(pix.shape, dtype=torch.float32, device=pix.device)
+    step = 1 << 20
+    for lo in range(0, pix.numel(), step):
+        p = pix[lo:lo + step]
+        lane = (p[:, None] * spp + torch.arange(spp, device=p.device)) \
+            .reshape(-1)
+        L, _ = trace_wavefront(static, arr, lane, seed, spp)
+        L = L.reshape(-1, spp)
+        v = L[:, 0]
+        for k in range(1, spp):
+            v = v + L[:, k]
+        vals[lo:lo + step] = v
+    return vals * ray_weight(static.projector, arr, spp, arr["print_time"])
+
+
+def phase_cull_telecentric(torch, wf, bp, dev, tmp):
+    """optimize() on the bench scene with a telecentric projector and
+    filter_radon: the radon render's fallback at full width (wf_radon,
+    spp 4, 256 M lanes), then the wavefront engine on the kept pixels'
+    sparse store (40 steps, spp 1). The radon image the run culls with
+    is held against the plain radon render on the pixels of every
+    RADON_CHECK_STRIDE-th angle (to CULL_TOL of their max, the same kept
+    set). Returns the record, with the run's launches."""
+    from drtvam_tpu_torch.opt.optimize import optimize
+    from drtvam_tpu_torch.utils.metrics import best_iou
+    cfg = telecentric_bench_config(tmp)
+    seen = []
+    render_radon = wf.render_radon
+
+    def recording(static, arr, *a, **k):
+        img = render_radon(static, arr, *a, **k)
+        seen.append((static, arr, a, k, img))
+        return img
+
+    timings = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    wf.reset_launches()
+    bp.reset_launches()
+    wf.render_radon = recording
+    t0 = time.perf_counter()
+    try:
+        vol = optimize(cfg, device=dev, timings=timings)
+        torch.cuda.synchronize()
+    finally:
+        wf.render_radon = render_radon
+    wall = time.perf_counter() - t0
+    counts = {**dict(wf.launches), **dict(bp.launches)}
+    for name in ("wf_radon",) + wf.KERNELS:
+        if counts[name] == 0:
+            raise AssertionError(f"the telecentric bench run never launched "
+                                 f"{name}")
+    if len(seen) != 1:
+        raise AssertionError(f"the telecentric bench run rendered the radon "
+                             f"image {len(seen)} times")
+    static, arr, a, k, img = seen[0]
+    seed, spp = k.get("seed", 0), k.get("spp", 4)
+    p = static.projector
+    n = p.n_patterns * p.resy * p.resx
+    if p.n_active != n:
+        raise AssertionError("the radon render ran on a sparse store")
+    per_angle = p.resy * p.resx
+    pix = (torch.arange(0, p.n_patterns, RADON_CHECK_STRIDE,
+                        device=dev)[:, None] * per_angle +
+           torch.arange(per_angle, device=dev)).reshape(-1)
+    t1 = time.perf_counter()
+    ref = radon_plain_pixels(torch, static, arr, pix, seed, spp)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t1
+    check = radon_compare("wf_radon on the telecentric bench run",
+                          img[pix], ref)
+    kept = int((img > 0).sum())
+    if kept != timings["active_pixels"]:
+        raise AssertionError(f"the run kept {timings['active_pixels']} "
+                             f"pixels, its radon image {kept}")
+    target = np.load(os.path.join(cfg["output"], "target.npy"))
+    assert vol.shape == target.shape and np.isfinite(vol).all()
+    iou, thr = best_iou(vol[..., 0], target[..., 0], 301)
+    loss = np.load(os.path.join(cfg["output"], "loss.npy"))
+    steps = int(np.count_nonzero(
+        np.load(os.path.join(cfg["output"], "timing.npy")).sum(1)))
+    rec = {"phase": "bench_telecentric_radon", "vial": "cylindrical",
+           "projector": "telecentric", "spp_filter_radon": spp,
+           "radon_lanes": n * spp, "kept_pixels": kept,
+           "kept_share": kept / n,
+           "plain_check": dict(check, angles=len(range(
+               0, p.n_patterns, RADON_CHECK_STRIDE)), lanes=pix.numel() * spp,
+               plain_s=plain_s),
+           **{k: timings[k] for k in ("scene_s", "cull_s", "precompute_s",
+                                      "loop_s", "final_render_s",
+                                      "artifacts_s")},
+           "wall_s": wall, "steps_run": steps,
+           "loss_first": float(loss[0]),
+           "loss_last": float(loss[steps - 1]), "best_iou": iou,
+           "best_threshold": thr, "launches": counts,
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    emit(rec)
+    return rec
+
+
 WF_EST = ("DDA", "RATIO", "DELTA")
 WF_RES = ("ANALOG", "SCAT_ONLY", "FIRST_SCATTER", "FAST_RESIDUAL")
 
@@ -1681,6 +2214,12 @@ def instantiation(mangled):
         return (f"residual {WF_EST[e]}, {WF_RES[res]}, "
                 + ("path pass" if path else
                    "forward" if primal else "adjoint")
+                + (", counting" if count else ""))
+    m = re.search(r"cull_kernelILi(\d)ELb(\d)ELb(\d)E", mangled)
+    if m is not None:
+        res, tonly, count = (int(x) for x in m.groups())
+        return (("radon" if res == 4 else "corner")
+                + ("" if tonly else ", !TONLY")
                 + (", counting" if count else ""))
     m = re.search(r"walk_kernelILb(\d)E", mangled)
     if m is not None:
@@ -1698,7 +2237,7 @@ def instantiation(mangled):
 
 
 # the libraries whose build record lists every instantiation
-RES_EACH = ("wf_res_fwd", "wf_res_bwd")
+RES_EACH = ("wf_res_fwd", "wf_res_bwd", "wf_radon", "wf_corner")
 
 
 def ptxas_summary(name):
@@ -1752,9 +2291,9 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    # all twelve sources at once, one nvcc each, started together with
+    # all fourteen sources at once, one nvcc each, started together with
     # the residual pair's stopping builds (phase 8b's per-lane times)
-    cuda = bp.KERNELS + wf.KERNELS + wf.RES_KERNELS
+    cuda = bp.KERNELS + wf.KERNELS + wf.RES_KERNELS + wf.CULL_KERNELS
     res_jobs = start_res_variants(wf)
     load_cuda(cuda, {**bp._SETUP, **wf._SETUP}, wf._FLAGS)
     res_variants = finish_res_variants(wf, res_jobs)
@@ -1789,6 +2328,8 @@ def main():
         torch.cuda.empty_cache()
         resk = phase_res_kernels(torch, wf, dev, tmp)
         torch.cuda.empty_cache()
+        cullk = phase_cull_kernels(torch, wf, dev, tmp)
+        torch.cuda.empty_cache()
         wfull = phase_wf_full(torch, wf, dev, tmp)
         torch.cuda.empty_cache()
         # the bench film's 256^3 grid (67 MB, past L2), and 128^3 (8 MB)
@@ -1803,6 +2344,22 @@ def main():
         phase_cli_wavefront(wf, tmp)
         torch.cuda.empty_cache()
         hy_counts = phase_hybrid_bench(torch, wf, bp, dev, tmp)
+        torch.cuda.empty_cache()
+        cfull = phase_cull_full(torch, wf, bp, dev, tmp)
+        torch.cuda.empty_cache()
+        phase_cull_bench(torch, wf, bp, dev, tmp)
+        torch.cuda.empty_cache()
+        corner = phase_cull_bench(torch, wf, bp, dev, tmp, square=True)
+        torch.cuda.empty_cache()
+        tele = phase_cull_telecentric(torch, wf, bp, dev, tmp)
+        torch.cuda.empty_cache()
+        phase_cli_wavefront(
+            wf, tmp, {"filter_radon": True,
+                      "target": {"filename": "box_hole.ply", "size": 2.5}},
+            "cli_telecentric_radon",
+            wf.KERNELS + ("wf_radon",))
+        cull_counts = {"wf_radon": tele["launches"]["wf_radon"],
+                       "wf_corner": corner["launches"]["wf_corner"]}
 
     emit({"kernels": [
         {"name": n, "route": "cuda",
@@ -1869,7 +2426,29 @@ def main():
          **({k: rfull[n][k] for k in ("records", "simt_efficiency",
                                       "atomic_floor_ms", "launch")}
             if n == "wf_res_walk" else {"chords": rfull[n]["chords"]})}
-        for n in wf.RES_PARTS]})
+        for n in wf.RES_PARTS] + [
+        {"name": n, "route": "cuda",
+         "source": f"drtvam_tpu_torch/csrc/{n}.cu + wf_trace.cuh + "
+                   "wf_mesh.cuh",
+         "replaces": REPLACES[n], "launches": cull_counts[n],
+         "path": ("optimize() on the bench scene with a telecentric "
+                  "projector and filter_radon (the radon render at spp 4, "
+                  "then the wavefront engine on the kept pixels)"
+                  if n == "wf_radon" else
+                  "optimize() on the square bench vial with filter_corner"),
+         **{k: cfull[n][k] for k in (
+             "max_abs_err", "ms", "plain_ms", "plain_at", "bound_ms",
+             "bound_by", "roofline_share", "rays_per_s", "counts",
+             "kept_share")},
+         "library_ms": None,
+         "bitwise_repeat": cfull[n]["bitwise_repeat"],
+         "main_path_check": (tele["plain_check"] if n == "wf_radon" else
+                             {"equal_full_width":
+                              cfull[n]["equal_full_width"]}),
+         "small_scenes": {c: {k: r[k] for k in ("ms", "plain_ms",
+                                                  "max_abs_err")}
+                          for c, r in cullk.items() if r["name"] == n}}
+        for n in wf.CULL_KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -15,6 +15,7 @@ import torch
 from .models.projector import ProjectorStatic
 from .models.sensor import SensorStatic
 from .ops.march import MarchStatic, SurfaceStatic
+from .ops.mesh_grid import TriGridStatic
 from .ops.transport2d import chord_pack
 
 
@@ -32,16 +33,15 @@ def scene_from_jax(static, arr):
     of drtvam_tpu's build_chords as "chord_o", "chord_d", "chord_L",
     "chord_amp", as its tests stash them) becomes the port's one
     "chord_pack" record table, so the port's march reads the JAX
-    package's bank. Mesh-grid acceleration structures have no
-    counterpart yet and raise."""
+    package's bank. A mesh surface's grid becomes the port's
+    TriGridStatic; its banks (tri_*, grid_*) are the same arrays in both
+    packages, so they pass as they are."""
     surfaces = []
     for s in static.surfaces:
-        if s.grid is not None:
-            raise NotImplementedError(
-                "mesh-grid surfaces are not ported yet — ROADMAP queue 1 "
-                "item 17")
+        grid = None if s.grid is None else _fields(
+            s.grid, TriGridStatic, res=tuple(s.grid.res))
         surfaces.append(_fields(s, SurfaceStatic,
-                                tri_slice=tuple(s.tri_slice)))
+                                tri_slice=tuple(s.tri_slice), grid=grid))
     port = _fields(static, MarchStatic, surfaces=tuple(surfaces),
                    projector=_fields(static.projector, ProjectorStatic),
                    sensor=_fields(static.sensor, SensorStatic,

@@ -19,7 +19,17 @@
 //                          reproducible.
 // Two more, wf_res_fwd.cu and wf_res_bwd.cu, instantiate it in the hybrid
 // engine's residual modes (template parameter RES, see below) through the
-// residual family's own kernels (wf_residual.cuh).
+// residual family's own kernels (wf_residual.cuh). The DMD-pixel culling
+// renders, wf_radon.cu and wf_corner.cu, run it in two lane modes of their
+// own through cull_kernel (one thread an active pixel, its lanes one
+// after another, the pixel written once): RADON (drtvam_tpu/ops/
+// march.py:917-923: scattering off, no deposits, the lane's in-target
+// absorption A exp(-st total_t) (1 - exp(-st t)) summed while it is inside
+// the target and in the medium, total_t over every segment, every draw in
+// its slot) and CORNER (the ray's set-up and one intersection). Their
+// scenes keep the target mesh, intersected by intersect_scene<MESH_ON>
+// through wf_mesh.cuh; every other instantiation compiles it with MESH_ON
+// false, so the mesh code is compiled only into those two.
 //
 // Bound on the H100: a DDA voxel step is ~20 float32 operations and two
 // expf; at the bench scene's ~10^10 steps per render that is a few ms at
@@ -129,9 +139,12 @@ struct WfParams {
 namespace wf {
 
 enum { DDA = 0, RATIO = 1, DELTA = 2 };
-enum { CYLINDER = 0, BOX = 1 };
+enum { CYLINDER = 0, BOX = 1, MESH = 2 };
 enum { DIELECTRIC = 0, NULL_BSDF = 1, ABSORB = 2, DIFFUSE = 3 };
 enum { ANALOG = 0, SCAT_ONLY = 1, FIRST_SCATTER = 2, FAST_RESIDUAL = 3 };
+// the culling renders' lane modes (RES beside the residual modes): the
+// radon mode's in-target absorption, the corner filter's one hit
+enum { RADON = 4, CORNER = 5 };
 
 constexpr float RAY_EPS = 1e-4f;
 constexpr float U_MAX = (float)(1.0 - 1e-7);
@@ -362,19 +375,39 @@ __device__ __forceinline__ float ray_box(const V3& o, const V3& d,
   return t;
 }
 
-// nearest surface: returns t (inf on a miss), its normal and surface id
-__device__ __forceinline__ float intersect_scene(const WfParams& P,
-                                                 const V3& o, const V3& d,
-                                                 V3& n_best, int& sid) {
+#include "wf_mesh.cuh"
+
+// nearest surface: returns t (inf on a miss), its normal and surface id.
+// MESH_ON: mesh surfaces are intersected too (the radon and corner modes,
+// whose scenes keep the target mesh; M and c their banks and counters): a
+// mesh's normal is its hit triangle's (triangle 0's on a miss), as
+// drtvam_tpu/ops/march.py:190 takes it. Every other instantiation
+// compiles the analytic surfaces alone
+template <bool MESH_ON = false, bool COUNT = false>
+__device__ __forceinline__ float intersect_scene(
+    const WfParams& P, const V3& o, const V3& d, V3& n_best, int& sid,
+    const WfMesh* M = nullptr, MeshCount* c = nullptr) {
   float t_best = inf();
   n_best = {0.0f, 0.0f, 0.0f};
   sid = -1;
   for (int i = 0; i < P.n_surf; ++i) {
     const float* p = P.surf_params + 3 * i;
     V3 n;
-    float t = P.surf_kind[i] == CYLINDER ? ray_cylinder(o, d, p[0], p[1],
-                                                        p[2], n)
-                                         : ray_box(o, d, p, n);
+    float t;
+    if (P.surf_kind[i] == CYLINDER) {
+      t = ray_cylinder(o, d, p[0], p[1], p[2], n);
+    } else if (!MESH_ON || P.surf_kind[i] == BOX) {
+      t = ray_box(o, d, p, n);
+    } else {
+      int tri = -1;
+      t = inf();
+      if constexpr (MESH_ON) {
+        t = ray_mesh<COUNT>(*M, i, o, d, tri, *c);
+        const int last = M->tri_count[i] - 1;
+        n = load3(M->n, M->tri_start[i] + (tri < 0 ? 0 : (tri > last ? last
+                                                                     : tri)));
+      }
+    }
     if (t < t_best) {
       t_best = t;
       n_best = n;
@@ -481,6 +514,29 @@ struct Sink {
   __device__ __forceinline__ void keep(float v) {
     if (v == 1.0e-30f) deposit(-1, 0, v);
   }
+};
+
+// The culling renders' sink (RES RADON or CORNER): no deposits; the
+// lane's value L (the radon mode's in-target absorption, the corner
+// mode's keep flag), the scene's mesh banks and the corner's distance
+// from the axis and radius. COUNT: counts bounce iterations, grid cells
+// and triangles tested
+template <bool COUNT_>
+struct MeshSink {
+  static constexpr bool PRIMAL = true, COUNT = COUNT_, RECORDS = false;
+  const WfMesh* mesh;
+  float dist, radius;
+  float L;
+  unsigned long long iters;
+  MeshCount mc;
+  __device__ __forceinline__ void iter() {
+    if (COUNT) ++iters;
+  }
+  // the deposit interface, never reached in these modes
+  __device__ __forceinline__ int slot(int, int, int) const { return -1; }
+  __device__ __forceinline__ void deposit(int, int, float) {}
+  __device__ __forceinline__ void step() {}
+  __device__ __forceinline__ void keep(float) {}
 };
 
 // ---- dose estimators: one straight segment [o, o + maxt d] ---------------
@@ -844,6 +900,18 @@ __device__ void trace_lane(const WfParams& P, const Grid& G, uint32_t lane,
   V3 o = rotate(F.left, F.up2, F.dirw, o_cam);
   o = {o.x + F.origin.x, o.y + F.origin.y, o.z + F.origin.z};
   V3 d = rotate(F.left, F.up2, F.dirw, d_cam);
+  if constexpr (RES == CORNER) {
+    // the corner filter: one intersection; the lane is kept unless its
+    // hit lies within radius of a corner at dist from the axis
+    V3 n_c;
+    int sid_c;
+    const float t = intersect_scene<true, SinkT::COUNT>(P, o, d, n_c, sid_c,
+                                                        S.mesh, &S.mc);
+    const V3 p = along(o, t, d);
+    const float ax = fabsf(p.x) - S.dist, ay = fabsf(p.y) - S.dist;
+    S.L = isfinite(t) && sqrtf(ax * ax + ay * ay) >= S.radius ? 1.0f : 0.0f;
+    return;
+  }
 #ifdef WF_RES_STOP
   if (RES != ANALOG && WF_RES_STOP == 1) {
     S.keep(RES == SCAT_ONLY ? o.x + o.y + o.z + d.x + d.y + d.z : o.z);
@@ -888,8 +956,9 @@ __device__ void trace_lane(const WfParams& P, const Grid& G, uint32_t lane,
   const int max_iters = 2 * P.max_depth + 16;
   for (int it = 0; it < max_iters; ++it) {
     S.iter();
-    // Russian roulette
-    float rr_A = SCAT ? A : A * expf(-st * total_t);
+    // Russian roulette (the radon mode's reads the scene's scattering)
+    const bool rr_scat = RES == RADON ? P.has_scattering != 0 : SCAT;
+    float rr_A = rr_scat ? A : A * expf(-st * total_t);
     float q = mn(rr_A, 0.99f);
     bool perform_rr = depth > P.rr_depth;
     float u_rr = rng.next1();
@@ -902,7 +971,13 @@ __device__ void trace_lane(const WfParams& P, const Grid& G, uint32_t lane,
     // next surface
     V3 n_si;
     int sid;
-    float t_si = intersect_scene(P, o, d, n_si, sid);
+    float t_si;
+    if constexpr (RES == RADON) {
+      t_si = intersect_scene<true, SinkT::COUNT>(P, o, d, n_si, sid, S.mesh,
+                                                 &S.mc);
+    } else {
+      t_si = intersect_scene(P, o, d, n_si, sid);
+    }
     if (!isfinite(t_si)) break;
     const bool hit_target = P.surf_is_target[sid] != 0;
 
@@ -920,8 +995,12 @@ __device__ void trace_lane(const WfParams& P, const Grid& G, uint32_t lane,
     const bool medium_event = in_medium && !reached_surface;
 
     // dose deposit along this segment (the residual drops the deposits
-    // before the first scatter: the ballistic engine owns them)
-    if (in_medium && (RES != SCAT_ONLY || scattered)) {
+    // before the first scatter: the ballistic engine owns them); the
+    // radon mode's in-target absorption in its place
+    if constexpr (RES == RADON) {
+      if (inside_target && in_medium)
+        S.L = S.L + A * expf(-st * total_t) * (1.0f - expf(-st * t_si));
+    } else if (in_medium && (RES != SCAT_ONLY || scattered)) {
       float base = (SCAT ? A : A * expf(-st * total_t)) * sa_over_st;
       if (SinkT::PRIMAL) base = base * em;
       if (EST == DDA) {
@@ -988,7 +1067,11 @@ __device__ void trace_lane(const WfParams& P, const Grid& G, uint32_t lane,
       d = d_new;
       A = A * w_bsdf;
     }
-    if (in_medium) total_t = total_t + seg_t;
+    if constexpr (RES == RADON) {
+      total_t = total_t + t_si;  // every segment, as the reference's radon
+    } else {
+      if (in_medium) total_t = total_t + seg_t;
+    }
 
     // medium transition: does the new direction enter the medium?
     const int ms = P.surf_medium_side[sid];
@@ -1291,6 +1374,92 @@ int info(const WfParams* p, int count, int* out) {
                     (int)fa.localSizeBytes, per_sm, P.tile_n};
   for (int i = 0; i < 8; ++i) out[i] = v[i];
   return 0;
+}
+
+// ---- the culling renders (wf_radon.cu, wf_corner.cu) ----------------------
+
+// threads a CTA of the culling kernels
+constexpr int WF_CULL_THREADS = 256;
+
+// One thread per active pixel, in active order: its spp lanes in the lane
+// mode RES (RADON or CORNER) one after another, and the pixel's value, the
+// sum of its lanes' values in lane order times the ray weight, written
+// once into the dense image img (n_patterns * resy * resx,): no atomics,
+// so the image is bitwise reproducible. counters (3,): bounce iterations,
+// grid cells visited and triangles tested, or null
+template <int RES, bool TONLY, bool COUNT>
+__global__ void __launch_bounds__(WF_CULL_THREADS)
+    cull_kernel(const WfParams P, const __grid_constant__ WfMesh M,
+                const int* __restrict__ active_pixels, float dist,
+                float radius, float* __restrict__ img,
+                unsigned long long* __restrict__ counters) {
+  const int aidx = blockIdx.x * WF_CULL_THREADS + threadIdx.x;
+  Grid G;
+  G.init(P);
+  MeshSink<COUNT> S{&M, dist, radius, 0.0f, 0, {0, 0}};
+  if (aidx < P.n_active) {
+    float sum = 0.0f;
+    for (int k = 0; k < P.spp; ++k) {
+      S.L = 0.0f;
+      trace_lane<DDA, false, TONLY, RES>(
+          P, G, (uint32_t)aidx * (uint32_t)P.spp + (uint32_t)k, aidx,
+          active_pixels, 1.0f, S);
+      sum = k == 0 ? S.L : sum + S.L;
+    }
+    img[P.identity ? aidx : active_pixels[aidx]] = sum * P.ray_w;
+  }
+  if (COUNT) {
+    unsigned long long c[3] = {S.iters, S.mc.cells, S.mc.tris};
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      for (int off = 16; off > 0; off >>= 1)
+        c[k] += __shfl_down_sync(0xffffffffu, c[k], off);
+      if ((threadIdx.x & 31) == 0) atomicAdd(counters + k, c[k]);
+    }
+  }
+}
+
+template <int RES, bool TONLY, bool COUNT>
+cudaError_t cull_run(const WfParams& P, const WfMesh& M, const int* ap,
+                     float dist, float radius, float* img,
+                     unsigned long long* counters, cudaStream_t stream) {
+  const unsigned blocks =
+      (unsigned)((P.n_active + WF_CULL_THREADS - 1) / WF_CULL_THREADS);
+  cull_kernel<RES, TONLY, COUNT><<<blocks, WF_CULL_THREADS, 0, stream>>>(
+      P, M, ap, dist, radius, img, counters);
+  return cudaGetLastError();
+}
+
+// RES's instantiation for P (the radon mode by transmission_only; the
+// corner mode has one: its lanes end at their first hit) and counters
+template <int RES>
+int cull_launch(const WfParams* p, const WfMesh* m, const int* ap,
+                float dist, float radius, float* img,
+                unsigned long long* counters, void* stream) {
+  const WfParams& P = *p;
+  if (P.n_active <= 0) return 0;
+  if (P.n_surf > WF_MAX_SURF || P.spp <= 0 || m == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool count = counters != nullptr;
+  cudaError_t e;
+  if constexpr (RES == CORNER) {
+    e = count ? cull_run<RES, true, true>(P, *m, ap, dist, radius, img,
+                                          counters, st)
+              : cull_run<RES, true, false>(P, *m, ap, dist, radius, img,
+                                           counters, st);
+  } else if (P.transmission_only) {
+    e = count ? cull_run<RES, true, true>(P, *m, ap, dist, radius, img,
+                                          counters, st)
+              : cull_run<RES, true, false>(P, *m, ap, dist, radius, img,
+                                           counters, st);
+  } else {
+    e = count ? cull_run<RES, false, true>(P, *m, ap, dist, radius, img,
+                                           counters, st)
+              : cull_run<RES, false, false>(P, *m, ap, dist, radius, img,
+                                            counters, st);
+  }
+  return (int)e;
 }
 #endif  // __CUDACC__
 

@@ -8,9 +8,10 @@ numpy arrays, key for key and bit for bit the JAX package's.
 The target mesh is normalized into the print volume with
 v' = (v - bbox_center) * size / max(extent) + box_center. In volume
 mode without a surface-aware film the target is left out of the render
-scene, as the reference does. Mesh surfaces in the render scene raise
-NotImplementedError: the target kept in for a surface-aware film is
-ROADMAP queue 1 item 14, mesh vials and occlusions item 17.
+scene, as the reference does; the radon and corner renders keep it, as
+a mesh surface: its triangles in the tri_* banks and, from GRID_MIN_TRIS
+triangles on, a uniform grid over them in the grid_* banks
+(ops/mesh_grid.py), assembled as the JAX package assembles them.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from .projector import Projector
 from .sensor import Sensor
 from ..ops.mesh import TriMesh, load_mesh
 from ..ops.march import MarchStatic, SurfaceStatic
+from ..ops.mesh_grid import GRID_MIN_TRIS, TriGridStatic, build_tri_grid
 
 
 def _mesh_transform(mesh: TriMesh, cfg):
@@ -115,16 +117,46 @@ class Scene:
             include_target = (mode != "volume") or self.sensor.surface_aware
         sensor = sensor if sensor is not None else self.sensor
         specs = self._surface_specs(include_target)
-        if any(s.kind == MESH for s in specs):
-            raise NotImplementedError(
-                "mesh surfaces in the render scene are not ported yet: the "
-                "target kept in for a surface-aware film is ROADMAP queue 1 "
-                "item 14, mesh vials and occlusions item 17")
 
-        statics = [SurfaceStatic(kind=s.kind, bsdf=s.bsdf,
-                                 medium_side=s.medium_side,
-                                 is_target=s.is_target, tri_slice=(0, 0))
-                   for s in specs]
+        statics, params, etas, refls = [], [], [], []
+        tri_v0, tri_e1, tri_e2, tri_n = [], [], [], []
+        grid_cs, grid_ids, grid_bbox = [], [], []
+        tri_cursor = cs_cursor = ids_cursor = 0
+        for s in specs:
+            tri_slice = (0, 0)
+            grid = None
+            if s.kind == MESH:
+                v0, e1, e2, n = s.mesh.triangle_bank()
+                tri_v0.append(v0)
+                tri_e1.append(e1)
+                tri_e2.append(e2)
+                tri_n.append(n)
+                tri_slice = (tri_cursor, v0.shape[0])
+                tri_cursor += v0.shape[0]
+                if v0.shape[0] >= GRID_MIN_TRIS:
+                    res, cs, ids, gb0, gb1 = build_tri_grid(v0, e1, e2)
+                    grid = TriGridStatic(
+                        res=res, cell_offset=cs_cursor,
+                        ids_offset=ids_cursor, n_ids=ids.shape[0],
+                        bbox_row=len(grid_bbox))
+                    grid_cs.append(cs)
+                    grid_ids.append(ids)
+                    grid_bbox.append(np.stack([gb0, gb1]))
+                    cs_cursor += cs.shape[0]
+                    ids_cursor += ids.shape[0]
+            statics.append(SurfaceStatic(
+                kind=s.kind, bsdf=s.bsdf, medium_side=s.medium_side,
+                is_target=s.is_target, tri_slice=tri_slice, grid=grid))
+            params.append(s.params)
+            etas.append(s.eta)
+            refls.append(s.refl)
+        if tri_cursor == 0:
+            # the keys stay, as in the JAX package: never indexed
+            tri_v0 = tri_e1 = tri_e2 = tri_n = [np.zeros((1, 3), np.float32)]
+        if cs_cursor == 0:
+            grid_cs = grid_ids = [np.zeros((1,), np.int32)]
+            grid_bbox = [np.zeros((2, 3), np.float32)]
+
         m = self.medium
         static = MarchStatic(
             surfaces=tuple(statics),
@@ -140,18 +172,17 @@ class Scene:
             clockwise=self.projector.motion.clockwise,
             mode=mode,
         )
-        # no mesh surfaces: the triangle and grid banks keep the JAX
-        # package's placeholder entries so both dicts match key for key
-        tri0 = np.zeros((1, 3), np.float32)
         arr = {
-            "surf_params": np.asarray([s.params for s in specs], np.float32),
-            "surf_eta": np.asarray([s.eta for s in specs], np.float32),
-            "surf_refl": np.asarray([s.refl for s in specs], np.float32),
-            "tri_v0": tri0, "tri_e1": tri0.copy(), "tri_e2": tri0.copy(),
-            "tri_n": tri0.copy(),
-            "grid_cell_start": np.zeros((1,), np.int32),
-            "grid_tri_ids": np.zeros((1,), np.int32),
-            "grid_bbox": np.zeros((1, 2, 3), np.float32),
+            "surf_params": np.asarray(params, np.float32),
+            "surf_eta": np.asarray(etas, np.float32),
+            "surf_refl": np.asarray(refls, np.float32),
+            "tri_v0": np.concatenate(tri_v0).astype(np.float32),
+            "tri_e1": np.concatenate(tri_e1).astype(np.float32),
+            "tri_e2": np.concatenate(tri_e2).astype(np.float32),
+            "tri_n": np.concatenate(tri_n).astype(np.float32),
+            "grid_cell_start": np.concatenate(grid_cs).astype(np.int32),
+            "grid_tri_ids": np.concatenate(grid_ids).astype(np.int32),
+            "grid_bbox": np.stack(grid_bbox).astype(np.float32),
             "bbox_min": np.asarray(sensor.bbox_min, np.float32),
             "bbox_max": np.asarray(sensor.bbox_max, np.float32),
             "sigma_t": np.float32(m.sigma_t),

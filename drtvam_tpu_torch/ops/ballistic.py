@@ -36,7 +36,8 @@ from .march import MarchStatic
 from .transport2d import build_transport, build_z_resample, \
     ballistic_eligible, strip_target, unscattered_eligible
 
-__all__ = ["BallisticEngine", "ballistic_eligible", "default_impl"]
+__all__ = ["BallisticEngine", "ballistic_eligible", "default_impl",
+           "radon_active_ballistic"]
 
 
 def default_impl(device):
@@ -207,3 +208,30 @@ class BallisticEngine:
         if self.identity_pixels:
             return Pbar
         return Pbar[self.active_pixels]
+
+
+def radon_active_ballistic(static: MarchStatic, arr, target_mask,
+                           device="cuda"):
+    """Radon culling of a transport-eligible scene (counterpart of
+    drtvam_tpu/ops/ballistic.py:377-409): the DMD pixels whose
+    unscattered, refracted path crosses the target occupancy, found by
+    one adjoint of the unscattered engine (`pattern_grad`, one
+    backprojection adjoint launch on the card) on the binary mask. The
+    reference's radon render keeps the same pixels: its in-target
+    absorption is nonzero exactly on the support of the transport field
+    W.
+
+    target_mask: (Z, Y, X) or (Z, Y, X, 1) binary occupancy on the
+    sensor grid. Returns int32 numpy DENSE flat (pattern, row, column)
+    indices of the pixels to keep, mapped back through the sparse store
+    when the projector already has an active subset."""
+    eng = BallisticEngine(static, arr, device, unscattered=True)
+    X, Y, Z = static.sensor.res
+    mask = torch.as_tensor(np.asarray(target_mask, np.float32).reshape(
+        Z, Y, X, 1)).to(eng.device)
+    with torch.no_grad():
+        g = eng.pattern_grad(mask, 1.0).cpu().numpy()
+    idx = np.nonzero(g > 0.0)[0]
+    if not eng.identity_pixels:
+        idx = eng.active_pixels.cpu().numpy()[idx]
+    return idx.astype(np.int32)

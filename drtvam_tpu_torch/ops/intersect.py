@@ -1,12 +1,10 @@
-"""Analytic ray intersection (counterpart of drtvam_tpu/ops/intersect.py
-:25-80): the open z-aligned cylinder tube of the vial walls and the
-axis-aligned box of square vials.
+"""Ray intersection (counterpart of drtvam_tpu/ops/intersect.py): the
+open z-aligned cylinder tube of the vial walls, the axis-aligned box of
+square vials and a bank of triangles (the target mesh; brute force here,
+the uniform grid in ops/mesh_grid.py).
 
 Batched over rays, branchless, t = +inf on a miss; normals are
-geometric and outward (the BSDF layer handles sidedness). Triangle
-meshes (`ray_triangles`, the mesh grid) are not ported: mesh vials and
-occlusions are ROADMAP queue 1 item 17, the surface-aware target item
-14.
+geometric and outward (the BSDF layer handles sidedness).
 """
 from __future__ import annotations
 
@@ -68,3 +66,75 @@ def ray_box(o, d, tmin, h):
     n = torch.stack([torch.where(axis == k, sgn, torch.zeros_like(sgn))
                      for k in range(3)], -1)
     return t, n
+
+
+def fma(a, b, c):
+    """a * b + c rounded once to float32, as a fused multiply-add: the
+    product of two float32 values is exact in float64, the sum is
+    rounded there and then to float32 (the two roundings differ from
+    one only where the float64 sum lies exactly halfway between two
+    float32 values)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def cross_fma(a, b):
+    """The cross product as the JAX package's jnp.cross computes it on
+    the CPU, where XLA contracts each component a1 b2 - a2 b1 into
+    fma(a1, b2, -(a2 b1))."""
+    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([fma(a1, b2, -(a2 * b1)), fma(a2, b0, -(a0 * b2)),
+                        fma(a0, b1, -(a1 * b0))], -1)
+
+
+def dot_fma(a, b):
+    """Sum over the last axis of size 3 as XLA computes jnp.sum(a * b)
+    on the CPU: fma(a2, b2, fma(a1, b1, a0 b0))."""
+    return fma(a[..., 2], b[..., 2],
+               fma(a[..., 1], b[..., 1], a[..., 0] * b[..., 0]))
+
+
+def moller_trumbore(o, d, tmin, a0, a1, a2, valid=None):
+    """Moller-Trumbore of rays o, d (N, 3) against triangles a0 = v0,
+    a1 = e1, a2 = e2, each (C, 3) (shared) or (N, C, 3) (per ray): the
+    hit distance (N, C), +inf where the ray misses, the determinant is
+    below 1e-12, the hit is not beyond tmin (N,) or valid (N, C) is
+    false. The float32 operations of drtvam_tpu/ops/intersect.py:101-114
+    in their order (multiplications by 1 / det), the cross products and
+    the three-term sums fused as XLA fuses them on the CPU (cross_fma,
+    dot_fma), so that t agrees bitwise with the JAX package's."""
+    d3, o3 = d[:, None, :], o[:, None, :]
+    pvec = cross_fma(d3, a2)
+    det = dot_fma(a1, pvec)
+    ok = torch.abs(det) > 1e-12
+    inv_det = 1.0 / torch.where(ok, det, torch.ones_like(det))
+    tvec = o3 - a0
+    u = dot_fma(tvec, pvec) * inv_det
+    qvec = cross_fma(tvec, a1)
+    v = dot_fma(d3, qvec) * inv_det
+    t = dot_fma(a2, qvec) * inv_det
+    ok = ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & \
+        (t > tmin[:, None])
+    if valid is not None:
+        ok = ok & valid
+    return torch.where(ok, t, torch.full_like(t, INF))
+
+
+def ray_triangles(o, d, tmin, v0, e1, e2, chunk=8):
+    """Nearest hit of rays o, d (N, 3), beyond tmin (N,), against a
+    triangle bank (T, 3) arrays, scanned in `chunk`-wide blocks: (t,
+    tri), t = +inf and tri = -1 on a miss. On equal t the first triangle
+    in bank order wins, as in the JAX package (argmin within a block,
+    a strict < across blocks)."""
+    n = o.shape[0]
+    t_best = torch.full((n,), INF, dtype=torch.float32, device=o.device)
+    i_best = torch.full((n,), -1, dtype=torch.int64, device=o.device)
+    for s in range(0, v0.shape[0], chunk):
+        t = moller_trumbore(o, d, tmin, v0[s:s + chunk], e1[s:s + chunk],
+                            e2[s:s + chunk])
+        j = torch.argmin(t, -1)
+        t_c = torch.gather(t, -1, j[:, None])[:, 0]
+        better = t_c < t_best
+        t_best = torch.where(better, t_c, t_best)
+        i_best = torch.where(better, s + j, i_best)
+    return t_best, i_best

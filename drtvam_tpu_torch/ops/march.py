@@ -45,10 +45,18 @@ package (drtvam_tpu/ops/march.py:107-144):
     scatter events, each against one convex exit distance; it draws in
     the general loop's order, so both replay the same paths.
 
-Not ported: radon mode (ROADMAP queue 1 item 13), the first-scatter
-geometric prologue used without a chord bank (item 20), medium
-cotangents (`medium_grads`, item 17), mesh surfaces (mesh vials and
-occlusions, item 17; the surface-aware target, item 14).
+The radon mode (drtvam_tpu/ops/march.py:917-923, the `filter_radon`
+culling render): scattering off, no deposits; each lane accumulates
+A exp(-sigma_t total_t) (1 - exp(-sigma_t t)) over the segments it runs
+inside the target and in the medium, total_t summing every segment, and
+makes every random draw of the volume mode in its slot. Mesh surfaces
+(the target, kept in the radon and corner renders) intersect through
+the triangle bank or its uniform grid (ops/mesh_grid.py).
+
+Not ported: the first-scatter geometric prologue used without a chord
+bank (ROADMAP queue 1 item 20), medium cotangents (`medium_grads`, item
+17), a volume-mode render that keeps the target (surface-aware films,
+item 14), mesh vials and occlusions (item 17).
 """
 from __future__ import annotations
 
@@ -64,9 +72,10 @@ from ..models.geometry import (BOX, CYLINDER, DIELECTRIC, DIFFUSE, MESH,
 from ..models.projector import ProjectorStatic, ray_weight, sample_rays
 from ..models.sensor import SensorStatic
 from .fresnel import dot3, refract
-from .intersect import INF, ray_box, ray_cylinder
+from .intersect import INF, ray_box, ray_cylinder, ray_triangles
 from .medium import U_MAX, phase_functions, sample_free_flight, \
     sample_phase_direction
+from .mesh_grid import TriGridStatic, ray_triangles_grid
 
 RAY_EPS = 1e-4
 RATIO_MAX_STEPS = 65536
@@ -82,9 +91,8 @@ class SurfaceStatic:
     medium_side: int     # 0 none, 1 interior is medium, 2 exterior
     is_target: bool
     tri_slice: Tuple[int, int]  # (start, count) into the triangle bank
-    # mesh-grid acceleration; always None here (mesh surfaces are
-    # ROADMAP queue 1 item 17)
-    grid: Optional[object] = None
+    # a mesh's uniform grid (from GRID_MIN_TRIS triangles), else None
+    grid: Optional[TriGridStatic] = None
 
 
 @dataclass(frozen=True)
@@ -112,18 +120,24 @@ def _not_ported(what, item):
         f"{what} is not ported yet — ROADMAP queue 1 item {item}")
 
 
-def check_supported(static: MarchStatic):
-    """Raise for what the port's wavefront does not run."""
-    if static.mode != "volume":
-        raise _not_ported(f"the '{static.mode}' render mode", 13)
+def check_supported(static: MarchStatic, corner=False):
+    """Raise for what the port's wavefront does not run. corner: the
+    static of the corner render (one intersection a lane, no march)."""
+    if static.mode not in ("volume", "radon"):
+        raise ValueError(f"unknown render mode '{static.mode}'")
     if static.medium_grads:
         raise _not_ported("medium gradients (medium_grads)", 17)
     if static.sensor.surface_aware:
         raise _not_ported("surface-aware films", 14)
-    if any(s.kind == MESH for s in static.surfaces):
-        raise _not_ported(
-            "mesh surfaces in the wavefront (mesh vials and occlusions: "
-            "item 17; the surface-aware target: item 14)", 17)
+    for s in static.surfaces:
+        if s.kind != MESH:
+            continue
+        if not s.is_target:
+            raise _not_ported("mesh vials and occlusions", 17)
+        if static.mode == "volume" and not corner:
+            raise _not_ported(
+                "a volume render that keeps the target mesh (surface-aware "
+                "films)", 14)
     if static.sensor.estimator not in ESTIMATORS:
         raise ValueError(f"unknown estimator '{static.sensor.estimator}'")
     if static.has_scattering and static.phase not in phase_functions:
@@ -196,6 +210,28 @@ def _onb(n):
     return t, bt
 
 
+def _ray_mesh(s: SurfaceStatic, arr, o, d):
+    """Nearest hit of rays (N, 3) on mesh surface s: (t, normal), the
+    normal of the hit triangle (of triangle 0 of the mesh on a miss), as
+    drtvam_tpu/ops/march.py:171-190 takes it."""
+    a, c = s.tri_slice
+    v0, e1, e2 = (arr[k][a:a + c] for k in ("tri_v0", "tri_e1", "tri_e2"))
+    tmin = torch.full(o.shape[:1], RAY_EPS, dtype=torch.float32,
+                      device=o.device)
+    g = s.grid
+    if g is None:
+        t, tri = ray_triangles(o, d, tmin, v0, e1, e2)
+    else:
+        n_cells = g.res[0] * g.res[1] * g.res[2]
+        t, tri = ray_triangles_grid(
+            o, d, tmin, v0, e1, e2,
+            arr["grid_cell_start"][g.cell_offset:g.cell_offset + n_cells + 1],
+            arr["grid_tri_ids"][g.ids_offset:g.ids_offset + g.n_ids],
+            arr["grid_bbox"][g.bbox_row, 0], arr["grid_bbox"][g.bbox_row, 1],
+            g.res)
+    return t, arr["tri_n"][a:a + c][torch.clamp(tri, 0, c - 1)]
+
+
 def intersect_scene(static: MarchStatic, arr, o, d, active):
     """Nearest surface hit: (t, normal, surface id, valid)."""
     shape = o.shape[:-1]
@@ -209,7 +245,8 @@ def intersect_scene(static: MarchStatic, arr, o, d, active):
         elif s.kind == BOX:
             t, n = ray_box(o, d, RAY_EPS, p[:3])
         else:
-            raise _not_ported("mesh surfaces in the wavefront", 17)
+            t, n = _ray_mesh(s, arr, o.reshape(-1, 3), d.reshape(-1, 3))
+            t, n = t.reshape(shape), n.reshape(o.shape)
         better = t < t_best
         t_best = torch.where(better, t, t_best)
         n_best = torch.where(better[..., None], n, n_best)
@@ -564,9 +601,12 @@ def trace_wavefront(static: MarchStatic, arr, lane, seed, spp, dL_flat=None,
     adjoint: returns (acc, g) with g the per-lane emitter gradient
     (without em or the ray weight).
     stats: optional dict counting the estimator's steps ("steps") and
-    the lanes' bounce iterations ("iterations")."""
+    the lanes' bounce iterations ("iterations").
+    radon mode (static.mode "radon"): returns (L, None), L (n,) the
+    lanes' in-target absorption (drtvam_tpu/ops/march.py:917-923)."""
     check_supported(static)
-    primal = dL_flat is None
+    radon = static.mode == "radon"
+    primal = dL_flat is None or radon
     dev = lane.device
     n = lane.shape[0]
     sampler = Sampler(seed)
@@ -574,7 +614,7 @@ def trace_wavefront(static: MarchStatic, arr, lane, seed, spp, dL_flat=None,
     o, d, aidx, ctr = sample_rays(
         static.projector, arr, arr["active_pixels"], lane, spp, sampler,
         ctr, static.regular_sampling, static.sample_time, static.clockwise)
-    if primal:
+    if primal and not radon:
         if em is None:
             em = arr["active_data"][aidx]
         em = em * ray_weight(static.projector, arr, spp, arr["print_time"])
@@ -591,7 +631,9 @@ def trace_wavefront(static: MarchStatic, arr, lane, seed, spp, dL_flat=None,
     has_diffuse = any(s.bsdf == DIFFUSE for s in surfaces)
     st = arr["sigma_t"]
     est = static.sensor.estimator
-    scat = static.has_scattering
+    # the radon mode turns scattering off; its Russian roulette still
+    # reads the scene's (has_scattering), as the JAX package's does
+    scat = static.has_scattering and not radon
     tonly = static.transmission_only
 
     f32 = dict(dtype=torch.float32, device=dev)
@@ -604,7 +646,8 @@ def trace_wavefront(static: MarchStatic, arr, lane, seed, spp, dL_flat=None,
     active = torch.ones((n,), dtype=torch.bool, device=dev)
     ones, zeros, infs = (torch.ones((n,), **f32), torch.zeros((n,), **f32),
                          torch.full((n,), INF, **f32))
-    res_mode = residual_mode(static)
+    L = torch.zeros((n,), **f32) if radon else None
+    res_mode = ANALOG if radon else residual_mode(static)
     if res_mode in (FIRST_SCATTER, FAST_RESIDUAL):
         # every lane starts at its forced first scatter event: the
         # pre-scatter attenuation and the event's albedo live in A, so
@@ -627,7 +670,7 @@ def trace_wavefront(static: MarchStatic, arr, lane, seed, spp, dL_flat=None,
         # Russian roulette; without scattering its survival probability
         # carries the analytic transmittance, as the reference's
         # attenuation does
-        rr_A = A if scat else A * torch.exp(-st * total_t)
+        rr_A = A if static.has_scattering else A * torch.exp(-st * total_t)
         q = torch.clamp(rr_A, max=0.99)
         perform_rr = depth > static.rr_depth
         u_rr, ctr = sampler.next_1d(lane, ctr)
@@ -662,7 +705,13 @@ def trace_wavefront(static: MarchStatic, arr, lane, seed, spp, dL_flat=None,
         if res_mode != ANALOG:
             # the unscattered deposits belong to the ballistic engine
             dep_active = dep_active & (n_scat > 0.0)
-        if est == "dda":
+        if radon:
+            # the in-target absorption, t summed over every segment
+            contrib = A * torch.exp(-st * total_t) * \
+                (1.0 - torch.exp(-st * t_si))
+            L = L + torch.where(inside_target & in_medium & active, contrib,
+                                zeros)
+        elif est == "dda":
             acc, g = dda_segment(static, arr, primal, acc, g, dL_flat, o, d,
                                  total_t, t_si, A, em, dep_active, stats)
         elif est == "ratio":
@@ -724,8 +773,11 @@ def trace_wavefront(static: MarchStatic, arr, lane, seed, spp, dL_flat=None,
         w = torch.where(medium_event, w_event,
                         torch.where(active_surface, w_bsdf, ones))
         A = torch.where(active, A * w, A)
-        total_t = torch.where((medium_event | reached_surface) & active,
-                              total_t + seg_t, total_t)
+        if radon:
+            total_t = torch.where(active, total_t + t_si, total_t)
+        else:
+            total_t = torch.where((medium_event | reached_surface) & active,
+                                  total_t + seg_t, total_t)
 
         # medium transition: does the new direction enter the medium?
         ms = med_side[sid0]
@@ -737,4 +789,6 @@ def trace_wavefront(static: MarchStatic, arr, lane, seed, spp, dL_flat=None,
         active = active & (active_surface | in_medium) & (A != 0.0)
         depth = torch.where(active & ~hit_target, depth + 1, depth)
         active = active & (depth < static.max_depth)
+    if radon:
+        return L, None
     return acc, g

@@ -26,7 +26,13 @@ Four kernel wrappers, each with its plain version beside it:
 
 and beside wf_res_fwd its parts, counted apart in `launches`: the dda
 forward's walk pass (res_walk, plain: _walk) and the chord table
-(_res_chords, plain: _chord_table).
+(_res_chords, plain: _chord_table). The DMD-pixel culling renders
+(counterparts of drtvam_tpu/ops/render.py:193-268), forward only, with
+the dense (n_patterns * resy * resx,) image as their result:
+
+    wf_radon    <- render_radon   (plain: _radon, trace_wavefront in its
+                                   radon mode chunk by chunk)
+    wf_corner   <- render_corner  (plain: _corner, one intersect_scene)
 
 The CUDA kernels are csrc/wf_fwd.cu, csrc/wf_bwd.cu, csrc/wf_res_fwd.cu
 and csrc/wf_res_bwd.cu, entry points of the one per-lane path template
@@ -58,12 +64,13 @@ import ctypes
 import numpy as np
 import torch
 
-from ..models.projector import PROJECTOR_KINDS, ray_weight
-from ..models.geometry import CYLINDER
+from ..core.rng import Sampler
+from ..models.projector import PROJECTOR_KINDS, ray_weight, sample_rays
+from ..models.geometry import CYLINDER, MESH
 from .march import (ANALOG, ESTIMATORS, FAST_RESIDUAL, FIRST_SCATTER,
                     MarchStatic, _grid, check_supported, dda_max_steps,
-                    dda_segment, residual_mode, residual_surface,
-                    trace_wavefront)
+                    dda_segment, intersect_scene, residual_mode,
+                    residual_surface, trace_wavefront)
 from .medium import PHASE_IDS
 
 DEFAULT_CHUNK = 1 << 16   # plain version: lanes per pass
@@ -81,10 +88,16 @@ COUNTERS = ("iterations", "steps", "tile_deposits", "global_deposits",
 
 KERNELS = ("wf_fwd", "wf_bwd")              # the analog pair
 RES_KERNELS = ("wf_res_fwd", "wf_res_bwd")  # the residual pair
+CULL_KERNELS = ("wf_radon", "wf_corner")    # the culling renders
 # entry points of csrc/wf_res_fwd.cu beside its per-lane kernel, counted
 # apart: the dda forward's walk pass and the chord table's prologue
 RES_PARTS = ("wf_res_walk", "wf_res_chords")
-launches = {k: 0 for k in KERNELS + RES_KERNELS + RES_PARTS}
+launches = {k: 0 for k in KERNELS + RES_KERNELS + CULL_KERNELS + RES_PARTS}
+# what the culling kernels count when asked: bounce iterations, mesh grid
+# cells visited and triangles tested
+CULL_COUNTERS = ("iterations", "cells", "triangles")
+# the lane modes of the culling kernels (csrc/wf_trace.cuh)
+RADON, CORNER = 4, 5
 # the dda residual forward's segment records (32 bytes each): a buffer of
 # at most SPLIT_MAX_RECORDS (2 GB), allocated once per engine; batches of
 # CTAs sized from the records a lane made so far (SPLIT_GUESS before the
@@ -201,11 +214,12 @@ def _host(x):
     return x.detach().cpu().reshape(-1).tolist()
 
 
-def make_params(static: MarchStatic, arr, seed, spp):
+def make_params(static: MarchStatic, arr, seed, spp, corner=False):
     """The kernels' WfParams from the static description and the scene
     tensors. Every float is the scene's float32 value (exact through
-    ctypes); ray_w is the plain version's float32 ray weight."""
-    check_supported(static)
+    ctypes); ray_w is the plain version's float32 ray weight. corner:
+    the corner render's static (check_supported)."""
+    check_supported(static, corner)
     surfaces = static.surfaces
     if len(surfaces) > MAX_SURF:
         raise ValueError(f"wf kernels take at most {MAX_SURF} surfaces, "
@@ -251,6 +265,53 @@ def make_params(static: MarchStatic, arr, seed, spp):
     P.res_surf = residual_surface(static) \
         if P.residual == FAST_RESIDUAL else 0
     return P
+
+
+class WfMesh(ctypes.Structure):
+    """Mirror of `WfMesh` in csrc/wf_mesh.cuh: the mesh banks' pointers
+    (8 bytes each, first), then per surface its triangles and its grid
+    (4-byte ints; grid_res 0: brute force)."""
+    _fields_ = [(k, ctypes.c_void_p) for k in (
+        "v0", "e1", "e2", "n", "cell_start", "tri_ids", "grid_bbox")] + [
+        ("tri_start", ctypes.c_int * MAX_SURF),
+        ("tri_count", ctypes.c_int * MAX_SURF),
+        ("grid_res", ctypes.c_int * (3 * MAX_SURF)),
+        ("cell_offset", ctypes.c_int * MAX_SURF),
+        ("ids_offset", ctypes.c_int * MAX_SURF),
+        ("n_ids", ctypes.c_int * MAX_SURF),
+        ("bbox_row", ctypes.c_int * MAX_SURF),
+    ]
+
+
+# (WfMesh field, scene tensor, dtype)
+_MESH_BANKS = (("v0", "tri_v0", torch.float32),
+               ("e1", "tri_e1", torch.float32),
+               ("e2", "tri_e2", torch.float32),
+               ("n", "tri_n", torch.float32),
+               ("cell_start", "grid_cell_start", torch.int32),
+               ("tri_ids", "grid_tri_ids", torch.int32),
+               ("grid_bbox", "grid_bbox", torch.float32))
+
+
+def make_mesh(name, static: MarchStatic, arr):
+    """The culling kernels' WfMesh: pointers into the scene tensors'
+    mesh banks (which must outlive the launch) and each mesh surface's
+    slices of them."""
+    M = WfMesh()
+    for field, key, dtype in _MESH_BANKS:
+        t = arr[key]
+        _check(name, t, dtype, tuple(t.shape))
+        setattr(M, field, t.data_ptr())
+    for i, s in enumerate(static.surfaces):
+        if s.kind != MESH:
+            continue
+        M.tri_start[i], M.tri_count[i] = s.tri_slice
+        g = s.grid
+        if g is not None:
+            M.grid_res[3 * i:3 * i + 3] = list(g.res)
+            M.cell_offset[i], M.ids_offset[i] = g.cell_offset, g.ids_offset
+            M.n_ids[i], M.bbox_row[i] = g.n_ids, g.bbox_row
+    return M
 
 
 # --------------------------------------------------------------------------
@@ -390,12 +451,19 @@ _ARGS = {
                     ctypes.c_int, ctypes.c_int, _PTR, _PTR, _PTR],
     # (bank, n, sigma_t, tab, stream)
     "wf_res_chords": [_PTR, ctypes.c_int, ctypes.c_float, _PTR, _PTR],
+    # (P, M, active_pixels, img, counters, stream)
+    "wf_radon": [ctypes.POINTER(WfParams), ctypes.POINTER(WfMesh)] +
+                [_PTR] * 4,
+    # (P, M, active_pixels, dist, radius, img, counters, stream)
+    "wf_corner": [ctypes.POINTER(WfParams), ctypes.POINTER(WfMesh), _PTR,
+                  ctypes.c_float, ctypes.c_float] + [_PTR] * 3,
 }
 # the entry points each kernel library holds, and its launch-shape queries
 _ENTRIES = {"wf_fwd": ("wf_fwd",), "wf_bwd": ("wf_bwd",),
             "wf_res_fwd": ("wf_res_fwd", "wf_res_path", "wf_res_walk",
                            "wf_res_chords"),
-            "wf_res_bwd": ("wf_res_bwd",)}
+            "wf_res_bwd": ("wf_res_bwd",), "wf_radon": ("wf_radon",),
+            "wf_corner": ("wf_corner",)}
 _INFO = {"wf_fwd_info": [ctypes.POINTER(WfParams), ctypes.c_int],
          "wf_bwd_info": [ctypes.POINTER(WfParams), ctypes.c_int],
          "wf_res_fwd_info": [ctypes.POINTER(WfParams), ctypes.c_int],
@@ -418,18 +486,18 @@ def _setup(lib, name):
 
 
 _SETUP = {k: (lambda lib, k=k: _setup(lib, k))
-          for k in KERNELS + RES_KERNELS}
+          for k in KERNELS + RES_KERNELS + CULL_KERNELS}
 # the kernels round every float operation as the plain version's separate
 # torch ops do (no FMA contraction): see csrc/wf_trace.cuh
-_FLAGS = {k: ["--fmad=false"] for k in KERNELS + RES_KERNELS}
+_FLAGS = {k: ["--fmad=false"] for k in KERNELS + RES_KERNELS + CULL_KERNELS}
 
 
 def build_kernels():
     """Build (nvcc, one process per source, in parallel) and load the
-    four kernel libraries. Returns {name: ctypes lib}; raises on any
+    six kernel libraries. Returns {name: ctypes lib}; raises on any
     failure."""
     from ..native import load_cuda
-    return load_cuda(KERNELS + RES_KERNELS, _SETUP, _FLAGS)
+    return load_cuda(KERNELS + RES_KERNELS + CULL_KERNELS, _SETUP, _FLAGS)
 
 
 def _check(name, t, dtype, shape):
@@ -475,6 +543,9 @@ def _family_params(name, static, arr, seed, spp):
     transmission only) and takes no tile. Returns (P, order, starts,
     rows) for the analog pair, (P, order, starts, the chord bank or
     None) for the residual pair."""
+    if static.mode != "volume":
+        raise ValueError(f"{name} renders the dose; the '{static.mode}' "
+                         "mode runs on wf_radon")
     P = make_params(static, arr, seed, spp)
     order, starts, rows, P.tile_n = _launch_layout(static, arr)
     if name in KERNELS:
@@ -908,3 +979,149 @@ def render(static: MarchStatic, arr, data, inv_vol, seed=0, spp=1,
                           spp if spp_grad is None else spp_grad,
                           DEFAULT_CHUNK if chunk is None else chunk)
     return raw.reshape(static.sensor.shape) * inv_vol
+
+
+# --------------------------------------------------------------------------
+# the DMD-pixel culling renders
+
+
+def _dense_image(static: MarchStatic, arr, vals):
+    """The dense (n_patterns * resy * resx,) image with the active pixels'
+    values vals (n_active,) and 0 elsewhere."""
+    p = static.projector
+    img = torch.zeros((p.n_patterns * p.resy * p.resx,), dtype=torch.float32,
+                      device=vals.device)
+    if p.identity:
+        return vals
+    img[arr["active_pixels"].to(torch.int64)] = vals
+    return img
+
+
+def _radon(static: MarchStatic, arr, seed, spp, chunk, stats=None):
+    """Plain version of render_radon: trace_wavefront in its radon mode,
+    chunk by chunk; each pixel's lanes summed in lane order, times the
+    ray weight. stats: adds the bounce iterations."""
+    p = static.projector
+    n_lanes = _n_lanes(static, spp)
+    chunk, n_chunks = _chunking(n_lanes, chunk, spp)
+    dev = arr["active_pixels"].device
+    vals = torch.zeros((p.n_active,), dtype=torch.float32, device=dev)
+    for i in range(n_chunks):
+        lo, hi = i * chunk, min((i + 1) * chunk, n_lanes)
+        lane = torch.arange(lo, hi, dtype=torch.int64, device=dev)
+        L, _ = trace_wavefront(static, arr, lane, seed, spp, stats=stats)
+        L = L.reshape(-1, spp)
+        s = L[:, 0]
+        for k in range(1, spp):
+            s = s + L[:, k]
+        vals[lo // spp:hi // spp] = s
+    w = ray_weight(p, arr, spp, arr["print_time"])
+    return _dense_image(static, arr, vals * w)
+
+
+def _corner(static: MarchStatic, arr, dist, radius, seed, chunk):
+    """Plain version of render_corner: each active pixel's ray from its
+    centre (spp 1, no time sampling) and one intersect_scene; the pixel
+    keeps the ray weight unless the hit is missing or lies within radius
+    of the corner (|x|, |y|) = (dist, dist)."""
+    p = static.projector
+    dev = arr["active_pixels"].device
+    chunk, n_chunks = _chunking(p.n_active, chunk)
+    w = ray_weight(p, arr, 1, arr["print_time"])
+    vals = torch.zeros((p.n_active,), dtype=torch.float32, device=dev)
+    sampler = Sampler(seed)
+    for i in range(n_chunks):
+        lo, hi = i * chunk, min((i + 1) * chunk, p.n_active)
+        lane = torch.arange(lo, hi, dtype=torch.int64, device=dev)
+        ctr = sampler.init(hi - lo, dev)
+        o, d, _, _ = sample_rays(p, arr, arr["active_pixels"], lane, 1,
+                                 sampler, ctr, True, False, static.clockwise)
+        t, _, _, hit = intersect_scene(
+            static, arr, o, d, torch.ones((hi - lo,), dtype=torch.bool,
+                                          device=dev))
+        pos = o + t[:, None] * d
+        ax = torch.abs(pos[:, 0]) - dist
+        ay = torch.abs(pos[:, 1]) - dist
+        keep = hit & (torch.sqrt(ax * ax + ay * ay) >= radius)
+        vals[lo:hi] = torch.where(keep, w, torch.zeros_like(ax))
+    return _dense_image(static, arr, vals)
+
+
+def _cull_launch(name, static, arr, P, args, stats):
+    """One launch of the culling kernel `name` into a zeroed dense
+    image."""
+    dev = arr["active_pixels"].device
+    pix = _pixels(name, static, arr, dev)
+    M = make_mesh(name, static, arr)
+    p = static.projector
+    img = torch.zeros((p.n_patterns * p.resy * p.resx,), dtype=torch.float32,
+                      device=dev)
+    counter = None if stats is None else torch.zeros(
+        (len(CULL_COUNTERS),), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        fn = getattr(build_kernels()[name], name)
+        err = fn(ctypes.byref(P), ctypes.byref(M), pix.data_ptr(), *args,
+                 img.data_ptr(), _ptr(counter), _stream(dev))
+    launches[name] += 1
+    _err(name, err)
+    if counter is not None:
+        for key, v in zip(CULL_COUNTERS, counter.tolist()):
+            stats[key] = stats.get(key, 0) + v
+    return img
+
+
+def wf_radon(static: MarchStatic, arr, seed, spp, stats=None):
+    """CUDA kernel csrc/wf_radon.cu: the radon render's dense image of a
+    radon static (the scene tensors on the card, the target mesh kept).
+    Replaces drtvam_tpu/ops/render.py:193 render_radon (XLA). One thread
+    an active pixel, its spp lanes in the template's RADON mode, the
+    pixel written once: bitwise reproducible. What bounds it on the
+    H100: the operations of the surface intersections, the mesh's grid
+    cells and triangles above all. stats: adds the CULL_COUNTERS."""
+    if static.mode != "radon":
+        raise ValueError("wf_radon runs a radon static (Scene.build "
+                         "mode='radon')")
+    _n_lanes(static, spp)
+    P = make_params(static, arr, seed, spp)
+    P.residual = RADON
+    return _cull_launch("wf_radon", static, arr, P, (), stats)
+
+
+def wf_corner(static: MarchStatic, arr, dist, radius, seed=0, stats=None):
+    """CUDA kernel csrc/wf_corner.cu: the corner filter's dense keep image
+    (the ray weight where a pixel is kept, else 0) of a static with the
+    target kept, on the card. Replaces drtvam_tpu/ops/render.py:226
+    render_corner (XLA). One thread an active pixel, its centre ray's
+    set-up and one intersection (regular sampling, spp 1), the pixel
+    written once. Bound as wf_radon's one iteration. stats: adds the
+    CULL_COUNTERS."""
+    P = make_params(static, arr, seed, 1, corner=True)
+    P.regular_sampling, P.sample_time, P.residual = 1, 0, CORNER
+    return _cull_launch("wf_corner", static, arr, P,
+                        (float(dist), float(radius)), stats)
+
+
+def render_radon(static: MarchStatic, arr, seed=0, spp=4, chunk=None):
+    """The radon render (filter_radon's fallback for scenes that are not
+    transport-eligible): each active pixel's in-target absorption summed
+    over its spp lanes, times the ray weight, in the dense (n_patterns *
+    resy * resx,) image. arr: the scene tensors (`scene_tensors`) of a
+    radon static; wf_radon on the card, the plain version on the CPU."""
+    if _route(arr["active_pixels"]):
+        return wf_radon(static, arr, seed, spp)
+    return _radon(static, arr, seed, spp,
+                  DEFAULT_CHUNK if chunk is None else chunk)
+
+
+def render_corner(static: MarchStatic, arr, dist, radius=0.1, seed=0,
+                  chunk=None):
+    """The corner filter's keep image (>0: keep) in the dense (n_patterns
+    * resy * resx,) layout: regular sampling, spp 1, one intersection a
+    pixel, as drtvam_tpu/ops/render.py:226-268. arr: the scene tensors of
+    a static built with the target kept; wf_corner on the card, the plain
+    version on the CPU."""
+    if _route(arr["active_pixels"]):
+        return wf_corner(static, arr, dist, radius, seed)
+    check_supported(static, corner=True)
+    return _corner(static, arr, dist, radius, seed,
+                   DEFAULT_CHUNK if chunk is None else chunk)

@@ -13,6 +13,16 @@ timing.npy: per iteration, column 0 is the primal render + loss wall
 time, column 1 the adjoint + optimizer step (direction render and line
 search included), each ending in a device synchronize.
 
+DMD-pixel culling before the loop, as in the JAX package:
+`filter_radon` keeps the pixels whose ray crosses the target, by one
+adjoint of the unscattered ballistic engine on the target occupancy
+where the scene is transport-eligible (ops/ballistic.py
+radon_active_ballistic), else by the radon render (ops/render.py
+render_radon, `spp_filter_radon` lanes a pixel); `filter_corner`
+({"dist", "radius"}) drops the pixels whose ray meets a square vial's
+corner (render_corner). The optimization then runs on the kept pixels,
+from zero.
+
 Engines, selected as the JAX package selects them (`engine`: auto,
 ballistic, hybrid, wavefront): under auto the ballistic engine for a
 collimated projector, an analytic vial, pure absorption and the dda
@@ -39,10 +49,10 @@ import torch
 
 from ..models.scene import Scene
 from ..ops import render as wavefront
-from ..ops.ballistic import BallisticEngine
+from ..ops.ballistic import BallisticEngine, radon_active_ballistic
 from ..ops.hybrid import ScatteringEngine, hybrid_eligible
 from ..ops.march import scene_tensors
-from ..ops.transport2d import ballistic_eligible
+from ..ops.transport2d import ballistic_eligible, unscattered_eligible
 from ..utils.io import save_img, save_vol
 from ..utils.metrics import save_histogram
 from .device_lbfgs import DeviceLinearLBFGS
@@ -54,8 +64,6 @@ _NOT_PORTED = {
     "progressive": ("the progressive depth schedule", 12),
     "checkpoint_every": ("checkpointing", 12),
     "resume": ("resuming from a checkpoint", 12),
-    "filter_radon": ("Radon culling of DMD pixels", 13),
-    "filter_corner": ("corner culling of DMD pixels", 13),
     "optimize_medium": ("medium optimization", 17),
     "psf_analysis": ("PSF analysis mode", 17),
     "profile": ("device profiling", 17),
@@ -134,6 +142,55 @@ def _check_ported(config, scene):
         raise _not_ported("surface-aware films", 14)
 
 
+def _cull(config, scene, target, device, rr_depth, transmission_only,
+          regular_sampling, chunk):
+    """DMD-pixel culling (drtvam_tpu/opt/optimize.py:283-330): the
+    projector's active set becomes the pixels filter_radon and
+    filter_corner keep, at zero. Returns whether a filter ran."""
+    ran = False
+    if config.get("filter_radon", False):
+        static_v, arr_v = scene.build(
+            mode="volume", include_target=False, max_depth=5,
+            rr_depth=rr_depth, print_time=1.0,
+            transmission_only=transmission_only,
+            regular_sampling=regular_sampling)
+        if unscattered_eligible(static_v):
+            active = radon_active_ballistic(static_v, arr_v, target, device)
+        else:
+            static_r, arr_r = scene.build(
+                mode="radon", include_target=True, max_depth=5,
+                rr_depth=rr_depth, print_time=1.0,
+                transmission_only=transmission_only,
+                regular_sampling=regular_sampling)
+            img = wavefront.render_radon(
+                static_r, scene_tensors(arr_r, device), seed=0,
+                spp=config.get("spp_filter_radon", 4), chunk=chunk)
+            active = np.nonzero(img.cpu().numpy() > 0.0)[0].astype(np.int32)
+        if active.size == 0:
+            raise ValueError(
+                "Radon culling removed every DMD pixel — no ray ever "
+                "crosses the target. Check the projector/target setup.")
+        scene.projector.set_active(active, np.zeros(active.size, np.float32))
+        ran = True
+    if "filter_corner" in config:
+        ccfg = config["filter_corner"]
+        static_c, arr_c = scene.build(
+            mode="volume", include_target=True, max_depth=1,
+            rr_depth=rr_depth, print_time=1.0,
+            transmission_only=transmission_only, regular_sampling=True)
+        img = wavefront.render_corner(
+            static_c, scene_tensors(arr_c, device), dist=ccfg["dist"],
+            radius=ccfg.get("radius", 0.1), seed=0, chunk=chunk)
+        active = np.nonzero(img.cpu().numpy() > 0.0)[0].astype(np.int32)
+        if active.size == 0:
+            raise ValueError(
+                "Corner culling removed every DMD pixel — the corner "
+                "radius/dist likely cover the whole aperture.")
+        scene.projector.set_active(active, np.zeros(active.size, np.float32))
+        ran = True
+    return ran
+
+
 def optimize(config, resolve_path=None, device="cuda", timings=None):
     """Optimize projector patterns for the configured TVAM scene.
 
@@ -142,8 +199,9 @@ def optimize(config, resolve_path=None, device="cuda", timings=None):
         resolve_path: optional relative-path resolver.
         device: torch device the engine and the optimizer run on.
         timings: optional dict, filled with the wall seconds of the
-            phases (scene_s, precompute_s, loop_s, final_render_s,
-            artifacts_s).
+            phases (scene_s, cull_s, precompute_s, loop_s,
+            final_render_s, artifacts_s) and the active pixels the
+            loop optimizes (active_pixels).
     Returns the final dose volume as a numpy (Z, Y, X, 1) array.
     """
     device = torch.device(device)
@@ -196,6 +254,9 @@ def optimize(config, resolve_path=None, device="cuda", timings=None):
     engine_kind = select_engine(engine_cfg, static)
 
     if scene.target_dose is not None:
+        if config.get("filter_radon", False) or "filter_corner" in config:
+            raise ValueError("DMD-pixel culling filters need a target "
+                             "mesh, not a dose volume")
         target = scene.target_dose
     else:
         target = np.asarray(sensor.discretize(scene.target_bank()))
@@ -203,6 +264,21 @@ def optimize(config, resolve_path=None, device="cuda", timings=None):
     np.save(os.path.join(output, "target.npy"), target)
     target_t = torch.from_numpy(np.ascontiguousarray(target)).to(device)
     timings["scene_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    if _cull(config, scene, target, device, rr_depth, transmission_only,
+             regular_sampling, chunk):
+        static, arr = scene.build(
+            mode="volume", include_target=False, max_depth=max_depth,
+            rr_depth=rr_depth, print_time=print_time,
+            transmission_only=transmission_only,
+            regular_sampling=regular_sampling)
+        n_dense = int(np.prod(scene.projector.size()))
+        print(f"DMD-pixel culling kept {static.projector.n_active} of "
+              f"{n_dense} pixels")
+    _sync(device)
+    timings["cull_s"] = time.perf_counter() - t0
+    timings["active_pixels"] = static.projector.n_active
 
     if "loss" not in config:
         print("Config has no 'loss' entry; defaulting to the thresholded "

@@ -1,6 +1,7 @@
 """The CUDA kernels == their plain versions, on a card: the four
 backprojection kernels, their bf16 operand forms, the wavefront pair
-(wf_fwd, wf_bwd) and the residual pair (wf_res_fwd, wf_res_bwd). Free of
+(wf_fwd, wf_bwd), the residual pair (wf_res_fwd, wf_res_bwd) and the
+culling renders (wf_radon, wf_corner). Free of
 jax (the card's machine has none), so it runs there with
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -366,11 +367,13 @@ def test_res_kernels_match_plain(estimator, mode, tmp_path, cuda_device):
     grad = wf.adjoint(st, at, 7, 4, wf.DEFAULT_CHUNK, dL)
     grad2 = wf.adjoint(st, at, 7, 4, wf.DEFAULT_CHUNK, dL)
     torch.cuda.synchronize()
-    # the dda forward: a path pass and a walk pass a batch of CTAs
+    # the dda forward: a path pass and a walk pass in WALK_SLABS z-slabs
+    # (one launch each) a batch of CTAs
     n_fwd = wf.launches["wf_res_fwd"] - before["wf_res_fwd"]
     n_walk = wf.launches["wf_res_walk"] - before["wf_res_walk"]
     if estimator == "dda":
-        assert 1 <= n_walk <= n_fwd
+        assert 1 <= n_walk <= wf.WALK_SLABS * n_fwd
+        assert n_walk % wf.WALK_SLABS == 0
     else:
         assert (n_fwd, n_walk) == (1, 0)
     assert wf.launches["wf_res_bwd"] == before["wf_res_bwd"] + 2
@@ -401,3 +404,57 @@ def test_hybrid_engine_never_takes_the_plain_path(tmp_path, cuda_device,
     (g,) = torch.autograd.grad(vol.sum(), data)
     torch.cuda.synchronize()
     assert vol.is_cuda and g.is_cuda and float(g.abs().sum()) > 0
+
+
+def _cull_scene(tmp_path, mode):
+    """A radon static (cylindrical vial) or the corner render's (square
+    vial) with the 792-triangle box-with-hole target: its grid walk."""
+    from drtvam_tpu_torch.models.scene import Scene
+    from drtvam_tpu_torch.ops.mesh import make_box_with_hole, save_ply
+    path = str(tmp_path / "box_hole.ply")
+    save_ply(make_box_with_hole((2.0, 2.0, 1.0), 0.5, segments=99), path)
+    vial = {"type": "cylindrical", "r_int": 2.6, "r_ext": 2.9} \
+        if mode == "radon" else {"type": "square", "w_int": 4.6,
+                                 "w_ext": 5.0}
+    vial.update(ior=1.54, medium={"ior": 1.40, "extinction": 0.1,
+                                  "albedo": 0.0})
+    cfg = {"vial": vial,
+           "projector": {"type": "collimated", "n_patterns": 8,
+                         "resx": 64, "resy": 16, "pixel_size": 5.0 / 64,
+                         "motion": "circular", "distance": 20},
+           "sensor": {"type": "dda", "scalex": 5, "scaley": 5,
+                      "scalez": 1.25,
+                      "film": {"type": "vfilm", "resx": 48, "resy": 48,
+                               "resz": 24}},
+           "target": {"filename": path, "size": 1.5},
+           "output": str(tmp_path)}
+    if mode == "radon":
+        return Scene(cfg).build(mode="radon", include_target=True,
+                                max_depth=5, rr_depth=3)
+    return Scene(cfg).build(mode="volume", include_target=True, max_depth=1,
+                            regular_sampling=True)
+
+
+def test_cull_kernels_match_plain(tmp_path, cuda_device):
+    """wf_radon: the image to 1e-4 of its max (CUDA's transcendentals on
+    both sides), the same kept set, bitwise on two launches; wf_corner:
+    the same keep image."""
+    from drtvam_tpu_torch.ops.march import scene_tensors
+    static, arr = _cull_scene(tmp_path, "radon")
+    at = scene_tensors(arr, cuda_device)
+    before = dict(wf.launches)
+    img = wf.render_radon(static, at, seed=7, spp=2)
+    img2 = wf.render_radon(static, at, seed=7, spp=2)
+    ref = wf._radon(static, at, 7, 2, wf.DEFAULT_CHUNK)
+    torch.cuda.synchronize()
+    assert wf.launches["wf_radon"] == before["wf_radon"] + 2
+    assert torch.equal(img, img2)
+    np.testing.assert_allclose(img.cpu().numpy(), ref.cpu().numpy(), rtol=0,
+                               atol=1e-4 * float(ref.abs().max()))
+    assert torch.equal(img > 0, ref > 0) and bool((ref > 0).any())
+    static, arr = _cull_scene(tmp_path, "corner")
+    at = scene_tensors(arr, cuda_device)
+    keep = wf.render_corner(static, at, dist=2.5, radius=0.3)
+    assert torch.equal(keep, wf._corner(static, at, 2.5, 0.3, 0,
+                                        wf.DEFAULT_CHUNK))
+    assert wf.launches["wf_corner"] == before["wf_corner"] + 1

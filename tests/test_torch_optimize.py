@@ -96,7 +96,7 @@ def test_overrides_reach_the_config(work):
     {"vial.medium.albedo": 0.5, "optimize_medium": True},
     {"checkpoint_every": 1},
     {"optimizer": {"type": "adam"}},
-    {"filter_radon": True},
+    {"psf_analysis": True},
     {"progressive": True},
     {"vial.medium.albedo": 0.5, "engine": "hybrid", "resume": True},
 ])

@@ -27,6 +27,7 @@ from drtvam_tpu.ops.mesh import make_box, save_ply
 from drtvam_tpu_torch.convert import scene_from_jax
 from drtvam_tpu_torch.core import warp as twarp
 from drtvam_tpu_torch.core.rng import Sampler as TSampler
+from drtvam_tpu_torch.models.geometry import MESH, NULL
 from drtvam_tpu_torch.models import projector as tproj
 from drtvam_tpu_torch.ops import fresnel as tfres
 from drtvam_tpu_torch.ops import intersect as tint
@@ -274,8 +275,16 @@ def test_unported_modes_raise(target_path):
     static, arr = sc.build(mode="volume", include_target=False)
     tstatic, _ = scene_from_jax(static, arr)
     surface_aware = dataclasses.replace(tstatic.sensor, surface_aware=True)
-    for change, item in (({"mode": "radon"}, "13"),
+    # a mesh surface: the target (kept in a volume render only for a
+    # surface-aware film) or an occlusion
+    mesh = tmarch.SurfaceStatic(kind=MESH, bsdf=NULL, medium_side=0,
+                                is_target=True, tri_slice=(0, 1))
+    occlusion = dataclasses.replace(mesh, is_target=False)
+    for change, item in (({"surfaces": tstatic.surfaces + (mesh,)}, "14"),
                          ({"sensor": surface_aware}, "14"),
+                         ({"mode": "radon",
+                           "surfaces": tstatic.surfaces + (occlusion,)},
+                          "17"),
                          ({"medium_grads": True, "scattered_only": True},
                           "17"),
                          ({"medium_grads": True}, "17")):

@@ -67,6 +67,7 @@ inline float __int_as_float(int i) {
 }
 inline float atomicAdd(float* p, float v) { float o = *p; *p = o + v; return o; }
 inline float __ldg(const float* p) { return *p; }
+inline int __ldg(const int* p) { return *p; }
 using std::isfinite;
 """
 
