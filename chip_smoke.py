@@ -114,22 +114,28 @@ Phases (each failure exits non-zero before the result line):
      the march (csrc/wf_mesh.cuh): wf_radon against the plain radon
      render on small scenes (cylindrical and square vials, collimated and
      telecentric, the target's grid and a brute-force box, spp 1 to 4):
-     the image to CULL_TOL of its max, the same kept set and bounce
-     iterations, bitwise on two launches; wf_corner's keep image equal to
+     the image bitwise equal, the same bounce iterations, bitwise on two
+     launches; wf_corner's keep image equal to
      its plain version. Then at full width: the bench scene's radon
      render (64 M lanes, regular sampling, spp 1): time, counts (bounce
      iterations, grid cells, triangles), bound, kernel vs plain at 16
      angles, its kept set against the ballistic cull (at most 2 % of the
      pixels differ, each on a boundary); the square bench vial's corner
      render (64 M lanes; its keep image equal to the plain version's at
-     full width). Then optimize() on the bench scene with filter_radon
+     full width). Both kernels read the mesh banks staged in shared
+     memory (csrc/wf_cull.cuh) and, held to the same checks, from global
+     memory; the counts add the triangle tests' SIMT efficiency, the
+     repeated tests and the lanes that reach the mesh's box, and every
+     culling instantiation's registers, spills and launch shape are
+     printed. Then optimize() on the bench scene with filter_radon
      (the ballistic cull: bp_bwd; the dense pair on the kept pixels; IoU
      gate 0.98), on the square bench vial with filter_corner {"dist":
      3.6, "radius": 0.2} (wf_corner must launch), on the bench scene
      with a telecentric projector and filter_radon (wf_radon's main
-     path: the radon render at spp 4, 256 M lanes, held to the plain
-     version on every 50th angle's pixels; then wf_fwd / wf_bwd on the
-     kept pixels' sparse store), and the CLI on phase 9's telecentric
+     path: the radon render at spp 4, 256 M lanes, bitwise equal to the
+     plain version on every 50th angle's pixels and timed apart with its
+     counts and bound; then wf_fwd / wf_bwd on the kept pixels' sparse
+     store), and the CLI on phase 9's telecentric
      config with filter_radon: kept share, culling seconds, loop, final
      render.
 
@@ -1721,8 +1727,10 @@ CULL_SURF_OPS = 30
 CULL_CELL_OPS = 20
 CULL_TRI_OPS = 40
 # the radon kernel vs its plain version: the same per-lane arithmetic,
-# CUDA's transcendentals on both sides; the image to this fraction of
-# its max, the kept set (pixels > 0) equal
+# CUDA's transcendentals on both sides, the mesh test's fused products
+# rounded once on both (fmaf; ops/intersect.py fma): the image bitwise
+# equal (CULL_TOL of its max is the radon tests' tolerance across
+# packages, printed beside it), the kept set (pixels > 0) equal
 CULL_TOL = 1e-4
 
 
@@ -1805,18 +1813,22 @@ CULL_CORNER_CASES = {"grid_collimated": ("grid", "collimated"),
 
 
 def radon_compare(name, img, ref):
-    """The radon image against its plain version: within CULL_TOL of the
-    max, the same kept set; raises past either."""
+    """The radon image against its plain version: bitwise equal, hence
+    the same kept set; raises otherwise (with the difference against
+    CULL_TOL of the max)."""
     scale = float(ref.abs().max())
     err = float((img - ref).abs().max())
     kept, kept_plain = img > 0, ref > 0
     if not (scale > 0 and bool(img.isfinite().all())):
         raise AssertionError(f"{name}: empty or non-finite image")
-    if err > CULL_TOL * scale or not torch_equal(kept, kept_plain):
-        raise AssertionError(f"{name} disagrees with its plain version: max "
-                             f"{err} of {scale}, kept {int(kept.sum())} vs "
+    differ = int((img != ref).sum())
+    if differ:
+        raise AssertionError(f"{name} differs from its plain version on "
+                             f"{differ} pixels: max {err} of {scale} "
+                             f"({err / scale} of the max, CULL_TOL "
+                             f"{CULL_TOL}), kept {int(kept.sum())} vs "
                              f"{int(kept_plain.sum())}")
-    return {"max_abs_err": err, "max_abs_plain": scale,
+    return {"max_abs_err": err, "max_abs_plain": scale, "bitwise": True,
             "kept": int(kept.sum()), "pixels": int(img.numel())}
 
 
@@ -1839,12 +1851,16 @@ def phase_cull_kernels(torch, wf, dev, tmp):
         sk, sp = {}, {}
         img = wf.wf_radon(static, at, 7, spp, sk)
         img2 = wf.wf_radon(static, at, 7, spp)
+        img_g = wf.wf_radon(static, at, 7, spp, staged=False)
         ref = wf._radon(static, at, 7, spp, wf.DEFAULT_CHUNK, sp)
         torch.cuda.synchronize()
         rec = {"phase": "cull_kernel", "name": "wf_radon", "case": case,
                "spp": spp, "lanes": static.projector.n_active * spp,
                "counts": sk, "iterations_plain": sp["iterations"],
-               "bitwise_repeat": torch_equal(img, img2)}
+               "bitwise_repeat": torch_equal(img, img2),
+               "global_banks_bitwise": torch_equal(img_g, img),
+               "launch": wf.cull_info("wf_radon", static, at, spp)}
+        radon_compare(f"wf_radon {case}, global banks", img_g, ref)
         rec.update(radon_compare(f"wf_radon {case}", img, ref))
         if sk["iterations"] != sp["iterations"]:
             raise AssertionError(f"wf_radon {case}: {sk['iterations']} "
@@ -1852,6 +1868,9 @@ def phase_cull_kernels(torch, wf, dev, tmp):
                                  f"{sp['iterations']}")
         if not rec["bitwise_repeat"]:
             raise AssertionError(f"wf_radon {case}: two launches differ")
+        if not rec["launch"]["staged"]:
+            raise AssertionError(f"wf_radon {case}: the banks were not "
+                                 f"staged ({rec['launch']})")
         if (sk["cells"] > 0) != (target == "grid") or not sk["triangles"]:
             raise AssertionError(f"wf_radon {case}: counts {sk}")
         rec["ms"], _ = event_ms(lambda: wf.wf_radon(static, at, 7, spp),
@@ -1866,6 +1885,7 @@ def phase_cull_kernels(torch, wf, dev, tmp):
         at = scene_tensors(arr, dev)
         sk = {}
         img = wf.wf_corner(static, at, 2.5, 0.3, 0, sk)
+        img_g = wf.wf_corner(static, at, 2.5, 0.3, staged=False)
         ref = wf._corner(static, at, 2.5, 0.3, 0, wf.DEFAULT_CHUNK)
         torch.cuda.synchronize()
         kept = int((ref > 0).sum())
@@ -1873,8 +1893,10 @@ def phase_cull_kernels(torch, wf, dev, tmp):
                "lanes": static.projector.n_active, "counts": sk,
                "kept": kept, "pixels": int(ref.numel()),
                "equal": torch_equal(img, ref),
+               "global_banks_equal": torch_equal(img_g, ref),
                "max_abs_err": float((img - ref).abs().max())}
-        if not (rec["equal"] and 0 < kept < ref.numel()):
+        if not (rec["equal"] and rec["global_banks_equal"]
+                and 0 < kept < ref.numel()):
             raise AssertionError(f"wf_corner {case}: keep image differs "
                                  f"from its plain version ({rec})")
         rec["ms"], _ = event_ms(lambda: wf.wf_corner(static, at, 2.5, 0.3),
@@ -1915,13 +1937,37 @@ def boundary_check(name, kept_a, kept_r, resx, n):
     return int(diff.size)
 
 
+def cull_shares(stats, lanes):
+    """What the culling kernel's counters say of its mesh tests: the
+    tests' SIMT efficiency, the share of tests that repeat one of the
+    walk's earlier cells, the lanes that reach the mesh's box, and the
+    tests a lane."""
+    return {"simt_efficiency": stats["triangles"] /
+            max(stats["triangle_slots"], 1),
+            "repeat_share": stats["repeats"] / max(stats["triangles"], 1),
+            "lanes_in_box_share": stats["lanes_in_box"] / lanes,
+            "triangles_a_lane": stats["triangles"] / lanes}
+
+
+def cull_launches(wf, name, static, at, spp=1):
+    """The launch shapes of the culling instantiations a scene runs: the
+    banks staged (as the wrapper launches them) and global, counting and
+    not."""
+    return {f"{'staged' if staged else 'global'}"
+            f"{', counting' if count else ''}": wf.cull_info(
+                name, static, at, spp, count=count, staged=staged)
+            for staged in (True, False) for count in (False, True)}
+
+
 def phase_cull_full(torch, wf, bp, dev, tmp):
     """The culling renders at full width: the bench scene's radon render
     (64 M lanes through wf_radon, regular sampling, spp 1; kernel vs plain
-    at 16 angles, since the plain render of all 400 takes ~50 s; its kept
-    set against the ballistic cull), and the square bench vial's corner
-    render (64 M lanes through wf_corner; kernel vs plain at full
-    width)."""
+    at 16 angles, since the plain render of all 400 takes ~50 s, with the
+    banks staged and global; its kept set against the ballistic cull),
+    and the square bench vial's corner render (64 M lanes through
+    wf_corner; kernel vs plain at full width, both bank paths); the
+    registers, spills and launch shapes of every culling
+    instantiation."""
     from drtvam_tpu_torch.models.scene import Scene
     from drtvam_tpu_torch.ops.ballistic import radon_active_ballistic
     from drtvam_tpu_torch.ops.march import scene_tensors
@@ -1963,6 +2009,8 @@ def phase_cull_full(torch, wf, bp, dev, tmp):
     plain16_ms, ref16 = event_ms(
         lambda: wf._radon(s16, at16, 0, 1, 1 << 22, sp16), torch)
     cmp16 = radon_compare("wf_radon 16 angles", img16, ref16)
+    radon_compare("wf_radon 16 angles, global banks",
+                  wf.wf_radon(s16, at16, 0, 1, staged=False), ref16)
     if sk16["iterations"] != sp16["iterations"]:
         raise AssertionError(f"wf_radon 16 angles: {sk16['iterations']} "
                              f"iterations, plain {sp16['iterations']}")
@@ -1975,7 +2023,13 @@ def phase_cull_full(torch, wf, bp, dev, tmp):
            "differ_from_ballistic": n_diff,
            "plain_ms": plain16_ms, "plain_at": "16 angles",
            "ms_16_angles": ms16, "iterations_16": sk16["iterations"],
-           **{k: cmp16[k] for k in ("max_abs_err", "max_abs_plain")}}
+           "global_banks_ms": cuda_ms(
+               lambda: wf.wf_radon(static, at, 0, 1, staged=False), 3,
+               torch),
+           "launch": cull_launches(wf, "wf_radon", static, at),
+           **cull_shares(stats, n),
+           **{k: cmp16[k] for k in ("max_abs_err", "max_abs_plain",
+                                    "bitwise")}}
     rec["bound_ms"], rec["bound_by"] = cull_bound(
         4 * n, n, sum(s.kind != 2 for s in static.surfaces), stats)
     rec["roofline_share"] = rec["bound_ms"] / ms
@@ -1995,6 +2049,8 @@ def phase_cull_full(torch, wf, bp, dev, tmp):
     stats = {}
     img = wf.wf_corner(static, at, 3.6, 0.2, 0, stats)
     bitwise = torch_equal(img, wf.wf_corner(static, at, 3.6, 0.2))
+    global_equal = torch_equal(
+        img, wf.wf_corner(static, at, 3.6, 0.2, staged=False))
     ms = cuda_ms(lambda: wf.wf_corner(static, at, 3.6, 0.2), 3, torch)
     kept = int((img > 0).sum())
     # kernel vs plain at full width (400 angles, one plain render)
@@ -2006,18 +2062,28 @@ def phase_cull_full(torch, wf, bp, dev, tmp):
            "kept": kept, "kept_share": kept / n, "plain_ms": plain_ms,
            "plain_at": "400 angles (full width)",
            "max_abs_err": float((img - ref).abs().max()),
-           "equal_full_width": equal, "bitwise_repeat": bitwise}
+           "equal_full_width": equal, "bitwise_repeat": bitwise,
+           "global_banks_equal": global_equal,
+           "global_banks_ms": cuda_ms(
+               lambda: wf.wf_corner(static, at, 3.6, 0.2, staged=False), 3,
+               torch),
+           "launch": cull_launches(wf, "wf_corner", static, at),
+           **cull_shares(stats, n)}
     rec["bound_ms"], rec["bound_by"] = cull_bound(
         4 * n, n, sum(s.kind != 2 for s in static.surfaces), stats,
         corner=True)
     rec["roofline_share"] = rec["bound_ms"] / ms
-    if not equal:
+    if not (equal and global_equal):
         raise AssertionError("wf_corner at full width: the keep image "
-                             "differs from its plain version")
+                             "differs from its plain version (staged "
+                             f"{equal}, global banks {global_equal})")
     if not bitwise:
         raise AssertionError("wf_corner: two full-width launches differ")
     emit(rec)
     out["wf_corner"] = rec
+    emit({"phase": "cull_ptxas", **{n: {
+        "instantiations": ptxas_summary(n)["each"],
+        "launch": out[n]["launch"]} for n in wf.CULL_KERNELS}})
     return out
 
 
@@ -2122,8 +2188,9 @@ def phase_cull_telecentric(torch, wf, bp, dev, tmp):
     spp 4, 256 M lanes), then the wavefront engine on the kept pixels'
     sparse store (40 steps, spp 1). The radon image the run culls with
     is held against the plain radon render on the pixels of every
-    RADON_CHECK_STRIDE-th angle (to CULL_TOL of their max, the same kept
-    set). Returns the record, with the run's launches."""
+    RADON_CHECK_STRIDE-th angle (bitwise), and the render is timed apart
+    on the run's own scene, with its counts, bound and roofline share.
+    Returns the record, with the run's launches."""
     from drtvam_tpu_torch.opt.optimize import optimize
     from drtvam_tpu_torch.utils.metrics import best_iou
     cfg = telecentric_bench_config(tmp)
@@ -2171,6 +2238,19 @@ def phase_cull_telecentric(torch, wf, bp, dev, tmp):
     plain_s = time.perf_counter() - t1
     check = radon_compare("wf_radon on the telecentric bench run",
                           img[pix], ref)
+    del ref
+    # the render alone, on the run's scene: time, counts, bound
+    stats = {}
+    torch.cuda.synchronize()
+    wf.wf_radon(static, arr, seed, spp, stats)
+    radon = {"lanes": n * spp, "ms": cuda_ms(
+        lambda: wf.wf_radon(static, arr, seed, spp), 3, torch),
+        "counts": stats, **cull_shares(stats, n * spp),
+        "launch": wf.cull_info("wf_radon", static, arr, spp)}
+    radon["bound_ms"], radon["bound_by"] = cull_bound(
+        4 * n, n * spp, sum(s.kind != 2 for s in static.surfaces), stats)
+    radon["roofline_share"] = radon["bound_ms"] / radon["ms"]
+    radon["rays_per_s"] = n * spp / (radon["ms"] * 1e-3)
     kept = int((img > 0).sum())
     if kept != timings["active_pixels"]:
         raise AssertionError(f"the run kept {timings['active_pixels']} "
@@ -2188,6 +2268,7 @@ def phase_cull_telecentric(torch, wf, bp, dev, tmp):
            "plain_check": dict(check, angles=len(range(
                0, p.n_patterns, RADON_CHECK_STRIDE)), lanes=pix.numel() * spp,
                plain_s=plain_s),
+           "radon_render": radon,
            **{k: timings[k] for k in ("scene_s", "cull_s", "precompute_s",
                                       "loop_s", "final_render_s",
                                       "artifacts_s")},
@@ -2215,12 +2296,15 @@ def instantiation(mangled):
                 + ("path pass" if path else
                    "forward" if primal else "adjoint")
                 + (", counting" if count else ""))
-    m = re.search(r"cull_kernelILi(\d)ELb(\d)ELb(\d)E", mangled)
+    m = re.search(r"cull_kernelILi(\d)ELb(\d)ELb(\d)E(?:Lb(\d)E)?",
+                  mangled)
     if m is not None:
-        res, tonly, count = (int(x) for x in m.groups())
+        res, tonly, count = (int(x) for x in m.groups()[:3])
         return (("radon" if res == 4 else "corner")
                 + ("" if tonly else ", !TONLY")
-                + (", counting" if count else ""))
+                + (", counting" if count else "")
+                + {None: "", "1": ", staged", "0": ", global banks"}[
+                    m.group(4)])
     m = re.search(r"walk_kernelILb(\d)E", mangled)
     if m is not None:
         return "walk pass" + (", counting" if m.group(1) == "1" else "")
@@ -2428,8 +2512,8 @@ def main():
             if n == "wf_res_walk" else {"chords": rfull[n]["chords"]})}
         for n in wf.RES_PARTS] + [
         {"name": n, "route": "cuda",
-         "source": f"drtvam_tpu_torch/csrc/{n}.cu + wf_trace.cuh + "
-                   "wf_mesh.cuh",
+         "source": f"drtvam_tpu_torch/csrc/{n}.cu + wf_cull.cuh + "
+                   "wf_trace.cuh + wf_mesh.cuh",
          "replaces": REPLACES[n], "launches": cull_counts[n],
          "path": ("optimize() on the bench scene with a telecentric "
                   "projector and filter_radon (the radon render at spp 4, "
@@ -2445,6 +2529,10 @@ def main():
          "main_path_check": (tele["plain_check"] if n == "wf_radon" else
                              {"equal_full_width":
                               cfull[n]["equal_full_width"]}),
+         "main_path_render": (tele["radon_render"] if n == "wf_radon"
+                              else None),
+         "launch_shape": cfull[n]["launch"],
+         "global_banks_ms": cfull[n]["global_banks_ms"],
          "small_scenes": {c: {k: r[k] for k in ("ms", "plain_ms",
                                                   "max_abs_err")}
                           for c, r in cullk.items() if r["name"] == n}}

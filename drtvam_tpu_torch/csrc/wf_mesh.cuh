@@ -16,10 +16,28 @@
 // three-term sums fused with fmaf exactly where XLA fuses them on the
 // CPU, so a hit t agrees bitwise with the JAX package's.
 //
-// Bound on the H100: a triangle test is ~40 float32 operations and three
-// 12-byte reads (the mesh's banks, a few tens of KB, stay in L1 / L2);
-// a cell step ~20 operations. A lane that misses the grid's box pays its
-// slab test only.
+// Bound on the H100: a triangle test is ~40 float32 operations (one
+// IEEE reciprocal among them) and three 16-byte rows of the triangle
+// banks; a cell step ~20 operations. A lane that misses the grid's box
+// pays its slab test only. The banks are a few tens of KB (the bench
+// target: 792 triangles, 5,596 cell entries), so the culling kernels
+// (wf_cull.cuh) stage them in each CTA's shared memory where they fit
+// its share of the SM, and read the global copies where they do not: the
+// walk's chain of dependent loads (cell start, triangle id, the
+// triangle's rows) then runs at shared memory's latency, not L1's, and a
+// triangle's v0, e1, e2 are three 16-byte loads from one address, not
+// nine 4-byte ones. A test returns at the first condition that fails
+// (u, then v and u + v): each skipped part would have failed with the
+// values it skips, so t and the hit are the full test's. (Measured on an
+// H100 and left, PERF.md section 6: two tests interleaved, the next
+// triangle's id or rows loaded ahead, and a rejection by bounds on the
+// sums before the reciprocal: none faster.)
+
+// the triangle test's early returns (moller_trumbore), on (1) unless a
+// measurement build turns them off (tools/wf_variants.py cull)
+#ifndef WF_MESH_EARLY_EXIT
+#define WF_MESH_EARLY_EXIT 1
+#endif
 
 // The banks of the scene's mesh surfaces (ops/render.py WfMesh): the
 // triangles (T, 3) floats each, the grids' CSR cell starts and triangle
@@ -40,14 +58,48 @@ struct WfMesh {
   int n_ids[WF_MAX_SURF], bbox_row[WF_MAX_SURF];
 };
 
-// what a mesh intersection did, counted when COUNT: grid cells visited
-// and triangles tested
-struct MeshCount {
-  unsigned long long cells, tris;
+// The banks as a lane's mesh test reads them: each triangle as three
+// 16-byte rows, v0, e1 and e2 (x, y, z, 0; ops/render.py cull_rows), at
+// rows 3 i .. 3 i + 2 of triangle i of the merged bank, and the grids'
+// cell starts and triangle ids, merged as in WfMesh. STAGED: they lie in
+// the CTA's shared memory (wf_cull.cuh cull_banks), else in global memory
+struct MeshBanks {
+  const float4* rows;
+  const int* cell_start;
+  const int* tri_ids;
 };
+
+// what a mesh intersection did, counted when COUNT: grid cells visited,
+// triangles tested, grid walks that entered their box, and tests of a
+// triangle the walk had tested in an earlier cell (a triangle lies in
+// every cell its box meets; counted over a walk's first WF_MESH_SEEN
+// cells)
+struct MeshCount {
+  unsigned long long cells, tris, walks, repeats;
+};
+constexpr int WF_MESH_SEEN = 32;
 
 __device__ __forceinline__ V3 load3(const float* __restrict__ p, int i) {
   return {__ldg(p + 3 * i), __ldg(p + 3 * i + 1), __ldg(p + 3 * i + 2)};
+}
+
+// entry i of an int bank: a shared-memory load (STAGED: ld.shared,
+// whatever the compiler can tell of the pointer) or a read-only global one
+template <bool STAGED>
+__device__ __forceinline__ int bank_int(const int* __restrict__ p, int i) {
+#ifdef __CUDA_ARCH__
+  if constexpr (STAGED) {
+    int r;
+    asm volatile("ld.shared.s32 %0, [%1];"
+                 : "=r"(r)
+                 : "r"((unsigned)__cvta_generic_to_shared(p) + 4u * i));
+    return r;
+  } else {
+    return __ldg(p + i);
+  }
+#else
+  return p[i];
+#endif
 }
 
 // jnp.cross and jnp.sum(a * b, -1) as XLA computes them on the CPU
@@ -60,7 +112,13 @@ __device__ __forceinline__ float dot_fma(const V3& a, const V3& b) {
 }
 
 // Moller-Trumbore of the ray against triangle (a0, a1 = e1, a2 = e2): its
-// hit distance beyond RAY_EPS, or inf
+// hit distance beyond RAY_EPS, or inf. The plain version's condition is
+// ok && u >= 0 && v >= 0 && u + v <= 1 && t > RAY_EPS; EARLY: the test
+// returns inf at the first part that fails (u > 1 fails it too, since
+// u + v rounds to at least u for v >= 0), else it runs without a branch.
+// Every early return is a rejection of the full test, so t and the hit
+// are the full test's
+template <bool EARLY>
 __device__ __forceinline__ float moller_trumbore(const V3& o, const V3& d,
                                                  const V3& a0, const V3& a1,
                                                  const V3& a2) {
@@ -70,26 +128,77 @@ __device__ __forceinline__ float moller_trumbore(const V3& o, const V3& d,
   const float inv_det = 1.0f / (ok ? det : 1.0f);
   const V3 tvec = {o.x - a0.x, o.y - a0.y, o.z - a0.z};
   const float u = dot_fma(tvec, pvec) * inv_det;
+  if (EARLY && !(ok && u >= 0.0f && u <= 1.0f)) return inf();
   const V3 qvec = cross_fma(tvec, a1);
   const float v = dot_fma(d, qvec) * inv_det;
+  if (EARLY && !(v >= 0.0f && u + v <= 1.0f)) return inf();
   const float t = dot_fma(a2, qvec) * inv_det;
   return (ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > RAY_EPS)
              ? t
              : inf();
 }
 
-// triangle id of mesh surface s (local to the surface) into the best hit
-template <bool COUNT>
-__device__ __forceinline__ void test_triangle(const WfMesh& M, int a, int id,
-                                              const V3& o, const V3& d,
-                                              float& t_best, int& i_best,
-                                              MeshCount& c) {
-  if (COUNT) ++c.tris;
-  const float t = moller_trumbore(o, d, load3(M.v0, a + id),
-                                  load3(M.e1, a + id), load3(M.e2, a + id));
-  if (t < t_best) {
-    t_best = t;
-    i_best = id;
+__device__ __forceinline__ V3 xyz(const float4& r) { return {r.x, r.y, r.z}; }
+
+// triangle id's rows v0, e1, e2 (MeshBanks) from a bank whose first row is
+// rows[0]: one address, three 16-byte loads at offsets 0, 16 and 32
+template <bool STAGED>
+__device__ __forceinline__ void tri_rows(const float4* __restrict__ rows,
+                                         int id, V3& a0, V3& a1, V3& a2) {
+  float4 r0, r1, r2;
+#ifdef __CUDA_ARCH__
+  if constexpr (STAGED) {
+    const unsigned a = (unsigned)__cvta_generic_to_shared(rows) + 48u * id;
+    asm volatile(
+        "ld.shared.v4.f32 {%0, %1, %2, %3}, [%12];\n\t"
+        "ld.shared.v4.f32 {%4, %5, %6, %7}, [%12+16];\n\t"
+        "ld.shared.v4.f32 {%8, %9, %10, %11}, [%12+32];"
+        : "=f"(r0.x), "=f"(r0.y), "=f"(r0.z), "=f"(r0.w), "=f"(r1.x),
+          "=f"(r1.y), "=f"(r1.z), "=f"(r1.w), "=f"(r2.x), "=f"(r2.y),
+          "=f"(r2.z), "=f"(r2.w)
+        : "r"(a));
+  } else {
+    const float4* __restrict__ r = rows + 3 * id;
+    r0 = __ldg(r);
+    r1 = __ldg(r + 1);
+    r2 = __ldg(r + 2);
+  }
+#else
+  r0 = rows[3 * id];
+  r1 = rows[3 * id + 1];
+  r2 = rows[3 * id + 2];
+#endif
+  a0 = xyz(r0);
+  a1 = xyz(r1);
+  a2 = xyz(r2);
+}
+
+// position k's triangle of a list: its id (IDS), or k itself
+template <bool STAGED, bool IDS>
+__device__ __forceinline__ int list_id(const int* __restrict__ ids, int k) {
+  if constexpr (IDS) return bank_int<STAGED>(ids, k);
+  return k;
+}
+
+// The triangles at positions [j, e) of a list (IDS: ids[j], else the
+// positions themselves) of a surface whose first row is rows[0], in list
+// order, into the best hit: a strict t < t_best keeps the first of equal
+// hits
+template <bool COUNT, bool STAGED, bool IDS>
+__device__ __forceinline__ void test_triangles(
+    const float4* __restrict__ rows, const int* __restrict__ ids, int j,
+    int e, const V3& o, const V3& d, float& t_best, int& i_best,
+    MeshCount& c) {
+  if (COUNT) c.tris += (unsigned long long)(e > j ? e - j : 0);
+  for (; j < e; ++j) {
+    const int a = IDS ? bank_int<STAGED>(ids, j) : j;
+    V3 a0, a1, a2;
+    tri_rows<STAGED>(rows, a, a0, a1, a2);
+    const float t = moller_trumbore<WF_MESH_EARLY_EXIT != 0>(o, d, a0, a1, a2);
+    if (t < t_best) {
+      t_best = t;
+      i_best = a;
+    }
   }
 }
 
@@ -98,12 +207,14 @@ __device__ __forceinline__ void test_triangle(const WfMesh& M, int a, int id,
 // test each cell's triangles, stop at the first cell whose exit plane lies
 // beyond the best hit (t_best <= t_exit (1 + 1e-6) + 1e-6), else step the
 // first axis of the nearest exit plane
-template <bool COUNT>
-__device__ float ray_mesh_grid(const WfMesh& M, int s, const V3& o,
-                               const V3& d, int& tri, MeshCount& c) {
-  const int a = M.tri_start[s];
-  const int* __restrict__ cs = M.cell_start + M.cell_offset[s];
-  const int* __restrict__ ids = M.tri_ids + M.ids_offset[s];
+template <bool COUNT, bool STAGED>
+__device__ __forceinline__ float ray_mesh_grid(const WfMesh& M,
+                                               const MeshBanks& B, int s,
+                                               const V3& o, const V3& d,
+                                               int& tri, MeshCount& c) {
+  const float4* __restrict__ rows = B.rows + 3 * M.tri_start[s];
+  const int* __restrict__ cs = B.cell_start + M.cell_offset[s];
+  const int* __restrict__ ids = B.tri_ids + M.ids_offset[s];
   const float* __restrict__ bb = M.grid_bbox + 6 * M.bbox_row[s];
   const int res[3] = {M.grid_res[3 * s], M.grid_res[3 * s + 1],
                       M.grid_res[3 * s + 2]};
@@ -125,6 +236,7 @@ __device__ float ray_mesh_grid(const WfMesh& M, int s, const V3& o,
   float t_best = inf();
   tri = -1;
   if (!(t_enter <= t_exit && isfinite(t_enter))) return t_best;
+  if (COUNT) ++c.walks;
 
   const float eps_t = 1e-5f * mx(fabsf(t_enter), 1.0f);
   int iv[3], step[3];
@@ -141,13 +253,27 @@ __device__ float ray_mesh_grid(const WfMesh& M, int s, const V3& o,
     tdelta[k] = fabsf(cell_w[k] / safe_d[k]);
   }
   const int n_cells = res[0] * res[1] * res[2];
+  // COUNT: the walk's earlier cells
+  [[maybe_unused]] int seen[COUNT ? WF_MESH_SEEN : 1];
+  [[maybe_unused]] int n_seen = 0;
   for (;;) {
     if (COUNT) ++c.cells;
     int flat = iv[0] + res[0] * (iv[1] + res[1] * iv[2]);
     flat = flat < 0 ? 0 : (flat > n_cells - 1 ? n_cells - 1 : flat);
-    const int e = __ldg(cs + flat + 1);
-    for (int j = __ldg(cs + flat); j < e; ++j)
-      test_triangle<COUNT>(M, a, __ldg(ids + j), o, d, t_best, tri, c);
+    const int j0 = bank_int<STAGED>(cs, flat);
+    const int e = bank_int<STAGED>(cs, flat + 1);
+    if constexpr (COUNT) {
+      for (int j = j0; j < e; ++j) {
+        bool again = false;
+        for (int q = 0; q < n_seen; ++q)
+          for (int k = cs[seen[q]]; k < cs[seen[q] + 1]; ++k)
+            again = again || ids[k] == ids[j];
+        c.repeats += again ? 1 : 0;
+      }
+      if (n_seen < WF_MESH_SEEN) seen[n_seen++] = flat;
+    }
+    test_triangles<COUNT, STAGED, true>(rows, ids, j0, e, o, d, t_best, tri,
+                                        c);
     const float t_cell_exit = mn(mn(tmaxv[0], tmaxv[1]), tmaxv[2]);
     if (t_best <= t_cell_exit * 1.000001f + 1e-6f) break;
     const int axis =
@@ -167,15 +293,17 @@ __device__ float ray_mesh_grid(const WfMesh& M, int s, const V3& o,
 
 // Nearest hit on mesh surface s: (t, the surface-local triangle id; inf,
 // -1 on a miss)
-template <bool COUNT>
-__device__ __forceinline__ float ray_mesh(const WfMesh& M, int s,
+template <bool COUNT, bool STAGED>
+__device__ __forceinline__ float ray_mesh(const WfMesh& M,
+                                          const MeshBanks& B, int s,
                                           const V3& o, const V3& d, int& tri,
                                           MeshCount& c) {
-  if (M.grid_res[3 * s] > 0) return ray_mesh_grid<COUNT>(M, s, o, d, tri, c);
+  if (M.grid_res[3 * s] > 0)
+    return ray_mesh_grid<COUNT, STAGED>(M, B, s, o, d, tri, c);
   float t_best = inf();
   tri = -1;
-  const int a = M.tri_start[s];
-  for (int id = 0; id < M.tri_count[s]; ++id)
-    test_triangle<COUNT>(M, a, id, o, d, t_best, tri, c);
+  test_triangles<COUNT, STAGED, false>(B.rows + 3 * M.tri_start[s], nullptr,
+                                       0, M.tri_count[s], o, d, t_best, tri,
+                                       c);
   return t_best;
 }

@@ -21,8 +21,8 @@
 // engine's residual modes (template parameter RES, see below) through the
 // residual family's own kernels (wf_residual.cuh). The DMD-pixel culling
 // renders, wf_radon.cu and wf_corner.cu, run it in two lane modes of their
-// own through cull_kernel (one thread an active pixel, its lanes one
-// after another, the pixel written once): RADON (drtvam_tpu/ops/
+// own through wf_cull.cuh's kernel (one thread an active pixel, its lanes
+// one after another, the pixel written once): RADON (drtvam_tpu/ops/
 // march.py:917-923: scattering off, no deposits, the lane's in-target
 // absorption A exp(-st total_t) (1 - exp(-st t)) summed while it is inside
 // the target and in the medium, total_t over every segment, every draw in
@@ -379,14 +379,16 @@ __device__ __forceinline__ float ray_box(const V3& o, const V3& d,
 
 // nearest surface: returns t (inf on a miss), its normal and surface id.
 // MESH_ON: mesh surfaces are intersected too (the radon and corner modes,
-// whose scenes keep the target mesh; M and c their banks and counters): a
-// mesh's normal is its hit triangle's (triangle 0's on a miss), as
+// whose scenes keep the target mesh; M the mesh surfaces, B the banks the
+// tests read, in shared memory when STAGED, c the counters): a mesh's
+// normal is its hit triangle's (triangle 0's on a miss), as
 // drtvam_tpu/ops/march.py:190 takes it. Every other instantiation
 // compiles the analytic surfaces alone
-template <bool MESH_ON = false, bool COUNT = false>
+template <bool MESH_ON = false, bool COUNT = false, bool STAGED = false>
 __device__ __forceinline__ float intersect_scene(
     const WfParams& P, const V3& o, const V3& d, V3& n_best, int& sid,
-    const WfMesh* M = nullptr, MeshCount* c = nullptr) {
+    const WfMesh* M = nullptr, const MeshBanks* B = nullptr,
+    MeshCount* c = nullptr) {
   float t_best = inf();
   n_best = {0.0f, 0.0f, 0.0f};
   sid = -1;
@@ -402,7 +404,7 @@ __device__ __forceinline__ float intersect_scene(
       int tri = -1;
       t = inf();
       if constexpr (MESH_ON) {
-        t = ray_mesh<COUNT>(*M, i, o, d, tri, *c);
+        t = ray_mesh<COUNT, STAGED>(*M, *B, i, o, d, tri, *c);
         const int last = M->tri_count[i] - 1;
         n = load3(M->n, M->tri_start[i] + (tri < 0 ? 0 : (tri > last ? last
                                                                      : tri)));
@@ -518,13 +520,16 @@ struct Sink {
 
 // The culling renders' sink (RES RADON or CORNER): no deposits; the
 // lane's value L (the radon mode's in-target absorption, the corner
-// mode's keep flag), the scene's mesh banks and the corner's distance
-// from the axis and radius. COUNT: counts bounce iterations, grid cells
-// and triangles tested
-template <bool COUNT_>
+// mode's keep flag), the scene's mesh surfaces and the banks their tests
+// read (in shared memory when STAGED), and the corner's distance from the
+// axis and radius. COUNT: counts bounce iterations, grid cells, grid
+// walks and triangles tested
+template <bool COUNT_, bool STAGED_>
 struct MeshSink {
   static constexpr bool PRIMAL = true, COUNT = COUNT_, RECORDS = false;
+  static constexpr bool STAGED = STAGED_;
   const WfMesh* mesh;
+  MeshBanks banks;
   float dist, radius;
   float L;
   unsigned long long iters;
@@ -905,8 +910,8 @@ __device__ void trace_lane(const WfParams& P, const Grid& G, uint32_t lane,
     // hit lies within radius of a corner at dist from the axis
     V3 n_c;
     int sid_c;
-    const float t = intersect_scene<true, SinkT::COUNT>(P, o, d, n_c, sid_c,
-                                                        S.mesh, &S.mc);
+    const float t = intersect_scene<true, SinkT::COUNT, SinkT::STAGED>(
+        P, o, d, n_c, sid_c, S.mesh, &S.banks, &S.mc);
     const V3 p = along(o, t, d);
     const float ax = fabsf(p.x) - S.dist, ay = fabsf(p.y) - S.dist;
     S.L = isfinite(t) && sqrtf(ax * ax + ay * ay) >= S.radius ? 1.0f : 0.0f;
@@ -973,8 +978,8 @@ __device__ void trace_lane(const WfParams& P, const Grid& G, uint32_t lane,
     int sid;
     float t_si;
     if constexpr (RES == RADON) {
-      t_si = intersect_scene<true, SinkT::COUNT>(P, o, d, n_si, sid, S.mesh,
-                                                 &S.mc);
+      t_si = intersect_scene<true, SinkT::COUNT, SinkT::STAGED>(
+          P, o, d, n_si, sid, S.mesh, &S.banks, &S.mc);
     } else {
       t_si = intersect_scene(P, o, d, n_si, sid);
     }
@@ -1374,92 +1379,6 @@ int info(const WfParams* p, int count, int* out) {
                     (int)fa.localSizeBytes, per_sm, P.tile_n};
   for (int i = 0; i < 8; ++i) out[i] = v[i];
   return 0;
-}
-
-// ---- the culling renders (wf_radon.cu, wf_corner.cu) ----------------------
-
-// threads a CTA of the culling kernels
-constexpr int WF_CULL_THREADS = 256;
-
-// One thread per active pixel, in active order: its spp lanes in the lane
-// mode RES (RADON or CORNER) one after another, and the pixel's value, the
-// sum of its lanes' values in lane order times the ray weight, written
-// once into the dense image img (n_patterns * resy * resx,): no atomics,
-// so the image is bitwise reproducible. counters (3,): bounce iterations,
-// grid cells visited and triangles tested, or null
-template <int RES, bool TONLY, bool COUNT>
-__global__ void __launch_bounds__(WF_CULL_THREADS)
-    cull_kernel(const WfParams P, const __grid_constant__ WfMesh M,
-                const int* __restrict__ active_pixels, float dist,
-                float radius, float* __restrict__ img,
-                unsigned long long* __restrict__ counters) {
-  const int aidx = blockIdx.x * WF_CULL_THREADS + threadIdx.x;
-  Grid G;
-  G.init(P);
-  MeshSink<COUNT> S{&M, dist, radius, 0.0f, 0, {0, 0}};
-  if (aidx < P.n_active) {
-    float sum = 0.0f;
-    for (int k = 0; k < P.spp; ++k) {
-      S.L = 0.0f;
-      trace_lane<DDA, false, TONLY, RES>(
-          P, G, (uint32_t)aidx * (uint32_t)P.spp + (uint32_t)k, aidx,
-          active_pixels, 1.0f, S);
-      sum = k == 0 ? S.L : sum + S.L;
-    }
-    img[P.identity ? aidx : active_pixels[aidx]] = sum * P.ray_w;
-  }
-  if (COUNT) {
-    unsigned long long c[3] = {S.iters, S.mc.cells, S.mc.tris};
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      for (int off = 16; off > 0; off >>= 1)
-        c[k] += __shfl_down_sync(0xffffffffu, c[k], off);
-      if ((threadIdx.x & 31) == 0) atomicAdd(counters + k, c[k]);
-    }
-  }
-}
-
-template <int RES, bool TONLY, bool COUNT>
-cudaError_t cull_run(const WfParams& P, const WfMesh& M, const int* ap,
-                     float dist, float radius, float* img,
-                     unsigned long long* counters, cudaStream_t stream) {
-  const unsigned blocks =
-      (unsigned)((P.n_active + WF_CULL_THREADS - 1) / WF_CULL_THREADS);
-  cull_kernel<RES, TONLY, COUNT><<<blocks, WF_CULL_THREADS, 0, stream>>>(
-      P, M, ap, dist, radius, img, counters);
-  return cudaGetLastError();
-}
-
-// RES's instantiation for P (the radon mode by transmission_only; the
-// corner mode has one: its lanes end at their first hit) and counters
-template <int RES>
-int cull_launch(const WfParams* p, const WfMesh* m, const int* ap,
-                float dist, float radius, float* img,
-                unsigned long long* counters, void* stream) {
-  const WfParams& P = *p;
-  if (P.n_active <= 0) return 0;
-  if (P.n_surf > WF_MAX_SURF || P.spp <= 0 || m == nullptr)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const bool count = counters != nullptr;
-  cudaError_t e;
-  if constexpr (RES == CORNER) {
-    e = count ? cull_run<RES, true, true>(P, *m, ap, dist, radius, img,
-                                          counters, st)
-              : cull_run<RES, true, false>(P, *m, ap, dist, radius, img,
-                                           counters, st);
-  } else if (P.transmission_only) {
-    e = count ? cull_run<RES, true, true>(P, *m, ap, dist, radius, img,
-                                          counters, st)
-              : cull_run<RES, true, false>(P, *m, ap, dist, radius, img,
-                                           counters, st);
-  } else {
-    e = count ? cull_run<RES, false, true>(P, *m, ap, dist, radius, img,
-                                           counters, st)
-              : cull_run<RES, false, false>(P, *m, ap, dist, radius, img,
-                                            counters, st);
-  }
-  return (int)e;
 }
 #endif  // __CUDACC__
 

@@ -69,12 +69,32 @@ def ray_box(o, d, tmin, h):
 
 
 def fma(a, b, c):
-    """a * b + c rounded once to float32, as a fused multiply-add: the
-    product of two float32 values is exact in float64, the sum is
-    rounded there and then to float32 (the two roundings differ from
-    one only where the float64 sum lies exactly halfway between two
-    float32 values)."""
-    return (a.double() * b.double() + c.double()).float()
+    """a * b + c rounded once to float32, as a fused multiply-add (the
+    CUDA kernels' fmaf, XLA's on the CPU). The product of two float32
+    values is exact in float64, and so is the float64 sum's rounding
+    error (TwoSum). Rounding the float64 sum to float32 rounds the
+    exact value once, except where that sum lies exactly halfway
+    between two float32 values (or in float32's subnormal range) while
+    the exact sum does not: rounding twice would then break the tie to
+    even and miss fmaf by an ulp (as on a few pixels of the telecentric
+    bench radon render, PERF.md section 6). There the float64 sum is
+    rounded to odd
+    (an inexact even sum moves one float64 ulp toward the exact sum),
+    which makes the float32 rounding exact."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    inexact = err != 0.0
+    # a float32 tie: the 29 bits below float32's precision are 1000...0
+    tie = (s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000
+    if bool((inexact & (tie | (s.abs() < 2.0 ** -125))).any()):
+        odd = (s.view(torch.int64) & 1) == 1
+        toward = torch.where(err > 0.0, torch.full_like(s, INF),
+                             torch.full_like(s, -INF))
+        s = torch.where(inexact & ~odd, torch.nextafter(s, toward), s)
+    return s.float()
 
 
 def cross_fma(a, b):

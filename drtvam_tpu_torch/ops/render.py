@@ -36,8 +36,10 @@ the dense (n_patterns * resy * resx,) image as their result:
 
 The CUDA kernels are csrc/wf_fwd.cu, csrc/wf_bwd.cu, csrc/wf_res_fwd.cu
 and csrc/wf_res_bwd.cu, entry points of the one per-lane path template
-csrc/wf_trace.cuh; they replace the XLA code of
-drtvam_tpu/ops/march.py:913 `trace_wavefront`, the residual pair in its
+csrc/wf_trace.cuh (the culling renders csrc/wf_radon.cu and
+csrc/wf_corner.cu, through csrc/wf_cull.cuh's persistent kernel); they
+replace the XLA code of drtvam_tpu/ops/march.py:913 `trace_wavefront`,
+the residual pair in its
 residual modes (there is no Pallas kernel on this path). Given CPU
 tensors `forward` / `adjoint` run the plain version; given CUDA tensors
 they launch the kernel or raise. `launches` counts kernel launches per
@@ -94,8 +96,16 @@ CULL_KERNELS = ("wf_radon", "wf_corner")    # the culling renders
 RES_PARTS = ("wf_res_walk", "wf_res_chords")
 launches = {k: 0 for k in KERNELS + RES_KERNELS + CULL_KERNELS + RES_PARTS}
 # what the culling kernels count when asked: bounce iterations, mesh grid
-# cells visited and triangles tested
-CULL_COUNTERS = ("iterations", "cells", "triangles")
+# cells visited, triangles tested, triangle slots (32 for each test of a
+# warp task's busiest lane: the tests' SIMT efficiency is triangles /
+# slots), grid walks that entered their box, lanes with one or more, and
+# tests of a triangle the walk had tested in an earlier cell
+CULL_COUNTERS = ("iterations", "cells", "triangles", "triangle_slots",
+                 "walks", "lanes_in_box", "repeats")
+# bytes of shared memory the culling kernels' staged mesh banks may take:
+# past the CTA's share of the SM (csrc/wf_cull.cuh cull_shape) they read
+# the global copies; 0 forces that path
+CULL_SMEM_LIMIT = 1 << 30
 # the lane modes of the culling kernels (csrc/wf_trace.cuh)
 RADON, CORNER = 4, 5
 # the dda residual forward's segment records (32 bytes each): a buffer of
@@ -293,6 +303,35 @@ _MESH_BANKS = (("v0", "tri_v0", torch.float32),
                ("grid_bbox", "grid_bbox", torch.float32))
 
 
+class CullArgs(ctypes.Structure):
+    """Mirror of `CullArgs` in csrc/wf_cull.cuh: the culling launch's
+    buffers (8-byte pointers), then its 4-byte fields."""
+    _fields_ = [(k, ctypes.c_void_p) for k in (
+        "active_pixels", "rows", "frames", "img", "next", "counters")] + [
+        ("dist", ctypes.c_float), ("radius", ctypes.c_float),
+        ("n_rows", ctypes.c_int), ("n_cell_start", ctypes.c_int),
+        ("n_tri_ids", ctypes.c_int), ("smem_limit", ctypes.c_int),
+    ]
+
+
+def cull_rows(arr):
+    """The culling kernels' triangle rows, (3 T, 4) float32: triangle i's
+    v0, e1 and e2 at rows 3 i, 3 i + 1 and 3 i + 2 as (x, y, z, 0), so that
+    a test reads three 16-byte rows (csrc/wf_mesh.cuh MeshBanks). Built
+    from the scene tensors' banks once and cached in their dict."""
+    v0, e1, e2 = arr["tri_v0"], arr["tri_e1"], arr["tri_e2"]
+    key = tuple(t.data_ptr() for t in (v0, e1, e2)) + (v0.shape[0],)
+    cached = arr.get("_cull_rows")
+    if cached is None or cached[0] != key:
+        rows = torch.zeros((v0.shape[0], 3, 4), dtype=torch.float32,
+                           device=v0.device)
+        for k, t in enumerate((v0, e1, e2)):
+            rows[:, k, :3] = t
+        cached = (key, rows.reshape(-1, 4))
+        arr["_cull_rows"] = cached
+    return cached[1]
+
+
 def make_mesh(name, static: MarchStatic, arr):
     """The culling kernels' WfMesh: pointers into the scene tensors'
     mesh banks (which must outlive the launch) and each mesh surface's
@@ -451,12 +490,11 @@ _ARGS = {
                     ctypes.c_int, ctypes.c_int, _PTR, _PTR, _PTR],
     # (bank, n, sigma_t, tab, stream)
     "wf_res_chords": [_PTR, ctypes.c_int, ctypes.c_float, _PTR, _PTR],
-    # (P, M, active_pixels, img, counters, stream)
-    "wf_radon": [ctypes.POINTER(WfParams), ctypes.POINTER(WfMesh)] +
-                [_PTR] * 4,
-    # (P, M, active_pixels, dist, radius, img, counters, stream)
-    "wf_corner": [ctypes.POINTER(WfParams), ctypes.POINTER(WfMesh), _PTR,
-                  ctypes.c_float, ctypes.c_float] + [_PTR] * 3,
+    # (P, M, A, stream)
+    "wf_radon": [ctypes.POINTER(WfParams), ctypes.POINTER(WfMesh),
+                 ctypes.POINTER(CullArgs), _PTR],
+    "wf_corner": [ctypes.POINTER(WfParams), ctypes.POINTER(WfMesh),
+                  ctypes.POINTER(CullArgs), _PTR],
 }
 # the entry points each kernel library holds, and its launch-shape queries
 _ENTRIES = {"wf_fwd": ("wf_fwd",), "wf_bwd": ("wf_bwd",),
@@ -468,7 +506,11 @@ _INFO = {"wf_fwd_info": [ctypes.POINTER(WfParams), ctypes.c_int],
          "wf_bwd_info": [ctypes.POINTER(WfParams), ctypes.c_int],
          "wf_res_fwd_info": [ctypes.POINTER(WfParams), ctypes.c_int],
          "wf_res_bwd_info": [ctypes.POINTER(WfParams), ctypes.c_int],
-         "wf_res_walk_info": [ctypes.c_int]}
+         "wf_res_walk_info": [ctypes.c_int],
+         "wf_radon_info": [ctypes.POINTER(WfParams),
+                           ctypes.POINTER(CullArgs), ctypes.c_int],
+         "wf_corner_info": [ctypes.POINTER(WfParams),
+                            ctypes.POINTER(CullArgs), ctypes.c_int]}
 
 
 def _setup(lib, name):
@@ -1047,58 +1089,115 @@ def _corner(static: MarchStatic, arr, dist, radius, seed, chunk):
     return _dense_image(static, arr, vals)
 
 
-def _cull_launch(name, static, arr, P, args, stats):
-    """One launch of the culling kernel `name` into a zeroed dense
-    image."""
+def _cull_args(name, static, arr, dist=0.0, radius=0.0, staged=True,
+               stats=None):
+    """The culling launch's CullArgs, with the tensors they point into
+    (which must outlive the launch): the zeroed dense image, the frame
+    table's scratch, the task counter and the counters (stats)."""
     dev = arr["active_pixels"].device
-    pix = _pixels(name, static, arr, dev)
-    M = make_mesh(name, static, arr)
     p = static.projector
-    img = torch.zeros((p.n_patterns * p.resy * p.resx,), dtype=torch.float32,
-                      device=dev)
-    counter = None if stats is None else torch.zeros(
-        (len(CULL_COUNTERS),), dtype=torch.int64, device=dev)
+    rows = cull_rows(arr)
+    A = CullArgs()
+    keep = {"pix": _pixels(name, static, arr, dev), "rows": rows,
+            "img": torch.zeros((p.n_patterns * p.resy * p.resx,),
+                               dtype=torch.float32, device=dev),
+            "frames": torch.empty((p.n_patterns, 3, 4), dtype=torch.float32,
+                                  device=dev),
+            "next": torch.zeros((1,), dtype=torch.int32, device=dev),
+            "counter": None if stats is None else torch.zeros(
+                (len(CULL_COUNTERS),), dtype=torch.int64, device=dev)}
+    A.active_pixels, A.rows, A.img = (
+        keep[k].data_ptr() for k in ("pix", "rows", "img"))
+    A.frames, A.next = keep["frames"].data_ptr(), keep["next"].data_ptr()
+    A.counters = _ptr(keep["counter"])
+    A.dist, A.radius = float(dist), float(radius)
+    A.n_rows = rows.shape[0]
+    A.n_cell_start = arr["grid_cell_start"].shape[0]
+    A.n_tri_ids = arr["grid_tri_ids"].shape[0]
+    A.smem_limit = CULL_SMEM_LIMIT if staged else 0
+    return A, keep
+
+
+def _cull_launch(name, static, arr, P, stats, **kw):
+    """One launch of the culling kernel `name` into a zeroed dense
+    image (kw: _cull_args's dist, radius, staged)."""
+    dev = arr["active_pixels"].device
+    M = make_mesh(name, static, arr)
+    A, keep = _cull_args(name, static, arr, stats=stats, **kw)
     with torch.cuda.device(dev):
         fn = getattr(build_kernels()[name], name)
-        err = fn(ctypes.byref(P), ctypes.byref(M), pix.data_ptr(), *args,
-                 img.data_ptr(), _ptr(counter), _stream(dev))
+        err = fn(ctypes.byref(P), ctypes.byref(M), ctypes.byref(A),
+                 _stream(dev))
     launches[name] += 1
     _err(name, err)
-    if counter is not None:
-        for key, v in zip(CULL_COUNTERS, counter.tolist()):
+    if keep["counter"] is not None:
+        for key, v in zip(CULL_COUNTERS, keep["counter"].tolist()):
             stats[key] = stats.get(key, 0) + v
-    return img
+    return keep["img"]
 
 
-def wf_radon(static: MarchStatic, arr, seed, spp, stats=None):
+def _cull_params(name, static, arr, seed, spp):
+    if name == "wf_radon":
+        if static.mode != "radon":
+            raise ValueError("wf_radon runs a radon static (Scene.build "
+                             "mode='radon')")
+        _n_lanes(static, spp)
+        P = make_params(static, arr, seed, spp)
+        P.residual = RADON
+        return P
+    P = make_params(static, arr, seed, 1, corner=True)
+    P.regular_sampling, P.sample_time, P.residual = 1, 0, CORNER
+    return P
+
+
+def cull_info(name, static: MarchStatic, arr, spp=1, count=False,
+              staged=True):
+    """The launch shape of the culling kernel instantiation `name` runs
+    on this scene (count: the counting one; staged: as the wrapper
+    launches it, else with the global banks), read from the card:
+    threads a CTA, the persistent CTAs, dynamic and static shared
+    memory, registers, local (stack and spill) bytes, CTAs an SM holds,
+    and whether the banks are staged in shared memory."""
+    P = _cull_params(name, static, arr, 0, spp)
+    A, _ = _cull_args(name, static, arr, staged=staged)
+    out = (ctypes.c_int * 8)()
+    with torch.cuda.device(arr["active_pixels"].device):
+        err = getattr(build_kernels()[name], name + "_info")(
+            ctypes.byref(P), ctypes.byref(A), int(count), out)
+    if err != 0:
+        raise RuntimeError(f"{name}: occupancy query failed, cudaError_t "
+                           f"{err}")
+    keys = ("threads", "ctas", "dynamic_smem_bytes", "static_smem_bytes",
+            "registers", "local_bytes", "ctas_per_sm", "staged")
+    return dict(zip(keys, list(out)))
+
+
+def wf_radon(static: MarchStatic, arr, seed, spp, stats=None, staged=True):
     """CUDA kernel csrc/wf_radon.cu: the radon render's dense image of a
     radon static (the scene tensors on the card, the target mesh kept).
     Replaces drtvam_tpu/ops/render.py:193 render_radon (XLA). One thread
     an active pixel, its spp lanes in the template's RADON mode, the
     pixel written once: bitwise reproducible. What bounds it on the
-    H100: the operations of the surface intersections, the mesh's grid
-    cells and triangles above all. stats: adds the CULL_COUNTERS."""
-    if static.mode != "radon":
-        raise ValueError("wf_radon runs a radon static (Scene.build "
-                         "mode='radon')")
-    _n_lanes(static, spp)
-    P = make_params(static, arr, seed, spp)
-    P.residual = RADON
-    return _cull_launch("wf_radon", static, arr, P, (), stats)
+    H100: the operations of the surface intersections, the mesh's
+    triangle tests above all; persistent CTAs hold the mesh banks in
+    shared memory where they fit (staged False: the global copies, as
+    for a bank too large). stats: adds the CULL_COUNTERS."""
+    P = _cull_params("wf_radon", static, arr, seed, spp)
+    return _cull_launch("wf_radon", static, arr, P, stats, staged=staged)
 
 
-def wf_corner(static: MarchStatic, arr, dist, radius, seed=0, stats=None):
+def wf_corner(static: MarchStatic, arr, dist, radius, seed=0, stats=None,
+              staged=True):
     """CUDA kernel csrc/wf_corner.cu: the corner filter's dense keep image
     (the ray weight where a pixel is kept, else 0) of a static with the
     target kept, on the card. Replaces drtvam_tpu/ops/render.py:226
     render_corner (XLA). One thread an active pixel, its centre ray's
-    set-up and one intersection (regular sampling, spp 1), the pixel
-    written once. Bound as wf_radon's one iteration. stats: adds the
-    CULL_COUNTERS."""
-    P = make_params(static, arr, seed, 1, corner=True)
-    P.regular_sampling, P.sample_time, P.residual = 1, 0, CORNER
-    return _cull_launch("wf_corner", static, arr, P,
-                        (float(dist), float(radius)), stats)
+    set-up (its angle's frame from a table) and one intersection
+    (regular sampling, spp 1), the pixel written once. Bound as
+    wf_radon's one iteration; staged and stats as for wf_radon."""
+    P = _cull_params("wf_corner", static, arr, seed, 1)
+    return _cull_launch("wf_corner", static, arr, P, stats, dist=dist,
+                        radius=radius, staged=staged)
 
 
 def render_radon(static: MarchStatic, arr, seed=0, spp=4, chunk=None):

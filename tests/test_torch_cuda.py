@@ -436,25 +436,32 @@ def _cull_scene(tmp_path, mode):
 
 
 def test_cull_kernels_match_plain(tmp_path, cuda_device):
-    """wf_radon: the image to 1e-4 of its max (CUDA's transcendentals on
-    both sides), the same kept set, bitwise on two launches; wf_corner:
-    the same keep image."""
+    """wf_radon: bitwise equal to its plain version (CUDA's
+    transcendentals on both sides, the mesh test's fused products rounded
+    once on both), with the mesh banks staged in shared memory and read
+    from global memory, and on two launches; wf_corner: the same keep
+    image on both bank paths."""
     from drtvam_tpu_torch.ops.march import scene_tensors
     static, arr = _cull_scene(tmp_path, "radon")
     at = scene_tensors(arr, cuda_device)
     before = dict(wf.launches)
     img = wf.render_radon(static, at, seed=7, spp=2)
     img2 = wf.render_radon(static, at, seed=7, spp=2)
+    img_g = wf.wf_radon(static, at, 7, 2, staged=False)
     ref = wf._radon(static, at, 7, 2, wf.DEFAULT_CHUNK)
     torch.cuda.synchronize()
-    assert wf.launches["wf_radon"] == before["wf_radon"] + 2
+    assert wf.launches["wf_radon"] == before["wf_radon"] + 3
+    assert wf.cull_info("wf_radon", static, at, 2)["staged"] == 1
+    assert wf.cull_info("wf_radon", static, at, 2, staged=False)[
+        "staged"] == 0
     assert torch.equal(img, img2)
-    np.testing.assert_allclose(img.cpu().numpy(), ref.cpu().numpy(), rtol=0,
-                               atol=1e-4 * float(ref.abs().max()))
-    assert torch.equal(img > 0, ref > 0) and bool((ref > 0).any())
+    assert torch.equal(img, ref) and torch.equal(img_g, ref)
+    assert bool((ref > 0).any())
     static, arr = _cull_scene(tmp_path, "corner")
     at = scene_tensors(arr, cuda_device)
     keep = wf.render_corner(static, at, dist=2.5, radius=0.3)
-    assert torch.equal(keep, wf._corner(static, at, 2.5, 0.3, 0,
-                                        wf.DEFAULT_CHUNK))
-    assert wf.launches["wf_corner"] == before["wf_corner"] + 1
+    plain = wf._corner(static, at, 2.5, 0.3, 0, wf.DEFAULT_CHUNK)
+    assert torch.equal(keep, plain)
+    assert torch.equal(wf.wf_corner(static, at, 2.5, 0.3, staged=False),
+                       plain)
+    assert wf.launches["wf_corner"] == before["wf_corner"] + 2

@@ -189,85 +189,183 @@ def test_ballistic_cull_against_radon_render(box_hole):
 # the culling kernels' template under g++
 
 HARNESS = r"""
-#include "wf_trace.cuh"
+#include <algorithm>
+#include <vector>
+#include "wf_cull.cuh"
 using namespace wf;
 
-// the culling kernels' loop (cull_kernel) on one thread: pixel by pixel
-// in active order, each pixel's lanes in lane order, the pixel written once
-template <int RES, bool TONLY>
-void run(const WfParams& P, const WfMesh& M, const int* ap, float dist,
-         float radius, float* img, unsigned long long* c) {
+// the culling kernel (cull_kernel) on one thread: the banks staged into a
+// buffer standing for the CTA's shared memory (STAGED) or read from the
+// global copies, the frame table (cull_frames), then the tasks of 32
+// active pixels in order, each pixel's lanes in lane order, the pixel
+// written once; the counters as the kernel counts them
+template <int RES, bool TONLY, bool STAGED>
+void run(const WfParams& P, const WfMesh& M, const CullArgs& A) {
+  std::vector<float4> smem(STAGED ? (stage_bytes(A) + 15) / 16 : 0);
+  const MeshBanks B = cull_banks<STAGED>(M, A, smem.data(), 0, 1);
+  for (int a = 0; !P.sample_time && a < P.n_patterns; ++a)
+    put_frame(A.frames + 3 * a, angle_frame(P, a));
   Grid G;
   G.init(P);
-  MeshSink<true> S{&M, dist, radius, 0.0f, 0, {0, 0}};
-  for (int aidx = 0; aidx < P.n_active; ++aidx) {
-    float sum = 0.0f;
-    for (int k = 0; k < P.spp; ++k) {
-      S.L = 0.0f;
-      trace_lane<DDA, false, TONLY, RES>(
-          P, G, (uint32_t)aidx * (uint32_t)P.spp + (uint32_t)k, aidx, ap,
-          1.0f, S);
-      sum = k == 0 ? S.L : sum + S.L;
+  MeshSink<true, STAGED> S{&M, B, A.dist, A.radius, 0.0f, 0,
+                          {0, 0, 0, 0}};
+  const float4* frames = P.sample_time ? nullptr : A.frames;
+  unsigned long long slots = 0, boxed = 0;
+  for (int t = 0; 32 * t < P.n_active; ++t) {
+    unsigned long long most = 0;
+    for (int l = 0; l < 32; ++l) {
+      const unsigned long long c0 = S.mc.tris;
+      cull_task<RES, TONLY>(P, G, A, frames, S, t, l, &boxed);
+      most = std::max(most, S.mc.tris - c0);
     }
-    img[P.identity ? aidx : ap[aidx]] = sum * P.ray_w;
+    slots += 32 * most;
   }
-  c[0] += S.iters;
-  c[1] += S.mc.cells;
-  c[2] += S.mc.tris;
+  const unsigned long long c[7] = {S.iters, S.mc.cells, S.mc.tris, slots,
+                                   S.mc.walks, boxed, S.mc.repeats};
+  for (int k = 0; k < 7; ++k) A.counters[k] += c[k];
 }
 
-extern "C" int wf_radon(const WfParams* P, const WfMesh* M, const int* ap,
-                        float* img, unsigned long long* c, void*) {
-  if (P->transmission_only)
-    run<RADON, true>(*P, *M, ap, 0.0f, 0.0f, img, c);
+// staged where the banks fit A.smem_limit (the kernel also caps it by the
+// SM's shared memory)
+template <int RES, bool TONLY>
+void dispatch(const WfParams& P, const WfMesh& M, const CullArgs& A) {
+  if (stage_bytes(A) <= (size_t)std::max(A.smem_limit, 0))
+    run<RES, TONLY, true>(P, M, A);
   else
-    run<RADON, false>(*P, *M, ap, 0.0f, 0.0f, img, c);
+    run<RES, TONLY, false>(P, M, A);
+}
+
+extern "C" int wf_radon(const WfParams* P, const WfMesh* M,
+                        const CullArgs* A, void*) {
+  if (P->transmission_only)
+    dispatch<RADON, true>(*P, *M, *A);
+  else
+    dispatch<RADON, false>(*P, *M, *A);
   return 0;
 }
 
-extern "C" int wf_corner(const WfParams* P, const WfMesh* M, const int* ap,
-                         float dist, float radius, float* img,
-                         unsigned long long* c, void*) {
-  run<CORNER, true>(*P, *M, ap, dist, radius, img, c);
+extern "C" int wf_corner(const WfParams* P, const WfMesh* M,
+                         const CullArgs* A, void*) {
+  dispatch<CORNER, true>(*P, *M, *A);
   return 0;
 }
 
-// the nearest hits of n rays on mesh surface s (ray_mesh)
-extern "C" int mesh_hits(const WfMesh* M, int s, const float* o,
-                         const float* d, int n, float* t, int* tri) {
+// the staged banks as cull_banks lays them out in shared memory
+extern "C" int stage_banks(const WfMesh* M, const CullArgs* A, float4* out) {
+  cull_banks<true>(*M, *A, out, 0, 1);
+  return 0;
+}
+
+// the nearest hits of n rays on mesh surface s (ray_mesh), the banks read
+// as staged (1) or global (0)
+extern "C" int mesh_hits(const WfMesh* M, const float4* rows, int staged,
+                         int s, const float* o, const float* d, int n,
+                         float* t, int* tri) {
+  const MeshBanks B{rows, M->cell_start, M->tri_ids};
   for (int i = 0; i < n; ++i) {
-    MeshCount mc{0, 0};
-    t[i] = ray_mesh<false>(*M, s, V3{o[3 * i], o[3 * i + 1], o[3 * i + 2]},
-                           V3{d[3 * i], d[3 * i + 1], d[3 * i + 2]}, tri[i],
-                           mc);
+    MeshCount mc{0, 0, 0, 0};
+    const V3 oi{o[3 * i], o[3 * i + 1], o[3 * i + 2]};
+    const V3 di{d[3 * i], d[3 * i + 1], d[3 * i + 2]};
+    t[i] = staged ? ray_mesh<false, true>(*M, B, s, oi, di, tri[i], mc)
+                  : ray_mesh<false, false>(*M, B, s, oi, di, tri[i], mc);
   }
   return 0;
 }
 """
 
 
-@pytest.fixture(scope="module")
-def cull_lib(tmp_path_factory):
+def _build_harness(work, flags=()):
+    """The harness built with g++ on the stubbed CUDA names (flags: extra
+    compiler definitions), loaded, its entry points declared."""
     gxx = shutil.which("g++")
     assert gxx is not None, "the port's host code is built with g++"
-    work = tmp_path_factory.mktemp("cull_template")
     (work / "stub").mkdir()
     (work / "stub" / "cuda_runtime.h").write_text(STUB)
     (work / "harness.cpp").write_text(HARNESS)
     lib = work / "libcull_template.so"
     # IEEE float32 op by op, as nvcc --fmad=false; fmaf stays fused
     build = subprocess.run([gxx, "-std=c++17", "-O2", "-ffp-contract=off",
-                            "-shared", "-fPIC", "-I", str(work / "stub"),
-                            "-I", CUDA_SRC_DIR, str(work / "harness.cpp"),
-                            "-o", str(lib)], capture_output=True, text=True)
+                            "-shared", "-fPIC", *flags, "-I",
+                            str(work / "stub"), "-I", CUDA_SRC_DIR,
+                            str(work / "harness.cpp"), "-o", str(lib)],
+                           capture_output=True, text=True)
     assert build.returncode == 0, build.stderr
     lib = ctypes.CDLL(str(lib))
     for name in wf.CULL_KERNELS:
         wf._setup(lib, name)
-    lib.mesh_hits.argtypes = [ctypes.POINTER(wf.WfMesh), ctypes.c_int] + \
+    lib.mesh_hits.argtypes = [ctypes.POINTER(wf.WfMesh), ctypes.c_void_p,
+                              ctypes.c_int, ctypes.c_int] + \
         [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 2
     lib.mesh_hits.restype = ctypes.c_int
+    lib.stage_banks.argtypes = [ctypes.POINTER(wf.WfMesh),
+                                ctypes.POINTER(wf.CullArgs), ctypes.c_void_p]
+    lib.stage_banks.restype = ctypes.c_int
     return lib
+
+
+@pytest.fixture(scope="module")
+def cull_lib(tmp_path_factory):
+    return _build_harness(tmp_path_factory.mktemp("cull_template"))
+
+
+@pytest.fixture(scope="module")
+def cull_lib_no_early(tmp_path_factory):
+    """The harness built with the triangle test's early returns off
+    (WF_MESH_EARLY_EXIT 0: the test without a branch)."""
+    return _build_harness(tmp_path_factory.mktemp("cull_no_early"),
+                          ["-DWF_MESH_EARLY_EXIT=0"])
+
+
+def test_early_rejection_keeps_every_hit(cull_lib, cull_lib_no_early):
+    """The triangle test's early returns (csrc/wf_mesh.cuh moller_trumbore
+    with EARLY) against the test without a branch, on random triangle
+    soups from 1e-4 to 1e3 in scale: slivers, near-degenerate triangles
+    (e2 nearly parallel to e1), triangles in a z-plane, horizontal rays,
+    aimed inside the triangles and at their vertices and edges: the same
+    t bitwise and the same triangle ids."""
+    rng = np.random.default_rng(11)
+    hits = 0
+    for _ in range(12):
+        T, n = 64, 8192
+        scale = 10.0 ** rng.uniform(-4, 3)
+        v0 = rng.normal(size=(T, 3)) * scale
+        e1 = rng.normal(size=(T, 3)) * scale * \
+            10.0 ** rng.uniform(-6, 1, (T, 1))
+        e2 = rng.normal(size=(T, 3)) * scale * \
+            10.0 ** rng.uniform(-6, 1, (T, 1))
+        k = rng.integers(0, T, 16)
+        e2[k] = e1[k] * rng.uniform(-2, 2, (16, 1)) + \
+            rng.normal(size=(16, 3)) * scale * 1e-6
+        e1[:8, 2] = 0.0
+        e2[:8, 2] = 0.0
+        v0, e1, e2 = (torch.from_numpy(x.astype(np.float32))
+                      for x in (v0, e1, e2))
+        o = rng.normal(size=(n, 3)).astype(np.float32) * np.float32(2 * scale)
+        # aim at barycentrics (u, v) inside the triangles and at their
+        # bounds: near each vertex and edge, from within and without
+        u = rng.uniform(0, 1, n)
+        v = rng.uniform(0, 1, n) * (1 - u)
+        off = 10.0 ** rng.uniform(-7, -2, n) * rng.choice([-1, 1], n)
+        kind = rng.integers(0, 5, n)
+        u = np.select([kind == 1, kind == 2, kind == 3],
+                      [1 - off, off, u], u)
+        v = np.select([kind == 1, kind == 2, kind == 3, kind == 4],
+                      [np.abs(off), 1 - off, 1 - u - off, off], v)
+        j = rng.integers(0, T, n)
+        d = (v0.numpy()[j] + u[:, None] * e1.numpy()[j] +
+             v[:, None] * e2.numpy()[j] - o)
+        d[:n // 4, 2] = 0.0
+        d /= np.maximum(np.linalg.norm(d, axis=-1, keepdims=True), 1e-30)
+        d = d.astype(np.float32)
+        M = wf.WfMesh()
+        M.tri_start[1], M.tri_count[1] = 0, T
+        rows = wf.cull_rows({"tri_v0": v0, "tri_e1": e1, "tri_e2": e2})
+        t, i = _mesh_hits(cull_lib, M, rows, False, o, d)
+        t0, i0 = _mesh_hits(cull_lib_no_early, M, rows, False, o, d)
+        assert torch.equal(t.view(torch.int32), t0.view(torch.int32))
+        assert torch.equal(i, i0)
+        hits += int(torch.isfinite(t).sum())
+    assert hits > 0.1 * 12 * 8192
 
 
 @pytest.mark.parametrize("mesh", ["gear", "box_hole", "box"])
@@ -306,11 +404,9 @@ def test_mesh_template_matches_plain(mesh, cull_lib):
                                           res)
     else:
         ref_t, ref_i = ray_triangles(T(o), T(d), tmin, *keep[:3])
-    t = torch.empty(n)
-    i = torch.empty(n, dtype=torch.int32)
-    assert cull_lib.mesh_hits(ctypes.byref(M), 1, T(o).data_ptr(),
-                              T(d).data_ptr(), n, t.data_ptr(),
-                              i.data_ptr()) == 0
+    rows = wf.cull_rows({"tri_v0": keep[0], "tri_e1": keep[1],
+                         "tri_e2": keep[2]})
+    t, i = _mesh_hits(cull_lib, M, rows, False, o, d)
     ref_t, ref_i = ref_t.numpy(), ref_i.numpy()
     assert np.isfinite(ref_t).mean() > 0.05
     np.testing.assert_array_equal(t.numpy(), ref_t)
@@ -328,19 +424,30 @@ def _small(mesh_path, vial, albedo, projector):
     return TScene(cfg)
 
 
-def _cull_run(lib, name, static, at, seed, spp, corner=False, *args):
-    P = wf.make_params(static, at, seed, spp, corner=corner)
-    if corner:
-        P.regular_sampling, P.sample_time = 1, 0
+def _mesh_hits(lib, M, rows, staged, o, d):
+    """ray_mesh on surface 1 of M for rays o, d (n, 3): (t, triangle)."""
+    n = o.shape[0]
+    t = torch.empty(n)
+    i = torch.empty(n, dtype=torch.int32)
+    o, d = (torch.from_numpy(np.ascontiguousarray(x)) for x in (o, d))
+    assert lib.mesh_hits(ctypes.byref(M), rows.data_ptr(), int(staged), 1,
+                         o.data_ptr(), d.data_ptr(), n, t.data_ptr(),
+                         i.data_ptr()) == 0
+    return t, i
+
+
+def _cull_run(lib, name, static, at, seed, spp, dist=0.0, radius=0.0,
+              staged=True):
+    """The culling kernel `name` under g++, launched as the wrapper
+    launches it (its WfParams, WfMesh and CullArgs): (image, counters)."""
+    P = wf._cull_params(name, static, at, seed, spp)
     M = wf.make_mesh(name, static, at)
-    p = static.projector
-    img = torch.zeros(p.n_patterns * p.resy * p.resx)
-    c = (ctypes.c_ulonglong * 3)()
+    A, keep = wf._cull_args(name, static, at, dist, radius, staged=staged,
+                            stats={})
     assert getattr(lib, name)(ctypes.byref(P), ctypes.byref(M),
-                              at["active_pixels"].data_ptr(), *args,
-                              img.data_ptr(), ctypes.addressof(c),
-                              None) == 0
-    return img, dict(zip(wf.CULL_COUNTERS, c))
+                              ctypes.byref(A), None) == 0
+    return keep["img"], dict(zip(wf.CULL_COUNTERS,
+                                 keep["counter"].tolist()))
 
 
 # (vial, albedo, projector, regular sampling, spp, transmission only,
@@ -390,10 +497,94 @@ def test_corner_template_matches_plain(projector, cull_lib, box_hole):
         regular_sampling=True)
     at = scene_tensors(arr, "cpu")
     ref = wf.render_corner(static, at, dist=2.5, radius=0.3)
-    img, c = _cull_run(cull_lib, "wf_corner", static, at, 0, 1, True,
-                       2.5, 0.3)
+    img, c = _cull_run(cull_lib, "wf_corner", static, at, 0, 1, 2.5, 0.3)
     assert 0 < int((ref > 0).sum()) < ref.numel()
     np.testing.assert_array_equal(img.numpy(), ref.numpy())
+
+
+@pytest.mark.parametrize("case", TEMPLATE_CASES + ["corner"])
+def test_staged_banks_equal_global_banks(case, cull_lib, box_hole,
+                                         tmp_path):
+    """The culling kernel with the mesh banks staged (a budget that holds
+    them) and read from the global copies (a budget of 0 bytes, as a
+    100k-triangle mesh takes): the same image bitwise and the same
+    counts."""
+    if case == "corner":
+        static, arr = _small(box_hole, "square", 0.0, None).build(
+            mode="volume", include_target=True, max_depth=1, rr_depth=6,
+            regular_sampling=True)
+        name, seed, spp, extra = "wf_corner", 0, 1, (2.5, 0.3)
+    else:
+        vial, albedo, proj, regular, spp, tonly, target = case
+        mesh = box_hole
+        if target == "box":
+            mesh = str(tmp_path / "box.ply")
+            save_ply(make_box((0.5, 0.5, 0.5)), mesh)
+        static, arr = _small(mesh, vial, albedo, proj).build(
+            mode="radon", include_target=True, max_depth=5, rr_depth=3,
+            regular_sampling=regular, transmission_only=tonly)
+        name, seed, extra = "wf_radon", 7, ()
+    at = scene_tensors(arr, "cpu")
+    staged, c_s = _cull_run(cull_lib, name, static, at, seed, spp, *extra)
+    glob, c_g = _cull_run(cull_lib, name, static, at, seed, spp, *extra,
+                          staged=False)
+    assert torch.equal(staged, glob) and c_s == c_g
+    assert c_s["triangles"] > 0 and float(staged.abs().max()) > 0
+
+
+def test_cull_rows_hold_the_banks(cull_lib, box_hole):
+    """The triangle rows (v0, e1, e2 padded to 16 bytes) hold the scene's
+    banks' values, and the staged banks (cull_banks) are the rows, the
+    cell starts and the triangle ids, in that order, bytewise."""
+    static, arr = _small(box_hole, "cylindrical", 0.0, None).build(
+        mode="radon", include_target=True, max_depth=5, rr_depth=3)
+    at = scene_tensors(arr, "cpu")
+    rows = wf.cull_rows(at).reshape(-1, 3, 4)
+    for k, key in enumerate(("tri_v0", "tri_e1", "tri_e2")):
+        assert torch.equal(rows[:, k, :3], at[key])
+    assert not bool(rows[:, :, 3].any())
+    assert wf.cull_rows(at) is wf.cull_rows(at)
+    M = wf.make_mesh("wf_radon", static, at)
+    A, keep = wf._cull_args("wf_radon", static, at)
+    cs, ids = at["grid_cell_start"], at["grid_tri_ids"]
+    out = torch.full((rows.numel() + cs.numel() + ids.numel(),), -1.0)
+    assert cull_lib.stage_banks(ctypes.byref(M), ctypes.byref(A),
+                                out.data_ptr()) == 0
+    assert A.n_rows == 3 * at["tri_v0"].shape[0]
+    n = rows.numel()
+    assert torch.equal(out[:n], rows.reshape(-1))
+    assert torch.equal(out[n:].view(torch.int32), torch.cat([cs, ids]))
+
+
+@pytest.mark.parametrize("mesh", ["gear", "box_hole", "box"])
+def test_mesh_staged_equals_global(mesh, cull_lib):
+    """ray_mesh reading its banks as staged and as global: the same t and
+    triangle ids bitwise, on tests/test_mesh_grid.py's rays."""
+    make = {"gear": lambda: make_hollow_gear(segments=240),
+            "box_hole": lambda: make_box_with_hole((2.0, 2.0, 1.0), 0.6,
+                                                   segments=99),
+            "box": lambda: make_box((1.5, 1.5, 1.5))}[mesh]
+    banks = [torch.from_numpy(np.ascontiguousarray(a))
+             for a in make().triangle_bank()]
+    M = wf.WfMesh()
+    M.tri_start[1], M.tri_count[1] = 0, banks[0].shape[0]
+    if mesh != "box":
+        res, cs, ids, b0, b1 = build_tri_grid(*(b.numpy() for b in
+                                                banks[:3]))
+        grid = [torch.from_numpy(x) for x in (cs, ids, np.stack([b0, b1]))]
+        banks += grid
+        M.cell_start, M.tri_ids, M.grid_bbox = (t.data_ptr() for t in grid)
+        M.grid_res[3:6] = list(res)
+    rows = wf.cull_rows({"tri_v0": banks[0], "tri_e1": banks[1],
+                         "tri_e2": banks[2]})
+    rng = np.random.default_rng(3)
+    o = rng.uniform(-3.0, 3.0, (4096, 3)).astype(np.float32)
+    d = rng.normal(size=(4096, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t_s, i_s = _mesh_hits(cull_lib, M, rows, True, o, d)
+    t_g, i_g = _mesh_hits(cull_lib, M, rows, False, o, d)
+    assert np.isfinite(t_s.numpy()).mean() > 0.05
+    assert torch.equal(t_s, t_g) and torch.equal(i_s, i_g)
 
 
 # --------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Bench phases of two trees on one card, in turns.
 
-    python3 tools/ab_bench.py PARENT_ROOT [ballistic|wavefront|hybrid]
+    python3 tools/ab_bench.py PARENT_ROOT [ballistic|wavefront|hybrid|cull]
 
 run from the root of the changed tree, on a machine with one NVIDIA GPU.
 PARENT_ROOT is an unpacked copy of the parent commit (`git archive`).
@@ -21,7 +21,14 @@ builds that tree's kernels and runs its own chip_smoke.py code:
     as the final render launches it (spp 16, 1.02 G lanes, median of 3),
     then phase 10, optimize() on that scene under 'auto' (the hybrid
     engine: its loop and its final render). Six turns (parent, change,
-    change, parent, parent, change): three each way.
+    change, parent, parent, change): three each way;
+  cull: phase 11's three full-width culling renders (the bench scene's
+    radon render, regular sampling, spp 1, 64 M lanes; the square bench
+    vial's corner render, 64 M lanes; the telecentric bench scene's
+    radon render at spp 4, 256 M lanes; CUDA events, median of 5, 5 and
+    3), then phase 11's culled optimize() runs (filter_radon on the
+    bench scene, filter_corner on the square bench vial, filter_radon on
+    the telecentric bench scene). Six turns, as hybrid.
 
 Every JSON record a turn prints is tagged with the turn; the last line
 is each tree's median over its turns of every timed number. Compares
@@ -138,12 +145,62 @@ with tempfile.TemporaryDirectory() as tmp:
     cs.phase_hybrid_bench(torch, wf, bp, dev, tmp)
 """
 
-MODES = {"ballistic": BALLISTIC, "wavefront": WAVEFRONT, "hybrid": HYBRID}
+CULL = """
+import json, os, sys, tempfile
+sys.path.insert(0, os.getcwd())
+import torch
+import chip_smoke as cs
+from drtvam_tpu_torch.models.scene import Scene
+from drtvam_tpu_torch.ops import backproject as bp
+from drtvam_tpu_torch.ops import render as wf
+from drtvam_tpu_torch.ops.march import scene_tensors
+dev = torch.device("cuda:0")
+wf.build_kernels()
+bp.build_kernels()
+torch.zeros(1, device=dev)  # create the context before the memory stats
+
+
+def emit(name, ms):
+    print(json.dumps({"phase": "cull_full_width", "name": name, "ms": ms}),
+          flush=True)
+
+
+with tempfile.TemporaryDirectory() as tmp:
+    radon = dict(mode="radon", include_target=True, max_depth=5,
+                 rr_depth=6, print_time=1.0)
+    st, arr = Scene(cs.bench_config(tmp, "cylindrical")).build(
+        regular_sampling=True, **radon)
+    at = scene_tensors(arr, dev)
+    emit("wf_radon", cs.cuda_ms(lambda: wf.wf_radon(st, at, 0, 1), 5,
+                                torch))
+    st, arr = Scene(cs.square_bench_config(tmp)).build(
+        mode="volume", include_target=True, max_depth=1, rr_depth=6,
+        print_time=1.0, regular_sampling=True)
+    at = scene_tensors(arr, dev)
+    emit("wf_corner", cs.cuda_ms(lambda: wf.wf_corner(st, at, 3.6, 0.2), 5,
+                                 torch))
+    st, arr = Scene(cs.telecentric_bench_config(tmp)).build(**radon)
+    at = scene_tensors(arr, dev)
+    emit("wf_radon_telecentric_spp4", cs.cuda_ms(
+        lambda: wf.wf_radon(st, at, 0, 4), 3, torch))
+    del st, arr, at
+    torch.cuda.empty_cache()
+    cs.phase_cull_bench(torch, wf, bp, dev, tmp)
+    torch.cuda.empty_cache()
+    cs.phase_cull_bench(torch, wf, bp, dev, tmp, square=True)
+    torch.cuda.empty_cache()
+    cs.phase_cull_telecentric(torch, wf, bp, dev, tmp)
+"""
+
+MODES = {"ballistic": BALLISTIC, "wavefront": WAVEFRONT, "hybrid": HYBRID,
+         "cull": CULL}
 # the turns of each mode: parent and change in alternation
 TURNS = {"ballistic": ("parent", "change", "change", "parent"),
          "wavefront": ("parent", "change", "change", "parent"),
          "hybrid": ("parent", "change", "change", "parent", "parent",
-                    "change")}
+                    "change"),
+         "cull": ("parent", "change", "change", "parent", "parent",
+                  "change")}
 
 
 def timed(rec):

@@ -5,6 +5,9 @@
                                                   always runs, first)
     python3 tools/wf_variants.py residual [VARIANT ...]   (the residual
                                                   pair's, RES_VARIANTS)
+    python3 tools/wf_variants.py cull [--parent ROOT] [VARIANT ...]
+                                                 (the culling renders',
+                                                  CULL_VARIANTS)
 
 run from the repo root on a machine with one NVIDIA GPU. Each variant
 changes one thing against the source as it is ("shipped"): the threads
@@ -37,6 +40,22 @@ the shipped build's, adjoint bitwise) and the dda first-scatter forward
 as the final render launches it (spp 16, 1.02 G lanes, one launch after
 a warm-up: its path and walk passes' times, the walk's SIMT efficiency),
 with the registers and spills of the instantiations these run.
+The culling renders' variants (wf_radon / wf_corner, csrc/wf_cull.cuh
+and csrc/wf_mesh.cuh) are builds of the shipped source with one lever
+turned off or another launch shape (WF_CULL_*, WF_MESH_*), and
+the shipped build with the mesh banks read from global memory; with
+--parent, the parent tree's wf_radon / wf_corner sources too ("parent",
+called through their own entry points). Each runs chip_smoke.py phase
+11's full-width renders: the bench scene's radon render (regular, spp 1,
+64 M lanes, median of 5), the square bench vial's corner render (64 M
+lanes, median of 5) and the telecentric bench scene's radon render at
+spp 4 (256 M lanes, median of 3), each image bitwise against the shipped
+build's; the shipped build also on the bench scene without its target
+mesh, its counting launches (bounce iterations, grid cells, triangles,
+the triangle tests' SIMT efficiency, repeated tests, lanes that reach
+the mesh's box), the telecentric image against the plain march on every
+50th angle's pixels, and the launch shapes; every build its ptxas
+registers and spills.
 """
 import ctypes
 import json
@@ -365,7 +384,226 @@ def main_residual(names):
             print(json.dumps(rec), flush=True)
 
 
+# name: {compile-time constant of csrc/wf_cull.cuh or wf_mesh.cuh: value;
+# "staged": False reads the mesh banks from global memory}
+CULL_VARIANTS = {
+    "shipped": {},
+    "global_banks": {"staged": False},
+    "no_frames": {"WF_CULL_FRAMES": 0},
+    "no_early_exit": {"WF_MESH_EARLY_EXIT": 0},
+    "levers_off": {"WF_CULL_FRAMES": 0, "WF_MESH_EARLY_EXIT": 0,
+                   "staged": False},
+    "threads128": {"WF_CULL_THREADS": 128, "WF_CULL_MIN_CTAS": 6},
+    "threads256": {"WF_CULL_THREADS": 256, "WF_CULL_MIN_CTAS": 3},
+    "ctas4": {"WF_CULL_THREADS": 256, "WF_CULL_MIN_CTAS": 4},
+    "threads512": {"WF_CULL_THREADS": 512, "WF_CULL_MIN_CTAS": 2},
+    "threads1024": {"WF_CULL_THREADS": 1024, "WF_CULL_MIN_CTAS": 1},
+}
+CULL_REPS = {"radon": 5, "corner": 5, "telecentric": 3}
+
+
+def cull_build(work, names, parent):
+    """One nvcc per (variant, culling entry point), all started together
+    (the parent tree's sources as variant "parent"); returns {(variant,
+    entry point): (library, ptxas log)}."""
+    from drtvam_tpu_torch.native import CUDA_SRC_DIR, nvcc_path
+    jobs = []
+    for v in names + (["parent"] if parent else []):
+        src = os.path.join(parent, "drtvam_tpu_torch", "csrc") \
+            if v == "parent" else CUDA_SRC_DIR
+        defs = {} if v == "parent" else CULL_VARIANTS[v]
+        for n in ("wf_radon", "wf_corner"):
+            lib = os.path.join(work, f"lib{n}_{v}.so")
+            cmd = [nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
+                   "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
+                   "-Xcompiler", "-fPIC", "--fmad=false", "-I", src]
+            cmd += [f"-D{k}={val}" for k, val in defs.items()
+                    if k.startswith("WF_")]
+            cmd += [os.path.join(src, n + ".cu"), "-o", lib]
+            jobs.append((v, n, lib, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+    out = {}
+    for v, n, lib, proc in jobs:
+        log, _ = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{v} {n}: nvcc failed\n{log}")
+        out[(v, n)] = (lib, log)
+    return out
+
+
+def cull_ptxas(log):
+    """Registers and spill bytes of each culling instantiation."""
+    import chip_smoke as cs
+    keep = {}
+    for part in log.split("Compiling entry function '")[1:]:
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", part)
+        keep[cs.instantiation(part.split("'")[0])] = {
+            "registers": int(regs.group(1)),
+            "spill_store_bytes": int(spill.group(1)) if spill else 0,
+            "spill_load_bytes": int(spill.group(2)) if spill else 0}
+    return keep
+
+
+def parent_call(wf, lib, name, static, arr, seed, spp, dist, radius):
+    """A launch of the parent tree's culling entry point (its own
+    argument list: WfParams, WfMesh, the active pixels, the corner's
+    dist and radius, the image, no counters, the stream)."""
+    import torch
+    P = wf._cull_params(name, static, arr, seed, spp)
+    M = wf.make_mesh(name, static, arr)
+    p = static.projector
+    img = torch.zeros((p.n_patterns * p.resy * p.resx,),
+                      dtype=torch.float32, device=arr["active_pixels"].device)
+    args = (ctypes.c_float(dist), ctypes.c_float(radius)) \
+        if name == "wf_corner" else ()
+    err = getattr(lib, name)(ctypes.byref(P), ctypes.byref(M),
+                             ctypes.c_void_p(arr["active_pixels"].data_ptr()),
+                             *args, ctypes.c_void_p(img.data_ptr()), None,
+                             ctypes.c_void_p(wf._stream(img.device)))
+    if err != 0:
+        raise RuntimeError(f"parent {name}: cudaError_t {err}")
+    return img
+
+
+def main_cull(names, parent):
+    import torch
+    import chip_smoke as cs
+    from drtvam_tpu_torch.models.scene import Scene
+    from drtvam_tpu_torch.ops import render as wf
+    from drtvam_tpu_torch.ops.march import scene_tensors
+    dev = torch.device("cuda:0")
+    with tempfile.TemporaryDirectory() as work:
+        built = cull_build(work, names, parent)
+        cfg = cs.bench_config(work, "cylindrical")
+        build = dict(mode="radon", include_target=True, max_depth=5,
+                     rr_depth=6, print_time=1.0)
+        scenes = {
+            "radon": (Scene(cfg).build(regular_sampling=True, **build), 1),
+            "corner": (Scene(cs.square_bench_config(work)).build(
+                mode="volume", include_target=True, max_depth=1, rr_depth=6,
+                print_time=1.0, regular_sampling=True), 1),
+            "telecentric": (Scene(cs.telecentric_bench_config(work)).build(
+                **build), 4)}
+        scenes = {k: (st, scene_tensors(arr, dev), spp)
+                  for k, ((st, arr), spp) in scenes.items()}
+        no_mesh = Scene(cfg).build(mode="radon", include_target=False,
+                                   max_depth=5, rr_depth=6, print_time=1.0,
+                                   regular_sampling=True)
+        no_mesh = (no_mesh[0], scene_tensors(no_mesh[1], dev))
+        ref = {}
+        for v in names + (["parent"] if parent else []):
+            libs = {}
+            for n in ("wf_radon", "wf_corner"):
+                lib = ctypes.CDLL(built[(v, n)][0])
+                if v != "parent":
+                    wf._setup(lib, n)
+                libs[n] = lib
+            spec = {} if v == "parent" else CULL_VARIANTS[v]
+            staged = spec.get("staged", True)
+            rec = {"variant": v, **spec,
+                   "ptxas": {n: cull_ptxas(built[(v, n)][1])
+                             for n in ("wf_radon", "wf_corner")}}
+            wf.build_kernels = lambda: libs  # noqa: B023
+            for cell, (st, at, spp) in scenes.items():
+                name = "wf_corner" if cell == "corner" else "wf_radon"
+                if v == "parent":
+                    call = lambda: parent_call(  # noqa: E731
+                        wf, libs[name], name, st, at, 0, spp, 3.6, 0.2)
+                elif name == "wf_corner":
+                    call = lambda: wf.wf_corner(  # noqa: E731
+                        st, at, 3.6, 0.2, staged=staged)
+                else:
+                    call = lambda: wf.wf_radon(  # noqa: E731
+                        st, at, 0, spp, staged=staged)
+                img = call()
+                torch.cuda.synchronize()
+                if v == "shipped":
+                    ref[cell] = img
+                same = torch_equal(img, ref[cell])
+                if not same:
+                    raise AssertionError(f"{v} {cell}: the image differs "
+                                         f"from the shipped build's")
+                rec[cell] = {"ms": cs.cuda_ms(call, CULL_REPS[cell], torch),
+                             "bitwise_vs_shipped": same,
+                             "lanes": st.projector.n_active * spp}
+                if v != "parent":
+                    rec[cell]["launch"] = wf.cull_info(
+                        name, st, at, spp, staged=staged)
+                del img
+            if v in ("shipped", "parent"):
+                st, at = no_mesh
+                call = (lambda: parent_call(wf, libs["wf_radon"], "wf_radon",
+                                            st, at, 0, 1, 0.0, 0.0)) \
+                    if v == "parent" else (lambda: wf.wf_radon(st, at, 0, 1))
+                rec["radon_no_mesh"] = {"ms": cs.cuda_ms(call, 5, torch)}
+            if v == "shipped":
+                rec["counts"] = {}
+                for cell, (st, at, spp) in scenes.items():
+                    stats = {}
+                    if cell == "corner":
+                        wf.wf_corner(st, at, 3.6, 0.2, 0, stats)
+                    else:
+                        wf.wf_radon(st, at, 0, spp, stats)
+                    lanes = st.projector.n_active * spp
+                    rec["counts"][cell] = dict(
+                        stats, simt_efficiency=stats["triangles"] /
+                        max(stats["triangle_slots"], 1),
+                        repeat_share=stats["repeats"] /
+                        max(stats["triangles"], 1),
+                        lanes_in_box_share=stats["lanes_in_box"] / lanes,
+                        triangles_a_lane=stats["triangles"] / lanes)
+                stats = {}
+                wf.wf_radon(*no_mesh, 0, 1, stats)
+                rec["counts"]["radon_no_mesh"] = stats
+                st, at, spp = scenes["telecentric"]
+                rec["telecentric_vs_plain"] = telecentric_check(
+                    cs, wf, st, at, ref["telecentric"], spp)
+            print(json.dumps(rec), flush=True)
+
+
+def torch_equal(a, b):
+    return bool((a == b).all())
+
+
+def telecentric_check(cs, wf, static, arr, img, spp):
+    """The telecentric radon image against the plain march on the pixels
+    of every cs.RADON_CHECK_STRIDE-th angle: pixels that differ, the
+    largest difference, the image's max there."""
+    import torch
+    p = static.projector
+    per_angle = p.resy * p.resx
+    pix = (torch.arange(0, p.n_patterns, cs.RADON_CHECK_STRIDE,
+                        device=img.device)[:, None] * per_angle +
+           torch.arange(per_angle, device=img.device)).reshape(-1)
+    ref = cs.radon_plain_pixels(torch, static, arr, pix, 0, spp)
+    got = img[pix]
+    return {"pixels": pix.numel(), "differ": int((got != ref).sum()),
+            "max_abs_err": float((got - ref).abs().max()),
+            "max_abs_plain": float(ref.abs().max())}
+
+
 def main():
+    if sys.argv[1:2] == ["cull"]:
+        args = sys.argv[2:]
+        parent = None
+        if args[:1] == ["--parent"]:
+            parent, args = os.path.abspath(args[1]), args[2:]
+        names = args or list(CULL_VARIANTS)
+        unknown = [n for n in names if n not in CULL_VARIANTS]
+        if unknown:
+            sys.exit(f"cull variants: {list(CULL_VARIANTS)}; unknown "
+                     f"{unknown}")
+        names = ["shipped"] + [n for n in names if n != "shipped"]
+        smi = subprocess.run(["nvidia-smi", "-i", "0",
+                              "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60, check=True)
+        print(smi.stdout.strip(), flush=True)
+        main_cull(names, parent)
+        return
     if sys.argv[1:2] == ["residual"]:
         names = sys.argv[2:] or list(RES_VARIANTS)
         unknown = [n for n in names if n not in RES_VARIANTS]
