@@ -138,6 +138,24 @@ Phases (each failure exits non-zero before the result line):
      store), and the CLI on phase 9's telecentric
      config with filter_radon: kept share, culling seconds, loop, final
      render.
+  12. optimize()'s modes, each a record with its seconds and launches:
+     progressive (phase 10's cell with "progressive": true; first the
+     residual pair at depth 3 against its plain version at full width
+     and the wavefront pair at depth 3 at 16 angles; then the transport
+     fields and the chord table built once for the loop, the residual
+     launched at depth 3 for steps 0-4 and at 6 after, IoU gate 0.98, the
+     loss history and IoU beside phase 10's); resume (phase 4b's bf16
+     configuration, 10 steps with checkpoint_every 10, then resumed up to
+     40: patterns, final dose and loss history against phase 4b's,
+     bitwise or to RESUME_RTOL; the checkpoint's bytes, write and read
+     seconds); adam (the cylindrical cell with optax's Adam, 40 steps,
+     one bp_fwd and one bp_bwd a step); forward (the CLI's
+     --forward_mode on phase 4's patterns.npz: final.npy bitwise phase
+     4's; psf_analysis on three pixels, bitwise the forward mode's dose
+     of those pixels); surface_aware (the cylindrical bench scene with a
+     surface-aware 256^3 film, 40 steps: fractional volumes timed apart,
+     peak memory, IoU against target_binary); examples (the CLI on
+     examples/scattering.json and examples/surface_aware.json).
 
 Each earlier line is a JSON record; the line before the last lists the
 kernels, the last is {"ok": true, "device": {...}}. The wavefront
@@ -229,6 +247,10 @@ RES_EVENT_OPS = 90
 # same-seed tolerance across packages; a delta or analog deposit is a
 # point (WF_POINT_SHARE)
 ENGINE_TOL = 1e-4
+# a resumed run against the uninterrupted one: the kernels repeat
+# bitwise, so the comparison is expected to be bitwise; if it is not,
+# the largest difference is printed and held to this
+RESUME_RTOL = 1e-6
 
 
 def emit(obj):
@@ -618,25 +640,17 @@ def bench_config(tmp, vial="cylindrical"):
     }
 
 
-def phase_bench(torch, bp, dev, tmp, vial, kernels, bf16=False):
-    """optimize() on the bench scene; `kernels` must have launched, and
-    no other backprojection kernel. bf16: the bf16 operand path, with
-    DRTVAM_MATMUL=bf16 in the environment for the phase and a bfloat16
-    L-BFGS history; else DRTVAM_MATMUL=f32. Returns the record."""
+def optimize_on_card(torch, dev, cfg, matmul="f32", **kw):
+    """optimize() on cfg with DRTVAM_MATMUL=matmul for the call. Returns
+    (vol, timings, wall seconds, peak device GB)."""
     from drtvam_tpu_torch.opt.optimize import optimize
-    from drtvam_tpu_torch.utils.metrics import best_iou
-    cfg = bench_config(tmp, vial)
-    if bf16:
-        cfg["optimizer"]["history_dtype"] = "bfloat16"
-        cfg["output"] += "_bf16"
     timings = {}
     env = os.environ.get("DRTVAM_MATMUL")
-    os.environ["DRTVAM_MATMUL"] = "bf16" if bf16 else "f32"
+    os.environ["DRTVAM_MATMUL"] = matmul
     try:
         torch.cuda.reset_peak_memory_stats(dev)
-        bp.reset_launches()
         t0 = time.perf_counter()
-        vol = optimize(cfg, device=dev, timings=timings)
+        vol = optimize(cfg, device=dev, timings=timings, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
@@ -644,6 +658,22 @@ def phase_bench(torch, bp, dev, tmp, vial, kernels, bf16=False):
             del os.environ["DRTVAM_MATMUL"]
         else:
             os.environ["DRTVAM_MATMUL"] = env
+    return vol, timings, wall, torch.cuda.max_memory_allocated(dev) / 1e9
+
+
+def phase_bench(torch, bp, dev, tmp, vial, kernels, bf16=False):
+    """optimize() on the bench scene; `kernels` must have launched, and
+    no other backprojection kernel. bf16: the bf16 operand path, with
+    DRTVAM_MATMUL=bf16 in the environment for the phase and a bfloat16
+    L-BFGS history; else DRTVAM_MATMUL=f32. Returns the record."""
+    from drtvam_tpu_torch.utils.metrics import best_iou
+    cfg = bench_config(tmp, vial)
+    if bf16:
+        cfg["optimizer"]["history_dtype"] = "bfloat16"
+        cfg["output"] += "_bf16"
+    bp.reset_launches()
+    vol, timings, wall, peak = optimize_on_card(torch, dev, cfg,
+                                                "bf16" if bf16 else "f32")
     counts = dict(bp.launches)
     for name in kernels:
         if counts[name] == 0:
@@ -668,7 +698,7 @@ def phase_bench(torch, bp, dev, tmp, vial, kernels, bf16=False):
            "steps_run": steps, "loss_first": float(loss[0]),
            "loss_last": float(loss[steps - 1]),
            "best_iou": iou, "best_threshold": thr, "launches": counts,
-           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+           "peak_mem_gb": peak}
     emit(rec)
     if not iou >= IOU_GATE:
         raise AssertionError(f"best IoU {iou} < {IOU_GATE}")
@@ -1708,7 +1738,8 @@ def phase_hybrid_bench(torch, wf, bp, dev, tmp):
               "spp 4"]})
     if not iou >= IOU_GATE:
         raise AssertionError(f"hybrid best IoU {iou} < {IOU_GATE}")
-    return counts
+    return counts, {"loss": loss[:steps].tolist(), "best_iou": iou,
+                    "precompute_s": timings["precompute_s"]}
 
 
 # --------------------------------------------------------------------------
@@ -2324,6 +2355,407 @@ def instantiation(mangled):
 RES_EACH = ("wf_res_fwd", "wf_res_bwd", "wf_radon", "wf_corner")
 
 
+# --------------------------------------------------------------------------
+# optimize()'s modes: the progressive depth schedule, checkpoints and
+# resume, Adam, the forward and PSF modes, surface-aware films, the
+# shipped examples
+
+
+def run_history(out):
+    """(loss history, steps run) of an output directory."""
+    loss = np.load(os.path.join(out, "loss.npy"))
+    steps = int(np.count_nonzero(
+        np.load(os.path.join(out, "timing.npy")).sum(1)))
+    return loss, steps
+
+
+def phase_times(timings, wall):
+    return {"wall_s": wall, **{k: timings[k] for k in (
+        "scene_s", "cull_s", "precompute_s", "loop_s", "final_render_s",
+        "artifacts_s") if k in timings}}
+
+
+def bench_iou(vol, target):
+    from drtvam_tpu_torch.utils.metrics import best_iou
+    assert np.isfinite(vol).all()
+    return best_iou(vol[..., 0], target[..., 0], 301)
+
+
+class DepthSpy:
+    """Records the static's max_depth of every call to the residual
+    pair's wrappers (ops/render.py wf_res_fwd / wf_res_bwd), and counts
+    the host transport-field builds (ops/transport2d.py rasterize_fan):
+    the wrappers and the rasterizer run as they are, their launch counts
+    untouched."""
+
+    def __init__(self, wf):
+        from drtvam_tpu_torch.ops import transport2d
+        self.mods = ((wf, ("wf_res_fwd", "wf_res_bwd")),
+                     (transport2d, ("rasterize_fan",)))
+        self.depths = {n: {} for n in ("wf_res_fwd", "wf_res_bwd")}
+        self.field_builds = 0
+        self.saved = []
+
+    def __enter__(self):
+        for mod, names in self.mods:
+            for name in names:
+                orig = getattr(mod, name)
+                self.saved.append((mod, name, orig))
+                setattr(mod, name, self._wrap(name, orig))
+        return self
+
+    def _wrap(self, name, orig):
+        def call(*args, **kw):
+            if name == "rasterize_fan":
+                self.field_builds += 1
+            else:
+                d = args[0].max_depth
+                self.depths[name][d] = self.depths[name].get(d, 0) + 1
+            return orig(*args, **kw)
+        return call
+
+    def __exit__(self, *exc):
+        for mod, name, orig in self.saved:
+            setattr(mod, name, orig)
+
+
+def phase_progressive(torch, wf, bp, dev, tmp, hybrid):
+    """Phase 10's hybrid cell with "progressive": true. First the
+    residual pair at depth 3 against its plain version at full width
+    (phase 8b's check at depth 6) and the wavefront pair at depth 3 on
+    the bench scene cut to 16 angles (phase 8's check at depth 6); then
+    optimize(): the transport fields built twice (the loop's engine and
+    the final render's, none again at step 5), the chord table twice,
+    the residual pair launched at depth 3 (steps 0-4) and then 6, the
+    loss history and best IoU beside phase 10's (`hybrid`)."""
+    from drtvam_tpu_torch.models.scene import Scene
+    from drtvam_tpu_torch.ops.hybrid import ScatteringEngine
+    from drtvam_tpu_torch.ops.march import scene_tensors
+    t_phase = time.perf_counter()
+    cfg = bench_scattering_config(tmp)
+    static, arr = Scene(cfg).build(mode="volume", include_target=False,
+                                   max_depth=3, rr_depth=6)
+    eng = ScatteringEngine(static, arr, dev, spp=1, estimator="delta")
+    st, at = eng.static_s, eng.arr
+    assert st.fast_residual and st.max_depth == 3
+    rng = np.random.default_rng(3)
+    data = torch.from_numpy(rng.uniform(0.0, 1.0, st.projector.n_active)
+                            .astype(np.float32)).to(dev)
+    dL = torch.from_numpy(rng.uniform(0.0, 1.0, st.sensor.n_cells)
+                          .astype(np.float32)).to(dev)
+    chunk = 1 << 22
+    rec = {"phase": "progressive_depth3_kernels", "lanes":
+           st.projector.n_active}
+    for name, kern, plain in (
+            ("wf_res_fwd", lambda: wf.wf_res_fwd(st, at, data, 0, 1),
+             lambda: wf._forward(st, at, data, 0, 1, chunk)),
+            ("wf_res_bwd", lambda: wf.wf_res_bwd(st, at, dL, 0, 1),
+             lambda: wf._adjoint(st, at, 0, 1, chunk, dL))):
+        ms, got = event_ms(kern, torch)
+        plain_ms, ref = event_ms(plain, torch)
+        rec[name] = dict(wf_compare(f"{name} depth 3, full width", got, ref,
+                                    True), ms=ms, plain_ms=plain_ms,
+                         bitwise_plain=bool(torch.equal(got, ref)))
+        del got, ref
+    del eng, st, at, data
+    torch.cuda.empty_cache()
+    cfg16 = bench_config(tmp)
+    cfg16["projector"]["n_patterns"] = 16
+    s16, a16 = Scene(cfg16).build(mode="volume", include_target=False,
+                                  max_depth=3)
+    t16 = scene_tensors(a16, dev)
+    d16 = torch.from_numpy(rng.uniform(0.0, 1.0, s16.projector.n_active)
+                           .astype(np.float32)).to(dev)
+    sk, sp = {}, {}
+    fwd = wf_compare("wf_fwd depth 3, 16 angles",
+                     wf.wf_fwd(s16, t16, d16, 5, 1, sk),
+                     wf._forward(s16, t16, d16, 5, 1, chunk, sp), False)
+    if {k: sk[k] for k in sp} != sp:
+        raise AssertionError(f"wf_fwd depth 3: the kernel took {sk}, the "
+                             f"plain version {sp}")
+    g, g_p = (wf.wf_bwd(s16, t16, dL, 5, 1),
+              wf._adjoint(s16, t16, 5, 1, chunk, dL))
+    rec["wf_fwd_16_angles"] = dict(fwd, steps=sk["steps"])
+    rec["wf_bwd_16_angles"] = dict(wf_compare("wf_bwd depth 3, 16 angles",
+                                              g, g_p, False),
+                                   bitwise_plain=bool(torch.equal(g, g_p)))
+    emit(rec)
+    del t16, d16, dL, g, g_p
+    torch.cuda.empty_cache()
+
+    cfg = bench_scattering_config(tmp)
+    cfg.update(hybrid_estimator="delta", spp=1, max_depth=6, rr_depth=6,
+               progressive=True, output=os.path.join(tmp, "bench_progressive"))
+    wf.reset_launches()
+    bp.reset_launches()
+    with DepthSpy(wf) as spy:
+        vol, timings, wall, peak = optimize_on_card(torch, dev, cfg)
+    counts = {**{k: v for k, v in bp.launches.items() if v},
+              **{k: v for k, v in wf.launches.items() if v}}
+    loss, steps = run_history(cfg["output"])
+    fwd_d, bwd_d = spy.depths["wf_res_fwd"], spy.depths["wf_res_bwd"]
+    if spy.field_builds != 2:
+        raise AssertionError(f"progressive: the transport fields were built "
+                             f"{spy.field_builds} times, not 2 (the loop's "
+                             "engine and the final render's)")
+    if counts.get("wf_res_chords") != 2:
+        raise AssertionError(f"progressive: the chord table launched "
+                             f"{counts.get('wf_res_chords')} times, not 2")
+    if not (steps > 5 and bwd_d.get(3) == 5 and bwd_d.get(6) == steps - 5
+            and fwd_d.get(3) and fwd_d.get(6) and fwd_d.get(16) == 1):
+        raise AssertionError(f"progressive: residual depths {spy.depths} "
+                             f"over {steps} steps")
+    target = np.load(os.path.join(cfg["output"], "target.npy"))
+    iou, thr = bench_iou(vol, target)
+    emit({"phase": "progressive", "seconds": time.perf_counter() - t_phase,
+          **phase_times(timings, wall), "launches": counts,
+          "residual_depths": {k: {str(d): n for d, n in v.items()}
+                              for k, v in spy.depths.items()},
+          "transport_field_builds": spy.field_builds,
+          "steps_run": steps, "loss": loss[:steps].tolist(),
+          "best_iou": iou, "best_threshold": thr, "peak_mem_gb": peak,
+          "phase10": {"loss": hybrid["loss"], "best_iou": hybrid["best_iou"],
+                      "precompute_s": hybrid["precompute_s"]}})
+    if not iou >= IOU_GATE:
+        raise AssertionError(f"progressive best IoU {iou} < {IOU_GATE}")
+    return counts
+
+
+def phase_resume(torch, bp, dev, tmp):
+    """Phase 4b's configuration (bf16 operands, a bfloat16 history) run
+    10 steps with checkpoint_every 10, then resumed up to 40: the
+    patterns, the final dose and the loss history against phase 4b's
+    uninterrupted run, bitwise, else to RESUME_RTOL; the checkpoint's
+    bytes, its write and read seconds. The file is deleted after."""
+    t_phase = time.perf_counter()
+    cfg = bench_config(tmp, "cylindrical")
+    cfg["optimizer"]["history_dtype"] = "bfloat16"
+    ref = cfg["output"] + "_bf16"            # phase 4b's output
+    cfg["output"] = os.path.join(tmp, "bench_resume")
+    bp.reset_launches()
+    _, t1, wall1, _ = optimize_on_card(
+        torch, dev, dict(cfg, n_steps=10, checkpoint_every=10), "bf16")
+    ckpt = os.path.join(cfg["output"], "checkpoint.npz")
+    n_bytes = os.path.getsize(ckpt)
+    with np.load(ckpt) as f:
+        saved_step = int(f["step"])
+        kinds = {k: f[k].dtype.str for k in ("opt_S", "active_data")}
+    _, t2, wall2, peak = optimize_on_card(torch, dev,
+                                          dict(cfg, resume=True), "bf16")
+    counts = {k: v for k, v in bp.launches.items() if v}
+    if set(counts) != {"bp_fwd_bf16", "bp_bwd_bf16"}:
+        raise AssertionError(f"resume: launched {counts}")
+    rec = {"phase": "resume", "checkpoint_bytes": n_bytes,
+           "checkpoint_step": saved_step, "checkpoint_dtypes": kinds,
+           "checkpoint_write_s": t1["checkpoint_write_s"],
+           "checkpoint_read_s": t2["checkpoint_read_s"],
+           "first": phase_times(t1, wall1), "resumed": phase_times(t2, wall2),
+           "launches": counts, "peak_mem_gb": peak}
+    loss, steps = run_history(cfg["output"])
+    loss_ref, steps_ref = run_history(ref)
+    rec.update(steps_run=steps, steps_ref=steps_ref,
+               loss=loss[:steps].tolist())
+    diffs = {}
+    for name in ("loss.npy", "final.npy", "patterns.npz"):
+        a, b = (os.path.join(d, name) for d in (cfg["output"], ref))
+        if name.endswith(".npz"):
+            with np.load(a) as fa, np.load(b) as fb:
+                x, y = fa["patterns"], fb["patterns"]
+        else:
+            x, y = np.load(a), np.load(b)
+        bitwise = bool(np.array_equal(x, y))
+        err = 0.0 if bitwise else float(np.abs(x - y).max())
+        diffs[name] = {"bitwise": bitwise, "max_abs_diff": err}
+        if not bitwise:
+            np.testing.assert_allclose(x, y, rtol=RESUME_RTOL,
+                                       atol=RESUME_RTOL * np.abs(y).max(),
+                                       err_msg=f"resume: {name}")
+    os.remove(ckpt)
+    rec.update(vs_phase_4b=diffs, seconds=time.perf_counter() - t_phase)
+    emit(rec)
+    if steps != steps_ref or saved_step != 9:
+        raise AssertionError(f"resume: {steps} steps against phase 4b's "
+                             f"{steps_ref}, checkpoint at step {saved_step}")
+    return counts
+
+
+def phase_adam(torch, bp, dev, tmp):
+    """The cylindrical bench cell with {"type": "adam"} (optax's lr
+    0.01), 40 steps: bp_fwd and bp_bwd once a step each (no direction
+    render), bp_fwd once more for the final render; no IoU gate."""
+    t_phase = time.perf_counter()
+    cfg = bench_config(tmp, "cylindrical")
+    cfg.update(optimizer={"type": "adam"},
+               output=os.path.join(tmp, "bench_adam"))
+    bp.reset_launches()
+    vol, timings, wall, peak = optimize_on_card(torch, dev, cfg)
+    counts = {k: v for k, v in bp.launches.items() if v}
+    loss, steps = run_history(cfg["output"])
+    if counts != {"bp_fwd": steps + 1, "bp_bwd": steps}:
+        raise AssertionError(f"adam: {steps} steps launched {counts}")
+    target = np.load(os.path.join(cfg["output"], "target.npy"))
+    iou, thr = bench_iou(vol, target)
+    emit({"phase": "adam", "seconds": time.perf_counter() - t_phase,
+          **phase_times(timings, wall), "launches": counts,
+          "steps_run": steps, "loss": loss[:steps].tolist(),
+          "best_iou": iou, "best_threshold": thr, "peak_mem_gb": peak})
+    return counts
+
+
+# psf_analysis pixels as fractions of the DMD (x, y) and of the pattern
+# count, with their intensities
+PSF_PIXELS = ((0.5, 0.5, 0.0, 1.0), (0.3, 0.125, 0.25, 2.0),
+              (0.8325, 0.975, 0.9975, 0.5))
+
+
+def psf_pixels(projector):
+    return [{"x": int(fx * projector["resx"]),
+             "y": int(fy * projector["resy"]),
+             "index_pattern": int(fk * projector["n_patterns"]),
+             "intensity": w} for fx, fy, fk, w in PSF_PIXELS]
+
+
+def phase_forward(torch, bp, dev, tmp):
+    """The CLI's --forward_mode --patterns on phase 4's patterns.npz:
+    final.npy bitwise phase 4's. Then psf_analysis on PSF_PIXELS: its
+    dose bitwise the forward mode's on a pattern stack holding only
+    those pixels."""
+    t_phase = time.perf_counter()
+    cfg = bench_config(tmp, "cylindrical")
+    ref = cfg["output"]                       # phase 4's output
+    work = os.path.join(tmp, "forward")
+    os.makedirs(work)
+    cfg["output"] = os.path.join(work, "fwd")
+    cfg_path = os.path.join(work, "config.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    bp.reset_launches()
+    argv, env = sys.argv, os.environ.get("DRTVAM_MATMUL")
+    sys.argv = ["drtvam_tpu_torch", cfg_path, "--forward_mode",
+                "--patterns", os.path.join(ref, "patterns.npz")]
+    os.environ["DRTVAM_MATMUL"] = "f32"
+    t0 = time.perf_counter()
+    try:
+        runpy.run_module("drtvam_tpu_torch", run_name="__main__")
+    finally:
+        sys.argv = argv
+        if env is None:
+            del os.environ["DRTVAM_MATMUL"]
+        else:
+            os.environ["DRTVAM_MATMUL"] = env
+    cli_s = time.perf_counter() - t0
+    counts = {k: v for k, v in bp.launches.items() if v}
+    if counts != {"bp_fwd": 1}:
+        raise AssertionError(f"forward mode launched {counts}")
+    final = np.load(os.path.join(cfg["output"], "final.npy"))
+    bitwise = bool(np.array_equal(final, np.load(os.path.join(
+        ref, "final.npy"))))
+    zeros = not (np.load(os.path.join(cfg["output"], "loss.npy")).any() or
+                 np.load(os.path.join(cfg["output"], "timing.npy")).any())
+    rec = {"phase": "forward", "cli_wall_s": cli_s, "launches": counts,
+           "final_bitwise_phase4": bitwise, "zero_loss_and_timing": zeros}
+
+    proj = cfg["projector"]
+    pixels = psf_pixels(proj)
+    psf_cfg = dict(cfg, psf_analysis=pixels,
+                   output=os.path.join(work, "psf"))
+    vol_psf, t_psf, wall_psf, _ = optimize_on_card(torch, dev, psf_cfg)
+    pats = np.zeros((proj["n_patterns"], proj["resy"], proj["resx"]),
+                    np.float32)
+    for e in pixels:
+        pats[e["index_pattern"], e["y"], e["x"]] = e["intensity"]
+    vol_fwd, _, wall_fwd, _ = optimize_on_card(
+        torch, dev, dict(cfg, output=os.path.join(work, "psf_fwd")),
+        patterns_fwd=pats)
+    rec.update(psf_wall_s=wall_psf, psf=phase_times(t_psf, wall_psf),
+               psf_forward_wall_s=wall_fwd, psf_pixels=pixels,
+               psf_dose_sum=float(vol_psf.sum()),
+               psf_bitwise_forward=bool(np.array_equal(vol_psf, vol_fwd)),
+               seconds=time.perf_counter() - t_phase)
+    emit(rec)
+    if not (bitwise and zeros and rec["psf_bitwise_forward"] and
+            vol_psf.sum() > 0):
+        raise AssertionError(f"forward / psf mode: {rec}")
+    return counts
+
+
+def phase_surface_aware(torch, bp, dev, tmp):
+    """The cylindrical bench scene with a surface-aware 256^3 film and the
+    same film, one-channel, as final_sensor, 40 steps: the fractional
+    volumes timed apart (host C++), the dense pair on the two-channel
+    split, the peak memory, the best IoU against target_binary."""
+    from drtvam_tpu_torch.models.scene import Scene
+    from drtvam_tpu_torch.ops.voxelize import fractional_volumes
+    t_phase = time.perf_counter()
+    cfg = bench_config(tmp, "cylindrical")
+    cfg["final_sensor"] = json.loads(json.dumps(cfg["sensor"]))
+    cfg["sensor"]["film"]["surface_aware"] = True
+    cfg["output"] = os.path.join(tmp, "bench_surface_aware")
+    sc = Scene(cfg)
+    tb = sc.target_bank()
+    t0 = time.perf_counter()
+    vols = fractional_volumes(tb, sc.sensor.bbox_min, sc.sensor.bbox_max,
+                              sc.sensor.static.res)
+    frac_s = time.perf_counter() - t0
+    shape = sc.sensor.static.shape
+    assert vols.shape == shape and vols.dtype == np.float32
+    del vols, sc
+    bp.reset_launches()
+    vol, timings, wall, peak = optimize_on_card(torch, dev, cfg)
+    counts = {k: v for k, v in bp.launches.items() if v}
+    if set(counts) != {"bp_fwd", "bp_bwd"}:
+        raise AssertionError(f"surface_aware: launched {counts}")
+    out = cfg["output"]
+    binary = np.load(os.path.join(out, "target_binary.npy"))
+    assert vol.shape == binary.shape == shape[:3] + (1,)
+    for f in ("target_in.exr", "target_out.exr", "target_binary.exr"):
+        assert os.path.exists(os.path.join(out, f)), f
+    iou, thr = bench_iou(vol, binary)
+    loss, steps = run_history(out)
+    emit({"phase": "surface_aware", "seconds": time.perf_counter() - t_phase,
+          "fractional_volumes_s": frac_s, **phase_times(timings, wall),
+          "launches": counts, "steps_run": steps,
+          "loss": loss[:steps].tolist(), "best_iou_vs_target_binary": iou,
+          "best_threshold": thr, "peak_mem_gb": peak})
+    return counts
+
+
+def phase_examples(bp, wf, tmp):
+    """The CLI, unchanged, on examples/scattering.json (progressive, the
+    hybrid engine) and examples/surface_aware.json (a surface-aware
+    film, the ballistic engine), each from a directory of its own (their
+    outputs are relative paths)."""
+    t_phase = time.perf_counter()
+    rec = {"phase": "examples"}
+    cwd, argv = os.getcwd(), sys.argv
+    for name in ("scattering", "surface_aware"):
+        work = os.path.join(tmp, f"example_{name}")
+        os.makedirs(work)
+        bp.reset_launches()
+        wf.reset_launches()
+        sys.argv = ["drtvam_tpu_torch",
+                    os.path.join(REPO, "examples", f"{name}.json")]
+        os.chdir(work)
+        t0 = time.perf_counter()
+        try:
+            runpy.run_module("drtvam_tpu_torch", run_name="__main__")
+        finally:
+            os.chdir(cwd)
+            sys.argv = argv
+        out = os.path.join(work, "out", name)
+        loss, steps = run_history(out)
+        final = np.load(os.path.join(out, "final.npy"))
+        assert np.isfinite(final).all() and loss[steps - 1] < loss[0]
+        rec[name] = {"wall_s": time.perf_counter() - t0, "steps_run": steps,
+                     "loss": loss[:steps].tolist(),
+                     "launches": {**{k: v for k, v in bp.launches.items()
+                                     if v},
+                                  **{k: v for k, v in wf.launches.items()
+                                     if v}}}
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+
+
 def ptxas_summary(name):
     """Registers and spills of a kernel library's instantiations, from
     its build log (nvcc -Xptxas -v), with the spilling ones named."""
@@ -2427,7 +2859,7 @@ def main():
         torch.cuda.empty_cache()
         phase_cli_wavefront(wf, tmp)
         torch.cuda.empty_cache()
-        hy_counts = phase_hybrid_bench(torch, wf, bp, dev, tmp)
+        hy_counts, hy_rec = phase_hybrid_bench(torch, wf, bp, dev, tmp)
         torch.cuda.empty_cache()
         cfull = phase_cull_full(torch, wf, bp, dev, tmp)
         torch.cuda.empty_cache()
@@ -2444,6 +2876,19 @@ def main():
             wf.KERNELS + ("wf_radon",))
         cull_counts = {"wf_radon": tele["launches"]["wf_radon"],
                        "wf_corner": corner["launches"]["wf_corner"]}
+        torch.cuda.empty_cache()
+        # optimize()'s modes (phase 12)
+        phase_progressive(torch, wf, bp, dev, tmp, hy_rec)
+        torch.cuda.empty_cache()
+        phase_resume(torch, bp, dev, tmp)
+        torch.cuda.empty_cache()
+        phase_adam(torch, bp, dev, tmp)
+        torch.cuda.empty_cache()
+        phase_forward(torch, bp, dev, tmp)
+        torch.cuda.empty_cache()
+        phase_surface_aware(torch, bp, dev, tmp)
+        torch.cuda.empty_cache()
+        phase_examples(bp, wf, tmp)
 
     emit({"kernels": [
         {"name": n, "route": "cuda",

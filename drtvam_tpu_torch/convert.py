@@ -17,6 +17,7 @@ from .models.sensor import SensorStatic
 from .ops.march import MarchStatic, SurfaceStatic
 from .ops.mesh_grid import TriGridStatic
 from .ops.transport2d import chord_pack
+from .opt.device_lbfgs import is_bf16_bits, rows_from_numpy
 
 
 def _fields(obj, cls, **override):
@@ -55,15 +56,13 @@ def scene_from_jax(static, arr):
 
 
 def _rows(x, device):
-    """A history buffer as numpy -> torch, keeping its type: float32,
-    or bfloat16 (ml_dtypes' numpy type, read through its bits, so that
-    ml_dtypes need not be importable here)."""
-    x = np.ascontiguousarray(x)
-    if x.dtype.name == "bfloat16":
-        t = torch.from_numpy(x.view(np.int16).copy()).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(np.array(x, np.float32))
-    return t.to(device).contiguous()
+    """A history buffer as numpy -> torch, keeping its type: float32, or
+    bfloat16 (ml_dtypes' numpy type, the '|V2' void type numpy reads a
+    saved one back as, or its uint16 / int16 bits; read through its
+    bits, so that ml_dtypes need not be importable here)."""
+    x = np.asarray(x)
+    dtype = torch.bfloat16 if is_bf16_bits(x) else torch.float32
+    return rows_from_numpy(x, dtype, x.shape, device)
 
 
 def lbfgs_state_from_numpy(state, device="cpu"):

@@ -1,9 +1,10 @@
 """Volumetric sensor and film (counterpart of
 drtvam_tpu/models/sensor.py).
 
-The film is a dose tensor (Z, Y, X, C). The reference's resolution
-quirk is kept: config 'resx' sets the Y extent and 'resy' sets X.
-Surface-aware (2-channel) films are ROADMAP queue 1 item 14.
+The film is a dose tensor (Z, Y, X, C): C = 2 on a surface-aware film
+(channel 0 the dose inside the target, 1 outside), else 1. The
+reference's resolution quirk is kept: config 'resx' sets the Y extent
+and 'resy' sets X.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ from typing import Tuple
 
 import numpy as np
 
-from ..ops.voxelize import occupancy
+from ..ops.voxelize import fractional_volumes, occupancy
 
 
 @dataclass(frozen=True)
@@ -59,6 +60,7 @@ class Sensor:
         self.majorant = float(props.get("majorant", 0.0))
         if est == "ratio" and self.majorant <= 0.0:
             raise ValueError("Ratio sensor requires a positive 'majorant'.")
+        self._volumes = None
 
     @property
     def voxel_size(self):
@@ -70,23 +72,29 @@ class Sensor:
     def voxel_volume(self):
         return float(np.prod(self.voxel_size))
 
-    def _no_surface_aware(self):
-        if self.surface_aware:
-            raise NotImplementedError(
-                "surface-aware films are not ported yet — ROADMAP queue 1 "
-                "item 14")
+    def compute_volume(self, target_bank=None, oversample=4):
+        """Per-voxel integration volume: the voxel volume (a float32
+        scalar), or on a surface-aware film the (Z, Y, X, 2) inside /
+        outside fractional volumes of the target, computed once."""
+        if not self.surface_aware:
+            return np.float32(self.voxel_volume)
+        if self._volumes is None:
+            if target_bank is None:
+                raise ValueError("surface-aware sensor needs the target "
+                                 "mesh to compute fractional volumes")
+            self._volumes = fractional_volumes(
+                target_bank, self.bbox_min, self.bbox_max,
+                self.static.res, oversample=oversample)
+        return self._volumes
 
-    def compute_volume(self):
-        """Per-voxel integration volume (float32 scalar)."""
-        self._no_surface_aware()
-        return np.float32(self.voxel_volume)
-
-    def inv_volume(self):
-        """1 / voxel volume in float32 arithmetic, as the JAX package."""
-        vol = self.compute_volume()
-        if vol == 0.0:
-            return np.float32(0.0)
-        return np.float32(1.0) / np.maximum(vol, np.float32(1e-30))
+    def inv_volume(self, target_bank=None, oversample=4):
+        """1 / volume in float32 arithmetic, 0 where the volume is 0, as
+        the JAX package: a float32 scalar, or a (Z, Y, X, 2) array on a
+        surface-aware film."""
+        vol = self.compute_volume(target_bank, oversample)
+        with np.errstate(divide="ignore"):
+            inv = np.float32(1.0) / np.maximum(vol, np.float32(1e-30))
+        return np.where(vol != 0.0, inv, np.float32(0.0)).astype(np.float32)[()]
 
     def discretize(self, target_bank):
         """Binary occupancy (Z, Y, X, 1) of the target in this grid."""

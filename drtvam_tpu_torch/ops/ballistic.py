@@ -21,9 +21,17 @@ package's _default_impl). A dense choice other than 'plain' becomes the
 banded one when the film tiles into 32x64 blocks and every block's
 u-span fits the band, as 'pallas' and 'pallas_bf16' do there. Fields
 stay float32.
+
+A surface-aware film (2 channels) splits the dose by the target's
+voxelized inside-mask M, elementwise outside the kernels: the forward
+is [dose * M, dose * (1 - M)] and the adjoint's dose cotangent
+dL0 * M + dL1 * (1 - M), so both channels cost one backprojection (the
+JAX package's split, drtvam_tpu/ops/ballistic.py:320-362). inv_vol is
+then the (Z, Y, X, 2) tensor of inverse fractional volumes.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import re
 
@@ -57,23 +65,30 @@ class BallisticEngine:
     _MAX_TAPS = 4
 
     def __init__(self, static: MarchStatic, arr, device, impl=None,
-                 unscattered=False):
+                 unscattered=False, inside_mask=None):
         """unscattered: the engine is the unscattered transport of a
         scattering scene (the hybrid engine's analytic part,
         ops/hybrid.py): only the geometry must be precomputable; the
-        rasterizer folds the medium's sigma_t and 1 - albedo into W."""
+        rasterizer folds the medium's sigma_t and 1 - albedo into W.
+        inside_mask: the target's (Z, Y, X[, 1]) binary occupancy in the
+        sensor's grid, which a surface-aware film needs (ignored
+        otherwise, as in the JAX package)."""
         if unscattered:
             if not unscattered_eligible(static):
                 raise ValueError("scene geometry not precomputable as 2D "
                                  "transport fields")
         elif not ballistic_eligible(static):
             raise ValueError("scene not ballistic-eligible")
-        if static.sensor.channels != 1:
-            raise NotImplementedError(
-                "surface-aware films are not ported yet — ROADMAP queue 1 "
-                "item 14")
         self.static = static
         self.device = torch.device(device)
+        self.mask = None
+        if static.sensor.surface_aware:
+            if inside_mask is None:
+                raise ValueError("surface-aware ballistic engine needs the "
+                                 "inside mask")
+            X, Y, Z = static.sensor.res
+            self.mask = torch.as_tensor(np.asarray(
+                inside_mask, np.float32).reshape(Z, Y, X)).to(self.device)
         p = static.projector
         self.shape_dense = (p.n_patterns, p.resy, p.resx)
         U = p.resx
@@ -191,19 +206,28 @@ class BallisticEngine:
         return flat.reshape(n, ry, rx)
 
     def render_vol(self, active_data, inv_vol):
-        """(Z, Y, X, 1) dose volume; differentiable w.r.t. active_data
+        """(Z, Y, X, C) dose volume; differentiable w.r.t. active_data
         (the backward runs the adjoint kernel)."""
         Pz = self._resample_fwd(self.dense_patterns(active_data))
         dose = backproject(Pz, self.fields)
         X, Y, Z = self.static.sensor.res
-        return (dose.reshape(Z, Y, X) * self.scalar)[..., None] * inv_vol
+        dose = dose.reshape(Z, Y, X) * self.scalar
+        if self.mask is None:
+            return dose[..., None] * inv_vol
+        return torch.stack([dose * self.mask, dose * (1.0 - self.mask)],
+                           -1) * inv_vol
 
     # -- explicit adjoint ----------------------------------------------------
 
     def pattern_grad(self, dvol, inv_vol):
-        """d loss / d active_data given d loss / d vol (Z, Y, X, 1)."""
+        """d loss / d active_data given d loss / d vol (Z, Y, X, C)."""
         X, Y, Z = self.static.sensor.res
-        dL = ((dvol * inv_vol)[..., 0] * self.scalar).reshape(Z, Y * X)
+        dvol = dvol * inv_vol
+        if self.mask is None:
+            dL = dvol[..., 0]
+        else:
+            dL = dvol[..., 0] * self.mask + dvol[..., 1] * (1.0 - self.mask)
+        dL = (dL * self.scalar).reshape(Z, Y * X)
         Pbar = self._resample_bwd(self.fields.adjoint(dL)).reshape(-1)
         if self.identity_pixels:
             return Pbar
@@ -224,7 +248,10 @@ def radon_active_ballistic(static: MarchStatic, arr, target_mask,
     target_mask: (Z, Y, X) or (Z, Y, X, 1) binary occupancy on the
     sensor grid. Returns int32 numpy DENSE flat (pattern, row, column)
     indices of the pixels to keep, mapped back through the sparse store
-    when the projector already has an active subset."""
+    when the projector already has an active subset. A surface-aware
+    sensor is culled as a one-channel one of the same grid."""
+    static = dataclasses.replace(static, sensor=dataclasses.replace(
+        static.sensor, surface_aware=False))
     eng = BallisticEngine(static, arr, device, unscattered=True)
     X, Y, Z = static.sensor.res
     mask = torch.as_tensor(np.asarray(target_mask, np.float32).reshape(

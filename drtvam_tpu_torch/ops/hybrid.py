@@ -70,6 +70,10 @@ class ScatteringEngine:
             raise ValueError("scene is not hybrid-eligible (needs "
                              "scattering and z-invariant collimated "
                              "geometry)")
+        if static.sensor.surface_aware:
+            raise NotImplementedError(
+                "surface-aware films on the hybrid engine are not ported "
+                "yet — ROADMAP queue 1 item 14")
         self.device = torch.device(device)
         self.ball = BallisticEngine(static, arr, self.device,
                                     unscattered=True)
@@ -94,6 +98,13 @@ class ScatteringEngine:
         self.spp = spp
         self.spp_grad = spp if spp_grad is None else spp_grad
         self.chunk = wavefront.DEFAULT_CHUNK if chunk is None else chunk
+
+    def set_max_depth(self, max_depth):
+        """Change the residual's depth cap (the progressive schedule):
+        only the residual's static changes; the unscattered fields and
+        the chord bank do not depend on depth and are kept."""
+        self.static_s = dataclasses.replace(self.static_s,
+                                            max_depth=max_depth)
 
     def render_vol(self, active_data, inv_vol, seed=0):
         """The dose volume (Z, Y, X, 1), differentiable in active_data."""

@@ -29,6 +29,7 @@ dot products, and gamma's denominator is the rounded newest y row.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -40,6 +41,38 @@ def history_dtype_of(dtype):
         raise ValueError(f"history_dtype {dtype!r} is not a floating "
                          "torch dtype")
     return dt
+
+
+def rows_to_numpy(rows):
+    """History rows -> numpy: float32 as they are, bfloat16 as 2-byte
+    void ('|V2') views of their bits, the type numpy writes and reads
+    back for the JAX package's ml_dtypes bfloat16 arrays."""
+    rows = rows.detach().cpu().contiguous()
+    if rows.dtype == torch.bfloat16:
+        return rows.view(torch.int16).numpy().view("V2")
+    return rows.numpy()
+
+
+def is_bf16_bits(x):
+    """A numpy array of 2-byte bfloat16 bits: void ('|V2', ml_dtypes'
+    bfloat16) or a 16-bit integer type."""
+    return x.dtype.itemsize == 2 and x.dtype.kind in "Vui"
+
+
+def rows_from_numpy(x, dtype, shape, device="cpu"):
+    """numpy history rows -> a torch tensor of `dtype` on `device`. Rows
+    of a 2-byte type (void '|V2' as numpy reads a saved bfloat16 array,
+    ml_dtypes' bfloat16, uint16 or int16) are bfloat16 bits; any other
+    type is read as numbers. shape: the (m, n) the rows must have."""
+    x = np.ascontiguousarray(x)
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"history rows of shape {tuple(x.shape)}, "
+                         f"expected {tuple(shape)}")
+    if is_bf16_bits(x):
+        t = torch.from_numpy(x.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(x, np.float32))
+    return t.to(device=device, dtype=dtype).contiguous()
 
 
 def lbfgs_direction(g, S, Yh, ys, head, nvalid):
@@ -187,10 +220,15 @@ class DeviceLinearLBFGS:
         self.search_it = search_it
         self.c1 = c1
         self.clamp = clamp
-        self._dir_fn = dir_fn
-        self._cand_fn = cand_fn
         self._state = None
         self.last_alpha = None
+        self.rebind(dir_fn, cand_fn)
+
+    def rebind(self, dir_fn, cand_fn):
+        """Swap the render / loss closures (the progressive schedule's
+        change of depth) and keep the history."""
+        self._dir_fn = dir_fn
+        self._cand_fn = cand_fn
 
     def step(self, p, g, vol, loss, step_args=()):
         """Returns the updated (clamped) patterns."""
@@ -209,3 +247,43 @@ class DeviceLinearLBFGS:
                               self.search_it, self.c1)
         self.last_alpha = alpha
         return _update(p, alpha, z, self.clamp)
+
+    # -- checkpointing: the JAX package's keys and types ------------------
+
+    _INT_KEYS = ("t", "head", "nvalid")
+
+    def state_dict(self):
+        """The history as numpy, under the JAX package's keys (t, p_old,
+        g_old, S, Yh, ys, head, nvalid, m); {"t": 0} before the first
+        step. bfloat16 rows are written as 2-byte void views of their
+        bits, as numpy saves the JAX package's bfloat16 arrays."""
+        if self._state is None:
+            return {"t": np.int64(0)}
+        st = self._state
+        d = {k: np.int32(st[k]) for k in self._INT_KEYS}
+        for k in ("p_old", "g_old", "ys"):
+            d[k] = st[k].detach().cpu().numpy()
+        for k in ("S", "Yh"):
+            d[k] = rows_to_numpy(st[k])
+        d["m"] = np.int64(self.m)
+        return d
+
+    def load_state_dict(self, d, device="cpu"):
+        """Restore a state_dict of either package onto `device`, the
+        patterns' device. Rows are read back in this optimizer's history
+        type, and their shape is checked against (m, n)."""
+        if int(d.get("t", 0)) == 0:
+            self._state = None
+            return
+        if "m" in d and int(d["m"]) != self.m:
+            raise ValueError(f"the checkpoint's history has m = "
+                             f"{int(d['m'])}, this optimizer m = {self.m}")
+        n = int(np.asarray(d["p_old"]).shape[0])
+        st = {k: int(d[k]) for k in self._INT_KEYS}
+        for k in ("p_old", "g_old", "ys"):
+            st[k] = torch.as_tensor(np.array(d[k], np.float32),
+                                    device=device)
+        for k in ("S", "Yh"):
+            st[k] = rows_from_numpy(d[k], self.history_dtype, (self.m, n),
+                                    device)
+        self._state = st

@@ -4,9 +4,13 @@ Thresholded dose penalty (Wechsler et al. 2024), plain L2, a pattern
 sparsity term and sum/mean reduction, as plain differentiable torch:
 autograd gives the dose and pattern cotangents.
 
-One-channel (binary or grayscale occupancy) targets only: voxels with
-target > 0 are scored by `object_term`, the rest by `void_term`. The
-two-channel surface-aware weighting is ROADMAP queue 1 item 14.
+Two target layouts, as in the JAX package:
+  * one channel (binary or grayscale occupancy): voxels with target > 0
+    are scored by `object_term`, the rest by `void_term`;
+  * two channels (surface-aware): the target holds the per-voxel
+    (inside, outside) fractional volumes and the dose the dose on each
+    side of the target surface; each side is scored by its own term,
+    weighted by its share of the voxel's volume.
 Config keys and defaults are those of the JAX package.
 """
 from __future__ import annotations
@@ -29,8 +33,9 @@ def _pos(x):
 def evaluate(objective, dose, target, patterns):
     """Reduce an objective over a dose volume.
 
-    dose: (..., 1); target: the same shape, or without the channel
-    axis. Returns reduced(voxel terms) + reduced(pattern sparsity)."""
+    dose: (..., C) with C 1 or 2; target: the same shape, or without
+    the channel axis when C is 1. Returns reduced(voxel terms) +
+    reduced(pattern sparsity)."""
     if dose.shape != target.shape:
         if dose.dim() == target.dim() + 1 and dose.shape[-1] == 1:
             target = target[..., None]
@@ -38,11 +43,18 @@ def evaluate(objective, dose, target, patterns):
             raise ValueError(
                 f"dose volume {tuple(dose.shape)} and target "
                 f"{tuple(target.shape)} are not broadcast-compatible")
-    if target.shape[-1] != 1:
-        raise NotImplementedError(
-            "two-channel (surface-aware) targets are not ported yet — "
-            "ROADMAP queue 1 item 14")
-    per_voxel = objective.voxel_term(dose, target)
+    channels = target.shape[-1]
+    if channels == 1:
+        per_voxel = objective.voxel_term(dose, target)
+    elif channels == 2:
+        frac = target[..., 0] + target[..., 1]
+        per_voxel = (target[..., 0] * objective.object_term(dose[..., 0])
+                     + target[..., 1] * objective.void_term(dose[..., 1])
+                     ) / frac
+    else:
+        raise ValueError(
+            "expected a trailing channel axis of 1 (binary) or 2 "
+            f"(surface-aware), got target shape {tuple(target.shape)}")
     sparsity = objective.sparsity_term(patterns)
     return objective.reduction(per_voxel) + objective.reduction(sparsity)
 

@@ -1,13 +1,15 @@
 """Optimization driver + CLI (counterpart of drtvam_tpu/opt/optimize.py).
 
 `optimize(config, device=...)` runs the pattern optimization end to
-end on one device: scene assembly, target voxelization, the engine
-(the ballistic backprojection or the wavefront path tracer), the
-render / loss / adjoint / Linear-L-BFGS loop with pattern clamping and
-the convergence break, the final render, and the artifact set
-(target.exr/npy, final.exr/npy, loss.npy, timing.npy, per-pattern EXRs,
-patterns.npz + normalized uint8, histogram.png). `main()` is the CLI
-with dotted -D overrides.
+end on one device: scene assembly, target voxelization (binary, or the
+fractional volumes of a surface-aware film), DMD-pixel culling, the
+engine (the ballistic backprojection, the hybrid scattering engine or
+the wavefront path tracer), the render / loss / adjoint / step loop
+with pattern clamping and the convergence break, the final render, and
+the artifact set (target.exr/npy, final.exr/npy, loss.npy, timing.npy,
+per-pattern EXRs, patterns.npz + normalized uint8, histogram.png; on a
+surface-aware film target_in/out.exr and target_binary.npy/exr).
+`main()` is the CLI with dotted -D overrides and --forward_mode.
 
 timing.npy: per iteration, column 0 is the primal render + loss wall
 time, column 1 the adjoint + optimizer step (direction render and line
@@ -34,12 +36,33 @@ tracer (ops/render.py) with `spp` / `spp_grad` lanes per pixel. A
 Monte-Carlo engine takes seed i at step i, and the line search renders
 the direction with the step's seed, the full dose. The final render
 runs the scene's own estimator at `spp_ref`, seed 0, `max_depth_ref`
-and `rr_depth_ref`. The optimizer is lbfgs. Everything not ported
-raises NotImplementedError naming its ROADMAP item.
+and `rr_depth_ref`. A surface-aware film runs on the ballistic engine
+(the inside-mask split); on the others it raises NotImplementedError.
+
+Optimizers (`optimizer.type`): lbfgs (the Linear L-BFGS,
+opt/device_lbfgs.py), adam and sgd (optax's rules and defaults,
+opt/first_order.py), the patterns clamped at 0 after each step.
+
+Modes and keys:
+  * `progressive`: max_depth 3 for steps 0-4, then `max_depth`; the
+    engine changes its depth cap and keeps what does not depend on it,
+    the L-BFGS its history (rebind);
+  * `checkpoint_every`: N saves checkpoint.npz every N steps and at the
+    last one; `resume` restores it (opt/checkpoint.py; the JAX
+    package's file format, so either package resumes the other's);
+  * `psf_analysis`: a list of {x, y, index_pattern, intensity} pixels
+    rendered once by the final render, no loop: final.npy/exr,
+    loss.npy and timing.npy (zeros), the patterns;
+  * forward mode (`patterns_fwd`, the CLI's --forward_mode --patterns
+    x.npz): the given patterns rendered by the final render, no cull,
+    no loop, the full artifact set with zero loss and timing.
+`optimize_medium` and `profile` raise NotImplementedError naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -55,18 +78,17 @@ from ..ops.march import scene_tensors
 from ..ops.transport2d import ballistic_eligible, unscattered_eligible
 from ..utils.io import save_img, save_vol
 from ..utils.metrics import save_histogram
+from .checkpoint import check_optimizer, load_checkpoint, \
+    restore_opt_state, save_checkpoint
 from .device_lbfgs import DeviceLinearLBFGS
+from .first_order import FirstOrder
 from .loss import losses
 
 # options of the JAX driver that this port does not run yet, with the
 # ROADMAP queue 1 item that ports them
 _NOT_PORTED = {
-    "progressive": ("the progressive depth schedule", 12),
-    "checkpoint_every": ("checkpointing", 12),
-    "resume": ("resuming from a checkpoint", 12),
     "optimize_medium": ("medium optimization", 17),
-    "psf_analysis": ("PSF analysis mode", 17),
-    "profile": ("device profiling", 17),
+    "profile": ("device profiling", 9),
 }
 
 
@@ -134,12 +156,10 @@ def _make_step_fns(render, pattern_grad, loss_obj, target):
             "cand_fn": cand_fn}
 
 
-def _check_ported(config, scene):
+def _check_ported(config):
     for key, (what, item) in _NOT_PORTED.items():
         if config.get(key):
             raise _not_ported(what, item)
-    if scene.sensor.surface_aware:
-        raise _not_ported("surface-aware films", 14)
 
 
 def _cull(config, scene, target, device, rr_depth, transmission_only,
@@ -191,17 +211,145 @@ def _cull(config, scene, target, device, rr_depth, transmission_only,
     return ran
 
 
-def optimize(config, resolve_path=None, device="cuda", timings=None):
+class _Engine:
+    """The loop's engine: render(data, seed) -> dose volume and
+    pattern_grad(dvol, seed) -> d loss / d data, at a depth cap that
+    `set_depth` changes (the progressive schedule) without rebuilding
+    anything that does not depend on it: the ballistic engine has no
+    depth; the hybrid engine changes its residual's static and keeps the
+    unscattered fields and the chord bank; the wavefront changes its
+    static and keeps the uploaded scene tensors (scene.build's arrays do
+    not depend on max_depth)."""
+
+    def __init__(self, kind, static, arr, device, inv_vol, spp, spp_grad,
+                 chunk, hybrid_estimator=None, inside_mask=None):
+        self.kind, self.inv_vol = kind, inv_vol
+        self.spp, self.spp_grad, self.chunk = spp, spp_grad, chunk
+        if kind == "ballistic":
+            self.eng = BallisticEngine(static, arr, device,
+                                       inside_mask=inside_mask)
+            self.impl = self.eng.impl
+        elif kind == "hybrid":
+            self.eng = ScatteringEngine(static, arr, device, spp=spp,
+                                        spp_grad=spp_grad, chunk=chunk,
+                                        estimator=hybrid_estimator)
+            self.impl = self.eng.impl
+        else:
+            self.static = static
+            self.arr = scene_tensors(arr, device)
+            self.impl = "cuda" if device.type == "cuda" else "plain"
+
+    def set_depth(self, max_depth):
+        if self.kind == "hybrid":
+            self.eng.set_max_depth(max_depth)
+        elif self.kind == "wavefront":
+            self.static = dataclasses.replace(self.static,
+                                              max_depth=max_depth)
+
+    def render(self, d, seed):
+        if self.kind == "ballistic":   # deterministic: no seed
+            return self.eng.render_vol(d, self.inv_vol)
+        if self.kind == "hybrid":
+            return self.eng.render_vol(d, self.inv_vol, seed)
+        return wavefront.render(self.static, self.arr, d, self.inv_vol, seed,
+                                self.spp, self.spp_grad, self.chunk)
+
+    def pattern_grad(self, dvol, seed):
+        if self.kind == "ballistic":
+            return self.eng.pattern_grad(dvol, self.inv_vol)
+        if self.kind == "hybrid":
+            return self.eng.pattern_grad(dvol, self.inv_vol, seed)
+        return wavefront.adjoint(self.static, self.arr, seed, self.spp_grad,
+                                 self.chunk,
+                                 (dvol * self.inv_vol).reshape(-1))
+
+
+def _psf_pixels(config, scene):
+    """psf_analysis: the listed DMD pixels, checked, become the sparse
+    store with their intensities (drtvam_tpu/opt/optimize.py:397-416)."""
+    entries = config["psf_analysis"]
+    print(f"\nPSF analysis mode: tracing {len(entries)} isolated DMD "
+          "pixels.")
+    xres = config["projector"]["resx"]
+    yres = config["projector"]["resy"]
+    pix = np.zeros(len(entries), np.int32)
+    val = np.ones(len(entries), np.float32)
+    for i, e in enumerate(entries):
+        if not (0 <= e["x"] < xres and 0 <= e["y"] < yres):
+            raise ValueError(
+                f"psf_analysis pixel ({e['x']}, {e['y']}) lies outside the "
+                f"{xres}x{yres} DMD")
+        if not 0 <= e["index_pattern"] < config["projector"]["n_patterns"]:
+            raise ValueError(
+                f"psf_analysis index_pattern {e['index_pattern']} exceeds "
+                "n_patterns")
+        pix[i] = xres * yres * e["index_pattern"] + xres * e["y"] + e["x"]
+        val[i] = e["intensity"]
+    scene.projector.set_active(pix, val)
+
+
+def _final_render(scene, data, device, engine_cfg, surface_aware, spp_ref,
+                  chunk, build_kw):
+    """The final dose volume (numpy (Z, Y, X, 1)) on the final sensor:
+    the ballistic engine where the scene allows it, else the hybrid
+    engine (the scene's own estimator, not hybrid_estimator), else the
+    wavefront, at spp_ref with seed 0 (drtvam_tpu/opt/optimize.py:
+    359-379). A surface-aware scene keeps its target mesh, as in the
+    JAX package; the final sensor is never surface-aware, so no engine
+    takes the inside mask here."""
+    final_sensor = scene.final_sensor
+    static_f, arr_f = scene.build(
+        mode="volume", include_target=surface_aware, sensor=final_sensor,
+        **build_kw)
+    inv_vol_f = float(np.float32(1.0 / final_sensor.voxel_volume))
+    with torch.no_grad():
+        if engine_cfg != "wavefront" and ballistic_eligible(static_f):
+            vol = BallisticEngine(static_f, arr_f, device).render_vol(
+                data, inv_vol_f)
+        elif engine_cfg != "wavefront" and hybrid_eligible(static_f):
+            vol = ScatteringEngine(static_f, arr_f, device, spp=spp_ref,
+                                   chunk=chunk).render_vol(data, inv_vol_f,
+                                                           0)
+        else:
+            vol = wavefront.render(static_f, scene_tensors(arr_f, device),
+                                   data, inv_vol_f, 0, spp_ref, spp_ref,
+                                   chunk)
+    return vol.cpu().numpy()
+
+
+def _write_dose(output, vol_final, loss_hist, timing_hist):
+    np.save(os.path.join(output, "final.npy"), vol_final)
+    save_vol(vol_final, os.path.join(output, "final.exr"))
+    np.save(os.path.join(output, "loss.npy"), loss_hist)
+    np.save(os.path.join(output, "timing.npy"), timing_hist)
+
+
+def _dump_patterns(scene, data, output):
+    """The per-pattern EXRs and patterns.npz; returns the dense stack."""
+    imgs = scene.projector.patterns(data)
+    print("Writing per-pattern EXR images...")
+    for k in range(imgs.shape[0]):
+        save_img(imgs[k], os.path.join(output, "patterns", f"{k:04d}.exr"))
+    np.savez_compressed(os.path.join(output, "patterns.npz"),
+                        patterns=imgs)
+    return imgs
+
+
+def optimize(config, patterns_fwd=None, resolve_path=None, device="cuda",
+             timings=None):
     """Optimize projector patterns for the configured TVAM scene.
 
     Args:
         config: configuration dict (the JAX package's JSON schema).
+        patterns_fwd: if given, skip the optimization and project these
+            (n_patterns, resy, resx) patterns (the CLI's --forward_mode).
         resolve_path: optional relative-path resolver.
         device: torch device the engine and the optimizer run on.
         timings: optional dict, filled with the wall seconds of the
             phases (scene_s, cull_s, precompute_s, loop_s,
-            final_render_s, artifacts_s) and the active pixels the
-            loop optimizes (active_pixels).
+            final_render_s, artifacts_s; checkpoint_write_s, inside
+            loop_s, and checkpoint_read_s where they ran) and the active
+            pixels the loop optimizes (active_pixels).
     Returns the final dose volume as a numpy (Z, Y, X, 1) array.
     """
     device = torch.device(device)
@@ -222,7 +370,15 @@ def optimize(config, resolve_path=None, device="cuda", timings=None):
             "optimize_medium requires the wavefront engine; the "
             f"'{config['engine']}' engine precomputes the medium into its "
             "transport fields")
-    _check_ported(config, scene)
+    _check_ported(config)
+    if patterns_fwd is not None:
+        # checked before any state changes
+        patterns_fwd = np.asarray(patterns_fwd, np.float32)
+        if patterns_fwd.shape != scene.projector.size():
+            raise ValueError(
+                f"forward mode: the patterns have shape "
+                f"{patterns_fwd.shape}, the projector (n_patterns, resy, "
+                f"resx) = {scene.projector.size()}")
     output = config["output"]
     os.makedirs(os.path.join(output, "patterns"), exist_ok=True)
 
@@ -232,6 +388,7 @@ def optimize(config, resolve_path=None, device="cuda", timings=None):
     max_depth = config.get("max_depth", 6)
     rr_depth = config.get("rr_depth", 6)
     print_time = config.get("time", 1.0)
+    progressive = config.get("progressive", False)
     transmission_only = config.get("transmission_only", True)
     regular_sampling = config.get("regular_sampling", False)
     chunk = config.get("chunk_size", wavefront.DEFAULT_CHUNK)
@@ -239,46 +396,41 @@ def optimize(config, resolve_path=None, device="cuda", timings=None):
     if regular_sampling:
         spp = 1  # rays from pixel centres (spp_grad keeps its value)
     sensor = scene.sensor
-    final_sensor = scene.final_sensor
+    surface_aware = sensor.surface_aware
+    build_kw = dict(print_time=print_time,
+                    transmission_only=transmission_only,
+                    regular_sampling=regular_sampling)
 
     if sensor.static.estimator == "delta" and scene.medium.albedo == 0.0:
         raise ValueError(
             "the delta-tracking estimator needs a scattering medium "
             "(albedo > 0); use 'dda' or 'ratio' for pure absorption")
 
-    static, arr = scene.build(
-        mode="volume", include_target=False, max_depth=max_depth,
-        rr_depth=rr_depth, print_time=print_time,
-        transmission_only=transmission_only,
-        regular_sampling=regular_sampling)
-    engine_kind = select_engine(engine_cfg, static)
-
+    # the target: binary occupancy, or on a surface-aware film the
+    # inside / outside fractional volumes
+    tb = inside_mask = None
     if scene.target_dose is not None:
+        if surface_aware:
+            raise ValueError("a dose-volume target cannot drive the "
+                             "surface-aware discretization")
         if config.get("filter_radon", False) or "filter_corner" in config:
             raise ValueError("DMD-pixel culling filters need a target "
                              "mesh, not a dose volume")
         target = scene.target_dose
     else:
-        target = np.asarray(sensor.discretize(scene.target_bank()))
-        save_vol(target, os.path.join(output, "target.exr"))
+        tb = scene.target_bank()
+        if surface_aware:
+            target = sensor.compute_volume(tb)
+            save_vol(target[..., 0, None],
+                     os.path.join(output, "target_in.exr"))
+            save_vol(target[..., 1, None],
+                     os.path.join(output, "target_out.exr"))
+            inside_mask = sensor.discretize(tb)
+        else:
+            target = np.asarray(sensor.discretize(tb))
+            save_vol(target, os.path.join(output, "target.exr"))
     np.save(os.path.join(output, "target.npy"), target)
-    target_t = torch.from_numpy(np.ascontiguousarray(target)).to(device)
     timings["scene_s"] = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    if _cull(config, scene, target, device, rr_depth, transmission_only,
-             regular_sampling, chunk):
-        static, arr = scene.build(
-            mode="volume", include_target=False, max_depth=max_depth,
-            rr_depth=rr_depth, print_time=print_time,
-            transmission_only=transmission_only,
-            regular_sampling=regular_sampling)
-        n_dense = int(np.prod(scene.projector.size()))
-        print(f"DMD-pixel culling kept {static.projector.n_active} of "
-              f"{n_dense} pixels")
-    _sync(device)
-    timings["cull_s"] = time.perf_counter() - t0
-    timings["active_pixels"] = static.projector.n_active
 
     if "loss" not in config:
         print("Config has no 'loss' entry; defaulting to the thresholded "
@@ -297,62 +449,177 @@ def optimize(config, resolve_path=None, device="cuda", timings=None):
         config["optimizer"] = {"type": "lbfgs"}
     opt_cfg = dict(config["optimizer"])
     optim_type = opt_cfg.pop("type")
-    if optim_type in ("adam", "sgd"):
-        raise _not_ported(f"the '{optim_type}' optimizer", 11)
-    if optim_type != "lbfgs":
-        raise ValueError(f"Unknown optimizer type: '{optim_type}'")
 
     n_steps = config.get("n_steps", 40)
     loss_hist = np.zeros(n_steps)
     timing_hist = np.zeros((n_steps, 2))
+    final_kw = dict(max_depth=config.get("max_depth_ref", 16),
+                    rr_depth=config.get("rr_depth_ref", 8), **build_kw)
+
+    def final_render(data):
+        return _final_render(scene, data, device, engine_cfg, surface_aware,
+                             spp_ref, chunk, final_kw)
+
+    if patterns_fwd is not None:
+        print("Forward mode: projecting the supplied patterns, no "
+              "optimization.")
+        # the projector's pixel store takes its pixels' values (the
+        # dense identity store: all of them); no cull
+        scene.projector.active_data = \
+            patterns_fwd.reshape(-1)[scene.projector.active_pixels]
+        data = torch.as_tensor(scene.projector.active_data, device=device)
+    elif "psf_analysis" in config:
+        # no cull: the listed pixels replace the store
+        _psf_pixels(config, scene)
+        data = torch.as_tensor(scene.projector.active_data, device=device)
+        print("Rendering the final dose volume...")
+        t0 = time.perf_counter()
+        vol_final = final_render(data)
+        timings["final_render_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _write_dose(output, vol_final, loss_hist, timing_hist)
+        _dump_patterns(scene, data, output)
+        timings["artifacts_s"] = time.perf_counter() - t0
+        return vol_final
+    else:
+        data = _optimize_loop(
+            config, scene, device, timings, engine_cfg, optim_type, opt_cfg,
+            loss_obj, target, inside_mask, tb, loss_hist, timing_hist,
+            dict(spp=spp, spp_grad=spp_grad, chunk=chunk,
+                 max_depth=max_depth, rr_depth=rr_depth,
+                 progressive=progressive, build_kw=build_kw))
+
+    print("Rendering the final dose volume...")
+    t0 = time.perf_counter()
+    vol_final = final_render(data)
+    timings["final_render_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    inv_vol = float(sensor.inv_volume())
-    if engine_kind == "ballistic":
-        engine = BallisticEngine(static, arr, device)
-        impl = engine.impl
+    _write_dose(output, vol_final, loss_hist, timing_hist)
+    imgs = _dump_patterns(scene, data, output)
+    array_max = float(np.max(imgs)) if imgs.size else 1.0
+    array_max = array_max if array_max > 0 else 1.0
+    normalized = imgs / array_max
+    np.savez_compressed(
+        os.path.join(output, "patterns_normalized_uint8.npz"),
+        patterns=(normalized * 255).astype(np.uint8))
 
-        def render(d, seed):   # deterministic: no seed
-            return engine.render_vol(d, inv_vol)
-
-        def pattern_grad(dvol, seed):
-            return engine.pattern_grad(dvol, inv_vol)
-    elif engine_kind == "hybrid":
-        engine = ScatteringEngine(static, arr, device, spp=spp,
-                                  spp_grad=spp_grad, chunk=chunk,
-                                  estimator=config.get("hybrid_estimator"))
-        impl = engine.impl
-
-        def render(d, seed):
-            return engine.render_vol(d, inv_vol, seed)
-
-        def pattern_grad(dvol, seed):
-            return engine.pattern_grad(dvol, inv_vol, seed)
+    if surface_aware:
+        # the target's occupancy on the final sensor's grid
+        hist_target = scene.final_sensor.discretize(tb)
+        np.save(os.path.join(output, "target_binary.npy"), hist_target)
+        save_vol(hist_target, os.path.join(output, "target_binary.exr"))
     else:
-        arr_t = scene_tensors(arr, device)
-        impl = "cuda" if device.type == "cuda" else "plain"
+        hist_target = target
+    efficiency = float(np.sum(normalized / normalized.size))
+    print(f"Pattern energy efficiency: {efficiency:.4f}")
+    save_histogram(vol_final, hist_target,
+                   os.path.join(output, "histogram.png"), efficiency,
+                   array_max)
+    timings["artifacts_s"] = time.perf_counter() - t0
+    return vol_final
 
-        def render(d, seed):
-            return wavefront.render(static, arr_t, d, inv_vol, seed, spp,
-                                    spp_grad, chunk)
 
-        def pattern_grad(dvol, seed):
-            return wavefront.adjoint(static, arr_t, seed, spp_grad, chunk,
-                                     (dvol * inv_vol).reshape(-1))
-    fns = _make_step_fns(render, pattern_grad, loss_obj, target_t)
-    opt = DeviceLinearLBFGS(dir_fn=fns["dir_fn"], cand_fn=fns["cand_fn"],
-                            **opt_cfg)
+def _optimize_loop(config, scene, device, timings, engine_cfg, optim_type,
+                   opt_cfg, loss_obj, target, inside_mask, tb, loss_hist,
+                   timing_hist, rp):
+    """The culls, the engine and the render / loss / adjoint / step loop,
+    with the progressive depth schedule, checkpoints and resume
+    (drtvam_tpu/opt/optimize.py:283-330, :428-605). rp: the rendering
+    parameters. Returns the optimized patterns (on `device`); the
+    histories are filled in place."""
+    output = config["output"]
+    n_steps = loss_hist.shape[0]
+    sensor = scene.sensor
+    build_kw = rp["build_kw"]
+    progressive, max_depth = rp["progressive"], rp["max_depth"]
+    if optim_type not in ("lbfgs", "adam", "sgd"):
+        raise ValueError(f"Unknown optimizer type: '{optim_type}'")
+
+    t0 = time.perf_counter()
+    cull_mask = inside_mask if inside_mask is not None else target
+    if _cull(config, scene, cull_mask, device, rp["rr_depth"],
+             build_kw["transmission_only"], build_kw["regular_sampling"],
+             rp["chunk"]):
+        n_dense = int(np.prod(scene.projector.size()))
+        print(f"DMD-pixel culling kept {scene.projector.active_size()} of "
+              f"{n_dense} pixels")
+    _sync(device)
+    timings["cull_s"] = time.perf_counter() - t0
+
+    # resume: the checkpoint's store is set before the engine is built
+    # from the scene (the JAX package sets it after building its step
+    # functions), and must be the pixel set this run's cull kept
+    start_step, ckpt = 0, None
+    checkpoint_every = int(config.get("checkpoint_every", 0))
+    if config.get("resume", False):
+        t0 = time.perf_counter()
+        ckpt = load_checkpoint(output)
+        timings["checkpoint_read_s"] = time.perf_counter() - t0
+        if ckpt is None:
+            print("No checkpoint found; starting from scratch.")
+        else:
+            check_optimizer(ckpt, optim_type)
+            if not np.array_equal(ckpt["active_pixels"],
+                                  scene.projector.active_pixels):
+                raise ValueError(
+                    "the checkpoint's active pixel set differs from this "
+                    "run's (after its DMD-pixel culling): it was written "
+                    "for another scene or culling configuration")
+            scene.projector.active_data = np.asarray(ckpt["active_data"],
+                                                     np.float32)
+            start_step = int(ckpt["step"]) + 1
+            n_saved = min(len(ckpt["loss_hist"]), n_steps)
+            loss_hist[:n_saved] = ckpt["loss_hist"][:n_saved]
+            timing_hist[:n_saved] = ckpt["timing_hist"][:n_saved]
+
+    t0 = time.perf_counter()
+    depth = 3 if progressive and start_step < 5 else max_depth
+    static, arr = scene.build(mode="volume", include_target=inside_mask
+                              is not None, max_depth=depth,
+                              rr_depth=rp["rr_depth"], **build_kw)
+    engine_kind = select_engine(engine_cfg, static)
+    if inside_mask is not None and engine_kind != "ballistic":
+        raise _not_ported(f"surface-aware films on the {engine_kind} "
+                          "engine", 14)
+    timings["active_pixels"] = static.projector.n_active
+    inv_vol = sensor.inv_volume(tb)
+    inv_vol = torch.from_numpy(inv_vol).to(device) if inv_vol.ndim else \
+        float(inv_vol)
+    engine = _Engine(engine_kind, static, arr, device, inv_vol, rp["spp"],
+                     rp["spp_grad"], rp["chunk"],
+                     config.get("hybrid_estimator"), inside_mask)
+    target_t = torch.from_numpy(np.ascontiguousarray(target)).to(device)
+    fns = _make_step_fns(engine.render, engine.pattern_grad, loss_obj,
+                         target_t)
     data = torch.as_tensor(scene.projector.active_data, dtype=torch.float32,
                            device=device)
+    if optim_type == "lbfgs":
+        opt = DeviceLinearLBFGS(dir_fn=fns["dir_fn"], cand_fn=fns["cand_fn"],
+                                **opt_cfg)
+    else:
+        opt = FirstOrder(optim_type, **opt_cfg)
+    if ckpt is not None:
+        restore_opt_state(ckpt, optim_type, opt, data)
+        print(f"Resuming from checkpoint at step {start_step}.")
+    del ckpt
     _sync(device)
     timings["precompute_s"] = time.perf_counter() - t0
     print(f"{engine_kind.capitalize()} engine on {device}: kernels "
-          f"'{impl}'")
+          f"'{engine.impl}'")
 
     print("Starting the pattern optimization loop...")
+    timings["checkpoint_write_s"] = 0.0
     t_loop = time.perf_counter()
-    vol = grad = None
-    for i in range(n_steps):
+    for i in range(start_step, n_steps):
+        if progressive and i == 5 and depth != max_depth:
+            # before the step's timer, as in the JAX package
+            depth = max_depth
+            engine.set_depth(depth)
+            fns = _make_step_fns(engine.render, engine.pattern_grad,
+                                 loss_obj, target_t)
+            if optim_type == "lbfgs":
+                opt.rebind(fns["dir_fn"], fns["cand_fn"])
         t0 = time.perf_counter()
         vol, loss = fns["primal"](data, i)
         loss_hist[i] = float(loss)
@@ -365,67 +632,23 @@ def optimize(config, resolve_path=None, device="cuda", timings=None):
             _sync(device)
             timing_hist[i, 1] = time.perf_counter() - t1
             break
-        data = opt.step(data, grad, vol, loss, step_args=(i,))
+        if optim_type == "lbfgs":
+            data = opt.step(data, grad, vol, loss, step_args=(i,))
+        else:
+            data = opt.step(data, grad)
         _sync(device)
         timing_hist[i, 1] = time.perf_counter() - t1
         print(f"step {i:4d}  loss {loss_hist[i]:.6e}  "
               f"{timing_hist[i].sum():.3f}s")
+        if checkpoint_every and ((i + 1) % checkpoint_every == 0
+                                 or i == n_steps - 1):
+            t0 = time.perf_counter()
+            save_checkpoint(output, i, data, scene.projector.active_pixels,
+                            loss_hist, timing_hist, optim_type, opt)
+            timings["checkpoint_write_s"] += time.perf_counter() - t0
     timings["loop_s"] = time.perf_counter() - t_loop
     scene.projector.active_data = data
-    # free the history and the fields before the final engine is built
-    del opt, fns, render, pattern_grad, vol, grad
-    engine = arr_t = None
-
-    print("Rendering the final dose volume...")
-    t0 = time.perf_counter()
-    static_f, arr_f = scene.build(
-        mode="volume", include_target=False,
-        max_depth=config.get("max_depth_ref", 16),
-        rr_depth=config.get("rr_depth_ref", 8), print_time=print_time,
-        transmission_only=transmission_only,
-        regular_sampling=regular_sampling, sensor=final_sensor)
-    inv_vol_f = float(np.float32(1.0 / final_sensor.voxel_volume))
-    with torch.no_grad():
-        if engine_cfg != "wavefront" and ballistic_eligible(static_f):
-            vol_final = BallisticEngine(static_f, arr_f, device).render_vol(
-                data, inv_vol_f)
-        elif engine_cfg != "wavefront" and hybrid_eligible(static_f):
-            # the scene's own estimator, not hybrid_estimator
-            vol_final = ScatteringEngine(
-                static_f, arr_f, device, spp=spp_ref, chunk=chunk
-            ).render_vol(data, inv_vol_f, 0)
-        else:
-            vol_final = wavefront.render(
-                static_f, scene_tensors(arr_f, device), data, inv_vol_f,
-                0, spp_ref, spp_ref, chunk)
-    vol_final = vol_final.cpu().numpy()
-    timings["final_render_s"] = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    np.save(os.path.join(output, "final.npy"), vol_final)
-    save_vol(vol_final, os.path.join(output, "final.exr"))
-    np.save(os.path.join(output, "loss.npy"), loss_hist)
-    np.save(os.path.join(output, "timing.npy"), timing_hist)
-
-    imgs = scene.projector.patterns(data)
-    print("Writing per-pattern EXR images...")
-    for k in range(imgs.shape[0]):
-        save_img(imgs[k], os.path.join(output, "patterns", f"{k:04d}.exr"))
-    np.savez_compressed(os.path.join(output, "patterns.npz"),
-                        patterns=imgs)
-    array_max = float(np.max(imgs)) if imgs.size else 1.0
-    array_max = array_max if array_max > 0 else 1.0
-    normalized = imgs / array_max
-    np.savez_compressed(
-        os.path.join(output, "patterns_normalized_uint8.npz"),
-        patterns=(normalized * 255).astype(np.uint8))
-
-    efficiency = float(np.sum(normalized / normalized.size))
-    print(f"Pattern energy efficiency: {efficiency:.4f}")
-    save_histogram(vol_final, target, os.path.join(output, "histogram.png"),
-                   efficiency, array_max)
-    timings["artifacts_s"] = time.perf_counter() - t0
-    return vol_final
+    return data
 
 
 # --------------------------------------------------------------------------
@@ -469,12 +692,15 @@ def main(argv=None):
                         help="torch device to run on (cuda, cuda:N, cpu)")
     parser.add_argument("--forward_mode", action="store_true",
                         help="Just project the patterns without "
-                        "optimization (not ported yet).")
+                        "optimization. Patterns need to be specified by "
+                        "--patterns (a .npz file).")
     parser.add_argument("--patterns", type=str,
-                        help="Patterns file for --forward_mode.")
+                        help="Path to the patterns file (a .npz file). This "
+                        "is only used in forward mode.")
     args = parser.parse_args(argv)
-    if args.forward_mode:
-        raise _not_ported("--forward_mode", 15)
+    if args.forward_mode and args.patterns is None:
+        raise ValueError(
+            "--forward_mode needs --patterns pointing at a .npz file")
 
     with open(args.config, "r") as f:
         config = json.load(f)
@@ -491,8 +717,12 @@ def main(argv=None):
     os.makedirs(os.path.join(config["output"], "patterns"), exist_ok=True)
     with open(os.path.join(config["output"], "opt_config.json"), "w") as f:
         json.dump(config, f, indent=4)
-    optimize(config, resolve_path=make_resolver(base_dir),
-             device=args.device)
+    patterns = None
+    if args.forward_mode:
+        with np.load(args.patterns) as f:
+            patterns = f["patterns"]
+    optimize(config, patterns_fwd=patterns,
+             resolve_path=make_resolver(base_dir), device=args.device)
 
 
 if __name__ == "__main__":

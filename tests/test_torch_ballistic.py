@@ -84,11 +84,3 @@ def test_adjoint_is_exact_transpose(tmp_path):
     _close(g, te.pattern_grad(v, inv_vol))
 
 
-def test_surface_aware_film_raises(tmp_path):
-    cfg, resolve, kw = _vial("cylindrical", tmp_path)
-    cfg["sensor"]["film"]["surface_aware"] = True
-    cfg["final_sensor"] = {"type": "dda", "film": {"type": "vfilm"}}
-    ts = TScene(cfg, resolve)
-    static, arr = ts.build(mode="volume", include_target=False, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TEngine(static, arr, "cpu")

@@ -1,5 +1,5 @@
-"""drtvam_tpu_torch imports without jax and never imports jax or the JAX
-package (importing anything under drtvam_tpu loads jax)."""
+"""drtvam_tpu_torch imports without jax and never imports jax, optax or
+the JAX package (importing anything under drtvam_tpu loads jax)."""
 import os
 import re
 import subprocess
@@ -7,8 +7,8 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "drtvam_tpu_torch")
-FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|drtvam_tpu)(\.|\s|,|$)",
-                       re.M)
+FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax|optax|drtvam_tpu)(\.|\s|,|$)", re.M)
 
 
 def _sources():
@@ -23,6 +23,7 @@ def test_every_module_imports_with_jax_blocked():
     code = """
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
+sys.modules["optax"] = None
 sys.modules["drtvam_tpu"] = None
 import drtvam_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(drtvam_tpu_torch.__path__,

@@ -67,13 +67,6 @@ def test_thresholded(props, pred, loss_ref, grad_ref):
     assert np.allclose(g, grad_ref)
 
 
-def test_two_channel_target_raises():
-    fn = tloss.ThresholdedLoss({})
-    target = _t(np.ones((2, 1, 2)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fn(_t(np.ones((2, 1, 2))), target, target)
-
-
 def test_empty_threshold_window_rejected():
     with pytest.raises(ValueError):
         tloss.ThresholdedLoss({"tl": 0.95, "tu": 0.9})

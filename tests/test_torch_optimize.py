@@ -3,7 +3,9 @@ film, 3 steps): the same artifact set, final.npy to rtol 1e-3 and the
 same best IoU to 1e-3, through the ballistic engine and through the
 wavefront path tracer (engine 'wavefront', the loss history to 1e-4:
 both render the same realization at each step's seed, measured 2.1e-5).
-Options the port does not run yet raise NotImplementedError."""
+Options the port does not run yet (optimize_medium, profile) raise
+NotImplementedError; optimize()'s other modes are
+tests/test_torch_modes.py's."""
 import json
 import os
 
@@ -94,11 +96,7 @@ def test_overrides_reach_the_config(work):
 
 @pytest.mark.parametrize("change", [
     {"vial.medium.albedo": 0.5, "optimize_medium": True},
-    {"checkpoint_every": 1},
-    {"optimizer": {"type": "adam"}},
-    {"psf_analysis": True},
-    {"progressive": True},
-    {"vial.medium.albedo": 0.5, "engine": "hybrid", "resume": True},
+    {"profile": True},
 ])
 def test_unported_options_raise(work, change):
     cfg = _config(work, "np")
@@ -110,12 +108,6 @@ def test_unported_options_raise(work, change):
         node[last] = value
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmain([_write(work, cfg, "np.json"), "--device", "cpu"])
-
-
-def test_forward_mode_raises(work):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmain([_write(work, _config(work, "fw"), "fw.json"), "--device",
-               "cpu", "--forward_mode", "--patterns", "p.npz"])
 
 
 def _wavefront_config(work, out):
