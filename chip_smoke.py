@@ -156,6 +156,30 @@ Phases (each failure exits non-zero before the result line):
      surface-aware 256^3 film, 40 steps: fractional volumes timed apart,
      peak memory, IoU against target_binary); examples (the CLI on
      examples/scattering.json and examples/surface_aware.json).
+  13. surface-aware films on the march: the four loop kernels' target
+     instantiations (the target mesh intersected from global memory,
+     the lanes' inside flag flipped at its crossings, two-channel
+     deposits; the residual's first-scatter channel from the inside
+     mask) against their plain versions on small scenes
+     (tests/test_surface_aware.py:55-90's with dda, delta and ratio, at
+     albedo 0 and 0.5, two channels and one with the target kept; a
+     square vial at albedo 0.5 with the fast, general and dda residuals):
+     forwards to 1e-4 of each channel's max with the plain version's
+     steps, adjoints bitwise on two launches (the residual's bitwise
+     against its plain version). Then cell (a), bench.py:686-766's
+     surface-aware square cell (albedo 0.5, filter_radon, the hybrid
+     engine's delta residual, tl 0.9 / tu 0.95, 40 steps), and cell (b),
+     phase 9's cylindrical bench scene on the wavefront with a
+     surface-aware film (40 steps), through optimize(): each target
+     instantiation of the path must launch; the wall split, peak memory
+     and the IoU against target_binary (cell (a) beside the reference's
+     0.9657, not gated); the kernel times at one and two channels with
+     the mesh on and off on each cell's own loop inputs, with bounds,
+     launch shapes, registers and spills; the loop forms against their
+     plain versions on the cells' own inputs (the fast residual at full
+     width; the analog pair and cell (a)'s final-render dda residual,
+     path and walk passes, at spp 1 on every 8th of the 400 angles, the
+     cells' full DMD, film and launch layout).
 
 Each earlier line is a JSON record; the line before the last lists the
 kernels, the last is {"ok": true, "device": {...}}. The wavefront
@@ -2319,13 +2343,14 @@ WF_RES = ("ANALOG", "SCAT_ONLY", "FIRST_SCATTER", "FAST_RESIDUAL")
 def instantiation(mangled):
     """A readable name for a kernel's mangled symbol: the wavefront
     templates' parameters spelled out, else the symbol itself."""
-    m = re.search(r"res_kernelILi(\d)ELi(\d)ELb(\d)ELb(\d)ELb(\d)E",
-                  mangled)
+    m = re.search(r"res_kernelILi(\d)ELi(\d)ELb(\d)ELb(\d)ELb(\d)E"
+                  r"(?:Lb(\d)E)?", mangled)
     if m is not None:
-        e, res, primal, count, path = (int(x) for x in m.groups())
+        e, res, primal, count, path = (int(x) for x in m.groups()[:5])
         return (f"residual {WF_EST[e]}, {WF_RES[res]}, "
                 + ("path pass" if path else
                    "forward" if primal else "adjoint")
+                + (", target" if m.group(6) == "1" else "")
                 + (", counting" if count else ""))
     m = re.search(r"cull_kernelILi(\d)ELb(\d)ELb(\d)E(?:Lb(\d)E)?",
                   mangled)
@@ -2336,23 +2361,26 @@ def instantiation(mangled):
                 + (", counting" if count else "")
                 + {None: "", "1": ", staged", "0": ", global banks"}[
                     m.group(4)])
-    m = re.search(r"walk_kernelILb(\d)E", mangled)
+    m = re.search(r"walk_kernelILb(\d)E(?:Lb(\d)E)?", mangled)
     if m is not None:
-        return "walk pass" + (", counting" if m.group(1) == "1" else "")
-    m = re.search(r"wf_kernelILi(\d)ELb(\d)ELb(\d)ELi(\d)ELb(\d)ELb(\d)E",
-                  mangled)
+        return ("walk pass" + (", two channels" if m.group(2) == "1" else "")
+                + (", counting" if m.group(1) == "1" else ""))
+    m = re.search(r"wf_kernelILi(\d)ELb(\d)ELb(\d)ELi(\d)ELb(\d)ELb(\d)E"
+                  r"(?:Lb(\d)E)?", mangled)
     if m is None:
         return mangled
-    e, scat, tonly, res, primal, count = (int(x) for x in m.groups())
+    e, scat, tonly, res, primal, count = (int(x) for x in m.groups()[:6])
     return (f"{WF_EST[e]}, {'' if scat else '!'}SCAT, "
             f"{'' if tonly else '!'}TONLY, "
             + (f"{WF_RES[res]}, " if res else "")
             + f"{'forward' if primal else 'adjoint'}"
+            + (", target" if m.group(7) == "1" else "")
             + (", counting" if count else ""))
 
 
 # the libraries whose build record lists every instantiation
-RES_EACH = ("wf_res_fwd", "wf_res_bwd", "wf_radon", "wf_corner")
+RES_EACH = ("wf_fwd", "wf_bwd", "wf_res_fwd", "wf_res_bwd", "wf_radon",
+            "wf_corner")
 
 
 # --------------------------------------------------------------------------
@@ -2756,6 +2784,555 @@ def phase_examples(bp, wf, tmp):
     emit(rec)
 
 
+# --------------------------------------------------------------------------
+# surface-aware films on the march (phase 13): the target mesh and the
+# two-channel deposits in the loop kernels' target instantiations
+
+# a target instantiation's forward against its plain version: the same
+# per-lane arithmetic (--fmad=false), the atomics summed in another order,
+# to this fraction of each channel's max; a ratio or delta deposit is a
+# point (WF_POINT_SHARE)
+TARGET_TOL = 1e-4
+# the reference's IoU on its own surface-aware cell (benchmarks/
+# MICRO_r05.md:105; its 0.98 gate is open there too): information only
+REFERENCE_SA_IOU = 0.9657
+
+
+def channel_compare(name, out, ref, channels, point):
+    """Per channel: the largest |difference| and the nonzero reference
+    values off by more than TARGET_TOL of the channel's max; raises past
+    the tolerance."""
+    chans = []
+    for c in range(channels):
+        o = out.reshape(-1, channels)[:, c]
+        r = ref.reshape(-1, channels)[:, c]
+        scale = float(r.abs().max())
+        if not (scale > 0 and bool(o.isfinite().all())):
+            raise AssertionError(f"{name}: channel {c} empty or non-finite")
+        off = int(((o - r).abs() > TARGET_TOL * scale).sum())
+        if off > (WF_POINT_SHARE * int((r != 0).sum()) if point else 0):
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"in channel {c}: {off} values off by more "
+                                 f"than {TARGET_TOL * scale}")
+        chans.append({"max_abs_err": float((o - r).abs().max()),
+                      "max_abs_plain": scale, "n_off": off})
+    return {"max_abs_err": max(c["max_abs_err"] for c in chans),
+            "channels": chans}
+
+
+def sa_small_scene(tmp, estimator, albedo, channels):
+    """tests/test_surface_aware.py:55-90's scene (an index-matched vial,
+    17 angles of 30x12, a 30x30x12 film, a box target) with the target
+    kept: a two-channel film, or one channel (the final render's form)."""
+    from drtvam_tpu_torch.models.scene import Scene
+    from drtvam_tpu_torch.ops.mesh import make_box, save_ply
+    path = os.path.join(tmp, "sa_target.ply")
+    save_ply(make_box((1.0, 1.0, 0.4)), path)
+    film = {"type": "vfilm", "resx": 30, "resy": 30, "resz": 12}
+    sensor = {"type": estimator, "scalex": 5.07, "scaley": 5.07,
+              "scalez": 1.29, "majorant": 1.0}
+    cfg = {"vial": {"type": "index_matched", "r": 2.9,
+                    "medium": {"ior": 1.347, "extinction": 0.03,
+                               "albedo": albedo,
+                               "phase": {"type": "rayleigh"}}},
+           "projector": {"type": "collimated", "n_patterns": 17, "resx": 30,
+                         "resy": 12, "pixel_size": 0.1631,
+                         "motion": "circular", "distance": 20},
+           "sensor": dict(sensor, film=dict(film,
+                                            surface_aware=channels == 2)),
+           "final_sensor": dict(sensor, film=film),
+           "target": {"filename": path, "size": 2.0}, "output": tmp}
+    return Scene(cfg).build(mode="volume", include_target=True, max_depth=8,
+                            rr_depth=3, sample_time=True)
+
+
+def sa_res_scene(tmp, estimator, channels):
+    """Phase 7c's square vial at albedo 0.5 with the target kept: its
+    ScatteringEngine with the inside mask (two channels) or without (one
+    channel, the final render's form)."""
+    from drtvam_tpu_torch.models.scene import Scene
+    from drtvam_tpu_torch.ops.hybrid import ScatteringEngine
+    sc, _, _ = res_small_scene(tmp, "square", estimator)
+    cfg = json.loads(json.dumps(sc.config))
+    cfg["final_sensor"] = json.loads(json.dumps(cfg["sensor"]))
+    cfg["sensor"]["film"]["surface_aware"] = channels == 2
+    sc = Scene(cfg)
+    static, arr = sc.build(mode="volume", include_target=True, max_depth=8,
+                           rr_depth=3, sample_time=True)
+    mask = sc.sensor.discretize(sc.target_bank()) if channels == 2 else None
+    return ScatteringEngine(static, arr, "cpu", inside_mask=mask)
+
+
+# the analog pair: (estimator, albedo, channels); the residual pair:
+# (estimator, mode, channels)
+SA_WF_CASES = {"dda_absorbing_2ch": ("dda", 0.0, 2),
+               "dda_scattering_2ch": ("dda", 0.5, 2),
+               "delta_scattering_2ch": ("delta", 0.5, 2),
+               "ratio_scattering_2ch": ("ratio", 0.5, 2),
+               "dda_scattering_1ch_target": ("dda", 0.5, 1)}
+SA_RES_CASES = {"delta_fast_2ch": ("delta", "fast_residual", 2),
+                "delta_first_2ch": ("delta", "first_scatter", 2),
+                "dda_first_2ch": ("dda", "first_scatter", 2),
+                "ratio_first_2ch": ("ratio", "first_scatter", 2),
+                "dda_first_1ch_target": ("dda", "first_scatter", 1)}
+
+
+def phase_target_kernels(torch, wf, dev, tmp):
+    """The target instantiations of the four loop kernels against their
+    plain versions on small scenes, with the mesh on and two channels:
+    forwards to TARGET_TOL of each channel's max, the same steps, the
+    adjoints bitwise on two launches (the residual's bitwise against
+    lane order, the plain version, too)."""
+    from drtvam_tpu_torch.ops.march import scene_tensors
+    spp, seed, chunk = 4, 9, wf.DEFAULT_CHUNK
+    out = {}
+    cases = [(c, "wf", spec) for c, spec in SA_WF_CASES.items()] + \
+        [(c, "res", spec) for c, spec in SA_RES_CASES.items()]
+    for case, fam, spec in cases:
+        if fam == "wf":
+            est, _, ch = spec
+            st, arr = sa_small_scene(tmp, *spec)
+            at = scene_tensors(arr, dev)
+            fwd_k, bwd_k = wf.wf_fwd, wf.wf_bwd
+            point = est != "dda"
+        else:
+            est, mode, ch = spec
+            eng = sa_res_scene(tmp, est, ch)
+            st = res_static(eng.static_s, mode)
+            at = {k: v.to(dev) for k, v in eng.arr.items()}
+            fwd_k, bwd_k = wf.wf_res_fwd, wf.wf_res_bwd
+            point = est != "dda"
+        assert st.sensor.channels == ch
+        rng = np.random.default_rng(len(out) + 40)
+        data = torch.from_numpy(rng.uniform(
+            0.5, 1.5, st.projector.n_active).astype(np.float32)).to(dev)
+        dL = torch.from_numpy(rng.uniform(
+            0.0, 1.0, st.sensor.n_cells).astype(np.float32)).to(dev)
+        wf.reset_launches()
+        sk, sp, sb = {}, {}, {}
+        fwd = fwd_k(st, at, data, seed, spp, sk)
+        fwd_p = wf._forward(st, at, data, seed, spp, chunk, sp)
+        bwd = bwd_k(st, at, dL, seed, spp, sb)
+        bwd2 = bwd_k(st, at, dL, seed, spp)
+        bwd_p = wf._adjoint(st, at, seed, spp, chunk, dL)
+        torch.cuda.synchronize()
+        target = wf.make_params(st, at, seed, spp).target
+        forms = {k: v for k, v in wf.form_launches.items() if v}
+        rec = {"phase": "target_kernel", "case": case, "spp": spp,
+               "target": target, "channels": ch, "form_launches": forms,
+               "lanes": st.projector.n_active * spp, "steps": sk,
+               "steps_plain": sp}
+        if target != (2 if ch == 2 else 1) or not forms or any(
+                not k.endswith(f"target{target}") for k in forms):
+            raise AssertionError(f"{case}: launched {forms}, target "
+                                 f"{target}")
+        rec["fwd"] = channel_compare(f"{fwd_k.__name__} {case}", fwd, fwd_p,
+                                     ch, point)
+        rec["bwd"] = channel_compare(f"{bwd_k.__name__} {case}",
+                                     bwd[:, None], bwd_p[:, None], 1, point)
+        rec["bwd"]["bitwise_repeat"] = bool(torch.equal(bwd, bwd2))
+        rec["bwd"]["bitwise_plain"] = bool(torch.equal(bwd, bwd_p))
+        if not rec["bwd"]["bitwise_repeat"] or (
+                fam == "res" and not rec["bwd"]["bitwise_plain"]):
+            raise AssertionError(f"{bwd_k.__name__} {case}: two launches "
+                                 "differ, or differ from lane order")
+        if not sp.get("steps") or {k: sk[k] for k in sp} != sp or \
+                {k: sb[k] for k in sp} != sp:
+            raise AssertionError(f"{case}: the kernels took {sk} and {sb} "
+                                 f"steps, the plain version {sp}")
+        rec["fwd"]["ms"] = cuda_ms(lambda: fwd_k(st, at, data, seed, spp),
+                                   5, torch)
+        rec["fwd"]["plain_ms"] = event_ms(
+            lambda: wf._forward(st, at, data, seed, spp, chunk), torch)[0]
+        rec["bwd"]["ms"] = cuda_ms(lambda: bwd_k(st, at, dL, seed, spp), 5,
+                                   torch)
+        rec["bwd"]["plain_ms"] = event_ms(
+            lambda: wf._adjoint(st, at, seed, spp, chunk, dL), torch)[0]
+        emit(rec)
+        out[case] = rec
+    return out
+
+
+def sa_cell_config(tmp, cell):
+    """Cell (a): bench.py:686-766's surface-aware cell, the square vial of
+    bench.py:197-200 at albedo 0.5 on the bench's 400 angles, 400x400 DMD
+    and 256^3 film, surface-aware, filter_radon, auto (the hybrid engine:
+    delta, spp 1, depths 6 as phase 10), the thresholded loss at tl 0.9,
+    tu 0.95, 40 steps. Cell (b): phase 9's cylindrical bench scene with a
+    surface-aware 256^3 film on the wavefront (dda, spp 1), 40 steps.
+    Both finish on a one-channel 256^3 final sensor, the target kept."""
+    cfg = bench_config(tmp, "cylindrical")
+    if cell == "a":
+        cfg["vial"] = {"type": "square", "w_int": 6.8, "w_ext": 7.2,
+                       "ior": 1.54, "medium": dict(cfg["vial"]["medium"],
+                                                   albedo=0.5)}
+        cfg.update(filter_radon=True, hybrid_estimator="delta", spp=1,
+                   max_depth=6, rr_depth=6,
+                   loss={"type": "threshold", "tl": 0.9, "tu": 0.95})
+    else:
+        cfg.update(engine="wavefront", spp=1)
+    cfg["final_sensor"] = json.loads(json.dumps(cfg["sensor"]))
+    cfg["sensor"]["film"]["surface_aware"] = True
+    cfg["output"] = os.path.join(tmp, f"sa_cell_{cell}")
+    return cfg
+
+
+class CallSpy:
+    """Records the last call of each loop kernel wrapper (ops/render.py
+    wf_fwd, wf_bwd, wf_res_fwd, wf_res_bwd) by target mode: its static,
+    scene tensors, input and spp. The wrappers run as they are, their
+    launch counts untouched."""
+
+    NAMES = ("wf_fwd", "wf_bwd", "wf_res_fwd", "wf_res_bwd")
+
+    def __init__(self, wf):
+        self.wf, self.calls, self.saved = wf, {}, []
+
+    def __enter__(self):
+        for name in self.NAMES:
+            orig = getattr(self.wf, name)
+            self.saved.append((name, orig))
+            setattr(self.wf, name, self._wrap(name, orig))
+        return self
+
+    def _wrap(self, name, orig):
+        def call(static, arr, x, seed, spp, *a, **kw):
+            key = f"{name}:target{self.wf.target_mode(static)}"
+            self.calls[key] = (static, arr, x, seed, spp)
+            return orig(static, arr, x, seed, spp, *a, **kw)
+        return call
+
+    def __exit__(self, *exc):
+        for name, orig in self.saved:
+            setattr(self.wf, name, orig)
+
+
+def strip_to_one_channel(static, arr):
+    """The scene without its target, on a one-channel film (the code a
+    scene without a target runs)."""
+    import dataclasses
+    from drtvam_tpu_torch.ops.transport2d import strip_target
+    st, at = strip_target(static, arr)
+    return dataclasses.replace(st, sensor=dataclasses.replace(
+        st.sensor, surface_aware=False)), at
+
+
+def one_channel_target(static):
+    import dataclasses
+    return dataclasses.replace(static, sensor=dataclasses.replace(
+        static.sensor, surface_aware=False))
+
+
+# the cut a cell's loop forms are held to their plain versions in: the
+# active pixels of every ANGLE_STRIDE-th angle (50 of the cells' 400, 3 or
+# 4 in each of the launch's 16 angle groups of 25), the full DMD and film
+ANGLE_STRIDE = 8
+CUT_AT = (f"every {ANGLE_STRIDE}th of the 400 angles (the cell's 16 angle "
+          "groups of 25), full DMD and film")
+
+
+def angle_cut(static, arr, x, stride=ANGLE_STRIDE):
+    """(static, scene tensors, per-pixel input) cut to the active pixels
+    of every stride-th angle, as a sparse store over the same n_patterns:
+    the angles, the chord bank and the launch layout (angle groups, CTAs)
+    stay the cell's. The engine's segment buffer and chord table are
+    shared with arr; the layouts are built anew."""
+    import dataclasses
+    p = static.projector
+    idx = arr["active_pixels"].long()
+    keep = (idx // (p.resy * p.resx)) % stride == 0
+    st = dataclasses.replace(static, projector=dataclasses.replace(
+        p, n_active=int(keep.sum()), identity=False))
+    at = {k: v for k, v in arr.items()
+          if k not in ("_wf_layout", "_wf_res_lanes")}
+    at["active_pixels"] = arr["active_pixels"][keep].contiguous()
+    return st, at, x[keep].contiguous()
+
+
+def form_time(torch, wf, name, static, at, x, seed, spp, reps=3):
+    """A loop kernel's card time on (static, at, x) (CUDA events), its
+    counts from one counting launch, its bound (the compulsory bytes or
+    the counted steps' operations), launch shape, registers and spills."""
+    kern = getattr(wf, name)
+    stats = {}
+    kern(static, at, x, seed, spp, stats)
+    ms = cuda_ms(lambda: kern(static, at, x, seed, spp), reps, torch)
+    n, n_cells = static.projector.n_active, static.sensor.n_cells
+    n_bytes = 4 * (n + n_cells) + (n_cells // static.sensor.channels
+                                   if wf.make_params(static, at, 0, 1)
+                                   .target == 2 and name.startswith("wf_res")
+                                   else 0)
+    if name.startswith("wf_res"):
+        bound, by = res_bound(n_bytes, n * spp, stats.get("iterations", 0),
+                              stats.get("steps", 0))
+    else:
+        bound, by = wf_bound(n_bytes, stats.get("steps", 0))
+    return {"ms": ms, "bound_ms": bound, "bound_by": by,
+            "roofline_share": bound / ms, "counts": stats,
+            "target": wf.make_params(static, at, 0, 1).target,
+            "film_channels": static.sensor.channels,
+            "launch": wf.kernel_info(name, static, at)}
+
+
+def phase_target_cells(torch, wf, bp, dev, tmp):
+    """Cells (a) and (b) through optimize(): the launches of each target
+    instantiation (a kernel of the path must launch), the wall split, the
+    peak memory, the IoU against target_binary (cell (a) beside the
+    reference's own); then the kernel times at one and two channels with
+    the mesh on and off, on the loop's own patterns and scene tensors,
+    their bounds, launch shapes, registers and spills, and the loop forms
+    against their plain versions (the analog pair and the final render's
+    dda residual on angle_cut, the fast residual at full width)."""
+    from drtvam_tpu_torch.models.scene import Scene
+    from drtvam_tpu_torch.ops.voxelize import fractional_volumes
+    out = {}
+    # the target forms each cell's path must launch, and the kernels it
+    # must not
+    must = {"a": ("wf_res_fwd:target2", "wf_res_bwd:target2",
+                  "wf_res_fwd:target1", "wf_res_walk"),
+            "b": ("wf_fwd:target2", "wf_bwd:target2", "wf_fwd:target1")}
+    never = {"a": wf.KERNELS, "b": wf.RES_KERNELS}
+    for cell in ("a", "b"):
+        t_phase = time.perf_counter()
+        cfg = sa_cell_config(tmp, cell)
+        sc = Scene(cfg)
+        tb = sc.target_bank()
+        t0 = time.perf_counter()
+        fractional_volumes(tb, sc.sensor.bbox_min, sc.sensor.bbox_max,
+                           sc.sensor.static.res)
+        frac_s = time.perf_counter() - t0
+        n_dense = int(np.prod(sc.projector.size()))
+        del sc
+        wf.reset_launches()
+        bp.reset_launches()
+        with CallSpy(wf) as spy:
+            vol, timings, wall, peak = optimize_on_card(torch, dev, cfg)
+        counts = {**{k: v for k, v in bp.launches.items() if v},
+                  **{k: v for k, v in wf.launches.items() if v}}
+        forms = {k: v for k, v in wf.form_launches.items() if v}
+        for name in must[cell] + (("bp_fwd", "bp_bwd") if cell == "a"
+                                  else ()):
+            if not {**counts, **forms}.get(name):
+                raise AssertionError(f"cell ({cell}) never launched {name}")
+        for name in never[cell]:
+            if counts.get(name):
+                raise AssertionError(f"cell ({cell}) launched {name}")
+        binary = np.load(os.path.join(cfg["output"], "target_binary.npy"))
+        assert vol.shape == binary.shape == (256, 256, 256, 1)
+        iou, thr = bench_iou(vol, binary)
+        loss, steps = run_history(cfg["output"])
+        rec = {"phase": f"sa_cell_{cell}", "seconds": 0.0,
+               "fractional_volumes_s": frac_s, **phase_times(timings, wall),
+               "active_pixels": timings["active_pixels"],
+               "kept_share": timings["active_pixels"] / n_dense,
+               "steps_run": steps, "loss_first": float(loss[0]),
+               "loss_last": float(loss[steps - 1]), "launches": counts,
+               "form_launches": forms, "best_iou_vs_target_binary": iou,
+               "best_threshold": thr, "peak_mem_gb": peak}
+        if cell == "a":
+            rec["reference_iou"] = REFERENCE_SA_IOU
+        del vol
+        torch.cuda.empty_cache()
+        rec["kernels"] = sa_cell_kernels(torch, wf, dev, cell, spy.calls)
+        rec["seconds"] = time.perf_counter() - t_phase
+        emit(rec)
+        out[cell] = rec
+        torch.cuda.empty_cache()
+    return out
+
+
+def sa_cell_kernels(torch, wf, dev, cell, calls):
+    """Kernel times at one and two channels with the mesh on and off, on
+    a cell's loop patterns and scene tensors; each loop form against its
+    plain version."""
+    rec = {}
+    if cell == "b":
+        st2, at2, data, seed, spp = calls["wf_fwd:target2"]
+        st1 = one_channel_target(st2)
+        st0, at0 = strip_to_one_channel(st2, at2)
+        at0 = dict(at0)
+        dL2 = torch.rand(st2.sensor.n_cells, generator=torch.Generator(
+            dev).manual_seed(5), device=dev)
+        dL1 = dL2.reshape(-1, 2)[:, 0].contiguous()
+        for name, x2, x1 in (("wf_fwd", data, data), ("wf_bwd", dL2, dL1)):
+            rec[name] = {
+                "mesh on, 2 channels": form_time(torch, wf, name, st2, at2,
+                                                 x2, seed, spp),
+                "mesh on, 1 channel": form_time(torch, wf, name, st1, at2,
+                                                x1, seed, spp),
+                "mesh off, 1 channel": form_time(torch, wf, name, st0, at0,
+                                                 x1, seed, spp)}
+        # the loop forms against their plain versions on angle_cut
+        chunk = 1 << 21
+        for key, st in (("mesh on, 2 channels", st2),
+                        ("mesh on, 1 channel", st1)):
+            sc, atc, dc = angle_cut(st, at2, data)
+            k = wf.wf_fwd(sc, atc, dc, 3, 1)
+            plain_ms, ref = event_ms(
+                lambda: wf._forward(sc, atc, dc, 3, 1, chunk), torch)
+            cmp = channel_compare(f"wf_fwd {key} {CUT_AT}", k, ref,
+                                  sc.sensor.channels, False)
+            rec["wf_fwd"][key].update(
+                plain_ms=plain_ms, plain_at=CUT_AT,
+                ms_cut=cuda_ms(lambda: wf.wf_fwd(sc, atc, dc, 3, 1), 3,
+                               torch), **cmp)
+            del k, ref
+            if key == "mesh on, 2 channels":
+                kb = wf.wf_bwd(sc, atc, dL2, 3, 1)
+                plain_ms, ref = event_ms(
+                    lambda: wf._adjoint(sc, atc, 3, 1, chunk, dL2), torch)
+                cmp = channel_compare(f"wf_bwd {key} {CUT_AT}",
+                                      kb[:, None], ref[:, None], 1, False)
+                cmp["bitwise_plain"] = bool(torch.equal(kb, ref))
+                rec["wf_bwd"][key].update(
+                    plain_ms=plain_ms, plain_at=CUT_AT,
+                    ms_cut=cuda_ms(lambda: wf.wf_bwd(sc, atc, dL2, 3, 1), 3,
+                                   torch), **cmp)
+                del kb, ref
+            del sc, atc, dc
+            torch.cuda.empty_cache()
+        return rec
+    # cell (a): the delta fast residual of the loop, two channels, and the
+    # final render's dda residual (path and walk passes), one channel with
+    # the target, each against the scene without its target
+    st2, at2, data, seed, spp = calls["wf_res_fwd:target2"]
+    st0, at0 = strip_to_one_channel(st2, at2)
+    at0 = dict(at0)
+    dL2 = torch.rand(st2.sensor.n_cells, generator=torch.Generator(
+        dev).manual_seed(6), device=dev)
+    dL1 = dL2.reshape(-1, 2)[:, 0].contiguous()
+    chunk = 1 << 22
+    for name, x2, x1 in (("wf_res_fwd", data, data),
+                         ("wf_res_bwd", dL2, dL1)):
+        r2 = form_time(torch, wf, name, st2, at2, x2, seed, spp)
+        plain_ms, ref = event_ms(
+            (lambda: wf._forward(st2, at2, x2, seed, spp, chunk))
+            if name == "wf_res_fwd" else
+            (lambda: wf._adjoint(st2, at2, seed, spp, chunk, x2)), torch)
+        k = getattr(wf, name)(st2, at2, x2, seed, spp)
+        if name == "wf_res_fwd":
+            cmp = channel_compare(f"{name} cell (a)", k, ref, 2, True)
+        else:
+            cmp = channel_compare(f"{name} cell (a)", k[:, None],
+                                  ref[:, None], 1, True)
+            cmp["bitwise_plain"] = bool(torch.equal(k, ref))
+            if not cmp["bitwise_plain"]:
+                raise AssertionError("wf_res_bwd cell (a): differs from its "
+                                     "plain version")
+        r2.update(plain_ms=plain_ms, plain_at="full width", **cmp)
+        del k, ref
+        rec[name] = {"mesh on, 2 channels": r2,
+                     "mesh off, 1 channel": form_time(torch, wf, name, st0,
+                                                      at0, x1, seed, spp)}
+        torch.cuda.empty_cache()
+    stf, atf, dataf, seedf, sppf = calls["wf_res_fwd:target1"]
+    # the final render's dda residual with the target (path and walk
+    # passes) against its plain version on angle_cut at spp 1
+    sc, atc, dc = angle_cut(stf, atf, dataf)
+    sk, sp = {}, {}
+    k = wf.wf_res_fwd(sc, atc, dc, seedf, 1, sk)
+    plain_ms, ref = event_ms(
+        lambda: wf._forward(sc, atc, dc, seedf, 1, chunk, sp), torch)
+    cut = channel_compare(f"wf_res_fwd final render {CUT_AT}", k, ref, 1,
+                          False)
+    cut.update(plain_ms=plain_ms, plain_at=CUT_AT + ", spp 1",
+               ms=cuda_ms(lambda: wf.wf_res_fwd(sc, atc, dc, seedf, 1), 3,
+                          torch), steps=sk.get("steps"),
+               steps_plain=sp.get("steps"), iterations=sk.get("iterations"),
+               iterations_plain=sp.get("iterations"))
+    del k, ref, sc, atc, dc
+    torch.cuda.empty_cache()
+    st0f, at0f = strip_to_one_channel(stf, atf)
+    at0f = dict(at0f)
+    for key, st, at in (("mesh on, 1 channel", stf, atf),
+                        ("mesh off, 1 channel", st0f, at0f)):
+        times, stats = {}, {}
+        wf.wf_res_fwd(st, at, dataf, seedf, sppf, stats)
+        torch.cuda.synchronize()
+        ms, _ = event_ms(lambda: wf.wf_res_fwd(st, at, dataf, seedf, sppf,
+                                               times=times), torch)
+        info = wf.kernel_info("wf_res_fwd", st, at)
+        winfo = wf.kernel_info("wf_res_walk", st, at)
+        bound, by = res_bound(4 * (st.projector.n_active + st.sensor.n_cells),
+                              st.projector.n_active * sppf,
+                              stats.get("iterations", 0),
+                              stats.get("steps", 0))
+        rec.setdefault("final_render_dda", {})[key] = {
+            "spp": sppf, "ms": ms, "path_ms": times.get("path_ms"),
+            "walk_ms": times.get("walk_ms"), "counts": stats,
+            "bound_ms": bound, "bound_by": by, "launch": info,
+            "walk_launch": winfo}
+        torch.cuda.empty_cache()
+    rec["final_render_dda"]["mesh on, 1 channel"]["cut"] = cut
+    return rec
+
+
+# the target instantiations on the main paths of cells (a) and (b):
+# (form, cell, its record in the cell's kernel times, the path)
+TARGET_PATHS = (
+    ("wf_fwd:target2", "b", ("wf_fwd", "mesh on, 2 channels"),
+     "the loop of cell (b): optimize() on the bench scene with a "
+     "surface-aware film, engine 'wavefront'"),
+    ("wf_bwd:target2", "b", ("wf_bwd", "mesh on, 2 channels"),
+     "the loop of cell (b)"),
+    ("wf_fwd:target1", "b", ("wf_fwd", "mesh on, 1 channel"),
+     "the final render of cell (b) (spp_ref 16, the target kept)"),
+    ("wf_res_fwd:target2", "a", ("wf_res_fwd", "mesh on, 2 channels"),
+     "the loop of cell (a): optimize() on the bench's surface-aware "
+     "square cell, the hybrid engine's delta fast residual"),
+    ("wf_res_bwd:target2", "a", ("wf_res_bwd", "mesh on, 2 channels"),
+     "the loop of cell (a)"),
+    ("wf_res_fwd:target1", "a", ("final_render_dda", "mesh on, 1 channel"),
+     "the final render of cell (a): the dda residual's path pass at "
+     "spp_ref 16, the target kept; its records walked by the walk pass "
+     "wf_res_walk, the instantiation a scene without the target runs"))
+
+
+def target_entries(cells):
+    """The kernels line's entries of the target instantiations: launches
+    from cells (a) and (b), times on the cells' own inputs (the same
+    kernel on the scene without its target beside them), the forms held
+    to their plain versions on the cells' inputs (angle_cut for the
+    analog pair and the final render)."""
+    out = []
+    for form, cell, (group, key), path in TARGET_PATHS:
+        name = src = form.split(":")[0]
+        r = cells[cell]["kernels"][group][key]
+        chans = "two channels" if form.endswith("2") else "one channel"
+        entry = {"name": f"{name} (target kept, {chans})",
+                 "route": "cuda",
+                 "source": f"drtvam_tpu_torch/csrc/{src}.cu + wf_trace.cuh"
+                           + (" + wf_residual.cuh" if "res" in name else "")
+                           + " + wf_mesh.cuh",
+                 "replaces": REPLACES[name] + "; the target kept: "
+                             "march.py:556-565, :1092-1093"
+                             + (", :405-417, :455-465" if "res" in name
+                                else ""),
+                 "launches": cells[cell]["form_launches"].get(form, 0),
+                 "path": path, "library_ms": None}
+        if group == "final_render_dda":
+            cut = r["cut"]
+            entry.update(
+                ms=r["path_ms"], walk_ms=r["walk_ms"],
+                whole_forward_ms=r["ms"], bound_ms=r["bound_ms"],
+                bound_by=r["bound_by"], max_abs_err=cut["max_abs_err"],
+                plain_ms=cut["plain_ms"], plain_at=cut["plain_at"] +
+                " (the path and walk passes together)", ms_cut=cut["ms"],
+                other_forms={"mesh off, 1 channel": cells[cell]["kernels"][
+                    group]["mesh off, 1 channel"]},
+                launch=r["launch"], walk_launch=r["walk_launch"])
+        else:
+            entry.update({k: r[k] for k in (
+                "ms", "bound_ms", "bound_by", "roofline_share",
+                "max_abs_err", "plain_ms", "plain_at", "launch")})
+            entry["other_forms"] = {
+                k: {kk: v[kk] for kk in ("ms", "bound_ms", "launch")}
+                for k, v in cells[cell]["kernels"][group].items()
+                if k != key}
+        out.append(entry)
+    return out
+
+
 def ptxas_summary(name):
     """Registers and spills of a kernel library's instantiations, from
     its build log (nvcc -Xptxas -v), with the spilling ones named."""
@@ -2889,6 +3466,11 @@ def main():
         phase_surface_aware(torch, bp, dev, tmp)
         torch.cuda.empty_cache()
         phase_examples(bp, wf, tmp)
+        torch.cuda.empty_cache()
+        # surface-aware films on the march (phase 13)
+        phase_target_kernels(torch, wf, dev, tmp)
+        torch.cuda.empty_cache()
+        cells = phase_target_cells(torch, wf, bp, dev, tmp)
 
     emit({"kernels": [
         {"name": n, "route": "cuda",
@@ -2981,7 +3563,7 @@ def main():
          "small_scenes": {c: {k: r[k] for k in ("ms", "plain_ms",
                                                   "max_abs_err")}
                           for c, r in cullk.items() if r["name"] == n}}
-        for n in wf.CULL_KERNELS]})
+        for n in wf.CULL_KERNELS] + target_entries(cells)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

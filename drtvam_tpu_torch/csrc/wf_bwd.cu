@@ -14,16 +14,18 @@
 // wf_trace.cuh (its design is described there).
 #include "wf_trace.cuh"
 
-// P: scene and sampling parameters; dL (n_cells,) loss gradient of the
+// P, M, tris as for wf_fwd; dL (n_cells,) loss gradient of the
 // flat accumulator; active_pixels, order, starts as for wf_fwd, rows
-// unused (the adjoint takes no tile); grad
-// (n_active,) output; counters (5,) or null. Returns cudaGetLastError().
-extern "C" int wf_bwd(const WfParams* P, const float* dL,
+// unused (the adjoint takes no tile); grad (n_active,) output; counters
+// (5,) or null. Returns cudaGetLastError().
+extern "C" int wf_bwd(const WfParams* P, const wf::WfMesh* M,
+                      const float4* tris, const float* dL,
                       const int* active_pixels, const int* order,
-                      const int* starts, const int4* rows, float* grad,
-                      unsigned long long* counters, void* stream) {
-  return wf::launch<false>(P, dL, active_pixels, order, starts, rows, grad,
-                           counters, stream);
+                      const int* starts, const int4* rows,
+                      float* grad, unsigned long long* counters,
+                      void* stream) {
+  return wf::launch<false>(P, M, tris, dL, active_pixels, order, starts,
+                           rows, grad, counters, stream);
 }
 
 // The launch shape of P's instantiation (wf::info): 8 ints into info.

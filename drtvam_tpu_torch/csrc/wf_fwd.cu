@@ -16,19 +16,25 @@
 // (its design is described there).
 #include "wf_trace.cuh"
 
-// P: scene and sampling parameters; data (n_active,) pattern values;
-// active_pixels (n_active,) flat DMD indices, order (n_active,) and
-// starts (resy * n_groups + 1,) the sorted launch order (all three
-// unused, may be null, for the identity store); rows (resy,) the tile's
-// row table (unused when P->tile_n is 0); acc (n_cells,) zeroed;
-// counters (5,) bounce iterations, estimator steps, tile deposits,
-// global deposits and lane slots, or null. Returns cudaGetLastError().
-extern "C" int wf_fwd(const WfParams* P, const float* data,
+// P: scene and sampling parameters; M: the scene's mesh surfaces and
+// banks, tris their triangle rows (read when P->target is not 0: the
+// scene keeps the target; tris may be null otherwise); data
+// (n_active,) pattern values; active_pixels (n_active,) flat DMD
+// indices, order (n_active,) and starts (resy * n_groups + 1,) the
+// sorted launch order (all three unused, may be null, for the identity
+// store); rows (resy,) the tile's row table (unused when P->tile_n is
+// 0); acc (n_cells,) zeroed (n_cells: two floats a voxel when P->target
+// is 2); counters (5,) bounce iterations, estimator steps, tile
+// deposits, global deposits and lane slots, or null. Returns
+// cudaGetLastError().
+extern "C" int wf_fwd(const WfParams* P, const wf::WfMesh* M,
+                      const float4* tris, const float* data,
                       const int* active_pixels, const int* order,
-                      const int* starts, const int4* rows, float* acc,
-                      unsigned long long* counters, void* stream) {
-  return wf::launch<true>(P, data, active_pixels, order, starts, rows, acc,
-                          counters, stream);
+                      const int* starts, const int4* rows,
+                      float* acc, unsigned long long* counters,
+                      void* stream) {
+  return wf::launch<true>(P, M, tris, data, active_pixels, order, starts,
+                          rows, acc, counters, stream);
 }
 
 // The launch shape of P's instantiation (wf::info): 8 ints into info.

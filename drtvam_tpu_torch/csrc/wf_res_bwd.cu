@@ -11,17 +11,20 @@
 // read a dL volume that need not fit L2.
 #include "wf_residual.cuh"
 
-// P, active_pixels, order, starts, chords, chord_tab as for wf_res_fwd;
-// dL (n_cells,) loss gradient of the flat accumulator; grad (n_active,)
-// output; counters (5,) or null. Returns cudaGetLastError().
-extern "C" int wf_res_bwd(const WfParams* P, const float* dL,
-                          const int* active_pixels, const int* order,
-                          const int* starts, const float* chords,
-                          const float4* chord_tab, float* grad,
-                          unsigned long long* counters, void* stream) {
-  const wf::ResArgs a = {dL,     active_pixels, order,   starts,
-                         chords, chord_tab,     grad,    counters,
-                         nullptr, nullptr,      0,       0};
+// P, M, tris, mask, active_pixels, order, starts, chords, chord_tab as
+// for wf_res_fwd; dL (n_cells,) loss gradient of the flat accumulator;
+// grad (n_active,) output; counters (5,) or null. Returns
+// cudaGetLastError().
+extern "C" int wf_res_bwd(const WfParams* P, const wf::WfMesh* M,
+                          const float4* tris, const unsigned char* mask,
+                          const float* dL, const int* active_pixels,
+                          const int* order, const int* starts,
+                          const float* chords, const float4* chord_tab,
+                          float* grad, unsigned long long* counters,
+                          void* stream) {
+  const wf::ResArgs a = {*M,     tris,      mask,    dL,     active_pixels,
+                         order,  starts,    chords,  chord_tab, grad,
+                         counters, nullptr, nullptr, 0,      0};
   return wf::res_launch<false, false>(P, a, P->resy * P->n_groups, stream);
 }
 

@@ -17,59 +17,55 @@
 // float atomic into a dose grid larger than L2.
 #include "wf_residual.cuh"
 
-namespace {
-wf::ResArgs args(const float* data, const int* active_pixels,
-                 const int* order, const int* starts, const float* chords,
-                 const float4* chord_tab, float* acc,
-                 unsigned long long* counters) {
-  return {data, active_pixels, order, starts, chords, chord_tab, acc,
-          counters, nullptr, nullptr, 0, 0};
-}
-}  // namespace
-
 // P: scene and sampling parameters, P->residual the mode (SCAT_ONLY,
 // FIRST_SCATTER or FAST_RESIDUAL; scattering and transmission only), the
 // ratio and delta estimators (the dda's forward is wf_res_path then
-// wf_res_walk); data (n_active,) pattern values; active_pixels, order,
-// starts as for wf_fwd; chords (A * resx, 12) the chord bank and
-// chord_tab (A * resx, 4) its table (wf_res_chords; both unused, may be
-// null, for SCAT_ONLY; chord_tab null: each lane computes its entry); acc
-// (n_cells,) zeroed; counters (5,) as for wf_fwd, or null. Returns
-// cudaGetLastError().
-extern "C" int wf_res_fwd(const WfParams* P, const float* data,
-                          const int* active_pixels, const int* order,
-                          const int* starts, const float* chords,
-                          const float4* chord_tab, float* acc,
-                          unsigned long long* counters, void* stream) {
-  return wf::res_launch<true, false>(
-      P, args(data, active_pixels, order, starts, chords, chord_tab, acc,
-              counters),
-      P->resy * P->n_groups, stream);
+// wf_res_walk); M, tris: the target's mesh and triangle rows (read when
+// P->target is not 0; tris may be null otherwise); mask (Z, Y, X) the
+// inside mask, read on a two-channel film (P->target 2) by the first
+// scatter's seed and the fast residual's events (may be null otherwise);
+// data (n_active,) pattern values; active_pixels, order, starts as for
+// wf_fwd; chords (A * resx, 12) the chord bank and chord_tab (A * resx,
+// 4) its table (wf_res_chords; both unused, may be null, for SCAT_ONLY;
+// chord_tab null: each lane computes its entry); acc (n_cells,) zeroed;
+// counters (5,) as for wf_fwd, or null. Returns cudaGetLastError().
+extern "C" int wf_res_fwd(const WfParams* P, const wf::WfMesh* M,
+                          const float4* tris, const unsigned char* mask,
+                          const float* data, const int* active_pixels,
+                          const int* order, const int* starts,
+                          const float* chords, const float4* chord_tab,
+                          float* acc, unsigned long long* counters,
+                          void* stream) {
+  const wf::ResArgs a = {*M,     tris,      mask, data,     active_pixels,
+                         order,  starts,    chords, chord_tab, acc,
+                         counters, nullptr, nullptr, 0,      0};
+  return wf::res_launch<true, false>(P, a, P->resy * P->n_groups, stream);
 }
 
-// The dda forward's path pass over CTAs [c0, c1) of the launch order:
-// each dda segment of the lanes becomes a record (8 floats) in recs at
-// the next slot of *n_recs (zeroed by the caller); slots from cap on are
-// counted, not written. counters (5,): the bounce iterations, or null.
-extern "C" int wf_res_path(const WfParams* P, int c0, int c1,
-                           const float* data, const int* active_pixels,
-                           const int* order, const int* starts,
-                           const float* chords, const float4* chord_tab,
-                           float4* recs, unsigned* n_recs, unsigned cap,
+// The dda forward's path pass over CTAs [c0, c1) of the launch order
+// (P, M, tris, mask as for wf_res_fwd): each dda segment of the lanes
+// becomes a record (8 floats) in recs at the next slot of *n_recs
+// (zeroed by the caller); slots from cap on are counted, not written.
+// counters (5,): the bounce iterations, or null.
+extern "C" int wf_res_path(const WfParams* P, const wf::WfMesh* M,
+                           const float4* tris, const unsigned char* mask,
+                           int c0, int c1, const float* data,
+                           const int* active_pixels, const int* order,
+                           const int* starts, const float* chords,
+                           const float4* chord_tab, float4* recs,
+                           unsigned* n_recs, unsigned cap,
                            unsigned long long* counters, void* stream) {
-  wf::ResArgs a = args(data, active_pixels, order, starts, chords, chord_tab,
-                       nullptr, counters);
-  a.recs = recs;
-  a.n_recs = n_recs;
-  a.cap = cap;
-  a.c0 = c0;
+  const wf::ResArgs a = {*M,     tris,   mask,   data,   active_pixels,
+                         order,  starts, chords, chord_tab, nullptr,
+                         counters, recs, n_recs, cap,    c0};
   return wf::res_launch<true, true>(P, a, c1, stream);
 }
 
 // The walk pass: the n records of recs walked into acc (n_cells,), the
-// deposits in z-slices [zlo, zhi); next a zeroed counter. counters (5,):
-// the walking threads' steps, the steps and deposits (global) in the
-// slab and the lane slots, or null.
+// deposits in z-slices [zlo, zhi) (on a two-channel film, P->target 2,
+// to the channel in the sign of each record's maxt); next a zeroed
+// counter. counters (5,): the walking threads' steps, the steps and
+// deposits (global) in the slab and the lane slots, or null.
 extern "C" int wf_res_walk(const WfParams* P, const float4* recs, unsigned n,
                            unsigned* next, int zlo, int zhi, float* acc,
                            unsigned long long* counters, void* stream) {
@@ -86,11 +82,12 @@ extern "C" int wf_res_chords(const float* bank, int n, float st,
 }
 
 // The launch shape of P's per-lane instantiation (the dda: its path
-// pass), and of the walk pass: 8 ints into info (wf::info's).
+// pass), and of the walk pass (two: its two-channel instantiation): 8
+// ints into info (wf::info's).
 extern "C" int wf_res_fwd_info(const WfParams* P, int count, int* info) {
   return P->estimator == wf::DDA ? wf::res_info<true, true>(P, count, info)
                                  : wf::res_info<true, false>(P, count, info);
 }
-extern "C" int wf_res_walk_info(int count, int* info) {
-  return wf::walk_info(count, info);
+extern "C" int wf_res_walk_info(int count, int two, int* info) {
+  return wf::walk_info(count, two, info);
 }

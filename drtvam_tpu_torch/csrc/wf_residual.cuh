@@ -158,9 +158,11 @@ __device__ __forceinline__ int res_lane(const WfParams& P, const ResCta& C,
 // The path pass's sink: a dda segment becomes one record (o.x o.y o.z d.x
 // | d.y d.z maxt base) at the next free slot of recs; slots from cap on
 // are counted in n_recs but not written (the wrapper then runs the batch
-// again in smaller parts)
-template <bool COUNT_>
-struct PathSink : Sink<true, COUNT_> {
+// again in smaller parts). On a two-channel film the record's maxt
+// carries the lane's channel in its sign (maxt > 0: a surface lies
+// beyond RAY_EPS): -maxt for the channel outside the target
+template <bool COUNT_, bool TGT_ = false>
+struct PathSink : Sink<true, COUNT_, TGT_> {
   static constexpr bool RECORDS = true;
   float4* recs;
   unsigned* n_recs;
@@ -178,6 +180,7 @@ struct PathSink : Sink<true, COUNT_> {
 #else
     const unsigned r = (*n_recs)++;
 #endif
+    if (TGT_ && this->two && this->chan != 0) maxt = -maxt;
     if (r < cap) {
       recs[2 * r] = make_float4(o.x, o.y, o.z, d.x);
       recs[2 * r + 1] = make_float4(d.y, d.z, maxt, base);
@@ -237,6 +240,9 @@ __device__ __forceinline__ int res_task(
 
 // What a residual launch takes besides WfParams
 struct ResArgs {
+  WfMesh mesh;               // the target mesh (P.target), else unread
+  const float4* tris;        // its triangle rows, global memory
+  const unsigned char* mask; // the inside mask (Z, Y, X) (P.target 2)
   const float* in;  // forward: pattern values; adjoint: dL
   const int *active_pixels, *order, *starts;
   const float* chords;       // the chord bank (A * resx, 12), or null
@@ -249,25 +255,45 @@ struct ResArgs {
   int c0;                    // the launch's first CTA
 };
 
-template <bool PRIMAL, bool COUNT, bool PATH>
-__device__ __forceinline__ auto res_sink(const ResArgs& A) {
+// S with the target's mesh, banks and mask of A (TGT)
+template <class SinkT>
+__device__ __forceinline__ SinkT with_target(SinkT S, const WfParams& P,
+                                             const ResArgs& A) {
+  if constexpr (SinkT::TGT) {
+    S.two = P.target == 2;
+    S.mesh = &A.mesh;
+    S.banks = {A.tris, A.mesh.cell_start, A.mesh.tri_ids};
+    S.mask = A.mask;
+  }
+  return S;
+}
+
+template <bool PRIMAL, bool COUNT, bool PATH, bool TGT>
+__device__ __forceinline__ auto res_sink(const WfParams& P,
+                                         const ResArgs& A) {
   if constexpr (PATH)
-    return PathSink<COUNT>{{A.out, A.in, nullptr, nullptr, -1, 0.0f, 0, 0, 0,
-                            0},
-                           A.recs, A.n_recs, A.cap};
+    return with_target(
+        PathSink<COUNT, TGT>{
+            {A.out, A.in, nullptr, nullptr, -1, 0.0f, 0, 0, 0, 0},
+            A.recs,
+            A.n_recs,
+            A.cap},
+        P, A);
   else
-    return Sink<PRIMAL, COUNT>{A.out, A.in, nullptr, nullptr, -1, 0.0f,
-                               0,     0,    0,       0};
+    return with_target(Sink<PRIMAL, COUNT, TGT>{A.out, A.in, nullptr, nullptr,
+                                                -1, 0.0f, 0, 0, 0, 0},
+                       P, A);
 }
 
 // One CTA per (DMD row, angle group) from CTA A.c0 on, its warps taking
 // 32 neighbouring positions at a time from a counter in shared memory
 // (wf_kernel's order, without the tile); PATH: the dda forward's path
 // pass. COUNT: iterations, steps, deposits and lane slots as wf_kernel,
-// a delta lane's slots counted on its events
-template <int EST, int RES, bool PRIMAL, bool COUNT, bool PATH>
+// a delta lane's slots counted on its events. TGT: the scene keeps the
+// target (its mesh and, on a two-channel film, the inside mask in A)
+template <int EST, int RES, bool PRIMAL, bool COUNT, bool PATH, bool TGT>
 __global__ void __launch_bounds__(WF_RES_THREADS, WF_RES_MIN_CTAS)
-    res_kernel(const WfParams P, const ResArgs A) {
+    res_kernel(const WfParams P, const __grid_constant__ ResArgs A) {
   __shared__ Frame frames[WF_RES_MAX_GROUP];
   __shared__ unsigned next_task;
   const ResCta C = res_cta(P, A.starts, A.c0 + (int)blockIdx.x);
@@ -279,7 +305,7 @@ __global__ void __launch_bounds__(WF_RES_THREADS, WF_RES_MIN_CTAS)
   if (threadIdx.x == 0) next_task = 0;
   __syncthreads();
 
-  auto S = res_sink<PRIMAL, COUNT, PATH>(A);
+  auto S = res_sink<PRIMAL, COUNT, PATH, TGT>(P, A);
   const int lane = threadIdx.x & 31;
   const unsigned n_tasks = (unsigned)task_count<PRIMAL>(P, C.lo, C.hi);
   unsigned long long slots = 0;
@@ -325,8 +351,9 @@ __global__ void __launch_bounds__(WF_RES_THREADS, WF_RES_MIN_CTAS)
 // same arithmetic, so each deposit is made by one slab's pass, as in one
 // walk. COUNT: the walking threads' steps (counters[0]), the steps and
 // deposits in the slab, and the warps' lane slots (32 for each step of
-// the warp's loop)
-template <bool COUNT>
+// the warp's loop). TWO: a two-channel film, each record's channel in
+// the sign of its maxt (PathSink)
+template <bool COUNT, bool TWO>
 __global__ void __launch_bounds__(WF_WALK_THREADS, WF_WALK_MIN_CTAS)
     walk_kernel(const WfParams P, const float4* __restrict__ recs, unsigned n,
                 unsigned* __restrict__ next, int zlo, int zhi,
@@ -335,7 +362,10 @@ __global__ void __launch_bounds__(WF_WALK_THREADS, WF_WALK_MIN_CTAS)
   constexpr unsigned FULL = 0xffffffffu;
   Grid G;
   G.init(P);
-  Sink<true, COUNT> S{acc, nullptr, nullptr, nullptr, -1, 0.0f, 0, 0, 0, 0};
+  Sink<true, COUNT, TWO> S{acc, nullptr, nullptr, nullptr, -1, 0.0f,
+                           0,   0,       0,       0};
+  S.two = TWO;
+  int chan = 0;
   const float st = P.sigma_t;
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;
@@ -363,7 +393,9 @@ __global__ void __launch_bounds__(WF_WALK_THREADS, WF_WALK_MIN_CTAS)
       if (!busy && rank < end - cur) {
         const unsigned r = cur + rank;
         const float4 a = __ldg(recs + 2 * r), c = __ldg(recs + 2 * r + 1);
-        busy = w.init(P, G, V3{a.x, a.y, a.z}, V3{a.w, c.x, c.y}, c.z) &&
+        if (TWO) chan = c.z < 0.0f ? 1 : 0;
+        busy = w.init(P, G, V3{a.x, a.y, a.z}, V3{a.w, c.x, c.y},
+                      TWO ? fabsf(c.z) : c.z) &&
                w.meets(zlo, zhi);
         base = c.w;
       }
@@ -376,6 +408,7 @@ __global__ void __launch_bounds__(WF_WALK_THREADS, WF_WALK_MIN_CTAS)
       slots += 32;
       walking += __popc(active);
     }
+    if (TWO) S.chan = chan;
     if (busy) busy = w.step<true>(P, G, S, base, st, zlo, zhi);
   }
   if (COUNT) {
@@ -399,16 +432,16 @@ __global__ void chord_table_kernel(const float* __restrict__ bank, int n,
 using ResFn = void (*)(const WfParams, const ResArgs);
 
 // The instantiation for P (scattering and transmission only) by
-// estimator and residual mode: the forward's single pass (ratio, delta),
-// its path pass (PATH: dda) or the adjoint (every estimator); nullptr
-// for a P the kind does not run
-template <bool PRIMAL, bool COUNT, bool PATH>
+// estimator, residual mode and whether the scene keeps the target: the
+// forward's single pass (ratio, delta), its path pass (PATH: dda) or the
+// adjoint (every estimator); nullptr for a P the kind does not run
+template <bool PRIMAL, bool COUNT, bool PATH, bool TGT>
 ResFn res_pick(const WfParams& P) {
   if (!P.has_scattering || !P.transmission_only) return nullptr;
   const int key = P.estimator * 4 + P.residual;
 #define WF_RES_CASE(E, R) \
   case E * 4 + R:         \
-    return res_kernel<E, R, PRIMAL, COUNT, PATH>;
+    return res_kernel<E, R, PRIMAL, COUNT, PATH, TGT>;
   if constexpr (PATH) {
     switch (key) {
       WF_RES_CASE(DDA, SCAT_ONLY)
@@ -441,8 +474,11 @@ ResFn res_pick(const WfParams& P) {
 
 template <bool PRIMAL, bool PATH>
 ResFn res_pick_for(const WfParams& P, bool count) {
-  return count ? res_pick<PRIMAL, true, PATH>(P)
-               : res_pick<PRIMAL, false, PATH>(P);
+  if (P.target)
+    return count ? res_pick<PRIMAL, true, PATH, true>(P)
+                 : res_pick<PRIMAL, false, PATH, true>(P);
+  return count ? res_pick<PRIMAL, true, PATH, false>(P)
+               : res_pick<PRIMAL, false, PATH, false>(P);
 }
 
 // Launch CTAs [A.c0, c1) of the launch order (the adjoint and the single
@@ -458,7 +494,9 @@ int res_launch(const WfParams* p, const ResArgs& A, int c1, void* stream) {
       P.group > WF_RES_MAX_GROUP || A.c0 < 0 || c1 > P.resy * P.n_groups ||
       (!P.identity && (A.order == nullptr || A.starts == nullptr)) ||
       (needs_chords && A.chords == nullptr) ||
-      (PATH && (A.recs == nullptr || A.n_recs == nullptr)))
+      (PATH && (A.recs == nullptr || A.n_recs == nullptr)) ||
+      (P.target && A.tris == nullptr) ||
+      (P.target == 2 && needs_chords && A.mask == nullptr))
     return (int)cudaErrorInvalidValue;
   ResFn k = res_pick_for<PRIMAL, PATH>(P, A.counters != nullptr);
   if (k == nullptr) return (int)cudaErrorInvalidValue;
@@ -466,18 +504,24 @@ int res_launch(const WfParams* p, const ResArgs& A, int c1, void* stream) {
   return (int)cudaGetLastError();
 }
 
+using WalkFn = void (*)(const WfParams, const float4*, unsigned, unsigned*,
+                        int, int, float*, unsigned long long*);
+
+// the walk pass's instantiation: counting, two channels
+inline WalkFn walk_pick(bool count, bool two) {
+  if (two) return count ? walk_kernel<true, true> : walk_kernel<false, true>;
+  return count ? walk_kernel<true, false> : walk_kernel<false, false>;
+}
+
 // CTAs of the walk pass: as many as the SMs hold at once
-inline cudaError_t walk_grid(bool count, int& ctas, int& per_sm) {
+inline cudaError_t walk_grid(WalkFn k, int& ctas, int& per_sm) {
   int dev, sms;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm,
-        count ? (const void*)walk_kernel<true>
-              : (const void*)walk_kernel<false>,
-        WF_WALK_THREADS, 0);
+        &per_sm, (const void*)k, WF_WALK_THREADS, 0);
   ctas = sms * per_sm;
   return e;
 }
@@ -488,15 +532,13 @@ inline int walk_launch(const WfParams* p, const float4* recs, unsigned n,
   if (n == 0) return 0;
   if (recs == nullptr || next == nullptr || acc == nullptr)
     return (int)cudaErrorInvalidValue;
+  const WalkFn k = walk_pick(counters != nullptr, p->target == 2);
   int ctas, per_sm;
-  cudaError_t e = walk_grid(counters != nullptr, ctas, per_sm);
+  cudaError_t e = walk_grid(k, ctas, per_sm);
   if (e != cudaSuccess) return (int)e;
-  if (counters != nullptr)
-    walk_kernel<true><<<ctas, WF_WALK_THREADS, 0, (cudaStream_t)stream>>>(
-        *p, recs, n, next, zlo, zhi, acc, counters);
-  else
-    walk_kernel<false><<<ctas, WF_WALK_THREADS, 0, (cudaStream_t)stream>>>(
-        *p, recs, n, next, zlo, zhi, acc, counters);
+  k<<<ctas, WF_WALK_THREADS, 0, (cudaStream_t)stream>>>(*p, recs, n, next,
+                                                          zlo, zhi, acc,
+                                                          counters);
   return (int)cudaGetLastError();
 }
 
@@ -524,13 +566,12 @@ int res_info(const WfParams* p, int count, int* out) {
   return 0;
 }
 
-inline int walk_info(int count, int* out) {
+inline int walk_info(int count, int two, int* out) {
   cudaFuncAttributes fa;
   int ctas, per_sm;
-  cudaError_t e = cudaFuncGetAttributes(
-      &fa, count ? (const void*)walk_kernel<true>
-                 : (const void*)walk_kernel<false>);
-  if (e == cudaSuccess) e = walk_grid(count != 0, ctas, per_sm);
+  const WalkFn k = walk_pick(count != 0, two != 0);
+  cudaError_t e = cudaFuncGetAttributes(&fa, (const void*)k);
+  if (e == cudaSuccess) e = walk_grid(k, ctas, per_sm);
   if (e != cudaSuccess) return (int)e;
   shape_out(WF_WALK_THREADS, ctas, fa, per_sm, out);
   return 0;

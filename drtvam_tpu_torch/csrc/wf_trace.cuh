@@ -28,8 +28,9 @@
 // the target and in the medium, total_t over every segment, every draw in
 // its slot) and CORNER (the ray's set-up and one intersection). Their
 // scenes keep the target mesh, intersected by intersect_scene<MESH_ON>
-// through wf_mesh.cuh; every other instantiation compiles it with MESH_ON
-// false, so the mesh code is compiled only into those two.
+// through wf_mesh.cuh, as are the four loop entry points' target
+// instantiations (TGT, below); every other instantiation compiles it
+// with MESH_ON false.
 //
 // Bound on the H100: a DDA voxel step is ~20 float32 operations and two
 // expf; at the bench scene's ~10^10 steps per render that is a few ms at
@@ -74,10 +75,26 @@
 //
 // Template parameters: the estimator, scattering and transmission_only,
 // so each instantiation carries only the state it uses, the residual
-// mode, and whether the launch counts (iterations, steps, deposits by
-// destination, lane slots). The projector kind, the surfaces (at most
-// WF_MAX_SURF analytic cylinders or boxes) and the phase function are
-// runtime parameters.
+// mode, whether the launch counts (iterations, steps, deposits by
+// destination, lane slots) and whether the scene keeps the target (the
+// sink's TGT). The projector kind, the surfaces (at most WF_MAX_SURF
+// analytic cylinders or boxes, and with TGT the target mesh), the phase
+// function and the film's channels are runtime parameters.
+//
+// The target kept (TGT: a surface-aware film, drtvam_tpu/ops/march.py:
+// 556-565, 1092-1093, or the final render of a surface-aware scene). The
+// lane intersects the target mesh through wf_mesh.cuh's grid walk, its
+// banks read from global memory (tens of KB; the forward's shared memory
+// holds the home-slice tile), and flips its inside flag at each
+// crossing. On a two-channel film (P.target 2) a deposit goes to channel
+// 2 flat + (outside) of the accumulator; the first-scatter residual
+// seeds the flag from the inside mask at its first scatter event and the
+// fast residual reads the mask at each event voxel. The forward's tile
+// holds both channels of a voxel side by side, over the widest rows of
+// the home slice that fit (shape()); a deposit elsewhere is a global
+// atomic, as for one channel. Every instantiation without TGT
+// compiles none of this: a scene without a target runs the code it ran
+// before.
 //
 // The residual modes (RES; the hybrid engine's scattered residual,
 // drtvam_tpu/ops/march.py:107-144, XLA there): ANALOG is the full dose;
@@ -134,6 +151,11 @@ struct WfParams {
   // the residual mode (wf::ANALOG .. wf::FAST_RESIDUAL) and the fast
   // residual's medium surface
   int residual, res_surf;
+  // the target: 0 not in the scene; 1 kept (its mesh intersected, the
+  // lanes' inside flag flipped at its crossings), one channel; 2 kept,
+  // a two-channel film (deposits to channel 0 inside the target, 1
+  // outside)
+  int target;
 };
 
 namespace wf {
@@ -378,12 +400,12 @@ __device__ __forceinline__ float ray_box(const V3& o, const V3& d,
 #include "wf_mesh.cuh"
 
 // nearest surface: returns t (inf on a miss), its normal and surface id.
-// MESH_ON: mesh surfaces are intersected too (the radon and corner modes,
-// whose scenes keep the target mesh; M the mesh surfaces, B the banks the
-// tests read, in shared memory when STAGED, c the counters): a mesh's
-// normal is its hit triangle's (triangle 0's on a miss), as
-// drtvam_tpu/ops/march.py:190 takes it. Every other instantiation
-// compiles the analytic surfaces alone
+// MESH_ON: mesh surfaces are intersected too (the radon and corner modes
+// and the TGT instantiations, whose scenes keep the target mesh; M the
+// mesh surfaces, B the banks the tests read, in shared memory when
+// STAGED, c the counters): a mesh's normal is its hit triangle's
+// (triangle 0's on a miss), as drtvam_tpu/ops/march.py:190 takes it.
+// Every other instantiation compiles the analytic surfaces alone
 template <bool MESH_ON = false, bool COUNT = false, bool STAGED = false>
 __device__ __forceinline__ float intersect_scene(
     const WfParams& P, const V3& o, const V3& d, V3& n_best, int& sid,
@@ -468,10 +490,13 @@ __device__ __forceinline__ int home_slice(const WfParams& P, const Grid& G,
 // holds the home slice's voxels where the medium may lie, row by row:
 // for film row y, the n columns from lo at tile index base + x,
 // rows[y] = (lo, n, base, 0). COUNT: counts bounce iterations,
-// estimator steps and deposits by destination
-template <bool PRIMAL_, bool COUNT_>
+// estimator steps and deposits by destination. TGT: the scene keeps the
+// target (the mesh banks and the inside mask below); on a two-channel
+// film (two) a deposit goes to channel chan of its voxel, in the tile
+// (its two channels side by side) as in global memory
+template <bool PRIMAL_, bool COUNT_, bool TGT_ = false>
 struct Sink {
-  static constexpr bool PRIMAL = PRIMAL_, COUNT = COUNT_;
+  static constexpr bool PRIMAL = PRIMAL_, COUNT = COUNT_, TGT = TGT_;
   // RECORDS: a dda segment is recorded for a later walk (PathSink), not
   // walked
   static constexpr bool RECORDS = false;
@@ -482,6 +507,14 @@ struct Sink {
   int home;          // the home z-slice; -1: no tile
   float g;           // adjoint: the lane's emitter gradient
   unsigned long long iters, steps, n_tile, n_global;
+  // TGT: a two-channel film, and the lane's channel (0 inside the target,
+  // 1 outside); the target mesh and the banks its tests read (global
+  // memory); the inside mask (Z, Y, X) of the two-channel residual
+  bool two = false;
+  int chan = 0;
+  const WfMesh* mesh = nullptr;
+  MeshBanks banks = {nullptr, nullptr, nullptr};
+  const unsigned char* mask = nullptr;
 
   __device__ __forceinline__ void iter() {
     if (COUNT) ++iters;
@@ -496,6 +529,10 @@ struct Sink {
     return (unsigned)(vx - r.x) < (unsigned)r.y ? r.z + vx : -1;
   }
   __device__ __forceinline__ void deposit(int slot, int flat, float val) {
+    if (TGT && two) {
+      flat = 2 * flat + chan;
+      if (slot >= 0) slot = 2 * slot + chan;
+    }
     if (COUNT) {
       n_tile += slot >= 0 ? 1 : 0;
       n_global += slot >= 0 ? 0 : 1;
@@ -527,6 +564,7 @@ struct Sink {
 template <bool COUNT_, bool STAGED_>
 struct MeshSink {
   static constexpr bool PRIMAL = true, COUNT = COUNT_, RECORDS = false;
+  static constexpr bool TGT = false;
   static constexpr bool STAGED = STAGED_;
   const WfMesh* mesh;
   MeshBanks banks;
@@ -765,6 +803,23 @@ __device__ __forceinline__ float exit_distance(const WfParams& P,
   return mx(t_far, 0.0f);
 }
 
+// the inside mask at p, its voxel at inv voxels per unit length; false
+// outside the film
+__device__ __forceinline__ bool inside_at(const Grid& G,
+                                          const unsigned char* mask,
+                                          const V3& p, const float* inv) {
+  int v[3];
+  return G.voxel_of(p, v, inv) && mask[G.flat(v[0], v[1], v[2])] != 0;
+}
+
+// voxels per unit length as the first-scatter seed and the fast residual
+// take them: res / extent, as the plain version
+__device__ __forceinline__ void inv_extent(const Grid& G, float* inv) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    inv[k] = (float)G.res[k] / (G.bmax[k] - G.bmin[k]);
+}
+
 // The delta residual's events after the forced first scatter (weight A):
 // per event Russian roulette past rr_depth, the free flight against the
 // exit distance (reaching it ends the lane), the deposit A ((1 - albedo)
@@ -778,9 +833,7 @@ __device__ void fast_residual(const WfParams& P, const Grid& G, SinkT& S,
   const float inv_st = 1.0f / mx(P.sigma_t, 1e-30f);
   const float base_w = (1.0f - al) * (SinkT::PRIMAL ? em : 1.0f);
   float inv_ext[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k)
-    inv_ext[k] = (float)G.res[k] / (G.bmax[k] - G.bmin[k]);
+  inv_extent(G, inv_ext);
   for (int j = 0; j < P.max_depth - 1; ++j) {
     S.iter();
     const float u_rr = rng.next1();
@@ -795,8 +848,10 @@ __device__ void fast_residual(const WfParams& P, const Grid& G, SinkT& S,
     const V3 p = along(o, t, d);
     int v[3];
     if (G.voxel_of(p, v, inv_ext)) {
-      S.deposit(S.slot(v[0], v[1], v[2]), G.flat(v[0], v[1], v[2]),
-                A * base_w);
+      const int flat = G.flat(v[0], v[1], v[2]);
+      // the event voxel's channel from the inside mask
+      if constexpr (SinkT::TGT) S.chan = S.two && S.mask[flat] != 0 ? 0 : 1;
+      S.deposit(S.slot(v[0], v[1], v[2]), flat, A * base_w);
       S.step();
     }
     A = A * al;
@@ -951,6 +1006,14 @@ __device__ void trace_lane(const WfParams& P, const Grid& G, uint32_t lane,
     }
 #endif
     A = P.albedo * M;
+    if constexpr (SinkT::TGT) {
+      // the inside flag at the first scatter event, from the inside mask
+      if (S.two) {
+        float inv[3];
+        inv_extent(G, inv);
+        inside_target = inside_at(G, S.mask, o, inv);
+      }
+    }
     if (RES == FAST_RESIDUAL) {
       fast_residual(P, G, S, rng, o, d, A, em);
       return;
@@ -980,6 +1043,9 @@ __device__ void trace_lane(const WfParams& P, const Grid& G, uint32_t lane,
     if constexpr (RES == RADON) {
       t_si = intersect_scene<true, SinkT::COUNT, SinkT::STAGED>(
           P, o, d, n_si, sid, S.mesh, &S.banks, &S.mc);
+    } else if constexpr (SinkT::TGT) {
+      MeshCount mc;
+      t_si = intersect_scene<true>(P, o, d, n_si, sid, S.mesh, &S.banks, &mc);
     } else {
       t_si = intersect_scene(P, o, d, n_si, sid);
     }
@@ -1006,6 +1072,7 @@ __device__ void trace_lane(const WfParams& P, const Grid& G, uint32_t lane,
       if (inside_target && in_medium)
         S.L = S.L + A * expf(-st * total_t) * (1.0f - expf(-st * t_si));
     } else if (in_medium && (RES != SCAT_ONLY || scattered)) {
+      if constexpr (SinkT::TGT) S.chan = inside_target ? 0 : 1;
       float base = (SCAT ? A : A * expf(-st * total_t)) * sa_over_st;
       if (SinkT::PRIMAL) base = base * em;
       if (EST == DDA) {
@@ -1192,14 +1259,18 @@ constexpr int WF_THREADS = 1024;
 // One CTA per (DMD row, angle group); its warps take 32 neighbouring
 // positions of the CTA's range at a time from a counter in shared
 // memory. The forward's dynamic shared memory holds the tile's row table
-// (the film's resy rows) and then the tile (P.tile_n floats), zeroed
-// before the first barrier and flushed with one global atomic per
-// nonzero voxel after the second. The adjoint takes none (P.tile_n 0).
-// The analog instantiations only (RES ANALOG): the residual family has
-// its own kernels (wf_residual.cuh).
-template <int EST, bool SCAT, bool TONLY, int RES, bool PRIMAL, bool COUNT>
+// (the film's resy rows) and then the tile (P.tile_n voxels, a float for
+// each of their channels), zeroed before the first barrier and flushed
+// with one global atomic per nonzero value after the second. The adjoint
+// takes none (P.tile_n 0). The analog instantiations only (RES ANALOG):
+// the residual family has its own kernels (wf_residual.cuh). TGT: the
+// scene keeps the target, M its mesh, tris the triangle rows its tests
+// read (ops/render.py cull_rows), both in global memory
+template <int EST, bool SCAT, bool TONLY, int RES, bool PRIMAL, bool COUNT,
+          bool TGT>
 __global__ void __launch_bounds__(WF_THREADS, 1)
-    wf_kernel(const WfParams P, const float* __restrict__ in,
+    wf_kernel(const WfParams P, const __grid_constant__ WfMesh M,
+              const float4* __restrict__ tris, const float* __restrict__ in,
               const int* __restrict__ active_pixels,
               const int* __restrict__ order, const int* __restrict__ starts,
               const int4* __restrict__ rows, float* __restrict__ out,
@@ -1213,15 +1284,30 @@ __global__ void __launch_bounds__(WF_THREADS, 1)
   int4* srows = smem;
   float* tile = reinterpret_cast<float*>(smem + G.res[1]);
   const int home = P.tile_n > 0 ? home_slice(P, G, py) : -1;
-  Sink<PRIMAL, COUNT> S{out, in, tile, srows, home, 0.0f, 0, 0, 0, 0};
+  Sink<PRIMAL, COUNT, TGT> S{out, in, tile, srows, home, 0.0f, 0, 0, 0, 0};
+  // the tile's floats a voxel
+  const int ch = (TGT && P.target == 2) ? 2 : 1;
+  if constexpr (TGT) {
+    S.two = P.target == 2;
+    S.mesh = &M;
+    S.banks = {tris, M.cell_start, M.tri_ids};
+  }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int n_warps = WF_THREADS / 32;
   const int slice0 = home * G.res[0] * G.res[1];
   if (PRIMAL && home >= 0) {
     for (int y = warp; y < G.res[1]; y += n_warps) {
-      const int4 r = __ldg(rows + y);
+      int4 r = __ldg(rows + y);
+      // a row that ends past the tile shape() kept holds no voxel
+      if (TGT && r.z + r.x + r.y > P.tile_n) r.y = 0;
       if (lane == 0) srows[y] = r;
-      for (int x = r.x + lane; x < r.x + r.y; x += 32) tile[r.z + x] = 0.0f;
+      if constexpr (TGT) {
+        for (int i = ch * (r.z + r.x) + lane; i < ch * (r.z + r.x + r.y);
+             i += 32)
+          tile[i] = 0.0f;
+      } else {
+        for (int x = r.x + lane; x < r.x + r.y; x += 32) tile[r.z + x] = 0.0f;
+      }
     }
   }
   if (threadIdx.x == 0) next_task = 0;
@@ -1252,9 +1338,18 @@ __global__ void __launch_bounds__(WF_THREADS, 1)
     __syncthreads();
     for (int y = warp; y < G.res[1]; y += n_warps) {
       const int4 r = srows[y];
-      for (int x = r.x + lane; x < r.x + r.y; x += 32) {
-        const float v = tile[r.z + x];
-        if (v != 0.0f) atomicAdd(out + slice0 + y * G.res[0] + x, v);
+      if constexpr (TGT) {
+        // value i of the row: voxel r.x + i / ch, channel i % ch
+        const int row0 = slice0 + y * G.res[0] + r.x;
+        for (int i = lane; i < ch * r.y; i += 32) {
+          const float v = tile[ch * (r.z + r.x) + i];
+          if (v != 0.0f) atomicAdd(out + ch * row0 + i, v);
+        }
+      } else {
+        for (int x = r.x + lane; x < r.x + r.y; x += 32) {
+          const float v = tile[r.z + x];
+          if (v != 0.0f) atomicAdd(out + slice0 + y * G.res[0] + x, v);
+        }
       }
     }
   }
@@ -1270,21 +1365,20 @@ __global__ void __launch_bounds__(WF_THREADS, 1)
   }
 }
 
-using KernelFn = void (*)(const WfParams, const float*, const int*,
-                          const int*, const int*, const int4*, float*,
-                          unsigned long long*);
+using KernelFn = void (*)(const WfParams, const WfMesh, const float4*,
+                          const float*, const int*, const int*, const int*,
+                          const int4*, float*, unsigned long long*);
 
 // The analog instantiation for P (wf_fwd, wf_bwd) by estimator,
-// scattering and transmission_only; nullptr for a residual P (the
-// residual family is wf_residual.cuh's)
-template <bool PRIMAL, bool COUNT>
-KernelFn pick(const WfParams& P) {
-  if (P.residual != ANALOG) return nullptr;
+// scattering, transmission_only and whether the scene keeps the target;
+// nullptr for a residual P (the residual family is wf_residual.cuh's)
+template <bool PRIMAL, bool COUNT, bool TGT>
+KernelFn pick_target(const WfParams& P) {
   const int key = P.estimator * 4 + (P.has_scattering ? 2 : 0) +
                   (P.transmission_only ? 1 : 0);
 #define WF_CASE(E, SC, TO)                  \
   case E * 4 + (SC ? 2 : 0) + (TO ? 1 : 0): \
-    return wf_kernel<E, SC, TO, ANALOG, PRIMAL, COUNT>;
+    return wf_kernel<E, SC, TO, ANALOG, PRIMAL, COUNT, TGT>;
   switch (key) {
     WF_CASE(DDA, false, false)
     WF_CASE(DDA, false, true)
@@ -1304,9 +1398,19 @@ KernelFn pick(const WfParams& P) {
 #undef WF_CASE
 }
 
+template <bool PRIMAL, bool COUNT>
+KernelFn pick(const WfParams& P) {
+  if (P.residual != ANALOG) return nullptr;
+  return P.target ? pick_target<PRIMAL, COUNT, true>(P)
+                  : pick_target<PRIMAL, COUNT, false>(P);
+}
+
 // The dynamic shared memory a CTA takes, with the kernel's limit raised
-// to it; clears P.tile_n (no tile) when the tile does not fit beside the
-// kernel's static shared memory
+// to it. A target instantiation keeps the first P.tile_n voxels that fit
+// beside the kernel's static shared memory (the kernel drops the rows
+// that end past them; ops/render.py tile_rows lays a two-channel tile
+// out widest row first); any other clears P.tile_n (no tile) when the
+// whole tile does not fit
 inline cudaError_t shape(KernelFn k, WfParams& P, size_t& smem) {
   int dev, optin;
   cudaFuncAttributes fa;
@@ -1316,9 +1420,15 @@ inline cudaError_t shape(KernelFn k, WfParams& P, size_t& smem) {
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, (const void*)k);
   if (e != cudaSuccess) return e;
-  smem = P.tile_n > 0 ? (size_t)P.res[1] * sizeof(int4) +
-                            (size_t)P.tile_n * sizeof(float)
-                      : 0;
+  const size_t ch = P.target == 2 ? 2 : 1;
+  const size_t table = (size_t)P.res[1] * sizeof(int4);
+  if (P.target && P.tile_n > 0 &&
+      table + fa.sharedSizeBytes < (size_t)optin) {
+    const size_t fit =
+        ((size_t)optin - fa.sharedSizeBytes - table) / (ch * sizeof(float));
+    if ((size_t)P.tile_n > fit) P.tile_n = (int)fit;
+  }
+  smem = P.tile_n > 0 ? table + (size_t)P.tile_n * ch * sizeof(float) : 0;
   if (smem + fa.sharedSizeBytes > (size_t)optin) {
     P.tile_n = 0;
     smem = 0;
@@ -1336,14 +1446,16 @@ KernelFn pick_for(WfParams& P, bool count) {
 }
 
 template <bool PRIMAL>
-int launch(const WfParams* p, const float* in, const int* active_pixels,
-           const int* order, const int* starts, const int4* rows, float* out,
+int launch(const WfParams* p, const WfMesh* M, const float4* tris,
+           const float* in, const int* active_pixels, const int* order,
+           const int* starts, const int4* rows, float* out,
            unsigned long long* counters, void* stream) {
   WfParams P = *p;
   if (P.n_active <= 0) return 0;
   if (P.n_surf > WF_MAX_SURF || P.n_groups <= 0 || P.group <= 0 ||
       (!P.identity && (order == nullptr || starts == nullptr)) ||
-      (P.tile_n > 0 && rows == nullptr))
+      (P.tile_n > 0 && rows == nullptr) || M == nullptr ||
+      (P.target && tris == nullptr))
     return (int)cudaErrorInvalidValue;
   KernelFn k = pick_for<PRIMAL>(P, counters != nullptr);
   if (k == nullptr) return (int)cudaErrorInvalidValue;
@@ -1351,8 +1463,8 @@ int launch(const WfParams* p, const float* in, const int* active_pixels,
   cudaError_t e = shape(k, P, smem);
   if (e != cudaSuccess) return (int)e;
   k<<<(unsigned)P.resy * P.n_groups, WF_THREADS, smem,
-      (cudaStream_t)stream>>>(P, in, active_pixels, order, starts, rows,
-                              out, counters);
+      (cudaStream_t)stream>>>(P, *M, tris, in, active_pixels, order, starts,
+                              rows, out, counters);
   return (int)cudaGetLastError();
 }
 

@@ -19,6 +19,12 @@ in one convex medium region runs the unrolled event loop
 differentiable: the ballistic part through its Backproject function,
 the residual through RenderRaw's path replay at the same seed.
 
+A surface-aware film (two channels, drtvam_tpu/ops/hybrid.py:80-136):
+the unscattered part splits its dose by the inside mask, as the
+ballistic engine does, and the residual keeps the target mesh, seeding
+each lane's channel from the mask at its first scatter event (and the
+fast residual at each event voxel).
+
 On a CUDA device the residual runs the wf_res_fwd / wf_res_bwd kernels
 (ops/render.py), the unscattered part the backprojection kernels; on the
 CPU both run their plain versions.
@@ -27,6 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from . import render as wavefront
@@ -47,7 +54,7 @@ def hybrid_eligible(static: MarchStatic) -> bool:
 class ScatteringEngine:
     """Per-(scene, sensor) engine for scattering media on one device.
 
-    `render_vol(data, inv_vol, seed)` returns the (Z, Y, X, 1) dose
+    `render_vol(data, inv_vol, seed)` returns the (Z, Y, X, C) dose
     volume, differentiable in data; the seed drives the residual (vary
     it per optimization step). `pattern_grad(dvol, inv_vol, seed)` is
     the explicit adjoint: the ballistic adjoint plus one residual
@@ -58,25 +65,25 @@ class ScatteringEngine:
     None keeping the scene's. first_scatter: start every residual lane
     at its forced first scatter (else the analog paths with their
     unscattered deposits dropped). residual_max_depth: the residual's
-    depth cap (None keeps the scene's max_depth). The unscattered
-    part runs the ballistic engine's default kernels for the device
-    (`ballistic.default_impl`).
+    depth cap (None keeps the scene's max_depth). inside_mask: the
+    target's (Z, Y, X[, 1]) binary occupancy in the sensor's grid, which
+    a surface-aware film needs (its static keeps the target mesh). The
+    unscattered part runs the ballistic engine's default kernels for the
+    device (`ballistic.default_impl`).
     """
 
     def __init__(self, static: MarchStatic, arr, device, spp=4,
                  spp_grad=None, chunk=None, estimator=None,
-                 first_scatter=True, residual_max_depth=None):
+                 first_scatter=True, residual_max_depth=None,
+                 inside_mask=None):
         if not hybrid_eligible(static):
             raise ValueError("scene is not hybrid-eligible (needs "
                              "scattering and z-invariant collimated "
                              "geometry)")
-        if static.sensor.surface_aware:
-            raise NotImplementedError(
-                "surface-aware films on the hybrid engine are not ported "
-                "yet — ROADMAP queue 1 item 14")
         self.device = torch.device(device)
         self.ball = BallisticEngine(static, arr, self.device,
-                                    unscattered=True)
+                                    unscattered=True,
+                                    inside_mask=inside_mask)
         self.impl = self.ball.impl
         sensor = static.sensor
         if estimator is not None and estimator != sensor.estimator:
@@ -87,6 +94,12 @@ class ScatteringEngine:
             st2, arr2 = strip_target(static, arr)
             arr_t["chord_pack"] = chord_pack(
                 *build_chords(st2, scene_tensors(arr2, "cpu")))
+            if static.sensor.channels == 2:
+                # the first scatter's channel seed (the JAX package's
+                # inside_mask_flat > 0.5), one byte a voxel
+                arr_t["inside_mask"] = torch.from_numpy(
+                    (np.asarray(inside_mask, np.float32) > 0.5)
+                    .reshape(-1).astype(np.uint8))
         self.arr = {k: v.to(self.device) for k, v in arr_t.items()}
         self.static_s = dataclasses.replace(
             static, scattered_only=True, sensor=sensor,
@@ -107,7 +120,7 @@ class ScatteringEngine:
                                             max_depth=max_depth)
 
     def render_vol(self, active_data, inv_vol, seed=0):
-        """The dose volume (Z, Y, X, 1), differentiable in active_data."""
+        """The dose volume (Z, Y, X, C), differentiable in active_data."""
         vol_b = self.ball.render_vol(active_data, inv_vol)
         vol_s = wavefront.render(self.static_s, self.arr, active_data,
                                  inv_vol, seed, self.spp, self.spp_grad,
@@ -115,7 +128,7 @@ class ScatteringEngine:
         return vol_b + vol_s
 
     def pattern_grad(self, dvol, inv_vol, seed=0):
-        """d loss / d data given d loss / d vol (Z, Y, X, 1)."""
+        """d loss / d data given d loss / d vol (Z, Y, X, C)."""
         gb = self.ball.pattern_grad(dvol, inv_vol)
         gs = wavefront.adjoint(self.static_s, self.arr, seed, self.spp_grad,
                                self.chunk, (dvol * inv_vol).reshape(-1))

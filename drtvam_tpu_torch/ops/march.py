@@ -45,6 +45,17 @@ package (drtvam_tpu/ops/march.py:107-144):
     scatter events, each against one convex exit distance; it draws in
     the general loop's order, so both replay the same paths.
 
+A surface-aware film (two channels, drtvam_tpu/ops/march.py:556-565):
+each lane carries `inside_target`, flipped at every crossing of the
+target mesh (kept in the scene), and a deposit goes to channel
+2 flat + (outside) of the (Z, Y, X, 2) accumulator: channel 0 the dose
+inside the target, 1 outside. The first-scatter residual seeds the flag
+from the voxelized inside mask at the lane's first scatter event
+(arr["inside_mask"]), and the fast residual reads the mask at each
+event voxel, as the JAX package does. A one-channel render that keeps
+the target (the final render of a surface-aware scene) splits its
+segments at the crossings and deposits as without it.
+
 The radon mode (drtvam_tpu/ops/march.py:917-923, the `filter_radon`
 culling render): scattering off, no deposits; each lane accumulates
 A exp(-sigma_t total_t) (1 - exp(-sigma_t t)) over the segments it runs
@@ -55,8 +66,7 @@ the triangle bank or its uniform grid (ops/mesh_grid.py).
 
 Not ported: the first-scatter geometric prologue used without a chord
 bank (ROADMAP queue 1 item 20), medium cotangents (`medium_grads`, item
-17), a volume-mode render that keeps the target (surface-aware films,
-item 14), mesh vials and occlusions (item 17).
+17), mesh vials and occlusions (item 17).
 """
 from __future__ import annotations
 
@@ -120,24 +130,14 @@ def _not_ported(what, item):
         f"{what} is not ported yet — ROADMAP queue 1 item {item}")
 
 
-def check_supported(static: MarchStatic, corner=False):
-    """Raise for what the port's wavefront does not run. corner: the
-    static of the corner render (one intersection a lane, no march)."""
+def check_supported(static: MarchStatic):
+    """Raise for what the port's wavefront does not run."""
     if static.mode not in ("volume", "radon"):
         raise ValueError(f"unknown render mode '{static.mode}'")
     if static.medium_grads:
         raise _not_ported("medium gradients (medium_grads)", 17)
-    if static.sensor.surface_aware:
-        raise _not_ported("surface-aware films", 14)
-    for s in static.surfaces:
-        if s.kind != MESH:
-            continue
-        if not s.is_target:
-            raise _not_ported("mesh vials and occlusions", 17)
-        if static.mode == "volume" and not corner:
-            raise _not_ported(
-                "a volume render that keeps the target mesh (surface-aware "
-                "films)", 14)
+    if any(s.kind == MESH and not s.is_target for s in static.surfaces):
+        raise _not_ported("mesh vials and occlusions", 17)
     if static.sensor.estimator not in ESTIMATORS:
         raise ValueError(f"unknown estimator '{static.sensor.estimator}'")
     if static.has_scattering and static.phase not in phase_functions:
@@ -269,16 +269,34 @@ def _grid(static: MarchStatic, arr):
     return bmin, vs, 1.0 / vs, res
 
 
-def _flat(static, v):
+def _voxel_index(static, v):
     X, Y, _ = static.sensor.res
     v = v.to(torch.int64)
     return v[..., 0] + X * (v[..., 1] + Y * v[..., 2])
 
 
-def _voxel_flat(static: MarchStatic, p, bmin, inv_vs, res):
+def _flat(static, v, inside=None):
+    """The accumulator index of voxels v; on a two-channel film channel
+    0 for the lanes inside the target, 1 for the others."""
+    flat = _voxel_index(static, v)
+    if static.sensor.channels == 2:
+        flat = 2 * flat + torch.where(inside, 0, 1)
+    return flat
+
+
+def _voxel_flat(static: MarchStatic, p, bmin, inv_vs, res, inside=None):
     v = torch.floor((p - bmin) * inv_vs).to(torch.int32)
     in_grid = (v >= 0).all(-1) & (v < res).all(-1)
-    return _flat(static, v), in_grid
+    return _flat(static, v, inside), in_grid
+
+
+def _inside_at(static: MarchStatic, arr, p, bmin, inv_vs, res):
+    """The inside mask (arr["inside_mask"], (Z Y X,) uint8) at points p,
+    False outside the film (drtvam_tpu/ops/march.py:405-417)."""
+    v = torch.floor((p - bmin) * inv_vs).to(torch.int32)
+    in_grid = (v >= 0).all(-1) & (v < res).all(-1)
+    flat = torch.where(in_grid, _voxel_index(static, v), 0)
+    return in_grid & (arr["inside_mask"][flat] != 0)
 
 
 def _deposit(primal, acc, g, dL, flat, val, mask):
@@ -303,14 +321,17 @@ def _count(stats, key, mask):
 
 
 def dda_segment(static, arr, primal, acc, g, dL, o, d, t_prev, maxt, A, em,
-                active, stats=None):
+                active, stats=None, inside=None):
     """Amanatides-Woo voxel walk with analytic per-voxel absorption,
-    on the lanes of `active`."""
+    on the lanes of `active`; inside: the lanes' target flag (two
+    channels)."""
     lanes = torch.nonzero(active).squeeze(1)
     if lanes.numel() == 0:
         return acc, g
     o, d, t_prev, maxt, A = o[lanes], d[lanes], t_prev[lanes], \
         maxt[lanes], A[lanes]
+    if inside is not None:
+        inside = inside[lanes]
     bmin, vs, _, res = _grid(static, arr)
     bmax = arr["bbox_max"]
     st = arr["sigma_t"]
@@ -356,7 +377,7 @@ def dda_segment(static, arr, primal, acc, g, dL, o, d, t_prev, maxt, A, em,
             break
         t_at = t
         dt = torch.minimum(dtmax.amin(-1), remaining)
-        flat = _flat(static, voxel)
+        flat = _flat(static, voxel, inside)
         dep_act = act
         remaining = torch.where(act, remaining - dt, remaining)
         act = act & (end_voxel != voxel).any(-1) & (remaining > 1e-6)
@@ -377,7 +398,7 @@ def dda_segment(static, arr, primal, acc, g, dL, o, d, t_prev, maxt, A, em,
 
 
 def ratio_segment(static, arr, primal, acc, g, dL, o, d, t_prev, maxt, A,
-                  em, active, sampler, lane, ctr, stats=None):
+                  em, active, sampler, lane, ctr, stats=None, inside=None):
     """Ratio tracking on the lanes of `active`, each on its own random
     stream: a lane draws (and advances its counter) only while it is
     tracking, the terminating draw included."""
@@ -387,6 +408,8 @@ def ratio_segment(static, arr, primal, acc, g, dL, o, d, t_prev, maxt, A,
     o, d, t_prev, maxt, A = o[lanes], d[lanes], t_prev[lanes], \
         maxt[lanes], A[lanes]
     lane_l, ctr_l = lane[lanes], ctr[lanes]
+    if inside is not None:
+        inside = inside[lanes]
     bmin, _, inv_vs, res = _grid(static, arr)
     st = arr["sigma_t"]
     M = arr["majorant"]
@@ -409,7 +432,7 @@ def ratio_segment(static, arr, primal, acc, g, dL, o, d, t_prev, maxt, A,
         t = torch.where(act, t + sample_free_flight(u, M), t)
         act = act & (t < maxt)
         p = o + t[:, None] * d
-        flat, in_grid = _voxel_flat(static, p, bmin, inv_vs, res)
+        flat, in_grid = _voxel_flat(static, p, bmin, inv_vs, res, inside)
         ratio_k = torch.exp(k * log_ratio)
         mask = act & in_grid
         k = torch.where(act, k + 1.0, k)
@@ -423,13 +446,13 @@ def ratio_segment(static, arr, primal, acc, g, dL, o, d, t_prev, maxt, A,
 
 
 def delta_segment(static, arr, primal, acc, g, dL, o, d, t_prev, mei_t, A,
-                  em, active, stats=None):
+                  em, active, stats=None, inside=None):
     """Delta-tracking deposit at the sampled interaction point; the
     importance-sampled transmittance cancels: A (sa/st) em."""
     bmin, _, inv_vs, res = _grid(static, arr)
     act = active & torch.isfinite(mei_t)
     p = o + mei_t[:, None] * d
-    flat, in_grid = _voxel_flat(static, p, bmin, inv_vs, res)
+    flat, in_grid = _voxel_flat(static, p, bmin, inv_vs, res, inside)
     contrib = _history(static, arr, A, t_prev) * (1.0 - arr["albedo"])
     if primal:
         contrib = contrib * em
@@ -448,7 +471,9 @@ def _sample_first_scatter(static, arr, sg_o, sg_d, sg_L, sg_amp, sampler,
     segments: segment k with probability mass_k / M, mass_k = amp_k
     exp(-st tau_k) (1 - exp(-st L_k)), then the truncated exponential
     along it; the lane's weight is albedo * M. Two draws: u1 (1d), u2
-    (2d, the phase function). Returns (o1, d1, A_fs, alive, ctr)."""
+    (2d, the phase function). Returns (o1, d1, A_fs, inside1, alive,
+    ctr): inside1 the inside mask at o1 on a two-channel film, else
+    False."""
     n = sg_L.shape[0]
     st = arr["sigma_t"]
     tau = torch.cat([torch.zeros((n, 1), dtype=torch.float32,
@@ -474,7 +499,13 @@ def _sample_first_scatter(static, arr, sg_o, sg_d, sg_L, sg_amp, sampler,
     u2, ctr = sampler.next_2d(lane, ctr)
     d1 = sample_phase_direction(static.phase, arr["phase_g"], d_k,
                                 u2[:, 0], u2[:, 1])
-    return o1, d1, arr["albedo"] * M, alive, ctr
+    if static.sensor.channels == 2:
+        bmin, _, _, res = _grid(static, arr)
+        inside1 = _inside_at(static, arr, o1, bmin, _inv_extent(static, arr),
+                             res)
+    else:
+        inside1 = torch.zeros((n,), dtype=torch.bool, device=sg_L.device)
+    return o1, d1, arr["albedo"] * M, inside1, alive, ctr
 
 
 def _first_scatter_from_chords(static: MarchStatic, arr, o, aidx, sampler,
@@ -498,6 +529,15 @@ def _first_scatter_from_chords(static: MarchStatic, arr, o, aidx, sampler,
                      -1)
     return _sample_first_scatter(static, arr, sg_o, sg_d, rec[:, 8:10],
                                  rec[:, 10:12], sampler, lane, ctr)
+
+
+def _inv_extent(static: MarchStatic, arr):
+    """Voxels per unit length as the JAX first-scatter seed and fast loop
+    compute it (res over the extent, not 1 / voxel size)."""
+    X, Y, Z = static.sensor.res
+    bmin = arr["bbox_min"]
+    return torch.tensor([X, Y, Z], dtype=torch.float32,
+                        device=bmin.device) / (arr["bbox_max"] - bmin)
 
 
 def _exit_distance(static: MarchStatic, arr):
@@ -545,12 +585,9 @@ def _fast_residual_loop(static: MarchStatic, arr, primal, acc, g, dL, o, d,
     events; each draws u_rr, u_ff, u_b (unused) and u_ph (2d), the
     general loop's order (drtvam_tpu/ops/march.py:433-549)."""
     st, al = arr["sigma_t"], arr["albedo"]
-    X, Y, Z = static.sensor.res
     bmin, _, _, res = _grid(static, arr)
-    # voxels per unit length as the JAX fast loop computes it (res over
-    # the extent, not 1 / voxel size)
-    inv_vs = torch.tensor([X, Y, Z], dtype=torch.float32,
-                          device=bmin.device) / (arr["bbox_max"] - bmin)
+    inv_vs = _inv_extent(static, arr)
+    two = static.sensor.channels == 2
     exit_dist = _exit_distance(static, arr)
     inv_st = 1.0 / torch.clamp(st, min=1e-30)
     base_w = (1.0 - al) * (em if primal else 1.0)
@@ -570,7 +607,10 @@ def _fast_residual_loop(static: MarchStatic, arr, primal, acc, g, dL, o, d,
         t = -torch.log1p(-torch.clamp(u, 0.0, U_MAX)) * inv_st
         hit = alive & (t < t_exit)
         p = o + t[:, None] * d
-        flat, in_grid = _voxel_flat(static, p, bmin, inv_vs, res)
+        # the event voxel's channel from the inside mask
+        inside = _inside_at(static, arr, p, bmin, inv_vs, res) if two \
+            else None
+        flat, in_grid = _voxel_flat(static, p, bmin, inv_vs, res, inside)
         m = hit & in_grid
         acc, g = _deposit(primal, acc, g, dL, flat, A * base_w, m)
         _count(stats, "steps", m)
@@ -652,8 +692,9 @@ def trace_wavefront(static: MarchStatic, arr, lane, seed, spp, dL_flat=None,
         # every lane starts at its forced first scatter event: the
         # pre-scatter attenuation and the event's albedo live in A, so
         # total_t restarts at 0, n_scat at 1 and depth at 1
-        o, d, A_fs, active, ctr = _first_scatter_from_chords(
-            static, arr, o, aidx, sampler, lane, ctr)
+        o, d, A_fs, inside_target, active, ctr = \
+            _first_scatter_from_chords(static, arr, o, aidx, sampler, lane,
+                                       ctr)
         A = torch.where(active, A_fs, zeros)
         if res_mode == FAST_RESIDUAL:
             return _fast_residual_loop(static, arr, primal, acc, g, dL_flat,
@@ -713,17 +754,20 @@ def trace_wavefront(static: MarchStatic, arr, lane, seed, spp, dL_flat=None,
                                 zeros)
         elif est == "dda":
             acc, g = dda_segment(static, arr, primal, acc, g, dL_flat, o, d,
-                                 total_t, t_si, A, em, dep_active, stats)
+                                 total_t, t_si, A, em, dep_active, stats,
+                                 inside_target)
         elif est == "ratio":
             acc, g, ctr = ratio_segment(static, arr, primal, acc, g, dL_flat,
                                         o, d, total_t, t_si, A, em,
                                         dep_active, sampler, lane, ctr,
-                                        stats)
+                                        stats, inside_target)
         else:
             acc, g = delta_segment(static, arr, primal, acc, g, dL_flat, o, d,
-                                   total_t, mei_t, A, em, dep_active, stats)
+                                   total_t, mei_t, A, em, dep_active, stats,
+                                   inside_target)
 
-        # inside / outside parity flip (may leak, as the reference's)
+        # inside / outside parity flip at the target's crossings (may
+        # leak, as the reference's)
         inside_target = inside_target ^ hit_target
 
         # BSDF sampling at surfaces

@@ -58,6 +58,18 @@ row's slice), its lanes handed their angle's frame and their chord's
 table entry; its dda forward runs in two passes per batch of CTAs, the
 lanes' paths recording their segments (res_path) and persistent threads
 walking them (res_walk), so that no warp waits on its longest walk.
+
+A scene that keeps the target (a surface-aware film, or the final render
+of a surface-aware scene) runs the four loop kernels' target
+instantiations (WfParams.target, `target_mode`): each launch also takes
+the scene's mesh (WfMesh), the target's triangle rows (cull_rows) and,
+for a two-channel first-scatter residual, the inside mask as bytes
+(arr["inside_mask"], set by ops/hybrid.py). A two-channel film's
+accumulator holds two floats a voxel; the forward's tile keeps the home
+slice's widest rows that fit (tile_rows lays them out widest first, the
+kernel keeps what its shared memory holds), and a dda residual record
+carries its channel in the sign of its maxt. `form_launches` counts these
+instantiations' launches apart.
 """
 from __future__ import annotations
 
@@ -95,6 +107,13 @@ CULL_KERNELS = ("wf_radon", "wf_corner")    # the culling renders
 # apart: the dda forward's walk pass and the chord table's prologue
 RES_PARTS = ("wf_res_walk", "wf_res_chords")
 launches = {k: 0 for k in KERNELS + RES_KERNELS + CULL_KERNELS + RES_PARTS}
+# the launches of the target instantiations of the loop kernels, beside
+# their kernel's count in `launches`: "<kernel>:target1" (the target mesh
+# kept, one channel) and "<kernel>:target2" (a two-channel film); the walk
+# pass has a two-channel form only (one channel walks as without a target)
+TARGET_FORMS = tuple(f"{k}:target{t}" for k in KERNELS + RES_KERNELS
+                     for t in (1, 2)) + ("wf_res_walk:target2",)
+form_launches = {k: 0 for k in TARGET_FORMS}
 # what the culling kernels count when asked: bounce iterations, mesh grid
 # cells visited, triangles tested, triangle slots (32 for each test of a
 # warp task's busiest lane: the tests' SIMT efficiency is triangles /
@@ -123,6 +142,16 @@ WALK_SLABS = 2
 def reset_launches():
     for k in launches:
         launches[k] = 0
+    for k in form_launches:
+        form_launches[k] = 0
+
+
+def _count(name, P):
+    """One launch of kernel `name` in the instantiation P selects."""
+    launches[name] += 1
+    form = f"{name}:target{P.target}"
+    if form in form_launches:
+        form_launches[form] += 1
 
 
 def _chunking(n_lanes, chunk, spp=1):
@@ -217,6 +246,7 @@ class WfParams(ctypes.Structure):
         ("n_groups", ctypes.c_int), ("group", ctypes.c_int),
         ("tile_n", ctypes.c_int),
         ("residual", ctypes.c_int), ("res_surf", ctypes.c_int),
+        ("target", ctypes.c_int),
     ]
 
 
@@ -224,12 +254,20 @@ def _host(x):
     return x.detach().cpu().reshape(-1).tolist()
 
 
-def make_params(static: MarchStatic, arr, seed, spp, corner=False):
+def target_mode(static: MarchStatic):
+    """WfParams.target: 0 the scene has no target; 1 it keeps the target
+    mesh (a one-channel render: its segments split at the crossings); 2
+    a two-channel (surface-aware) film."""
+    if static.sensor.channels == 2:
+        return 2
+    return int(any(s.kind == MESH for s in static.surfaces))
+
+
+def make_params(static: MarchStatic, arr, seed, spp):
     """The kernels' WfParams from the static description and the scene
     tensors. Every float is the scene's float32 value (exact through
-    ctypes); ray_w is the plain version's float32 ray weight. corner:
-    the corner render's static (check_supported)."""
-    check_supported(static, corner)
+    ctypes); ray_w is the plain version's float32 ray weight."""
+    check_supported(static)
     surfaces = static.surfaces
     if len(surfaces) > MAX_SURF:
         raise ValueError(f"wf kernels take at most {MAX_SURF} surfaces, "
@@ -274,6 +312,7 @@ def make_params(static: MarchStatic, arr, seed, spp, corner=False):
     P.residual = residual_mode(static)
     P.res_surf = residual_surface(static) \
         if P.residual == FAST_RESIDUAL else 0
+    P.target = target_mode(static)
     return P
 
 
@@ -333,9 +372,9 @@ def cull_rows(arr):
 
 
 def make_mesh(name, static: MarchStatic, arr):
-    """The culling kernels' WfMesh: pointers into the scene tensors'
-    mesh banks (which must outlive the launch) and each mesh surface's
-    slices of them."""
+    """The kernels' WfMesh: pointers into the scene tensors' mesh banks
+    (which must outlive the launch) and each mesh surface's slices of
+    them."""
     M = WfMesh()
     for field, key, dtype in _MESH_BANKS:
         t = arr[key]
@@ -416,7 +455,10 @@ def tile_rows(static: MarchStatic, arr):
     boxes about the z axis): a row keeps the columns whose voxels meet
     their cross-section, one more each side; with no such surface, the
     whole row. A deposit elsewhere goes to global memory, so the layout
-    only has to hold most of them."""
+    only has to hold most of them. On a two-channel film a voxel takes
+    two floats, and the whole layout may not fit the CTA's shared
+    memory: the rows are laid out widest first, and the kernel keeps
+    those that fit (csrc/wf_trace.cuh shape())."""
     X, Y, _ = static.sensor.res
     bmin = arr["bbox_min"].detach().cpu().double().numpy()
     bmax = arr["bbox_max"].detach().cpu().double().numpy()
@@ -446,7 +488,10 @@ def tile_rows(static: MarchStatic, arr):
         hi = np.where(meets, np.maximum(hi, b), hi).astype(np.int64)
     n = np.maximum(hi - lo, 0)
     lo = np.where(n > 0, lo, 0)
-    off = np.cumsum(n) - n
+    first = (np.argsort(-n, kind="stable") if static.sensor.channels == 2
+             else np.arange(Y))
+    off = np.empty(Y, np.int64)
+    off[first] = np.cumsum(n[first]) - n[first]
     rows = np.stack([lo, n, off - lo, np.zeros_like(n)], 1)
     return torch.from_numpy(rows.astype(np.int32)), int(n.sum())
 
@@ -458,7 +503,7 @@ def _launch_layout(static: MarchStatic, arr):
     order the kernels compute) and the tile layout on arr's device."""
     p = static.projector
     key = (p.n_patterns, p.resx, p.resy, p.n_active, p.identity,
-           static.sensor.res, static.surfaces)
+           static.sensor.res, static.sensor.channels, static.surfaces)
     cached = arr.get("_wf_layout")
     if cached is None or cached[0] != key:
         dev = arr["active_pixels"].device
@@ -473,17 +518,22 @@ def _launch_layout(static: MarchStatic, arr):
 
 
 _PTR = ctypes.c_void_p
+# every loop entry point takes (P, M, tris) first: the scene's mesh and
+# the target's triangle rows; the residual's then the inside mask
+# (_target_args)
+_TGT = [ctypes.POINTER(WfParams), ctypes.POINTER(WfMesh), _PTR]
 _ARGS = {
-    # (P, in, active_pixels, order, starts, rows, out, counters, stream)
-    "wf_fwd": [ctypes.POINTER(WfParams)] + [_PTR] * 8,
-    "wf_bwd": [ctypes.POINTER(WfParams)] + [_PTR] * 8,
-    # (P, in, active_pixels, order, starts, chords, chord_tab, out,
-    # counters, stream)
-    "wf_res_fwd": [ctypes.POINTER(WfParams)] + [_PTR] * 9,
-    "wf_res_bwd": [ctypes.POINTER(WfParams)] + [_PTR] * 9,
-    # (P, c0, c1, in, active_pixels, order, starts, chords, chord_tab,
-    # recs, n_recs, cap, counters, stream)
-    "wf_res_path": [ctypes.POINTER(WfParams), ctypes.c_int, ctypes.c_int] +
+    # (P, M, tris, in, active_pixels, order, starts, rows, out, counters,
+    # stream)
+    "wf_fwd": _TGT + [_PTR] * 8,
+    "wf_bwd": _TGT + [_PTR] * 8,
+    # (P, M, tris, mask, in, active_pixels, order, starts, chords,
+    # chord_tab, out, counters, stream)
+    "wf_res_fwd": _TGT + [_PTR] * 10,
+    "wf_res_bwd": _TGT + [_PTR] * 10,
+    # (P, M, tris, mask, c0, c1, in, active_pixels, order, starts, chords,
+    # chord_tab, recs, n_recs, cap, counters, stream)
+    "wf_res_path": _TGT + [_PTR, ctypes.c_int, ctypes.c_int] +
                    [_PTR] * 8 + [ctypes.c_uint, _PTR, _PTR],
     # (P, recs, n, next, zlo, zhi, acc, counters, stream)
     "wf_res_walk": [ctypes.POINTER(WfParams), _PTR, ctypes.c_uint, _PTR,
@@ -506,7 +556,7 @@ _INFO = {"wf_fwd_info": [ctypes.POINTER(WfParams), ctypes.c_int],
          "wf_bwd_info": [ctypes.POINTER(WfParams), ctypes.c_int],
          "wf_res_fwd_info": [ctypes.POINTER(WfParams), ctypes.c_int],
          "wf_res_bwd_info": [ctypes.POINTER(WfParams), ctypes.c_int],
-         "wf_res_walk_info": [ctypes.c_int],
+         "wf_res_walk_info": [ctypes.c_int, ctypes.c_int],
          "wf_radon_info": [ctypes.POINTER(WfParams),
                            ctypes.POINTER(CullArgs), ctypes.c_int],
          "wf_corner_info": [ctypes.POINTER(WfParams),
@@ -579,6 +629,24 @@ def _stream(dev):
         if dev.type == "cuda" else None
 
 
+def _target_args(name, static, arr, P):
+    """What a loop launch takes besides P: the WfMesh of the scene's mesh
+    banks, the target's triangle rows (cull_rows; None without a target)
+    and the inside mask (arr["inside_mask"], uint8, which a
+    two-channel first-scatter residual reads). Returns (M, tris, mask);
+    the analog pair takes no mask."""
+    M = make_mesh(name, static, arr)
+    tris = cull_rows(arr) if P.target else None
+    mask = arr.get("inside_mask")
+    if P.target == 2 and P.residual in (FIRST_SCATTER, FAST_RESIDUAL):
+        X, Y, Z = static.sensor.res
+        if mask is None:
+            raise ValueError(f"{name}: a two-channel first-scatter residual "
+                             "needs the inside mask (arr['inside_mask'])")
+        _check(name, mask, torch.uint8, (X * Y * Z,))
+    return M, tris, mask
+
+
 def _family_params(name, static, arr, seed, spp):
     """make_params, checked against the kernel's family: the analog pair
     runs the full dose, the residual pair a residual static (scattering,
@@ -617,13 +685,14 @@ def _launch(name, static, arr, x, out, seed, spp, stats):
     dev = x.device
     pix = _pixels(name, static, arr, dev)
     P, order, starts, rows = _family_params(name, static, arr, seed, spp)
+    M, tris, _ = _target_args(name, static, arr, P)
     counter = _counter(stats, dev)
     with torch.cuda.device(dev):
         fn = getattr(build_kernels()[name], name)
-        err = fn(ctypes.byref(P), x.data_ptr(), pix.data_ptr(),
-                 _ptr(order), _ptr(starts), _ptr(rows), out.data_ptr(),
-                 _ptr(counter), _stream(dev))
-    launches[name] += 1
+        err = fn(ctypes.byref(P), ctypes.byref(M), _ptr(tris), x.data_ptr(),
+                 pix.data_ptr(), _ptr(order), _ptr(starts), _ptr(rows),
+                 out.data_ptr(), _ptr(counter), _stream(dev))
+    _count(name, P)
     _err(name, err)
     _add(stats, counter)
 
@@ -684,13 +753,14 @@ def _res_one_pass(libs, name, static, arr, x, out, seed, spp, stats):
     dev = x.device
     pix = _pixels(name, static, arr, dev)
     P, order, starts, bank = _family_params(name, static, arr, seed, spp)
+    M, tris, mask = _target_args(name, static, arr, P)
     tab = _res_chords(libs, arr, bank, P)
     counter = _counter(stats, dev)
     err = getattr(libs[name], name)(
-        ctypes.byref(P), x.data_ptr(), pix.data_ptr(), _ptr(order),
-        _ptr(starts), _ptr(bank), _ptr(tab), out.data_ptr(), _ptr(counter),
-        _stream(dev))
-    launches[name] += 1
+        ctypes.byref(P), ctypes.byref(M), _ptr(tris), _ptr(mask),
+        x.data_ptr(), pix.data_ptr(), _ptr(order), _ptr(starts), _ptr(bank),
+        _ptr(tab), out.data_ptr(), _ptr(counter), _stream(dev))
+    _count(name, P)
     _err(name, err)
     _add(stats, counter)
 
@@ -728,22 +798,25 @@ def _lanes_before(static, arr, spp):
 def res_path(libs, static, arr, data, seed, spp, c0, c1, stats=None):
     """The dda residual forward's path pass over CTAs [c0, c1) of the
     launch order: the segment records it made, (n, 8) float32 (o, d,
-    maxt, base; a view of the engine's buffer), or None when they
+    maxt, base; a view of the engine's buffer; on a two-channel film
+    maxt < 0 for the channel outside the target), or None when they
     overflow the buffer. stats: adds the bounce iterations, the records
     and one batch."""
     dev = data.device
     pix = _pixels("wf_res_fwd", static, arr, dev)
     P, order, starts, bank = _family_params("wf_res_fwd", static, arr, seed,
                                             spp)
+    M, tris, mask = _target_args("wf_res_fwd", static, arr, P)
     tab = _res_chords(libs, arr, bank, P)
     cap, recs, ctr = _split_buffer(static, arr, P, dev)
     ctr.zero_()
     counter = _counter(stats, dev)
     err = libs["wf_res_fwd"].wf_res_path(
-        ctypes.byref(P), c0, c1, data.data_ptr(), pix.data_ptr(),
-        _ptr(order), _ptr(starts), _ptr(bank), _ptr(tab), recs.data_ptr(),
-        ctr.data_ptr(), cap, _ptr(counter), _stream(dev))
-    launches["wf_res_fwd"] += 1
+        ctypes.byref(P), ctypes.byref(M), _ptr(tris), _ptr(mask), c0, c1,
+        data.data_ptr(), pix.data_ptr(), _ptr(order), _ptr(starts),
+        _ptr(bank), _ptr(tab), recs.data_ptr(), ctr.data_ptr(), cap,
+        _ptr(counter), _stream(dev))
+    _count("wf_res_fwd", P)
     _err("wf_res_path", err)
     n = int(ctr[0].item()) & 0xFFFFFFFF
     if n > cap:
@@ -775,7 +848,7 @@ def res_walk(libs, static, arr, recs, acc, seed=0, spp=1, stats=None):
         err = libs["wf_res_fwd"].wf_res_walk(
             ctypes.byref(P), recs.data_ptr(), n, ctr[1:].data_ptr(), zlo, zhi,
             acc.data_ptr(), _ptr(counter), _stream(dev))
-        launches["wf_res_walk"] += 1
+        _count("wf_res_walk", P)
         _err("wf_res_walk", err)
         _add(stats, counter, COUNTERS[1:])
         if counter is not None:
@@ -786,7 +859,8 @@ def res_walk(libs, static, arr, recs, acc, seed=0, spp=1, stats=None):
 def _walk(static, arr, recs, stats=None):
     """Plain version of the walk pass: the accumulator (n_cells,) of
     march.dda_segment on the records (o, d, maxt, base), with albedo 0
-    and em 1 so that its deposit weight is the record's base exactly.
+    and em 1 so that its deposit weight is the record's base exactly; on
+    a two-channel film a record's channel is the sign of its maxt.
     stats: adds the steps."""
     dev = recs.device
     n = recs.shape[0]
@@ -794,11 +868,14 @@ def _walk(static, arr, recs, stats=None):
                       device=dev)
     at = dict(arr, albedo=torch.zeros_like(arr["albedo"]))
     zero = torch.zeros((n,), dtype=torch.float32, device=dev)
+    maxt, inside = recs[:, 6], None
+    if static.sensor.channels == 2:
+        maxt, inside = maxt.abs(), maxt > 0.0
     acc, _ = dda_segment(static, at, True, acc, None, None, recs[:, 0:3],
-                         recs[:, 3:6], zero, recs[:, 6], recs[:, 7],
+                         recs[:, 3:6], zero, maxt, recs[:, 7],
                          torch.ones_like(zero),
                          torch.ones((n,), dtype=torch.bool, device=dev),
-                         stats)
+                         stats, inside)
     return acc
 
 
@@ -858,14 +935,16 @@ def kernel_info(name, static: MarchStatic, arr, count=False):
     card: threads a CTA, CTAs, shared memory, registers, local (stack
     and spill) bytes, CTAs an SM holds, and the tile's voxels. `name`
     "wf_res_walk": the dda residual forward's walk pass; "wf_res_fwd"
-    of a dda static: its path pass."""
+    of a dda static: its path pass. A static that keeps the target
+    (target_mode) reads its target instantiation's shape: the mesh on,
+    and with two channels where the film has them."""
     fam = "wf_res_fwd" if name == "wf_res_walk" else name
     P = _family_params(fam, static, arr, 0, 1)[0]
     out = (ctypes.c_int * 8)()
     with torch.cuda.device(arr["active_pixels"].device):
         lib = build_kernels()[fam]
         if name == "wf_res_walk":
-            err = lib.wf_res_walk_info(int(count), out)
+            err = lib.wf_res_walk_info(int(count), int(P.target == 2), out)
         else:
             err = getattr(lib, name + "_info")(ctypes.byref(P), int(count),
                                                out)
@@ -1145,7 +1224,7 @@ def _cull_params(name, static, arr, seed, spp):
         P = make_params(static, arr, seed, spp)
         P.residual = RADON
         return P
-    P = make_params(static, arr, seed, 1, corner=True)
+    P = make_params(static, arr, seed, 1)
     P.regular_sampling, P.sample_time, P.residual = 1, 0, CORNER
     return P
 
@@ -1221,6 +1300,6 @@ def render_corner(static: MarchStatic, arr, dist, radius=0.1, seed=0,
     version on the CPU."""
     if _route(arr["active_pixels"]):
         return wf_corner(static, arr, dist, radius, seed)
-    check_supported(static, corner=True)
+    check_supported(static)
     return _corner(static, arr, dist, radius, seed,
                    DEFAULT_CHUNK if chunk is None else chunk)

@@ -232,7 +232,8 @@ class _Engine:
         elif kind == "hybrid":
             self.eng = ScatteringEngine(static, arr, device, spp=spp,
                                         spp_grad=spp_grad, chunk=chunk,
-                                        estimator=hybrid_estimator)
+                                        estimator=hybrid_estimator,
+                                        inside_mask=inside_mask)
             self.impl = self.eng.impl
         else:
             self.static = static
@@ -295,8 +296,9 @@ def _final_render(scene, data, device, engine_cfg, surface_aware, spp_ref,
     engine (the scene's own estimator, not hybrid_estimator), else the
     wavefront, at spp_ref with seed 0 (drtvam_tpu/opt/optimize.py:
     359-379). A surface-aware scene keeps its target mesh, as in the
-    JAX package; the final sensor is never surface-aware, so no engine
-    takes the inside mask here."""
+    JAX package: the hybrid residual and the wavefront intersect it,
+    their segments split at its crossings. The final sensor is never
+    surface-aware, so no engine takes the inside mask here."""
     final_sensor = scene.final_sensor
     static_f, arr_f = scene.build(
         mode="volume", include_target=surface_aware, sensor=final_sensor,
@@ -579,9 +581,6 @@ def _optimize_loop(config, scene, device, timings, engine_cfg, optim_type,
                               is not None, max_depth=depth,
                               rr_depth=rp["rr_depth"], **build_kw)
     engine_kind = select_engine(engine_cfg, static)
-    if inside_mask is not None and engine_kind != "ballistic":
-        raise _not_ported(f"surface-aware films on the {engine_kind} "
-                          "engine", 14)
     timings["active_pixels"] = static.projector.n_active
     inv_vol = sensor.inv_volume(tb)
     inv_vol = torch.from_numpy(inv_vol).to(device) if inv_vol.ndim else \

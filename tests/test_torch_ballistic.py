@@ -19,6 +19,7 @@ from drtvam_tpu_torch.ops.ballistic import BallisticEngine as TEngine
 from test_ballistic import VIALS
 from test_torch_scene import _vial
 from torch_threads import one_torch_thread  # noqa: F401
+from torch_jax_native import jax_native_libraries  # noqa: F401
 
 TOL = 1e-5
 

@@ -51,6 +51,7 @@ from test_torch_lbfgs import N_STEPS, PROPS, _torch_fns, problem  # noqa
 from test_torch_optimize import _config, _write, work  # noqa: F401
 from test_torch_scene import _vial
 from torch_threads import one_torch_thread  # noqa: F401
+from torch_jax_native import jax_native_libraries  # noqa: F401
 
 TOL = 1e-5
 

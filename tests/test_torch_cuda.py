@@ -1,7 +1,8 @@
 """The CUDA kernels == their plain versions, on a card: the four
 backprojection kernels, their bf16 operand forms, the wavefront pair
-(wf_fwd, wf_bwd), the residual pair (wf_res_fwd, wf_res_bwd) and the
-culling renders (wf_radon, wf_corner). Free of
+(wf_fwd, wf_bwd), the residual pair (wf_res_fwd, wf_res_bwd), their
+target instantiations (a surface-aware film) and the culling renders
+(wf_radon, wf_corner). Free of
 jax (the card's machine has none), so it runs there with
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -465,3 +466,75 @@ def test_cull_kernels_match_plain(tmp_path, cuda_device):
     assert torch.equal(wf.wf_corner(static, at, 2.5, 0.3, staged=False),
                        plain)
     assert wf.launches["wf_corner"] == before["wf_corner"] + 2
+
+
+def _target_scene(tmp_path, estimator, mode):
+    """_res_scene's scene on a surface-aware film, the target kept: the
+    analog static and tensors on the card (mode "analog"), or the
+    residual's of a ScatteringEngine with the inside mask."""
+    import dataclasses
+    import json
+    from drtvam_tpu_torch.models.scene import Scene
+    from drtvam_tpu_torch.ops.hybrid import ScatteringEngine
+    from drtvam_tpu_torch.ops.march import scene_tensors
+    from drtvam_tpu_torch.ops.mesh import make_box, save_ply
+    path = str(tmp_path / "t.ply")
+    save_ply(make_box((0.5, 0.5, 0.5)), path)
+    film = {"type": "vfilm", "resx": 32, "resy": 32, "resz": 32}
+    sensor = {"type": estimator, "scalex": 16.77, "scaley": 16.77,
+              "scalez": 16.77, "majorant": 10.0}
+    cfg = {
+        "vial": {"type": "cylindrical", "r_ext": 8.385, "r_int": 7.665,
+                 "height": 20.0, "ior": 1.514,
+                 "medium": {"ior": 1.4849, "extinction": 0.1,
+                            "albedo": 0.5, "phase": {"type": "rayleigh"}}},
+        "projector": {"type": "collimated", "n_patterns": 10, "resx": 24,
+                      "resy": 16, "pixel_size": 16.77 / 24,
+                      "motion": "circular", "distance": 25.0},
+        "sensor": dict(sensor, film=dict(film, surface_aware=True)),
+        "final_sensor": json.loads(json.dumps(dict(sensor, film=film))),
+        "target": {"filename": path, "size": 4.0}, "output": str(tmp_path)}
+    sc = Scene(cfg)
+    static, arr = sc.build(mode="volume", include_target=True, max_depth=8,
+                           rr_depth=3, sample_time=True)
+    if mode == "analog":
+        return static, scene_tensors(arr, "cuda")
+    eng = ScatteringEngine(static, arr, "cuda", inside_mask=sc.sensor
+                           .discretize(sc.target_bank()))
+    st = dataclasses.replace(eng.static_s,
+                             fast_residual=mode == "fast_residual")
+    return st, eng.arr
+
+
+@pytest.mark.parametrize("estimator,mode", [
+    ("dda", "analog"), ("delta", "analog"), ("delta", "fast_residual"),
+    ("dda", "first_scatter")])
+def test_target_kernels_match_plain(estimator, mode, tmp_path, cuda_device):
+    """The loop kernels' target instantiations on a two-channel film
+    (the target mesh kept): each channel to WF_TOL of its max (up to
+    0.2 % of a point estimator's values off by more), the adjoint
+    bitwise on two launches, each launch counted by its form
+    (chip_smoke.py phase 13 runs more scenes)."""
+    st, at = _target_scene(tmp_path, estimator, mode)
+    assert wf.target_mode(st) == 2
+    rng = np.random.default_rng(8)
+    data = torch.from_numpy(rng.uniform(0.5, 1.5, st.projector.n_active)
+                            .astype(np.float32)).to(cuda_device)
+    dL = torch.from_numpy(rng.uniform(0.0, 1.0, st.sensor.n_cells)
+                          .astype(np.float32)).to(cuda_device)
+    wf.reset_launches()
+    dose = wf.forward(st, at, data, 7, 4)
+    grad = wf.adjoint(st, at, 7, 4, wf.DEFAULT_CHUNK, dL)
+    grad2 = wf.adjoint(st, at, 7, 4, wf.DEFAULT_CHUNK, dL)
+    torch.cuda.synchronize()
+    fam = "wf" if mode == "analog" else "wf_res"
+    assert wf.form_launches[f"{fam}_fwd:target2"] >= 1
+    assert wf.form_launches[f"{fam}_bwd:target2"] == 2
+    ref = wf._forward(st, at, data, 7, 4, wf.DEFAULT_CHUNK)
+    for c in range(2):
+        o, r = dose.reshape(-1, 2)[:, c], ref.reshape(-1, 2)[:, c]
+        assert float(r.abs().max()) > 0
+        off = (o - r).abs() > WF_TOL * float(r.abs().max())
+        assert int(off.sum()) <= (2e-3 * int((r != 0).sum())
+                                  if estimator != "dda" else 0)
+    assert torch.equal(grad, grad2)

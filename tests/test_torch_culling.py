@@ -54,6 +54,7 @@ from drtvam_tpu_torch.opt.optimize import main as tmain
 
 from test_torch_wf_template import STUB
 from torch_threads import one_torch_thread  # noqa: F401
+from torch_jax_native import jax_native_libraries  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -57,6 +57,7 @@ from drtvam_tpu_torch.ops.transport2d import build_chords, chord_pack, \
 from drtvam_tpu_torch.opt.optimize import main as tmain
 from drtvam_tpu_torch.opt.optimize import select_engine
 from torch_threads import one_torch_thread  # noqa: F401
+from torch_jax_native import jax_native_libraries  # noqa: F401
 
 SAME_SEED_TOL = 1e-4
 POINT_SHARE = 2e-3

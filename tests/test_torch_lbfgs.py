@@ -17,6 +17,7 @@ from drtvam_tpu_torch.opt.loss import ThresholdedLoss as TLoss
 
 from test_torch_ballistic import _engines
 from torch_threads import one_torch_thread  # noqa: F401
+from torch_jax_native import jax_native_libraries  # noqa: F401
 
 N_STEPS = 5
 PROPS = {"tl": 0.85, "tu": 0.95, "weight_sparsity": 1e-6}

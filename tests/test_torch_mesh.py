@@ -28,6 +28,7 @@ from drtvam_tpu_torch.ops.mesh_grid import (GRID_MIN_TRIS,
                                             ray_triangles_grid as trtg)
 
 from torch_threads import one_torch_thread  # noqa: F401
+from torch_jax_native import jax_native_libraries  # noqa: F401
 
 # tests/test_mesh_grid.py's meshes and ray seeds
 MESHES = {"gear": (lambda: make_hollow_gear(segments=240), 1),
@@ -157,13 +158,3 @@ def test_mesh_scene_matches_jax(target, mode, tmp_path):
     fin = np.isfinite(jt)
     np.testing.assert_allclose(tt.numpy()[fin], jt[fin], rtol=0,
                                atol=2e-6 * np.abs(jt[fin]).max())
-
-
-def test_volume_render_with_the_target_raises(tmp_path):
-    path = str(tmp_path / "t.ply")
-    save_ply(TARGETS["box"](), path)
-    static, _ = TScene(_config(path, "cylindrical")).build(
-        mode="volume", include_target=True)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tmarch.check_supported(static)
-    tmarch.check_supported(static, corner=True)

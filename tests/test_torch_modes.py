@@ -40,6 +40,7 @@ from drtvam_tpu_torch.opt.device_lbfgs import DeviceLinearLBFGS
 from drtvam_tpu_torch.opt.optimize import main as tmain
 from drtvam_tpu_torch.opt.optimize import optimize as toptimize
 from torch_threads import one_torch_thread  # noqa: F401
+from torch_jax_native import jax_native_libraries  # noqa: F401
 
 SAME_SEED_TOL = 1e-4
 

@@ -29,6 +29,7 @@ import pytest
 from drtvam_tpu.opt.optimize import optimize as joptimize
 from drtvam_tpu_torch.opt.optimize import optimize as toptimize
 from torch_threads import one_torch_thread  # noqa: F401
+from torch_jax_native import jax_native_libraries  # noqa: F401
 
 OPTIMIZERS = {"lbfgs": {"type": "lbfgs"},
               "adam": {"type": "adam", "lr": 0.05},

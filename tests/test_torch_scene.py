@@ -13,6 +13,7 @@ from drtvam_tpu_torch.convert import scene_from_jax
 from drtvam_tpu_torch.models.scene import Scene as TScene
 
 from test_ballistic import VIALS
+from torch_jax_native import jax_native_libraries  # noqa: F401
 
 EXAMPLES = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "examples")

@@ -37,8 +37,8 @@ from drtvam_tpu_torch.ops.mesh import make_box_with_hole, save_ply
 from drtvam_tpu_torch.ops.voxelize import fractional_volumes
 from drtvam_tpu_torch.opt import loss as tloss
 from drtvam_tpu_torch.opt.optimize import main as tmain
-from drtvam_tpu_torch.opt.optimize import optimize as toptimize
 from torch_threads import one_torch_thread  # noqa: F401
+from torch_jax_native import jax_native_libraries  # noqa: F401
 
 TOL = 1e-5
 
@@ -220,8 +220,3 @@ def test_surface_aware_filter_radon_keeps_the_same_pixels(work):
             kept.append(f["active_pixels"])
     np.testing.assert_array_equal(kept[1], kept[0])
     assert 0 < kept[1].size < 30 * 48 * 16
-
-
-def test_surface_aware_on_the_wavefront_engine_raises(work):
-    with pytest.raises(NotImplementedError, match="item 14"):
-        toptimize(_config(work, "wf", engine="wavefront"), device="cpu")

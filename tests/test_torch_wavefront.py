@@ -41,6 +41,7 @@ from drtvam_tpu_torch.models.scene import Scene as TScene
 from drtvam_tpu_torch.ops import render as tr
 from drtvam_tpu_torch.ops.ballistic import BallisticEngine
 from drtvam_tpu_torch.ops.march import scene_tensors
+from torch_jax_native import jax_native_libraries  # noqa: F401
 
 SAME_SEED_TOL = 1e-4
 D_EXT, D_INT = 16.77, 15.33

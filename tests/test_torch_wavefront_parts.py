@@ -33,6 +33,7 @@ from drtvam_tpu_torch.ops import fresnel as tfres
 from drtvam_tpu_torch.ops import intersect as tint
 from drtvam_tpu_torch.ops import march as tmarch
 from drtvam_tpu_torch.ops import medium as tmed
+from torch_jax_native import jax_native_libraries  # noqa: F401
 
 TOL = 2e-6
 
@@ -274,15 +275,10 @@ def test_unported_modes_raise(target_path):
     sc = _jscene(target_path, PROJECTORS["collimated"])
     static, arr = sc.build(mode="volume", include_target=False)
     tstatic, _ = scene_from_jax(static, arr)
-    surface_aware = dataclasses.replace(tstatic.sensor, surface_aware=True)
-    # a mesh surface: the target (kept in a volume render only for a
-    # surface-aware film) or an occlusion
-    mesh = tmarch.SurfaceStatic(kind=MESH, bsdf=NULL, medium_side=0,
-                                is_target=True, tri_slice=(0, 1))
-    occlusion = dataclasses.replace(mesh, is_target=False)
-    for change, item in (({"surfaces": tstatic.surfaces + (mesh,)}, "14"),
-                         ({"sensor": surface_aware}, "14"),
-                         ({"mode": "radon",
+    # a mesh surface that is not the target: an occlusion
+    occlusion = tmarch.SurfaceStatic(kind=MESH, bsdf=NULL, medium_side=0,
+                                     is_target=False, tri_slice=(0, 1))
+    for change, item in (({"mode": "radon",
                            "surfaces": tstatic.surfaces + (occlusion,)},
                           "17"),
                          ({"medium_grads": True, "scattered_only": True},

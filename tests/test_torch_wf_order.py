@@ -31,6 +31,7 @@ from drtvam_tpu_torch.ops import render as wf
 from drtvam_tpu_torch.ops.march import _grid, scene_tensors
 
 from torch_threads import one_torch_thread  # noqa: F401
+from torch_jax_native import jax_native_libraries  # noqa: F401
 
 
 @pytest.fixture(scope="module")

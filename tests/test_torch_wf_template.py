@@ -19,6 +19,7 @@ up to 0.2 % of the nonzero values may be off by more."""
 import ctypes
 import ctypes.util
 import dataclasses
+import json
 import shutil
 import subprocess
 
@@ -77,17 +78,39 @@ HARNESS = r"""
 using namespace wf;
 static std::vector<int> traced;
 
+// the kernels' target arguments (TGT): the mesh, its triangle rows in
+// global memory, the inside mask
+struct Target {
+  const WfMesh* M;
+  const float4* tris;
+  const unsigned char* mask;
+};
+template <class SinkT>
+void set_target(SinkT& S, const WfParams& P, const Target& T) {
+  if constexpr (SinkT::TGT) {
+    S.two = P.target == 2;
+    S.mesh = T.M;
+    S.banks = {T.tris, T.M->cell_start, T.M->tri_ids};
+    S.mask = T.mask;
+  }
+}
+
 // the kernel's launch order on one thread: block by block, each block's
 // range task by task (task_position); the forward's home-slice tile
-// zeroed first and flushed last (the adjoint and the residual take none)
-template <int EST, bool SCAT, bool TONLY, int RES, bool PRIMAL>
-void run_blocks(const WfParams& P, const float* in, const int* ap,
-                const int* order, const int* starts, const int4* rows,
-                const float* chords, float* out, unsigned long long* c) {
+// (a voxel's channels side by side) zeroed first and flushed last (the
+// adjoint and the residual take none)
+template <int EST, bool SCAT, bool TONLY, int RES, bool PRIMAL, bool TGT>
+void run_blocks(const WfParams& P, const Target& T, const float* in,
+                const int* ap, const int* order, const int* starts,
+                const int4* rows, const float* chords, float* out,
+                unsigned long long* c) {
   Grid G;
   G.init(P);
-  std::vector<float> tile(P.tile_n);
-  Sink<PRIMAL, true> S{out, in, tile.data(), rows, -1, 0.0f, 0, 0, 0, 0};
+  const int ch = P.target == 2 ? 2 : 1;
+  std::vector<float> tile(ch * P.tile_n);
+  Sink<PRIMAL, true, TGT> S{out, in, tile.data(), rows, -1, 0.0f,
+                            0,   0,  0,           0};
+  set_target(S, P, T);
   unsigned long long slots = 0;
   for (int b = 0; b < P.resy * P.n_groups; ++b) {
     int lo, hi, py;
@@ -95,8 +118,9 @@ void run_blocks(const WfParams& P, const float* in, const int* ap,
     S.home = P.tile_n > 0 ? home_slice(P, G, py) : -1;
     const int slice0 = S.home * G.res[0] * G.res[1];
     for (int y = 0; PRIMAL && S.home >= 0 && y < G.res[1]; ++y)
-      for (int x = rows[y].x; x < rows[y].x + rows[y].y; ++x)
-        tile[rows[y].z + x] = 0.0f;
+      for (int i = ch * (rows[y].z + rows[y].x);
+           i < ch * (rows[y].z + rows[y].x + rows[y].y); ++i)
+        tile[i] = 0.0f;
     for (int t = 0; t < task_count<PRIMAL>(P, lo, hi); ++t) {
       unsigned long long longest = 0;
       for (int l = 0; l < 32; ++l) {
@@ -108,10 +132,13 @@ void run_blocks(const WfParams& P, const float* in, const int* ap,
       }
       slots += 32 * longest;
     }
-    for (int y = 0; PRIMAL && S.home >= 0 && y < G.res[1]; ++y)
-      for (int x = rows[y].x; x < rows[y].x + rows[y].y; ++x)
-        if (tile[rows[y].z + x] != 0.0f)
-          atomicAdd(out + slice0 + y * G.res[0] + x, tile[rows[y].z + x]);
+    for (int y = 0; PRIMAL && S.home >= 0 && y < G.res[1]; ++y) {
+      const int row0 = slice0 + y * G.res[0] + rows[y].x;
+      for (int i = 0; i < ch * rows[y].y; ++i) {
+        const float v = tile[ch * (rows[y].z + rows[y].x) + i];
+        if (v != 0.0f) atomicAdd(out + ch * row0 + i, v);
+      }
+    }
   }
   const unsigned long long k[5] = {S.iters, S.steps, S.n_tile, S.n_global,
                                    slots};
@@ -120,13 +147,15 @@ void run_blocks(const WfParams& P, const float* in, const int* ap,
 
 // lane order, no tile: active pixel 0, 1, 2, ..., each pixel's lanes
 // in lane order on one thread
-template <int EST, bool SCAT, bool TONLY, int RES, bool PRIMAL>
-void run_lanes(const WfParams& P, const float* in, const int* ap,
-               const int*, const int*, const int4*, const float* chords,
-               float* out, unsigned long long* c) {
+template <int EST, bool SCAT, bool TONLY, int RES, bool PRIMAL, bool TGT>
+void run_lanes(const WfParams& P, const Target& T, const float* in,
+               const int* ap, const int*, const int*, const int4*,
+               const float* chords, float* out, unsigned long long* c) {
   Grid G;
   G.init(P);
-  Sink<PRIMAL, true> S{out, in, nullptr, nullptr, -1, 0.0f, 0, 0, 0, 0};
+  Sink<PRIMAL, true, TGT> S{out, in, nullptr, nullptr, -1, 0.0f,
+                            0,   0,  0,       0};
+  set_target(S, P, T);
   for (int aidx = 0; aidx < P.n_active; ++aidx) {
     const float em = PRIMAL ? in[aidx] * P.ray_w : 1.0f;
     if (em == 0.0f) continue;
@@ -144,25 +173,38 @@ void run_lanes(const WfParams& P, const float* in, const int* ap,
   for (int i = 0; i < 4; ++i) c[i] += k[i];
 }
 
-template <bool PRIMAL, bool BLOCKS>
-int dispatch(const WfParams* p, const float* in, const int* ap,
-             const int* order, const int* starts, const int4* rows,
-             float* out, unsigned long long* c) {
-  traced.clear();
+template <bool PRIMAL, bool BLOCKS, bool TGT>
+int dispatch_target(const WfParams* p, const Target& tg, const float* in,
+                    const int* ap, const int* order, const int* starts,
+                    const int4* rows, float* out, unsigned long long* c) {
   const int key = p->estimator * 4 + (p->has_scattering ? 2 : 0) +
                   (p->transmission_only ? 1 : 0);
 #define C(E, S, T)                                                       \
   case E * 4 + (S ? 2 : 0) + (T ? 1 : 0):                                \
-    (BLOCKS ? run_blocks<E, S, T, ANALOG, PRIMAL>                        \
-            : run_lanes<E, S, T, ANALOG, PRIMAL>)(                       \
-        *p, in, ap, order, starts, rows, nullptr, out, c);               \
+    (BLOCKS ? run_blocks<E, S, T, ANALOG, PRIMAL, TGT>                   \
+            : run_lanes<E, S, T, ANALOG, PRIMAL, TGT>)(                  \
+        *p, tg, in, ap, order, starts, rows, nullptr, out, c);           \
     break;
   switch (key) {
     C(0, 0, 0) C(0, 0, 1) C(0, 1, 0) C(0, 1, 1) C(1, 0, 0) C(1, 0, 1)
     C(1, 1, 0) C(1, 1, 1) C(2, 0, 0) C(2, 0, 1) C(2, 1, 0) C(2, 1, 1)
     default: return 1;
   }
+#undef C
   return 0;
+}
+
+template <bool PRIMAL, bool BLOCKS>
+int dispatch(const WfParams* p, const WfMesh* M, const float4* tris,
+             const float* in, const int* ap, const int* order,
+             const int* starts, const int4* rows, float* out,
+             unsigned long long* c) {
+  traced.clear();
+  const Target tg{M, tris, nullptr};
+  return p->target ? dispatch_target<PRIMAL, BLOCKS, true>(
+                         p, tg, in, ap, order, starts, rows, out, c)
+                   : dispatch_target<PRIMAL, BLOCKS, false>(
+                         p, tg, in, ap, order, starts, rows, out, c);
 }
 
 // the residual kernels' launch order on one thread (res_kernel): CTAs
@@ -197,12 +239,14 @@ void run_res_blocks(const WfParams& P, int c0, int c1, const float* in,
 // by estimator and residual mode: the kernels' order with their tables
 // (BLOCKS; tab null: each lane computes its chord entry), or lane order
 // with every lane's set-up inline
-template <bool PRIMAL, bool BLOCKS>
-int res_dispatch(const WfParams* p, const float* in, const int* ap,
-                 const int* order, const int* starts, const float* chords,
-                 const float4* tab, float* out, unsigned long long* c) {
-  traced.clear();
-  Sink<PRIMAL, true> S{out, in, nullptr, nullptr, -1, 0.0f, 0, 0, 0, 0};
+template <bool PRIMAL, bool BLOCKS, bool TGT>
+int res_dispatch_target(const WfParams* p, const Target& tg, const float* in,
+                        const int* ap, const int* order, const int* starts,
+                        const float* chords, const float4* tab, float* out,
+                        unsigned long long* c) {
+  Sink<PRIMAL, true, TGT> S{out, in, nullptr, nullptr, -1, 0.0f,
+                            0,   0,  0,       0};
+  set_target(S, *p, tg);
   unsigned long long slots = 0;
   const int n_ctas = p->resy * p->n_groups;
 #define R(E, M)                                                            \
@@ -211,8 +255,9 @@ int res_dispatch(const WfParams* p, const float* in, const int* ap,
       run_res_blocks<E, M>(*p, 0, n_ctas, in, ap, order, starts, chords,   \
                            tab, out, S, slots);                            \
     else                                                                   \
-      run_lanes<E, true, true, M, PRIMAL>(*p, in, ap, order, starts,       \
-                                          nullptr, chords, out, c);        \
+      run_lanes<E, true, true, M, PRIMAL, TGT>(*p, tg, in, ap, order,      \
+                                               starts, nullptr, chords,    \
+                                               out, c);                    \
     break;
   switch (p->estimator * 4 + p->residual) {
     R(DDA, SCAT_ONLY) R(DDA, FIRST_SCATTER) R(RATIO, SCAT_ONLY)
@@ -220,6 +265,7 @@ int res_dispatch(const WfParams* p, const float* in, const int* ap,
     R(DELTA, FAST_RESIDUAL)
     default: return 1;
   }
+#undef R
   if (BLOCKS) {
     const unsigned long long k[5] = {S.iters, S.steps, S.n_tile, S.n_global,
                                      slots};
@@ -228,12 +274,20 @@ int res_dispatch(const WfParams* p, const float* in, const int* ap,
   return 0;
 }
 #define RES_ENTRY(NAME, PRIMAL, BLOCKS)                                     \
-  extern "C" int NAME(const WfParams* p, const float* in, const int* ap,   \
-                      const int* order, const int* starts,                 \
-                      const float* chords, const float4* tab, float* out,  \
+  extern "C" int NAME(const WfParams* p, const WfMesh* M,                  \
+                      const float4* tris, const unsigned char* mask,       \
+                      const float* in, const int* ap, const int* order,    \
+                      const int* starts, const float* chords,              \
+                      const float4* tab, float* out,                       \
                       unsigned long long* c, void*) {                      \
-    return res_dispatch<PRIMAL, BLOCKS>(p, in, ap, order, starts, chords,  \
-                                        tab, out, c);                      \
+    traced.clear();                                                        \
+    const Target tg{M, tris, mask};                                        \
+    return p->target ? res_dispatch_target<PRIMAL, BLOCKS, true>(          \
+                           p, tg, in, ap, order, starts, chords, tab, out, \
+                           c)                                              \
+                     : res_dispatch_target<PRIMAL, BLOCKS, false>(         \
+                           p, tg, in, ap, order, starts, chords, tab, out, \
+                           c);                                             \
   }
 RES_ENTRY(wf_res_fwd, true, true)
 RES_ENTRY(wf_res_bwd, false, true)
@@ -241,15 +295,15 @@ RES_ENTRY(wf_res_fwd_lanes, true, false)
 RES_ENTRY(wf_res_bwd_lanes, false, false)
 
 // the dda forward's path pass over CTAs [c0, c1), as wf_res_path
-extern "C" int wf_res_path(const WfParams* p, int c0, int c1,
-                           const float* in, const int* ap, const int* order,
-                           const int* starts, const float* chords,
-                           const float4* tab, float4* recs, unsigned* n_recs,
-                           unsigned cap, unsigned long long* c, void*) {
-  traced.clear();
-  if (p->estimator != DDA) return 1;
-  PathSink<true> S{{nullptr, in, nullptr, nullptr, -1, 0.0f, 0, 0, 0, 0},
-                   recs, n_recs, cap};
+template <bool TGT>
+int path_target(const WfParams* p, const Target& tg, int c0, int c1,
+                const float* in, const int* ap, const int* order,
+                const int* starts, const float* chords, const float4* tab,
+                float4* recs, unsigned* n_recs, unsigned cap,
+                unsigned long long* c) {
+  PathSink<true, TGT> S{{nullptr, in, nullptr, nullptr, -1, 0.0f, 0, 0, 0, 0},
+                        recs, n_recs, cap};
+  set_target(S, *p, tg);
   unsigned long long slots = 0;
   if (p->residual == SCAT_ONLY)
     run_res_blocks<DDA, SCAT_ONLY>(*p, c0, c1, in, ap, order, starts, chords,
@@ -262,11 +316,28 @@ extern "C" int wf_res_path(const WfParams* p, int c0, int c1,
   if (c != nullptr) c[0] += S.iters;
   return 0;
 }
+extern "C" int wf_res_path(const WfParams* p, const WfMesh* M,
+                           const float4* tris, const unsigned char* mask,
+                           int c0, int c1, const float* in, const int* ap,
+                           const int* order, const int* starts,
+                           const float* chords, const float4* tab,
+                           float4* recs, unsigned* n_recs, unsigned cap,
+                           unsigned long long* c, void*) {
+  traced.clear();
+  if (p->estimator != DDA) return 1;
+  const Target tg{M, tris, mask};
+  return p->target ? path_target<true>(p, tg, c0, c1, in, ap, order, starts,
+                                       chords, tab, recs, n_recs, cap, c)
+                   : path_target<false>(p, tg, c0, c1, in, ap, order,
+                                        starts, chords, tab, recs, n_recs,
+                                        cap, c);
+}
 
 // the walk pass in z-slices [zlo, zhi) as wf_res_walk runs it: N_WARPS
-// warps of 32 threads in turns, each warp's threads without a walk served in lane order from
-// the warp's chunk of records (WF_WALK_CHUNK claimed from *next at a
-// time), one step of every busy thread a turn
+// warps of 32 threads in turns, each warp's threads without a walk
+// served in lane order from the warp's chunk of records (WF_WALK_CHUNK
+// claimed from *next at a time), one step of every busy thread a turn;
+// on a two-channel film a record's channel in the sign of its maxt
 extern "C" int wf_res_walk(const WfParams* p, const float4* recs, unsigned n,
                            unsigned* next, int zlo, int zhi, float* acc,
                            unsigned long long* c, void*) {
@@ -274,10 +345,14 @@ extern "C" int wf_res_walk(const WfParams* p, const float4* recs, unsigned n,
   const WfParams& P = *p;
   Grid G;
   G.init(P);
-  Sink<true, true> S{acc, nullptr, nullptr, nullptr, -1, 0.0f, 0, 0, 0, 0};
+  const bool two = P.target == 2;
+  Sink<true, true, true> S{acc, nullptr, nullptr, nullptr, -1, 0.0f,
+                           0,   0,       0,       0};
+  S.two = two;
   struct Thread {
     DdaWalk w;
     float base;
+    int chan;
     bool busy;
   };
   std::vector<Thread> T(32 * N_WARPS);
@@ -309,8 +384,10 @@ extern "C" int wf_res_walk(const WfParams* p, const float4* recs, unsigned n,
           if (rank < end[wi] - cur[wi]) {
             const unsigned r = cur[wi] + rank;
             const float4 a = recs[2 * r], b = recs[2 * r + 1];
+            th[l].chan = two && b.z < 0.0f ? 1 : 0;
             th[l].busy = th[l].w.init(P, G, V3{a.x, a.y, a.z},
-                                      V3{a.w, b.x, b.y}, b.z) &&
+                                      V3{a.w, b.x, b.y},
+                                      two ? std::fabs(b.z) : b.z) &&
                          th[l].w.meets(zlo, zhi);
             th[l].base = b.w;
           }
@@ -329,6 +406,7 @@ extern "C" int wf_res_walk(const WfParams* p, const float4* recs, unsigned n,
       for (int l = 0; l < 32; ++l)
         if (th[l].busy) {
           ++walking;
+          S.chan = th[l].chan;
           th[l].busy = th[l].w.step<true>(P, G, S, th[l].base, P.sigma_t,
                                           zlo, zhi);
         }
@@ -357,10 +435,13 @@ extern "C" int res_frames(const WfParams* p, float* out) {
   return (int)sizeof(Frame);
 }
 #define ENTRY(NAME, PRIMAL, BLOCKS)                                          \
-  extern "C" int NAME(const WfParams* p, const float* in, const int* ap,   \
-                      const int* order, const int* starts, const int4* rows,\
-                      float* out, unsigned long long* c, void*) {          \
-    return dispatch<PRIMAL, BLOCKS>(p, in, ap, order, starts, rows, out, c);\
+  extern "C" int NAME(const WfParams* p, const WfMesh* M,                  \
+                      const float4* tris, const float* in, const int* ap,  \
+                      const int* order, const int* starts,                 \
+                      const int4* rows, float* out, unsigned long long* c, \
+                      void*) {                                             \
+    return dispatch<PRIMAL, BLOCKS>(p, M, tris, in, ap, order, starts,     \
+                                    rows, out, c);                         \
   }
 ENTRY(wf_fwd, true, true)
 ENTRY(wf_bwd, false, true)
@@ -406,9 +487,12 @@ def template_lib(tmp_path_factory):
 
 
 def _scene(path, estimator, albedo, projector, vial, tonly, diffuse=False,
-           n_patterns=6, store="identity", sample_time=True):
+           n_patterns=6, store="identity", sample_time=True, target=None):
     """store: "identity", "crop" (a cropped DMD window) or "subset" (a
-    numpy-seeded random half of the pixels, in random order)."""
+    numpy-seeded random half of the pixels, in random order). target:
+    None (no target in the scene), "kept" (the target mesh kept, one
+    channel: a surface-aware scene's final render) or "surface_aware" (a
+    two-channel film; the inside mask in arr["inside_mask"])."""
     med = {"ior": 1.4849, "extinction": 0.1, "albedo": albedo,
            "phase": {"type": "rayleigh"}}
     vials = {"cylindrical": {"type": "cylindrical", "r_ext": 8.385,
@@ -440,16 +524,21 @@ def _scene(path, estimator, albedo, projector, vial, tonly, diffuse=False,
                       "film": {"type": "vfilm", "resx": 20, "resy": 20,
                                "resz": 20}},
            "target": {"filename": path, "size": 4.0}, "output": "."}
+    if target == "surface_aware":
+        cfg["final_sensor"] = json.loads(json.dumps(cfg["sensor"]))
+        cfg["sensor"]["film"]["surface_aware"] = True
     scene = Scene(cfg)
     if store == "subset":
         n = n_patterns * 16 * 12
         pick = np.random.default_rng(11).permutation(n)[:n // 2]
         scene.projector.set_active(pick.astype(np.int32),
                                    np.ones(pick.size, np.float32))
-    static, arr = scene.build(mode="volume", include_target=False,
+    static, arr = scene.build(mode="volume", include_target=target is not None,
                               max_depth=8, rr_depth=3,
                               transmission_only=tonly,
                               sample_time=sample_time)
+    if target == "surface_aware":
+        arr["inside_mask"] = scene.sensor.discretize(scene.target_bank())
     if diffuse:
         # the inner vial's outer wall made diffuse (reflectance 0.6): the
         # occlusions' BSDF, which no analytic vial has
@@ -473,9 +562,11 @@ CASES = [("dda", 0.0, "collimated", "cylindrical", True),
 def _run(lib, name, static, at, x, n_out, seed, spp):
     P = wf.make_params(static, at, seed, spp)
     order, starts, rows, P.tile_n = wf._launch_layout(static, at)
+    M, tris, _ = wf._target_args(name, static, at, P)
     out = torch.zeros(n_out)
     counters = (ctypes.c_ulonglong * len(wf.COUNTERS))()
-    assert getattr(lib, name)(ctypes.byref(P), x.data_ptr(),
+    assert getattr(lib, name)(ctypes.byref(P), ctypes.byref(M),
+                              wf._ptr(tris), x.data_ptr(),
                               at["active_pixels"].data_ptr(),
                               wf._ptr(order), wf._ptr(starts),
                               rows.data_ptr(), out.data_ptr(),
@@ -489,11 +580,14 @@ def _traced(lib, n):
     return buf.to(torch.int64)
 
 
-def _close(out, ref, point):
-    scale = float(ref.abs().max())
-    assert scale > 0.0
-    off = int(((out - ref).abs() > 1e-4 * scale).sum())
-    assert off <= (2e-3 * int((ref != 0).sum()) if point else 0), off
+def _close(out, ref, point, channels=1):
+    """Values to 1e-4 of the max, per channel of a two-channel dose."""
+    for c in range(channels):
+        o, f = out.reshape(-1, channels)[:, c], ref.reshape(-1, channels)[:, c]
+        scale = float(f.abs().max())
+        assert scale > 0.0
+        off = int(((o - f).abs() > 1e-4 * scale).sum())
+        assert off <= (2e-3 * int((f != 0).sum()) if point else 0), off
 
 
 def _deposits_add_up(stats, estimator):
@@ -606,11 +700,13 @@ RES_CASES = [("dda", "first_scatter", "cylindrical", "collimated"),
 
 def _residual(path, estimator, mode, vial, projector, **scene):
     """The hybrid engine's residual static and tensors on a small
-    scattering scene: its chord bank, its mode."""
+    scattering scene: its chord bank, its mode (and with
+    target="surface_aware" the inside mask)."""
     static, arr = _scene(path, estimator, 0.5, projector, vial, True,
                          **scene)
     eng = ScatteringEngine(static, arr, "cpu",
-                           first_scatter=mode != "scattered_only")
+                           first_scatter=mode != "scattered_only",
+                           inside_mask=arr.pop("inside_mask", None))
     st = dataclasses.replace(eng.static_s,
                              fast_residual=mode == "fast_residual")
     assert wf.make_params(st, eng.arr, 0, 1).residual == \
@@ -623,11 +719,13 @@ def _run_res(lib, name, static, at, x, n_out, seed, spp):
     chord table, or lane order ("_lanes") with every set-up inline."""
     P, order, starts, bank = wf._family_params(name.replace("_lanes", ""),
                                                static, at, seed, spp)
+    M, tris, mask = wf._target_args(name, static, at, P)
     tab = None if name.endswith("_lanes") else wf._res_chords(
         _libs(lib), at, bank, P)
     out = torch.zeros(n_out)
     counters = (ctypes.c_ulonglong * len(wf.COUNTERS))()
-    assert getattr(lib, name)(ctypes.byref(P), x.data_ptr(),
+    assert getattr(lib, name)(ctypes.byref(P), ctypes.byref(M),
+                              wf._ptr(tris), wf._ptr(mask), x.data_ptr(),
                               at["active_pixels"].data_ptr(),
                               wf._ptr(order), wf._ptr(starts), wf._ptr(bank),
                               wf._ptr(tab), out.data_ptr(),
@@ -883,3 +981,153 @@ def test_walk_pass_equals_its_plain_version(template_lib):
     assert stats["steps"] == ref_stats["steps"] > 0
     assert stats["global_deposits"] == stats["steps"]
     _close(acc, ref, False)
+
+
+# the target kept: (estimator, albedo, projector, vial, transmission
+# only, target). A two-channel film deposits by the lane's inside flag,
+# flipped at the target mesh's crossings; a one-channel render keeping
+# the target (a surface-aware scene's final render) splits its segments
+# there
+TARGET_CASES = [("dda", 0.0, "collimated", "cylindrical", True,
+                 "surface_aware"),
+                ("delta", 0.5, "collimated", "square", True,
+                 "surface_aware"),
+                ("ratio", 0.5, "telecentric", "cylindrical", False,
+                 "surface_aware"),
+                ("dda", 0.5, "collimated", "cylindrical", True, "kept")]
+
+
+@pytest.mark.parametrize("case", TARGET_CASES)
+def test_target_template_traces_the_plain_versions_paths(case,
+                                                         template_lib):
+    """The analog pair's target instantiations in the kernels' order
+    (the forward's two-channel tile) against the plain version: the same
+    bounce iterations and steps, values to 1e-4 of each channel's max;
+    the adjoint bitwise equal to lane order."""
+    lib, path = template_lib
+    *scene, target = case
+    static, arr = _scene(path, *scene, target=target)
+    arr.pop("inside_mask", None)
+    at = scene_tensors(arr, "cpu")
+    ch = static.sensor.channels
+    assert ch == (2 if target == "surface_aware" else 1)
+    assert wf.make_params(static, at, 0, 1).target == ch
+    rng = np.random.default_rng(16)
+    data = torch.from_numpy(rng.uniform(0.5, 1.5, static.projector.n_active)
+                            .astype(np.float32))
+    dL = torch.from_numpy(rng.uniform(0.0, 1.0, static.sensor.n_cells)
+                          .astype(np.float32))
+    seed, spp = 4, 2
+    ref_stats, ref_g_stats = {}, {}
+    dose_ref = wf._forward(static, at, data, seed, spp, wf.DEFAULT_CHUNK,
+                           ref_stats)
+    grad_ref = wf._adjoint(static, at, seed, spp, wf.DEFAULT_CHUNK, dL,
+                           ref_g_stats)
+    dose, stats = _run(lib, "wf_fwd", static, at, data,
+                       static.sensor.n_cells, seed, spp)
+    grad, g_stats = _run(lib, "wf_bwd", static, at, dL,
+                         static.projector.n_active, seed, spp)
+    grad_l, _ = _run(lib, "wf_bwd_lanes", static, at, dL,
+                     static.projector.n_active, seed, spp)
+    for ours, ref in ((stats, ref_stats), (g_stats, ref_g_stats)):
+        assert {k: ours[k] for k in ref} == ref
+        _deposits_add_up(ours, static.sensor.estimator)
+    if case[2] == "collimated" and static.sensor.estimator == "dda":
+        assert stats["tile_deposits"] > 0
+    point = static.sensor.estimator in ("ratio", "delta")
+    _close(dose, dose_ref, point, ch)
+    _close(grad, grad_ref, point)
+    assert torch.equal(grad, grad_l)
+    if ch == 2:
+        # both channels hold dose: the inside one from the crossings
+        assert (dose.reshape(-1, 2).sum(0) > 0).all()
+
+
+def test_two_channel_tile_keeps_the_widest_rows():
+    """On a two-channel film the home-slice tile holds two floats a voxel,
+    and the kernel keeps the rows that end within the voxels its shared
+    memory holds (csrc/wf_trace.cuh shape()): the rows are laid out
+    widest first, so that any such cut keeps the widest rows; a
+    one-channel film lays its rows out in order."""
+    import types
+    from drtvam_tpu_torch.models.geometry import CYLINDER
+    from drtvam_tpu_torch.models.sensor import SensorStatic
+    st = types.SimpleNamespace(
+        sensor=SensorStatic("dda", (256, 256, 8), True),
+        surfaces=(types.SimpleNamespace(kind=CYLINDER, medium_side=1),))
+    arr = {"bbox_min": torch.full((3,), -5.0), "bbox_max": torch.full((3,),
+                                                                      5.0),
+           "surf_params": torch.tensor([[4.75, -10.0, 10.0]])}
+    rows2, n2 = wf.tile_rows(st, arr)
+    st1 = types.SimpleNamespace(sensor=SensorStatic("dda", (256, 256, 8),
+                                                    False),
+                                surfaces=st.surfaces)
+    rows1, n1 = wf.tile_rows(st1, arr)
+    assert n2 == n1 and torch.equal(rows2[:, :2], rows1[:, :2])
+    off1 = rows1[:, 2] + rows1[:, 0]
+    assert torch.equal(off1, torch.cumsum(rows1[:, 1], 0) - rows1[:, 1])
+    end = rows2[:, 2] + rows2[:, 0] + rows2[:, 1]
+    for fit in (n1 // 4, n1 // 2, 3 * n1 // 4, n1):
+        kept = (end <= fit) & (rows2[:, 1] > 0)
+        assert int(rows2[kept, 1].sum()) <= fit
+        # the kept rows are the widest: a band about the centre
+        y = torch.nonzero(kept).squeeze(1)
+        assert int(y.max() - y.min()) + 1 == int(kept.sum())
+        if not kept.all():
+            assert int(rows1[~kept, 1].max()) <= int(rows1[kept, 1].min())
+    assert bool(((end <= n1) | (rows2[:, 1] == 0)).all())
+
+
+# the residual pair with the target: (estimator, mode, vial, target)
+TARGET_RES_CASES = [("dda", "first_scatter", "cylindrical", "surface_aware"),
+                    ("ratio", "first_scatter", "square", "surface_aware"),
+                    ("delta", "fast_residual", "cylindrical",
+                     "surface_aware"),
+                    ("delta", "fast_residual", "square", "surface_aware"),
+                    ("delta", "first_scatter", "cylindrical",
+                     "surface_aware"),
+                    ("dda", "first_scatter", "cylindrical", "kept")]
+
+
+@pytest.mark.parametrize("case", TARGET_RES_CASES)
+def test_target_residual_template_traces_the_plain_residual(case,
+                                                            template_lib):
+    """The residual pair's target instantiations (the first scatter's
+    channel from the inside mask, the fast residual's at each event, the
+    general loop's flipped at the crossings) against the plain residual:
+    the same iterations and steps, values to 1e-4 of each channel's max,
+    the adjoint bitwise equal to lane order; the dda forward through its
+    path and walk passes (the records' channels in their sign)."""
+    lib, path = template_lib
+    est, mode, vial, target = case
+    static, at = _residual(path, est, mode, vial, "collimated",
+                           target=target)
+    ch = static.sensor.channels
+    rng = np.random.default_rng(17)
+    n, n_cells = static.projector.n_active, static.sensor.n_cells
+    data = torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32))
+    dL = torch.from_numpy(rng.uniform(0.0, 1.0, n_cells).astype(np.float32))
+    seed, spp = 6, 3
+    ref_stats, ref_g_stats, stats = {}, {}, {}
+    dose_ref = wf._forward(static, at, data, seed, spp, wf.DEFAULT_CHUNK,
+                           ref_stats)
+    grad_ref = wf._adjoint(static, at, seed, spp, wf.DEFAULT_CHUNK, dL,
+                           ref_g_stats)
+    if est == "dda":
+        dose = wf.res_forward(_libs(lib), static, at, data, seed, spp, stats)
+    else:
+        dose, stats = _run_res(lib, "wf_res_fwd", static, at, data, n_cells,
+                               seed, spp)
+    grad, g_stats = _run_res(lib, "wf_res_bwd", static, at, dL, n, seed,
+                             spp)
+    grad_l, _ = _run_res(lib, "wf_res_bwd_lanes", static, at, dL, n, seed,
+                         spp)
+    for ours, ref in ((stats, ref_stats), (g_stats, ref_g_stats)):
+        assert ref["steps"] > 0
+        assert {k: ours[k] for k in ref} == ref
+    point = est in ("ratio", "delta")
+    _close(dose, dose_ref, point, ch)
+    _close(grad, grad_ref, point)
+    assert torch.equal(grad, grad_l)
+    if ch == 2:
+        assert (dose.reshape(-1, 2).sum(0) > 0).all()
