@@ -186,6 +186,7 @@ kernels, the last is {"ok": true, "device": {...}}. The wavefront
 forward adds deposits with float atomics, so its sums are not bitwise
 reproducible; every other kernel's are.
 """
+import ctypes
 import itertools
 import json
 import os
@@ -236,6 +237,8 @@ REPLACES = {
                    "forward's walks; XLA)",
     "wf_res_chords": "drtvam_tpu/ops/march.py:373 (_sample_first_scatter's "
                      "chord masses; XLA)",
+    "wf_tgt_walk": "drtvam_tpu/ops/march.py:586 (dda_segment, the walks of "
+                   "the analog forward with the target kept; XLA)",
     "wf_radon": "drtvam_tpu/ops/render.py:193 (render_radon: trace_wavefront "
                 "radon mode, march.py:917-923; ray_triangles_grid "
                 "mesh_grid.py:117; XLA)",
@@ -989,11 +992,14 @@ def phase_wf_vs_ballistic_small(torch, wf, dev, tmp):
                                atol=1e-4 * np.abs(vw).max())
 
 
-def wf_bound(n_bytes, steps):
+def wf_bound(n_bytes, steps, cells=0, triangles=0):
     """Least time on the card: the compulsory bytes at the HBM rate, or
-    WF_STEP_OPS per voxel step at the float32 peak."""
+    WF_STEP_OPS per voxel step (and with the target kept CULL_CELL_OPS a
+    grid cell of its walks, CULL_TRI_OPS a triangle test) at the float32
+    peak."""
     byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    op_ms = WF_STEP_OPS * steps / F32_FLOPS * 1e3
+    op_ms = (WF_STEP_OPS * steps + CULL_CELL_OPS * cells +
+             CULL_TRI_OPS * triangles) / F32_FLOPS * 1e3
     return (max(byte_ms, op_ms),
             "operations" if op_ms >= byte_ms else "bytes")
 
@@ -1412,13 +1418,16 @@ def bench_scattering_config(tmp):
     return cfg
 
 
-def res_bound(n_bytes, lanes, iterations, steps):
+def res_bound(n_bytes, lanes, iterations, steps, cells=0, triangles=0):
     """Least time on the card: the compulsory bytes at the HBM rate, or
     the float32 work (RES_LANE_OPS a lane, RES_EVENT_OPS an event or
-    bounce iteration, WF_STEP_OPS a dda step) at the float32 peak."""
+    bounce iteration, WF_STEP_OPS a dda step; with the target kept
+    CULL_CELL_OPS a grid cell, CULL_TRI_OPS a triangle test) at the
+    float32 peak."""
     byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops = RES_LANE_OPS * lanes + RES_EVENT_OPS * iterations + \
-        WF_STEP_OPS * steps
+        WF_STEP_OPS * steps + CULL_CELL_OPS * cells + \
+        CULL_TRI_OPS * triangles
     op_ms = ops / F32_FLOPS * 1e3
     return (max(byte_ms, op_ms),
             "operations" if op_ms >= byte_ms else "bytes")
@@ -2361,12 +2370,23 @@ def instantiation(mangled):
                 + (", counting" if count else "")
                 + {None: "", "1": ", staged", "0": ", global banks"}[
                     m.group(4)])
+    m = re.search(r"tgt_walk_kernelILb(\d)ELb(\d)E", mangled)
+    if m is not None:
+        return ("target walk pass"
+                + (", two channels" if m.group(2) == "1" else "")
+                + (", counting" if m.group(1) == "1" else ""))
+    m = re.search(r"tgt_path_kernelILb(\d)ELb(\d)ELb(\d)E", mangled)
+    if m is not None:
+        scat, tonly, count = (int(x) for x in m.groups())
+        return (f"target path pass, DDA, {'' if scat else '!'}SCAT, "
+                f"{'' if tonly else '!'}TONLY"
+                + (", counting" if count else ""))
     m = re.search(r"walk_kernelILb(\d)E(?:Lb(\d)E)?", mangled)
     if m is not None:
         return ("walk pass" + (", two channels" if m.group(2) == "1" else "")
                 + (", counting" if m.group(1) == "1" else ""))
     m = re.search(r"wf_kernelILi(\d)ELb(\d)ELb(\d)ELi(\d)ELb(\d)ELb(\d)E"
-                  r"(?:Lb(\d)E)?", mangled)
+                  r"(?:Lb(\d)E)?(?:Li(\d+)ELi(\d+)ELb(\d)E)?", mangled)
     if m is None:
         return mangled
     e, scat, tonly, res, primal, count = (int(x) for x in m.groups()[:6])
@@ -2375,12 +2395,14 @@ def instantiation(mangled):
             + (f"{WF_RES[res]}, " if res else "")
             + f"{'forward' if primal else 'adjoint'}"
             + (", target" if m.group(7) == "1" else "")
+            + (f", staged, {m.group(8)} threads" if m.group(10) == "1"
+               else "")
             + (", counting" if count else ""))
 
 
 # the libraries whose build record lists every instantiation
 RES_EACH = ("wf_fwd", "wf_bwd", "wf_res_fwd", "wf_res_bwd", "wf_radon",
-            "wf_corner")
+            "wf_corner", "wf_target")
 
 
 # --------------------------------------------------------------------------
@@ -2944,6 +2966,9 @@ def phase_target_kernels(torch, wf, dev, tmp):
                                    5, torch)
         rec["fwd"]["plain_ms"] = event_ms(
             lambda: wf._forward(st, at, data, seed, spp, chunk), torch)[0]
+        if fam == "wf" and est == "dda":
+            # the target forms' walk pass alone against its plain version
+            rec["walk"] = tgt_walk_check(torch, wf, st, at, data, seed, spp)
         rec["bwd"]["ms"] = cuda_ms(lambda: bwd_k(st, at, dL, seed, spp), 5,
                                    torch)
         rec["bwd"]["plain_ms"] = event_ms(
@@ -3049,29 +3074,123 @@ def angle_cut(static, arr, x, stride=ANGLE_STRIDE):
     return st, at, x[keep].contiguous()
 
 
+class OnePass:
+    """The analog pair's one-pass target instantiations (wf_fwd.cu /
+    wf_bwd.cu with the target, 1024 threads, the banks in global memory)
+    in place of csrc/wf_target.cu's forms for the duration: the route the
+    scenes took before the target forms, timed beside them on the same
+    inputs."""
+
+    def __init__(self, wf):
+        self.wf = wf
+
+    def __enter__(self):
+        self.route = self.wf.tgt_route
+        self.wf.tgt_route = lambda *a: False
+        return self
+
+    def __exit__(self, *exc):
+        self.wf.tgt_route = self.route
+
+
 def form_time(torch, wf, name, static, at, x, seed, spp, reps=3):
     """A loop kernel's card time on (static, at, x) (CUDA events), its
     counts from one counting launch, its bound (the compulsory bytes or
-    the counted steps' operations), launch shape, registers and spills."""
+    the counted steps' operations, with the target kept its grid cells'
+    and triangle tests'), launch shape, registers and spills. On the
+    target forms' route (ops/render.py tgt_route): the one-pass kernel's
+    time on the same inputs beside it, and the forward's path and walk
+    passes apart with their records and batches."""
     kern = getattr(wf, name)
     stats = {}
     kern(static, at, x, seed, spp, stats)
     ms = cuda_ms(lambda: kern(static, at, x, seed, spp), reps, torch)
     n, n_cells = static.projector.n_active, static.sensor.n_cells
+    target = wf.make_params(static, at, 0, 1).target
     n_bytes = 4 * (n + n_cells) + (n_cells // static.sensor.channels
-                                   if wf.make_params(static, at, 0, 1)
-                                   .target == 2 and name.startswith("wf_res")
+                                   if target == 2 and name.startswith("wf_res")
                                    else 0)
+    mesh = (stats.get("cells", 0), stats.get("triangles", 0))
     if name.startswith("wf_res"):
         bound, by = res_bound(n_bytes, n * spp, stats.get("iterations", 0),
-                              stats.get("steps", 0))
+                              stats.get("steps", 0), *mesh)
     else:
-        bound, by = wf_bound(n_bytes, stats.get("steps", 0))
-    return {"ms": ms, "bound_ms": bound, "bound_by": by,
-            "roofline_share": bound / ms, "counts": stats,
-            "target": wf.make_params(static, at, 0, 1).target,
-            "film_channels": static.sensor.channels,
-            "launch": wf.kernel_info(name, static, at)}
+        bound, by = wf_bound(n_bytes, stats.get("steps", 0), *mesh)
+    rec = {"ms": ms, "bound_ms": bound, "bound_by": by,
+           "roofline_share": bound / ms, "counts": stats, "target": target,
+           "film_channels": static.sensor.channels,
+           "launch": wf.kernel_info(name, static, at)}
+    if name in wf.KERNELS and wf.tgt_route(wf.build_kernels(), name, static,
+                                           at):
+        if name == "wf_fwd":
+            times = {}
+            wf.wf_fwd(static, at, x, seed, spp, times=times)
+            rec.update(path_ms=times["path_ms"], walk_ms=times["walk_ms"],
+                       walk_launch=wf.kernel_info("wf_tgt_walk", static, at))
+        with OnePass(wf):
+            rec["one_pass_ms"] = cuda_ms(
+                lambda: kern(static, at, x, seed, spp), reps, torch)
+            rec["one_pass_launch"] = wf.kernel_info(name, static, at)
+    return rec
+
+
+def tgt_walk_check(torch, wf, static, at, data, seed, spp, per_lane=4):
+    """The target forms' walk pass alone (wf_tgt_walk): the path pass over
+    every unit in one batch with room for per_lane records a lane, then
+    the walk pass on those records, timed (CUDA events, median of 3, a
+    fresh accumulator each) and held to its plain version (ops/render.py
+    _walk) on the same records to TARGET_TOL of each channel's max; its
+    steps and bound (WF_STEP_OPS a step)."""
+    dev = data.device
+    lib = wf.build_kernels()[wf.TGT_LIB]
+    P, order, starts, rows = wf._family_params("wf_fwd", static, at, seed,
+                                               spp)
+    M, tris, _ = wf._target_args("wf_fwd", static, at, P)
+    units, lanes = wf.tgt_units(static, at, spp)
+    cap = lanes * per_lane + 64
+    start = np.concatenate([[0], np.cumsum(cap)])
+    region = torch.from_numpy(start.astype(np.int32)).to(dev)
+    recs = torch.empty((int(start[-1]) * 8,), dtype=torch.float32, device=dev)
+    cnt = torch.zeros((len(lanes),), dtype=torch.int32, device=dev)
+    acc = torch.zeros((static.sensor.n_cells,), dtype=torch.float32,
+                      device=dev)
+    A = wf.TgtArgs(recs.data_ptr(), region.data_ptr(), cnt.data_ptr(),
+                   units.data_ptr(), acc.data_ptr(), 0, len(lanes))
+    pix = at["active_pixels"]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    wf._err("wf_tgt_path", lib.wf_tgt_path(
+        ctypes.byref(P), ctypes.byref(M), wf._ptr(tris), data.data_ptr(),
+        pix.data_ptr(), wf._ptr(order), wf._ptr(starts), ctypes.byref(A),
+        None, stream))
+    made = cnt.cpu().numpy().astype(np.int64)
+    if (made > cap).any() or bool(acc.any()):
+        raise AssertionError("tgt_walk_check: a unit outgrew its region")
+    idx = torch.cat([torch.arange(int(s0), int(s0) + int(m), device=dev)
+                     for s0, m in zip(start[:-1], made) if m])
+    rec = recs.view(-1, 8)[idx]
+
+    def walk(stats=None):
+        out = torch.zeros_like(acc)
+        A.acc = out.data_ptr()
+        counter = wf._counter(stats, dev)
+        wf._err("wf_tgt_walk", lib.wf_tgt_walk(
+            ctypes.byref(P), ctypes.byref(A), wf._ptr(rows),
+            wf._ptr(counter), stream))
+        wf._add(stats, counter, wf.COUNTERS[1:5])
+        return out
+
+    stats = {}
+    k = walk(stats)
+    ms = cuda_ms(walk, 3, torch)
+    plain_ms, ref = event_ms(lambda: wf._walk(static, at, rec), torch)
+    cmp = channel_compare("wf_tgt_walk", k, ref, static.sensor.channels,
+                          False)
+    bound, by = wf_bound(32 * rec.shape[0] + 4 * static.sensor.n_cells,
+                         stats["steps"])
+    return {"records": int(rec.shape[0]), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "roofline_share": bound / ms,
+            "counts": stats, "launch": wf.kernel_info("wf_tgt_walk", static,
+                                                      at), **cmp}
 
 
 def phase_target_cells(torch, wf, bp, dev, tmp):
@@ -3090,7 +3209,8 @@ def phase_target_cells(torch, wf, bp, dev, tmp):
     # must not
     must = {"a": ("wf_res_fwd:target2", "wf_res_bwd:target2",
                   "wf_res_fwd:target1", "wf_res_walk"),
-            "b": ("wf_fwd:target2", "wf_bwd:target2", "wf_fwd:target1")}
+            "b": ("wf_fwd:target2", "wf_bwd:target2", "wf_fwd:target1",
+                  "wf_tgt_walk:target2", "wf_tgt_walk:target1")}
     never = {"a": wf.KERNELS, "b": wf.RES_KERNELS}
     for cell in ("a", "b"):
         t_phase = time.perf_counter()
@@ -3189,6 +3309,9 @@ def sa_cell_kernels(torch, wf, dev, cell, calls):
                     ms_cut=cuda_ms(lambda: wf.wf_bwd(sc, atc, dL2, 3, 1), 3,
                                    torch), **cmp)
                 del kb, ref
+                # the walk pass alone on the cut's records
+                rec["wf_tgt_walk"] = {key: tgt_walk_check(torch, wf, sc, atc,
+                                                          dc, 3, 1)}
             del sc, atc, dc
             torch.cuda.empty_cache()
         return rec
@@ -3272,7 +3395,10 @@ def sa_cell_kernels(torch, wf, dev, cell, calls):
 TARGET_PATHS = (
     ("wf_fwd:target2", "b", ("wf_fwd", "mesh on, 2 channels"),
      "the loop of cell (b): optimize() on the bench scene with a "
-     "surface-aware film, engine 'wavefront'"),
+     "surface-aware film, engine 'wavefront' (the dda forward's path pass "
+     "and walk pass together)"),
+    ("wf_tgt_walk:target2", "b", ("wf_tgt_walk", "mesh on, 2 channels"),
+     "the walk pass of cell (b)'s loop forward"),
     ("wf_bwd:target2", "b", ("wf_bwd", "mesh on, 2 channels"),
      "the loop of cell (b)"),
     ("wf_fwd:target1", "b", ("wf_fwd", "mesh on, 1 channel"),
@@ -3296,20 +3422,36 @@ def target_entries(cells):
     analog pair and the final render)."""
     out = []
     for form, cell, (group, key), path in TARGET_PATHS:
-        name = src = form.split(":")[0]
+        name = form.split(":")[0]
         r = cells[cell]["kernels"][group][key]
         chans = "two channels" if form.endswith("2") else "one channel"
+        src = (f"drtvam_tpu_torch/csrc/{name}.cu + wf_trace.cuh"
+               + (" + wf_residual.cuh" if "res" in name else "")
+               + " + wf_mesh.cuh")
+        if name in ("wf_fwd", "wf_bwd", "wf_tgt_walk"):
+            src = ("drtvam_tpu_torch/csrc/wf_target.cu + wf_target.cuh + "
+                   "wf_trace.cuh + wf_mesh.cuh")
         entry = {"name": f"{name} (target kept, {chans})",
-                 "route": "cuda",
-                 "source": f"drtvam_tpu_torch/csrc/{src}.cu + wf_trace.cuh"
-                           + (" + wf_residual.cuh" if "res" in name else "")
-                           + " + wf_mesh.cuh",
-                 "replaces": REPLACES[name] + "; the target kept: "
+                 "route": "cuda", "source": src,
+                 "replaces": REPLACES.get(name, REPLACES["wf_fwd"])
+                             + "; the target kept: "
                              "march.py:556-565, :1092-1093"
                              + (", :405-417, :455-465" if "res" in name
                                 else ""),
                  "launches": cells[cell]["form_launches"].get(form, 0),
                  "path": path, "library_ms": None}
+        if group == "wf_tgt_walk":
+            fwd = cells[cell]["kernels"]["wf_fwd"][key]
+            bound, by = wf_bound(32 * fwd["counts"].get("records", 0),
+                                 fwd["counts"]["steps"])
+            entry.update(
+                ms=fwd["walk_ms"], bound_ms=bound, bound_by=by,
+                roofline_share=bound / fwd["walk_ms"],
+                max_abs_err=r["max_abs_err"], plain_ms=r["plain_ms"],
+                plain_at=CUT_AT + ": the records of the loop's patterns",
+                ms_cut=r["ms"], cut=r, launch=fwd["walk_launch"])
+            out.append(entry)
+            continue
         if group == "final_render_dda":
             cut = r["cut"]
             entry.update(
@@ -3325,6 +3467,9 @@ def target_entries(cells):
             entry.update({k: r[k] for k in (
                 "ms", "bound_ms", "bound_by", "roofline_share",
                 "max_abs_err", "plain_ms", "plain_at", "launch")})
+            entry.update({k: r[k] for k in (
+                "path_ms", "walk_ms", "walk_launch", "one_pass_ms",
+                "one_pass_launch") if k in r})
             entry["other_forms"] = {
                 k: {kk: v[kk] for kk in ("ms", "bound_ms", "launch")}
                 for k, v in cells[cell]["kernels"][group].items()
@@ -3384,9 +3529,9 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    # all fourteen sources at once, one nvcc each, started together with
+    # all fifteen sources at once, one nvcc each, started together with
     # the residual pair's stopping builds (phase 8b's per-lane times)
-    cuda = bp.KERNELS + wf.KERNELS + wf.RES_KERNELS + wf.CULL_KERNELS
+    cuda = bp.KERNELS + wf.LIBS
     res_jobs = start_res_variants(wf)
     load_cuda(cuda, {**bp._SETUP, **wf._SETUP}, wf._FLAGS)
     res_variants = finish_res_variants(wf, res_jobs)

@@ -64,40 +64,13 @@ struct CullArgs {
 // the bytes the staged banks take: the rows, then the cell starts and the
 // triangle ids
 inline size_t stage_bytes(const CullArgs& A) {
-  return 16 * (size_t)A.n_rows +
-         4 * ((size_t)A.n_cell_start + (size_t)A.n_tri_ids);
-}
-
-// one 16-byte and one 4-byte copy into shared memory, and the wait for a
-// thread's copies (cp.async on the card)
-__device__ __forceinline__ void copy16(float4* dst, const float4* src) {
-#ifdef __CUDA_ARCH__
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src));
-#else
-  *dst = *src;
-#endif
-}
-__device__ __forceinline__ void copy4(int* dst, const int* src) {
-#ifdef __CUDA_ARCH__
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src));
-#else
-  *dst = *src;
-#endif
-}
-__device__ __forceinline__ void copy_wait() {
-#ifdef __CUDA_ARCH__
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-#endif
+  return bank_bytes(A.n_rows, A.n_cell_start, A.n_tri_ids);
 }
 
 // The banks a CTA's lanes read. STAGED: thread tid of n_threads copies its
-// share of the rows, cell starts and triangle ids into smem (stage_bytes)
-// and waits for its copies; the caller's barrier then publishes them.
-// Else the global copies
+// share of the rows, cell starts and triangle ids into smem (stage_bytes;
+// wf_mesh.cuh stage_banks) and waits for its copies; the caller's barrier
+// then publishes them. Else the global copies
 template <bool STAGED>
 __device__ __forceinline__ MeshBanks cull_banks(const WfMesh& M,
                                                 const CullArgs& A,
@@ -106,16 +79,8 @@ __device__ __forceinline__ MeshBanks cull_banks(const WfMesh& M,
   if constexpr (!STAGED) {
     return {A.rows, M.cell_start, M.tri_ids};
   } else {
-    int* cs = reinterpret_cast<int*>(smem + A.n_rows);
-    int* ids = cs + A.n_cell_start;
-    for (int i = tid; i < A.n_rows; i += n_threads)
-      copy16(smem + i, A.rows + i);
-    for (int i = tid; i < A.n_cell_start; i += n_threads)
-      copy4(cs + i, M.cell_start + i);
-    for (int i = tid; i < A.n_tri_ids; i += n_threads)
-      copy4(ids + i, M.tri_ids + i);
-    copy_wait();
-    return {smem, cs, ids};
+    return stage_banks({A.rows, M.cell_start, M.tri_ids}, A.n_rows,
+                       A.n_cell_start, A.n_tri_ids, smem, tid, n_threads);
   }
 }
 

@@ -56,18 +56,70 @@ struct WfMesh {
   int grid_res[3 * WF_MAX_SURF];
   int cell_offset[WF_MAX_SURF], ids_offset[WF_MAX_SURF];
   int n_ids[WF_MAX_SURF], bbox_row[WF_MAX_SURF];
+  // the merged banks' lengths: triangle rows (MeshBanks), cell starts and
+  // triangle ids
+  int n_rows, n_cell_start, n_tri_ids;
 };
 
 // The banks as a lane's mesh test reads them: each triangle as three
 // 16-byte rows, v0, e1 and e2 (x, y, z, 0; ops/render.py cull_rows), at
 // rows 3 i .. 3 i + 2 of triangle i of the merged bank, and the grids'
 // cell starts and triangle ids, merged as in WfMesh. STAGED: they lie in
-// the CTA's shared memory (wf_cull.cuh cull_banks), else in global memory
+// the CTA's shared memory (stage_banks), else in global memory
 struct MeshBanks {
   const float4* rows;
   const int* cell_start;
   const int* tri_ids;
 };
+
+// the bytes the staged banks take: the rows, then the cell starts and the
+// triangle ids
+inline size_t bank_bytes(int n_rows, int n_cell_start, int n_tri_ids) {
+  return 16 * (size_t)n_rows + 4 * ((size_t)n_cell_start + (size_t)n_tri_ids);
+}
+
+// one 16-byte and one 4-byte copy into shared memory, and the wait for a
+// thread's copies (cp.async on the card)
+__device__ __forceinline__ void copy16(float4* dst, const float4* src) {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+#else
+  *dst = *src;
+#endif
+}
+__device__ __forceinline__ void copy4(int* dst, const int* src) {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+#else
+  *dst = *src;
+#endif
+}
+__device__ __forceinline__ void copy_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}
+
+// The global banks G (n_rows rows, n_cs cell starts, n_ids triangle ids)
+// staged in smem (bank_bytes): thread tid of n_threads copies its share
+// and waits for its copies; the caller's barrier then publishes them.
+// Returns the staged banks
+__device__ __forceinline__ MeshBanks stage_banks(const MeshBanks& G,
+                                                 int n_rows, int n_cs,
+                                                 int n_ids, float4* smem,
+                                                 int tid, int n_threads) {
+  int* cs = reinterpret_cast<int*>(smem + n_rows);
+  int* ids = cs + n_cs;
+  for (int i = tid; i < n_rows; i += n_threads) copy16(smem + i, G.rows + i);
+  for (int i = tid; i < n_cs; i += n_threads) copy4(cs + i, G.cell_start + i);
+  for (int i = tid; i < n_ids; i += n_threads) copy4(ids + i, G.tri_ids + i);
+  copy_wait();
+  return {smem, cs, ids};
+}
 
 // what a mesh intersection did, counted when COUNT: grid cells visited,
 // triangles tested, grid walks that entered their box, and tests of a

@@ -168,8 +168,9 @@ struct PathSink : Sink<true, COUNT_, TGT_> {
   unsigned* n_recs;
   unsigned cap;
 
-  __device__ __forceinline__ void record(const V3& o, const V3& d, float maxt,
-                                         float base) {
+  __device__ __forceinline__ void record(const WfParams&, const Grid&,
+                                         const V3& o, const V3& d, float maxt,
+                                         float base, float) {
 #ifdef __CUDACC__
     // one atomic for the threads of the warp that record together
     namespace cg = cooperative_groups;
@@ -330,14 +331,10 @@ __global__ void __launch_bounds__(WF_RES_THREADS, WF_RES_MIN_CTAS)
     }
   }
   if (COUNT) {
-    unsigned long long c[5] = {S.iters, S.steps, S.n_tile, S.n_global,
-                               slots};
-#pragma unroll
-    for (int k = 0; k < 5; ++k) {
-      for (int off = 16; off > 0; off >>= 1)
-        c[k] += __shfl_down_sync(0xffffffffu, c[k], off);
-      if (lane == 0) atomicAdd(A.counters + k, c[k]);
-    }
+    unsigned long long c[WF_N_COUNTERS] = {
+        S.iters, S.steps, S.n_tile, S.n_global, slots, S.mc.cells,
+        S.mc.tris, S.mc.walks};
+    add_counters(c, lane, A.counters);
   }
 }
 

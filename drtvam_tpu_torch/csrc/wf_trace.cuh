@@ -490,13 +490,16 @@ __device__ __forceinline__ int home_slice(const WfParams& P, const Grid& G,
 // holds the home slice's voxels where the medium may lie, row by row:
 // for film row y, the n columns from lo at tile index base + x,
 // rows[y] = (lo, n, base, 0). COUNT: counts bounce iterations,
-// estimator steps and deposits by destination. TGT: the scene keeps the
-// target (the mesh banks and the inside mask below); on a two-channel
-// film (two) a deposit goes to channel chan of its voxel, in the tile
-// (its two channels side by side) as in global memory
-template <bool PRIMAL_, bool COUNT_, bool TGT_ = false>
+// estimator steps and deposits by destination, and with TGT the target's
+// grid walks, cells and triangles (mc). TGT: the scene keeps the target
+// (the mesh banks and the inside mask below; STAGED: the banks lie in
+// the CTA's shared memory); on a two-channel film (two) a deposit goes to
+// channel chan of its voxel, in the tile (its two channels side by side)
+// as in global memory
+template <bool PRIMAL_, bool COUNT_, bool TGT_ = false, bool STAGED_ = false>
 struct Sink {
   static constexpr bool PRIMAL = PRIMAL_, COUNT = COUNT_, TGT = TGT_;
+  static constexpr bool STAGED = STAGED_;
   // RECORDS: a dda segment is recorded for a later walk (PathSink), not
   // walked
   static constexpr bool RECORDS = false;
@@ -508,13 +511,14 @@ struct Sink {
   float g;           // adjoint: the lane's emitter gradient
   unsigned long long iters, steps, n_tile, n_global;
   // TGT: a two-channel film, and the lane's channel (0 inside the target,
-  // 1 outside); the target mesh and the banks its tests read (global
-  // memory); the inside mask (Z, Y, X) of the two-channel residual
+  // 1 outside); the target mesh and the banks its tests read; the inside
+  // mask (Z, Y, X) of the two-channel residual; the mesh work (COUNT)
   bool two = false;
   int chan = 0;
   const WfMesh* mesh = nullptr;
   MeshBanks banks = {nullptr, nullptr, nullptr};
   const unsigned char* mask = nullptr;
+  MeshCount mc = {0, 0, 0, 0};
 
   __device__ __forceinline__ void iter() {
     if (COUNT) ++iters;
@@ -682,18 +686,27 @@ struct DdaWalk {
   }
 };
 
-// A PathSink records the segment (wf_residual.cuh) in place of the walk
+// the walk of one segment, deposit by deposit
+template <class SinkT>
+__device__ __forceinline__ void dda_walk(const WfParams& P, const Grid& G,
+                                         SinkT& S, const V3& o, const V3& d,
+                                         float maxt, float base, float st) {
+  DdaWalk w;
+  if (!w.init(P, G, o, d, maxt)) return;
+  while (w.step(P, G, S, base, st)) {
+  }
+}
+
+// A recording sink (wf_residual.cuh PathSink, wf_target.cuh TgtPathSink)
+// records the segment in place of the walk
 template <class SinkT>
 __device__ void dda_segment(const WfParams& P, const Grid& G, SinkT& S,
                             const V3& o, const V3& d, float maxt, float base,
                             float st) {
   if constexpr (SinkT::RECORDS) {
-    S.record(o, d, maxt, base);
+    S.record(P, G, o, d, maxt, base, st);
   } else {
-    DdaWalk w;
-    if (!w.init(P, G, o, d, maxt)) return;
-    while (w.step(P, G, S, base, st)) {
-    }
+    dda_walk(P, G, S, o, d, maxt, base, st);
   }
 }
 
@@ -1040,12 +1053,9 @@ __device__ void trace_lane(const WfParams& P, const Grid& G, uint32_t lane,
     V3 n_si;
     int sid;
     float t_si;
-    if constexpr (RES == RADON) {
+    if constexpr (RES == RADON || SinkT::TGT) {
       t_si = intersect_scene<true, SinkT::COUNT, SinkT::STAGED>(
           P, o, d, n_si, sid, S.mesh, &S.banks, &S.mc);
-    } else if constexpr (SinkT::TGT) {
-      MeshCount mc;
-      t_si = intersect_scene<true>(P, o, d, n_si, sid, S.mesh, &S.banks, &mc);
     } else {
       t_si = intersect_scene(P, o, d, n_si, sid);
     }
@@ -1256,25 +1266,91 @@ __device__ __forceinline__ int trace_task(const WfParams& P, const Grid& G,
 // memory), 32 warps, at most 64 registers a thread
 constexpr int WF_THREADS = 1024;
 
-// One CTA per (DMD row, angle group); its warps take 32 neighbouring
-// positions of the CTA's range at a time from a counter in shared
-// memory. The forward's dynamic shared memory holds the tile's row table
-// (the film's resy rows) and then the tile (P.tile_n voxels, a float for
-// each of their channels), zeroed before the first barrier and flushed
-// with one global atomic per nonzero value after the second. The adjoint
-// takes none (P.tile_n 0). The analog instantiations only (RES ANALOG):
-// the residual family has its own kernels (wf_residual.cuh). TGT: the
-// scene keeps the target, M its mesh, tris the triangle rows its tests
-// read (ops/render.py cull_rows), both in global memory
+// The home-slice tile of a CTA's DMD row: the row table (rows, the
+// film's resy rows) copied into srows and the tile's values zeroed
+// (tile_zero), then each nonzero value added to the accumulator out with
+// one global atomic (tile_flush), by the CTA's n_warps warps. TGT: the
+// tile holds ch floats a voxel and keeps the rows that end within
+// P.tile_n voxels (shape())
+template <bool TGT>
+__device__ __forceinline__ void tile_zero(const WfParams& P, const Grid& G,
+                                          const int4* __restrict__ rows,
+                                          int4* srows, float* tile, int ch,
+                                          int warp, int lane, int n_warps) {
+  for (int y = warp; y < G.res[1]; y += n_warps) {
+    int4 r = __ldg(rows + y);
+    // a row that ends past the tile shape() kept holds no voxel
+    if (TGT && r.z + r.x + r.y > P.tile_n) r.y = 0;
+    if (lane == 0) srows[y] = r;
+    if constexpr (TGT) {
+      for (int i = ch * (r.z + r.x) + lane; i < ch * (r.z + r.x + r.y);
+           i += 32)
+        tile[i] = 0.0f;
+    } else {
+      for (int x = r.x + lane; x < r.x + r.y; x += 32) tile[r.z + x] = 0.0f;
+    }
+  }
+}
+template <bool TGT>
+__device__ __forceinline__ void tile_flush(const Grid& G, const int4* srows,
+                                           const float* tile, int home,
+                                           int ch, float* __restrict__ out,
+                                           int warp, int lane, int n_warps) {
+  const int slice0 = home * G.res[0] * G.res[1];
+  for (int y = warp; y < G.res[1]; y += n_warps) {
+    const int4 r = srows[y];
+    if constexpr (TGT) {
+      // value i of the row: voxel r.x + i / ch, channel i % ch
+      const int row0 = slice0 + y * G.res[0] + r.x;
+      for (int i = lane; i < ch * r.y; i += 32) {
+        const float v = tile[ch * (r.z + r.x) + i];
+        if (v != 0.0f) atomicAdd(out + ch * row0 + i, v);
+      }
+    } else {
+      for (int x = r.x + lane; x < r.x + r.y; x += 32) {
+        const float v = tile[r.z + x];
+        if (v != 0.0f) atomicAdd(out + slice0 + y * G.res[0] + x, v);
+      }
+    }
+  }
+}
+
+// a launch's counters (ops/render.py COUNTERS): iterations, steps, tile
+// and global deposits, lane slots, and the target's grid cells,
+// triangles and grid walks; each warp's sums added with one atomic each
+constexpr int WF_N_COUNTERS = 8;
+__device__ __forceinline__ void add_counters(
+    unsigned long long* c, int lane, unsigned long long* __restrict__ out) {
+#pragma unroll
+  for (int k = 0; k < WF_N_COUNTERS; ++k) {
+    for (int off = 16; off > 0; off >>= 1)
+      c[k] += __shfl_down_sync(0xffffffffu, c[k], off);
+    if (lane == 0 && c[k] != 0) atomicAdd(out + k, c[k]);
+  }
+}
+
+// One CTA of THREADS threads per (DMD row, angle group); its warps take
+// 32 neighbouring positions of the CTA's range at a time from a counter
+// in shared memory. The forward's dynamic shared memory holds the tile's
+// row table (the film's resy rows) and then the tile (P.tile_n voxels, a
+// float for each of their channels), zeroed before the first barrier and
+// flushed with one global atomic per nonzero value after the second. The
+// adjoint takes no tile (P.tile_n 0). The analog instantiations only (RES
+// ANALOG): the residual family has its own kernels (wf_residual.cuh). TGT:
+// the scene keeps the target, M its mesh, tris the triangle rows its
+// tests read (ops/render.py cull_rows), in global memory, or STAGED in the
+// adjoint's dynamic shared memory (wf_target.cuh)
 template <int EST, bool SCAT, bool TONLY, int RES, bool PRIMAL, bool COUNT,
-          bool TGT>
-__global__ void __launch_bounds__(WF_THREADS, 1)
+          bool TGT, int THREADS = WF_THREADS, int MIN_CTAS = 1,
+          bool STAGED = false>
+__global__ void __launch_bounds__(THREADS, MIN_CTAS)
     wf_kernel(const WfParams P, const __grid_constant__ WfMesh M,
               const float4* __restrict__ tris, const float* __restrict__ in,
               const int* __restrict__ active_pixels,
               const int* __restrict__ order, const int* __restrict__ starts,
               const int4* __restrict__ rows, float* __restrict__ out,
               unsigned long long* __restrict__ counters) {
+  static_assert(!(STAGED && PRIMAL), "the forward's shared memory is its tile");
   extern __shared__ int4 smem[];
   __shared__ unsigned next_task;
   int lo, hi, py;
@@ -1284,32 +1360,23 @@ __global__ void __launch_bounds__(WF_THREADS, 1)
   int4* srows = smem;
   float* tile = reinterpret_cast<float*>(smem + G.res[1]);
   const int home = P.tile_n > 0 ? home_slice(P, G, py) : -1;
-  Sink<PRIMAL, COUNT, TGT> S{out, in, tile, srows, home, 0.0f, 0, 0, 0, 0};
+  Sink<PRIMAL, COUNT, TGT, STAGED> S{out, in, tile, srows, home, 0.0f,
+                                     0,   0,  0,    0};
   // the tile's floats a voxel
   const int ch = (TGT && P.target == 2) ? 2 : 1;
   if constexpr (TGT) {
     S.two = P.target == 2;
     S.mesh = &M;
     S.banks = {tris, M.cell_start, M.tri_ids};
+    if constexpr (STAGED)
+      S.banks = stage_banks(S.banks, M.n_rows, M.n_cell_start, M.n_tri_ids,
+                            reinterpret_cast<float4*>(smem), threadIdx.x,
+                            THREADS);
   }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_warps = WF_THREADS / 32;
-  const int slice0 = home * G.res[0] * G.res[1];
-  if (PRIMAL && home >= 0) {
-    for (int y = warp; y < G.res[1]; y += n_warps) {
-      int4 r = __ldg(rows + y);
-      // a row that ends past the tile shape() kept holds no voxel
-      if (TGT && r.z + r.x + r.y > P.tile_n) r.y = 0;
-      if (lane == 0) srows[y] = r;
-      if constexpr (TGT) {
-        for (int i = ch * (r.z + r.x) + lane; i < ch * (r.z + r.x + r.y);
-             i += 32)
-          tile[i] = 0.0f;
-      } else {
-        for (int x = r.x + lane; x < r.x + r.y; x += 32) tile[r.z + x] = 0.0f;
-      }
-    }
-  }
+  constexpr int n_warps = THREADS / 32;
+  if (PRIMAL && home >= 0)
+    tile_zero<TGT>(P, G, rows, srows, tile, ch, warp, lane, n_warps);
   if (threadIdx.x == 0) next_task = 0;
   __syncthreads();
 
@@ -1336,32 +1403,13 @@ __global__ void __launch_bounds__(WF_THREADS, 1)
 
   if (PRIMAL && home >= 0) {
     __syncthreads();
-    for (int y = warp; y < G.res[1]; y += n_warps) {
-      const int4 r = srows[y];
-      if constexpr (TGT) {
-        // value i of the row: voxel r.x + i / ch, channel i % ch
-        const int row0 = slice0 + y * G.res[0] + r.x;
-        for (int i = lane; i < ch * r.y; i += 32) {
-          const float v = tile[ch * (r.z + r.x) + i];
-          if (v != 0.0f) atomicAdd(out + ch * row0 + i, v);
-        }
-      } else {
-        for (int x = r.x + lane; x < r.x + r.y; x += 32) {
-          const float v = tile[r.z + x];
-          if (v != 0.0f) atomicAdd(out + slice0 + y * G.res[0] + x, v);
-        }
-      }
-    }
+    tile_flush<TGT>(G, srows, tile, home, ch, out, warp, lane, n_warps);
   }
   if (COUNT) {
-    unsigned long long c[5] = {S.iters, S.steps, S.n_tile, S.n_global,
-                               slots};
-#pragma unroll
-    for (int k = 0; k < 5; ++k) {
-      for (int off = 16; off > 0; off >>= 1)
-        c[k] += __shfl_down_sync(0xffffffffu, c[k], off);
-      if (lane == 0) atomicAdd(counters + k, c[k]);
-    }
+    unsigned long long c[WF_N_COUNTERS] = {
+        S.iters, S.steps, S.n_tile, S.n_global, slots, S.mc.cells,
+        S.mc.tris, S.mc.walks};
+    add_counters(c, lane, counters);
   }
 }
 
@@ -1411,7 +1459,8 @@ KernelFn pick(const WfParams& P) {
 // that end past them; ops/render.py tile_rows lays a two-channel tile
 // out widest row first); any other clears P.tile_n (no tile) when the
 // whole tile does not fit
-inline cudaError_t shape(KernelFn k, WfParams& P, size_t& smem) {
+template <class K>
+inline cudaError_t shape(K k, WfParams& P, size_t& smem) {
   int dev, optin;
   cudaFuncAttributes fa;
   cudaError_t e = cudaGetDevice(&dev);

@@ -210,10 +210,12 @@ def _onb(n):
     return t, bt
 
 
-def _ray_mesh(s: SurfaceStatic, arr, o, d):
+def _ray_mesh(s: SurfaceStatic, arr, o, d, stats=None, count=None):
     """Nearest hit of rays (N, 3) on mesh surface s: (t, normal), the
     normal of the hit triangle (of triangle 0 of the mesh on a miss), as
-    drtvam_tpu/ops/march.py:171-190 takes it."""
+    drtvam_tpu/ops/march.py:171-190 takes it. stats: adds the mesh work
+    of the rays where `count` is set (ray_triangles_grid; a mesh without
+    a grid tests every triangle)."""
     a, c = s.tri_slice
     v0, e1, e2 = (arr[k][a:a + c] for k in ("tri_v0", "tri_e1", "tri_e2"))
     tmin = torch.full(o.shape[:1], RAY_EPS, dtype=torch.float32,
@@ -221,6 +223,9 @@ def _ray_mesh(s: SurfaceStatic, arr, o, d):
     g = s.grid
     if g is None:
         t, tri = ray_triangles(o, d, tmin, v0, e1, e2)
+        if stats is not None:
+            stats["triangles"] = stats.get("triangles", 0) + \
+                c * int(count.sum())
     else:
         n_cells = g.res[0] * g.res[1] * g.res[2]
         t, tri = ray_triangles_grid(
@@ -228,12 +233,13 @@ def _ray_mesh(s: SurfaceStatic, arr, o, d):
             arr["grid_cell_start"][g.cell_offset:g.cell_offset + n_cells + 1],
             arr["grid_tri_ids"][g.ids_offset:g.ids_offset + g.n_ids],
             arr["grid_bbox"][g.bbox_row, 0], arr["grid_bbox"][g.bbox_row, 1],
-            g.res)
+            g.res, stats=stats, count=count)
     return t, arr["tri_n"][a:a + c][torch.clamp(tri, 0, c - 1)]
 
 
-def intersect_scene(static: MarchStatic, arr, o, d, active):
-    """Nearest surface hit: (t, normal, surface id, valid)."""
+def intersect_scene(static: MarchStatic, arr, o, d, active, stats=None):
+    """Nearest surface hit: (t, normal, surface id, valid). stats: adds
+    the mesh surfaces' work for the active lanes (_ray_mesh)."""
     shape = o.shape[:-1]
     t_best = torch.full(shape, INF, dtype=torch.float32, device=o.device)
     n_best = torch.zeros_like(o)
@@ -245,7 +251,9 @@ def intersect_scene(static: MarchStatic, arr, o, d, active):
         elif s.kind == BOX:
             t, n = ray_box(o, d, RAY_EPS, p[:3])
         else:
-            t, n = _ray_mesh(s, arr, o.reshape(-1, 3), d.reshape(-1, 3))
+            t, n = _ray_mesh(s, arr, o.reshape(-1, 3), d.reshape(-1, 3),
+                             stats, None if stats is None
+                             else active.reshape(-1))
             t, n = t.reshape(shape), n.reshape(o.shape)
         better = t < t_best
         t_best = torch.where(better, t, t_best)
@@ -640,8 +648,10 @@ def trace_wavefront(static: MarchStatic, arr, lane, seed, spp, dL_flat=None,
     the ray-weight scalar (default active_data[lane // spp]).
     adjoint: returns (acc, g) with g the per-lane emitter gradient
     (without em or the ray weight).
-    stats: optional dict counting the estimator's steps ("steps") and
-    the lanes' bounce iterations ("iterations").
+    stats: optional dict counting the estimator's steps ("steps"), the
+    lanes' bounce iterations ("iterations") and, on a scene that keeps a
+    mesh, its grid walks, cells and triangle tests ("walks", "cells",
+    "triangles"; intersect_scene).
     radon mode (static.mode "radon"): returns (L, None), L (n,) the
     lanes' in-target absorption (drtvam_tpu/ops/march.py:917-923)."""
     check_supported(static)
@@ -722,7 +732,7 @@ def trace_wavefront(static: MarchStatic, arr, lane, seed, spp, dL_flat=None,
 
         # next surface
         t_si, n_si, sid, si_valid = intersect_scene(static, arr, o, d,
-                                                    active)
+                                                    active, stats)
         active = active & si_valid
         in_medium = in_medium & active
         sid0 = torch.clamp(sid, min=0)

@@ -104,13 +104,16 @@ def build_tri_grid(v0, e1, e2, cells_per_tri=2.0, max_res=128):
 
 
 def ray_triangles_grid(o, d, tmin, v0, e1, e2, cell_start, tri_ids,
-                       bmin, bmax, res, chunk=8):
+                       bmin, bmax, res, chunk=8, stats=None, count=None):
     """Nearest triangle hit by a 3D-DDA walk over one mesh's grid.
 
     o, d (N, 3), tmin (N,): the rays; v0 / e1 / e2: the mesh's triangle
     bank the grid indexes into; cell_start / tri_ids / bmin / bmax: its
     grid (build_tri_grid), as tensors on o's device; res: (gx, gy, gz).
-    Each walk step runs on the lanes still walking."""
+    Each walk step runs on the lanes still walking. stats: adds, over the
+    rays where `count` (N,) bool is set, the walks that enter the grid's
+    box ("walks"), the cells they visit ("cells") and the triangles they
+    test ("triangles"), as the kernels count them (csrc/wf_mesh.cuh)."""
     gx, gy, gz = res
     dev = o.device
     n_ids = tri_ids.shape[0]
@@ -125,6 +128,8 @@ def ray_triangles_grid(o, d, tmin, v0, e1, e2, cell_start, tri_ids,
     t_enter = torch.maximum(torch.minimum(tb0, tb1).amax(-1), tmin)
     t_exit = torch.maximum(tb0, tb1).amin(-1)
     alive = (t_enter <= t_exit) & torch.isfinite(t_enter)
+    if stats is not None:
+        stats["walks"] = stats.get("walks", 0) + int((alive & count).sum())
 
     eps_t = 1e-5 * torch.clamp(torch.abs(t_enter), min=1.0)
     p_in = o + (t_enter + eps_t)[:, None] * d
@@ -152,6 +157,11 @@ def ray_triangles_grid(o, d, tmin, v0, e1, e2, cell_start, tri_ids,
         flat = torch.clamp(flat, 0, n_cells - 1)
         s = cell_start[flat].to(torch.int64)
         cnt = cell_start[flat + 1].to(torch.int64) - s
+        if stats is not None:
+            cl = count[L]
+            stats["cells"] = stats.get("cells", 0) + int(cl.sum())
+            stats["triangles"] = stats.get("triangles", 0) + \
+                int(cnt[cl].sum())
         for k in range(0, int(cnt.max()), chunk):
             idx = s[:, None] + k + lane_k
             valid = idx < (s + cnt)[:, None]

@@ -95,24 +95,36 @@ ANGLES_PER_GROUP = 25
 # what the kernels count when asked (`stats`): bounce iterations,
 # estimator steps, deposits into the home-slice tile and to global
 # memory, and lane slots (32 per warp for each step of its longest lane;
-# the residual's delta: each event; the dda residual forward: each step
-# of the walk pass's warps)
+# the residual's delta: each event; the dda residual forward and the
+# target forms' split forward: each step of the walk pass's warps); with
+# the target kept, its grid cells visited, triangles tested and grid
+# walks that entered its box (MESH_COUNTERS)
 COUNTERS = ("iterations", "steps", "tile_deposits", "global_deposits",
-            "lane_slots")
+            "lane_slots", "cells", "triangles", "walks")
+MESH_COUNTERS = COUNTERS[5:]
 
 KERNELS = ("wf_fwd", "wf_bwd")              # the analog pair
 RES_KERNELS = ("wf_res_fwd", "wf_res_bwd")  # the residual pair
 CULL_KERNELS = ("wf_radon", "wf_corner")    # the culling renders
+# the analog pair's target forms (csrc/wf_target.cu: the staged adjoint,
+# the dda forward's path and walk passes), one library beside the others
+TGT_LIB = "wf_target"
+LIBS = KERNELS + RES_KERNELS + CULL_KERNELS + (TGT_LIB,)
 # entry points of csrc/wf_res_fwd.cu beside its per-lane kernel, counted
 # apart: the dda forward's walk pass and the chord table's prologue
 RES_PARTS = ("wf_res_walk", "wf_res_chords")
-launches = {k: 0 for k in KERNELS + RES_KERNELS + CULL_KERNELS + RES_PARTS}
+# the target forms' dda forward: its path pass counts as wf_fwd, its walk
+# pass apart
+TGT_PARTS = ("wf_tgt_walk",)
+launches = {k: 0 for k in KERNELS + RES_KERNELS + CULL_KERNELS + RES_PARTS
+            + TGT_PARTS}
 # the launches of the target instantiations of the loop kernels, beside
 # their kernel's count in `launches`: "<kernel>:target1" (the target mesh
-# kept, one channel) and "<kernel>:target2" (a two-channel film); the walk
-# pass has a two-channel form only (one channel walks as without a target)
+# kept, one channel) and "<kernel>:target2" (a two-channel film); the
+# residual's walk pass has a two-channel form only (one channel walks as
+# without a target)
 TARGET_FORMS = tuple(f"{k}:target{t}" for k in KERNELS + RES_KERNELS
-                     for t in (1, 2)) + ("wf_res_walk:target2",)
+                     + TGT_PARTS for t in (1, 2)) + ("wf_res_walk:target2",)
 form_launches = {k: 0 for k in TARGET_FORMS}
 # what the culling kernels count when asked: bounce iterations, mesh grid
 # cells visited, triangles tested, triangle slots (32 for each test of a
@@ -137,6 +149,20 @@ SPLIT_MARGIN = 1.25
 # z-slabs the walk pass runs a batch's records in, one pass each, so that
 # the part of the dose grid its float atomics reach fits the card's L2
 WALK_SLABS = 2
+# the target forms' dda forward (tgt_forward): units of at most
+# TGT_UNIT_LANES lanes of one launch-order CTA; a record buffer of at most
+# TGT_MAX_RECORDS 32-byte records (512 MB) a launch; each unit's region
+# sized from the records a lane of that unit made in the last launch
+# (TGT_GUESS before the first), with TGT_MARGIN and TGT_SLACK records to
+# spare (a segment past it is walked by the path pass at once)
+TGT_UNIT_LANES = 16384
+TGT_MAX_RECORDS = (512 << 20) // 32
+TGT_GUESS = 2.0
+TGT_MARGIN = 1.125
+TGT_SLACK = 32
+# on the card the buffer's two halves take turns, a batch's walk pass on a
+# second stream beside the next batch's path pass
+TGT_OVERLAP = True
 
 
 def reset_launches():
@@ -329,6 +355,8 @@ class WfMesh(ctypes.Structure):
         ("ids_offset", ctypes.c_int * MAX_SURF),
         ("n_ids", ctypes.c_int * MAX_SURF),
         ("bbox_row", ctypes.c_int * MAX_SURF),
+        ("n_rows", ctypes.c_int), ("n_cell_start", ctypes.c_int),
+        ("n_tri_ids", ctypes.c_int),
     ]
 
 
@@ -350,6 +378,16 @@ class CullArgs(ctypes.Structure):
         ("dist", ctypes.c_float), ("radius", ctypes.c_float),
         ("n_rows", ctypes.c_int), ("n_cell_start", ctypes.c_int),
         ("n_tri_ids", ctypes.c_int), ("smem_limit", ctypes.c_int),
+    ]
+
+
+class TgtArgs(ctypes.Structure):
+    """Mirror of `TgtArgs` in csrc/wf_target.cuh: a batch of the target
+    forms' split forward (the record buffer, the units' regions and record
+    counts, the units, the accumulator), then its units' range."""
+    _fields_ = [(k, ctypes.c_void_p) for k in (
+        "recs", "region", "counts", "units", "acc")] + [
+        ("u0", ctypes.c_int), ("u1", ctypes.c_int),
     ]
 
 
@@ -380,6 +418,9 @@ def make_mesh(name, static: MarchStatic, arr):
         t = arr[key]
         _check(name, t, dtype, tuple(t.shape))
         setattr(M, field, t.data_ptr())
+    M.n_rows = 3 * arr["tri_v0"].shape[0]
+    M.n_cell_start = arr["grid_cell_start"].shape[0]
+    M.n_tri_ids = arr["grid_tri_ids"].shape[0]
     for i, s in enumerate(static.surfaces):
         if s.kind != MESH:
             continue
@@ -540,6 +581,17 @@ _ARGS = {
                     ctypes.c_int, ctypes.c_int, _PTR, _PTR, _PTR],
     # (bank, n, sigma_t, tab, stream)
     "wf_res_chords": [_PTR, ctypes.c_int, ctypes.c_float, _PTR, _PTR],
+    # (P, M, fits)
+    "wf_tgt_fits": [ctypes.POINTER(WfParams), ctypes.POINTER(WfMesh),
+                    ctypes.POINTER(ctypes.c_int)],
+    # (P, M, tris, dL, active_pixels, order, starts, grad, counters, stream)
+    "wf_tgt_bwd": _TGT + [_PTR] * 7,
+    # (P, M, tris, data, active_pixels, order, starts, A, counters, stream)
+    "wf_tgt_path": _TGT + [_PTR] * 4 + [ctypes.POINTER(TgtArgs), _PTR,
+                                        _PTR],
+    # (P, A, rows, counters, stream)
+    "wf_tgt_walk": [ctypes.POINTER(WfParams), ctypes.POINTER(TgtArgs),
+                    _PTR, _PTR, _PTR],
     # (P, M, A, stream)
     "wf_radon": [ctypes.POINTER(WfParams), ctypes.POINTER(WfMesh),
                  ctypes.POINTER(CullArgs), _PTR],
@@ -551,7 +603,9 @@ _ENTRIES = {"wf_fwd": ("wf_fwd",), "wf_bwd": ("wf_bwd",),
             "wf_res_fwd": ("wf_res_fwd", "wf_res_path", "wf_res_walk",
                            "wf_res_chords"),
             "wf_res_bwd": ("wf_res_bwd",), "wf_radon": ("wf_radon",),
-            "wf_corner": ("wf_corner",)}
+            "wf_corner": ("wf_corner",),
+            TGT_LIB: ("wf_tgt_fits", "wf_tgt_bwd", "wf_tgt_path",
+                      "wf_tgt_walk", "wf_tgt_info")}
 _INFO = {"wf_fwd_info": [ctypes.POINTER(WfParams), ctypes.c_int],
          "wf_bwd_info": [ctypes.POINTER(WfParams), ctypes.c_int],
          "wf_res_fwd_info": [ctypes.POINTER(WfParams), ctypes.c_int],
@@ -560,7 +614,9 @@ _INFO = {"wf_fwd_info": [ctypes.POINTER(WfParams), ctypes.c_int],
          "wf_radon_info": [ctypes.POINTER(WfParams),
                            ctypes.POINTER(CullArgs), ctypes.c_int],
          "wf_corner_info": [ctypes.POINTER(WfParams),
-                            ctypes.POINTER(CullArgs), ctypes.c_int]}
+                            ctypes.POINTER(CullArgs), ctypes.c_int],
+         "wf_tgt_info": [ctypes.POINTER(WfParams), ctypes.POINTER(WfMesh),
+                         ctypes.c_int, ctypes.c_int]}
 
 
 def _setup(lib, name):
@@ -568,8 +624,11 @@ def _setup(lib, name):
     of its launch-shape queries, where it has them)."""
     for fn_name in _ENTRIES[name]:
         fn = getattr(lib, fn_name)
-        fn.argtypes = _ARGS[fn_name]
         fn.restype = ctypes.c_int
+        if fn_name in _INFO:
+            fn.argtypes = _INFO[fn_name] + [ctypes.POINTER(ctypes.c_int)]
+            continue
+        fn.argtypes = _ARGS[fn_name]
         info = getattr(lib, fn_name + "_info", None)
         if info is not None:
             info.argtypes = _INFO[fn_name + "_info"] + [
@@ -577,19 +636,18 @@ def _setup(lib, name):
             info.restype = ctypes.c_int
 
 
-_SETUP = {k: (lambda lib, k=k: _setup(lib, k))
-          for k in KERNELS + RES_KERNELS + CULL_KERNELS}
+_SETUP = {k: (lambda lib, k=k: _setup(lib, k)) for k in LIBS}
 # the kernels round every float operation as the plain version's separate
 # torch ops do (no FMA contraction): see csrc/wf_trace.cuh
-_FLAGS = {k: ["--fmad=false"] for k in KERNELS + RES_KERNELS + CULL_KERNELS}
+_FLAGS = {k: ["--fmad=false"] for k in LIBS}
 
 
 def build_kernels():
     """Build (nvcc, one process per source, in parallel) and load the
-    six kernel libraries. Returns {name: ctypes lib}; raises on any
-    failure."""
+    seven kernel libraries (LIBS). Returns {name: ctypes lib}; raises on
+    any failure."""
     from ..native import load_cuda
-    return load_cuda(KERNELS + RES_KERNELS + CULL_KERNELS, _SETUP, _FLAGS)
+    return load_cuda(LIBS, _SETUP, _FLAGS)
 
 
 def _check(name, t, dtype, shape):
@@ -609,6 +667,13 @@ def _ptr(t):
 def _err(name, err):
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed, cudaError_t {err}")
+
+
+def _keys(P, keys=COUNTERS):
+    """The counters a launch of P reports: keys, without the mesh's when
+    the scene has no target."""
+    return keys if P.target else tuple(k for k in keys
+                                       if k not in MESH_COUNTERS)
 
 
 def _add(stats, counter, keys=COUNTERS):
@@ -694,7 +759,7 @@ def _launch(name, static, arr, x, out, seed, spp, stats):
                  out.data_ptr(), _ptr(counter), _stream(dev))
     _count(name, P)
     _err(name, err)
-    _add(stats, counter)
+    _add(stats, counter, _keys(P))
 
 
 def _pixels(name, static, arr, dev):
@@ -762,7 +827,7 @@ def _res_one_pass(libs, name, static, arr, x, out, seed, spp, stats):
         _ptr(tab), out.data_ptr(), _ptr(counter), _stream(dev))
     _count(name, P)
     _err(name, err)
-    _add(stats, counter)
+    _add(stats, counter, _keys(P))
 
 
 def _split_buffer(static, arr, P, dev):
@@ -821,7 +886,7 @@ def res_path(libs, static, arr, data, seed, spp, c0, c1, stats=None):
     n = int(ctr[0].item()) & 0xFFFFFFFF
     if n > cap:
         return None
-    _add(stats, counter, ("iterations",))
+    _add(stats, counter, _keys(P, ("iterations",) + MESH_COUNTERS))
     if stats is not None:
         stats["records"] = stats.get("records", 0) + n
         stats["batches"] = stats.get("batches", 0) + 1
@@ -850,7 +915,7 @@ def res_walk(libs, static, arr, recs, acc, seed=0, spp=1, stats=None):
             acc.data_ptr(), _ptr(counter), _stream(dev))
         _count("wf_res_walk", P)
         _err("wf_res_walk", err)
-        _add(stats, counter, COUNTERS[1:])
+        _add(stats, counter, COUNTERS[1:5])
         if counter is not None:
             stats["walk_steps"] = stats.get("walk_steps", 0) + \
                 int(counter[0])
@@ -929,6 +994,185 @@ def _res_split(libs, static, arr, data, acc, seed, spp, stats,
         c0, c_max = c1, n_ctas
 
 
+# --------------------------------------------------------------------------
+# the analog pair's target forms (csrc/wf_target.cu): the staged adjoint,
+# the dda forward's path and walk passes. `libs` as for the residual pair
+
+
+def tgt_route(libs, name, static, arr):
+    """Whether kernel `name` ("wf_fwd" or "wf_bwd") runs this scene through
+    the target forms of csrc/wf_target.cu: the scene keeps the target, its
+    mesh banks fit a CTA's shared memory (wf_tgt_fits) and, for the
+    forward, the estimator is the dda (the ratio and delta forwards keep
+    wf_fwd's one-pass kernel)."""
+    P = make_params(static, arr, 0, 1)
+    if not P.target or P.residual != ANALOG or (
+            name == "wf_fwd" and static.sensor.estimator != "dda"):
+        return False
+    M = make_mesh(name, static, arr)
+    fits = ctypes.c_int(0)
+    _err("wf_tgt_fits", libs[TGT_LIB].wf_tgt_fits(
+        ctypes.byref(P), ctypes.byref(M), ctypes.byref(fits)))
+    return bool(fits.value)
+
+
+def tgt_adjoint(libs, static, arr, dL_flat, seed, spp, stats=None):
+    """The analog adjoint's target form (wf_tgt_bwd: the banks staged in
+    each CTA's shared memory): the pattern gradient (n_active,)."""
+    dev = dL_flat.device
+    pix = _pixels("wf_bwd", static, arr, dev)
+    P, order, starts, _ = _family_params("wf_bwd", static, arr, seed, spp)
+    M, tris, _ = _target_args("wf_bwd", static, arr, P)
+    out = torch.empty((static.projector.n_active,), dtype=torch.float32,
+                      device=dev)
+    counter = _counter(stats, dev)
+    err = libs[TGT_LIB].wf_tgt_bwd(
+        ctypes.byref(P), ctypes.byref(M), _ptr(tris), dL_flat.data_ptr(),
+        pix.data_ptr(), _ptr(order), _ptr(starts), out.data_ptr(),
+        _ptr(counter), _stream(dev))
+    _count("wf_bwd", P)
+    _err("wf_tgt_bwd", err)
+    _add(stats, counter)
+    return out
+
+
+def tgt_units(static, arr, spp):
+    """The target forms' split forward's units: each launch-order CTA with
+    lanes (block_order) cut into equal ranges of its tasks (csrc/
+    wf_trace.cuh task_count: spp tasks for each 32 positions) of at most
+    TGT_UNIT_LANES lanes. Returns ((n_units, 3) int32 (CTA, first task,
+    task end) on the scene tensors' device, (n_units,) int64 numpy lanes);
+    cached in the scene tensors' dict."""
+    before = _lanes_before(static, arr, spp)
+    key = (spp, len(before), int(before[-1]))
+    cached = arr.get("_wf_tgt_units")
+    if cached is None or cached[0] != key:
+        units, lanes = [], []
+        for c, n in enumerate(np.diff(before) // spp):
+            n_tasks = spp * (-(-int(n) // 32))
+            parts = -(-int(n) * spp // TGT_UNIT_LANES)
+            cut = [n_tasks * i // parts for i in range(parts + 1)]
+            for t0, t1 in zip(cut[:-1], cut[1:]):
+                t = np.arange(t0, t1)
+                units.append((c, t0, t1))
+                lanes.append(int(np.minimum(32, n - 32 * (t // spp)).sum()))
+        dev = arr["active_pixels"].device
+        cached = (key, torch.tensor(units, dtype=torch.int32,
+                                    device=dev).reshape(-1, 3),
+                  np.asarray(lanes, np.int64))
+        arr["_wf_tgt_units"] = cached
+    return cached[1], cached[2]
+
+
+def _tgt_estimate(arr, P, lanes):
+    """The records a lane of each unit made in the last launch on these
+    units (TGT_GUESS before the first), float32 on the scene tensors'
+    device, and the units' lanes there (cached in the scene tensors'
+    dict; the wrapper updates the estimate in place)."""
+    key = (P.spp, P.target, P.n_active, lanes.shape[0])
+    cached = arr.get("_wf_tgt_est")
+    if cached is None or cached[0] != key:
+        dev = arr["active_pixels"].device
+        cached = (key, torch.full((lanes.shape[0],), TGT_GUESS,
+                                  dtype=torch.float32, device=dev),
+                  torch.from_numpy(lanes.astype(np.float32)).to(dev))
+        arr["_wf_tgt_est"] = cached
+    return cached[1], cached[2]
+
+
+def tgt_forward(libs, static, arr, data, seed, spp, stats=None, times=None):
+    """The dda forward's target form in two passes (csrc/wf_target.cuh),
+    batch by batch of units (tgt_units): each batch's path pass records
+    the lanes' dda segments into its units' regions of a record buffer
+    (walking a segment past its region at once), then its walk pass walks
+    each unit's records through its DMD row's home-slice tile. A batch is
+    as many units as their regions fit half the buffer; the halves take
+    turns, and on the card (TGT_OVERLAP) a batch's walk pass runs on a
+    second stream beside the next batch's path pass. A region is sized
+    from the records the unit made in the last launch. Returns the accumulator
+    (n_cells,). stats: adds the COUNTERS (lane slots: the walk's), the
+    records, those walked at once and the batches; times: adds the
+    passes' milliseconds ("path_ms", "walk_ms")."""
+    dev = data.device
+    pix = _pixels("wf_fwd", static, arr, dev)
+    P, order, starts, rows = _family_params("wf_fwd", static, arr, seed, spp)
+    M, tris, _ = _target_args("wf_fwd", static, arr, P)
+    acc = torch.zeros((static.sensor.n_cells,), dtype=torch.float32,
+                      device=dev)
+    units, lanes = tgt_units(static, arr, spp)
+    n_units = lanes.shape[0]
+    est, lanes_t = _tgt_estimate(arr, P, lanes)
+    cum = (torch.ceil(lanes_t * est * TGT_MARGIN).to(torch.int64)
+           + TGT_SLACK).cumsum(0)
+    cum_h = cum.cpu().numpy()
+    space = int(min(TGT_MAX_RECORDS // 2, max(cum_h[-1], 1))) if n_units \
+        else 0
+    recs = torch.empty((2 * space * 8,), dtype=torch.float32, device=dev)
+    lib = libs[TGT_LIB]
+    # the walk passes' stream, and the event after each half's last walk
+    # (not when the passes are timed or counted: those read the card)
+    overlap = TGT_OVERLAP and dev.type == "cuda" and times is None and \
+        stats is None
+    main = torch.cuda.current_stream(dev) if overlap else None
+    side = torch.cuda.Stream(dev) if overlap else None
+    walked = [None, None]
+    u0, k = 0, 0
+    while u0 < n_units:
+        base = int(cum_h[u0 - 1]) if u0 else 0
+        u1 = max(u0 + 1, int(np.searchsorted(cum_h, base + space,
+                                             side="right")))
+        nb = u1 - u0
+        region = torch.cat([torch.zeros((1,), dtype=torch.int64, device=dev),
+                            cum[u0:u1] - base]).clamp(max=space)
+        region = region.to(torch.int32)
+        cnt = torch.zeros((nb,), dtype=torch.int32, device=dev)
+        half = k % 2
+        A = TgtArgs(recs.data_ptr() + 32 * space * half, region.data_ptr(),
+                    cnt.data_ptr(), units.data_ptr(), acc.data_ptr(), u0, u1)
+        if overlap and walked[half] is not None:
+            main.wait_event(walked[half])
+        counter = _counter(stats, dev)
+        err = _timed(times, "path_ms", lambda: lib.wf_tgt_path(
+            ctypes.byref(P), ctypes.byref(M), _ptr(tris), data.data_ptr(),
+            pix.data_ptr(), _ptr(order), _ptr(starts), ctypes.byref(A),
+            _ptr(counter), _stream(dev)))
+        _count("wf_fwd", P)
+        _err("wf_tgt_path", err)
+        _add(stats, counter, ("iterations", "steps", "global_deposits")
+             + MESH_COUNTERS)
+        counter = _counter(stats, dev)
+        stream = _stream(dev)
+        if overlap:
+            side.wait_stream(main)
+            stream = side.cuda_stream
+            region.record_stream(side)
+            cnt.record_stream(side)
+        err = _timed(times, "walk_ms", lambda: lib.wf_tgt_walk(
+            ctypes.byref(P), ctypes.byref(A), _ptr(rows), _ptr(counter),
+            stream))
+        _count("wf_tgt_walk", P)
+        _err("wf_tgt_walk", err)
+        if overlap:
+            walked[half] = torch.cuda.Event()
+            walked[half].record(side)
+        _add(stats, counter, COUNTERS[1:5])
+        lb = lanes_t[u0:u1]
+        est[u0:u1] = torch.where(lb > 0, cnt.to(torch.float32) /
+                                 lb.clamp(min=1.0), est[u0:u1])
+        if stats is not None:
+            made = cnt.to(torch.int64)
+            cap = (region[1:] - region[:-1]).to(torch.int64)
+            stats["records"] = stats.get("records", 0) + int(made.sum())
+            stats["records_walked_at_once"] = stats.get(
+                "records_walked_at_once", 0) + int(
+                    (made - cap).clamp(min=0).sum())
+            stats["batches"] = stats.get("batches", 0) + 1
+        u0, k = u1, k + 1
+    if overlap:
+        main.wait_stream(side)
+    return acc
+
+
 def kernel_info(name, static: MarchStatic, arr, count=False):
     """The launch shape of the kernel instantiation `name` runs on this
     scene (count: the counting one, as with `stats`), read from the
@@ -937,13 +1181,24 @@ def kernel_info(name, static: MarchStatic, arr, count=False):
     "wf_res_walk": the dda residual forward's walk pass; "wf_res_fwd"
     of a dda static: its path pass. A static that keeps the target
     (target_mode) reads its target instantiation's shape: the mesh on,
-    and with two channels where the film has them."""
-    fam = "wf_res_fwd" if name == "wf_res_walk" else name
+    and with two channels where the film has them; on the target forms'
+    route (tgt_route) "wf_fwd" the path pass, "wf_tgt_walk" the walk
+    pass and "wf_bwd" the staged adjoint."""
+    fam = {"wf_res_walk": "wf_res_fwd", "wf_tgt_walk": "wf_fwd"}.get(name,
+                                                                     name)
     P = _family_params(fam, static, arr, 0, 1)[0]
     out = (ctypes.c_int * 8)()
     with torch.cuda.device(arr["active_pixels"].device):
-        lib = build_kernels()[fam]
-        if name == "wf_res_walk":
+        libs = build_kernels()
+        lib = libs[fam]
+        if name == "wf_tgt_walk" or (name in KERNELS and tgt_route(
+                libs, name, static, arr)):
+            M = make_mesh(name, static, arr)
+            err = libs[TGT_LIB].wf_tgt_info(
+                ctypes.byref(P), ctypes.byref(M),
+                {"wf_fwd": 0, "wf_tgt_walk": 1, "wf_bwd": 2}[name],
+                int(count), out)
+        elif name == "wf_res_walk":
             err = lib.wf_res_walk_info(int(count), int(P.target == 2), out)
         else:
             err = getattr(lib, name + "_info")(ctypes.byref(P), int(count),
@@ -956,17 +1211,23 @@ def kernel_info(name, static: MarchStatic, arr, count=False):
     return dict(zip(keys, list(out)), angles_per_cta=P.group)
 
 
-def wf_fwd(static: MarchStatic, arr, data, seed, spp, stats=None):
+def wf_fwd(static: MarchStatic, arr, data, seed, spp, stats=None,
+           times=None):
     """CUDA kernel csrc/wf_fwd.cu: the dose accumulator (n_cells,) of
     `data` (n_active,) float32 on the card. Replaces the primal of
     drtvam_tpu/ops/march.py:913 trace_wavefront (XLA). What bounds it
     on the H100: the float32 work of the voxel steps (~20 operations a
     step, two of them expf); the deposits of a CTA's DMD row in its
     home z-slice are atomic adds in shared memory, the rest go past the
-    50 MB L2 into the 67 MB dose grid of a 256^3 film. stats: adds the
+    50 MB L2 into the 67 MB dose grid of a 256^3 film. A dda scene that
+    keeps the target runs csrc/wf_target.cu's path and walk passes
+    (tgt_forward; times: adds their milliseconds). stats: adds the
     COUNTERS."""
     _n_lanes(static, spp)
     _check("wf_fwd", data, torch.float32, (static.projector.n_active,))
+    libs = _card_libs(data)
+    if tgt_route(libs, "wf_fwd", static, arr):
+        return tgt_forward(libs, static, arr, data, seed, spp, stats, times)
     acc = torch.zeros((static.sensor.n_cells,), dtype=torch.float32,
                       device=data.device)
     _launch("wf_fwd", static, arr, data, acc, seed, spp, stats)
@@ -979,9 +1240,14 @@ def wf_bwd(static: MarchStatic, arr, dL_flat, seed, spp, stats=None):
     paths. Replaces the adjoint of drtvam_tpu/ops/march.py:913 (XLA).
     Bound as wf_fwd, with gathers of dL in place of the atomics (a CTA's
     DMD row reads mostly one z-slice, so they mostly hit L1); every
-    output is written once, so the result is bitwise reproducible."""
+    output is written once, so the result is bitwise reproducible. A
+    scene that keeps the target runs csrc/wf_target.cu's staged adjoint
+    (tgt_adjoint)."""
     _n_lanes(static, spp)
     _check("wf_bwd", dL_flat, torch.float32, (static.sensor.n_cells,))
+    libs = _card_libs(dL_flat)
+    if tgt_route(libs, "wf_bwd", static, arr):
+        return tgt_adjoint(libs, static, arr, dL_flat, seed, spp, stats)
     out = torch.empty((static.projector.n_active,), dtype=torch.float32,
                       device=dL_flat.device)
     _launch("wf_bwd", static, arr, dL_flat, out, seed, spp, stats)

@@ -538,3 +538,44 @@ def test_target_kernels_match_plain(estimator, mode, tmp_path, cuda_device):
         assert int(off.sum()) <= (2e-3 * int((r != 0).sum())
                                   if estimator != "dda" else 0)
     assert torch.equal(grad, grad2)
+
+
+def test_target_forms_equal_the_one_pass_kernels(tmp_path, cuda_device,
+                                                 monkeypatch):
+    """The analog pair's target forms (csrc/wf_target.cu: the staged
+    adjoint, the dda forward's path and walk passes) against the one-pass
+    kernels the scene ran before (wf_fwd.cu / wf_bwd.cu with the target,
+    the route forced off): the adjoint bitwise, the forward to WF_TOL of
+    each channel's max with none off, the same iterations, steps and
+    mesh work (the target's grid cells, triangles and walks); the walk
+    pass launched and counted by its form."""
+    st, at = _target_scene(tmp_path, "dda", "analog")
+    rng = np.random.default_rng(9)
+    data = torch.from_numpy(rng.uniform(0.5, 1.5, st.projector.n_active)
+                            .astype(np.float32)).to(cuda_device)
+    dL = torch.from_numpy(rng.uniform(0.0, 1.0, st.sensor.n_cells)
+                          .astype(np.float32)).to(cuda_device)
+    libs = wf.build_kernels()
+    assert wf.tgt_route(libs, "wf_fwd", st, at)
+    assert wf.tgt_route(libs, "wf_bwd", st, at)
+    wf.reset_launches()
+    s_new, b_new = {}, {}
+    dose = wf.wf_fwd(st, at, data, 7, 4, s_new)
+    grad = wf.wf_bwd(st, at, dL, 7, 4, b_new)
+    torch.cuda.synchronize()
+    assert wf.launches["wf_tgt_walk"] >= 1
+    assert wf.form_launches["wf_tgt_walk:target2"] >= 1
+    monkeypatch.setattr(wf, "tgt_route", lambda *a: False)
+    s_old, b_old = {}, {}
+    dose_old = wf.wf_fwd(st, at, data, 7, 4, s_old)
+    grad_old = wf.wf_bwd(st, at, dL, 7, 4, b_old)
+    torch.cuda.synchronize()
+    assert torch.equal(grad, grad_old)
+    for k in ("iterations", "steps") + wf.MESH_COUNTERS:
+        assert s_new[k] == s_old[k] and b_new[k] == b_old[k], k
+    assert s_new["triangles"] > 0
+    for c in range(2):
+        o, r = dose.reshape(-1, 2)[:, c], dose_old.reshape(-1, 2)[:, c]
+        assert float(r.abs().max()) > 0
+        assert int(((o - r).abs() > WF_TOL * float(r.abs().max())).sum()) \
+            == 0

@@ -75,6 +75,7 @@ using std::isfinite;
 HARNESS = r"""
 #include <vector>
 #include "wf_residual.cuh"
+#include "wf_target.cuh"
 using namespace wf;
 static std::vector<int> traced;
 
@@ -95,11 +96,33 @@ void set_target(SinkT& S, const WfParams& P, const Target& T) {
   }
 }
 
+// the banks staged (stage_banks) into buf, standing for a CTA's shared
+// memory
+MeshBanks staged_banks(const Target& T, std::vector<float4>& buf) {
+  const WfMesh& M = *T.M;
+  buf.assign((bank_bytes(M.n_rows, M.n_cell_start, M.n_tri_ids) + 15) / 16,
+             float4{0, 0, 0, 0});
+  return stage_banks({T.tris, M.cell_start, M.tri_ids}, M.n_rows,
+                     M.n_cell_start, M.n_tri_ids, buf.data(), 0, 1);
+}
+
+// a sink's counters as the kernels write them (wf_kernel: COUNTERS)
+template <class SinkT>
+void add_counts(const SinkT& S, unsigned long long slots,
+                unsigned long long* c) {
+  const unsigned long long k[8] = {S.iters,    S.steps,   S.n_tile,
+                                   S.n_global, slots,     S.mc.cells,
+                                   S.mc.tris,  S.mc.walks};
+  for (int i = 0; i < 8; ++i) c[i] += k[i];
+}
+
 // the kernel's launch order on one thread: block by block, each block's
 // range task by task (task_position); the forward's home-slice tile
 // (a voxel's channels side by side) zeroed first and flushed last (the
-// adjoint and the residual take none)
-template <int EST, bool SCAT, bool TONLY, int RES, bool PRIMAL, bool TGT>
+// adjoint and the residual take none). STAGED: the banks staged, as the
+// target forms' adjoint (wf_target.cuh) reads them
+template <int EST, bool SCAT, bool TONLY, int RES, bool PRIMAL, bool TGT,
+          bool STAGED = false>
 void run_blocks(const WfParams& P, const Target& T, const float* in,
                 const int* ap, const int* order, const int* starts,
                 const int4* rows, const float* chords, float* out,
@@ -108,9 +131,11 @@ void run_blocks(const WfParams& P, const Target& T, const float* in,
   G.init(P);
   const int ch = P.target == 2 ? 2 : 1;
   std::vector<float> tile(ch * P.tile_n);
-  Sink<PRIMAL, true, TGT> S{out, in, tile.data(), rows, -1, 0.0f,
-                            0,   0,  0,           0};
+  Sink<PRIMAL, true, TGT, STAGED> S{out, in, tile.data(), rows, -1, 0.0f,
+                                    0,   0,  0,           0};
   set_target(S, P, T);
+  std::vector<float4> smem;
+  if constexpr (STAGED) S.banks = staged_banks(T, smem);
   unsigned long long slots = 0;
   for (int b = 0; b < P.resy * P.n_groups; ++b) {
     int lo, hi, py;
@@ -140,9 +165,7 @@ void run_blocks(const WfParams& P, const Target& T, const float* in,
       }
     }
   }
-  const unsigned long long k[5] = {S.iters, S.steps, S.n_tile, S.n_global,
-                                   slots};
-  for (int i = 0; i < 5; ++i) c[i] += k[i];
+  add_counts(S, slots, c);
 }
 
 // lane order, no tile: active pixel 0, 1, 2, ..., each pixel's lanes
@@ -169,8 +192,7 @@ void run_lanes(const WfParams& P, const Target& T, const float* in,
     }
     if (!PRIMAL) out[aidx] = gsum * P.ray_w;
   }
-  const unsigned long long k[4] = {S.iters, S.steps, S.n_tile, S.n_global};
-  for (int i = 0; i < 4; ++i) c[i] += k[i];
+  add_counts(S, 0, c);
 }
 
 template <bool PRIMAL, bool BLOCKS, bool TGT>
@@ -266,11 +288,7 @@ int res_dispatch_target(const WfParams* p, const Target& tg, const float* in,
     default: return 1;
   }
 #undef R
-  if (BLOCKS) {
-    const unsigned long long k[5] = {S.iters, S.steps, S.n_tile, S.n_global,
-                                     slots};
-    for (int i = 0; i < 5; ++i) c[i] += k[i];
-  }
+  if (BLOCKS) add_counts(S, slots, c);
   return 0;
 }
 #define RES_ENTRY(NAME, PRIMAL, BLOCKS)                                     \
@@ -313,7 +331,12 @@ int path_target(const WfParams* p, const Target& tg, int c0, int c1,
                                        chords, tab, nullptr, S, slots);
   else
     return 1;
-  if (c != nullptr) c[0] += S.iters;
+  if (c != nullptr) {
+    c[0] += S.iters;
+    c[5] += S.mc.cells;
+    c[6] += S.mc.tris;
+    c[7] += S.mc.walks;
+  }
   return 0;
 }
 extern "C" int wf_res_path(const WfParams* p, const WfMesh* M,
@@ -421,6 +444,133 @@ extern "C" int wf_res_walk(const WfParams* p, const float4* recs, unsigned n,
   return 0;
 }
 
+// ---- the target forms (wf_target.cuh) ----------------------------------
+
+// the budget the staged banks must fit (bytes); the card's is a CTA's
+// share of the SM's shared memory
+static long long tgt_budget = 1LL << 30;
+extern "C" void set_tgt_budget(long long b) { tgt_budget = b; }
+extern "C" int wf_tgt_fits(const WfParams* p, const WfMesh* M, int* fits) {
+  *fits = p->target && p->residual == ANALOG &&
+          (long long)bank_bytes(M->n_rows, M->n_cell_start, M->n_tri_ids) <=
+              tgt_budget;
+  return 0;
+}
+extern "C" int wf_tgt_info(const WfParams*, const WfMesh*, int, int, int*) {
+  return 1;
+}
+
+// the staged adjoint in its launch order (block by block, task by task)
+extern "C" int wf_tgt_bwd(const WfParams* p, const WfMesh* M,
+                          const float4* tris, const float* dL, const int* ap,
+                          const int* order, const int* starts, float* grad,
+                          unsigned long long* c, void*) {
+  traced.clear();
+  const Target tg{M, tris, nullptr};
+  const int key = p->estimator * 4 + (p->has_scattering ? 2 : 0) +
+                  (p->transmission_only ? 1 : 0);
+#define C(E, S, T)                                                       \
+  case E * 4 + (S ? 2 : 0) + (T ? 1 : 0):                                \
+    run_blocks<E, S, T, ANALOG, false, true, true>(                      \
+        *p, tg, dL, ap, order, starts, nullptr, nullptr, grad, c);       \
+    break;
+  switch (key) {
+    C(0, 0, 0) C(0, 0, 1) C(0, 1, 0) C(0, 1, 1) C(1, 0, 0) C(1, 0, 1)
+    C(1, 1, 0) C(1, 1, 1) C(2, 0, 0) C(2, 0, 1) C(2, 1, 0) C(2, 1, 1)
+    default: return 1;
+  }
+#undef C
+  return 0;
+}
+
+// the path pass over the batch's units, unit by unit, each unit's tasks
+// in order (tgt_path_kernel), the banks staged
+template <bool SCAT, bool TONLY>
+void tgt_path_units(const WfParams& P, const Target& T, const float* in,
+                    const int* ap, const int* order, const int* starts,
+                    const TgtArgs& A, unsigned long long* c) {
+  Grid G;
+  G.init(P);
+  std::vector<float4> smem;
+  const MeshBanks B = staged_banks(T, smem);
+  for (int k = 0; k < A.u1 - A.u0; ++k) {
+    int u, t0, t1, lo, hi, py;
+    tgt_unit(A, A.u0 + k, u, t0, t1);
+    block_range(P, starts, u, lo, hi, py);
+    unsigned made = 0;
+    auto S = tgt_path_sink<true>(P, T.M, B, A, k, &made);
+    for (int t = t0; t < t1; ++t)
+      for (int l = 0; l < 32; ++l) {
+        const int aidx = trace_task<DDA, SCAT, TONLY>(P, G, order, lo, hi, t,
+                                                      l, in, ap, nullptr, S);
+        if (aidx >= 0) traced.push_back(aidx);
+      }
+    A.counts[k] = made;
+    if (c != nullptr) add_counts(S, 0, c);
+  }
+}
+extern "C" int wf_tgt_path(const WfParams* p, const WfMesh* M,
+                           const float4* tris, const float* in,
+                           const int* ap, const int* order,
+                           const int* starts, const TgtArgs* A,
+                           unsigned long long* c, void*) {
+  traced.clear();
+  if (p->estimator != DDA || !p->target) return 1;
+  const Target tg{M, tris, nullptr};
+  if (p->has_scattering)
+    (p->transmission_only ? tgt_path_units<true, true>
+                          : tgt_path_units<true, false>)(
+        *p, tg, in, ap, order, starts, *A, c);
+  else
+    (p->transmission_only ? tgt_path_units<false, true>
+                          : tgt_path_units<false, false>)(
+        *p, tg, in, ap, order, starts, *A, c);
+  return 0;
+}
+
+// the walk pass unit by unit (tgt_walk_kernel): the home-slice tile zeroed,
+// the unit's records walked in order, the tile flushed
+extern "C" int wf_tgt_walk(const WfParams* p, const TgtArgs* A,
+                           const int4* rows, unsigned long long* c, void*) {
+  const WfParams& P = *p;
+  Grid G;
+  G.init(P);
+  const bool two = P.target == 2;
+  const int ch = two ? 2 : 1;
+  std::vector<float> tile(ch * P.tile_n);
+  for (int k = 0; k < A->u1 - A->u0; ++k) {
+    unsigned lo, n;
+    tgt_walk_range(*A, k, lo, n);
+    if (n == 0) continue;
+    int u, t0, t1;
+    tgt_unit(*A, A->u0 + k, u, t0, t1);
+    const int home = P.tile_n > 0 ? home_slice(P, G, u / P.n_groups) : -1;
+    Sink<true, true, true> S{A->acc, nullptr, tile.data(), rows, home, 0.0f,
+                             0,      0,       0,           0};
+    S.two = two;
+    for (int y = 0; home >= 0 && y < G.res[1]; ++y)
+      for (int i = ch * (rows[y].z + rows[y].x);
+           i < ch * (rows[y].z + rows[y].x + rows[y].y); ++i)
+        tile[i] = 0.0f;
+    for (unsigned r = lo; r < lo + n; ++r) {
+      const float4 a = A->recs[2 * r], b = A->recs[2 * r + 1];
+      S.chan = two && b.z < 0.0f ? 1 : 0;
+      dda_walk(P, G, S, V3{a.x, a.y, a.z}, V3{a.w, b.x, b.y},
+               two ? std::fabs(b.z) : b.z, b.w, P.sigma_t);
+    }
+    const int slice0 = home * G.res[0] * G.res[1];
+    for (int y = 0; home >= 0 && y < G.res[1]; ++y) {
+      const int row0 = slice0 + y * G.res[0] + rows[y].x;
+      for (int i = 0; i < ch * rows[y].y; ++i) {
+        const float v = tile[ch * (rows[y].z + rows[y].x) + i];
+        if (v != 0.0f) atomicAdd(A->acc + ch * row0 + i, v);
+      }
+    }
+    if (c != nullptr) add_counts(S, 0, c);
+  }
+  return 0;
+}
+
 // the chord table and the angle frames, by the kernels' own functions
 extern "C" int wf_res_chords(const float* bank, int n, float st, float4* tab,
                              void*) {
@@ -471,8 +621,10 @@ def template_lib(tmp_path_factory):
                             "-o", str(lib)], capture_output=True, text=True)
     assert build.returncode == 0, build.stderr
     lib = ctypes.CDLL(str(lib))
-    for name in wf.KERNELS + wf.RES_KERNELS:
+    for name in wf.KERNELS + wf.RES_KERNELS + (wf.TGT_LIB,):
         wf._setup(lib, name)
+    lib.set_tgt_budget.argtypes = [ctypes.c_longlong]
+    lib.set_tgt_budget.restype = None
     for name in ("wf_fwd", "wf_bwd", "wf_res_fwd", "wf_res_bwd"):
         fn = getattr(lib, name + "_lanes")
         fn.argtypes, fn.restype = wf._ARGS[name], ctypes.c_int
@@ -735,7 +887,7 @@ def _run_res(lib, name, static, at, x, n_out, seed, spp):
 
 def _libs(lib):
     """The harness library in the place of the card's kernel libraries."""
-    return {name: lib for name in wf.RES_KERNELS}
+    return {name: lib for name in wf.RES_KERNELS + (wf.TGT_LIB,)}
 
 
 @pytest.mark.parametrize("case", RES_CASES)
@@ -1131,3 +1283,201 @@ def test_target_residual_template_traces_the_plain_residual(case,
     assert torch.equal(grad, grad_l)
     if ch == 2:
         assert (dose.reshape(-1, 2).sum(0) > 0).all()
+
+
+# --------------------------------------------------------------------------
+# the analog pair's target forms (csrc/wf_target.cuh): the staged adjoint,
+# the dda forward's path and walk passes
+
+
+def _target_scene(path, case, **kw):
+    *scene, target = case
+    static, arr = _scene(path, *scene, target=target, **kw)
+    arr.pop("inside_mask", None)
+    return static, scene_tensors(arr, "cpu")
+
+
+def _inputs(static, seed):
+    rng = np.random.default_rng(seed)
+    data = torch.from_numpy(rng.uniform(0.5, 1.5, static.projector.n_active)
+                            .astype(np.float32))
+    dL = torch.from_numpy(rng.uniform(0.0, 1.0, static.sensor.n_cells)
+                          .astype(np.float32))
+    return data, dL
+
+
+@pytest.fixture(scope="module")
+def gear_path(tmp_path_factory):
+    """A target of 480 triangles: past GRID_MIN_TRIS, so the kernels and
+    the plain version walk its grid."""
+    from drtvam_tpu_torch.ops.mesh import make_box_with_hole
+    path = tmp_path_factory.mktemp("gear") / "box_hole.ply"
+    save_ply(make_box_with_hole((1.0, 1.0, 0.5), 0.3, segments=48),
+             str(path))
+    return str(path)
+
+
+@pytest.mark.parametrize("case", TARGET_CASES)
+def test_staged_target_adjoint_equals_global_banks(case, template_lib):
+    """The target forms' adjoint (the banks staged, as wf_tgt_bwd reads
+    them) equals the global-bank adjoint and lane order bit for bit, with
+    the same counters (the target's cells, triangles and walks too), and
+    the plain version's steps."""
+    lib, path = template_lib
+    static, at = _target_scene(path, case)
+    _, dL = _inputs(static, 18)
+    seed, spp, n = 4, 2, static.projector.n_active
+    assert wf.tgt_route(_libs(lib), "wf_bwd", static, at)
+    ref_stats = {}
+    wf._adjoint(static, at, seed, spp, wf.DEFAULT_CHUNK, dL, ref_stats)
+    stats = {}
+    staged = wf.tgt_adjoint(_libs(lib), static, at, dL, seed, spp, stats)
+    glob, g_stats = _run(lib, "wf_bwd", static, at, dL, n, seed, spp)
+    lanes, _ = _run(lib, "wf_bwd_lanes", static, at, dL, n, seed, spp)
+    assert torch.equal(staged, glob) and torch.equal(staged, lanes)
+    assert stats == g_stats
+    assert {k: stats[k] for k in ref_stats} == ref_stats
+    assert stats["triangles"] > 0
+
+
+def _split(lib, static, at, data, seed, spp):
+    stats = {}
+    dose = wf.tgt_forward(_libs(lib), static, at, data, seed, spp, stats)
+    return dose, stats
+
+
+DDA_TARGET_CASES = [c for c in TARGET_CASES if c[0] == "dda"]
+
+
+@pytest.mark.parametrize("case", DDA_TARGET_CASES)
+def test_split_target_forward_equals_one_pass(case, template_lib):
+    """The dda forward's target form, path pass then walk pass through the
+    wrapper's batching, against the one-pass forward (the same launch
+    order and tile): the same bounce iterations, steps and mesh work,
+    values to 1e-4 of each channel's max with none off; every step a
+    deposit; the records the path pass made, walked by the plain walk
+    (ops/render.py _walk: each record's channel from the sign of its
+    maxt), give the plain forward's dose in each channel: the records
+    carry the one-pass lanes' inside flags."""
+    lib, path = template_lib
+    static, at = _target_scene(path, case)
+    data, _ = _inputs(static, 19)
+    seed, spp = 4, 2
+    ch = static.sensor.channels
+    assert wf.tgt_route(_libs(lib), "wf_fwd", static, at)
+    one, one_stats = _run(lib, "wf_fwd", static, at, data,
+                          static.sensor.n_cells, seed, spp)
+    ref_stats = {}
+    ref = wf._forward(static, at, data, seed, spp, wf.DEFAULT_CHUNK,
+                      ref_stats)
+    dose, stats = _split(lib, static, at, data, seed, spp)
+    for k in ("iterations", "steps") + wf.MESH_COUNTERS:
+        assert stats[k] == one_stats[k], k
+    assert {k: stats[k] for k in ref_stats} == ref_stats
+    _deposits_add_up(stats, "dda")
+    assert stats["tile_deposits"] > 0
+    assert 0 < stats["records"] <= stats["iterations"]
+    _close(dose, one, False, ch)
+    _close(dose, ref, False, ch)
+    # the records of one batch with room for all of them, walked plainly
+    units, lanes = wf.tgt_units(static, at, spp)
+    cap = 4 * int(lanes.sum())
+    recs = torch.zeros(cap * 8)
+    region = torch.tensor([0] + [cap] * units.shape[0], dtype=torch.int32)
+    region[1:] = torch.arange(1, units.shape[0] + 1) * (cap // units.shape[0])
+    cnt = torch.zeros(units.shape[0], dtype=torch.int32)
+    acc = torch.zeros(static.sensor.n_cells)
+    P, order, starts, _ = wf._family_params("wf_fwd", static, at, seed, spp)
+    M, tris, _ = wf._target_args("wf_fwd", static, at, P)
+    A = wf.TgtArgs(recs.data_ptr(), region.data_ptr(), cnt.data_ptr(),
+                   units.data_ptr(), acc.data_ptr(), 0, units.shape[0])
+    assert lib.wf_tgt_path(ctypes.byref(P), ctypes.byref(M), wf._ptr(tris),
+                           data.data_ptr(), at["active_pixels"].data_ptr(),
+                           wf._ptr(order), wf._ptr(starts), ctypes.byref(A),
+                           None, None) == 0
+    assert not bool(acc.any())  # every segment recorded
+    per = cap // units.shape[0]
+    rec = torch.cat([recs.view(-1, 8)[k * per:k * per + int(cnt[k])]
+                     for k in range(units.shape[0])])
+    assert rec.shape[0] == stats["records"]
+    if ch == 2:
+        assert bool((rec[:, 6] < 0).any()) and bool((rec[:, 6] > 0).any())
+    _close(wf._walk(static, at, rec), ref, False, ch)
+
+
+@pytest.mark.parametrize("lever", ["walked_at_once", "batches", "units"])
+def test_split_target_forward_levers_change_no_step(lever, template_lib,
+                                                    monkeypatch):
+    """Regions too small for their records (the path pass walks the rest
+    at once, every deposit global), a buffer of a few units' regions (many
+    batches) and units of 64 lanes (each CTA's tasks cut in parts, each
+    with its own tile): the same iterations and steps as the shipped
+    sizes, values to 1e-4 of each channel's max; the estimate from the
+    first launch sizes the next one's regions, which then hold every
+    record."""
+    lib, path = template_lib
+    static, at = _target_scene(path, TARGET_CASES[0], n_patterns=30)
+    data, _ = _inputs(static, 20)
+    seed, spp = 5, 2
+    base, base_stats = _split(lib, static, at, data, seed, spp)
+    assert base_stats["batches"] == 1
+    at.pop("_wf_tgt_est")
+    if lever == "walked_at_once":
+        monkeypatch.setattr(wf, "TGT_GUESS", 0.0)
+        monkeypatch.setattr(wf, "TGT_SLACK", 0)
+    elif lever == "batches":
+        monkeypatch.setattr(wf, "TGT_MAX_RECORDS", 200)
+    else:
+        monkeypatch.setattr(wf, "TGT_UNIT_LANES", 64)
+        at.pop("_wf_tgt_units")
+    dose, stats = _split(lib, static, at, data, seed, spp)
+    for k in ("iterations", "steps", "records"):
+        assert stats[k] == base_stats[k], k
+    _close(dose, base, False, 2)
+    if lever == "walked_at_once":
+        assert stats["records_walked_at_once"] == stats["records"]
+        assert stats["tile_deposits"] == 0
+        monkeypatch.setattr(wf, "TGT_SLACK", 32)
+        again, again_stats = _split(lib, static, at, data, seed, spp)
+        assert again_stats["records_walked_at_once"] == 0
+        _close(again, base, False, 2)
+    elif lever == "batches":
+        assert stats["batches"] > 3
+    else:
+        assert wf.tgt_units(static, at, spp)[0].shape[0] > \
+            static.projector.resy * wf.angle_groups(30)[0]
+
+
+@pytest.mark.parametrize("form", ["wf_fwd", "wf_bwd"])
+def test_target_mesh_counts_equal_the_plain_grid_walk(form, template_lib,
+                                                      gear_path):
+    """On a target walked through its grid, the target forms count the
+    plain version's grid walks, cells and triangle tests
+    (ray_triangles_grid over the lanes that intersect), as do the
+    one-pass kernels; a budget too small for the banks routes the scene
+    to the one-pass kernels."""
+    lib, _ = template_lib
+    static, at = _target_scene(gear_path, TARGET_CASES[0])
+    assert any(s.grid is not None for s in static.surfaces)
+    data, dL = _inputs(static, 21)
+    seed, spp = 3, 2
+    ref_stats = {}
+    if form == "wf_fwd":
+        wf._forward(static, at, data, seed, spp, wf.DEFAULT_CHUNK, ref_stats)
+        _, stats = _split(lib, static, at, data, seed, spp)
+        _, one = _run(lib, "wf_fwd", static, at, data, static.sensor.n_cells,
+                      seed, spp)
+    else:
+        wf._adjoint(static, at, seed, spp, wf.DEFAULT_CHUNK, dL, ref_stats)
+        stats = {}
+        wf.tgt_adjoint(_libs(lib), static, at, dL, seed, spp, stats)
+        _, one = _run(lib, "wf_bwd", static, at, dL, static.projector.n_active,
+                      seed, spp)
+    assert ref_stats["cells"] > ref_stats["walks"] > 0
+    for k in ("iterations", "steps") + wf.MESH_COUNTERS:
+        assert stats[k] == ref_stats[k] == one[k], k
+    try:
+        lib.set_tgt_budget(0)
+        assert not wf.tgt_route(_libs(lib), form, static, at)
+    finally:
+        lib.set_tgt_budget(1 << 30)

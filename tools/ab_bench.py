@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Bench phases of two trees on one card, in turns.
 
-    python3 tools/ab_bench.py PARENT_ROOT [ballistic|wavefront|hybrid|cull]
+    python3 tools/ab_bench.py PARENT_ROOT [ballistic|wavefront|hybrid|cull|
+                                           target]
 
 run from the root of the changed tree, on a machine with one NVIDIA GPU.
 PARENT_ROOT is an unpacked copy of the parent commit (`git archive`).
@@ -28,7 +29,16 @@ builds that tree's kernels and runs its own chip_smoke.py code:
     radon render at spp 4, 256 M lanes; CUDA events, median of 5, 5 and
     3), then phase 11's culled optimize() runs (filter_radon on the
     bench scene, filter_corner on the square bench vial, filter_radon on
-    the telecentric bench scene). Six turns, as hybrid.
+    the telecentric bench scene). Six turns, as hybrid;
+  target: chip_smoke.py phase 13's cells through optimize() (cell (b):
+    the bench scene with a surface-aware film on the wavefront; cell (a):
+    the surface-aware square scattering cell, the hybrid engine), their
+    wall split and IoU, then the loop kernels' target forms on each
+    cell's own last inputs (CUDA events): cell (b)'s two-channel wf_fwd
+    and wf_bwd and its wf_fwd with the film cut to one channel (median
+    of 5), and cell (a)'s final-render dda residual with the target at
+    spp 16 (median of 3, with its path pass apart). Six turns, as
+    hybrid.
 
 Every JSON record a turn prints is tagged with the turn; the last line
 is each tree's median over its turns of every timed number. Compares
@@ -192,15 +202,73 @@ with tempfile.TemporaryDirectory() as tmp:
     cs.phase_cull_telecentric(torch, wf, bp, dev, tmp)
 """
 
+TARGET = """
+import json, os, sys, tempfile
+sys.path.insert(0, os.getcwd())
+import numpy as np
+import torch
+import chip_smoke as cs
+from drtvam_tpu_torch.ops import backproject as bp
+from drtvam_tpu_torch.ops import render as wf
+dev = torch.device("cuda:0")
+wf.build_kernels()
+bp.build_kernels()
+torch.zeros(1, device=dev)  # create the context before the memory stats
+
+
+def emit(rec):
+    print(json.dumps(rec), flush=True)
+
+
+def cell(tmp, name):
+    cfg = cs.sa_cell_config(tmp, name)
+    with cs.CallSpy(wf) as spy:
+        vol, timings, wall, peak = cs.optimize_on_card(torch, dev, cfg)
+    binary = np.load(os.path.join(cfg["output"], "target_binary.npy"))
+    iou, _ = cs.bench_iou(vol, binary)
+    emit({"phase": "target_cell", "name": name, **cs.phase_times(timings,
+                                                                  wall),
+          "best_iou": iou, "peak_mem_gb": peak})
+    del vol
+    torch.cuda.empty_cache()
+    return spy.calls
+
+
+with tempfile.TemporaryDirectory() as tmp:
+    calls = cell(tmp, "b")
+    st2, at2, data, seed, spp = calls["wf_fwd:target2"]
+    st1 = cs.one_channel_target(st2)
+    dL = torch.rand(st2.sensor.n_cells, generator=torch.Generator(
+        dev).manual_seed(5), device=dev)
+    for name, fn in (
+            ("wf_fwd:target2", lambda: wf.wf_fwd(st2, at2, data, seed, spp)),
+            ("wf_fwd:target1", lambda: wf.wf_fwd(st1, at2, data, seed, spp)),
+            ("wf_bwd:target2", lambda: wf.wf_bwd(st2, at2, dL, seed, spp))):
+        emit({"phase": "target_form", "name": name,
+              "ms": cs.cuda_ms(fn, 5, torch)})
+    del calls, st2, at2, data, dL
+    torch.cuda.empty_cache()
+    calls = cell(tmp, "a")
+    st, at, data, seed, spp = calls["wf_res_fwd:target1"]
+    times = {}
+    ms = cs.cuda_ms(lambda: wf.wf_res_fwd(st, at, data, seed, spp,
+                                          times=times), 3, torch)
+    emit({"phase": "target_form", "name": "wf_res_fwd:target1", "ms": ms})
+    emit({"phase": "target_form", "name": "wf_res_path:target1",
+          "ms": times["path_ms"] / 4})
+"""
+
 MODES = {"ballistic": BALLISTIC, "wavefront": WAVEFRONT, "hybrid": HYBRID,
-         "cull": CULL}
+         "cull": CULL, "target": TARGET}
 # the turns of each mode: parent and change in alternation
 TURNS = {"ballistic": ("parent", "change", "change", "parent"),
          "wavefront": ("parent", "change", "change", "parent"),
          "hybrid": ("parent", "change", "change", "parent", "parent",
                     "change"),
          "cull": ("parent", "change", "change", "parent", "parent",
-                  "change")}
+                  "change"),
+         "target": ("parent", "change", "change", "parent", "parent",
+                    "change")}
 
 
 def timed(rec):

@@ -8,6 +8,9 @@
     python3 tools/wf_variants.py cull [--parent ROOT] [VARIANT ...]
                                                  (the culling renders',
                                                   CULL_VARIANTS)
+    python3 tools/wf_variants.py target [VARIANT ...]   (the analog pair's
+                                                  target forms',
+                                                  TGT_VARIANTS)
 
 run from the repo root on a machine with one NVIDIA GPU. Each variant
 changes one thing against the source as it is ("shipped"): the threads
@@ -56,7 +59,25 @@ the triangle tests' SIMT efficiency, repeated tests, lanes that reach
 the mesh's box), the telecentric image against the plain march on every
 50th angle's pixels, and the launch shapes; every build its ptxas
 registers and spills.
+The target forms' variants (wf_fwd / wf_bwd on a scene that keeps the
+target: csrc/wf_target.cu's staged adjoint and dda path and walk passes)
+are builds of wf_target.cu with other launch shapes (WF_TGT_*), and the
+one-pass kernels the scenes ran before (wf_fwd.cu / wf_bwd.cu with the
+target: 1024 threads, the banks in global memory), as they are, with the
+home-slice tile off (every deposit a global atomic, L1 free) and built at
+512 threads a CTA (128 registers a thread). Each runs chip_smoke.py
+phase 13's cell (b) (the bench scene with a surface-aware film on the
+wavefront, dda, spp 1, 64 M lanes) on the patterns of its optimize()
+after TGT_STEPS steps: the two-channel forward, the one-channel forward
+(the film cut to one channel, the target kept) and the two-channel
+adjoint, each against the shipped build's (forwards to 1e-4 of each
+channel's max, the adjoint bitwise), CUDA-event times (median of 3), the
+launch shapes and the registers and spills of the instantiations they
+run; the shipped build also its counts (steps, the target's grid cells,
+triangles and walks, records, batches), the forward's path and walk
+passes apart and the scene without its target.
 """
+import contextlib
 import ctypes
 import json
 import os
@@ -568,6 +589,181 @@ def torch_equal(a, b):
     return bool((a == b).all())
 
 
+# name: {WF_TGT_* constants of a wf_target.cu build; TGT_*
+# constants of ops/render.py for the variant's run; "one_pass": the
+# one-pass kernels of wf_fwd.cu / wf_bwd.cu; "tile": False, their tile
+# off; WF_THREADS: their CTA's threads (a rewritten copy)}
+TGT_VARIANTS = {
+    "shipped": {},
+    "threads256": {"WF_TGT_THREADS": 256, "WF_TGT_MIN_CTAS": 2},
+    "threads256x1": {"WF_TGT_THREADS": 256, "WF_TGT_MIN_CTAS": 1},
+    "threads512": {"WF_TGT_THREADS": 512, "WF_TGT_MIN_CTAS": 1},
+    "threads768": {"WF_TGT_THREADS": 768, "WF_TGT_MIN_CTAS": 1},
+    # the batches one after another on one stream
+    "no_overlap": {"TGT_OVERLAP": False},
+    # the record buffer a launch (records of 32 bytes): a batch a half
+    # (12 GB), or a quarter of the shipped one's
+    "one_batch": {"TGT_MAX_RECORDS": (12 << 30) // 32},
+    "records_128mb": {"TGT_MAX_RECORDS": (128 << 20) // 32},
+    "unit_lanes_4096": {"TGT_UNIT_LANES": 4096},
+    "one_pass": {"one_pass": True},
+    "one_pass_no_tile": {"one_pass": True, "tile": False},
+    "one_pass_threads512": {"one_pass": True, "WF_THREADS": 512},
+}
+# optimize() steps on cell (b) before its loop patterns are taken
+TGT_STEPS = 3
+
+
+def tgt_build(work, names):
+    """One nvcc per variant library (wf_target.cu with its constants, or
+    wf_fwd.cu and wf_bwd.cu from a rewritten copy), all started together;
+    returns the running jobs."""
+    from drtvam_tpu_torch.native import CUDA_SRC_DIR, nvcc_path
+    jobs = []
+    for v in names:
+        spec = TGT_VARIANTS[v]
+        base = [nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
+                "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
+                "-Xcompiler", "-fPIC", "--fmad=false"]
+        if "WF_THREADS" in spec:
+            vdir = source_dir(work, spec)
+            variant_source(CUDA_SRC_DIR, vdir, spec)
+            srcs = [(n, vdir, []) for n in ("wf_fwd", "wf_bwd")]
+        elif any(k.startswith("WF_") for k in spec):
+            srcs = [("wf_target", CUDA_SRC_DIR,
+                     [f"-D{k}={val}" for k, val in spec.items()])]
+        else:
+            continue
+        for n, src, defs in srcs:
+            lib = os.path.join(work, f"lib{n}_{v}.so")
+            cmd = base + defs + ["-I", src, os.path.join(src, n + ".cu"),
+                                 "-o", lib]
+            jobs.append((v, n, lib, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+    return jobs
+
+
+def tgt_ptxas(log):
+    """Registers and spill bytes of the target instantiations cell (b)
+    runs (DDA, !SCAT: the path and walk passes, the staged adjoint, the
+    one-pass forward and adjoint with the target; not counting)."""
+    import chip_smoke as cs
+    keep = {}
+    for part in log.split("Compiling entry function '")[1:]:
+        name = cs.instantiation(part.split("'")[0])
+        if "counting" in name or not (
+                "target" in name and ("DDA, !SCAT" in name
+                                      or "walk" in name)):
+            continue
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", part)
+        keep[name] = {"registers": int(regs.group(1)),
+                      "spill_store_bytes": int(spill.group(1)),
+                      "spill_load_bytes": int(spill.group(2))}
+    return keep
+
+
+def main_target(names):
+    import torch
+    import chip_smoke as cs
+    from drtvam_tpu_torch.native import BUILD_DIR
+    from drtvam_tpu_torch.ops import render as wf
+    dev = torch.device("cuda:0")
+    torch.zeros(1, device=dev)  # create the context before the memory stats
+    with tempfile.TemporaryDirectory() as work:
+        jobs = tgt_build(work, names)
+        shipped = wf.build_kernels()
+        built, logs = {}, {}
+        for v, n, lib, proc in jobs:
+            log, _ = proc.communicate(timeout=900)
+            if proc.returncode != 0:
+                raise RuntimeError(f"{v} {n}: nvcc failed\n{log}")
+            built[(v, n)] = lib
+            logs[(v, n)] = log
+        for n in ("wf_fwd", "wf_bwd", wf.TGT_LIB):
+            with open(os.path.join(BUILD_DIR, f"lib{n}.so.log")) as f:
+                logs[("shipped", n)] = f.read()
+        cfg = cs.sa_cell_config(work, "b")
+        cfg["n_steps"] = TGT_STEPS
+        with cs.CallSpy(wf) as spy:
+            cs.optimize_on_card(torch, dev, cfg)
+        st2, at2, data, seed, spp = spy.calls["wf_fwd:target2"]
+        st1 = cs.one_channel_target(st2)
+        st0, at0 = cs.strip_to_one_channel(st2, at2)
+        at0 = dict(at0)
+        dL = torch.rand(st2.sensor.n_cells, generator=torch.Generator(
+            dev).manual_seed(5), device=dev)
+        forms = {"wf_fwd, 2 channels": ("wf_fwd", st2, data),
+                 "wf_fwd, 1 channel": ("wf_fwd", st1, data),
+                 "wf_bwd, 2 channels": ("wf_bwd", st2, dL)}
+        tile_rows = wf.tile_rows
+        shipped_consts = {k: getattr(wf, k) for k in (
+            "TGT_MAX_RECORDS", "TGT_UNIT_LANES", "TGT_OVERLAP")}
+        ref = {}
+        for v in names:
+            spec = TGT_VARIANTS[v]
+            libs = dict(shipped)
+            for (bv, n), lib in built.items():
+                if bv == v:
+                    libs[n] = ctypes.CDLL(lib)
+                    wf._setup(libs[n], n)
+            wf.build_kernels = lambda: libs  # noqa: B023
+            if spec.get("tile", True):
+                wf.tile_rows = tile_rows
+            else:
+                wf.tile_rows = lambda static, arr: (tile_rows(static, arr)[0],
+                                                    0)
+            at2.pop("_wf_layout", None)
+            for k in ("_wf_tgt_units", "_wf_tgt_est"):
+                at2.pop(k, None)
+            for k, val in shipped_consts.items():
+                setattr(wf, k, spec.get(k, val))
+            rec = {"variant": v, **spec,
+                   "ptxas": {n: tgt_ptxas(log) for (bv, n), log in
+                             logs.items() if bv == v}}
+            route = cs.OnePass(wf) if spec.get("one_pass") else \
+                contextlib.nullcontext()
+            with route:
+                for key, (name, st, x) in forms.items():
+                    def call():
+                        return getattr(wf, name)(  # noqa: B023
+                            st, at2, x, seed, spp)  # noqa: B023
+                    out = call()
+                    torch.cuda.synchronize()
+                    if v == "shipped":
+                        ref[key] = out
+                    if name == "wf_bwd":
+                        cmp = {"bitwise_vs_shipped": torch_equal(out,
+                                                                 ref[key])}
+                        if not cmp["bitwise_vs_shipped"]:
+                            raise AssertionError(f"{v} {key}: differs from "
+                                                 "the shipped build's")
+                    else:
+                        cmp = cs.channel_compare(f"{v} {key}", out, ref[key],
+                                                 st.sensor.channels, False)
+                    del out
+                    rec[key] = {"ms": cs.cuda_ms(call, 3, torch), **cmp,
+                                "launch": wf.kernel_info(name, st, at2)}
+                    if v == "shipped":
+                        stats, times = {}, {}
+                        getattr(wf, name)(st, at2, x, seed, spp, stats)
+                        if name == "wf_fwd":
+                            wf.wf_fwd(st, at2, x, seed, spp, times=times)
+                            rec[key]["walk_launch"] = wf.kernel_info(
+                                "wf_tgt_walk", st, at2)
+                        rec[key].update(counts=stats, **times)
+            if v == "shipped":
+                rec["mesh off"] = {
+                    n: cs.cuda_ms(lambda: getattr(wf, n)(  # noqa: B023
+                        st0, at0, x, seed, spp), 3, torch)  # noqa: B023
+                    for n, x in (("wf_fwd", data),
+                                 ("wf_bwd", dL.reshape(-1, 2)[:, 0]
+                                  .contiguous()))}
+            print(json.dumps(rec), flush=True)
+
+
 def telecentric_check(cs, wf, static, arr, img, spp):
     """The telecentric radon image against the plain march on the pixels
     of every cs.RADON_CHECK_STRIDE-th angle: pixels that differ, the
@@ -586,6 +782,20 @@ def telecentric_check(cs, wf, static, arr, img, spp):
 
 
 def main():
+    if sys.argv[1:2] == ["target"]:
+        names = sys.argv[2:] or list(TGT_VARIANTS)
+        unknown = [n for n in names if n not in TGT_VARIANTS]
+        if unknown:
+            sys.exit(f"target variants: {list(TGT_VARIANTS)}; unknown "
+                     f"{unknown}")
+        names = ["shipped"] + [n for n in names if n != "shipped"]
+        smi = subprocess.run(["nvidia-smi", "-i", "0",
+                              "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60, check=True)
+        print(smi.stdout.strip(), flush=True)
+        main_target(names)
+        return
     if sys.argv[1:2] == ["cull"]:
         args = sys.argv[2:]
         parent = None
