@@ -6,14 +6,15 @@
 Phases (each failure exits non-zero before the result line):
   1. device: a CUDA device must exist; prints nvidia-smi's name and
      power limit.
-  2. build: nvcc builds the fourteen kernel sources from csrc/ (the four
+  2. build: nvcc builds the sixteen kernel sources from csrc/ (the four
      backprojection kernels, their four bf16 operand forms, the
      wavefront pair, the hybrid engine's residual pair, whose forward
-     also holds the dda walk pass and the chord table, and the two
-     culling renders wf_radon and wf_corner), one process per
-     source, all started together with four builds of the residual pair
-     that stop each lane early (phase 8b's per-lane times) and
-     tools/atomic_rate.cu; registers and spills per library, the
+     also holds the dda walk pass and the chord table, the two culling
+     renders wf_radon and wf_corner, and the target forms: the analog
+     pair's wf_target and the residual's path pass wf_res_target), one
+     process per source, all started together with four builds of the
+     residual pair that stop each lane early (phase 8b's per-lane times)
+     and tools/atomic_rate.cu; registers and spills per library, the
      spilling instantiations named, every residual instantiation
      listed.
   3. kernels: each backprojection kernel, float32 and bf16, against its
@@ -179,13 +180,21 @@ Phases (each failure exits non-zero before the result line):
      plain versions on the cells' own inputs (the fast residual at full
      width; the analog pair and cell (a)'s final-render dda residual,
      path and walk passes, at spp 1 on every 8th of the 400 angles, the
-     cells' full DMD, film and launch layout).
+     cells' full DMD, film and launch layout, the pixels at 0 raised to
+     a tiny value so that both trace every lane: the same bounce
+     iterations, steps and mesh work). The dda residual's target path
+     pass (csrc/wf_res_target.cu) beside the one-pass instantiation it
+     replaces: its record set bitwise the one-pass's on the small
+     scenes, and on cell (a)'s final render both timed, their path and
+     walk passes apart with their counts, SIMT efficiencies, bounds and
+     launch shapes.
 
 Each earlier line is a JSON record; the line before the last lists the
 kernels, the last is {"ok": true, "device": {...}}. The wavefront
 forward adds deposits with float atomics, so its sums are not bitwise
 reproducible; every other kernel's are.
 """
+import contextlib
 import ctypes
 import itertools
 import json
@@ -239,6 +248,11 @@ REPLACES = {
                      "chord masses; XLA)",
     "wf_tgt_walk": "drtvam_tpu/ops/march.py:586 (dda_segment, the walks of "
                    "the analog forward with the target kept; XLA)",
+    "wf_res_tgt_path": "drtvam_tpu/ops/march.py:913 (trace_wavefront "
+                       "residual modes with the target mesh: the first "
+                       "scatter :328, :966-1002; intersect_scene's MESH "
+                       "branch :151-190; :405-417; dda_segment :586 as "
+                       "records; XLA)",
     "wf_radon": "drtvam_tpu/ops/render.py:193 (render_radon: trace_wavefront "
                 "radon mode, march.py:917-923; ray_triangles_grid "
                 "mesh_grid.py:117; XLA)",
@@ -2361,6 +2375,12 @@ def instantiation(mangled):
                    "forward" if primal else "adjoint")
                 + (", target" if m.group(6) == "1" else "")
                 + (", counting" if count else ""))
+    m = re.search(r"res_tgt_path_kernelILi(\d)ELb(\d)ELb(\d)E", mangled)
+    if m is not None:
+        res, count, staged = (int(x) for x in m.groups())
+        return (f"residual target path pass, DDA, {WF_RES[res]}"
+                + (", counting" if count else "")
+                + (", staged" if staged else ", global banks"))
     m = re.search(r"cull_kernelILi(\d)ELb(\d)ELb(\d)E(?:Lb(\d)E)?",
                   mangled)
     if m is not None:
@@ -2402,7 +2422,7 @@ def instantiation(mangled):
 
 # the libraries whose build record lists every instantiation
 RES_EACH = ("wf_fwd", "wf_bwd", "wf_res_fwd", "wf_res_bwd", "wf_radon",
-            "wf_corner", "wf_target")
+            "wf_corner", "wf_target", "wf_res_target")
 
 
 # --------------------------------------------------------------------------
@@ -2899,6 +2919,62 @@ SA_RES_CASES = {"delta_fast_2ch": ("delta", "fast_residual", 2),
                 "dda_first_1ch_target": ("dda", "first_scatter", 1)}
 
 
+def sorted_records(recs):
+    """The path pass's records (n, 8) as int32 bit patterns on the host,
+    sorted row by row: the record set, whatever the order."""
+    bits = recs.cpu().numpy().view(np.int32)
+    return bits[np.lexsort(bits.T[::-1])]
+
+
+def res_path_records(torch, wf, static, at, data, seed, spp):
+    """The dda residual's path pass over every CTA in one batch, through
+    its target form (csrc/wf_res_target.cu; res_tgt_route must take the
+    scene), with its banks staged and read from global memory
+    (RES_TGT_SMEM_LIMIT 0), and the one-pass instantiation (OnePass): the
+    record sets bitwise equal, with the same bounce iterations and mesh
+    work; each form's SIMT efficiencies of its bounces and triangle
+    tests."""
+    libs = wf.build_kernels()
+    if not wf.res_tgt_route(libs, static, at):
+        raise AssertionError("the residual's target form does not take the "
+                             "scene")
+    n_ctas = len(wf._lanes_before(static, at, spp)) - 1
+    cap = 16 * static.projector.n_active * spp
+    at["_wf_res_split"] = (cap, torch.empty(cap * 8, device=data.device),
+                           torch.zeros(2, dtype=torch.int32,
+                                       device=data.device))
+    sets, counts = {}, {}
+    limit = wf.RES_TGT_SMEM_LIMIT
+    for form in ("target", "global_banks", "one_pass"):
+        stats = {}
+        wf.RES_TGT_SMEM_LIMIT = 0 if form == "global_banks" else limit
+        try:
+            with OnePass(wf) if form == "one_pass" else \
+                    contextlib.nullcontext():
+                recs = wf.res_path(libs, static, at, data, seed, spp, 0,
+                                   n_ctas, stats)
+        finally:
+            wf.RES_TGT_SMEM_LIMIT = limit
+        if recs is None:
+            raise AssertionError(f"{form}: the records overflow {cap}")
+        sets[form], counts[form] = sorted_records(recs), stats
+    keys = ("iterations", "records") + wf.MESH_COUNTERS
+    equal = all(np.array_equal(sets[f], sets["one_pass"])
+                for f in ("target", "global_banks"))
+    if not equal or any(counts[f][k] != counts["one_pass"][k]
+                        for f in ("target", "global_banks") for k in keys):
+        raise AssertionError(f"the target path pass's records differ from "
+                             f"the one-pass's: {counts}")
+    return {"records": int(sets["target"].shape[0]),
+            "records_equal_one_pass": equal,
+            "counts": {k: counts["target"][k] for k in keys},
+            "simt": {f: {"iterations": c["iterations"] /
+                         max(c["iteration_slots"], 1),
+                         "triangles": c["triangles"] /
+                         max(c["triangle_slots"], 1)}
+                     for f, c in counts.items()}}
+
+
 def phase_target_kernels(torch, wf, dev, tmp):
     """The target instantiations of the four loop kernels against their
     plain versions on small scenes, with the mesh on and two channels:
@@ -2969,6 +3045,10 @@ def phase_target_kernels(torch, wf, dev, tmp):
         if fam == "wf" and est == "dda":
             # the target forms' walk pass alone against its plain version
             rec["walk"] = tgt_walk_check(torch, wf, st, at, data, seed, spp)
+        if fam == "res" and est == "dda":
+            # the residual's target path pass against the one-pass's
+            rec["path_records"] = res_path_records(torch, wf, st, at, data,
+                                                   seed, spp)
         rec["bwd"]["ms"] = cuda_ms(lambda: bwd_k(st, at, dL, seed, spp), 5,
                                    torch)
         rec["bwd"]["plain_ms"] = event_ms(
@@ -3048,6 +3128,10 @@ def one_channel_target(static):
         static.sensor, surface_aware=False))
 
 
+# the value the final render's check on the cut gives its pixels at 0
+# (the kernels skip a pixel at 0, the plain version traces it): both then
+# trace every lane, and its deposits are ~1e-20 of the others'
+ZERO_PIXEL = 1e-20
 # the cut a cell's loop forms are held to their plain versions in: the
 # active pixels of every ANGLE_STRIDE-th angle (50 of the cells' 400, 3 or
 # 4 in each of the launch's 16 angle groups of 25), the full DMD and film
@@ -3075,22 +3159,24 @@ def angle_cut(static, arr, x, stride=ANGLE_STRIDE):
 
 
 class OnePass:
-    """The analog pair's one-pass target instantiations (wf_fwd.cu /
-    wf_bwd.cu with the target, 1024 threads, the banks in global memory)
-    in place of csrc/wf_target.cu's forms for the duration: the route the
-    scenes took before the target forms, timed beside them on the same
-    inputs."""
+    """The one-pass target instantiations (wf_fwd.cu / wf_bwd.cu with the
+    target, 1024 threads, and the dda residual's path pass wf_res_path
+    with the target, 256 threads; the banks in global memory) in place of
+    csrc/wf_target.cu's and csrc/wf_res_target.cu's forms for the
+    duration: the route the scenes took before the target forms, timed
+    beside them on the same inputs."""
 
     def __init__(self, wf):
         self.wf = wf
 
     def __enter__(self):
-        self.route = self.wf.tgt_route
+        self.routes = (self.wf.tgt_route, self.wf.res_tgt_route)
         self.wf.tgt_route = lambda *a: False
+        self.wf.res_tgt_route = lambda *a: False
         return self
 
     def __exit__(self, *exc):
-        self.wf.tgt_route = self.route
+        self.wf.tgt_route, self.wf.res_tgt_route = self.routes
 
 
 def form_time(torch, wf, name, static, at, x, seed, spp, reps=3):
@@ -3208,7 +3294,7 @@ def phase_target_cells(torch, wf, bp, dev, tmp):
     # the target forms each cell's path must launch, and the kernels it
     # must not
     must = {"a": ("wf_res_fwd:target2", "wf_res_bwd:target2",
-                  "wf_res_fwd:target1", "wf_res_walk"),
+                  "wf_res_fwd:target1", "wf_res_tgt_path", "wf_res_walk"),
             "b": ("wf_fwd:target2", "wf_bwd:target2", "wf_fwd:target1",
                   "wf_tgt_walk:target2", "wf_tgt_walk:target1")}
     never = {"a": wf.KERNELS, "b": wf.RES_KERNELS}
@@ -3349,45 +3435,105 @@ def sa_cell_kernels(torch, wf, dev, cell, calls):
                                                       at0, x1, seed, spp)}
         torch.cuda.empty_cache()
     stf, atf, dataf, seedf, sppf = calls["wf_res_fwd:target1"]
-    # the final render's dda residual with the target (path and walk
-    # passes) against its plain version on angle_cut at spp 1
+    # the final render's dda residual with the target (its target path
+    # pass and the walk pass) against its plain version on angle_cut at
+    # spp 1; the pixels at 0, which the kernels skip, raised to ZERO_PIXEL
+    # so that both trace the same lanes
     sc, atc, dc = angle_cut(stf, atf, dataf)
+    zeros = int((dc == 0).sum())
+    dc = torch.where(dc == 0, torch.full_like(dc, ZERO_PIXEL), dc)
     sk, sp = {}, {}
+    if not wf.res_tgt_route(wf.build_kernels(), sc, atc):
+        raise AssertionError("cell (a)'s final render: the residual's target "
+                             "form does not take the scene")
     k = wf.wf_res_fwd(sc, atc, dc, seedf, 1, sk)
     plain_ms, ref = event_ms(
         lambda: wf._forward(sc, atc, dc, seedf, 1, chunk, sp), torch)
     cut = channel_compare(f"wf_res_fwd final render {CUT_AT}", k, ref, 1,
                           False)
+    # the batches overlapped as the final render runs them (no counts)
+    cut["overlapped"] = channel_compare(
+        f"wf_res_fwd final render, overlapped batches, {CUT_AT}",
+        wf.wf_res_fwd(sc, atc, dc, seedf, 1), ref, 1, False)
+    counted = ("iterations", "steps") + wf.MESH_COUNTERS
+    if any(sk.get(key) != sp.get(key) for key in counted):
+        raise AssertionError(f"cell (a)'s final render on the cut: the "
+                             f"kernels counted {sk}, the plain version {sp}")
     cut.update(plain_ms=plain_ms, plain_at=CUT_AT + ", spp 1",
                ms=cuda_ms(lambda: wf.wf_res_fwd(sc, atc, dc, seedf, 1), 3,
-                          torch), steps=sk.get("steps"),
-               steps_plain=sp.get("steps"), iterations=sk.get("iterations"),
-               iterations_plain=sp.get("iterations"))
+                          torch), zero_pixels_raised=zeros,
+               counts={key: sk[key] for key in counted},
+               counts_equal_plain=True)
     del k, ref, sc, atc, dc
     torch.cuda.empty_cache()
     st0f, at0f = strip_to_one_channel(stf, atf)
     at0f = dict(at0f)
+    rec["final_render_dda"] = {}
     for key, st, at in (("mesh on, 1 channel", stf, atf),
+                        ("mesh on, 1 channel, one-pass", stf, atf),
                         ("mesh off, 1 channel", st0f, at0f)):
-        times, stats = {}, {}
-        wf.wf_res_fwd(st, at, dataf, seedf, sppf, stats)
-        torch.cuda.synchronize()
-        ms, _ = event_ms(lambda: wf.wf_res_fwd(st, at, dataf, seedf, sppf,
-                                               times=times), torch)
-        info = wf.kernel_info("wf_res_fwd", st, at)
-        winfo = wf.kernel_info("wf_res_walk", st, at)
-        bound, by = res_bound(4 * (st.projector.n_active + st.sensor.n_cells),
-                              st.projector.n_active * sppf,
-                              stats.get("iterations", 0),
-                              stats.get("steps", 0))
-        rec.setdefault("final_render_dda", {})[key] = {
-            "spp": sppf, "ms": ms, "path_ms": times.get("path_ms"),
-            "walk_ms": times.get("walk_ms"), "counts": stats,
-            "bound_ms": bound, "bound_by": by, "launch": info,
-            "walk_launch": winfo}
+        with OnePass(wf) if key.endswith("one-pass") else \
+                contextlib.nullcontext():
+            rec["final_render_dda"][key] = final_render_dda(
+                torch, wf, st, at, dataf, seedf, sppf)
         torch.cuda.empty_cache()
     rec["final_render_dda"]["mesh on, 1 channel"]["cut"] = cut
     return rec
+
+
+def dda_bounds(n_active, n_cells, lanes, stats):
+    """The dda residual forward's bounds (res_bound) from its counts: the
+    whole forward's (the pattern values read and the dose written; the
+    lanes, bounce iterations, voxel steps and, with the target kept, its
+    grid cells and triangle tests), the path pass's (the pattern values
+    and its records at 32 bytes; the lanes, bounce iterations, cells and
+    triangles) and the walk pass's (its records read and the dose
+    written; its steps): {"": (ms, by), "path_": ..., "walk_": ...}."""
+    recs = stats["records"]
+    mesh = (stats.get("cells", 0), stats.get("triangles", 0))
+    return {"": res_bound(4 * (n_active + n_cells), lanes,
+                          stats["iterations"], stats["steps"], *mesh),
+            "path_": res_bound(4 * n_active + 32 * recs, lanes,
+                               stats["iterations"], 0, *mesh),
+            "walk_": res_bound(32 * recs + 4 * n_cells, 0, 0,
+                               stats["steps"])}
+
+
+def final_render_dda(torch, wf, static, at, data, seed, spp):
+    """The dda residual forward as the final render launches it (path and
+    walk passes, batched): its counts from a counting launch, one launch
+    timed (CUDA events) with its passes apart and one as the render runs
+    it (ms_overlapped: on the card a batch's walk beside the next batch's
+    path pass), the bounds of the whole, of
+    the path pass (its lanes, bounce iterations, the target's grid cells
+    and triangle tests, its records at 32 bytes) and of the walk pass
+    (its steps), the path pass's SIMT efficiencies (bounce iterations and
+    triangle tests over their lane slots), the launch shapes."""
+    times, stats = {}, {}
+    wf.wf_res_fwd(static, at, data, seed, spp, stats)
+    torch.cuda.synchronize()
+    ms, _ = event_ms(lambda: wf.wf_res_fwd(static, at, data, seed, spp,
+                                           times=times), torch)
+    ms_overlapped, _ = event_ms(lambda: wf.wf_res_fwd(static, at, data, seed,
+                                                      spp), torch)
+    n, n_cells = static.projector.n_active, static.sensor.n_cells
+    lanes = n * spp
+    out = {"spp": spp, "lanes": lanes, "ms": ms,
+           "ms_overlapped": ms_overlapped, **times, "counts": stats,
+           "records_per_lane": stats["records"] / lanes,
+           "triangles_per_iteration": stats.get("triangles", 0) /
+           stats["iterations"],
+           "launch": wf.kernel_info("wf_res_fwd", static, at),
+           "walk_launch": wf.kernel_info("wf_res_walk", static, at)}
+    took = {"": ms, "path_": times["path_ms"], "walk_": times["walk_ms"]}
+    for part, (bound, by) in dda_bounds(n, n_cells, lanes, stats).items():
+        out.update({f"{part}bound_ms": bound, f"{part}bound_by": by,
+                    f"{part}roofline_share": bound / took[part]})
+    for key, slots in (("iterations", "iteration_slots"),
+                       ("triangles", "triangle_slots")):
+        out[f"{key}_simt_efficiency"] = (stats.get(key, 0) / stats[slots]
+                                         if stats.get(slots) else None)
+    return out
 
 
 # the target instantiations on the main paths of cells (a) and (b):
@@ -3409,9 +3555,10 @@ TARGET_PATHS = (
     ("wf_res_bwd:target2", "a", ("wf_res_bwd", "mesh on, 2 channels"),
      "the loop of cell (a)"),
     ("wf_res_fwd:target1", "a", ("final_render_dda", "mesh on, 1 channel"),
-     "the final render of cell (a): the dda residual's path pass at "
-     "spp_ref 16, the target kept; its records walked by the walk pass "
-     "wf_res_walk, the instantiation a scene without the target runs"))
+     "the final render of cell (a): the dda residual at spp_ref 16, the "
+     "target kept, its path pass the target form wf_res_tgt_path and its "
+     "records walked by the walk pass wf_res_walk, the instantiation a "
+     "scene without the target runs"))
 
 
 def target_entries(cells):
@@ -3428,6 +3575,10 @@ def target_entries(cells):
         src = (f"drtvam_tpu_torch/csrc/{name}.cu + wf_trace.cuh"
                + (" + wf_residual.cuh" if "res" in name else "")
                + " + wf_mesh.cuh")
+        if group == "final_render_dda":
+            src = ("drtvam_tpu_torch/csrc/wf_res_target.cu (the path pass) + "
+                   "wf_res_fwd.cu (the walk pass) + wf_res_target.cuh + "
+                   "wf_residual.cuh + wf_trace.cuh + wf_mesh.cuh")
         if name in ("wf_fwd", "wf_bwd", "wf_tgt_walk"):
             src = ("drtvam_tpu_torch/csrc/wf_target.cu + wf_target.cuh + "
                    "wf_trace.cuh + wf_mesh.cuh")
@@ -3454,15 +3605,48 @@ def target_entries(cells):
             continue
         if group == "final_render_dda":
             cut = r["cut"]
+            forms = cells[cell]["kernels"][group]
+            one = forms["mesh on, 1 channel, one-pass"]
             entry.update(
-                ms=r["path_ms"], walk_ms=r["walk_ms"],
-                whole_forward_ms=r["ms"], bound_ms=r["bound_ms"],
-                bound_by=r["bound_by"], max_abs_err=cut["max_abs_err"],
-                plain_ms=cut["plain_ms"], plain_at=cut["plain_at"] +
-                " (the path and walk passes together)", ms_cut=cut["ms"],
-                other_forms={"mesh off, 1 channel": cells[cell]["kernels"][
-                    group]["mesh off, 1 channel"]},
-                launch=r["launch"], walk_launch=r["walk_launch"])
+                {k: r[k] for k in (
+                    "ms", "ms_overlapped", "path_ms", "walk_ms", "bound_ms",
+                    "bound_by", "roofline_share", "counts", "launch",
+                    "walk_launch")},
+                max_abs_err=cut["max_abs_err"], plain_ms=cut["plain_ms"],
+                plain_at=cut["plain_at"] + " (the path and walk passes "
+                "together)", ms_cut=cut["ms"], cut=cut,
+                one_pass_ms=one["ms"],
+                other_forms={k: v for k, v in forms.items() if k != key})
+            out.append(entry)
+            # the target path pass alone: its own bound, the one-pass
+            # instantiation's path pass beside it
+            out.append({
+                "name": "wf_res_tgt_path (the dda residual's path pass, "
+                        "target kept)",
+                "route": "cuda",
+                "source": "drtvam_tpu_torch/csrc/wf_res_target.cu + "
+                          "wf_res_target.cuh + wf_residual.cuh + "
+                          "wf_trace.cuh + wf_mesh.cuh",
+                "replaces": REPLACES["wf_res_tgt_path"],
+                "launches": cells[cell]["launches"].get("wf_res_tgt_path",
+                                                        0),
+                "path": "the final render of cell (a) (spp_ref 16): the "
+                        "path pass of every batch",
+                "ms": r["path_ms"], "bound_ms": r["path_bound_ms"],
+                "bound_by": r["path_bound_by"],
+                "roofline_share": r["path_roofline_share"],
+                "max_abs_err": cut["max_abs_err"],
+                "plain_ms": cut["plain_ms"],
+                "plain_at": cut["plain_at"] + " (the plain march, path and "
+                            "walk together: the records' dose)",
+                "library_ms": None, "one_pass_ms": one["path_ms"],
+                "one_pass_bound_ms": one["path_bound_ms"],
+                "simt_efficiency": {
+                    k: {"target form": r[f"{k}_simt_efficiency"],
+                        "one-pass": one[f"{k}_simt_efficiency"]}
+                    for k in ("iterations", "triangles")},
+                "launch": r["launch"], "one_pass_launch": one["launch"]})
+            continue
         else:
             entry.update({k: r[k] for k in (
                 "ms", "bound_ms", "bound_by", "roofline_share",
@@ -3529,7 +3713,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    # all fifteen sources at once, one nvcc each, started together with
+    # all sixteen sources at once, one nvcc each, started together with
     # the residual pair's stopping builds (phase 8b's per-lane times)
     cuda = bp.KERNELS + wf.LIBS
     res_jobs = start_res_variants(wf)

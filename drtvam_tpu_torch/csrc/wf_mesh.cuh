@@ -254,19 +254,87 @@ __device__ __forceinline__ void test_triangles(
   }
 }
 
-// The 3D-DDA walk over the grid of mesh surface s (ops/mesh_grid.py
-// ray_triangles_grid, lane by lane): enter the grid's box beyond RAY_EPS,
-// test each cell's triangles, stop at the first cell whose exit plane lies
-// beyond the best hit (t_best <= t_exit (1 + 1e-6) + 1e-6), else step the
-// first axis of the nearest exit plane
-template <bool COUNT, bool STAGED>
-__device__ __forceinline__ float ray_mesh_grid(const WfMesh& M,
-                                               const MeshBanks& B, int s,
+// The warp's walks (the residual's target path pass, wf_res_target.cuh):
+// the 32 threads of a warp test one cell's triangles together, thread l
+// positions j0 + l, j0 + l + 32, ... of the list. A thread's share keeps
+// its least t (strictly less: its lowest position of equal hits); the
+// shares combine to the least (t, position), so the cell's nearest hit is
+// the one the list's order gives one thread. On the host (the tests' g++
+// build) one thread runs the 32 shares in turn
+constexpr int WARP_LANES = 32;
+
+// the better of two shares' (t, position): the lesser t, ties to the
+// lower position
+__device__ __forceinline__ void pick_nearest(float& t, int& j, float t2,
+                                             int j2) {
+  if (t2 < t || (t2 == t && j2 < j)) {
+    t = t2;
+    j = j2;
+  }
+}
+
+// thread l's share of the list's positions [j0, e) (IDS: ids[j], else the
+// positions themselves): its least t and its position (inf and e when none
+// hits)
+template <bool STAGED, bool IDS>
+__device__ __forceinline__ void share_nearest(const float4* __restrict__ rows,
+                                              const int* __restrict__ ids,
+                                              int j0, int e, int l,
+                                              const V3& o, const V3& d,
+                                              float& t, int& j) {
+  t = inf();
+  j = e;
+  for (int k = j0 + l; k < e; k += WARP_LANES) {
+    V3 a0, a1, a2;
+    tri_rows<STAGED>(rows, list_id<STAGED, IDS>(ids, k), a0, a1, a2);
+    const float tk =
+        moller_trumbore<WF_MESH_EARLY_EXIT != 0>(o, d, a0, a1, a2);
+    if (tk < t) {
+      t = tk;
+      j = k;
+    }
+  }
+}
+
+// the warp's nearest hit among positions [j0, e) of a list, the same on
+// every thread: (t, position; inf, e when none hits)
+template <bool STAGED, bool IDS>
+__device__ __forceinline__ void cell_nearest(const float4* __restrict__ rows,
+                                             const int* __restrict__ ids,
+                                             int j0, int e, int lane,
+                                             const V3& o, const V3& d,
+                                             float& t, int& j) {
+#ifdef __CUDA_ARCH__
+  share_nearest<STAGED, IDS>(rows, ids, j0, e, lane, o, d, t, j);
+  for (int off = 16; off > 0; off >>= 1)
+    pick_nearest(t, j, __shfl_xor_sync(0xffffffffu, t, off),
+                 __shfl_xor_sync(0xffffffffu, j, off));
+#else
+  (void)lane;
+  share_nearest<STAGED, IDS>(rows, ids, j0, e, 0, o, d, t, j);
+  for (int l = 1; l < WARP_LANES; ++l) {
+    float t2;
+    int j2;
+    share_nearest<STAGED, IDS>(rows, ids, j0, e, l, o, d, t2, j2);
+    pick_nearest(t, j, t2, j2);
+  }
+#endif
+}
+
+// A ray's walk through the grid of mesh surface s between two cells: its
+// cell, its steps along each axis, the t of the next exit plane on each
+// axis and their increments a cell, and the t where it leaves the box
+struct GridWalk {
+  int iv[3], step[3];
+  float tmaxv[3], tdelta[3], t_exit;
+};
+
+// The walk's set-up (ops/mesh_grid.py ray_triangles_grid): enter the
+// grid's box beyond RAY_EPS, the entry cell, the exit planes. false: the
+// ray misses the box
+__device__ __forceinline__ bool grid_walk_init(const WfMesh& M, int s,
                                                const V3& o, const V3& d,
-                                               int& tri, MeshCount& c) {
-  const float4* __restrict__ rows = B.rows + 3 * M.tri_start[s];
-  const int* __restrict__ cs = B.cell_start + M.cell_offset[s];
-  const int* __restrict__ ids = B.tri_ids + M.ids_offset[s];
+                                               GridWalk& W) {
   const float* __restrict__ bb = M.grid_bbox + 6 * M.bbox_row[s];
   const int res[3] = {M.grid_res[3 * s], M.grid_res[3 * s + 1],
                       M.grid_res[3 * s + 2]};
@@ -284,33 +352,167 @@ __device__ __forceinline__ float ray_mesh_grid(const WfMesh& M,
     near = mx(near, mn(b0, b1));
     far = mn(far, mx(b0, b1));
   }
-  const float t_enter = mx(near, RAY_EPS), t_exit = far;
-  float t_best = inf();
-  tri = -1;
-  if (!(t_enter <= t_exit && isfinite(t_enter))) return t_best;
-  if (COUNT) ++c.walks;
-
+  const float t_enter = mx(near, RAY_EPS);
+  W.t_exit = far;
+  if (!(t_enter <= W.t_exit && isfinite(t_enter))) return false;
   const float eps_t = 1e-5f * mx(fabsf(t_enter), 1.0f);
-  int iv[3], step[3];
-  float tmaxv[3], tdelta[3];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     const float p_in = od[k] + (t_enter + eps_t) * dd[k];
     const int v = (int)((p_in - bmin[k]) / cell_w[k]);
-    iv[k] = v < 0 ? 0 : (v > res[k] - 1 ? res[k] - 1 : v);
-    step[k] = dd[k] > 0.0f ? 1 : -1;
+    W.iv[k] = v < 0 ? 0 : (v > res[k] - 1 ? res[k] - 1 : v);
+    W.step[k] = dd[k] > 0.0f ? 1 : -1;
     const float next_b =
-        bmin[k] + (float)(iv[k] + (step[k] > 0 ? 1 : 0)) * cell_w[k];
-    tmaxv[k] = fabsf(dd[k]) > 1e-20f ? (next_b - od[k]) / safe_d[k] : inf();
-    tdelta[k] = fabsf(cell_w[k] / safe_d[k]);
+        bmin[k] + (float)(W.iv[k] + (W.step[k] > 0 ? 1 : 0)) * cell_w[k];
+    W.tmaxv[k] =
+        fabsf(dd[k]) > 1e-20f ? (next_b - od[k]) / safe_d[k] : inf();
+    W.tdelta[k] = fabsf(cell_w[k] / safe_d[k]);
   }
+  return true;
+}
+
+// The walk's step past a cell whose nearest exit plane lies at
+// t_cell_exit: on the first axis of that plane. false: the walk leaves
+// the grid or its box
+__device__ __forceinline__ bool grid_step(GridWalk& W, const int res[3],
+                                          float t_cell_exit) {
+  const int axis =
+      W.tmaxv[0] == t_cell_exit ? 0 : (W.tmaxv[1] == t_cell_exit ? 1 : 2);
+  bool in_grid = true;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    if (k != axis) continue;
+    W.iv[k] += W.step[k];
+    W.tmaxv[k] = W.tmaxv[k] + W.tdelta[k];
+    in_grid = W.iv[k] >= 0 && W.iv[k] < res[k];
+  }
+  return in_grid && !(t_cell_exit > W.t_exit);
+}
+
+// The warp's walk of one ray (every thread calls with the ray and its
+// set-up W) through its cells from W on, as ray_mesh_grid walks them:
+// each cell's triangles tested, the walk stopped at the first cell whose
+// exit plane lies beyond the best hit, else stepped on the first axis of
+// the nearest exit plane. The threads test each cell together, a thread
+// its share (share_nearest): a thread keeps its first hit at its least t
+// (strictly less: the earliest cell, then position), the warp the least t
+// of all after each cell (the stop rule's t_best), and at the walk's end
+// the triangle is the first hit at that t in cell then list order, the
+// one ray_mesh_grid's list order gives. Returns t and the triangle (inf,
+// -1 on a miss); cells and triangles counted by the thread that owns the
+// ray (owner); rounds adds the warp's test rounds (up to 32 tests each)
+template <bool COUNT, bool STAGED>
+__device__ __forceinline__ float grid_walk_cells(
+    const WfMesh& M, const MeshBanks& B, int s, const V3& o, const V3& d,
+    GridWalk W, int& tri, MeshCount& c, int lane, bool owner,
+    unsigned long long* rounds) {
+  const float4* __restrict__ rows = B.rows + 3 * M.tri_start[s];
+  const int* __restrict__ cs = B.cell_start + M.cell_offset[s];
+  const int* __restrict__ ids = B.tri_ids + M.ids_offset[s];
+  const int res[3] = {M.grid_res[3 * s], M.grid_res[3 * s + 1],
+                      M.grid_res[3 * s + 2]};
+  float t_best = inf();
+  tri = -1;
+  const int n_cells = res[0] * res[1] * res[2];
+  // the shares' first hits at their least t: (t, cell, position); on the
+  // card this thread's, on the host the 32 shares'
+  unsigned cell = 0;
+#ifdef __CUDA_ARCH__
+  float t_own = inf();
+  unsigned cell_own = 0, j_own = 0;
+#else
+  float t_own[WARP_LANES];
+  unsigned cell_own[WARP_LANES], j_own[WARP_LANES];
+  for (int l = 0; l < WARP_LANES; ++l) t_own[l] = inf();
+#endif
+  for (;;) {
+    if (COUNT && owner) ++c.cells;
+    int flat = W.iv[0] + res[0] * (W.iv[1] + res[1] * W.iv[2]);
+    flat = flat < 0 ? 0 : (flat > n_cells - 1 ? n_cells - 1 : flat);
+    const int j0 = bank_int<STAGED>(cs, flat);
+    const int e = bank_int<STAGED>(cs, flat + 1);
+    if (COUNT && owner) c.tris += (unsigned long long)(e > j0 ? e - j0 : 0);
+    if (rounds != nullptr && e > j0)
+      *rounds +=
+          (unsigned long long)((e - j0 + WARP_LANES - 1) / WARP_LANES);
+    float tc;
+    int jc;
+#ifdef __CUDA_ARCH__
+    share_nearest<STAGED, true>(rows, ids, j0, e, lane, o, d, tc, jc);
+    if (tc < t_own) {
+      t_own = tc;
+      cell_own = cell;
+      j_own = (unsigned)jc;
+    }
+    // t > 0: its bits order as the floats
+    t_best = __uint_as_float(
+        __reduce_min_sync(0xffffffffu, __float_as_uint(t_own)));
+#else
+    (void)lane;
+    for (int l = 0; l < WARP_LANES; ++l) {
+      share_nearest<STAGED, true>(rows, ids, j0, e, l, o, d, tc, jc);
+      if (tc < t_own[l]) {
+        t_own[l] = tc;
+        cell_own[l] = cell;
+        j_own[l] = (unsigned)jc;
+      }
+      t_best = mn(t_best, t_own[l]);
+    }
+#endif
+    ++cell;
+    const float t_cell_exit = mn(mn(W.tmaxv[0], W.tmaxv[1]), W.tmaxv[2]);
+    if (t_best <= t_cell_exit * 1.000001f + 1e-6f) break;
+    if (!grid_step(W, res, t_cell_exit)) break;
+  }
+  if (t_best < inf()) {
+    // the first hit at t_best: the least cell, then position
+#ifdef __CUDA_ARCH__
+    const bool at = t_own == t_best;
+    const unsigned c_min =
+        __reduce_min_sync(0xffffffffu, at ? cell_own : 0xffffffffu);
+    const unsigned j_min = __reduce_min_sync(
+        0xffffffffu, at && cell_own == c_min ? j_own : 0xffffffffu);
+#else
+    unsigned c_min = 0xffffffffu, j_min = 0xffffffffu;
+    for (int l = 0; l < WARP_LANES; ++l)
+      if (t_own[l] == t_best &&
+          (cell_own[l] < c_min || (cell_own[l] == c_min && j_own[l] < j_min))) {
+        c_min = cell_own[l];
+        j_min = j_own[l];
+      }
+#endif
+    tri = bank_int<STAGED>(ids, (int)j_min);
+  }
+  return t_best;
+}
+
+// The 3D-DDA walk over the grid of mesh surface s (ops/mesh_grid.py
+// ray_triangles_grid, lane by lane): enter the grid's box beyond RAY_EPS,
+// test each cell's triangles, stop at the first cell whose exit plane lies
+// beyond the best hit (t_best <= t_exit (1 + 1e-6) + 1e-6), else step the
+// first axis of the nearest exit plane
+template <bool COUNT, bool STAGED>
+__device__ __forceinline__ float ray_mesh_grid(const WfMesh& M,
+                                               const MeshBanks& B, int s,
+                                               const V3& o, const V3& d,
+                                               int& tri, MeshCount& c) {
+  const float4* __restrict__ rows = B.rows + 3 * M.tri_start[s];
+  const int* __restrict__ cs = B.cell_start + M.cell_offset[s];
+  const int* __restrict__ ids = B.tri_ids + M.ids_offset[s];
+  const int res[3] = {M.grid_res[3 * s], M.grid_res[3 * s + 1],
+                      M.grid_res[3 * s + 2]};
+  float t_best = inf();
+  tri = -1;
+  GridWalk W;
+  if (!grid_walk_init(M, s, o, d, W)) return t_best;
+  if (COUNT) ++c.walks;
   const int n_cells = res[0] * res[1] * res[2];
   // COUNT: the walk's earlier cells
   [[maybe_unused]] int seen[COUNT ? WF_MESH_SEEN : 1];
   [[maybe_unused]] int n_seen = 0;
   for (;;) {
     if (COUNT) ++c.cells;
-    int flat = iv[0] + res[0] * (iv[1] + res[1] * iv[2]);
+    int flat = W.iv[0] + res[0] * (W.iv[1] + res[1] * W.iv[2]);
     flat = flat < 0 ? 0 : (flat > n_cells - 1 ? n_cells - 1 : flat);
     const int j0 = bank_int<STAGED>(cs, flat);
     const int e = bank_int<STAGED>(cs, flat + 1);
@@ -326,21 +528,48 @@ __device__ __forceinline__ float ray_mesh_grid(const WfMesh& M,
     }
     test_triangles<COUNT, STAGED, true>(rows, ids, j0, e, o, d, t_best, tri,
                                         c);
-    const float t_cell_exit = mn(mn(tmaxv[0], tmaxv[1]), tmaxv[2]);
+    const float t_cell_exit = mn(mn(W.tmaxv[0], W.tmaxv[1]), W.tmaxv[2]);
     if (t_best <= t_cell_exit * 1.000001f + 1e-6f) break;
-    const int axis =
-        tmaxv[0] == t_cell_exit ? 0 : (tmaxv[1] == t_cell_exit ? 1 : 2);
-    bool in_grid = true;
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      if (k != axis) continue;
-      iv[k] += step[k];
-      tmaxv[k] = tmaxv[k] + tdelta[k];
-      in_grid = iv[k] >= 0 && iv[k] < res[k];
-    }
-    if (!in_grid || t_cell_exit > t_exit) break;
+    if (!grid_step(W, res, t_cell_exit)) break;
   }
   return t_best;
+}
+
+// The warp's nearest hit of one ray on mesh surface s (every thread calls
+// with the ray and, for a surface with a grid, its walk's set-up W:
+// ray_mesh's t and triangle; counted by the owner, test rounds into
+// rounds): the grid walked, or all its triangles tested together below
+// GRID_MIN_TRIS
+template <bool COUNT, bool STAGED>
+__device__ __forceinline__ float ray_mesh_warp(
+    const WfMesh& M, const MeshBanks& B, int s, const V3& o, const V3& d,
+    const GridWalk& W, int& tri, MeshCount& c, int lane, bool owner,
+    unsigned long long* rounds) {
+  if (M.grid_res[3 * s] > 0) {
+    if (COUNT && owner) ++c.walks;
+    return grid_walk_cells<COUNT, STAGED>(M, B, s, o, d, W, tri, c, lane,
+                                          owner, rounds);
+  }
+  const int n = M.tri_count[s];
+  if (COUNT && owner) c.tris += (unsigned long long)n;
+  if (rounds != nullptr && n > 0)
+    *rounds += (unsigned long long)((n + WARP_LANES - 1) / WARP_LANES);
+  float t;
+  int j;
+  cell_nearest<STAGED, false>(B.rows + 3 * M.tri_start[s], nullptr, 0, n,
+                              lane, o, d, t, j);
+  tri = t < inf() ? j : -1;
+  return t;
+}
+
+// whether a ray's walk on mesh surface s tests any triangle, and its
+// walk's set-up W: it enters the grid's box (grid_walk_init), or the
+// surface has no grid
+__device__ __forceinline__ bool mesh_walks(const WfMesh& M, int s,
+                                           const V3& o, const V3& d,
+                                           GridWalk& W) {
+  if (M.grid_res[3 * s] <= 0) return true;
+  return grid_walk_init(M, s, o, d, W);
 }
 
 // Nearest hit on mesh surface s: (t, the surface-local triangle id; inf,
@@ -359,3 +588,35 @@ __device__ __forceinline__ float ray_mesh(const WfMesh& M,
                                        c);
   return t_best;
 }
+
+#ifdef __CUDACC__
+// The staged banks' dynamic shared memory for kernel k (the target forms,
+// wf_target.cuh and wf_res_target.cuh), its limit raised to it; fits: they
+// fit a CTA's share of the SM's shared memory at min_ctas CTAs an SM
+// beside the kernel's static part
+inline cudaError_t stage_shape(const void* k, const WfMesh& M, int min_ctas,
+                               size_t& smem, bool& fits) {
+  int dev, per_sm, optin, reserved;
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&per_sm,
+                               cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                               dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&reserved,
+                               cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, k);
+  if (e != cudaSuccess) return e;
+  size_t budget = (size_t)per_sm / min_ctas - (size_t)reserved;
+  if (budget > (size_t)optin) budget = (size_t)optin;
+  smem = bank_bytes(M.n_rows, M.n_cell_start, M.n_tri_ids);
+  fits = smem + fa.sharedSizeBytes <= budget;
+  if (!fits) return cudaSuccess;
+  return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+#endif  // __CUDACC__

@@ -46,7 +46,9 @@ extern "C" int wf_res_fwd(const WfParams* P, const wf::WfMesh* M,
 // (P, M, tris, mask as for wf_res_fwd): each dda segment of the lanes
 // becomes a record (8 floats) in recs at the next slot of *n_recs
 // (zeroed by the caller); slots from cap on are counted, not written.
-// counters (5,): the bounce iterations, or null.
+// counters (8,): the bounce iterations and the target's grid cells,
+// triangles and walks, and slots (2,): the lane slots of the bounce
+// iterations and of the triangle tests; or null.
 extern "C" int wf_res_path(const WfParams* P, const wf::WfMesh* M,
                            const float4* tris, const unsigned char* mask,
                            int c0, int c1, const float* data,
@@ -54,10 +56,12 @@ extern "C" int wf_res_path(const WfParams* P, const wf::WfMesh* M,
                            const int* starts, const float* chords,
                            const float4* chord_tab, float4* recs,
                            unsigned* n_recs, unsigned cap,
-                           unsigned long long* counters, void* stream) {
+                           unsigned long long* counters,
+                           unsigned long long* slots, void* stream) {
   const wf::ResArgs a = {*M,     tris,   mask,   data,   active_pixels,
                          order,  starts, chords, chord_tab, nullptr,
-                         counters, recs, n_recs, cap,    c0};
+                         counters, recs, n_recs, cap,    c0,
+                         slots};
   return wf::res_launch<true, true>(P, a, c1, stream);
 }
 

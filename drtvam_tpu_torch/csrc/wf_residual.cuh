@@ -33,7 +33,9 @@
 // step is DdaWalk::step, dda_segment's own, so the steps and deposits are
 // the single pass's; only the order of the float atomics changes. The
 // wrapper (ops/render.py) runs the passes in batches of CTAs whose
-// records fit its buffer.
+// records fit its buffer. A scene that keeps the target runs the path
+// pass of wf_res_target.cuh where the target's banks fit a CTA (and on
+// the card a batch's walk beside the next batch's path pass).
 //
 // Bound on the H100: the dda walk's voxel steps (~20 float32 operations
 // each, two expf) and one float atomic into the dose grid each; the delta
@@ -161,8 +163,8 @@ __device__ __forceinline__ int res_lane(const WfParams& P, const ResCta& C,
 // again in smaller parts). On a two-channel film the record's maxt
 // carries the lane's channel in its sign (maxt > 0: a surface lies
 // beyond RAY_EPS): -maxt for the channel outside the target
-template <bool COUNT_, bool TGT_ = false>
-struct PathSink : Sink<true, COUNT_, TGT_> {
+template <bool COUNT_, bool TGT_ = false, bool STAGED_ = false>
+struct PathSink : Sink<true, COUNT_, TGT_, STAGED_> {
   static constexpr bool RECORDS = true;
   float4* recs;
   unsigned* n_recs;
@@ -188,6 +190,38 @@ struct PathSink : Sink<true, COUNT_, TGT_> {
     }
   }
 };
+
+// The pixel of task t, lane l of CTA C, as res_task finds it (the
+// residual's target path pass, wf_res_target.cuh): the forward's task t
+// holds lane t % spp of the pixel at position lo + 32 (t / spp) + l (k0 =
+// t % spp), the adjoint's all the lanes of the pixel at lo + 32 t + l (k0
+// = 0). Sets the lane's set-up su (frames: the CTA's angles' frames;
+// chord_tab the chord table, null: each lane computes its entry from the
+// chord bank). Returns the pixel's active index, or -1 for none
+template <bool PRIMAL>
+__device__ __forceinline__ int res_position(
+    const WfParams& P, const ResCta& C, const Frame* frames, int t, int l,
+    const int* ap, const int* order, const float4* chord_tab, LaneSetup& su,
+    int& k0) {
+  int j;
+  k0 = 0;
+  if (PRIMAL) {
+    const int q = (int)C.spp.div((uint32_t)t);
+    j = C.lo + 32 * q + l;
+    k0 = t - q * P.spp;
+  } else {
+    j = C.lo + 32 * t + l;
+  }
+  if (j >= C.hi) return -1;
+  const int aidx = res_lane(P, C, order, ap, j, su);
+  su.frame = (P.sample_time || !WF_RES_FRAMES || frames == nullptr)
+                 ? nullptr
+                 : frames + (su.emitter - C.a0);
+  su.chord = (chord_tab == nullptr || !WF_RES_CHORDS)
+                 ? nullptr
+                 : chord_tab + 4 * (su.emitter * P.resx + su.px);
+  return aidx;
+}
 
 // Task t's work for lane l of CTA C, as trace_task: the forward traces
 // lane t % spp of the pixel at position lo + 32 (t / spp) + l, the
@@ -254,7 +288,20 @@ struct ResArgs {
   unsigned* n_recs;          // their count (zeroed by the wrapper)
   unsigned cap;              // records recs holds
   int c0;                    // the launch's first CTA
+  // the path pass counting: the lane slots of its bounce iterations and
+  // of its triangle tests (32 for each of a warp's longest lane's), or
+  // null
+  unsigned long long* slots;
 };
+
+// the warp's largest d
+__device__ __forceinline__ unsigned long long warp_max(unsigned long long d) {
+  for (int off = 16; off > 0; off >>= 1) {
+    const unsigned long long o = __shfl_xor_sync(0xffffffffu, d, off);
+    d = o > d ? o : d;
+  }
+  return d;
+}
 
 // S with the target's mesh, banks and mask of A (TGT)
 template <class SinkT>
@@ -309,7 +356,7 @@ __global__ void __launch_bounds__(WF_RES_THREADS, WF_RES_MIN_CTAS)
   auto S = res_sink<PRIMAL, COUNT, PATH, TGT>(P, A);
   const int lane = threadIdx.x & 31;
   const unsigned n_tasks = (unsigned)task_count<PRIMAL>(P, C.lo, C.hi);
-  unsigned long long slots = 0;
+  unsigned long long slots = 0, it_slots = 0, tri_slots = 0;
   for (;;) {
     unsigned t = 0;
     if (lane == 0) t = atomicAdd(&next_task, 1u);
@@ -318,16 +365,24 @@ __global__ void __launch_bounds__(WF_RES_THREADS, WF_RES_MIN_CTAS)
     // a lane's work: its events (delta: a deposit is an event's side
     // effect) or its estimator steps (dda, ratio)
     const unsigned long long s0 = EST == DELTA ? S.iters : S.steps;
+    const unsigned long long i0 = S.iters, t0 = S.mc.tris;
     res_task<EST, RES>(P, G, C, frames, (int)t, lane, A.in, A.active_pixels,
                        A.order, A.chords, A.chord_tab, A.out, S);
     if (COUNT) {
       // a warp spends 32 lane slots on each unit of its longest lane's work
-      unsigned long long d = (EST == DELTA ? S.iters : S.steps) - s0;
-      for (int off = 16; off > 0; off >>= 1) {
-        const unsigned long long o = __shfl_xor_sync(0xffffffffu, d, off);
-        d = o > d ? o : d;
-      }
+      const unsigned long long d =
+          warp_max((EST == DELTA ? S.iters : S.steps) - s0);
       if (lane == 0) slots += 32 * d;
+      if (PATH) {
+        // the path pass: on its longest lane's bounce iterations and
+        // triangle tests
+        const unsigned long long di = warp_max(S.iters - i0);
+        const unsigned long long dt = warp_max(S.mc.tris - t0);
+        if (lane == 0) {
+          it_slots += 32 * di;
+          tri_slots += 32 * dt;
+        }
+      }
     }
   }
   if (COUNT) {
@@ -335,6 +390,10 @@ __global__ void __launch_bounds__(WF_RES_THREADS, WF_RES_MIN_CTAS)
         S.iters, S.steps, S.n_tile, S.n_global, slots, S.mc.cells,
         S.mc.tris, S.mc.walks};
     add_counters(c, lane, A.counters);
+    if (PATH && lane == 0 && A.slots != nullptr) {
+      atomicAdd(A.slots, it_slots);
+      atomicAdd(A.slots + 1, tri_slots);
+    }
   }
 }
 

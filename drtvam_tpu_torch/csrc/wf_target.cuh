@@ -335,35 +335,6 @@ inline TgtWalkFn tgt_walk_pick(bool count, bool two) {
   return count ? tgt_walk_kernel<true, false> : tgt_walk_kernel<false, false>;
 }
 
-// The staged banks' dynamic shared memory for kernel k, its limit raised
-// to it; fits: they fit the CTA's share of the SM's shared memory at
-// WF_TGT_MIN_CTAS CTAs an SM beside the kernel's static part
-inline cudaError_t tgt_stage(const void* k, const WfMesh& M, size_t& smem,
-                             bool& fits) {
-  int dev, per_sm, optin, reserved;
-  cudaFuncAttributes fa;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&per_sm,
-                               cudaDevAttrMaxSharedMemoryPerMultiprocessor,
-                               dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&reserved,
-                               cudaDevAttrReservedSharedMemoryPerBlock, dev);
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, k);
-  if (e != cudaSuccess) return e;
-  size_t budget = (size_t)per_sm / WF_TGT_MIN_CTAS - (size_t)reserved;
-  if (budget > (size_t)optin) budget = (size_t)optin;
-  smem = bank_bytes(M.n_rows, M.n_cell_start, M.n_tri_ids);
-  fits = smem + fa.sharedSizeBytes <= budget;
-  if (!fits) return cudaSuccess;
-  return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
-}
-
 // whether P's target forms run here: the scene keeps the target and its
 // banks fit a staged CTA (the staged adjoint's instantiation decides; the
 // path pass's static shared memory is the same few bytes)
@@ -373,7 +344,7 @@ inline cudaError_t tgt_fits(const WfParams& P, const WfMesh& M, bool& fits) {
   const KernelFn k = tgt_bwd_pick<false>(P);
   if (k == nullptr) return cudaErrorInvalidValue;
   size_t smem;
-  return tgt_stage((const void*)k, M, smem, fits);
+  return stage_shape((const void*)k, M, WF_TGT_MIN_CTAS, smem, fits);
 }
 
 inline bool tgt_args_ok(const WfParams& P, const WfMesh* M,
@@ -401,7 +372,8 @@ inline int tgt_bwd_launch(const WfParams* p, const WfMesh* M,
   if (k == nullptr) return (int)cudaErrorInvalidValue;
   size_t smem;
   bool fits;
-  cudaError_t e = tgt_stage((const void*)k, *M, smem, fits);
+  cudaError_t e =
+      stage_shape((const void*)k, *M, WF_TGT_MIN_CTAS, smem, fits);
   if (e != cudaSuccess) return (int)e;
   if (!fits) return (int)cudaErrorInvalidConfiguration;
   k<<<(unsigned)P.resy * P.n_groups, WF_TGT_THREADS, smem,
@@ -427,7 +399,8 @@ inline int tgt_path_launch(const WfParams* p, const WfMesh* M,
   if (k == nullptr) return (int)cudaErrorInvalidValue;
   size_t smem;
   bool fits;
-  cudaError_t e = tgt_stage((const void*)k, *M, smem, fits);
+  cudaError_t e =
+      stage_shape((const void*)k, *M, WF_TGT_MIN_CTAS, smem, fits);
   if (e != cudaSuccess) return (int)e;
   if (!fits) return (int)cudaErrorInvalidConfiguration;
   k<<<(unsigned)(A->u1 - A->u0), WF_TGT_THREADS, smem,
@@ -478,7 +451,7 @@ inline int tgt_info(const WfParams* p, const WfMesh* M, int pass, int count,
                   : (const void*)(count ? tgt_bwd_pick<true>(P)
                                         : tgt_bwd_pick<false>(P));
     if (k == nullptr) return (int)cudaErrorInvalidValue;
-    e = tgt_stage(k, *M, smem, fits);
+    e = stage_shape(k, *M, WF_TGT_MIN_CTAS, smem, fits);
     P.tile_n = 0;
   }
   cudaFuncAttributes fa;

@@ -69,7 +69,12 @@ accumulator holds two floats a voxel; the forward's tile keeps the home
 slice's widest rows that fit (tile_rows lays them out widest first, the
 kernel keeps what its shared memory holds), and a dda residual record
 carries its channel in the sign of its maxt. `form_launches` counts these
-instantiations' launches apart.
+instantiations' launches apart. Where the target's banks fit a CTA's
+shared memory, the analog pair runs csrc/wf_target.cu's forms
+(tgt_route). The dda residual's path pass of a scene that transmits only
+runs csrc/wf_res_target.cu's (res_tgt_route: persistent threads refilled
+lane by lane, the banks staged where they fit, else read from global
+memory; the same records in another order).
 """
 from __future__ import annotations
 
@@ -102,6 +107,12 @@ ANGLES_PER_GROUP = 25
 COUNTERS = ("iterations", "steps", "tile_deposits", "global_deposits",
             "lane_slots", "cells", "triangles", "walks")
 MESH_COUNTERS = COUNTERS[5:]
+# what the dda residual's path passes count beside them: 32 lane slots
+# for each bounce iteration and each triangle test of a warp's longest
+# lane (the one-pass instantiation: over a lane's whole path; the target
+# form: over each bounce), so that iterations / iteration_slots and
+# triangles / triangle_slots are their SIMT efficiencies
+SLOT_COUNTERS = ("iteration_slots", "triangle_slots")
 
 KERNELS = ("wf_fwd", "wf_bwd")              # the analog pair
 RES_KERNELS = ("wf_res_fwd", "wf_res_bwd")  # the residual pair
@@ -109,15 +120,21 @@ CULL_KERNELS = ("wf_radon", "wf_corner")    # the culling renders
 # the analog pair's target forms (csrc/wf_target.cu: the staged adjoint,
 # the dda forward's path and walk passes), one library beside the others
 TGT_LIB = "wf_target"
-LIBS = KERNELS + RES_KERNELS + CULL_KERNELS + (TGT_LIB,)
+# the residual pair's target form (csrc/wf_res_target.cu: the dda
+# residual forward's path pass with the target kept), one library too
+RES_TGT_LIB = "wf_res_target"
+LIBS = KERNELS + RES_KERNELS + CULL_KERNELS + (TGT_LIB, RES_TGT_LIB)
 # entry points of csrc/wf_res_fwd.cu beside its per-lane kernel, counted
 # apart: the dda forward's walk pass and the chord table's prologue
 RES_PARTS = ("wf_res_walk", "wf_res_chords")
 # the target forms' dda forward: its path pass counts as wf_fwd, its walk
 # pass apart
 TGT_PARTS = ("wf_tgt_walk",)
+# the residual's target path pass: counted as wf_res_fwd (and its form)
+# and apart
+RES_TGT_PARTS = ("wf_res_tgt_path",)
 launches = {k: 0 for k in KERNELS + RES_KERNELS + CULL_KERNELS + RES_PARTS
-            + TGT_PARTS}
+            + TGT_PARTS + RES_TGT_PARTS}
 # the launches of the target instantiations of the loop kernels, beside
 # their kernel's count in `launches`: "<kernel>:target1" (the target mesh
 # kept, one channel) and "<kernel>:target2" (a two-channel film); the
@@ -149,6 +166,9 @@ SPLIT_MARGIN = 1.25
 # z-slabs the walk pass runs a batch's records in, one pass each, so that
 # the part of the dose grid its float atomics reach fits the card's L2
 WALK_SLABS = 2
+# bytes the residual target form's staged banks may take at most (0: read
+# from global memory; the kernel also caps them by a CTA's share of the SM)
+RES_TGT_SMEM_LIMIT = 1 << 30
 # the target forms' dda forward (tgt_forward): units of at most
 # TGT_UNIT_LANES lanes of one launch-order CTA; a record buffer of at most
 # TGT_MAX_RECORDS 32-byte records (512 MB) a launch; each unit's region
@@ -573,9 +593,16 @@ _ARGS = {
     "wf_res_fwd": _TGT + [_PTR] * 10,
     "wf_res_bwd": _TGT + [_PTR] * 10,
     # (P, M, tris, mask, c0, c1, in, active_pixels, order, starts, chords,
-    # chord_tab, recs, n_recs, cap, counters, stream)
+    # chord_tab, recs, n_recs, cap, counters, slots, stream); the target
+    # form's path pass the same with smem_limit before the stream
     "wf_res_path": _TGT + [_PTR, ctypes.c_int, ctypes.c_int] +
-                   [_PTR] * 8 + [ctypes.c_uint, _PTR, _PTR],
+                   [_PTR] * 8 + [ctypes.c_uint, _PTR, _PTR, _PTR],
+    "wf_res_tgt_path": _TGT + [_PTR, ctypes.c_int, ctypes.c_int] +
+                       [_PTR] * 8 + [ctypes.c_uint, _PTR, _PTR,
+                                     ctypes.c_int, _PTR],
+    # (P, runs)
+    "wf_res_tgt_runs": [ctypes.POINTER(WfParams),
+                        ctypes.POINTER(ctypes.c_int)],
     # (P, recs, n, next, zlo, zhi, acc, counters, stream)
     "wf_res_walk": [ctypes.POINTER(WfParams), _PTR, ctypes.c_uint, _PTR,
                     ctypes.c_int, ctypes.c_int, _PTR, _PTR, _PTR],
@@ -605,7 +632,9 @@ _ENTRIES = {"wf_fwd": ("wf_fwd",), "wf_bwd": ("wf_bwd",),
             "wf_res_bwd": ("wf_res_bwd",), "wf_radon": ("wf_radon",),
             "wf_corner": ("wf_corner",),
             TGT_LIB: ("wf_tgt_fits", "wf_tgt_bwd", "wf_tgt_path",
-                      "wf_tgt_walk", "wf_tgt_info")}
+                      "wf_tgt_walk", "wf_tgt_info"),
+            RES_TGT_LIB: ("wf_res_tgt_runs", "wf_res_tgt_path",
+                          "wf_res_tgt_info")}
 _INFO = {"wf_fwd_info": [ctypes.POINTER(WfParams), ctypes.c_int],
          "wf_bwd_info": [ctypes.POINTER(WfParams), ctypes.c_int],
          "wf_res_fwd_info": [ctypes.POINTER(WfParams), ctypes.c_int],
@@ -616,7 +645,10 @@ _INFO = {"wf_fwd_info": [ctypes.POINTER(WfParams), ctypes.c_int],
          "wf_corner_info": [ctypes.POINTER(WfParams),
                             ctypes.POINTER(CullArgs), ctypes.c_int],
          "wf_tgt_info": [ctypes.POINTER(WfParams), ctypes.POINTER(WfMesh),
-                         ctypes.c_int, ctypes.c_int]}
+                         ctypes.c_int, ctypes.c_int],
+         "wf_res_tgt_info": [ctypes.POINTER(WfParams),
+                             ctypes.POINTER(WfMesh), ctypes.c_int,
+                             ctypes.c_int]}
 
 
 def _setup(lib, name):
@@ -644,8 +676,8 @@ _FLAGS = {k: ["--fmad=false"] for k in LIBS}
 
 def build_kernels():
     """Build (nvcc, one process per source, in parallel) and load the
-    seven kernel libraries (LIBS). Returns {name: ctypes lib}; raises on
-    any failure."""
+    wavefront's kernel libraries (LIBS). Returns {name: ctypes lib};
+    raises on any failure."""
     from ..native import load_cuda
     return load_cuda(LIBS, _SETUP, _FLAGS)
 
@@ -860,51 +892,106 @@ def _lanes_before(static, arr, spp):
     return cached[1]
 
 
-def res_path(libs, static, arr, data, seed, spp, c0, c1, stats=None):
+def res_tgt_route(libs, static, arr):
+    """Whether the dda residual forward's path pass runs this scene
+    through the target form of csrc/wf_res_target.cu: a dda residual
+    (first-scatter or scattered-only) of a scene that keeps the target
+    and transmits only (wf_res_tgt_runs; its banks staged where they fit
+    a CTA, else read from global memory). Decided before the launch; any
+    other scene runs the one-pass instantiation (wf_res_path)."""
+    P = make_params(static, arr, 0, 1)
+    if not P.target or static.sensor.estimator != "dda" or \
+            P.residual in (ANALOG, FAST_RESIDUAL):
+        return False
+    runs = ctypes.c_int(0)
+    _err("wf_res_tgt_runs", libs[RES_TGT_LIB].wf_res_tgt_runs(
+        ctypes.byref(P), ctypes.byref(runs)))
+    return bool(runs.value)
+
+
+def _half_counters(arr, dev):
+    """The counters of the record buffer's two halves (the overlapped
+    batches of _res_split), (2, 2) int32: records made, records claimed
+    by the walk (cached in the scene tensors' dict)."""
+    c = arr.get("_wf_res_halves")
+    if c is None or c.device != dev:
+        c = torch.zeros((2, 2), dtype=torch.int32, device=dev)
+        arr["_wf_res_halves"] = c
+    return c
+
+
+def _split_part(static, arr, P, dev, half):
+    """(cap, first record, counters) of the record buffer (half None) or
+    of its half 0 or 1."""
+    cap, _, ctr = _split_buffer(static, arr, P, dev)
+    if half is None:
+        return cap, 0, ctr
+    return cap // 2, half * (cap // 2), _half_counters(arr, dev)[half]
+
+
+def res_path(libs, static, arr, data, seed, spp, c0, c1, stats=None,
+             half=None):
     """The dda residual forward's path pass over CTAs [c0, c1) of the
-    launch order: the segment records it made, (n, 8) float32 (o, d,
-    maxt, base; a view of the engine's buffer; on a two-channel film
-    maxt < 0 for the channel outside the target), or None when they
-    overflow the buffer. stats: adds the bounce iterations, the records
-    and one batch."""
+    launch order (the target form where res_tgt_route takes the scene):
+    the segment records it made, (n, 8) float32 (o, d, maxt, base; a
+    view of the engine's buffer, or of its half 0 or 1; on a two-channel
+    film maxt < 0 for the channel outside the target), or None when they
+    overflow it. stats: adds the bounce iterations, the target's mesh
+    work, the SLOT_COUNTERS, the records and one batch."""
     dev = data.device
     pix = _pixels("wf_res_fwd", static, arr, dev)
     P, order, starts, bank = _family_params("wf_res_fwd", static, arr, seed,
                                             spp)
     M, tris, mask = _target_args("wf_res_fwd", static, arr, P)
     tab = _res_chords(libs, arr, bank, P)
-    cap, recs, ctr = _split_buffer(static, arr, P, dev)
+    recs = _split_buffer(static, arr, P, dev)[1]
+    cap, base, ctr = _split_part(static, arr, P, dev, half)
+    recs = recs[8 * base:8 * (base + cap)]
     ctr.zero_()
     counter = _counter(stats, dev)
-    err = libs["wf_res_fwd"].wf_res_path(
-        ctypes.byref(P), ctypes.byref(M), _ptr(tris), _ptr(mask), c0, c1,
-        data.data_ptr(), pix.data_ptr(), _ptr(order), _ptr(starts),
-        _ptr(bank), _ptr(tab), recs.data_ptr(), ctr.data_ptr(), cap,
-        _ptr(counter), _stream(dev))
+    slots = None if stats is None else torch.zeros(
+        (len(SLOT_COUNTERS),), dtype=torch.int64, device=dev)
+    args = (ctypes.byref(P), ctypes.byref(M), _ptr(tris), _ptr(mask), c0,
+            c1, data.data_ptr(), pix.data_ptr(), _ptr(order), _ptr(starts),
+            _ptr(bank), _ptr(tab), recs.data_ptr(), ctr.data_ptr(), cap,
+            _ptr(counter), _ptr(slots))
+    if res_tgt_route(libs, static, arr):
+        entry = "wf_res_tgt_path"
+        err = libs[RES_TGT_LIB].wf_res_tgt_path(*args, RES_TGT_SMEM_LIMIT,
+                                                _stream(dev))
+    else:
+        entry = "wf_res_path"
+        err = libs["wf_res_fwd"].wf_res_path(*args, _stream(dev))
     _count("wf_res_fwd", P)
-    _err("wf_res_path", err)
+    if entry in launches:
+        launches[entry] += 1
+    _err(entry, err)
     n = int(ctr[0].item()) & 0xFFFFFFFF
     if n > cap:
         return None
     _add(stats, counter, _keys(P, ("iterations",) + MESH_COUNTERS))
     if stats is not None:
+        for key, v in zip(SLOT_COUNTERS, slots.tolist()):
+            stats[key] = stats.get(key, 0) + v
         stats["records"] = stats.get("records", 0) + n
         stats["batches"] = stats.get("batches", 0) + 1
     return recs[:8 * n].view(n, 8)
 
 
-def res_walk(libs, static, arr, recs, acc, seed=0, spp=1, stats=None):
+def res_walk(libs, static, arr, recs, acc, seed=0, spp=1, stats=None,
+             half=None):
     """The dda residual forward's walk pass: the segments recs (n, 8)
     walked into acc (n_cells,), one launch for each of WALK_SLABS
-    z-slabs. stats: adds the steps, the deposits, the walk's lane slots
-    and the steps its walking threads took ("walk_steps": with those
-    outside a slab)."""
+    z-slabs, on the current stream (half: the records lie in that half of
+    the buffer, whose counter the walk claims them with). stats: adds the
+    steps, the deposits, the walk's lane slots and the steps its walking
+    threads took ("walk_steps": with those outside a slab)."""
     dev = acc.device
     P = make_params(static, arr, seed, spp)
     n = recs.shape[0]
     _check("wf_res_walk", recs, torch.float32, (n, 8))
     _check("wf_res_walk", acc, torch.float32, (static.sensor.n_cells,))
-    ctr = _split_buffer(static, arr, P, dev)[2]
+    ctr = _split_part(static, arr, P, dev, half)[2]
     Z = static.sensor.res[2]
     cuts = [Z * k // WALK_SLABS for k in range(WALK_SLABS + 1)]
     for zlo, zhi in zip(cuts[:-1], cuts[1:]):
@@ -964,20 +1051,36 @@ def _res_split(libs, static, arr, data, acc, seed, spp, stats,
     each batch's path pass and then the walk of its records. A batch is
     as many CTAs as fit the buffer at the records a lane has made so far
     (at most batch_ctas); one whose records overflow runs again in a
-    smaller part. times: adds the passes' milliseconds ("path_ms",
-    "walk_ms")."""
+    smaller part. On the card, for the target form's path pass
+    (res_tgt_route), the batches take the buffer's halves in turn, each
+    batch's walk on a second stream beside the next batch's path pass
+    (not when the passes are timed or counted: those read the card). The
+    other path passes run their batches one after another: beside the
+    persistent walk the one-pass target path pass took 1.8x its time; the
+    mesh-free one gained 4 % and is left as it ran (PERF.md section 6).
+    times: adds the passes' milliseconds ("path_ms", "walk_ms")."""
+    dev = data.device
     P = make_params(static, arr, seed, spp)
-    cap = _split_buffer(static, arr, P, data.device)[0]
+    overlap = dev.type == "cuda" and times is None and stats is None and \
+        res_tgt_route(libs, static, arr)
+    cap = _split_buffer(static, arr, P, dev)[0] // (2 if overlap else 1)
+    main = torch.cuda.current_stream(dev) if overlap else None
+    side = torch.cuda.Stream(dev) if overlap else None
+    # the event after each half's last walk
+    walked = [None, None]
     before = _lanes_before(static, arr, spp)
     n_ctas = len(before) - 1
-    per_lane, c0, c_max = SPLIT_GUESS, 0, n_ctas
+    per_lane, c0, c_max, k = SPLIT_GUESS, 0, n_ctas, 0
     while c0 < n_ctas:
         want = before[c0] + cap / (per_lane * SPLIT_MARGIN)
         c1 = int(np.searchsorted(before, want, side="right")) - 1
         c1 = max(c0 + 1, min(c1, c_max,
                              c0 + (batch_ctas or n_ctas)))
+        half = k % 2 if overlap else None
+        if overlap and walked[half] is not None:
+            main.wait_event(walked[half])
         recs = _timed(times, "path_ms", lambda: res_path(
-            libs, static, arr, data, seed, spp, c0, c1, stats))
+            libs, static, arr, data, seed, spp, c0, c1, stats, half))
         lanes = int(before[c1] - before[c0])
         if recs is None:
             if c1 - c0 == 1:
@@ -986,12 +1089,20 @@ def _res_split(libs, static, arr, data, acc, seed, spp, stats,
                     "records of the buffer")
             c_max = c0 + (c1 - c0) // 2
             continue
-        if recs.shape[0]:
+        if recs.shape[0] and overlap:
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                res_walk(libs, static, arr, recs, acc, seed, spp, None, half)
+            walked[half] = torch.cuda.Event()
+            walked[half].record(side)
+        elif recs.shape[0]:
             _timed(times, "walk_ms", lambda: res_walk(
                 libs, static, arr, recs, acc, seed, spp, stats))
         if lanes and recs.shape[0]:
             per_lane = recs.shape[0] / lanes
-        c0, c_max = c1, n_ctas
+        c0, c_max, k = c1, n_ctas, k + 1
+    if overlap:
+        main.wait_stream(side)
 
 
 # --------------------------------------------------------------------------
@@ -1183,7 +1294,8 @@ def kernel_info(name, static: MarchStatic, arr, count=False):
     (target_mode) reads its target instantiation's shape: the mesh on,
     and with two channels where the film has them; on the target forms'
     route (tgt_route) "wf_fwd" the path pass, "wf_tgt_walk" the walk
-    pass and "wf_bwd" the staged adjoint."""
+    pass and "wf_bwd" the staged adjoint; on the residual's
+    (res_tgt_route) "wf_res_fwd" its target path pass."""
     fam = {"wf_res_walk": "wf_res_fwd", "wf_tgt_walk": "wf_fwd"}.get(name,
                                                                      name)
     P = _family_params(fam, static, arr, 0, 1)[0]
@@ -1198,6 +1310,10 @@ def kernel_info(name, static: MarchStatic, arr, count=False):
                 ctypes.byref(P), ctypes.byref(M),
                 {"wf_fwd": 0, "wf_tgt_walk": 1, "wf_bwd": 2}[name],
                 int(count), out)
+        elif name == "wf_res_fwd" and res_tgt_route(libs, static, arr):
+            err = libs[RES_TGT_LIB].wf_res_tgt_info(
+                ctypes.byref(P), ctypes.byref(make_mesh(name, static, arr)),
+                int(count), RES_TGT_SMEM_LIMIT, out)
         elif name == "wf_res_walk":
             err = lib.wf_res_walk_info(int(count), int(P.target == 2), out)
         else:
@@ -1291,11 +1407,14 @@ def wf_res_fwd(static: MarchStatic, arr, data, seed, spp, stats=None,
     first-scatter modes). Replaces the primal of
     drtvam_tpu/ops/march.py:913 in its residual modes (XLA). The dda
     runs a path pass and a walk pass per batch of CTAs (batch_ctas: at
-    most that many a batch), the other estimators one pass. What bounds
-    it on the H100: the delta fast loop by the per-lane work (ray set-up,
-    random draws, the first scatter, one or two events); the dda by its
-    voxel steps and their float atomics. stats: adds the COUNTERS (the
-    dda: lane slots are the walk's) and, for the dda, the records and
+    most that many a batch; with the target kept the path pass is
+    csrc/wf_res_target.cu's where res_tgt_route takes the scene), the
+    other estimators one pass. What bounds it on the H100: the delta fast
+    loop by the per-lane work (ray set-up, random draws, the first
+    scatter, one or two events); the dda by its voxel steps and their
+    float atomics, and with the target kept by the path pass's grid walks
+    and triangle tests. stats: adds the COUNTERS (the dda: lane slots are
+    the walk's) and, for the dda, the SLOT_COUNTERS, the records and
     batches; times: adds the dda's path and walk milliseconds."""
     _n_lanes(static, spp)
     _check("wf_res_fwd", data, torch.float32, (static.projector.n_active,))

@@ -1,8 +1,9 @@
 """The CUDA kernels == their plain versions, on a card: the four
 backprojection kernels, their bf16 operand forms, the wavefront pair
 (wf_fwd, wf_bwd), the residual pair (wf_res_fwd, wf_res_bwd), their
-target instantiations (a surface-aware film) and the culling renders
-(wf_radon, wf_corner). Free of
+target instantiations (a surface-aware film) and target forms (the
+residual's target path pass against the one-pass instantiation) and the
+culling renders (wf_radon, wf_corner). Free of
 jax (the card's machine has none), so it runs there with
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -579,3 +580,64 @@ def test_target_forms_equal_the_one_pass_kernels(tmp_path, cuda_device,
         assert float(r.abs().max()) > 0
         assert int(((o - r).abs() > WF_TOL * float(r.abs().max())).sum()) \
             == 0
+
+
+def test_residual_target_path_equals_one_pass(tmp_path, cuda_device,
+                                              monkeypatch):
+    """The dda residual's target path pass (csrc/wf_res_target.cu: threads
+    refilled lane by lane, the target's banks staged, and read from global
+    memory with a staging limit of 0 bytes) against the one-pass
+    instantiation it replaces (wf_res_path, the route forced off): the
+    record sets bitwise equal, with the same bounce iterations and mesh
+    work; then the whole forward through the target form against the
+    plain version, to WF_TOL of each channel's max with none off and the
+    plain version's counts, counted and (batches of 3 CTAs, a batch's walk
+    beside the next one's path pass) uncounted. Each launch counted as
+    wf_res_fwd's target form and apart."""
+    st, at = _target_scene(tmp_path, "dda", "first_scatter")
+    rng = np.random.default_rng(10)
+    data = torch.from_numpy(rng.uniform(0.5, 1.5, st.projector.n_active)
+                            .astype(np.float32)).to(cuda_device)
+    seed, spp = 7, 4
+    libs = wf.build_kernels()
+    assert wf.res_tgt_route(libs, st, at)
+    n_ctas = len(wf._lanes_before(st, at, spp)) - 1
+    cap = 16 * st.projector.n_active * spp
+    at["_wf_res_split"] = (cap, torch.empty(cap * 8, device=cuda_device),
+                           torch.zeros(2, dtype=torch.int32,
+                                       device=cuda_device))
+
+    def records(stats):
+        recs = wf.res_path(libs, st, at, data, seed, spp, 0, n_ctas, stats)
+        assert recs is not None and recs.shape[0] == stats["records"] > 0
+        bits = recs.cpu().numpy().view(np.int32)
+        return bits[np.lexsort(bits.T[::-1])]
+
+    wf.reset_launches()
+    s_new, s_glob, s_old = {}, {}, {}
+    new = records(s_new)
+    assert wf.launches["wf_res_tgt_path"] == 1
+    assert wf.form_launches["wf_res_fwd:target2"] == 1
+    with monkeypatch.context() as m:
+        m.setattr(wf, "RES_TGT_SMEM_LIMIT", 0)
+        glob = records(s_glob)
+    with monkeypatch.context() as m:
+        m.setattr(wf, "res_tgt_route", lambda *a: False)
+        old = records(s_old)
+    assert wf.launches["wf_res_tgt_path"] == 2
+    assert np.array_equal(new, old) and np.array_equal(glob, old)
+    for k in ("iterations", "records") + wf.MESH_COUNTERS:
+        assert s_new[k] == s_glob[k] == s_old[k], k
+    assert s_new["triangles"] > 0
+    stats, ref_stats = {}, {}
+    dose = wf.wf_res_fwd(st, at, data, seed, spp, stats)
+    # uncounted: a batch's walk beside the next batch's path pass
+    overlapped = wf.wf_res_fwd(st, at, data, seed, spp, batch_ctas=3)
+    ref = wf._forward(st, at, data, seed, spp, wf.DEFAULT_CHUNK, ref_stats)
+    assert {k: stats[k] for k in ref_stats} == ref_stats
+    for out in (dose, overlapped):
+        for c in range(2):
+            o, r = out.reshape(-1, 2)[:, c], ref.reshape(-1, 2)[:, c]
+            assert float(r.abs().max()) > 0
+            assert int(((o - r).abs() > WF_TOL * float(r.abs().max()))
+                       .sum()) == 0

@@ -1,7 +1,9 @@
 """The wavefront kernels' per-lane template (csrc/wf_trace.cuh) built
 with the host compiler and held to the plain version, on the CPU: the
 analog pair's instantiations and the residual pair's (the hybrid
-engine's scattered-only, first-scatter and fast-residual modes).
+engine's scattered-only, first-scatter and fast-residual modes), and the
+target forms (csrc/wf_target.cuh, csrc/wf_res_target.cuh) in their
+launch order, a warp's threads in turn.
 
 Everything of the template above its `__global__` kernel is plain C++
 once a few CUDA names are stubbed (below), so g++ builds it into a
@@ -73,11 +75,16 @@ using std::isfinite;
 """
 
 HARNESS = r"""
+#include <algorithm>
 #include <vector>
 #include "wf_residual.cuh"
 #include "wf_target.cuh"
+#include "wf_res_target.cuh"
 using namespace wf;
 static std::vector<int> traced;
+// the budget the staged banks must fit (bytes); the card's is a CTA's
+// share of the SM's shared memory
+static long long tgt_budget = 1LL << 30;
 
 // the kernels' target arguments (TGT): the mesh, its triangle rows in
 // global memory, the inside mask
@@ -230,12 +237,15 @@ int dispatch(const WfParams* p, const WfMesh* M, const float4* tris,
 }
 
 // the residual kernels' launch order on one thread (res_kernel): CTAs
-// [c0, c1), each CTA's angle frames first, then its tasks
+// [c0, c1), each CTA's angle frames first, then its tasks; pslots (the
+// path pass): 32 slots for each bounce iteration and triangle test of a
+// task's longest lane
 template <int EST, int RES, class SinkT>
 void run_res_blocks(const WfParams& P, int c0, int c1, const float* in,
                     const int* ap, const int* order, const int* starts,
                     const float* chords, const float4* tab, float* out,
-                    SinkT& S, unsigned long long& slots) {
+                    SinkT& S, unsigned long long& slots,
+                    unsigned long long* pslots = nullptr) {
   Grid G;
   G.init(P);
   Frame frames[WF_RES_MAX_GROUP];
@@ -243,16 +253,23 @@ void run_res_blocks(const WfParams& P, int c0, int c1, const float* in,
     const ResCta C = res_cta(P, starts, b);
     for (int i = 0; i < C.n_angles; ++i) frames[i] = angle_frame(P, C.a0 + i);
     for (int t = 0; t < task_count<SinkT::PRIMAL>(P, C.lo, C.hi); ++t) {
-      unsigned long long longest = 0;
+      unsigned long long longest = 0, most_iters = 0, most_tris = 0;
       for (int l = 0; l < 32; ++l) {
         const unsigned long long s0 = EST == DELTA ? S.iters : S.steps;
+        const unsigned long long i0 = S.iters, t0 = S.mc.tris;
         const int aidx = res_task<EST, RES>(P, G, C, frames, t, l, in, ap,
                                             order, chords, tab, out, S);
         if (aidx >= 0) traced.push_back(aidx);
         const unsigned long long d = (EST == DELTA ? S.iters : S.steps) - s0;
         if (d > longest) longest = d;
+        most_iters = std::max(most_iters, S.iters - i0);
+        most_tris = std::max(most_tris, S.mc.tris - t0);
       }
       slots += 32 * longest;
+      if (pslots != nullptr) {
+        pslots[0] += 32 * most_iters;
+        pslots[1] += 32 * most_tris;
+      }
     }
   }
 }
@@ -318,17 +335,17 @@ int path_target(const WfParams* p, const Target& tg, int c0, int c1,
                 const float* in, const int* ap, const int* order,
                 const int* starts, const float* chords, const float4* tab,
                 float4* recs, unsigned* n_recs, unsigned cap,
-                unsigned long long* c) {
+                unsigned long long* c, unsigned long long* pslots) {
   PathSink<true, TGT> S{{nullptr, in, nullptr, nullptr, -1, 0.0f, 0, 0, 0, 0},
                         recs, n_recs, cap};
   set_target(S, *p, tg);
-  unsigned long long slots = 0;
+  unsigned long long slots = 0, ps[2] = {0, 0};
   if (p->residual == SCAT_ONLY)
     run_res_blocks<DDA, SCAT_ONLY>(*p, c0, c1, in, ap, order, starts, chords,
-                                   tab, nullptr, S, slots);
+                                   tab, nullptr, S, slots, ps);
   else if (p->residual == FIRST_SCATTER)
     run_res_blocks<DDA, FIRST_SCATTER>(*p, c0, c1, in, ap, order, starts,
-                                       chords, tab, nullptr, S, slots);
+                                       chords, tab, nullptr, S, slots, ps);
   else
     return 1;
   if (c != nullptr) {
@@ -336,6 +353,10 @@ int path_target(const WfParams* p, const Target& tg, int c0, int c1,
     c[5] += S.mc.cells;
     c[6] += S.mc.tris;
     c[7] += S.mc.walks;
+  }
+  if (pslots != nullptr) {
+    pslots[0] += ps[0];
+    pslots[1] += ps[1];
   }
   return 0;
 }
@@ -345,15 +366,158 @@ extern "C" int wf_res_path(const WfParams* p, const WfMesh* M,
                            const int* order, const int* starts,
                            const float* chords, const float4* tab,
                            float4* recs, unsigned* n_recs, unsigned cap,
-                           unsigned long long* c, void*) {
+                           unsigned long long* c, unsigned long long* slots,
+                           void*) {
   traced.clear();
   if (p->estimator != DDA) return 1;
   const Target tg{M, tris, mask};
   return p->target ? path_target<true>(p, tg, c0, c1, in, ap, order, starts,
-                                       chords, tab, recs, n_recs, cap, c)
+                                       chords, tab, recs, n_recs, cap, c,
+                                       slots)
                    : path_target<false>(p, tg, c0, c1, in, ap, order,
                                         starts, chords, tab, recs, n_recs,
-                                        cap, c);
+                                        cap, c, slots);
+}
+
+// ---- the residual's target path pass (wf_res_target.cuh) ---------------
+
+// res_tgt_path_kernel on one thread: CTA by CTA, its frames and banks
+// (staged where they fit the smem limit and tgt_budget, as the launch
+// picks) first, then rtp_warps warps of 32 threads in turns. A warp's
+// turn: its threads without a lane take the next lanes of its chunk
+// (rtp_chunk claimed from the CTA's counter at a time) in lane order,
+// until each has one or the CTA's lanes run out, then each busy thread
+// runs one bounce (res_path_turn: its ray's mesh walk tests each cell by
+// 32 shares in turn, cell_nearest); 32 slots a turn, 32 for each round
+// of 32 tests
+static int rtp_warps = 3, rtp_chunk = WF_RTP_CHUNK;
+extern "C" void set_res_tgt(int warps, int chunk) {
+  rtp_warps = warps;
+  rtp_chunk = chunk;
+}
+template <int RES, bool STAGED>
+void rtp_ctas(const WfParams& P, const Target& T, int c0, int c1,
+              const float* in, const int* ap, const int* order,
+              const int* starts, const float* chords, const float4* tab,
+              float4* recs, unsigned* n_recs, unsigned cap,
+              unsigned long long* c, unsigned long long* slots) {
+  Grid G;
+  G.init(P);
+  RtpSink<true, STAGED> S{
+      {nullptr, in, nullptr, nullptr, -1, 0.0f, 0, 0, 0, 0},
+      recs, n_recs, cap};
+  set_target(S, P, T);
+  std::vector<float4> smem;
+  if constexpr (STAGED) S.banks = staged_banks(T, smem);
+  Frame frames[WF_RES_MAX_GROUP];
+  const unsigned FULL = 0xffffffffu, W = (unsigned)rtp_warps;
+  const unsigned chunk = (unsigned)rtp_chunk;
+  unsigned long long it_slots = 0, rounds = 0;
+  struct Thread {
+    LaneState L;
+    bool busy;
+  };
+  for (int b = c0; b < c1; ++b) {
+    const ResCta C = res_cta(P, starts, b);
+    for (int i = 0; i < C.n_angles; ++i) frames[i] = angle_frame(P, C.a0 + i);
+    const unsigned n_lanes = 32u * (unsigned)task_count<true>(P, C.lo, C.hi);
+    unsigned next = 0;
+    std::vector<Thread> th(32 * W);
+    for (auto& t : th) t.busy = false;
+    std::vector<unsigned> cur(W, 0), end(W, 0);
+    std::vector<char> drained(W, 0), done(W, 0);
+    for (unsigned live = W; live > 0;) {
+      for (unsigned wi = 0; wi < W; ++wi) {
+        if (done[wi]) continue;
+        Thread* t = th.data() + 32 * wi;
+        while (!drained[wi]) {
+          unsigned need = 0;
+          for (int l = 0; l < 32; ++l) need |= t[l].busy ? 0u : 1u << l;
+          if (need == 0u) break;
+          if (cur[wi] >= end[wi]) {
+            const unsigned b0 = next;
+            next += chunk;
+            if (b0 >= n_lanes) {
+              drained[wi] = 1;
+              break;
+            }
+            cur[wi] = b0;
+            end[wi] = n_lanes - b0 < chunk ? n_lanes : b0 + chunk;
+          }
+          unsigned rank = 0;
+          for (int l = 0; l < 32; ++l) {
+            if (!((need >> l) & 1u)) continue;
+            if (rank < end[wi] - cur[wi])
+              t[l].busy = res_path_start<RES>(P, G, C, frames, cur[wi] + rank,
+                                              in, ap, order, chords, tab, S,
+                                              t[l].L);
+            ++rank;
+          }
+          cur[wi] = end[wi] - cur[wi] < rank ? end[wi] : cur[wi] + rank;
+        }
+        bool any = false;
+        for (int l = 0; l < 32; ++l) any = any || t[l].busy;
+        if (!any) {
+          done[wi] = 1;
+          --live;
+          continue;
+        }
+        for (int l = 0; l < 32; ++l)
+          if (t[l].busy)
+            t[l].busy = res_path_turn<RES>(P, G, *T.M, S, t[l].L, true, l,
+                                           &rounds);
+        it_slots += 32;
+      }
+    }
+  }
+  if (c != nullptr) {
+    c[0] += S.iters;
+    c[5] += S.mc.cells;
+    c[6] += S.mc.tris;
+    c[7] += S.mc.walks;
+  }
+  if (slots != nullptr) {
+    slots[0] += it_slots;
+    slots[1] += 32 * rounds;
+  }
+}
+extern "C" int wf_res_tgt_runs(const WfParams* p, int* runs) {
+  *runs = p->target && p->estimator == DDA &&
+          (p->residual == SCAT_ONLY || p->residual == FIRST_SCATTER);
+  return 0;
+}
+extern "C" int wf_res_tgt_info(const WfParams*, const WfMesh*, int, int,
+                               int*) {
+  return 1;
+}
+extern "C" int wf_res_tgt_path(const WfParams* p, const WfMesh* M,
+                               const float4* tris, const unsigned char* mask,
+                               int c0, int c1, const float* in,
+                               const int* ap, const int* order,
+                               const int* starts, const float* chords,
+                               const float4* tab, float4* recs,
+                               unsigned* n_recs, unsigned cap,
+                               unsigned long long* c,
+                               unsigned long long* slots, int smem_limit,
+                               void*) {
+  traced.clear();
+  int runs = 0;
+  wf_res_tgt_runs(p, &runs);
+  if (!runs) return 1;  // cudaErrorInvalidValue
+  const long long bytes =
+      (long long)bank_bytes(M->n_rows, M->n_cell_start, M->n_tri_ids);
+  const bool staged = bytes <= smem_limit && bytes <= tgt_budget;
+  const Target tg{M, tris, mask};
+#define RTP(R, ST)                                                          \
+  rtp_ctas<R, ST>(*p, tg, c0, c1, in, ap, order, starts, chords, tab, recs, \
+                  n_recs, cap, c, slots)
+  if (p->residual == FIRST_SCATTER) {
+    if (staged) RTP(FIRST_SCATTER, true); else RTP(FIRST_SCATTER, false);
+  } else {
+    if (staged) RTP(SCAT_ONLY, true); else RTP(SCAT_ONLY, false);
+  }
+#undef RTP
+  return 0;
 }
 
 // the walk pass in z-slices [zlo, zhi) as wf_res_walk runs it: N_WARPS
@@ -446,9 +610,6 @@ extern "C" int wf_res_walk(const WfParams* p, const float4* recs, unsigned n,
 
 // ---- the target forms (wf_target.cuh) ----------------------------------
 
-// the budget the staged banks must fit (bytes); the card's is a CTA's
-// share of the SM's shared memory
-static long long tgt_budget = 1LL << 30;
 extern "C" void set_tgt_budget(long long b) { tgt_budget = b; }
 extern "C" int wf_tgt_fits(const WfParams* p, const WfMesh* M, int* fits) {
   *fits = p->target && p->residual == ANALOG &&
@@ -621,10 +782,12 @@ def template_lib(tmp_path_factory):
                             "-o", str(lib)], capture_output=True, text=True)
     assert build.returncode == 0, build.stderr
     lib = ctypes.CDLL(str(lib))
-    for name in wf.KERNELS + wf.RES_KERNELS + (wf.TGT_LIB,):
+    for name in wf.KERNELS + wf.RES_KERNELS + (wf.TGT_LIB, wf.RES_TGT_LIB):
         wf._setup(lib, name)
     lib.set_tgt_budget.argtypes = [ctypes.c_longlong]
     lib.set_tgt_budget.restype = None
+    lib.set_res_tgt.argtypes = [ctypes.c_int] * 2
+    lib.set_res_tgt.restype = None
     for name in ("wf_fwd", "wf_bwd", "wf_res_fwd", "wf_res_bwd"):
         fn = getattr(lib, name + "_lanes")
         fn.argtypes, fn.restype = wf._ARGS[name], ctypes.c_int
@@ -887,7 +1050,8 @@ def _run_res(lib, name, static, at, x, n_out, seed, spp):
 
 def _libs(lib):
     """The harness library in the place of the card's kernel libraries."""
-    return {name: lib for name in wf.RES_KERNELS + (wf.TGT_LIB,)}
+    return {name: lib for name in wf.RES_KERNELS + (wf.TGT_LIB,
+                                                   wf.RES_TGT_LIB)}
 
 
 @pytest.mark.parametrize("case", RES_CASES)
@@ -1010,6 +1174,38 @@ def test_split_batches_change_no_step(case, template_lib, monkeypatch):
     assert {k: stats[k] for k in ("iterations", "steps")} == \
         {k: all_stats[k] for k in ("iterations", "steps")}
     _close(dose, dose_all, False)
+
+
+def test_split_buffer_halves_hold_the_same_records(template_lib):
+    """The record buffer's halves, which the card's overlapped batches
+    take in turn: a path pass into half 0 or 1 makes the records it makes
+    into the whole buffer, at that half's place and with that half's
+    counters; the walk of a half's records, claimed with its counter,
+    gives the whole buffer's dose bit for bit."""
+    lib, path = template_lib
+    static, at = _residual(path, *SPLIT_CASES[0])
+    rng = np.random.default_rng(14)
+    data = torch.from_numpy(rng.uniform(
+        0.5, 1.5, static.projector.n_active).astype(np.float32))
+    seed, spp = 3, 2
+    n_ctas = len(wf._lanes_before(static, at, spp)) - 1
+    cap = 8 * static.projector.n_active * spp
+    buf = torch.empty(cap * 8)
+    at["_wf_res_split"] = (cap, buf, torch.zeros(2, dtype=torch.int32))
+    libs = _libs(lib)
+    whole = wf.res_path(libs, static, at, data, seed, spp, 0, n_ctas).clone()
+    ref = torch.zeros(static.sensor.n_cells)
+    wf.res_walk(libs, static, at, whole, ref, seed, spp)
+    assert whole.shape[0] > 0
+    for half in (0, 1):
+        recs = wf.res_path(libs, static, at, data, seed, spp, 0, n_ctas,
+                           half=half)
+        assert torch.equal(recs, whole)
+        assert recs.data_ptr() == buf.data_ptr() + 4 * 8 * half * (cap // 2)
+        assert int(at["_wf_res_halves"][half, 0]) == whole.shape[0]
+        acc = torch.zeros(static.sensor.n_cells)
+        wf.res_walk(libs, static, at, recs, acc, seed, spp, half=half)
+        assert torch.equal(acc, ref)
 
 
 def _libm():
@@ -1481,3 +1677,166 @@ def test_target_mesh_counts_equal_the_plain_grid_walk(form, template_lib,
         assert not wf.tgt_route(_libs(lib), form, static, at)
     finally:
         lib.set_tgt_budget(1 << 30)
+
+
+# --------------------------------------------------------------------------
+# the residual pair's target path pass (csrc/wf_res_target.cuh): the dda
+# residual forward's path pass with the target kept, its threads refilled
+# lane by lane, the banks staged
+
+
+def _sorted_rows(recs):
+    """The records (n, 8) as int32 bit patterns, sorted row by row: the
+    record set, compared bitwise whatever the order the pass made it in."""
+    bits = recs.numpy().view(np.int32)
+    return bits[np.lexsort(bits.T[::-1])]
+
+
+def _path_records(lib, static, at, data, seed, spp, form, monkeypatch):
+    """The path pass over every CTA in one batch, through the wrapper
+    (ops/render.py res_path): form "target" (res_tgt_route must take the
+    scene) or "one_pass" (the route forced off: wf_res_path). Returns
+    (sorted record bits, stats)."""
+    libs = _libs(lib)
+    n_ctas = static.projector.resy * wf.angle_groups(
+        static.projector.n_patterns)[0]
+    cap = 16 * static.projector.n_active * spp
+    at["_wf_res_split"] = (cap, torch.empty(cap * 8),
+                           torch.zeros(2, dtype=torch.int32))
+    with monkeypatch.context() as m:
+        if form == "one_pass":
+            m.setattr(wf, "res_tgt_route", lambda *a: False)
+        else:
+            assert wf.res_tgt_route(libs, static, at)
+        stats = {}
+        recs = wf.res_path(libs, static, at, data, seed, spp, 0, n_ctas,
+                           stats)
+    assert recs is not None and recs.shape[0] == stats["records"] > 0
+    return _sorted_rows(recs.clone()), stats
+
+
+# (estimator, mode, vial, target) of the dda residual with the target
+RES_TARGET_CASES = [("dda", "first_scatter", "cylindrical", "surface_aware"),
+                    ("dda", "first_scatter", "square", "kept"),
+                    ("dda", "scattered_only", "square", "surface_aware")]
+
+
+@pytest.mark.parametrize("case", RES_TARGET_CASES)
+def test_residual_target_path_records_equal_one_pass(case, template_lib,
+                                                     monkeypatch):
+    """The target form's path pass (threads refilled lane by lane, the
+    banks staged) makes the one-pass instantiation's records: the sorted
+    record sets equal bit for bit, with the banks staged and read from
+    global memory (a staging limit of 0 bytes), the same bounce
+    iterations and mesh work; on a two-channel film both channels' signs
+    occur. Each SIMT slot count covers its work."""
+    lib, path = template_lib
+    est, mode, vial, target = case
+    static, at = _residual(path, est, mode, vial, "collimated", target=target,
+                           n_patterns=8)
+    data, _ = _inputs(static, 22)
+    seed, spp = 7, 3
+    one, one_stats = _path_records(lib, static, at, data, seed, spp,
+                                   "one_pass", monkeypatch)
+    new, stats = _path_records(lib, static, at, data, seed, spp, "target",
+                               monkeypatch)
+    with monkeypatch.context() as m:
+        m.setattr(wf, "RES_TGT_SMEM_LIMIT", 0)
+        glob, g_stats = _path_records(lib, static, at, data, seed, spp,
+                                      "target", monkeypatch)
+    assert np.array_equal(new, one) and np.array_equal(glob, one)
+    for k in ("iterations", "records") + wf.MESH_COUNTERS:
+        assert stats[k] == one_stats[k] == g_stats[k], k
+    assert stats["triangles"] > 0
+    for s in (stats, one_stats):
+        assert s["iterations"] <= s["iteration_slots"]
+        assert s["triangles"] <= s["triangle_slots"]
+    if static.sensor.channels == 2:
+        maxt = new[:, 6].view(np.float32)
+        assert (maxt < 0).any() and (maxt > 0).any()
+
+
+@pytest.mark.parametrize("lever", ["global_warps5", "chunk1", "chunk64",
+                                   "warps1", "warps5", "batches"])
+def test_residual_target_path_levers_change_no_record(lever, template_lib,
+                                                      monkeypatch):
+    """Lanes claimed one at a time or 64 at a time, one warp or five in
+    turns a CTA, five warps with the banks in global memory (a CTA's
+    share of 0 bytes): the same record set bit for bit and the same
+    counts; batches of one CTA through the wrapper (ops/render.py
+    res_forward): the same iterations, steps and records, the dose to
+    1e-4 of the max."""
+    lib, path = template_lib
+    static, at = _residual(path, "dda", "first_scatter", "square",
+                           "collimated", target="surface_aware",
+                           n_patterns=8)
+    data, _ = _inputs(static, 23)
+    seed, spp = 2, 2
+    if lever == "batches":
+        base_stats, stats = {}, {}
+        base = wf.res_forward(_libs(lib), static, at, data, seed, spp,
+                              base_stats)
+        dose = wf.res_forward(_libs(lib), static, at, data, seed, spp, stats,
+                              batch_ctas=1)
+        assert stats["batches"] == static.projector.resy * wf.angle_groups(
+            8)[0] > base_stats["batches"]
+        for k in ("iterations", "steps", "records") + wf.MESH_COUNTERS:
+            assert stats[k] == base_stats[k], k
+        _close(dose, base, False, 2)
+        return
+    base, base_stats = _path_records(lib, static, at, data, seed, spp,
+                                     "target", monkeypatch)
+    warps, chunk, budget = {"global_warps5": (5, 32, 0),
+                            "chunk1": (3, 1, 1 << 30),
+                            "chunk64": (3, 64, 1 << 30),
+                            "warps1": (1, 32, 1 << 30),
+                            "warps5": (5, 32, 1 << 30)}[lever]
+    try:
+        lib.set_res_tgt(warps, chunk)
+        lib.set_tgt_budget(budget)
+        recs, stats = _path_records(lib, static, at, data, seed, spp,
+                                    "target", monkeypatch)
+    finally:
+        lib.set_res_tgt(3, 32)
+        lib.set_tgt_budget(1 << 30)
+    assert np.array_equal(recs, base)
+    for k in ("iterations", "records") + wf.MESH_COUNTERS:
+        assert stats[k] == base_stats[k], k
+
+
+def test_residual_target_mesh_counts_equal_the_plain_grid_walk(template_lib,
+                                                               gear_path,
+                                                               monkeypatch):
+    """On a target walked through its grid (480 triangles), the
+    residual's target form counts the plain version's bounce iterations,
+    grid walks, cells and triangle tests, with its banks staged and, on a
+    budget too small for them, read from global memory (the scene stays
+    on the form's route), as does the one-pass instantiation; the dose of
+    its records to 1e-4 of the plain's."""
+    lib, _ = template_lib
+    static, at = _residual(gear_path, "dda", "first_scatter", "cylindrical",
+                           "collimated", target="kept")
+    assert any(s.grid is not None for s in static.surfaces)
+    data, _ = _inputs(static, 24)
+    seed, spp = 3, 2
+    ref_stats, stats = {}, {}
+    ref = wf._forward(static, at, data, seed, spp, wf.DEFAULT_CHUNK,
+                      ref_stats)
+    assert wf.res_tgt_route(_libs(lib), static, at)
+    dose = wf.res_forward(_libs(lib), static, at, data, seed, spp, stats)
+    assert ref_stats["cells"] > ref_stats["walks"] > 0
+    for k in ("iterations", "steps") + wf.MESH_COUNTERS:
+        assert stats[k] == ref_stats[k], k
+    _close(dose, ref, False)
+    glob_stats, one_stats = {}, {}
+    try:
+        lib.set_tgt_budget(0)
+        assert wf.res_tgt_route(_libs(lib), static, at)
+        wf.res_forward(_libs(lib), static, at, data, seed, spp, glob_stats)
+    finally:
+        lib.set_tgt_budget(1 << 30)
+    with monkeypatch.context() as m:
+        m.setattr(wf, "res_tgt_route", lambda *a: False)
+        wf.res_forward(_libs(lib), static, at, data, seed, spp, one_stats)
+    for k in ("iterations", "steps") + wf.MESH_COUNTERS:
+        assert glob_stats[k] == one_stats[k] == ref_stats[k], k

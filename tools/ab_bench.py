@@ -37,8 +37,9 @@ builds that tree's kernels and runs its own chip_smoke.py code:
     cell's own last inputs (CUDA events): cell (b)'s two-channel wf_fwd
     and wf_bwd and its wf_fwd with the film cut to one channel (median
     of 5), and cell (a)'s final-render dda residual with the target at
-    spp 16 (median of 3, with its path pass apart). Six turns, as
-    hybrid.
+    spp 16 (median of 3, with its path and walk passes apart: their
+    means over the four launches; then as the render calls it, without
+    the passes' timers, median of 3). Six turns, as hybrid.
 
 Every JSON record a turn prints is tagged with the turn; the last line
 is each tree's median over its turns of every timed number. Compares
@@ -256,6 +257,13 @@ with tempfile.TemporaryDirectory() as tmp:
     emit({"phase": "target_form", "name": "wf_res_fwd:target1", "ms": ms})
     emit({"phase": "target_form", "name": "wf_res_path:target1",
           "ms": times["path_ms"] / 4})
+    emit({"phase": "target_form", "name": "wf_res_walk:target1",
+          "ms": times["walk_ms"] / 4})
+    # as the render calls it: no times (a tree that overlaps its batches
+    # does so here)
+    emit({"phase": "target_form", "name": "wf_res_fwd:target1, as called",
+          "ms": cs.cuda_ms(lambda: wf.wf_res_fwd(st, at, data, seed, spp), 3,
+                           torch)})
 """
 
 MODES = {"ballistic": BALLISTIC, "wavefront": WAVEFRONT, "hybrid": HYBRID,

@@ -8,9 +8,13 @@
     python3 tools/wf_variants.py cull [--parent ROOT] [VARIANT ...]
                                                  (the culling renders',
                                                   CULL_VARIANTS)
-    python3 tools/wf_variants.py target [VARIANT ...]   (the analog pair's
+    python3 tools/wf_variants.py target [--parent ROOT] [VARIANT ...]
+                                                 (the analog pair's
                                                   target forms',
                                                   TGT_VARIANTS)
+    python3 tools/wf_variants.py res_target [VARIANT ...]   (the dda
+                                                  residual's target path
+                                                  pass', RTP_VARIANTS)
 
 run from the repo root on a machine with one NVIDIA GPU. Each variant
 changes one thing against the source as it is ("shipped"): the threads
@@ -65,7 +69,10 @@ are builds of wf_target.cu with other launch shapes (WF_TGT_*), and the
 one-pass kernels the scenes ran before (wf_fwd.cu / wf_bwd.cu with the
 target: 1024 threads, the banks in global memory), as they are, with the
 home-slice tile off (every deposit a global atomic, L1 free) and built at
-512 threads a CTA (128 registers a thread). Each runs chip_smoke.py
+512 threads a CTA (128 registers a thread); with --parent ROOT also
+ROOT's wf_target.cu, built from ROOT's sources (a parent commit, or the
+shipped sources with one header changed, to find what moved a kernel).
+Each runs chip_smoke.py
 phase 13's cell (b) (the bench scene with a surface-aware film on the
 wavefront, dda, spp 1, 64 M lanes) on the patterns of its optimize()
 after TGT_STEPS steps: the two-channel forward, the one-channel forward
@@ -76,6 +83,23 @@ launch shapes and the registers and spills of the instantiations they
 run; the shipped build also its counts (steps, the target's grid cells,
 triangles and walks, records, batches), the forward's path and walk
 passes apart and the scene without its target.
+The residual target path pass's variants (the dda residual forward's path
+pass on a scene that keeps the target: csrc/wf_res_target.cu) are builds
+of wf_res_target.cu with other launch shapes (WF_RTP_*), the shipped build
+with its banks read from global memory (RES_TGT_SMEM_LIMIT 0), and the
+one-pass instantiation the scene ran before (wf_res_path with the target,
+256 threads, the banks in global memory). Each runs the dda
+residual forward of chip_smoke.py phase 13's cell (a) (the surface-aware
+square scattering cell) as its final render launches it (spp 16, the
+target kept, one channel) on the patterns of its optimize() after
+RTP_STEPS steps: a counting launch (bounce iterations, records, the
+target's grid walks, cells and triangle tests, the SIMT efficiencies of
+the bounces and of the triangle tests), then one timed launch (CUDA
+events) with its path and walk passes apart and one as the render calls
+it (a batch's walk beside the next batch's path pass), the dose against the
+shipped build's (1e-4 of the max, none off), the launch shape and the
+registers and spills of the path pass's instantiation; the shipped build
+also on the scene without its target.
 """
 import contextlib
 import ctypes
@@ -609,7 +633,11 @@ TGT_VARIANTS = {
     "one_pass": {"one_pass": True},
     "one_pass_no_tile": {"one_pass": True, "tile": False},
     "one_pass_threads512": {"one_pass": True, "WF_THREADS": 512},
+    # with --parent ROOT: ROOT's wf_target.cu (its own sources)
+    "parent": {"tree": "parent"},
 }
+# the parent tree (target --parent ROOT)
+TGT_PARENT = None
 # optimize() steps on cell (b) before its loop patterns are taken
 TGT_STEPS = 3
 
@@ -629,6 +657,9 @@ def tgt_build(work, names):
             vdir = source_dir(work, spec)
             variant_source(CUDA_SRC_DIR, vdir, spec)
             srcs = [(n, vdir, []) for n in ("wf_fwd", "wf_bwd")]
+        elif spec.get("tree") == "parent":
+            srcs = [("wf_target", os.path.join(TGT_PARENT, "drtvam_tpu_torch",
+                                               "csrc"), [])]
         elif any(k.startswith("WF_") for k in spec):
             srcs = [("wf_target", CUDA_SRC_DIR,
                      [f"-D{k}={val}" for k, val in spec.items()])]
@@ -764,6 +795,151 @@ def main_target(names):
             print(json.dumps(rec), flush=True)
 
 
+# name: {WF_RTP_* constants of a wf_res_target.cu build;
+# RES_TGT_SMEM_LIMIT of ops/render.py; "one_pass": the one-pass
+# instantiation (wf_res_path with the target)}
+RTP_VARIANTS = {
+    "shipped": {},
+    "one_pass": {"one_pass": True},
+    "global_banks": {"RES_TGT_SMEM_LIMIT": 0},
+    "threads256": {"WF_RTP_THREADS": 256, "WF_RTP_MIN_CTAS": 3},
+    "threads512": {"WF_RTP_THREADS": 512, "WF_RTP_MIN_CTAS": 2},
+    "threads512x1": {"WF_RTP_THREADS": 512, "WF_RTP_MIN_CTAS": 1},
+    "chunk8": {"WF_RTP_CHUNK": 8},
+    "chunk128": {"WF_RTP_CHUNK": 128},
+}
+# optimize() steps on cell (a) before its final render's inputs are taken
+RTP_STEPS = 3
+
+
+def rtp_build(work, names):
+    """One nvcc per variant build of wf_res_target.cu, all started
+    together; returns the running jobs."""
+    from drtvam_tpu_torch.native import CUDA_SRC_DIR, nvcc_path
+    jobs = []
+    for v in names:
+        defs = [f"-D{k}={val}" for k, val in RTP_VARIANTS[v].items()
+                if k.startswith("WF_")]
+        if not defs:
+            continue
+        lib = os.path.join(work, f"libwf_res_target_{v}.so")
+        cmd = [nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
+               "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
+               "-Xcompiler", "-fPIC", "--fmad=false", "-I", CUDA_SRC_DIR,
+               *defs, os.path.join(CUDA_SRC_DIR, "wf_res_target.cu"), "-o",
+               lib]
+        jobs.append((v, lib, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    return jobs
+
+
+def rtp_ptxas(log, path_pass):
+    """Registers and spill bytes of the dda first-scatter path pass's
+    instantiation with the target (not counting): the target form's with
+    its banks staged or (path_pass "global") in global memory, or
+    (path_pass "one_pass") the one-pass res_kernel's."""
+    import chip_smoke as cs
+    want = {"staged": "residual target path pass, DDA, FIRST_SCATTER, "
+                      "staged",
+            "global": "residual target path pass, DDA, FIRST_SCATTER, "
+                      "global banks",
+            "one_pass": "residual DDA, FIRST_SCATTER, path pass, "
+                        "target"}[path_pass]
+    for part in log.split("Compiling entry function '")[1:]:
+        if cs.instantiation(part.split("'")[0]) != want:
+            continue
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", part)
+        return {"registers": int(regs.group(1)),
+                "spill_store_bytes": int(spill.group(1)),
+                "spill_load_bytes": int(spill.group(2))}
+    return None
+
+
+def rtp_run(torch, cs, wf, static, at, data, seed, spp):
+    """The forward's counting launch, then one timed launch with its
+    passes apart; returns (dose, record)."""
+    stats, times = {}, {}
+    wf.wf_res_fwd(static, at, data, seed, spp, stats)
+    torch.cuda.synchronize()
+    ms, dose = cs.event_ms(lambda: wf.wf_res_fwd(static, at, data, seed, spp,
+                                                 times=times), torch)
+    ms_overlapped, _ = cs.event_ms(lambda: wf.wf_res_fwd(
+        static, at, data, seed, spp), torch)
+    rec = {"ms": ms, "ms_overlapped": ms_overlapped, **times,
+           "counts": stats,
+           "launch": wf.kernel_info("wf_res_fwd", static, at)}
+    for key, slots in (("iterations", "iteration_slots"),
+                       ("triangles", "triangle_slots")):
+        rec[f"{key}_simt_efficiency"] = (stats.get(key, 0) / stats[slots]
+                                         if stats.get(slots) else None)
+    lanes = static.projector.n_active * spp
+    rec["per_lane"] = {k: stats.get(k, 0) / lanes for k in (
+        "iterations", "records", "walks", "cells", "triangles")}
+    if stats.get("walks"):
+        rec["triangles_per_walk"] = stats["triangles"] / stats["walks"]
+    return dose, rec
+
+
+def main_res_target(names):
+    import torch
+    import chip_smoke as cs
+    from drtvam_tpu_torch.native import BUILD_DIR
+    from drtvam_tpu_torch.ops import render as wf
+    dev = torch.device("cuda:0")
+    torch.zeros(1, device=dev)  # create the context before the memory stats
+    with tempfile.TemporaryDirectory() as work:
+        jobs = rtp_build(work, names)
+        shipped = wf.build_kernels()
+        built, logs = {}, {}
+        for v, lib, proc in jobs:
+            log, _ = proc.communicate(timeout=900)
+            if proc.returncode != 0:
+                raise RuntimeError(f"{v}: nvcc failed\n{log}")
+            built[v], logs[v] = lib, log
+        for n, v in ((wf.RES_TGT_LIB, "shipped"), ("wf_res_fwd", "one_pass")):
+            with open(os.path.join(BUILD_DIR, f"lib{n}.so.log")) as f:
+                logs[v] = f.read()
+        cfg = cs.sa_cell_config(work, "a")
+        cfg["n_steps"] = RTP_STEPS
+        with cs.CallSpy(wf) as spy:
+            cs.optimize_on_card(torch, dev, cfg)
+        st, at, data, seed, spp = spy.calls["wf_res_fwd:target1"]
+        ref = None
+        for v in names:
+            spec = RTP_VARIANTS[v]
+            libs = dict(shipped)
+            if v in built:
+                libs[wf.RES_TGT_LIB] = ctypes.CDLL(built[v])
+                wf._setup(libs[wf.RES_TGT_LIB], wf.RES_TGT_LIB)
+            wf.build_kernels = lambda: libs  # noqa: B023
+            wf.RES_TGT_SMEM_LIMIT = spec.get("RES_TGT_SMEM_LIMIT", 1 << 30)
+            route = cs.OnePass(wf) if spec.get("one_pass") else \
+                contextlib.nullcontext()
+            with route:
+                dose, rec = rtp_run(torch, cs, wf, st, at, data, seed, spp)
+            if ref is None:
+                ref = dose
+                cmp = {"max_abs_err_vs_shipped": 0.0}
+            else:
+                cmp = cs.channel_compare(f"{v} final render", dose, ref, 1,
+                                         False)
+            del dose
+            rec = {"variant": v, **spec, **rec, **cmp,
+                   "ptxas": rtp_ptxas(logs.get(v, logs["shipped"]),
+                                      "one_pass" if spec.get("one_pass")
+                                      else "global" if "RES_TGT_SMEM_LIMIT"
+                                      in spec else "staged")}
+            if v == "shipped":
+                st0, at0 = cs.strip_to_one_channel(st, at)
+                _, rec["mesh off"] = rtp_run(torch, cs, wf, st0, dict(at0),
+                                             data, seed, spp)
+            print(json.dumps(rec), flush=True)
+            torch.cuda.empty_cache()
+
+
 def telecentric_check(cs, wf, static, arr, img, spp):
     """The telecentric radon image against the plain march on the pixels
     of every cs.RADON_CHECK_STRIDE-th angle: pixels that differ, the
@@ -782,8 +958,27 @@ def telecentric_check(cs, wf, static, arr, img, spp):
 
 
 def main():
+    if sys.argv[1:2] == ["res_target"]:
+        names = sys.argv[2:] or list(RTP_VARIANTS)
+        unknown = [n for n in names if n not in RTP_VARIANTS]
+        if unknown:
+            sys.exit(f"res_target variants: {list(RTP_VARIANTS)}; unknown "
+                     f"{unknown}")
+        names = ["shipped"] + [n for n in names if n != "shipped"]
+        smi = subprocess.run(["nvidia-smi", "-i", "0",
+                              "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60, check=True)
+        print(smi.stdout.strip(), flush=True)
+        main_res_target(names)
+        return
     if sys.argv[1:2] == ["target"]:
-        names = sys.argv[2:] or list(TGT_VARIANTS)
+        global TGT_PARENT
+        args = sys.argv[2:]
+        if args[:1] == ["--parent"]:
+            TGT_PARENT, args = os.path.abspath(args[1]), args[2:]
+        names = args or [v for v in TGT_VARIANTS
+                         if TGT_PARENT or "tree" not in TGT_VARIANTS[v]]
         unknown = [n for n in names if n not in TGT_VARIANTS]
         if unknown:
             sys.exit(f"target variants: {list(TGT_VARIANTS)}; unknown "
