@@ -188,6 +188,30 @@ Phases (each failure exits non-zero before the result line):
      scenes, and on cell (a)'s final render both timed, their path and
      walk passes apart with their counts, SIMT efficiencies, bounds and
      launch shapes.
+  14. mesh vials and occlusions on the wavefront (records `mesh_kernel`,
+     `bench_custom_occlusion`): the loop kernels on small scenes whose
+     meshes are not the target (a custom vial, an occlusion of each BSDF:
+     black, null, reflective diffuse with reflections, dielectric, a
+     grid-walked gear; one beside a surface-aware target), their routed
+     forms and, for the dda, the one-pass instantiations against the
+     plain versions (forwards to 1e-4 of each channel's max, the same
+     steps and mesh work, adjoints bitwise on two launches); wf_radon
+     through the mesh vial (bitwise, banks staged and global) and
+     wf_corner on its corners. Then cell (c): the bench scene with the
+     square bench vial as mesh walls and a black occlusion box,
+     filter_radon, engine auto (the wavefront), 40 steps, through
+     optimize(): launches of each form (no backprojection or residual
+     kernel), the wall split, kept share, peak memory, the best IoU
+     against the target less the occlusion's voxels; the radon image
+     bitwise its plain version on every 8th angle's pixels; the loop
+     kernels' times on the loop's inputs beside the analytic square
+     vial's mesh-free pair; the loop forms (and the one-pass ones)
+     against their plain versions on angle_cut; the mesh vial's dose
+     against the analytic vial's without the occlusion on the final
+     render's patterns (total within 1e-5, at most 1 % of the voxels off
+     by more than 1e-3 of the max). Then the CLI (record
+     `cli_custom_occlusion`) on phase 9's telecentric config with a custom
+     cuvette, an occlusion and filter_radon.
 
 Each earlier line is a JSON record; the line before the last lists the
 kernels, the last is {"ok": true, "device": {...}}. The wavefront
@@ -3084,14 +3108,16 @@ def sa_cell_config(tmp, cell):
 
 class CallSpy:
     """Records the last call of each loop kernel wrapper (ops/render.py
-    wf_fwd, wf_bwd, wf_res_fwd, wf_res_bwd) by target mode: its static,
-    scene tensors, input and spp. The wrappers run as they are, their
-    launch counts untouched."""
+    wf_fwd, wf_bwd, wf_res_fwd, wf_res_bwd) by target mode (by_depth: and
+    by the static's max_depth, which tells the loop's calls from the final
+    render's): its static, scene tensors, input and spp. The wrappers run
+    as they are, their launch counts untouched."""
 
     NAMES = ("wf_fwd", "wf_bwd", "wf_res_fwd", "wf_res_bwd")
 
-    def __init__(self, wf):
+    def __init__(self, wf, by_depth=False):
         self.wf, self.calls, self.saved = wf, {}, []
+        self.by_depth = by_depth
 
     def __enter__(self):
         for name in self.NAMES:
@@ -3103,6 +3129,8 @@ class CallSpy:
     def _wrap(self, name, orig):
         def call(static, arr, x, seed, spp, *a, **kw):
             key = f"{name}:target{self.wf.target_mode(static)}"
+            if self.by_depth:
+                key += f":depth{static.max_depth}"
             self.calls[key] = (static, arr, x, seed, spp)
             return orig(static, arr, x, seed, spp, *a, **kw)
         return call
@@ -3662,6 +3690,586 @@ def target_entries(cells):
     return out
 
 
+# --------------------------------------------------------------------------
+# mesh vials and occlusions (phase 14): meshes that are not the target, on
+# the wavefront engine
+
+
+def mesh_small_scene(tmp, estimator, albedo, projector, tonly, vial,
+                     occlusion, channels=1, mode="volume"):
+    """wf_small_scene's scene (10 angles of 24x16, a 32^3 film over 16.77)
+    with mesh surfaces that are not the target: vial "custom" (a cuvette's
+    tubes about the cylindrical vial) or "cylindrical", and an occlusion
+    (MESH_OCCLUSIONS: the default black box, a null, dielectric or
+    reflective diffuse one, a reflective hollow gear walked through its
+    grid) with the medium on its outside. channels 2: a surface-aware film
+    (the target kept beside the occlusion); mode "radon" or "corner": the
+    culling renders' statics (the target kept)."""
+    from drtvam_tpu_torch.models.scene import Scene
+    from drtvam_tpu_torch.ops.mesh import (make_box, make_box_tube,
+                                           make_hollow_gear, save_ply)
+    files = {"wf_target.ply": make_box((0.5, 0.5, 0.5)),
+             "mesh_outer.ply": make_box_tube(8.0, 7.8, -10.0, 10.0),
+             "mesh_inner.ply": make_box_tube(7.3, 7.1, -10.0, 10.0),
+             "mesh_occ.ply": make_box((2.5, 1.5, 2.0),
+                                      center=(-2.0, 1.0, 0.0)),
+             "mesh_gear.ply": make_hollow_gear(r_out=3.0, r_root=2.4,
+                                               r_hole=1.0, half_height=2.0,
+                                               segments=120)}
+    for name, mesh in files.items():
+        save_ply(mesh, os.path.join(tmp, name))
+    med = {"ior": 1.4849, "extinction": 0.1, "albedo": albedo,
+           "phase": {"type": "rayleigh"}}
+    if vial == "custom":
+        v = {"type": "custom", "ior": 1.514, "medium": med,
+             "filename_vial_outer": os.path.join(tmp, "mesh_outer.ply"),
+             "filename_vial_inner": os.path.join(tmp, "mesh_inner.ply")}
+    else:
+        v = {"type": "cylindrical", "r_ext": 8.385, "r_int": 7.665,
+             "height": 20.0, "ior": 1.514, "medium": med}
+    if occlusion is not None:
+        mesh, bsdf = MESH_OCCLUSIONS[occlusion]
+        v["occlusions"] = [dict({"filename": os.path.join(tmp, mesh)},
+                                **({} if bsdf is None else {"bsdf": bsdf}))]
+    proj = {"type": projector, "n_patterns": 10, "resx": 24, "resy": 16,
+            "pixel_size": 16.77 / 24, "motion": "circular", "distance": 25.0}
+    if projector == "telecentric":
+        proj.update(aperture_radius=0.3, focus_distance=20.0)
+    sensor = {"type": estimator, "scalex": 16.77, "scaley": 16.77,
+              "scalez": 16.77, "majorant": 10.0,
+              "film": {"type": "vfilm", "resx": 32, "resy": 32, "resz": 32}}
+    cfg = {"vial": v, "projector": proj, "sensor": sensor,
+           "target": {"filename": os.path.join(tmp, "wf_target.ply"),
+                      "size": 4.0}, "output": tmp}
+    if channels == 2:
+        cfg["final_sensor"] = json.loads(json.dumps(sensor))
+        cfg["sensor"]["film"]["surface_aware"] = True
+    if mode == "radon":
+        return Scene(cfg).build(mode="radon", include_target=True,
+                                max_depth=5, rr_depth=3, transmission_only=tonly)
+    if mode == "corner":
+        return Scene(cfg).build(mode="volume", include_target=True,
+                                max_depth=1, rr_depth=6, regular_sampling=True)
+    return Scene(cfg).build(mode="volume", include_target=channels == 2,
+                            max_depth=8, rr_depth=3,
+                            transmission_only=tonly, sample_time=True)
+
+
+# an occlusion's mesh and BSDF (None: the default black diffuse)
+MESH_OCCLUSIONS = {
+    "black": ("mesh_occ.ply", None),
+    "null": ("mesh_occ.ply", {"type": "null"}),
+    "dielectric": ("mesh_occ.ply", {"type": "dielectric", "int_ior": 1.52,
+                                    "ext_ior": 1.4849}),
+    "reflective": ("mesh_occ.ply", {"type": "diffuse", "reflectance": 0.6}),
+    "gear": ("mesh_gear.ply", {"type": "diffuse", "reflectance": 0.6}),
+}
+# (estimator, albedo, projector, transmission only, vial, occlusion,
+# channels): every BSDF kind on a mesh that is not the target
+MESH_CASES = {
+    "custom_dda": ("dda", 0.0, "collimated", True, "custom", None, 1),
+    "custom_black_dda_scattering": ("dda", 0.5, "collimated", True,
+                                    "custom", "black", 1),
+    "null_delta_scattering": ("delta", 0.5, "collimated", True,
+                              "cylindrical", "null", 1),
+    "reflective_dda_reflecting": ("dda", 0.0, "collimated", False,
+                                  "cylindrical", "reflective", 1),
+    "custom_dielectric_ratio_telecentric": ("ratio", 0.5, "telecentric",
+                                            True, "custom", "dielectric", 1),
+    "custom_gear_dda_reflecting": ("dda", 0.0, "collimated", False,
+                                   "custom", "gear", 1),
+    "custom_null_dda_2ch": ("dda", 0.0, "collimated", True, "custom", "null",
+                            2),
+}
+# radon: (projector, spp, vial, occlusion); corner: the custom vial's
+MESH_RADON_CASES = {
+    "custom_black_radon": ("collimated", 1, "custom", "black"),
+    "custom_gear_radon_telecentric_spp2": ("telecentric", 2, "custom",
+                                           "gear"),
+    "cylindrical_dielectric_radon_spp4": ("collimated", 4, "cylindrical",
+                                          "dielectric"),
+}
+
+
+def phase_mesh_kernels(torch, wf, dev, tmp):
+    """The loop kernels on small scenes whose meshes are not the target
+    (MESH_CASES: a custom vial, each occlusion BSDF, a grid-walked
+    occlusion, an occlusion beside a surface-aware target) against their
+    plain versions: the routed forms (the target forms where they take the
+    scene) and, for the dda scenes, the one-pass instantiations (OnePass,
+    the route of banks too large for a CTA): forwards to TARGET_TOL of each
+    channel's max (ratio and delta: WF_POINT_SHARE of the values may be off
+    by more), the same steps and mesh work, adjoints bitwise on two
+    launches and equal across the forms. Then wf_radon through the mesh
+    vial (bitwise its plain version, the banks staged and global, the same
+    bounce iterations) and wf_corner on the custom vial's corners (equal
+    keep images)."""
+    from drtvam_tpu_torch.ops.march import scene_tensors
+    spp, seed, chunk = 4, 11, wf.DEFAULT_CHUNK
+    out = {}
+    for case, (est, albedo, proj, tonly, vial, occ, ch) in \
+            MESH_CASES.items():
+        st, arr = mesh_small_scene(tmp, est, albedo, proj, tonly, vial, occ,
+                                   ch)
+        at = scene_tensors(arr, dev)
+        rng = np.random.default_rng(len(out) + 60)
+        data = torch.from_numpy(rng.uniform(
+            0.5, 1.5, st.projector.n_active).astype(np.float32)).to(dev)
+        dL = torch.from_numpy(rng.uniform(
+            0.0, 1.0, st.sensor.n_cells).astype(np.float32)).to(dev)
+        point = est != "dda"
+        target = wf.make_params(st, at, seed, spp).target
+        if target != ch:
+            raise AssertionError(f"{case}: target mode {target}")
+        rec = {"phase": "mesh_kernel", "case": case, "spp": spp,
+               "target": target, "channels": ch,
+               "lanes": st.projector.n_active * spp,
+               "tile_voxels": int(wf.tile_rows(st, at)[1])}
+        sp = {}
+        fwd_p = wf._forward(st, at, data, seed, spp, chunk, sp)
+        bwd_p = wf._adjoint(st, at, seed, spp, chunk, dL)
+        bwd_ref = None
+        forms = ("routed", "one_pass") if est == "dda" else ("routed",)
+        for form in forms:
+            with OnePass(wf) if form == "one_pass" else \
+                    contextlib.nullcontext():
+                wf.reset_launches()
+                sk, sb = {}, {}
+                fwd = wf.wf_fwd(st, at, data, seed, spp, sk)
+                bwd = wf.wf_bwd(st, at, dL, seed, spp, sb)
+                bwd2 = wf.wf_bwd(st, at, dL, seed, spp)
+                torch.cuda.synchronize()
+                launched = {k: v for k, v in wf.form_launches.items() if v}
+                r = {"form_launches": launched, "steps": sk,
+                     "fwd": channel_compare(f"wf_fwd {case} {form}", fwd,
+                                            fwd_p, ch, point),
+                     "bwd": channel_compare(f"wf_bwd {case} {form}",
+                                            bwd[:, None], bwd_p[:, None], 1,
+                                            point)}
+                if not launched or any(not k.endswith(f"target{target}")
+                                       for k in launched):
+                    raise AssertionError(f"{case} {form}: launched "
+                                         f"{launched}")
+                r["bwd"]["bitwise_repeat"] = bool(torch.equal(bwd, bwd2))
+                r["bwd"]["bitwise_plain"] = bool(torch.equal(bwd, bwd_p))
+                if not r["bwd"]["bitwise_repeat"] or (
+                        bwd_ref is not None and not torch.equal(bwd, bwd_ref)):
+                    raise AssertionError(f"wf_bwd {case} {form}: two "
+                                         "launches or two forms differ")
+                bwd_ref = bwd
+                # the plain version counts the mesh work it did (cells and
+                # walks where a mesh has a grid)
+                if not sp.get("steps") or not sp.get("triangles") or \
+                        {k: sk.get(k) for k in sp} != sp or \
+                        {k: sb.get(k) for k in sp} != sp:
+                    raise AssertionError(f"{case} {form}: the kernels "
+                                         f"counted {sk} and {sb}, the plain "
+                                         f"version {sp}")
+                if est == "dda" and proj == "collimated" and \
+                        form == "routed" and not sk.get("tile_deposits"):
+                    raise AssertionError(f"{case}: no deposit went into the "
+                                         "tile")
+                r["fwd"]["ms"] = cuda_ms(
+                    lambda: wf.wf_fwd(st, at, data, seed, spp), 5, torch)
+                r["bwd"]["ms"] = cuda_ms(
+                    lambda: wf.wf_bwd(st, at, dL, seed, spp), 5, torch)
+                rec[form] = r
+        rec["steps_plain"] = sp
+        rec["fwd_plain_ms"] = event_ms(
+            lambda: wf._forward(st, at, data, seed, spp, chunk), torch)[0]
+        rec["bwd_plain_ms"] = event_ms(
+            lambda: wf._adjoint(st, at, seed, spp, chunk, dL), torch)[0]
+        emit(rec)
+        out[case] = rec
+    for case, (proj, spp_r, vial, occ) in MESH_RADON_CASES.items():
+        st, arr = mesh_small_scene(tmp, "dda", 0.0, proj, True, vial, occ,
+                                   mode="radon")
+        at = scene_tensors(arr, dev)
+        sk, sp = {}, {}
+        img = wf.wf_radon(st, at, 7, spp_r, sk)
+        img2 = wf.wf_radon(st, at, 7, spp_r)
+        img_g = wf.wf_radon(st, at, 7, spp_r, staged=False)
+        ref = wf._radon(st, at, 7, spp_r, chunk, sp)
+        torch.cuda.synchronize()
+        rec = {"phase": "mesh_kernel", "name": "wf_radon", "case": case,
+               "spp": spp_r, "lanes": st.projector.n_active * spp_r,
+               "counts": sk, "iterations_plain": sp["iterations"],
+               "bitwise_repeat": torch_equal(img, img2),
+               "global_banks_bitwise": torch_equal(img_g, img),
+               **radon_compare(f"wf_radon {case}", img, ref)}
+        radon_compare(f"wf_radon {case}, global banks", img_g, ref)
+        if sk["iterations"] != sp["iterations"] or not rec["bitwise_repeat"] \
+                or not sk["triangles"] or not 0 < rec["kept"] < img.numel():
+            raise AssertionError(f"wf_radon {case}: {rec}")
+        rec["ms"] = event_ms(lambda: wf.wf_radon(st, at, 7, spp_r), torch)[0]
+        rec["plain_ms"] = event_ms(
+            lambda: wf._radon(st, at, 7, spp_r, chunk), torch)[0]
+        emit(rec)
+        out[case] = rec
+    st, arr = mesh_small_scene(tmp, "dda", 0.0, "collimated", True, "custom",
+                               "black", mode="corner")
+    at = scene_tensors(arr, dev)
+    img = wf.wf_corner(st, at, 7.9, 0.5)
+    img_g = wf.wf_corner(st, at, 7.9, 0.5, staged=False)
+    ref = wf._corner(st, at, 7.9, 0.5, 0, chunk)
+    kept = int((ref > 0).sum())
+    rec = {"phase": "mesh_kernel", "name": "wf_corner",
+           "case": "custom_corners", "kept": kept, "pixels": ref.numel(),
+           "equal": torch_equal(img, ref),
+           "global_banks_equal": torch_equal(img_g, ref)}
+    if not (rec["equal"] and rec["global_banks_equal"]
+            and 0 < kept < ref.numel()):
+        raise AssertionError(f"wf_corner on the custom vial: {rec}")
+    emit(rec)
+    return out
+
+
+# cell (c): the bench scene with the square bench vial as meshes and one
+# occlusion box inside the target's solid part (world units of the 10 mm
+# bench film)
+CELL_C_OCCLUSION = {"half": (0.5, 0.5, 1.0), "center": (1.5, 0.0, 0.0)}
+# the mesh vial against the analytic square vial on the cell's final
+# patterns: the total dose's relative difference, and the share of the
+# analytic dose's nonzero voxels off by more than MESH_VOXEL_TOL of its max
+MESH_TOTAL_RTOL = 1e-5
+MESH_VOXEL_TOL = 1e-3
+MESH_VOXEL_SHARE = 0.01
+# the pixels of every CELL_C_RADON_STRIDE-th angle hold cell (c)'s radon
+# image to its plain version
+CELL_C_RADON_STRIDE = ANGLE_STRIDE
+
+
+def custom_cell_config(tmp, vial="custom", occlusion=True):
+    """Cell (c): the bench scene (400 angles, 400x400 DMD, 256^3 film over
+    10 mm, 40 L-BFGS steps, dda, spp 1, spp_ref 16) with filter_radon,
+    engine auto, the square bench vial (w_ext 7.2, w_int 6.8 mm, height
+    100, the inner cavity 0.9 of it, ior 1.54, the bench medium at albedo
+    0) as mesh walls (make_box_tube: the outer wall z +-50, the inner
+    +-45), and one occlusion with the default black BSDF
+    (CELL_C_OCCLUSION). vial "square": the analytic vial; occlusion
+    False: without the box."""
+    from drtvam_tpu_torch.ops.mesh import make_box, make_box_tube, save_ply
+    cfg = bench_config(tmp, "cylindrical")
+    med = cfg["vial"]["medium"]
+    paths = {k: os.path.join(tmp, f"cell_c_{k}.ply")
+             for k in ("outer", "inner", "occ")}
+    save_ply(make_box_tube(3.6, 3.6, -50.0, 50.0), paths["outer"])
+    save_ply(make_box_tube(3.4, 3.4, -45.0, 45.0), paths["inner"])
+    save_ply(make_box(CELL_C_OCCLUSION["half"],
+                      center=CELL_C_OCCLUSION["center"]), paths["occ"])
+    if vial == "custom":
+        cfg["vial"] = {"type": "custom", "ior": 1.54, "medium": med,
+                       "filename_vial_outer": paths["outer"],
+                       "filename_vial_inner": paths["inner"]}
+    else:
+        cfg["vial"] = {"type": "square", "w_int": 6.8, "w_ext": 7.2,
+                       "ior": 1.54, "medium": med}
+    if occlusion:
+        cfg["vial"]["occlusions"] = [{"filename": paths["occ"]}]
+    cfg.update(filter_radon=True, spp=1, spp_ref=16)
+    cfg["output"] = os.path.join(tmp, "cell_c")
+    return cfg
+
+
+def occlusion_voxels(shape, bbox_min, bbox_max):
+    """The voxels of a (Z, Y, X) film whose centres lie inside the
+    occlusion box (CELL_C_OCCLUSION), as tests/test_e2e_scenes.py:94-114
+    takes them out of the target."""
+    Z, Y, X = shape
+    c = [bbox_min[k] + (np.arange(n) + 0.5) * (bbox_max[k] - bbox_min[k]) / n
+         for k, n in enumerate((X, Y, Z))]
+    h, o = CELL_C_OCCLUSION["half"], CELL_C_OCCLUSION["center"]
+    inside = [np.abs(c[k] - o[k]) < h[k] for k in range(3)]
+    return inside[2][:, None, None] & inside[1][None, :, None] & \
+        inside[0][None, None, :]
+
+
+def phase_custom_cell(torch, wf, bp, dev, tmp):
+    """Cell (c) through optimize(): the radon cull (wf_radon), the loop on
+    the target forms of the analog pair (a mesh vial: target mode 1, no
+    target in the scene), no backprojection or residual kernel; the phase
+    times, kept share, launches of each form, peak memory, the best IoU
+    against the target less the occlusion's voxels. Then on the card: the
+    radon image against its plain version on the pixels of every
+    CELL_C_RADON_STRIDE-th angle (bitwise); the loop kernels' times on the
+    loop's inputs (the target forms with their path and walk passes, the
+    one-pass kernels beside them) and the analytic square vial's mesh-free
+    pair on the same patterns; the loop forms against their plain versions
+    on angle_cut (forward to TARGET_TOL, the adjoint bitwise; the one-pass
+    forms too; the walk pass alone); and the mesh vial against the analytic
+    vial without the occlusion on the final render's patterns (spp_ref 16,
+    seed 0): the total dose within MESH_TOTAL_RTOL, at most
+    MESH_VOXEL_SHARE of the voxels off by more than MESH_VOXEL_TOL of the
+    max."""
+    from drtvam_tpu_torch.models.scene import Scene
+    from drtvam_tpu_torch.ops.march import scene_tensors
+    t_phase = time.perf_counter()
+    cfg = custom_cell_config(tmp)
+    p_cfg = cfg["projector"]
+    n_dense = p_cfg["n_patterns"] * p_cfg["resy"] * p_cfg["resx"]
+    seen = []
+    render_radon = wf.render_radon
+
+    def recording(static, arr, *a, **k):
+        img = render_radon(static, arr, *a, **k)
+        seen.append((static, arr, k, img))
+        return img
+
+    wf.reset_launches()
+    bp.reset_launches()
+    wf.render_radon = recording
+    try:
+        with CallSpy(wf, by_depth=True) as spy:
+            vol, timings, wall, peak = optimize_on_card(torch, dev, cfg)
+    finally:
+        wf.render_radon = render_radon
+    counts = {**{k: v for k, v in bp.launches.items() if v},
+              **{k: v for k, v in wf.launches.items() if v}}
+    forms = {k: v for k, v in wf.form_launches.items() if v}
+    for name in ("wf_radon", "wf_fwd:target1", "wf_bwd:target1",
+                 "wf_tgt_walk:target1"):
+        if not {**counts, **forms}.get(name):
+            raise AssertionError(f"cell (c) never launched {name}")
+    stray = [k for k in counts if k.startswith("bp_") or "res" in k] + \
+        [k for k in forms if not k.endswith("target1")]
+    if stray or len(seen) != 1:
+        raise AssertionError(f"cell (c) launched {stray}, rendered the radon "
+                             f"image {len(seen)} times")
+    target = np.load(os.path.join(cfg["output"], "target.npy"))
+    sc = Scene(cfg)
+    assert vol.shape == target.shape == sc.sensor.static.shape
+    occ = occlusion_voxels(target.shape[:3], sc.sensor.bbox_min,
+                           sc.sensor.bbox_max)
+    less = target.copy()
+    less[occ] = 0
+    iou, thr = bench_iou(vol, less)
+    loss, steps = run_history(cfg["output"])
+    rec = {"phase": "bench_custom_occlusion", **phase_times(timings, wall),
+           "active_pixels": timings["active_pixels"],
+           "kept_share": timings["active_pixels"] / n_dense,
+           "steps_run": steps, "loss_first": float(loss[0]),
+           "loss_last": float(loss[steps - 1]), "launches": counts,
+           "form_launches": forms, "peak_mem_gb": peak,
+           "occlusion_voxels": int(occ.sum()),
+           "occlusion_target_voxels": int(target[occ].sum()),
+           "best_iou_vs_target_less_occlusion": iou, "best_threshold": thr,
+           "best_iou_vs_target": bench_iou(vol, target)[0]}
+    del vol, target, less
+    torch.cuda.empty_cache()
+
+    # the radon image the run culled with, against the plain radon render
+    st_r, at_r, k_r, img = seen[0]
+    seed_r, spp_r = k_r.get("seed", 0), k_r.get("spp", 4)
+    p = st_r.projector
+    per_angle = p.resy * p.resx
+    pix = (torch.arange(0, p.n_patterns, CELL_C_RADON_STRIDE,
+                        device=dev)[:, None] * per_angle +
+           torch.arange(per_angle, device=dev)).reshape(-1)
+    plain_ms, ref = event_ms(lambda: radon_plain_pixels(
+        torch, st_r, at_r, pix, seed_r, spp_r), torch)
+    check = radon_compare("wf_radon on cell (c)", img[pix], ref)
+    del ref
+    stats = {}
+    wf.wf_radon(st_r, at_r, seed_r, spp_r, stats)
+    n = p.n_active
+    radon = {"lanes": n * spp_r, "spp": spp_r, "counts": stats,
+             "ms": cuda_ms(lambda: wf.wf_radon(st_r, at_r, seed_r, spp_r), 3,
+                           torch),
+             "global_banks_ms": cuda_ms(lambda: wf.wf_radon(
+                 st_r, at_r, seed_r, spp_r, staged=False), 3, torch),
+             "plain_ms": plain_ms,
+             "plain_at": f"the pixels of every {CELL_C_RADON_STRIDE}th angle "
+                         f"({pix.numel()} pixels, spp {spp_r})",
+             **check, **cull_shares(stats, n * spp_r),
+             "launch": wf.cull_info("wf_radon", st_r, at_r, spp_r)}
+    radon["bound_ms"], radon["bound_by"] = cull_bound(
+        4 * n, n * spp_r, sum(s.kind != 2 for s in st_r.surfaces), stats)
+    radon["roofline_share"] = radon["bound_ms"] / radon["ms"]
+    if int((img > 0).sum()) != timings["active_pixels"]:
+        raise AssertionError("cell (c) kept another pixel set than its radon "
+                             "image")
+    rec["radon"] = radon
+    del seen, img, st_r, at_r
+    torch.cuda.empty_cache()
+
+    # the loop kernels on the loop's inputs, the analytic vial's mesh-free
+    # pair on the same patterns beside them
+    st, at, data, seed, spp = spy.calls["wf_fwd:target1:depth6"]
+    dL = spy.calls["wf_bwd:target1:depth6"][2]
+    kern = {"wf_fwd": {"mesh vial and occlusion": form_time(
+                torch, wf, "wf_fwd", st, at, data, seed, spp)},
+            "wf_bwd": {"mesh vial and occlusion": form_time(
+                torch, wf, "wf_bwd", st, at, dL, seed, spp)}}
+    pix_np = at["active_pixels"].cpu().numpy()
+    sq = Scene(custom_cell_config(tmp, "square", occlusion=False))
+    sq.projector.set_active(pix_np, np.zeros(pix_np.size, np.float32))
+    st_sq, arr_sq = sq.build(mode="volume", include_target=False,
+                             max_depth=st.max_depth, rr_depth=st.rr_depth)
+    at_sq = scene_tensors(arr_sq, dev)
+    for name, x in (("wf_fwd", data), ("wf_bwd", dL)):
+        kern[name]["analytic square vial, no occlusion (mesh off)"] = \
+            form_time(torch, wf, name, st_sq, at_sq, x, seed, spp)
+    del at_sq
+    torch.cuda.empty_cache()
+    # the loop forms against their plain versions on angle_cut
+    chunk = 1 << 21
+    sc_c, at_c, d_c = angle_cut(st, at, data)
+    plain_f, ref_f = event_ms(
+        lambda: wf._forward(sc_c, at_c, d_c, 3, 1, chunk), torch)
+    plain_b, ref_b = event_ms(
+        lambda: wf._adjoint(sc_c, at_c, 3, 1, chunk, dL), torch)
+    for form in ("target form", "one-pass"):
+        with OnePass(wf) if form == "one-pass" else contextlib.nullcontext():
+            f = channel_compare(f"wf_fwd cell (c) {form} {CUT_AT}",
+                                wf.wf_fwd(sc_c, at_c, d_c, 3, 1), ref_f, 1,
+                                False)
+            kb = wf.wf_bwd(sc_c, at_c, dL, 3, 1)
+            b = channel_compare(f"wf_bwd cell (c) {form} {CUT_AT}",
+                                kb[:, None], ref_b[:, None], 1, False)
+            b["bitwise_plain"] = bool(torch.equal(kb, ref_b))
+            if not b["bitwise_plain"]:
+                raise AssertionError(f"wf_bwd cell (c) {form}: differs from "
+                                     f"its plain version on {CUT_AT}")
+            f["ms_cut"] = cuda_ms(lambda: wf.wf_fwd(sc_c, at_c, d_c, 3, 1),
+                                  3, torch)
+            b["ms_cut"] = cuda_ms(lambda: wf.wf_bwd(sc_c, at_c, dL, 3, 1), 3,
+                                  torch)
+        key = "mesh vial and occlusion" + (", one-pass" if form == "one-pass"
+                                           else "")
+        kern["wf_fwd"].setdefault(key, {}).update(
+            plain_ms=plain_f, plain_at=CUT_AT, cut=f)
+        kern["wf_bwd"].setdefault(key, {}).update(
+            plain_ms=plain_b, plain_at=CUT_AT, cut=b)
+    del ref_f, ref_b, kb
+    kern["wf_tgt_walk"] = tgt_walk_check(torch, wf, sc_c, at_c, d_c, 3, 1)
+    del sc_c, at_c, d_c
+    rec["kernels"] = kern
+    torch.cuda.empty_cache()
+
+    # the mesh vial against the analytic vial, without the occlusion, on
+    # the final render's patterns
+    stf, atf, dataf, seedf, sppf = spy.calls["wf_fwd:target1:depth16"]
+    pixf = atf["active_pixels"].cpu().numpy()
+    doses, took = {}, {}
+    for vial in ("custom", "square"):
+        sc_v = Scene(custom_cell_config(tmp, vial, occlusion=False))
+        sc_v.projector.set_active(pixf, np.zeros(pixf.size, np.float32))
+        st_v, arr_v = sc_v.build(mode="volume", include_target=False,
+                                 max_depth=stf.max_depth,
+                                 rr_depth=stf.rr_depth)
+        at_v = scene_tensors(arr_v, dev)
+        wf.reset_launches()
+        took[vial], doses[vial] = event_ms(
+            lambda: wf.wf_fwd(st_v, at_v, dataf, seedf, sppf), torch)
+        took[vial + "_forms"] = {k: v for k, v in wf.form_launches.items()
+                                 if v}
+        del at_v
+    if set(took["custom_forms"]) != {"wf_fwd:target1",
+                                     "wf_tgt_walk:target1"} or \
+            took["square_forms"]:
+        raise AssertionError(f"mesh vs analytic vial: launched "
+                             f"{took['custom_forms']} and "
+                             f"{took['square_forms']}")
+    m, a = doses["custom"], doses["square"]
+    total = abs(float(m.double().sum()) / float(a.double().sum()) - 1.0)
+    off = (m - a).abs() > MESH_VOXEL_TOL * float(a.abs().max())
+    share = int(off.sum()) / max(int((a != 0).sum()), 1)
+    rec["mesh_vs_analytic"] = {
+        "spp": sppf, "seed": seedf, "lanes": int(pixf.size) * sppf,
+        "total_rel_diff": total, "voxels_off": int(off.sum()),
+        "share_off": share,
+        "max_abs_diff_rel": float((m - a).abs().max() / a.abs().max()),
+        "mesh_ms": took["custom"], "analytic_ms": took["square"]}
+    if not (total <= MESH_TOTAL_RTOL and share <= MESH_VOXEL_SHARE):
+        raise AssertionError(f"the mesh vial's dose differs from the analytic "
+                             f"vial's: {rec['mesh_vs_analytic']}")
+    del doses, m, a
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    return rec
+
+
+def phase_cli_custom(wf, tmp):
+    """The CLI on phase 9's small telecentric config with
+    tests/test_e2e_scenes.py's custom cuvette (its tubes) and occlusion box
+    (the default black BSDF) and filter_radon: the radon render's cull,
+    then the wavefront pair."""
+    from drtvam_tpu_torch.ops.mesh import make_box, make_box_tube, save_ply
+    paths = {k: os.path.join(tmp, f"cli_custom_{k}.ply")
+             for k in ("outer", "inner", "occ")}
+    save_ply(make_box_tube(3.765, 3.71, -5.0, 5.0), paths["outer"])
+    save_ply(make_box_tube(2.5, 2.41, -5.0, 5.0), paths["inner"])
+    save_ply(make_box((1.0, 0.5, 0.25)), paths["occ"])
+    vial = {"type": "custom", "ior": 1.4702,
+            "filename_vial_outer": paths["outer"],
+            "filename_vial_inner": paths["inner"],
+            "medium": {"ior": 1.33, "phase": {"type": "rayleigh"},
+                       "extinction": 0.06, "albedo": 0.0},
+            "occlusions": [{"filename": paths["occ"]}]}
+    return phase_cli_wavefront(wf, tmp, {"vial": vial, "filter_radon": True},
+                               "cli_custom_occlusion",
+                               wf.KERNELS + ("wf_radon",))
+
+
+def custom_entries(cell):
+    """The kernels line's entries of cell (c)'s path: its launches, the
+    times on the loop's own inputs, the plain versions on angle_cut (the
+    radon render's on every CELL_C_RADON_STRIDE-th angle)."""
+    src = ("drtvam_tpu_torch/csrc/wf_target.cu + wf_target.cuh + "
+           "wf_trace.cuh + wf_mesh.cuh")
+    path = ("optimize() on cell (c): the bench scene with the square vial as "
+            "mesh walls, one black occlusion, filter_radon, engine auto")
+    k = cell["kernels"]
+    mesh = "mesh vial and occlusion"
+    out = []
+    for name, form in (("wf_fwd", "wf_fwd:target1"),
+                       ("wf_bwd", "wf_bwd:target1")):
+        r = k[name][mesh]
+        out.append({
+            "name": f"{name} (mesh vial and occlusion, one channel)",
+            "route": "cuda", "source": src,
+            "replaces": REPLACES[name] + "; meshes not the target: "
+                        "intersect_scene's MESH branch march.py:151-190",
+            "launches": cell["form_launches"].get(form, 0), "path": path,
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "plain_at": r["plain_at"], "max_abs_err": r["cut"]["max_abs_err"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "roofline_share": r["roofline_share"], "library_ms": None,
+            "counts": r["counts"], "launch": r["launch"],
+            **{x: r[x] for x in ("path_ms", "walk_ms", "one_pass_ms")
+               if x in r},
+            "mesh_off_ms": k[name][
+                "analytic square vial, no occlusion (mesh off)"]["ms"]})
+    w = k["wf_tgt_walk"]
+    fwd = k["wf_fwd"][mesh]
+    bound, by = wf_bound(32 * fwd["counts"].get("records", 0),
+                         fwd["counts"]["steps"])
+    out.append({
+        "name": "wf_tgt_walk (mesh vial and occlusion)", "route": "cuda",
+        "source": src, "replaces": REPLACES["wf_tgt_walk"],
+        "launches": cell["form_launches"].get("wf_tgt_walk:target1", 0),
+        "path": path + " (the walk pass of the loop forward)",
+        "ms": fwd["walk_ms"], "bound_ms": bound, "bound_by": by,
+        "roofline_share": bound / fwd["walk_ms"],
+        "max_abs_err": w["max_abs_err"], "plain_ms": w["plain_ms"],
+        "plain_at": CUT_AT + ": the records of the loop's patterns",
+        "library_ms": None})
+    r = cell["radon"]
+    out.append({
+        "name": "wf_radon (mesh vial and occlusion, spp 4)", "route": "cuda",
+        "source": "drtvam_tpu_torch/csrc/wf_radon.cu + wf_cull.cuh + "
+                  "wf_trace.cuh + wf_mesh.cuh",
+        "replaces": REPLACES["wf_radon"],
+        "launches": cell["launches"].get("wf_radon", 0),
+        "path": path + " (the cull)",
+        **{x: r[x] for x in ("ms", "plain_ms", "plain_at", "max_abs_err",
+                             "bound_ms", "bound_by", "roofline_share",
+                             "global_banks_ms", "counts", "launch")},
+        "library_ms": None})
+    return out
+
+
 def ptxas_summary(name):
     """Registers and spills of a kernel library's instantiations, from
     its build log (nvcc -Xptxas -v), with the spilling ones named."""
@@ -3800,6 +4408,13 @@ def main():
         phase_target_kernels(torch, wf, dev, tmp)
         torch.cuda.empty_cache()
         cells = phase_target_cells(torch, wf, bp, dev, tmp)
+        torch.cuda.empty_cache()
+        # mesh vials and occlusions on the wavefront (phase 14)
+        phase_mesh_kernels(torch, wf, dev, tmp)
+        torch.cuda.empty_cache()
+        cell_c = phase_custom_cell(torch, wf, bp, dev, tmp)
+        torch.cuda.empty_cache()
+        phase_cli_custom(wf, tmp)
 
     emit({"kernels": [
         {"name": n, "route": "cuda",
@@ -3892,7 +4507,8 @@ def main():
          "small_scenes": {c: {k: r[k] for k in ("ms", "plain_ms",
                                                   "max_abs_err")}
                           for c, r in cullk.items() if r["name"] == n}}
-        for n in wf.CULL_KERNELS] + target_entries(cells)})
+        for n in wf.CULL_KERNELS] + target_entries(cells) +
+        custom_entries(cell_c)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -76,24 +76,26 @@
 // Template parameters: the estimator, scattering and transmission_only,
 // so each instantiation carries only the state it uses, the residual
 // mode, whether the launch counts (iterations, steps, deposits by
-// destination, lane slots) and whether the scene keeps the target (the
+// destination, lane slots) and whether the scene has mesh surfaces (the
 // sink's TGT). The projector kind, the surfaces (at most WF_MAX_SURF
-// analytic cylinders or boxes, and with TGT the target mesh), the phase
-// function and the film's channels are runtime parameters.
+// analytic cylinders or boxes, and with TGT meshes: the target, a custom
+// vial's walls, occlusions), the phase function and the film's channels
+// are runtime parameters.
 //
-// The target kept (TGT: a surface-aware film, drtvam_tpu/ops/march.py:
-// 556-565, 1092-1093, or the final render of a surface-aware scene). The
-// lane intersects the target mesh through wf_mesh.cuh's grid walk, its
-// banks read from global memory (tens of KB; the forward's shared memory
-// holds the home-slice tile), and flips its inside flag at each
-// crossing. On a two-channel film (P.target 2) a deposit goes to channel
+// Mesh surfaces (TGT: the target kept on a surface-aware film,
+// drtvam_tpu/ops/march.py:556-565, 1092-1093, or in the final render of a
+// surface-aware scene; a mesh vial; occlusions, each with its BSDF and
+// medium side). The lane intersects each mesh through wf_mesh.cuh, by
+// brute force or its grid walk, the banks read from global memory (tens
+// of KB; the forward's shared memory holds the home-slice tile), and
+// flips its inside flag at each crossing of the target. On a two-channel film (P.target 2) a deposit goes to channel
 // 2 flat + (outside) of the accumulator; the first-scatter residual
 // seeds the flag from the inside mask at its first scatter event and the
 // fast residual reads the mask at each event voxel. The forward's tile
 // holds both channels of a voxel side by side, over the widest rows of
 // the home slice that fit (shape()); a deposit elsewhere is a global
 // atomic, as for one channel. Every instantiation without TGT
-// compiles none of this: a scene without a target runs the code it ran
+// compiles none of this: a scene without a mesh runs the code it ran
 // before.
 //
 // The residual modes (RES; the hybrid engine's scattered residual,

@@ -6,15 +6,19 @@ albedo, phase function) and a stack of refractive interfaces emitted as
 `SurfaceSpec` records. `medium_side` marks which side of a surface holds
 the printing medium (1 = interior, 2 = exterior, 0 = none).
 
-This slice ports the four analytic vials. Mesh vials and occlusion
-meshes raise NotImplementedError (ROADMAP queue 1 item 17).
+The four analytic vials, the mesh vial (`custom`: an outer and an inner
+wall mesh) and, on every vial, `occlusions`: meshes with a black diffuse
+(default), reflective diffuse, null or dielectric BSDF, the printing
+medium on their outside (medium_side 2). A scene with a mesh vial or an
+occlusion is not z-invariant, so it runs on the wavefront engine
+(ops/transport2d.py unscattered_eligible).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Optional
 
-from ..ops.mesh import TriMesh
+from ..ops.mesh import TriMesh, load_mesh
 
 IOR_AIR = 1.000277  # Mitsuba's named "air" IOR, the dielectric default
 
@@ -22,6 +26,12 @@ IOR_AIR = 1.000277  # Mitsuba's named "air" IOR, the dielectric default
 CYLINDER, BOX, MESH = 0, 1, 2
 # bsdf kinds
 DIELECTRIC, NULL, ABSORB, DIFFUSE = 0, 1, 2, 3
+
+# Mitsuba's named IORs accepted in dielectric occlusion BSDF dicts
+_NAMED_IOR = {"air": IOR_AIR, "vacuum": 1.0, "water": 1.3330,
+              "bk7": 1.5046, "fused quartz": 1.458, "pyrex": 1.470,
+              "acrylic glass": 1.49, "polypropylene": 1.49, "pet": 1.5750,
+              "diamond": 2.419}
 
 
 @dataclass
@@ -76,11 +86,50 @@ def _parse_medium(params, cls_name):
                       ior=float(m["ior"]), phase=phase, phase_g=g)
 
 
-def _no_occlusions(params):
-    if params.get("occlusions"):
-        raise NotImplementedError(
-            "occlusion meshes are not ported yet — ROADMAP queue 1 item 17")
-    return []
+def _ior_value(v):
+    if isinstance(v, str):
+        return _NAMED_IOR[v.lower()]
+    return float(v)
+
+
+def _reflectance_value(v):
+    # a Mitsuba spectrum dict ({"type": "spectrum", "value": x}) or a
+    # scalar: one channel
+    if isinstance(v, dict):
+        return float(v.get("value", 0.5))
+    return float(v)
+
+
+def _occlusion_specs(params, resolve_path):
+    """The vial's occlusion meshes: a BSDF dict each, default black
+    diffuse (a pure absorber); diffuse (any reflectance), null or
+    dielectric. The printing medium is every occlusion's exterior, so a
+    ray leaving one on its outside resumes medium transport
+    (medium_side 2)."""
+    specs = []
+    for occ in params.get("occlusions", []):
+        mesh = load_mesh(resolve_path(occ["filename"]))
+        bsdf, eta, refl = ABSORB, 1.0, 0.0
+        b = occ.get("bsdf")
+        if isinstance(b, dict):
+            btype = b.get("type", "diffuse")
+            if btype == "null":
+                bsdf = NULL
+            elif btype == "dielectric":
+                bsdf = DIELECTRIC
+                eta = _ior_value(b.get("int_ior", "bk7")) / \
+                    _ior_value(b.get("ext_ior", "air"))
+            elif btype == "diffuse":
+                refl = _reflectance_value(b.get("reflectance", 0.5))
+                bsdf = ABSORB if refl == 0.0 else DIFFUSE
+            else:
+                raise ValueError(
+                    f"unsupported occlusion BSDF type '{btype}' "
+                    "(diffuse | null | dielectric)")
+        specs.append(SurfaceSpec(kind=MESH, bsdf=bsdf, mesh=mesh,
+                                 eta=eta, refl=refl, medium_side=2,
+                                 name=f"occlusion:{occ['filename']}"))
+    return specs
 
 
 class Container:
@@ -102,7 +151,7 @@ class IndexMatchedVial(Container):
         return [SurfaceSpec(kind=CYLINDER, bsdf=NULL,
                             params=(r, -0.5 * h, 0.5 * h),
                             medium_side=1, name="vial")] + \
-            _no_occlusions(self.params)
+            _occlusion_specs(self.params, self.resolve_path)
 
 
 class CylindricalVial(Container):
@@ -120,7 +169,7 @@ class CylindricalVial(Container):
                         params=(float(p["r_int"]), -0.5 * h, 0.5 * h),
                         eta=self.medium.ior / vior, medium_side=1,
                         name="vial_interior"),
-        ] + _no_occlusions(p)
+        ] + _occlusion_specs(p, self.resolve_path)
 
 
 class SquareVial(Container):
@@ -139,16 +188,31 @@ class SquareVial(Container):
                         params=(0.5 * wi, 0.5 * wi, 0.5 * 0.9 * h),
                         eta=self.medium.ior / vior, medium_side=1,
                         name="vial_interior"),
-        ] + _no_occlusions(p)
+        ] + _occlusion_specs(p, self.resolve_path)
 
 
 class CustomVial(Container):
-    """Mesh vial walls: not ported yet."""
+    """Mesh vial walls: the outer wall air -> glass, the inner wall glass
+    -> medium, the medium inside the inner mesh (outward normals on both
+    meshes)."""
 
-    def __init__(self, params, resolve_path=lambda p: p):
-        raise NotImplementedError(
-            "mesh ('custom') vials are not ported yet — ROADMAP queue 1 "
-            "item 17")
+    def surfaces(self):
+        p = self.params
+        for k in ("filename_vial_outer", "filename_vial_inner"):
+            if k not in p:
+                raise ValueError(
+                    "[CustomVial] Missing fields 'filename_vial_outer' or "
+                    "'filename_vial_inner' for custom vial.")
+        vior = float(p["ior"])
+        outer = load_mesh(self.resolve_path(p["filename_vial_outer"]))
+        inner = load_mesh(self.resolve_path(p["filename_vial_inner"]))
+        return [
+            SurfaceSpec(kind=MESH, bsdf=DIELECTRIC, mesh=outer,
+                        eta=vior / IOR_AIR, name="vial_exterior"),
+            SurfaceSpec(kind=MESH, bsdf=DIELECTRIC, mesh=inner,
+                        eta=self.medium.ior / vior, medium_side=1,
+                        name="vial_interior"),
+        ] + _occlusion_specs(p, self.resolve_path)
 
 
 class DoubleCylindricalVial(Container):
@@ -180,7 +244,7 @@ class DoubleCylindricalVial(Container):
             SurfaceSpec(kind=CYLINDER, bsdf=DIELECTRIC,
                         params=cyl(p["r_int_inner"]), eta=ior_fill / ior_i,
                         name="inner_vial_interior"),
-        ] + _no_occlusions(p)
+        ] + _occlusion_specs(p, self.resolve_path)
 
 
 register_geometry("index_matched", IndexMatchedVial)

@@ -143,9 +143,12 @@ def rasterize_fan(static, arr, supersample=1):
     from .models.geometry import CYLINDER, BOX
     bad = [s.kind for s in static.surfaces if s.kind not in (CYLINDER, BOX)]
     if bad:
-        raise NotImplementedError(
+        # never reached from the engines: unscattered_eligible sends a
+        # scene with a mesh vial or occlusions to the wavefront engine
+        raise ValueError(
             "the native rasterizer takes analytic cylinder/box surfaces "
-            f"only, got kinds {bad} — ROADMAP queue 1 item 17")
+            f"only, got kinds {bad}: a scene with mesh surfaces is not "
+            "z-invariant (ops/transport2d.py unscattered_eligible)")
     lib = load_host("transport2d")
     p = static.projector
     A, U, S = p.n_patterns, p.resx, int(supersample)

@@ -61,12 +61,20 @@ culling render): scattering off, no deposits; each lane accumulates
 A exp(-sigma_t total_t) (1 - exp(-sigma_t t)) over the segments it runs
 inside the target and in the medium, total_t summing every segment, and
 makes every random draw of the volume mode in its slot. Mesh surfaces
-(the target, kept in the radon and corner renders) intersect through
-the triangle bank or its uniform grid (ops/mesh_grid.py).
+(the target, kept in the radon and corner renders and on a
+surface-aware film; a custom vial's walls; occlusions) intersect
+through the triangle bank or its uniform grid (ops/mesh_grid.py), each
+mesh with its own BSDF and medium side: a lane enters the medium
+through a mesh vial's inner wall (medium_side 1) or leaving an
+occlusion on its outside (2), the normal of the hit triangle giving the
+side. A diffuse occlusion reflects into the hemisphere of the incident
+side with weight `refl` (not at depth 0, nor under
+transmission_only, where it absorbs). The inside flag flips at the
+target's crossings only.
 
 Not ported: the first-scatter geometric prologue used without a chord
 bank (ROADMAP queue 1 item 20), medium cotangents (`medium_grads`, item
-17), mesh vials and occlusions (item 17).
+17).
 """
 from __future__ import annotations
 
@@ -77,8 +85,7 @@ import torch
 
 from ..core.rng import MASK, Sampler
 from ..core.warp import square_to_cosine_hemisphere
-from ..models.geometry import (BOX, CYLINDER, DIELECTRIC, DIFFUSE, MESH,
-                               NULL)
+from ..models.geometry import BOX, CYLINDER, DIELECTRIC, DIFFUSE, NULL
 from ..models.projector import ProjectorStatic, ray_weight, sample_rays
 from ..models.sensor import SensorStatic
 from .fresnel import dot3, refract
@@ -136,8 +143,6 @@ def check_supported(static: MarchStatic):
         raise ValueError(f"unknown render mode '{static.mode}'")
     if static.medium_grads:
         raise _not_ported("medium gradients (medium_grads)", 17)
-    if any(s.kind == MESH and not s.is_target for s in static.surfaces):
-        raise _not_ported("mesh vials and occlusions", 17)
     if static.sensor.estimator not in ESTIMATORS:
         raise ValueError(f"unknown estimator '{static.sensor.estimator}'")
     if static.has_scattering and static.phase not in phase_functions:

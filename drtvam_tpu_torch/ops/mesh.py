@@ -29,6 +29,12 @@ class TriMesh:
         v = v * np.float32(scale) + np.asarray(translate, np.float32)
         return TriMesh(v, self.faces)
 
+    def transformed_matrix(self, to_world):
+        """Apply a homogeneous 4x4 to_world matrix to the vertices."""
+        M = np.asarray(to_world, np.float64)
+        v = self.vertices @ M[:3, :3].T + M[:3, 3]
+        return TriMesh(v, self.faces)
+
     def triangle_bank(self):
         """Return (v0, e1, e2, n) float32 arrays with geometric normals."""
         v = self.vertices
@@ -186,6 +192,21 @@ def make_box(half, center=(0, 0, 0)):
     return TriMesh(v, np.array(faces, np.int32))
 
 
+def make_open_box(half_outer, wall, open_top=True):
+    """A 5-sided cuvette as two nested boxes: (outer, inner), both with
+    outward normals (the custom vial's convention: the medium is the
+    inner mesh's interior). open_top: the inner cavity reaches past the
+    top."""
+    ho = np.asarray(half_outer, np.float64)
+    outer = make_box(ho)
+    hi = ho - wall
+    if open_top:
+        inner = make_box((hi[0], hi[1], ho[2] + wall), center=(0, 0, wall))
+    else:
+        inner = make_box(hi)
+    return outer, inner
+
+
 def make_box_with_hole(half, hole_radius, hole_center_xy=(0.0, 0.0),
                        segments=64):
     """Box with a cylindrical through-hole along z. Watertight:
@@ -234,3 +255,74 @@ def make_box_with_hole(half, hole_radius, hole_center_xy=(0.0, 0.0),
         faces += [[cb[i], cb[j], ct[j]], [cb[i], ct[j], ct[i]]]  # hole wall
         faces += [[sb[i], st[i], st[j]], [sb[i], st[j], sb[j]]]  # side
     return TriMesh(np.array(verts, np.float32), np.array(faces, np.int32))
+
+
+def make_box_tube(hx, hy, z0, z1, flip=False):
+    """Open rectangular tube (4 side walls, no caps, 8 triangles), the
+    shape of a cuvette's wall. Normals point outward (flip: inward); a
+    custom vial's inner wall has outward normals too, the medium being
+    the mesh's interior."""
+    v = np.array([[sx * hx, sy * hy, z]
+                  for z in (z0, z1) for sy in (-1, 1) for sx in (-1, 1)],
+                 np.float32)
+    # bottom ring 0..3 (x fastest), top ring 4..7: the y-, y+, x+, x- walls
+    quads = [(0, 1, 5, 4), (3, 2, 6, 7), (1, 3, 7, 5), (2, 0, 4, 6)]
+    faces = []
+    for a, b, c, d in quads:
+        faces += [[a, b, c], [a, c, d]]
+    f = np.array(faces, np.int32)
+    if flip:
+        f = f[:, ::-1]
+    return TriMesh(v, f)
+
+
+def make_hollow_gear(r_out=1.0, r_root=0.78, r_hole=0.35, n_teeth=12,
+                     half_height=0.5, segments=360, steepness=4.0):
+    """Hollow gear: an extruded annulus between a toothed outer profile
+    r(th) = r_root + (r_out - r_root) (0.5 + 0.5 clip(steepness
+    sin(n_teeth th), -1, 1)) and a circular bore, both sampled at the
+    same `segments` angles. Watertight, make_box_with_hole's topology."""
+    th = np.linspace(0.0, 2.0 * np.pi, segments, endpoint=False)
+    wave = np.clip(steepness * np.sin(n_teeth * th), -1.0, 1.0)
+    r = r_root + (r_out - r_root) * (0.5 + 0.5 * wave)
+    outer = np.stack([r * np.cos(th), r * np.sin(th)], -1)
+    inner = np.stack([r_hole * np.cos(th), r_hole * np.sin(th)], -1)
+
+    verts = []
+
+    def add(v):
+        verts.append(v)
+        return len(verts) - 1
+
+    hz = half_height
+    cb = [add([x, y, -hz]) for x, y in inner]   # bottom bore ring
+    sb = [add([x, y, -hz]) for x, y in outer]   # bottom gear ring
+    ct = [add([x, y, hz]) for x, y in inner]    # top bore ring
+    st = [add([x, y, hz]) for x, y in outer]    # top gear ring
+
+    faces = []
+    n = segments
+    for i in range(n):
+        j = (i + 1) % n
+        faces += [[cb[i], sb[i], sb[j]], [cb[i], sb[j], cb[j]]]  # bottom
+        faces += [[ct[i], st[j], st[i]], [ct[i], ct[j], st[j]]]  # top
+        faces += [[cb[i], cb[j], ct[j]], [cb[i], ct[j], ct[i]]]  # bore
+        faces += [[sb[i], st[i], st[j]], [sb[i], st[j], sb[j]]]  # side
+    return TriMesh(np.array(verts, np.float32), np.array(faces, np.int32))
+
+
+def make_cylinder_shell(radius, z0, z1, segments=96, flip=False):
+    """Open tube of `segments` quads approximating a cylinder's side wall
+    (normals outward; flip: inward)."""
+    th = np.linspace(0.0, 2.0 * np.pi, segments, endpoint=False)
+    ring = np.stack([radius * np.cos(th), radius * np.sin(th)], -1)
+    verts = [[x, y, z0] for x, y in ring] + [[x, y, z1] for x, y in ring]
+    faces = []
+    n = segments
+    for i in range(n):
+        j = (i + 1) % n
+        faces += [[i, j, n + j], [i, n + j, n + i]]
+    f = np.array(faces, np.int32)
+    if flip:
+        f = f[:, ::-1]
+    return TriMesh(np.array(verts, np.float32), f)

@@ -59,17 +59,20 @@ table entry; its dda forward runs in two passes per batch of CTAs, the
 lanes' paths recording their segments (res_path) and persistent threads
 walking them (res_walk), so that no warp waits on its longest walk.
 
-A scene that keeps the target (a surface-aware film, or the final render
-of a surface-aware scene) runs the four loop kernels' target
-instantiations (WfParams.target, `target_mode`): each launch also takes
-the scene's mesh (WfMesh), the target's triangle rows (cull_rows) and,
-for a two-channel first-scatter residual, the inside mask as bytes
-(arr["inside_mask"], set by ops/hybrid.py). A two-channel film's
+A scene with mesh surfaces (the target kept: a surface-aware film, or
+the final render of a surface-aware scene; a custom vial's walls;
+occlusions) runs the four loop kernels' target instantiations
+(WfParams.target, `target_mode`), which intersect every mesh surface
+with its own BSDF and medium side and flip the inside flag at the
+target's crossings only: each launch also takes the scene's meshes
+(WfMesh), their triangle rows (cull_rows) and, for a two-channel
+first-scatter residual, the inside mask as bytes (arr["inside_mask"],
+set by ops/hybrid.py). A two-channel film's
 accumulator holds two floats a voxel; the forward's tile keeps the home
 slice's widest rows that fit (tile_rows lays them out widest first, the
 kernel keeps what its shared memory holds), and a dda residual record
 carries its channel in the sign of its maxt. `form_launches` counts these
-instantiations' launches apart. Where the target's banks fit a CTA's
+instantiations' launches apart. Where the mesh banks fit a CTA's
 shared memory, the analog pair runs csrc/wf_target.cu's forms
 (tgt_route). The dda residual's path pass of a scene that transmits only
 runs csrc/wf_res_target.cu's (res_tgt_route: persistent threads refilled
@@ -102,8 +105,8 @@ ANGLES_PER_GROUP = 25
 # memory, and lane slots (32 per warp for each step of its longest lane;
 # the residual's delta: each event; the dda residual forward and the
 # target forms' split forward: each step of the walk pass's warps); with
-# the target kept, its grid cells visited, triangles tested and grid
-# walks that entered its box (MESH_COUNTERS)
+# mesh surfaces, their grid cells visited, triangles tested and grid
+# walks that entered a grid's box (MESH_COUNTERS)
 COUNTERS = ("iterations", "steps", "tile_deposits", "global_deposits",
             "lane_slots", "cells", "triangles", "walks")
 MESH_COUNTERS = COUNTERS[5:]
@@ -301,9 +304,10 @@ def _host(x):
 
 
 def target_mode(static: MarchStatic):
-    """WfParams.target: 0 the scene has no target; 1 it keeps the target
-    mesh (a one-channel render: its segments split at the crossings); 2
-    a two-channel (surface-aware) film."""
+    """WfParams.target: 0 the scene has no mesh surface; 1 it has one (the
+    target kept, a one-channel render whose segments split at the target's
+    crossings; a mesh vial's walls; occlusions); 2 a two-channel
+    (surface-aware) film."""
     if static.sensor.channels == 2:
         return 2
     return int(any(s.kind == MESH for s in static.surfaces))
@@ -513,13 +517,14 @@ def tile_rows(static: MarchStatic, arr):
     the tile index of column 0 (offset - lo), as int32 rows (lo, n,
     offset - lo, 0), (resy, 4); and the tile's voxel count. The medium
     lies inside the surfaces whose interior is medium (cylinders and
-    boxes about the z axis): a row keeps the columns whose voxels meet
-    their cross-section, one more each side; with no such surface, the
-    whole row. A deposit elsewhere goes to global memory, so the layout
-    only has to hold most of them. On a two-channel film a voxel takes
-    two floats, and the whole layout may not fit the CTA's shared
-    memory: the rows are laid out widest first, and the kernel keeps
-    those that fit (csrc/wf_trace.cuh shape())."""
+    boxes about the z axis, a mesh vial's inner wall): a row keeps the
+    columns whose voxels meet their cross-section (a mesh's: the x range
+    of its triangles within the row, mesh_row_spans), one more each
+    side; with no such surface, the whole row. A deposit elsewhere goes
+    to global memory, so the layout only has to hold most of them. On a
+    two-channel film a voxel takes two floats, and the whole layout may
+    not fit the CTA's shared memory: the rows are laid out widest first,
+    and the kernel keeps those that fit (csrc/wf_trace.cuh shape())."""
     X, Y, _ = static.sensor.res
     bmin = arr["bbox_min"].detach().cpu().double().numpy()
     bmax = arr["bbox_max"].detach().cpu().double().numpy()
@@ -529,22 +534,25 @@ def tile_rows(static: MarchStatic, arr):
     y0 = bmin[1] + np.arange(Y) * vs[1]
     y1 = y0 + vs[1]
     lo, hi = np.full(Y, X), np.zeros(Y, np.int64)
-    inner = [(s.kind, params[i]) for i, s in enumerate(static.surfaces)
+    inner = [(s, params[i]) for i, s in enumerate(static.surfaces)
              if s.medium_side == 1]
     if not inner:
         lo[:] = 0
         hi[:] = X
-    for kind, p in inner:
-        if kind == CYLINDER:
+    for s, p in inner:
+        if s.kind == CYLINDER:
             near = np.where((y0 <= 0) & (y1 >= 0), 0.0,
                             np.minimum(np.abs(y0), np.abs(y1)))
             meets = near <= p[0]
             half = np.sqrt(np.maximum(p[0] ** 2 - near ** 2, 0.0))
+            x0, x1 = -half, half
+        elif s.kind == MESH:
+            meets, x0, x1 = mesh_row_spans(s, arr, y0, y1)
         else:
             meets = (y1 >= -p[1]) & (y0 <= p[1])
-            half = np.full(Y, p[0])
-        a = np.clip(np.floor((-half - bmin[0]) / vs[0]) - 1, 0, X)
-        b = np.clip(np.floor((half - bmin[0]) / vs[0]) + 2, 0, X)
+            x0, x1 = np.full(Y, -p[0]), np.full(Y, p[0])
+        a = np.clip(np.floor((x0 - bmin[0]) / vs[0]) - 1, 0, X)
+        b = np.clip(np.floor((x1 - bmin[0]) / vs[0]) + 2, 0, X)
         lo = np.where(meets, np.minimum(lo, a), lo).astype(np.int64)
         hi = np.where(meets, np.maximum(hi, b), hi).astype(np.int64)
     n = np.maximum(hi - lo, 0)
@@ -555,6 +563,44 @@ def tile_rows(static: MarchStatic, arr):
     off[first] = np.cumsum(n[first]) - n[first]
     rows = np.stack([lo, n, off - lo, np.zeros_like(n)], 1)
     return torch.from_numpy(rows.astype(np.int32)), int(n.sum())
+
+
+def mesh_row_spans(s, arr, y0, y1):
+    """The x range of mesh surface s's triangles within each band
+    [y0, y1] of y (float64, the film's rows): (meets, x0, x1), meets
+    False where no triangle reaches the band. A triangle's part in a band
+    is convex and bounded by its edges' parts, so the range is the x
+    range of the edges clipped to the band (bands taken in chunks of at
+    most 2 M band-edge pairs)."""
+    a, c = s.tri_slice
+    v0, e1, e2 = (arr[k][a:a + c].detach().cpu().double().numpy()[:, :2]
+                  for k in ("tri_v0", "tri_e1", "tri_e2"))
+    v1, v2 = v0 + e1, v0 + e2
+    p = np.concatenate([v0, v1, v2])[None]       # the edges' ends
+    q = np.concatenate([v1, v2, v0])[None]
+    dy = q[..., 1] - p[..., 1]
+    flat = dy == 0.0
+    safe = np.where(flat, 1.0, dy)
+    n = y0.shape[0]
+    meets = np.zeros(n, bool)
+    x0, x1 = np.zeros(n), np.zeros(n)
+    step = max(1, (2 << 20) // p.shape[1])
+    for r in range(0, n, step):
+        lo_y, hi_y = y0[r:r + step, None], y1[r:r + step, None]
+        ta, tb = (lo_y - p[..., 1]) / safe, (hi_y - p[..., 1]) / safe
+        t0 = np.where(flat, 0.0, np.maximum(np.minimum(ta, tb), 0.0))
+        t1 = np.where(flat, 1.0, np.minimum(np.maximum(ta, tb), 1.0))
+        hit = np.where(flat, (p[..., 1] >= lo_y) & (p[..., 1] <= hi_y),
+                       t0 <= t1)
+        xa = p[..., 0] + t0 * (q[..., 0] - p[..., 0])
+        xb = p[..., 0] + t1 * (q[..., 0] - p[..., 0])
+        m = hit.any(1)
+        meets[r:r + step] = m
+        x0[r:r + step] = np.where(
+            m, np.where(hit, np.minimum(xa, xb), np.inf).min(1), 0.0)
+        x1[r:r + step] = np.where(
+            m, np.where(hit, np.maximum(xa, xb), -np.inf).max(1), 0.0)
+    return meets, x0, x1
 
 
 def _launch_layout(static: MarchStatic, arr):
@@ -1112,10 +1158,10 @@ def _res_split(libs, static, arr, data, acc, seed, spp, stats,
 
 def tgt_route(libs, name, static, arr):
     """Whether kernel `name` ("wf_fwd" or "wf_bwd") runs this scene through
-    the target forms of csrc/wf_target.cu: the scene keeps the target, its
-    mesh banks fit a CTA's shared memory (wf_tgt_fits) and, for the
-    forward, the estimator is the dda (the ratio and delta forwards keep
-    wf_fwd's one-pass kernel)."""
+    the target forms of csrc/wf_target.cu: the scene has mesh surfaces
+    (target_mode), its mesh banks fit a CTA's shared memory (wf_tgt_fits)
+    and, for the forward, the estimator is the dda (the ratio and delta
+    forwards keep wf_fwd's one-pass kernel)."""
     P = make_params(static, arr, 0, 1)
     if not P.target or P.residual != ANALOG or (
             name == "wf_fwd" and static.sensor.estimator != "dda"):
@@ -1335,8 +1381,8 @@ def wf_fwd(static: MarchStatic, arr, data, seed, spp, stats=None,
     on the H100: the float32 work of the voxel steps (~20 operations a
     step, two of them expf); the deposits of a CTA's DMD row in its
     home z-slice are atomic adds in shared memory, the rest go past the
-    50 MB L2 into the 67 MB dose grid of a 256^3 film. A dda scene that
-    keeps the target runs csrc/wf_target.cu's path and walk passes
+    50 MB L2 into the 67 MB dose grid of a 256^3 film. A dda scene with
+    mesh surfaces runs csrc/wf_target.cu's path and walk passes
     (tgt_forward; times: adds their milliseconds). stats: adds the
     COUNTERS."""
     _n_lanes(static, spp)
@@ -1357,7 +1403,7 @@ def wf_bwd(static: MarchStatic, arr, dL_flat, seed, spp, stats=None):
     Bound as wf_fwd, with gathers of dL in place of the atomics (a CTA's
     DMD row reads mostly one z-slice, so they mostly hit L1); every
     output is written once, so the result is bitwise reproducible. A
-    scene that keeps the target runs csrc/wf_target.cu's staged adjoint
+    scene with mesh surfaces runs csrc/wf_target.cu's staged adjoint
     (tgt_adjoint)."""
     _n_lanes(static, spp)
     _check("wf_bwd", dL_flat, torch.float32, (static.sensor.n_cells,))

@@ -32,12 +32,14 @@ estimator; the hybrid engine (ops/hybrid.py: the unscattered transport
 plus a first-scatter residual, `spp` / `spp_grad` residual lanes a
 pixel, its estimator `hybrid_estimator` or the scene's) for a
 scattering scene with that geometry; otherwise the wavefront path
-tracer (ops/render.py) with `spp` / `spp_grad` lanes per pixel. A
+tracer (ops/render.py) with `spp` / `spp_grad` lanes per pixel, which
+is what a mesh ('custom') vial or an occlusion always takes (neither is
+z-invariant; `engine` "ballistic" or "hybrid" raises there). A
 Monte-Carlo engine takes seed i at step i, and the line search renders
 the direction with the step's seed, the full dose. The final render
 runs the scene's own estimator at `spp_ref`, seed 0, `max_depth_ref`
-and `rr_depth_ref`. A surface-aware film runs on the ballistic engine
-(the inside-mask split); on the others it raises NotImplementedError.
+and `rr_depth_ref`. A surface-aware film runs on every engine (the
+inside-mask split, or the target kept in the march).
 
 Optimizers (`optimizer.type`): lbfgs (the Linear L-BFGS,
 opt/device_lbfgs.py), adam and sgd (optax's rules and defaults,

@@ -36,8 +36,9 @@ import torch
 from drtvam_tpu.models import projector as jprojector
 from drtvam_tpu.models.scene import Scene as JScene
 from drtvam_tpu.ops.ballistic import radon_active_ballistic as jcull
-from drtvam_tpu.ops.mesh import (make_box, make_box_with_hole,
-                                 make_hollow_gear, save_ply)
+from drtvam_tpu.ops.mesh import (make_box, make_box_tube,
+                                 make_box_with_hole, make_hollow_gear,
+                                 save_ply)
 from drtvam_tpu.ops.render import render_corner as jcorner
 from drtvam_tpu.ops.render import render_radon as jradon
 from drtvam_tpu.opt.optimize import main as jmain
@@ -64,16 +65,27 @@ def box_hole(tmp_path_factory):
     path = tmp_path_factory.mktemp("cull") / "box_hole.ply"
     save_ply(make_box_with_hole((2.0, 2.0, 1.0), 0.5, segments=99),
              str(path))
+    # the custom vial's walls beside it (_config): a cuvette that every
+    # lane crosses
+    save_ply(make_box_tube(2.9, 2.9, -5.0, 5.0),
+             str(path.parent / "cuv_outer.ply"))
+    save_ply(make_box_tube(2.6, 2.5, -5.0, 5.0),
+             str(path.parent / "cuv_inner.ply"))
     return str(path)
 
 
 def _config(mesh, albedo=0.0, vial="cylindrical", projector=None,
             n_patterns=32, resx=64, resy=16, film=(48, 48, 24)):
-    """tests/test_radon_cull.py's scene (its defaults)."""
+    """tests/test_radon_cull.py's scene (its defaults); vial "custom":
+    mesh walls (box_hole's directory) about the cylindrical vial's."""
+    meshes = os.path.dirname(mesh)
     vials = {"cylindrical": {"type": "cylindrical", "r_int": 2.6,
                              "r_ext": 2.9, "ior": 1.54},
              "square": {"type": "square", "w_int": 4.6, "w_ext": 5.0,
-                        "ior": 1.54}}
+                        "ior": 1.54},
+             "custom": {"type": "custom", "ior": 1.54,
+                        "filename_vial_outer": f"{meshes}/cuv_outer.ply",
+                        "filename_vial_inner": f"{meshes}/cuv_inner.ply"}}
     proj = {"type": "collimated", "n_patterns": n_patterns, "resx": resx,
             "resy": resy, "pixel_size": 5.0 / resx, "motion": "circular",
             "distance": 20}
@@ -459,6 +471,9 @@ TEMPLATE_CASES = [
     ("cylindrical", 0.0, None, True, 1, True, "box_hole"),
     ("square", 0.5, TELE, False, 2, False, "box"),
     ("cylindrical", 0.5, TELE, False, 2, True, "box_hole"),
+    # a mesh vial, its walls in the banks beside the target's
+    ("custom", 0.0, None, True, 1, True, "box_hole"),
+    ("custom", 0.5, TELE, False, 2, False, "box_hole"),
 ]
 
 

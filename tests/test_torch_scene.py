@@ -78,14 +78,19 @@ def test_scene_matches_jax(case, tmp_path):
 
 
 def test_mesh_vial_and_occlusions_raise(tmp_path):
+    """Mesh vials and occlusions are ported: what raises is what raises
+    in the JAX package, a custom vial without its wall meshes and an
+    occlusion BSDF it does not know (ValueError, at scene build)."""
     cfg, resolve, _ = _vial("cylindrical", tmp_path)
     occluded = dict(cfg, vial=dict(cfg["vial"], occlusions=[
-        {"filename": cfg["target"]["filename"]}]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TScene(occluded, resolve).build()
+        {"filename": cfg["target"]["filename"],
+         "bsdf": {"type": "conductor"}}]))
     custom = dict(cfg, vial=dict(cfg["vial"], type="custom"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TScene(custom, resolve)
+    for scene_cls in (TScene, JScene):
+        with pytest.raises(ValueError, match="unsupported occlusion BSDF"):
+            scene_cls(occluded, resolve).build()
+        with pytest.raises(ValueError, match="filename_vial_outer"):
+            scene_cls(custom, resolve).build()
 
 
 def test_set_active_checks_before_changing_state(tmp_path):

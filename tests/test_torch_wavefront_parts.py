@@ -275,13 +275,13 @@ def test_unported_modes_raise(target_path):
     sc = _jscene(target_path, PROJECTORS["collimated"])
     static, arr = sc.build(mode="volume", include_target=False)
     tstatic, _ = scene_from_jax(static, arr)
-    # a mesh surface that is not the target: an occlusion
-    occlusion = tmarch.SurfaceStatic(kind=MESH, bsdf=NULL, medium_side=0,
+    # a mesh surface that is not the target (an occlusion) is ported
+    occlusion = tmarch.SurfaceStatic(kind=MESH, bsdf=NULL, medium_side=2,
                                      is_target=False, tri_slice=(0, 1))
-    for change, item in (({"mode": "radon",
-                           "surfaces": tstatic.surfaces + (occlusion,)},
-                          "17"),
-                         ({"medium_grads": True, "scattered_only": True},
+    for mode in ("volume", "radon"):
+        tmarch.check_supported(dataclasses.replace(
+            tstatic, mode=mode, surfaces=tstatic.surfaces + (occlusion,)))
+    for change, item in (({"medium_grads": True, "scattered_only": True},
                           "17"),
                          ({"medium_grads": True}, "17")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):

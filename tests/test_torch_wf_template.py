@@ -35,7 +35,8 @@ from drtvam_tpu_torch.native import CUDA_SRC_DIR
 from drtvam_tpu_torch.ops import render as wf
 from drtvam_tpu_torch.ops.hybrid import ScatteringEngine
 from drtvam_tpu_torch.ops.march import scene_tensors
-from drtvam_tpu_torch.ops.mesh import make_box, save_ply
+from drtvam_tpu_torch.ops.mesh import (make_box, make_box_tube,
+                                       make_hollow_gear, save_ply)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -798,7 +799,28 @@ def template_lib(tmp_path_factory):
         getattr(lib, name).restype = ctypes.c_int
     path = work / "t.ply"
     save_ply(make_box((0.5, 0.5, 0.5)), str(path))
+    # the meshes of the scenes whose meshes are not the target (_scene):
+    # a cuvette's walls, an occlusion box and a hollow gear (960
+    # triangles: walked through its grid)
+    for name, mesh in (
+            ("cuv_outer.ply", make_box_tube(8.0, 7.8, -10.0, 10.0)),
+            ("cuv_inner.ply", make_box_tube(7.3, 7.1, -10.0, 10.0)),
+            ("occ.ply", make_box((2.5, 1.5, 2.0), center=(-2.0, 1.0, 0.0))),
+            ("gear.ply", make_hollow_gear(r_out=3.0, r_root=2.4, r_hole=1.0,
+                                          half_height=2.0, segments=120))):
+        save_ply(mesh, str(work / name))
     return lib, str(path)
+
+
+# occlusions of _scene's vials (the meshes of template_lib's directory)
+OCCLUSIONS = {
+    "black": ("occ.ply", None),
+    "null": ("occ.ply", {"type": "null"}),
+    "dielectric": ("occ.ply", {"type": "dielectric", "int_ior": 1.52,
+                               "ext_ior": 1.4849}),
+    "reflective": ("occ.ply", {"type": "diffuse", "reflectance": 0.6}),
+    "gear": ("gear.ply", {"type": "diffuse", "reflectance": 0.6}),
+}
 
 
 def _scene(path, estimator, albedo, projector, vial, tonly, diffuse=False,
@@ -807,7 +829,11 @@ def _scene(path, estimator, albedo, projector, vial, tonly, diffuse=False,
     numpy-seeded random half of the pixels, in random order). target:
     None (no target in the scene), "kept" (the target mesh kept, one
     channel: a surface-aware scene's final render) or "surface_aware" (a
-    two-channel film; the inside mask in arr["inside_mask"])."""
+    two-channel film; the inside mask in arr["inside_mask"]). vial: a
+    vial's name ("custom": the cuvette's mesh walls), with "+" and an
+    OCCLUSIONS key for an occlusion in it."""
+    vial, _, occ = vial.partition("+")
+    meshes = path.rsplit("/", 1)[0]
     med = {"ior": 1.4849, "extinction": 0.1, "albedo": albedo,
            "phase": {"type": "rayleigh"}}
     vials = {"cylindrical": {"type": "cylindrical", "r_ext": 8.385,
@@ -821,7 +847,16 @@ def _scene(path, estimator, albedo, projector, vial, tonly, diffuse=False,
                  "type": "double_cylindrical", "r_ext_outer": 8.3,
                  "r_int_outer": 7.9, "r_ext_inner": 3.0, "r_int_inner": 2.6,
                  "ior_outer": 1.54, "ior_inner": 1.52,
-                 "ior_inside_inner": 1.40, "medium": med}}
+                 "ior_inside_inner": 1.40, "medium": med},
+             "custom": {"type": "custom",
+                        "filename_vial_outer": f"{meshes}/cuv_outer.ply",
+                        "filename_vial_inner": f"{meshes}/cuv_inner.ply",
+                        "ior": 1.514, "medium": med}}
+    if occ:
+        name, bsdf = OCCLUSIONS[occ]
+        vials[vial]["occlusions"] = [dict(
+            {"filename": f"{meshes}/{name}"},
+            **({} if bsdf is None else {"bsdf": bsdf}))]
     proj = {"type": projector, "n_patterns": n_patterns, "resx": 16,
             "resy": 12, "pixel_size": 16.77 / 16, "motion": "circular",
             "distance": 25.0}
@@ -1343,15 +1378,32 @@ TARGET_CASES = [("dda", 0.0, "collimated", "cylindrical", True,
                 ("ratio", 0.5, "telecentric", "cylindrical", False,
                  "surface_aware"),
                 ("dda", 0.5, "collimated", "cylindrical", True, "kept")]
+# scenes whose meshes are not the target: a custom vial (its inner wall
+# the medium's, the tile laid out from its triangles), occlusions with
+# each BSDF (the medium on their outside; a reflective one without
+# transmission_only reflects, a grid-walked gear among them), and an
+# occlusion beside a surface-aware target (the inside flag flipped at the
+# target only). They run the target instantiations: target mode 1 without
+# a target, 2 with the two-channel film
+MESH_CASES = [("dda", 0.0, "collimated", "custom", True, None),
+              ("dda", 0.5, "collimated", "custom+black", True, None),
+              ("ratio", 0.5, "collimated", "cylindrical+reflective", False,
+               None),
+              ("delta", 0.5, "telecentric", "square+dielectric", True,
+               None),
+              ("dda", 0.0, "collimated", "custom+null", True,
+               "surface_aware"),
+              ("dda", 0.0, "collimated", "cylindrical+gear", False, None)]
 
 
-@pytest.mark.parametrize("case", TARGET_CASES)
+@pytest.mark.parametrize("case", TARGET_CASES + MESH_CASES)
 def test_target_template_traces_the_plain_versions_paths(case,
                                                          template_lib):
     """The analog pair's target instantiations in the kernels' order
     (the forward's two-channel tile) against the plain version: the same
-    bounce iterations and steps, values to 1e-4 of each channel's max;
-    the adjoint bitwise equal to lane order."""
+    bounce iterations, steps and mesh work, values to 1e-4 of each
+    channel's max; the adjoint bitwise equal to lane order. On the mesh
+    scenes too (MESH_CASES)."""
     lib, path = template_lib
     *scene, target = case
     static, arr = _scene(path, *scene, target=target)
@@ -1513,7 +1565,7 @@ def gear_path(tmp_path_factory):
     return str(path)
 
 
-@pytest.mark.parametrize("case", TARGET_CASES)
+@pytest.mark.parametrize("case", TARGET_CASES + MESH_CASES)
 def test_staged_target_adjoint_equals_global_banks(case, template_lib):
     """The target forms' adjoint (the banks staged, as wf_tgt_bwd reads
     them) equals the global-bank adjoint and lane order bit for bit, with
@@ -1542,7 +1594,7 @@ def _split(lib, static, at, data, seed, spp):
     return dose, stats
 
 
-DDA_TARGET_CASES = [c for c in TARGET_CASES if c[0] == "dda"]
+DDA_TARGET_CASES = [c for c in TARGET_CASES + MESH_CASES if c[0] == "dda"]
 
 
 @pytest.mark.parametrize("case", DDA_TARGET_CASES)
