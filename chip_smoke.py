@@ -6,12 +6,13 @@
 Phases (each failure exits non-zero before the result line):
   1. device: a CUDA device must exist; prints nvidia-smi's name and
      power limit.
-  2. build: nvcc builds the sixteen kernel sources from csrc/ (the four
-     backprojection kernels, their four bf16 operand forms, the
+  2. build: nvcc builds the seventeen kernel sources from csrc/ (the
+     four backprojection kernels, their four bf16 operand forms, the
      wavefront pair, the hybrid engine's residual pair, whose forward
      also holds the dda walk pass and the chord table, the two culling
-     renders wf_radon and wf_corner, and the target forms: the analog
-     pair's wf_target and the residual's path pass wf_res_target), one
+     renders wf_radon and wf_corner, the target forms: the analog
+     pair's wf_target and the residual's path pass wf_res_target, and
+     the medium adjoint wf_med), one
      process per source, all started together with four builds of the
      residual pair that stop each lane early (phase 8b's per-lane times)
      and tools/atomic_rate.cu; registers and spills per library, the
@@ -179,7 +180,7 @@ Phases (each failure exits non-zero before the result line):
      launch shapes, registers and spills; the loop forms against their
      plain versions on the cells' own inputs (the fast residual at full
      width; the analog pair and cell (a)'s final-render dda residual,
-     path and walk passes, at spp 1 on every 8th of the 400 angles, the
+     path and walk passes, at spp 1 on every 16th of the 400 angles, the
      cells' full DMD, film and launch layout, the pixels at 0 raised to
      a tiny value so that both trace every lane: the same bounce
      iterations, steps and mesh work). The dda residual's target path
@@ -203,18 +204,39 @@ Phases (each failure exits non-zero before the result line):
      optimize(): launches of each form (no backprojection or residual
      kernel), the wall split, kept share, peak memory, the best IoU
      against the target less the occlusion's voxels; the radon image
-     bitwise its plain version on every 8th angle's pixels; the loop
+     bitwise its plain version on every 25th angle's pixels; the loop
      kernels' times on the loop's inputs beside the analytic square
      vial's mesh-free pair; the loop forms (and the one-pass ones)
-     against their plain versions on angle_cut; the mesh vial's dose
+     against their plain versions on every 8th angle's pixels; the mesh
+     vial's dose
      against the analytic vial's without the occlusion on the final
      render's patterns (total within 1e-5, at most 1 % of the voxels off
      by more than 1e-3 of the max). Then the CLI (record
      `cli_custom_occlusion`) on phase 9's telecentric config with a custom
      cuvette, an occlusion and filter_radon.
+  15. medium calibration (records `medium_kernel`,
+     `bench_medium_calibration`, `cli_medium`): the medium adjoint
+     wf_med (csrc/wf_med.cu) against its plain version on phase 7's
+     small scenes and on phase 14's custom vial with a black occlusion:
+     (stg, ssg) to 1e-4 relative, the pattern gradient bitwise wf_bwd's
+     (the one-pass target form's on the mesh scene), the task partials
+     and sums bitwise on two launches, times beside wf_bwd's. Then the
+     slice at full width: phase 9's bench scene, its dose recorded by the
+     port's forward at sigma_t 0.05 on phase 9's patterns (else ones),
+     and optimize() calibrating sigma_t from 0.025 with the patterns
+     frozen (sgd, lr 0), the l2 loss and optimize_medium (Adam, lr
+     0.002), 20 steps: sigma_t must end within 0.0125 of 0.05,
+     medium.json be written, wf_med launch once a step, wf_fwd twice a
+     step and for the final render, wf_bwd once a step; the wall split,
+     peak memory, wf_med's time, bound and roofline share on the loop's
+     inputs beside wf_bwd's, and (stg, ssg) against the plain version on
+     every 25th angle's pixels. Then the CLI on phase 9's telecentric
+     config with a scattering medium, the delta estimator and
+     optimize_medium with the albedo asked for (medium.json).
 
-Each earlier line is a JSON record; the line before the last lists the
-kernels, the last is {"ok": true, "device": {...}}. The wavefront
+Each earlier line is a JSON record; the record `seconds` gives each
+phase's seconds and the script's total; the line before the last lists
+the kernels, the last is {"ok": true, "device": {...}}. The wavefront
 forward adds deposits with float atomics, so its sums are not bitwise
 reproducible; every other kernel's are.
 """
@@ -283,6 +305,9 @@ REPLACES = {
     "wf_corner": "drtvam_tpu/ops/render.py:226 (render_corner: "
                  "intersect_scene march.py:151-190; ray_triangles_grid "
                  "mesh_grid.py:117; XLA)",
+    "wf_med": "drtvam_tpu/ops/march.py:586, :747, :865 (the want_sigma "
+              "branches of dda_segment, ratio_segment and delta_segment, "
+              "summed by trace_wavefront :913-922, :1185-1189; XLA)",
 }
 # wf kernel vs plain wavefront on the card: the same per-lane float32
 # arithmetic rounded op by op (--fmad=false); the forward's atomics sum
@@ -316,6 +341,10 @@ ENGINE_TOL = 1e-4
 # bitwise, so the comparison is expected to be bitwise; if it is not,
 # the largest difference is printed and held to this
 RESUME_RTOL = 1e-6
+
+
+# the script's start, for its phases' seconds (Laps)
+T_START = time.perf_counter()
 
 
 def emit(obj):
@@ -2390,6 +2419,11 @@ WF_RES = ("ANALOG", "SCAT_ONLY", "FIRST_SCATTER", "FAST_RESIDUAL")
 def instantiation(mangled):
     """A readable name for a kernel's mangled symbol: the wavefront
     templates' parameters spelled out, else the symbol itself."""
+    m = re.search(r"med_kernelILi(\d)ELb(\d)ELb(\d)ELb(\d)E", mangled)
+    if m is not None:
+        e, scat, tonly, tgt = (int(x) for x in m.groups())
+        return (f"medium adjoint, {WF_EST[e]}, {'' if scat else '!'}SCAT, "
+                f"{'' if tonly else '!'}TONLY" + (", target" if tgt else ""))
     m = re.search(r"res_kernelILi(\d)ELi(\d)ELb(\d)ELb(\d)ELb(\d)E"
                   r"(?:Lb(\d)E)?", mangled)
     if m is not None:
@@ -2446,7 +2480,7 @@ def instantiation(mangled):
 
 # the libraries whose build record lists every instantiation
 RES_EACH = ("wf_fwd", "wf_bwd", "wf_res_fwd", "wf_res_bwd", "wf_radon",
-            "wf_corner", "wf_target", "wf_res_target")
+            "wf_corner", "wf_target", "wf_res_target", "wf_med")
 
 
 # --------------------------------------------------------------------------
@@ -3161,9 +3195,9 @@ def one_channel_target(static):
 # trace every lane, and its deposits are ~1e-20 of the others'
 ZERO_PIXEL = 1e-20
 # the cut a cell's loop forms are held to their plain versions in: the
-# active pixels of every ANGLE_STRIDE-th angle (50 of the cells' 400, 3 or
-# 4 in each of the launch's 16 angle groups of 25), the full DMD and film
-ANGLE_STRIDE = 8
+# active pixels of every ANGLE_STRIDE-th angle (25 of the cells' 400, 1 or
+# 2 in each of the launch's 16 angle groups of 25), the full DMD and film
+ANGLE_STRIDE = 16
 CUT_AT = (f"every {ANGLE_STRIDE}th of the 400 angles (the cell's 16 angle "
           "groups of 25), full DMD and film")
 
@@ -3935,8 +3969,14 @@ MESH_TOTAL_RTOL = 1e-5
 MESH_VOXEL_TOL = 1e-3
 MESH_VOXEL_SHARE = 0.01
 # the pixels of every CELL_C_RADON_STRIDE-th angle hold cell (c)'s radon
-# image to its plain version
-CELL_C_RADON_STRIDE = ANGLE_STRIDE
+# image to its plain version (16 of the 400 angles, one in each angle
+# group)
+CELL_C_RADON_STRIDE = 25
+# and the active pixels of every CELL_C_CUT_STRIDE-th angle its loop forms
+# (50 of the 400 angles, 3 or 4 in each angle group)
+CELL_C_CUT_STRIDE = 8
+CELL_C_CUT_AT = (f"every {CELL_C_CUT_STRIDE}th of the 400 angles (the "
+                 "cell's 16 angle groups of 25), full DMD and film")
 
 
 def custom_cell_config(tmp, vial="custom", occlusion=True):
@@ -3995,7 +4035,8 @@ def phase_custom_cell(torch, wf, bp, dev, tmp):
     loop's inputs (the target forms with their path and walk passes, the
     one-pass kernels beside them) and the analytic square vial's mesh-free
     pair on the same patterns; the loop forms against their plain versions
-    on angle_cut (forward to TARGET_TOL, the adjoint bitwise; the one-pass
+    on every CELL_C_CUT_STRIDE-th angle's pixels (forward to TARGET_TOL,
+    the adjoint bitwise; the one-pass
     forms too; the walk pass alone); and the mesh vial against the analytic
     vial without the occlusion on the final render's patterns (spp_ref 16,
     seed 0): the total dose within MESH_TOTAL_RTOL, at most
@@ -4113,23 +4154,23 @@ def phase_custom_cell(torch, wf, bp, dev, tmp):
     torch.cuda.empty_cache()
     # the loop forms against their plain versions on angle_cut
     chunk = 1 << 21
-    sc_c, at_c, d_c = angle_cut(st, at, data)
+    sc_c, at_c, d_c = angle_cut(st, at, data, CELL_C_CUT_STRIDE)
     plain_f, ref_f = event_ms(
         lambda: wf._forward(sc_c, at_c, d_c, 3, 1, chunk), torch)
     plain_b, ref_b = event_ms(
         lambda: wf._adjoint(sc_c, at_c, 3, 1, chunk, dL), torch)
     for form in ("target form", "one-pass"):
         with OnePass(wf) if form == "one-pass" else contextlib.nullcontext():
-            f = channel_compare(f"wf_fwd cell (c) {form} {CUT_AT}",
+            f = channel_compare(f"wf_fwd cell (c) {form} {CELL_C_CUT_AT}",
                                 wf.wf_fwd(sc_c, at_c, d_c, 3, 1), ref_f, 1,
                                 False)
             kb = wf.wf_bwd(sc_c, at_c, dL, 3, 1)
-            b = channel_compare(f"wf_bwd cell (c) {form} {CUT_AT}",
+            b = channel_compare(f"wf_bwd cell (c) {form} {CELL_C_CUT_AT}",
                                 kb[:, None], ref_b[:, None], 1, False)
             b["bitwise_plain"] = bool(torch.equal(kb, ref_b))
             if not b["bitwise_plain"]:
                 raise AssertionError(f"wf_bwd cell (c) {form}: differs from "
-                                     f"its plain version on {CUT_AT}")
+                                     f"its plain version on {CELL_C_CUT_AT}")
             f["ms_cut"] = cuda_ms(lambda: wf.wf_fwd(sc_c, at_c, d_c, 3, 1),
                                   3, torch)
             b["ms_cut"] = cuda_ms(lambda: wf.wf_bwd(sc_c, at_c, dL, 3, 1), 3,
@@ -4137,9 +4178,9 @@ def phase_custom_cell(torch, wf, bp, dev, tmp):
         key = "mesh vial and occlusion" + (", one-pass" if form == "one-pass"
                                            else "")
         kern["wf_fwd"].setdefault(key, {}).update(
-            plain_ms=plain_f, plain_at=CUT_AT, cut=f)
+            plain_ms=plain_f, plain_at=CELL_C_CUT_AT, cut=f)
         kern["wf_bwd"].setdefault(key, {}).update(
-            plain_ms=plain_b, plain_at=CUT_AT, cut=b)
+            plain_ms=plain_b, plain_at=CELL_C_CUT_AT, cut=b)
     del ref_f, ref_b, kb
     kern["wf_tgt_walk"] = tgt_walk_check(torch, wf, sc_c, at_c, d_c, 3, 1)
     del sc_c, at_c, d_c
@@ -4214,8 +4255,9 @@ def phase_cli_custom(wf, tmp):
 
 def custom_entries(cell):
     """The kernels line's entries of cell (c)'s path: its launches, the
-    times on the loop's own inputs, the plain versions on angle_cut (the
-    radon render's on every CELL_C_RADON_STRIDE-th angle)."""
+    times on the loop's own inputs, the plain versions on every
+    CELL_C_CUT_STRIDE-th angle (the radon render's on every
+    CELL_C_RADON_STRIDE-th angle)."""
     src = ("drtvam_tpu_torch/csrc/wf_target.cu + wf_target.cuh + "
            "wf_trace.cuh + wf_mesh.cuh")
     path = ("optimize() on cell (c): the bench scene with the square vial as "
@@ -4253,7 +4295,7 @@ def custom_entries(cell):
         "ms": fwd["walk_ms"], "bound_ms": bound, "bound_by": by,
         "roofline_share": bound / fwd["walk_ms"],
         "max_abs_err": w["max_abs_err"], "plain_ms": w["plain_ms"],
-        "plain_at": CUT_AT + ": the records of the loop's patterns",
+        "plain_at": CELL_C_CUT_AT + ": the records of the loop's patterns",
         "library_ms": None})
     r = cell["radon"]
     out.append({
@@ -4268,6 +4310,320 @@ def custom_entries(cell):
                              "global_banks_ms", "counts", "launch")},
         "library_ms": None})
     return out
+
+
+# --------------------------------------------------------------------------
+# medium calibration (phase 15): optimize_medium and the medium adjoint
+
+# the medium adjoint against its plain version: (stg, ssg) to this
+# fraction of the plain sums (float32 sums in another order, CUDA's
+# transcendentals against torch's)
+MED_TOL = 1e-4
+# float32 operations of a dda voxel step's medium cotangents beside
+# WF_STEP_OPS (csrc/wf_med.cuh MedSink::dda and add; E, G, dt and exp(-st
+# dt) are the step's own): HG 2 mul (hist em E shared with the last
+# term), c 1 mul, dst 1 add + 5 mul + 2 add, dss 1 div, the two sums 2
+# mul + 2 add
+MED_DDA_OPS = 16
+# and with scattering the n_scat term of dss (c n_scat, / ss, + dss; the
+# test of ss and its max are the launch's constants)
+MED_SCAT_OPS = 3
+# the bench calibration cell: the bench medium's sigma_t is recorded,
+# the calibration starts at half of it; Adam's learning rate (a step of
+# about lr while the gradient keeps its sign: the 0.025 to close in ~12
+# of the 20 steps) and the gate (half the initial error)
+MED_ST_TRUE = 0.05
+MED_ST_INIT = 0.025
+MED_LR = 0.002
+MED_STEPS = 20
+MED_CUT_STRIDE = 25
+# the mesh scene of phase 14 the medium adjoint is also held on
+MED_MESH_CASE = "custom_black_dda_scattering"
+
+
+def med_static(static):
+    import dataclasses
+    return dataclasses.replace(static, medium_grads=True)
+
+
+def med_rel(ours, ref):
+    return abs(float(ours) - float(ref)) / max(abs(float(ref)), 1e-30)
+
+
+def phase_medium_kernels(torch, wf, dev, tmp):
+    """The medium adjoint (wf_med) against its plain version on phase 7's
+    small scenes and on phase 14's custom vial with a black occlusion
+    (spp 4): (stg, ssg) to MED_TOL relative; the pattern gradient bitwise
+    wf_bwd's (the one-pass target form's on the mesh scene); the task
+    partials, the sums and the pattern gradient bitwise on two launches;
+    times beside wf_bwd's on the same inputs."""
+    from drtvam_tpu_torch.ops.march import scene_tensors
+    spp, seed, chunk = 4, 11, wf.DEFAULT_CHUNK
+    scenes = {c: wf_small_scene(tmp, *spec) for c, spec in WF_CASES.items()}
+    scenes["mesh_" + MED_MESH_CASE] = mesh_small_scene(
+        tmp, *MESH_CASES[MED_MESH_CASE])
+    out = {}
+    for k, (case, (static, arr)) in enumerate(scenes.items()):
+        static = med_static(static)
+        at = scene_tensors(arr, dev)
+        rng = np.random.default_rng(100 + k)
+        n = static.projector.n_active
+        data = torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(
+            np.float32)).to(dev)
+        dL = torch.from_numpy(rng.uniform(0.0, 1.0, static.sensor.n_cells)
+                              .astype(np.float32)).to(dev)
+        pg, stg, ssg, part = wf.wf_med(static, at, dL, data, seed, spp, True)
+        pg2, stg2, ssg2, part2 = wf.wf_med(static, at, dL, data, seed, spp,
+                                           True)
+        with OnePass(wf):
+            bwd = wf.wf_bwd(static, at, dL, seed, spp)
+        pg_p, stg_p, ssg_p = wf._adjoint(static, at, seed, spp, chunk, dL,
+                                         data=data)
+        torch.cuda.synchronize()
+        rec = {"phase": "medium_kernel", "case": case, "spp": spp,
+               "lanes": n * spp, "target": wf.make_params(
+                   static, at, 0, 1).target,
+               "stg": float(stg), "ssg": float(ssg),
+               "stg_plain": float(stg_p), "ssg_plain": float(ssg_p),
+               "stg_rel_err": med_rel(stg, stg_p),
+               "ssg_rel_err": med_rel(ssg, ssg_p),
+               "pattern_bitwise_wf_bwd": bool(torch.equal(pg, bwd)),
+               "bitwise_repeat": bool(torch.equal(pg, pg2) and
+                                      torch.equal(part, part2) and
+                                      float(stg) == float(stg2) and
+                                      float(ssg) == float(ssg2)),
+               "tasks": int(part.shape[0])}
+        rec["pattern"] = wf_compare(f"wf_med {case}", pg, pg_p,
+                                    static.sensor.estimator in ("ratio",
+                                                                "delta"))
+        if not (rec["stg_rel_err"] <= MED_TOL and
+                rec["ssg_rel_err"] <= MED_TOL and float(stg_p) != 0.0):
+            raise AssertionError(f"wf_med {case}: (stg, ssg) {rec}")
+        if not rec["pattern_bitwise_wf_bwd"]:
+            raise AssertionError(f"wf_med {case}: the pattern gradient "
+                                 "differs from wf_bwd's")
+        if not rec["bitwise_repeat"]:
+            raise AssertionError(f"wf_med {case}: two launches differ")
+        rec["ms"] = cuda_ms(lambda: wf.wf_med(static, at, dL, data, seed,
+                                              spp), 5, torch)
+        rec["wf_bwd_ms"] = cuda_ms(lambda: wf.wf_bwd(static, at, dL, seed,
+                                                     spp), 5, torch)
+        rec["plain_ms"] = event_ms(lambda: wf._adjoint(
+            static, at, seed, spp, chunk, dL, data=data), torch)[0]
+        emit(rec)
+        out[case] = rec
+    return out
+
+
+def phase_medium_cell(torch, wf, bp, dev, tmp):
+    """The slice at full width: phase 9's bench scene (400 angles, 400x400
+    DMD, 256^3 film, cylindrical vial, dda, spp 1), its dose recorded by
+    the port's forward at sigma_t MED_ST_TRUE on fixed patterns (phase
+    9's patterns.npz where it is there, else ones) as the target's
+    dose_npy, then optimize() from MED_ST_INIT with the patterns frozen
+    (sgd, lr 0), the l2 loss and optimize_medium {sigma_t, lr MED_LR},
+    MED_STEPS steps. Gates: sigma_t within half the initial error of the
+    truth, medium.json written, wf_med launched once a step, wf_fwd twice
+    a step and for the final render, wf_bwd once a step. Then on the
+    loop's inputs (the patterns, the l2 loss's dL at the calibrated
+    medium and the last step's seed) wf_med's time, bound and roofline
+    share beside wf_bwd's, and its (stg, ssg) against the plain version
+    on every MED_CUT_STRIDE-th angle's pixels (the cell's launch layout)."""
+    from drtvam_tpu_torch.models.scene import Scene
+    from drtvam_tpu_torch.opt.loss import losses
+    from drtvam_tpu_torch.ops.march import scene_tensors
+    work = os.path.join(tmp, "bench_medium")
+    os.makedirs(work, exist_ok=True)
+    cfg = bench_config(tmp, "cylindrical")
+    p9 = os.path.join(tmp, "bench_wavefront", "patterns.npz")
+    if os.path.exists(p9):
+        pat_path, pat_src = p9, "phase 9's optimized patterns"
+    else:
+        p = cfg["projector"]
+        pat_path, pat_src = os.path.join(work, "ones.npz"), "ones"
+        np.savez(pat_path, patterns=np.ones(
+            (p["n_patterns"], p["resy"], p["resx"]), np.float32))
+    proj = {k: v for k, v in cfg["projector"].items()
+            if k not in ("n_patterns", "resx", "resy")}
+    cfg["projector"] = dict(proj, patterns=pat_path)
+    cfg["vial"]["medium"]["extinction"] = MED_ST_TRUE
+    sc = Scene(cfg)
+    static, arr = sc.build(mode="volume", include_target=False)
+    at = scene_tensors(arr, dev)
+    data = torch.as_tensor(sc.projector.active_data, device=dev)
+    inv_vol = float(sc.sensor.inv_volume(None))
+    with torch.no_grad():
+        measured = wf.render(static, at, data, inv_vol, 0, 1)
+    dose_path = os.path.join(work, "measured.npy")
+    np.save(dose_path, measured.cpu().numpy())
+    del measured, at
+    torch.cuda.empty_cache()
+
+    cal = dict(cfg, target={"dose_npy": dose_path}, loss={"type": "l2"},
+               optimizer={"type": "sgd", "lr": 0.0}, spp=1,
+               n_steps=MED_STEPS, output=os.path.join(work, "out"),
+               optimize_medium={"sigma_t": True, "lr": MED_LR})
+    cal["vial"] = json.loads(json.dumps(cfg["vial"]))
+    cal["vial"]["medium"]["extinction"] = MED_ST_INIT
+    wf.reset_launches()
+    bp.reset_launches()
+    vol, timings, wall, peak = optimize_on_card(torch, dev, cal)
+    counts, bp_counts = dict(wf.launches), dict(bp.launches)
+    loss, steps = run_history(cal["output"])
+    with open(os.path.join(cal["output"], "medium.json")) as f:
+        med = json.load(f)
+    rec = {"phase": "bench_medium_calibration", "patterns": pat_src,
+           "sigma_t_true": MED_ST_TRUE, "sigma_t_init": MED_ST_INIT,
+           "lr": MED_LR, "steps_run": steps, "medium": med,
+           "sigma_t_err": abs(med["sigma_t"] - MED_ST_TRUE),
+           "loss_first": float(loss[0]), "loss_last": float(loss[steps - 1]),
+           "launches": counts, "bp_launches": bp_counts,
+           "peak_mem_gb": peak, **phase_times(timings, wall)}
+    if not (np.isfinite(vol).all() and vol.shape == static.sensor.shape):
+        raise AssertionError("the calibration's final render is not a "
+                             "finite dose of the film's shape")
+    if not rec["sigma_t_err"] < 0.5 * (MED_ST_TRUE - MED_ST_INIT):
+        raise AssertionError(f"calibration: sigma_t {MED_ST_INIT} -> "
+                             f"{med['sigma_t']}, true {MED_ST_TRUE}")
+    want = {wf.MED_LIB: steps, "wf_fwd": 2 * steps + 1, "wf_bwd": steps}
+    if any(counts[k] != v for k, v in want.items()) or \
+            any(bp_counts.values()):
+        raise AssertionError(f"calibration launches {counts}, {bp_counts}; "
+                             f"expected {want}")
+
+    # the loop's inputs: the patterns, dL of the l2 loss at the calibrated
+    # medium and the last step's seed
+    sc = Scene(dict(cfg, vial=cal["vial"]))
+    sc.medium.sigma_t = med["sigma_t"]
+    static, arr = sc.build(mode="volume", include_target=False)
+    static = med_static(static)
+    at = scene_tensors(arr, dev)
+    seed = steps - 1
+    target = torch.from_numpy(np.load(dose_path)).to(dev)
+    v = wf.render(static, at, data, inv_vol, seed, 1).requires_grad_(True)
+    with torch.enable_grad():
+        (dvol,) = torch.autograd.grad(losses["l2"]({})(v, target, data), v)
+    dL = (dvol * inv_vol).reshape(-1).contiguous()
+    del v, dvol, target
+    stats = {}
+    wf.wf_bwd(static, at, dL, seed, 1, stats)
+    pg, stg, ssg, part = wf.wf_med(static, at, dL, data, seed, 1, True)
+    pg2, stg2, ssg2, part2 = wf.wf_med(static, at, dL, data, seed, 1, True)
+    bwd = wf.wf_bwd(static, at, dL, seed, 1)
+    n, n_cells = static.projector.n_active, static.sensor.n_cells
+    ms = cuda_ms(lambda: wf.wf_med(static, at, dL, data, seed, 1), 3, torch)
+    bwd_ms = cuda_ms(lambda: wf.wf_bwd(static, at, dL, seed, 1), 3, torch)
+    byte_ms = 4 * (2 * n + n_cells) / HBM_BYTES_PER_S * 1e3
+    med_ops = MED_DDA_OPS + (MED_SCAT_OPS if static.has_scattering else 0)
+    op_ms = (WF_STEP_OPS + med_ops) * stats["steps"] / F32_FLOPS * 1e3
+    bwd_bound = wf_bound(4 * (n + n_cells), stats["steps"])[0]
+    k = {"ms": ms, "bound_ms": max(byte_ms, op_ms),
+         "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+         "steps": stats["steps"], "ops_per_step": WF_STEP_OPS + med_ops,
+         "wf_bwd_ms": bwd_ms,
+         "wf_bwd_bound_ms": bwd_bound, "stg": float(stg), "ssg": float(ssg),
+         "tasks": int(part.shape[0]),
+         "launch": wf.kernel_info(wf.MED_LIB, static, at),
+         "pattern_bitwise_wf_bwd": bool(torch.equal(pg, bwd)),
+         "bitwise_repeat": bool(torch.equal(pg, pg2) and
+                                torch.equal(part, part2) and
+                                float(stg) == float(stg2) and
+                                float(ssg) == float(ssg2))}
+    k["roofline_share"] = k["bound_ms"] / ms
+    k["wf_bwd_roofline_share"] = bwd_bound / bwd_ms
+    if not (k["pattern_bitwise_wf_bwd"] and k["bitwise_repeat"]):
+        raise AssertionError(f"wf_med on the cell's inputs: {k}")
+    del pg, pg2, bwd, part, part2
+    torch.cuda.empty_cache()
+    st_c, at_c, d_c = angle_cut(static, at, data, MED_CUT_STRIDE)
+    _, stg_c, ssg_c = wf.wf_med(st_c, at_c, dL, d_c, seed, 1)
+    plain_ms, (_, stg_p, ssg_p) = event_ms(lambda: wf._adjoint(
+        st_c, at_c, seed, 1, 1 << 22, dL, data=d_c), torch)
+    k["cut"] = {"at": f"every {MED_CUT_STRIDE}th of the 400 angles, full "
+                      "DMD and film, the cell's launch layout",
+                "lanes": st_c.projector.n_active, "plain_ms": plain_ms,
+                "stg": float(stg_c), "ssg": float(ssg_c),
+                "stg_plain": float(stg_p), "ssg_plain": float(ssg_p),
+                "stg_rel_err": med_rel(stg_c, stg_p),
+                "ssg_rel_err": med_rel(ssg_c, ssg_p)}
+    if not (k["cut"]["stg_rel_err"] <= MED_TOL and
+            k["cut"]["ssg_rel_err"] <= MED_TOL):
+        raise AssertionError(f"wf_med on the cut: {k['cut']}")
+    rec["kernel"] = k
+    emit(rec)
+    return rec
+
+
+def phase_cli_medium(wf, tmp):
+    """The CLI on phase 9's small telecentric config with a scattering
+    medium (albedo 0.5), the delta estimator and optimize_medium with the
+    albedo asked for: the patterns and the medium optimized together
+    (the wavefront forced), medium.json written with both moved."""
+    extra = {"vial": {"type": "cylindrical", "r_int": 7, "r_ext": 8,
+                      "ior": 1.54,
+                      "medium": {"ior": 1.40, "phase": {"type": "rayleigh"},
+                                 "extinction": 0.1, "albedo": 0.5}},
+             "sensor": {"type": "delta", "scalex": 5, "scaley": 5,
+                        "scalez": 1.25,
+                        "film": {"type": "vfilm", "resx": 60, "resy": 60,
+                                 "resz": 30}},
+             "optimize_medium": {"sigma_t": True, "albedo": True,
+                                 "lr": 0.01}}
+    counts = phase_cli_wavefront(wf, tmp, extra, "cli_medium",
+                                 wf.KERNELS + (wf.MED_LIB,))
+    path = os.path.join(tmp, "cli_medium", "out", "medium.json")
+    with open(path) as f:
+        med = json.load(f)
+    if not (med["sigma_t"] != 0.1 and med["albedo"] != 0.5 and
+            0.0 <= med["albedo"] <= 0.999 and med["sigma_t"] >= 1e-5):
+        raise AssertionError(f"cli_medium: medium.json {med}")
+    emit({"phase": "cli_medium_json", "medium": med})
+    return counts
+
+
+def medium_entry(kern, cell):
+    """The kernels line's entry of the medium adjoint."""
+    k = cell["kernel"]
+    return {
+        "name": "wf_med", "route": "cuda",
+        "source": "drtvam_tpu_torch/csrc/wf_med.cu + wf_med.cuh + "
+                  "wf_trace.cuh",
+        "replaces": REPLACES["wf_med"],
+        "launches": cell["launches"]["wf_med"],
+        "path": "optimize() with optimize_medium on the bench scene "
+                "(sigma_t calibration on a recorded dose, the patterns "
+                "frozen)",
+        "ms": k["ms"], "plain_ms": k["cut"]["plain_ms"],
+        "plain_at": k["cut"]["at"],
+        "max_abs_err": max(abs(k["cut"]["stg"] - k["cut"]["stg_plain"]),
+                           abs(k["cut"]["ssg"] - k["cut"]["ssg_plain"])),
+        "rel_err": max(k["cut"]["stg_rel_err"], k["cut"]["ssg_rel_err"]),
+        "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+        "roofline_share": k["roofline_share"], "library_ms": None,
+        "wf_bwd_ms": k["wf_bwd_ms"], "bitwise_repeat": k["bitwise_repeat"],
+        "launch": k["launch"],
+        "small_scenes": {c: {x: r[x] for x in (
+            "ms", "wf_bwd_ms", "plain_ms", "stg_rel_err", "ssg_rel_err")}
+            for c, r in kern.items()}}
+
+
+class Laps:
+    """The seconds of the script's phases: each lap from the end of the
+    one before, the first from the script's start (its imports and the
+    device's set-up included)."""
+
+    def __init__(self):
+        self.last = T_START
+        self.seconds = {}
+
+    def lap(self, name):
+        now = time.perf_counter()
+        self.seconds[name] = now - self.last
+        self.last = now
+
+    def record(self):
+        return {"phase": "seconds", "phases": self.seconds,
+                "total_s": time.perf_counter() - T_START}
 
 
 def ptxas_summary(name):
@@ -4320,8 +4676,9 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    laps = Laps()
     t0 = time.perf_counter()
-    # all sixteen sources at once, one nvcc each, started together with
+    # all seventeen sources at once, one nvcc each, started together with
     # the residual pair's stopping builds (phase 8b's per-lane times)
     cuda = bp.KERNELS + wf.LIBS
     res_jobs = start_res_variants(wf)
@@ -4331,12 +4688,15 @@ def main():
     atomic_lib = atomic.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": {n: ptxas_summary(n) for n in cuda}})
+    laps.lap("1-2 device, build")
 
     kern = phase_kernels(torch, bp, dev)
     torch.cuda.empty_cache()
+    laps.lap("3 kernels")
     with tempfile.TemporaryDirectory() as tmp:
         real = phase_real_fields(torch, bp, dev, tmp)
         phase_engine(torch, dev, tmp)
+        laps.lap("3 real fields, engine")
         bench = {}
         for vial, pair in (("cylindrical", ("bp_fwd", "bp_bwd")),
                            ("index_matched", ("bp_fwd_band", "bp_bwd_band"))):
@@ -4351,8 +4711,10 @@ def main():
                     "loss_last", "wall_s")}})
             for n in pair + pair16:
                 bench[n] = (f32 if n in pair else b16)["launches"][n]
+        laps.lap("4-5b bench")
         phase_cli(bp, tmp)
         torch.cuda.empty_cache()
+        laps.lap("6 cli")
         wfk = phase_wf_kernels(torch, wf, dev, tmp)
         phase_wf_vs_ballistic_small(torch, wf, dev, tmp)
         torch.cuda.empty_cache()
@@ -4360,6 +4722,7 @@ def main():
         torch.cuda.empty_cache()
         cullk = phase_cull_kernels(torch, wf, dev, tmp)
         torch.cuda.empty_cache()
+        laps.lap("7-7c small-scene kernels")
         wfull = phase_wf_full(torch, wf, dev, tmp)
         torch.cuda.empty_cache()
         # the bench film's 256^3 grid (67 MB, past L2), and 128^3 (8 MB)
@@ -4369,12 +4732,15 @@ def main():
         torch.cuda.empty_cache()
         rfull = phase_res_full(torch, wf, dev, tmp, res_variants, rates)
         torch.cuda.empty_cache()
+        laps.lap("8-8b full width")
         wf_counts = phase_wf_bench(torch, wf, bp, dev, tmp)
         torch.cuda.empty_cache()
         phase_cli_wavefront(wf, tmp)
         torch.cuda.empty_cache()
+        laps.lap("9 wavefront main path")
         hy_counts, hy_rec = phase_hybrid_bench(torch, wf, bp, dev, tmp)
         torch.cuda.empty_cache()
+        laps.lap("10 hybrid main path")
         cfull = phase_cull_full(torch, wf, bp, dev, tmp)
         torch.cuda.empty_cache()
         phase_cull_bench(torch, wf, bp, dev, tmp)
@@ -4391,6 +4757,7 @@ def main():
         cull_counts = {"wf_radon": tele["launches"]["wf_radon"],
                        "wf_corner": corner["launches"]["wf_corner"]}
         torch.cuda.empty_cache()
+        laps.lap("11 culling")
         # optimize()'s modes (phase 12)
         phase_progressive(torch, wf, bp, dev, tmp, hy_rec)
         torch.cuda.empty_cache()
@@ -4404,17 +4771,31 @@ def main():
         torch.cuda.empty_cache()
         phase_examples(bp, wf, tmp)
         torch.cuda.empty_cache()
+        laps.lap("12 modes")
         # surface-aware films on the march (phase 13)
         phase_target_kernels(torch, wf, dev, tmp)
         torch.cuda.empty_cache()
         cells = phase_target_cells(torch, wf, bp, dev, tmp)
         torch.cuda.empty_cache()
+        laps.lap("13 surface-aware films")
         # mesh vials and occlusions on the wavefront (phase 14)
         phase_mesh_kernels(torch, wf, dev, tmp)
         torch.cuda.empty_cache()
         cell_c = phase_custom_cell(torch, wf, bp, dev, tmp)
         torch.cuda.empty_cache()
         phase_cli_custom(wf, tmp)
+        torch.cuda.empty_cache()
+        laps.lap("14 mesh vials, occlusions")
+        # medium calibration (phase 15)
+        med_kern = phase_medium_kernels(torch, wf, dev, tmp)
+        torch.cuda.empty_cache()
+        laps.lap("15 medium kernel")
+        med_cell = phase_medium_cell(torch, wf, bp, dev, tmp)
+        torch.cuda.empty_cache()
+        laps.lap("15 medium calibration cell")
+        phase_cli_medium(wf, tmp)
+        laps.lap("15 cli medium")
+    emit(laps.record())
 
     emit({"kernels": [
         {"name": n, "route": "cuda",
@@ -4508,7 +4889,7 @@ def main():
                                                   "max_abs_err")}
                           for c, r in cullk.items() if r["name"] == n}}
         for n in wf.CULL_KERNELS] + target_entries(cells) +
-        custom_entries(cell_c)})
+        custom_entries(cell_c) + [medium_entry(med_kern, med_cell)]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -17,6 +17,11 @@
 //                          one pattern-gradient value per pixel, summed
 //                          over its lanes in lane order: bitwise
 //                          reproducible.
+// wf_med.cu runs the adjoint with the medium cotangents through its own
+// kernel (wf_med.cuh): its sink (MED) also sums each deposit's
+// d / d sigma_t and d / d sigma_s, from the segment's history and the
+// deposit's factors the template hands it (DdaWalk::step, ratio_segment,
+// the delta deposit); every other sink compiles none of it.
 // Two more, wf_res_fwd.cu and wf_res_bwd.cu, instantiate it in the hybrid
 // engine's residual modes (template parameter RES, see below) through the
 // residual family's own kernels (wf_residual.cuh). The DMD-pixel culling
@@ -503,8 +508,9 @@ struct Sink {
   static constexpr bool PRIMAL = PRIMAL_, COUNT = COUNT_, TGT = TGT_;
   static constexpr bool STAGED = STAGED_;
   // RECORDS: a dda segment is recorded for a later walk (PathSink), not
-  // walked
-  static constexpr bool RECORDS = false;
+  // walked; MED: the adjoint also sums the medium cotangents (wf_med.cuh
+  // MedSink)
+  static constexpr bool RECORDS = false, MED = false;
   float* acc;        // primal: the flat dose accumulator
   const float* dL;   // adjoint: the flat loss gradient
   float* tile;       // primal: the home slice's tile (shared memory)
@@ -570,7 +576,7 @@ struct Sink {
 template <bool COUNT_, bool STAGED_>
 struct MeshSink {
   static constexpr bool PRIMAL = true, COUNT = COUNT_, RECORDS = false;
-  static constexpr bool TGT = false;
+  static constexpr bool TGT = false, MED = false;
   static constexpr bool STAGED = STAGED_;
   const WfMesh* mesh;
   MeshBanks banks;
@@ -677,6 +683,17 @@ struct DdaWalk {
     act = act && voxel[0] >= 0 && voxel[1] >= 0 && voxel[2] >= 0 &&
           voxel[0] < G.res[0] && voxel[1] < G.res[1] && voxel[2] < G.res[2];
     if (act) t = t + dt;
+    if constexpr (SinkT::MED) {
+      // the same deposit with its factors E = exp(-st t) and G = 1 -
+      // exp(-st dt) kept for the medium cotangents
+      const float E = expf(-st * t_at);
+      const float dtc = mx(dt, 0.0f);
+      const float expdt = expf(-st * dtc);
+      const float Gf = 1.0f - expdt;
+      S.deposit(slot, flat, base * E * Gf);
+      S.dda(E, Gf, dtc, expdt, t_at);
+      return act && ++i < P.dda_max_steps;
+    }
     float contrib = base * expf(-st * t_at) * (1.0f - expf(-st * mx(dt, 0.0f)));
     if (!SLAB || (unsigned)(vz - zlo) < (unsigned)(zhi - zlo)) {
       S.deposit(slot, flat, contrib);
@@ -728,10 +745,12 @@ __device__ void ratio_segment(const WfParams& P, const Grid& G, SinkT& S,
     int v[3];
     bool in_grid = G.voxel_of(along(o, t, d), v);
     float ratio_k = expf(k * log_ratio);
+    const float k_at = k;
     k = k + 1.0f;
     if (in_grid) {
       S.deposit(S.slot(v[0], v[1], v[2]), G.flat(v[0], v[1], v[2]),
                 base * ratio_k);
+      if constexpr (SinkT::MED) S.ratio(base * ratio_k, ratio_k, k_at);
     }
   }
 }
@@ -1036,6 +1055,7 @@ __device__ void trace_lane(const WfParams& P, const Grid& G, uint32_t lane,
     in_medium = true;
     depth = 1;
   }
+  if constexpr (SinkT::MED) S.nsc = 0.0f;  // the lane's n_scat
   const int max_iters = 2 * P.max_depth + 16;
   for (int it = 0; it < max_iters; ++it) {
     S.iter();
@@ -1085,7 +1105,15 @@ __device__ void trace_lane(const WfParams& P, const Grid& G, uint32_t lane,
         S.L = S.L + A * expf(-st * total_t) * (1.0f - expf(-st * t_si));
     } else if (in_medium && (RES != SCAT_ONLY || scattered)) {
       if constexpr (SinkT::TGT) S.chan = inside_target ? 0 : 1;
-      float base = (SCAT ? A : A * expf(-st * total_t)) * sa_over_st;
+      float base;
+      if constexpr (SinkT::MED) {
+        // the history (A, without scattering A exp(-st t_prev)) apart
+        const float hist = SCAT ? A : A * expf(-st * total_t);
+        S.segment(hist, em, total_t);
+        base = hist * sa_over_st;
+      } else {
+        base = (SCAT ? A : A * expf(-st * total_t)) * sa_over_st;
+      }
       if (SinkT::PRIMAL) base = base * em;
       if (EST == DDA) {
         dda_segment(P, G, S, o, d, t_si, base, st);
@@ -1096,6 +1124,7 @@ __device__ void trace_lane(const WfParams& P, const Grid& G, uint32_t lane,
         if (G.voxel_of(along(o, mei_t, d), v)) {
           S.deposit(S.slot(v[0], v[1], v[2]), G.flat(v[0], v[1], v[2]),
                     base);
+          if constexpr (SinkT::MED) S.delta(mei_t);
           S.step();
         }
       }
@@ -1147,6 +1176,7 @@ __device__ void trace_lane(const WfParams& P, const Grid& G, uint32_t lane,
       d = sample_phase(P.phase, P.phase_g, d, u_ph.x, u_ph.y);
       A = A * (w_med * (st * P.albedo));
       scattered = true;
+      if constexpr (SinkT::MED) S.nsc = S.nsc + 1.0f;
     } else {
       d = d_new;
       A = A * w_bsdf;
@@ -1246,12 +1276,16 @@ __device__ __forceinline__ int trace_task(const WfParams& P, const Grid& G,
   const int j = lo + 32 * t + l;
   if (j >= hi) return -1;
   const int aidx = lane_aidx(P, order, j);
+  // the adjoint's deposits take no em; the medium cotangents the
+  // emitted intensity (pattern value x ray weight)
+  float em = 1.0f;
+  if constexpr (SinkT::MED) em = S.data[aidx] * P.ray_w;
   float gsum = 0.0f;
   for (int k = 0; k < P.spp; ++k) {
     S.g = 0.0f;
     trace_lane<EST, SCAT, TONLY>(
         P, G, (uint32_t)aidx * (uint32_t)P.spp + (uint32_t)k, aidx,
-        active_pixels, 1.0f, S);
+        active_pixels, em, S);
     gsum = k == 0 ? S.g : gsum + S.g;
   }
   out[aidx] = gsum * P.ray_w;

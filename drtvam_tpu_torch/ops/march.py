@@ -72,9 +72,21 @@ side with weight `refl` (not at depth 0, nor under
 transmission_only, where it absorbs). The inside flag flips at the
 target's crossings only.
 
+The medium cotangents (`medium_grads`, drtvam_tpu/ops/march.py:586-903,
+the reference's st_grad / ss_grad, volume.py:277-280): in the adjoint,
+given `sg`, each deposit c of a segment also adds dc/d sigma_t * dL and
+dc/d sigma_s * dL to its lane's two sums, with (sigma_t, sigma_s) leaves
+in the analytic transmittance exp(-sigma_t t), the albedo factor and the
+scattering power sigma_s^n_scat, the sampling pdfs detached, in the
+JAX package's formulas and operation order: dda per voxel step (E =
+exp(-st t), G = 1 - exp(-st dt)), ratio per tracking step (k, the
+(M - st) term clamped at 1e-30), delta at the event (the transmittance
+attached, the pdf detached). The n_scat term is dropped where
+sigma_s = 0, as there. A residual mode with medium_grads raises: no
+driver path of the JAX package reaches it (ROADMAP queue 1 item 21).
+
 Not ported: the first-scatter geometric prologue used without a chord
-bank (ROADMAP queue 1 item 20), medium cotangents (`medium_grads`, item
-17).
+bank (ROADMAP queue 1 item 20).
 """
 from __future__ import annotations
 
@@ -141,8 +153,10 @@ def check_supported(static: MarchStatic):
     """Raise for what the port's wavefront does not run."""
     if static.mode not in ("volume", "radon"):
         raise ValueError(f"unknown render mode '{static.mode}'")
-    if static.medium_grads:
-        raise _not_ported("medium gradients (medium_grads)", 17)
+    if static.medium_grads and static.scattered_only:
+        raise _not_ported("medium gradients of a residual mode "
+                          "(medium_grads with scattered_only, which no "
+                          "driver path of the JAX package reaches)", 21)
     if static.sensor.estimator not in ESTIMATORS:
         raise ValueError(f"unknown estimator '{static.sensor.estimator}'")
     if static.has_scattering and static.phase not in phase_functions:
@@ -333,11 +347,55 @@ def _count(stats, key, mask):
         stats[key] = stats.get(key, 0) + int(mask.sum())
 
 
+class _Med:
+    """The medium cotangents of one segment's lanes (the adjoint with
+    medium_grads): their emitted intensities em, hist_em = hist em, their
+    n_scat (k, None without scattering), and their running sums stg and
+    ssg, which `done` writes back into the wavefront's sg."""
+
+    def __init__(self, static, arr, sg, lanes, hist, em, n_scat):
+        self.sg, self.lanes = sg, lanes
+        self.st, self.al = arr["sigma_t"], arr["albedo"]
+        self.sa = 1.0 - self.al
+        self.ss = self.al * self.st
+        self.em, self.hist_em = em, hist * em
+        self.k = n_scat if static.has_scattering else None
+        pick = (lambda t: t) if lanes is None else (lambda t: t[lanes])
+        self.stg, self.ssg = pick(sg[0]), pick(sg[1])
+
+    def add(self, dst, dss, c_full, gathered, mask):
+        """dst, dss: the deposit's partials without the n_scat term; adds
+        it (c_full k / ss where ss > 0), then their products with the
+        gathered dL to the lanes' sums where mask."""
+        if self.k is not None:
+            dss = dss + torch.where(
+                self.ss > 0, c_full * self.k / torch.clamp(self.ss, min=1e-30),
+                torch.zeros_like(dss))
+        zero = torch.zeros_like(dst)
+        self.stg = self.stg + torch.where(mask, dst * gathered, zero)
+        self.ssg = self.ssg + torch.where(mask, dss * gathered, zero)
+
+    def done(self):
+        for i, v in enumerate((self.stg, self.ssg)):
+            if self.lanes is None:
+                self.sg[i] = v
+            else:
+                self.sg[i] = self.sg[i].clone()
+                self.sg[i][self.lanes] = v
+
+
+def _gathered(dL, flat, mask):
+    idx = torch.where(mask, flat, torch.zeros_like(flat))
+    return torch.where(mask, dL[idx], torch.zeros(flat.shape, dtype=dL.dtype,
+                                                  device=dL.device))
+
+
 def dda_segment(static, arr, primal, acc, g, dL, o, d, t_prev, maxt, A, em,
-                active, stats=None, inside=None):
+                active, stats=None, inside=None, n_scat=None, sg=None):
     """Amanatides-Woo voxel walk with analytic per-voxel absorption,
     on the lanes of `active`; inside: the lanes' target flag (two
-    channels)."""
+    channels). sg: the adjoint's per-lane medium cotangent sums (_Med;
+    em the lanes' emitted intensities, n_scat their scatter counts)."""
     lanes = torch.nonzero(active).squeeze(1)
     if lanes.numel() == 0:
         return acc, g
@@ -379,10 +437,13 @@ def dda_segment(static, arr, primal, acc, g, dL, o, d, t_prev, maxt, A, em,
     tstep = torch.where(valid_dir, vs / safe_d * step_dir.to(torch.float32),
                         inf)
 
-    base = _history(static, arr, A, t_prev) * sa_over_st
+    hist = _history(static, arr, A, t_prev)
+    base = hist * sa_over_st
     if primal:
         base = base * em[lanes]
     g_l = None if primal else g[lanes]
+    med = None if primal or sg is None else _Med(
+        static, arr, sg, lanes, hist, em[lanes], n_scat[lanes])
 
     voxel, t, remaining = start_voxel, t_start, t_end - t_start
     for _ in range(dda_max_steps(static.sensor.res)):
@@ -400,10 +461,24 @@ def dda_segment(static, arr, primal, acc, g, dL, o, d, t_prev, maxt, A, em,
         voxel = torch.where(act[:, None], voxel + upd, voxel)
         act = act & (voxel >= 0).all(-1) & (voxel < res).all(-1)
         t = torch.where(act, t + dt, t)
-        contrib = base * torch.exp(-st * t_at) * \
-            (1.0 - torch.exp(-st * torch.clamp(dt, min=0.0)))
+        E = torch.exp(-st * t_at)
+        dtc = torch.clamp(dt, min=0.0)
+        expdt = torch.exp(-st * dtc)
+        G = 1.0 - expdt
+        contrib = base * E * G
         acc, g_l = _deposit(primal, acc, g_l, dL, flat, contrib, dep_act)
         _count(stats, "steps", dep_act)
+        if med is not None:
+            # c = hist em (st - ss) / st e^{-st (t_prev + t)} (1 - e^{-st
+            # dt}), its partials at the detached point
+            HG = med.hist_em * E * G
+            c_full = HG * sa_over_st
+            dst = -c_full * (t_prev + t_at) + HG * (arr["albedo"] / st) + \
+                med.hist_em * E * sa_over_st * dtc * expdt
+            med.add(dst, -HG / st, c_full, _gathered(dL, flat, dep_act),
+                    dep_act)
+    if med is not None:
+        med.done()
     if not primal:
         g = g.clone()
         g[lanes] = g_l
@@ -411,10 +486,11 @@ def dda_segment(static, arr, primal, acc, g, dL, o, d, t_prev, maxt, A, em,
 
 
 def ratio_segment(static, arr, primal, acc, g, dL, o, d, t_prev, maxt, A,
-                  em, active, sampler, lane, ctr, stats=None, inside=None):
+                  em, active, sampler, lane, ctr, stats=None, inside=None,
+                  n_scat=None, sg=None):
     """Ratio tracking on the lanes of `active`, each on its own random
     stream: a lane draws (and advances its counter) only while it is
-    tracking, the terminating draw included."""
+    tracking, the terminating draw included. sg: as dda_segment's."""
     lanes = torch.nonzero(active).squeeze(1)
     if lanes.numel() == 0:
         return acc, g, ctr
@@ -426,12 +502,15 @@ def ratio_segment(static, arr, primal, acc, g, dL, o, d, t_prev, maxt, A,
     bmin, _, inv_vs, res = _grid(static, arr)
     st = arr["sigma_t"]
     M = arr["majorant"]
-    base = _history(static, arr, A, t_prev) * (1.0 - arr["albedo"])
+    hist = _history(static, arr, A, t_prev)
+    base = hist * (1.0 - arr["albedo"])
     if primal:
         base = base * em[lanes]
     base = base * (st / M)
     log_ratio = torch.log(torch.clamp(1.0 - st / M, min=1e-30))
     g_l = None if primal else g[lanes]
+    med = None if primal or sg is None else _Med(
+        static, arr, sg, lanes, hist, em[lanes], n_scat[lanes])
 
     act = torch.ones_like(maxt, dtype=torch.bool)
     t = torch.zeros_like(maxt)
@@ -448,8 +527,20 @@ def ratio_segment(static, arr, primal, acc, g, dL, o, d, t_prev, maxt, A,
         flat, in_grid = _voxel_flat(static, p, bmin, inv_vs, res, inside)
         ratio_k = torch.exp(k * log_ratio)
         mask = act & in_grid
+        k_at = k
         k = torch.where(act, k + 1.0, k)
-        acc, g_l = _deposit(primal, acc, g_l, dL, flat, base * ratio_k, mask)
+        contrib = base * ratio_k
+        acc, g_l = _deposit(primal, acc, g_l, dL, flat, contrib, mask)
+        if med is not None:
+            # c = hist em (st - ss) (1 - st/M)^k / M e^{-st t_prev}: the
+            # st / st of the pdf cancels
+            H4 = med.hist_em * ratio_k / M
+            c_full = contrib * med.em
+            dst = -c_full * t_prev - \
+                c_full * k_at / torch.clamp(M - st, min=1e-30) + H4
+            med.add(dst, -H4, c_full, _gathered(dL, flat, mask), mask)
+    if med is not None:
+        med.done()
     ctr = ctr.clone()
     ctr[lanes] = ctr_l
     if not primal:
@@ -459,19 +550,33 @@ def ratio_segment(static, arr, primal, acc, g, dL, o, d, t_prev, maxt, A,
 
 
 def delta_segment(static, arr, primal, acc, g, dL, o, d, t_prev, mei_t, A,
-                  em, active, stats=None, inside=None):
+                  em, active, stats=None, inside=None, n_scat=None, sg=None):
     """Delta-tracking deposit at the sampled interaction point; the
-    importance-sampled transmittance cancels: A (sa/st) em."""
+    importance-sampled transmittance cancels: A (sa/st) em. sg: as
+    dda_segment's."""
     bmin, _, inv_vs, res = _grid(static, arr)
     act = active & torch.isfinite(mei_t)
     p = o + mei_t[:, None] * d
     flat, in_grid = _voxel_flat(static, p, bmin, inv_vs, res, inside)
-    contrib = _history(static, arr, A, t_prev) * (1.0 - arr["albedo"])
+    hist = _history(static, arr, A, t_prev)
+    contrib = hist * (1.0 - arr["albedo"])
     if primal:
         contrib = contrib * em
     mask = act & in_grid
     _count(stats, "steps", mask)
-    return _deposit(primal, acc, g, dL, flat, contrib, mask)
+    acc, g = _deposit(primal, acc, g, dL, flat, contrib, mask)
+    if not primal and sg is not None:
+        # c = hist em (st - ss) e^{-st (t_prev + t_m)} / detach(st
+        # e^{-st t_m}): the transmittance attached, the pdf detached
+        med = _Med(static, arr, sg, None, hist, em, n_scat)
+        c_full = med.hist_em * med.sa
+        H3 = med.hist_em / med.st
+        t_m = torch.where(torch.isfinite(mei_t), mei_t,
+                          torch.zeros_like(mei_t))
+        med.add(-c_full * (t_prev + t_m) + H3, -H3, c_full,
+                _gathered(dL, flat, mask), mask)
+        med.done()
+    return acc, g
 
 
 # --------------------------------------------------------------------------
@@ -642,7 +747,7 @@ def _fast_residual_loop(static: MarchStatic, arr, primal, acc, g, dL, o, d,
 
 
 def trace_wavefront(static: MarchStatic, arr, lane, seed, spp, dL_flat=None,
-                    acc=None, em=None, stats=None):
+                    acc=None, em=None, stats=None, sg=None):
     """Trace the lanes `lane` ((n,) int64 global lane ids, uint32
     values; active index lane // spp).
 
@@ -652,7 +757,11 @@ def trace_wavefront(static: MarchStatic, arr, lane, seed, spp, dL_flat=None,
     returns (acc, None); em: optional per-lane emitted intensity before
     the ray-weight scalar (default active_data[lane // spp]).
     adjoint: returns (acc, g) with g the per-lane emitter gradient
-    (without em or the ray weight).
+    (without em or the ray weight); sg (a static with medium_grads): a
+    list of two (n,) float32 tensors, to whose entries each lane's
+    d loss / d sigma_t and d loss / d sigma_s partials are added (em
+    then the emitted intensity as in the primal, default
+    active_data[lane // spp]).
     stats: optional dict counting the estimator's steps ("steps"), the
     lanes' bounce iterations ("iterations") and, on a scene that keeps a
     mesh, its grid walks, cells and triangle tests ("walks", "cells",
@@ -669,10 +778,14 @@ def trace_wavefront(static: MarchStatic, arr, lane, seed, spp, dL_flat=None,
     o, d, aidx, ctr = sample_rays(
         static.projector, arr, arr["active_pixels"], lane, spp, sampler,
         ctr, static.regular_sampling, static.sample_time, static.clockwise)
-    if primal and not radon:
+    if sg is not None and (primal or not static.medium_grads):
+        raise ValueError("sg: the medium cotangents of an adjoint with "
+                         "medium_grads")
+    if (primal and not radon) or sg is not None:
         if em is None:
             em = arr["active_data"][aidx]
         em = em * ray_weight(static.projector, arr, spp, arr["print_time"])
+    if primal and not radon:
         if acc is None:
             acc = torch.zeros((static.sensor.n_cells,), dtype=torch.float32,
                               device=dev)
@@ -770,16 +883,16 @@ def trace_wavefront(static: MarchStatic, arr, lane, seed, spp, dL_flat=None,
         elif est == "dda":
             acc, g = dda_segment(static, arr, primal, acc, g, dL_flat, o, d,
                                  total_t, t_si, A, em, dep_active, stats,
-                                 inside_target)
+                                 inside_target, n_scat, sg)
         elif est == "ratio":
             acc, g, ctr = ratio_segment(static, arr, primal, acc, g, dL_flat,
                                         o, d, total_t, t_si, A, em,
                                         dep_active, sampler, lane, ctr,
-                                        stats, inside_target)
+                                        stats, inside_target, n_scat, sg)
         else:
             acc, g = delta_segment(static, arr, primal, acc, g, dL_flat, o, d,
                                    total_t, mei_t, A, em, dep_active, stats,
-                                   inside_target)
+                                   inside_target, n_scat, sg)
 
         # inside / outside parity flip at the target's crossings (may
         # leak, as the reference's)

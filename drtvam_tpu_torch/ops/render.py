@@ -24,6 +24,13 @@ Four kernel wrappers, each with its plain version beside it:
                               hybrid engine's residual, ops/hybrid.py)
     wf_res_bwd  <- adjoint   of a residual static
 
+and, for a static with medium_grads given the patterns (RenderRaw's
+backward where sigma_t or albedo needs a gradient),
+
+    wf_med      <- adjoint(..., data=)  (plain: _adjoint(..., data=): the
+                              pattern gradient and the medium cotangents
+                              (stg, ssg))
+
 and beside wf_res_fwd its parts, counted apart in `launches`: the dda
 forward's walk pass (res_walk, plain: _walk) and the chord table
 (_res_chords, plain: _chord_table). The DMD-pixel culling renders
@@ -126,7 +133,10 @@ TGT_LIB = "wf_target"
 # the residual pair's target form (csrc/wf_res_target.cu: the dda
 # residual forward's path pass with the target kept), one library too
 RES_TGT_LIB = "wf_res_target"
-LIBS = KERNELS + RES_KERNELS + CULL_KERNELS + (TGT_LIB, RES_TGT_LIB)
+# the analog adjoint with the medium cotangents (csrc/wf_med.cu), the
+# adjoint of a medium_grads static given the patterns
+MED_LIB = "wf_med"
+LIBS = KERNELS + RES_KERNELS + CULL_KERNELS + (TGT_LIB, RES_TGT_LIB, MED_LIB)
 # entry points of csrc/wf_res_fwd.cu beside its per-lane kernel, counted
 # apart: the dda forward's walk pass and the chord table's prologue
 RES_PARTS = ("wf_res_walk", "wf_res_chords")
@@ -137,14 +147,15 @@ TGT_PARTS = ("wf_tgt_walk",)
 # and apart
 RES_TGT_PARTS = ("wf_res_tgt_path",)
 launches = {k: 0 for k in KERNELS + RES_KERNELS + CULL_KERNELS + RES_PARTS
-            + TGT_PARTS + RES_TGT_PARTS}
+            + TGT_PARTS + RES_TGT_PARTS + (MED_LIB,)}
 # the launches of the target instantiations of the loop kernels, beside
 # their kernel's count in `launches`: "<kernel>:target1" (the target mesh
 # kept, one channel) and "<kernel>:target2" (a two-channel film); the
 # residual's walk pass has a two-channel form only (one channel walks as
 # without a target)
 TARGET_FORMS = tuple(f"{k}:target{t}" for k in KERNELS + RES_KERNELS
-                     + TGT_PARTS for t in (1, 2)) + ("wf_res_walk:target2",)
+                     + TGT_PARTS + (MED_LIB,) for t in (1, 2)) + (
+                         "wf_res_walk:target2",)
 form_launches = {k: 0 for k in TARGET_FORMS}
 # what the culling kernels count when asked: bounce iterations, mesh grid
 # cells visited, triangles tested, triangle slots (32 for each test of a
@@ -238,25 +249,37 @@ def _forward(static: MarchStatic, arr, data, seed, spp, chunk, stats=None):
 
 
 def _adjoint(static: MarchStatic, arr, seed, spp, chunk, dL_flat,
-             stats=None):
+             stats=None, data=None):
     """The pattern gradient (n_active,): per-lane emitter gradients
-    summed per pixel in lane order, times the ray weight."""
+    summed per pixel in lane order, times the ray weight. data (a static
+    with medium_grads): the patterns, whose emitted intensities the
+    medium cotangents take (drtvam_tpu/ops/render.py:91-133); returns
+    (pattern gradient, stg, ssg) then, stg and ssg the summed
+    d loss / d sigma_t and d loss / d sigma_s (float32 0-d tensors)."""
     n_active = static.projector.n_active
     n_lanes = _n_lanes(static, spp)
     chunk, n_chunks = _chunking(n_lanes, chunk, spp)
     dev = dL_flat.device
     pg = torch.zeros((n_active,), dtype=torch.float32, device=dev)
+    sums = torch.zeros((2,), dtype=torch.float32, device=dev)
     for i in range(n_chunks):
         lo, hi = i * chunk, min((i + 1) * chunk, n_lanes)
         lane = torch.arange(lo, hi, dtype=torch.int64, device=dev)
-        _, g = trace_wavefront(static, arr, lane, seed, spp,
-                               dL_flat=dL_flat, stats=stats)
+        sg = None if data is None else [
+            torch.zeros((hi - lo,), dtype=torch.float32, device=dev)
+            for _ in range(2)]
+        _, g = trace_wavefront(
+            static, arr, lane, seed, spp, dL_flat=dL_flat, stats=stats,
+            em=None if data is None else data[lane // spp], sg=sg)
         g = g.reshape(-1, spp)
         g_pix = g[:, 0]
         for k in range(1, spp):
             g_pix = g_pix + g[:, k]
         pg[lo // spp:hi // spp] = g_pix
-    return pg * ray_weight(static.projector, arr, spp, arr["print_time"])
+        if sg is not None:
+            sums = sums + torch.stack([sg[0].sum(), sg[1].sum()])
+    pg = pg * ray_weight(static.projector, arr, spp, arr["print_time"])
+    return pg if data is None else (pg, sums[0], sums[1])
 
 
 # --------------------------------------------------------------------------
@@ -665,6 +688,9 @@ _ARGS = {
     # (P, A, rows, counters, stream)
     "wf_tgt_walk": [ctypes.POINTER(WfParams), ctypes.POINTER(TgtArgs),
                     _PTR, _PTR, _PTR],
+    # (P, M, tris, dL, data, active_pixels, order, starts, task_base, grad,
+    # partials, n_tasks, sums, stream)
+    "wf_med": _TGT + [_PTR] * 8 + [ctypes.c_int, _PTR, _PTR],
     # (P, M, A, stream)
     "wf_radon": [ctypes.POINTER(WfParams), ctypes.POINTER(WfMesh),
                  ctypes.POINTER(CullArgs), _PTR],
@@ -680,9 +706,11 @@ _ENTRIES = {"wf_fwd": ("wf_fwd",), "wf_bwd": ("wf_bwd",),
             TGT_LIB: ("wf_tgt_fits", "wf_tgt_bwd", "wf_tgt_path",
                       "wf_tgt_walk", "wf_tgt_info"),
             RES_TGT_LIB: ("wf_res_tgt_runs", "wf_res_tgt_path",
-                          "wf_res_tgt_info")}
+                          "wf_res_tgt_info"),
+            MED_LIB: ("wf_med",)}
 _INFO = {"wf_fwd_info": [ctypes.POINTER(WfParams), ctypes.c_int],
          "wf_bwd_info": [ctypes.POINTER(WfParams), ctypes.c_int],
+         "wf_med_info": [ctypes.POINTER(WfParams), ctypes.c_int],
          "wf_res_fwd_info": [ctypes.POINTER(WfParams), ctypes.c_int],
          "wf_res_bwd_info": [ctypes.POINTER(WfParams), ctypes.c_int],
          "wf_res_walk_info": [ctypes.c_int, ctypes.c_int],
@@ -792,16 +820,16 @@ def _target_args(name, static, arr, P):
 
 def _family_params(name, static, arr, seed, spp):
     """make_params, checked against the kernel's family: the analog pair
-    runs the full dose, the residual pair a residual static (scattering,
-    transmission only) and takes no tile. Returns (P, order, starts,
-    rows) for the analog pair, (P, order, starts, the chord bank or
+    (and wf_med) runs the full dose, the residual pair a residual static
+    (scattering, transmission only) and takes no tile. Returns (P, order,
+    starts, rows) for the analog pair, (P, order, starts, the chord bank or
     None) for the residual pair."""
     if static.mode != "volume":
         raise ValueError(f"{name} renders the dose; the '{static.mode}' "
                          "mode runs on wf_radon")
     P = make_params(static, arr, seed, spp)
     order, starts, rows, P.tile_n = _launch_layout(static, arr)
-    if name in KERNELS:
+    if name in KERNELS + (MED_LIB,):
         if P.residual != ANALOG:
             raise ValueError(f"{name} runs the full dose; a residual "
                              "static (scattered_only) runs on "
@@ -1416,6 +1444,70 @@ def wf_bwd(static: MarchStatic, arr, dL_flat, seed, spp, stats=None):
     return out
 
 
+def med_tasks(static: MarchStatic, arr):
+    """(CTAs + 1,) int32 on the scene tensors' device: the adjoint's warp
+    tasks (32 positions each) before each CTA of the launch order, the
+    last entry their count (cached in the scene tensors' dict)."""
+    p = static.projector
+    key = (p.n_patterns, p.resx, p.resy, p.n_active, p.identity)
+    cached = arr.get("_wf_med_tasks")
+    if cached is None or cached[0] != key:
+        starts = block_order(static, arr)[1]
+        tasks = (starts[1:] - starts[:-1] + 31) // 32
+        base = torch.cat([torch.zeros((1,), dtype=torch.int64,
+                                      device=starts.device),
+                          tasks.cumsum(0)])
+        cached = (key, base.to(torch.int32).contiguous(), int(base[-1]))
+        arr["_wf_med_tasks"] = cached
+    return cached[1], cached[2]
+
+
+def med_adjoint(libs, static, arr, dL_flat, data, seed, spp,
+                partials=False):
+    """The medium adjoint through the libraries `libs` (wf_med): (pattern
+    gradient, stg, ssg), and with partials the task partials."""
+    _n_lanes(static, spp)
+    if not static.medium_grads:
+        raise ValueError("wf_med: the static has no medium_grads")
+    n = static.projector.n_active
+    _check("wf_med", dL_flat, torch.float32, (static.sensor.n_cells,))
+    _check("wf_med", data, torch.float32, (n,))
+    dev = dL_flat.device
+    pix = _pixels("wf_med", static, arr, dev)
+    P, order, starts, _ = _family_params("wf_med", static, arr, seed, spp)
+    M, tris, _ = _target_args("wf_med", static, arr, P)
+    base, n_tasks = med_tasks(static, arr)
+    out = torch.empty((n,), dtype=torch.float32, device=dev)
+    part = torch.empty((max(n_tasks, 1), 2), dtype=torch.float32, device=dev)
+    sums = torch.zeros((2,), dtype=torch.float32, device=dev)
+    err = libs[MED_LIB].wf_med(
+        ctypes.byref(P), ctypes.byref(M), _ptr(tris), dL_flat.data_ptr(),
+        data.data_ptr(), pix.data_ptr(), _ptr(order), _ptr(starts),
+        base.data_ptr(), out.data_ptr(), part.data_ptr(), n_tasks,
+        sums.data_ptr(), _stream(dev))
+    _count(MED_LIB, P)
+    _err("wf_med", err)
+    res = (out, sums[0], sums[1])
+    return res + (part,) if partials else res
+
+
+def wf_med(static: MarchStatic, arr, dL_flat, data, seed, spp,
+           partials=False):
+    """CUDA kernel csrc/wf_med.cu: the adjoint of a medium_grads static
+    with the medium cotangents, on the card. Returns (pattern gradient
+    (n_active,), stg, ssg), stg and ssg float32 0-d tensors: the summed
+    d loss / d sigma_t and d loss / d sigma_s of every deposit, at data's
+    emitted intensities; partials: also the (n_tasks, 2) task partials
+    they are the fixed-order sum of. Replaces the medium-gradient
+    branches of drtvam_tpu/ops/march.py:586, :747 and :865 (XLA). The
+    pattern gradient is wf_bwd's, bitwise (a scene with mesh surfaces:
+    the one-pass target form's; there is no staged form), and two
+    launches give the same bits. Bound as wf_bwd, plus the partials'
+    float32 work a deposit."""
+    return med_adjoint(_card_libs(dL_flat), static, arr, dL_flat, data, seed,
+                       spp, partials)
+
+
 def res_forward(libs, static, arr, data, seed, spp, stats=None,
                 batch_ctas=None, times=None):
     """The residual forward through the libraries `libs`: the dda in two
@@ -1497,9 +1589,17 @@ def forward(static: MarchStatic, arr, data, seed, spp, chunk=DEFAULT_CHUNK):
     return _forward(static, arr, data, seed, spp, chunk)
 
 
-def adjoint(static: MarchStatic, arr, seed, spp, chunk, dL_flat):
+def adjoint(static: MarchStatic, arr, seed, spp, chunk, dL_flat, data=None):
     """Pattern gradient (n_active,) of dL_flat: wf_bwd (a residual
-    static: wf_res_bwd) on the card, the plain version on the CPU."""
+    static: wf_res_bwd) on the card, the plain version on the CPU. data
+    (a medium_grads static): the patterns; returns (pattern gradient,
+    stg, ssg) with the medium cotangents (wf_med on the card)."""
+    if data is not None:
+        if _route(dL_flat):
+            return wf_med(static, arr, dL_flat.contiguous(),
+                          data.detach().contiguous(), seed, spp)
+        return _adjoint(static, arr, seed, spp, chunk, dL_flat,
+                        data=data.detach())
     if _route(dL_flat):
         kern = wf_res_bwd if static.scattered_only else wf_bwd
         return kern(static, arr, dL_flat.contiguous(), seed, spp)
@@ -1507,27 +1607,46 @@ def adjoint(static: MarchStatic, arr, seed, spp, chunk, dL_flat):
 
 
 class RenderRaw(torch.autograd.Function):
-    """Flat dose accumulator, differentiable in the patterns: the
-    backward replays the paths with the same seed and spp_grad lanes
-    per pixel."""
+    """Flat dose accumulator, differentiable in the patterns and, for a
+    static with medium_grads, in the medium's sigma_t and albedo (inputs
+    that hold the scene tensors' values): the backward replays the
+    paths with the same seed and spp_grad lanes per pixel, and where
+    sigma_t or albedo needs a gradient takes the medium cotangents (stg,
+    ssg: d / d sigma_t and d / d sigma_s), chained to the (sigma_t,
+    albedo) parameters as drtvam_tpu/ops/render.py:148-166:
+    d / d sigma_t = stg + albedo ssg, d / d albedo = sigma_t ssg."""
 
     @staticmethod
-    def forward(ctx, data, static, arr, seed, spp, spp_grad, chunk):
+    def forward(ctx, data, st, al, static, arr, seed, spp, spp_grad, chunk):
         ctx.args = (static, arr, seed, spp_grad, chunk)
+        ctx.save_for_backward(data, st, al)
         return forward(static, arr, data, seed, spp, chunk)
 
     @staticmethod
     def backward(ctx, ct):
         static, arr, seed, spp_grad, chunk = ctx.args
-        pg = adjoint(static, arr, seed, spp_grad, chunk, ct.contiguous())
-        return pg, None, None, None, None, None, None
+        data, st, al = ctx.saved_tensors
+        d_st = d_al = None
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            pg, stg, ssg = adjoint(static, arr, seed, spp_grad, chunk,
+                                   ct.contiguous(), data=data)
+            d_st = (stg + al.detach() * ssg).reshape(st.shape)
+            d_al = (st.detach() * ssg).reshape(al.shape)
+        else:
+            pg = adjoint(static, arr, seed, spp_grad, chunk, ct.contiguous())
+        return pg, d_st, d_al, None, None, None, None, None, None
 
 
 def render(static: MarchStatic, arr, data, inv_vol, seed=0, spp=1,
-           spp_grad=None, chunk=None):
+           spp_grad=None, chunk=None, medium=None):
     """Dose volume (Z, Y, X, C): the raw accumulator x 1 / voxel
-    volume, differentiable in `data` through RenderRaw."""
-    raw = RenderRaw.apply(data, static, arr, seed, spp,
+    volume, differentiable in `data` through RenderRaw, and with
+    static.medium_grads in medium, a (sigma_t, albedo) pair of tensors
+    that hold arr's values (the JAX package's jax.grad of the render in
+    (sigma_t, albedo), drtvam_tpu/opt/optimize.py:453-468)."""
+    st, al = medium if static.medium_grads and medium is not None \
+        else (None, None)
+    raw = RenderRaw.apply(data, st, al, static, arr, seed, spp,
                           spp if spp_grad is None else spp_grad,
                           DEFAULT_CHUNK if chunk is None else chunk)
     return raw.reshape(static.sensor.shape) * inv_vol

@@ -13,7 +13,10 @@ file:
     opt_head, opt_nvalid, opt_m (DeviceLinearLBFGS.state_dict; bfloat16
     rows as 2-byte void views of their bits);
   * Adam / SGD: opt_n_leaves and opt_leaf_<i>, optax's leaves in its
-    order (opt/first_order.py).
+    order (opt/first_order.py);
+  * optimize_medium: med_st and med_al (float32), med_n_leaves and
+    med_leaf_<i>, the medium's optax Adam state over {"al", "st"} in
+    optax's order: count, mu.al, mu.st, nu.al, nu.st.
 
 Config: "checkpoint_every": N saves every N steps and at the last step;
 "resume": true restores the file. Each step's seed is its index, so a
@@ -29,10 +32,11 @@ FILENAME = "checkpoint.npz"
 
 
 def save_checkpoint(output, step, data, active_pixels, loss_hist,
-                    timing_hist, optim_type, opt):
+                    timing_hist, optim_type, opt, med=None):
     """Write `checkpoint.npz` into `output` atomically (a temporary file,
     then os.replace). opt: the DeviceLinearLBFGS or FirstOrder
-    optimizer."""
+    optimizer; med: the calibrated medium (sigma_t, albedo, its optimizer
+    leaves), or None."""
     if hasattr(data, "detach"):
         data = data.detach().cpu().numpy()
     d = {
@@ -51,6 +55,12 @@ def save_checkpoint(output, step, data, active_pixels, loss_hist,
         d["opt_n_leaves"] = np.int64(len(leaves))
         for i, leaf in enumerate(leaves):
             d[f"opt_leaf_{i}"] = leaf
+    if med is not None:
+        st, al, leaves = med
+        d["med_st"], d["med_al"] = np.float32(st), np.float32(al)
+        d["med_n_leaves"] = np.int64(len(leaves))
+        for i, leaf in enumerate(leaves):
+            d[f"med_leaf_{i}"] = leaf
     path = os.path.join(output, FILENAME)
     tmp = path + ".tmp.npz"
     np.savez(tmp, **d)
@@ -85,3 +95,14 @@ def restore_opt_state(ckpt, optim_type, opt, data):
         return
     n = int(ckpt["opt_n_leaves"])
     opt.load_leaves([ckpt[f"opt_leaf_{i}"] for i in range(n)], data)
+
+
+def restore_med_state(ckpt):
+    """The calibrated medium of the checkpoint, (sigma_t, albedo, its
+    optimizer leaves), or None when the file has none (the medium then
+    starts from the config, as in the JAX package)."""
+    if "med_st" not in ckpt:
+        return None
+    n = int(ckpt["med_n_leaves"])
+    return (np.float32(ckpt["med_st"]), np.float32(ckpt["med_al"]),
+            [ckpt[f"med_leaf_{i}"] for i in range(n)])

@@ -63,16 +63,18 @@ class FirstOrder:
         else:
             self.state = []
 
+    def update(self, p, g):
+        """optax's tx.update: the update (-lr times the rule's direction)
+        of parameters p at gradient g, the state advanced."""
+        if self.state is None:
+            self.init(p)
+        u = self._adam(g) if self.kind == "adam" else self._sgd(g)
+        return u * (-self.lr)
+
     def step(self, p, g):
         """One optax update and apply_updates, then the clamp at 0.
         Returns the new patterns."""
-        if self.state is None:
-            self.init(p)
-        if self.kind == "adam":
-            u = self._adam(g)
-        else:
-            u = self._sgd(g)
-        return torch.clamp(p + u * (-self.lr), min=0.0)
+        return torch.clamp(p + self.update(p, g), min=0.0)
 
     def _adam(self, g):
         o = self.opts

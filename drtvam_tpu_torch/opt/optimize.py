@@ -57,9 +57,21 @@ Modes and keys:
     loss.npy and timing.npy (zeros), the patterns;
   * forward mode (`patterns_fwd`, the CLI's --forward_mode --patterns
     x.npz): the given patterns rendered by the final render, no cull,
-    no loop, the full artifact set with zero loss and timing.
-`optimize_medium` and `profile` raise NotImplementedError naming their
-ROADMAP item.
+    no loop, the full artifact set with zero loss and timing;
+  * `optimize_medium` ({"lr", "sigma_t", "albedo"}; true means {}):
+    medium calibration (drtvam_tpu/opt/optimize.py:240-251, :446-615),
+    on the wavefront engine only (`engine` "ballistic" or "hybrid"
+    raises). After each step's pattern update, d loss / d (sigma_t,
+    albedo) of the render at the new patterns and the step's seed
+    (autograd through ops/render.py RenderRaw, the adjoint wf_med on the
+    card), an Adam (optax's rule, lr default 0.01) on both, the
+    component not asked for zeroed (albedo is calibrated only when asked
+    and when the medium scatters), then sigma_t >= 1e-5 and albedo in
+    [0, 0.999], applied to the engine's scene tensors. The final render
+    takes the calibrated medium; medium.json holds {"sigma_t",
+    "albedo"}. A `target.dose_npy` dose volume calibrates; a mesh target
+    calibrates while the patterns are optimized.
+`profile` raises NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -81,7 +93,7 @@ from ..ops.transport2d import ballistic_eligible, unscattered_eligible
 from ..utils.io import save_img, save_vol
 from ..utils.metrics import save_histogram
 from .checkpoint import check_optimizer, load_checkpoint, \
-    restore_opt_state, save_checkpoint
+    restore_med_state, restore_opt_state, save_checkpoint
 from .device_lbfgs import DeviceLinearLBFGS
 from .first_order import FirstOrder
 from .loss import losses
@@ -89,7 +101,6 @@ from .loss import losses
 # options of the JAX driver that this port does not run yet, with the
 # ROADMAP queue 1 item that ports them
 _NOT_PORTED = {
-    "optimize_medium": ("medium optimization", 17),
     "profile": ("device profiling", 9),
 }
 
@@ -249,13 +260,24 @@ class _Engine:
             self.static = dataclasses.replace(self.static,
                                               max_depth=max_depth)
 
-    def render(self, d, seed):
+    def render(self, d, seed, medium=None):
         if self.kind == "ballistic":   # deterministic: no seed
             return self.eng.render_vol(d, self.inv_vol)
         if self.kind == "hybrid":
             return self.eng.render_vol(d, self.inv_vol, seed)
         return wavefront.render(self.static, self.arr, d, self.inv_vol, seed,
-                                self.spp, self.spp_grad, self.chunk)
+                                self.spp, self.spp_grad, self.chunk, medium)
+
+    def medium_grad(self, data, seed, loss_obj, target):
+        """d loss / d (sigma_t, albedo) of the wavefront's render of data
+        at seed (a medium_grads static), with leaves that hold the scene
+        tensors' medium."""
+        st = self.arr["sigma_t"].detach().clone().requires_grad_(True)
+        al = self.arr["albedo"].detach().clone().requires_grad_(True)
+        with torch.enable_grad():
+            loss = loss_obj(self.render(data.detach(), seed, (st, al)),
+                            target, data.detach())
+            return torch.autograd.grad(loss, (st, al))
 
     def pattern_grad(self, dvol, seed):
         if self.kind == "ballistic":
@@ -265,6 +287,67 @@ class _Engine:
         return wavefront.adjoint(self.static, self.arr, seed, self.spp_grad,
                                  self.chunk,
                                  (dvol * self.inv_vol).reshape(-1))
+
+
+def medium_config(config):
+    """optimize_medium as the JAX driver reads it: true means {}; false,
+    null and {} disable it (None)."""
+    med = config.get("optimize_medium", None)
+    if med is True:
+        return {}
+    return dict(med) if med else None
+
+
+class _Medium:
+    """The medium calibration's state: optax's Adam on {"al", "st"}
+    (opt/first_order.py; the parameters as a float32 (albedo, sigma_t)
+    pair on the host, optax's leaf order), the components asked for, the
+    clips, and the values applied to a scene's tensors."""
+
+    def __init__(self, cfg, medium):
+        self.opt = FirstOrder("adam", float(cfg.get("lr", 0.01)))
+        self.p = torch.tensor([medium.albedo, medium.sigma_t],
+                              dtype=torch.float32)
+        self.opt.init(self.p)
+        self.use = torch.tensor([bool(cfg.get("albedo", False))
+                                 and medium.albedo > 0.0,
+                                 bool(cfg.get("sigma_t", True))])
+
+    @property
+    def sigma_t(self):
+        return float(self.p[1])
+
+    @property
+    def albedo(self):
+        return float(self.p[0])
+
+    def step(self, g_st, g_al):
+        """One Adam step at the gradients (the disabled component's
+        zeroed), then sigma_t >= 1e-5 and albedo in [0, 0.999] (albedo
+        stays 0 for a medium that does not scatter)."""
+        g = torch.stack([g_al.detach(), g_st.detach()]).cpu().float()
+        g = torch.where(self.use, g, torch.zeros_like(g))
+        p = self.p + self.opt.update(self.p, g)
+        self.p = torch.stack([torch.clamp(p[0], 0.0, 0.999),
+                              torch.clamp(p[1], min=1e-5)])
+
+    def apply(self, arr):
+        dev = arr["sigma_t"].device
+        arr["sigma_t"] = self.p[1].to(dev)
+        arr["albedo"] = self.p[0].to(dev)
+
+    def state(self):
+        """(sigma_t, albedo, optax's leaves: count, mu.al, mu.st, nu.al,
+        nu.st) for the checkpoint."""
+        count, mu, nu = self.opt.leaves()
+        return (np.float32(self.sigma_t), np.float32(self.albedo),
+                [count, mu[0], mu[1], nu[0], nu[1]])
+
+    def load(self, st, al, leaves):
+        count, mu_al, mu_st, nu_al, nu_st = leaves
+        self.p = torch.tensor([al, st], dtype=torch.float32)
+        self.opt.load_leaves([count, np.stack([mu_al, mu_st]),
+                              np.stack([nu_al, nu_st])], self.p)
 
 
 def _psf_pixels(config, scene):
@@ -368,7 +451,8 @@ def optimize(config, patterns_fwd=None, resolve_path=None, device="cuda",
 
     t0 = time.perf_counter()
     scene = Scene(config, resolve_path)
-    if config.get("optimize_medium") and \
+    med_cfg = medium_config(config)
+    if med_cfg is not None and \
             config.get("engine", "auto") in ("ballistic", "hybrid"):
         raise ValueError(
             "optimize_medium requires the wavefront engine; the "
@@ -396,7 +480,8 @@ def optimize(config, patterns_fwd=None, resolve_path=None, device="cuda",
     transmission_only = config.get("transmission_only", True)
     regular_sampling = config.get("regular_sampling", False)
     chunk = config.get("chunk_size", wavefront.DEFAULT_CHUNK)
-    engine_cfg = config.get("engine", "auto")
+    engine_cfg = "wavefront" if med_cfg is not None else \
+        config.get("engine", "auto")
     if regular_sampling:
         spp = 1  # rays from pixel centres (spp_grad keeps its value)
     sensor = scene.sensor
@@ -491,7 +576,7 @@ def optimize(config, patterns_fwd=None, resolve_path=None, device="cuda",
             loss_obj, target, inside_mask, tb, loss_hist, timing_hist,
             dict(spp=spp, spp_grad=spp_grad, chunk=chunk,
                  max_depth=max_depth, rr_depth=rr_depth,
-                 progressive=progressive, build_kw=build_kw))
+                 progressive=progressive, build_kw=build_kw, med=med_cfg))
 
     print("Rendering the final dose volume...")
     t0 = time.perf_counter()
@@ -528,10 +613,12 @@ def _optimize_loop(config, scene, device, timings, engine_cfg, optim_type,
                    opt_cfg, loss_obj, target, inside_mask, tb, loss_hist,
                    timing_hist, rp):
     """The culls, the engine and the render / loss / adjoint / step loop,
-    with the progressive depth schedule, checkpoints and resume
-    (drtvam_tpu/opt/optimize.py:283-330, :428-605). rp: the rendering
-    parameters. Returns the optimized patterns (on `device`); the
-    histories are filled in place."""
+    with the progressive depth schedule, checkpoints and resume, and the
+    medium calibration (drtvam_tpu/opt/optimize.py:283-330, :428-615).
+    rp: the rendering parameters (rp["med"]: the optimize_medium config
+    or None). Returns the optimized patterns (on `device`); the
+    histories are filled in place; a calibrated medium is written to
+    scene.medium and medium.json."""
     output = config["output"]
     n_steps = loss_hist.shape[0]
     sensor = scene.sensor
@@ -582,6 +669,10 @@ def _optimize_loop(config, scene, device, timings, engine_cfg, optim_type,
     static, arr = scene.build(mode="volume", include_target=inside_mask
                               is not None, max_depth=depth,
                               rr_depth=rp["rr_depth"], **build_kw)
+    med = None
+    if rp["med"] is not None:
+        static = dataclasses.replace(static, medium_grads=True)
+        med = _Medium(rp["med"], scene.medium)
     engine_kind = select_engine(engine_cfg, static)
     timings["active_pixels"] = static.projector.n_active
     inv_vol = sensor.inv_volume(tb)
@@ -602,6 +693,9 @@ def _optimize_loop(config, scene, device, timings, engine_cfg, optim_type,
         opt = FirstOrder(optim_type, **opt_cfg)
     if ckpt is not None:
         restore_opt_state(ckpt, optim_type, opt, data)
+        if med is not None and restore_med_state(ckpt) is not None:
+            med.load(*restore_med_state(ckpt))
+            med.apply(engine.arr)
         print(f"Resuming from checkpoint at step {start_step}.")
     del ckpt
     _sync(device)
@@ -637,6 +731,10 @@ def _optimize_loop(config, scene, device, timings, engine_cfg, optim_type,
             data = opt.step(data, grad, vol, loss, step_args=(i,))
         else:
             data = opt.step(data, grad)
+        if med is not None:
+            # the medium's gradient at the new patterns, the step's seed
+            med.step(*engine.medium_grad(data, i, loss_obj, target_t))
+            med.apply(engine.arr)
         _sync(device)
         timing_hist[i, 1] = time.perf_counter() - t1
         print(f"step {i:4d}  loss {loss_hist[i]:.6e}  "
@@ -645,10 +743,18 @@ def _optimize_loop(config, scene, device, timings, engine_cfg, optim_type,
                                  or i == n_steps - 1):
             t0 = time.perf_counter()
             save_checkpoint(output, i, data, scene.projector.active_pixels,
-                            loss_hist, timing_hist, optim_type, opt)
+                            loss_hist, timing_hist, optim_type, opt,
+                            None if med is None else med.state())
             timings["checkpoint_write_s"] += time.perf_counter() - t0
     timings["loop_s"] = time.perf_counter() - t_loop
     scene.projector.active_data = data
+    if med is not None:
+        scene.medium.sigma_t, scene.medium.albedo = med.sigma_t, med.albedo
+        with open(os.path.join(output, "medium.json"), "w") as f:
+            json.dump({"sigma_t": med.sigma_t, "albedo": med.albedo}, f,
+                      indent=2)
+        print(f"Calibrated medium: sigma_t={med.sigma_t:.6f} "
+              f"albedo={med.albedo:.4f}")
     return data
 
 

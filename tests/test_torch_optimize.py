@@ -3,9 +3,9 @@ film, 3 steps): the same artifact set, final.npy to rtol 1e-3 and the
 same best IoU to 1e-3, through the ballistic engine and through the
 wavefront path tracer (engine 'wavefront', the loss history to 1e-4:
 both render the same realization at each step's seed, measured 2.1e-5).
-Options the port does not run yet (optimize_medium, profile) raise
+The option the port does not run yet (profile) raises
 NotImplementedError; optimize()'s other modes are
-tests/test_torch_modes.py's."""
+tests/test_torch_modes.py's, medium calibration tests/test_torch_medium.py's."""
 import json
 import os
 
@@ -98,7 +98,6 @@ def test_overrides_reach_the_config(work):
 
 
 @pytest.mark.parametrize("change", [
-    {"vial.medium.albedo": 0.5, "optimize_medium": True},
     {"profile": True},
 ])
 def test_unported_options_raise(work, change):

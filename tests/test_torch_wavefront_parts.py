@@ -281,8 +281,9 @@ def test_unported_modes_raise(target_path):
     for mode in ("volume", "radon"):
         tmarch.check_supported(dataclasses.replace(
             tstatic, mode=mode, surfaces=tstatic.surfaces + (occlusion,)))
-    for change, item in (({"medium_grads": True, "scattered_only": True},
-                          "17"),
-                         ({"medium_grads": True}, "17")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            tmarch.check_supported(dataclasses.replace(tstatic, **change))
+    # medium gradients are ported; with a residual mode (which no driver
+    # path of the JAX package reaches) they raise
+    tmarch.check_supported(dataclasses.replace(tstatic, medium_grads=True))
+    with pytest.raises(NotImplementedError, match="item 21"):
+        tmarch.check_supported(dataclasses.replace(
+            tstatic, medium_grads=True, scattered_only=True))

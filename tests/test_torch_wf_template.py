@@ -81,6 +81,7 @@ HARNESS = r"""
 #include "wf_residual.cuh"
 #include "wf_target.cuh"
 #include "wf_res_target.cuh"
+#include "wf_med.cuh"
 using namespace wf;
 static std::vector<int> traced;
 // the budget the staged banks must fit (bytes); the card's is a CTA's
@@ -759,6 +760,96 @@ ENTRY(wf_fwd, true, true)
 ENTRY(wf_bwd, false, true)
 ENTRY(wf_fwd_lanes, true, false)
 ENTRY(wf_bwd_lanes, false, false)
+// the medium adjoint's launch order on one thread (med_kernel): block by
+// block, each task's 32 threads in turn, their sums through the kernel's
+// shuffle tree (at offset 16, 8, .., 1 lane l adds lane l + off) into
+// partials[task_base[b] + t]; then med_sum's order: 1024 strided sums,
+// then the tree over them
+template <int EST, bool SCAT, bool TONLY, bool TGT>
+void run_med(const WfParams& P, const Target& T, const float* dL,
+             const float* data, const int* ap, const int* order,
+             const int* starts, const int* base, float* grad, float* part,
+             int n_tasks, float* sums) {
+  Grid G;
+  G.init(P);
+  MedSink<TGT> S{{nullptr, dL, nullptr, nullptr, -1, 0.0f, 0, 0, 0, 0}};
+  S.data = data;
+  S.init(P);
+  set_target(S, P, T);
+  for (int b = 0; b < P.resy * P.n_groups; ++b) {
+    int lo, hi, py;
+    block_range(P, starts, b, lo, hi, py);
+    for (int t = 0; t < task_count<false>(P, lo, hi); ++t) {
+      float a[32], c[32];
+      for (int l = 0; l < 32; ++l) {
+        S.stg = S.ssg = 0.0f;
+        const int aidx = trace_task<EST, SCAT, TONLY>(P, G, order, lo, hi, t,
+                                                      l, dL, ap, grad, S);
+        if (aidx >= 0) traced.push_back(aidx);
+        a[l] = S.stg;
+        c[l] = S.ssg;
+      }
+      for (int off = 16; off > 0; off >>= 1)
+        for (int l = 0; l < off; ++l) {
+          a[l] = a[l] + a[l + off];
+          c[l] = c[l] + c[l + off];
+        }
+      part[2 * (base[b] + t)] = a[0];
+      part[2 * (base[b] + t) + 1] = c[0];
+    }
+  }
+  std::vector<float> sa(WF_MED_SUM_THREADS), sb(WF_MED_SUM_THREADS);
+  for (int i = 0; i < WF_MED_SUM_THREADS; ++i) {
+    float x = 0.0f, y = 0.0f;
+    for (int j = i; j < n_tasks; j += WF_MED_SUM_THREADS) {
+      x = x + part[2 * j];
+      y = y + part[2 * j + 1];
+    }
+    sa[i] = x;
+    sb[i] = y;
+  }
+  for (int w = WF_MED_SUM_THREADS / 2; w > 0; w >>= 1)
+    for (int i = 0; i < w; ++i) {
+      sa[i] = sa[i] + sa[i + w];
+      sb[i] = sb[i] + sb[i + w];
+    }
+  sums[0] = sa[0];
+  sums[1] = sb[0];
+}
+template <bool TGT>
+int med_target(const WfParams* p, const Target& tg, const float* dL,
+               const float* data, const int* ap, const int* order,
+               const int* starts, const int* base, float* grad, float* part,
+               int n_tasks, float* sums) {
+  const int key = p->estimator * 4 + (p->has_scattering ? 2 : 0) +
+                  (p->transmission_only ? 1 : 0);
+#define C(E, S, T)                                                        \
+  case E * 4 + (S ? 2 : 0) + (T ? 1 : 0):                                 \
+    run_med<E, S, T, TGT>(*p, tg, dL, data, ap, order, starts, base, grad, \
+                          part, n_tasks, sums);                           \
+    break;
+  switch (key) {
+    C(0, 0, 0) C(0, 0, 1) C(0, 1, 0) C(0, 1, 1) C(1, 0, 0) C(1, 0, 1)
+    C(1, 1, 0) C(1, 1, 1) C(2, 0, 0) C(2, 0, 1) C(2, 1, 0) C(2, 1, 1)
+    default: return 1;
+  }
+#undef C
+  return 0;
+}
+extern "C" int wf_med(const WfParams* p, const WfMesh* M, const float4* tris,
+                      const float* dL, const float* data, const int* ap,
+                      const int* order, const int* starts, const int* base,
+                      float* grad, float* part, int n_tasks, float* sums,
+                      void*) {
+  traced.clear();
+  if (p->residual != ANALOG) return 1;
+  const Target tg{M, tris, nullptr};
+  return p->target ? med_target<true>(p, tg, dL, data, ap, order, starts,
+                                      base, grad, part, n_tasks, sums)
+                   : med_target<false>(p, tg, dL, data, ap, order, starts,
+                                       base, grad, part, n_tasks, sums);
+}
+
 // the active indices the last call traced, in its order
 extern "C" int wf_traced(int* out) {
   for (size_t i = 0; i < traced.size(); ++i) out[i] = traced[i];
@@ -783,7 +874,8 @@ def template_lib(tmp_path_factory):
                             "-o", str(lib)], capture_output=True, text=True)
     assert build.returncode == 0, build.stderr
     lib = ctypes.CDLL(str(lib))
-    for name in wf.KERNELS + wf.RES_KERNELS + (wf.TGT_LIB, wf.RES_TGT_LIB):
+    for name in wf.KERNELS + wf.RES_KERNELS + (wf.TGT_LIB, wf.RES_TGT_LIB,
+                                               wf.MED_LIB):
         wf._setup(lib, name)
     lib.set_tgt_budget.argtypes = [ctypes.c_longlong]
     lib.set_tgt_budget.restype = None
@@ -1892,3 +1984,61 @@ def test_residual_target_mesh_counts_equal_the_plain_grid_walk(template_lib,
         wf.res_forward(_libs(lib), static, at, data, seed, spp, one_stats)
     for k in ("iterations", "steps") + wf.MESH_COUNTERS:
         assert glob_stats[k] == one_stats[k] == ref_stats[k], k
+
+
+# the medium adjoint (csrc/wf_med.cuh): dda, ratio and delta, with and
+# without scattering, reflecting and not, and scenes with mesh surfaces
+# (one-pass target form): a custom vial with an occlusion, a reflective
+# occlusion, a surface-aware target (two channels)
+MED_CASES = [("dda", 0.0, "collimated", "cylindrical", True, None),
+             ("dda", 0.5, "collimated", "double_cylindrical", False, None),
+             ("ratio", 0.0, "lens", "double_cylindrical", True, None),
+             ("ratio", 0.5, "telecentric", "square", False, None),
+             ("delta", 0.5, "lens", "cylindrical", True, None),
+             ("delta", 0.5, "collimated", "square", False, None),
+             ("dda", 0.5, "collimated", "custom+black", True, None),
+             ("ratio", 0.5, "collimated", "cylindrical+reflective", False,
+              None),
+             ("dda", 0.0, "collimated", "cylindrical", True, "surface_aware")]
+
+
+@pytest.mark.parametrize("case", MED_CASES)
+def test_medium_template_traces_the_plain_cotangents(case, template_lib):
+    """The medium adjoint's instantiations in the kernel's launch order
+    (its shuffle tree and its fixed-order sum): (stg, ssg) within 1e-4
+    relative of the plain version's (glibc's expf / logf against torch's;
+    the sums regroup), the pattern gradient bitwise the non-MED adjoint's
+    (wf_bwd: the one-pass target form on the mesh scenes), and the task
+    partials and sums bitwise on two runs."""
+    lib, path = template_lib
+    *scene, target = case
+    static, arr = _scene(path, *scene, target=target)
+    arr.pop("inside_mask", None)
+    static = dataclasses.replace(static, medium_grads=True)
+    at = scene_tensors(arr, "cpu")
+    assert wf.make_params(static, at, 0, 1).target == int(
+        "+" in case[3] or target is not None) * static.sensor.channels
+    rng = np.random.default_rng(21)
+    n = static.projector.n_active
+    data = torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32))
+    dL = torch.from_numpy(rng.uniform(0.0, 1.0, static.sensor.n_cells)
+                          .astype(np.float32))
+    seed, spp = 5, 2
+    pg_ref, stg_ref, ssg_ref = wf._adjoint(static, at, seed, spp,
+                                           wf.DEFAULT_CHUNK, dL, data=data)
+    libs = {wf.MED_LIB: lib}
+    pg, stg, ssg, part = wf.med_adjoint(libs, static, at, dL, data, seed, spp,
+                                        partials=True)
+    assert part.shape[0] == wf.med_tasks(static, at)[1]
+    for ours, ref in ((stg, stg_ref), (ssg, ssg_ref)):
+        assert float(ref) != 0.0
+        assert abs(float(ours) - float(ref)) <= 1e-4 * abs(float(ref)), \
+            (float(ours), float(ref))
+    grad, _ = _run(lib, "wf_bwd", static, at, dL, n, seed, spp)
+    assert torch.equal(pg, grad)
+    point = static.sensor.estimator in ("ratio", "delta")
+    _close(pg, pg_ref, point)
+    pg2, stg2, ssg2, part2 = wf.med_adjoint(libs, static, at, dL, data, seed,
+                                            spp, partials=True)
+    assert torch.equal(part, part2) and torch.equal(pg, pg2)
+    assert torch.equal(torch.stack([stg, ssg]), torch.stack([stg2, ssg2]))
