@@ -211,28 +211,38 @@ Phases (each failure exits non-zero before the result line):
      vial's dose
      against the analytic vial's without the occlusion on the final
      render's patterns (total within 1e-5, at most 1 % of the voxels off
-     by more than 1e-3 of the max). Then the CLI (record
+     by more than 1e-3 of the max); and the medium adjoint on the cell's
+     scene with medium_grads, on the loop's inputs: RenderRaw's backward
+     with the patterns detached and differentiated (the staged wf_med,
+     beside wf_bwd in the second, their launches counted), staged and
+     one-pass (times, bounds, registers and spills, the repeats bitwise,
+     the staged sums bitwise the one-pass ones) and the staged form's
+     (stg, ssg) against the plain version on the same cut. Then the CLI (record
      `cli_custom_occlusion`) on phase 9's telecentric config with a custom
      cuvette, an occlusion and filter_radon.
   15. medium calibration (records `medium_kernel`,
-     `bench_medium_calibration`, `cli_medium`): the medium adjoint
-     wf_med (csrc/wf_med.cu) against its plain version on phase 7's
-     small scenes and on phase 14's custom vial with a black occlusion:
-     (stg, ssg) to 1e-4 relative, the pattern gradient bitwise wf_bwd's
-     (the one-pass target form's on the mesh scene), the task partials
-     and sums bitwise on two launches, times beside wf_bwd's. Then the
-     slice at full width: phase 9's bench scene, its dose recorded by the
-     port's forward at sigma_t 0.05 on phase 9's patterns (else ones),
-     and optimize() calibrating sigma_t from 0.025 with the patterns
-     frozen (sgd, lr 0), the l2 loss and optimize_medium (Adam, lr
-     0.002), 20 steps: sigma_t must end within 0.0125 of 0.05,
+     `bench_medium_calibration`, `cli_medium`): the medium adjoint wf_med
+     (csrc/wf_med.cu: the medium sums alone, the dark pixels skipped)
+     against its plain version on phase 7's small scenes and on phase
+     14's custom vial with a black occlusion (staged and one-pass), on
+     patterns 40 % zero: (stg, ssg) to 1e-4 relative, each CTA's
+     compacted count its emitting pixels, the task slots and sums bitwise
+     on two launches, the adjoint in both (the pattern gradient wf_bwd's,
+     the sums wf_med's) bitwise, times beside wf_bwd's. Then
+     the slice at full width: phase 9's bench scene, its dose recorded by
+     the port's forward at sigma_t 0.05 on phase 9's patterns (else
+     ones), and optimize() calibrating sigma_t from 0.025 with the
+     patterns frozen (sgd, lr 0), the l2 loss and optimize_medium (Adam,
+     lr 0.002), 20 steps: sigma_t must end within 0.0125 of 0.05,
      medium.json be written, wf_med launch once a step, wf_fwd twice a
      step and for the final render, wf_bwd once a step; the wall split,
-     peak memory, wf_med's time, bound and roofline share on the loop's
-     inputs beside wf_bwd's, and (stg, ssg) against the plain version on
-     every 25th angle's pixels. Then the CLI on phase 9's telecentric
-     config with a scattering medium, the delta estimator and
-     optimize_medium with the albedo asked for (medium.json).
+     peak memory; on the loop's inputs the patterns' zero share, wf_med's
+     time, registers and spills, bound (the emitting pixels' counted
+     work) and roofline share beside wf_bwd's, render() differentiated in
+     the patterns too (wf_med beside wf_bwd), and wf_med's (stg, ssg)
+     against the plain version on every 25th angle's pixels. Then the CLI on phase 9's telecentric config with a
+     scattering medium, the delta estimator and optimize_medium with the
+     albedo asked for (medium.json).
 
 Each earlier line is a JSON record; the record `seconds` gives each
 phase's seconds and the script's total; the line before the last lists
@@ -307,7 +317,9 @@ REPLACES = {
                  "mesh_grid.py:117; XLA)",
     "wf_med": "drtvam_tpu/ops/march.py:586, :747, :865 (the want_sigma "
               "branches of dda_segment, ratio_segment and delta_segment, "
-              "summed by trace_wavefront :913-922, :1185-1189; XLA)",
+              "summed by trace_wavefront :913-922, :1185-1189, under "
+              "jax.grad in (sigma_t, albedo), "
+              "drtvam_tpu/opt/optimize.py:453-468; XLA)",
 }
 # wf kernel vs plain wavefront on the card: the same per-lane float32
 # arithmetic rounded op by op (--fmad=false); the forward's atomics sum
@@ -2419,11 +2431,13 @@ WF_RES = ("ANALOG", "SCAT_ONLY", "FIRST_SCATTER", "FAST_RESIDUAL")
 def instantiation(mangled):
     """A readable name for a kernel's mangled symbol: the wavefront
     templates' parameters spelled out, else the symbol itself."""
-    m = re.search(r"med_kernelILi(\d)ELb(\d)ELb(\d)ELb(\d)E", mangled)
+    m = re.search(r"med_kernelILi(\d)ELb(\d)ELb(\d)ELb(\d)E"
+                  r"Li(\d+)ELi(\d+)ELb(\d)E", mangled)
     if m is not None:
-        e, scat, tonly, tgt = (int(x) for x in m.groups())
+        e, scat, tonly, tgt, threads, _, staged = (int(x) for x in m.groups())
         return (f"medium adjoint, {WF_EST[e]}, {'' if scat else '!'}SCAT, "
-                f"{'' if tonly else '!'}TONLY" + (", target" if tgt else ""))
+                f"{'' if tonly else '!'}TONLY" + (", target" if tgt else "")
+                + (f", staged, {threads} threads" if staged else ""))
     m = re.search(r"res_kernelILi(\d)ELi(\d)ELb(\d)ELb(\d)ELb(\d)E"
                   r"(?:Lb(\d)E)?", mangled)
     if m is not None:
@@ -3208,23 +3222,18 @@ def angle_cut(static, arr, x, stride=ANGLE_STRIDE):
     the angles, the chord bank and the launch layout (angle groups, CTAs)
     stay the cell's. The engine's segment buffer and chord table are
     shared with arr; the layouts are built anew."""
-    import dataclasses
     p = static.projector
     idx = arr["active_pixels"].long()
-    keep = (idx // (p.resy * p.resx)) % stride == 0
-    st = dataclasses.replace(static, projector=dataclasses.replace(
-        p, n_active=int(keep.sum()), identity=False))
-    at = {k: v for k, v in arr.items()
-          if k not in ("_wf_layout", "_wf_res_lanes")}
-    at["active_pixels"] = arr["active_pixels"][keep].contiguous()
-    return st, at, x[keep].contiguous()
+    return pixel_cut(static, arr, x,
+                     (idx // (p.resy * p.resx)) % stride == 0)
 
 
 class OnePass:
     """The one-pass target instantiations (wf_fwd.cu / wf_bwd.cu with the
     target, 1024 threads, and the dda residual's path pass wf_res_path
     with the target, 256 threads; the banks in global memory) in place of
-    csrc/wf_target.cu's and csrc/wf_res_target.cu's forms for the
+    csrc/wf_target.cu's and csrc/wf_res_target.cu's forms, and the medium
+    adjoint's one-pass target form in place of its staged one, for the
     duration: the route the scenes took before the target forms, timed
     beside them on the same inputs."""
 
@@ -3232,13 +3241,16 @@ class OnePass:
         self.wf = wf
 
     def __enter__(self):
-        self.routes = (self.wf.tgt_route, self.wf.res_tgt_route)
+        self.routes = (self.wf.tgt_route, self.wf.res_tgt_route,
+                       self.wf.med_route)
         self.wf.tgt_route = lambda *a: False
         self.wf.res_tgt_route = lambda *a: False
+        self.wf.med_route = lambda *a: False
         return self
 
     def __exit__(self, *exc):
-        self.wf.tgt_route, self.wf.res_tgt_route = self.routes
+        (self.wf.tgt_route, self.wf.res_tgt_route,
+         self.wf.med_route) = self.routes
 
 
 def form_time(torch, wf, name, static, at, x, seed, spp, reps=3):
@@ -4183,6 +4195,8 @@ def phase_custom_cell(torch, wf, bp, dev, tmp):
             plain_ms=plain_b, plain_at=CELL_C_CUT_AT, cut=b)
     del ref_f, ref_b, kb
     kern["wf_tgt_walk"] = tgt_walk_check(torch, wf, sc_c, at_c, d_c, 3, 1)
+    kern["medium"] = cell_c_medium(torch, wf, st, at, data, dL, seed, spp,
+                                   (sc_c, at_c, d_c))
     del sc_c, at_c, d_c
     rec["kernels"] = kern
     torch.cuda.empty_cache()
@@ -4229,6 +4243,72 @@ def phase_custom_cell(torch, wf, bp, dev, tmp):
     rec["seconds"] = time.perf_counter() - t_phase
     emit(rec)
     return rec
+
+
+def cell_c_medium(torch, wf, st, at, data, dL, seed, spp, cut):
+    """The medium adjoint on cell (c)'s scene with medium_grads, on the
+    loop's inputs: first through RenderRaw (the patterns detached, then
+    differentiated: wf_med, then wf_med beside wf_bwd), its counts set to
+    0 before and read after, where the staged form must run both times;
+    then staged and one-pass: times, launch shapes, registers and spills,
+    the repeats bitwise, the staged sums bitwise the one-pass ones, bounds
+    from the emitting pixels' work (emitting_work); and on the cut (seed
+    3, spp 1) the staged form's (stg, ssg) against the plain version to
+    MED_TOL."""
+    sm = med_static(st)
+    st_t = at["sigma_t"].detach().clone().requires_grad_(True)
+    al_t = at["albedo"].detach().clone().requires_grad_(True)
+    wf.reset_launches()
+    with torch.enable_grad():
+        for need in (False, True):
+            d = data.detach().clone().requires_grad_(need)
+            raw = wf.RenderRaw.apply(d, st_t, al_t, sm, at, seed, spp, spp,
+                                     wf.DEFAULT_CHUNK)
+            torch.autograd.grad((raw * dL).sum(),
+                                (d, st_t, al_t) if need else (st_t, al_t))
+    out = {"render_raw": {k: v for k, v in wf.form_launches.items() if v},
+           "render_raw_launches": {k: v for k, v in wf.launches.items()
+                                   if v}}
+    if not (wf.form_launches[f"{wf.MED_LIB}:staged"] == 2 and
+            wf.launches[wf.MED_LIB] == 2 and wf.launches["wf_bwd"] == 1):
+        raise AssertionError(f"cell (c) with medium_grads: RenderRaw ran "
+                             f"{out}")
+    n, n_cells = st.projector.n_active, st.sensor.n_cells
+    work = emitting_work(torch, wf, st, at, data, seed, spp)
+    med_ops = MED_DDA_OPS + (MED_SCAT_OPS if st.has_scattering else 0)
+    sc_c, at_c, d_c = cut
+    smc = med_static(sc_c)
+    plain_ms, (_, stg_p, ssg_p) = event_ms(lambda: wf._adjoint(
+        smc, at_c, 3, 1, 1 << 21, dL, data=d_c), torch)
+    out.update(plain_ms=plain_ms, plain_at=CELL_C_CUT_AT,
+               zero_share=float((data == 0).float().mean()), counts=work)
+    for staged in (True, False):
+        with contextlib.nullcontext() if staged else OnePass(wf):
+            r = med_run(torch, wf, sm, at, dL, data, seed, spp, None,
+                        f"cell (c), staged {staged}")
+            r["ms"] = cuda_ms(lambda: wf.wf_med(  # noqa: B023
+                sm, at, dL, data, seed, spp), 3, torch)
+            r["launch"] = wf.kernel_info(wf.MED_LIB, sm, at)
+        r["ptxas"] = med_ptxas(wf, sm, at, staged)
+        r["bound_ms"], r["bound_by"] = med_bound(
+            4 * (n + n_cells), work["steps"], WF_STEP_OPS + med_ops,
+            work["cells"], work["triangles"])
+        r["roofline_share"] = r["bound_ms"] / r["ms"]
+        out["staged" if staged else "one-pass"] = r
+    if (out["staged"]["stg"], out["staged"]["ssg"]) != \
+            (out["one-pass"]["stg"], out["one-pass"]["ssg"]):
+        raise AssertionError(f"wf_med cell (c): the staged sums differ from "
+                             f"the one-pass ones: {out}")
+    stg_c, ssg_c = wf.wf_med(smc, at_c, dL, d_c, 3, 1)
+    out["cut"] = {"stg": float(stg_c), "ssg": float(ssg_c),
+                  "stg_plain": float(stg_p), "ssg_plain": float(ssg_p),
+                  "stg_rel_err": med_rel(stg_c, stg_p),
+                  "ssg_rel_err": med_rel(ssg_c, ssg_p)}
+    if not (out["cut"]["stg_rel_err"] <= MED_TOL and
+            out["cut"]["ssg_rel_err"] <= MED_TOL and float(stg_p) != 0):
+        raise AssertionError(f"wf_med cell (c) on the cut: {out['cut']}")
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_cli_custom(wf, tmp):
@@ -4320,14 +4400,19 @@ def custom_entries(cell):
 # transcendentals against torch's)
 MED_TOL = 1e-4
 # float32 operations of a dda voxel step's medium cotangents beside
-# WF_STEP_OPS (csrc/wf_med.cuh MedSink::dda and add; E, G, dt and exp(-st
-# dt) are the step's own): HG 2 mul (hist em E shared with the last
-# term), c 1 mul, dst 1 add + 5 mul + 2 add, dss 1 div, the two sums 2
-# mul + 2 add
-MED_DDA_OPS = 16
-# and with scattering the n_scat term of dss (c n_scat, / ss, + dss; the
-# test of ss and its max are the launch's constants)
+# WF_STEP_OPS (csrc/wf_med.cuh MedSink::dda and add; G, dt and exp(-st
+# dt) are the step's own, E its running product): HG 2 mul (hist em E
+# shared with the last term), c 1 mul, dst 1 add + 5 mul + 2 add, dss 1
+# mul, the two sums 2 mul + 2 add; less what WF_STEP_OPS counts and the
+# medium adjoint does not do: the deposit's value (base E G, 2 mul) and
+# the pattern gradient's g + value dL (mul, add)
+MED_DDA_OPS = 12
+# and with scattering the n_scat term of dss (c n_scat, x 1 / ss, + dss;
+# the test of ss and its reciprocal are the launch's constants)
 MED_SCAT_OPS = 3
+# the small scenes' patterns: this share of them 0 (the medium adjoint
+# skips those pixels)
+MED_DARK_SHARE = 0.4
 # the bench calibration cell: the bench medium's sigma_t is recorded,
 # the calibration starts at half of it; Adam's learning rate (a step of
 # about lr while the gradient keeps its sign: the 0.025 to close in ~12
@@ -4350,13 +4435,100 @@ def med_rel(ours, ref):
     return abs(float(ours) - float(ref)) / max(abs(float(ref)), 1e-30)
 
 
+def dark_patterns(torch, n, seed, dev, share=MED_DARK_SHARE):
+    """Patterns in [0.5, 1.5) with about `share` of them exactly 0 (numpy,
+    seeded), on dev."""
+    rng = np.random.default_rng(seed)
+    data = rng.uniform(0.5, 1.5, n).astype(np.float32)
+    data[rng.uniform(0.0, 1.0, n) < share] = 0.0
+    return torch.from_numpy(data).to(dev)
+
+
+def emitting_counts(torch, wf, static, at, data):
+    """Each launch-order CTA's pixels whose emitted intensity data ray_w
+    is not 0 (what the medium adjoint traces), and their share."""
+    order, starts = wf.block_order(static, at)
+    em = data * float(wf.make_params(static, at, 0, 1).ray_w)
+    e = (em[order.long()] != 0).to(torch.int64).cumsum(0)
+    e = torch.cat([torch.zeros((1,), dtype=torch.int64, device=e.device), e])
+    starts = starts.long().to(e.device)
+    return e[starts[1:]] - e[starts[:-1]], int(e[-1]) / max(data.numel(), 1)
+
+
+def pixel_cut(static, arr, x, keep):
+    """(static, scene tensors, per-pixel input) cut to the active pixels
+    where keep, as a sparse store over the same n_patterns; their lane ids
+    are their new indices. The engine's segment buffer and chord table
+    are shared with arr; the layouts are built anew."""
+    import dataclasses
+    p = static.projector
+    st = dataclasses.replace(static, projector=dataclasses.replace(
+        p, n_active=int(keep.sum()), identity=False))
+    at = {k: v for k, v in arr.items()
+          if k not in ("_wf_layout", "_wf_res_lanes")}
+    at["active_pixels"] = arr["active_pixels"][keep].contiguous()
+    return st, at, x[keep].contiguous()
+
+
+def emitting_work(torch, wf, static, at, data, seed, spp):
+    """The work of the medium adjoint's launch: the voxel steps, grid
+    cells and triangle tests of the emitting pixels' lanes, from the
+    one-pass wf_fwd's counting launch on the patterns (the forward skips
+    the pixels with em = 0 and walks the others' lanes as the adjoint
+    replays them). Held first: on ones, its counts equal the one-pass
+    wf_bwd's, which walks every pixel. Raises on a miss."""
+    ones, bwd, fwd = torch.ones_like(data), {}, {}
+    with OnePass(wf):
+        wf.wf_bwd(static, at, torch.zeros((static.sensor.n_cells,),
+                                          device=data.device), seed, spp,
+                  bwd)
+        wf.wf_fwd(static, at, ones, seed, spp, fwd)
+        keys = [k for k in ("steps", "cells", "triangles") if k in bwd]
+        if any(fwd[k] != bwd[k] for k in keys):
+            raise AssertionError(f"emitting_work: wf_fwd on ones {fwd}, "
+                                 f"wf_bwd {bwd}")
+        work = {}
+        wf.wf_fwd(static, at, data, seed, spp, work)
+    return {k: work.get(k, 0) for k in ("steps", "cells", "triangles")}
+
+
+def med_run(torch, wf, static, at, dL, data, seed, spp, ref, what=""):
+    """The medium adjoint on the inputs, twice: its (stg, ssg) against the
+    plain sums ref to MED_TOL (None: not held), the two launches bitwise
+    (slots, sums, counts), each CTA's count its emitting pixels
+    (emitting_counts). Raises on a miss; returns the record."""
+    (stg, ssg, part, count), (stg2, ssg2, part2, count2) = [
+        wf.wf_med(static, at, dL, data, seed, spp, True) for _ in range(2)]
+    want, share = emitting_counts(torch, wf, static, at, data)
+    rec = {"stg": float(stg), "ssg": float(ssg),
+           "bitwise_repeat": bool(
+               torch.equal(part, part2) and float(stg) == float(stg2) and
+               float(ssg) == float(ssg2) and torch.equal(count, count2)),
+           "emitting_share": share,
+           "tasks": int(((count.long() + 31) // 32).sum()),
+           "tasks_all_pixels": int(part.shape[0]),
+           "counts_equal_emitting": bool(torch.equal(
+               count.long(), want.to(count.device)))}
+    ok = rec["bitwise_repeat"] and rec["counts_equal_emitting"]
+    if ref is not None:
+        rec["stg_rel_err"] = med_rel(stg, ref[0])
+        rec["ssg_rel_err"] = med_rel(ssg, ref[1])
+        ok = ok and rec["stg_rel_err"] <= MED_TOL and \
+            rec["ssg_rel_err"] <= MED_TOL and float(ref[0]) != 0.0
+    if not ok:
+        raise AssertionError(f"wf_med {what}: {rec}")
+    return rec
+
+
 def phase_medium_kernels(torch, wf, dev, tmp):
     """The medium adjoint (wf_med) against its plain version on phase 7's
     small scenes and on phase 14's custom vial with a black occlusion
-    (spp 4): (stg, ssg) to MED_TOL relative; the pattern gradient bitwise
-    wf_bwd's (the one-pass target form's on the mesh scene); the task
-    partials, the sums and the pattern gradient bitwise on two launches;
-    times beside wf_bwd's on the same inputs."""
+    (spp 4), on patterns with MED_DARK_SHARE of them 0: (stg, ssg) to
+    MED_TOL relative; each CTA's compacted count its emitting pixels; two
+    launches bitwise; on the mesh scene staged and one-pass, their sums
+    bitwise equal; the adjoint a caller differentiating the patterns too
+    gets (ops/render.py adjoint with data): wf_bwd's pattern gradient and
+    wf_med's sums, bitwise; times beside wf_bwd's."""
     from drtvam_tpu_torch.ops.march import scene_tensors
     spp, seed, chunk = 4, 11, wf.DEFAULT_CHUNK
     scenes = {c: wf_small_scene(tmp, *spec) for c, spec in WF_CASES.items()}
@@ -4366,53 +4538,79 @@ def phase_medium_kernels(torch, wf, dev, tmp):
     for k, (case, (static, arr)) in enumerate(scenes.items()):
         static = med_static(static)
         at = scene_tensors(arr, dev)
-        rng = np.random.default_rng(100 + k)
         n = static.projector.n_active
-        data = torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(
-            np.float32)).to(dev)
-        dL = torch.from_numpy(rng.uniform(0.0, 1.0, static.sensor.n_cells)
-                              .astype(np.float32)).to(dev)
-        pg, stg, ssg, part = wf.wf_med(static, at, dL, data, seed, spp, True)
-        pg2, stg2, ssg2, part2 = wf.wf_med(static, at, dL, data, seed, spp,
-                                           True)
-        with OnePass(wf):
-            bwd = wf.wf_bwd(static, at, dL, seed, spp)
-        pg_p, stg_p, ssg_p = wf._adjoint(static, at, seed, spp, chunk, dL,
-                                         data=data)
-        torch.cuda.synchronize()
+        data = dark_patterns(torch, n, 100 + k, dev)
+        dL = torch.from_numpy(np.random.default_rng(200 + k).uniform(
+            0.0, 1.0, static.sensor.n_cells).astype(np.float32)).to(dev)
+        plain_ms, (_, stg_p, ssg_p) = event_ms(lambda: wf._adjoint(
+            static, at, seed, spp, chunk, dL, data=data), torch)
+        ref = (stg_p, ssg_p)
+        mesh = wf.make_params(static, at, 0, 1).target != 0
         rec = {"phase": "medium_kernel", "case": case, "spp": spp,
-               "lanes": n * spp, "target": wf.make_params(
-                   static, at, 0, 1).target,
-               "stg": float(stg), "ssg": float(ssg),
+               "lanes": n * spp, "target": int(mesh),
+               "zero_share": float((data == 0).float().mean()),
                "stg_plain": float(stg_p), "ssg_plain": float(ssg_p),
-               "stg_rel_err": med_rel(stg, stg_p),
-               "ssg_rel_err": med_rel(ssg, ssg_p),
-               "pattern_bitwise_wf_bwd": bool(torch.equal(pg, bwd)),
-               "bitwise_repeat": bool(torch.equal(pg, pg2) and
-                                      torch.equal(part, part2) and
-                                      float(stg) == float(stg2) and
-                                      float(ssg) == float(ssg2)),
-               "tasks": int(part.shape[0])}
-        rec["pattern"] = wf_compare(f"wf_med {case}", pg, pg_p,
-                                    static.sensor.estimator in ("ratio",
-                                                                "delta"))
-        if not (rec["stg_rel_err"] <= MED_TOL and
-                rec["ssg_rel_err"] <= MED_TOL and float(stg_p) != 0.0):
-            raise AssertionError(f"wf_med {case}: (stg, ssg) {rec}")
-        if not rec["pattern_bitwise_wf_bwd"]:
-            raise AssertionError(f"wf_med {case}: the pattern gradient "
-                                 "differs from wf_bwd's")
-        if not rec["bitwise_repeat"]:
-            raise AssertionError(f"wf_med {case}: two launches differ")
-        rec["ms"] = cuda_ms(lambda: wf.wf_med(static, at, dL, data, seed,
-                                              spp), 5, torch)
+               "plain_ms": plain_ms}
+        rec.update(med_run(torch, wf, static, at, dL, data, seed, spp, ref,
+                           what=case))
+        rec["staged"] = wf.med_route(wf._card_libs(dL), static, at)
+        rec["ms"] = cuda_ms(lambda: wf.wf_med(  # noqa: B023
+            static, at, dL, data, seed, spp), 5, torch)  # noqa: B023
+        pg, stg, ssg = wf.adjoint(static, at, seed, spp, chunk, dL,
+                                  data=data)
+        rec["both_bitwise"] = bool(
+            torch.equal(pg, wf.wf_bwd(static, at, dL, seed, spp)) and
+            float(stg) == rec["stg"] and float(ssg) == rec["ssg"])
+        if not rec["both_bitwise"]:
+            raise AssertionError(f"wf_med {case}: the adjoint in both is not "
+                                 "wf_bwd's and wf_med's")
+        if mesh:
+            if not rec["staged"]:
+                raise AssertionError(f"wf_med {case}: the staged form does "
+                                     "not take the mesh scene")
+            with OnePass(wf):
+                r = med_run(torch, wf, static, at, dL, data, seed, spp, ref,
+                            case + " one-pass")
+            r["bitwise_staged"] = r["stg"] == rec["stg"] and \
+                r["ssg"] == rec["ssg"]
+            if not r["bitwise_staged"]:
+                raise AssertionError(f"wf_med {case}: the one-pass form's "
+                                     "sums differ from the staged")
+            rec["one_pass"] = r
         rec["wf_bwd_ms"] = cuda_ms(lambda: wf.wf_bwd(static, at, dL, seed,
                                                      spp), 5, torch)
-        rec["plain_ms"] = event_ms(lambda: wf._adjoint(
-            static, at, seed, spp, chunk, dL, data=data), torch)[0]
         emit(rec)
         out[case] = rec
     return out
+
+
+def med_ptxas(wf, static, at, staged=False):
+    """Registers and spills of the medium adjoint's instantiation that runs
+    (static, at), from its library's build log."""
+    P = wf.make_params(static, at, 0, 1)
+    name = (f"medium adjoint, {WF_EST[P.estimator]}, "
+            f"{'' if P.has_scattering else '!'}SCAT, "
+            f"{'' if P.transmission_only else '!'}TONLY"
+            + (", target" if P.target else "")
+            + (", staged" if staged else ""))
+    each = ptxas_summary(wf.MED_LIB)["each"]
+    hit = {k: v for k, v in each.items()
+           if k == name or (staged and k.startswith(name + ","))}
+    if len(hit) != 1:
+        raise AssertionError(f"ptxas: {name} not in the build log")
+    return dict(next(iter(hit.values())), instantiation=next(iter(hit)))
+
+
+def med_bound(n_bytes, steps, ops_per_step, cells=0, triangles=0):
+    """Least time on the card: the compulsory bytes at the HBM rate, or
+    ops_per_step float32 operations a voxel step (and with mesh surfaces
+    CULL_CELL_OPS a grid cell of their walks, CULL_TRI_OPS a triangle
+    test) at the float32 peak."""
+    byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    op_ms = (ops_per_step * steps + CULL_CELL_OPS * cells +
+             CULL_TRI_OPS * triangles) / F32_FLOPS * 1e3
+    return max(byte_ms, op_ms), ("operations" if op_ms >= byte_ms
+                                 else "bytes")
 
 
 def phase_medium_cell(torch, wf, bp, dev, tmp):
@@ -4423,12 +4621,16 @@ def phase_medium_cell(torch, wf, bp, dev, tmp):
     dose_npy, then optimize() from MED_ST_INIT with the patterns frozen
     (sgd, lr 0), the l2 loss and optimize_medium {sigma_t, lr MED_LR},
     MED_STEPS steps. Gates: sigma_t within half the initial error of the
-    truth, medium.json written, wf_med launched once a step, wf_fwd twice
-    a step and for the final render, wf_bwd once a step. Then on the
-    loop's inputs (the patterns, the l2 loss's dL at the calibrated
-    medium and the last step's seed) wf_med's time, bound and roofline
-    share beside wf_bwd's, and its (stg, ssg) against the plain version
-    on every MED_CUT_STRIDE-th angle's pixels (the cell's launch layout)."""
+    truth, medium.json written, the medium adjoint (wf_med) launched once
+    a step, wf_fwd twice a step and for the final render, wf_bwd once a
+    step. Then on the loop's inputs (the patterns, the l2 loss's dL at
+    the calibrated medium and the last step's seed): the patterns' zero
+    share; wf_med's and wf_bwd's times, registers and spills, bounds
+    (wf_med's from the emitting pixels' work, emitting_work) and roofline
+    shares, the repeats bitwise; render() differentiated in the patterns
+    too (wf_med beside wf_bwd, its counts read around that call); and
+    wf_med's (stg, ssg) against the plain version on every
+    MED_CUT_STRIDE-th angle's pixels (the cell's launch layout)."""
     from drtvam_tpu_torch.models.scene import Scene
     from drtvam_tpu_torch.opt.loss import losses
     from drtvam_tpu_torch.ops.march import scene_tensors
@@ -4469,6 +4671,7 @@ def phase_medium_cell(torch, wf, bp, dev, tmp):
     bp.reset_launches()
     vol, timings, wall, peak = optimize_on_card(torch, dev, cal)
     counts, bp_counts = dict(wf.launches), dict(bp.launches)
+    forms = {k: v for k, v in wf.form_launches.items() if v}
     loss, steps = run_history(cal["output"])
     with open(os.path.join(cal["output"], "medium.json")) as f:
         med = json.load(f)
@@ -4477,8 +4680,9 @@ def phase_medium_cell(torch, wf, bp, dev, tmp):
            "lr": MED_LR, "steps_run": steps, "medium": med,
            "sigma_t_err": abs(med["sigma_t"] - MED_ST_TRUE),
            "loss_first": float(loss[0]), "loss_last": float(loss[steps - 1]),
-           "launches": counts, "bp_launches": bp_counts,
-           "peak_mem_gb": peak, **phase_times(timings, wall)}
+           "launches": counts, "form_launches": forms,
+           "bp_launches": bp_counts, "peak_mem_gb": peak,
+           **phase_times(timings, wall)}
     if not (np.isfinite(vol).all() and vol.shape == static.sensor.shape):
         raise AssertionError("the calibration's final render is not a "
                              "finite dose of the film's shape")
@@ -4487,9 +4691,9 @@ def phase_medium_cell(torch, wf, bp, dev, tmp):
                              f"{med['sigma_t']}, true {MED_ST_TRUE}")
     want = {wf.MED_LIB: steps, "wf_fwd": 2 * steps + 1, "wf_bwd": steps}
     if any(counts[k] != v for k, v in want.items()) or \
-            any(bp_counts.values()):
-        raise AssertionError(f"calibration launches {counts}, {bp_counts}; "
-                             f"expected {want}")
+            any(bp_counts.values()) or forms:
+        raise AssertionError(f"calibration launches {counts}, {bp_counts}, "
+                             f"{forms}; expected {want}")
 
     # the loop's inputs: the patterns, dL of the l2 loss at the calibrated
     # medium and the last step's seed
@@ -4500,54 +4704,70 @@ def phase_medium_cell(torch, wf, bp, dev, tmp):
     at = scene_tensors(arr, dev)
     seed = steps - 1
     target = torch.from_numpy(np.load(dose_path)).to(dev)
+    l2 = losses["l2"]({})
     v = wf.render(static, at, data, inv_vol, seed, 1).requires_grad_(True)
     with torch.enable_grad():
-        (dvol,) = torch.autograd.grad(losses["l2"]({})(v, target, data), v)
+        (dvol,) = torch.autograd.grad(l2(v, target, data), v)
     dL = (dvol * inv_vol).reshape(-1).contiguous()
-    del v, dvol, target
+    del v, dvol
     stats = {}
     wf.wf_bwd(static, at, dL, seed, 1, stats)
-    pg, stg, ssg, part = wf.wf_med(static, at, dL, data, seed, 1, True)
-    pg2, stg2, ssg2, part2 = wf.wf_med(static, at, dL, data, seed, 1, True)
-    bwd = wf.wf_bwd(static, at, dL, seed, 1)
     n, n_cells = static.projector.n_active, static.sensor.n_cells
-    ms = cuda_ms(lambda: wf.wf_med(static, at, dL, data, seed, 1), 3, torch)
-    bwd_ms = cuda_ms(lambda: wf.wf_bwd(static, at, dL, seed, 1), 3, torch)
-    byte_ms = 4 * (2 * n + n_cells) / HBM_BYTES_PER_S * 1e3
-    med_ops = MED_DDA_OPS + (MED_SCAT_OPS if static.has_scattering else 0)
-    op_ms = (WF_STEP_OPS + med_ops) * stats["steps"] / F32_FLOPS * 1e3
-    bwd_bound = wf_bound(4 * (n + n_cells), stats["steps"])[0]
-    k = {"ms": ms, "bound_ms": max(byte_ms, op_ms),
-         "bound_by": "operations" if op_ms >= byte_ms else "bytes",
-         "steps": stats["steps"], "ops_per_step": WF_STEP_OPS + med_ops,
-         "wf_bwd_ms": bwd_ms,
-         "wf_bwd_bound_ms": bwd_bound, "stg": float(stg), "ssg": float(ssg),
-         "tasks": int(part.shape[0]),
-         "launch": wf.kernel_info(wf.MED_LIB, static, at),
-         "pattern_bitwise_wf_bwd": bool(torch.equal(pg, bwd)),
-         "bitwise_repeat": bool(torch.equal(pg, pg2) and
-                                torch.equal(part, part2) and
-                                float(stg) == float(stg2) and
-                                float(ssg) == float(ssg2))}
-    k["roofline_share"] = k["bound_ms"] / ms
-    k["wf_bwd_roofline_share"] = bwd_bound / bwd_ms
-    if not (k["pattern_bitwise_wf_bwd"] and k["bitwise_repeat"]):
-        raise AssertionError(f"wf_med on the cell's inputs: {k}")
-    del pg, pg2, bwd, part, part2
+    work = emitting_work(torch, wf, static, at, data, seed, 1)
+    k = {"zero_share": float((data == 0).float().mean()),
+         "steps": stats["steps"], "emitting_steps": work["steps"]}
+    # on the cell's inputs: the repeats and the counts (the plain
+    # version's sums are held on the cut)
+    mk = med_run(torch, wf, static, at, dL, data, seed, 1, None,
+                 "the cell's inputs")
+    ops = WF_STEP_OPS + MED_DDA_OPS + (MED_SCAT_OPS if static.has_scattering
+                                       else 0)
+    b, by = med_bound(4 * (n + n_cells), work["steps"], ops)
+    mk.update(ms=cuda_ms(lambda: wf.wf_med(static, at, dL, data, seed, 1),
+                         3, torch),
+              bound_ms=b, bound_by=by, ops_per_step=ops,
+              launch=wf.kernel_info(wf.MED_LIB, static, at),
+              ptxas=med_ptxas(wf, static, at))
+    mk["roofline_share"] = b / mk["ms"]
+    k["wf_med"] = mk
+    k["wf_bwd_ms"] = cuda_ms(lambda: wf.wf_bwd(static, at, dL, seed, 1), 3,
+                             torch)
+    k["wf_bwd_bound_ms"] = wf_bound(4 * (n + n_cells), stats["steps"])[0]
+    k["wf_bwd_roofline_share"] = k["wf_bwd_bound_ms"] / k["wf_bwd_ms"]
+
+    # render() differentiated in the patterns too: wf_med beside wf_bwd,
+    # the launches counted
+    st_t = at["sigma_t"].detach().clone().requires_grad_(True)
+    al_t = at["albedo"].detach().clone().requires_grad_(True)
+    d_t = data.detach().clone().requires_grad_(True)
+    wf.reset_launches()
+    with torch.enable_grad():
+        v = wf.render(static, at, d_t, inv_vol, seed, 1, medium=(st_t, al_t))
+        g = torch.autograd.grad(l2(v, target, d_t), (d_t, st_t, al_t))
+    k["render_both"] = {"launches": {n_: c for n_, c in wf.launches.items()
+                                     if c},
+                        "d_sigma_t": float(g[1]), "d_albedo": float(g[2])}
+    if wf.launches[wf.MED_LIB] != 1 or wf.launches["wf_bwd"] != 1 or \
+            not torch.isfinite(g[0]).all():
+        raise AssertionError(f"render() differentiated in the patterns and "
+                             f"the medium: {k['render_both']}")
+    del v, g, d_t, target
     torch.cuda.empty_cache()
+
+    # wf_med against the plain version on the cut
     st_c, at_c, d_c = angle_cut(static, at, data, MED_CUT_STRIDE)
-    _, stg_c, ssg_c = wf.wf_med(st_c, at_c, dL, d_c, seed, 1)
     plain_ms, (_, stg_p, ssg_p) = event_ms(lambda: wf._adjoint(
         st_c, at_c, seed, 1, 1 << 22, dL, data=d_c), torch)
     k["cut"] = {"at": f"every {MED_CUT_STRIDE}th of the 400 angles, full "
                       "DMD and film, the cell's launch layout",
                 "lanes": st_c.projector.n_active, "plain_ms": plain_ms,
-                "stg": float(stg_c), "ssg": float(ssg_c),
-                "stg_plain": float(stg_p), "ssg_plain": float(ssg_p),
-                "stg_rel_err": med_rel(stg_c, stg_p),
-                "ssg_rel_err": med_rel(ssg_c, ssg_p)}
+                "stg_plain": float(stg_p), "ssg_plain": float(ssg_p)}
+    stg_c, ssg_c = wf.wf_med(st_c, at_c, dL, d_c, seed, 1)
+    k["cut"].update(stg=float(stg_c), ssg=float(ssg_c),
+                    stg_rel_err=med_rel(stg_c, stg_p),
+                    ssg_rel_err=med_rel(ssg_c, ssg_p))
     if not (k["cut"]["stg_rel_err"] <= MED_TOL and
-            k["cut"]["ssg_rel_err"] <= MED_TOL):
+            k["cut"]["ssg_rel_err"] <= MED_TOL and float(stg_p) != 0):
         raise AssertionError(f"wf_med on the cut: {k['cut']}")
     rec["kernel"] = k
     emit(rec)
@@ -4581,30 +4801,48 @@ def phase_cli_medium(wf, tmp):
     return counts
 
 
-def medium_entry(kern, cell):
-    """The kernels line's entry of the medium adjoint."""
-    k = cell["kernel"]
-    return {
-        "name": "wf_med", "route": "cuda",
-        "source": "drtvam_tpu_torch/csrc/wf_med.cu + wf_med.cuh + "
-                  "wf_trace.cuh",
+def medium_entries(kern, cell, cell_c):
+    """The kernels line's entries of the medium adjoint: on the calibration
+    cell's loop (its main path), and staged through RenderRaw on cell
+    (c)'s scene with medium_grads (phase 14)."""
+    k, cut = cell["kernel"], cell["kernel"]["cut"]
+    f = k["wf_med"]
+    med_c = cell_c["kernels"]["medium"]
+    fc, cutc = med_c["staged"], med_c["cut"]
+    src = "drtvam_tpu_torch/csrc/wf_med.cu + wf_med.cuh + wf_trace.cuh"
+    return [{
+        "name": "wf_med", "route": "cuda", "source": src,
         "replaces": REPLACES["wf_med"],
         "launches": cell["launches"]["wf_med"],
         "path": "optimize() with optimize_medium on the bench scene "
                 "(sigma_t calibration on a recorded dose, the patterns "
                 "frozen)",
-        "ms": k["ms"], "plain_ms": k["cut"]["plain_ms"],
-        "plain_at": k["cut"]["at"],
-        "max_abs_err": max(abs(k["cut"]["stg"] - k["cut"]["stg_plain"]),
-                           abs(k["cut"]["ssg"] - k["cut"]["ssg_plain"])),
-        "rel_err": max(k["cut"]["stg_rel_err"], k["cut"]["ssg_rel_err"]),
-        "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-        "roofline_share": k["roofline_share"], "library_ms": None,
-        "wf_bwd_ms": k["wf_bwd_ms"], "bitwise_repeat": k["bitwise_repeat"],
-        "launch": k["launch"],
+        "ms": f["ms"], "plain_ms": cut["plain_ms"], "plain_at": cut["at"],
+        "max_abs_err": max(abs(cut["stg"] - cut["stg_plain"]),
+                           abs(cut["ssg"] - cut["ssg_plain"])),
+        "rel_err": max(cut["stg_rel_err"], cut["ssg_rel_err"]),
+        "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
+        "roofline_share": f["roofline_share"], "library_ms": None,
+        "wf_bwd_ms": k["wf_bwd_ms"], "zero_share": k["zero_share"],
+        "bitwise_repeat": f["bitwise_repeat"], "launch": f["launch"],
+        "ptxas": f["ptxas"],
         "small_scenes": {c: {x: r[x] for x in (
-            "ms", "wf_bwd_ms", "plain_ms", "stg_rel_err", "ssg_rel_err")}
-            for c, r in kern.items()}}
+            "ms", "stg_rel_err", "ssg_rel_err")} for c, r in kern.items()}
+    }, {
+        "name": "wf_med:staged", "route": "cuda", "source": src,
+        "replaces": REPLACES["wf_med"],
+        "launches": med_c["render_raw"]["wf_med:staged"],
+        "path": "RenderRaw on cell (c)'s loop inputs with medium_grads "
+                "(the mesh vial's banks staged)",
+        "ms": fc["ms"], "one_pass_ms": med_c["one-pass"]["ms"],
+        "plain_ms": med_c["plain_ms"], "plain_at": med_c["plain_at"],
+        "max_abs_err": max(abs(cutc["stg"] - cutc["stg_plain"]),
+                           abs(cutc["ssg"] - cutc["ssg_plain"])),
+        "rel_err": max(cutc["stg_rel_err"], cutc["ssg_rel_err"]),
+        "bound_ms": fc["bound_ms"], "bound_by": fc["bound_by"],
+        "roofline_share": fc["roofline_share"], "library_ms": None,
+        "bitwise_repeat": fc["bitwise_repeat"], "launch": fc["launch"],
+        "ptxas": fc["ptxas"]}]
 
 
 class Laps:
@@ -4889,7 +5127,7 @@ def main():
                                                   "max_abs_err")}
                           for c, r in cullk.items() if r["name"] == n}}
         for n in wf.CULL_KERNELS] + target_entries(cells) +
-        custom_entries(cell_c) + [medium_entry(med_kern, med_cell)]})
+        custom_entries(cell_c) + medium_entries(med_kern, med_cell, cell_c)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -17,11 +17,13 @@
 //                          one pattern-gradient value per pixel, summed
 //                          over its lanes in lane order: bitwise
 //                          reproducible.
-// wf_med.cu runs the adjoint with the medium cotangents through its own
-// kernel (wf_med.cuh): its sink (MED) also sums each deposit's
-// d / d sigma_t and d / d sigma_s, from the segment's history and the
-// deposit's factors the template hands it (DdaWalk::step, ratio_segment,
-// the delta deposit); every other sink compiles none of it.
+// wf_med.cu runs the adjoint's paths for the medium cotangents alone
+// through wf_kernel's CTA (wf_cta) with its own sink (wf_med.cuh
+// MedSink, MED): it sums each deposit's d / d sigma_t and d / d sigma_s,
+// from the segment's history and the deposit's factors the template
+// hands it (DdaWalk::step, ratio_segment, the delta deposit), and
+// replaces the CTA's task hooks (Sink::begin, Sink::task); every other
+// sink compiles none of it.
 // Two more, wf_res_fwd.cu and wf_res_bwd.cu, instantiate it in the hybrid
 // engine's residual modes (template parameter RES, see below) through the
 // residual family's own kernels (wf_residual.cuh). The DMD-pixel culling
@@ -527,6 +529,9 @@ struct Sink {
   MeshBanks banks = {nullptr, nullptr, nullptr};
   const unsigned char* mask = nullptr;
   MeshCount mc = {0, 0, 0, 0};
+  // COUNT: the lane slots the CTA's warps spent (32 a step of a task's
+  // longest lane)
+  unsigned long long slots = 0;
 
   __device__ __forceinline__ void iter() {
     if (COUNT) ++iters;
@@ -534,6 +539,20 @@ struct Sink {
   __device__ __forceinline__ void step() {
     if (COUNT) ++steps;
   }
+  // The CTA's task loop (wf_cta) through two hooks, which a sink may
+  // replace (the medium adjoint's, wf_med.cuh MedSink); defined with
+  // wf_cta. begin: the CTA's task count, after the barrier that publishes
+  // its task counter; task: task t's work for lane l (trace_task, and
+  // with COUNT the warp's lane slots)
+  template <int THREADS>
+  __device__ __forceinline__ unsigned begin(const WfParams& P,
+                                            const int* order, int lo,
+                                            int hi);
+  template <int EST, bool SCAT, bool TONLY>
+  __device__ __forceinline__ void task(const WfParams& P, const Grid& G,
+                                       const int* order, int lo, int hi,
+                                       int t, int l, const float* in,
+                                       const int* active_pixels, float* out);
   // the tile index of voxel (vx, vy, vz) of the grid, or -1
   __device__ __forceinline__ int slot(int vx, int vy, int vz) const {
     if (!PRIMAL || vz != home) return -1;
@@ -684,9 +703,10 @@ struct DdaWalk {
           voxel[0] < G.res[0] && voxel[1] < G.res[1] && voxel[2] < G.res[2];
     if (act) t = t + dt;
     if constexpr (SinkT::MED) {
-      // the same deposit with its factors E = exp(-st t) and G = 1 -
-      // exp(-st dt) kept for the medium cotangents
-      const float E = expf(-st * t_at);
+      // the deposit's factors E = exp(-st t) and G = 1 - exp(-st dt)
+      // for the medium cotangents; the sink carries E as a running
+      // product of exp(-st dt) from the walk's start (MedSink::walk, dda)
+      const float E = S.E;
       const float dtc = mx(dt, 0.0f);
       const float expdt = expf(-st * dtc);
       const float Gf = 1.0f - expdt;
@@ -712,6 +732,7 @@ __device__ __forceinline__ void dda_walk(const WfParams& P, const Grid& G,
                                          float maxt, float base, float st) {
   DdaWalk w;
   if (!w.init(P, G, o, d, maxt)) return;
+  if constexpr (SinkT::MED) S.walk(st, w.t);
   while (w.step(P, G, S, base, st)) {
   }
 }
@@ -1276,10 +1297,8 @@ __device__ __forceinline__ int trace_task(const WfParams& P, const Grid& G,
   const int j = lo + 32 * t + l;
   if (j >= hi) return -1;
   const int aidx = lane_aidx(P, order, j);
-  // the adjoint's deposits take no em; the medium cotangents the
-  // emitted intensity (pattern value x ray weight)
+  // the adjoint's deposits take no em
   float em = 1.0f;
-  if constexpr (SinkT::MED) em = S.data[aidx] * P.ray_w;
   float gsum = 0.0f;
   for (int k = 0; k < P.spp; ++k) {
     S.g = 0.0f;
@@ -1365,6 +1384,34 @@ __device__ __forceinline__ void add_counters(
   }
 }
 
+// Sink's task hooks (declared with it): the task counter published, the
+// CTA's tasks; task t by trace_task and, with COUNT, the lane slots a
+// warp spends, 32 on each step of its longest lane
+template <bool PRIMAL_, bool COUNT_, bool TGT_, bool STAGED_>
+template <int THREADS>
+__device__ __forceinline__ unsigned Sink<PRIMAL_, COUNT_, TGT_, STAGED_>::begin(
+    const WfParams& P, const int*, int lo, int hi) {
+  __syncthreads();
+  return (unsigned)task_count<PRIMAL>(P, lo, hi);
+}
+template <bool PRIMAL_, bool COUNT_, bool TGT_, bool STAGED_>
+template <int EST, bool SCAT, bool TONLY>
+__device__ __forceinline__ void Sink<PRIMAL_, COUNT_, TGT_, STAGED_>::task(
+    const WfParams& P, const Grid& G, const int* order, int lo, int hi, int t,
+    int l, const float* in, const int* active_pixels, float* out) {
+  const unsigned long long s0 = steps;
+  trace_task<EST, SCAT, TONLY>(P, G, order, lo, hi, t, l, in, active_pixels,
+                               out, *this);
+  if (COUNT) {
+    unsigned long long d = steps - s0;
+    for (int off = 16; off > 0; off >>= 1) {
+      const unsigned long long o = __shfl_xor_sync(0xffffffffu, d, off);
+      d = o > d ? o : d;
+    }
+    if (l == 0) slots += 32 * d;
+  }
+}
+
 // One CTA of THREADS threads per (DMD row, angle group); its warps take
 // 32 neighbouring positions of the CTA's range at a time from a counter
 // in shared memory. The forward's dynamic shared memory holds the tile's
@@ -1375,17 +1422,18 @@ __device__ __forceinline__ void add_counters(
 // ANALOG): the residual family has its own kernels (wf_residual.cuh). TGT:
 // the scene keeps the target, M its mesh, tris the triangle rows its
 // tests read (ops/render.py cull_rows), in global memory, or STAGED in the
-// adjoint's dynamic shared memory (wf_target.cuh)
-template <int EST, bool SCAT, bool TONLY, int RES, bool PRIMAL, bool COUNT,
-          bool TGT, int THREADS = WF_THREADS, int MIN_CTAS = 1,
-          bool STAGED = false>
-__global__ void __launch_bounds__(THREADS, MIN_CTAS)
-    wf_kernel(const WfParams P, const __grid_constant__ WfMesh M,
-              const float4* __restrict__ tris, const float* __restrict__ in,
-              const int* __restrict__ active_pixels,
-              const int* __restrict__ order, const int* __restrict__ starts,
-              const int4* __restrict__ rows, float* __restrict__ out,
-              unsigned long long* __restrict__ counters) {
+// adjoint's dynamic shared memory (wf_target.cuh). SinkT: the sink, its
+// task hooks the CTA's loop (Sink::begin, Sink::task); bind: the sink's
+// own launch arguments, each handed to its bind() after the CTA's set-up
+// (the medium adjoint's, wf_med.cuh)
+template <int EST, bool SCAT, bool TONLY, bool PRIMAL, bool COUNT, bool TGT,
+          int THREADS, bool STAGED, class SinkT, class... Bind>
+__device__ __forceinline__ void wf_cta(
+    const WfParams& P, const WfMesh& M, const float4* __restrict__ tris,
+    const float* __restrict__ in, const int* __restrict__ active_pixels,
+    const int* __restrict__ order, const int* __restrict__ starts,
+    const int4* __restrict__ rows, float* __restrict__ out,
+    unsigned long long* __restrict__ counters, const Bind&... bind) {
   static_assert(!(STAGED && PRIMAL), "the forward's shared memory is its tile");
   extern __shared__ int4 smem[];
   __shared__ unsigned next_task;
@@ -1396,8 +1444,8 @@ __global__ void __launch_bounds__(THREADS, MIN_CTAS)
   int4* srows = smem;
   float* tile = reinterpret_cast<float*>(smem + G.res[1]);
   const int home = P.tile_n > 0 ? home_slice(P, G, py) : -1;
-  Sink<PRIMAL, COUNT, TGT, STAGED> S{out, in, tile, srows, home, 0.0f,
-                                     0,   0,  0,    0};
+  SinkT S{out, in, tile, srows, home, 0.0f, 0, 0, 0, 0};
+  (S.bind(bind), ...);
   // the tile's floats a voxel
   const int ch = (TGT && P.target == 2) ? 2 : 1;
   if constexpr (TGT) {
@@ -1414,27 +1462,15 @@ __global__ void __launch_bounds__(THREADS, MIN_CTAS)
   if (PRIMAL && home >= 0)
     tile_zero<TGT>(P, G, rows, srows, tile, ch, warp, lane, n_warps);
   if (threadIdx.x == 0) next_task = 0;
-  __syncthreads();
+  const unsigned n_tasks = S.template begin<THREADS>(P, order, lo, hi);
 
-  const unsigned n_tasks = (unsigned)task_count<PRIMAL>(P, lo, hi);
-  unsigned long long slots = 0;
   for (;;) {
     unsigned t = 0;
     if (lane == 0) t = atomicAdd(&next_task, 1u);
     t = __shfl_sync(0xffffffffu, t, 0);
     if (t >= n_tasks) break;
-    const unsigned long long s0 = S.steps;
-    trace_task<EST, SCAT, TONLY>(P, G, order, lo, hi, (int)t, lane, in,
-                                 active_pixels, out, S);
-    if (COUNT) {
-      // a warp spends 32 lane slots on each step of its longest lane
-      unsigned long long d = S.steps - s0;
-      for (int off = 16; off > 0; off >>= 1) {
-        const unsigned long long o = __shfl_xor_sync(0xffffffffu, d, off);
-        d = o > d ? o : d;
-      }
-      if (lane == 0) slots += 32 * d;
-    }
+    S.template task<EST, SCAT, TONLY>(P, G, order, lo, hi, (int)t, lane, in,
+                                      active_pixels, out);
   }
 
   if (PRIMAL && home >= 0) {
@@ -1443,10 +1479,27 @@ __global__ void __launch_bounds__(THREADS, MIN_CTAS)
   }
   if (COUNT) {
     unsigned long long c[WF_N_COUNTERS] = {
-        S.iters, S.steps, S.n_tile, S.n_global, slots, S.mc.cells,
+        S.iters, S.steps, S.n_tile, S.n_global, S.slots, S.mc.cells,
         S.mc.tris, S.mc.walks};
     add_counters(c, lane, counters);
   }
+}
+
+// wf_kernel: the CTA above with the pair's sink
+template <int EST, bool SCAT, bool TONLY, int RES, bool PRIMAL, bool COUNT,
+          bool TGT, int THREADS = WF_THREADS, int MIN_CTAS = 1,
+          bool STAGED = false>
+__global__ void __launch_bounds__(THREADS, MIN_CTAS)
+    wf_kernel(const WfParams P, const __grid_constant__ WfMesh M,
+              const float4* __restrict__ tris, const float* __restrict__ in,
+              const int* __restrict__ active_pixels,
+              const int* __restrict__ order, const int* __restrict__ starts,
+              const int4* __restrict__ rows, float* __restrict__ out,
+              unsigned long long* __restrict__ counters) {
+  wf_cta<EST, SCAT, TONLY, PRIMAL, COUNT, TGT, THREADS, STAGED,
+         Sink<PRIMAL, COUNT, TGT, STAGED>>(P, M, tris, in, active_pixels,
+                                           order, starts, rows, out,
+                                           counters);
 }
 
 using KernelFn = void (*)(const WfParams, const WfMesh, const float4*,

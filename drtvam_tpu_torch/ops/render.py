@@ -133,8 +133,9 @@ TGT_LIB = "wf_target"
 # the residual pair's target form (csrc/wf_res_target.cu: the dda
 # residual forward's path pass with the target kept), one library too
 RES_TGT_LIB = "wf_res_target"
-# the analog adjoint with the medium cotangents (csrc/wf_med.cu), the
-# adjoint of a medium_grads static given the patterns
+# the medium adjoint (csrc/wf_med.cu): the analog adjoint's paths for
+# the medium cotangents of a medium_grads static alone, given the
+# patterns, over the pixels that emit
 MED_LIB = "wf_med"
 LIBS = KERNELS + RES_KERNELS + CULL_KERNELS + (TGT_LIB, RES_TGT_LIB, MED_LIB)
 # entry points of csrc/wf_res_fwd.cu beside its per-lane kernel, counted
@@ -152,10 +153,11 @@ launches = {k: 0 for k in KERNELS + RES_KERNELS + CULL_KERNELS + RES_PARTS
 # their kernel's count in `launches`: "<kernel>:target1" (the target mesh
 # kept, one channel) and "<kernel>:target2" (a two-channel film); the
 # residual's walk pass has a two-channel form only (one channel walks as
-# without a target)
+# without a target); the medium adjoint's staged form "wf_med:staged"
+# (the banks in shared memory) beside its target forms
 TARGET_FORMS = tuple(f"{k}:target{t}" for k in KERNELS + RES_KERNELS
                      + TGT_PARTS + (MED_LIB,) for t in (1, 2)) + (
-                         "wf_res_walk:target2",)
+                         "wf_res_walk:target2", f"{MED_LIB}:staged")
 form_launches = {k: 0 for k in TARGET_FORMS}
 # what the culling kernels count when asked: bounce iterations, mesh grid
 # cells visited, triangles tested, triangle slots (32 for each test of a
@@ -688,9 +690,12 @@ _ARGS = {
     # (P, A, rows, counters, stream)
     "wf_tgt_walk": [ctypes.POINTER(WfParams), ctypes.POINTER(TgtArgs),
                     _PTR, _PTR, _PTR],
-    # (P, M, tris, dL, data, active_pixels, order, starts, task_base, grad,
-    # partials, n_tasks, sums, stream)
-    "wf_med": _TGT + [_PTR] * 8 + [ctypes.c_int, _PTR, _PTR],
+    # (P, M, tris, dL, data, active_pixels, order, starts, task_base,
+    # cidx, count, partials, n_tasks, sums, staged, stream)
+    "wf_med": _TGT + [_PTR] * 9 + [ctypes.c_int, _PTR, ctypes.c_int, _PTR],
+    # (P, M, fits)
+    "wf_med_fits": [ctypes.POINTER(WfParams), ctypes.POINTER(WfMesh),
+                    ctypes.POINTER(ctypes.c_int)],
     # (P, M, A, stream)
     "wf_radon": [ctypes.POINTER(WfParams), ctypes.POINTER(WfMesh),
                  ctypes.POINTER(CullArgs), _PTR],
@@ -707,10 +712,11 @@ _ENTRIES = {"wf_fwd": ("wf_fwd",), "wf_bwd": ("wf_bwd",),
                       "wf_tgt_walk", "wf_tgt_info"),
             RES_TGT_LIB: ("wf_res_tgt_runs", "wf_res_tgt_path",
                           "wf_res_tgt_info"),
-            MED_LIB: ("wf_med",)}
+            MED_LIB: ("wf_med", "wf_med_fits")}
 _INFO = {"wf_fwd_info": [ctypes.POINTER(WfParams), ctypes.c_int],
          "wf_bwd_info": [ctypes.POINTER(WfParams), ctypes.c_int],
-         "wf_med_info": [ctypes.POINTER(WfParams), ctypes.c_int],
+         "wf_med_info": [ctypes.POINTER(WfParams), ctypes.POINTER(WfMesh),
+                         ctypes.c_int],
          "wf_res_fwd_info": [ctypes.POINTER(WfParams), ctypes.c_int],
          "wf_res_bwd_info": [ctypes.POINTER(WfParams), ctypes.c_int],
          "wf_res_walk_info": [ctypes.c_int, ctypes.c_int],
@@ -820,10 +826,10 @@ def _target_args(name, static, arr, P):
 
 def _family_params(name, static, arr, seed, spp):
     """make_params, checked against the kernel's family: the analog pair
-    (and wf_med) runs the full dose, the residual pair a residual static
-    (scattering, transmission only) and takes no tile. Returns (P, order,
-    starts, rows) for the analog pair, (P, order, starts, the chord bank or
-    None) for the residual pair."""
+    (and the medium adjoint) runs the full dose, the residual pair a
+    residual static (scattering, transmission only) and takes no tile.
+    Returns (P, order, starts, rows) for the analog pair, (P, order,
+    starts, the chord bank or None) for the residual pair."""
     if static.mode != "volume":
         raise ValueError(f"{name} renders the dose; the '{static.mode}' "
                          "mode runs on wf_radon")
@@ -1369,7 +1375,8 @@ def kernel_info(name, static: MarchStatic, arr, count=False):
     and with two channels where the film has them; on the target forms'
     route (tgt_route) "wf_fwd" the path pass, "wf_tgt_walk" the walk
     pass and "wf_bwd" the staged adjoint; on the residual's
-    (res_tgt_route) "wf_res_fwd" its target path pass."""
+    (res_tgt_route) "wf_res_fwd" its target path pass; on the medium
+    adjoint's (med_route) "wf_med" its staged instantiation."""
     fam = {"wf_res_walk": "wf_res_fwd", "wf_tgt_walk": "wf_fwd"}.get(name,
                                                                      name)
     P = _family_params(fam, static, arr, 0, 1)[0]
@@ -1390,6 +1397,9 @@ def kernel_info(name, static: MarchStatic, arr, count=False):
                 int(count), RES_TGT_SMEM_LIMIT, out)
         elif name == "wf_res_walk":
             err = lib.wf_res_walk_info(int(count), int(P.target == 2), out)
+        elif name == MED_LIB:
+            err = lib.wf_med_info(ctypes.byref(P), ctypes.byref(make_mesh(
+                name, static, arr)), int(med_route(libs, static, arr)), out)
         else:
             err = getattr(lib, name + "_info")(ctypes.byref(P), int(count),
                                                out)
@@ -1447,7 +1457,9 @@ def wf_bwd(static: MarchStatic, arr, dL_flat, seed, spp, stats=None):
 def med_tasks(static: MarchStatic, arr):
     """(CTAs + 1,) int32 on the scene tensors' device: the adjoint's warp
     tasks (32 positions each) before each CTA of the launch order, the
-    last entry their count (cached in the scene tensors' dict)."""
+    last entry their count (cached in the scene tensors' dict): the
+    medium adjoint's task slots. Its tasks (32 emitting pixels each) take
+    the first slots of their CTA's region."""
     p = static.projector
     key = (p.n_patterns, p.resx, p.resy, p.n_active, p.identity)
     cached = arr.get("_wf_med_tasks")
@@ -1462,48 +1474,70 @@ def med_tasks(static: MarchStatic, arr):
     return cached[1], cached[2]
 
 
+def med_route(libs, static, arr):
+    """Whether the medium adjoint (wf_med) runs this scene staged: the
+    scene has mesh surfaces (target_mode) and its banks fit a CTA's
+    shared memory beside the staged instantiation (wf_med_fits), as
+    tgt_route routes wf_bwd to wf_tgt_bwd."""
+    P = make_params(static, arr, 0, 1)
+    if not P.target or P.residual != ANALOG:
+        return False
+    M = make_mesh(MED_LIB, static, arr)
+    fits = ctypes.c_int(0)
+    _err(f"{MED_LIB} fits", libs[MED_LIB].wf_med_fits(
+        ctypes.byref(P), ctypes.byref(M), ctypes.byref(fits)))
+    return bool(fits.value)
+
+
 def med_adjoint(libs, static, arr, dL_flat, data, seed, spp,
                 partials=False):
-    """The medium adjoint through the libraries `libs` (wf_med): (pattern
-    gradient, stg, ssg), and with partials the task partials."""
+    """The medium adjoint through the libraries `libs` (wf_med), staged
+    where med_route takes the scene: (stg, ssg); partials: also the
+    (n_tasks, 2) task slots the sums are the fixed-order sum of and the
+    emitting pixels per CTA of the launch order."""
     _n_lanes(static, spp)
     if not static.medium_grads:
         raise ValueError("wf_med: the static has no medium_grads")
     n = static.projector.n_active
-    _check("wf_med", dL_flat, torch.float32, (static.sensor.n_cells,))
-    _check("wf_med", data, torch.float32, (n,))
+    _check(MED_LIB, dL_flat, torch.float32, (static.sensor.n_cells,))
+    _check(MED_LIB, data, torch.float32, (n,))
     dev = dL_flat.device
-    pix = _pixels("wf_med", static, arr, dev)
-    P, order, starts, _ = _family_params("wf_med", static, arr, seed, spp)
-    M, tris, _ = _target_args("wf_med", static, arr, P)
+    pix = _pixels(MED_LIB, static, arr, dev)
+    P, order, starts, _ = _family_params(MED_LIB, static, arr, seed, spp)
+    M, tris, _ = _target_args(MED_LIB, static, arr, P)
+    staged = med_route(libs, static, arr)
     base, n_tasks = med_tasks(static, arr)
-    out = torch.empty((n,), dtype=torch.float32, device=dev)
+    cidx = torch.empty((n,), dtype=torch.int32, device=dev)
+    count = torch.empty((base.numel() - 1,), dtype=torch.int32, device=dev)
     part = torch.empty((max(n_tasks, 1), 2), dtype=torch.float32, device=dev)
     sums = torch.zeros((2,), dtype=torch.float32, device=dev)
     err = libs[MED_LIB].wf_med(
         ctypes.byref(P), ctypes.byref(M), _ptr(tris), dL_flat.data_ptr(),
         data.data_ptr(), pix.data_ptr(), _ptr(order), _ptr(starts),
-        base.data_ptr(), out.data_ptr(), part.data_ptr(), n_tasks,
-        sums.data_ptr(), _stream(dev))
+        base.data_ptr(), cidx.data_ptr(), count.data_ptr(), part.data_ptr(),
+        n_tasks, sums.data_ptr(), int(staged), _stream(dev))
     _count(MED_LIB, P)
-    _err("wf_med", err)
-    res = (out, sums[0], sums[1])
-    return res + (part,) if partials else res
+    if staged:
+        form_launches[f"{MED_LIB}:staged"] += 1
+    _err(MED_LIB, err)
+    res = (sums[0], sums[1])
+    return res + (part, count) if partials else res
 
 
 def wf_med(static: MarchStatic, arr, dL_flat, data, seed, spp,
            partials=False):
-    """CUDA kernel csrc/wf_med.cu: the adjoint of a medium_grads static
-    with the medium cotangents, on the card. Returns (pattern gradient
-    (n_active,), stg, ssg), stg and ssg float32 0-d tensors: the summed
-    d loss / d sigma_t and d loss / d sigma_s of every deposit, at data's
-    emitted intensities; partials: also the (n_tasks, 2) task partials
-    they are the fixed-order sum of. Replaces the medium-gradient
-    branches of drtvam_tpu/ops/march.py:586, :747 and :865 (XLA). The
-    pattern gradient is wf_bwd's, bitwise (a scene with mesh surfaces:
-    the one-pass target form's; there is no staged form), and two
-    launches give the same bits. Bound as wf_bwd, plus the partials'
-    float32 work a deposit."""
+    """CUDA kernel csrc/wf_med.cu: the medium cotangents of a medium_grads
+    static's adjoint, on the card. Returns (stg, ssg), float32 0-d
+    tensors: the summed d loss / d sigma_t and d loss / d sigma_s of every
+    deposit, at data's emitted intensities; it traces only the pixels
+    that emit and forms no pattern gradient (adjoint takes that from
+    wf_bwd). partials: also the task slots the sums are the fixed-order
+    sum of and the emitting pixels per CTA. Replaces the
+    medium-gradient branches of drtvam_tpu/ops/march.py:586, :747 and
+    :865 (XLA). A scene with mesh surfaces runs the staged form where the
+    banks fit a CTA (med_route), else the one-pass target form; two
+    launches give the same bits. Bound: the emitting pixels' voxel steps
+    at wf_bwd's work a step, plus the partials' float32 work."""
     return med_adjoint(_card_libs(dL_flat), static, arr, dL_flat, data, seed,
                        spp, partials)
 
@@ -1589,17 +1623,23 @@ def forward(static: MarchStatic, arr, data, seed, spp, chunk=DEFAULT_CHUNK):
     return _forward(static, arr, data, seed, spp, chunk)
 
 
-def adjoint(static: MarchStatic, arr, seed, spp, chunk, dL_flat, data=None):
+def adjoint(static: MarchStatic, arr, seed, spp, chunk, dL_flat, data=None,
+            pattern_grad=True):
     """Pattern gradient (n_active,) of dL_flat: wf_bwd (a residual
     static: wf_res_bwd) on the card, the plain version on the CPU. data
     (a medium_grads static): the patterns; returns (pattern gradient,
-    stg, ssg) with the medium cotangents (wf_med on the card)."""
+    stg, ssg) with the medium cotangents, on the card wf_med's and the
+    pattern gradient wf_bwd's; pattern_grad False: (None, stg, ssg)."""
     if data is not None:
         if _route(dL_flat):
-            return wf_med(static, arr, dL_flat.contiguous(),
-                          data.detach().contiguous(), seed, spp)
-        return _adjoint(static, arr, seed, spp, chunk, dL_flat,
-                        data=data.detach())
+            stg, ssg = wf_med(static, arr, dL_flat.contiguous(),
+                              data.detach().contiguous(), seed, spp)
+            pg = adjoint(static, arr, seed, spp, chunk, dL_flat) \
+                if pattern_grad else None
+            return pg, stg, ssg
+        pg, stg, ssg = _adjoint(static, arr, seed, spp, chunk, dL_flat,
+                                data=data.detach())
+        return (pg if pattern_grad else None), stg, ssg
     if _route(dL_flat):
         kern = wf_res_bwd if static.scattered_only else wf_bwd
         return kern(static, arr, dL_flat.contiguous(), seed, spp)
@@ -1614,7 +1654,9 @@ class RenderRaw(torch.autograd.Function):
     sigma_t or albedo needs a gradient takes the medium cotangents (stg,
     ssg: d / d sigma_t and d / d sigma_s), chained to the (sigma_t,
     albedo) parameters as drtvam_tpu/ops/render.py:148-166:
-    d / d sigma_t = stg + albedo ssg, d / d albedo = sigma_t ssg."""
+    d / d sigma_t = stg + albedo ssg, d / d albedo = sigma_t ssg (on the
+    card wf_med); with the patterns not differentiated (optimize_medium's
+    case) it forms no pattern gradient."""
 
     @staticmethod
     def forward(ctx, data, st, al, static, arr, seed, spp, spp_grad, chunk):
@@ -1629,7 +1671,8 @@ class RenderRaw(torch.autograd.Function):
         d_st = d_al = None
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
             pg, stg, ssg = adjoint(static, arr, seed, spp_grad, chunk,
-                                   ct.contiguous(), data=data)
+                                   ct.contiguous(), data=data,
+                                   pattern_grad=ctx.needs_input_grad[0])
             d_st = (stg + al.detach() * ssg).reshape(st.shape)
             d_al = (st.detach() * ssg).reshape(al.shape)
         else:

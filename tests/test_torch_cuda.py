@@ -318,44 +318,54 @@ def test_wf_cuda_tensors_never_take_the_plain_path(tmp_path, cuda_device,
 
 @pytest.mark.parametrize("case", WF_CASES)
 def test_med_kernel_matches_plain(case, tmp_path, cuda_device, monkeypatch):
-    """The medium adjoint (csrc/wf_med.cu) against its plain version:
-    (stg, ssg) to 1e-4 relative (float32 sums in another order), the
-    pattern gradient bitwise wf_bwd's, two launches bitwise; autograd of a
-    render in (sigma_t, albedo) on CUDA tensors launches it and never the
-    plain version."""
+    """The medium adjoint (csrc/wf_med.cu) against its plain version, on
+    patterns with 40 % zeros: (stg, ssg) to 1e-4 relative (float32 sums in
+    another order), two launches bitwise; autograd of a render on CUDA
+    tensors launches it and never the plain version: in (sigma_t, albedo)
+    alone it once and wf_bwd never, in the patterns too it once beside one
+    wf_bwd whose pattern gradient it returns, with the same medium
+    gradients."""
     import dataclasses
     from drtvam_tpu_torch.ops.march import scene_tensors
     static, arr, spp = _wf_scene(tmp_path, case)
     static = dataclasses.replace(static, medium_grads=True)
     at = scene_tensors(arr, cuda_device)
     rng = np.random.default_rng(8)
-    data = torch.from_numpy(rng.uniform(0.5, 1.5, static.projector.n_active)
-                            .astype(np.float32)).to(cuda_device)
+    n = static.projector.n_active
+    data = rng.uniform(0.5, 1.5, n).astype(np.float32)
+    data[rng.uniform(0.0, 1.0, n) < 0.4] = 0.0
+    data = torch.from_numpy(data).to(cuda_device)
     dL = torch.from_numpy(rng.uniform(0.0, 1.0, static.sensor.n_cells)
                           .astype(np.float32)).to(cuda_device)
-    pg, stg, ssg, part = wf.wf_med(static, at, dL, data, 7, spp, True)
-    pg2, stg2, ssg2, part2 = wf.wf_med(static, at, dL, data, 7, spp, True)
     ref = wf._adjoint(static, at, 7, spp, wf.DEFAULT_CHUNK, dL, data=data)
-    assert torch.equal(pg, wf.wf_bwd(static, at, dL, 7, spp))
-    assert torch.equal(pg, pg2) and torch.equal(part, part2)
+    stg, ssg, part, _ = wf.wf_med(static, at, dL, data, 7, spp, True)
+    stg2, ssg2, part2, _ = wf.wf_med(static, at, dL, data, 7, spp, True)
+    assert torch.equal(part, part2)
     assert float(stg) == float(stg2) and float(ssg) == float(ssg2)
     for ours, plain in zip((stg, ssg), ref[1:]):
         assert abs(float(ours) - float(plain)) <= 1e-4 * abs(float(plain))
+    bwd = wf.wf_bwd(static, at, dL, 7, spp)
 
     def refuse(*args, **kwargs):
         raise AssertionError("a CUDA tensor reached the plain version")
 
     monkeypatch.setattr(wf, "_adjoint", refuse)
     monkeypatch.setattr(wf, "trace_wavefront", refuse)
-    st = at["sigma_t"].clone().requires_grad_(True)
-    al = at["albedo"].clone().requires_grad_(True)
-    before = wf.launches["wf_med"]
-    vol = wf.render(static, at, data, 1.0, 7, spp, medium=(st, al))
-    g_st, g_al = torch.autograd.grad(
-        (vol.reshape(-1) * dL).sum(), (st, al))
-    assert wf.launches["wf_med"] == before + 1
-    assert torch.equal(g_st, stg + at["albedo"] * ssg)
-    assert torch.equal(g_al, at["sigma_t"] * ssg)
+    for need in (False, True):
+        st = at["sigma_t"].clone().requires_grad_(True)
+        al = at["albedo"].clone().requires_grad_(True)
+        d = data.clone().requires_grad_(need)
+        before = dict(wf.launches)
+        vol = wf.render(static, at, d, 1.0, 7, spp, medium=(st, al))
+        g = torch.autograd.grad((vol.reshape(-1) * dL).sum(),
+                                (d, st, al) if need else (st, al))
+        assert wf.launches["wf_med"] == before["wf_med"] + 1
+        assert wf.launches["wf_bwd"] == before["wf_bwd"] + int(need)
+        if need:
+            assert torch.equal(g[0], bwd)
+        g_st, g_al = g[-2:]
+        assert torch.equal(g_st, stg + at["albedo"] * ssg)
+        assert torch.equal(g_al, at["sigma_t"] * ssg)
 
 
 # the residual pair (the hybrid engine's scattered residual)

@@ -211,6 +211,35 @@ def test_pattern_grads_unchanged_by_medium_grads(box_hole_mesh):
     assert torch.equal(grads[0], grads[1])
 
 
+def test_medium_only_backward_forms_no_pattern_gradient(box_hole_mesh,
+                                                       monkeypatch):
+    """RenderRaw.backward with the patterns detached (optimize_medium's
+    case; on the card wf_med alone) forms no pattern gradient,
+    and its (d sigma_t, d albedo) are those of the backward that
+    differentiates the patterns too, on the plain route, to 1e-6."""
+    L = Losses(_grads_cfg(box_hole_mesh, 0.5, "dda"), 2)
+    adjoint, seen = tr.adjoint, []
+
+    def spy(*args, **kw):
+        out = adjoint(*args, **kw)
+        seen.append(out[0])
+        return out
+
+    monkeypatch.setattr(tr, "adjoint", spy)
+    grads = {}
+    for need in (False, True):
+        d = torch.from_numpy(L.data).requires_grad_(need)
+        st = torch.tensor(0.4, requires_grad=True)
+        al = torch.tensor(0.5, requires_grad=True)
+        loss = L.port_loss(st, al, data=d)
+        grads[need] = torch.autograd.grad(
+            loss, (d, st, al) if need else (st, al))[-2:]
+    assert seen[0] is None
+    assert seen[1] is not None and float(seen[1].abs().sum()) > 0.0
+    for a, b in zip(grads[False], grads[True]):
+        assert float(b) != 0.0 and _rel(float(a), float(b)) <= 1e-6
+
+
 def test_residual_mode_with_medium_grads_raises(box_hole_mesh):
     st = TScene(_grads_cfg(box_hole_mesh, 0.5, "dda")).build(
         mode="volume", include_target=False)[0]

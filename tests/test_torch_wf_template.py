@@ -115,10 +115,12 @@ MeshBanks staged_banks(const Target& T, std::vector<float4>& buf) {
                      M.n_cell_start, M.n_tri_ids, buf.data(), 0, 1);
 }
 
-// a sink's counters as the kernels write them (wf_kernel: COUNTERS)
+// a sink's counters as the kernels write them (wf_kernel: COUNTERS), when
+// the call counts (c not null)
 template <class SinkT>
 void add_counts(const SinkT& S, unsigned long long slots,
                 unsigned long long* c) {
+  if (c == nullptr) return;
   const unsigned long long k[8] = {S.iters,    S.steps,   S.n_tile,
                                    S.n_global, slots,     S.mc.cells,
                                    S.mc.tris,  S.mc.walks};
@@ -760,31 +762,44 @@ ENTRY(wf_fwd, true, true)
 ENTRY(wf_bwd, false, true)
 ENTRY(wf_fwd_lanes, true, false)
 ENTRY(wf_bwd_lanes, false, false)
-// the medium adjoint's launch order on one thread (med_kernel): block by
-// block, each task's 32 threads in turn, their sums through the kernel's
-// shuffle tree (at offset 16, 8, .., 1 lane l adds lane l + off) into
-// partials[task_base[b] + t]; then med_sum's order: 1024 strided sums,
-// then the tree over them
-template <int EST, bool SCAT, bool TONLY, bool TGT>
+// the medium adjoint's launch order on one thread (wf_cta with a
+// MedSink): block by block, the block's range compacted in order
+// (med_emits) into cidx[lo ..] and count[b] (MedSink::begin); each
+// task's 32 threads in turn (MedSink::trace), their sums through the
+// kernel's shuffle tree (at offset 16, 8, .., 1 lane l adds lane l + off)
+// into partials[task_base[b] + t], the block's slots past its tasks 0;
+// then med_sum's order: 1024 strided sums, then the tree over them.
+// STAGED: the banks staged, as the staged form reads them
+template <int EST, bool SCAT, bool TONLY, bool TGT, bool STAGED>
 void run_med(const WfParams& P, const Target& T, const float* dL,
              const float* data, const int* ap, const int* order,
-             const int* starts, const int* base, float* grad, float* part,
-             int n_tasks, float* sums) {
+             const int* starts, const int* base, int* cidx, int* count,
+             float* part, int n_tasks, float* sums) {
   Grid G;
   G.init(P);
-  MedSink<TGT> S{{nullptr, dL, nullptr, nullptr, -1, 0.0f, 0, 0, 0, 0}};
-  S.data = data;
-  S.init(P);
+  MedSink<SCAT, TGT, STAGED> S{nullptr, dL, nullptr, nullptr, -1, 0.0f,
+                               0,       0,  0,       0};
+  S.bind(med_args(P, data, base, reinterpret_cast<float2*>(part), cidx,
+                  count));
   set_target(S, P, T);
+  std::vector<float4> smem;
+  if constexpr (STAGED) S.banks = staged_banks(T, smem);
   for (int b = 0; b < P.resy * P.n_groups; ++b) {
     int lo, hi, py;
     block_range(P, starts, b, lo, hi, py);
-    for (int t = 0; t < task_count<false>(P, lo, hi); ++t) {
+    S.base = base[b];
+    int made = 0;
+    for (int j = lo; j < hi; ++j) {
+      int aidx;
+      if (med_emits(P, data, order, j, aidx)) cidx[lo + made++] = aidx;
+    }
+    count[b] = S.n = made;
+    const int n_t = (made + 31) / 32;
+    for (int t = 0; t < n_t; ++t) {
       float a[32], c[32];
       for (int l = 0; l < 32; ++l) {
-        S.stg = S.ssg = 0.0f;
-        const int aidx = trace_task<EST, SCAT, TONLY>(P, G, order, lo, hi, t,
-                                                      l, dL, ap, grad, S);
+        const int aidx =
+            S.template trace<EST, SCAT, TONLY>(P, G, lo, t, l, ap);
         if (aidx >= 0) traced.push_back(aidx);
         a[l] = S.stg;
         c[l] = S.ssg;
@@ -797,6 +812,8 @@ void run_med(const WfParams& P, const Target& T, const float* dL,
       part[2 * (base[b] + t)] = a[0];
       part[2 * (base[b] + t) + 1] = c[0];
     }
+    for (int t = n_t; t < base[b + 1] - base[b]; ++t)
+      part[2 * (base[b] + t)] = part[2 * (base[b] + t) + 1] = 0.0f;
   }
   std::vector<float> sa(WF_MED_SUM_THREADS), sb(WF_MED_SUM_THREADS);
   for (int i = 0; i < WF_MED_SUM_THREADS; ++i) {
@@ -816,17 +833,18 @@ void run_med(const WfParams& P, const Target& T, const float* dL,
   sums[0] = sa[0];
   sums[1] = sb[0];
 }
-template <bool TGT>
+template <bool TGT, bool STAGED>
 int med_target(const WfParams* p, const Target& tg, const float* dL,
                const float* data, const int* ap, const int* order,
-               const int* starts, const int* base, float* grad, float* part,
-               int n_tasks, float* sums) {
+               const int* starts, const int* base, int* cidx, int* count,
+               float* part, int n_tasks, float* sums) {
   const int key = p->estimator * 4 + (p->has_scattering ? 2 : 0) +
                   (p->transmission_only ? 1 : 0);
-#define C(E, S, T)                                                        \
-  case E * 4 + (S ? 2 : 0) + (T ? 1 : 0):                                 \
-    run_med<E, S, T, TGT>(*p, tg, dL, data, ap, order, starts, base, grad, \
-                          part, n_tasks, sums);                           \
+#define C(E, S, T)                                                      \
+  case E * 4 + (S ? 2 : 0) + (T ? 1 : 0):                               \
+    run_med<E, S, T, TGT, STAGED>(*p, tg, dL, data, ap, order, starts,  \
+                                  base, cidx, count, part, n_tasks,     \
+                                  sums);                                \
     break;
   switch (key) {
     C(0, 0, 0) C(0, 0, 1) C(0, 1, 0) C(0, 1, 1) C(1, 0, 0) C(1, 0, 1)
@@ -836,18 +854,33 @@ int med_target(const WfParams* p, const Target& tg, const float* dL,
 #undef C
   return 0;
 }
+// wf_med.cu's entry point
 extern "C" int wf_med(const WfParams* p, const WfMesh* M, const float4* tris,
                       const float* dL, const float* data, const int* ap,
                       const int* order, const int* starts, const int* base,
-                      float* grad, float* part, int n_tasks, float* sums,
-                      void*) {
+                      int* cidx, int* count, float* part, int n_tasks,
+                      float* sums, int staged, void*) {
   traced.clear();
-  if (p->residual != ANALOG) return 1;
+  if (p->residual != ANALOG || cidx == nullptr || count == nullptr ||
+      (staged && !p->target))
+    return 1;
   const Target tg{M, tris, nullptr};
-  return p->target ? med_target<true>(p, tg, dL, data, ap, order, starts,
-                                      base, grad, part, n_tasks, sums)
-                   : med_target<false>(p, tg, dL, data, ap, order, starts,
-                                       base, grad, part, n_tasks, sums);
+  if (staged)
+    return med_target<true, true>(p, tg, dL, data, ap, order, starts, base,
+                                  cidx, count, part, n_tasks, sums);
+  return p->target
+             ? med_target<true, false>(p, tg, dL, data, ap, order, starts,
+                                       base, cidx, count, part, n_tasks,
+                                       sums)
+             : med_target<false, false>(p, tg, dL, data, ap, order, starts,
+                                        base, cidx, count, part, n_tasks,
+                                        sums);
+}
+extern "C" int wf_med_fits(const WfParams* p, const WfMesh* M, int* fits) {
+  return wf_tgt_fits(p, M, fits);
+}
+extern "C" int wf_med_info(const WfParams*, const WfMesh*, int, int*) {
+  return 1;
 }
 
 // the active indices the last call traced, in its order
@@ -875,7 +908,7 @@ def template_lib(tmp_path_factory):
     assert build.returncode == 0, build.stderr
     lib = ctypes.CDLL(str(lib))
     for name in wf.KERNELS + wf.RES_KERNELS + (wf.TGT_LIB, wf.RES_TGT_LIB,
-                                               wf.MED_LIB):
+                                                wf.MED_LIB):
         wf._setup(lib, name)
     lib.set_tgt_budget.argtypes = [ctypes.c_longlong]
     lib.set_tgt_budget.restype = None
@@ -2005,11 +2038,14 @@ MED_CASES = [("dda", 0.0, "collimated", "cylindrical", True, None),
 @pytest.mark.parametrize("case", MED_CASES)
 def test_medium_template_traces_the_plain_cotangents(case, template_lib):
     """The medium adjoint's instantiations in the kernel's launch order
-    (its shuffle tree and its fixed-order sum): (stg, ssg) within 1e-4
-    relative of the plain version's (glibc's expf / logf against torch's;
-    the sums regroup), the pattern gradient bitwise the non-MED adjoint's
-    (wf_bwd: the one-pass target form on the mesh scenes), and the task
-    partials and sums bitwise on two runs."""
+    (its compaction, its shuffle tree and its fixed-order sum), on
+    patterns with no zero: every pixel traced, each CTA's count its
+    pixels; (stg, ssg) within 1e-4 relative of the plain version's
+    (glibc's expf / logf against torch's; the sums regroup; the dda's E a
+    running product), the pattern gradient a caller differentiating both
+    gets (wf_bwd's: the one-pass target form on the mesh scenes) close to
+    the plain medium adjoint's, and the task partials and sums bitwise on
+    two runs."""
     lib, path = template_lib
     *scene, target = case
     static, arr = _scene(path, *scene, target=target)
@@ -2027,18 +2063,119 @@ def test_medium_template_traces_the_plain_cotangents(case, template_lib):
     pg_ref, stg_ref, ssg_ref = wf._adjoint(static, at, seed, spp,
                                            wf.DEFAULT_CHUNK, dL, data=data)
     libs = {wf.MED_LIB: lib}
-    pg, stg, ssg, part = wf.med_adjoint(libs, static, at, dL, data, seed, spp,
-                                        partials=True)
-    assert part.shape[0] == wf.med_tasks(static, at)[1]
+    stg, ssg, part, count = wf.med_adjoint(libs, static, at, dL, data, seed,
+                                           spp, partials=True)
+    base, n_tasks = wf.med_tasks(static, at)
+    assert part.shape[0] == n_tasks
+    starts = wf.block_order(static, at)[1]
+    assert torch.equal(count.long(), starts[1:] - starts[:-1])
+    assert int(((count.long() + 31) // 32).sum()) == n_tasks
     for ours, ref in ((stg, stg_ref), (ssg, ssg_ref)):
         assert float(ref) != 0.0
         assert abs(float(ours) - float(ref)) <= 1e-4 * abs(float(ref)), \
             (float(ours), float(ref))
     grad, _ = _run(lib, "wf_bwd", static, at, dL, n, seed, spp)
-    assert torch.equal(pg, grad)
     point = static.sensor.estimator in ("ratio", "delta")
-    _close(pg, pg_ref, point)
-    pg2, stg2, ssg2, part2 = wf.med_adjoint(libs, static, at, dL, data, seed,
-                                            spp, partials=True)
-    assert torch.equal(part, part2) and torch.equal(pg, pg2)
+    _close(grad, pg_ref, point)
+    stg2, ssg2, part2, count2 = wf.med_adjoint(libs, static, at, dL, data,
+                                               seed, spp, partials=True)
+    assert torch.equal(part, part2) and torch.equal(count, count2)
     assert torch.equal(torch.stack([stg, ssg]), torch.stack([stg2, ssg2]))
+
+
+def _med_scene(path, case):
+    *scene, target = case
+    static, arr = _scene(path, *scene, target=target)
+    arr.pop("inside_mask", None)
+    return dataclasses.replace(static, medium_grads=True), \
+        scene_tensors(arr, "cpu")
+
+
+def _dark_patterns(static, seed, share=0.4):
+    """Patterns in [0.5, 1.5) with about `share` of them exactly 0, and
+    the loss gradient."""
+    rng = np.random.default_rng(seed)
+    n = static.projector.n_active
+    data = rng.uniform(0.5, 1.5, n).astype(np.float32)
+    data[rng.uniform(0.0, 1.0, n) < share] = 0.0
+    dL = rng.uniform(0.0, 1.0, static.sensor.n_cells).astype(np.float32)
+    return torch.from_numpy(data), torch.from_numpy(dL)
+
+
+def _emitting(static, at, data, seed, spp):
+    """Each launch-order CTA's emitting pixels (em = data ray_w != 0), by
+    active index in launch order."""
+    order, starts = (t.numpy() for t in wf.block_order(static, at))
+    em = data.numpy() * np.float32(wf.make_params(static, at, seed,
+                                                  spp).ray_w)
+    return [order[a:b][em[order[a:b]] != 0.0]
+            for a, b in zip(starts[:-1], starts[1:])]
+
+
+@pytest.mark.parametrize("case", MED_CASES)
+def test_medium_only_template_traces_the_emitting_pixels(case, template_lib):
+    """The medium adjoint (each CTA's emitting pixels compacted, 32 a
+    task) in the kernel's launch order, on patterns with 40 % exact zeros:
+    (stg, ssg) within 1e-4 relative of the plain version's (the sums
+    regroup; the dda's E a running product); each CTA's count its
+    emitting pixels, its tasks the count rounded up by warp and its later
+    slots 0; exactly the emitting pixels traced, in launch order; the
+    slots and sums bitwise on two runs."""
+    lib, path = template_lib
+    static, at = _med_scene(path, case)
+    data, dL = _dark_patterns(static, 23)
+    assert float((data == 0).float().mean()) >= 0.3
+    seed, spp = 5, 2
+    _, stg_ref, ssg_ref = wf._adjoint(static, at, seed, spp,
+                                      wf.DEFAULT_CHUNK, dL, data=data)
+    libs = {wf.MED_LIB: lib}
+    runs = [wf.med_adjoint(libs, static, at, dL, data, seed, spp,
+                           partials=True) for _ in range(2)]
+    buf = torch.empty(static.projector.n_active, dtype=torch.int32)
+    traced = buf[:lib.wf_traced(buf.data_ptr())].numpy()
+    stg, ssg, part, count = runs[0]
+    for ours, ref in ((stg, stg_ref), (ssg, ssg_ref)):
+        assert float(ref) != 0.0
+        assert abs(float(ours) - float(ref)) <= 1e-4 * abs(float(ref)), \
+            (float(ours), float(ref))
+    emit = _emitting(static, at, data, seed, spp)
+    assert count.tolist() == [len(e) for e in emit]
+    assert np.array_equal(traced, np.concatenate(emit))
+    base = wf.med_tasks(static, at)[0].numpy()
+    tasks = [(len(e) + 31) // 32 for e in emit]
+    for b, t in enumerate(tasks):
+        assert not part[base[b] + t:base[b + 1]].any()
+    assert sum(tasks) < base[-1]
+    assert torch.equal(part, runs[1][2]) and torch.equal(count, runs[1][3])
+    assert torch.equal(torch.stack([stg, ssg]),
+                       torch.stack([runs[1][0], runs[1][1]]))
+
+
+@pytest.mark.parametrize("share", [0.0, 0.4])
+@pytest.mark.parametrize("case", MESH_CASES)
+def test_staged_medium_adjoint_equals_one_pass(case, share, template_lib,
+                                               monkeypatch):
+    """The medium adjoint's staged form (the banks staged, as wf_tgt_bwd
+    reads them) on the mesh scenes, on patterns with no zero and with 40 %
+    zeros: the route takes it; (stg, ssg) within 1e-4 of the plain
+    version's and bitwise the one-pass target form's, which traces the
+    same pixels in the same order."""
+    lib, path = template_lib
+    static, at = _med_scene(path, case)
+    data, dL = _dark_patterns(static, 29, share)
+    seed, spp = 4, 2
+    libs = {wf.MED_LIB: lib}
+    assert wf.med_route(libs, static, at)
+    n0 = wf.form_launches[f"{wf.MED_LIB}:staged"]
+    stg, ssg = wf.med_adjoint(libs, static, at, dL, data, seed, spp)
+    assert wf.form_launches[f"{wf.MED_LIB}:staged"] == n0 + 1
+    with monkeypatch.context() as m:
+        m.setattr(wf, "med_route", lambda *a: False)
+        stg1, ssg1 = wf.med_adjoint(libs, static, at, dL, data, seed, spp)
+    _, stg_ref, ssg_ref = wf._adjoint(static, at, seed, spp,
+                                      wf.DEFAULT_CHUNK, dL, data=data)
+    for ours, ref in ((stg, stg_ref), (ssg, ssg_ref)):
+        assert float(ref) != 0.0
+        assert abs(float(ours) - float(ref)) <= 1e-4 * abs(float(ref)), \
+            (float(ours), float(ref))
+    assert torch.equal(torch.stack([stg, ssg]), torch.stack([stg1, ssg1]))

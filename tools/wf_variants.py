@@ -15,6 +15,9 @@
     python3 tools/wf_variants.py res_target [VARIANT ...]   (the dda
                                                   residual's target path
                                                   pass', RTP_VARIANTS)
+    python3 tools/wf_variants.py med [--share | --cell-c] [VARIANT ...]
+                                                 (the medium adjoint's
+                                                  forms', MED_VARIANTS)
 
 run from the repo root on a machine with one NVIDIA GPU. Each variant
 changes one thing against the source as it is ("shipped"): the threads
@@ -100,6 +103,22 @@ it (a batch's walk beside the next batch's path pass), the dose against the
 shipped build's (1e-4 of the max, none off), the launch shape and the
 registers and spills of the path pass's instantiation; the shipped build
 also on the scene without its target.
+The medium adjoint's variants (wf_med.cu: csrc/wf_med.cuh) are builds of
+it with other threads a CTA: 512 or 1024 (128 or 64 registers a thread;
+768, up to 80, is the shipped shape). Each runs chip_smoke.py phase 15's
+calibration scene (the bench scene, dda, spp 1, 64 M lanes) on phase 9's
+optimized patterns (chip_smoke.py phase_wf_bench, run first), dL the l2
+loss's gradient between the render at sigma_t MED_ST and the dose
+recorded at chip_smoke.MED_ST_TRUE: its time (CUDA events, median of 5)
+beside the shipped wf_bwd's, its (stg, ssg) against the shipped build's
+(to chip_smoke.MED_TOL), and the registers and spills of the
+instantiation the scene runs; first the patterns' zero share and the
+tasks before and after the compaction. --share: that record alone
+(phase 9 and the count, no variant built). --cell-c: on chip_smoke.py
+phase 14's cell (c) (a mesh vial and an occlusion; its optimize() run,
+the loop's last inputs) with medium_grads, staged and one-pass (the
+staged form's threads a CTA, WF_MED_STAGED_THREADS, are what
+"staged1024" varies).
 """
 import contextlib
 import ctypes
@@ -957,7 +976,239 @@ def telecentric_check(cs, wf, static, arr, img, spp):
             "max_abs_plain": float(ref.abs().max())}
 
 
+# name: {WF_MED_* constants of a wf_med.cu build}
+MED_VARIANTS = {
+    "shipped": {},
+    "threads512": {"WF_MED_THREADS": 512},
+    "threads1024": {"WF_MED_THREADS": 1024},
+    "staged1024": {"WF_MED_STAGED_THREADS": 1024},
+}
+# the medium the variants' dL is taken at, against the dose recorded at
+# chip_smoke.MED_ST_TRUE
+MED_ST = 0.025
+
+
+def med_build(work, names):
+    """One nvcc per variant library (wf_med.cu with the variant's
+    constants), all started together; returns the jobs."""
+    from drtvam_tpu_torch.native import CUDA_SRC_DIR, nvcc_path
+    jobs = []
+    for v in names:
+        spec = MED_VARIANTS[v]
+        if not spec:
+            continue
+        lib = os.path.join(work, f"libwf_med_{v}.so")
+        cmd = [nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
+               "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
+               "-Xcompiler", "-fPIC", "--fmad=false"] + [
+            f"-D{k}={val}" for k, val in spec.items()] + [
+            "-I", CUDA_SRC_DIR, os.path.join(CUDA_SRC_DIR, "wf_med.cu"),
+            "-o", lib]
+        jobs.append((v, lib, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    return jobs
+
+
+def med_ptxas(log, want):
+    """Registers and spill bytes of the instantiation named want
+    (chip_smoke.instantiation's spelling; a staged one by its start) in an
+    nvcc -Xptxas -v log."""
+    import chip_smoke as cs
+    for part in log.split("Compiling entry function '")[1:]:
+        name = cs.instantiation(part.split("'")[0])
+        if name != want and not (want.endswith("staged") and
+                                 name.startswith(want + ",")):
+            continue
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", part)
+        return {"registers": int(regs.group(1)),
+                "spill_store_bytes": int(spill.group(1)) if spill else 0,
+                "spill_load_bytes": int(spill.group(2)) if spill else 0}
+    raise AssertionError(f"{want} not in the build log")
+
+
+def med_name(P, staged=False):
+    """chip_smoke.instantiation's name of the medium adjoint's
+    instantiation for P (staged: its start, the threads follow)."""
+    import chip_smoke as cs
+    return ("medium adjoint"
+            + f", {cs.WF_EST[P.estimator]}, "
+            f"{'' if P.has_scattering else '!'}SCAT, "
+            f"{'' if P.transmission_only else '!'}TONLY"
+            + (", target" if P.target else "") + (", staged" if staged
+                                                  else ""))
+
+
+def med_variant_libs(wf, shipped, built, v):
+    """The shipped libraries with variant v's wf_med in its place."""
+    libs = dict(shipped)
+    if v in built:
+        libs[wf.MED_LIB] = ctypes.CDLL(built[v])
+        wf._setup(libs[wf.MED_LIB], wf.MED_LIB)
+    return libs
+
+
+def med_logs(wf, jobs):
+    """{variant: library} and {variant: nvcc log} of the builds, the
+    shipped build's log beside them."""
+    from drtvam_tpu_torch.native import BUILD_DIR
+    built, logs = {}, {}
+    for v, lib, proc in jobs:
+        log, _ = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{v}: nvcc failed\n{log}")
+        built[v], logs[v] = lib, log
+    with open(os.path.join(BUILD_DIR, f"lib{wf.MED_LIB}.so.log")) as f:
+        logs["shipped"] = f.read()
+    return built, logs
+
+
+def main_med_cell_c(names):
+    """The medium adjoint staged and one-pass on cell (c)'s loop inputs
+    (its optimize() run, the last depth-6 calls) with medium_grads, for
+    each variant: times (median of 5), the sums of both routes bitwise
+    equal, registers and spills."""
+    import torch
+    import chip_smoke as cs
+    from drtvam_tpu_torch.ops import render as wf
+    dev = torch.device("cuda:0")
+    torch.zeros(1, device=dev)  # create the context before the memory stats
+    with tempfile.TemporaryDirectory() as work:
+        jobs = med_build(work, names)
+        shipped = wf.build_kernels()
+        with cs.CallSpy(wf, by_depth=True) as spy:
+            cs.optimize_on_card(torch, dev, cs.custom_cell_config(work))
+        st, at, data, seed, spp = spy.calls["wf_fwd:target1:depth6"]
+        dL = spy.calls["wf_bwd:target1:depth6"][2]
+        sm = cs.med_static(st)
+        built, logs = med_logs(wf, jobs)
+        P = wf.make_params(sm, at, 0, 1)
+        print(json.dumps({"record": "cell (c)", "n_active": data.numel(),
+                          "zero_share": float((data == 0).float().mean()),
+                          "wf_bwd_ms": cs.cuda_ms(lambda: wf.wf_bwd(
+                              st, at, dL, seed, spp), 5, torch)}),
+              flush=True)
+        for v in names:
+            libs = med_variant_libs(wf, shipped, built, v)
+            rec, sums = {"variant": v, **MED_VARIANTS[v]}, {}
+            for staged in (True, False):
+                route = contextlib.nullcontext() if staged else \
+                    cs.OnePass(wf)
+                with route:
+                    def call():
+                        return wf.med_adjoint(  # noqa: B023
+                            libs, sm, at, dL, data, seed, spp)
+                    stg, ssg = call()
+                    torch.cuda.synchronize()
+                    ms = cs.cuda_ms(call, 5, torch)
+                sums[staged] = (float(stg), float(ssg))
+                rec["staged" if staged else "one-pass"] = {
+                    "ms": ms, "ptxas": med_ptxas(logs[v],
+                                                 med_name(P, staged))}
+            if sums[True] != sums[False]:
+                raise AssertionError(f"{v}: staged sums {sums}")
+            rec.update(stg=sums[True][0], ssg=sums[True][1])
+            print(json.dumps(rec), flush=True)
+
+
+def main_med(names, share_only):
+    import torch
+    import chip_smoke as cs
+    from drtvam_tpu_torch.models.scene import Scene
+    from drtvam_tpu_torch.ops import backproject as bp
+    from drtvam_tpu_torch.ops import render as wf
+    from drtvam_tpu_torch.ops.march import scene_tensors
+    from drtvam_tpu_torch.opt.loss import losses
+    dev = torch.device("cuda:0")
+    torch.zeros(1, device=dev)  # create the context before the memory stats
+    with tempfile.TemporaryDirectory() as work:
+        jobs = [] if share_only else med_build(work, names)
+        wf.build_kernels()
+        cs.phase_wf_bench(torch, wf, bp, dev, work)
+        torch.cuda.empty_cache()
+        cfg = cs.bench_config(work, "cylindrical")
+        proj = {k: v for k, v in cfg["projector"].items()
+                if k not in ("n_patterns", "resx", "resy")}
+        cfg["projector"] = dict(proj, patterns=os.path.join(
+            work, "bench_wavefront", "patterns.npz"))
+        scenes = {}
+        for st_v in (cs.MED_ST_TRUE, MED_ST):
+            c = json.loads(json.dumps(cfg))
+            c["vial"]["medium"]["extinction"] = st_v
+            sc = Scene(c)
+            static, arr = sc.build(mode="volume", include_target=False)
+            scenes[st_v] = (cs.med_static(static), scene_tensors(arr, dev))
+        data = torch.as_tensor(sc.projector.active_data, device=dev)
+        inv_vol = float(sc.sensor.inv_volume(None))
+        counts, share = cs.emitting_counts(torch, wf, *scenes[MED_ST], data)
+        rec = {"record": "patterns", "n_active": data.numel(),
+               "zero_share": float((data == 0).float().mean()),
+               "emitting_share": share, "ctas": counts.numel(),
+               "tasks_all_pixels": wf.med_tasks(*scenes[MED_ST])[1],
+               "tasks_emitting": int(((counts + 31) // 32).sum())}
+        print(json.dumps(rec), flush=True)
+        if share_only:
+            return
+        built, logs = med_logs(wf, jobs)
+        static, at = scenes[MED_ST]
+        with torch.no_grad():
+            measured = wf.render(*scenes[cs.MED_ST_TRUE], data, inv_vol, 0, 1)
+            v = wf.render(static, at, data, inv_vol, 0, 1)
+        v.requires_grad_(True)
+        with torch.enable_grad():
+            (dvol,) = torch.autograd.grad(
+                losses["l2"]({})(v, measured, data), v)
+        dL = (dvol * inv_vol).reshape(-1).contiguous()
+        del measured, v, dvol, scenes
+        torch.cuda.empty_cache()
+        bwd_ms = cs.cuda_ms(lambda: wf.wf_bwd(static, at, dL, 0, 1), 5, torch)
+        P = wf.make_params(static, at, 0, 1)
+        shipped = wf.build_kernels()
+        ref = None
+        for v in names:
+            libs = med_variant_libs(wf, shipped, built, v)
+
+            def call():
+                return wf.med_adjoint(libs, static, at, dL,  # noqa: B023
+                                      data, 0, 1)
+            stg, ssg = call()
+            torch.cuda.synchronize()
+            if ref is None:
+                ref = (float(stg), float(ssg))
+            r = {"variant": v, **MED_VARIANTS[v], "wf_bwd_ms": bwd_ms,
+                 "ms": cs.cuda_ms(call, 5, torch),
+                 "stg": float(stg), "ssg": float(ssg),
+                 "stg_rel_vs_shipped": cs.med_rel(stg, ref[0]),
+                 "ssg_rel_vs_shipped": cs.med_rel(ssg, ref[1]),
+                 "ptxas": med_ptxas(logs[v], med_name(P))}
+            if not (r["stg_rel_vs_shipped"] <= cs.MED_TOL and
+                    r["ssg_rel_vs_shipped"] <= cs.MED_TOL):
+                raise AssertionError(f"{v}: {r}")
+            print(json.dumps(r), flush=True)
+
+
 def main():
+    if sys.argv[1:2] == ["med"]:
+        args = sys.argv[2:]
+        flag = args[0] if args[:1] in (["--share"], ["--cell-c"]) else None
+        names = (args[1:] if flag else args) or list(MED_VARIANTS)
+        unknown = [n for n in names if n not in MED_VARIANTS]
+        if unknown:
+            sys.exit(f"med variants: {list(MED_VARIANTS)}; unknown "
+                     f"{unknown}")
+        names = ["shipped"] + [n for n in names if n != "shipped"]
+        smi = subprocess.run(["nvidia-smi", "-i", "0",
+                              "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60, check=True)
+        print(smi.stdout.strip(), flush=True)
+        if flag == "--cell-c":
+            main_med_cell_c(names)
+        else:
+            main_med(names, flag == "--share")
+        return
     if sys.argv[1:2] == ["res_target"]:
         names = sys.argv[2:] or list(RTP_VARIANTS)
         unknown = [n for n in names if n not in RTP_VARIANTS]
