@@ -244,6 +244,33 @@ Phases (each failure exits non-zero before the result line):
      scattering medium, the delta estimator and optimize_medium with the
      albedo asked for (medium.json).
 
+  16. multi-GPU (records `multi_gpu`, drtvam_tpu_torch/parallel/ on
+     torch.distributed): worlds of rank processes spawned here (a file://
+     rendezvous in the phase's temporary directory): NCCL over every card
+     (one card: a world of one, NCCL's init and all-reduce on it), two
+     ranks on cuda:0 over gloo (the split itself on one card), and NCCL
+     over two cards where the machine shows two. Each rank checks an
+     all-reduce on its card, then runs phase 9's bench scene uncut (one
+     sharded render and adjoint on per-angle ramp patterns against the
+     single-rank render: the dose voxel by voxel to rtol 2e-5 plus 1e-6
+     of its max (beside it the spread of two single-rank forwards, whose
+     float atomics differ too), the gradient bitwise; 5 Linear-L-BFGS
+     steps on the thresholded loss over the
+     sharded render against 5 single-rank steps, loss history to 1e-4
+     relative), phase 4's cylindrical and phase 5's index-matched scenes
+     through shard_ballistic_engine in float32 and bf16 (the dense and
+     banded pairs; the dose to rtol 2e-5, atol 1e-7 of its max, the
+     gradient bitwise against the unsharded engine), and cell (a)'s scene
+     cut to every 8th angle (the loop's delta fast residual on two
+     channels, the final render's dda residual with the target kept, the
+     analog pair's target forms; as the bench scene's wavefront). Each
+     case's sharded run counts its launches (the path's kernels must
+     launch on every rank that holds pixels or angles); one record per
+     world and case: per-rank kernel and all-reduce milliseconds (CUDA
+     events; and on the host clock), the wall of the sharded step beside
+     the single-rank step, the errors. Any failure fails the phase: no
+     smaller world, no other backend, no CPU.
+
 Each earlier line is a JSON record; the record `seconds` gives each
 phase's seconds and the script's total; the line before the last lists
 the kernels, the last is {"ok": true, "device": {...}}. The wavefront
@@ -4845,6 +4872,441 @@ def medium_entries(kern, cell, cell_c):
         "ptxas": fc["ptxas"]}]
 
 
+# --------------------------------------------------------------------------
+# phase 16: multi-GPU (drtvam_tpu_torch/parallel/ on torch.distributed)
+
+# the sharded wavefront dose against the single-rank dose, voxel by
+# voxel: within SHARD_DOSE_RTOL of the voxel (tests/test_sharding.py's
+# rtol) plus SHARD_DOSE_TOL of the max. The ranks' doses are summed in
+# another order, and the forward's float atomics make two single-rank
+# forwards differ too (that spread is recorded beside it). The gradient
+# is held bitwise: each pixel's lanes are summed on one rank, the others
+# add exact zeros
+SHARD_DOSE_RTOL, SHARD_DOSE_TOL = 2e-5, 1e-6
+# the sharded ballistic dose: tests/test_ballistic_sharding.py's bar, its
+# atol of the max (the gradient is held bitwise: each angle's adjoint is
+# independent of the others')
+SHARD_BP_RTOL, SHARD_BP_ATOL = 2e-5, 1e-7
+# Linear-L-BFGS steps over the sharded render, and the relative bar of
+# their loss history against as many single-rank steps
+SHARD_STEPS = 5
+SHARD_LOSS_RTOL = 1e-4
+# cell (a)'s scene cut to the active pixels of every SHARD_CUT_STRIDE-th
+# angle (angle_cut)
+SHARD_CUT_STRIDE = 8
+# seconds a world may take, its processes' start and the kernels' load
+# included; a collective waits at most this long
+SHARD_WORLD_S = 300
+
+
+class ShardRank:
+    """One rank of a phase-16 world: its group and device, and the cases
+    it runs. Each case drives the sharded path once with the launch
+    counts set to 0 just before it and read just after, times the rank's
+    own kernels and all-reduces (CUDA events; gloo's also on the host
+    clock), and on rank 0 runs the single-rank path on the same inputs
+    while the other ranks wait, and holds the two to each other."""
+
+    def __init__(self, torch, group, dev, rank, world, tmp):
+        import torch.distributed as dist
+        from drtvam_tpu_torch.ops import backproject as bp
+        from drtvam_tpu_torch.ops import render as wf
+        from drtvam_tpu_torch.parallel import shard
+        self.torch, self.dist, self.wf, self.bp = torch, dist, wf, bp
+        self.shard, self.group, self.dev = shard, group, dev
+        self.rank, self.world, self.tmp = rank, world, tmp
+
+    def sync(self):
+        self.torch.cuda.synchronize(self.dev)
+        self.dist.barrier()
+
+    def seeded(self, n, seed):
+        """(n,) float32 uniform in [0, 1) from a CPU generator, on the
+        rank's device: the same values on every rank."""
+        g = self.torch.Generator().manual_seed(seed)
+        return self.torch.rand(n, generator=g).to(self.dev)
+
+    def ramp(self, static, at):
+        """Per-angle ramp patterns of the store: (0.5 + angle % 8 / 16) x
+        (0.25 + column / resx)."""
+        torch, p = self.torch, static.projector
+        f32 = dict(dtype=torch.float32, device=self.dev)
+        a = torch.arange(p.n_patterns, **f32)[:, None, None]
+        x = torch.arange(p.resx, **f32)[None, None, :]
+        dense = ((0.5 + torch.remainder(a, 8.0) / 16.0)
+                 * (0.25 + x / p.resx)).expand(p.n_patterns, p.resy, p.resx)
+        return dense.reshape(-1)[at["active_pixels"].long()].contiguous()
+
+    def collective_ms(self, t):
+        """An all-reduce of a copy of t: (CUDA-event ms, host ms)."""
+        x = t.clone()
+        self.sync()
+        t0 = time.perf_counter()
+        ms, _ = event_ms(lambda: self.shard.all_reduce(x, self.group),
+                         self.torch)
+        self.torch.cuda.synchronize(self.dev)
+        return ms, 1e3 * (time.perf_counter() - t0)
+
+    def launched(self, must, counts):
+        for name in must:
+            if not counts.get(name):
+                raise AssertionError(f"rank {self.rank}: the sharded path "
+                                     f"never launched {name} ({counts})")
+
+    def wavefront_case(self, static, at, data, dL, seed, spp, must):
+        """The sharded render and adjoint (parallel/shard.py) against the
+        single-rank ones (ops/render.py forward / adjoint)."""
+        torch, wf, shard, group = self.torch, self.wf, self.shard, self.group
+        chunk = wf.DEFAULT_CHUNK
+        self.sync()
+        wf.reset_launches()
+        t0 = time.perf_counter()
+        dose = shard.sharded_forward(group, static, at, data, seed, spp,
+                                     chunk)
+        grad = shard.sharded_adjoint(group, static, at, seed, spp, chunk,
+                                     dL)
+        torch.cuda.synchronize(self.dev)
+        rec = {"wall_s": time.perf_counter() - t0}
+        counts = {**{k: v for k, v in wf.launches.items() if v},
+                  **{k: v for k, v in wf.form_launches.items() if v}}
+        st, lo, hi = shard.local_block(group, static)
+        if hi > lo:
+            self.launched(must, counts)
+        rec.update(pixels=[lo, hi], launches=counts)
+        fwd_ms, acc = event_ms(lambda: wf.forward(st, at, data, seed, spp,
+                                                  chunk), torch)
+        bwd_ms, g = event_ms(lambda: wf.adjoint(st, at, seed, spp, chunk,
+                                                dL), torch)
+        rec["kernel_ms"] = {"forward": fwd_ms, "adjoint": bwd_ms}
+        del acc, g
+        rec["all_reduce_ms"] = {"dose": self.collective_ms(dose),
+                                "gradient": self.collective_ms(grad)}
+        self.sync()
+        if self.rank == 0:
+            t0 = time.perf_counter()
+            ref = wf.forward(static, at, data, seed, spp, chunk)
+            gref = wf.adjoint(static, at, seed, spp, chunk, dL)
+            torch.cuda.synchronize(self.dev)
+            rec["single_wall_s"] = time.perf_counter() - t0
+            scale = float(ref.abs().max())
+            diff = (dose - ref).abs()
+            bar = SHARD_DOSE_TOL * scale + SHARD_DOSE_RTOL * ref.abs()
+            again = wf.forward(static, at, data, seed, spp, chunk)
+            rec.update(dose_err_of_max=float(diff.max()) / scale,
+                       dose_off=int((diff > bar).sum()), dose_max=scale,
+                       single_repeat_err_of_max=float(
+                           (again - ref).abs().max()) / scale,
+                       grad_bitwise=bool(torch.equal(grad, gref)),
+                       grad_max_abs_err=float((grad - gref).abs().max()),
+                       grad_nonzero=int((gref != 0).sum()))
+            del diff, bar, again
+            if not (scale > 0 and rec["dose_off"] == 0
+                    and rec["grad_bitwise"] and rec["grad_nonzero"]):
+                raise AssertionError(f"sharded wavefront: {rec}")
+        self.sync()
+        return rec
+
+    def lbfgs(self, static, at, target, inv_vol, p0):
+        """SHARD_STEPS Linear-L-BFGS steps (opt/device_lbfgs.py) on the
+        thresholded loss over the sharded render, seed i at step i, on
+        every rank; rank 0 then runs them over the single-rank render."""
+        torch, shard, wf = self.torch, self.shard, self.wf
+        from drtvam_tpu_torch.opt.device_lbfgs import linear_lbfgs
+        from drtvam_tpu_torch.opt.loss import losses
+        loss_obj = losses["threshold"]({})
+
+        def run(group):
+            step = [0]
+
+            def value_grad(p):
+                p = p.detach().requires_grad_(True)
+                with torch.enable_grad():
+                    vol = shard.render_sharded(group, static, at, p, inv_vol,
+                                               seed=step[0], spp=1)
+                    loss = loss_obj(vol, target, p)
+                    (g,) = torch.autograd.grad(loss, p)
+                return vol.detach(), loss.detach(), g
+
+            @torch.no_grad()
+            def dir_fn(z):
+                out = shard.render_sharded(group, static, at, z, inv_vol,
+                                           seed=step[0], spp=1)
+                step[0] += 1
+                return out
+
+            @torch.no_grad()
+            def cand_fn(vol, dvol, alpha, z):
+                return loss_obj(vol + alpha * dvol, target, z)
+
+            t0 = time.perf_counter()
+            _, hist, n = linear_lbfgs(value_grad, dir_fn, cand_fn, p0,
+                                      SHARD_STEPS)
+            torch.cuda.synchronize(self.dev)
+            return hist[:n].cpu().numpy(), time.perf_counter() - t0
+
+        self.sync()
+        wf.reset_launches()
+        hist, wall = run(self.group)
+        counts = {k: v for k, v in wf.launches.items() if v}
+        if counts.get("wf_fwd", 0) < 2 * SHARD_STEPS or \
+                counts.get("wf_bwd", 0) < SHARD_STEPS:
+            raise AssertionError(f"rank {self.rank}: sharded L-BFGS launched "
+                                 f"{counts}")
+        rec = {"steps": len(hist), "wall_s": wall, "launches": counts,
+               "loss": [float(x) for x in hist]}
+        self.sync()
+        if self.rank == 0:
+            ref, rec["single_wall_s"] = run(None)
+            rec["single_loss"] = [float(x) for x in ref]
+            rel = np.abs(hist - ref) / np.abs(ref)
+            rec["loss_max_rel_err"] = float(rel.max())
+            if len(hist) != SHARD_STEPS or len(ref) != SHARD_STEPS or \
+                    not rec["loss_max_rel_err"] <= SHARD_LOSS_RTOL:
+                raise AssertionError(f"sharded L-BFGS: {rec}")
+        self.sync()
+        return rec
+
+    def wavefront_bench(self, cases):
+        """Phase 9's bench scene uncut: one render and adjoint, then the
+        L-BFGS steps."""
+        from drtvam_tpu_torch.models.scene import Scene
+        from drtvam_tpu_torch.ops.march import scene_tensors
+        sc = Scene(bench_config(self.tmp))
+        static, arr = sc.build(mode="volume", include_target=False,
+                               max_depth=6, rr_depth=6)
+        at = scene_tensors(arr, self.dev)
+        tb = sc.target_bank()
+        target = self.torch.from_numpy(np.asarray(
+            sc.sensor.discretize(tb))).to(self.dev)
+        inv_vol = float(sc.sensor.inv_volume(tb))
+        data = self.ramp(static, at)
+        dL = self.seeded(static.sensor.n_cells, 5)
+        cases["bench_wavefront"] = self.wavefront_case(
+            static, at, data, dL, 1, 1, ("wf_fwd", "wf_bwd"))
+        del dL
+        cases["bench_wavefront_lbfgs"] = self.lbfgs(static, at, target,
+                                                    inv_vol, data)
+        del at, target
+        self.torch.cuda.empty_cache()
+
+    def ballistic(self, cases):
+        """Phase 4's cylindrical scene (the dense pair) and phase 5's
+        index-matched one (the banded pair), float32 and bf16, through
+        shard_ballistic_engine against the unsharded engine."""
+        torch = self.torch
+        from drtvam_tpu_torch.models.scene import Scene
+        from drtvam_tpu_torch.ops.ballistic import BallisticEngine
+        for vial in ("cylindrical", "index_matched"):
+            sc = Scene(bench_config(self.tmp, vial))
+            static, arr = sc.build(mode="volume", include_target=False)
+            inv_vol = float(sc.sensor.inv_volume(sc.target_bank()))
+            X, Y, Z = static.sensor.res
+            dvol = self.seeded(X * Y * Z, 6).reshape(Z, Y, X, 1)
+            data = self.ramp(static, {"active_pixels": torch.from_numpy(
+                arr["active_pixels"]).to(self.dev)})
+            for impl in ("cuda", "cuda_bf16"):
+                eng = BallisticEngine(static, arr, self.dev, impl=impl)
+                band = "_band" if vial == "index_matched" else ""
+                want = "cuda" + band + impl[4:]
+                if eng.impl != want:
+                    raise AssertionError(f"{vial}: engine {eng.impl}, "
+                                         f"expected {want}")
+                pair = ("bp_fwd" + band + impl[4:], "bp_bwd" + band + impl[4:])
+                cases[f"bench_{vial}_{impl}"] = self.ballistic_case(
+                    eng, data, dvol, inv_vol, pair)
+                del eng
+                torch.cuda.empty_cache()
+
+    def ballistic_case(self, eng, data, dvol, inv_vol, pair):
+        """The engine on rank 0 unsharded, then shard_ballistic_engine's
+        render_vol and pattern_grad on every rank (pair must launch),
+        against it."""
+        torch, bp, shard = self.torch, self.bp, self.shard
+        rec = {"impl": eng.impl}
+        self.sync()
+        if self.rank == 0:
+            t0 = time.perf_counter()
+            v1 = eng.render_vol(data, inv_vol)
+            g1 = eng.pattern_grad(dvol, inv_vol)
+            torch.cuda.synchronize(self.dev)
+            rec["single_wall_s"] = time.perf_counter() - t0
+        shard.shard_ballistic_engine(eng, self.group)
+        rec["angles"] = [eng.shard.lo, eng.shard.hi]
+        self.sync()
+        bp.reset_launches()
+        t0 = time.perf_counter()
+        v = eng.render_vol(data, inv_vol)
+        g = eng.pattern_grad(dvol, inv_vol)
+        torch.cuda.synchronize(self.dev)
+        rec["wall_s"] = time.perf_counter() - t0
+        rec["launches"] = {k: n for k, n in bp.launches.items() if n}
+        self.launched(pair, rec["launches"])
+        # the rank's kernels apart: its angles' forward and adjoint
+        X, Y, Z = eng.static.sensor.res
+        Pz = eng._resample_fwd(eng.dense_patterns(data)[
+            eng.shard.lo:eng.shard.hi])
+        dL = (dvol[..., 0] * inv_vol * eng.scalar).reshape(Z, Y * X)
+        fwd_ms, _ = event_ms(lambda: eng.fields.forward(Pz), torch)
+        bwd_ms, _ = event_ms(lambda: eng.fields.adjoint(dL), torch)
+        rec["kernel_ms"] = {"forward": fwd_ms, "adjoint": bwd_ms}
+        del Pz, dL
+        rec["all_reduce_ms"] = {"dose": self.collective_ms(v),
+                                "gradient": self.collective_ms(g)}
+        self.sync()
+        if self.rank == 0:
+            scale = float(v1.abs().max())
+            diff = (v - v1).abs()
+            bar = SHARD_BP_ATOL * scale + SHARD_BP_RTOL * v1.abs()
+            rec.update(dose_max=scale,
+                       dose_err_of_max=float(diff.max()) / scale,
+                       dose_off=int((diff > bar).sum()),
+                       grad_bitwise=bool(torch.equal(g, g1)),
+                       grad_max_abs_err=float((g - g1).abs().max()),
+                       grad_nonzero=int((g1 != 0).sum()))
+            if not (scale > 0 and rec["dose_off"] == 0 and
+                    rec["grad_bitwise"] and rec["grad_nonzero"]):
+                raise AssertionError(f"sharded ballistic: {rec}")
+        self.sync()
+        return rec
+
+    def cell_a(self, cases):
+        """Cell (a)'s scene (phase 13) cut to every SHARD_CUT_STRIDE-th
+        angle: the loop's delta fast residual on the two-channel film, the
+        final render's dda first-scatter residual with the target kept
+        (the residual's target path pass and the walk pass) and the analog
+        pair's target forms on the two-channel film, sharded against
+        single-rank."""
+        import dataclasses
+        from drtvam_tpu_torch.models.scene import Scene
+        from drtvam_tpu_torch.ops.hybrid import ScatteringEngine
+        sc = Scene(sa_cell_config(self.tmp, "a"))
+        static, arr = sc.build(mode="volume", include_target=True,
+                               max_depth=6, rr_depth=6)
+        eng = ScatteringEngine(static, arr, self.dev, spp=1,
+                               estimator="delta",
+                               inside_mask=sc.sensor.discretize(
+                                   sc.target_bank()))
+        at, res2 = eng.arr, eng.static_s
+        del eng
+        if not res2.fast_residual or res2.sensor.channels != 2:
+            raise AssertionError("cell (a): not the fast residual on two "
+                                 "channels")
+        one = one_channel_target(res2).sensor
+        res1 = dataclasses.replace(
+            res2, sensor=dataclasses.replace(one, estimator="dda"),
+            fast_residual=False, max_depth=16, rr_depth=8)
+        data = self.ramp(static, at)
+        for name, st, must in (
+                ("cell_a_delta_residual_2ch", res2,
+                 ("wf_res_fwd:target2", "wf_res_bwd:target2")),
+                ("cell_a_dda_residual_target1", res1,
+                 ("wf_res_tgt_path", "wf_res_walk", "wf_res_bwd:target1")),
+                ("cell_a_analog_2ch", static,
+                 ("wf_fwd:target2", "wf_tgt_walk:target2",
+                  "wf_bwd:target2"))):
+            stc, atc, dc = angle_cut(st, at, data, SHARD_CUT_STRIDE)
+            dL = self.seeded(st.sensor.n_cells, 7)
+            cases[name] = dict(self.wavefront_case(stc, atc, dc, dL, 2, 1,
+                                                   must),
+                               cut=f"every {SHARD_CUT_STRIDE}th angle")
+            del stc, atc, dc, dL
+            self.torch.cuda.empty_cache()
+
+
+def shard_rank(rank, world, backend, devices, work):
+    """A phase-16 rank process: join the world's group (file://
+    rendezvous in work), load the kernels the script built, check the
+    collective on the card, run the cases and write what it measured to
+    work/rank<r>.json."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, REPO)
+    from drtvam_tpu_torch.native import load_cuda
+    from drtvam_tpu_torch.ops import backproject as bp
+    from drtvam_tpu_torch.ops import render as wf
+    from drtvam_tpu_torch.parallel import multihost, shard
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    multihost.init_multihost(
+        init_method="file://" + os.path.join(work, "init"),
+        world_size=world, rank=rank, backend=backend,
+        device=torch.device("cuda", devices[rank]), timeout=SHARD_WORLD_S)
+    group, dev = multihost.global_mesh()
+    load_cuda(bp.KERNELS + wf.LIBS, {**bp._SETUP, **wf._SETUP}, wf._FLAGS)
+    probe = torch.full((4,), float(rank + 1), device=dev)
+    shard.all_reduce(probe, group)
+    if not torch.equal(probe.cpu(), torch.full((4,), world * (world + 1)
+                                               / 2.0)):
+        raise AssertionError(f"{backend} all_reduce on {dev}: {probe}")
+    tmp = os.path.join(work, f"rank{rank}")
+    os.makedirs(tmp)
+    r = ShardRank(torch, group, dev, rank, world, tmp)
+    rec = {"rank": rank, "device": str(dev),
+           "start_s": time.perf_counter() - t0, "cases": {}}
+    r.wavefront_bench(rec["cases"])
+    r.ballistic(rec["cases"])
+    r.cell_a(rec["cases"])
+    r.sync()
+    rec["seconds"] = time.perf_counter() - t0
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+
+
+# what a rank reports of a case beside rank 0's comparisons
+SHARD_PER_RANK = ("pixels", "angles", "wall_s", "kernel_ms",
+                  "all_reduce_ms", "launches")
+
+
+def phase_multi_gpu(torch, tmp):
+    """Phase 16: the sharded wavefront and ballistic engine in worlds of
+    processes spawned here (torch.multiprocessing): NCCL over every card,
+    two ranks on cuda:0 over gloo, and NCCL over two cards where there
+    are two. One record per world and case; any failure, of a rank, a
+    collective or a comparison, fails the phase (no smaller world, no
+    other backend, no CPU)."""
+    import torch.multiprocessing as mp
+    n = torch.cuda.device_count()
+    worlds = [("nccl", list(range(n))), ("gloo", [0, 0])]
+    if n >= 2:
+        worlds.append(("nccl", [0, 1]))
+    out = []
+    for backend, devices in worlds:
+        world = len(devices)
+        work = tempfile.mkdtemp(dir=tmp, prefix=f"shard_{backend}{world}_")
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(shard_rank, args=(world, backend, devices,
+                                                   work),
+                                 nprocs=world, join=False,
+                                 start_method="spawn")
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > SHARD_WORLD_S:
+                for p in ctx.processes:
+                    if p.is_alive():
+                        p.kill()
+                raise AssertionError(f"the {backend} world over cuda "
+                                     f"{devices} took over {SHARD_WORLD_S} s")
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        head = {"phase": "multi_gpu", "backend": backend, "world": world,
+                "devices": [f"cuda:{i}" for i in devices]}
+        for case, rec in ranks[0]["cases"].items():
+            emit({**head, "case": case,
+                  **{k: v for k, v in rec.items()
+                     if k not in SHARD_PER_RANK},
+                  "ranks": [{k: rk["cases"][case][k] for k in SHARD_PER_RANK
+                             if k in rk["cases"][case]} for rk in ranks]})
+        rec = {**head, "case": "world", "seconds": wall,
+               "rank_start_s": [rk["start_s"] for rk in ranks],
+               "rank_seconds": [rk["seconds"] for rk in ranks]}
+        emit(rec)
+        out.append(rec)
+    return out
+
+
 class Laps:
     """The seconds of the script's phases: each lap from the end of the
     one before, the first from the script's start (its imports and the
@@ -5033,6 +5495,10 @@ def main():
         laps.lap("15 medium calibration cell")
         phase_cli_medium(wf, tmp)
         laps.lap("15 cli medium")
+        # multi-GPU (phase 16)
+        torch.cuda.empty_cache()
+        phase_multi_gpu(torch, tmp)
+        laps.lap("16 multi-GPU")
     emit(laps.record())
 
     emit({"kernels": [

@@ -17,6 +17,8 @@ Layer map:
   ops/      — mesh I/O, voxelization, 2D transport fields, the
               backprojection kernels and the ballistic engine
   opt/      — losses, Linear L-BFGS, the optimize() driver and CLI
+  parallel/ — torch.distributed: the ray-sharded wavefront render and
+              the angle-sharded ballistic engine, all-reduced over ranks
   utils/    — EXR/PNG I/O, IoU and histogram metrics
   native.py — g++/nvcc build-on-first-use and ctypes loading
 

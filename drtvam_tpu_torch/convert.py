@@ -21,7 +21,11 @@ from .opt.device_lbfgs import is_bf16_bits, rows_from_numpy
 
 
 def _fields(obj, cls, **override):
-    kw = {f.name: getattr(obj, f.name) for f in dataclasses.fields(cls)}
+    """cls from obj's fields of the same names; a field the JAX package
+    has no counterpart of (ProjectorStatic.block) keeps its
+    default."""
+    kw = {f.name: getattr(obj, f.name) for f in dataclasses.fields(cls)
+          if hasattr(obj, f.name)}
     kw.update(override)
     return cls(**kw)
 

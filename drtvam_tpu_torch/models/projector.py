@@ -65,6 +65,11 @@ class ProjectorStatic:
     n_active: int
     # the sparse store is the dense identity map (no culling or crop)
     identity: bool = False
+    # the active indices [lo, hi) a render traces (a rank's block,
+    # parallel/shard.py); None: every active pixel. The store, the inputs
+    # and the pattern gradient stay whole, so that every lane keeps its id
+    # and its random stream
+    block: tuple = None
 
 
 class Projector:

@@ -28,6 +28,13 @@ is [dose * M, dose * (1 - M)] and the adjoint's dose cotangent
 dL0 * M + dL1 * (1 - M), so both channels cost one backprojection (the
 JAX package's split, drtvam_tpu/ops/ballistic.py:320-362). inv_vol is
 then the (Z, Y, X, 2) tensor of inverse fractional volumes.
+
+An engine that parallel/shard.py `shard_ballistic_engine` has sharded
+holds its rank's block of the angles (`shard`, the JAX package's hooks
+at drtvam_tpu/ops/ballistic.py:233-235, :338-341, :366-368): it
+backprojects those angles' patterns and sums the dose over the ranks,
+and writes its angles' adjoint into the full pattern vector, summed over
+the ranks too.
 """
 from __future__ import annotations
 
@@ -121,6 +128,9 @@ class BallisticEngine:
         self.n_active = int(ap.shape[0])
         self.active_pixels = None if self.identity_pixels else \
             torch.from_numpy(ap.astype(np.int64)).to(self.device)
+        # the rank's block of the angles (parallel/shard.py AngleShard);
+        # None: every angle, one process
+        self.shard = None
 
     def _choose(self, impl, Wn, Un, U):
         m = re.fullmatch(r"(plain|cuda)(_band)?(_bf16)?", impl)
@@ -208,8 +218,15 @@ class BallisticEngine:
     def render_vol(self, active_data, inv_vol):
         """(Z, Y, X, C) dose volume; differentiable w.r.t. active_data
         (the backward runs the adjoint kernel)."""
-        Pz = self._resample_fwd(self.dense_patterns(active_data))
-        dose = backproject(Pz, self.fields)
+        sh = self.shard
+        if sh is not None:
+            active_data = sh.replicated(active_data)
+        P = self.dense_patterns(active_data)
+        if sh is not None:
+            P = P[sh.lo:sh.hi]
+        dose = backproject(self._resample_fwd(P), self.fields)
+        if sh is not None:
+            dose = sh.summed(dose)
         X, Y, Z = self.static.sensor.res
         dose = dose.reshape(Z, Y, X) * self.scalar
         if self.mask is None:
@@ -228,10 +245,13 @@ class BallisticEngine:
         else:
             dL = dvol[..., 0] * self.mask + dvol[..., 1] * (1.0 - self.mask)
         dL = (dL * self.scalar).reshape(Z, Y * X)
-        Pbar = self._resample_bwd(self.fields.adjoint(dL)).reshape(-1)
-        if self.identity_pixels:
-            return Pbar
-        return Pbar[self.active_pixels]
+        Pbar = self._resample_bwd(self.fields.adjoint(dL))
+        sh = self.shard
+        if sh is not None:
+            Pbar = sh.full(Pbar, self.shape_dense[0])
+        Pbar = Pbar.reshape(-1)
+        g = Pbar if self.identity_pixels else Pbar[self.active_pixels]
+        return g if sh is None else sh.sum(g)
 
 
 def radon_active_ballistic(static: MarchStatic, arr, target_mask,

@@ -14,6 +14,12 @@ path replay, and the autograd Function around them.
     the pattern gradient (n_active,).
   * Lane ids are global: lane = active index * spp + k, uint32 values
     as in the JAX package, so a run with 2**32 or more lanes raises.
+  * A static whose projector has a `block` (lo, hi) traces the active
+    pixels [lo, hi) only (a rank's block, parallel/shard.py): the same
+    lanes, with the same ids and streams, as the whole render traces for
+    them; the inputs stay (n_active,), and the pattern gradient is 0
+    outside the block. The kernels take the block as a launch order over
+    its pixels (block_order), with no other change.
 
 Four kernel wrappers, each with its plain version beside it:
 
@@ -231,19 +237,43 @@ def _n_lanes(static: MarchStatic, spp):
     return n
 
 
+def pixel_range(static: MarchStatic):
+    """[lo, hi): the active indices the static traces (its block, or
+    every active pixel)."""
+    p = static.projector
+    return (0, p.n_active) if p.block is None else p.block
+
+
+def arithmetic_order(p):
+    """Whether the kernels compute projector p's launch order themselves:
+    the identity store, traced whole (a block of it runs as a sparse
+    store, its order given: block_order)."""
+    return p.identity and p.block is None
+
+
+def _grad_out(static: MarchStatic, dev):
+    """The pattern gradient's output (n_active,): zeros for a block, whose
+    kernels write its pixels only."""
+    n = static.projector.n_active
+    f32 = dict(dtype=torch.float32, device=dev)
+    return torch.empty((n,), **f32) if static.projector.block is None \
+        else torch.zeros((n,), **f32)
+
+
 # --------------------------------------------------------------------------
 # plain versions
 
 
 def _forward(static: MarchStatic, arr, data, seed, spp, chunk, stats=None):
     """The dose accumulator, chunk by chunk through trace_wavefront."""
-    n_lanes = _n_lanes(static, spp)
-    chunk, n_chunks = _chunking(n_lanes, chunk, spp)
+    _n_lanes(static, spp)
+    lo, hi = (spp * i for i in pixel_range(static))
+    chunk, n_chunks = _chunking(hi - lo, chunk, spp)
     arr = dict(arr, active_data=data)
     acc = torch.zeros((static.sensor.n_cells,), dtype=torch.float32,
                       device=data.device)
     for i in range(n_chunks):
-        lane = torch.arange(i * chunk, min((i + 1) * chunk, n_lanes),
+        lane = torch.arange(lo + i * chunk, min(lo + (i + 1) * chunk, hi),
                             dtype=torch.int64, device=data.device)
         acc, _ = trace_wavefront(static, arr, lane, seed, spp, acc=acc,
                                  em=data[lane // spp], stats=stats)
@@ -259,13 +289,14 @@ def _adjoint(static: MarchStatic, arr, seed, spp, chunk, dL_flat,
     (pattern gradient, stg, ssg) then, stg and ssg the summed
     d loss / d sigma_t and d loss / d sigma_s (float32 0-d tensors)."""
     n_active = static.projector.n_active
-    n_lanes = _n_lanes(static, spp)
-    chunk, n_chunks = _chunking(n_lanes, chunk, spp)
+    _n_lanes(static, spp)
+    l0, l1 = (spp * i for i in pixel_range(static))
+    chunk, n_chunks = _chunking(l1 - l0, chunk, spp)
     dev = dL_flat.device
     pg = torch.zeros((n_active,), dtype=torch.float32, device=dev)
     sums = torch.zeros((2,), dtype=torch.float32, device=dev)
     for i in range(n_chunks):
-        lo, hi = i * chunk, min((i + 1) * chunk, n_lanes)
+        lo, hi = l0 + i * chunk, min(l0 + (i + 1) * chunk, l1)
         lane = torch.arange(lo, hi, dtype=torch.int64, device=dev)
         sg = None if data is None else [
             torch.zeros((hi - lo,), dtype=torch.float32, device=dev)
@@ -352,7 +383,7 @@ def make_params(static: MarchStatic, arr, seed, spp):
     P.kind = PROJECTOR_KINDS.index(p.kind)
     P.n_patterns, P.resx, P.resy, P.n_active = (p.n_patterns, p.resx, p.resy,
                                                 p.n_active)
-    P.identity = int(p.identity)
+    P.identity = int(arithmetic_order(p))
     P.spp = int(spp)
     P.regular_sampling = int(static.regular_sampling)
     P.sample_time = int(static.sample_time)
@@ -513,12 +544,14 @@ def block_order(static: MarchStatic, arr):
     [starts[c], starts[c + 1]). Returns int64 (order (n_active,), starts
     (resy * n_groups + 1,)) on the scene tensors' device. For the
     identity store the kernels compute the same order arithmetically
-    (csrc/wf_trace.cuh block_range, lane_aidx)."""
+    (csrc/wf_trace.cuh block_range, lane_aidx). A static with a block
+    orders the block's active indices alone (order (hi - lo,)), and the
+    kernels take it as a sparse store's."""
     p = static.projector
     A, h, w = p.n_patterns, p.resy, p.resx
     n_groups, group = angle_groups(A)
     dev = arr["active_pixels"].device
-    if p.identity:
+    if arithmetic_order(p):
         j = torch.arange(p.n_active, device=dev)
         py, r = j // (A * w), j % (A * w)
         order = ((r // w) * h + py) * w + r % w
@@ -526,11 +559,13 @@ def block_order(static: MarchStatic, arr):
         starts = (c // n_groups) * (A * w) + \
             torch.clamp((c % n_groups) * group, max=A) * w
         return order, starts
-    idx = arr["active_pixels"].to(torch.int64)
+    lo, hi = pixel_range(static)
+    idx = arr["active_pixels"][lo:hi].to(torch.int64)
     a, pix = idx // (h * w), idx % (h * w)
     py, px = pix // w, pix % w
     order = torch.argsort((py * A + a) * w + px, stable=True)
     block = py[order] * n_groups + a[order] // group
+    order = order + lo
     starts = torch.searchsorted(
         block, torch.arange(h * n_groups + 1, device=dev))
     return order, starts
@@ -632,15 +667,16 @@ def _launch_layout(static: MarchStatic, arr):
     """(order, starts, rows, tile_n) for a launch on the scene tensors
     `arr`, built once per scene and cached in their dict: the sparse
     store's order as int32 (None, None for the identity store, whose
-    order the kernels compute) and the tile layout on arr's device."""
+    order the kernels compute; a block's is given) and the tile layout on
+    arr's device."""
     p = static.projector
-    key = (p.n_patterns, p.resx, p.resy, p.n_active, p.identity,
+    key = (p.n_patterns, p.resx, p.resy, p.n_active, p.identity, p.block,
            static.sensor.res, static.sensor.channels, static.surfaces)
     cached = arr.get("_wf_layout")
     if cached is None or cached[0] != key:
         dev = arr["active_pixels"].device
         order = starts = None
-        if not p.identity:
+        if not arithmetic_order(p):
             order, starts = (t.to(torch.int32).contiguous()
                              for t in block_order(static, arr))
         rows, n = tile_rows(static, arr)
@@ -964,10 +1000,11 @@ def _split_buffer(static, arr, P, dev):
 def _lanes_before(static, arr, spp):
     """(CTAs + 1,) int64 numpy: the lanes before each CTA of the launch
     order (cached in the scene tensors' dict)."""
+    key = (spp, static.projector.block)
     cached = arr.get("_wf_res_lanes")
-    if cached is None or cached[0] != spp:
+    if cached is None or cached[0] != key:
         starts = block_order(static, arr)[1].cpu().numpy().astype(np.int64)
-        cached = (spp, starts * spp)
+        cached = (key, starts * spp)
         arr["_wf_res_lanes"] = cached
     return cached[1]
 
@@ -1214,8 +1251,7 @@ def tgt_adjoint(libs, static, arr, dL_flat, seed, spp, stats=None):
     pix = _pixels("wf_bwd", static, arr, dev)
     P, order, starts, _ = _family_params("wf_bwd", static, arr, seed, spp)
     M, tris, _ = _target_args("wf_bwd", static, arr, P)
-    out = torch.empty((static.projector.n_active,), dtype=torch.float32,
-                      device=dev)
+    out = _grad_out(static, dev)
     counter = _counter(stats, dev)
     err = libs[TGT_LIB].wf_tgt_bwd(
         ctypes.byref(P), ctypes.byref(M), _ptr(tris), dL_flat.data_ptr(),
@@ -1235,11 +1271,13 @@ def tgt_units(static, arr, spp):
     task end) on the scene tensors' device, (n_units,) int64 numpy lanes);
     cached in the scene tensors' dict."""
     before = _lanes_before(static, arr, spp)
-    key = (spp, len(before), int(before[-1]))
+    key = (spp, len(before), int(before[-1]), static.projector.block)
     cached = arr.get("_wf_tgt_units")
     if cached is None or cached[0] != key:
         units, lanes = [], []
         for c, n in enumerate(np.diff(before) // spp):
+            if n == 0:   # a CTA with no lane (a block's, a sparse store's)
+                continue
             n_tasks = spp * (-(-int(n) // 32))
             parts = -(-int(n) * spp // TGT_UNIT_LANES)
             cut = [n_tasks * i // parts for i in range(parts + 1)]
@@ -1255,12 +1293,12 @@ def tgt_units(static, arr, spp):
     return cached[1], cached[2]
 
 
-def _tgt_estimate(arr, P, lanes):
+def _tgt_estimate(arr, P, lanes, block):
     """The records a lane of each unit made in the last launch on these
     units (TGT_GUESS before the first), float32 on the scene tensors'
     device, and the units' lanes there (cached in the scene tensors'
     dict; the wrapper updates the estimate in place)."""
-    key = (P.spp, P.target, P.n_active, lanes.shape[0])
+    key = (P.spp, P.target, P.n_active, lanes.shape[0], block)
     cached = arr.get("_wf_tgt_est")
     if cached is None or cached[0] != key:
         dev = arr["active_pixels"].device
@@ -1292,7 +1330,7 @@ def tgt_forward(libs, static, arr, data, seed, spp, stats=None, times=None):
                       device=dev)
     units, lanes = tgt_units(static, arr, spp)
     n_units = lanes.shape[0]
-    est, lanes_t = _tgt_estimate(arr, P, lanes)
+    est, lanes_t = _tgt_estimate(arr, P, lanes, static.projector.block)
     cum = (torch.ceil(lanes_t * est * TGT_MARGIN).to(torch.int64)
            + TGT_SLACK).cumsum(0)
     cum_h = cum.cpu().numpy()
@@ -1448,8 +1486,7 @@ def wf_bwd(static: MarchStatic, arr, dL_flat, seed, spp, stats=None):
     libs = _card_libs(dL_flat)
     if tgt_route(libs, "wf_bwd", static, arr):
         return tgt_adjoint(libs, static, arr, dL_flat, seed, spp, stats)
-    out = torch.empty((static.projector.n_active,), dtype=torch.float32,
-                      device=dL_flat.device)
+    out = _grad_out(static, dL_flat.device)
     _launch("wf_bwd", static, arr, dL_flat, out, seed, spp, stats)
     return out
 
@@ -1461,7 +1498,7 @@ def med_tasks(static: MarchStatic, arr):
     medium adjoint's task slots. Its tasks (32 emitting pixels each) take
     the first slots of their CTA's region."""
     p = static.projector
-    key = (p.n_patterns, p.resx, p.resy, p.n_active, p.identity)
+    key = (p.n_patterns, p.resx, p.resy, p.n_active, p.identity, p.block)
     cached = arr.get("_wf_med_tasks")
     if cached is None or cached[0] != key:
         starts = block_order(static, arr)[1]
@@ -1559,8 +1596,7 @@ def res_forward(libs, static, arr, data, seed, spp, stats=None,
 
 def res_adjoint(libs, static, arr, dL_flat, seed, spp, stats=None):
     """The residual adjoint through the libraries `libs`, in one pass."""
-    out = torch.empty((static.projector.n_active,), dtype=torch.float32,
-                      device=dL_flat.device)
+    out = _grad_out(static, dL_flat.device)
     _res_one_pass(libs, "wf_res_bwd", static, arr, dL_flat, out, seed, spp,
                   stats)
     return out

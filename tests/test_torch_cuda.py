@@ -296,6 +296,40 @@ def test_wf_kernels_match_plain(case, tmp_path, cuda_device):
     assert torch.equal(grad, grad2)
 
 
+@pytest.mark.parametrize("case", WF_CASES + ["dda_first_scatter"])
+def test_pixel_blocks_on_the_card(case, tmp_path, cuda_device):
+    """A rank's block (parallel/shard.py pixel_block: the kernels' launch
+    order over its pixels alone), three blocks of the store: each block's
+    gradient bitwise the whole launch's on its pixels and 0 elsewhere,
+    the blocks' doses summing to the whole dose to WF_TOL of the max."""
+    from drtvam_tpu_torch.ops.march import scene_tensors
+    from drtvam_tpu_torch.parallel.shard import block_range, pixel_block
+    if case == "dda_first_scatter":
+        static, at = _res_scene(tmp_path, "dda", "first_scatter")
+        spp = 4
+    else:
+        static, arr, spp = _wf_scene(tmp_path, case)
+        at = scene_tensors(arr, cuda_device)
+    n = static.projector.n_active
+    rng = np.random.default_rng(8)
+    data = torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32)) \
+        .to(cuda_device)
+    dL = torch.from_numpy(rng.uniform(0.0, 1.0, static.sensor.n_cells)
+                          .astype(np.float32)).to(cuda_device)
+    dose = wf.forward(static, at, data, 7, spp)
+    grad = wf.adjoint(static, at, 7, spp, wf.DEFAULT_CHUNK, dL)
+    total = torch.zeros_like(dose)
+    for r in range(3):
+        lo, hi = block_range(n, 3, r)
+        st = pixel_block(static, lo, hi)
+        total += wf.forward(st, at, data, 7, spp)
+        g = wf.adjoint(st, at, 7, spp, wf.DEFAULT_CHUNK, dL)
+        assert torch.equal(g[lo:hi], grad[lo:hi])
+        assert not bool(g[:lo].any()) and not bool(g[hi:].any())
+    assert float(grad.abs().max()) > 0
+    _wf_close(total, dose)
+
+
 def test_wf_cuda_tensors_never_take_the_plain_path(tmp_path, cuda_device,
                                                    monkeypatch):
     from drtvam_tpu_torch.ops.march import scene_tensors

@@ -47,3 +47,27 @@ def test_no_jax_or_reference_imports_in_sources():
             for m in FORBIDDEN.finditer(f.read()):
                 bad.append(f"{os.path.relpath(path, ROOT)}: {m.group(0)}")
     assert not bad, bad
+
+
+def test_parallel_imports_without_jax_triton_or_nvcc():
+    """drtvam_tpu_torch.parallel (torch.distributed) imports with jax,
+    triton and the JAX package blocked and no nvcc on PATH, and loads
+    none of them."""
+    code = """
+import sys
+for name in ("jax", "optax", "triton", "drtvam_tpu"):
+    sys.modules[name] = None
+from drtvam_tpu_torch.parallel import multihost, shard
+assert callable(shard.render_sharded) and callable(multihost.init_multihost)
+assert not [m for m in sys.modules if m.split(".")[0] in
+            ("jax", "triton", "drtvam_tpu") and sys.modules[m] is not None]
+"""
+    env = dict(os.environ, PATH=os.path.dirname(sys.executable))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    srcs = [os.path.join(PKG, "parallel", f)
+            for f in ("__init__.py", "shard.py", "multihost.py")]
+    for path in srcs:
+        with open(path) as f:
+            assert not FORBIDDEN.search(f.read()), path

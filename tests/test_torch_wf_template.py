@@ -2179,3 +2179,88 @@ def test_staged_medium_adjoint_equals_one_pass(case, share, template_lib,
         assert abs(float(ours) - float(ref)) <= 1e-4 * abs(float(ref)), \
             (float(ours), float(ref))
     assert torch.equal(torch.stack([stg, ssg]), torch.stack([stg1, ssg1]))
+
+
+# a block of the store with a non-zero first active index (the sharded
+# render's rank, drtvam_tpu_torch/parallel/shard.py): the analog pair on
+# the bench-like dda scene and a ratio scene with reflections, the
+# residual pair on the dda first scatter and the delta fast loop (12
+# angles), the target forms (split forward, staged adjoint) on a
+# two-channel film at 30 angles (2 groups of 15), so that a block of 10
+# leaves CTAs empty (tgt_units skips them)
+BLOCK_CASES = [("analog", CASES[0]), ("analog", CASES[1]),
+               ("residual", RES_CASES[0]), ("residual", RES_CASES[2]),
+               ("target", TARGET_CASES[0])]
+
+
+@pytest.mark.parametrize("family,case", BLOCK_CASES)
+def test_pixel_blocks_keep_their_lanes(family, case, template_lib):
+    """The store cut into 3 blocks (pixel_block: the later two start at a
+    non-zero active index), each run in the kernels' launch order over
+    its pixels: the gradient of a block is the full launch's on its
+    pixels bitwise and 0 elsewhere, the blocks' bounce iterations and
+    steps add up to the full launch's, and their doses sum to its dose
+    within 1e-6 of the max (the deposits regroup); the dda residual
+    through its path and walk passes too, and the target forms through
+    their wrappers' batching (tgt_forward, tgt_adjoint)."""
+    from drtvam_tpu_torch.parallel.shard import block_range, pixel_block
+    lib, path = template_lib
+    if family == "analog":
+        static, arr = _scene(path, *case, n_patterns=12)
+        at = scene_tensors(arr, "cpu")
+        fwd, bwd = (lambda *a: _run(lib, "wf_fwd", *a),
+                    lambda *a: _run(lib, "wf_bwd", *a))
+    elif family == "residual":
+        static, at = _residual(path, *case, n_patterns=12)
+        fwd, bwd = (lambda *a: _run_res(lib, "wf_res_fwd", *a),
+                    lambda *a: _run_res(lib, "wf_res_bwd", *a))
+    else:
+        static, at = _target_scene(path, case, n_patterns=30)
+
+        def fwd(st, at, x, n_out, seed, spp):
+            assert wf.tgt_route(_libs(lib), "wf_fwd", st, at)
+            return _split(lib, st, at, x, seed, spp)
+
+        def bwd(st, at, x, n_out, seed, spp):
+            stats = {}
+            return wf.tgt_adjoint(_libs(lib), st, at, x, seed, spp,
+                                  stats), stats
+    n, n_cells = static.projector.n_active, static.sensor.n_cells
+    rng = np.random.default_rng(21)
+    data = torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32))
+    dL = torch.from_numpy(rng.uniform(0.0, 1.0, n_cells).astype(np.float32))
+    seed, spp = 7, 2
+    dose, stats = fwd(static, at, data, n_cells, seed, spp)
+    grad, g_stats = bwd(static, at, dL, n, seed, spp)
+    split = family == "residual" and static.sensor.estimator == "dda"
+    if split:
+        split_stats = {}
+        split_dose = wf.res_forward(_libs(lib), static, at, data, seed, spp,
+                                    split_stats)
+    total = torch.zeros(n_cells)
+    total_split = torch.zeros(n_cells)
+    counts = {"fwd": {}, "bwd": {}, "split": {}}
+    for r in range(3):
+        lo, hi = block_range(n, 3, r)
+        st = pixel_block(static, lo, hi)
+        assert wf.pixel_range(st) == (lo, hi) and (lo > 0) == (r > 0)
+        d, s = fwd(st, at, data, n_cells, seed, spp)
+        g, gs = bwd(st, at, dL, n, seed, spp)
+        assert torch.equal(g[lo:hi], grad[lo:hi])
+        assert not g[:lo].any() and not g[hi:].any()
+        total += d
+        for key, c in (("fwd", s), ("bwd", gs)):
+            for k in ("iterations", "steps"):
+                counts[key][k] = counts[key].get(k, 0) + c[k]
+        if split:
+            total_split += wf.res_forward(_libs(lib), st, at, data, seed,
+                                          spp, counts["split"])
+    for key, ref in (("fwd", stats), ("bwd", g_stats)) + (
+            (("split", split_stats),) if split else ()):
+        assert ref["steps"] > 0
+        assert all(counts[key][k] == ref[k] for k in ("iterations", "steps"))
+    for out, ref in ((total, dose),) + (((total_split, split_dose),)
+                                        if split else ()):
+        scale = float(ref.abs().max())
+        assert scale > 0.0
+        assert float((out - ref).abs().max()) <= 1e-6 * scale
