@@ -359,6 +359,17 @@ WF_POINT_SHARE = 2e-3
 # dda_segment: 3 min, 1 sub, 4 compares, 3 sub, 1 add, 4 mul, 1 max,
 # 1 sub; each of its two expf counted as one)
 WF_STEP_OPS = 20
+# float32 operations of the point estimators' target forms beside their
+# grid cells and triangle tests (csrc/wf_trace.cuh, each transcendental
+# counted as one): a bounce iteration (~80: Russian roulette, the
+# analytic surfaces, the free flight, the BSDF's sample and the medium
+# bookkeeping, as the culling bound counts one), a ratio-tracking step
+# (~40: PCG3D's hash, ~24 integer operations, the free flight's log1pf
+# and division, the point, its voxel and the ratio's expf) and delta's
+# one deposit (~12: the point and its voxel)
+WF_BOUNCE_OPS = 80
+RATIO_STEP_OPS = 40
+DELTA_STEP_OPS = 12
 # the reference Dr.TVAM's published wall time for this scene (BASELINE.md,
 # cylindrical, 1 ray/pixel, NVIDIA L40S): information only
 REFERENCE_L40S_S = 23.0
@@ -1096,6 +1107,20 @@ def phase_wf_vs_ballistic_small(torch, wf, dev, tmp):
     emit({"phase": "wf_vs_ballistic_small", "rel_err": err})
     np.testing.assert_allclose(vb, vw, rtol=1e-3,
                                atol=1e-4 * np.abs(vw).max())
+
+
+def point_bound(n_bytes, estimator, iterations, steps, cells=0,
+                triangles=0):
+    """wf_bound for a ratio or delta forward: WF_BOUNCE_OPS a bounce
+    iteration, RATIO_STEP_OPS a tracking step or DELTA_STEP_OPS a delta
+    deposit, and the target's grid cells and triangle tests, at the
+    float32 peak, or the compulsory bytes at the HBM rate."""
+    byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    step = RATIO_STEP_OPS if estimator == "ratio" else DELTA_STEP_OPS
+    op_ms = (WF_BOUNCE_OPS * iterations + step * steps + CULL_CELL_OPS *
+             cells + CULL_TRI_OPS * triangles) / F32_FLOPS * 1e3
+    return (max(byte_ms, op_ms),
+            "operations" if op_ms >= byte_ms else "bytes")
 
 
 def wf_bound(n_bytes, steps, cells=0, triangles=0):
@@ -2489,6 +2514,19 @@ def instantiation(mangled):
                 + (", counting" if count else "")
                 + {None: "", "1": ", staged", "0": ", global banks"}[
                     m.group(4)])
+    m = re.search(r"tgt_ratio_walk_kernelILb(\d)ELb(\d)E", mangled)
+    if m is not None:
+        return ("target walk pass, RATIO"
+                + (", two channels" if m.group(2) == "1" else "")
+                + (", counting" if m.group(1) == "1" else ""))
+    m = re.search(r"tgt_(ratio_path|delta)_kernelILb(\d)ELb(\d)ELb(\d)E",
+                  mangled)
+    if m is not None:
+        scat, tonly, count = (int(x) for x in m.groups()[1:])
+        return ("target path pass, RATIO" if m.group(1) == "ratio_path"
+                else "target delta form, DELTA") + (
+            f", {'' if scat else '!'}SCAT, {'' if tonly else '!'}TONLY"
+            + (", counting" if count else ""))
     m = re.search(r"tgt_walk_kernelILb(\d)ELb(\d)E", mangled)
     if m is not None:
         return ("target walk pass"
@@ -3141,7 +3179,12 @@ def phase_target_kernels(torch, wf, dev, tmp):
                                    5, torch)
         rec["fwd"]["plain_ms"] = event_ms(
             lambda: wf._forward(st, at, data, seed, spp, chunk), torch)[0]
-        if fam == "wf" and est == "dda":
+        if fam == "wf":
+            # every forward on its estimator's target form
+            wf.reset_launches()
+            fwd_k(st, at, data, seed, spp)
+            rec["fwd"]["form_launches"] = forward_forms(wf, est, target)
+        if fam == "wf" and est != "delta":
             # the target forms' walk pass alone against its plain version
             rec["walk"] = tgt_walk_check(torch, wf, st, at, data, seed, spp)
         if fam == "res" and est == "dda":
@@ -3236,11 +3279,12 @@ def one_channel_target(static):
 # trace every lane, and its deposits are ~1e-20 of the others'
 ZERO_PIXEL = 1e-20
 # the cut a cell's loop forms are held to their plain versions in: the
-# active pixels of every ANGLE_STRIDE-th angle (25 of the cells' 400, 1 or
-# 2 in each of the launch's 16 angle groups of 25), the full DMD and film
-ANGLE_STRIDE = 16
-CUT_AT = (f"every {ANGLE_STRIDE}th of the 400 angles (the cell's 16 angle "
-          "groups of 25), full DMD and film")
+# active pixels of every ANGLE_STRIDE-th angle (13 of the cells' 400, one
+# in each of 13 of the launch's 16 angle groups of 25; every 16th until
+# the script's phases outgrew its time), the full DMD and film
+ANGLE_STRIDE = 32
+CUT_AT = ("every 32nd of the 400 angles (13 angles in 13 of the cell's 16 "
+          "angle groups of 25), full DMD and film")
 
 
 def angle_cut(static, arr, x, stride=ANGLE_STRIDE):
@@ -3280,6 +3324,22 @@ class OnePass:
          self.wf.med_route) = self.routes
 
 
+def forward_forms(wf, estimator, target):
+    """Raises unless every analog forward since the counts were last set
+    to 0 ran its estimator's target form (the delta form, or the dda's and
+    the ratio's path pass with a walk pass for each) and none the
+    one-pass target kernel: a target form counts as wf_fwd too. Returns
+    {form: launches}."""
+    f = wf.form_launches
+    fwd = f[f"wf_fwd:target{target}"]
+    own = f[f"wf_tgt_{'delta' if estimator == 'delta' else 'walk'}:"
+            f"target{target}"]
+    if not fwd or own != fwd:
+        raise AssertionError(f"{estimator} forwards (target {target}): "
+                             f"{fwd} launches, {own} of the target form")
+    return {k: v for k, v in f.items() if v}
+
+
 def form_time(torch, wf, name, static, at, x, seed, spp, reps=3):
     """A loop kernel's card time on (static, at, x) (CUDA events), its
     counts from one counting launch, its bound (the compulsory bytes or
@@ -3287,11 +3347,13 @@ def form_time(torch, wf, name, static, at, x, seed, spp, reps=3):
     and triangle tests'), launch shape, registers and spills. On the
     target forms' route (ops/render.py tgt_route): the one-pass kernel's
     time on the same inputs beside it, and the forward's path and walk
-    passes apart with their records and batches."""
+    passes apart with their records and batches (the delta form: its one
+    pass). A ratio or delta forward's bound: point_bound."""
     kern = getattr(wf, name)
     stats = {}
     kern(static, at, x, seed, spp, stats)
     ms = cuda_ms(lambda: kern(static, at, x, seed, spp), reps, torch)
+    est = static.sensor.estimator
     n, n_cells = static.projector.n_active, static.sensor.n_cells
     target = wf.make_params(static, at, 0, 1).target
     n_bytes = 4 * (n + n_cells) + (n_cells // static.sensor.channels
@@ -3301,6 +3363,9 @@ def form_time(torch, wf, name, static, at, x, seed, spp, reps=3):
     if name.startswith("wf_res"):
         bound, by = res_bound(n_bytes, n * spp, stats.get("iterations", 0),
                               stats.get("steps", 0), *mesh)
+    elif est != "dda":
+        bound, by = point_bound(n_bytes, est, stats.get("iterations", 0),
+                                stats.get("steps", 0), *mesh)
     else:
         bound, by = wf_bound(n_bytes, stats.get("steps", 0), *mesh)
     rec = {"ms": ms, "bound_ms": bound, "bound_by": by,
@@ -3309,7 +3374,11 @@ def form_time(torch, wf, name, static, at, x, seed, spp, reps=3):
            "launch": wf.kernel_info(name, static, at)}
     if name in wf.KERNELS and wf.tgt_route(wf.build_kernels(), name, static,
                                            at):
-        if name == "wf_fwd":
+        if name == "wf_fwd" and est == "delta":
+            times = {}
+            wf.wf_fwd(static, at, x, seed, spp, times=times)
+            rec["delta_ms"] = times["delta_ms"]
+        elif name == "wf_fwd":
             times = {}
             wf.wf_fwd(static, at, x, seed, spp, times=times)
             rec.update(path_ms=times["path_ms"], walk_ms=times["walk_ms"],
@@ -3318,16 +3387,23 @@ def form_time(torch, wf, name, static, at, x, seed, spp, reps=3):
             rec["one_pass_ms"] = cuda_ms(
                 lambda: kern(static, at, x, seed, spp), reps, torch)
             rec["one_pass_launch"] = wf.kernel_info(name, static, at)
+            if est != "dda":
+                # the one-pass kernel's own counts (its tile deposits)
+                rec["one_pass_counts"] = {}
+                kern(static, at, x, seed, spp, rec["one_pass_counts"])
     return rec
 
 
 def tgt_walk_check(torch, wf, static, at, data, seed, spp, per_lane=4):
-    """The target forms' walk pass alone (wf_tgt_walk): the path pass over
-    every unit in one batch with room for per_lane records a lane, then
-    the walk pass on those records, timed (CUDA events, median of 3, a
-    fresh accumulator each) and held to its plain version (ops/render.py
-    _walk) on the same records to TARGET_TOL of each channel's max; its
-    steps and bound (WF_STEP_OPS a step)."""
+    """The target forms' walk pass alone (wf_tgt_walk, dda or ratio): the
+    path pass over every unit in one batch with room for per_lane records
+    a lane, then the walk pass on those records, timed (CUDA events,
+    median of 3, a fresh accumulator each) and held to its plain version
+    (ops/render.py _walk; a ratio record's tracking from its recorded
+    stream) on the same records to TARGET_TOL of each channel's max (a
+    ratio deposit a point: WF_POINT_SHARE); its steps and bound
+    (WF_STEP_OPS or RATIO_STEP_OPS a step)."""
+    ratio = static.sensor.estimator == "ratio"
     dev = data.device
     lib = wf.build_kernels()[wf.TGT_LIB]
     P, order, starts, rows = wf._family_params("wf_fwd", static, at, seed,
@@ -3341,8 +3417,11 @@ def tgt_walk_check(torch, wf, static, at, data, seed, spp, per_lane=4):
     cnt = torch.zeros((len(lanes),), dtype=torch.int32, device=dev)
     acc = torch.zeros((static.sensor.n_cells,), dtype=torch.float32,
                       device=dev)
+    keys = torch.empty((int(start[-1]) * 2,), dtype=torch.int32,
+                       device=dev) if ratio else None
     A = wf.TgtArgs(recs.data_ptr(), region.data_ptr(), cnt.data_ptr(),
-                   units.data_ptr(), acc.data_ptr(), 0, len(lanes))
+                   units.data_ptr(), acc.data_ptr(), 0, len(lanes),
+                   None if keys is None else keys.data_ptr())
     pix = at["active_pixels"]
     stream = torch.cuda.current_stream(dev).cuda_stream
     wf._err("wf_tgt_path", lib.wf_tgt_path(
@@ -3355,6 +3434,8 @@ def tgt_walk_check(torch, wf, static, at, data, seed, spp, per_lane=4):
     idx = torch.cat([torch.arange(int(s0), int(s0) + int(m), device=dev)
                      for s0, m in zip(start[:-1], made) if m])
     rec = recs.view(-1, 8)[idx]
+    key = (keys.view(-1, 2)[idx].to(torch.int64) & 0xFFFFFFFF) if ratio \
+        else None
 
     def walk(stats=None):
         out = torch.zeros_like(acc)
@@ -3369,11 +3450,13 @@ def tgt_walk_check(torch, wf, static, at, data, seed, spp, per_lane=4):
     stats = {}
     k = walk(stats)
     ms = cuda_ms(walk, 3, torch)
-    plain_ms, ref = event_ms(lambda: wf._walk(static, at, rec), torch)
-    cmp = channel_compare("wf_tgt_walk", k, ref, static.sensor.channels,
-                          False)
-    bound, by = wf_bound(32 * rec.shape[0] + 4 * static.sensor.n_cells,
-                         stats["steps"])
+    plain_ms, ref = event_ms(lambda: wf._walk(static, at, rec, keys=key,
+                                              seed=seed), torch)
+    cmp = channel_compare(f"wf_tgt_walk ({static.sensor.estimator})", k, ref,
+                          static.sensor.channels, ratio)
+    n_bytes = (40 if ratio else 32) * rec.shape[0] + 4 * static.sensor.n_cells
+    bound, by = (point_bound(n_bytes, "ratio", 0, stats["steps"]) if ratio
+                 else wf_bound(n_bytes, stats["steps"]))
     return {"records": int(rec.shape[0]), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "roofline_share": bound / ms,
             "counts": stats, "launch": wf.kernel_info("wf_tgt_walk", static,
@@ -3501,6 +3584,8 @@ def sa_cell_kernels(torch, wf, dev, cell, calls):
                                                           dc, 3, 1)}
             del sc, atc, dc
             torch.cuda.empty_cache()
+        rec["ratio"] = ratio_cell_b(torch, wf, st2, at2, st0, at0, data, seed,
+                                    spp)
         return rec
     # cell (a): the delta fast residual of the loop, two channels, and the
     # final render's dda residual (path and walk passes), one channel with
@@ -3579,6 +3664,85 @@ def sa_cell_kernels(torch, wf, dev, cell, calls):
                 torch, wf, st, at, dataf, seedf, sppf)
         torch.cuda.empty_cache()
     rec["final_render_dda"]["mesh on, 1 channel"]["cut"] = cut
+    return rec
+
+
+# the ratio sensor's majorant on cell (b)'s inputs, in units of the
+# medium's sigma_t (tests/test_medium_grads.py:38's choice)
+RATIO_MAJORANT = 2.0
+
+
+def ratio_scene(static, arr):
+    """(static, scene tensors) with a ratio sensor (majorant RATIO_MAJORANT
+    sigma_t) in place of the scene's estimator; the tensors' layouts and
+    caches built anew."""
+    import dataclasses
+    st = dataclasses.replace(static, sensor=dataclasses.replace(
+        static.sensor, estimator="ratio"))
+    at = {k: v for k, v in arr.items() if not k.startswith("_")}
+    at["majorant"] = arr["sigma_t"] * RATIO_MAJORANT
+    return st, at
+
+
+def point_cut_check(torch, wf, name, static, at, x, channels):
+    """A ratio or delta forward's target form and its one-pass kernel
+    (OnePass) against the plain version on the same cut (seed 3, spp 1):
+    each to TARGET_TOL of each channel's max (WF_POINT_SHARE of the values
+    may be off by more: a deposit is a point), with the plain version's
+    bounce iterations, steps and mesh work (the pixels at 0, which the
+    kernels skip, raised to ZERO_PIXEL so that both trace every lane); the
+    plain version's time and each form's on the cut."""
+    chunk = 1 << 21
+    zeros = int((x == 0).sum())
+    x = torch.where(x == 0, torch.full_like(x, ZERO_PIXEL), x)
+    sp = {}
+    plain_ms, ref = event_ms(lambda: wf._forward(static, at, x, 3, 1, chunk,
+                                                 sp), torch)
+    out = {"plain_ms": plain_ms, "counts_plain": sp,
+           "zero_pixels_raised": zeros}
+    for form in ("target form", "one-pass"):
+        with OnePass(wf) if form == "one-pass" else contextlib.nullcontext():
+            sk = {}
+            k = wf.wf_fwd(static, at, x, 3, 1, sk)
+            cmp = channel_compare(f"{name} {form}", k, ref, channels, True)
+            if any(sk.get(key) != v for key, v in sp.items()):
+                raise AssertionError(f"{name} {form}: the kernels counted "
+                                     f"{sk}, the plain version {sp}")
+            cmp["ms_cut"] = cuda_ms(lambda: wf.wf_fwd(static, at, x, 3, 1), 3,
+                                    torch)
+            cmp["counts_equal_plain"] = True
+        out[form] = cmp
+    del ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def ratio_cell_b(torch, wf, st2, at2, st0, at0, data, seed, spp):
+    """The ratio forward on cell (b)'s loop inputs with a ratio sensor
+    (ratio_scene; kernels only, no loop): its target form (path and walk
+    passes) beside the one-pass kernel at two and one channels, the
+    mesh-free kernel on the same patterns, both forms against the plain
+    version on angle_cut (two channels) and the walk pass alone there."""
+    st_r, at_r = ratio_scene(st2, at2)
+    st1_r = one_channel_target(st_r)
+    st0_r, at0_r = ratio_scene(st0, at0)
+    rec = {"majorant": float(at_r["majorant"]),
+           "mesh on, 2 channels": form_time(torch, wf, "wf_fwd", st_r, at_r,
+                                            data, seed, spp),
+           "mesh on, 1 channel": form_time(torch, wf, "wf_fwd", st1_r, at_r,
+                                           data, seed, spp),
+           "mesh off, 1 channel": form_time(torch, wf, "wf_fwd", st0_r,
+                                            at0_r, data, seed, spp)}
+    wf.reset_launches()
+    wf.wf_fwd(st_r, at_r, data, seed, spp)
+    rec["form_launches"] = forward_forms(wf, "ratio", 2)
+    sc, atc, dc = angle_cut(st_r, at_r, data)
+    rec["cut"] = point_cut_check(torch, wf, f"wf_fwd ratio {CUT_AT}", sc,
+                                 atc, dc, 2)
+    rec["cut"]["plain_at"] = CUT_AT
+    rec["wf_tgt_walk"] = tgt_walk_check(torch, wf, sc, atc, dc, 3, 1)
+    del sc, atc, dc, at_r, at0_r
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -3869,8 +4033,9 @@ def phase_mesh_kernels(torch, wf, dev, tmp):
     (MESH_CASES: a custom vial, each occlusion BSDF, a grid-walked
     occlusion, an occlusion beside a surface-aware target) against their
     plain versions: the routed forms (the target forms where they take the
-    scene) and, for the dda scenes, the one-pass instantiations (OnePass,
-    the route of banks too large for a CTA): forwards to TARGET_TOL of each
+    scene: every forward on its estimator's, forward_forms) and the
+    one-pass instantiations (OnePass, the route of banks too large for a
+    CTA): forwards to TARGET_TOL of each
     channel's max (ratio and delta: WF_POINT_SHARE of the values may be off
     by more), the same steps and mesh work, adjoints bitwise on two
     launches and equal across the forms. Then wf_radon through the mesh
@@ -3902,8 +4067,7 @@ def phase_mesh_kernels(torch, wf, dev, tmp):
         fwd_p = wf._forward(st, at, data, seed, spp, chunk, sp)
         bwd_p = wf._adjoint(st, at, seed, spp, chunk, dL)
         bwd_ref = None
-        forms = ("routed", "one_pass") if est == "dda" else ("routed",)
-        for form in forms:
+        for form in ("routed", "one_pass"):
             with OnePass(wf) if form == "one_pass" else \
                     contextlib.nullcontext():
                 wf.reset_launches()
@@ -3922,6 +4086,11 @@ def phase_mesh_kernels(torch, wf, dev, tmp):
                 if not launched or any(not k.endswith(f"target{target}")
                                        for k in launched):
                     raise AssertionError(f"{case} {form}: launched "
+                                         f"{launched}")
+                if form == "routed":
+                    forward_forms(wf, est, target)
+                elif any(k.startswith("wf_tgt") for k in launched):
+                    raise AssertionError(f"{case} one-pass: launched "
                                          f"{launched}")
                 r["bwd"]["bitwise_repeat"] = bool(torch.equal(bwd, bwd2))
                 r["bwd"]["bitwise_plain"] = bool(torch.equal(bwd, bwd_p))
@@ -4008,9 +4177,9 @@ MESH_TOTAL_RTOL = 1e-5
 MESH_VOXEL_TOL = 1e-3
 MESH_VOXEL_SHARE = 0.01
 # the pixels of every CELL_C_RADON_STRIDE-th angle hold cell (c)'s radon
-# image to its plain version (16 of the 400 angles, one in each angle
-# group)
-CELL_C_RADON_STRIDE = 25
+# image to its plain version (8 of the 400 angles, one in every other
+# angle group; every 25th until the script's phases outgrew its time)
+CELL_C_RADON_STRIDE = 50
 # and the active pixels of every CELL_C_CUT_STRIDE-th angle its loop forms
 # (50 of the 400 angles, 3 or 4 in each angle group)
 CELL_C_CUT_STRIDE = 8
@@ -4272,6 +4441,116 @@ def phase_custom_cell(torch, wf, bp, dev, tmp):
     return rec
 
 
+def scatter_cuvette_config(tmp, vial="custom", occlusion=True):
+    """Cell (d): cell (c)'s configuration (custom_cell_config: the bench
+    scene uncut, 400 angles, 400x400 DMD, 256^3 film, 40 L-BFGS steps,
+    the square bench vial as mesh walls, the black occlusion box,
+    filter_radon) with a scattering resin: the medium at albedo 0.5,
+    max_depth and rr_depth 6 (phase 10's), the delta sensor, spp 1,
+    spp_ref 16, engine auto (the wavefront: a mesh vial is never
+    hybrid-eligible). vial, occlusion: as custom_cell_config's."""
+    cfg = custom_cell_config(tmp, vial, occlusion)
+    cfg["vial"]["medium"] = dict(cfg["vial"]["medium"], albedo=0.5)
+    cfg["sensor"] = dict(cfg["sensor"], type="delta")
+    cfg.update(max_depth=6, rr_depth=6, spp=1, spp_ref=16)
+    cfg["output"] = os.path.join(tmp, "cell_d")
+    return cfg
+
+
+def phase_scatter_cuvette_cell(torch, wf, bp, dev, tmp):
+    """Cell (d) through optimize(): engine auto must pick the wavefront;
+    the radon cull, then every forward of the loop and the final render on
+    the delta form (wf_tgt_delta), the one-pass target forward never
+    (forward_forms), the adjoint on the staged form; no backprojection or
+    residual kernel. The phase times, kept share, launches of each form,
+    peak memory, the best IoU against the target less the occlusion's
+    voxels (recorded, not gated). Then on the loop's inputs: the delta
+    form's time beside the one-pass kernel's (form_time) and the mesh-free
+    kernel's on the same patterns (the analytic square vial without the
+    occlusion), both forms against the plain version on every
+    CELL_C_CUT_STRIDE-th angle's pixels (point_cut_check); and the final
+    render's forward (spp_ref 16) on both forms, one launch each."""
+    from drtvam_tpu_torch.models.scene import Scene
+    from drtvam_tpu_torch.ops.march import scene_tensors
+    from drtvam_tpu_torch.opt.optimize import select_engine
+    t_phase = time.perf_counter()
+    cfg = scatter_cuvette_config(tmp)
+    p_cfg = cfg["projector"]
+    n_dense = p_cfg["n_patterns"] * p_cfg["resy"] * p_cfg["resx"]
+    engine = select_engine("auto", Scene(cfg).build(
+        mode="volume", include_target=False)[0])
+    if engine != "wavefront":
+        raise AssertionError(f"cell (d): auto picked {engine}")
+    wf.reset_launches()
+    bp.reset_launches()
+    with CallSpy(wf, by_depth=True) as spy:
+        vol, timings, wall, peak = optimize_on_card(torch, dev, cfg)
+    counts = {**{k: v for k, v in bp.launches.items() if v},
+              **{k: v for k, v in wf.launches.items() if v}}
+    forms = forward_forms(wf, "delta", 1)
+    for name in ("wf_radon", "wf_tgt_delta:target1", "wf_bwd:target1"):
+        if not {**counts, **forms}.get(name):
+            raise AssertionError(f"cell (d) never launched {name}")
+    stray = [k for k in counts if k.startswith("bp_") or "res" in k or
+             k == "wf_tgt_walk"] + \
+        [k for k in forms if not k.endswith("target1")]
+    if stray:
+        raise AssertionError(f"cell (d) launched {stray}")
+    target = np.load(os.path.join(cfg["output"], "target.npy"))
+    sc = Scene(cfg)
+    occ = occlusion_voxels(target.shape[:3], sc.sensor.bbox_min,
+                           sc.sensor.bbox_max)
+    less = target.copy()
+    less[occ] = 0
+    iou, thr = bench_iou(vol, less)
+    loss, steps = run_history(cfg["output"])
+    rec = {"phase": "bench_scatter_cuvette", "engine": engine,
+           **phase_times(timings, wall),
+           "active_pixels": timings["active_pixels"],
+           "kept_share": timings["active_pixels"] / n_dense,
+           "steps_run": steps, "loss_first": float(loss[0]),
+           "loss_last": float(loss[steps - 1]), "launches": counts,
+           "form_launches": forms, "peak_mem_gb": peak,
+           "best_iou_vs_target_less_occlusion": iou, "best_threshold": thr,
+           "best_iou_vs_target": bench_iou(vol, target)[0]}
+    del vol, target, less
+    torch.cuda.empty_cache()
+
+    # the delta form on the loop's inputs, the one-pass kernel and the
+    # analytic vial's mesh-free kernel on the same patterns beside it
+    st, at, data, seed, spp = spy.calls["wf_fwd:target1:depth6"]
+    mesh = "mesh vial and occlusion"
+    kern = {mesh: form_time(torch, wf, "wf_fwd", st, at, data, seed, spp)}
+    pix_np = at["active_pixels"].cpu().numpy()
+    sq = Scene(scatter_cuvette_config(tmp, "square", occlusion=False))
+    sq.projector.set_active(pix_np, np.zeros(pix_np.size, np.float32))
+    st_sq, arr_sq = sq.build(mode="volume", include_target=False,
+                             max_depth=st.max_depth, rr_depth=st.rr_depth)
+    at_sq = scene_tensors(arr_sq, dev)
+    kern["analytic square vial, no occlusion (mesh off)"] = form_time(
+        torch, wf, "wf_fwd", st_sq, at_sq, data, seed, spp)
+    del at_sq
+    torch.cuda.empty_cache()
+    sc_c, at_c, d_c = angle_cut(st, at, data, CELL_C_CUT_STRIDE)
+    kern[mesh]["cut"] = point_cut_check(
+        torch, wf, f"wf_fwd cell (d) {CELL_C_CUT_AT}", sc_c, at_c, d_c, 1)
+    kern[mesh]["cut"]["plain_at"] = CELL_C_CUT_AT
+    del sc_c, at_c, d_c
+    torch.cuda.empty_cache()
+    # the final render's forward (spp_ref 16, depth 16) on both forms
+    stf, atf, dataf, seedf, sppf = spy.calls["wf_fwd:target1:depth16"]
+    final = {"spp": sppf, "lanes": stf.projector.n_active * sppf}
+    for form in ("target form", "one-pass"):
+        with OnePass(wf) if form == "one-pass" else contextlib.nullcontext():
+            final[form + " ms"] = event_ms(lambda: wf.wf_fwd(
+                stf, atf, dataf, seedf, sppf), torch)[0]
+    kern["final render"] = final
+    rec["kernels"] = kern
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    return rec
+
+
 def cell_c_medium(torch, wf, st, at, data, dL, seed, spp, cut):
     """The medium adjoint on cell (c)'s scene with medium_grads, on the
     loop's inputs: first through RenderRaw (the patterns detached, then
@@ -4338,11 +4617,13 @@ def cell_c_medium(torch, wf, st, at, data, dL, seed, spp, cut):
     return out
 
 
-def phase_cli_custom(wf, tmp):
+def phase_cli_custom(wf, tmp, estimator="dda"):
     """The CLI on phase 9's small telecentric config with
     tests/test_e2e_scenes.py's custom cuvette (its tubes) and occlusion box
     (the default black BSDF) and filter_radon: the radon render's cull,
-    then the wavefront pair."""
+    then the wavefront pair. estimator "ratio": a scattering resin (albedo
+    0.5) under a ratio sensor (majorant RATIO_MAJORANT sigma_t), whose
+    every forward must run the ratio form (forward_forms)."""
     from drtvam_tpu_torch.ops.mesh import make_box, make_box_tube, save_ply
     paths = {k: os.path.join(tmp, f"cli_custom_{k}.ply")
              for k in ("outer", "inner", "occ")}
@@ -4355,9 +4636,20 @@ def phase_cli_custom(wf, tmp):
             "medium": {"ior": 1.33, "phase": {"type": "rayleigh"},
                        "extinction": 0.06, "albedo": 0.0},
             "occlusions": [{"filename": paths["occ"]}]}
-    return phase_cli_wavefront(wf, tmp, {"vial": vial, "filter_radon": True},
-                               "cli_custom_occlusion",
-                               wf.KERNELS + ("wf_radon",))
+    extra = {"vial": vial, "filter_radon": True}
+    if estimator == "dda":
+        return phase_cli_wavefront(wf, tmp, extra, "cli_custom_occlusion",
+                                   wf.KERNELS + ("wf_radon",))
+    vial["medium"]["albedo"] = 0.5
+    extra["sensor"] = {"type": "ratio", "scalex": 5, "scaley": 5,
+                       "scalez": 1.25, "majorant": RATIO_MAJORANT * 0.06,
+                       "film": {"type": "vfilm", "resx": 60, "resy": 60,
+                                "resz": 30}}
+    counts = phase_cli_wavefront(wf, tmp, extra, "cli_custom_ratio",
+                                 wf.KERNELS + ("wf_radon", "wf_tgt_walk"))
+    forms = forward_forms(wf, "ratio", 1)
+    emit({"phase": "cli_custom_ratio_forms", "form_launches": forms})
+    return {"launches": counts, "form_launches": forms}
 
 
 def custom_entries(cell):
@@ -4416,6 +4708,85 @@ def custom_entries(cell):
                              "bound_ms", "bound_by", "roofline_share",
                              "global_banks_ms", "counts", "launch")},
         "library_ms": None})
+    return out
+
+
+def point_entries(cell_b, cell_d, cli_ratio):
+    """The kernels line's entries of the point estimators' target forms:
+    the delta form (launches from cell (d), times on its loop's inputs,
+    held to its plain version on every CELL_C_CUT_STRIDE-th angle), and
+    the ratio form and its walk pass (launches from the CLI's ratio run,
+    times on cell (b)'s loop inputs with a ratio sensor, held to the plain
+    version on angle_cut)."""
+    src = ("drtvam_tpu_torch/csrc/wf_target.cu + wf_target.cuh + "
+           "wf_trace.cuh + wf_mesh.cuh")
+    k = cell_d["kernels"]
+    d = k["mesh vial and occlusion"]
+    out = [{
+        "name": "wf_fwd (the delta form tgt_delta_kernel: mesh vial and "
+                "occlusion, scattering, one channel)",
+        "route": "cuda", "source": src,
+        "replaces": REPLACES["wf_fwd"] + "; delta_segment march.py:865; "
+                    "meshes: intersect_scene's MESH branch "
+                    "march.py:151-190",
+        "launches": cell_d["form_launches"].get("wf_tgt_delta:target1", 0),
+        "path": "optimize() on cell (d): cell (c) with a scattering resin "
+                "(albedo 0.5, delta), engine auto (the loop and the final "
+                "render)",
+        "ms": d["ms"], "plain_ms": d["cut"]["plain_ms"],
+        "plain_at": d["cut"]["plain_at"],
+        "max_abs_err": d["cut"]["target form"]["max_abs_err"],
+        "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
+        "roofline_share": d["roofline_share"], "library_ms": None,
+        "one_pass_ms": d["one_pass_ms"], "counts": d["counts"],
+        "launch": d["launch"], "one_pass_launch": d["one_pass_launch"],
+        "mesh_off_ms": k["analytic square vial, no occlusion (mesh off)"][
+            "ms"],
+        "final_render": k["final render"], "cut": d["cut"]}]
+    r = cell_b["kernels"]["ratio"]
+    r2 = r["mesh on, 2 channels"]
+    path = ("the CLI on a custom cuvette with an occlusion, a scattering "
+            "resin and a ratio sensor (cli_custom_ratio); timed on cell "
+            "(b)'s loop inputs with a ratio sensor (majorant "
+            f"{RATIO_MAJORANT} sigma_t)")
+    out.append({
+        "name": "wf_fwd (the ratio form: path pass tgt_ratio_path_kernel "
+                "and walk pass, target kept, two channels)",
+        "route": "cuda", "source": src,
+        "replaces": REPLACES["wf_fwd"] + "; ratio_segment march.py:747; "
+                    "the target kept: march.py:556-565, :1092-1093",
+        "launches": cli_ratio["form_launches"].get("wf_fwd:target1", 0),
+        "path": path, "ms": r2["ms"], "path_ms": r2["path_ms"],
+        "walk_ms": r2["walk_ms"], "plain_ms": r["cut"]["plain_ms"],
+        "plain_at": r["cut"]["plain_at"],
+        "max_abs_err": r["cut"]["target form"]["max_abs_err"],
+        "bound_ms": r2["bound_ms"], "bound_by": r2["bound_by"],
+        "roofline_share": r2["roofline_share"], "library_ms": None,
+        "one_pass_ms": r2["one_pass_ms"], "counts": r2["counts"],
+        "launch": r2["launch"], "one_pass_launch": r2["one_pass_launch"],
+        "other_forms": {key: {x: v[x] for x in ("ms", "one_pass_ms",
+                                                  "bound_ms")
+                              if x in v}
+                        for key, v in r.items()
+                        if key.startswith("mesh") and key !=
+                        "mesh on, 2 channels"},
+        "cut": r["cut"]})
+    w = r["wf_tgt_walk"]
+    out.append({
+        "name": "wf_tgt_walk (the ratio form's walk pass "
+                "tgt_ratio_walk_kernel, two channels)",
+        "route": "cuda", "source": src,
+        "replaces": "drtvam_tpu/ops/march.py:747 (ratio_segment, the "
+                    "tracking of the analog forward with the target kept; "
+                    "XLA)",
+        "launches": cli_ratio["form_launches"].get("wf_tgt_walk:target1", 0),
+        "path": path + " (the walk pass)",
+        "ms": w["ms"], "plain_ms": w["plain_ms"],
+        "plain_at": CUT_AT + ": the records of the loop's patterns",
+        "max_abs_err": w["max_abs_err"], "bound_ms": w["bound_ms"],
+        "bound_by": w["bound_by"], "roofline_share": w["roofline_share"],
+        "library_ms": None, "records": w["records"], "counts": w["counts"],
+        "launch": w["launch"]})
     return out
 
 
@@ -5485,7 +5856,13 @@ def main():
         torch.cuda.empty_cache()
         phase_cli_custom(wf, tmp)
         torch.cuda.empty_cache()
+        cli_ratio = phase_cli_custom(wf, tmp, "ratio")
+        torch.cuda.empty_cache()
         laps.lap("14 mesh vials, occlusions")
+        # a scattering resin in the custom cuvette (phase 17)
+        cell_d = phase_scatter_cuvette_cell(torch, wf, bp, dev, tmp)
+        torch.cuda.empty_cache()
+        laps.lap("17 scattering cuvette")
         # medium calibration (phase 15)
         med_kern = phase_medium_kernels(torch, wf, dev, tmp)
         torch.cuda.empty_cache()
@@ -5593,7 +5970,8 @@ def main():
                                                   "max_abs_err")}
                           for c, r in cullk.items() if r["name"] == n}}
         for n in wf.CULL_KERNELS] + target_entries(cells) +
-        custom_entries(cell_c) + medium_entries(med_kern, med_cell, cell_c)})
+        custom_entries(cell_c) + medium_entries(med_kern, med_cell, cell_c)
+        + point_entries(cells["b"], cell_d, cli_ratio)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -510,9 +510,10 @@ struct Sink {
   static constexpr bool PRIMAL = PRIMAL_, COUNT = COUNT_, TGT = TGT_;
   static constexpr bool STAGED = STAGED_;
   // RECORDS: a dda segment is recorded for a later walk (PathSink), not
-  // walked; MED: the adjoint also sums the medium cotangents (wf_med.cuh
-  // MedSink)
-  static constexpr bool RECORDS = false, MED = false;
+  // walked; RATIO_RECORDS: a ratio-tracking segment too (wf_target.cuh
+  // TgtPathSink); MED: the adjoint also sums the medium cotangents
+  // (wf_med.cuh MedSink)
+  static constexpr bool RECORDS = false, RATIO_RECORDS = false, MED = false;
   float* acc;        // primal: the flat dose accumulator
   const float* dL;   // adjoint: the flat loss gradient
   float* tile;       // primal: the home slice's tile (shared memory)
@@ -595,7 +596,7 @@ struct Sink {
 template <bool COUNT_, bool STAGED_>
 struct MeshSink {
   static constexpr bool PRIMAL = true, COUNT = COUNT_, RECORDS = false;
-  static constexpr bool TGT = false, MED = false;
+  static constexpr bool RATIO_RECORDS = false, TGT = false, MED = false;
   static constexpr bool STAGED = STAGED_;
   const WfMesh* mesh;
   MeshBanks banks;
@@ -738,7 +739,8 @@ __device__ __forceinline__ void dda_walk(const WfParams& P, const Grid& G,
 }
 
 // A recording sink (wf_residual.cuh PathSink, wf_target.cuh TgtPathSink)
-// records the segment in place of the walk
+// records the segment in place of the walk; a sink with RATIO_RECORDS
+// records a ratio-tracking segment too (ratio_segment)
 template <class SinkT>
 __device__ void dda_segment(const WfParams& P, const Grid& G, SinkT& S,
                             const V3& o, const V3& d, float maxt, float base,
@@ -754,6 +756,10 @@ template <class SinkT>
 __device__ void ratio_segment(const WfParams& P, const Grid& G, SinkT& S,
                               Rng& rng, const V3& o, const V3& d, float maxt,
                               float base, float st) {
+  if constexpr (SinkT::RATIO_RECORDS) {
+    S.ratio_record(P, G, rng, o, d, maxt, base, st);
+    return;
+  }
   float M = P.majorant;
   base = base * (st / M);
   float log_ratio = logf(mx(1.0f - st / M, 1e-30f));

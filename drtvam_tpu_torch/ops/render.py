@@ -87,7 +87,9 @@ kernel keeps what its shared memory holds), and a dda residual record
 carries its channel in the sign of its maxt. `form_launches` counts these
 instantiations' launches apart. Where the mesh banks fit a CTA's
 shared memory, the analog pair runs csrc/wf_target.cu's forms
-(tgt_route). The dda residual's path pass of a scene that transmits only
+(tgt_route: the staged adjoint; the dda and ratio forwards' path and walk
+passes, a ratio record with its lane's random stream; the delta forward's
+one pass). The dda residual's path pass of a scene that transmits only
 runs csrc/wf_res_target.cu's (res_tgt_route: persistent threads refilled
 lane by lane, the banks staged where they fit, else read from global
 memory; the same records in another order).
@@ -104,8 +106,8 @@ from ..models.projector import PROJECTOR_KINDS, ray_weight, sample_rays
 from ..models.geometry import CYLINDER, MESH
 from .march import (ANALOG, ESTIMATORS, FAST_RESIDUAL, FIRST_SCATTER,
                     MarchStatic, _grid, check_supported, dda_max_steps,
-                    dda_segment, intersect_scene, residual_mode,
-                    residual_surface, trace_wavefront)
+                    dda_segment, intersect_scene, ratio_segment,
+                    residual_mode, residual_surface, trace_wavefront)
 from .medium import PHASE_IDS
 
 DEFAULT_CHUNK = 1 << 16   # plain version: lanes per pass
@@ -147,9 +149,9 @@ LIBS = KERNELS + RES_KERNELS + CULL_KERNELS + (TGT_LIB, RES_TGT_LIB, MED_LIB)
 # entry points of csrc/wf_res_fwd.cu beside its per-lane kernel, counted
 # apart: the dda forward's walk pass and the chord table's prologue
 RES_PARTS = ("wf_res_walk", "wf_res_chords")
-# the target forms' dda forward: its path pass counts as wf_fwd, its walk
-# pass apart
-TGT_PARTS = ("wf_tgt_walk",)
+# the target forms' forwards: the dda and ratio path passes count as
+# wf_fwd, their walk pass apart; the delta form as wf_fwd and apart
+TGT_PARTS = ("wf_tgt_walk", "wf_tgt_delta")
 # the residual's target path pass: counted as wf_res_fwd (and its form)
 # and apart
 RES_TGT_PARTS = ("wf_res_tgt_path",)
@@ -464,10 +466,12 @@ class CullArgs(ctypes.Structure):
 class TgtArgs(ctypes.Structure):
     """Mirror of `TgtArgs` in csrc/wf_target.cuh: a batch of the target
     forms' split forward (the record buffer, the units' regions and record
-    counts, the units, the accumulator), then its units' range."""
+    counts, the units, the accumulator), then its units' range, then the
+    ratio records' streams (lane, counter: two uint32 a record)."""
     _fields_ = [(k, ctypes.c_void_p) for k in (
         "recs", "region", "counts", "units", "acc")] + [
         ("u0", ctypes.c_int), ("u1", ctypes.c_int),
+        ("keys", ctypes.c_void_p),
     ]
 
 
@@ -723,6 +727,8 @@ _ARGS = {
     # (P, M, tris, data, active_pixels, order, starts, A, counters, stream)
     "wf_tgt_path": _TGT + [_PTR] * 4 + [ctypes.POINTER(TgtArgs), _PTR,
                                         _PTR],
+    "wf_tgt_delta": _TGT + [_PTR] * 4 + [ctypes.POINTER(TgtArgs), _PTR,
+                                         _PTR],
     # (P, A, rows, counters, stream)
     "wf_tgt_walk": [ctypes.POINTER(WfParams), ctypes.POINTER(TgtArgs),
                     _PTR, _PTR, _PTR],
@@ -745,7 +751,7 @@ _ENTRIES = {"wf_fwd": ("wf_fwd",), "wf_bwd": ("wf_bwd",),
             "wf_res_bwd": ("wf_res_bwd",), "wf_radon": ("wf_radon",),
             "wf_corner": ("wf_corner",),
             TGT_LIB: ("wf_tgt_fits", "wf_tgt_bwd", "wf_tgt_path",
-                      "wf_tgt_walk", "wf_tgt_info"),
+                      "wf_tgt_walk", "wf_tgt_delta", "wf_tgt_info"),
             RES_TGT_LIB: ("wf_res_tgt_runs", "wf_res_tgt_path",
                           "wf_res_tgt_info"),
             MED_LIB: ("wf_med", "wf_med_fits")}
@@ -1125,12 +1131,14 @@ def res_walk(libs, static, arr, recs, acc, seed=0, spp=1, stats=None,
                 int(counter[0])
 
 
-def _walk(static, arr, recs, stats=None):
+def _walk(static, arr, recs, stats=None, keys=None, seed=0):
     """Plain version of the walk pass: the accumulator (n_cells,) of
     march.dda_segment on the records (o, d, maxt, base), with albedo 0
     and em 1 so that its deposit weight is the record's base exactly; on
-    a two-channel film a record's channel is the sign of its maxt.
-    stats: adds the steps."""
+    a two-channel film a record's channel is the sign of its maxt. keys
+    (n, 2) int64 (a ratio static's records): each record's lane and
+    counter, from which march.ratio_segment draws its tracking (the
+    stream of seed). stats: adds the steps."""
     dev = recs.device
     n = recs.shape[0]
     acc = torch.zeros((static.sensor.n_cells,), dtype=torch.float32,
@@ -1140,11 +1148,14 @@ def _walk(static, arr, recs, stats=None):
     maxt, inside = recs[:, 6], None
     if static.sensor.channels == 2:
         maxt, inside = maxt.abs(), maxt > 0.0
-    acc, _ = dda_segment(static, at, True, acc, None, None, recs[:, 0:3],
-                         recs[:, 3:6], zero, maxt, recs[:, 7],
-                         torch.ones_like(zero),
-                         torch.ones((n,), dtype=torch.bool, device=dev),
-                         stats, inside)
+    args = (static, at, True, acc, None, None, recs[:, 0:3], recs[:, 3:6],
+            zero, maxt, recs[:, 7], torch.ones_like(zero),
+            torch.ones((n,), dtype=torch.bool, device=dev))
+    if keys is None:
+        acc, _ = dda_segment(*args, stats, inside)
+    else:
+        acc, _, _ = ratio_segment(*args, Sampler(seed), keys[:, 0],
+                                  keys[:, 1], stats, inside)
     return acc
 
 
@@ -1230,12 +1241,12 @@ def _res_split(libs, static, arr, data, acc, seed, spp, stats,
 def tgt_route(libs, name, static, arr):
     """Whether kernel `name` ("wf_fwd" or "wf_bwd") runs this scene through
     the target forms of csrc/wf_target.cu: the scene has mesh surfaces
-    (target_mode), its mesh banks fit a CTA's shared memory (wf_tgt_fits)
-    and, for the forward, the estimator is the dda (the ratio and delta
-    forwards keep wf_fwd's one-pass kernel)."""
+    (target_mode) and its mesh banks fit a CTA's shared memory
+    (wf_tgt_fits), for every estimator (the forward: the dda's and the
+    ratio's path and walk passes, the delta form); a scene whose banks do
+    not fit keeps wf_fwd's and wf_bwd's one-pass kernels."""
     P = make_params(static, arr, 0, 1)
-    if not P.target or P.residual != ANALOG or (
-            name == "wf_fwd" and static.sensor.estimator != "dda"):
+    if not P.target or P.residual != ANALOG:
         return False
     M = make_mesh(name, static, arr)
     fits = ctypes.c_int(0)
@@ -1274,21 +1285,26 @@ def tgt_units(static, arr, spp):
     key = (spp, len(before), int(before[-1]), static.projector.block)
     cached = arr.get("_wf_tgt_units")
     if cached is None or cached[0] != key:
-        units, lanes = [], []
-        for c, n in enumerate(np.diff(before) // spp):
-            if n == 0:   # a CTA with no lane (a block's, a sparse store's)
-                continue
-            n_tasks = spp * (-(-int(n) // 32))
-            parts = -(-int(n) * spp // TGT_UNIT_LANES)
-            cut = [n_tasks * i // parts for i in range(parts + 1)]
-            for t0, t1 in zip(cut[:-1], cut[1:]):
-                t = np.arange(t0, t1)
-                units.append((c, t0, t1))
-                lanes.append(int(np.minimum(32, n - 32 * (t // spp)).sum()))
+        n = np.diff(before) // spp
+        c = np.nonzero(n)[0]  # CTAs with lanes (a block's, a sparse
+        n = n[c]              # store's may have none)
+        n_tasks = spp * ((n + 31) // 32)
+        parts = -(-n * spp // TGT_UNIT_LANES)
+        # unit i of its CTA's parts: tasks [n_tasks i // parts,
+        # n_tasks (i + 1) // parts)
+        k = np.repeat(np.arange(c.size), parts)
+        i = np.arange(k.size) - np.repeat(np.cumsum(parts) - parts, parts)
+        t0 = n_tasks[k] * i // parts[k]
+        t1 = n_tasks[k] * (i + 1) // parts[k]
+
+        def lanes_before(t):
+            # task t traces lane t % spp of 32 pixels, the last group r
+            full, r = spp * (n[k] // 32), n[k] % 32
+            return 32 * np.minimum(t, full) + r * np.maximum(t - full, 0)
         dev = arr["active_pixels"].device
-        cached = (key, torch.tensor(units, dtype=torch.int32,
-                                    device=dev).reshape(-1, 3),
-                  np.asarray(lanes, np.int64))
+        units = np.stack([c[k], t0, t1], 1).astype(np.int32)
+        cached = (key, torch.from_numpy(units).to(dev),
+                  (lanes_before(t1) - lanes_before(t0)).astype(np.int64))
         arr["_wf_tgt_units"] = cached
     return cached[1], cached[2]
 
@@ -1298,7 +1314,7 @@ def _tgt_estimate(arr, P, lanes, block):
     units (TGT_GUESS before the first), float32 on the scene tensors'
     device, and the units' lanes there (cached in the scene tensors'
     dict; the wrapper updates the estimate in place)."""
-    key = (P.spp, P.target, P.n_active, lanes.shape[0], block)
+    key = (P.spp, P.target, P.estimator, P.n_active, lanes.shape[0], block)
     cached = arr.get("_wf_tgt_est")
     if cached is None or cached[0] != key:
         dev = arr["active_pixels"].device
@@ -1309,19 +1325,51 @@ def _tgt_estimate(arr, P, lanes, block):
     return cached[1], cached[2]
 
 
+def tgt_delta(libs, static, arr, data, seed, spp, stats=None, times=None):
+    """The delta forward's target form (csrc/wf_target.cuh
+    tgt_delta_kernel): one launch over every unit (tgt_units), the banks
+    staged, each deposit a global atomic. Returns the accumulator
+    (n_cells,). stats: adds the COUNTERS; times: adds its milliseconds
+    ("delta_ms")."""
+    dev = data.device
+    pix = _pixels("wf_fwd", static, arr, dev)
+    P, order, starts, _ = _family_params("wf_fwd", static, arr, seed, spp)
+    M, tris, _ = _target_args("wf_fwd", static, arr, P)
+    acc = torch.zeros((static.sensor.n_cells,), dtype=torch.float32,
+                      device=dev)
+    units, lanes = tgt_units(static, arr, spp)
+    A = TgtArgs(None, None, None, units.data_ptr(), acc.data_ptr(), 0,
+                lanes.shape[0])
+    counter = _counter(stats, dev)
+    err = _timed(times, "delta_ms", lambda: libs[TGT_LIB].wf_tgt_delta(
+        ctypes.byref(P), ctypes.byref(M), _ptr(tris), data.data_ptr(),
+        pix.data_ptr(), _ptr(order), _ptr(starts), ctypes.byref(A),
+        _ptr(counter), _stream(dev)))
+    _count("wf_fwd", P)
+    _count("wf_tgt_delta", P)
+    _err("wf_tgt_delta", err)
+    _add(stats, counter, _keys(P))
+    return acc
+
+
 def tgt_forward(libs, static, arr, data, seed, spp, stats=None, times=None):
-    """The dda forward's target form in two passes (csrc/wf_target.cuh),
-    batch by batch of units (tgt_units): each batch's path pass records
-    the lanes' dda segments into its units' regions of a record buffer
-    (walking a segment past its region at once), then its walk pass walks
-    each unit's records through its DMD row's home-slice tile. A batch is
-    as many units as their regions fit half the buffer; the halves take
+    """The forward's target form (csrc/wf_target.cuh). The delta
+    estimator's is one pass (tgt_delta); the dda's and the ratio's run in
+    two passes, batch by batch of units (tgt_units): each batch's path
+    pass records the lanes' in-medium segments into its units' regions of
+    a record buffer (a ratio record's lane and stream counter beside it;
+    a segment past its region walked or tracked at once), then its walk
+    pass walks each unit's records through its DMD row's home-slice tile
+    (a ratio record's tracking replayed from its stream). A batch is as
+    many units as their regions fit half the buffer; the halves take
     turns, and on the card (TGT_OVERLAP) a batch's walk pass runs on a
     second stream beside the next batch's path pass. A region is sized
-    from the records the unit made in the last launch. Returns the accumulator
-    (n_cells,). stats: adds the COUNTERS (lane slots: the walk's), the
-    records, those walked at once and the batches; times: adds the
-    passes' milliseconds ("path_ms", "walk_ms")."""
+    from the records the unit made in the last launch. Returns the
+    accumulator (n_cells,). stats: adds the COUNTERS (lane slots: the
+    walk's), the records, those walked at once and the batches; times:
+    adds the passes' milliseconds ("path_ms", "walk_ms")."""
+    if static.sensor.estimator == "delta":
+        return tgt_delta(libs, static, arr, data, seed, spp, stats, times)
     dev = data.device
     pix = _pixels("wf_fwd", static, arr, dev)
     P, order, starts, rows = _family_params("wf_fwd", static, arr, seed, spp)
@@ -1337,7 +1385,9 @@ def tgt_forward(libs, static, arr, data, seed, spp, stats=None, times=None):
     space = int(min(TGT_MAX_RECORDS // 2, max(cum_h[-1], 1))) if n_units \
         else 0
     recs = torch.empty((2 * space * 8,), dtype=torch.float32, device=dev)
-    lib = libs[TGT_LIB]
+    # a ratio record's (lane, counter), two uint32
+    keys = torch.empty((2 * space * 2,), dtype=torch.int32, device=dev) \
+        if static.sensor.estimator == "ratio" else None
     # the walk passes' stream, and the event after each half's last walk
     # (not when the passes are timed or counted: those read the card)
     overlap = TGT_OVERLAP and dev.type == "cuda" and times is None and \
@@ -1357,11 +1407,13 @@ def tgt_forward(libs, static, arr, data, seed, spp, stats=None, times=None):
         cnt = torch.zeros((nb,), dtype=torch.int32, device=dev)
         half = k % 2
         A = TgtArgs(recs.data_ptr() + 32 * space * half, region.data_ptr(),
-                    cnt.data_ptr(), units.data_ptr(), acc.data_ptr(), u0, u1)
+                    cnt.data_ptr(), units.data_ptr(), acc.data_ptr(), u0, u1,
+                    None if keys is None else keys.data_ptr()
+                    + 8 * space * half)
         if overlap and walked[half] is not None:
             main.wait_event(walked[half])
         counter = _counter(stats, dev)
-        err = _timed(times, "path_ms", lambda: lib.wf_tgt_path(
+        err = _timed(times, "path_ms", lambda: libs[TGT_LIB].wf_tgt_path(
             ctypes.byref(P), ctypes.byref(M), _ptr(tris), data.data_ptr(),
             pix.data_ptr(), _ptr(order), _ptr(starts), ctypes.byref(A),
             _ptr(counter), _stream(dev)))
@@ -1376,7 +1428,7 @@ def tgt_forward(libs, static, arr, data, seed, spp, stats=None, times=None):
             stream = side.cuda_stream
             region.record_stream(side)
             cnt.record_stream(side)
-        err = _timed(times, "walk_ms", lambda: lib.wf_tgt_walk(
+        err = _timed(times, "walk_ms", lambda: libs[TGT_LIB].wf_tgt_walk(
             ctypes.byref(P), ctypes.byref(A), _ptr(rows), _ptr(counter),
             stream))
         _count("wf_tgt_walk", P)
@@ -1412,7 +1464,8 @@ def kernel_info(name, static: MarchStatic, arr, count=False):
     (target_mode) reads its target instantiation's shape: the mesh on,
     and with two channels where the film has them; on the target forms'
     route (tgt_route) "wf_fwd" the path pass, "wf_tgt_walk" the walk
-    pass and "wf_bwd" the staged adjoint; on the residual's
+    pass and "wf_bwd" the staged adjoint (a delta static's "wf_fwd": the
+    delta form); on the residual's
     (res_tgt_route) "wf_res_fwd" its target path pass; on the medium
     adjoint's (med_route) "wf_med" its staged instantiation."""
     fam = {"wf_res_walk": "wf_res_fwd", "wf_tgt_walk": "wf_fwd"}.get(name,
@@ -1425,10 +1478,11 @@ def kernel_info(name, static: MarchStatic, arr, count=False):
         if name == "wf_tgt_walk" or (name in KERNELS and tgt_route(
                 libs, name, static, arr)):
             M = make_mesh(name, static, arr)
+            delta = static.sensor.estimator == "delta"
             err = libs[TGT_LIB].wf_tgt_info(
                 ctypes.byref(P), ctypes.byref(M),
-                {"wf_fwd": 0, "wf_tgt_walk": 1, "wf_bwd": 2}[name],
-                int(count), out)
+                {"wf_fwd": 3 if delta else 0, "wf_tgt_walk": 1,
+                 "wf_bwd": 2}[name], int(count), out)
         elif name == "wf_res_fwd" and res_tgt_route(libs, static, arr):
             err = libs[RES_TGT_LIB].wf_res_tgt_info(
                 ctypes.byref(P), ctypes.byref(make_mesh(name, static, arr)),
@@ -1457,10 +1511,11 @@ def wf_fwd(static: MarchStatic, arr, data, seed, spp, stats=None,
     on the H100: the float32 work of the voxel steps (~20 operations a
     step, two of them expf); the deposits of a CTA's DMD row in its
     home z-slice are atomic adds in shared memory, the rest go past the
-    50 MB L2 into the 67 MB dose grid of a 256^3 film. A dda scene with
-    mesh surfaces runs csrc/wf_target.cu's path and walk passes
-    (tgt_forward; times: adds their milliseconds). stats: adds the
-    COUNTERS."""
+    50 MB L2 into the 67 MB dose grid of a 256^3 film. A scene with mesh
+    surfaces whose banks fit a CTA runs csrc/wf_target.cu's forms
+    (tgt_forward: the dda and ratio forwards' path and walk passes, the
+    delta forward's one pass; times: adds their milliseconds). stats:
+    adds the COUNTERS."""
     _n_lanes(static, spp)
     _check("wf_fwd", data, torch.float32, (static.projector.n_active,))
     libs = _card_libs(data)

@@ -628,16 +628,18 @@ def test_target_kernels_match_plain(estimator, mode, tmp_path, cuda_device):
     assert torch.equal(grad, grad2)
 
 
-def test_target_forms_equal_the_one_pass_kernels(tmp_path, cuda_device,
-                                                 monkeypatch):
+@pytest.mark.parametrize("estimator", ["dda", "ratio", "delta"])
+def test_target_forms_equal_the_one_pass_kernels(estimator, tmp_path,
+                                                 cuda_device, monkeypatch):
     """The analog pair's target forms (csrc/wf_target.cu: the staged
-    adjoint, the dda forward's path and walk passes) against the one-pass
-    kernels the scene ran before (wf_fwd.cu / wf_bwd.cu with the target,
-    the route forced off): the adjoint bitwise, the forward to WF_TOL of
-    each channel's max with none off, the same iterations, steps and
-    mesh work (the target's grid cells, triangles and walks); the walk
-    pass launched and counted by its form."""
-    st, at = _target_scene(tmp_path, "dda", "analog")
+    adjoint; the dda and ratio forwards' path and walk passes, the delta
+    forward's one pass) against the one-pass kernels the scene ran before
+    (wf_fwd.cu / wf_bwd.cu with the target, the route forced off): the
+    adjoint bitwise, the forward to WF_TOL of each channel's max with none
+    off, the same iterations, steps and mesh work (the target's grid
+    cells, triangles and walks); every forward on its estimator's form,
+    launched and counted by it."""
+    st, at = _target_scene(tmp_path, estimator, "analog")
     rng = np.random.default_rng(9)
     data = torch.from_numpy(rng.uniform(0.5, 1.5, st.projector.n_active)
                             .astype(np.float32)).to(cuda_device)
@@ -651,8 +653,10 @@ def test_target_forms_equal_the_one_pass_kernels(tmp_path, cuda_device,
     dose = wf.wf_fwd(st, at, data, 7, 4, s_new)
     grad = wf.wf_bwd(st, at, dL, 7, 4, b_new)
     torch.cuda.synchronize()
-    assert wf.launches["wf_tgt_walk"] >= 1
-    assert wf.form_launches["wf_tgt_walk:target2"] >= 1
+    own = "wf_tgt_delta" if estimator == "delta" else "wf_tgt_walk"
+    assert wf.launches[own] >= 1
+    assert wf.form_launches[f"{own}:target2"] == \
+        wf.form_launches["wf_fwd:target2"] >= 1
     monkeypatch.setattr(wf, "tgt_route", lambda *a: False)
     s_old, b_old = {}, {}
     dose_old = wf.wf_fwd(st, at, data, 7, 4, s_old)

@@ -35,8 +35,13 @@
   * both CLIs on tests/test_e2e_scenes.py's smoke configs (the
     occlusion in a square vial with filter_radon, the custom cuvette
     with a telecentric projector): the same step count, the loss
-    history to 1e-4, the same artifact files, the same kept pixels.
+    history to 1e-4, the same artifact files, the same kept pixels;
+  * both drivers on a small cut of chip_smoke.py's cell (d) (a
+    scattering resin in the mesh cuvette beside the occlusion, the delta
+    sensor, filter_radon; the port's forward on the delta target form):
+    the loss history and the final dose at the delta tolerance above.
 """
+import ctypes
 import json
 import os
 
@@ -434,3 +439,53 @@ def test_clis_agree(case, work, tmp_path, monkeypatch):
         n_dense = 24 * 10 * 48
         assert 0 < kept["torch"].size < n_dense
         np.testing.assert_array_equal(kept["torch"], kept["jax"])
+
+
+# --------------------------------------------------------------------------
+# both drivers on a cut of chip_smoke.py's cell (d)
+
+
+class _BanksFit:
+    """Stands in for the card's csrc/wf_target.cu library in
+    ops/render.py tgt_route: the scene's mesh banks fit a CTA."""
+
+    @staticmethod
+    def wf_tgt_fits(P, M, fits):
+        fits._obj.value = 1
+        return 0
+
+
+def test_scattering_cuvette_cell_matches_jax(work, tmp_path):
+    """chip_smoke.py's cell (d) cut to 8 angles of 32x8 pixels, a 32^3
+    film and 2 steps: the square bench vial's walls as a mesh cuvette,
+    the occlusion box, a scattering resin (albedo 0.5, depths 6), the
+    delta sensor, filter_radon. auto picks the wavefront (a mesh vial is
+    never hybrid-eligible) and the forward takes the target forms' route
+    (ops/render.py tgt_route: the delta form where the banks fit); both
+    drivers give the same loss history and final dose, to the delta
+    tolerance (1e-4 of the max with at most 0.2 % of the nonzero values
+    off, totals to 2e-3; the loss history 1e-4, as the CLIs')."""
+    vial = _cuvette(work, "sq_outer.ply", "sq_inner.ply", ior=1.54,
+                    medium={"albedo": 0.5, "extinction": 0.1},
+                    occlusions=[{"filename": str(work / "occ.ply")}])
+    cfg = _config(work, vial, estimator="delta", n_patterns=8, resx=32,
+                  resy=8, pixel_size=0.25, film=(32, 32, 32))
+    cfg["sensor"].update(scalex=7.0, scaley=7.0, scalez=2.0)
+    cfg.update(filter_radon=True, spp_filter_radon=2, n_steps=2, spp=1,
+               spp_ref=8, max_depth=6, rr_depth=6,
+               loss={"type": "threshold", "tl": 0.9, "tu": 0.97})
+    static, arr = TScene(cfg).build(mode="volume", include_target=False,
+                                    max_depth=6, rr_depth=6)
+    assert select_engine("auto", static) == "wavefront"
+    at = scene_tensors(arr, "cpu")
+    assert tr.target_mode(static) == 1
+    assert tr.tgt_route({tr.TGT_LIB: _BanksFit}, "wf_fwd", static, at)
+    vols = {}
+    for name, run in (("jax", lambda c: joptimize(c)),
+                      ("torch", lambda c: toptimize(c, device="cpu"))):
+        c = dict(cfg, output=str(tmp_path / name))
+        vols[name] = np.asarray(run(c))
+    lj, lt = (np.load(tmp_path / n / "loss.npy") for n in ("jax", "torch"))
+    assert lj.shape == lt.shape and np.count_nonzero(lj) > 0
+    np.testing.assert_allclose(lt, lj, rtol=1e-4)
+    _within(vols["torch"], vols["jax"], True)

@@ -60,7 +60,9 @@ STUB = r"""
 struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
 struct int4 { int x, y, z, w; };
+struct uint2 { unsigned x, y; };
 inline float2 make_float2(float a, float b) { return {a, b}; }
+inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) {
   return {a, b, c, d};
 }
@@ -71,6 +73,7 @@ inline float __int_as_float(int i) {
 }
 inline float atomicAdd(float* p, float v) { float o = *p; *p = o + v; return o; }
 inline float __ldg(const float* p) { return *p; }
+inline float4 __ldg(const float4* p) { return *p; }
 inline int __ldg(const int* p) { return *p; }
 using std::isfinite;
 """
@@ -648,9 +651,10 @@ extern "C" int wf_tgt_bwd(const WfParams* p, const WfMesh* M,
   return 0;
 }
 
-// the path pass over the batch's units, unit by unit, each unit's tasks
-// in order (tgt_path_kernel), the banks staged
-template <bool SCAT, bool TONLY>
+// the path pass or the delta form over the batch's units, unit by unit,
+// each unit's tasks in order (tgt_path_cta), the banks staged; the delta
+// form's lane slots as the kernel counts them
+template <int EST, bool SCAT, bool TONLY>
 void tgt_path_units(const WfParams& P, const Target& T, const float* in,
                     const int* ap, const int* order, const int* starts,
                     const TgtArgs& A, unsigned long long* c) {
@@ -663,41 +667,71 @@ void tgt_path_units(const WfParams& P, const Target& T, const float* in,
     tgt_unit(A, A.u0 + k, u, t0, t1);
     block_range(P, starts, u, lo, hi, py);
     unsigned made = 0;
-    auto S = tgt_path_sink<true>(P, T.M, B, A, k, &made);
-    for (int t = t0; t < t1; ++t)
+    auto S = tgt_cta_sink<EST, true>(P, T.M, B, A, k, &made);
+    unsigned long long slots = 0;
+    for (int t = t0; t < t1; ++t) {
+      unsigned long long longest = 0;
       for (int l = 0; l < 32; ++l) {
-        const int aidx = trace_task<DDA, SCAT, TONLY>(P, G, order, lo, hi, t,
+        const unsigned long long s0 = S.steps;
+        const int aidx = trace_task<EST, SCAT, TONLY>(P, G, order, lo, hi, t,
                                                       l, in, ap, nullptr, S);
         if (aidx >= 0) traced.push_back(aidx);
+        longest = std::max(longest, S.steps - s0);
       }
-    A.counts[k] = made;
-    if (c != nullptr) add_counts(S, 0, c);
+      if (EST == DELTA) slots += 32 * longest;
+    }
+    if (EST != DELTA) A.counts[k] = made;
+    if (c != nullptr) add_counts(S, slots, c);
   }
 }
+#define TGT_UNITS(E)                                                  \
+  if (p->has_scattering)                                              \
+    (p->transmission_only ? tgt_path_units<E, true, true>             \
+                          : tgt_path_units<E, true, false>)(          \
+        *p, tg, in, ap, order, starts, *A, c);                        \
+  else                                                                \
+    (p->transmission_only ? tgt_path_units<E, false, true>            \
+                          : tgt_path_units<E, false, false>)(         \
+        *p, tg, in, ap, order, starts, *A, c);
 extern "C" int wf_tgt_path(const WfParams* p, const WfMesh* M,
                            const float4* tris, const float* in,
                            const int* ap, const int* order,
                            const int* starts, const TgtArgs* A,
                            unsigned long long* c, void*) {
   traced.clear();
-  if (p->estimator != DDA || !p->target) return 1;
+  if (p->estimator == DELTA || !p->target ||
+      (p->estimator == RATIO && A->keys == nullptr))
+    return 1;
   const Target tg{M, tris, nullptr};
-  if (p->has_scattering)
-    (p->transmission_only ? tgt_path_units<true, true>
-                          : tgt_path_units<true, false>)(
-        *p, tg, in, ap, order, starts, *A, c);
-  else
-    (p->transmission_only ? tgt_path_units<false, true>
-                          : tgt_path_units<false, false>)(
-        *p, tg, in, ap, order, starts, *A, c);
+  if (p->estimator == RATIO) {
+    TGT_UNITS(RATIO)
+  } else {
+    TGT_UNITS(DDA)
+  }
   return 0;
 }
+extern "C" int wf_tgt_delta(const WfParams* p, const WfMesh* M,
+                            const float4* tris, const float* in,
+                            const int* ap, const int* order,
+                            const int* starts, const TgtArgs* A,
+                            unsigned long long* c, void*) {
+  traced.clear();
+  if (p->estimator != DELTA || !p->target) return 1;
+  const Target tg{M, tris, nullptr};
+  TGT_UNITS(DELTA)
+  return 0;
+}
+#undef TGT_UNITS
 
-// the walk pass unit by unit (tgt_walk_kernel): the home-slice tile zeroed,
-// the unit's records walked in order, the tile flushed
+// the walk pass unit by unit (tgt_walk_kernel, tgt_ratio_walk_kernel):
+// the home-slice tile zeroed, the unit's records walked in order
+// (tgt_walk_record), the tile flushed
 extern "C" int wf_tgt_walk(const WfParams* p, const TgtArgs* A,
                            const int4* rows, unsigned long long* c, void*) {
   const WfParams& P = *p;
+  if ((P.estimator != DDA && P.estimator != RATIO) ||
+      (P.estimator == RATIO && A->keys == nullptr))
+    return 1;
   Grid G;
   G.init(P);
   const bool two = P.target == 2;
@@ -717,11 +751,16 @@ extern "C" int wf_tgt_walk(const WfParams* p, const TgtArgs* A,
       for (int i = ch * (rows[y].z + rows[y].x);
            i < ch * (rows[y].z + rows[y].x + rows[y].y); ++i)
         tile[i] = 0.0f;
-    for (unsigned r = lo; r < lo + n; ++r) {
-      const float4 a = A->recs[2 * r], b = A->recs[2 * r + 1];
-      S.chan = two && b.z < 0.0f ? 1 : 0;
-      dda_walk(P, G, S, V3{a.x, a.y, a.z}, V3{a.w, b.x, b.y},
-               two ? std::fabs(b.z) : b.z, b.w, P.sigma_t);
+    const float4* recs = A->recs + 2 * (size_t)lo;
+    const uint2* keys = A->keys == nullptr ? nullptr : A->keys + lo;
+    for (unsigned r = 0; r < n; ++r) {
+      if (P.estimator == RATIO) {
+        if (two) tgt_walk_record<RATIO, true>(P, G, S, recs, keys, r);
+        else tgt_walk_record<RATIO, false>(P, G, S, recs, keys, r);
+      } else {
+        if (two) tgt_walk_record<DDA, true>(P, G, S, recs, keys, r);
+        else tgt_walk_record<DDA, false>(P, G, S, recs, keys, r);
+      }
     }
     const int slice0 = home * G.res[0] * G.res[1];
     for (int y = 0; home >= 0 && y < G.res[1]; ++y) {
@@ -1813,6 +1852,141 @@ def test_split_target_forward_levers_change_no_step(lever, template_lib,
         monkeypatch.setattr(wf, "TGT_SLACK", 32)
         again, again_stats = _split(lib, static, at, data, seed, spp)
         assert again_stats["records_walked_at_once"] == 0
+        _close(again, base, False, 2)
+    elif lever == "batches":
+        assert stats["batches"] > 3
+    else:
+        assert wf.tgt_units(static, at, spp)[0].shape[0] > \
+            static.projector.resy * wf.angle_groups(30)[0]
+
+
+# the ratio and delta cases of TARGET_CASES and MESH_CASES (one and two
+# channels, with and without transmission_only): their forwards' target
+# forms, the ratio's path and walk passes and the delta's one pass
+POINT_TARGET_CASES = [c for c in TARGET_CASES + MESH_CASES if c[0] != "dda"]
+
+
+def _ratio_records(lib, static, at, data, seed, spp):
+    """The ratio path pass over every unit in one batch with room for all
+    its records: (records (n, 8), keys (n, 2) int64: each record's lane
+    and stream counter), unit by unit; the accumulator stays 0 (no
+    segment tracked at once)."""
+    units, lanes = wf.tgt_units(static, at, spp)
+    cap = 16 * lanes + 64
+    start = np.concatenate([[0], np.cumsum(cap)]).astype(np.int32)
+    n = int(start[-1])
+    recs = torch.zeros(n * 8)
+    keys = torch.zeros(n * 2, dtype=torch.int32)
+    region = torch.from_numpy(start)
+    cnt = torch.zeros(units.shape[0], dtype=torch.int32)
+    acc = torch.zeros(static.sensor.n_cells)
+    P, order, starts, _ = wf._family_params("wf_fwd", static, at, seed, spp)
+    M, tris, _ = wf._target_args("wf_fwd", static, at, P)
+    A = wf.TgtArgs(recs.data_ptr(), region.data_ptr(), cnt.data_ptr(),
+                   units.data_ptr(), acc.data_ptr(), 0, units.shape[0],
+                   keys.data_ptr())
+    assert lib.wf_tgt_path(ctypes.byref(P), ctypes.byref(M), wf._ptr(tris),
+                           data.data_ptr(), at["active_pixels"].data_ptr(),
+                           wf._ptr(order), wf._ptr(starts), ctypes.byref(A),
+                           None, None) == 0
+    assert not bool(acc.any()) and bool((cnt.numpy() <= cap).all())
+    idx = torch.cat([torch.arange(int(s0), int(s0) + int(m))
+                     for s0, m in zip(start[:-1], cnt.tolist())])
+    key = keys.view(-1, 2)[idx].to(torch.int64) & 0xFFFFFFFF
+    return recs.view(-1, 8)[idx], key
+
+
+@pytest.mark.parametrize("case", POINT_TARGET_CASES)
+def test_point_target_forward_equals_one_pass(case, template_lib):
+    """The ratio and delta forwards' target forms through the wrapper
+    (tgt_forward: the ratio's path and walk passes, batched; the delta's
+    one pass over the units) against the one-pass forward (the same
+    launch order) and the plain version: the same bounce iterations,
+    steps and mesh work, every delta step a global deposit; doses to 1e-4
+    of each channel's max with none off. The ratio's records, each
+    walked by the plain ratio tracking (ops/render.py _walk) from the
+    stream it recorded, give the plain forward's dose in each channel:
+    the records carry the one-pass lanes' segments, inside flags and
+    random streams."""
+    lib, path = template_lib
+    static, at = _target_scene(path, case)
+    est, ch = case[0], static.sensor.channels
+    data, _ = _inputs(static, 22)
+    seed, spp = 4, 2
+    assert wf.tgt_route(_libs(lib), "wf_fwd", static, at)
+    one, one_stats = _run(lib, "wf_fwd", static, at, data,
+                          static.sensor.n_cells, seed, spp)
+    ref_stats = {}
+    ref = wf._forward(static, at, data, seed, spp, wf.DEFAULT_CHUNK,
+                      ref_stats)
+    dose, stats = _split(lib, static, at, data, seed, spp)
+    for k in ("iterations", "steps") + wf.MESH_COUNTERS:
+        assert stats[k] == one_stats[k], k
+    assert {k: stats[k] for k in ref_stats} == ref_stats
+    assert stats["steps"] > 0 and stats["triangles"] > 0
+    _deposits_add_up(stats, est)
+    _close(dose, one, False, ch)
+    _close(dose, ref, False, ch)
+    if est == "delta":
+        assert stats["global_deposits"] == stats["steps"]
+        assert "records" not in stats
+        return
+    assert 0 < stats["records"] <= stats["iterations"]
+    recs, keys = _ratio_records(lib, static, at, data, seed, spp)
+    assert recs.shape[0] == stats["records"]
+    if ch == 2:
+        assert bool((recs[:, 6] < 0).any()) and bool((recs[:, 6] > 0).any())
+    walked = {}
+    _close(wf._walk(static, at, recs, walked, keys=keys, seed=seed), ref,
+           False, ch)
+    assert walked["steps"] == stats["steps"]
+
+
+# (estimator, lever): the ratio form's batches, units and regions that
+# overflow; the delta form's units (it takes no records)
+POINT_LEVERS = [("ratio", "walked_at_once"), ("ratio", "batches"),
+                ("ratio", "units"), ("delta", "units")]
+
+
+@pytest.mark.parametrize("est,lever", POINT_LEVERS)
+def test_point_target_forward_levers_change_no_step(est, lever, template_lib,
+                                                    monkeypatch):
+    """As test_split_target_forward_levers_change_no_step for the ratio
+    and delta forms on TARGET_CASES' two-channel scenes at 30 angles:
+    regions too small for their records (the path pass tracks the rest
+    at once, every deposit global; the next launch's regions, sized from
+    the first's records, hold them all), a buffer of a few units' regions
+    (many batches) and units of 64 lanes: the same iterations and steps
+    as the shipped sizes, values to 1e-4 of each channel's max."""
+    lib, path = template_lib
+    case = next(c for c in TARGET_CASES if c[0] == est)
+    static, at = _target_scene(path, case, n_patterns=30)
+    data, _ = _inputs(static, 23)
+    seed, spp = 5, 2
+    base, base_stats = _split(lib, static, at, data, seed, spp)
+    if est == "ratio":
+        assert base_stats["batches"] == 1
+        at.pop("_wf_tgt_est")
+    if lever == "walked_at_once":
+        monkeypatch.setattr(wf, "TGT_GUESS", 0.0)
+        monkeypatch.setattr(wf, "TGT_SLACK", 0)
+    elif lever == "batches":
+        monkeypatch.setattr(wf, "TGT_MAX_RECORDS", 200)
+    else:
+        monkeypatch.setattr(wf, "TGT_UNIT_LANES", 64)
+        at.pop("_wf_tgt_units")
+    dose, stats = _split(lib, static, at, data, seed, spp)
+    for k in ("iterations", "steps") + wf.MESH_COUNTERS + (
+            ("records",) if est == "ratio" else ()):
+        assert stats[k] == base_stats[k], k
+    _close(dose, base, False, 2)
+    if lever == "walked_at_once":
+        assert stats["records_walked_at_once"] == stats["records"]
+        assert stats["tile_deposits"] == 0
+        monkeypatch.setattr(wf, "TGT_SLACK", 32)
+        again, again_stats = _split(lib, static, at, data, seed, spp)
+        assert again_stats["records_walked_at_once"] == 0
+        assert again_stats["tile_deposits"] > 0
         _close(again, base, False, 2)
     elif lever == "batches":
         assert stats["batches"] > 3

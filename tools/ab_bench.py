@@ -2,7 +2,7 @@
 """Bench phases of two trees on one card, in turns.
 
     python3 tools/ab_bench.py PARENT_ROOT [ballistic|wavefront|hybrid|cull|
-                                           target]
+                                           target [dda|delta]] [--pairs N]
 
 run from the root of the changed tree, on a machine with one NVIDIA GPU.
 PARENT_ROOT is an unpacked copy of the parent commit (`git archive`).
@@ -39,11 +39,23 @@ builds that tree's kernels and runs its own chip_smoke.py code:
     of 5), and cell (a)'s final-render dda residual with the target at
     spp 16 (median of 3, with its path and walk passes apart: their
     means over the four launches; then as the render calls it, without
-    the passes' timers, median of 3). Six turns, as hybrid.
+    the passes' timers, median of 3). Six turns, as hybrid. With the
+    estimator delta: chip_smoke.py's cell (d) instead (cell (c)'s
+    custom cuvette and occlusion with a scattering resin, albedo 0.5,
+    depths 6, the delta sensor, spp 1, spp_ref 16, engine auto; its
+    configuration built from cell (c)'s, which a parent tree has too)
+    through optimize(), its wall split and form launches, then its loop
+    forward on the last loop inputs (median of 5). Six turns.
+
+--pairs N: N turns each way instead (parent, change, change, parent,
+repeated and cut to 2 N turns).
 
 Every JSON record a turn prints is tagged with the turn; the last line
-is each tree's median over its turns of every timed number. Compares
-two versions only within one call, as timings move from card to card.
+is each tree's median over its turns of every timed number, and for
+each the change's turns less the parent's, taken in turn order as pairs
+(the i-th change turn less the i-th parent turn): their mean, its
+standard error and the pairs. Compares two versions only within one
+call, as timings move from card to card.
 """
 import json
 import os
@@ -266,6 +278,41 @@ with tempfile.TemporaryDirectory() as tmp:
                            torch)})
 """
 
+TARGET_DELTA = """
+import json, os, sys, tempfile
+sys.path.insert(0, os.getcwd())
+import torch
+import chip_smoke as cs
+from drtvam_tpu_torch.ops import backproject as bp
+from drtvam_tpu_torch.ops import render as wf
+dev = torch.device("cuda:0")
+wf.build_kernels()
+bp.build_kernels()
+torch.zeros(1, device=dev)  # create the context before the memory stats
+
+
+def emit(rec):
+    print(json.dumps(rec), flush=True)
+
+
+with tempfile.TemporaryDirectory() as tmp:
+    cfg = cs.custom_cell_config(tmp)
+    cfg["vial"]["medium"] = dict(cfg["vial"]["medium"], albedo=0.5)
+    cfg["sensor"] = dict(cfg["sensor"], type="delta")
+    cfg.update(max_depth=6, rr_depth=6, spp=1, spp_ref=16)
+    wf.reset_launches()
+    with cs.CallSpy(wf, by_depth=True) as spy:
+        vol, timings, wall, peak = cs.optimize_on_card(torch, dev, cfg)
+    emit({"phase": "target_cell", "name": "d",
+          **cs.phase_times(timings, wall), "peak_mem_gb": peak,
+          "form_launches": {k: v for k, v in wf.form_launches.items() if v}})
+    del vol
+    st, at, data, seed, spp = spy.calls["wf_fwd:target1:depth6"]
+    emit({"phase": "target_form", "name": "wf_fwd:target1 delta",
+          "ms": cs.cuda_ms(lambda: wf.wf_fwd(st, at, data, seed, spp), 5,
+                           torch)})
+"""
+
 MODES = {"ballistic": BALLISTIC, "wavefront": WAVEFRONT, "hybrid": HYBRID,
          "cull": CULL, "target": TARGET}
 # the turns of each mode: parent and change in alternation
@@ -286,20 +333,42 @@ def timed(rec):
             if k == "ms" or (k.endswith("_s") and isinstance(v, float))}
 
 
+def paired(seen):
+    """Each timed number's change turns less its parent turns, in pairs."""
+    out = {}
+    for k in seen["parent"].keys() & seen["change"].keys():
+        n = min(len(seen["parent"][k]), len(seen["change"][k]))
+        d = np.subtract(seen["change"][k][:n], seen["parent"][k][:n])
+        out[k] = {"mean": float(d.mean()), "pairs": n,
+                  "se": float(d.std(ddof=1) / np.sqrt(n)) if n > 1 else None}
+    return out
+
+
 def main():
-    if len(sys.argv) not in (2, 3) or (len(sys.argv) == 3
-                                       and sys.argv[2] not in MODES):
+    argv = sys.argv
+    pairs = None
+    if "--pairs" in argv:
+        i = argv.index("--pairs")
+        if i + 1 >= len(argv) or not argv[i + 1].isdigit():
+            sys.exit(__doc__)
+        pairs, argv = int(argv[i + 1]), argv[:i] + argv[i + 2:]
+    if len(argv) not in (2, 3, 4) or (
+            len(argv) >= 3 and argv[2] not in MODES) or (
+            len(argv) == 4 and (argv[2] != "target" or
+                                argv[3] not in ("dda", "delta"))):
         sys.exit(__doc__)
-    mode = sys.argv[2] if len(sys.argv) == 3 else "ballistic"
-    bench = MODES[mode]
-    trees = {"parent": os.path.abspath(sys.argv[1]), "change": os.getcwd()}
+    mode = argv[2] if len(argv) >= 3 else "ballistic"
+    bench = TARGET_DELTA if argv[3:] == ["delta"] else MODES[mode]
+    trees = {"parent": os.path.abspath(argv[1]), "change": os.getcwd()}
+    turns = TURNS[mode] if pairs is None else (
+        ("parent", "change", "change", "parent") * pairs)[:2 * pairs]
     smi = subprocess.run(["nvidia-smi", "-i", "0",
                           "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     print(smi.stdout.strip(), flush=True)
     seen = {"parent": {}, "change": {}}
-    for turn, tree in enumerate(TURNS[mode]):
+    for turn, tree in enumerate(turns):
         out = subprocess.run([sys.executable, "-c", bench],
                              cwd=trees[tree], capture_output=True, text=True,
                              timeout=900)
@@ -314,7 +383,8 @@ def main():
                     seen[tree].setdefault(k, []).append(v)
     print(json.dumps({"medians": {
         tree: {k: float(np.median(v)) for k, v in vals.items()}
-        for tree, vals in seen.items()}}), flush=True)
+        for tree, vals in seen.items()}, "change_less_parent": paired(seen)}),
+        flush=True)
 
 
 if __name__ == "__main__":

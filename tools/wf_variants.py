@@ -8,7 +8,8 @@
     python3 tools/wf_variants.py cull [--parent ROOT] [VARIANT ...]
                                                  (the culling renders',
                                                   CULL_VARIANTS)
-    python3 tools/wf_variants.py target [--parent ROOT] [VARIANT ...]
+    python3 tools/wf_variants.py target [--parent ROOT] [--cell-d]
+                                        [VARIANT ...]
                                                  (the analog pair's
                                                   target forms',
                                                   TGT_VARIANTS)
@@ -85,7 +86,11 @@ channel's max, the adjoint bitwise), CUDA-event times (median of 3), the
 launch shapes and the registers and spills of the instantiations they
 run; the shipped build also its counts (steps, the target's grid cells,
 triangles and walks, records, batches), the forward's path and walk
-passes apart and the scene without its target.
+passes apart and the scene without its target. --cell-d: the same on
+chip_smoke.py's cell (d) (the custom cuvette with a scattering resin,
+the delta sensor) on the patterns of its optimize() after TGT_STEPS
+steps: the delta forward (the delta form, tgt_delta_kernel) and the
+staged adjoint.
 The residual target path pass's variants (the dda residual forward's path
 pass on a scene that keeps the target: csrc/wf_res_target.cu) are builds
 of wf_res_target.cu with other launch shapes (WF_RTP_*), the shipped build
@@ -695,16 +700,17 @@ def tgt_build(work, names):
 
 
 def tgt_ptxas(log):
-    """Registers and spill bytes of the target instantiations cell (b)
-    runs (DDA, !SCAT: the path and walk passes, the staged adjoint, the
-    one-pass forward and adjoint with the target; not counting)."""
+    """Registers and spill bytes of the target instantiations cells (b)
+    and (d) run (DDA, !SCAT and DELTA, SCAT: the path and walk passes, the
+    delta form, the staged adjoint, the one-pass forward and adjoint with
+    the target; not counting)."""
     import chip_smoke as cs
     keep = {}
     for part in log.split("Compiling entry function '")[1:]:
         name = cs.instantiation(part.split("'")[0])
         if "counting" in name or not (
-                "target" in name and ("DDA, !SCAT" in name
-                                      or "walk" in name)):
+                "target" in name and ("DDA, !SCAT" in name or "DELTA, SCAT"
+                                      in name or "walk" in name)):
             continue
         regs = re.search(r"Used (\d+) registers", part)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
@@ -715,7 +721,7 @@ def tgt_ptxas(log):
     return keep
 
 
-def main_target(names):
+def main_target(names, cell="b"):
     import torch
     import chip_smoke as cs
     from drtvam_tpu_torch.native import BUILD_DIR
@@ -735,19 +741,30 @@ def main_target(names):
         for n in ("wf_fwd", "wf_bwd", wf.TGT_LIB):
             with open(os.path.join(BUILD_DIR, f"lib{n}.so.log")) as f:
                 logs[("shipped", n)] = f.read()
-        cfg = cs.sa_cell_config(work, "b")
-        cfg["n_steps"] = TGT_STEPS
-        with cs.CallSpy(wf) as spy:
-            cs.optimize_on_card(torch, dev, cfg)
-        st2, at2, data, seed, spp = spy.calls["wf_fwd:target2"]
-        st1 = cs.one_channel_target(st2)
-        st0, at0 = cs.strip_to_one_channel(st2, at2)
-        at0 = dict(at0)
-        dL = torch.rand(st2.sensor.n_cells, generator=torch.Generator(
-            dev).manual_seed(5), device=dev)
-        forms = {"wf_fwd, 2 channels": ("wf_fwd", st2, data),
-                 "wf_fwd, 1 channel": ("wf_fwd", st1, data),
-                 "wf_bwd, 2 channels": ("wf_bwd", st2, dL)}
+        if cell == "d":
+            cfg = cs.scatter_cuvette_config(work)
+            cfg["n_steps"] = TGT_STEPS
+            with cs.CallSpy(wf, by_depth=True) as spy:
+                cs.optimize_on_card(torch, dev, cfg)
+            st2, at2, data, seed, spp = spy.calls["wf_fwd:target1:depth6"]
+            dL = torch.rand(st2.sensor.n_cells, generator=torch.Generator(
+                dev).manual_seed(5), device=dev)
+            forms = {"wf_fwd, delta": ("wf_fwd", st2, data),
+                     "wf_bwd, delta": ("wf_bwd", st2, dL)}
+        else:
+            cfg = cs.sa_cell_config(work, "b")
+            cfg["n_steps"] = TGT_STEPS
+            with cs.CallSpy(wf) as spy:
+                cs.optimize_on_card(torch, dev, cfg)
+            st2, at2, data, seed, spp = spy.calls["wf_fwd:target2"]
+            st1 = cs.one_channel_target(st2)
+            st0, at0 = cs.strip_to_one_channel(st2, at2)
+            at0 = dict(at0)
+            dL = torch.rand(st2.sensor.n_cells, generator=torch.Generator(
+                dev).manual_seed(5), device=dev)
+            forms = {"wf_fwd, 2 channels": ("wf_fwd", st2, data),
+                     "wf_fwd, 1 channel": ("wf_fwd", st1, data),
+                     "wf_bwd, 2 channels": ("wf_bwd", st2, dL)}
         tile_rows = wf.tile_rows
         shipped_consts = {k: getattr(wf, k) for k in (
             "TGT_MAX_RECORDS", "TGT_UNIT_LANES", "TGT_OVERLAP")}
@@ -801,10 +818,11 @@ def main_target(names):
                         getattr(wf, name)(st, at2, x, seed, spp, stats)
                         if name == "wf_fwd":
                             wf.wf_fwd(st, at2, x, seed, spp, times=times)
+                        if name == "wf_fwd" and cell == "b":
                             rec[key]["walk_launch"] = wf.kernel_info(
                                 "wf_tgt_walk", st, at2)
                         rec[key].update(counts=stats, **times)
-            if v == "shipped":
+            if v == "shipped" and cell == "b":
                 rec["mesh off"] = {
                     n: cs.cuda_ms(lambda: getattr(wf, n)(  # noqa: B023
                         st0, at0, x, seed, spp), 3, torch)  # noqa: B023
@@ -1228,6 +1246,9 @@ def main():
         args = sys.argv[2:]
         if args[:1] == ["--parent"]:
             TGT_PARENT, args = os.path.abspath(args[1]), args[2:]
+        cell = "b"
+        if args[:1] == ["--cell-d"]:
+            cell, args = "d", args[1:]
         names = args or [v for v in TGT_VARIANTS
                          if TGT_PARENT or "tree" not in TGT_VARIANTS[v]]
         unknown = [n for n in names if n not in TGT_VARIANTS]
@@ -1240,7 +1261,7 @@ def main():
                               "--format=csv,noheader"], capture_output=True,
                              text=True, timeout=60, check=True)
         print(smi.stdout.strip(), flush=True)
-        main_target(names)
+        main_target(names, cell)
         return
     if sys.argv[1:2] == ["cull"]:
         args = sys.argv[2:]
