@@ -2490,15 +2490,22 @@ def instantiation(mangled):
         return (f"medium adjoint, {WF_EST[e]}, {'' if scat else '!'}SCAT, "
                 f"{'' if tonly else '!'}TONLY" + (", target" if tgt else "")
                 + (f", staged, {threads} threads" if staged else ""))
-    m = re.search(r"res_kernelILi(\d)ELi(\d)ELb(\d)ELb(\d)ELb(\d)E"
-                  r"(?:Lb(\d)E)?", mangled)
+    m = re.search(r"res_(prologue_)?kernelILi(\d)ELi(\d)ELb(\d)ELb(\d)E"
+                  r"Lb(\d)E(?:Lb(\d)E)?", mangled)
     if m is not None:
-        e, res, primal, count, path = (int(x) for x in m.groups()[:5])
+        e, res, primal, count, path = (int(x) for x in m.groups()[1:6])
         return (f"residual {WF_EST[e]}, {WF_RES[res]}, "
+                + ("prologue, " if m.group(1) else "")
                 + ("path pass" if path else
                    "forward" if primal else "adjoint")
-                + (", target" if m.group(6) == "1" else "")
+                + (", target" if m.group(7) == "1" else "")
                 + (", counting" if count else ""))
+    m = re.search(r"res_tgt_prologue_kernelILb(\d)ELb(\d)E", mangled)
+    if m is not None:
+        count, staged = (int(x) for x in m.groups())
+        return ("residual target path pass, DDA, FIRST_SCATTER, prologue"
+                + (", counting" if count else "")
+                + (", staged" if staged else ", global banks"))
     m = re.search(r"res_tgt_path_kernelILi(\d)ELb(\d)ELb(\d)E", mangled)
     if m is not None:
         res, count, staged = (int(x) for x in m.groups())
@@ -5678,6 +5685,386 @@ def phase_multi_gpu(torch, tmp):
     return out
 
 
+# --------------------------------------------------------------------------
+# the first-scatter residual without a chord bank (phase 18): the
+# geometric prologue, each lane marching to its chord (csrc/wf_trace.cuh
+# chord_march, the residual kernels' prologue instantiations)
+
+# float32 operations of one iteration of the prologue (chord_march)
+# beside its surface tests (CULL_SURF_OPS an analytic surface; a mesh's
+# grid cells and triangle tests counted): the refraction and its Fresnel
+# weight (~40: a square root, three divisions), the segment's and the
+# medium's bookkeeping (~20)
+PROLOGUE_ITER_OPS = 60
+# the plain checks of cell (a)'s cut (every 32nd angle) and of the mesh
+# cuvette: every PROLOGUE_MESH_STRIDE-th angle (their plain versions walk
+# the meshes in torch, ~8 s a form at every 32nd angle on cell (a))
+PROLOGUE_MESH_STRIDE = 64
+
+
+def prologue_bound(n_bytes, lanes, stats, n_analytic):
+    """Least time on the card of a prologue form: the compulsory bytes at
+    the HBM rate, or res_bound's float32 work (the lanes' set-up and first
+    scatter, their events or bounces, the dda's steps, the mesh work, the
+    prologue's included) plus PROLOGUE_ITER_OPS and n_analytic surface
+    tests for each prologue iteration, at the float32 peak."""
+    byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops = RES_LANE_OPS * lanes + \
+        RES_EVENT_OPS * stats.get("iterations", 0) + \
+        WF_STEP_OPS * stats.get("steps", 0) + \
+        CULL_CELL_OPS * stats.get("cells", 0) + \
+        CULL_TRI_OPS * stats.get("triangles", 0) + \
+        (PROLOGUE_ITER_OPS + CULL_SURF_OPS * n_analytic) * \
+        stats.get("prologue_iters", 0)
+    op_ms = ops / F32_FLOPS * 1e3
+    return (max(byte_ms, op_ms),
+            "operations" if op_ms >= byte_ms else "bytes")
+
+
+def without_bank(arr):
+    """The scene tensors without the chord bank (and its table)."""
+    return {k: v for k, v in arr.items()
+            if k not in ("chord_pack", "_wf_res_chords")}
+
+
+def prologue_drive(torch, wf, static, arr, data, inv_vol, adjoint, seed=7):
+    """The bank-less residual through render() (RenderRaw, the entry
+    point the JAX package's raw render is), its forward and, with
+    adjoint, its backward: the prologue forms' launches, the counts set
+    to 0 just before and read just after. Raises unless each ran its
+    prologue instantiation and no chord table was built."""
+    wf.reset_launches()
+    x = data.detach().clone().requires_grad_(adjoint)
+    vol = wf.render(static, arr, x, inv_vol, seed=seed, spp=1)
+    if adjoint:
+        vol.backward(torch.ones_like(vol))
+    torch.cuda.synchronize()
+    counts = {k: wf.form_launches[k] for k in wf.PROLOGUE_FORMS}
+    counts["wf_res_walk"] = wf.launches["wf_res_walk"]
+    want = ["wf_res_fwd:prologue"] + (["wf_res_bwd:prologue"] if adjoint
+                                      else [])
+    if static.sensor.estimator == "dda" and \
+            wf.res_tgt_route(wf.build_kernels(), static, arr):
+        want.append("wf_res_tgt_path:prologue")
+    if static.sensor.estimator == "dda":
+        want.append("wf_res_walk")
+    for key in want:
+        if not counts[key]:
+            raise AssertionError(f"the bank-less render never launched "
+                                 f"{key}")
+    if wf.launches["wf_res_chords"]:
+        raise AssertionError("the bank-less render built a chord table")
+    vol = vol.detach()
+    if not bool(torch.isfinite(vol).all()) or not float(vol.sum()) > 0:
+        raise AssertionError("the bank-less render's dose is empty or "
+                             "non-finite")
+    return counts
+
+
+def prologue_form(torch, wf, name, static, arr, bank_arr, x, stride,
+                  seed=5, reps=3):
+    """One residual kernel of a bank-less static (arr without the chord
+    bank): its time at full width (CUDA events, the median of reps) beside
+    the bank form's on the same inputs (bank_arr; None: no bank serves the
+    scene), its counts, bound, launch shape, registers and spills; the
+    kernel against its plain version on every stride-th angle (a forward
+    to TARGET_TOL of each channel's max with none off, an adjoint
+    bitwise), with the plain version's time there."""
+    from drtvam_tpu_torch.models.geometry import MESH
+    kern = getattr(wf, name)
+    fwd = name == "wf_res_fwd"
+    dda = fwd and static.sensor.estimator == "dda"
+    stats, times, bank_times = {}, {}, {}
+    kern(static, arr, x, seed, 1, stats)
+    ms = cuda_ms(lambda: kern(static, arr, x, seed, 1), reps, torch)
+    if dda:
+        kern(static, arr, x, seed, 1, times=times)
+    bank_ms = None if bank_arr is None else cuda_ms(
+        lambda: kern(static, bank_arr, x, seed, 1), reps, torch)
+    if dda and bank_arr is not None:
+        kern(static, bank_arr, x, seed, 1, times=bank_times)
+    n, n_cells = static.projector.n_active, static.sensor.n_cells
+    ch = static.sensor.channels
+    n_bytes = 4 * (n + n_cells) + (n_cells // ch if ch == 2 else 0)
+    n_analytic = sum(1 for s in static.surfaces if s.kind != MESH)
+    bound, by = prologue_bound(n_bytes, n, stats, n_analytic)
+    if fwd:
+        sc, atc, xc = angle_cut(static, arr, x, stride)
+    else:
+        # the adjoint's input is the film's: the cut keeps it whole
+        sc, atc, _ = angle_cut(static, arr, torch.zeros(n, device=x.device),
+                               stride)
+        xc = x
+    chunk = 1 << 21
+    if fwd:
+        k = kern(sc, atc, xc, seed, 1)
+        plain_ms, ref = event_ms(
+            lambda: wf._forward(sc, atc, xc, seed, 1, chunk), torch)
+        cmp = channel_compare(f"{name} (prologue) every {stride}th angle",
+                              k, ref, ch, False)
+    else:
+        k = kern(sc, atc, xc, seed, 1)
+        plain_ms, ref = event_ms(
+            lambda: wf._adjoint(sc, atc, seed, 1, chunk, xc), torch)
+        if not torch.equal(k, ref):
+            raise AssertionError(f"{name} (prologue): the adjoint is not "
+                                 f"bitwise its plain version on every "
+                                 f"{stride}th angle (max "
+                                 f"{float((k - ref).abs().max())})")
+        cmp = {"max_abs_err": 0.0, "bitwise_plain": True}
+    info = wf.kernel_info(name, static, arr)
+    rec = {"ms": ms, "bank_ms": bank_ms, "plain_ms": plain_ms,
+           "plain_at": f"every {stride}th of the "
+                       f"{static.projector.n_patterns} angles",
+           "bound_ms": bound, "bound_by": by, "roofline_share": bound / ms,
+           "counts": stats, "lanes": n, "channels": ch,
+           "launch": info, **cmp}
+    if dda:
+        rec.update(path_ms=times["path_ms"], walk_ms=times["walk_ms"],
+                   bank_path_ms=bank_times.get("path_ms"),
+                   bank_walk_ms=bank_times.get("walk_ms"))
+    del k, ref, sc, atc, xc
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_prologue(torch, wf, dev, tmp):
+    """Phase 18: the residual without a chord bank on the card. The hybrid
+    bench cell's scene uncut (phase 10's: cylindrical, albedo 0.5, 400
+    angles, 400x400 DMD, 256^3 film) with its residual static and the
+    chord bank removed: the delta fast loop's pair and the dda forward
+    (path and walk passes) at spp 1, each beside the bank form; cell (a)'s
+    scene (surface-aware, the target kept, two channels) cut to every
+    32nd angle: the delta fast loop's pair and the dda forward on the
+    target path pass; cell (d)'s mesh cuvette without the occlusion, a
+    scene no bank serves (P.target 1, the mesh forms): the delta
+    first-scatter pair and the dda forward. Each form through render()
+    with its launches counted, then timed and held to its plain version
+    (prologue_form; on the meshes' scenes at every PROLOGUE_MESH_STRIDE-th
+    angle). Returns {form: record}."""
+    import dataclasses
+    from drtvam_tpu_torch.models.scene import Scene
+    from drtvam_tpu_torch.ops.hybrid import ScatteringEngine
+    out = {}
+    rng = np.random.default_rng(18)
+
+    def inputs(st):
+        data = torch.from_numpy(rng.uniform(
+            0.0, 1.0, st.projector.n_active).astype(np.float32)).to(dev)
+        dL = torch.from_numpy(rng.uniform(
+            0.0, 1.0, st.sensor.n_cells).astype(np.float32)).to(dev)
+        return data, dL
+
+    def run(cell, st_delta, st_dda, pro, bank, inv_vol, stride):
+        data, dL = inputs(st_delta)
+        rec = {"cell": cell}
+        rec["launches_delta"] = prologue_drive(torch, wf, st_delta, pro,
+                                               data, inv_vol, True)
+        rec["launches_dda"] = prologue_drive(torch, wf, st_dda, pro, data,
+                                             inv_vol, False)
+        rec["wf_res_fwd"] = prologue_form(torch, wf, "wf_res_fwd", st_delta,
+                                          pro, bank, data, stride)
+        rec["wf_res_bwd"] = prologue_form(torch, wf, "wf_res_bwd", st_delta,
+                                          pro, bank, dL, stride)
+        rec["dda_fwd"] = prologue_form(torch, wf, "wf_res_fwd", st_dda, pro,
+                                       bank, data, stride)
+        emit({"phase": "prologue", **rec})
+        out[cell] = rec
+        torch.cuda.empty_cache()
+
+    def dda_of(st):
+        return dataclasses.replace(st, fast_residual=False,
+                                   sensor=dataclasses.replace(
+                                       st.sensor, estimator="dda"))
+
+    # the hybrid bench cell, uncut
+    sc = Scene(bench_scattering_config(tmp))
+    static, arr = sc.build(mode="volume", include_target=False,
+                           max_depth=6, rr_depth=6)
+    eng = ScatteringEngine(static, arr, dev, spp=1, estimator="delta")
+    st = eng.static_s
+    assert st.fast_residual
+    inv_vol = float(np.float32(1.0 / sc.sensor.voxel_volume))
+    run("bench", st, dda_of(st), without_bank(eng.arr), eng.arr, inv_vol,
+        ANGLE_STRIDE)
+    del eng, static, arr
+    torch.cuda.empty_cache()
+
+    # cell (a): the surface-aware square vial, the target kept, cut
+    sc = Scene(sa_cell_config(tmp, "a"))
+    tb = sc.target_bank()
+    mask = sc.sensor.discretize(tb)
+    static, arr = sc.build(mode="volume", include_target=True,
+                           max_depth=6, rr_depth=6)
+    eng = ScatteringEngine(static, arr, dev, spp=1, estimator="delta",
+                           inside_mask=mask)
+    st = eng.static_s
+    assert st.fast_residual and st.sensor.channels == 2
+    inv_vol = torch.from_numpy(np.asarray(sc.sensor.inv_volume(tb))).to(dev)
+    x = torch.zeros(st.projector.n_active, device=dev)
+    st_c, at_c, _ = angle_cut(st, eng.arr, x)
+    run("a", st_c, dda_of(st_c), without_bank(at_c), at_c, inv_vol,
+        PROLOGUE_MESH_STRIDE)
+    del eng, static, arr, at_c
+    torch.cuda.empty_cache()
+
+    # cell (d)'s mesh cuvette without the occlusion: no bank serves it
+    from drtvam_tpu_torch.ops.march import scene_tensors
+    sc = Scene(scatter_cuvette_config(tmp, occlusion=False))
+    static, arr = sc.build(mode="volume", include_target=False,
+                           max_depth=6, rr_depth=6)
+    st = dataclasses.replace(static, scattered_only=True, first_scatter=True)
+    assert wf.target_mode(st) == 1 and not st.fast_residual
+    at = scene_tensors(arr, dev)
+    inv_vol = float(np.float32(1.0 / sc.sensor.voxel_volume))
+    run("d_no_occlusion", st, dda_of(st), at, None, inv_vol,
+        PROLOGUE_MESH_STRIDE)
+    del static, arr, at
+    torch.cuda.empty_cache()
+    return out
+
+
+def prologue_entries(pro):
+    """The kernels line's records of the prologue forms (phase 18): the
+    hybrid bench cell's, with cell (a)'s and the mesh cuvette's beside."""
+    replaces = ("drtvam_tpu/ops/march.py:198 (_first_scatter_prologue, "
+                "XLA; taken by trace_wavefront :976-984 without a chord "
+                "bank)")
+    keys = ("max_abs_err", "ms", "plain_ms", "plain_at", "bound_ms",
+            "bound_by", "roofline_share", "bank_ms", "counts", "launch")
+    entries = []
+    for name, form, src, drive, key in (
+            ("wf_res_fwd (prologue)", "wf_res_fwd", "wf_res_fwd.cu",
+             "launches_delta", "wf_res_fwd:prologue"),
+            ("wf_res_bwd (prologue)", "wf_res_bwd", "wf_res_bwd.cu",
+             "launches_delta", "wf_res_bwd:prologue"),
+            ("wf_res_path (prologue)", "dda_fwd", "wf_res_fwd.cu",
+             "launches_dda", "wf_res_fwd:prologue")):
+        b = pro["bench"][form]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"drtvam_tpu_torch/csrc/{src} + wf_residual.cuh + "
+                      "wf_trace.cuh",
+            "replaces": replaces,
+            "launches": pro["bench"][drive][key],
+            "path": "render() of the hybrid bench cell's residual without "
+                    "its chord bank (delta fast loop; dda: path and walk "
+                    "passes), spp 1",
+            **{k: b[k] for k in keys}, "library_ms": None,
+            "cell_a": {k: pro["a"][form][k] for k in keys},
+            "mesh_cuvette": {k: pro["d_no_occlusion"][form][k]
+                             for k in keys}})
+    a = pro["a"]["dda_fwd"]
+    entries.append({
+        "name": "wf_res_tgt_path (prologue)", "route": "cuda",
+        "source": "drtvam_tpu_torch/csrc/wf_res_target.cu + "
+                  "wf_res_target.cuh + wf_trace.cuh + wf_mesh.cuh",
+        "replaces": replaces,
+        "launches": pro["a"]["launches_dda"]["wf_res_tgt_path:prologue"],
+        "path": "render() of cell (a)'s dda residual (two channels, the "
+                "target kept) without its chord bank, every 32nd angle",
+        **{k: a[k] for k in keys}, "library_ms": None,
+        "mesh_cuvette": {k: pro["d_no_occlusion"]["dda_fwd"][k]
+                         for k in keys}})
+    return entries
+
+
+# --------------------------------------------------------------------------
+# the `profile` key on the card (phase 19): a torch.profiler trace of the
+# ballistic main path's loop
+
+PROFILE_STEPS = 5
+
+
+def trace_summary(trace_dir):
+    """The Chrome trace in trace_dir (one *.pt.trace.json): the CUDA
+    kernels by device time (name, launches, total and mean microseconds),
+    the profiled window (its first event's start to its last event's end,
+    microseconds) and the device's busy share over it (the union of the
+    kernel intervals)."""
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+    if len(files) != 1:
+        raise AssertionError(f"profile: {len(files)} traces in {trace_dir}")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    by_name = {}
+    for e in kernels:
+        k = by_name.setdefault(e["name"], [0, 0.0])
+        k[0] += 1
+        k[1] += float(e["dur"])
+    t0 = min(float(e["ts"]) for e in events)
+    t1 = max(float(e["ts"]) + float(e["dur"]) for e in events)
+    busy, end = 0.0, t0
+    for s, d in sorted((float(e["ts"]), float(e["dur"])) for e in kernels):
+        if s + d > end:
+            busy += s + d - max(s, end)
+            end = s + d
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    return {"file": files[0], "events": len(events),
+            "kernel_launches": len(kernels), "window_us": t1 - t0,
+            "kernel_us": busy, "busy_share": busy / (t1 - t0),
+            "top_kernels": [{"name": n, "launches": c, "total_us": t,
+                             "mean_us": t / c} for n, (c, t) in top],
+            "by_name": by_name}
+
+
+def phase_profile(torch, bp, dev, tmp):
+    """Phase 19: phase 4's bench cell (the ballistic main path, the dense
+    pair, full width) for PROFILE_STEPS L-BFGS steps through optimize()
+    with `profile` true, and the same run without it. The trace's ten
+    CUDA kernels with the most device time and their launches, the
+    device's busy share over the profiled window; fails unless the trace
+    holds every bp_bwd launch the wrapper counted and the bp_fwd launches
+    (all but the final render's, which follows the window), and unless
+    the loss history, the patterns and final.npy are bitwise the
+    unprofiled run's."""
+    runs = {}
+    for prof in (False, True):
+        cfg = bench_config(tmp, "cylindrical")
+        cfg.update(n_steps=PROFILE_STEPS, profile=prof)
+        cfg["output"] = os.path.join(tmp, f"profile_{int(prof)}")
+        bp.reset_launches()
+        _, timings, wall, _ = optimize_on_card(torch, dev, cfg)
+        runs[prof] = (cfg["output"], dict(bp.launches), timings, wall)
+    out0, out1 = runs[False][0], runs[True][0]
+    for f in ("loss.npy", "final.npy"):
+        if not np.array_equal(np.load(os.path.join(out0, f)),
+                              np.load(os.path.join(out1, f))):
+            raise AssertionError(f"profile: {f} differs from the unprofiled "
+                                 "run's")
+    for f in ("patterns.npz",):
+        a, b = (np.load(os.path.join(o, f)) for o in (out0, out1))
+        if any(not np.array_equal(a[k], b[k]) for k in a.files):
+            raise AssertionError(f"profile: {f} differs")
+    summ = trace_summary(os.path.join(out1, "trace"))
+    counted = runs[True][1]
+    traced = {"bp_fwd": 0, "bp_bwd": 0}
+    for name, (c, _) in summ["by_name"].items():
+        for key, stem in (("bp_fwd", "fwd_kernel"), ("bp_bwd", "bwd_kernel")):
+            if stem in name:
+                traced[key] += c
+    # the window is the loop's: every adjoint, every forward but the
+    # final render's
+    if not (traced["bp_bwd"] == counted["bp_bwd"] and
+            1 <= traced["bp_fwd"] <= counted["bp_fwd"]):
+        raise AssertionError(f"profile: the trace holds {traced} launches, "
+                             f"the wrappers counted {counted} over the run")
+    del summ["by_name"]
+    rec = {"phase": "profile", "steps": PROFILE_STEPS,
+           "trace_dir": os.path.join(out1, "trace"), **summ,
+           "traced_launches": traced, "counted_launches": {
+               k: v for k, v in counted.items() if v},
+           "loop_s": {"profiled": runs[True][2]["loop_s"],
+                      "unprofiled": runs[False][2]["loop_s"]},
+           "wall_s": {"profiled": runs[True][3],
+                      "unprofiled": runs[False][3]},
+           "bitwise_unprofiled": ["loss.npy", "final.npy", "patterns.npz"]}
+    emit(rec)
+    return rec
+
+
 class Laps:
     """The seconds of the script's phases: each lap from the end of the
     one before, the first from the script's start (its imports and the
@@ -5876,6 +6263,15 @@ def main():
         torch.cuda.empty_cache()
         phase_multi_gpu(torch, tmp)
         laps.lap("16 multi-GPU")
+        # the residual without a chord bank (phase 18)
+        torch.cuda.empty_cache()
+        pro = phase_prologue(torch, wf, dev, tmp)
+        torch.cuda.empty_cache()
+        laps.lap("18 prologue")
+        # `profile` on the ballistic main path (phase 19)
+        phase_profile(torch, bp, dev, tmp)
+        torch.cuda.empty_cache()
+        laps.lap("19 profile")
     emit(laps.record())
 
     emit({"kernels": [
@@ -5971,7 +6367,8 @@ def main():
                           for c, r in cullk.items() if r["name"] == n}}
         for n in wf.CULL_KERNELS] + target_entries(cells) +
         custom_entries(cell_c) + medium_entries(med_kern, med_cell, cell_c)
-        + point_entries(cells["b"], cell_d, cli_ratio)})
+        + point_entries(cells["b"], cell_d, cli_ratio)
+        + prologue_entries(pro)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

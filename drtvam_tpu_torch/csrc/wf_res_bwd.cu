@@ -12,9 +12,10 @@
 #include "wf_residual.cuh"
 
 // P, M, tris, mask, active_pixels, order, starts, chords, chord_tab as
-// for wf_res_fwd; dL (n_cells,) loss gradient of the flat accumulator;
-// grad (n_active,) output; counters (5,) or null. Returns
-// cudaGetLastError().
+// for wf_res_fwd (chords null in a first-scatter mode: the geometric
+// prologue); dL (n_cells,) loss gradient of the flat accumulator; grad
+// (n_active,) output; counters (8,), (9,) with the prologue's, or null.
+// Returns cudaGetLastError().
 extern "C" int wf_res_bwd(const WfParams* P, const wf::WfMesh* M,
                           const float4* tris, const unsigned char* mask,
                           const float* dL, const int* active_pixels,
@@ -28,7 +29,8 @@ extern "C" int wf_res_bwd(const WfParams* P, const wf::WfMesh* M,
   return wf::res_launch<false, false>(P, a, P->resy * P->n_groups, stream);
 }
 
-// The launch shape of P's instantiation (wf::info): 8 ints into info.
-extern "C" int wf_res_bwd_info(const WfParams* P, int count, int* info) {
-  return wf::res_info<false, false>(P, count, info);
+// The launch shape of P's instantiation (flags: bit 0 the counting one,
+// bit 1 the prologue's; wf::info): 8 ints into info.
+extern "C" int wf_res_bwd_info(const WfParams* P, int flags, int* info) {
+  return wf::res_info<false, false>(P, flags, info);
 }

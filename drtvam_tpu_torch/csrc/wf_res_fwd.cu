@@ -3,8 +3,8 @@
 //
 // Replaces the primal of drtvam_tpu/ops/march.py:913 trace_wavefront in
 // its residual modes (XLA: scattered_only :1064-1066, the chord-bank
-// first scatter :328-420 with :966-1002, the fast convex event loop
-// :433-549). The kernels are wf_residual.cuh's: one lane a thread, one CTA
+// first scatter :328-420 with :966-1002, the geometric prologue in its
+// place without a bank :198-325, the fast convex event loop :433-549). The kernels are wf_residual.cuh's: one lane a thread, one CTA
 // per DMD row and angle group, no home-slice tile (a deposit follows a
 // scatter into any direction, so it is one float atomicAdd into acc); the
 // dda modes in two passes, the lanes' paths (wf_res_path) and then the
@@ -27,8 +27,11 @@
 // data (n_active,) pattern values; active_pixels, order, starts as for
 // wf_fwd; chords (A * resx, 12) the chord bank and chord_tab (A * resx,
 // 4) its table (wf_res_chords; both unused, may be null, for SCAT_ONLY;
-// chord_tab null: each lane computes its entry); acc (n_cells,) zeroed;
-// counters (5,) as for wf_fwd, or null. Returns cudaGetLastError().
+// chord_tab null: each lane computes its entry; chords null in a
+// first-scatter mode: each lane marches to its chord, the geometric
+// prologue); acc (n_cells,) zeroed; counters (8,) as for wf_fwd, (9,)
+// with the prologue's iterations last, or null. Returns
+// cudaGetLastError().
 extern "C" int wf_res_fwd(const WfParams* P, const wf::WfMesh* M,
                           const float4* tris, const unsigned char* mask,
                           const float* data, const int* active_pixels,
@@ -47,7 +50,8 @@ extern "C" int wf_res_fwd(const WfParams* P, const wf::WfMesh* M,
 // becomes a record (8 floats) in recs at the next slot of *n_recs
 // (zeroed by the caller); slots from cap on are counted, not written.
 // counters (8,): the bounce iterations and the target's grid cells,
-// triangles and walks, and slots (2,): the lane slots of the bounce
+// triangles and walks ((9,) without a chord bank: the prologue's
+// iterations last), and slots (2,): the lane slots of the bounce
 // iterations and of the triangle tests; or null.
 extern "C" int wf_res_path(const WfParams* P, const wf::WfMesh* M,
                            const float4* tris, const unsigned char* mask,
@@ -86,11 +90,12 @@ extern "C" int wf_res_chords(const float* bank, int n, float st,
 }
 
 // The launch shape of P's per-lane instantiation (the dda: its path
-// pass), and of the walk pass (two: its two-channel instantiation): 8
-// ints into info (wf::info's).
-extern "C" int wf_res_fwd_info(const WfParams* P, int count, int* info) {
-  return P->estimator == wf::DDA ? wf::res_info<true, true>(P, count, info)
-                                 : wf::res_info<true, false>(P, count, info);
+// pass; flags: bit 0 the counting one, bit 1 the prologue's), and of the
+// walk pass (two: its two-channel instantiation): 8 ints into info
+// (wf::info's).
+extern "C" int wf_res_fwd_info(const WfParams* P, int flags, int* info) {
+  return P->estimator == wf::DDA ? wf::res_info<true, true>(P, flags, info)
+                                 : wf::res_info<true, false>(P, flags, info);
 }
 extern "C" int wf_res_walk_info(int count, int two, int* info) {
   return wf::walk_info(count, two, info);

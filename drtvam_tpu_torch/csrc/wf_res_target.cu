@@ -4,7 +4,8 @@
 //
 // Replaces the primal of drtvam_tpu/ops/march.py:913 trace_wavefront in
 // its residual modes for a scene that keeps the target mesh (the first
-// scatter :328, :966-1002; intersect_scene's MESH branch :151-190; the
+// scatter :328, :966-1002, or without a chord bank the geometric prologue
+// :198-325; intersect_scene's MESH branch :151-190; the
 // two-channel segments :405-417; dda_segment :586 as records; XLA). Its
 // records are the one-pass path pass's (wf_res_path), in another order;
 // wf_res_walk walks them.
@@ -23,7 +24,8 @@ extern "C" int wf_res_tgt_runs(const WfParams* P, int* runs) {
 // The path pass over CTAs [c0, c1) of the launch order, arguments as
 // wf_res_path's (wf_res_fwd.cu): each dda segment a record in recs at the
 // next slot of *n_recs (zeroed by the caller; slots from cap on counted,
-// not written); counters (8,) and slots (2,) or null; the banks staged
+// not written); counters (8,) ((9,) without a chord bank: the
+// prologue's iterations last) and slots (2,) or null; the banks staged
 // where they fit smem_limit bytes and a CTA's share of the SM, else read
 // from global memory. Returns cudaGetLastError().
 extern "C" int wf_res_tgt_path(const WfParams* P, const wf::WfMesh* M,
@@ -43,9 +45,9 @@ extern "C" int wf_res_tgt_path(const WfParams* P, const wf::WfMesh* M,
   return wf::res_tgt_launch(P, a, c1, smem_limit, stream);
 }
 
-// The launch shape of P's instantiation at smem_limit: 8 ints into info
-// (wf::info's).
+// The launch shape of P's instantiation at smem_limit (flags: bit 0 the
+// counting one, bit 1 the prologue's): 8 ints into info (wf::info's).
 extern "C" int wf_res_tgt_info(const WfParams* P, const wf::WfMesh* M,
-                               int count, int smem_limit, int* info) {
-  return wf::res_tgt_info(P, M, count, smem_limit, info);
+                               int flags, int smem_limit, int* info) {
+  return wf::res_tgt_info(P, M, flags, smem_limit, info);
 }

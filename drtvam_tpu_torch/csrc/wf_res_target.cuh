@@ -44,6 +44,11 @@
 //     the walk's triangle is the first hit at that t in cell then list
 //     order (grid_walk_cells): the walk's cells, stop rule, t, triangle
 //     and counts are one thread's walk's;
+//   * without a chord bank (res_tgt_prologue_kernel) a lane's start marches
+//     it to its chord (wf_trace.cuh chord_march), the target's mesh
+//     intersected by the thread alone: the start is a divergent section
+//     of the refill, and the prologue a lane's fixed cost before its
+//     bounces;
 //   * each lane keeps its own random stream (its lane id), so each record
 //     (o, d, maxt, base; PathSink's, the channel in the sign of maxt on a
 //     two-channel film) is the one-pass instantiation's: the set of
@@ -102,9 +107,10 @@ struct LaneState {
 };
 
 // The lane's ray (models/projector.py sample_rays) and, FIRST_SCATTER,
-// its forced first scatter; false when it finds no mass. Arguments as
-// trace_lane's
-template <int RES, class SinkT>
+// its forced first scatter (GEO: from the geometric prologue, the lane's
+// own march, the target's mesh intersected by the thread alone); false
+// when it finds no mass. Arguments as trace_lane's
+template <int RES, bool GEO, class SinkT>
 __device__ __forceinline__ bool res_lane_start(
     const WfParams& P, const Grid& G, uint32_t lane, int aidx, float em,
     SinkT& S, const float* __restrict__ chords, const LaneSetup& su,
@@ -163,7 +169,11 @@ __device__ __forceinline__ bool res_lane_start(
     // pre-scatter attenuation and the event's albedo are in A
     float M;
     bool alive;
-    if (su.chord != nullptr) {
+    if constexpr (GEO) {
+      Chord3 c;
+      chord_march<true>(P, S, o, d, c);
+      alive = first_scatter3(P, rng, c, o, d, M);
+    } else if (su.chord != nullptr) {
       alive = first_scatter(P, rng, su.chord, o, d, M);
     } else {
       float4 e[4];
@@ -283,8 +293,8 @@ using RtpSink = PathSink<COUNT, true, STAGED>;
 // Lane i of CTA C (i < 32 task_count: res_task's task i / 32, thread
 // i % 32) started into L: false when the position lies past the CTA's
 // range, its pixel is 0 (no deposit) or its first scatter finds no
-// mass
-template <int RES, class SinkT>
+// mass (GEO: the prologue's first scatter)
+template <int RES, bool GEO = false, class SinkT>
 __device__ __forceinline__ bool res_path_start(
     const WfParams& P, const Grid& G, const ResCta& C, const Frame* frames,
     unsigned i, const float* in, const int* ap, const int* order,
@@ -297,9 +307,9 @@ __device__ __forceinline__ bool res_path_start(
   if (aidx < 0) return false;
   const float em = in[aidx] * P.ray_w;
   if (em == 0.0f) return false;
-  return res_lane_start<RES>(P, G,
-                             (uint32_t)aidx * (uint32_t)P.spp + (uint32_t)k0,
-                             aidx, em, S, chords, su, L);
+  return res_lane_start<RES, GEO>(
+      P, G, (uint32_t)aidx * (uint32_t)P.spp + (uint32_t)k0, aidx, em, S,
+      chords, su, L);
 }
 
 // intersect_scene with the target's mesh walked by the warp: every thread
@@ -404,12 +414,15 @@ __device__ __forceinline__ bool res_path_turn(const WfParams& P,
 // The path pass over CTAs [A.c0, A.c0 + gridDim.x) of the launch order,
 // the banks staged in dynamic shared memory (STAGED) or read from global
 // memory. COUNT: the bounce iterations, the target's grid cells,
-// triangles and walks (counters), and the lane slots of the bounces (32
-// for each turn of a warp's loop with a lane) and of the triangle tests
-// (32 for each of the warp's test rounds) into A.slots
-template <int RES, bool COUNT, bool STAGED>
-__global__ void __launch_bounds__(WF_RTP_THREADS, WF_RTP_MIN_CTAS)
-    res_tgt_path_kernel(const WfParams P, const __grid_constant__ ResArgs A) {
+// triangles and walks (counters; GEO: the prologue's iterations after
+// them), and the lane slots of the bounces (32 for each turn of a warp's
+// loop with a lane) and of the triangle tests (32 for each of the warp's
+// test rounds) into A.slots. GEO: the first scatter from the geometric
+// prologue (no chord bank). The body of res_tgt_path_kernel and
+// res_tgt_prologue_kernel
+template <int RES, bool COUNT, bool STAGED, bool GEO>
+__device__ __forceinline__ void res_tgt_path_body(const WfParams& P,
+                                                  const ResArgs& A) {
   constexpr unsigned FULL = 0xffffffffu;
   extern __shared__ float4 bank_smem[];
   __shared__ Frame frames[WF_RES_MAX_GROUP];
@@ -463,9 +476,9 @@ __global__ void __launch_bounds__(WF_RTP_THREADS, WF_RTP_MIN_CTAS)
       }
       const unsigned rank = __popc(need & below);
       if (!busy && rank < end - cur)
-        busy = res_path_start<RES>(P, G, C, frames, cur + rank, A.in,
-                                   A.active_pixels, A.order, A.chords,
-                                   A.chord_tab, S, L);
+        busy = res_path_start<RES, GEO>(P, G, C, frames, cur + rank, A.in,
+                                        A.active_pixels, A.order, A.chords,
+                                        A.chord_tab, S, L);
       const unsigned took = (unsigned)__popc(need);
       cur = end - cur < took ? end : cur + took;
     }
@@ -484,19 +497,38 @@ __global__ void __launch_bounds__(WF_RTP_THREADS, WF_RTP_MIN_CTAS)
       atomicAdd(A.slots, it_slots);
       atomicAdd(A.slots + 1, tri_slots);
     }
+    if constexpr (GEO) add_prologue_count(S.pro_iters, lane, A.counters);
   }
+}
+
+// the form with the chord bank (or without a first scatter)
+template <int RES, bool COUNT, bool STAGED>
+__global__ void __launch_bounds__(WF_RTP_THREADS, WF_RTP_MIN_CTAS)
+    res_tgt_path_kernel(const WfParams P, const __grid_constant__ ResArgs A) {
+  res_tgt_path_body<RES, COUNT, STAGED, false>(P, A);
+}
+
+// the first-scatter form with the geometric prologue in place of the bank
+template <bool COUNT, bool STAGED>
+__global__ void __launch_bounds__(WF_RTP_THREADS, WF_RTP_MIN_CTAS)
+    res_tgt_prologue_kernel(const WfParams P,
+                            const __grid_constant__ ResArgs A) {
+  res_tgt_path_body<FIRST_SCATTER, COUNT, STAGED, true>(P, A);
 }
 
 using RtpFn = void (*)(const WfParams, const ResArgs);
 
 // the form's instantiation for P: the dda's first-scatter and
 // scattered-only residuals of a scene that keeps the target and transmits
-// only; nullptr for any other P
+// only (geo: the first scatter from the prologue, no chord bank); nullptr
+// for any other P
 template <bool COUNT, bool STAGED>
-RtpFn res_tgt_pick(const WfParams& P) {
+RtpFn res_tgt_pick(const WfParams& P, bool geo = false) {
   if (!P.target || P.estimator != DDA || !P.has_scattering ||
       !P.transmission_only)
     return nullptr;
+  if (P.residual == FIRST_SCATTER && geo)
+    return res_tgt_prologue_kernel<COUNT, STAGED>;
   if (P.residual == FIRST_SCATTER)
     return res_tgt_path_kernel<FIRST_SCATTER, COUNT, STAGED>;
   if (P.residual == SCAT_ONLY)
@@ -504,14 +536,16 @@ RtpFn res_tgt_pick(const WfParams& P) {
   return nullptr;
 }
 
-// the instantiation k of a launch for P (count: the counting one) and its
-// dynamic shared memory: the banks staged where they fit limit bytes and
-// a CTA's share of the SM (stage_shape, the limit raised to them), else
-// read from global memory (smem 0). k nullptr: the form has none for P
+// the instantiation k of a launch for P (count: the counting one; geo:
+// the prologue's) and its dynamic shared memory: the banks staged where
+// they fit limit bytes and a CTA's share of the SM (stage_shape, the
+// limit raised to them), else read from global memory (smem 0). k
+// nullptr: the form has none for P
 inline cudaError_t res_tgt_shape(const WfParams& P, const WfMesh& M,
-                                 bool count, int limit, RtpFn& k,
+                                 bool count, bool geo, int limit, RtpFn& k,
                                  size_t& smem) {
-  k = count ? res_tgt_pick<true, true>(P) : res_tgt_pick<false, true>(P);
+  k = count ? res_tgt_pick<true, true>(P, geo)
+            : res_tgt_pick<false, true>(P, geo);
   smem = 0;
   if (k == nullptr) return cudaSuccess;
   bool fits = false;
@@ -522,14 +556,16 @@ inline cudaError_t res_tgt_shape(const WfParams& P, const WfMesh& M,
     if (e != cudaSuccess) return e;
   }
   if (!fits) {
-    k = count ? res_tgt_pick<true, false>(P) : res_tgt_pick<false, false>(P);
+    k = count ? res_tgt_pick<true, false>(P, geo)
+              : res_tgt_pick<false, false>(P, geo);
     smem = 0;
   }
   return cudaSuccess;
 }
 
 // The path pass over CTAs [A.c0, c1), the banks staged where they fit
-// limit bytes
+// limit bytes; a first scatter without a chord bank (chords null) runs
+// the prologue's instantiation
 inline int res_tgt_launch(const WfParams* p, const ResArgs& A, int c1,
                           int limit, void* stream) {
   WfParams P = *p;
@@ -538,14 +574,14 @@ inline int res_tgt_launch(const WfParams* p, const ResArgs& A, int c1,
   if (P.n_surf > WF_MAX_SURF || P.n_groups <= 0 || P.group <= 0 ||
       P.group > WF_RES_MAX_GROUP || A.c0 < 0 || c1 > P.resy * P.n_groups ||
       (!P.identity && (A.order == nullptr || A.starts == nullptr)) ||
-      (P.residual == FIRST_SCATTER && A.chords == nullptr) ||
       A.recs == nullptr || A.n_recs == nullptr || A.tris == nullptr ||
       (P.target == 2 && P.residual == FIRST_SCATTER && A.mask == nullptr))
     return (int)cudaErrorInvalidValue;
   RtpFn k;
   size_t smem;
-  const cudaError_t e =
-      res_tgt_shape(P, A.mesh, A.counters != nullptr, limit, k, smem);
+  const cudaError_t e = res_tgt_shape(
+      P, A.mesh, A.counters != nullptr,
+      P.residual == FIRST_SCATTER && A.chords == nullptr, limit, k, smem);
   if (e != cudaSuccess) return (int)e;
   if (k == nullptr) return (int)cudaErrorInvalidValue;
   k<<<(unsigned)(c1 - A.c0), WF_RTP_THREADS, smem, (cudaStream_t)stream>>>(
@@ -553,16 +589,18 @@ inline int res_tgt_launch(const WfParams* p, const ResArgs& A, int c1,
   return (int)cudaGetLastError();
 }
 
-// The launch shape of P's instantiation at limit (count: the counting
-// one), 8 ints as wf::info's (the staged banks' bytes as the dynamic
-// shared memory, 0 with the banks in global memory; tile voxels 0)
-inline int res_tgt_info(const WfParams* p, const WfMesh* M, int count,
+// The launch shape of P's instantiation at limit (flags: bit 0 the
+// counting one, bit 1 the prologue's), 8 ints as wf::info's (the staged
+// banks' bytes as the dynamic shared memory, 0 with the banks in global
+// memory; tile voxels 0)
+inline int res_tgt_info(const WfParams* p, const WfMesh* M, int flags,
                         int limit, int* out) {
   RtpFn k;
   size_t smem;
   cudaFuncAttributes fa;
   int per_sm = 0;
-  cudaError_t e = res_tgt_shape(*p, *M, count != 0, limit, k, smem);
+  cudaError_t e = res_tgt_shape(*p, *M, (flags & 1) != 0, (flags & 2) != 0,
+                                limit, k, smem);
   if (e == cudaSuccess && k == nullptr) e = cudaErrorInvalidValue;
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, (const void*)k);
   if (e == cudaSuccess)

@@ -17,7 +17,13 @@
 // holds, computed once per engine on the card (chord_entry, the lane's
 // own operations) and read as three 16-byte loads; the lane's angle and
 // column come from the launch order with multiply-high divisions by the
-// launch's sizes (FastDiv), not integer divides.
+// launch's sizes (FastDiv), not integer divides. A first-scatter launch
+// without a chord bank (chords null) runs the prologue's instantiations
+// (res_prologue_kernel, a template flag, so the bank's instantiations
+// compile as before): each lane marches from its ray to its 3D chord
+// (wf_trace.cuh chord_march, ~5 surface intersections a lane in an
+// analytic vial) and samples its first scatter there (first_scatter3);
+// the rest of the lane is the bank form's.
 //
 // The dda residual forward in two passes. In a dda residual a lane's path
 // does not depend on its deposits: the walk of a segment is a side effect
@@ -227,9 +233,10 @@ __device__ __forceinline__ int res_position(
 // lane t % spp of the pixel at position lo + 32 (t / spp) + l, the
 // adjoint all the lanes of the pixel at lo + 32 t + l, summed in lane
 // order. frames: the CTA's angles' frames; chord_tab the chord table
-// (null: each lane computes its entry from the chord bank `chords`).
+// (null: each lane computes its entry from the chord bank `chords`);
+// GEO: no bank, each lane marches to its chord (the geometric prologue).
 // Returns the pixel's active index, or -1 for none
-template <int EST, int RES, class SinkT>
+template <int EST, int RES, bool GEO = false, class SinkT>
 __device__ __forceinline__ int res_task(
     const WfParams& P, const Grid& G, const ResCta& C, const Frame* frames,
     int t, int l, const float* in, const int* ap, const int* order,
@@ -256,15 +263,15 @@ __device__ __forceinline__ int res_task(
     // em = pattern value x ray weight; a pixel at 0 deposits only zeros
     const float em = in[aidx] * P.ray_w;
     if (em != 0.0f)
-      trace_lane<EST, true, true, RES>(P, G, lane0 + (uint32_t)k0, aidx, ap,
-                                       em, S, chords, &su);
+      trace_lane<EST, true, true, RES, GEO>(P, G, lane0 + (uint32_t)k0, aidx,
+                                            ap, em, S, chords, &su);
     return aidx;
   }
   float gsum = 0.0f;
   for (int k = 0; k < P.spp; ++k) {
     S.g = 0.0f;
-    trace_lane<EST, true, true, RES>(P, G, lane0 + (uint32_t)k, aidx, ap,
-                                     1.0f, S, chords, &su);
+    trace_lane<EST, true, true, RES, GEO>(P, G, lane0 + (uint32_t)k, aidx,
+                                          ap, 1.0f, S, chords, &su);
     gsum = k == 0 ? S.g : gsum + S.g;
   }
   out[aidx] = gsum * P.ray_w;
@@ -337,11 +344,15 @@ __device__ __forceinline__ auto res_sink(const WfParams& P,
 // 32 neighbouring positions at a time from a counter in shared memory
 // (wf_kernel's order, without the tile); PATH: the dda forward's path
 // pass. COUNT: iterations, steps, deposits and lane slots as wf_kernel,
-// a delta lane's slots counted on its events. TGT: the scene keeps the
-// target (its mesh and, on a two-channel film, the inside mask in A)
-template <int EST, int RES, bool PRIMAL, bool COUNT, bool PATH, bool TGT>
-__global__ void __launch_bounds__(WF_RES_THREADS, WF_RES_MIN_CTAS)
-    res_kernel(const WfParams P, const __grid_constant__ ResArgs A) {
+// a delta lane's slots counted on its events, and with GEO the
+// prologue's iterations after them. TGT: the scene keeps the target (its
+// mesh and, on a two-channel film, the inside mask in A). GEO: the
+// first scatter from the geometric prologue (no chord bank). The body of
+// res_kernel and res_prologue_kernel
+template <int EST, int RES, bool PRIMAL, bool COUNT, bool PATH, bool TGT,
+          bool GEO>
+__device__ __forceinline__ void res_cta_body(const WfParams& P,
+                                             const ResArgs& A) {
   __shared__ Frame frames[WF_RES_MAX_GROUP];
   __shared__ unsigned next_task;
   const ResCta C = res_cta(P, A.starts, A.c0 + (int)blockIdx.x);
@@ -366,8 +377,9 @@ __global__ void __launch_bounds__(WF_RES_THREADS, WF_RES_MIN_CTAS)
     // effect) or its estimator steps (dda, ratio)
     const unsigned long long s0 = EST == DELTA ? S.iters : S.steps;
     const unsigned long long i0 = S.iters, t0 = S.mc.tris;
-    res_task<EST, RES>(P, G, C, frames, (int)t, lane, A.in, A.active_pixels,
-                       A.order, A.chords, A.chord_tab, A.out, S);
+    res_task<EST, RES, GEO>(P, G, C, frames, (int)t, lane, A.in,
+                            A.active_pixels, A.order, A.chords, A.chord_tab,
+                            A.out, S);
     if (COUNT) {
       // a warp spends 32 lane slots on each unit of its longest lane's work
       const unsigned long long d =
@@ -394,7 +406,22 @@ __global__ void __launch_bounds__(WF_RES_THREADS, WF_RES_MIN_CTAS)
       atomicAdd(A.slots, it_slots);
       atomicAdd(A.slots + 1, tri_slots);
     }
+    if constexpr (GEO) add_prologue_count(S.pro_iters, lane, A.counters);
   }
+}
+
+// the residual kernel with the chord bank (or without a first scatter)
+template <int EST, int RES, bool PRIMAL, bool COUNT, bool PATH, bool TGT>
+__global__ void __launch_bounds__(WF_RES_THREADS, WF_RES_MIN_CTAS)
+    res_kernel(const WfParams P, const __grid_constant__ ResArgs A) {
+  res_cta_body<EST, RES, PRIMAL, COUNT, PATH, TGT, false>(P, A);
+}
+
+// the same with the geometric prologue in place of the chord bank
+template <int EST, int RES, bool PRIMAL, bool COUNT, bool PATH, bool TGT>
+__global__ void __launch_bounds__(WF_RES_THREADS, WF_RES_MIN_CTAS)
+    res_prologue_kernel(const WfParams P, const __grid_constant__ ResArgs A) {
+  res_cta_body<EST, RES, PRIMAL, COUNT, PATH, TGT, true>(P, A);
 }
 
 // The walk pass: persistent warps walk records [0, n) in the z-slices
@@ -490,14 +517,22 @@ using ResFn = void (*)(const WfParams, const ResArgs);
 // The instantiation for P (scattering and transmission only) by
 // estimator, residual mode and whether the scene keeps the target: the
 // forward's single pass (ratio, delta), its path pass (PATH: dda) or the
-// adjoint (every estimator); nullptr for a P the kind does not run
-template <bool PRIMAL, bool COUNT, bool PATH, bool TGT>
+// adjoint (every estimator); GEO: the first-scatter modes' prologue
+// instantiation; nullptr for a P the kind does not run
+template <bool PRIMAL, bool COUNT, bool PATH, bool TGT, bool GEO>
 ResFn res_pick(const WfParams& P) {
   if (!P.has_scattering || !P.transmission_only) return nullptr;
   const int key = P.estimator * 4 + P.residual;
-#define WF_RES_CASE(E, R) \
-  case E * 4 + R:         \
-    return res_kernel<E, R, PRIMAL, COUNT, PATH, TGT>;
+  if constexpr (GEO) {
+    if (P.residual != FIRST_SCATTER && P.residual != FAST_RESIDUAL)
+      return nullptr;
+  }
+#define WF_RES_CASE(E, R)                                          \
+  case E * 4 + R:                                                  \
+    if constexpr (GEO && R != SCAT_ONLY)                           \
+      return res_prologue_kernel<E, R, PRIMAL, COUNT, PATH, TGT>;  \
+    else                                                           \
+      return res_kernel<E, R, PRIMAL, COUNT, PATH, TGT>;
   if constexpr (PATH) {
     switch (key) {
       WF_RES_CASE(DDA, SCAT_ONLY)
@@ -528,33 +563,41 @@ ResFn res_pick(const WfParams& P) {
 #undef WF_RES_CASE
 }
 
-template <bool PRIMAL, bool PATH>
-ResFn res_pick_for(const WfParams& P, bool count) {
+template <bool PRIMAL, bool PATH, bool GEO>
+ResFn res_pick_geo(const WfParams& P, bool count) {
   if (P.target)
-    return count ? res_pick<PRIMAL, true, PATH, true>(P)
-                 : res_pick<PRIMAL, false, PATH, true>(P);
-  return count ? res_pick<PRIMAL, true, PATH, false>(P)
-               : res_pick<PRIMAL, false, PATH, false>(P);
+    return count ? res_pick<PRIMAL, true, PATH, true, GEO>(P)
+                 : res_pick<PRIMAL, false, PATH, true, GEO>(P);
+  return count ? res_pick<PRIMAL, true, PATH, false, GEO>(P)
+               : res_pick<PRIMAL, false, PATH, false, GEO>(P);
+}
+
+// the instantiation of a launch of P (count: the counting one; geo: the
+// prologue's, for a first-scatter mode without a chord bank)
+template <bool PRIMAL, bool PATH>
+ResFn res_pick_for(const WfParams& P, bool count, bool geo) {
+  return geo ? res_pick_geo<PRIMAL, PATH, true>(P, count)
+             : res_pick_geo<PRIMAL, PATH, false>(P, count);
 }
 
 // Launch CTAs [A.c0, c1) of the launch order (the adjoint and the single
-// pass: all of them)
+// pass: all of them). A first-scatter mode without a chord bank (chords
+// null) runs the prologue's instantiation
 template <bool PRIMAL, bool PATH>
 int res_launch(const WfParams* p, const ResArgs& A, int c1, void* stream) {
   WfParams P = *p;
   P.tile_n = 0;
   if (P.n_active <= 0 || c1 <= A.c0) return 0;
-  const bool needs_chords =
-      P.residual == FIRST_SCATTER || P.residual == FAST_RESIDUAL;
+  const bool fs = P.residual == FIRST_SCATTER || P.residual == FAST_RESIDUAL;
   if (P.n_surf > WF_MAX_SURF || P.n_groups <= 0 || P.group <= 0 ||
       P.group > WF_RES_MAX_GROUP || A.c0 < 0 || c1 > P.resy * P.n_groups ||
       (!P.identity && (A.order == nullptr || A.starts == nullptr)) ||
-      (needs_chords && A.chords == nullptr) ||
       (PATH && (A.recs == nullptr || A.n_recs == nullptr)) ||
       (P.target && A.tris == nullptr) ||
-      (P.target == 2 && needs_chords && A.mask == nullptr))
+      (P.target == 2 && fs && A.mask == nullptr))
     return (int)cudaErrorInvalidValue;
-  ResFn k = res_pick_for<PRIMAL, PATH>(P, A.counters != nullptr);
+  ResFn k = res_pick_for<PRIMAL, PATH>(P, A.counters != nullptr,
+                                       fs && A.chords == nullptr);
   if (k == nullptr) return (int)cudaErrorInvalidValue;
   k<<<(unsigned)(c1 - A.c0), WF_RES_THREADS, 0, (cudaStream_t)stream>>>(P, A);
   return (int)cudaGetLastError();
@@ -605,11 +648,12 @@ inline void shape_out(int threads, int ctas, const cudaFuncAttributes& fa,
   for (int i = 0; i < 8; ++i) out[i] = v[i];
 }
 
-// The launch shape of P's per-lane instantiation (count: the counting
-// one), 8 ints as wf::info
+// The launch shape of P's per-lane instantiation (flags: bit 0 the
+// counting one, bit 1 the prologue's), 8 ints as wf::info
 template <bool PRIMAL, bool PATH>
-int res_info(const WfParams* p, int count, int* out) {
-  ResFn k = res_pick_for<PRIMAL, PATH>(*p, count != 0);
+int res_info(const WfParams* p, int flags, int* out) {
+  ResFn k = res_pick_for<PRIMAL, PATH>(*p, (flags & 1) != 0,
+                                       (flags & 2) != 0);
   if (k == nullptr) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes fa;
   int per_sm = 0;

@@ -110,8 +110,11 @@
 // SCAT_ONLY the analog paths with every deposit before the first scatter
 // dropped; FIRST_SCATTER starts the lane at its forced first scatter
 // event, sampled on its pixel's in-medium chord (its entry in the chord
-// table, read at the pixel's centre column: chord_entry), then runs the
-// general loop from depth 1; FAST_RESIDUAL (delta, one convex medium
+// table, read at the pixel's centre column: chord_entry; without a chord
+// bank, the GEO instantiations, on the 3D chord the lane's own
+// transmission-only march records: chord_march, the geometric prologue
+// of drtvam_tpu/ops/march.py:198-325), then runs the general loop from
+// depth 1; FAST_RESIDUAL (delta, one convex medium
 // region) starts the same way and then runs max_depth - 1 scatter events
 // against one convex exit distance each (fast_residual). Every mode draws
 // in the plain version's order, so the adjoint replays the forward's
@@ -531,11 +534,14 @@ struct Sink {
   const unsigned char* mask = nullptr;
   MeshCount mc = {0, 0, 0, 0};
   // COUNT: the lane slots the CTA's warps spent (32 a step of a task's
-  // longest lane)
-  unsigned long long slots = 0;
+  // longest lane); the geometric first-scatter prologue's iterations
+  unsigned long long slots = 0, pro_iters = 0;
 
   __device__ __forceinline__ void iter() {
     if (COUNT) ++iters;
+  }
+  __device__ __forceinline__ void pro_iter() {
+    if (COUNT) ++pro_iters;
   }
   __device__ __forceinline__ void step() {
     if (COUNT) ++steps;
@@ -807,29 +813,166 @@ __device__ __forceinline__ void chord_entry(const float* __restrict__ rec,
   e[3] = make_float4(rec[2], rec[3], rec[6], rec[7]);
 }
 
-// The first scatter event on the chord entry e, lifted to 3D at the
-// lane's z = o.z: segment k with probability mass_k / M, then the
-// truncated exponential along it, then the phase sample (draws u1, u2).
-// Sets (o, d) to the post-event ray and M; false when the chord holds no
-// mass (the lane is dead)
-__device__ __forceinline__ bool first_scatter(const WfParams& P, Rng& rng,
-                                              const float4* __restrict__ e,
-                                              V3& o, V3& d, float& M) {
+// The first scatter's segment and distance on a chord of masses m = (m0,
+// m1, M, 0) and lengths L = (L0, L1, exp(-st L0), exp(-st L1)): segment k
+// with probability mass_k / M, then the truncated exponential along it
+// (draw u1). Sets pick1 (segment 1) and t_ev
+__device__ __forceinline__ void chord_event(const WfParams& P, Rng& rng,
+                                            const float4& m, const float4& L,
+                                            bool& pick1, float& t_ev) {
   const float st = P.sigma_t;
-  const float4 m = e[0], L = e[1];
-  M = m.z;
-  if (!(M > 1e-12f)) return false;
+  const float M = m.z;
   const float u1 = rng.next1();
-  const bool pick1 = (u1 * M > m.x) && (L.y > 0.0f);
+  pick1 = (u1 * M > m.x) && (L.y > 0.0f);
   const float L_k = pick1 ? L.y : L.x, m_k = pick1 ? m.y : m.x;
   const float e_k = pick1 ? L.w : L.z;
   const float um = clampf((u1 * M - (pick1 ? m.x : 0.0f)) / mx(m_k, 1e-30f),
                           0.0f, U_MAX);
-  float t_ev = -log1pf(-um * (1.0f - e_k)) / mx(st, 1e-30f);
+  t_ev = -log1pf(-um * (1.0f - e_k)) / mx(st, 1e-30f);
   t_ev = mn(mx(t_ev, 0.0f), L_k);
+}
+
+// The first scatter event on the chord entry e, lifted to 3D at the
+// lane's z = o.z: the segment and distance (chord_event), then the phase
+// sample (draws u1, u2). Sets (o, d) to the post-event ray and M; false
+// when the chord holds no mass (the lane is dead)
+__device__ __forceinline__ bool first_scatter(const WfParams& P, Rng& rng,
+                                              const float4* __restrict__ e,
+                                              V3& o, V3& d, float& M) {
+  const float4 m = e[0], L = e[1];
+  M = m.z;
+  if (!(M > 1e-12f)) return false;
+  bool pick1;
+  float t_ev;
+  chord_event(P, rng, m, L, pick1, t_ev);
   const float4 sg = pick1 ? e[3] : e[2];
   const V3 o_k = {sg.x, sg.y, o.z};
   const V3 d_k = {sg.z, sg.w, 0.0f};
+  o = along(o_k, t_ev, d_k);
+  const float2 u2 = rng.next2();
+  d = sample_phase(P.phase, P.phase_g, d_k, u2.x, u2.y);
+  return true;
+}
+
+// A lane's in-medium chord as the geometric prologue records it: up to K
+// = 2 straight 3D segments (o, d), their masses m and lengths L as
+// chord_event reads them
+struct Chord3 {
+  float4 m, L;
+  V3 o0, d0, o1, d1;
+};
+
+// The geometric first-scatter prologue (drtvam_tpu/ops/march.py:198-325),
+// the chord bank's counterpart for a scene without one: the lane marches
+// from its ray (o, d) through the scene's surfaces (intersect_scene;
+// MESH_ON: the mesh surfaces too, the sink's banks), transmitting only,
+// with no draw and no deposit. A dielectric refracts with weight (1 - F)
+// / eta_rel^2 (0 at TIR), a null surface passes, any other absorbs; a
+// crossing that enters the medium (its medium side, or the target) opens
+// or extends the chord's current segment, a dielectric or a change of
+// medium closes it into slot min(count, 1). The lane ends on a miss, at
+// amplitude 0, or after 2 n_surf + 8 iterations, and an open segment is
+// then closed. Then the masses as chord_entry's: mass_k = amp_k
+// exp(-st tau_k) (1 - exp(-st L_k)), tau_0 = 0. The plain version's
+// operations in its order (ops/march.py _first_scatter_prologue)
+template <bool MESH_ON, class SinkT>
+__device__ __forceinline__ void chord_march(const WfParams& P, SinkT& S,
+                                            V3 o, V3 d, Chord3& c) {
+  float L0 = 0.0f, L1 = 0.0f, amp0 = 0.0f, amp1 = 0.0f;
+  c.o0 = c.d0 = c.o1 = c.d1 = V3{0.0f, 0.0f, 0.0f};
+  V3 cs_o = {0.0f, 0.0f, 0.0f}, cs_d = {0.0f, 0.0f, 0.0f};
+  float cs_L = 0.0f, cs_amp = 0.0f, amp = 1.0f;
+  bool in_medium = false, opened = false;
+  int cnt = 0;
+  // the open segment into slot min(cnt, 1)
+  auto flush = [&]() {
+    if (cnt == 0) {
+      c.o0 = cs_o;
+      c.d0 = cs_d;
+      L0 = cs_L;
+      amp0 = cs_amp;
+    } else {
+      c.o1 = cs_o;
+      c.d1 = cs_d;
+      L1 = cs_L;
+      amp1 = cs_amp;
+    }
+    ++cnt;
+    opened = false;
+  };
+  const int max_iters = 2 * P.n_surf + 8;
+  for (int it = 0; it < max_iters; ++it) {
+    S.pro_iter();
+    V3 n_si;
+    int sid;
+    float t_si;
+    if constexpr (MESH_ON) {
+      t_si = intersect_scene<true, SinkT::COUNT, SinkT::STAGED>(
+          P, o, d, n_si, sid, S.mesh, &S.banks, &S.mc);
+    } else {
+      t_si = intersect_scene(P, o, d, n_si, sid);
+    }
+    if (!isfinite(t_si)) break;
+    const bool hit_target = P.surf_is_target[sid] != 0;
+    if (in_medium) {
+      // open a segment at the start of an in-medium stretch
+      if (!opened) {
+        cs_o = o;
+        cs_d = d;
+        cs_amp = amp;
+        cs_L = 0.0f;
+        opened = true;
+      }
+      cs_L = cs_L + t_si;
+    }
+    const int kind = P.surf_bsdf[sid];
+    const bool is_diel = kind == DIELECTRIC;
+    float w = kind == NULL_BSDF ? 1.0f : 0.0f;
+    V3 d_new = d;
+    if (is_diel) {
+      V3 d_t, d_r;
+      float F, eta_rel;
+      bool tir;
+      refract(d, n_si, P.surf_eta[sid], d_t, d_r, F, tir, eta_rel);
+      w = tir ? 0.0f : (1.0f - F) / (eta_rel * eta_rel);
+      d_new = d_t;
+    }
+    o = along(o, t_si, d);
+    d = d_new;
+    amp = amp * w;
+    const int ms = P.surf_medium_side[sid];
+    const float dn = dot3(d, n_si);
+    const bool enters = (ms == 1 && dn < 0.0f) || (ms == 2 && dn > 0.0f);
+    const bool in_med_next = hit_target || enters;
+    // the stretch ends where the direction or the medium changes; a null
+    // or target crossing that stays in the medium extends it
+    if (opened && in_medium && (is_diel || !in_med_next)) flush();
+    in_medium = in_med_next;
+    if (!(amp > 0.0f)) break;
+  }
+  if (opened) flush();  // the iteration cap's flush
+  const float st = P.sigma_t;
+  const float e0 = expf(-st * L0), e1 = expf(-st * L1);
+  const float m0 = amp0 * (1.0f - e0);
+  const float m1 = amp1 * e0 * (1.0f - e1);
+  c.m = make_float4(m0, m1, m0 + m1, 0.0f);
+  c.L = make_float4(L0, L1, e0, e1);
+}
+
+// The first scatter event on the prologue's chord c (3D segments: a
+// segment keeps its own direction, d.z != 0 under a non-collimated
+// projector): first_scatter's draws and arithmetic on them. Sets (o, d)
+// to the post-event ray and M; false when the chord holds no mass
+__device__ __forceinline__ bool first_scatter3(const WfParams& P, Rng& rng,
+                                               const Chord3& c, V3& o, V3& d,
+                                               float& M) {
+  M = c.m.z;
+  if (!(M > 1e-12f)) return false;
+  bool pick1;
+  float t_ev;
+  chord_event(P, rng, c.m, c.L, pick1, t_ev);
+  const V3 o_k = pick1 ? c.o1 : c.o0;
+  const V3 d_k = pick1 ? c.d1 : c.d0;
   o = along(o_k, t_ev, d_k);
   const float2 u2 = rng.next2();
   d = sample_phase(P.phase, P.phase_g, d_k, u2.x, u2.y);
@@ -960,9 +1103,12 @@ struct LaneSetup {
 };
 
 // RES: the residual mode; chords: the chord bank (FIRST_SCATTER,
-// FAST_RESIDUAL), (A * resx, 12) floats; su: the residual kernels' set-up
-// (null: the lane derives its indices, frame and chord entry itself)
-template <int EST, bool SCAT, bool TONLY, int RES = ANALOG, class SinkT>
+// FAST_RESIDUAL), (A * resx, 12) floats; GEO: those modes without a bank,
+// each lane marching to its chord (chord_march); su: the residual
+// kernels' set-up (null: the lane derives its indices, frame and chord
+// entry itself)
+template <int EST, bool SCAT, bool TONLY, int RES = ANALOG, bool GEO = false,
+          class SinkT>
 __device__ void trace_lane(const WfParams& P, const Grid& G, uint32_t lane,
                            int aidx, const int* __restrict__ active_pixels,
                            float em, SinkT& S,
@@ -1052,7 +1198,11 @@ __device__ void trace_lane(const WfParams& P, const Grid& G, uint32_t lane,
     // pre-scatter attenuation and the event's albedo are in A
     float M;
     bool alive;
-    if (su != nullptr && su->chord != nullptr) {
+    if constexpr (GEO) {
+      Chord3 c;
+      chord_march<SinkT::TGT>(P, S, o, d, c);
+      alive = first_scatter3(P, rng, c, o, d, M);
+    } else if (su != nullptr && su->chord != nullptr) {
       alive = first_scatter(P, rng, su->chord, o, d, M);
     } else {
       float4 e[4];
@@ -1388,6 +1538,16 @@ __device__ __forceinline__ void add_counters(
       c[k] += __shfl_down_sync(0xffffffffu, c[k], off);
     if (lane == 0 && c[k] != 0) atomicAdd(out + k, c[k]);
   }
+}
+
+// the geometric prologue's iterations c (the instantiations without a
+// chord bank): each warp's sum added with one atomic into
+// out[WF_N_COUNTERS], after the COUNTERS
+__device__ __forceinline__ void add_prologue_count(
+    unsigned long long c, int lane, unsigned long long* __restrict__ out) {
+  for (int off = 16; off > 0; off >>= 1)
+    c += __shfl_down_sync(0xffffffffu, c, off);
+  if (lane == 0 && c != 0) atomicAdd(out + WF_N_COUNTERS, c);
 }
 
 // Sink's task hooks (declared with it): the task counter published, the

@@ -38,8 +38,10 @@ package (drtvam_tpu/ops/march.py:107-144):
   * `first_scatter` (with scattered_only, scattering and transmission
     only): every lane starts at its forced first scatter event, sampled
     on its pixel's in-medium chord from the chord bank
-    (`chord_pack`, ops/transport2d.py), with weight albedo * M, n_scat
-    1 and depth 1, then runs the general loop;
+    (`chord_pack`, ops/transport2d.py) or, without one, on the chord
+    the lane's own transmission-only march records (the geometric
+    prologue, drtvam_tpu/ops/march.py:198-325), with weight albedo * M,
+    n_scat 1 and depth 1, then runs the general loop;
   * `fast_residual` (first_scatter, delta, one convex analytic medium
     region): the general loop collapses to max_depth - 1 unrolled
     scatter events, each against one convex exit distance; it draws in
@@ -84,9 +86,6 @@ exp(-st t), G = 1 - exp(-st dt)), ratio per tracking step (k, the
 attached, the pdf detached). The n_scat term is dropped where
 sigma_s = 0, as there. A residual mode with medium_grads raises: no
 driver path of the JAX package reaches it (ROADMAP queue 1 item 21).
-
-Not ported: the first-scatter geometric prologue used without a chord
-bank (ROADMAP queue 1 item 20).
 """
 from __future__ import annotations
 
@@ -626,16 +625,107 @@ def _sample_first_scatter(static, arr, sg_o, sg_d, sg_L, sg_amp, sampler,
     return o1, d1, arr["albedo"] * M, inside1, alive, ctr
 
 
+def _first_scatter_prologue(static: MarchStatic, arr, o, d, sampler, lane,
+                            ctr, stats=None):
+    """The forced first scatter without a chord bank
+    (drtvam_tpu/ops/march.py:198-325): each lane marches from its ray
+    through the scene's surfaces, transmitting only, with no draw and no
+    deposit, and records its in-medium chord as up to K = 2 straight 3D
+    segments (origin, direction, length, Fresnel amplitude). A null or
+    target crossing keeps the direction and the amplitude, so it extends
+    the open segment; a dielectric or a change of medium closes it into
+    slot min(count, K - 1). A lane whose amplitude reaches 0 ends; after
+    2 n_surf + 8 iterations an open segment is closed. Then
+    _sample_first_scatter on the 3D segments. stats: counts the lanes'
+    iterations ("prologue_iters") and, on a scene with mesh surfaces,
+    their mesh work (intersect_scene)."""
+    n = o.shape[0]
+    dev = o.device
+    surfaces = static.surfaces
+    bsdf_kind = torch.tensor([s.bsdf for s in surfaces], device=dev)
+    med_side = torch.tensor([s.medium_side for s in surfaces], device=dev)
+    is_target = torch.tensor([s.is_target for s in surfaces], device=dev)
+    K = 2
+    f32 = dict(dtype=torch.float32, device=dev)
+    amp = torch.ones((n,), **f32)
+    in_medium = torch.zeros((n,), dtype=torch.bool, device=dev)
+    active = torch.ones((n,), dtype=torch.bool, device=dev)
+    sg_o = torch.zeros((n, K, 3), **f32)
+    sg_d = torch.zeros((n, K, 3), **f32)
+    sg_L = torch.zeros((n, K), **f32)
+    sg_amp = torch.zeros((n, K), **f32)
+    cnt = torch.zeros((n,), dtype=torch.int64, device=dev)
+    cs_o, cs_d = torch.zeros((n, 3), **f32), torch.zeros((n, 3), **f32)
+    cs_L, cs_amp = torch.zeros((n,), **f32), torch.zeros((n,), **f32)
+    opened = torch.zeros((n,), dtype=torch.bool, device=dev)
+    slots = torch.arange(K, device=dev)[None, :]
+
+    def flush(close):
+        """The open segment into slot min(cnt, K - 1) of the `close`
+        lanes."""
+        nonlocal sg_o, sg_d, sg_L, sg_amp, cnt, opened
+        onehot = (slots == torch.clamp(cnt, max=K - 1)[:, None]) & \
+            close[:, None]
+        sg_o = torch.where(onehot[..., None], cs_o[:, None, :], sg_o)
+        sg_d = torch.where(onehot[..., None], cs_d[:, None, :], sg_d)
+        sg_L = torch.where(onehot, cs_L[:, None], sg_L)
+        sg_amp = torch.where(onehot, cs_amp[:, None], sg_amp)
+        cnt = cnt + close.to(torch.int64)
+        opened = opened & ~close
+
+    for _ in range(2 * len(surfaces) + 8):
+        if not bool(active.any()):
+            break
+        _count(stats, "prologue_iters", active)
+        t_si, n_si, sid, valid = intersect_scene(static, arr, o, d, active,
+                                                 stats)
+        active = active & valid
+        sid0 = torch.clamp(sid, min=0)
+        hit_target = active & is_target[sid0] & (sid >= 0)
+        trav = in_medium & active
+
+        # open a segment at the start of an in-medium stretch
+        newseg = trav & ~opened
+        cs_o = torch.where(newseg[:, None], o, cs_o)
+        cs_d = torch.where(newseg[:, None], d, cs_d)
+        cs_amp = torch.where(newseg, amp, cs_amp)
+        cs_L = torch.where(newseg, torch.zeros_like(cs_L), cs_L)
+        opened = opened | newseg
+        cs_L = torch.where(trav, cs_L + t_si, cs_L)
+
+        # the transmission-only BSDF (the prologue never reflects)
+        kind = bsdf_kind[sid0]
+        d_t, _, F, tir, eta_rel = refract(d, n_si, arr["surf_eta"][sid0])
+        is_diel = kind == DIELECTRIC
+        w = torch.where(is_diel,
+                        torch.where(tir, torch.zeros_like(F),
+                                    (1.0 - F) / (eta_rel * eta_rel)),
+                        torch.where(kind == NULL, 1.0, 0.0).to(F.dtype))
+        d_new = torch.where(is_diel[:, None], d_t, d)
+        o = torch.where(active[:, None], o + t_si[:, None] * d, o)
+        d = torch.where(active[:, None], d_new, d)
+        amp = torch.where(active, amp * w, amp)
+
+        ms = med_side[sid0]
+        dn = dot3(d, n_si)
+        enters = ((ms == 1) & (dn < 0.0)) | ((ms == 2) & (dn > 0.0))
+        in_med_next = active & (hit_target | enters)
+        # the stretch ends where the direction or the medium changes; a
+        # null or target crossing that stays in the medium extends it
+        flush(opened & trav & (is_diel | ~in_med_next))
+        active = active & (amp > 0.0)
+        in_medium = in_med_next
+    flush(opened)  # the iteration cap's flush
+    return _sample_first_scatter(static, arr, sg_o, sg_d, sg_L, sg_amp,
+                                 sampler, lane, ctr)
+
+
 def _first_scatter_from_chords(static: MarchStatic, arr, o, aidx, sampler,
                                lane, ctr):
     """The forced first scatter on the pixel's chord: one (12,) record
     of arr["chord_pack"] per lane, read at the pixel's centre column
     (cid = emitter * U + column), lifted to 3D at the lane's own
     jittered z (drtvam_tpu/ops/march.py:328-370)."""
-    if "chord_pack" not in arr:
-        raise _not_ported(
-            "the first-scatter residual without a chord bank (the "
-            "geometric prologue, drtvam_tpu/ops/march.py:198-325)", 20)
     p = static.projector
     U, h = p.resx, p.resy
     idx = aidx if p.identity else arr["active_pixels"][aidx].to(torch.int64)
@@ -751,8 +841,10 @@ def trace_wavefront(static: MarchStatic, arr, lane, seed, spp, dL_flat=None,
     """Trace the lanes `lane` ((n,) int64 global lane ids, uint32
     values; active index lane // spp).
 
-    arr: the scene's tensors (`scene_tensors`) with "active_data", and
-    for the first-scatter residual "chord_pack" (ops/transport2d.py).
+    arr: the scene's tensors (`scene_tensors`) with "active_data"; the
+    first-scatter residual reads its chords from "chord_pack"
+    (ops/transport2d.py) where arr holds it, else marches each lane to
+    its chord (_first_scatter_prologue).
     primal (dL_flat None): adds the lanes' dose into acc (n_cells,) and
     returns (acc, None); em: optional per-lane emitted intensity before
     the ray-weight scalar (default active_data[lane // spp]).
@@ -763,7 +855,8 @@ def trace_wavefront(static: MarchStatic, arr, lane, seed, spp, dL_flat=None,
     then the emitted intensity as in the primal, default
     active_data[lane // spp]).
     stats: optional dict counting the estimator's steps ("steps"), the
-    lanes' bounce iterations ("iterations") and, on a scene that keeps a
+    lanes' bounce iterations ("iterations"), the prologue's
+    ("prologue_iters") and, on a scene that keeps a
     mesh, its grid walks, cells and triangle tests ("walks", "cells",
     "triangles"; intersect_scene).
     radon mode (static.mode "radon"): returns (L, None), L (n,) the
@@ -820,9 +913,14 @@ def trace_wavefront(static: MarchStatic, arr, lane, seed, spp, dL_flat=None,
         # every lane starts at its forced first scatter event: the
         # pre-scatter attenuation and the event's albedo live in A, so
         # total_t restarts at 0, n_scat at 1 and depth at 1
-        o, d, A_fs, inside_target, active, ctr = \
-            _first_scatter_from_chords(static, arr, o, aidx, sampler, lane,
-                                       ctr)
+        if "chord_pack" in arr:
+            o, d, A_fs, inside_target, active, ctr = \
+                _first_scatter_from_chords(static, arr, o, aidx, sampler,
+                                           lane, ctr)
+        else:
+            o, d, A_fs, inside_target, active, ctr = \
+                _first_scatter_prologue(static, arr, o, d, sampler, lane,
+                                        ctr, stats)
         A = torch.where(active, A_fs, zeros)
         if res_mode == FAST_RESIDUAL:
             return _fast_residual_loop(static, arr, primal, acc, g, dL_flat,

@@ -68,7 +68,10 @@ gives each thread one pixel's spp lanes, writes their sum once, in
 lane order, and is. The residual pair (csrc/wf_residual.cuh) runs the
 same order without the tile (its deposits follow a scatter out of the
 row's slice), its lanes handed their angle's frame and their chord's
-table entry; its dda forward runs in two passes per batch of CTAs, the
+table entry (without a chord bank, a first-scatter static runs the
+kernels' prologue instantiations: each lane marches to its chord, the
+geometric prologue; `form_launches` counts them apart, PROLOGUE_FORMS);
+its dda forward runs in two passes per batch of CTAs, the
 lanes' paths recording their segments (res_path) and persistent threads
 walking them (res_walk), so that no warp waits on its longest walk.
 
@@ -131,6 +134,10 @@ MESH_COUNTERS = COUNTERS[5:]
 # form: over each bounce), so that iterations / iteration_slots and
 # triangles / triangle_slots are their SIMT efficiencies
 SLOT_COUNTERS = ("iteration_slots", "triangle_slots")
+# what a first-scatter residual launch without a chord bank counts beside
+# the COUNTERS: the lanes' iterations of the geometric prologue (its
+# intersections count with the mesh work)
+PROLOGUE_COUNTER = "prologue_iters"
 
 KERNELS = ("wf_fwd", "wf_bwd")              # the analog pair
 RES_KERNELS = ("wf_res_fwd", "wf_res_bwd")  # the residual pair
@@ -166,7 +173,13 @@ launches = {k: 0 for k in KERNELS + RES_KERNELS + CULL_KERNELS + RES_PARTS
 TARGET_FORMS = tuple(f"{k}:target{t}" for k in KERNELS + RES_KERNELS
                      + TGT_PARTS + (MED_LIB,) for t in (1, 2)) + (
                          "wf_res_walk:target2", f"{MED_LIB}:staged")
-form_launches = {k: 0 for k in TARGET_FORMS}
+# the residual's launches without a chord bank (the geometric prologue's
+# instantiations), beside their kernel's count: "wf_res_fwd:prologue" each
+# forward's single pass or path pass, "wf_res_tgt_path:prologue" those of
+# them on the target path pass, "wf_res_bwd:prologue" each adjoint
+PROLOGUE_FORMS = ("wf_res_fwd:prologue", "wf_res_bwd:prologue",
+                  "wf_res_tgt_path:prologue")
+form_launches = {k: 0 for k in TARGET_FORMS + PROLOGUE_FORMS}
 # what the culling kernels count when asked: bounce iterations, mesh grid
 # cells visited, triangles tested, triangle slots (32 for each test of a
 # warp task's busiest lane: the tests' SIMT efficiency is triangles /
@@ -216,12 +229,14 @@ def reset_launches():
         form_launches[k] = 0
 
 
-def _count(name, P):
-    """One launch of kernel `name` in the instantiation P selects."""
+def _count(name, P, prologue=False):
+    """One launch of kernel `name` in the instantiation P selects
+    (prologue: the geometric prologue's)."""
     launches[name] += 1
-    form = f"{name}:target{P.target}"
-    if form in form_launches:
-        form_launches[form] += 1
+    for form in (f"{name}:target{P.target}",
+                 f"{name}:prologue" if prologue else None):
+        if form in form_launches:
+            form_launches[form] += 1
 
 
 def _chunking(n_lanes, chunk, spp=1):
@@ -837,10 +852,27 @@ def _add(stats, counter, keys=COUNTERS):
                 stats[key] = stats.get(key, 0) + v
 
 
-def _counter(stats, dev):
+def _prologue(P, bank):
+    """Whether a residual launch of P with the chord bank `bank` runs the
+    geometric prologue: a first-scatter mode without a bank."""
+    return P.residual in (FIRST_SCATTER, FAST_RESIDUAL) and bank is None
+
+
+def _counter(stats, dev, prologue=False):
+    """The launch's counters (COUNTERS, and PROLOGUE_COUNTER after them
+    for the prologue's), or None when nothing counts."""
     if stats is None:
         return None
-    return torch.zeros((len(COUNTERS),), dtype=torch.int64, device=dev)
+    return torch.zeros((len(COUNTERS) + int(prologue),), dtype=torch.int64,
+                       device=dev)
+
+
+def _add_prologue(stats, counter):
+    """The prologue's iterations of a launch's counters into stats."""
+    if stats is not None and counter is not None and \
+            counter.shape[0] > len(COUNTERS):
+        stats[PROLOGUE_COUNTER] = stats.get(PROLOGUE_COUNTER, 0) + \
+            int(counter[len(COUNTERS)])
 
 
 def _stream(dev):
@@ -871,7 +903,9 @@ def _family_params(name, static, arr, seed, spp):
     (and the medium adjoint) runs the full dose, the residual pair a
     residual static (scattering, transmission only) and takes no tile.
     Returns (P, order, starts, rows) for the analog pair, (P, order,
-    starts, the chord bank or None) for the residual pair."""
+    starts, the chord bank or None) for the residual pair: a
+    first-scatter residual without arr["chord_pack"] runs the geometric
+    prologue (a null bank selects it in the kernels)."""
     if static.mode != "volume":
         raise ValueError(f"{name} renders the dose; the '{static.mode}' "
                          "mode runs on wf_radon")
@@ -888,12 +922,9 @@ def _family_params(name, static, arr, seed, spp):
         raise ValueError(f"{name} runs the residual of a scattering, "
                          "transmission-only scene (scattered_only)")
     P.tile_n = 0
-    if P.residual not in (FIRST_SCATTER, FAST_RESIDUAL):
-        return P, order, starts, None
     bank = arr.get("chord_pack")
-    if bank is None:
-        raise ValueError(f"{name}: the first-scatter residual needs the "
-                         "chord bank (arr['chord_pack'])")
+    if P.residual not in (FIRST_SCATTER, FAST_RESIDUAL) or bank is None:
+        return P, order, starts, None
     _check(name, bank, torch.float32,
            (static.projector.n_patterns * static.projector.resx, 12))
     return P, order, starts, bank
@@ -974,14 +1005,16 @@ def _res_one_pass(libs, name, static, arr, x, out, seed, spp, stats):
     P, order, starts, bank = _family_params(name, static, arr, seed, spp)
     M, tris, mask = _target_args(name, static, arr, P)
     tab = _res_chords(libs, arr, bank, P)
-    counter = _counter(stats, dev)
+    prologue = _prologue(P, bank)
+    counter = _counter(stats, dev, prologue)
     err = getattr(libs[name], name)(
         ctypes.byref(P), ctypes.byref(M), _ptr(tris), _ptr(mask),
         x.data_ptr(), pix.data_ptr(), _ptr(order), _ptr(starts), _ptr(bank),
         _ptr(tab), out.data_ptr(), _ptr(counter), _stream(dev))
-    _count(name, P)
+    _count(name, P, prologue)
     _err(name, err)
     _add(stats, counter, _keys(P))
+    _add_prologue(stats, counter)
 
 
 def _split_buffer(static, arr, P, dev):
@@ -1071,7 +1104,8 @@ def res_path(libs, static, arr, data, seed, spp, c0, c1, stats=None,
     cap, base, ctr = _split_part(static, arr, P, dev, half)
     recs = recs[8 * base:8 * (base + cap)]
     ctr.zero_()
-    counter = _counter(stats, dev)
+    prologue = _prologue(P, bank)
+    counter = _counter(stats, dev, prologue)
     slots = None if stats is None else torch.zeros(
         (len(SLOT_COUNTERS),), dtype=torch.int64, device=dev)
     args = (ctypes.byref(P), ctypes.byref(M), _ptr(tris), _ptr(mask), c0,
@@ -1085,14 +1119,17 @@ def res_path(libs, static, arr, data, seed, spp, c0, c1, stats=None,
     else:
         entry = "wf_res_path"
         err = libs["wf_res_fwd"].wf_res_path(*args, _stream(dev))
-    _count("wf_res_fwd", P)
+    _count("wf_res_fwd", P, prologue)
     if entry in launches:
         launches[entry] += 1
+        if prologue:
+            form_launches[f"{entry}:prologue"] += 1
     _err(entry, err)
     n = int(ctr[0].item()) & 0xFFFFFFFF
     if n > cap:
         return None
     _add(stats, counter, _keys(P, ("iterations",) + MESH_COUNTERS))
+    _add_prologue(stats, counter)
     if stats is not None:
         for key, v in zip(SLOT_COUNTERS, slots.tolist()):
             stats[key] = stats.get(key, 0) + v
@@ -1470,7 +1507,11 @@ def kernel_info(name, static: MarchStatic, arr, count=False):
     adjoint's (med_route) "wf_med" its staged instantiation."""
     fam = {"wf_res_walk": "wf_res_fwd", "wf_tgt_walk": "wf_fwd"}.get(name,
                                                                      name)
-    P = _family_params(fam, static, arr, 0, 1)[0]
+    P, _, _, bank = _family_params(fam, static, arr, 0, 1)
+    # the residual's queries: bit 0 the counting instantiation, bit 1 the
+    # prologue's
+    flags = int(count) | (2 if fam in RES_KERNELS and _prologue(P, bank)
+                          else 0)
     out = (ctypes.c_int * 8)()
     with torch.cuda.device(arr["active_pixels"].device):
         libs = build_kernels()
@@ -1486,15 +1527,16 @@ def kernel_info(name, static: MarchStatic, arr, count=False):
         elif name == "wf_res_fwd" and res_tgt_route(libs, static, arr):
             err = libs[RES_TGT_LIB].wf_res_tgt_info(
                 ctypes.byref(P), ctypes.byref(make_mesh(name, static, arr)),
-                int(count), RES_TGT_SMEM_LIMIT, out)
+                flags, RES_TGT_SMEM_LIMIT, out)
         elif name == "wf_res_walk":
             err = lib.wf_res_walk_info(int(count), int(P.target == 2), out)
         elif name == MED_LIB:
             err = lib.wf_med_info(ctypes.byref(P), ctypes.byref(make_mesh(
                 name, static, arr)), int(med_route(libs, static, arr)), out)
         else:
-            err = getattr(lib, name + "_info")(ctypes.byref(P), int(count),
-                                               out)
+            err = getattr(lib, name + "_info")(
+                ctypes.byref(P), flags if name in RES_KERNELS else int(count),
+                out)
     if err != 0:
         raise RuntimeError(f"{name}: occupancy query failed, cudaError_t "
                            f"{err}")
@@ -1666,9 +1708,11 @@ def wf_res_fwd(static: MarchStatic, arr, data, seed, spp, stats=None,
                batch_ctas=None, times=None):
     """CUDA kernels csrc/wf_res_fwd.cu: the residual dose accumulator
     (n_cells,) of `data` on the card, for a static with scattered_only
-    (the hybrid engine's residual; arr["chord_pack"] for the
-    first-scatter modes). Replaces the primal of
-    drtvam_tpu/ops/march.py:913 in its residual modes (XLA). The dda
+    (the hybrid engine's residual; the first-scatter modes read
+    arr["chord_pack"], or without it march each lane to its chord: the
+    geometric prologue). Replaces the primal of
+    drtvam_tpu/ops/march.py:913 in its residual modes (XLA: the prologue
+    :198-325 too). The dda
     runs a path pass and a walk pass per batch of CTAs (batch_ctas: at
     most that many a batch; with the target kept the path pass is
     csrc/wf_res_target.cu's where res_tgt_route takes the scene), the
@@ -1677,8 +1721,9 @@ def wf_res_fwd(static: MarchStatic, arr, data, seed, spp, stats=None,
     scatter, one or two events); the dda by its voxel steps and their
     float atomics, and with the target kept by the path pass's grid walks
     and triangle tests. stats: adds the COUNTERS (the dda: lane slots are
-    the walk's) and, for the dda, the SLOT_COUNTERS, the records and
-    batches; times: adds the dda's path and walk milliseconds."""
+    the walk's), the prologue's iterations (PROLOGUE_COUNTER) and, for the
+    dda, the SLOT_COUNTERS, the records and batches; times: adds the dda's
+    path and walk milliseconds."""
     _n_lanes(static, spp)
     _check("wf_res_fwd", data, torch.float32, (static.projector.n_active,))
     return res_forward(_card_libs(data), static, arr, data, seed, spp, stats,

@@ -70,12 +70,22 @@ Modes and keys:
     [0, 0.999], applied to the engine's scene tensors. The final render
     takes the calibrated medium; medium.json holds {"sigma_t",
     "albedo"}. A `target.dose_npy` dose volume calibrates; a mesh target
-    calibrates while the patterns are optimized.
-`profile` raises NotImplementedError naming its ROADMAP item.
+    calibrates while the patterns are optimized;
+  * `profile` (drtvam_tpu/opt/optimize.py:507-515, :603-604): true or
+    "true" traces into <output>/trace, another value names the
+    directory. A torch.profiler trace (the CPU's operators, and on a
+    CUDA device the card's kernels) of the loop, from after the
+    optimizer is built (before a resumed state is restored) to after
+    the last step's checkpoint, written at its end as a Chrome trace
+    `*.pt.trace.json` (torch.profiler.tensorboard_trace_handler, which
+    TensorBoard reads from that directory); without shapes or stacks.
+    Only the coordinating rank (parallel/multihost.py) traces. It changes
+    no number of the run.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -90,6 +100,7 @@ from ..ops.ballistic import BallisticEngine, radon_active_ballistic
 from ..ops.hybrid import ScatteringEngine, hybrid_eligible
 from ..ops.march import scene_tensors
 from ..ops.transport2d import ballistic_eligible, unscattered_eligible
+from ..parallel.multihost import is_coordinator
 from ..utils.io import save_img, save_vol
 from ..utils.metrics import save_histogram
 from .checkpoint import check_optimizer, load_checkpoint, \
@@ -97,18 +108,6 @@ from .checkpoint import check_optimizer, load_checkpoint, \
 from .device_lbfgs import DeviceLinearLBFGS
 from .first_order import FirstOrder
 from .loss import losses
-
-# options of the JAX driver that this port does not run yet, with the
-# ROADMAP queue 1 item that ports them
-_NOT_PORTED = {
-    "profile": ("device profiling", 9),
-}
-
-
-def _not_ported(what, item):
-    return NotImplementedError(
-        f"{what} is not ported yet — ROADMAP queue 1 item {item}")
-
 
 def _sync(device):
     if device.type == "cuda":
@@ -169,10 +168,37 @@ def _make_step_fns(render, pattern_grad, loss_obj, target):
             "cand_fn": cand_fn}
 
 
-def _check_ported(config):
-    for key, (what, item) in _NOT_PORTED.items():
-        if config.get(key):
-            raise _not_ported(what, item)
+def profile_dir(value, output):
+    """The trace directory of the `profile` key as the JAX driver resolves
+    it (drtvam_tpu/opt/optimize.py:507-512): true or "true" is
+    <output>/trace, another true value the directory it names; None for
+    no trace."""
+    if not value:
+        return None
+    if value is True or value == "true":
+        return os.path.join(output, "trace")
+    return str(value)
+
+
+@contextlib.contextmanager
+def _profiled(value, output, device):
+    """A torch.profiler trace of the block where `profile` asks for one
+    (profile_dir), on the coordinating rank: the CPU's operators and, on
+    a CUDA device, the card's kernels, written as a Chrome trace into the
+    directory when the block ends."""
+    trace_dir = profile_dir(value, output)
+    if trace_dir is None or not is_coordinator():
+        yield
+        return
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts,
+                 on_trace_ready=tensorboard_trace_handler(trace_dir)):
+        print(f"Profiling to {trace_dir}")
+        yield
 
 
 def _cull(config, scene, target, device, rr_depth, transmission_only,
@@ -458,7 +484,6 @@ def optimize(config, patterns_fwd=None, resolve_path=None, device="cuda",
             "optimize_medium requires the wavefront engine; the "
             f"'{config['engine']}' engine precomputes the medium into its "
             "transport fields")
-    _check_ported(config)
     if patterns_fwd is not None:
         # checked before any state changes
         patterns_fwd = np.asarray(patterns_fwd, np.float32)
@@ -691,62 +716,65 @@ def _optimize_loop(config, scene, device, timings, engine_cfg, optim_type,
                                 **opt_cfg)
     else:
         opt = FirstOrder(optim_type, **opt_cfg)
-    if ckpt is not None:
-        restore_opt_state(ckpt, optim_type, opt, data)
-        if med is not None and restore_med_state(ckpt) is not None:
-            med.load(*restore_med_state(ckpt))
-            med.apply(engine.arr)
-        print(f"Resuming from checkpoint at step {start_step}.")
-    del ckpt
-    _sync(device)
-    timings["precompute_s"] = time.perf_counter() - t0
-    print(f"{engine_kind.capitalize()} engine on {device}: kernels "
-          f"'{engine.impl}'")
+    # the profiler's window: the JAX driver's, from the built optimizer
+    # (before a resumed state) to the loop's end
+    with _profiled(config.get("profile"), output, device):
+        if ckpt is not None:
+            restore_opt_state(ckpt, optim_type, opt, data)
+            if med is not None and restore_med_state(ckpt) is not None:
+                med.load(*restore_med_state(ckpt))
+                med.apply(engine.arr)
+            print(f"Resuming from checkpoint at step {start_step}.")
+        del ckpt
+        _sync(device)
+        timings["precompute_s"] = time.perf_counter() - t0
+        print(f"{engine_kind.capitalize()} engine on {device}: kernels "
+              f"'{engine.impl}'")
 
-    print("Starting the pattern optimization loop...")
-    timings["checkpoint_write_s"] = 0.0
-    t_loop = time.perf_counter()
-    for i in range(start_step, n_steps):
-        if progressive and i == 5 and depth != max_depth:
-            # before the step's timer, as in the JAX package
-            depth = max_depth
-            engine.set_depth(depth)
-            fns = _make_step_fns(engine.render, engine.pattern_grad,
-                                 loss_obj, target_t)
+        print("Starting the pattern optimization loop...")
+        timings["checkpoint_write_s"] = 0.0
+        t_loop = time.perf_counter()
+        for i in range(start_step, n_steps):
+            if progressive and i == 5 and depth != max_depth:
+                # before the step's timer, as in the JAX package
+                depth = max_depth
+                engine.set_depth(depth)
+                fns = _make_step_fns(engine.render, engine.pattern_grad,
+                                     loss_obj, target_t)
+                if optim_type == "lbfgs":
+                    opt.rebind(fns["dir_fn"], fns["cand_fn"])
+            t0 = time.perf_counter()
+            vol, loss = fns["primal"](data, i)
+            loss_hist[i] = float(loss)
+            timing_hist[i, 0] = time.perf_counter() - t0
+
+            t1 = time.perf_counter()
+            grad = fns["adjoint"](vol, data, i)
+            if loss_hist[i] == 0.0:
+                print("Converged")
+                _sync(device)
+                timing_hist[i, 1] = time.perf_counter() - t1
+                break
             if optim_type == "lbfgs":
-                opt.rebind(fns["dir_fn"], fns["cand_fn"])
-        t0 = time.perf_counter()
-        vol, loss = fns["primal"](data, i)
-        loss_hist[i] = float(loss)
-        timing_hist[i, 0] = time.perf_counter() - t0
-
-        t1 = time.perf_counter()
-        grad = fns["adjoint"](vol, data, i)
-        if loss_hist[i] == 0.0:
-            print("Converged")
+                data = opt.step(data, grad, vol, loss, step_args=(i,))
+            else:
+                data = opt.step(data, grad)
+            if med is not None:
+                # the medium's gradient at the new patterns, the step's seed
+                med.step(*engine.medium_grad(data, i, loss_obj, target_t))
+                med.apply(engine.arr)
             _sync(device)
             timing_hist[i, 1] = time.perf_counter() - t1
-            break
-        if optim_type == "lbfgs":
-            data = opt.step(data, grad, vol, loss, step_args=(i,))
-        else:
-            data = opt.step(data, grad)
-        if med is not None:
-            # the medium's gradient at the new patterns, the step's seed
-            med.step(*engine.medium_grad(data, i, loss_obj, target_t))
-            med.apply(engine.arr)
-        _sync(device)
-        timing_hist[i, 1] = time.perf_counter() - t1
-        print(f"step {i:4d}  loss {loss_hist[i]:.6e}  "
-              f"{timing_hist[i].sum():.3f}s")
-        if checkpoint_every and ((i + 1) % checkpoint_every == 0
-                                 or i == n_steps - 1):
-            t0 = time.perf_counter()
-            save_checkpoint(output, i, data, scene.projector.active_pixels,
-                            loss_hist, timing_hist, optim_type, opt,
-                            None if med is None else med.state())
-            timings["checkpoint_write_s"] += time.perf_counter() - t0
-    timings["loop_s"] = time.perf_counter() - t_loop
+            print(f"step {i:4d}  loss {loss_hist[i]:.6e}  "
+                  f"{timing_hist[i].sum():.3f}s")
+            if checkpoint_every and ((i + 1) % checkpoint_every == 0
+                                     or i == n_steps - 1):
+                t0 = time.perf_counter()
+                save_checkpoint(output, i, data, scene.projector.active_pixels,
+                                loss_hist, timing_hist, optim_type, opt,
+                                None if med is None else med.state())
+                timings["checkpoint_write_s"] += time.perf_counter() - t0
+        timings["loop_s"] = time.perf_counter() - t_loop
     scene.projector.active_data = data
     if med is not None:
         scene.medium.sigma_t, scene.medium.albedo = med.sigma_t, med.albedo

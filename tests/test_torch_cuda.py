@@ -477,6 +477,41 @@ def test_res_kernels_match_plain(estimator, mode, tmp_path, cuda_device):
     assert torch.equal(grad, grad2)
 
 
+@pytest.mark.parametrize("estimator,mode", [("delta", "fast_residual"),
+                                            ("dda", "first_scatter"),
+                                            ("ratio", "first_scatter")])
+def test_prologue_kernels_match_plain(estimator, mode, tmp_path,
+                                      cuda_device):
+    """The residual without its chord bank: the kernels' prologue
+    instantiations (counted apart, no chord table built) against the
+    plain prologue, to test_res_kernels_match_plain's tolerance; the
+    adjoint bitwise on two launches."""
+    st, at = _res_scene(tmp_path, estimator, mode)
+    at = {k: v for k, v in at.items() if k != "chord_pack"}
+    rng = np.random.default_rng(7)
+    data = torch.from_numpy(rng.uniform(0.5, 1.5, st.projector.n_active)
+                            .astype(np.float32)).to(cuda_device)
+    dL = torch.from_numpy(rng.uniform(0.0, 1.0, st.sensor.n_cells)
+                          .astype(np.float32)).to(cuda_device)
+    wf.reset_launches()
+    dose = wf.forward(st, at, data, 7, 4)
+    grad = wf.adjoint(st, at, 7, 4, wf.DEFAULT_CHUNK, dL)
+    grad2 = wf.adjoint(st, at, 7, 4, wf.DEFAULT_CHUNK, dL)
+    torch.cuda.synchronize()
+    assert wf.form_launches["wf_res_fwd:prologue"] == \
+        wf.launches["wf_res_fwd"] >= 1
+    assert wf.form_launches["wf_res_bwd:prologue"] == 2
+    assert wf.launches["wf_res_chords"] == 0
+    for out, ref in ((dose, wf._forward(st, at, data, 7, 4,
+                                         wf.DEFAULT_CHUNK)),
+                     (grad, wf._adjoint(st, at, 7, 4, wf.DEFAULT_CHUNK,
+                                        dL))):
+        assert float(ref.abs().max()) > 0
+        off = (out - ref).abs() > WF_TOL * float(ref.abs().max())
+        assert int(off.sum()) <= 2e-3 * int((ref != 0).sum())
+    assert torch.equal(grad, grad2)
+
+
 def test_hybrid_engine_never_takes_the_plain_path(tmp_path, cuda_device,
                                                   monkeypatch):
     st, at = _res_scene(tmp_path, "delta", "fast_residual")

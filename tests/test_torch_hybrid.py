@@ -259,15 +259,6 @@ def test_pattern_grad_matches_autograd(scat_scene, estimator):
                                atol=1e-6 * float(g_auto.abs().max()))
 
 
-def test_first_scatter_needs_the_chord_bank(scat_scene):
-    _, _, inv_vol, ts, ta, data, _ = scat_scene
-    te = ScatteringEngine(ts, ta, "cpu", spp=1)
-    arr = dict(te.arr)
-    del arr["chord_pack"]
-    with pytest.raises(NotImplementedError, match="item 20"):
-        tr.render(te.static_s, arr, torch.from_numpy(data), inv_vol)
-
-
 def test_kernel_families_take_their_own_statics(scat_scene):
     """The residual pair's launch parameters: the residual mode, the
     fast loop's medium surface, no tile, the chord bank in place of the

@@ -3,9 +3,9 @@ film, 3 steps): the same artifact set, final.npy to rtol 1e-3 and the
 same best IoU to 1e-3, through the ballistic engine and through the
 wavefront path tracer (engine 'wavefront', the loss history to 1e-4:
 both render the same realization at each step's seed, measured 2.1e-5).
-The option the port does not run yet (profile) raises
-NotImplementedError; optimize()'s other modes are
-tests/test_torch_modes.py's, medium calibration tests/test_torch_medium.py's."""
+optimize()'s other modes are tests/test_torch_modes.py's, `profile`
+tests/test_torch_profile.py's, medium calibration
+tests/test_torch_medium.py's."""
 import json
 import os
 
@@ -95,21 +95,6 @@ def test_overrides_reach_the_config(work):
     saved = json.loads((work / "ovr" / "opt_config.json").read_text())
     assert saved["n_steps"] == 2 and saved["loss"]["tl"] == 0.8
     assert np.load(work / "ovr" / "loss.npy").shape == (2,)
-
-
-@pytest.mark.parametrize("change", [
-    {"profile": True},
-])
-def test_unported_options_raise(work, change):
-    cfg = _config(work, "np")
-    for key, value in change.items():
-        *head, last = key.split(".")
-        node = cfg
-        for k in head:
-            node = node[k]
-        node[last] = value
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmain([_write(work, cfg, "np.json"), "--device", "cpu"])
 
 
 def _wavefront_config(work, out):

@@ -119,8 +119,8 @@ MeshBanks staged_banks(const Target& T, std::vector<float4>& buf) {
 }
 
 // a sink's counters as the kernels write them (wf_kernel: COUNTERS), when
-// the call counts (c not null)
-template <class SinkT>
+// the call counts (c not null); GEO: the prologue's iterations after them
+template <bool GEO = false, class SinkT>
 void add_counts(const SinkT& S, unsigned long long slots,
                 unsigned long long* c) {
   if (c == nullptr) return;
@@ -128,6 +128,7 @@ void add_counts(const SinkT& S, unsigned long long slots,
                                    S.n_global, slots,     S.mc.cells,
                                    S.mc.tris,  S.mc.walks};
   for (int i = 0; i < 8; ++i) c[i] += k[i];
+  if (GEO) c[8] += S.pro_iters;
 }
 
 // the kernel's launch order on one thread: block by block, each block's
@@ -183,8 +184,9 @@ void run_blocks(const WfParams& P, const Target& T, const float* in,
 }
 
 // lane order, no tile: active pixel 0, 1, 2, ..., each pixel's lanes
-// in lane order on one thread
-template <int EST, bool SCAT, bool TONLY, int RES, bool PRIMAL, bool TGT>
+// in lane order on one thread (GEO: the first scatter from the prologue)
+template <int EST, bool SCAT, bool TONLY, int RES, bool PRIMAL, bool TGT,
+          bool GEO = false>
 void run_lanes(const WfParams& P, const Target& T, const float* in,
                const int* ap, const int*, const int*, const int4*,
                const float* chords, float* out, unsigned long long* c) {
@@ -199,14 +201,14 @@ void run_lanes(const WfParams& P, const Target& T, const float* in,
     float gsum = 0.0f;
     for (int k = 0; k < P.spp; ++k) {
       S.g = 0.0f;
-      trace_lane<EST, SCAT, TONLY, RES>(
+      trace_lane<EST, SCAT, TONLY, RES, GEO>(
           P, G, (uint32_t)aidx * (uint32_t)P.spp + (uint32_t)k, aidx, ap,
           em, S, chords);
       gsum = k == 0 ? S.g : gsum + S.g;
     }
     if (!PRIMAL) out[aidx] = gsum * P.ray_w;
   }
-  add_counts(S, 0, c);
+  add_counts<GEO>(S, 0, c);
 }
 
 template <bool PRIMAL, bool BLOCKS, bool TGT>
@@ -246,8 +248,8 @@ int dispatch(const WfParams* p, const WfMesh* M, const float4* tris,
 // the residual kernels' launch order on one thread (res_kernel): CTAs
 // [c0, c1), each CTA's angle frames first, then its tasks; pslots (the
 // path pass): 32 slots for each bounce iteration and triangle test of a
-// task's longest lane
-template <int EST, int RES, class SinkT>
+// task's longest lane; GEO: the first scatter from the prologue
+template <int EST, int RES, bool GEO, class SinkT>
 void run_res_blocks(const WfParams& P, int c0, int c1, const float* in,
                     const int* ap, const int* order, const int* starts,
                     const float* chords, const float4* tab, float* out,
@@ -264,8 +266,9 @@ void run_res_blocks(const WfParams& P, int c0, int c1, const float* in,
       for (int l = 0; l < 32; ++l) {
         const unsigned long long s0 = EST == DELTA ? S.iters : S.steps;
         const unsigned long long i0 = S.iters, t0 = S.mc.tris;
-        const int aidx = res_task<EST, RES>(P, G, C, frames, t, l, in, ap,
-                                            order, chords, tab, out, S);
+        const int aidx = res_task<EST, RES, GEO>(P, G, C, frames, t, l, in,
+                                                 ap, order, chords, tab, out,
+                                                 S);
         if (aidx >= 0) traced.push_back(aidx);
         const unsigned long long d = (EST == DELTA ? S.iters : S.steps) - s0;
         if (d > longest) longest = d;
@@ -284,8 +287,9 @@ void run_res_blocks(const WfParams& P, int c0, int c1, const float* in,
 // the residual pair's instantiations (scattering, transmission only),
 // by estimator and residual mode: the kernels' order with their tables
 // (BLOCKS; tab null: each lane computes its chord entry), or lane order
-// with every lane's set-up inline
-template <bool PRIMAL, bool BLOCKS, bool TGT>
+// with every lane's set-up inline; GEO: a first-scatter mode without a
+// chord bank (chords null), the kernels' prologue instantiations
+template <bool PRIMAL, bool BLOCKS, bool TGT, bool GEO>
 int res_dispatch_target(const WfParams* p, const Target& tg, const float* in,
                         const int* ap, const int* order, const int* starts,
                         const float* chords, const float4* tab, float* out,
@@ -298,12 +302,12 @@ int res_dispatch_target(const WfParams* p, const Target& tg, const float* in,
 #define R(E, M)                                                            \
   case E * 4 + M:                                                          \
     if (BLOCKS)                                                            \
-      run_res_blocks<E, M>(*p, 0, n_ctas, in, ap, order, starts, chords,   \
-                           tab, out, S, slots);                            \
+      run_res_blocks<E, M, GEO && M != SCAT_ONLY>(                         \
+          *p, 0, n_ctas, in, ap, order, starts, chords, tab, out, S,       \
+          slots);                                                          \
     else                                                                   \
-      run_lanes<E, true, true, M, PRIMAL, TGT>(*p, tg, in, ap, order,      \
-                                               starts, nullptr, chords,    \
-                                               out, c);                    \
+      run_lanes<E, true, true, M, PRIMAL, TGT, GEO && M != SCAT_ONLY>(     \
+          *p, tg, in, ap, order, starts, nullptr, chords, out, c);         \
     break;
   switch (p->estimator * 4 + p->residual) {
     R(DDA, SCAT_ONLY) R(DDA, FIRST_SCATTER) R(RATIO, SCAT_ONLY)
@@ -312,8 +316,20 @@ int res_dispatch_target(const WfParams* p, const Target& tg, const float* in,
     default: return 1;
   }
 #undef R
-  if (BLOCKS) add_counts(S, slots, c);
+  if (BLOCKS) add_counts<GEO>(S, slots, c);
   return 0;
+}
+template <bool PRIMAL, bool BLOCKS, bool TGT>
+int res_dispatch_geo(const WfParams* p, const Target& tg, const float* in,
+                     const int* ap, const int* order, const int* starts,
+                     const float* chords, const float4* tab, float* out,
+                     unsigned long long* c) {
+  const bool geo = chords == nullptr && (p->residual == FIRST_SCATTER ||
+                                         p->residual == FAST_RESIDUAL);
+  return geo ? res_dispatch_target<PRIMAL, BLOCKS, TGT, true>(
+                   p, tg, in, ap, order, starts, chords, tab, out, c)
+             : res_dispatch_target<PRIMAL, BLOCKS, TGT, false>(
+                   p, tg, in, ap, order, starts, chords, tab, out, c);
 }
 #define RES_ENTRY(NAME, PRIMAL, BLOCKS)                                     \
   extern "C" int NAME(const WfParams* p, const WfMesh* M,                  \
@@ -324,10 +340,10 @@ int res_dispatch_target(const WfParams* p, const Target& tg, const float* in,
                       unsigned long long* c, void*) {                      \
     traced.clear();                                                        \
     const Target tg{M, tris, mask};                                        \
-    return p->target ? res_dispatch_target<PRIMAL, BLOCKS, true>(          \
+    return p->target ? res_dispatch_geo<PRIMAL, BLOCKS, true>(             \
                            p, tg, in, ap, order, starts, chords, tab, out, \
                            c)                                              \
-                     : res_dispatch_target<PRIMAL, BLOCKS, false>(         \
+                     : res_dispatch_geo<PRIMAL, BLOCKS, false>(            \
                            p, tg, in, ap, order, starts, chords, tab, out, \
                            c);                                             \
   }
@@ -347,12 +363,18 @@ int path_target(const WfParams* p, const Target& tg, int c0, int c1,
                         recs, n_recs, cap};
   set_target(S, *p, tg);
   unsigned long long slots = 0, ps[2] = {0, 0};
+  const bool geo = chords == nullptr;
   if (p->residual == SCAT_ONLY)
-    run_res_blocks<DDA, SCAT_ONLY>(*p, c0, c1, in, ap, order, starts, chords,
-                                   tab, nullptr, S, slots, ps);
+    run_res_blocks<DDA, SCAT_ONLY, false>(*p, c0, c1, in, ap, order, starts,
+                                          chords, tab, nullptr, S, slots, ps);
+  else if (p->residual == FIRST_SCATTER && geo)
+    run_res_blocks<DDA, FIRST_SCATTER, true>(*p, c0, c1, in, ap, order,
+                                             starts, chords, tab, nullptr, S,
+                                             slots, ps);
   else if (p->residual == FIRST_SCATTER)
-    run_res_blocks<DDA, FIRST_SCATTER>(*p, c0, c1, in, ap, order, starts,
-                                       chords, tab, nullptr, S, slots, ps);
+    run_res_blocks<DDA, FIRST_SCATTER, false>(*p, c0, c1, in, ap, order,
+                                              starts, chords, tab, nullptr, S,
+                                              slots, ps);
   else
     return 1;
   if (c != nullptr) {
@@ -360,6 +382,7 @@ int path_target(const WfParams* p, const Target& tg, int c0, int c1,
     c[5] += S.mc.cells;
     c[6] += S.mc.tris;
     c[7] += S.mc.walks;
+    if (p->residual == FIRST_SCATTER && geo) c[8] += S.pro_iters;
   }
   if (pslots != nullptr) {
     pslots[0] += ps[0];
@@ -402,7 +425,7 @@ extern "C" void set_res_tgt(int warps, int chunk) {
   rtp_warps = warps;
   rtp_chunk = chunk;
 }
-template <int RES, bool STAGED>
+template <int RES, bool STAGED, bool GEO>
 void rtp_ctas(const WfParams& P, const Target& T, int c0, int c1,
               const float* in, const int* ap, const int* order,
               const int* starts, const float* chords, const float4* tab,
@@ -455,9 +478,10 @@ void rtp_ctas(const WfParams& P, const Target& T, int c0, int c1,
           for (int l = 0; l < 32; ++l) {
             if (!((need >> l) & 1u)) continue;
             if (rank < end[wi] - cur[wi])
-              t[l].busy = res_path_start<RES>(P, G, C, frames, cur[wi] + rank,
-                                              in, ap, order, chords, tab, S,
-                                              t[l].L);
+              t[l].busy = res_path_start<RES, GEO>(P, G, C, frames,
+                                                   cur[wi] + rank, in, ap,
+                                                   order, chords, tab, S,
+                                                   t[l].L);
             ++rank;
           }
           cur[wi] = end[wi] - cur[wi] < rank ? end[wi] : cur[wi] + rank;
@@ -482,6 +506,7 @@ void rtp_ctas(const WfParams& P, const Target& T, int c0, int c1,
     c[5] += S.mc.cells;
     c[6] += S.mc.tris;
     c[7] += S.mc.walks;
+    if (GEO) c[8] += S.pro_iters;
   }
   if (slots != nullptr) {
     slots[0] += it_slots;
@@ -515,13 +540,18 @@ extern "C" int wf_res_tgt_path(const WfParams* p, const WfMesh* M,
       (long long)bank_bytes(M->n_rows, M->n_cell_start, M->n_tri_ids);
   const bool staged = bytes <= smem_limit && bytes <= tgt_budget;
   const Target tg{M, tris, mask};
-#define RTP(R, ST)                                                          \
-  rtp_ctas<R, ST>(*p, tg, c0, c1, in, ap, order, starts, chords, tab, recs, \
-                  n_recs, cap, c, slots)
-  if (p->residual == FIRST_SCATTER) {
-    if (staged) RTP(FIRST_SCATTER, true); else RTP(FIRST_SCATTER, false);
+#define RTP(R, ST, GEO)                                                    \
+  rtp_ctas<R, ST, GEO>(*p, tg, c0, c1, in, ap, order, starts, chords, tab, \
+                       recs, n_recs, cap, c, slots)
+  if (p->residual == FIRST_SCATTER && chords == nullptr) {
+    if (staged) RTP(FIRST_SCATTER, true, true);
+    else RTP(FIRST_SCATTER, false, true);
+  } else if (p->residual == FIRST_SCATTER) {
+    if (staged) RTP(FIRST_SCATTER, true, false);
+    else RTP(FIRST_SCATTER, false, false);
   } else {
-    if (staged) RTP(SCAT_ONLY, true); else RTP(SCAT_ONLY, false);
+    if (staged) RTP(SCAT_ONLY, true, false);
+    else RTP(SCAT_ONLY, false, false);
   }
 #undef RTP
   return 0;
@@ -1230,21 +1260,25 @@ def _residual(path, estimator, mode, vial, projector, **scene):
 
 def _run_res(lib, name, static, at, x, n_out, seed, spp):
     """One of the harness's residual passes: the kernels' order with the
-    chord table, or lane order ("_lanes") with every set-up inline."""
+    chord table, or lane order ("_lanes") with every set-up inline; a
+    first-scatter static without the chord bank runs the prologue, and
+    counts its iterations after the COUNTERS."""
     P, order, starts, bank = wf._family_params(name.replace("_lanes", ""),
                                                static, at, seed, spp)
     M, tris, mask = wf._target_args(name, static, at, P)
     tab = None if name.endswith("_lanes") else wf._res_chords(
         _libs(lib), at, bank, P)
     out = torch.zeros(n_out)
-    counters = (ctypes.c_ulonglong * len(wf.COUNTERS))()
+    keys = wf.COUNTERS + ((wf.PROLOGUE_COUNTER,) if wf._prologue(P, bank)
+                          else ())
+    counters = (ctypes.c_ulonglong * len(keys))()
     assert getattr(lib, name)(ctypes.byref(P), ctypes.byref(M),
                               wf._ptr(tris), wf._ptr(mask), x.data_ptr(),
                               at["active_pixels"].data_ptr(),
                               wf._ptr(order), wf._ptr(starts), wf._ptr(bank),
                               wf._ptr(tab), out.data_ptr(),
                               ctypes.addressof(counters), None) == 0
-    return out, dict(zip(wf.COUNTERS, counters))
+    return out, dict(zip(keys, counters))
 
 
 def _libs(lib):
@@ -1695,6 +1729,125 @@ def test_target_residual_template_traces_the_plain_residual(case,
     assert torch.equal(grad, grad_l)
     if ch == 2:
         assert (dose.reshape(-1, 2).sum(0) > 0).all()
+
+
+# the residual pair without a chord bank (the geometric prologue: each
+# lane marches to its chord): (estimator, mode, vial, projector, target).
+# A telecentric projector's chords leave the horizontal plane; a mesh
+# vial's and an occlusion's only a march finds. No case keeps the target
+# beside an occlusion: _scene's occlusions share the target's z = +-2
+# planes, where a scattered ray's nearest face is a tie of two surfaces
+# that an ulp of glibc's sinf / cosf against torch's decides
+PROLOGUE_CASES = [
+    ("dda", "first_scatter", "cylindrical", "collimated", None),
+    ("ratio", "first_scatter", "square", "collimated", None),
+    ("delta", "fast_residual", "cylindrical", "collimated", None),
+    ("delta", "first_scatter", "double_cylindrical", "collimated", None),
+    ("delta", "fast_residual", "square", "telecentric", None),
+    ("dda", "first_scatter", "cylindrical", "collimated", "surface_aware"),
+    ("delta", "fast_residual", "square", "collimated", "surface_aware"),
+    ("dda", "first_scatter", "cylindrical", "collimated", "kept"),
+    ("dda", "first_scatter", "custom+null", "collimated", None),
+    ("delta", "first_scatter", "custom", "collimated", "surface_aware"),
+    ("ratio", "first_scatter", "square+dielectric", "telecentric", None),
+]
+
+
+def _prologue_residual(path, est, mode, vial, projector, target):
+    """A first-scatter residual static on _scene's scattering scene, its
+    tensors without a chord bank (a two-channel film: the inside mask as
+    bytes, as ops/hybrid.py gives it)."""
+    static, arr = _scene(path, est, 0.5, projector, vial, True,
+                         target=target)
+    mask = arr.pop("inside_mask", None)
+    st = dataclasses.replace(static, scattered_only=True, first_scatter=True,
+                             fast_residual=mode == "fast_residual")
+    at = scene_tensors(arr, "cpu")
+    if mask is not None:
+        at["inside_mask"] = torch.from_numpy(
+            (np.asarray(mask, np.float32) > 0.5).reshape(-1)
+            .astype(np.uint8))
+    assert wf.make_params(st, at, 0, 1).residual == \
+        ("first_scatter", "fast_residual").index(mode) + 2
+    return st, at
+
+
+@pytest.mark.parametrize("case", PROLOGUE_CASES)
+def test_prologue_template_traces_the_plain_residual(case, template_lib):
+    """The residual pair's prologue instantiations (a null chord bank) in
+    their launch order against the plain residual: the same prologue and
+    bounce iterations, steps and mesh work, values to 1e-4 of each
+    channel's max (a ratio or delta deposit is a point); the adjoint
+    bitwise equal to lane order; the dda forward through its path and
+    walk passes (with the target kept, the target path pass)."""
+    lib, path = template_lib
+    est = case[0]
+    static, at = _prologue_residual(path, *case)
+    assert "chord_pack" not in at
+    ch = static.sensor.channels
+    rng = np.random.default_rng(19)
+    n, n_cells = static.projector.n_active, static.sensor.n_cells
+    data = torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32))
+    dL = torch.from_numpy(rng.uniform(0.0, 1.0, n_cells).astype(np.float32))
+    seed, spp = 6, 3
+    ref_stats, ref_g_stats, stats = {}, {}, {}
+    dose_ref = wf._forward(static, at, data, seed, spp, wf.DEFAULT_CHUNK,
+                           ref_stats)
+    grad_ref = wf._adjoint(static, at, seed, spp, wf.DEFAULT_CHUNK, dL,
+                           ref_g_stats)
+    if est == "dda":
+        dose = wf.res_forward(_libs(lib), static, at, data, seed, spp, stats)
+    else:
+        dose, stats = _run_res(lib, "wf_res_fwd", static, at, data, n_cells,
+                               seed, spp)
+    grad, g_stats = _run_res(lib, "wf_res_bwd", static, at, dL, n, seed,
+                             spp)
+    grad_l, l_stats = _run_res(lib, "wf_res_bwd_lanes", static, at, dL, n,
+                               seed, spp)
+    for ours, ref in ((stats, ref_stats), (g_stats, ref_g_stats),
+                      (l_stats, ref_g_stats)):
+        assert ref["steps"] > 0 and ref["prologue_iters"] >= n * spp
+        assert {k: ours[k] for k in ref} == ref
+    point = est in ("ratio", "delta")
+    _close(dose, dose_ref, point, ch)
+    _close(grad, grad_ref, point)
+    assert torch.equal(grad, grad_l)
+    if ch == 2:
+        assert (dose.reshape(-1, 2).sum(0) > 0).all()
+
+
+@pytest.mark.parametrize("case", [RES_CASES[0], RES_CASES[2],
+                                  TARGET_RES_CASES[0]])
+def test_null_bank_selects_the_prologue(case, template_lib):
+    """The same static with and without its chord bank: with it, the
+    bank's instantiations (no prologue iteration counted, the plain
+    version's chord-bank adjoint); without it, the prologue's (its
+    iterations counted, the plain prologue's adjoint): two realizations
+    of one expectation, not the same bits."""
+    lib, path = template_lib
+    est, mode, vial = case[:3]
+    kw = {"target": case[3]} if case in TARGET_RES_CASES else {}
+    static, at = _residual(path, est, mode, vial, "collimated", **kw)
+    bare = {k: v for k, v in at.items() if k != "chord_pack"}
+    rng = np.random.default_rng(21)
+    n, n_cells = static.projector.n_active, static.sensor.n_cells
+    dL = torch.from_numpy(rng.uniform(0.0, 1.0, n_cells).astype(np.float32))
+    seed, spp = 4, 2
+    grads = []
+    for arr in (at, bare):
+        ref_stats = {}
+        ref = wf._adjoint(static, arr, seed, spp, wf.DEFAULT_CHUNK, dL,
+                          ref_stats)
+        grad, stats = _run_res(lib, "wf_res_bwd", static, arr, dL, n, seed,
+                               spp)
+        assert ("prologue_iters" in stats) == \
+            ("prologue_iters" in ref_stats) == (arr is bare)
+        assert {k: stats[k] for k in ref_stats} == ref_stats
+        _close(grad, ref, est != "dda")
+        grads.append(grad)
+    assert not torch.equal(grads[0], grads[1])
+    np.testing.assert_allclose(float(grads[1].sum()), float(grads[0].sum()),
+                               rtol=0.05)
 
 
 # --------------------------------------------------------------------------
