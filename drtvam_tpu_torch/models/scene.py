@@ -23,6 +23,7 @@ from .sensor import Sensor
 from ..ops.mesh import TriMesh, load_mesh
 from ..ops.march import MarchStatic, SurfaceStatic
 from ..ops.mesh_grid import GRID_MIN_TRIS, TriGridStatic, build_tri_grid
+from ..utils.spans import span
 
 
 def _mesh_transform(mesh: TriMesh, cfg):
@@ -106,6 +107,7 @@ class Scene:
                                      name="target"))
         return specs
 
+    @span("build")
     def build(self, mode="volume", include_target=None, max_depth=6,
               rr_depth=6, print_time=1.0, transmission_only=True,
               regular_sampling=False, sample_time=False, sensor=None):

@@ -50,6 +50,7 @@ from .backproject import PackedFields, backproject, banded_eligible, \
 from .march import MarchStatic
 from .transport2d import build_transport, build_z_resample, \
     ballistic_eligible, strip_target, unscattered_eligible
+from ..utils.spans import span
 
 __all__ = ["BallisticEngine", "ballistic_eligible", "default_impl",
            "radon_active_ballistic"]
@@ -94,40 +95,48 @@ class BallisticEngine:
                 raise ValueError("surface-aware ballistic engine needs the "
                                  "inside mask")
             X, Y, Z = static.sensor.res
-            self.mask = torch.as_tensor(np.asarray(
-                inside_mask, np.float32).reshape(Z, Y, X)).to(self.device)
+            with span("upload"):
+                self.mask = torch.as_tensor(np.asarray(
+                    inside_mask, np.float32).reshape(Z, Y, X)).to(self.device)
         p = static.projector
         self.shape_dense = (p.n_patterns, p.resy, p.resx)
         U = p.resx
 
         static2, arr2 = strip_target(static, arr)
         Wn, UWn = build_transport(static2, arr2)
-        with np.errstate(divide="ignore", invalid="ignore"):
-            Un = np.where(Wn > 0, UWn / np.maximum(Wn, 1e-30),
-                          np.float32(-2.0)).astype(np.float32)
-        # host copies for the tests and the band check; the device holds
-        # one packed copy
-        self.W_host, self.U_host = Wn, Un
-        self.impl = self._choose(impl or default_impl(self.device), Wn, Un,
-                                 U)
-        self.fields = PackedFields(torch.from_numpy(Wn).to(self.device),
-                                   torch.from_numpy(Un).to(self.device),
-                                   U, "_band" in self.impl,
-                                   self.impl.endswith("_bf16"))
+        with span("layout"):
+            with np.errstate(divide="ignore", invalid="ignore"):
+                Un = np.where(Wn > 0, UWn / np.maximum(Wn, 1e-30),
+                              np.float32(-2.0)).astype(np.float32)
+            # host copies for the tests and the band check; the device
+            # holds one packed copy
+            self.W_host, self.U_host = Wn, Un
+            self.impl = self._choose(impl or default_impl(self.device), Wn,
+                                     Un, U)
+        with span("upload"):
+            W_d = torch.from_numpy(Wn).to(self.device)
+            U_d = torch.from_numpy(Un).to(self.device)
+        with span("pack", timed=False):
+            self.fields = PackedFields(W_d, U_d, U, "_band" in self.impl,
+                                       self.impl.endswith("_bf16"))
+        del W_d, U_d
 
-        self._build_z_taps(build_z_resample(static, arr))
+        with span("z_taps"):
+            self._build_z_taps(build_z_resample(static, arr))
         ps = np.asarray(arr["pixel_size"])
         # ray weight pixel_area * print_time (spp = 1); 1/voxel_volume is
         # applied by the caller through inv_vol
         self.scalar = float(np.float32(float(ps[0]) * float(ps[1]) *
                                        float(np.asarray(arr["print_time"]))))
-        ap = np.asarray(arr["active_pixels"])
-        n_dense = int(np.prod(self.shape_dense))
-        self.identity_pixels = bool(ap.shape[0] == n_dense and ap[0] == 0 and
-                                    np.all(np.diff(ap) == 1))
-        self.n_active = int(ap.shape[0])
-        self.active_pixels = None if self.identity_pixels else \
-            torch.from_numpy(ap.astype(np.int64)).to(self.device)
+        with span("pixels"):
+            ap = np.asarray(arr["active_pixels"])
+            n_dense = int(np.prod(self.shape_dense))
+            self.identity_pixels = bool(ap.shape[0] == n_dense and
+                                        ap[0] == 0 and
+                                        np.all(np.diff(ap) == 1))
+            self.n_active = int(ap.shape[0])
+            self.active_pixels = None if self.identity_pixels else \
+                torch.from_numpy(ap.astype(np.int64)).to(self.device)
         # the rank's block of the angles (parallel/shard.py AngleShard);
         # None: every angle, one process
         self.shard = None
@@ -182,12 +191,14 @@ class BallisticEngine:
         self.z_taps = tuple(torch.from_numpy(t).to(dev)
                             for t in (zt_i, zt_w, rt_i, rt_w))
 
+    @span("resample", timed=False)
     def _resample_fwd(self, P):
         """(A, resy, U) patterns -> (A, Zf, U)."""
         if self.z_taps is None:
             return torch.einsum("zr,aru->azu", self.Sz, P)
         return self._tap_contract(P, self.z_taps[0], self.z_taps[1])
 
+    @span("resample", timed=False)
     def _resample_bwd(self, Pz_bar):
         """(A, Zf, U) -> (A, resy, U), the transpose of _resample_fwd."""
         if self.z_taps is None:
@@ -274,11 +285,12 @@ def radon_active_ballistic(static: MarchStatic, arr, target_mask,
         static.sensor, surface_aware=False))
     eng = BallisticEngine(static, arr, device, unscattered=True)
     X, Y, Z = static.sensor.res
-    mask = torch.as_tensor(np.asarray(target_mask, np.float32).reshape(
-        Z, Y, X, 1)).to(eng.device)
-    with torch.no_grad():
+    with span("upload"):
+        mask = torch.as_tensor(np.asarray(target_mask, np.float32).reshape(
+            Z, Y, X, 1)).to(eng.device)
+    with span("cull_adjoint"), torch.no_grad():
         g = eng.pattern_grad(mask, 1.0).cpu().numpy()
-    idx = np.nonzero(g > 0.0)[0]
-    if not eng.identity_pixels:
-        idx = eng.active_pixels.cpu().numpy()[idx]
-    return idx.astype(np.int32)
+        idx = np.nonzero(g > 0.0)[0]
+        if not eng.identity_pixels:
+            idx = eng.active_pixels.cpu().numpy()[idx]
+        return idx.astype(np.int32)

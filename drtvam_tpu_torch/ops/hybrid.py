@@ -41,6 +41,7 @@ from .ballistic import BallisticEngine
 from .march import MarchStatic, fast_residual_eligible, scene_tensors
 from .transport2d import build_chords, chord_pack, strip_target, \
     unscattered_eligible
+from ..utils.spans import span
 
 __all__ = ["ScatteringEngine", "hybrid_eligible"]
 
@@ -91,16 +92,18 @@ class ScatteringEngine:
         arr_t = scene_tensors(arr, "cpu")
         if first_scatter:
             # geometry only, A * U lanes: traced on the host, uploaded once
-            st2, arr2 = strip_target(static, arr)
-            arr_t["chord_pack"] = chord_pack(
-                *build_chords(st2, scene_tensors(arr2, "cpu")))
-            if static.sensor.channels == 2:
+            with span("chords"):
+                st2, arr2 = strip_target(static, arr)
+                arr_t["chord_pack"] = chord_pack(
+                    *build_chords(st2, scene_tensors(arr2, "cpu")))
+        with span("upload"):
+            if first_scatter and static.sensor.channels == 2:
                 # the first scatter's channel seed (the JAX package's
                 # inside_mask_flat > 0.5), one byte a voxel
                 arr_t["inside_mask"] = torch.from_numpy(
                     (np.asarray(inside_mask, np.float32) > 0.5)
                     .reshape(-1).astype(np.uint8))
-        self.arr = {k: v.to(self.device) for k, v in arr_t.items()}
+            self.arr = {k: v.to(self.device) for k, v in arr_t.items()}
         self.static_s = dataclasses.replace(
             static, scattered_only=True, sensor=sensor,
             first_scatter=first_scatter,

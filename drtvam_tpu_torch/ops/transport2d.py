@@ -27,6 +27,7 @@ import torch
 
 from ..models.geometry import DIELECTRIC, MESH, NULL
 from ..native import rasterize_fan
+from ..utils.spans import count, span
 from .fresnel import dot3, refract
 from .march import MarchStatic, intersect_scene
 
@@ -77,8 +78,11 @@ def build_transport(static: MarchStatic, arr, supersample: int = 1):
 
     Folded into W: per-cell (sigma_a/sigma_t) exp(-st t)(1 - exp(-st dt))
     Beer-Lambert absorption and the Fresnel transmission products. The
-    ray-weight scalar and 1/voxel_volume are applied by the engine."""
-    return rasterize_fan(static, arr, supersample)
+    ray-weight scalar and 1/voxel_volume are applied by the engine.
+    Spanned as `fan`, counted in `fan_builds`."""
+    count("fan_builds")
+    with span("fan"):
+        return rasterize_fan(static, arr, supersample)
 
 
 def build_chords(static: MarchStatic, arr, K: int = 2):

@@ -32,6 +32,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.spans import count, span
+
 
 def history_dtype_of(dtype):
     """A torch floating dtype from a torch dtype or its name, the form a
@@ -105,9 +107,11 @@ def lbfgs_direction(g, S, Yh, ys, head, nvalid):
 def armijo_search(cand_fn, vol, dvol, z, loss, g_dot_z, search_it=20,
                   c1=1e-4):
     """Armijo halving search. cand_fn(vol, dvol, alpha, z) -> candidate
-    loss. Returns alpha (a power of two)."""
+    loss. Returns alpha (a power of two). Each trial is counted in
+    `search_evals`."""
     alpha = 1.0
     for _ in range(search_it):
+        count("search_evals")
         f_new = cand_fn(vol, dvol, alpha, z)
         if bool(f_new <= loss + c1 * alpha * g_dot_z):
             break
@@ -231,22 +235,26 @@ class DeviceLinearLBFGS:
         self._cand_fn = cand_fn
 
     def step(self, p, g, vol, loss, step_args=()):
-        """Returns the updated (clamped) patterns."""
-        if self._state is None or self._state["p_old"].shape != p.shape:
-            self._state = dict(new_history(p, self.m, self.history_dtype),
-                               t=0)
-        st = self._state
-        z = history_step(st, p, g, first=st["t"] == 0)
-        st["t"] += 1
+        """Returns the updated (clamped) patterns. The history's work is
+        spanned as `lbfgs`, the line search as `search`."""
+        with span("lbfgs", timed=False):
+            if self._state is None or self._state["p_old"].shape != p.shape:
+                self._state = dict(new_history(p, self.m,
+                                               self.history_dtype), t=0)
+            st = self._state
+            z = history_step(st, p, g, first=st["t"] == 0)
+            st["t"] += 1
         dvol = self._dir_fn(z, *step_args)
 
         def cand(vol, dvol, alpha, zz):
             return self._cand_fn(vol, dvol, alpha, zz, *step_args)
 
-        alpha = armijo_search(cand, vol, dvol, z, loss, torch.dot(g, z),
-                              self.search_it, self.c1)
+        with span("search", timed=False):
+            alpha = armijo_search(cand, vol, dvol, z, loss, torch.dot(g, z),
+                                  self.search_it, self.c1)
         self.last_alpha = alpha
-        return _update(p, alpha, z, self.clamp)
+        with span("lbfgs", timed=False):
+            return _update(p, alpha, z, self.clamp)
 
     # -- checkpointing: the JAX package's keys and types ------------------
 

@@ -15,6 +15,24 @@ timing.npy: per iteration, column 0 is the primal render + loss wall
 time, column 1 the adjoint + optimizer step (direction render and line
 search included), each ending in a device synchronize.
 
+timings (the `timings` argument, utils/spans.py's recorder for the
+call): the phases' wall seconds, scene_s, cull_s, precompute_s, loop_s
+(checkpoint_write_s inside it, checkpoint_read_s before it),
+final_render_s and artifacts_s, each ending in a device synchronize or a
+readback; active_pixels; optimize_s, the whole call; the host spans'
+seconds, summed over the call: scene_build_s (Scene(config), the
+target's triangles), voxelize_s (the target's occupancy and, on a
+surface-aware film, its fractional volumes), target_io_s (the target's
+EXR and NPY files), and wherever an engine is built (the cull, the loop,
+the final render) build_s (scene.build), fan_s (the host ray fan),
+layout_s (u from the fields, the kernel choice), upload_s (host to
+device copies), z_taps_s, pixels_s (the pixel store's identity test and
+index upload), chords_s (the hybrid chord bank), inv_volume_s,
+cull_adjoint_s or cull_render_s (with the pixels they keep); the
+artifacts' dose_files_s, pattern_files_s and histogram_s; and two
+counters, fan_builds (host fans rasterized) and search_evals (the Armijo
+search's candidate losses, each a host readback).
+
 DMD-pixel culling before the loop, as in the JAX package:
 `filter_radon` keeps the pixels whose ray crosses the target, by one
 adjoint of the unscattered ballistic engine on the target occupancy
@@ -79,14 +97,25 @@ Modes and keys:
     the last step's checkpoint, written at its end as a Chrome trace
     `*.pt.trace.json` (torch.profiler.tensorboard_trace_handler, which
     TensorBoard reads from that directory); without shapes or stacks.
-    Only the coordinating rank (parallel/multihost.py) traces. It changes
-    no number of the run.
+    The spans are in it as user annotations, on the kernels' clock:
+    `loop`, each `step`, and inside a step `render` (each engine render,
+    the primal's and the L-BFGS direction's; `resample`, the ballistic
+    z-resample, inside it and inside `pattern_grad`), `loss` (the loss,
+    its autograd in the adjoint, each Armijo candidate), `pattern_grad`,
+    `lbfgs` (the history and the update), `search`, `readback` and
+    `checkpoint_write`. A profiler a caller wraps around optimize() sees
+    every span of the call, from `optimize` down (the phases; the
+    engines' `build`, `fan`, `layout`, `upload`, `pack`, `z_taps`,
+    `pixels`, `chords`; the final render's `render` and `readback`).
+    Only the coordinating rank (parallel/multihost.py) traces. It
+    changes no number of the run.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import time
@@ -103,6 +132,7 @@ from ..ops.transport2d import ballistic_eligible, unscattered_eligible
 from ..parallel.multihost import is_coordinator
 from ..utils.io import save_img, save_vol
 from ..utils.metrics import save_histogram
+from ..utils.spans import recording, span
 from .checkpoint import check_optimizer, load_checkpoint, \
     restore_med_state, restore_opt_state, save_checkpoint
 from .device_lbfgs import DeviceLinearLBFGS
@@ -141,24 +171,28 @@ def _make_step_fns(render, pattern_grad, loss_obj, target):
 
     @torch.no_grad()
     def primal(data, seed):
-        vol = render(data, seed)
-        return vol, loss_obj(vol, target, data)
+        with span("render", timed=False):
+            vol = render(data, seed)
+        with span("loss", timed=False):
+            return vol, loss_obj(vol, target, data)
 
     def adjoint(vol, data, seed):
         v = vol.detach().requires_grad_(True)
         p = data.detach().requires_grad_(True)
-        with torch.enable_grad():
+        with span("loss", timed=False), torch.enable_grad():
             dvol, dpat = torch.autograd.grad(loss_obj(v, target, p), (v, p))
-        with torch.no_grad():
+        with span("pattern_grad", timed=False), torch.no_grad():
             return pattern_grad(dvol, seed) + dpat
 
     @torch.no_grad()
+    @span("render", timed=False)
     def dir_fn(z, seed):
         # the direction renders with the step's seed: the linear line
         # search assumes one realization per step
         return render(z, seed)
 
     @torch.no_grad()
+    @span("loss", timed=False)
     def cand_fn(vol, dvol, alpha, z, seed):
         # the sparsity term rides on the SEARCH DIRECTION during the line
         # search (reference quirk)
@@ -221,10 +255,14 @@ def _cull(config, scene, target, device, rr_depth, transmission_only,
                 rr_depth=rr_depth, print_time=1.0,
                 transmission_only=transmission_only,
                 regular_sampling=regular_sampling)
-            img = wavefront.render_radon(
-                static_r, scene_tensors(arr_r, device), seed=0,
-                spp=config.get("spp_filter_radon", 4), chunk=chunk)
-            active = np.nonzero(img.cpu().numpy() > 0.0)[0].astype(np.int32)
+            with span("upload"):
+                arr_r = scene_tensors(arr_r, device)
+            with span("cull_render"):
+                img = wavefront.render_radon(
+                    static_r, arr_r, seed=0,
+                    spp=config.get("spp_filter_radon", 4), chunk=chunk)
+                active = np.nonzero(img.cpu().numpy() > 0.0)[0].astype(
+                    np.int32)
         if active.size == 0:
             raise ValueError(
                 "Radon culling removed every DMD pixel — no ray ever "
@@ -237,10 +275,13 @@ def _cull(config, scene, target, device, rr_depth, transmission_only,
             mode="volume", include_target=True, max_depth=1,
             rr_depth=rr_depth, print_time=1.0,
             transmission_only=transmission_only, regular_sampling=True)
-        img = wavefront.render_corner(
-            static_c, scene_tensors(arr_c, device), dist=ccfg["dist"],
-            radius=ccfg.get("radius", 0.1), seed=0, chunk=chunk)
-        active = np.nonzero(img.cpu().numpy() > 0.0)[0].astype(np.int32)
+        with span("upload"):
+            arr_c = scene_tensors(arr_c, device)
+        with span("cull_render"):
+            img = wavefront.render_corner(
+                static_c, arr_c, dist=ccfg["dist"],
+                radius=ccfg.get("radius", 0.1), seed=0, chunk=chunk)
+            active = np.nonzero(img.cpu().numpy() > 0.0)[0].astype(np.int32)
         if active.size == 0:
             raise ValueError(
                 "Corner culling removed every DMD pixel — the corner "
@@ -415,21 +456,26 @@ def _final_render(scene, data, device, engine_cfg, surface_aware, spp_ref,
         mode="volume", include_target=surface_aware, sensor=final_sensor,
         **build_kw)
     inv_vol_f = float(np.float32(1.0 / final_sensor.voxel_volume))
-    with torch.no_grad():
-        if engine_cfg != "wavefront" and ballistic_eligible(static_f):
-            vol = BallisticEngine(static_f, arr_f, device).render_vol(
-                data, inv_vol_f)
-        elif engine_cfg != "wavefront" and hybrid_eligible(static_f):
-            vol = ScatteringEngine(static_f, arr_f, device, spp=spp_ref,
-                                   chunk=chunk).render_vol(data, inv_vol_f,
-                                                           0)
-        else:
-            vol = wavefront.render(static_f, scene_tensors(arr_f, device),
-                                   data, inv_vol_f, 0, spp_ref, spp_ref,
-                                   chunk)
-    return vol.cpu().numpy()
+    if engine_cfg != "wavefront" and ballistic_eligible(static_f):
+        render = functools.partial(
+            BallisticEngine(static_f, arr_f, device).render_vol, data,
+            inv_vol_f)
+    elif engine_cfg != "wavefront" and hybrid_eligible(static_f):
+        render = functools.partial(
+            ScatteringEngine(static_f, arr_f, device, spp=spp_ref,
+                             chunk=chunk).render_vol, data, inv_vol_f, 0)
+    else:
+        with span("upload"):
+            arr_t = scene_tensors(arr_f, device)
+        render = functools.partial(wavefront.render, static_f, arr_t, data,
+                                   inv_vol_f, 0, spp_ref, spp_ref, chunk)
+    with span("render", timed=False), torch.no_grad():
+        vol = render()
+    with span("readback", timed=False):
+        return vol.cpu().numpy()
 
 
+@span("dose_files")
 def _write_dose(output, vol_final, loss_hist, timing_hist):
     np.save(os.path.join(output, "final.npy"), vol_final)
     save_vol(vol_final, os.path.join(output, "final.exr"))
@@ -458,93 +504,107 @@ def optimize(config, patterns_fwd=None, resolve_path=None, device="cuda",
             (n_patterns, resy, resx) patterns (the CLI's --forward_mode).
         resolve_path: optional relative-path resolver.
         device: torch device the engine and the optimizer run on.
-        timings: optional dict, filled with the wall seconds of the
-            phases (scene_s, cull_s, precompute_s, loop_s,
-            final_render_s, artifacts_s; checkpoint_write_s, inside
-            loop_s, and checkpoint_read_s where they ran) and the active
-            pixels the loop optimizes (active_pixels).
+        timings: optional dict, the recorder of the call's spans and
+            counters (utils/spans.py): the wall seconds of the phases
+            (scene_s, cull_s, precompute_s, loop_s, final_render_s,
+            artifacts_s; checkpoint_write_s, inside loop_s, and
+            checkpoint_read_s where they ran), the active pixels the
+            loop optimizes (active_pixels), the host spans' seconds and
+            the counters listed in the module's docstring.
     Returns the final dose volume as a numpy (Z, Y, X, 1) array.
     """
-    device = torch.device(device)
+    timings = {} if timings is None else timings
+    with recording(timings), span("optimize"):
+        return _optimize(config, patterns_fwd, resolve_path,
+                         torch.device(device), timings)
+
+
+def _optimize(config, patterns_fwd, resolve_path, device, timings):
     # float32 products stay float32 on the card (stated, and the default)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    timings = {} if timings is None else timings
     config = dict(config)
     if resolve_path is None:
         def resolve_path(p):
             return p
 
-    t0 = time.perf_counter()
-    scene = Scene(config, resolve_path)
-    med_cfg = medium_config(config)
-    if med_cfg is not None and \
-            config.get("engine", "auto") in ("ballistic", "hybrid"):
-        raise ValueError(
-            "optimize_medium requires the wavefront engine; the "
-            f"'{config['engine']}' engine precomputes the medium into its "
-            "transport fields")
-    if patterns_fwd is not None:
-        # checked before any state changes
-        patterns_fwd = np.asarray(patterns_fwd, np.float32)
-        if patterns_fwd.shape != scene.projector.size():
+    with span("scene"):
+        with span("scene_build"):
+            scene = Scene(config, resolve_path)
+        med_cfg = medium_config(config)
+        if med_cfg is not None and \
+                config.get("engine", "auto") in ("ballistic", "hybrid"):
             raise ValueError(
-                f"forward mode: the patterns have shape "
-                f"{patterns_fwd.shape}, the projector (n_patterns, resy, "
-                f"resx) = {scene.projector.size()}")
-    output = config["output"]
-    os.makedirs(os.path.join(output, "patterns"), exist_ok=True)
+                "optimize_medium requires the wavefront engine; the "
+                f"'{config['engine']}' engine precomputes the medium into "
+                "its transport fields")
+        if patterns_fwd is not None:
+            # checked before any state changes
+            patterns_fwd = np.asarray(patterns_fwd, np.float32)
+            if patterns_fwd.shape != scene.projector.size():
+                raise ValueError(
+                    f"forward mode: the patterns have shape "
+                    f"{patterns_fwd.shape}, the projector (n_patterns, "
+                    f"resy, resx) = {scene.projector.size()}")
+        output = config["output"]
+        os.makedirs(os.path.join(output, "patterns"), exist_ok=True)
 
-    spp = config.get("spp", 4)
-    spp_ref = config.get("spp_ref", 16)
-    spp_grad = config.get("spp_grad", spp)
-    max_depth = config.get("max_depth", 6)
-    rr_depth = config.get("rr_depth", 6)
-    print_time = config.get("time", 1.0)
-    progressive = config.get("progressive", False)
-    transmission_only = config.get("transmission_only", True)
-    regular_sampling = config.get("regular_sampling", False)
-    chunk = config.get("chunk_size", wavefront.DEFAULT_CHUNK)
-    engine_cfg = "wavefront" if med_cfg is not None else \
-        config.get("engine", "auto")
-    if regular_sampling:
-        spp = 1  # rays from pixel centres (spp_grad keeps its value)
-    sensor = scene.sensor
-    surface_aware = sensor.surface_aware
-    build_kw = dict(print_time=print_time,
-                    transmission_only=transmission_only,
-                    regular_sampling=regular_sampling)
+        spp = config.get("spp", 4)
+        spp_ref = config.get("spp_ref", 16)
+        spp_grad = config.get("spp_grad", spp)
+        max_depth = config.get("max_depth", 6)
+        rr_depth = config.get("rr_depth", 6)
+        print_time = config.get("time", 1.0)
+        progressive = config.get("progressive", False)
+        transmission_only = config.get("transmission_only", True)
+        regular_sampling = config.get("regular_sampling", False)
+        chunk = config.get("chunk_size", wavefront.DEFAULT_CHUNK)
+        engine_cfg = "wavefront" if med_cfg is not None else \
+            config.get("engine", "auto")
+        if regular_sampling:
+            spp = 1  # rays from pixel centres (spp_grad keeps its value)
+        sensor = scene.sensor
+        surface_aware = sensor.surface_aware
+        build_kw = dict(print_time=print_time,
+                        transmission_only=transmission_only,
+                        regular_sampling=regular_sampling)
 
-    if sensor.static.estimator == "delta" and scene.medium.albedo == 0.0:
-        raise ValueError(
-            "the delta-tracking estimator needs a scattering medium "
-            "(albedo > 0); use 'dda' or 'ratio' for pure absorption")
+        if sensor.static.estimator == "delta" and scene.medium.albedo == 0.0:
+            raise ValueError(
+                "the delta-tracking estimator needs a scattering medium "
+                "(albedo > 0); use 'dda' or 'ratio' for pure absorption")
 
-    # the target: binary occupancy, or on a surface-aware film the
-    # inside / outside fractional volumes
-    tb = inside_mask = None
-    if scene.target_dose is not None:
-        if surface_aware:
-            raise ValueError("a dose-volume target cannot drive the "
-                             "surface-aware discretization")
-        if config.get("filter_radon", False) or "filter_corner" in config:
-            raise ValueError("DMD-pixel culling filters need a target "
-                             "mesh, not a dose volume")
-        target = scene.target_dose
-    else:
-        tb = scene.target_bank()
-        if surface_aware:
-            target = sensor.compute_volume(tb)
-            save_vol(target[..., 0, None],
-                     os.path.join(output, "target_in.exr"))
-            save_vol(target[..., 1, None],
-                     os.path.join(output, "target_out.exr"))
-            inside_mask = sensor.discretize(tb)
+        # the target: binary occupancy, or on a surface-aware film the
+        # inside / outside fractional volumes
+        tb = inside_mask = None
+        if scene.target_dose is not None:
+            if surface_aware:
+                raise ValueError("a dose-volume target cannot drive the "
+                                 "surface-aware discretization")
+            if config.get("filter_radon", False) or \
+                    "filter_corner" in config:
+                raise ValueError("DMD-pixel culling filters need a target "
+                                 "mesh, not a dose volume")
+            target = scene.target_dose
         else:
-            target = np.asarray(sensor.discretize(tb))
-            save_vol(target, os.path.join(output, "target.exr"))
-    np.save(os.path.join(output, "target.npy"), target)
-    timings["scene_s"] = time.perf_counter() - t0
+            with span("scene_build"):
+                tb = scene.target_bank()
+            if surface_aware:
+                with span("voxelize"):
+                    target = sensor.compute_volume(tb)
+                    inside_mask = sensor.discretize(tb)
+                with span("target_io"):
+                    save_vol(target[..., 0, None],
+                             os.path.join(output, "target_in.exr"))
+                    save_vol(target[..., 1, None],
+                             os.path.join(output, "target_out.exr"))
+            else:
+                with span("voxelize"):
+                    target = np.asarray(sensor.discretize(tb))
+                with span("target_io"):
+                    save_vol(target, os.path.join(output, "target.exr"))
+        with span("target_io"):
+            np.save(os.path.join(output, "target.npy"), target)
 
     if "loss" not in config:
         print("Config has no 'loss' entry; defaulting to the thresholded "
@@ -570,6 +630,7 @@ def optimize(config, patterns_fwd=None, resolve_path=None, device="cuda",
     final_kw = dict(max_depth=config.get("max_depth_ref", 16),
                     rr_depth=config.get("rr_depth_ref", 8), **build_kw)
 
+    @span("final_render")
     def final_render(data):
         return _final_render(scene, data, device, engine_cfg, surface_aware,
                              spp_ref, chunk, final_kw)
@@ -587,13 +648,11 @@ def optimize(config, patterns_fwd=None, resolve_path=None, device="cuda",
         _psf_pixels(config, scene)
         data = torch.as_tensor(scene.projector.active_data, device=device)
         print("Rendering the final dose volume...")
-        t0 = time.perf_counter()
         vol_final = final_render(data)
-        timings["final_render_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        _write_dose(output, vol_final, loss_hist, timing_hist)
-        _dump_patterns(scene, data, output)
-        timings["artifacts_s"] = time.perf_counter() - t0
+        with span("artifacts"):
+            _write_dose(output, vol_final, loss_hist, timing_hist)
+            with span("pattern_files"):
+                _dump_patterns(scene, data, output)
         return vol_final
     else:
         data = _optimize_loop(
@@ -604,33 +663,34 @@ def optimize(config, patterns_fwd=None, resolve_path=None, device="cuda",
                  progressive=progressive, build_kw=build_kw, med=med_cfg))
 
     print("Rendering the final dose volume...")
-    t0 = time.perf_counter()
     vol_final = final_render(data)
-    timings["final_render_s"] = time.perf_counter() - t0
 
-    t0 = time.perf_counter()
-    _write_dose(output, vol_final, loss_hist, timing_hist)
-    imgs = _dump_patterns(scene, data, output)
-    array_max = float(np.max(imgs)) if imgs.size else 1.0
-    array_max = array_max if array_max > 0 else 1.0
-    normalized = imgs / array_max
-    np.savez_compressed(
-        os.path.join(output, "patterns_normalized_uint8.npz"),
-        patterns=(normalized * 255).astype(np.uint8))
+    with span("artifacts"):
+        _write_dose(output, vol_final, loss_hist, timing_hist)
+        with span("pattern_files"):
+            imgs = _dump_patterns(scene, data, output)
+            array_max = float(np.max(imgs)) if imgs.size else 1.0
+            array_max = array_max if array_max > 0 else 1.0
+            normalized = imgs / array_max
+            np.savez_compressed(
+                os.path.join(output, "patterns_normalized_uint8.npz"),
+                patterns=(normalized * 255).astype(np.uint8))
 
-    if surface_aware:
-        # the target's occupancy on the final sensor's grid
-        hist_target = scene.final_sensor.discretize(tb)
-        np.save(os.path.join(output, "target_binary.npy"), hist_target)
-        save_vol(hist_target, os.path.join(output, "target_binary.exr"))
-    else:
-        hist_target = target
-    efficiency = float(np.sum(normalized / normalized.size))
-    print(f"Pattern energy efficiency: {efficiency:.4f}")
-    save_histogram(vol_final, hist_target,
-                   os.path.join(output, "histogram.png"), efficiency,
-                   array_max)
-    timings["artifacts_s"] = time.perf_counter() - t0
+        with span("histogram"):
+            if surface_aware:
+                # the target's occupancy on the final sensor's grid
+                hist_target = scene.final_sensor.discretize(tb)
+                np.save(os.path.join(output, "target_binary.npy"),
+                        hist_target)
+                save_vol(hist_target,
+                         os.path.join(output, "target_binary.exr"))
+            else:
+                hist_target = target
+            efficiency = float(np.sum(normalized / normalized.size))
+            print(f"Pattern energy efficiency: {efficiency:.4f}")
+            save_histogram(vol_final, hist_target,
+                           os.path.join(output, "histogram.png"), efficiency,
+                           array_max)
     return vol_final
 
 
@@ -652,16 +712,15 @@ def _optimize_loop(config, scene, device, timings, engine_cfg, optim_type,
     if optim_type not in ("lbfgs", "adam", "sgd"):
         raise ValueError(f"Unknown optimizer type: '{optim_type}'")
 
-    t0 = time.perf_counter()
-    cull_mask = inside_mask if inside_mask is not None else target
-    if _cull(config, scene, cull_mask, device, rp["rr_depth"],
-             build_kw["transmission_only"], build_kw["regular_sampling"],
-             rp["chunk"]):
-        n_dense = int(np.prod(scene.projector.size()))
-        print(f"DMD-pixel culling kept {scene.projector.active_size()} of "
-              f"{n_dense} pixels")
-    _sync(device)
-    timings["cull_s"] = time.perf_counter() - t0
+    with span("cull"):
+        cull_mask = inside_mask if inside_mask is not None else target
+        if _cull(config, scene, cull_mask, device, rp["rr_depth"],
+                 build_kw["transmission_only"], build_kw["regular_sampling"],
+                 rp["chunk"]):
+            n_dense = int(np.prod(scene.projector.size()))
+            print(f"DMD-pixel culling kept {scene.projector.active_size()} "
+                  f"of {n_dense} pixels")
+        _sync(device)
 
     # resume: the checkpoint's store is set before the engine is built
     # from the scene (the JAX package sets it after building its step
@@ -669,9 +728,8 @@ def _optimize_loop(config, scene, device, timings, engine_cfg, optim_type,
     start_step, ckpt = 0, None
     checkpoint_every = int(config.get("checkpoint_every", 0))
     if config.get("resume", False):
-        t0 = time.perf_counter()
-        ckpt = load_checkpoint(output)
-        timings["checkpoint_read_s"] = time.perf_counter() - t0
+        with span("checkpoint_read"):
+            ckpt = load_checkpoint(output)
         if ckpt is None:
             print("No checkpoint found; starting from scratch.")
         else:
@@ -700,17 +758,20 @@ def _optimize_loop(config, scene, device, timings, engine_cfg, optim_type,
         med = _Medium(rp["med"], scene.medium)
     engine_kind = select_engine(engine_cfg, static)
     timings["active_pixels"] = static.projector.n_active
-    inv_vol = sensor.inv_volume(tb)
-    inv_vol = torch.from_numpy(inv_vol).to(device) if inv_vol.ndim else \
-        float(inv_vol)
+    with span("inv_volume"):
+        inv_vol = sensor.inv_volume(tb)
+    with span("upload"):
+        inv_vol = torch.from_numpy(inv_vol).to(device) if inv_vol.ndim \
+            else float(inv_vol)
     engine = _Engine(engine_kind, static, arr, device, inv_vol, rp["spp"],
                      rp["spp_grad"], rp["chunk"],
                      config.get("hybrid_estimator"), inside_mask)
-    target_t = torch.from_numpy(np.ascontiguousarray(target)).to(device)
+    with span("upload"):
+        target_t = torch.from_numpy(np.ascontiguousarray(target)).to(device)
+        data = torch.as_tensor(scene.projector.active_data,
+                               dtype=torch.float32, device=device)
     fns = _make_step_fns(engine.render, engine.pattern_grad, loss_obj,
                          target_t)
-    data = torch.as_tensor(scene.projector.active_data, dtype=torch.float32,
-                           device=device)
     if optim_type == "lbfgs":
         opt = DeviceLinearLBFGS(dir_fn=fns["dir_fn"], cand_fn=fns["cand_fn"],
                                 **opt_cfg)
@@ -733,48 +794,52 @@ def _optimize_loop(config, scene, device, timings, engine_cfg, optim_type,
 
         print("Starting the pattern optimization loop...")
         timings["checkpoint_write_s"] = 0.0
-        t_loop = time.perf_counter()
-        for i in range(start_step, n_steps):
-            if progressive and i == 5 and depth != max_depth:
-                # before the step's timer, as in the JAX package
-                depth = max_depth
-                engine.set_depth(depth)
-                fns = _make_step_fns(engine.render, engine.pattern_grad,
-                                     loss_obj, target_t)
-                if optim_type == "lbfgs":
-                    opt.rebind(fns["dir_fn"], fns["cand_fn"])
-            t0 = time.perf_counter()
-            vol, loss = fns["primal"](data, i)
-            loss_hist[i] = float(loss)
-            timing_hist[i, 0] = time.perf_counter() - t0
+        with span("loop"):
+            for i in range(start_step, n_steps):
+                if progressive and i == 5 and depth != max_depth:
+                    # before the step's timer, as in the JAX package
+                    depth = max_depth
+                    engine.set_depth(depth)
+                    fns = _make_step_fns(engine.render, engine.pattern_grad,
+                                         loss_obj, target_t)
+                    if optim_type == "lbfgs":
+                        opt.rebind(fns["dir_fn"], fns["cand_fn"])
+                with span("step", timed=False):
+                    t0 = time.perf_counter()
+                    vol, loss = fns["primal"](data, i)
+                    with span("readback", timed=False):
+                        loss_hist[i] = float(loss)
+                    timing_hist[i, 0] = time.perf_counter() - t0
 
-            t1 = time.perf_counter()
-            grad = fns["adjoint"](vol, data, i)
-            if loss_hist[i] == 0.0:
-                print("Converged")
-                _sync(device)
-                timing_hist[i, 1] = time.perf_counter() - t1
-                break
-            if optim_type == "lbfgs":
-                data = opt.step(data, grad, vol, loss, step_args=(i,))
-            else:
-                data = opt.step(data, grad)
-            if med is not None:
-                # the medium's gradient at the new patterns, the step's seed
-                med.step(*engine.medium_grad(data, i, loss_obj, target_t))
-                med.apply(engine.arr)
-            _sync(device)
-            timing_hist[i, 1] = time.perf_counter() - t1
-            print(f"step {i:4d}  loss {loss_hist[i]:.6e}  "
-                  f"{timing_hist[i].sum():.3f}s")
-            if checkpoint_every and ((i + 1) % checkpoint_every == 0
-                                     or i == n_steps - 1):
-                t0 = time.perf_counter()
-                save_checkpoint(output, i, data, scene.projector.active_pixels,
-                                loss_hist, timing_hist, optim_type, opt,
+                    t1 = time.perf_counter()
+                    grad = fns["adjoint"](vol, data, i)
+                    if loss_hist[i] == 0.0:
+                        print("Converged")
+                        _sync(device)
+                        timing_hist[i, 1] = time.perf_counter() - t1
+                        break
+                    if optim_type == "lbfgs":
+                        data = opt.step(data, grad, vol, loss, step_args=(i,))
+                    else:
+                        data = opt.step(data, grad)
+                    if med is not None:
+                        # the medium's gradient at the new patterns, the
+                        # step's seed
+                        med.step(*engine.medium_grad(data, i, loss_obj,
+                                                     target_t))
+                        med.apply(engine.arr)
+                    _sync(device)
+                    timing_hist[i, 1] = time.perf_counter() - t1
+                    print(f"step {i:4d}  loss {loss_hist[i]:.6e}  "
+                          f"{timing_hist[i].sum():.3f}s")
+                    if checkpoint_every and ((i + 1) % checkpoint_every == 0
+                                             or i == n_steps - 1):
+                        with span("checkpoint_write"):
+                            save_checkpoint(
+                                output, i, data,
+                                scene.projector.active_pixels, loss_hist,
+                                timing_hist, optim_type, opt,
                                 None if med is None else med.state())
-                timings["checkpoint_write_s"] += time.perf_counter() - t0
-        timings["loop_s"] = time.perf_counter() - t_loop
     scene.projector.active_data = data
     if med is not None:
         scene.medium.sigma_t, scene.medium.albedo = med.sigma_t, med.albedo

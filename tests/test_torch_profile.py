@@ -6,8 +6,11 @@ each write one Chrome trace (`*.pt.trace.json`) of the loop into the
 directory the JAX driver would trace into, and change no number of the
 run: the loss history, final.npy and every other artifact but
 timing.npy (wall seconds) are bitwise those of the same run without it,
-under L-BFGS, Adam and the hybrid engine's progressive schedule. Without
-the key no trace is written. Both CLIs make the trace directory on the
+under L-BFGS, Adam and the hybrid engine's progressive schedule. The
+trace holds the program's spans (drtvam_tpu_torch/utils/spans.py) as
+user annotations: each step's, and inside it the renders, the z-resample,
+the losses, the L-BFGS history and the line search. Without the key no
+trace is written. Both CLIs make the trace directory on the
 same config (the JAX one writes jax.profiler's files there)."""
 import json
 import os
@@ -135,6 +138,45 @@ def test_profile_traces_the_loop_and_changes_nothing(value, mode, work,
                                           np.load(plain / f), err_msg=f)
         elif not f.endswith(".npy"):
             assert (out / f).read_bytes() == (plain / f).read_bytes(), f
+
+
+@pytest.fixture(scope="module")
+def loop_spans(work):
+    """The user_annotation events (the program's spans) of the L-BFGS
+    mode's profiled loop, one run, and its steps."""
+    cfg = _config(work, "prof_spans", "lbfgs")
+    cfg["profile"] = True
+    out = _run(work, cfg, "prof_spans")
+    trace_dir = out / "trace"
+    (trace,) = [f for f in os.listdir(trace_dir)
+                if f.endswith(".pt.trace.json")]
+    with open(trace_dir / trace) as f:
+        events = json.load(f)["traceEvents"]
+    return [e for e in events if e.get("cat") == "user_annotation"], \
+        cfg["n_steps"]
+
+
+@pytest.mark.parametrize("name,parent", [
+    ("step", "loop"), ("render", "step"), ("loss", "step"),
+    ("lbfgs", "step"), ("search", "step"), ("resample", "render"),
+    ("resample", "pattern_grad")])
+def test_profile_traces_the_step_spans(loop_spans, name, parent):
+    """Each of the step's spans is in the loop's trace (a `resample`
+    inside the primal render and inside the adjoint's pattern
+    gradient), nested inside its parent span on the ops' clock."""
+    events, n_steps = loop_spans
+    iv = {}
+    for e in events:
+        iv.setdefault(e["name"], []).append(
+            (float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+    assert len(iv["step"]) == n_steps
+    inside = [(s, e) for s, e in iv[name]
+              if any(ps <= s + 1e-3 and e <= pe + 1e-3
+                     for ps, pe in iv[parent])]
+    assert len(inside) >= n_steps, (name, parent)
+    assert all(any(ps <= s + 1e-3 and e <= pe + 1e-3
+                   for ps, pe in iv["step"])
+               for s, e in iv[name] if name != "step")
 
 
 def test_no_trace_without_profile(work, plain_runs, capsys):
