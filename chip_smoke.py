@@ -6,8 +6,9 @@
 Phases (each failure exits non-zero before the result line):
   1. device: a CUDA device must exist; prints nvidia-smi's name and
      power limit.
-  2. build: nvcc builds the seventeen kernel sources from csrc/ (the
+  2. build: nvcc builds the eighteen kernel sources from csrc/ (the
      four backprojection kernels, their four bf16 operand forms, the
+     ballistic engine's z-resample gather zres, the
      wavefront pair, the hybrid engine's residual pair, whose forward
      also holds the dda walk pass and the chord table, the two culling
      renders wf_radon and wf_corner, the target forms: the analog
@@ -33,13 +34,20 @@ Phases (each failure exits non-zero before the result line):
      cylindrical vial's, the banded pairs on the index-matched vial's;
      and the ballistic engine on the card against the same engine on the
      CPU on two small scenes (dense and banded layout, float32 and
-     bf16).
+     bf16). The z-resample gather (zres) in both directions on the
+     cylindrical bench engine's own tap tables at the bench shapes (400
+     angles, 400 DMD rows to 256 film rows, 400 columns): bitwise
+     BallisticEngine._tap_contract on the same inputs and on two
+     launches, CUDA-event times beside _tap_contract's, the bound (each
+     input read once, each output written once, at the HBM rate).
   4. main path: optimize() on the bench scene (400 angles, 400x400 DMD,
      256^3 film, cylindrical vial, 40 Linear-L-BFGS steps); the best
-     IoU over 301 thresholds must reach 0.98. Refraction at the vial
-     wall stretches some (angle, 32x64 block) u-spans past the 256-column
-     band, so the engine runs the dense pair here (as the JAX package's
-     engine does on this scene).
+     IoU over 301 thresholds must reach 0.98; the z-resample kernel
+     must launch at least three times a loop step (zres launches,
+     counted from zero for the run; so in phases 4b-5b). Refraction at
+     the vial wall stretches some (angle, 32x64 block) u-spans past the
+     256-column band, so the engine runs the dense pair here (as the
+     JAX package's engine does on this scene).
   4b. the bf16 operand path: phase 4 with DRTVAM_MATMUL=bf16 and the
      optimizer's "history_dtype": "bfloat16" (the JAX package's bf16
      deployment): the bf16 dense pair must launch and the float32 one
@@ -347,6 +355,8 @@ REPLACES = {
               "summed by trace_wavefront :913-922, :1185-1189, under "
               "jax.grad in (sigma_t, albedo), "
               "drtvam_tpu/opt/optimize.py:453-468; XLA)",
+    "zres": "drtvam_tpu/ops/ballistic.py:280 (_tap_contract, the "
+            "z-resample's gathers; XLA)",
 }
 # wf kernel vs plain wavefront on the card: the same per-lane float32
 # arithmetic rounded op by op (--fmad=false); the forward's atomics sum
@@ -690,8 +700,65 @@ def phase_real_fields(torch, bp, dev, tmp):
             rec["roofline_share"] = rec["bound_ms"] / rec["ms"]
             emit(rec)
             out[name] = rec
-        del eng, f, lay, Pz, dL, cases
+        del Pz, dL, cases
+        if vial == "cylindrical":
+            out["zres"] = zres_records(torch, eng, vial)
+        del eng, f, lay
         torch.cuda.empty_cache()
+    return out
+
+
+def zres_records(torch, eng, vial, reps=20):
+    """The z-resample gather (csrc/zres.cu) on a bench engine's own tap
+    tables at its shapes, both directions, on uniform inputs in
+    [-0.5, 0.5): bitwise BallisticEngine._tap_contract on the same inputs
+    and bitwise on two launches, CUDA-event times beside _tap_contract's
+    on the card, and the bound: each input element read once and each
+    output element written once, at the HBM rate. Returns {direction:
+    record}."""
+    from drtvam_tpu_torch.ops import zresample
+    from drtvam_tpu_torch.ops.ballistic import BallisticEngine
+    zt_i, zt_w, rt_i, rt_w = eng.z_taps
+    A, U = eng.fields.A, eng.fields.U
+    Zf, R = zt_i.shape[0], rt_i.shape[0]
+    gen = torch.Generator(device=zt_i.device).manual_seed(5)
+    out = {}
+    for direction, n_in, n_out, idx, w in (
+            ("forward", R, Zf, zt_i, zt_w), ("adjoint", Zf, R, rt_i, rt_w)):
+        x = torch.rand((A, n_in, U), device=zt_i.device, generator=gen) - 0.5
+
+        def kern():
+            return zresample.gather(x, idx, w)
+
+        def plain():
+            return BallisticEngine._tap_contract(x, idx, w)
+
+        got, again, ref = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        bitwise_plain = bool(torch.equal(got.view(torch.int32),
+                                         ref.view(torch.int32)))
+        bitwise_repeat = bool(torch.equal(got.view(torch.int32),
+                                          again.view(torch.int32)))
+        del got, again, ref
+        if not (bitwise_plain and bitwise_repeat):
+            raise AssertionError(f"zres {direction}: bitwise _tap_contract "
+                                 f"{bitwise_plain}, bitwise on two "
+                                 f"launches {bitwise_repeat}")
+        n_bytes = 4 * A * U * (n_in + n_out)
+        rec = {"phase": "kernel_zres", "direction": direction, "vial": vial,
+               "shapes": {"A": A, "n_in": n_in, "n_out": n_out, "U": U,
+                          "K": int(idx.shape[1])},
+               "max_taps": int((w != 0).sum(1).max()),
+               "bitwise_plain": bitwise_plain,
+               "bitwise_repeat": bitwise_repeat,
+               "ms": cuda_ms(kern, reps, torch),
+               "plain_ms": cuda_ms(plain, 3, torch), "bytes": n_bytes,
+               "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+               "bound_by": "bytes"}
+        rec["roofline_share"] = rec["bound_ms"] / rec["ms"]
+        emit(rec)
+        out[direction] = rec
+        del x
     return out
 
 
@@ -810,15 +877,17 @@ def phase_bench(torch, bp, dev, tmp, vial, kernels, bf16=False):
     no other backprojection kernel. bf16: the bf16 operand path, with
     DRTVAM_MATMUL=bf16 in the environment for the phase and a bfloat16
     L-BFGS history; else DRTVAM_MATMUL=f32. Returns the record."""
+    from drtvam_tpu_torch.ops import zresample
     from drtvam_tpu_torch.utils.metrics import best_iou
     cfg = bench_config(tmp, vial)
     if bf16:
         cfg["optimizer"]["history_dtype"] = "bfloat16"
         cfg["output"] += "_bf16"
     bp.reset_launches()
+    zresample.launches["zres"] = 0
     vol, timings, wall, peak = optimize_on_card(torch, dev, cfg,
                                                 "bf16" if bf16 else "f32")
-    counts = dict(bp.launches)
+    counts = {**bp.launches, "zres": zresample.launches["zres"]}
     for name in kernels:
         if counts[name] == 0:
             raise AssertionError(f"the {vial} bench run never launched "
@@ -833,6 +902,10 @@ def phase_bench(torch, bp, dev, tmp, vial, kernels, bf16=False):
     loss = np.load(os.path.join(cfg["output"], "loss.npy"))
     steps = int(np.count_nonzero(
         np.load(os.path.join(cfg["output"], "timing.npy")).sum(1)))
+    # two renders and a pattern gradient a loop step, each one resample
+    if counts["zres"] < 3 * steps:
+        raise AssertionError(f"the {vial} bench run launched zres "
+                             f"{counts['zres']} times in {steps} steps")
     rec = {"phase": "bench_bf16" if bf16 else "bench", "vial": vial,
            "scene_s": timings["scene_s"],
            "precompute_s": timings["precompute_s"],
@@ -6124,6 +6197,7 @@ def main():
     from drtvam_tpu_torch.native import load_cuda
     from drtvam_tpu_torch.ops import backproject as bp
     from drtvam_tpu_torch.ops import render as wf
+    from drtvam_tpu_torch.ops import zresample
 
     smi = subprocess.run(["nvidia-smi", "-i", "0",
                           "--query-gpu=name,power.limit",
@@ -6136,11 +6210,12 @@ def main():
 
     laps = Laps()
     t0 = time.perf_counter()
-    # all seventeen sources at once, one nvcc each, started together with
+    # all eighteen sources at once, one nvcc each, started together with
     # the residual pair's stopping builds (phase 8b's per-lane times)
-    cuda = bp.KERNELS + wf.LIBS
+    cuda = bp.KERNELS + wf.LIBS + zresample.KERNELS
     res_jobs = start_res_variants(wf)
-    load_cuda(cuda, {**bp._SETUP, **wf._SETUP}, wf._FLAGS)
+    load_cuda(cuda, {**bp._SETUP, **wf._SETUP, "zres": zresample._setup},
+              wf._FLAGS)
     res_variants = finish_res_variants(wf, res_jobs)
     atomic = atomic_tool()
     atomic_lib = atomic.build()
@@ -6169,6 +6244,8 @@ def main():
                     "loss_last", "wall_s")}})
             for n in pair + pair16:
                 bench[n] = (f32 if n in pair else b16)["launches"][n]
+            if vial == "cylindrical":
+                bench["zres"] = f32["launches"]["zres"]
         laps.lap("4-5b bench")
         phase_cli(bp, tmp)
         torch.cuda.empty_cache()
@@ -6289,6 +6366,22 @@ def main():
          "real_fields": {k: real[n][k] for k in (
              "ms", "plain_ms", "max_abs_err", "bound_ms", "bound_by",
              "max_window", "list_entries")}} for n in bp.KERNELS] + [
+        {"name": "zres", "route": "cuda",
+         "source": "drtvam_tpu_torch/csrc/zres.cu",
+         "replaces": REPLACES["zres"], "launches": bench["zres"],
+         "path": "optimize() on the bench scene, cylindrical vial (the main "
+                 "path): two renders and a pattern gradient a loop step, "
+                 "and the final render",
+         "tables": "the cylindrical bench engine's",
+         **{k: real["zres"]["forward"][k] for k in (
+             "shapes", "max_taps", "ms", "plain_ms", "bytes", "bound_ms",
+             "bound_by", "roofline_share", "bitwise_plain",
+             "bitwise_repeat")},
+         "adjoint": {k: real["zres"]["adjoint"][k] for k in (
+             "shapes", "max_taps", "ms", "plain_ms", "bytes", "bound_ms",
+             "bound_by", "roofline_share", "bitwise_plain",
+             "bitwise_repeat")},
+         "library_ms": None}] + [
         {"name": n, "route": "cuda",
          "source": f"drtvam_tpu_torch/csrc/{n}.cu + wf_trace.cuh",
          "replaces": REPLACES[n], "launches": wf_counts[n],

@@ -6,7 +6,9 @@ For a collimated projector orbiting a z-invariant vial the dose factors
 into per-angle 2D transport fields (ops/transport2d.py) and a
 z-resample of each pattern's rows onto the film's z-rows. The engine
 builds the fields once (host C++), packs them once on its device and
-then renders with the backprojection kernels (ops/backproject.py).
+then renders with the backprojection kernels (ops/backproject.py); on
+the card the z-resample is one gather kernel a direction
+(ops/zresample.py), bitwise its plain version `_tap_contract`.
 
 Kernel choice (`impl`), made once per engine, as the JAX package's
 `impl` ('xla' | 'pallas' | 'pallas_bf16' | 'pallas_band' |
@@ -45,6 +47,7 @@ import re
 import numpy as np
 import torch
 
+from . import zresample
 from .backproject import PackedFields, backproject, banded_eligible, \
     band_span_ok
 from .march import MarchStatic
@@ -53,7 +56,7 @@ from .transport2d import build_transport, build_z_resample, \
 from ..utils.spans import span
 
 __all__ = ["BallisticEngine", "ballistic_eligible", "default_impl",
-           "radon_active_ballistic"]
+           "radon_active_ballistic", "z_tap_tables"]
 
 
 def default_impl(device):
@@ -65,12 +68,40 @@ def default_impl(device):
     return "cuda"
 
 
+def z_tap_tables(Szn, K):
+    """Fixed-K tap tables of a (Zf, resy) binning matrix, both
+    directions: (zt_i, zt_w) (Zf, K) for the forward and (rt_i, rt_w)
+    (resy, K) for its transpose, int64 rows and float32 weights, each
+    row's taps in ascending order and padded with row 0 at weight 0. The
+    matrix has <= ~3 nonzeros per row and per column, so K weighted
+    gathers replace a dense contraction; None where a row or a column has
+    more than K (DMD rows much finer than the film): the caller then
+    contracts densely."""
+    Z, R = Szn.shape
+    if (np.count_nonzero(Szn, axis=1).max() > K or
+            np.count_nonzero(Szn, axis=0).max() > K):
+        return None
+    zt_i = np.zeros((Z, K), np.int64)
+    zt_w = np.zeros((Z, K), np.float32)
+    for z in range(Z):
+        nz = np.nonzero(Szn[z])[0]
+        zt_i[z, :nz.size] = nz
+        zt_w[z, :nz.size] = Szn[z, nz]
+    rt_i = np.zeros((R, K), np.int64)
+    rt_w = np.zeros((R, K), np.float32)
+    for r in range(R):
+        nz = np.nonzero(Szn[:, r])[0]
+        rt_i[r, :nz.size] = nz
+        rt_w[r, :nz.size] = Szn[nz, r]
+    return zt_i, zt_w, rt_i, rt_w
+
+
 class BallisticEngine:
     """Per-(scene, sensor) engine on one device. Construction rasterizes
     the 2D ray fan (host, once); `render_vol` and `pattern_grad` are
     functions of the sparse pattern vector on that device."""
 
-    _MAX_TAPS = 4
+    _MAX_TAPS = zresample.TAPS
 
     def __init__(self, static: MarchStatic, arr, device, impl=None,
                  unscattered=False, inside_mask=None):
@@ -164,38 +195,24 @@ class BallisticEngine:
     # -- z-resample as K-tap gathers ---------------------------------------
 
     def _build_z_taps(self, Szn):
-        """Fixed-K tap tables of the (Zf, resy) binning matrix, both
-        directions. It has <= ~3 nonzeros per row and per column, so K
-        weighted gathers replace a dense contraction; a matrix with more
-        taps (DMD rows much finer than the film) is contracted densely."""
-        Z, R = Szn.shape
-        K = self._MAX_TAPS
-        dev = self.device
-        if (np.count_nonzero(Szn, axis=1).max() > K or
-                np.count_nonzero(Szn, axis=0).max() > K):
+        """The tap tables of the (Zf, resy) binning matrix on the device
+        (`z_tap_tables`), or the dense matrix where they do not fit."""
+        taps = z_tap_tables(Szn, self._MAX_TAPS)
+        if taps is None:
             self.z_taps = None
-            self.Sz = torch.from_numpy(Szn).to(dev)
+            self.Sz = torch.from_numpy(Szn).to(self.device)
             return
-        zt_i = np.zeros((Z, K), np.int64)
-        zt_w = np.zeros((Z, K), np.float32)
-        for z in range(Z):
-            nz = np.nonzero(Szn[z])[0]
-            zt_i[z, :nz.size] = nz
-            zt_w[z, :nz.size] = Szn[z, nz]
-        rt_i = np.zeros((R, K), np.int64)
-        rt_w = np.zeros((R, K), np.float32)
-        for r in range(R):
-            nz = np.nonzero(Szn[:, r])[0]
-            rt_i[r, :nz.size] = nz
-            rt_w[r, :nz.size] = Szn[nz, r]
-        self.z_taps = tuple(torch.from_numpy(t).to(dev)
-                            for t in (zt_i, zt_w, rt_i, rt_w))
+        self.z_taps = tuple(torch.from_numpy(t).to(self.device)
+                            for t in taps)
 
     @span("resample", timed=False)
     def _resample_fwd(self, P):
-        """(A, resy, U) patterns -> (A, Zf, U)."""
+        """(A, resy, U) patterns -> (A, Zf, U). On the card one gather
+        kernel (ops/zresample.py), bitwise _tap_contract."""
         if self.z_taps is None:
             return torch.einsum("zr,aru->azu", self.Sz, P)
+        if P.is_cuda:
+            return zresample.resample(P, self.z_taps[:2], self.z_taps[2:])
         return self._tap_contract(P, self.z_taps[0], self.z_taps[1])
 
     @span("resample", timed=False)
@@ -203,6 +220,9 @@ class BallisticEngine:
         """(A, Zf, U) -> (A, resy, U), the transpose of _resample_fwd."""
         if self.z_taps is None:
             return torch.einsum("zr,azu->aru", self.Sz, Pz_bar)
+        if Pz_bar.is_cuda:
+            return zresample.resample(Pz_bar, self.z_taps[2:],
+                                      self.z_taps[:2])
         return self._tap_contract(Pz_bar, self.z_taps[2], self.z_taps[3])
 
     @staticmethod

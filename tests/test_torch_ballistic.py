@@ -20,6 +20,7 @@ from test_ballistic import VIALS
 from test_torch_scene import _vial
 from torch_threads import one_torch_thread  # noqa: F401
 from torch_jax_native import jax_native_libraries  # noqa: F401
+from z_taps import z_taps
 
 TOL = 1e-5
 
@@ -85,3 +86,30 @@ def test_adjoint_is_exact_transpose(tmp_path):
     _close(g, te.pattern_grad(v, inv_vol))
 
 
+@pytest.mark.parametrize("regular", [True, False])
+@pytest.mark.parametrize("resy, Z, pixel", [(400, 256, 0.025),
+                                            (400, 160, 0.025),
+                                            (160, 256, 0.0625)])
+def test_z_tap_tables_are_exact_transposes(resy, Z, pixel, regular):
+    """The forward's (Zf, K) and the adjoint's (R, K) tap tables hold the
+    binning matrix and its transpose entry for entry, so the resample's
+    adjoint (on the card the backward of the forward's gather) is the
+    forward's exact transpose: <fwd(x), y> == <x, bwd(y)> to float32
+    rounding. Regular and jittered sampling; Zf < R and Zf > R."""
+    zt_i, zt_w, rt_i, rt_w = z_taps(resy, Z, regular, pixel)
+    S = np.zeros((Z, resy), np.float32)
+    np.add.at(S, (np.arange(Z)[:, None], zt_i.numpy()), zt_w.numpy())
+    St = np.zeros((resy, Z), np.float32)
+    np.add.at(St, (np.arange(resy)[:, None], rt_i.numpy()), rt_w.numpy())
+    np.testing.assert_array_equal(St, S.T)
+    assert np.count_nonzero(S) >= max(resy, Z) // 2
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.uniform(-1.0, 1.0, (3, resy, 13))
+                         .astype(np.float32))
+    y = torch.from_numpy(rng.uniform(-1.0, 1.0, (3, Z, 13))
+                         .astype(np.float32))
+    fx = TEngine._tap_contract(x, zt_i, zt_w).double()
+    by = TEngine._tap_contract(y, rt_i, rt_w).double()
+    lhs, rhs = float((fx * y.double()).sum()), float((x.double() * by).sum())
+    scale = float((fx.abs() * y.double().abs()).sum())
+    assert abs(lhs - rhs) <= 4 * np.finfo(np.float32).eps * scale

@@ -3,8 +3,8 @@ backprojection kernels, their bf16 operand forms, the wavefront pair
 (wf_fwd, wf_bwd), the medium adjoint (wf_med), the residual pair
 (wf_res_fwd, wf_res_bwd), their target instantiations (a surface-aware
 film) and target forms (the residual's target path pass against the
-one-pass instantiation) and the culling renders (wf_radon, wf_corner).
-Free of
+one-pass instantiation), the culling renders (wf_radon, wf_corner) and
+the ballistic engine's z-resample (zres). Free of
 jax (the card's machine has none), so it runs there with
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -18,6 +18,8 @@ import torch
 
 from drtvam_tpu_torch.ops import backproject as bp
 from drtvam_tpu_torch.ops import render as wf
+
+from z_taps import z_taps
 
 TOL = 1e-5  # f32 sums in another order than the plain versions
 
@@ -767,3 +769,160 @@ def test_residual_target_path_equals_one_pass(tmp_path, cuda_device,
             assert float(r.abs().max()) > 0
             assert int(((o - r).abs() > WF_TOL * float(r.abs().max()))
                        .sum()) == 0
+
+
+# --------------------------------------------------------------------------
+# the z-resample (csrc/zres.cu)
+
+
+def _bits(t):
+    return t.cpu().contiguous().view(torch.int32).numpy()
+
+
+# (resy, Z, U, regular, pixel): the cells' tables at 7 angles and at their
+# 400; jittered with 4 taps a film row; U not a multiple of 4; Zf > R
+ZRES_CASES = {
+    "cells_regular": (400, 256, 400, True, 0.025, 7),
+    "cells_jittered": (400, 256, 400, False, 0.025, 7),
+    "cells_full_size": (400, 256, 400, False, 0.025, 400),
+    "four_taps_ragged_u": (400, 160, 397, False, 0.025, 5),
+    "zf_above_r": (160, 256, 400, False, 0.0625, 6),
+    "zf_above_r_regular_ragged_u": (160, 256, 398, True, 0.0625, 6),
+}
+
+
+@pytest.mark.parametrize("case", list(ZRES_CASES))
+def test_zres_kernels_are_tap_contract_bitwise(case, cuda_device):
+    """Both directions of the gather kernel == BallisticEngine._tap_contract
+    bit for bit (the same taps in the same order, each product and sum
+    rounded alone), on inputs with negatives and exact zeros; the
+    padding taps read row 0 at weight 0."""
+    from drtvam_tpu_torch.ops import zresample
+    from drtvam_tpu_torch.ops.ballistic import BallisticEngine
+    resy, Z, U, regular, pixel, A = ZRES_CASES[case]
+    taps = z_taps(resy, Z, regular, pixel)
+    zt_i, zt_w, rt_i, rt_w = taps
+    if not regular:
+        assert int((zt_w > 0).sum(1).max()) >= (4 if Z == 160 else 2)
+    rng = np.random.default_rng(3)
+    P = rng.uniform(-1.0, 1.0, (A, resy, U)).astype(np.float32)
+    P[rng.uniform(0.0, 1.0, P.shape) < 0.1] = 0.0
+    Pz_bar = rng.uniform(-1.0, 1.0, (A, Z, U)).astype(np.float32)
+    P, Pz_bar = torch.from_numpy(P), torch.from_numpy(Pz_bar)
+    dev = [t.to(cuda_device) for t in taps]
+    before = zresample.launches["zres"]
+    fwd = zresample.gather(P.to(cuda_device), dev[0], dev[1])
+    bwd = zresample.gather(Pz_bar.to(cuda_device), dev[2], dev[3])
+    torch.cuda.synchronize()
+    assert zresample.launches["zres"] == before + 2
+    ref_f = BallisticEngine._tap_contract(P, zt_i, zt_w)
+    ref_b = BallisticEngine._tap_contract(Pz_bar, rt_i, rt_w)
+    assert fwd.shape == (A, Z, U) and bwd.shape == (A, resy, U)
+    np.testing.assert_array_equal(_bits(fwd), _bits(ref_f))
+    np.testing.assert_array_equal(_bits(bwd), _bits(ref_b))
+
+
+def _ball_engines(tmp_path, device):
+    """A small ballistic scene (cylindrical vial, jittered sampling): the
+    engine on `device` and the plain one on the CPU."""
+    from drtvam_tpu_torch.models.scene import Scene
+    from drtvam_tpu_torch.ops.ballistic import BallisticEngine
+    from drtvam_tpu_torch.ops.mesh import make_box, save_ply
+    path = str(tmp_path / "t.ply")
+    save_ply(make_box((0.5, 0.5, 0.5)), path)
+    cfg = {
+        "vial": {"type": "cylindrical", "r_int": 2.3, "r_ext": 2.6,
+                 "ior": 1.54,
+                 "medium": {"ior": 1.40, "extinction": 0.1, "albedo": 0.0,
+                            "phase": {"type": "rayleigh"}}},
+        "projector": {"type": "collimated", "n_patterns": 23, "resx": 40,
+                      "resy": 16, "pixel_size": 0.1231,
+                      "motion": "circular", "distance": 20},
+        "sensor": {"type": "dda", "scalex": 5.07, "scaley": 5.07,
+                   "scalez": 1.29,
+                   "film": {"type": "vfilm", "resx": 40, "resy": 36,
+                            "resz": 20}},
+        "target": {"filename": path, "size": 4.0}, "output": str(tmp_path)}
+    scene = Scene(cfg)
+    static, arr = scene.build(mode="volume", max_depth=10, rr_depth=32,
+                              regular_sampling=False)
+    inv_vol = float(scene.sensor.inv_volume())
+    return (BallisticEngine(static, arr, device),
+            BallisticEngine(static, arr, "cpu"), inv_vol,
+            static.sensor.shape)
+
+
+def test_render_vol_gradient_on_the_card(tmp_path, cuda_device):
+    """Autograd through render_vol on the card (Backproject's and the
+    resample's backward kernels) gives the plain route's gradient, and
+    bitwise the engine's own pattern_grad on the card."""
+    eng, plain, inv_vol, shape = _ball_engines(tmp_path, cuda_device)
+    assert eng.z_taps is not None
+    rng = np.random.default_rng(4)
+    p = torch.from_numpy(rng.uniform(0.5, 1.5, eng.n_active)
+                         .astype(np.float32))
+    v = torch.from_numpy(rng.uniform(0.0, 1.0, shape).astype(np.float32))
+    pc = p.to(cuda_device).requires_grad_(True)
+    vc = v.to(cuda_device)
+    (g,) = torch.autograd.grad(eng.render_vol(pc, inv_vol), pc, vc)
+    pg = p.clone().requires_grad_(True)
+    (g_plain,) = torch.autograd.grad(plain.render_vol(pg, inv_vol), pg, v)
+    assert float(g_plain.abs().max()) > 0
+    _close(g, g_plain)
+    with torch.no_grad():
+        np.testing.assert_array_equal(_bits(g),
+                                      _bits(eng.pattern_grad(vc, inv_vol)))
+
+
+def test_cuda_engine_never_takes_tap_contract(tmp_path, cuda_device,
+                                              monkeypatch):
+    from drtvam_tpu_torch.ops.ballistic import BallisticEngine
+    eng, _, inv_vol, shape = _ball_engines(tmp_path, cuda_device)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached _tap_contract")
+
+    monkeypatch.setattr(BallisticEngine, "_tap_contract",
+                        staticmethod(refuse))
+    data = torch.ones(eng.n_active, device=cuda_device, requires_grad=True)
+    vol = eng.render_vol(data, inv_vol)
+    (g,) = torch.autograd.grad(vol.sum(), data)
+    with torch.no_grad():
+        g2 = eng.pattern_grad(torch.ones(shape, device=cuda_device),
+                              inv_vol)
+    torch.cuda.synchronize()
+    assert float(g.abs().sum()) > 0 and float(g2.abs().sum()) > 0
+
+
+def test_resample_launches_three_a_step(tmp_path, cuda_device):
+    """optimize() on the card: one resample launch for each render and
+    one for each pattern gradient, so three a step (the primal render,
+    the direction render, the adjoint), and one for the final render;
+    `launches` and the recorder's `resample_launches` agree."""
+    from drtvam_tpu_torch.opt import optimize as opt
+    from drtvam_tpu_torch.ops import zresample
+    from drtvam_tpu_torch.ops.mesh import make_box_with_hole, save_ply
+    save_ply(make_box_with_hole((2.0, 2.0, 0.5), 1.0,
+                                hole_center_xy=(-1.0, 0.0)),
+             str(tmp_path / "box_hole.ply"))
+    cfg = {
+        "vial": {"type": "cylindrical", "r_int": 7, "r_ext": 8, "ior": 1.54,
+                 "medium": {"ior": 1.40, "phase": {"type": "rayleigh"},
+                            "extinction": 0.1, "albedo": 0.0}},
+        "projector": {"type": "collimated", "n_patterns": 30, "resx": 48,
+                      "resy": 12, "pixel_size": 0.104,
+                      "motion": "circular", "distance": 20},
+        "sensor": {"type": "dda", "scalex": 5, "scaley": 5, "scalez": 1.25,
+                   "film": {"type": "vfilm", "resx": 40, "resy": 40,
+                            "resz": 20}},
+        "target": {"filename": "box_hole.ply", "size": 4.0},
+        "loss": {"type": "threshold", "tl": 0.85, "tu": 0.95},
+        "n_steps": 3, "output": str(tmp_path / "out")}
+    before = zresample.launches["zres"]
+    t = {}
+    opt.optimize(cfg, resolve_path=opt.make_resolver(str(tmp_path)),
+                 device="cuda", timings=t)
+    loss = np.load(tmp_path / "out" / "loss.npy")
+    assert np.all(loss[:3] > 0.0)  # no step converged
+    assert zresample.launches["zres"] - before == 3 * 3 + 1
+    assert t["resample_launches"] == 3 * 3 + 1
